@@ -7,7 +7,8 @@ Each phase prints one JSON line; any failure exits non-zero and the
 result lines are not printed.
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name/count.
-2. build: ``csrc/fused_dissem.cu`` with nvcc for sm_90a (ptxas report).
+2. build: ``csrc/fused_dissem.cu`` and ``csrc/fused_merge.cu`` with nvcc
+   for sm_90a, both at once (ptxas report).
 3. kernel: the Hopper dissemination kernel against its plain torch
    version on the card, adversarial bytes at [64, 1M] and [8, 1M],
    offsets including 1 and N-1; byte-identical results required; kernel
@@ -15,16 +16,28 @@ result lines are not printed.
    the bound: the larger of the bytes over the memory rate and the
    per-byte rule's operations, packed four bytes to a 32-bit word, over
    the CUDA cores' 32-bit integer rate.
-4. full_path: ``run_rounds`` at n=16,000, S=64 (lan_profile, churn,
+4. merge_kernel: the sharded round's merge kernel (``fused_merge``)
+   against ``merge_ref`` in the same way, at one shard of 1M on 8 shards,
+   [64, 125,000] and [8, 125,000], fanout 3.
+5. full_path: ``run_rounds`` at n=16,000, S=64 (lan_profile, churn,
    loss, joins, flight ring, hist banks, trace) once on the card and
    once on the CPU; every field of the carry and the trace must be
    bit-identical.
-5. main_path: ``lan_profile(1_000_000, slots=64, hot_slots=0)`` with
+6. sharded_full_path: the same run through ``run_rounds_sharded(ndev=8)``
+   on the card; every field must equal the card run of phase 5; merge
+   launches = 8 x the non-quiescent rounds, none of fused_dissem; both the
+   hot and the full tail must run.
+7. main_path: ``lan_profile(1_000_000, slots=64, hot_slots=0)`` with
    bench.py's churn1000ppm failure stride — warm-up, timed blocks each
    ending in a device->host read; rounds/s, kernel launches (must equal
    the non-quiescent rounds), host syncs per round, peak device memory;
-   ``n_detected > 0`` and ``n_false_dead == 0`` required.  Then the
-   healthy regime (no churn) for rounds/s.
+   ``n_detected > 0`` and ``n_false_dead == 0`` required.
+8. sharded_main_path: the same churn run through
+   ``run_rounds_sharded(ndev=8)``: rounds/s, merge launches (= 8 x the
+   non-quiescent rounds), host syncs per round (equal to phase 7's), peak
+   device memory; the final state, unsharded, must equal phase 7's field
+   by field.  Then the healthy regime (no churn, single-device) for
+   rounds/s.
 
 Then the kernels line and, last, the ok line.  Needs one CUDA card:
 without one it exits 2 before printing anything else.  Imports nothing
@@ -38,6 +51,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -89,14 +103,20 @@ def card() -> str:
     return line
 
 
+KERNELS = ("fused_dissem", "fused_merge")
+
+
 def build() -> None:
+    """Every kernel of the port, one nvcc each, all started together."""
     from consul_tpu_torch import _build
     t0 = time.perf_counter()
-    so = _build.build("fused_dissem")
-    log = _build.build_logs.get("fused_dissem", "(already built)")
-    for ln in log.strip().splitlines():
-        print(f"  nvcc: {ln}", flush=True)
-    emit({"phase": "build", "library": so.name,
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = list(pool.map(_build.build, KERNELS))
+    for name in KERNELS:
+        log = _build.build_logs.get(name, "(already built)")
+        for ln in log.strip().splitlines():
+            print(f"  nvcc {name}: {ln}", flush=True)
+    emit({"phase": "build", "libraries": [so.name for so in libs],
           "seconds": time.perf_counter() - t0})
 
 
@@ -171,31 +191,121 @@ def kernel_vs_plain(S: int, N: int, seed: int) -> dict:
     return res
 
 
-def _run(p, fail, join, member0, steps, seed, dev):
-    from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import kernel
-
-    st = kernel.init_state(p, device=dev)
-    st = st._replace(member=torch.from_numpy(member0).to(dev))
-    return kernel.run_rounds(
-        st, prng.key(seed), fail, p, steps, trace=True, join_round=join,
-        flight=kernel.init_flight(device=dev), hist=kernel.init_hist(device=dev),
-        device=dev)
-
-
-def full_path(n: int = 16_000, S: int = 64, steps: int = 300,
-              seed: int = 11) -> None:
+def merge_vs_plain(S: int, L: int, seed: int, F: int = 3) -> dict:
+    """fused_merge against merge_ref on the card: one shard's inputs."""
     from consul_tpu_torch.gossip import fused
     from consul_tpu_torch.gossip.params import lan_profile
 
-    p = lan_profile(n, slots=S, dissem="fused", loss_rate=0.01)
+    p = lan_profile(8 * L, slots=S)
+    rnd = 50
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cur = torch.randint(0, 256, (S, L), generator=g, device="cuda",
+                        dtype=torch.uint8)
+    pins = torch.randint(0, 256, (F, S, L), generator=g, device="cuda",
+                         dtype=torch.uint8)
+    # Senders dead, alive and non-member, per leg and column.
+    choices = torch.tensor([-1, 10, 200, NEVER], dtype=torch.int32,
+                           device="cuda")
+    src = choices[torch.randint(0, 4, (F, L), generator=g,
+                                device="cuda")] > rnd
+    rx = torch.rand(L, generator=g, device="cuda") < 0.9
+    cap = torch.randint(0, 4, (S,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    budget = p.spread_budget_rounds
+
+    def kern():
+        return fused.fused_merge(cur, pins, src, rx, cap, budget)
+
+    def plain():
+        return fused.merge_ref(p, cur, pins, src, rx, cap)
+
+    out_k, out_p = kern(), plain()
+    torch.cuda.synchronize()
+    err = int((out_k.to(torch.int32) - out_p.to(torch.int32)).abs().max())
+    if err != 0:
+        n_bad = int((out_k != out_p).sum())
+        raise AssertionError(f"merge kernel != plain at [{S}, {L}]: {n_bad} "
+                             f"bytes differ, max abs err {err}")
+    ms = cuda_ms(kern, 500)
+    plain_ms = cuda_ms(plain, 10, warm=1)
+    # The least the function must move: cur and the F pins read once, out
+    # written once, src and rx (1 byte each) and cap (int32) read once.
+    nbytes = (2 + F) * S * L + F * L + L + 4 * S
+    # The per-byte rule's operations (the count of kernel_vs_plain, without
+    # the sender-liveness compares, which arrive here as src).
+    nops = S * L * (32 + 18 * F)
+    word_ops = nops // 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = word_ops / INT32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    res = {"phase": "merge_kernel", "shape": [S, L], "fanout": F,
+           "tolerance": 0, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bytes": nbytes, "bytes_ms": bytes_ms,
+           "byte_operations": nops, "word_operations": word_ops,
+           "operations_ms": ops_ms, "int32_ops_per_s": INT32_OPS_PER_S,
+           "bound_ms": bound_ms,
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "share_of_bound": bound_ms / ms, "library_ms": None}
+    emit(res)
+    return res
+
+
+def _reset_counts() -> None:
+    """Every kernel launch count and round counter to 0."""
+    from consul_tpu_torch.gossip import fused, kernel
+    fused.launches = 0
+    fused.merge_launches = 0
+    kernel.host_syncs = 0
+    for k in kernel.tail_rounds:
+        kernel.tail_rounds[k] = 0
+
+
+def _full_path_inputs(n: int, steps: int, seed: int):
     rng = np.random.default_rng(seed)
     ids = rng.permutation(n)
     fail = np.full(n, NEVER, np.int32)
     fail[ids[:48]] = rng.integers(0, steps // 2, 48)
     join = np.full(n, NEVER, np.int32)
     join[ids[48:72]] = rng.integers(1, steps // 2, 24)
-    member0 = join == NEVER
+    return fail, join, join == NEVER
+
+
+def _run(p, fail, join, member0, steps, seed, dev, ndev=None):
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import kernel
+
+    st = kernel.init_state(p, device=dev)
+    st = st._replace(member=torch.from_numpy(member0).to(dev))
+    kw = dict(trace=True, join_round=join,
+              flight=kernel.init_flight(device=dev),
+              hist=kernel.init_hist(device=dev), device=dev)
+    if ndev is None:
+        return kernel.run_rounds(st, prng.key(seed), fail, p, steps, **kw)
+    return kernel.run_rounds_sharded(st, prng.key(seed), fail, p, steps,
+                                     ndev=ndev, **kw)
+
+
+def _diverged(pairs) -> list:
+    from consul_tpu_torch.gossip import kernel
+    out = []
+    for a, b in pairs:
+        if isinstance(a, kernel.SwimState):
+            a, b = kernel.unshard_state(a), kernel.unshard_state(b)
+        for f in a._fields:
+            x, y = getattr(a, f).cpu(), getattr(b, f).cpu()
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                out.append(f"{type(a).__name__}.{f}")
+    return out
+
+
+def full_path(n: int = 16_000, S: int = 64, steps: int = 300,
+              seed: int = 11):
+    """Returns the card run's (carry, trace) for sharded_full_path."""
+    from consul_tpu_torch.gossip import fused
+    from consul_tpu_torch.gossip.params import lan_profile
+
+    p = lan_profile(n, slots=S, dissem="fused", loss_rate=0.01)
+    fail, join, member0 = _full_path_inputs(n, steps, seed)
 
     launches0 = fused.launches
     t0 = time.perf_counter()
@@ -209,12 +319,8 @@ def full_path(n: int = 16_000, S: int = 64, steps: int = 300,
                                     "cpu")
     t_cpu = time.perf_counter() - t0
 
-    diverged = []
-    for a, b in ((st_g, st_c), (fl_g, fl_c), (hb_g, hb_c), (tr_g, tr_c)):
-        for f in a._fields:
-            x, y = getattr(a, f).cpu(), getattr(b, f)
-            if x.dtype != y.dtype or not torch.equal(x, y):
-                diverged.append(f"{type(a).__name__}.{f}")
+    diverged = _diverged(((st_g, st_c), (fl_g, fl_c), (hb_g, hb_c),
+                          (tr_g, tr_c)))
     emit({"phase": "full_path", "n": n, "slots": S, "steps": steps,
           "kernel_launches": launches, "cuda_s": t_gpu, "cpu_s": t_cpu,
           "n_detected": int(st_c.n_detected),
@@ -224,11 +330,48 @@ def full_path(n: int = 16_000, S: int = 64, steps: int = 300,
         raise AssertionError(f"card and CPU runs diverged in {diverged}")
     if launches == 0 or int(st_c.n_detected) == 0:
         raise AssertionError("the full-path run exercised no dissemination")
+    return (st_g, fl_g, hb_g), tr_g
+
+
+def sharded_full_path(single, n: int = 16_000, S: int = 64,
+                      steps: int = 300, seed: int = 11,
+                      ndev: int = 8) -> None:
+    """full_path's run through run_rounds_sharded on the card, held
+    against full_path's card run (``single``)."""
+    from consul_tpu_torch.gossip import fused, kernel
+    from consul_tpu_torch.gossip.params import lan_profile
+
+    p = lan_profile(n, slots=S, dissem="fused", loss_rate=0.01)
+    fail, join, member0 = _full_path_inputs(n, steps, seed)
+    _reset_counts()
+    t0 = time.perf_counter()
+    carry, tr = _run(p, fail, join, member0, steps, seed, "cuda", ndev)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    merges, dissems = fused.merge_launches, fused.launches
+    tails = dict(kernel.tail_rounds)
+    (st_1, fl_1, hb_1), tr_1 = single
+    diverged = _diverged(list(zip((st_1, fl_1, hb_1), carry)) + [(tr_1, tr)])
+    emit({"phase": "sharded_full_path", "n": n, "slots": S, "steps": steps,
+          "ndev": ndev, "merge_launches": merges,
+          "dissem_launches": dissems, "tail_rounds": tails,
+          "cuda_s": t_gpu, "n_detected": int(carry[0].n_detected),
+          "diverged": diverged})
+    if diverged:
+        raise AssertionError(f"sharded and single-device card runs "
+                             f"diverged in {diverged}")
+    if merges != ndev * (tails["hot"] + tails["full"]) or dissems != 0:
+        raise AssertionError("merge launches != ndev x non-quiescent rounds "
+                             "(or fused_dissem ran)")
+    if tails["hot"] == 0 or tails["full"] == 0:
+        raise AssertionError(f"both tails must run: {tails}")
 
 
 def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
-              blocks: int) -> dict:
-    """bench.py's LAN regime on the port: rounds/s over timed blocks."""
+              blocks: int, ndev: int | None = None):
+    """bench.py's LAN regime on the port: rounds/s over timed blocks;
+    through run_rounds_sharded when ``ndev`` is given.  Returns the
+    result line and the final state."""
     from consul_tpu_torch import prng
     from consul_tpu_torch.gossip import fused, kernel
     from consul_tpu_torch.gossip.params import lan_profile
@@ -245,38 +388,57 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
     fail_t = torch.from_numpy(fail).cuda()
     key = prng.key(42)
 
+    def rounds(state, steps):
+        if ndev is None:
+            return kernel.run_rounds(state, key, fail_t, p, steps)[0]
+        return kernel.run_rounds_sharded(state, key, fail_t, p, steps,
+                                         ndev=ndev)[0]
+
     torch.cuda.reset_peak_memory_stats()
-    fused.launches = 0
-    kernel.host_syncs = 0
-    for k in kernel.tail_rounds:
-        kernel.tail_rounds[k] = 0
+    _reset_counts()
     state = kernel.init_state(p)
     t0 = time.perf_counter()
-    state, _ = kernel.run_rounds(state, key, fail_t, p, warm)
+    state = rounds(state, warm)
     int(state.round)
     warm_s = time.perf_counter() - t0
     times = []
     for _ in range(blocks):
         t0 = time.perf_counter()
-        state, _ = kernel.run_rounds(state, key, fail_t, p, block)
+        state = rounds(state, block)
         int(state.round)
         times.append(time.perf_counter() - t0)
     tails = dict(kernel.tail_rounds)
-    res = {"phase": "main_path", "n": n, "slots": S, "churn_ppm": churn_ppm,
+    res = {"phase": "main_path" if ndev is None else "sharded_main_path",
+           "n": n, "slots": S, "churn_ppm": churn_ppm, "ndev": ndev,
            "rounds": total, "warmup_s": warm_s, "block_rounds": block,
            "block_s": times,
            "rounds_per_s_mean": block * blocks / sum(times),
            "rounds_per_s_best_block": block / min(times),
-           "kernel_launches": fused.launches, "tail_rounds": tails,
+           "kernel_launches": fused.launches,
+           "merge_launches": fused.merge_launches, "tail_rounds": tails,
            "host_syncs_per_round": kernel.host_syncs / total,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "n_detected": int(state.n_detected),
            "n_false_dead": int(state.n_false_dead),
            "drops": int(state.drops)}
     emit(res)
-    if fused.launches != tails["hot"] + tails["full"]:
+    busy = tails["hot"] + tails["full"]
+    if ndev is None and fused.launches != busy:
         raise AssertionError("kernel launches != non-quiescent rounds")
-    return res
+    if ndev is not None and (fused.merge_launches != ndev * busy
+                             or fused.launches != 0):
+        raise AssertionError("merge launches != ndev x non-quiescent rounds "
+                             "(or fused_dissem ran)")
+    return res, state
+
+
+def _churn_gates(res: dict, launches_key: str) -> None:
+    if res["n_detected"] <= 0 or res["n_false_dead"] != 0:
+        raise AssertionError(
+            f"{res['phase']}: n_detected={res['n_detected']} "
+            f"n_false_dead={res['n_false_dead']}")
+    if res[launches_key] <= 0:
+        raise AssertionError(f"{res['phase']} launched no kernel")
 
 
 def main() -> int:
@@ -294,14 +456,28 @@ def main() -> int:
         build()
         big = kernel_vs_plain(64, 1_000_000, seed=1)
         kernel_vs_plain(8, 1_000_000, seed=2)
-        full_path()
-        churn = main_path(1_000_000, 64, 1000, warm=50, block=100, blocks=3)
-        if churn["n_detected"] <= 0 or churn["n_false_dead"] != 0:
-            raise AssertionError(
-                f"churn regime: n_detected={churn['n_detected']} "
-                f"n_false_dead={churn['n_false_dead']}")
-        if churn["kernel_launches"] <= 0:
-            raise AssertionError("the main path launched no kernel")
+        mbig = merge_vs_plain(64, 125_000, seed=3)
+        merge_vs_plain(8, 125_000, seed=4)
+        single = full_path()
+        sharded_full_path(single)
+        del single
+        churn, churn_state = main_path(1_000_000, 64, 1000, warm=50,
+                                       block=100, blocks=3)
+        _churn_gates(churn, "kernel_launches")
+        sharded, sharded_state = main_path(1_000_000, 64, 1000, warm=50,
+                                           block=100, blocks=3, ndev=8)
+        _churn_gates(sharded, "merge_launches")
+        if sharded["host_syncs_per_round"] != churn["host_syncs_per_round"]:
+            raise AssertionError("the sharded round reads the device more "
+                                 "often than the single-device round")
+        diverged = _diverged([(churn_state, sharded_state)])
+        emit({"phase": "sharded_main_path_parity", "diverged": diverged,
+              "rounds_per_s_mean": {"single": churn["rounds_per_s_mean"],
+                                    "sharded": sharded["rounds_per_s_mean"]}})
+        if diverged:
+            raise AssertionError(f"sharded and single-device 1M churn runs "
+                                 f"diverged in {diverged}")
+        del churn_state, sharded_state
         main_path(1_000_000, 64, 0, warm=20, block=100, blocks=3)
     except Exception:
         traceback.print_exc()
@@ -313,7 +489,14 @@ def main() -> int:
         "launches": churn["kernel_launches"],
         "max_abs_err": big["max_abs_err"], "ms": big["ms"],
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-        "bound_by": big["bound_by"], "library_ms": None}]})
+        "bound_by": big["bound_by"], "library_ms": None}, {
+        "name": "fused_merge", "route": "cuda",
+        "source": "consul_tpu_torch/csrc/fused_merge.cu",
+        "replaces": "consul_tpu/gossip/fused.py:199",
+        "launches": sharded["merge_launches"],
+        "max_abs_err": mbig["max_abs_err"], "ms": mbig["ms"],
+        "plain_ms": mbig["plain_ms"], "bound_ms": mbig["bound_ms"],
+        "bound_by": mbig["bound_by"], "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled, at
 first use, into ``build/lib<name>-<hash>.so`` at the root of the
-checkout (the hash covers the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded).  This is the build
+checkout (the hash covers the source, every header under ``csrc/`` and
+the flags, so an edited source or header is rebuilt and a stale library
+is never loaded).  This is the build
 route with no PyTorch headers: seconds per kernel, against minutes for
 ``torch.utils.cpp_extension.load``.  Nothing here runs when the package
 is imported — only when a wrapper first launches a kernel on a CUDA
@@ -45,10 +46,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")) + sorted(CSRC.glob("*.h")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

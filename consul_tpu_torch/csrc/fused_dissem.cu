@@ -25,13 +25,16 @@
 // prefetch, because Mosaic could not copy at an arbitrary offset.  Here a
 // thread loads column (c - o_f) mod N directly.
 //
-// Bound: memory.  At S = 64, N = 1,000,000 the function must read the
-// 64 MB matrix and write 64 MB, plus about 5 MB of [N] vectors (mf, rx):
-// ~133 MB, ~40 us at 3.35 TB/s.  The rule is a few dozen integer
-// operations per byte.  This kernel spends them one byte per 32-bit
-// lane, so on the card its integer issue rate, not memory, limits it:
-// it measured ~8x its bound at S = 64, N = 1M (PERF.md).  Four bytes to
-// a 32-bit word (the reference's SWAR form) is the lever for that.
+// Bound: operations.  At S = 64, N = 1,000,000 the function must read
+// the 64 MB matrix and write 64 MB, plus about 5 MB of [N] vectors (mf,
+// rx): ~133 MB, 0.040 ms at 3.35 TB/s.  The per-byte rule is 86 integer
+// operations at fanout 3; packed four bytes to a 32-bit word they take
+// 0.082 ms at the CUDA cores' INT32 rate (67e12 / 4 ops/s), so the
+// operations, not memory, bound it.  This kernel spends them one byte
+// per 32-bit lane and measured 0.322 ms, a share of 0.255 of that bound
+// (about 4x; PERF.md, chip_smoke.py on an H100 80GB HBM3 at 700 W).
+// Four bytes to a 32-bit word (the reference's SWAR form) is the lever.
+// The per-byte rule lives in belief_merge.cuh, shared with fused_merge.cu.
 //
 // Design (simple and right first).  A block owns a tile of
 // kThreads * kCols columns and the kRows rows of one row group; thread t
@@ -51,6 +54,8 @@
 
 #include <cstdint>
 
+#include "belief_merge.cuh"
+
 namespace {
 
 constexpr int kMaxFanout = 8;
@@ -61,14 +66,6 @@ constexpr int kThreads = 256;
 struct Offsets {
   int o[kMaxFanout];         // circulant shifts, each in [0, N)
 };
-
-// One round of aging on a belief byte held in an int.
-__device__ __forceinline__ int age_byte(int x) {
-  if ((x >> 6) == 0) return x;
-  const int age = x & 0xF;
-  const int aged = age == 0xF ? 0 : min(age + 1, 14);
-  return (x & 0xF0) | aged;
-}
 
 template <int F>
 __global__ void __launch_bounds__(kThreads)
@@ -115,24 +112,11 @@ fused_dissem_kernel(const uint8_t* __restrict__ heard,
       int n_sus = 0;
 #pragma unroll
       for (int f = 0; f < F; ++f) {
-        const int pin = age_byte(row[src[f][j]]);
-        const int m = ((pin & 0xF) < budget && src_live[f][j]) ? pin >> 6 : 0;
-        in_msg = max(in_msg, m);
-        n_sus += m == 1;
+        take_pin(age_byte(row[src[f][j]]), src_live[f][j], budget, in_msg,
+                 n_sus);
       }
       const int c = col[j];
-      const int cur = age_byte(row[c]);
-      const int cur_msg = cur >> 6;
-      const int conf = (cur >> 4) & 0x3;
-      const bool upgraded = in_msg > cur_msg && rxm[j];
-      const bool bump = cur_msg == 1 && in_msg == 1 && rxm[j];
-      const int conf_new = bump ? min(conf + n_sus, cp) : conf;
-      const bool conf_rose = conf_new > conf;
-      const int out_msg = upgraded ? in_msg : cur_msg;
-      const int out_age = (upgraded || conf_rose) ? 0 : (cur & 0xF);
-      const int out_conf = upgraded ? 0 : conf_new;
-      orow[c] = static_cast<uint8_t>((out_msg << 6) | (out_conf << 4)
-                                     | out_age);
+      orow[c] = merge_byte(age_byte(row[c]), in_msg, n_sus, rxm[j], cp);
     }
   }
 }

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from consul_tpu_torch._device import resolve_device
-from consul_tpu_torch.gossip.kernel import FlightRing, HistBank, SwimState
+from consul_tpu_torch.gossip.kernel import (FlightRing, HistBank, SwimState,
+                                            unshard_state)
 
 _TYPES = (SwimState, FlightRing, HistBank)
 
@@ -32,7 +33,10 @@ def state_from_numpy(arrays: dict, device=None):
 
 
 def state_to_numpy(state) -> dict:
-    """The inverse of ``state_from_numpy``: field name -> numpy array."""
+    """The inverse of ``state_from_numpy``: field name -> numpy array.
+    A sharded ``SwimState`` is unsharded first (``heard`` as [S, N])."""
+    if isinstance(state, SwimState):
+        state = unshard_state(state)
     return {f: getattr(state, f).cpu().numpy() for f in state._fields}
 
 

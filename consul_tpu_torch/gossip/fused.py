@@ -1,5 +1,5 @@
-"""The round's dense dissemination tail: the Hopper kernel and its plain
-torch version.
+"""The round's dense dissemination tail: the Hopper kernels and their
+plain torch versions.
 
 The reference runs this tail as one Pallas pass over the belief matrix
 (``consul_tpu/gossip/fused.py::_fused_single``): age, ``fanout``
@@ -9,11 +9,19 @@ is the hand-written CUDA kernel ``csrc/fused_dissem.cu`` (its header
 states what it computes, its bound and its design), wrapped here by
 ``fused_dissem``.
 
-``disseminate_ref`` is the same function in plain torch, per byte on
-int32 lanes with ``torch.roll`` for the pins, exactly as the reference's
-``_age_u8``/``_merge`` spell it.  ``disseminate`` — what the round calls
-— takes the plain version only for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises.  There is no fallback.
+Sharded (``sc`` set, the reference's ``_fused_sharded``): the pins cross
+shard boundaries, so the halo hop (``kernel._roll_sharded``) rolls them
+first into ``[fanout, S, L]`` per shard, and a second kernel,
+``csrc/fused_merge.cu`` (wrapper ``fused_merge``), applies the same age,
+budget mask, priority-max merge and confirmation count elementwise to
+one shard.  Both kernels take the per-byte rule from
+``csrc/belief_merge.cuh``.
+
+``disseminate_ref`` and ``merge_ref`` are the same functions in plain
+torch, per byte on int32 lanes, exactly as the reference's
+``_age_u8``/``_merge`` spell them.  ``disseminate`` — what the round
+calls — takes the plain versions only for CPU tensors; for CUDA tensors
+it launches the kernels or raises.  There is no fallback.
 """
 
 from __future__ import annotations
@@ -25,14 +33,18 @@ import torch
 
 from consul_tpu_torch.gossip.kernel import (_AGE_FRESH, _AGE_MASK,
                                             _CONF_MASK, _CONF_SHIFT,
-                                            _MSG_SHIFT, MSG_SUSPECT)
+                                            _MSG_SHIFT, MSG_SUSPECT,
+                                            _roll_sharded, _sloc,
+                                            _sloc_roll)
 from consul_tpu_torch.gossip.params import SwimParams
 from consul_tpu_torch.ops.divisibility import require_divisible
 
-MAX_FANOUT = 8  # csrc/fused_dissem.cu kMaxFanout
+MAX_FANOUT = 8  # kMaxFanout of csrc/fused_dissem.cu and csrc/fused_merge.cu
 
 # Kernel launches made by ``fused_dissem`` (one per launch, nowhere else).
 launches = 0
+# Kernel launches made by ``fused_merge`` (one per launch, nowhere else).
+merge_launches = 0
 
 
 def _age_u8(x: torch.Tensor) -> torch.Tensor:
@@ -88,17 +100,70 @@ def disseminate_ref(p: SwimParams, rnd: int, offs, heard: torch.Tensor,
     return out.to(torch.uint8)
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
+def merge_ref(p: SwimParams, cur: torch.Tensor, pins: torch.Tensor,
+              src: torch.Tensor, rx: torch.Tensor,
+              cap: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of ``fused_merge``, on any device: the
+    reference's ``_fused_sharded`` body on one shard.  ``cur`` u8
+    [S, L]; ``pins`` u8 [F, S, L], aligned with ``cur``; ``src`` bool
+    [F, L], the live senders of each leg; ``rx`` bool [L]; ``cap`` i32
+    [S]."""
+    out = _merge(p, _age_u8(cur.to(torch.int32)),
+                 [_age_u8(pin.to(torch.int32)) for pin in pins],
+                 [s[None, :] for s in src], rx[None, :],
+                 cap.to(torch.int32)[:, None])
+    return out.to(torch.uint8)
+
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {  # C entry point -> its argument types (pointers, ints, stream)
+    "fused_dissem": [_VP] * 5 + [_CI] * 3 + [ctypes.POINTER(_CI)]
+                    + [_CI] * 2 + [_VP],
+    "fused_merge": [_VP] * 6 + [_CI] * 4 + [_VP],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu``, built and loaded, with its entry point
+    ``<name>`` and its error-string function ``<name>_error`` typed."""
     from consul_tpu_torch import _build
-    lib = _build.load("fused_dissem")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_dissem.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                 ctypes.POINTER(ci), ci, ci, vp]
-    lib.fused_dissem.restype = ci
-    lib.fused_dissem_error.argtypes = [ci]
-    lib.fused_dissem_error.restype = ctypes.c_char_p
+    lib = _build.load(name)
+    fn, err = getattr(lib, name), getattr(lib, f"{name}_error")
+    fn.argtypes, fn.restype = _ARGTYPES[name], _CI
+    err.argtypes, err.restype = [_CI], ctypes.c_char_p
     return lib
+
+
+def _launch(name: str, *args) -> None:
+    """Call ``<name>`` on the current stream of the current device;
+    raise if the launch was refused."""
+    lib = _lib(name)
+    rc = getattr(lib, name)(*args,
+                            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{getattr(lib, name + '_error')(rc).decode()}")
+
+
+def _require_cuda(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} launches on a CUDA tensor, got {t.device}")
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    on ``device``."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {dtype}{list(shape)} on {device}, "
+                         f"got {t.dtype}{list(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_fanout(F: int) -> None:
+    if not 1 <= F <= MAX_FANOUT:
+        raise ValueError(f"fanout must be in [1, {MAX_FANOUT}], got {F}")
 
 
 def fused_dissem(heard: torch.Tensor, offs, mf: torch.Tensor,
@@ -108,51 +173,95 @@ def fused_dissem(heard: torch.Tensor, offs, mf: torch.Tensor,
     ``[S, N]`` u8 tensor.  Launches on the current stream and does not
     synchronise.  Raises on anything the kernel does not take."""
     global launches
-    if heard.device.type != "cuda":
-        raise ValueError(f"fused_dissem launches on a CUDA tensor, got "
-                         f"{heard.device}")
+    _require_cuda("fused_dissem", heard)
     if heard.dim() != 2 or heard.dtype != torch.uint8:
         raise ValueError(f"heard must be u8 [S, N], got {heard.dtype}"
                          f"{list(heard.shape)}")
     S, N = heard.shape
-    for name, t, dtype, shape in (("mf", mf, torch.int32, (N,)),
-                                  ("rx_ok", rx_ok, torch.bool, (N,)),
-                                  ("conf_cap", conf_cap, torch.int32, (S,))):
-        if t.device != heard.device or t.dtype != dtype or \
-                tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {dtype}{list(shape)} on "
-                             f"{heard.device}, got {t.dtype}"
-                             f"{list(t.shape)} on {t.device}")
-    for name, t in (("heard", heard), ("mf", mf), ("rx_ok", rx_ok),
-                    ("conf_cap", conf_cap)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if not 1 <= len(offs) <= MAX_FANOUT:
-        raise ValueError(f"fanout must be in [1, {MAX_FANOUT}], "
-                         f"got {len(offs)}")
+    dev = heard.device
+    _check("heard", heard, torch.uint8, (S, N), dev)
+    _check("mf", mf, torch.int32, (N,), dev)
+    _check("rx_ok", rx_ok, torch.bool, (N,), dev)
+    _check("conf_cap", conf_cap, torch.int32, (S,), dev)
+    _check_fanout(len(offs))
     out = torch.empty_like(heard)
     if heard.numel() == 0:
         return out
-    lib = _lib()
     c_offs = (ctypes.c_int * len(offs))(*(int(o) % N for o in offs))
-    with torch.cuda.device(heard.device):
-        stream = torch.cuda.current_stream(heard.device).cuda_stream
-        rc = lib.fused_dissem(heard.data_ptr(), out.data_ptr(),
-                              mf.data_ptr(), rx_ok.data_ptr(),
-                              conf_cap.data_ptr(), S, N, len(offs), c_offs,
-                              int(rnd), int(budget), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_dissem launch failed: "
-                           f"{lib.fused_dissem_error(rc).decode()}")
+    with torch.cuda.device(dev):
+        _launch("fused_dissem", heard.data_ptr(), out.data_ptr(),
+                mf.data_ptr(), rx_ok.data_ptr(), conf_cap.data_ptr(), S, N,
+                len(offs), c_offs, int(rnd), int(budget))
     launches += 1
     return out
 
 
-def disseminate(p: SwimParams, rnd: int, offs, heard: torch.Tensor,
-                mf: torch.Tensor, rx_ok: torch.Tensor,
-                conf_cap: torch.Tensor) -> torch.Tensor:
+def fused_merge(cur: torch.Tensor, pins: torch.Tensor, src: torch.Tensor,
+                rx: torch.Tensor, cap: torch.Tensor,
+                budget: int) -> torch.Tensor:
+    """Launch ``csrc/fused_merge.cu`` on CUDA tensors (the arguments of
+    ``merge_ref``); returns a new ``[S, L]`` u8 tensor.  Launches on the
+    current stream and does not synchronise.  Raises on anything the
+    kernel does not take."""
+    global merge_launches
+    _require_cuda("fused_merge", cur)
+    if cur.dim() != 2 or pins.dim() != 3:
+        raise ValueError(f"cur must be [S, L] and pins [F, S, L], got "
+                         f"{list(cur.shape)} and {list(pins.shape)}")
+    S, L = cur.shape
+    F = pins.shape[0]
+    dev = cur.device
+    _check_fanout(F)
+    if S * L >= 2**31:
+        raise ValueError(f"S * L must be below 2**31, got {S * L}")
+    _check("cur", cur, torch.uint8, (S, L), dev)
+    _check("pins", pins, torch.uint8, (F, S, L), dev)
+    _check("src", src, torch.bool, (F, L), dev)
+    _check("rx", rx, torch.bool, (L,), dev)
+    _check("cap", cap, torch.int32, (S,), dev)
+    out = torch.empty_like(cur)
+    if cur.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        _launch("fused_merge", cur.data_ptr(), pins.data_ptr(),
+                src.data_ptr(), rx.data_ptr(), cap.data_ptr(), out.data_ptr(),
+                S, L, F, int(budget))
+    merge_launches += 1
+    return out
+
+
+def _disseminate_sharded(p: SwimParams, rnd: int, offs, heard, mf, rx_ok,
+                         conf_cap, sc):
+    """The reference's ``_fused_sharded``: the halo hop rolls each leg's
+    pins into a [F, S, L] buffer per shard, then one merge per shard —
+    the kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    S, L = heard[0].shape
+    pins = [h.new_empty((len(offs), S, L)) for h in heard]
+    for f, o in enumerate(offs):
+        _roll_sharded(sc, heard, o, out=[pin[f] for pin in pins])
+    out = []
+    for i, h in enumerate(heard):
+        src = torch.stack([_sloc_roll(sc, mf, o, i) > rnd for o in offs])
+        rx = _sloc(sc, rx_ok, i)
+        if h.device.type == "cpu":
+            out.append(merge_ref(p, h, pins[i], src, rx, conf_cap))
+        else:
+            out.append(fused_merge(h, pins[i], src, rx, conf_cap,
+                                   p.spread_budget_rounds))
+    return tuple(out)
+
+
+def disseminate(p: SwimParams, rnd: int, offs, heard, mf: torch.Tensor,
+                rx_ok: torch.Tensor, conf_cap: torch.Tensor, sc=None):
     """The round's dense tail (reference ``fused_disseminate``): the
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    kernels on CUDA tensors, the plain versions on CPU tensors.
+    Sharded (``sc``), ``heard`` is the tuple of shards and so is the
+    result."""
+    if sc is not None:
+        # No fused_nb check: the reference makes it only in
+        # _fused_single, so the sharded round takes any fused_nb.
+        return _disseminate_sharded(p, rnd, offs, heard, mf, rx_ok,
+                                    conf_cap, sc)
     if p.dissem == "fused":
         # The reference's grid contract (fused.py:146); the kernel here
         # tiles on its own, but the same configurations are refused.

@@ -30,6 +30,11 @@ How the JAX program maps onto eager PyTorch:
 Tensors are never modified in place except those the round allocated
 itself (the belief matrix after the probe tick's rearm clear, the rows
 produced by the dissemination tail): the caller's state is left intact.
+
+The sharded round (``run_rounds_sharded``, the reference's "ICI
+sharding" section) is the same code with ``sc`` set: the belief matrix
+is a tuple of column shards and the branches sit where the reference's
+do (the sharding section below).
 """
 
 from __future__ import annotations
@@ -226,6 +231,113 @@ def _timeout_table(p: SwimParams, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(p.timeout_table(), device=device)
 
 
+# -- sharding along the observer axis -----------------------------------------
+#
+# The reference's "ICI sharding" section, from one controller.  Only the
+# [S, N] belief matrix is sharded: ``heard`` becomes a tuple of ``ndev``
+# contiguous u8 [S, L] tensors, shard i holding observer columns
+# [i*L, (i+1)*L).  Every other register is held once — the reference
+# replicates them by construction, so one copy is exact.  Its
+# collectives become tensor code on this known layout: a ppermute is
+# indexing into the shard list, a psum the sum of the per-shard
+# contributions.  Every shift (gossip offsets, the push/pull shift, the
+# prober block) is a host int, so each shard boundary is host
+# arithmetic and the sharded round makes no device->host read that the
+# single-device round does not.  Bytes cross between shards only in
+# ``_roll_sharded`` and ``_psum``; placing the shards on several cards
+# changes those two.
+
+class _ShardCtx(NamedTuple):
+    """Sharding context threaded through the round phases; ``None``
+    everywhere means the single-device round."""
+
+    ndev: int   # shards along the observer axis
+    L: int      # observer columns per shard (N // ndev)
+
+
+def _sharded(heard) -> bool:
+    return isinstance(heard, tuple)
+
+
+def _per_shard(sc, heard, fn):
+    """``fn`` on the matrix, or on each shard of a sharded one."""
+    return fn(heard) if sc is None else tuple(fn(h) for h in heard)
+
+
+def _sloc(sc: _ShardCtx, v: torch.Tensor, i: int) -> torch.Tensor:
+    """Shard ``i``'s [L] slice of an [N] per-node vector (a view)."""
+    return v[i * sc.L:(i + 1) * sc.L]
+
+
+def _sloc_roll(sc: _ShardCtx, v: torch.Tensor, o: int, i: int) -> torch.Tensor:
+    """Shard ``i``'s [L] slice of ``torch.roll(v, o)``: a view, or two
+    slices joined where the window wraps."""
+    n = v.shape[0]
+    start = (i * sc.L - o) % n
+    if start + sc.L <= n:
+        return v[start:start + sc.L]
+    return torch.cat([v[start:], v[:start + sc.L - n]])
+
+
+def _owned(sc: _ShardCtx, cols: torch.Tensor, i: int):
+    """Which global columns ``cols`` shard ``i`` owns, and their local
+    column as an index (clamped into the shard where not owned)."""
+    base = i * sc.L
+    return ((cols >= base) & (cols < base + sc.L),
+            (cols - base).clamp(0, sc.L - 1).long())
+
+
+def _roll_sharded(sc: _ShardCtx, xs, o: int, out=None):
+    """Global ``torch.roll(x, o, dims=-1)`` of a sharded ``x``.
+
+    With ``q, r = divmod(o mod N, L)``, output shard ``i`` is the last
+    ``r`` columns of source shard ``(i - q - 1) % ndev`` followed by the
+    first ``L - r`` columns of source shard ``(i - q) % ndev``.  ``out``
+    (one tensor per shard) receives the result in place."""
+    L, nd = sc.L, sc.ndev
+    q, r = divmod(o % (L * nd), L)
+    res = []
+    for i in range(nd):
+        prev, this = xs[(i - q - 1) % nd], xs[(i - q) % nd]
+        parts = [prev[..., L - r:], this[..., :L - r]] if r else [this]
+        if out is not None:
+            res.append(torch.cat(parts, dim=-1, out=out[i]))
+        else:
+            res.append(torch.cat(parts, dim=-1) if r else this)
+    return tuple(res)
+
+
+def _psum(parts):
+    """The reference's psum over the shard axis: the sum of the
+    per-shard contributions."""
+    return functools.reduce(torch.add, parts)
+
+
+def _win_read(sc: _ShardCtx, hs, blk: int, B: int) -> torch.Tensor:
+    """The [S, B] window ``heard[:, blk:blk+B]`` of the sharded matrix.
+    It never wraps (``N = B * probe_every``, ``_check_shardable``) and
+    spans one, two or three shards: each contributes its overlap, zero
+    elsewhere, and ``_psum`` merges the disjoint parts exactly."""
+    parts = []
+    for i, h in enumerate(hs):
+        lo, hi = max(blk, i * sc.L), min(blk + B, (i + 1) * sc.L)
+        if lo < hi:
+            parts.append(torch.nn.functional.pad(
+                h[:, lo - i * sc.L:hi - i * sc.L], (lo - blk, blk + B - hi)))
+    return _psum(parts)
+
+
+def _win_write(sc: _ShardCtx, hs, win: torch.Tensor, blk: int,
+               B: int) -> None:
+    """Write the [S, B] window ``win`` into columns [blk, blk+B) of the
+    sharded matrix, in place: each shard takes only the columns it
+    owns."""
+    for i, h in enumerate(hs):
+        lo, hi = max(blk, i * sc.L), min(blk + B, (i + 1) * sc.L)
+        if lo < hi:
+            h[:, lo - i * sc.L:hi - i * sc.L] = win[:, lo - blk:hi - blk]
+
+
 # -- round phases --------------------------------------------------------------
 
 def _age_tick(heard: torch.Tensor) -> torch.Tensor:
@@ -265,7 +377,8 @@ def _segment_min(masked: torch.Tensor, kk: int, fill: int) -> torch.Tensor:
     return masked.view(kk, GB).amin(dim=1)
 
 
-def _join_tick(p: SwimParams, rnd: int, carry, join_round, fail_round):
+def _join_tick(p: SwimParams, rnd: int, carry, join_round, fail_round,
+               sc: _ShardCtx | None = None):
     """Activate pending joins (reference ``_join_tick``): a pending node
     that wins a rumor slot becomes a member at a bumped incarnation, any
     stale episode about it clears, and its PHASE_JOIN slot floods the
@@ -273,7 +386,7 @@ def _join_tick(p: SwimParams, rnd: int, carry, join_round, fail_round):
     (heard, slot_node, slot_phase, slot_inc, slot_start, slot_nsusp,
      slot_dead_round, slot_of_node, incarnation, member, drops) = carry
     N, S = p.n, p.slots
-    dev = heard.device
+    dev = member.device
 
     pending = (join_round <= rnd) & ~member & (fail_round > rnd)
     masked = torch.where(pending, torch.arange(N, dtype=_I32, device=dev), N)
@@ -290,7 +403,7 @@ def _join_tick(p: SwimParams, rnd: int, carry, join_round, fail_round):
     # Clear any stale episode about a rejoining winner.
     node_c0 = slot_node.clamp(0, N - 1)
     stale = (slot_node >= 0) & joining[node_c0.long()]
-    heard = heard.masked_fill(stale[:, None], 0)
+    heard = _per_shard(sc, heard, lambda h: h.masked_fill(stale[:, None], 0))
     slot_of_node = _set_drop(slot_of_node, torch.where(stale, node_c0, N), -1)
     slot_node = torch.where(stale, -1, slot_node)
     slot_phase = torch.where(stale, PHASE_FREE, slot_phase)
@@ -306,10 +419,20 @@ def _join_tick(p: SwimParams, rnd: int, carry, join_round, fail_round):
     slot_of_node = _set_drop(slot_of_node, torch.where(can_k, cand_c, N),
                              slot_k)
     # The joiner seeds its own announcement flood: heard[sidx, cand] on
-    # the flattened matrix, sink S*N for unserved candidates.
-    flat = torch.where(sidx < S, sidx.long() * N + cand_c, S * N)
-    heard = _set_drop(heard.reshape(-1), flat,
-                      _enc(MSG_REFUTE, age=_AGE_FRESH)).view(S, N)
+    # the flattened matrix, sink S*N for unserved candidates.  Sharded:
+    # the seed column belongs to one shard; the others drop the write.
+    seed = _enc(MSG_REFUTE, age=_AGE_FRESH)
+    if sc is None:
+        flat = torch.where(sidx < S, sidx.long() * N + cand_c, S * N)
+        heard = _set_drop(heard.reshape(-1), flat, seed).view(S, N)
+    else:
+        shards = []
+        for i, h in enumerate(heard):
+            owned, loc = _owned(sc, cand_c, i)
+            flat = torch.where(owned & (sidx < S), sidx * sc.L + loc,
+                               S * sc.L)
+            shards.append(_set_drop(h.reshape(-1), flat, seed).view(S, sc.L))
+        heard = tuple(shards)
 
     return (heard, slot_node, slot_phase, slot_inc, slot_start, slot_nsusp,
             slot_dead_round, slot_of_node, incarnation, member, drops)
@@ -327,7 +450,8 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry):
+def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
+                sc: _ShardCtx | None = None):
     """One round's probe slice: direct probe -> k indirect probes ->
     suspicion initiation for this round's prober block (reference
     ``_probe_tick`` without the nemesis legs).  ``mf`` packs membership
@@ -338,7 +462,7 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry):
     k_t, k_dl, _k_h, k_hl = keys
     N, S = p.n, p.slots
     B = _block_size(p)
-    dev = heard.device
+    dev = mf.device
 
     # This round's probers: block (rnd % probe_every); ids >= N are
     # padding lanes on the final block and initiate nothing.
@@ -384,7 +508,13 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry):
     s2 = torch.cat([slot_of_node, slot_of_node])
     s_t = _dslice(s2, (blk + offs[0]) % N, B)
     rows = s_t.clamp(0, S - 1).long()
-    if aligned:
+    if sc is not None:
+        # Sharded (aligned by _check_shardable): the window is read once
+        # and reused for the post-rearm read below (only the rearm clear
+        # touches heard in between, and it is recomputed exactly).
+        hblk_pre = _win_read(sc, heard, blk, B)
+        cur = hblk_pre.gather(0, rows[None, :])[0]
+    elif aligned:
         cur = heard[:, blk:blk + B].gather(0, rows[None, :])[0]
     else:
         cur = heard[rows, pid_c.long()]
@@ -414,9 +544,9 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry):
     slot_start = torch.where(rearm, rnd, slot_start)
     slot_nsusp = torch.where(rearm, add_here, slot_nsusp)
     slot_dead_round = torch.where(rearm, -1, slot_dead_round)
-    # A new tensor: from here on the round owns ``heard`` and may write
-    # it in place.
-    heard = heard.masked_fill(rearm[:, None], 0)
+    # A new tensor (one per shard): from here on the round owns
+    # ``heard`` and may write it in place.
+    heard = _per_shard(sc, heard, lambda h: h.masked_fill(rearm[:, None], 0))
 
     # Allocate fresh slots: needy targets compacted to kk candidates
     # with a segmented min, one winner per prober segment.
@@ -444,15 +574,22 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry):
     s_t2 = _dslice(s2b, (blk + offs[0]) % N, B)
     rows2 = s_t2.clamp(0, S - 1).long()
     conf_bits = _CONF_MASK << _CONF_SHIFT
-    if aligned:
-        hblk = heard[:, blk:blk + B]
+    if sc is not None or aligned:
+        # Sharded: the post-rearm window, recomputed from the pre-rearm
+        # read; the write-back is per shard.
+        hblk = (heard[:, blk:blk + B] if sc is None
+                else hblk_pre.masked_fill(rearm[:, None], 0))
         cur2 = hblk.gather(0, rows2[None, :])[0]
         mark_ok = (init & (s_t2 >= 0)
                    & ((cur2 >> _MSG_SHIFT) <= MSG_SUSPECT))
         fresh = _enc(MSG_SUSPECT, age=_AGE_FRESH) | (cur2 & conf_bits)
         sel = ((torch.arange(S, device=dev)[:, None] == rows2[None, :])
                & mark_ok[None, :])
-        heard[:, blk:blk + B] = torch.where(sel, fresh[None, :], hblk)
+        win = torch.where(sel, fresh[None, :], hblk)
+        if sc is None:
+            heard[:, blk:blk + B] = win
+        else:
+            _win_write(sc, heard, win, blk, B)
     else:
         cur2 = heard[rows2, pid_c.long()]
         mark_ok = (init & (s_t2 >= 0)
@@ -480,19 +617,20 @@ def gossip_offsets(key, n: int, fanout: int) -> list[int]:
 
 
 def _disseminate(p: SwimParams, rnd: int, k_gossip, heard, mf, rx_ok,
-                 conf_cap) -> torch.Tensor:
+                 conf_cap, sc: _ShardCtx | None = None):
     """One round of rumor push: the dense tail of ``gossip/fused.py`` —
-    the Hopper kernel on a CUDA tensor, its plain version on the CPU."""
+    the Hopper kernels on CUDA tensors, their plain versions on the
+    CPU."""
     from consul_tpu_torch.gossip.fused import disseminate
     offs = gossip_offsets(k_gossip, p.n, p.fanout)
-    return disseminate(p, rnd, offs, heard, mf, rx_ok, conf_cap)
+    return disseminate(p, rnd, offs, heard, mf, rx_ok, conf_cap, sc)
 
 
 def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
                   alive, member, heard_sub, full_heard, idx, slot_node,
                   slot_phase, slot_inc, slot_start, slot_nsusp,
                   slot_dead_round, slot_of_node, incarnation, drops,
-                  conf_cap, rx_ok, hist=None):
+                  conf_cap, rx_ok, sc: _ShardCtx | None = None, hist=None):
     """Refutation, suspicion-timer firing, episode GC, stats (reference
     ``_finish_round``).
 
@@ -500,12 +638,14 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
     (distinct slot ids).  The full path passes ``idx = arange(S)`` with
     ``full_heard=None``; the hot path passes the gathered rows and
     writes them back into ``full_heard``.  Both ``heard_sub`` and
-    ``full_heard`` are the round's own tensors and are written in place.
-    Returns ``state`` or ``(state, hist)``."""
+    ``full_heard`` are the round's own tensors (one per shard when
+    sharded) and are written in place.  Returns ``state`` or
+    ``(state, hist)``."""
     N = p.n
     H = idx.shape[0]
-    dev = heard_sub.device
+    dev = slot_node.device
     il = idx.long()
+    shards = () if sc is None else tuple(enumerate(heard_sub))
 
     sl_node = slot_node[il]
     sl_phase = slot_phase[il]
@@ -521,7 +661,16 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
     n_refuted = state.n_refuted
     refute_now = torch.zeros((H,), dtype=torch.bool, device=dev)
     if p.refute:
-        own = heard_sub[hrows, ncl]
+        if sc is None:
+            own = heard_sub[hrows, ncl]
+        else:
+            # Each subject's own-belief byte lives on one shard: mask
+            # local ownership, psum the disjoint contributions.
+            local = []
+            for i, h in shards:
+                owned, loc = _owned(sc, node_c, i)
+                local.append((owned, loc, h[hrows, loc]))
+            own = _psum([torch.where(o, b, 0) for o, _, b in local])
         own_msg = own >> _MSG_SHIFT
         refutable = (sl_phase == PHASE_SUSPECT) | (sl_phase == PHASE_DEAD)
         refute_now = (refutable & (sl_node >= 0) & alive[ncl] & member[ncl]
@@ -535,7 +684,13 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
         # row, so a gather, a max and a put.
         refute_val = torch.where(refute_now, _enc(MSG_REFUTE), 0).to(
             torch.uint8)
-        heard_sub[hrows, ncl] = torch.maximum(own, refute_val)
+        if sc is None:
+            heard_sub[hrows, ncl] = torch.maximum(own, refute_val)
+        else:
+            # Written only on the owning shard.
+            new = torch.maximum(own, refute_val)
+            for (i, h), (owned, loc, byte) in zip(shards, local):
+                h[hrows, loc] = torch.where(owned, new, byte)
         n_refuted = n_refuted + refute_now.sum(dtype=_I32)
 
     # -- suspicion timers fire -> dead declared.  The reference looks up
@@ -550,15 +705,25 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
     ok = ok & (sl_phase == PHASE_SUSPECT)[:, None]
     ok_mask = (ok.to(torch.uint8) << cs.to(torch.uint8)).sum(
         dim=1, dtype=torch.uint8)
-    conf = (heard_sub >> _CONF_SHIFT) & _CONF_MASK
-    fire = (((heard_sub >> _MSG_SHIFT) == MSG_SUSPECT)
-            & rx_ok[None, :]
-            & (((ok_mask[:, None] >> conf) & 1) == 1))
-    slot_fired = fire.any(dim=1)
+
+    def _fire(h, rx):
+        # Bytes whose timer fires take the dead verdict; returns which
+        # rows (slots) fired.
+        conf = (h >> _CONF_SHIFT) & _CONF_MASK
+        fire = (((h >> _MSG_SHIFT) == MSG_SUSPECT) & rx[None, :]
+                & (((ok_mask[:, None] >> conf) & 1) == 1))
+        h.masked_fill_(fire, _enc(MSG_DEAD))
+        return fire.any(dim=1)
+
+    if sc is None:
+        slot_fired = _fire(heard_sub, rx_ok)
+    else:
+        # Any observer on any shard fires the slot's timer.
+        slot_fired = _psum([_fire(h, _sloc(sc, rx_ok, i)).to(_I32)
+                            for i, h in shards]) > 0
     new_dead = slot_fired & (sl_dead_round < 0)
     sl_phase = torch.where(slot_fired, PHASE_DEAD, sl_phase)
     sl_dead_round = torch.where(new_dead, rnd, sl_dead_round)
-    heard_sub.masked_fill_(fire, _enc(MSG_DEAD))
 
     # Detection stats are recorded at declaration time.
     fail_c = fail_round[ncl]
@@ -585,9 +750,16 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
         # before the GC wipe); integer log2 buckets via bit length.
         verdict_msg = torch.where(sl_phase == PHASE_DEAD, MSG_DEAD,
                                   MSG_REFUTE)
-        hold = (((heard_sub >> _MSG_SHIFT) == verdict_msg[:, None])
-                & member[None, :])
-        n_hold = hold.sum(dim=1, dtype=_I32)
+
+        def _n_hold(h, mem):
+            return (((h >> _MSG_SHIFT) == verdict_msg[:, None])
+                    & mem[None, :]).sum(dim=1, dtype=_I32)
+
+        if sc is None:
+            n_hold = _n_hold(heard_sub, member)
+        else:
+            n_hold = _psum([_n_hold(h, _sloc(sc, member, i))
+                            for i, h in shards])
         blen = ((n_hold[:, None]
                  >> torch.arange(31, dtype=_I32, device=dev)) > 0).sum(
             dim=1, dtype=_I32)
@@ -603,7 +775,7 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
     member = _set_drop(member, torch.where(is_dead, node_c, N), False)
     slot_of_node = _set_drop(slot_of_node, torch.where(expired, node_c, N),
                              -1)
-    heard_sub.masked_fill_(expired[:, None], 0)
+    _per_shard(sc, heard_sub, lambda h: h.masked_fill_(expired[:, None], 0))
     sl_node = torch.where(expired, -1, sl_node)
     sl_phase = torch.where(expired, PHASE_FREE, sl_phase)
     sl_dead_round = torch.where(expired, -1, sl_dead_round)
@@ -614,7 +786,11 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
         slot_dead_o = sl_dead_round
     else:
         heard = full_heard
-        heard[il] = heard_sub
+        if sc is None:
+            heard[il] = heard_sub
+        else:
+            for h, sub in zip(heard, heard_sub):
+                h[il] = sub
         slot_node_o = slot_node.index_put((il,), sl_node)
         slot_phase_o = slot_phase.index_put((il,), sl_phase)
         slot_dead_o = slot_dead_round.index_put((il,), sl_dead_round)
@@ -643,7 +819,8 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
 def _swim_round_impl(state: SwimState, rnd: int, base_key,
                      fail_round: torch.Tensor, p: SwimParams,
                      join_round: torch.Tensor | None, collect: bool,
-                     hist: HistBank | None = None):
+                     hist: HistBank | None = None,
+                     sc: _ShardCtx | None = None):
     """One round + (optionally) its flight-recorder row + histograms.
 
     ``rnd`` is the host mirror of ``state.round``.  Returns
@@ -653,7 +830,7 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
     k_gossip = prng.fold_in(key, 2)
 
     N, S = p.n, p.slots
-    dev = state.heard.device
+    dev = state.slot_node.device
     alive = fail_round > rnd
 
     carry = (state.heard, state.slot_node, state.slot_phase, state.slot_inc,
@@ -665,13 +842,13 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
         any_join = ((join_round <= rnd) & ~state.member
                     & (fail_round > rnd)).any()
         if _host_int(any_join):
-            carry = _join_tick(p, rnd, carry, join_round, fail_round)
+            carry = _join_tick(p, rnd, carry, join_round, fail_round, sc)
 
     member_now = carry[9]
     mf = torch.where(member_now, fail_round, -1)
 
     # -- 1. probe tick, on the un-aged matrix.
-    carry, probe_stats = _probe_tick(p, rnd, k_probe, mf, carry)
+    carry, probe_stats = _probe_tick(p, rnd, k_probe, mf, carry, sc)
     (heard, slot_node, slot_phase, slot_inc, slot_start, slot_nsusp,
      slot_dead_round, slot_of_node, incarnation, member, drops) = carry
 
@@ -688,22 +865,33 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
                 or rnd % p.pushpull_every != p.pushpull_every - 1):
             return h
         o = int(prng.randint(prng.fold_in(key, 3), (), 1, N))
-        for shift in (o, -o):
-            ok = sub_rx_ok & (torch.roll(mf, shift) > rnd)
-            hin = torch.roll(h, shift, dims=1)
+
+        def _take(h, hin, ok):
             upgraded = (((hin >> _MSG_SHIFT) > (h >> _MSG_SHIFT))
                         & ok[None, :])
-            h = torch.where(upgraded, hin, h)
+            return torch.where(upgraded, hin, h)
+
+        for shift in (o, -o):
+            if sc is None:
+                ok = sub_rx_ok & (torch.roll(mf, shift) > rnd)
+                h = _take(h, torch.roll(h, shift, dims=1), ok)
+            else:
+                hin = _roll_sharded(sc, h, shift)
+                h = tuple(
+                    _take(h[i], hin[i], _sloc(sc, sub_rx_ok, i)
+                          & (_sloc_roll(sc, mf, shift, i) > rnd))
+                    for i in range(sc.ndev))
         return h
 
     def _tail(heard_sub, full_heard, idx, cap):
-        heard_sub = _disseminate(p, rnd, k_gossip, heard_sub, mf, rx_ok, cap)
+        heard_sub = _disseminate(p, rnd, k_gossip, heard_sub, mf, rx_ok, cap,
+                                 sc)
         heard_sub = _maybe_pushpull(heard_sub, rx_ok)
         return _finish_round(p, state, rnd, fail_round, alive, member,
                              heard_sub, full_heard, idx, slot_node,
                              slot_phase, slot_inc, slot_start, slot_nsusp,
                              slot_dead_round, slot_of_node, incarnation,
-                             drops, conf_cap, rx_ok, hist)
+                             drops, conf_cap, rx_ok, sc, hist)
 
     n_active = _host_int((slot_node >= 0).sum(dtype=_I32))
     hot = bool(p.hot_slots) and S > p.hot_slots and n_active <= p.hot_slots
@@ -726,9 +914,12 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
             # Hot tier: the H live episodes' rows (top_k over the 0/1
             # activity vector, lowest-index ties = stable argsort),
             # padded with inactive rows, which are no-ops end to end.
+            # Sharded: each shard gathers its own [H, L] rows.
             act = (slot_node >= 0).to(_I32)
             idx = torch.argsort(-act, stable=True)[:p.hot_slots].to(_I32)
-            out = _tail(heard[idx.long()], heard, idx, conf_cap[idx.long()])
+            il = idx.long()
+            out = _tail(_per_shard(sc, heard, lambda h: h[il]), heard, idx,
+                        conf_cap[il])
         else:
             out = _tail(heard, None,
                         torch.arange(S, dtype=_I32, device=dev), conf_cap)
@@ -739,10 +930,13 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
     # -- flight row (obs.constants.FLIGHT_COLS order).  Dissemination
     # bytes: every in-budget rumor entry pushed to ``fanout`` peers.
     if n_active:
-        h = new_state.heard
-        live = ((h >> _MSG_SHIFT) > 0) & ((h & _AGE_MASK)
-                                          < p.spread_budget_rounds)
-        tx = p.fanout * live.sum(dtype=_I32)
+        def _tx(h):
+            live = ((h >> _MSG_SHIFT) > 0) & ((h & _AGE_MASK)
+                                              < p.spread_budget_rounds)
+            return p.fanout * live.sum(dtype=_I32)
+
+        tx = (_tx(new_state.heard) if sc is None
+              else _psum([_tx(h) for h in new_state.heard]))
     else:
         tx = torch.zeros((), dtype=_I32, device=dev)
     dead_before = state.n_detected + state.n_false_dead
@@ -762,11 +956,19 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
 
 
 def _on(dev: torch.device, tup):
-    return type(tup)(*(t.to(dev) for t in tup))
+    return type(tup)(*(tuple(x.to(dev) for x in t) if _sharded(t)
+                       else t.to(dev) for t in tup))
 
 
 def _as_i32(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x).to(device=dev, dtype=_I32)
+
+
+def _require_unsharded(state: SwimState) -> None:
+    if _sharded(state.heard):
+        raise ValueError("state is sharded (heard is a tuple of shards): "
+                         "use run_rounds_sharded/swim_round_sharded, or "
+                         "unshard_state first")
 
 
 def swim_round(state: SwimState, base_key, fail_round, p: SwimParams,
@@ -783,14 +985,17 @@ def swim_round_hist(state: SwimState, base_key, fail_round, p: SwimParams,
                       device)
 
 
-def _one_round(state, base_key, fail_round, p, hist, join_round, device):
+def _one_round(state, base_key, fail_round, p, hist, join_round, device,
+               sc=None):
     dev = resolve_device(device)
+    if sc is None:
+        _require_unsharded(state)
     state = _on(dev, state)
     hist = None if hist is None else _on(dev, hist)
     jr = None if join_round is None else _as_i32(join_round, dev)
     st, _, hb = _swim_round_impl(state, _host_int(state.round), base_key,
                                  _as_i32(fail_round, dev), p, jr,
-                                 collect=False, hist=hist)
+                                 collect=False, hist=hist, sc=sc)
     return st, hb
 
 
@@ -805,7 +1010,13 @@ def run_rounds(state: SwimState, base_key, fail_round, p: SwimParams,
     ``trace`` is a ``RoundTrace`` of ``[steps, S]`` tensors, or None.
     ``base_key`` is a ``prng`` key (``uint32[2]``); ``fail_round`` and
     ``join_round`` may be numpy arrays or tensors."""
-    dev = resolve_device(device)
+    _require_unsharded(state)
+    return _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
+                            join_round, flight, hist, resolve_device(device))
+
+
+def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
+                     join_round, flight, hist, dev, sc=None):
     state = _on(dev, state)
     fail_round = _as_i32(fail_round, dev)
     join_round = None if join_round is None else _as_i32(join_round, dev)
@@ -820,19 +1031,29 @@ def run_rounds(state: SwimState, base_key, fail_round, p: SwimParams,
     for _ in range(steps):
         state, row, hist = _swim_round_impl(
             state, rnd, base_key, fail_round, p, join_round,
-            collect=flight is not None, hist=hist)
+            collect=flight is not None, hist=hist, sc=sc)
         rnd += 1
         if flight is not None:
             rows[cur % R] = row
             cur += 1
         if trace:
-            msg = state.heard >> _MSG_SHIFT
-            mem = state.member[None, :]
+            def _holders(h, mem):
+                msg = h >> _MSG_SHIFT
+                return (((msg == MSG_DEAD) & mem[None, :]).sum(dim=1,
+                                                               dtype=_I32),
+                        ((msg == MSG_REFUTE) & mem[None, :]).sum(dim=1,
+                                                                 dtype=_I32))
+
+            if sc is None:
+                n_dead, n_alive = _holders(state.heard, state.member)
+            else:
+                per = [_holders(h, _sloc(sc, state.member, i))
+                       for i, h in enumerate(state.heard)]
+                n_dead = _psum([d for d, _ in per])
+                n_alive = _psum([a for _, a in per])
             snaps.append((state.slot_node, state.slot_phase,
                           state.slot_start, state.slot_dead_round,
-                          ((msg == MSG_DEAD) & mem).sum(dim=1, dtype=_I32),
-                          ((msg == MSG_REFUTE) & mem).sum(dim=1,
-                                                          dtype=_I32)))
+                          n_dead, n_alive))
     tr = None
     if trace:
         cols = list(zip(*snaps)) if snaps else [()] * 6
@@ -846,3 +1067,94 @@ def run_rounds(state: SwimState, base_key, fail_round, p: SwimParams,
     if hist is not None:
         out.append(hist)
     return (out[0] if len(out) == 1 else tuple(out)), tr
+
+
+# -- public sharded entry points -----------------------------------------------
+#
+# All shards live on one device (``device``; None = the CUDA card).  A
+# sharded state is a ``SwimState`` whose ``heard`` is a tuple of ``ndev``
+# contiguous [S, N // ndev] tensors (``shard_state``/``unshard_state``).
+
+def _check_shardable(p: SwimParams, ndev: int) -> None:
+    """Alignment constraints of the sharded round (reference
+    ``_check_shardable``): n divisible by ndev (contiguous observer
+    columns per shard) and by probe_every (the prober block is one
+    contiguous window)."""
+    if ndev < 1:
+        raise ValueError(f"ndev must be >= 1, got {ndev}")
+    if p.n % ndev:
+        raise ValueError(
+            f"sharded kernel needs n % ndev == 0 (n={p.n}, ndev={ndev})")
+    if p.n % p.probe_every:
+        raise ValueError(
+            f"sharded kernel needs n % probe_every == 0 (aligned prober "
+            f"blocks; n={p.n}, probe_every={p.probe_every})")
+
+
+def shard_state(state: SwimState, ndev: int, device=None) -> SwimState:
+    """``state`` on ``device`` with ``heard`` split into ``ndev``
+    contiguous column shards; every other register is held once."""
+    _require_unsharded(state)
+    dev = resolve_device(device)
+    S, N = state.heard.shape
+    if ndev < 1 or N % ndev:
+        raise ValueError(f"cannot split n={N} observer columns into "
+                         f"ndev={ndev} shards")
+    L = N // ndev
+    st = _on(dev, state)
+    return st._replace(heard=tuple(st.heard[:, i * L:(i + 1) * L].contiguous()
+                                   for i in range(ndev)))
+
+
+def unshard_state(state: SwimState) -> SwimState:
+    """The inverse of ``shard_state``: ``heard`` as one [S, N] tensor
+    (an unsharded state is returned as it is)."""
+    if not _sharded(state.heard):
+        return state
+    return state._replace(heard=torch.cat(state.heard, dim=1))
+
+
+def _sharded_setup(state, p, ndev, device):
+    """(state on the device with ndev shards, its _ShardCtx, device)."""
+    dev = resolve_device(device)
+    if ndev is None:
+        if not _sharded(state.heard):
+            raise ValueError("ndev is needed to shard an unsharded state")
+        ndev = len(state.heard)
+    _check_shardable(p, ndev)
+    L = p.n // ndev
+    if _sharded(state.heard):
+        shapes = [tuple(h.shape) for h in state.heard]
+        if shapes != [(p.slots, L)] * ndev:
+            raise ValueError(f"state has shards {shapes}, expected {ndev} "
+                             f"of {[p.slots, L]}")
+        state = _on(dev, state)
+    else:
+        state = shard_state(state, ndev, dev)
+    return state, _ShardCtx(ndev, L), dev
+
+
+def swim_round_sharded(state: SwimState, base_key, fail_round,
+                       p: SwimParams, join_round=None, ndev: int | None = None,
+                       device=None) -> SwimState:
+    """``swim_round`` on ``ndev`` column shards (reference
+    ``swim_round_sharded``): bit-identical to it, returns the sharded
+    state.  ``ndev=None`` takes a sharded state's own shard count."""
+    state, sc, dev = _sharded_setup(state, p, ndev, device)
+    return _one_round(state, base_key, fail_round, p, None, join_round,
+                      dev, sc)[0]
+
+
+def run_rounds_sharded(state: SwimState, base_key, fail_round, p: SwimParams,
+                       steps: int, trace: bool = False, join_round=None,
+                       flight: FlightRing | None = None,
+                       hist: HistBank | None = None, ndev: int | None = None,
+                       device=None):
+    """``run_rounds`` on ``ndev`` column shards (reference
+    ``run_rounds_sharded``): same contract and return shape, bit-identical
+    results, the carry's state sharded.  ``state`` may be sharded (with
+    ``ndev`` shards) or not (it is sharded here).  Constraints:
+    ``_check_shardable``."""
+    state, sc, dev = _sharded_setup(state, p, ndev, device)
+    return _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
+                            join_round, flight, hist, dev, sc)

@@ -1,10 +1,16 @@
 """Where a round's time goes: the port's main path, timed and profiled.
 
     python -m consul_tpu_torch.profile_round [--churn-ppm 1000] [--rounds 30]
+                                             [--ndev N]
 
 Runs bench.py's LAN regime on the card (``lan_profile(N, SLOTS,
 hot_slots=0)``, churn failures on a stride) for ``WARM`` rounds, then
-twice ``--rounds`` more and prints one JSON line:
+twice ``--rounds`` more and prints one JSON line.  With ``--ndev N`` the
+rounds are the sharded round (``run_rounds_sharded``, N column shards on
+the card), and the phases add the sharded round's own: the halo pins
+(``_roll_sharded`` inside the dissemination tail), the per-shard merge
+kernel launches (``fused_merge``) and the probe tick's window read and
+write.
 
 - pass A, no profiler: host time per round, and the host time of each
   round phase (the probe tick, the uniform draws inside it, the
@@ -32,15 +38,21 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from consul_tpu_torch import prng
-from consul_tpu_torch.gossip import kernel
+from consul_tpu_torch.gossip import fused, kernel
 from consul_tpu_torch.gossip.params import lan_profile
 
 N, SLOTS, WARM = 1_000_000, 64, 60  # the main path's size; warm-up rounds
-PHASES = {  # module, attribute, label
+PHASES = {  # label -> (module, attribute) of the function timed
     "probe_tick": (kernel, "_probe_tick"),
     "uniform_draws": (prng, "uniform_tensor"),
     "disseminate": (kernel, "_disseminate"),
     "finish_round": (kernel, "_finish_round"),
+}
+SHARDED_PHASES = {  # the sharded round's own, inside the phases above
+    "halo_pins": (fused, "_roll_sharded"),
+    "merge_launches": (fused, "fused_merge"),
+    "probe_window_read": (kernel, "_win_read"),
+    "probe_window_write": (kernel, "_win_write"),
 }
 
 
@@ -79,10 +91,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--churn-ppm", type=int, default=1000)
     ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--ndev", type=int, default=0,
+                    help="profile the sharded round on this many shards")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA card")
     dev = torch.device("cuda")
+    phases = dict(PHASES, **(SHARDED_PHASES if args.ndev else {}))
+
+    def run(st, steps):
+        if args.ndev:
+            return kernel.run_rounds_sharded(st, key, fail_t, p, steps,
+                                             ndev=args.ndev, device=dev)[0]
+        return kernel.run_rounds(st, key, fail_t, p, steps, device=dev)[0]
 
     p = lan_profile(N, slots=SLOTS, hot_slots=0, dissem="fused")
     n_fail = max(1, N * args.churn_ppm // 1_000_000) if args.churn_ppm else 0
@@ -93,24 +114,23 @@ def main(argv=None) -> int:
     fail_t = torch.from_numpy(fail).to(dev)
     key = prng.key(42)
 
-    state, _ = kernel.run_rounds(kernel.init_state(p, device=dev), key,
-                                 fail_t, p, WARM, device=dev)
+    state = run(kernel.init_state(p, device=dev), WARM)
     torch.cuda.synchronize()
     R = args.rounds
     saved = {label: getattr(mod, attr)
-             for label, (mod, attr) in PHASES.items()}
+             for label, (mod, attr) in phases.items()}
 
     def measured_pass(wrap, acc, st):
         try:
-            for label, (mod, attr) in PHASES.items():
+            for label, (mod, attr) in phases.items():
                 setattr(mod, attr, wrap(label, saved[label], acc))
             t0 = time.perf_counter()
-            st, _ = kernel.run_rounds(st, key, fail_t, p, R, device=dev)
+            st = run(st, R)
             int(st.round)
             torch.cuda.synchronize()
             return st, time.perf_counter() - t0
         finally:
-            for label, (mod, attr) in PHASES.items():
+            for label, (mod, attr) in phases.items():
                 setattr(mod, attr, saved[label])
 
     tails0 = dict(kernel.tail_rounds)
@@ -120,14 +140,14 @@ def main(argv=None) -> int:
                              ProfilerActivity.CUDA]) as prof:
         state, wall_b = measured_pass(_annotated, None, state)
 
-    phases = {k: {"host_ms_per_round": v * 1e3 / R, "device_ms_per_round": 0.0}
-              for k, v in host_s.items()}
+    timed = {k: {"host_ms_per_round": v * 1e3 / R, "device_ms_per_round": 0.0}
+             for k, v in host_s.items()}
     for e in prof.events():
-        if e.name in phases and e.device_type == DeviceType.CPU:
-            phases[e.name]["device_ms_per_round"] += _device_us(e) / 1e3 / R
+        if e.name in timed and e.device_type == DeviceType.CPU:
+            timed[e.name]["device_ms_per_round"] += _device_us(e) / 1e3 / R
     avgs = prof.key_averages()
     kernels = sorted((e for e in avgs if e.device_type == DeviceType.CUDA
-                      and e.key not in PHASES),
+                      and e.key not in phases),
                      key=lambda e: -_self_device_us(e))
     ops = sorted((e for e in avgs if e.key.startswith("aten::")),
                  key=lambda e: -(_self_device_us(e) or e.self_cpu_time_total))
@@ -135,7 +155,7 @@ def main(argv=None) -> int:
     res = {
         "device": torch.cuda.get_device_name(dev),
         "n": p.n, "slots": p.slots, "churn_ppm": args.churn_ppm,
-        "warm_rounds": WARM, "rounds": R,
+        "ndev": args.ndev or None, "warm_rounds": WARM, "rounds": R,
         "tail_rounds_both_passes": {k: kernel.tail_rounds[k] - tails0[k]
                         for k in tails0},
         "host_ms_per_round": wall_a * 1e3 / R,
@@ -143,7 +163,7 @@ def main(argv=None) -> int:
         "device_busy_ms_per_round": busy_us / 1e3 / R,
         "device_idle_share": 1 - busy_us / 1e6 / wall_a,
         "device_kernels_per_round": sum(e.count for e in kernels) / R,
-        "phases": phases,
+        "phases": timed,
         "top_ops": [{"op": e.key, "calls_per_round": e.count / R,
                      "device_ms_per_round": _self_device_us(e) / 1e3 / R,
                      "host_ms_per_round": e.self_cpu_time_total / 1e3 / R}

@@ -1,7 +1,8 @@
-"""The port on a CUDA card: the Hopper dissemination kernel against its
-plain torch version, and the whole round loop on the card against the
-same loop on the CPU.  Exact: belief bytes and every state field are
-compared bit for bit.
+"""The port on a CUDA card: the Hopper kernels (fused_dissem and the
+sharded round's fused_merge) against their plain torch versions, the
+whole round loop on the card against the same loop on the CPU, and the
+sharded round on the card against the single-device round on the card.
+Exact: belief bytes and every state field are compared bit for bit.
 
 Every test here carries the ``cuda`` marker and skips without a card.
 This file imports torch and numpy only (no JAX), so it runs on a GPU
@@ -82,3 +83,61 @@ def test_round_on_card_matches_cpu():
     for a, b in list(zip(cg, cc)) + [(tg, tc)]:
         for f in a._fields:
             assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("shape", [(8, 125), (64, 1000), (3, 1001),
+                                   (7, 4099)])
+def test_merge_kernel_matches_plain_on_card(shape):
+    """fused_merge against merge_ref, ragged S * L included, at fanouts
+    1, 3 and 8."""
+    _need_card()
+    S, L = shape
+    rng = np.random.default_rng(S * L)
+    for F in (1, 3, 8):
+        cur = torch.from_numpy(rng.integers(0, 256, (S, L)).astype(
+            np.uint8)).cuda()
+        pins = torch.from_numpy(rng.integers(0, 256, (F, S, L)).astype(
+            np.uint8)).cuda()
+        src = torch.from_numpy(rng.random((F, L)) < 0.7).cuda()
+        rx = torch.from_numpy(rng.random(L) < 0.9).cuda()
+        cap = torch.from_numpy(rng.integers(0, 4, (S,)).astype(
+            np.int32)).cuda()
+        p = SwimParams(n=L, slots=S, fanout=F)
+        ref = fused.merge_ref(p, cur, pins, src, rx, cap)
+        out = fused.fused_merge(cur, pins, src, rx, cap,
+                                p.spread_budget_rounds)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (shape, F)
+
+
+def test_sharded_round_on_card_matches_single_on_card():
+    """run_rounds_sharded(ndev=8) on the card (fused_merge) against
+    run_rounds on the card (fused_dissem): joins, loss, push/pull, the
+    hot tier, the flight ring and the hist banks."""
+    _need_card()
+    n = 640
+    join = np.full(n, NEVER, np.int32)
+    join[[79, 80, 400]] = [5, 9, 30]
+    fail = np.full(n, NEVER, np.int32)
+    fail[[159, 160, 40]] = [20, 35, 50]
+    p = SwimParams(n=n, slots=16, probe_every=5, loss_rate=0.05,
+                   pushpull_every=20, hot_slots=4)
+    merges0 = fused.merge_launches
+    outs = []
+    for ndev in (None, 8):
+        st = tk.init_state(p, device="cuda")._replace(
+            member=torch.from_numpy(join == NEVER).cuda())
+        kw = dict(trace=True, join_round=join,
+                  flight=tk.init_flight(device="cuda"),
+                  hist=tk.init_hist(device="cuda"), device="cuda")
+        if ndev is None:
+            outs.append(tk.run_rounds(st, prng.key(2), fail, p, 200, **kw))
+        else:
+            outs.append(tk.run_rounds_sharded(st, prng.key(2), fail, p, 200,
+                                              ndev=ndev, **kw))
+    assert fused.merge_launches > merges0
+    (cs, ts), (cg, tg) = outs
+    cg = (tk.unshard_state(cg[0]),) + tuple(cg[1:])
+    for a, b in list(zip(cs, cg)) + [(ts, tg)]:
+        for f in a._fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f

@@ -93,14 +93,16 @@ def test_divisibility_copy_matches():
 
 
 @pytest.mark.parametrize("entry", ["init_state", "init_flight", "init_hist",
-                                   "swim_round", "run_rounds"])
+                                   "swim_round", "run_rounds", "shard_state",
+                                   "swim_round_sharded",
+                                   "run_rounds_sharded"])
 def test_default_device_is_the_card(entry):
     """device=None means CUDA: without a card every entry point raises
     instead of running on the CPU; device="cpu" is the way there."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    p = t_params.SwimParams(n=16, slots=4)
-    fail = np.full(16, tk.NEVER, np.int32)
+    p = t_params.SwimParams(n=20, slots=4)
+    fail = np.full(20, tk.NEVER, np.int32)
     calls = {
         "init_state": lambda **kw: tk.init_state(p, **kw),
         "init_flight": lambda **kw: tk.init_flight(8, **kw),
@@ -111,17 +113,27 @@ def test_default_device_is_the_card(entry):
         "run_rounds": lambda **kw: tk.run_rounds(
             tk.init_state(p, device="cpu"), np.zeros(2, np.uint32), fail,
             p, 2, **kw),
+        "shard_state": lambda **kw: tk.shard_state(
+            tk.init_state(p, device="cpu"), 2, **kw),
+        "swim_round_sharded": lambda **kw: tk.swim_round_sharded(
+            tk.init_state(p, device="cpu"), np.zeros(2, np.uint32), fail,
+            p, ndev=2, **kw),
+        "run_rounds_sharded": lambda **kw: tk.run_rounds_sharded(
+            tk.init_state(p, device="cpu"), np.zeros(2, np.uint32), fail,
+            p, 2, ndev=2, **kw),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
     out = calls[entry](device="cpu")
-    first = out[0] if entry == "run_rounds" else out
-    assert all(t.device.type == "cpu" for t in first)
+    first = out[0] if entry.startswith("run_rounds") else out
+    tensors = [x for t in first
+               for x in (t if isinstance(t, tuple) else (t,))]
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
 def test_wrapper_never_falls_back():
-    """The kernel wrapper refuses anything but a CUDA tensor, and the
-    tail routes a non-CPU tensor only to the kernel."""
+    """The kernel wrappers refuse anything but a CUDA tensor, and the
+    tail routes a non-CPU tensor only to a kernel."""
     S, N = 4, 16
     heard = torch.zeros((S, N), dtype=torch.uint8)
     mf = torch.zeros(N, dtype=torch.int32)
@@ -137,17 +149,54 @@ def test_wrapper_never_falls_back():
     fused.disseminate(p, 5, [1, 2, 3], heard, mf, rx, cap)
     assert fused.launches == before  # the CPU path launches nothing
 
+    # Kernel 2, fused_merge, and the sharded tail that routes to it.
+    pins = torch.zeros((3, S, N), dtype=torch.uint8)
+    src = torch.ones((3, N), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused.fused_merge(heard, pins, src, rx, cap, 3)
+    sc = tk._ShardCtx(2, N // 2)
+    shards = tuple(h.contiguous() for h in heard.split(N // 2, dim=1))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused.disseminate(p, 5, [1, 2, 3],
+                          tuple(h.to("meta") for h in shards), *meta[1:],
+                          sc=sc)
+    before = fused.merge_launches
+    out = fused.disseminate(p, 5, [1, 2, 3], shards, mf, rx, cap, sc=sc)
+    assert len(out) == 2 and fused.merge_launches == before
+
 
 def test_import_builds_nothing(tmp_path):
-    """Importing the port compiles no kernel (the build runs at the first
-    launch on a card)."""
-    code = ("import consul_tpu_torch.gossip.fused, consul_tpu_torch._build "
-            "as b; print(b._libs)")
+    """Importing the port compiles no kernel, neither fused_dissem nor
+    fused_merge (the build runs at the first launch on a card)."""
+    code = ("import consul_tpu_torch.gossip.fused as f, "
+            "consul_tpu_torch.gossip.kernel, consul_tpu_torch._build as b; "
+            "assert f._lib.cache_info().currsize == 0 and not b.build_logs; "
+            "print(b._libs)")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, cwd=tmp_path, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "{}"
+
+
+def test_library_hash_covers_headers(tmp_path, monkeypatch):
+    """An edit to a shared header under csrc/ changes the library path of
+    every kernel, so a stale library is never loaded; an edit to one
+    kernel's source changes only its own."""
+    from consul_tpu_torch import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = ("fused_dissem", "fused_merge")
+    before = {n: _build.library_path(n) for n in names}
+    header = csrc / "belief_merge.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert all(before[n] != after[n] for n in names)
+    src = csrc / "fused_merge.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _build.library_path("fused_merge") != after["fused_merge"]
+    assert _build.library_path("fused_dissem") == after["fused_dissem"]
 
 
 @pytest.mark.parametrize("alone", [False, True])
