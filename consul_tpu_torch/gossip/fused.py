@@ -5,23 +5,27 @@ The reference runs this tail as one Pallas pass over the belief matrix
 (``consul_tpu/gossip/fused.py::_fused_single``): age, ``fanout``
 circulant pin deliveries, priority-max merge and Lifeguard confirmation
 counting, all in one read and one write of ``heard [S, N]``.  Its port
-is the hand-written CUDA kernel ``csrc/fused_dissem.cu`` (its header
-states what it computes, its bound and its design), wrapped here by
-``fused_dissem``.
+is the hand-written CUDA kernel of ``csrc/dissem_tail.cu``, entry point
+``fused_dissem``, wrapped here by ``fused_dissem``.
 
-Sharded (``sc`` set, the reference's ``_fused_sharded``): the pins cross
-shard boundaries, so the halo hop (``kernel._roll_sharded``) rolls them
-first into ``[fanout, S, L]`` per shard, and a second kernel,
-``csrc/fused_merge.cu`` (wrapper ``fused_merge``), applies the same age,
-budget mask, priority-max merge and confirmation count elementwise to
-one shard.  Both kernels take the per-byte rule from
-``csrc/belief_merge.cuh``.
+Sharded (``sc`` set, the reference's ``_fused_sharded`` after its halo
+hop): ``heard`` is a tuple of ``[S, L]`` column shards and a pin crosses
+shard boundaries.  The entry point ``fused_merge`` (wrapper
+``fused_merge``) merges every shard in one launch, reading each pin
+straight from the shard that holds it.  Both entry points run one kernel
+body (a table of column shards; the single-device round is the table of
+one) and one rule (``csrc/belief_merge.cuh``, four belief bytes to a
+32-bit word); the sources state what they compute, their bound and
+their design.
 
-``disseminate_ref`` and ``merge_ref`` are the same functions in plain
-torch, per byte on int32 lanes, exactly as the reference's
-``_age_u8``/``_merge`` spell them.  ``disseminate`` — what the round
-calls — takes the plain versions only for CPU tensors; for CUDA tensors
-it launches the kernels or raises.  There is no fallback.
+``disseminate_ref``, ``merge_ref`` and ``merge_shards_ref`` are the same
+functions in plain torch, per byte on int32 lanes, exactly as the
+reference's ``_age_u8``/``_merge`` spell them; ``merge_shards_ref`` is
+the sharded tail as the reference composes it (``_roll_sharded`` into
+pins, the rolled sender masks, ``merge_ref`` per shard).
+``disseminate`` — what the round calls — takes the plain versions only
+for CPU tensors; for CUDA tensors it launches the kernels or raises.
+There is no fallback.
 """
 
 from __future__ import annotations
@@ -39,7 +43,11 @@ from consul_tpu_torch.gossip.kernel import (_AGE_FRESH, _AGE_MASK,
 from consul_tpu_torch.gossip.params import SwimParams
 from consul_tpu_torch.ops.divisibility import require_divisible
 
-MAX_FANOUT = 8  # kMaxFanout of csrc/fused_dissem.cu and csrc/fused_merge.cu
+MAX_FANOUT = 8   # kMaxFanout of csrc/dissem_tail.cu
+MAX_SHARDS = 64  # kMaxShards: the shard table in the kernel's parameters
+# The word rule's budget test is exact for these budgets only
+# (csrc/belief_merge.cuh); SwimParams.spread_budget_rounds stays inside.
+BUDGET_RANGE = (1, 14)
 
 # Kernel launches made by ``fused_dissem`` (one per launch, nowhere else).
 launches = 0
@@ -103,11 +111,10 @@ def disseminate_ref(p: SwimParams, rnd: int, offs, heard: torch.Tensor,
 def merge_ref(p: SwimParams, cur: torch.Tensor, pins: torch.Tensor,
               src: torch.Tensor, rx: torch.Tensor,
               cap: torch.Tensor) -> torch.Tensor:
-    """The plain torch version of ``fused_merge``, on any device: the
-    reference's ``_fused_sharded`` body on one shard.  ``cur`` u8
-    [S, L]; ``pins`` u8 [F, S, L], aligned with ``cur``; ``src`` bool
-    [F, L], the live senders of each leg; ``rx`` bool [L]; ``cap`` i32
-    [S]."""
+    """The reference's ``_fused_sharded`` body on one shard, in plain
+    torch, on any device.  ``cur`` u8 [S, L]; ``pins`` u8 [F, S, L],
+    aligned with ``cur``; ``src`` bool [F, L], the live senders of each
+    leg; ``rx`` bool [L]; ``cap`` i32 [S]."""
     out = _merge(p, _age_u8(cur.to(torch.int32)),
                  [_age_u8(pin.to(torch.int32)) for pin in pins],
                  [s[None, :] for s in src], rx[None, :],
@@ -115,35 +122,66 @@ def merge_ref(p: SwimParams, cur: torch.Tensor, pins: torch.Tensor,
     return out.to(torch.uint8)
 
 
+def merge_shards_ref(p: SwimParams, rnd: int, offs, heard, mf: torch.Tensor,
+                     rx_ok: torch.Tensor, conf_cap: torch.Tensor, sc):
+    """The plain torch version of ``fused_merge``, on any device: the
+    reference's sharded tail.  The halo hop rolls each leg's pins into a
+    [F, S, L] buffer per shard, the rolled ``mf > rnd`` gives each leg's
+    live senders, and ``merge_ref`` merges each shard."""
+    S, L = heard[0].shape
+    pins = [h.new_empty((len(offs), S, L)) for h in heard]
+    for f, o in enumerate(offs):
+        _roll_sharded(sc, heard, o, out=[pin[f] for pin in pins])
+    return tuple(
+        merge_ref(p, h, pins[i],
+                  torch.stack([_sloc_roll(sc, mf, o, i) > rnd for o in offs]),
+                  _sloc(sc, rx_ok, i), conf_cap)
+        for i, h in enumerate(heard))
+
+
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _array(ctype, n: int):
+    """The ctypes array type of ``n`` ``ctype``s (built once)."""
+    return ctype * n
+
+
 _ARGTYPES = {  # C entry point -> its argument types (pointers, ints, stream)
     "fused_dissem": [_VP] * 5 + [_CI] * 3 + [ctypes.POINTER(_CI)]
                     + [_CI] * 2 + [_VP],
-    "fused_merge": [_VP] * 6 + [_CI] * 4 + [_VP],
+    "fused_merge": [ctypes.POINTER(_VP), _CI] + [_VP] * 4 + [_CI] * 3
+                   + [ctypes.POINTER(_CI)] + [_CI] * 4 + [_VP],
 }
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(name: str) -> ctypes.CDLL:
-    """``csrc/<name>.cu``, built and loaded, with its entry point
-    ``<name>`` and its error-string function ``<name>_error`` typed."""
+def _lib(name: str):
+    """The entry point ``<name>`` of ``csrc/dissem_tail.cu``, built and
+    loaded, and the library's error-string function, both typed."""
     from consul_tpu_torch import _build
-    lib = _build.load(name)
-    fn, err = getattr(lib, name), getattr(lib, f"{name}_error")
+    lib = _build.load("dissem_tail")
+    fn, err = getattr(lib, name), lib.dissem_tail_error
     fn.argtypes, fn.restype = _ARGTYPES[name], _CI
     err.argtypes, err.restype = [_CI], ctypes.c_char_p
-    return lib
+    return fn, err
 
 
-def _launch(name: str, *args) -> None:
-    """Call ``<name>`` on the current stream of the current device;
-    raise if the launch was refused."""
-    lib = _lib(name)
-    rc = getattr(lib, name)(*args,
-                            torch.cuda.current_stream().cuda_stream)
+def _launch(name: str, dev: torch.device, *args) -> None:
+    """Call ``<name>`` on the current stream of ``dev`` (its raw handle,
+    without building a ``torch.cuda.Stream``); raise if the launch was
+    refused.  Switches the current device only when ``dev`` is not
+    already current."""
+    fn, err = _lib(name)
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    if torch.cuda.current_device() == dev.index:
+        rc = fn(*args, raw_stream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, raw_stream(dev.index))
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{getattr(lib, name + '_error')(rc).decode()}")
+        raise RuntimeError(f"{name} launch failed: {err(rc).decode()}")
 
 
 def _require_cuda(name: str, t: torch.Tensor) -> None:
@@ -161,17 +199,22 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_fanout(F: int) -> None:
-    if not 1 <= F <= MAX_FANOUT:
-        raise ValueError(f"fanout must be in [1, {MAX_FANOUT}], got {F}")
+def _check_legs(offs, budget: int) -> None:
+    if not 1 <= len(offs) <= MAX_FANOUT:
+        raise ValueError(f"fanout must be in [1, {MAX_FANOUT}], "
+                         f"got {len(offs)}")
+    lo, hi = BUDGET_RANGE
+    if not lo <= budget <= hi:
+        raise ValueError(f"budget must be in [{lo}, {hi}], got {budget}")
 
 
 def fused_dissem(heard: torch.Tensor, offs, mf: torch.Tensor,
                  rx_ok: torch.Tensor, conf_cap: torch.Tensor, rnd: int,
                  budget: int) -> torch.Tensor:
-    """Launch ``csrc/fused_dissem.cu`` on CUDA tensors; returns a new
-    ``[S, N]`` u8 tensor.  Launches on the current stream and does not
-    synchronise.  Raises on anything the kernel does not take."""
+    """Launch ``fused_dissem`` of ``csrc/dissem_tail.cu`` on CUDA
+    tensors (the arguments of ``disseminate_ref``; caps >= 0); returns a
+    new ``[S, N]`` u8 tensor.  Launches on the current stream and does
+    not synchronise.  Raises on anything the kernel does not take."""
     global launches
     _require_cuda("fused_dissem", heard)
     if heard.dim() != 2 or heard.dtype != torch.uint8:
@@ -183,72 +226,70 @@ def fused_dissem(heard: torch.Tensor, offs, mf: torch.Tensor,
     _check("mf", mf, torch.int32, (N,), dev)
     _check("rx_ok", rx_ok, torch.bool, (N,), dev)
     _check("conf_cap", conf_cap, torch.int32, (S,), dev)
-    _check_fanout(len(offs))
+    budget = int(budget)
+    _check_legs(offs, budget)
     out = torch.empty_like(heard)
     if heard.numel() == 0:
         return out
-    c_offs = (ctypes.c_int * len(offs))(*(int(o) % N for o in offs))
-    with torch.cuda.device(dev):
-        _launch("fused_dissem", heard.data_ptr(), out.data_ptr(),
-                mf.data_ptr(), rx_ok.data_ptr(), conf_cap.data_ptr(), S, N,
-                len(offs), c_offs, int(rnd), int(budget))
+    c_offs = _array(_CI, len(offs))(*(int(o) % N for o in offs))
+    _launch("fused_dissem", dev, heard.data_ptr(), out.data_ptr(),
+            mf.data_ptr(), rx_ok.data_ptr(), conf_cap.data_ptr(), S, N,
+            len(offs), c_offs, int(rnd), budget)
     launches += 1
     return out
 
 
-def fused_merge(cur: torch.Tensor, pins: torch.Tensor, src: torch.Tensor,
-                rx: torch.Tensor, cap: torch.Tensor,
-                budget: int) -> torch.Tensor:
-    """Launch ``csrc/fused_merge.cu`` on CUDA tensors (the arguments of
-    ``merge_ref``); returns a new ``[S, L]`` u8 tensor.  Launches on the
-    current stream and does not synchronise.  Raises on anything the
-    kernel does not take."""
+def fused_merge(heard, offs, mf: torch.Tensor, rx_ok: torch.Tensor,
+                conf_cap: torch.Tensor, rnd: int, budget: int):
+    """Launch ``fused_merge`` of ``csrc/dissem_tail.cu`` on a tuple of
+    CUDA shards (the arguments of ``merge_shards_ref`` but ``p`` and
+    ``sc``: ``heard`` is ``ndev`` u8 [S, L] shards, ``mf``/``rx_ok`` the
+    global [N] vectors, caps >= 0): every shard in one launch.  Returns
+    the tuple of the merged shards, views ``out[i]`` of one new
+    [ndev, S, L] buffer.  Launches on the current stream and does not
+    synchronise.  Raises on anything the kernel does not take."""
     global merge_launches
-    _require_cuda("fused_merge", cur)
-    if cur.dim() != 2 or pins.dim() != 3:
-        raise ValueError(f"cur must be [S, L] and pins [F, S, L], got "
-                         f"{list(cur.shape)} and {list(pins.shape)}")
-    S, L = cur.shape
-    F = pins.shape[0]
-    dev = cur.device
-    _check_fanout(F)
-    if S * L >= 2**31:
-        raise ValueError(f"S * L must be below 2**31, got {S * L}")
-    _check("cur", cur, torch.uint8, (S, L), dev)
-    _check("pins", pins, torch.uint8, (F, S, L), dev)
-    _check("src", src, torch.bool, (F, L), dev)
-    _check("rx", rx, torch.bool, (L,), dev)
-    _check("cap", cap, torch.int32, (S,), dev)
-    out = torch.empty_like(cur)
-    if cur.numel() == 0:
-        return out
-    with torch.cuda.device(dev):
-        _launch("fused_merge", cur.data_ptr(), pins.data_ptr(),
-                src.data_ptr(), rx.data_ptr(), cap.data_ptr(), out.data_ptr(),
-                S, L, F, int(budget))
+    ndev = len(heard)
+    if not 1 <= ndev <= MAX_SHARDS:
+        raise ValueError(f"fused_merge takes 1 to {MAX_SHARDS} shards, "
+                         f"got {ndev}")
+    _require_cuda("fused_merge", heard[0])
+    if heard[0].dim() != 2:
+        raise ValueError(f"each shard must be [S, L], got "
+                         f"{list(heard[0].shape)}")
+    S, L = heard[0].shape
+    N = ndev * L
+    dev = heard[0].device
+    if N >= 2**31 - 16:
+        raise ValueError(f"ndev * L must be below 2**31 - 16, got {N}")
+    for i, h in enumerate(heard):
+        _check(f"shard {i}", h, torch.uint8, (S, L), dev)
+    _check("mf", mf, torch.int32, (N,), dev)
+    _check("rx_ok", rx_ok, torch.bool, (N,), dev)
+    _check("conf_cap", conf_cap, torch.int32, (S,), dev)
+    budget = int(budget)
+    _check_legs(offs, budget)
+    out = torch.empty((ndev, S, L), dtype=torch.uint8, device=dev)
+    if out.numel() == 0:
+        return out.unbind(0)
+    table = _array(_VP, ndev)(*(h.data_ptr() for h in heard))
+    c_offs = _array(_CI, len(offs))(*(int(o) % N for o in offs))
+    _launch("fused_merge", dev, table, ndev, out.data_ptr(), mf.data_ptr(),
+            rx_ok.data_ptr(), conf_cap.data_ptr(), S, L, len(offs), c_offs,
+            int(rnd), budget, 0, ndev)
     merge_launches += 1
-    return out
+    return out.unbind(0)
 
 
 def _disseminate_sharded(p: SwimParams, rnd: int, offs, heard, mf, rx_ok,
                          conf_cap, sc):
-    """The reference's ``_fused_sharded``: the halo hop rolls each leg's
-    pins into a [F, S, L] buffer per shard, then one merge per shard —
-    the kernel on a CUDA tensor, its plain version on a CPU tensor."""
-    S, L = heard[0].shape
-    pins = [h.new_empty((len(offs), S, L)) for h in heard]
-    for f, o in enumerate(offs):
-        _roll_sharded(sc, heard, o, out=[pin[f] for pin in pins])
-    out = []
-    for i, h in enumerate(heard):
-        src = torch.stack([_sloc_roll(sc, mf, o, i) > rnd for o in offs])
-        rx = _sloc(sc, rx_ok, i)
-        if h.device.type == "cpu":
-            out.append(merge_ref(p, h, pins[i], src, rx, conf_cap))
-        else:
-            out.append(fused_merge(h, pins[i], src, rx, conf_cap,
-                                   p.spread_budget_rounds))
-    return tuple(out)
+    """The reference's ``_fused_sharded`` with its halo hop: one launch
+    for all shards on CUDA tensors, the plain composition on CPU
+    tensors."""
+    if heard[0].device.type == "cpu":
+        return merge_shards_ref(p, rnd, offs, heard, mf, rx_ok, conf_cap, sc)
+    return fused_merge(heard, offs, mf, rx_ok, conf_cap, rnd,
+                       p.spread_budget_rounds)
 
 
 def disseminate(p: SwimParams, rnd: int, offs, heard, mf: torch.Tensor,

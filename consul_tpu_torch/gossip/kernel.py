@@ -244,8 +244,10 @@ def _timeout_table(p: SwimParams, device: torch.device) -> torch.Tensor:
 # prober block) is a host int, so each shard boundary is host
 # arithmetic and the sharded round makes no device->host read that the
 # single-device round does not.  Bytes cross between shards only in
-# ``_roll_sharded`` and ``_psum``; placing the shards on several cards
-# changes those two.
+# ``_roll_sharded``, ``_psum`` and the dissemination tail's merge kernel
+# (``fused.fused_merge``, which reads its pins from every shard through a
+# table of shard pointers); placing the shards on several cards changes
+# those three.
 
 class _ShardCtx(NamedTuple):
     """Sharding context threaded through the round phases; ``None``

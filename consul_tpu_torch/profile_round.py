@@ -8,14 +8,18 @@ hot_slots=0)``, churn failures on a stride) for ``WARM`` rounds, then
 twice ``--rounds`` more and prints one JSON line.  With ``--ndev N`` the
 rounds are the sharded round (``run_rounds_sharded``, N column shards on
 the card), and the phases add the sharded round's own: the halo pins
-(``_roll_sharded`` inside the dissemination tail), the per-shard merge
-kernel launches (``fused_merge``) and the probe tick's window read and
-write.
+(``_roll_sharded``, which only the plain version runs now: the card's
+merge reads its pins from the shards, so the phase must show no calls),
+the merge kernel's launches (``fused_merge``, one per round for all
+shards) and the probe tick's window read and write.  The single-device
+round adds the launches of ``fused_dissem``.
 
-- pass A, no profiler: host time per round, and the host time of each
-  round phase (the probe tick, the uniform draws inside it, the
-  dissemination tail, the finish step), each phase timed by a host clock
-  around the round's own function;
+- pass A, no profiler: host time per round, and the host time and the
+  calls per round of each round phase (the probe tick, the uniform draws
+  inside it, the dissemination tail, the finish step, the kernel
+  wrappers), each phase timed by a host clock around the round's own
+  function; a kernel wrapper's host time over its calls is its host cost
+  per launch;
 - pass B, under torch.profiler: the device kernels' time per round (busy
   time), each phase's device time (the kernels launched inside it), the
   number of kernels per round, and the ops and kernels that take the
@@ -48,6 +52,9 @@ PHASES = {  # label -> (module, attribute) of the function timed
     "disseminate": (kernel, "_disseminate"),
     "finish_round": (kernel, "_finish_round"),
 }
+SINGLE_PHASES = {  # the single-device round's own
+    "dissem_launches": (fused, "fused_dissem"),
+}
 SHARDED_PHASES = {  # the sharded round's own, inside the phases above
     "halo_pins": (fused, "_roll_sharded"),
     "merge_launches": (fused, "fused_merge"),
@@ -62,7 +69,8 @@ def _timed(label, fn, acc):
         try:
             return fn(*a, **kw)
         finally:
-            acc[label] = acc.get(label, 0.0) + time.perf_counter() - t0
+            s, n = acc.get(label, (0.0, 0))
+            acc[label] = (s + time.perf_counter() - t0, n + 1)
     return wrapped
 
 
@@ -97,7 +105,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA card")
     dev = torch.device("cuda")
-    phases = dict(PHASES, **(SHARDED_PHASES if args.ndev else {}))
+    phases = dict(PHASES,
+                  **(SHARDED_PHASES if args.ndev else SINGLE_PHASES))
 
     def run(st, steps):
         if args.ndev:
@@ -140,8 +149,12 @@ def main(argv=None) -> int:
                              ProfilerActivity.CUDA]) as prof:
         state, wall_b = measured_pass(_annotated, None, state)
 
-    timed = {k: {"host_ms_per_round": v * 1e3 / R, "device_ms_per_round": 0.0}
-             for k, v in host_s.items()}
+    timed = {}
+    for k in phases:
+        s, n = host_s.get(k, (0.0, 0))
+        timed[k] = {"host_ms_per_round": s * 1e3 / R, "calls_per_round": n / R,
+                    "host_us_per_call": s * 1e6 / n if n else None,
+                    "device_ms_per_round": 0.0}
     for e in prof.events():
         if e.name in timed and e.device_type == DeviceType.CPU:
             timed[e.name]["device_ms_per_round"] += _device_us(e) / 1e3 / R

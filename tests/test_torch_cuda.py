@@ -1,5 +1,6 @@
 """The port on a CUDA card: the Hopper kernels (fused_dissem and the
-sharded round's fused_merge) against their plain torch versions, the
+sharded round's all-shards fused_merge) against their plain torch
+versions, the
 whole round loop on the card against the same loop on the CPU, and the
 sharded round on the card against the single-device round on the card.
 Exact: belief bytes and every state field are compared bit for bit.
@@ -88,26 +89,28 @@ def test_round_on_card_matches_cpu():
 @pytest.mark.parametrize("shape", [(8, 125), (64, 1000), (3, 1001),
                                    (7, 4099)])
 def test_merge_kernel_matches_plain_on_card(shape):
-    """fused_merge against merge_ref, ragged S * L included, at fanouts
-    1, 3 and 8."""
+    """fused_merge (all shards in one launch) against merge_shards_ref,
+    ragged L included, on 1, 2, 4 and 8 shards, at fanouts 1, 3 and 8,
+    with offsets above L."""
     _need_card()
     S, L = shape
     rng = np.random.default_rng(S * L)
-    for F in (1, 3, 8):
-        cur = torch.from_numpy(rng.integers(0, 256, (S, L)).astype(
-            np.uint8)).cuda()
-        pins = torch.from_numpy(rng.integers(0, 256, (F, S, L)).astype(
-            np.uint8)).cuda()
-        src = torch.from_numpy(rng.random((F, L)) < 0.7).cuda()
-        rx = torch.from_numpy(rng.random(L) < 0.9).cuda()
-        cap = torch.from_numpy(rng.integers(0, 4, (S,)).astype(
-            np.int32)).cuda()
-        p = SwimParams(n=L, slots=S, fanout=F)
-        ref = fused.merge_ref(p, cur, pins, src, rx, cap)
-        out = fused.fused_merge(cur, pins, src, rx, cap,
-                                p.spread_budget_rounds)
-        torch.cuda.synchronize()
-        assert torch.equal(out, ref), (shape, F)
+    for ndev in (1, 2, 4, 8):
+        N = ndev * L
+        heard, mf, rx_ok, cap = (torch.from_numpy(a).cuda() for a in
+                                 _random_round_inputs(S, N, seed=N + S))
+        shards = tuple(h.contiguous() for h in heard.split(L, dim=1))
+        sc = tk._ShardCtx(ndev, L)
+        for F in (1, 3, 8):
+            offs = ([1, N - 1, L + 3] + rng.integers(1, N, F).tolist())[:F]
+            p = SwimParams(n=N, slots=S, fanout=F)
+            ref = fused.merge_shards_ref(p, 50, offs, shards, mf, rx_ok, cap,
+                                         sc)
+            out = fused.fused_merge(shards, offs, mf, rx_ok, cap, 50,
+                                    p.spread_budget_rounds)
+            torch.cuda.synchronize()
+            for i in range(ndev):
+                assert torch.equal(out[i], ref[i]), (shape, ndev, F, i)
 
 
 def test_sharded_round_on_card_matches_single_on_card():

@@ -150,12 +150,10 @@ def test_wrapper_never_falls_back():
     assert fused.launches == before  # the CPU path launches nothing
 
     # Kernel 2, fused_merge, and the sharded tail that routes to it.
-    pins = torch.zeros((3, S, N), dtype=torch.uint8)
-    src = torch.ones((3, N), dtype=torch.bool)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        fused.fused_merge(heard, pins, src, rx, cap, 3)
     sc = tk._ShardCtx(2, N // 2)
     shards = tuple(h.contiguous() for h in heard.split(N // 2, dim=1))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused.fused_merge(shards, [1, 2, 3], mf, rx, cap, 5, 3)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused.disseminate(p, 5, [1, 2, 3],
                           tuple(h.to("meta") for h in shards), *meta[1:],
@@ -166,8 +164,8 @@ def test_wrapper_never_falls_back():
 
 
 def test_import_builds_nothing(tmp_path):
-    """Importing the port compiles no kernel, neither fused_dissem nor
-    fused_merge (the build runs at the first launch on a card)."""
+    """Importing the port compiles no kernel, neither fused_dissem's nor
+    fused_merge's (the build runs at the first launch on a card)."""
     code = ("import consul_tpu_torch.gossip.fused as f, "
             "consul_tpu_torch.gossip.kernel, consul_tpu_torch._build as b; "
             "assert f._lib.cache_info().currsize == 0 and not b.build_logs; "
@@ -180,23 +178,22 @@ def test_import_builds_nothing(tmp_path):
 
 
 def test_library_hash_covers_headers(tmp_path, monkeypatch):
-    """An edit to a shared header under csrc/ changes the library path of
-    every kernel, so a stale library is never loaded; an edit to one
-    kernel's source changes only its own."""
+    """An edit to the rule's header under csrc/ changes the kernels'
+    library path, so a stale library is never loaded; so does an edit to
+    the kernel's source, and an unchanged tree keeps its path."""
     from consul_tpu_torch import _build
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    names = ("fused_dissem", "fused_merge")
-    before = {n: _build.library_path(n) for n in names}
+    before = _build.library_path("dissem_tail")
+    assert _build.library_path("dissem_tail") == before
     header = csrc / "belief_merge.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    after = {n: _build.library_path(n) for n in names}
-    assert all(before[n] != after[n] for n in names)
-    src = csrc / "fused_merge.cu"
+    after = _build.library_path("dissem_tail")
+    assert after != before
+    src = csrc / "dissem_tail.cu"
     src.write_text(src.read_text() + "\n// edited\n")
-    assert _build.library_path("fused_merge") != after["fused_merge"]
-    assert _build.library_path("fused_dissem") == after["fused_dissem"]
+    assert _build.library_path("dissem_tail") not in (before, after)
 
 
 @pytest.mark.parametrize("alone", [False, True])
