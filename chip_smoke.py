@@ -51,15 +51,48 @@ result lines are not printed.
     peak device memory; the final state, unsharded, must equal phase 9's
     field by field.  Then the healthy regime (no churn, single-device)
     for rounds/s.
+11. events: the user-event flood (``gossip/events.py``) at E = 64,
+    n = 16,000 for 300 rounds (fires with overflow, -1 entries and
+    repeated nodes, push/pull rounds, an alive mask with holes, slot GC
+    and reuse) on the card and on the CPU: every field and the coverage
+    trace bit-identical.  Then at [64, 1M] with the plane's parameters:
+    one fired event must reach coverage >= 0.99 within
+    ``event_ttl_rounds``; the event round's time (CUDA events over 100
+    rounds ending in a device->host read) and peak device memory.
+12. plane: the port's gossip plane in this process on the card, universe
+    1M (capacity 1,024 + 998,976 simulated nodes, 64 slots, 64 event
+    slots, 20 ms rounds, suspicion_mult 1.0, 0.3 s heartbeat lapse),
+    serving 8 bridge clients (4-byte big-endian length + msgpack):
+    every client sees member-join for all the others; a user event
+    reaches every client and ``event_coverage()`` reaches 0.99; one
+    client stops its heartbeats and every other client gets
+    member-failed for it and for no one else; the stats frame shows
+    ``n_false_dead == 0``; ``fused_dissem`` launched; the device frame
+    reports the card's memory; the profile frame has no error; no tick
+    error on stderr.  Rounds/s sustained, dispatch p50/p99 from the
+    device frame, peak device memory.  Then the join and failure flow
+    again with ``shard_devices=8``: ``fused_merge`` launched.
+13. gossipd: ``python -m consul_tpu_torch.gossipd`` as a subprocess on
+    the card at a small capacity; one client registers, gets its welcome
+    and a stats frame; SIGTERM; exit code 0.
 
-Then the kernels line and, last, the ok line.  Needs one CUDA card:
-without one it exits 2 before printing anything else.  Imports nothing
-of JAX and nothing of the JAX package.
+Then the kernels line (each kernel's launches on the main path, and on
+the plane's path as ``plane_launches``) and, last, the ok line.  Needs
+one CUDA card: without one it exits 2 before printing anything else.
+Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import asyncio
+import contextlib
+import io
 import json
+import os
+import select
+import signal
+import socket
+import struct
 import subprocess
 import sys
 import time
@@ -67,9 +100,11 @@ import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import msgpack
 import numpy as np
 import torch
 
+ROOT = Path(__file__).resolve().parent
 NEVER = 2**31 - 1
 # H100 SXM peaks (NVIDIA data sheet, 700 W): the device memory rate, and
 # the 8-bit integer rate of the tensor cores.  The merge's compares, maxima
@@ -553,6 +588,349 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
     return res, state
 
 
+# -- the event flood -----------------------------------------------------------
+
+def _events_16k(dev, p, alive, fires, seed):
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import events
+
+    key = prng.key(seed)
+    al = torch.from_numpy(alive).to(dev)
+    st = events.init_events(p, slots=64, device=dev)
+    covs = []
+    for nodes, steps in fires:
+        st = events.fire_events(st, torch.from_numpy(nodes))
+        st, cov = events.run_event_rounds(st, key, al, p, steps)
+        covs.append(cov)
+    return st, torch.cat(covs)
+
+
+def events_phase(seed: int = 21) -> dict:
+    """The event flood on the card against the CPU at n = 16,000, then
+    its time and its coverage gate at [64, 1M]."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import events
+    from consul_tpu_torch.gossip.params import SwimParams, lan_profile
+
+    n = 16_000
+    # push/pull every 10 rounds: 30 push/pull rounds, and slots freed by
+    # GC (event_ttl_rounds = 155) before the second batch fires.
+    p = lan_profile(n, pushpull_every=10)
+    rng = np.random.default_rng(seed)
+    alive = rng.random(n) >= 0.1
+    first = rng.integers(0, n, 72).astype(np.int32)
+    first[[3, 17, 40]] = -1
+    first[50:54] = first[10]          # repeated nodes; 69 fires > 64 slots
+    second = rng.integers(0, n, 12).astype(np.int32)
+    second[5] = -1
+    fires = [(first, 200), (second, 100)]
+    t0 = time.perf_counter()
+    st_g, cov_g = _events_16k("cuda", p, alive, fires, seed)
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t0
+    st_c, cov_c = _events_16k("cpu", p, alive, fires, seed)
+    diverged = _diverged([(st_g, st_c)])
+    if not torch.equal(cov_g.cpu(), cov_c):
+        diverged.append("coverage")
+    drops = int(st_c.drops)
+
+    # [64, 1M] with the plane's parameters (SwimParams defaults).
+    N = 1_000_000
+    pm = SwimParams(n=N, slots=64)
+    key = prng.key(seed)
+    alive_m = torch.ones(N, dtype=torch.bool, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    st = events.init_events(pm, slots=64, device="cuda")
+    st = events.fire_events(st, torch.tensor([12345], dtype=torch.int32))
+    st, cov = events.run_event_rounds(st, key, alive_m, pm,
+                                      pm.event_ttl_rounds)
+    trace = cov[:, 0].cpu().tolist()
+    reached = next((r + 1 for r, c in enumerate(trace) if c >= 0.99), None)
+    st = events.fire_events(st, torch.from_numpy(
+        rng.integers(0, N, 64).astype(np.int32)))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    st, cov = events.run_event_rounds(st, key, alive_m, pm, 100)
+    int(st.round)
+    end.record()
+    end.synchronize()
+    res = {"phase": "events", "n": n, "slots": 64, "rounds": 300,
+           "drops": drops, "cuda_s": cuda_s, "diverged": diverged,
+           "n_1m": N, "event_ttl_rounds": pm.event_ttl_rounds,
+           "coverage_trace_1m": trace, "rounds_to_coverage_99": reached,
+           "event_round_ms_1m": start.elapsed_time(end) / 100,
+           "max_memory_allocated_1m": torch.cuda.max_memory_allocated()}
+    emit(res)
+    if diverged:
+        raise AssertionError(f"card and CPU event floods diverged in "
+                             f"{diverged}")
+    if drops == 0:
+        raise AssertionError("the 16,000-node flood overflowed no slot")
+    if reached is None:
+        raise AssertionError(f"one event did not reach 0.99 of 1M nodes "
+                             f"within {pm.event_ttl_rounds} rounds: {trace}")
+    return res
+
+
+# -- the gossip plane ------------------------------------------------------------
+
+EV_JOIN, EV_FAILED = "member-join", "member-failed"
+
+
+class _Client:
+    """A minimal bridge client: 4-byte big-endian length + msgpack, a
+    heartbeat at the welcome's interval, every received frame kept."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.frames = []
+        self.beating = True
+        self._tasks = []
+
+    def send(self, msg: dict) -> None:
+        raw = msgpack.packb(msg, use_bin_type=True)
+        self.writer.write(struct.pack(">I", len(raw)) + raw)
+
+    async def _read(self) -> dict:
+        (ln,) = struct.unpack(">I", await self.reader.readexactly(4))
+        return msgpack.unpackb(await self.reader.readexactly(ln), raw=False)
+
+    async def start(self, port: int) -> None:
+        self.reader, self.writer = await asyncio.open_connection(
+            "127.0.0.1", port)
+        self.send({"t": "register", "name": self.name, "addr": "127.0.0.1",
+                   "port": 0, "tags": {"role": "node"}})
+        self.welcome = await self._read()
+        if self.welcome.get("t") != "welcome":
+            raise AssertionError(f"{self.name}: {self.welcome}")
+        loop = asyncio.get_running_loop()
+        self._tasks = [loop.create_task(self._pump()),
+                       loop.create_task(self._beat())]
+
+    async def _pump(self) -> None:
+        while True:
+            self.frames.append(await self._read())
+
+    async def _beat(self) -> None:
+        period = self.welcome["hb_interval_s"]
+        while self.beating:
+            self.send({"t": "hb"})
+            await asyncio.sleep(period)
+
+    def members_with(self, kind: str) -> set:
+        out = set()
+        for f in self.frames:
+            evs = (f["events"] if f["t"] == "evbatch" else
+                   [f] if f["t"] == "ev" else [])
+            out |= {e["node"]["name"] for e in evs if e["kind"] == kind}
+        return out
+
+    def got_user(self, name: str) -> bool:
+        return any(f["t"] == "user" and f["name"] == name
+                   for f in self.frames)
+
+    async def query(self, t: str, timeout: float = 60.0, **kw) -> dict:
+        seen = len(self.frames)
+        self.send({"t": t, **kw})
+        await _until(lambda: any(f["t"] == t for f in self.frames[seen:]),
+                     timeout, f"{self.name}: {t} reply")
+        return next(f for f in self.frames[seen:] if f["t"] == t)
+
+    async def close(self) -> None:
+        for task in self._tasks:
+            task.cancel()
+        if getattr(self, "writer", None) is not None:
+            self.writer.close()
+
+
+async def _until(cond, timeout: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"timed out after {timeout} s: {what}")
+        await asyncio.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+async def _plane_run(ndev: int, full: bool, n_clients: int = 8) -> dict:
+    from consul_tpu_torch.gossip import fused
+    from consul_tpu_torch.gossip import plane as gp
+
+    cfg = gp.PlaneConfig(
+        bind_port=0, capacity=1024, sim_nodes=998_976, slots=64,
+        event_slots=64, gossip_interval_s=0.02, probe_every=5,
+        suspicion_mult=1.0, hb_lapse_s=0.3, shard_devices=ndev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    plane = gp.GossipPlane(cfg)
+    t0 = time.perf_counter()
+    await plane.start()
+    res = {"phase": "plane", "n": plane.n_universe, "ndev": plane._ndev,
+           "start_s": time.perf_counter() - t0}
+    # The event-coverage observable after every event dispatch (the
+    # flood's slot is recycled event_ttl_rounds after it fires).
+    cov_max = {}
+    event_dispatch = plane._dispatch_events
+
+    def tracked():
+        event_dispatch()
+        if plane._ev_meta:
+            for s, c in plane.event_coverage().items():
+                cov_max[s] = max(cov_max.get(s, 0.0), c)
+
+    plane._dispatch_events = tracked
+    clients = [_Client(f"agent-{i}") for i in range(n_clients)]
+    try:
+        t_serve = time.perf_counter()
+        await asyncio.gather(*(c.start(plane.local_addr[1]) for c in clients))
+        names = {c.name for c in clients}
+        res["join_s"] = await _until(lambda: all(
+            c.members_with(EV_JOIN) >= names - {c.name} for c in clients),
+            60, "member-join for every other client")
+        if full:
+            clients[0].send({"t": "event", "name": "deploy",
+                             "payload": b"v2", "coalesce": True})
+            res["user_event_s"] = await _until(lambda: all(
+                c.got_user("deploy") for c in clients), 30,
+                "the user event at every client")
+            res["coverage_s"] = await _until(
+                lambda: max(cov_max.values(), default=0.0) >= 0.99, 30,
+                "event coverage >= 0.99")
+            res["event_coverage_max"] = max(cov_max.values())
+        victim, others = clients[-1], clients[:-1]
+        victim.beating = False
+        res["failure_s"] = await _until(lambda: all(
+            victim.name in c.members_with(EV_FAILED) for c in others),
+            120, f"member-failed for {victim.name} at every other client")
+        res["failed_others"] = sorted(
+            set().union(*(c.members_with(EV_FAILED) for c in others))
+            - {victim.name})
+        stats = await others[0].query("stats")
+        res["rounds"] = plane._rounds_done
+        res["rounds_per_s"] = plane._rounds_done / (time.perf_counter()
+                                                    - t_serve)
+        res["kernel"] = stats["kernel"]
+        if full:
+            res["members"] = len((await others[0].query("members"))
+                                 ["members"])
+            device = await others[0].query("device")
+            disp = device["dispatch"]["round_step"]
+            res["dispatch"] = {"count": disp["count"],
+                               "p50_ms": disp["p50_ms"],
+                               "p99_ms": disp["p99_ms"],
+                               "mean_ms": disp["sum_ms"] / disp["count"]}
+            res["compile_wall_s"] = device["compile"]["wall_s"]
+            res["roofline"] = device["roofline"]
+            res["device_rows"] = device["devices"]
+            profile = await others[0].query("profile", steps=8)
+            res["profile"] = {k: profile.get(k) for k in (
+                "rounds", "round_ms", "device_ms_per_round",
+                "roofline_utilization", "error")}
+            # The card's idle share in an unprofiled dispatch: its busy
+            # time per round (profiled) over the host's (dispatch mean).
+            if profile.get("device_ms_per_round") is not None:
+                res["device_idle_share"] = 1 - (
+                    profile["device_ms_per_round"]
+                    / (res["dispatch"]["mean_ms"] / gp.STEPS_PER_TICK))
+    finally:
+        for c in clients:
+            await c.close()
+        await plane.stop()
+    res.update(dissem_launches=fused.launches,
+               merge_launches=fused.merge_launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    return res
+
+
+def plane_phase(ndev: int, full: bool) -> dict:
+    """The plane on the card serving bridge clients; its ticker swallows
+    tick errors onto stderr, so stderr is captured and searched."""
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            res = asyncio.run(_plane_run(ndev, full))
+    finally:
+        sys.stderr.write(err.getvalue())
+    res["tick_errors"] = err.getvalue().count("[gossip-plane] tick error")
+    emit(res)
+    launches = res["merge_launches"] if ndev > 1 else res["dissem_launches"]
+    if res["tick_errors"] or res["failed_others"] or launches <= 0:
+        raise AssertionError(f"plane (shard_devices={ndev}): tick errors "
+                             f"{res['tick_errors']}, failed others "
+                             f"{res['failed_others']}, launches {launches}")
+    if res["kernel"]["n_false_dead"] != 0:
+        raise AssertionError(f"plane: n_false_dead {res['kernel']}")
+    if full:
+        row = res["device_rows"][0] if res["device_rows"] else {}
+        if not (row.get("hbm_bytes_limit", 0) > 0
+                and row.get("hbm_bytes_in_use", 0) > 0):
+            raise AssertionError(f"device frame without the card's memory: "
+                                 f"{res['device_rows']}")
+        if res["profile"]["error"] is not None:
+            raise AssertionError(f"profile frame: {res['profile']}")
+    return res
+
+
+# -- the daemon ------------------------------------------------------------------
+
+def _frame(sock: socket.socket) -> dict:
+    def exact(n):
+        buf = b""
+        while len(buf) < n:
+            chunk = sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("gossipd closed the connection")
+            buf += chunk
+        return buf
+    (ln,) = struct.unpack(">I", exact(4))
+    return msgpack.unpackb(exact(ln), raw=False)
+
+
+def gossipd_phase(timeout: float = 120.0) -> dict:
+    """``python -m consul_tpu_torch.gossipd`` on the card: register,
+    welcome, stats, SIGTERM, exit 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "consul_tpu_torch.gossipd", "-port", "0",
+         "-capacity", "64", "-sim-nodes", "960", "-gossip-interval", "0.05"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], timeout)
+        line = proc.stdout.readline() if ready else ""
+        if "==> gossip plane running at" not in line:
+            raise AssertionError(f"gossipd did not come up: {line!r}")
+        start_s = time.perf_counter() - t0
+        host, port = line.split(" at ")[1].split()[0].rsplit(":", 1)
+        with socket.create_connection((host, int(port)), timeout=30) as sock:
+            def send(msg):
+                raw = msgpack.packb(msg, use_bin_type=True)
+                sock.sendall(struct.pack(">I", len(raw)) + raw)
+            send({"t": "register", "name": "probe", "addr": "127.0.0.1",
+                  "port": 0, "tags": {}})
+            welcome = _frame(sock)
+            send({"t": "stats"})
+            stats = _frame(sock)
+            while stats["t"] != "stats":
+                stats = _frame(sock)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = proc.stderr.read()
+    res = {"phase": "gossipd", "line": line.strip(), "start_s": start_s,
+           "welcome_id": welcome.get("id"), "stats_capacity":
+           stats.get("capacity"), "rc": rc}
+    emit(res)
+    if welcome.get("t") != "welcome" or rc != 0:
+        raise AssertionError(f"gossipd: rc {rc}, welcome {welcome}, "
+                             f"stderr {err[-2000:]}")
+    return res
+
+
 def _churn_gates(res: dict, launches_key: str) -> None:
     if res["n_detected"] <= 0 or res["n_false_dead"] != 0:
         raise AssertionError(
@@ -567,11 +945,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
               "GPU", file=sys.stderr)
         return 2
-    if not (Path(__file__).resolve().parent / "consul_tpu_torch").is_dir():
+    if not (ROOT / "consul_tpu_torch").is_dir():
         print("chip_smoke: the port package consul_tpu_torch is not beside "
               "this script; run it from the root of a checkout",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     try:
         card()
         build()
@@ -607,14 +986,20 @@ def main() -> int:
                                  f"diverged in {diverged}")
         del churn_state, sharded_state
         main_path(1_000_000, 64, 0, warm=20, block=100, blocks=3)
+        events_phase()
+        plane1 = plane_phase(1, full=True)
+        plane8 = plane_phase(8, full=False)
+        gossipd_phase()
     except Exception:
         traceback.print_exc()
         return 1
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "fused_dissem", "route": "cuda",
         "source": "consul_tpu_torch/csrc/dissem_tail.cu",
         "replaces": "consul_tpu/gossip/fused.py:141",
         "launches": churn["kernel_launches"],
+        "plane_launches": plane1["dissem_launches"],
         "max_abs_err": big["max_abs_err"], "ms": big["ms"],
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"], "library_ms": None}, {
@@ -622,6 +1007,7 @@ def main() -> int:
         "source": "consul_tpu_torch/csrc/dissem_tail.cu",
         "replaces": "consul_tpu/gossip/fused.py:199",
         "launches": sharded["merge_launches"],
+        "plane_launches": plane8["merge_launches"],
         "max_abs_err": mbig["max_abs_err"], "ms": mbig["ms"],
         "plain_ms": mbig["plain_ms"], "bound_ms": mbig["bound_ms"],
         "bound_by": mbig["bound_by"], "library_ms": None}]})

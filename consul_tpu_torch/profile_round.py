@@ -63,6 +63,28 @@ SHARDED_PHASES = {  # the sharded round's own, inside the phases above
 }
 
 
+def timed(fn, device, iters: int = 4, warmup: int = 1) -> float:
+    """Seconds per call of ``fn()`` on ``device``: CUDA events around
+    ``iters`` warm calls on a card, the host clock on the CPU."""
+    dev = torch.device(device)
+    for _ in range(warmup):
+        fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / iters
+
+
 def _timed(label, fn, acc):
     def wrapped(*a, **kw):
         t0 = time.perf_counter()
@@ -88,11 +110,21 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _self_device_us(evt) -> float:
+def self_device_us(evt) -> float:
+    """A profiler row's own device time, microseconds."""
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def device_kernels(prof, exclude=()) -> list:
+    """The profile's device kernels (``key_averages`` rows on the card,
+    except the labels in ``exclude``), busiest first."""
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.key not in exclude),
+                  key=lambda e: -self_device_us(e))
 
 
 def main(argv=None) -> int:
@@ -158,13 +190,11 @@ def main(argv=None) -> int:
     for e in prof.events():
         if e.name in timed and e.device_type == DeviceType.CPU:
             timed[e.name]["device_ms_per_round"] += _device_us(e) / 1e3 / R
-    avgs = prof.key_averages()
-    kernels = sorted((e for e in avgs if e.device_type == DeviceType.CUDA
-                      and e.key not in phases),
-                     key=lambda e: -_self_device_us(e))
-    ops = sorted((e for e in avgs if e.key.startswith("aten::")),
-                 key=lambda e: -(_self_device_us(e) or e.self_cpu_time_total))
-    busy_us = sum(_self_device_us(e) for e in kernels)
+    kernels = device_kernels(prof, phases)
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")),
+                 key=lambda e: -(self_device_us(e) or e.self_cpu_time_total))
+    busy_us = sum(self_device_us(e) for e in kernels)
     res = {
         "device": torch.cuda.get_device_name(dev),
         "n": p.n, "slots": p.slots, "churn_ppm": args.churn_ppm,
@@ -178,11 +208,11 @@ def main(argv=None) -> int:
         "device_kernels_per_round": sum(e.count for e in kernels) / R,
         "phases": timed,
         "top_ops": [{"op": e.key, "calls_per_round": e.count / R,
-                     "device_ms_per_round": _self_device_us(e) / 1e3 / R,
+                     "device_ms_per_round": self_device_us(e) / 1e3 / R,
                      "host_ms_per_round": e.self_cpu_time_total / 1e3 / R}
                     for e in ops[:12]],
         "top_kernels": [{"kernel": e.key[:90], "calls_per_round": e.count / R,
-                         "device_ms_per_round": _self_device_us(e) / 1e3 / R}
+                         "device_ms_per_round": self_device_us(e) / 1e3 / R}
                         for e in kernels[:8]],
     }
     print(json.dumps(res), flush=True)

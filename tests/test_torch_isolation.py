@@ -211,3 +211,203 @@ def test_chip_smoke_refuses_without_card_or_repo(tmp_path, alone):
                        text=True, env=env, cwd=script.parent, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+# -- the gossip plane's copies ---------------------------------------------
+
+def test_plane_constants_match():
+    from consul_tpu.gossip import plane as jp
+    from consul_tpu_torch.gossip import plane as tp
+    for name in ("EV_JOIN", "EV_LEAVE", "EV_FAILED", "EV_UPDATE", "EV_USER",
+                 "STEPS_PER_TICK", "FLIGHT_DRAIN_EVERY", "TUNED_FIELDS",
+                 "_TUNED_AUTO"):
+        assert getattr(tp, name) == getattr(jp, name), name
+    j_fields = jp.PlaneConfig.__dataclass_fields__
+    t_fields = dict(tp.PlaneConfig.__dataclass_fields__)
+    assert t_fields.pop("device").default is None
+    assert list(j_fields) == list(t_fields)
+    j_cfg, t_cfg = jp.PlaneConfig(), tp.PlaneConfig()
+    for f in j_fields:
+        assert getattr(j_cfg, f) == getattr(t_cfg, f), f
+    assert list(jp.PlaneNode.__dataclass_fields__) == list(
+        tp.PlaneNode.__dataclass_fields__)
+    rng = np.random.default_rng(3)
+    for tags in (None, {}, {"role": "node", "dc": "dc1"}):
+        key = __import__("base64").b64encode(rng.bytes(16)).decode()
+        args = (key, "n1", "10.0.0.1", 8301, 1_700_000_000, rng.bytes(8),
+                tags)
+        assert tp.registration_proof(*args) == jp.registration_proof(*args)
+
+
+def test_knob_registry_matches_for_the_plane():
+    from consul_tpu.gossip import plane as jp
+    from consul_tpu.obs import tuner as jt
+    from consul_tpu_torch.obs import tuner as tt
+    assert set(tt.KNOBS) == set(jp.TUNED_FIELDS)
+    assert tt.DISSEM_CHOICES == jt.DISSEM_CHOICES
+    for name, knob in tt.KNOBS.items():
+        ref = jt.KNOBS[name]
+        assert (knob.default, knob.kind, knob.target, knob.choices) == (
+            ref.default, ref.kind, ref.target, ref.choices), name
+
+
+def test_tuner_resolution_order(tmp_path, monkeypatch):
+    """explicit > a verdict for this fingerprint > default; a verdict
+    settled for another backend is not applied."""
+    from consul_tpu_torch.obs import tuner as tt
+    monkeypatch.setenv("CONSUL_TPU_AUTOTUNE_DIR", str(tmp_path))
+    names = ["hot_slots", "shard_devices", "unroll"]
+    res = tt.resolve(names, {"unroll": 2}, platform="cuda", device_count=1)
+    assert res.value("hot_slots") == 0 and res.value("shard_devices") == 1
+    assert res.rows["hot_slots"]["reason"] == "no verdict for this knob"
+    assert res.rows["unroll"]["source"] == "flag" and res.value("unroll") == 2
+    verdict = {"format": tt.VERDICT_FORMAT,
+               "fingerprint": tt.fingerprint("cuda", 1),
+               "knobs": {"hot_slots": {"value": 8, "source": "evidence",
+                                       "evidence": ["x"], "reason": "r"}}}
+    assert tt.save_verdict(verdict)
+    res = tt.resolve(names, {}, platform="cuda", device_count=1)
+    assert res.value("hot_slots") == 8
+    assert res.rows["hot_slots"]["source"] == "verdict"
+    res = tt.resolve(names, {}, platform="cuda", device_count=4)
+    assert res.value("hot_slots") == 0
+    assert res.rows["hot_slots"]["reason"] == \
+        "verdict settled for another backend"
+    assert res.wire()["fingerprint"]["device_count"] == 4
+
+
+class _Registry:
+    def __init__(self):
+        self.calls = []
+
+    def incr_counter(self, key, n=1.0):
+        self.calls.append(("c", key, n))
+
+    def set_gauge(self, key, v):
+        self.calls.append(("g", key, v))
+
+
+def test_recorders_match_on_the_same_ingest():
+    from consul_tpu.obs import journey as jj
+    from consul_tpu.obs import raftstats as jr
+    from consul_tpu.obs import slo as js
+    from consul_tpu_torch.obs import flight as tf
+    from consul_tpu_torch.obs import hist as th
+    from consul_tpu_torch.obs import journey as tj
+    from consul_tpu_torch.obs import raftstats as tr
+    from consul_tpu_torch.obs import slo as ts
+
+    rng = np.random.default_rng(5)
+    reg_j, reg_t = _Registry(), _Registry()
+    fj = j_flight.FlightRecorder(metrics=reg_j)
+    ft = tf.FlightRecorder(metrics=reg_t)
+    hj, ht = j_hist.HistRecorder(), th.HistRecorder()
+    sj, st = js.SloTracker(9), ts.SloTracker(9)
+    bj, bt = js.SloBoard(9), ts.SloBoard(9)
+    banks = {"detect": np.zeros(256, np.int64), "dwell": np.zeros(256, np.int64),
+             "refute": np.zeros(256, np.int64), "spread": np.zeros(32, np.int64)}
+    cursor = 0
+    for step in range(6):
+        # Ring of 16 rows; some drains overflow it.
+        cursor += int(rng.integers(1, 24))
+        rows = rng.integers(0, 50, (16, constants.N_COLS)).astype(np.int32)
+        assert fj.ingest(rows, cursor) == ft.ingest(rows, cursor)
+        for name in banks:
+            banks[name] += rng.integers(0, 3, banks[name].shape)
+        # The device banks are int32 and wrap: drain their 32-bit view.
+        view = {k: ((v + (2**31 - 20 if step > 3 else 0)) % 2**32)
+                .astype(np.uint32).view(np.int32) for k, v in banks.items()}
+        dj, dt = hj.ingest(view, scenario="s1" if step % 2 else None), \
+            ht.ingest(view, scenario="s1" if step % 2 else None)
+        assert all(np.array_equal(dj[k], dt[k]) for k in dj)
+        assert sj.observe(dj["detect"]) == st.observe(dt["detect"])
+        assert bj.observe("s1", dj["detect"]) == bt.observe("s1", dt["detect"])
+    assert fj.wire(limit=40) == ft.wire(limit=40)
+    assert reg_j.calls == reg_t.calls
+    assert hj.families() == ht.families()
+    assert hj.summary() == ht.summary() and hj.summary("s1") == ht.summary("s1")
+    assert hj.scenarios() == ht.scenarios()
+    assert sj.snapshot() == st.snapshot() and bj.snapshot() == bt.snapshot()
+    lj = jr.LatencyHist("x", "h")
+    lt = tr.LatencyHist("x", "h")
+    for ms in rng.exponential(40.0, 200):
+        lj.observe(float(ms))
+        lt.observe(float(ms))
+    assert tr.MS_EDGES == jr.MS_EDGES
+    assert lj.family() == lt.family() and lj.wire() == lt.wire()
+    yj, yt = jj.JourneyStats(budget=250.0), tj.JourneyStats(budget=250.0)
+    assert tj.STAGES == jj.STAGES
+    for ms in rng.exponential(30.0, 50):
+        for s in ("detect", "drain"):
+            yj.stage_observe(s, float(ms))
+            yt.stage_observe(s, float(ms))
+    assert yj.families() == yt.families()
+    assert yj.stage_sums() == yt.stage_sums()
+
+
+def test_gossipd_options_match_the_reference_cli():
+    from consul_tpu.cli.main import build_parser as j_parser
+    from consul_tpu_torch.gossipd import build_parser as t_parser
+
+    def options(parser):
+        return {o: (a.dest, a.default, a.type, a.choices)
+                for a in parser._actions for o in a.option_strings
+                if o not in ("-h", "--help")}
+
+    sub = next(a for a in j_parser()._actions
+               if isinstance(a, __import__("argparse")._SubParsersAction))
+    ref, port = options(sub.choices["gossipd"]), options(t_parser())
+    assert set(port) - set(ref) == {"-device", "--device"}
+    assert {o: port[o] for o in ref} == ref
+
+
+def test_keyring_parse_matches(tmp_path):
+    import base64
+    import json
+
+    from consul_tpu.agent.keyring import Keyring
+    from consul_tpu_torch import keyring as tkr
+    good = [base64.b64encode(b"0123456789abcdef").decode(),
+            base64.b64encode(b"fedcba9876543210").decode()]
+    files = {"good": good, "empty": [], "short": ["YWJj"],
+             "not_b64": ["###"], "not_list": {"k": 1}}
+    for name, keys in files.items():
+        path = tmp_path / f"{name}.json"
+        path.write_text(json.dumps(keys))
+        outcome = []
+        for load in (lambda: Keyring(path=str(path)).list_keys(),
+                     lambda: tkr.list_keys(str(path))):
+            try:
+                outcome.append(load())
+            except ValueError as e:
+                outcome.append(str(e).replace(str(path), "<path>"))
+        assert outcome[0] == outcome[1], name
+
+
+def test_devstats_carries_no_tpu_figure():
+    """The port's roofline is the H100 SXM's memory rate over the port's
+    own two passes, not the reference's TPU figures."""
+    from consul_tpu_torch.obs import devstats
+    src = Path(devstats.__file__).read_text()
+    assert "185" not in src and not hasattr(devstats, "EFFECTIVE_HBM_GBPS")
+    assert devstats.HBM_GBPS == 3350.0
+    assert devstats.dense_bytes_per_round(64, 1_000_000) == 128e6
+    assert devstats.device_rows("cpu") == []
+
+
+def test_plane_start_needs_the_card():
+    """GossipPlane(PlaneConfig()) runs on the card: without one, start
+    raises instead of serving from the CPU."""
+    import asyncio
+
+    from consul_tpu_torch.gossip.plane import GossipPlane, PlaneConfig
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    plane = GossipPlane(PlaneConfig(bind_port=0, capacity=8))
+    loop = asyncio.new_event_loop()
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            loop.run_until_complete(plane.start())
+        assert plane._server is None and plane._state is None
+    finally:
+        loop.close()
