@@ -13,8 +13,9 @@ result lines are not printed.
    fanout 3, per execution unit, one alignment way
    (``consul_tpu_torch/sass_count.py``, cuobjdump).
 4. kernel: the Hopper dissemination kernel against its plain torch
-   version on the card, adversarial bytes at [64, 1M], [8, 1M] and the
-   ragged [64, 16,001], each under offset triples that start with 1,
+   version on the card (with and without a drop operand), adversarial
+   bytes at [64, 1M], [8, 1M] and the ragged [64, 16,001], each under
+   offset triples that start with 1,
    N-1 and a random one and together cover every residue mod 16;
    byte-identical results required; kernel time (``ms``: CUDA events
    over replays of a CUDA graph of 20 launches, the first triple; and
@@ -34,8 +35,9 @@ result lines are not printed.
    launch byte-identical to the plain version.
 7. full_path: ``run_rounds`` at n=16,000, S=64 (lan_profile, churn,
    loss, joins, flight ring, hist banks, trace) once on the card and
-   once on the CPU; every field of the carry and the trace must be
-   bit-identical.
+   once on the CPU (a worker process started with the script, which runs
+   while the kernel phases do); every field of the carry and the trace
+   must be bit-identical.
 8. sharded_full_path: the same run through ``run_rounds_sharded(ndev=8)``
    on the card; every field must equal the card run of phase 7; merge
    launches = the non-quiescent rounds (one launch for all shards), none
@@ -72,12 +74,33 @@ result lines are not printed.
     error on stderr.  Rounds/s sustained, dispatch p50/p99 from the
     device frame, peak device memory.  Then the join and failure flow
     again with ``shard_devices=8``: ``fused_merge`` launched.
-13. gossipd: ``python -m consul_tpu_torch.gossipd`` as a subprocess on
-    the card at a small capacity; one client registers, gets its welcome
-    and a stats frame; SIGTERM; exit code 0.
+13. gossipd: ``python -m consul_tpu_torch.gossipd -nemesis
+    partition_heal`` as a subprocess on the card at a small capacity; one
+    client registers, gets its welcome and a stats frame; SIGTERM; exit
+    code 0.
 
-Then the kernels line (each kernel's launches on the main path, and on
-the plane's path as ``plane_launches``) and, last, the ok line.  Needs
+The nemesis phases (the catalog of ``gossip/nemesis.py``):
+
+- kernel, merge_kernel and repeat hold both kernels with a drop operand
+  too (a random one and ``partition_heal``'s full bisection with its
+  window open), and report ``ms_drop`` beside ``ms``;
+- nemesis_full_path (after 8): all six scenarios at n = 16,000, S = 64,
+  each over its window, on the card against the CPU (worker processes)
+  and on 8 shards against the single-device card run: every field of
+  state, hist, NemState and trace bit-identical;
+- nemesis_main_path and sharded_nemesis_main_path (after 10):
+  ``partition_heal`` at 1M, S = 64, on 1 and 8 shards: rounds/s before
+  the fault window, in its first 30 rounds and in the 60 after those,
+  launches with a drop operand (one per round inside), host syncs per
+  round (equal), final states equal;
+- plane_nemesis (after 12): the plane under ``partition_heal`` at
+  universe 1M with 8 bridge clients for 200 rounds (no tick error, the
+  slo frame's scenario, launches with a drop operand), then the card
+  plane in lockstep with the CPU plane at universe 16,384.
+
+Then the kernels line (each kernel's launches on the main path, on the
+plane's path as ``plane_launches``, and with a drop operand on the
+nemesis main paths as ``nemesis_launches``) and, last, the ok line.  Needs
 one CUDA card: without one it exits 2 before printing anything else.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -88,6 +111,7 @@ import asyncio
 import contextlib
 import io
 import json
+import multiprocessing
 import os
 import select
 import signal
@@ -97,7 +121,7 @@ import subprocess
 import sys
 import time
 import traceback
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import msgpack
@@ -227,14 +251,14 @@ def sass_phase() -> dict:
     return res
 
 
-def _bound(S: int, N: int, F: int, sass: dict) -> dict:
+def _bound(S: int, N: int, F: int, sass: dict, drop: bool = False) -> dict:
     """The least time the card could take for the tail at [S, N] and
-    fanout F: the bytes it must move over the memory rate, or its integer
-    operations over the INT32 rate of the busiest unit, whichever is
-    larger."""
+    fanout F (with a drop operand: ``drop``): the bytes it must move over
+    the memory rate, or its integer operations over the INT32 rate of the
+    busiest unit, whichever is larger."""
     # heard read once, out written once; mf (int32), rx (1 byte) and cap
-    # (int32) read once.
-    nbytes = 2 * S * N + 5 * N + 4 * S
+    # (int32) read once; a drop operand's F bytes per column read once.
+    nbytes = 2 * S * N + 5 * N + 4 * S + (F * N if drop else 0)
     # The per-byte rule's operations, counted from disseminate_ref: 10 to
     # age the current byte, 18 per leg (age the pin, gate it, priority-max,
     # count suspects), 22 to merge and pack; plus one sender-liveness
@@ -288,6 +312,30 @@ def _held(name: str, shape, kern, plain) -> int:
     return err
 
 
+def _drops(N: int, F: int, seed: int):
+    """Drop operands of the card's kernels: a random one (each byte set
+    with probability 1/2, to any nonzero value), and the full bisection of
+    ``partition_heal`` with its window open (every leg whose sender lies
+    in the other half of the ids drops: ``drops(offs)``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = (torch.randint(1, 256, (F, N), generator=g, device="cuda",
+                          dtype=torch.uint8)
+            * (torch.rand((F, N), generator=g, device="cuda") < 0.5))
+    grp = (torch.arange(N, device="cuda") >= N // 2)
+
+    def bisection(offs):
+        return torch.stack([torch.roll(grp, o) != grp for o in offs])
+    return rand, bisection
+
+
+def _drop_variants(N: int, sets, seed: int):
+    """(offsets, drop) pairs: each offset set without a drop operand,
+    with the random one and with the bisection."""
+    rand, bisection = _drops(N, len(sets[0]), seed)
+    return [(o, d) for o in sets
+            for d in (None, rand[:len(o)], bisection(o))]
+
+
 def kernel_vs_plain(S: int, N: int, seed: int, sass: dict) -> dict:
     from consul_tpu_torch.gossip import fused
     from consul_tpu_torch.gossip.params import lan_profile
@@ -297,24 +345,33 @@ def kernel_vs_plain(S: int, N: int, seed: int, sass: dict) -> dict:
     rnd = 50
     budget = p.spread_budget_rounds
     sets = _offset_sets(N, N, seed)
+    variants = _drop_variants(N, sets, seed)
 
-    def kern(offs=sets[0]):
-        return fused.fused_dissem(heard, offs, mf, rx_ok, cap, rnd, budget)
+    def kern(offs=sets[0], drop=None):
+        return fused.fused_dissem(heard, offs, mf, rx_ok, cap, rnd, budget,
+                                  drop)
 
-    def plain(offs=sets[0]):
-        return fused.disseminate_ref(p, rnd, offs, heard, mf, rx_ok, cap)
+    def plain(offs=sets[0], drop=None):
+        return fused.disseminate_ref(p, rnd, offs, heard, mf, rx_ok, cap,
+                                     drop)
 
-    err = max(_held("fused_dissem", [S, N], lambda: kern(o),
-                    lambda: plain(o)) for o in sets)
+    err = max(_held("fused_dissem", [S, N], lambda: kern(o, d),
+                    lambda: plain(o, d)) for o, d in variants)
+    drop = variants[1][1]
     ms = graph_ms(kern)
+    ms_drop = graph_ms(lambda: kern(sets[0], drop))
     eager_ms = cuda_ms(kern, 200)
     plain_ms = cuda_ms(plain, 5, warm=1)
     bound = _bound(S, N, len(sets[0]), sass)
+    bound_drop = _bound(S, N, len(sets[0]), sass, drop=True)
     res = {"phase": "kernel", "shape": [S, N], "offsets": sets[0],
-           "offset_sets_held": len(sets), "tolerance": 0,
-           "max_abs_err": err, "ms": ms, "eager_ms": eager_ms,
-           "plain_ms": plain_ms, **bound,
-           "share_of_bound": bound["bound_ms"] / ms, "library_ms": None}
+           "offset_sets_held": len(sets), "drop_variants_held": len(variants),
+           "tolerance": 0, "max_abs_err": err, "ms": ms, "ms_drop": ms_drop,
+           "eager_ms": eager_ms, "plain_ms": plain_ms, **bound,
+           "bound_ms_drop": bound_drop["bound_ms"],
+           "share_of_bound": bound["bound_ms"] / ms,
+           "share_of_bound_drop": bound_drop["bound_ms"] / ms_drop,
+           "library_ms": None}
     emit(res)
     return res
 
@@ -335,26 +392,35 @@ def merge_vs_plain(S: int, N: int, ndev: int, seed: int,
     rnd = 50
     budget = p.spread_budget_rounds
     sets = _offset_sets(N, L, seed)
+    variants = _drop_variants(N, sets, seed)
 
-    def kern(offs=sets[0]):
-        return fused.fused_merge(shards, offs, mf, rx_ok, cap, rnd, budget)
+    def kern(offs=sets[0], drop=None):
+        return fused.fused_merge(shards, offs, mf, rx_ok, cap, rnd, budget,
+                                 drop)
 
-    def plain(offs=sets[0]):
+    def plain(offs=sets[0], drop=None):
         return fused.merge_shards_ref(p, rnd, offs, shards, mf, rx_ok, cap,
-                                      sc)
+                                      sc, drop)
 
-    err = max(_held("fused_merge", [S, N, ndev], lambda: kern(o),
-                    lambda: plain(o)) for o in sets)
+    err = max(_held("fused_merge", [S, N, ndev], lambda: kern(o, d),
+                    lambda: plain(o, d)) for o, d in variants)
+    drop = variants[1][1]
     ms = graph_ms(kern)
+    ms_drop = graph_ms(lambda: kern(sets[0], drop))
     eager_ms = cuda_ms(kern, 200)
     plain_ms = cuda_ms(plain, 5, warm=1)
     # The function is kernel 1's at [S, N]: its bytes and operations.
     bound = _bound(S, N, len(sets[0]), sass)
+    bound_drop = _bound(S, N, len(sets[0]), sass, drop=True)
     res = {"phase": "merge_kernel", "shape": [S, N], "ndev": ndev, "L": L,
            "offsets": sets[0], "offset_sets_held": len(sets),
-           "tolerance": 0, "max_abs_err": err, "ms": ms,
+           "drop_variants_held": len(variants), "tolerance": 0,
+           "max_abs_err": err, "ms": ms, "ms_drop": ms_drop,
            "eager_ms": eager_ms, "plain_ms": plain_ms, **bound,
-           "share_of_bound": bound["bound_ms"] / ms, "library_ms": None}
+           "bound_ms_drop": bound_drop["bound_ms"],
+           "share_of_bound": bound["bound_ms"] / ms,
+           "share_of_bound_drop": bound_drop["bound_ms"] / ms_drop,
+           "library_ms": None}
     emit(res)
     return res
 
@@ -363,7 +429,8 @@ def repeat(S: int, N: int, seeds: int, ndev: int | None = None,
            launches: int = 3) -> dict:
     """``fused_dissem`` (or, with ``ndev``, ``fused_merge`` on ndev
     shards) against its plain version over ``seeds`` fresh inputs, each
-    with its own random offset triple, ``launches`` launches each: every
+    with its own random offset triple and, in turn, no drop operand, a
+    random one and the bisection's, ``launches`` launches each: every
     launch must be byte-identical to the plain version."""
     from consul_tpu_torch.gossip import fused, kernel
     from consul_tpu_torch.gossip.params import lan_profile
@@ -378,20 +445,24 @@ def repeat(S: int, N: int, seeds: int, ndev: int | None = None,
         heard, mf, rx_ok, cap = adversarial(S, N, 1000 + seed, "cuda")
         offs = [int(o) for o in
                 np.random.default_rng(seed).integers(1, N, 3)]
+        drop = None
+        if seed % 3:
+            rand, bisection = _drops(N, 3, seed)
+            drop = rand if seed % 3 == 1 else bisection(offs)
         if ndev is None:
             ref = (fused.disseminate_ref(p, rnd, offs, heard, mf, rx_ok,
-                                         cap),)
+                                         cap, drop),)
         else:
             heard = tuple(h.contiguous() for h in heard.split(L, dim=1))
             ref = fused.merge_shards_ref(p, rnd, offs, heard, mf, rx_ok,
-                                         cap, sc)
+                                         cap, sc, drop)
         for _ in range(launches):
             if ndev is None:
                 out = (fused.fused_dissem(heard, offs, mf, rx_ok, cap, rnd,
-                                          budget),)
+                                          budget, drop),)
             else:
                 out = fused.fused_merge(heard, offs, mf, rx_ok, cap, rnd,
-                                        budget)
+                                        budget, drop)
             bad += sum(int((a != b).sum()) for a, b in zip(out, ref))
             held += 1
     res = {"phase": "repeat",
@@ -411,6 +482,8 @@ def _reset_counts() -> None:
     from consul_tpu_torch.gossip import fused, kernel
     fused.launches = 0
     fused.merge_launches = 0
+    fused.drop_launches = 0
+    fused.merge_drop_launches = 0
     kernel.host_syncs = 0
     for k in kernel.tail_rounds:
         kernel.tail_rounds[k] = 0
@@ -454,13 +527,30 @@ def _diverged(pairs) -> list:
     return out
 
 
-def full_path(n: int = 16_000, S: int = 64, steps: int = 300,
-              seed: int = 11):
-    """Returns the card run's (carry, trace) for sharded_full_path."""
-    from consul_tpu_torch.gossip import fused
-    from consul_tpu_torch.gossip.params import lan_profile
+FULL_PATH = dict(n=16_000, S=64, steps=300, seed=11)
 
-    p = lan_profile(n, slots=S, dissem="fused", loss_rate=0.01)
+
+def _full_path_params(n: int, S: int):
+    from consul_tpu_torch.gossip.params import lan_profile
+    return lan_profile(n, slots=S, dissem="fused", loss_rate=0.01)
+
+
+def _full_path_cpu(n: int, S: int, steps: int, seed: int):
+    """full_path's run on the CPU, in a worker process, as numpy (two
+    threads: it is the longest of the CPU runs)."""
+    torch.set_num_threads(2)
+    fail, join, member0 = _full_path_inputs(n, steps, seed)
+    return _as_numpy(*_run(_full_path_params(n, S), fail, join, member0,
+                           steps, seed, "cpu"))
+
+
+def full_path(cpu, n: int, S: int, steps: int, seed: int):
+    """The card run against the CPU run (``cpu``: the future of its
+    worker process).  Returns the card run's (carry, trace) for
+    sharded_full_path."""
+    from consul_tpu_torch.gossip import fused
+
+    p = _full_path_params(n, S)
     fail, join, member0 = _full_path_inputs(n, steps, seed)
 
     launches0 = fused.launches
@@ -471,33 +561,28 @@ def full_path(n: int = 16_000, S: int = 64, steps: int = 300,
     t_gpu = time.perf_counter() - t0
     launches = fused.launches - launches0
     t0 = time.perf_counter()
-    (st_c, fl_c, hb_c), tr_c = _run(p, fail, join, member0, steps, seed,
-                                    "cpu")
-    t_cpu = time.perf_counter() - t0
-
-    diverged = _diverged(((st_g, st_c), (fl_g, fl_c), (hb_g, hb_c),
-                          (tr_g, tr_c)))
+    diverged = _diverged_np(_as_numpy((st_g, fl_g, hb_g), tr_g),
+                            cpu.result())
     emit({"phase": "full_path", "n": n, "slots": S, "steps": steps,
-          "kernel_launches": launches, "cuda_s": t_gpu, "cpu_s": t_cpu,
-          "n_detected": int(st_c.n_detected),
-          "n_refuted": int(st_c.n_refuted),
-          "members": int(st_c.member.sum()), "diverged": diverged})
+          "kernel_launches": launches, "cuda_s": t_gpu,
+          "cpu_wait_s": time.perf_counter() - t0,
+          "n_detected": int(st_g.n_detected),
+          "n_refuted": int(st_g.n_refuted),
+          "members": int(st_g.member.sum()), "diverged": diverged})
     if diverged:
         raise AssertionError(f"card and CPU runs diverged in {diverged}")
-    if launches == 0 or int(st_c.n_detected) == 0:
+    if launches == 0 or int(st_g.n_detected) == 0:
         raise AssertionError("the full-path run exercised no dissemination")
     return (st_g, fl_g, hb_g), tr_g
 
 
-def sharded_full_path(single, n: int = 16_000, S: int = 64,
-                      steps: int = 300, seed: int = 11,
+def sharded_full_path(single, n: int, S: int, steps: int, seed: int,
                       ndev: int = 8) -> None:
     """full_path's run through run_rounds_sharded on the card, held
     against full_path's card run (``single``)."""
     from consul_tpu_torch.gossip import fused, kernel
-    from consul_tpu_torch.gossip.params import lan_profile
 
-    p = lan_profile(n, slots=S, dissem="fused", loss_rate=0.01)
+    p = _full_path_params(n, S)
     fail, join, member0 = _full_path_inputs(n, steps, seed)
     _reset_counts()
     t0 = time.perf_counter()
@@ -585,6 +670,184 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
                              or fused.launches != 0):
         raise AssertionError("merge launches != non-quiescent rounds "
                              "(or fused_dissem ran)")
+    return res, state
+
+
+# -- nemesis ------------------------------------------------------------------
+
+# Rounds per scenario at n = 16,000: each run covers the scenario's fault
+# window and rounds on both sides of it (kills at round 30 or 40,
+# asym_loss from 20, partition_heal [40, 160), flapping [30, 310): two
+# down phases and two rejoins).
+NEM_STEPS = {"block_kill": 150, "zone_kill": 150, "partition_heal": 180,
+             "asym_loss": 100, "flapping": 320, "degraded_observer": 150}
+NEM = dict(n=16_000, S=64, seed=13)
+
+
+def _nem_run(name: str, n: int, S: int, steps: int, seed: int, dev: str,
+             ndev: int | None = None):
+    """``steps`` rounds of ``run_rounds`` (or ``run_rounds_sharded``)
+    under the catalog scenario ``name`` with the hist banks, NemState
+    when it needs one, and the trace: ``(carry, trace)``."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import kernel
+    from consul_tpu_torch.gossip.nemesis import build
+    from consul_tpu_torch.gossip.params import lan_profile
+
+    sc = build(name, n)
+    p = lan_profile(n, slots=S)
+    kw = dict(trace=True, hist=kernel.init_hist(device=dev), nem=sc.nem,
+              device=dev)
+    if sc.join_round is not None:
+        kw["join_round"] = sc.join_round
+    if sc.nem.needs_state:
+        kw["nem_state"] = kernel.init_nem_state(n, device=dev)
+    st = kernel.init_state(p, device=dev)
+    args = (st, prng.key(seed), sc.fail_round, p, steps)
+    if ndev is None:
+        return kernel.run_rounds(*args, **kw)
+    return kernel.run_rounds_sharded(*args, ndev=ndev, **kw)
+
+
+def _nem_run_cpu(name: str, n: int, S: int, steps: int, seed: int):
+    """``_nem_run`` on the CPU, in a worker process: the carry and the
+    trace as numpy, field by field."""
+    torch.set_num_threads(1)
+    return _as_numpy(*_nem_run(name, n, S, steps, seed, "cpu"))
+
+
+def _as_numpy(carry, tr):
+    from consul_tpu_torch.gossip import convert
+    return ([(type(t).__name__, convert.state_to_numpy(t)) for t in carry],
+            convert.state_to_numpy(tr))
+
+
+def _diverged_np(a, b) -> list:
+    """Fields that differ between two ``_as_numpy`` results."""
+    (ca, ta), (cb, tb) = a, b
+    out = []
+    for (name, x), (_, y) in list(zip(ca, cb)) + [(("RoundTrace", ta),
+                                                   ("RoundTrace", tb))]:
+        out += [f"{name}.{f}" for f in x
+                if x[f].dtype != y[f].dtype or not np.array_equal(x[f], y[f])]
+    return out
+
+
+def nemesis_full_path(cpu, n: int, S: int, seed: int) -> dict:
+    """All six catalog scenarios at n = 16,000 on the card, each against
+    the port's CPU run (``cpu``: scenario -> the future of its worker
+    process) and against the card's run on 8 column shards: every field
+    of the state, the hist banks, NemState and the trace bit-identical."""
+    from consul_tpu_torch.gossip import fused
+
+    rows, bad = {}, []
+    t0 = time.perf_counter()
+    for name, steps in NEM_STEPS.items():
+        _reset_counts()
+        t1 = time.perf_counter()
+        card = _nem_run(name, n, S, steps, seed, "cuda")
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - t1
+        drops = fused.drop_launches
+        t1 = time.perf_counter()
+        card8 = _nem_run(name, n, S, steps, seed, "cuda", ndev=8)
+        torch.cuda.synchronize()
+        cuda8_s = time.perf_counter() - t1
+        single = _as_numpy(*card)
+        rows[name] = {
+            "steps": steps, "cuda_s": cuda_s, "cuda_8_shards_s": cuda8_s,
+            "drop_launches": drops,
+            "merge_drop_launches": fused.merge_drop_launches,
+            "n_detected": int(card[0][0].n_detected),
+            "n_false_dead": int(card[0][0].n_false_dead),
+            "drops": int(card[0][0].drops),
+            "diverged_8_shards": _diverged_np(single, _as_numpy(*card8))}
+        del card, card8
+        t1 = time.perf_counter()
+        rows[name]["diverged_cpu"] = _diverged_np(single, cpu[name].result())
+        rows[name]["cpu_wait_s"] = time.perf_counter() - t1
+    res = {"phase": "nemesis_full_path", "n": n, "slots": S, "seed": seed,
+           "seconds": time.perf_counter() - t0, "scenarios": rows}
+    emit(res)
+    for name, row in rows.items():
+        if row["diverged_cpu"] or row["diverged_8_shards"]:
+            bad.append(name)
+        partition = name in ("partition_heal", "asym_loss")
+        if partition and not (row["drop_launches"] > 0
+                              and row["merge_drop_launches"] > 0):
+            bad.append(f"{name}: no launch with a drop operand")
+    if bad:
+        raise AssertionError(f"nemesis_full_path: {bad}")
+    return res
+
+
+def nemesis_main_path(n: int = 1_000_000, S: int = 64, warm: int = 10,
+                      before: int = 30, first: int = 30, inside: int = 60,
+                      ndev: int | None = None):
+    """``partition_heal`` at 1M nodes: rounds/s in a block of rounds
+    before the fault window (rounds [warm, 40)), in the window's first
+    ``first`` rounds and in the ``inside`` rounds after those, each block
+    ending in a device->host read; launches with a drop operand, host
+    syncs per round.  Returns the result line and the final state."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import fused, kernel
+    from consul_tpu_torch.gossip.nemesis import build
+    from consul_tpu_torch.gossip.params import lan_profile
+
+    sc = build("partition_heal", n)
+    assert warm + before == sc.nem.start
+    p = lan_profile(n, slots=S, hot_slots=0, dissem="fused")
+    fail_t = torch.from_numpy(sc.fail_round).cuda()
+    join_t = torch.from_numpy(sc.join_round).cuda()
+    key = prng.key(42)
+
+    def rounds(state, steps):
+        kw = dict(join_round=join_t, nem=sc.nem)
+        if ndev is None:
+            return kernel.run_rounds(state, key, fail_t, p, steps, **kw)[0]
+        return kernel.run_rounds_sharded(state, key, fail_t, p, steps,
+                                         ndev=ndev, **kw)[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    state = rounds(kernel.init_state(p), warm)
+    int(state.round)
+    times = {}
+    blocks = {"before": before, "first": first, "inside": inside}
+    for label, steps in blocks.items():
+        t0 = time.perf_counter()
+        state = rounds(state, steps)
+        int(state.round)
+        times[label] = time.perf_counter() - t0
+    total = warm + before + first + inside
+    tails = dict(kernel.tail_rounds)
+    res = {"phase": ("nemesis_main_path" if ndev is None
+                     else "sharded_nemesis_main_path"),
+           "scenario": "partition_heal", "n": n, "slots": S, "ndev": ndev,
+           "window": [sc.nem.start, sc.nem.stop], "rounds": total,
+           "block_rounds": blocks, "block_s": times,
+           "rounds_per_s_before_window": before / times["before"],
+           "rounds_per_s_window_first": first / times["first"],
+           "rounds_per_s_inside_window": inside / times["inside"],
+           "tail_rounds": tails,
+           "kernel_launches": fused.launches,
+           "merge_launches": fused.merge_launches,
+           "drop_launches": fused.drop_launches,
+           "merge_drop_launches": fused.merge_drop_launches,
+           "host_syncs_per_round": kernel.host_syncs / total,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "n_false_dead": int(state.n_false_dead),
+           "n_refuted": int(state.n_refuted), "drops": int(state.drops),
+           "slots_live": int((state.slot_node >= 0).sum())}
+    emit(res)
+    launched = (fused.drop_launches if ndev is None
+                else fused.merge_drop_launches)
+    # Every round inside the window runs the tail with the drops; the
+    # bisection opens far more episodes than there are slots.
+    if launched != first + inside or res["drops"] == 0:
+        raise AssertionError(f"{res['phase']}: {launched} launches with a "
+                             f"drop operand in {first + inside} rounds "
+                             f"inside the window, drops {res['drops']}")
     return res, state
 
 
@@ -872,6 +1135,156 @@ def plane_phase(ndev: int, full: bool) -> dict:
     return res
 
 
+async def _plane_nemesis_run(n_clients: int = 8, rounds: int = 200) -> dict:
+    """The plane at universe 1M under ``partition_heal`` (window [40,
+    160), then the heal) serving ``n_clients`` bridge clients, until
+    ``rounds`` rounds have run."""
+    from consul_tpu_torch.gossip import fused
+    from consul_tpu_torch.gossip import plane as gp
+
+    cfg = gp.PlaneConfig(
+        bind_port=0, capacity=1024, sim_nodes=998_976, slots=64,
+        event_slots=64, gossip_interval_s=0.02, probe_every=5,
+        suspicion_mult=1.0, hb_lapse_s=0.3, shard_devices=1,
+        nemesis="partition_heal")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    plane = gp.GossipPlane(cfg)
+    await plane.start()
+    res = {"phase": "plane_nemesis", "scenario": cfg.nemesis,
+           "n": plane.n_universe, "ndev": plane._ndev}
+    clients = [_Client(f"agent-{i}") for i in range(n_clients)]
+    try:
+        t_serve = time.perf_counter()
+        await asyncio.gather(*(c.start(plane.local_addr[1]) for c in clients))
+        names = {c.name for c in clients}
+        res["join_s"] = await _until(lambda: all(
+            c.members_with(EV_JOIN) >= names - {c.name} for c in clients),
+            60, "member-join for every other client")
+        await _until(lambda: plane._rounds_done >= rounds, 120,
+                     f"{rounds} rounds of the plane")
+        res["rounds"] = plane._rounds_done
+        res["rounds_per_s"] = plane._rounds_done / (time.perf_counter()
+                                                    - t_serve)
+        slo = await clients[0].query("slo")
+        res["slo_scenario"] = slo.get("scenario")
+        res["slo_scenarios"] = sorted(slo.get("scenarios", {}))
+        res["kernel"] = (await clients[0].query("stats"))["kernel"]
+        disp = (await clients[0].query("device"))["dispatch"]["round_step"]
+        res["dispatch"] = {"count": disp["count"], "p50_ms": disp["p50_ms"],
+                           "p99_ms": disp["p99_ms"],
+                           "mean_ms": disp["sum_ms"] / disp["count"]}
+        res["member_failed_seen"] = sorted(
+            set().union(*(c.members_with(EV_FAILED) for c in clients)))
+    finally:
+        for c in clients:
+            await c.close()
+        await plane.stop()
+    res.update(dissem_launches=fused.launches,
+               drop_launches=fused.drop_launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    return res
+
+
+class _Recorder:
+    """A bridge writer that keeps every frame it is sent."""
+
+    def __init__(self):
+        self.frames = []
+
+    def write(self, raw):
+        self.frames.append(bytes(raw))
+
+    def close(self):
+        pass
+
+
+def _plane_lockstep(n: int = 16_384, dispatches: int = 15) -> dict:
+    """The plane on the card and on the CPU under ``partition_heal``,
+    same config and key, driven by one script without sockets: after
+    every dispatch every state field and every frame sent must be
+    identical."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import convert
+    from consul_tpu_torch.gossip import plane as gp
+
+    t0 = time.perf_counter()
+    loop = asyncio.new_event_loop()
+    journey, gp._journey.journey = gp._journey.journey, None
+    planes = [gp.GossipPlane(gp.PlaneConfig(
+        bind_port=0, capacity=32, sim_nodes=n - 32, slots=64, event_slots=8,
+        gossip_interval_s=0.02, probe_every=5, suspicion_mult=1.0,
+        hb_lapse_s=0.3, shard_devices=1, dissem="fused", hot_slots=0,
+        fused_nb=1, unroll=1, flight_drain_every=2, nemesis="partition_heal",
+        device=dev)) for dev in ("cuda", "cpu")]
+    bad = []
+    try:
+        for plane in planes:
+            loop.run_until_complete(plane.start())
+            plane._tick_task.cancel()  # the script dispatches
+            plane._key = prng.key(20260)
+        writers = []
+        for i in range(6):
+            msg = {"t": "register", "name": f"n{i}", "addr": "127.0.0.1",
+                   "port": 7000 + i, "tags": {"role": "node"}}
+            pair = (_Recorder(), _Recorder())
+            writers.append(pair)
+            for plane, w in zip(planes, pair):
+                plane._register(dict(msg), w)
+        for d in range(dispatches):
+            for plane in planes:
+                plane._dispatch()
+            g, c = planes
+            for a, b in ((g._state, c._state), (g._ev_state, c._ev_state),
+                         (g._flight, c._flight), (g._hist, c._hist)):
+                x, y = convert.state_to_numpy(a), convert.state_to_numpy(b)
+                bad += [f"dispatch {d}: {type(a).__name__}.{f}" for f in x
+                        if not np.array_equal(x[f], y[f])]
+            bad += [f"dispatch {d}: frames" for wg, wc in writers
+                    if wg.frames != wc.frames]
+        frames = sum(len(wg.frames) for wg, _ in writers)
+        slo = [p._slo_wire() for p in planes]
+        if slo[0] != slo[1]:
+            bad.append("slo frame")
+    finally:
+        for plane in planes:
+            loop.run_until_complete(plane.stop())
+        loop.close()
+        gp._journey.journey = journey
+    return {"n": n, "dispatches": dispatches, "rounds": 4 * dispatches,
+            "frames_compared": frames, "diverged": bad,
+            "seconds": time.perf_counter() - t0}
+
+
+def plane_nemesis_phase() -> dict:
+    """The plane under ``partition_heal`` on the card (its ticker's
+    errors captured from stderr), then the card plane in lockstep with
+    the CPU plane.  A full bisection may rightly declare agents dead, so
+    member-failed is reported, not gated."""
+    from consul_tpu_torch.gossip import fused
+
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            res = asyncio.run(_plane_nemesis_run())
+    finally:
+        sys.stderr.write(err.getvalue())
+    res["tick_errors"] = err.getvalue().count("[gossip-plane] tick error")
+    drops0 = fused.drop_launches
+    res["lockstep"] = _plane_lockstep()
+    res["lockstep"]["drop_launches"] = fused.drop_launches - drops0
+    emit(res)
+    if (res["tick_errors"] or res["drop_launches"] <= 0
+            or res["slo_scenario"] != "partition_heal"
+            or res["lockstep"]["diverged"]
+            or res["lockstep"]["drop_launches"] <= 0):
+        raise AssertionError(
+            f"plane_nemesis: tick errors {res['tick_errors']}, launches "
+            f"with a drop operand {res['drop_launches']}, slo scenario "
+            f"{res['slo_scenario']}, lockstep {res['lockstep']}")
+    return res
+
+
 # -- the daemon ------------------------------------------------------------------
 
 def _frame(sock: socket.socket) -> dict:
@@ -888,12 +1301,13 @@ def _frame(sock: socket.socket) -> dict:
 
 
 def gossipd_phase(timeout: float = 120.0) -> dict:
-    """``python -m consul_tpu_torch.gossipd`` on the card: register,
-    welcome, stats, SIGTERM, exit 0."""
+    """``python -m consul_tpu_torch.gossipd -nemesis partition_heal`` on
+    the card: register, welcome, stats, SIGTERM, exit 0."""
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "consul_tpu_torch.gossipd", "-port", "0",
-         "-capacity", "64", "-sim-nodes", "960", "-gossip-interval", "0.05"],
+         "-capacity", "64", "-sim-nodes", "960", "-gossip-interval", "0.05",
+         "-nemesis", "partition_heal"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, PYTHONPATH=str(ROOT)))
     try:
@@ -925,7 +1339,8 @@ def gossipd_phase(timeout: float = 120.0) -> dict:
            "welcome_id": welcome.get("id"), "stats_capacity":
            stats.get("capacity"), "rc": rc}
     emit(res)
-    if welcome.get("t") != "welcome" or rc != 0:
+    if (welcome.get("t") != "welcome" or rc != 0
+            or "nemesis=partition_heal" not in line):
         raise AssertionError(f"gossipd: rc {rc}, welcome {welcome}, "
                              f"stderr {err[-2000:]}")
     return res
@@ -951,7 +1366,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # The CPU runs that the card's runs are held against go to worker
+    # processes at once (one thread each), and compute while the kernel
+    # phases run; every one has finished before the first timed main
+    # path.
+    pool = ProcessPoolExecutor(
+        1 + len(NEM_STEPS), mp_context=multiprocessing.get_context("spawn"))
     try:
+        cpu_full = pool.submit(_full_path_cpu, **FULL_PATH)
+        cpu_nem = {name: pool.submit(_nem_run_cpu, name, NEM["n"], NEM["S"],
+                                     steps, NEM["seed"])
+                   for name, steps in NEM_STEPS.items()}
         card()
         build()
         sass = sass_phase()
@@ -965,9 +1390,11 @@ def main() -> int:
         repeat(8, 1_000_000, seeds=256)
         repeat(8, 1_000_000, seeds=128, ndev=8)
         repeat(64, 1_000_000, seeds=16)
-        single = full_path()
-        sharded_full_path(single)
+        single = full_path(cpu_full, **FULL_PATH)
+        sharded_full_path(single, **FULL_PATH)
         del single
+        nemesis_full_path(cpu_nem, **NEM)
+        pool.shutdown()
         churn, churn_state = main_path(1_000_000, 64, 1000, warm=50,
                                        block=100, blocks=3)
         _churn_gates(churn, "kernel_launches")
@@ -986,13 +1413,30 @@ def main() -> int:
                                  f"diverged in {diverged}")
         del churn_state, sharded_state
         main_path(1_000_000, 64, 0, warm=20, block=100, blocks=3)
+        nem1, nem1_state = nemesis_main_path()
+        nem8, nem8_state = nemesis_main_path(ndev=8)
+        if nem8["host_syncs_per_round"] != nem1["host_syncs_per_round"]:
+            raise AssertionError("under nemesis the sharded round reads the "
+                                 "device more often than the single-device "
+                                 "round")
+        diverged = _diverged([(nem1_state, nem8_state)])
+        emit({"phase": "sharded_nemesis_main_path_parity",
+              "diverged": diverged})
+        if diverged:
+            raise AssertionError(f"sharded and single-device 1M "
+                                 f"partition_heal runs diverged in "
+                                 f"{diverged}")
+        del nem1_state, nem8_state
         events_phase()
         plane1 = plane_phase(1, full=True)
         plane8 = plane_phase(8, full=False)
+        plane_nem = plane_nemesis_phase()
         gossipd_phase()
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        pool.shutdown(cancel_futures=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "fused_dissem", "route": "cuda",
@@ -1000,16 +1444,23 @@ def main() -> int:
         "replaces": "consul_tpu/gossip/fused.py:141",
         "launches": churn["kernel_launches"],
         "plane_launches": plane1["dissem_launches"],
+        "nemesis_launches": nem1["drop_launches"],
+        "plane_nemesis_launches": plane_nem["drop_launches"],
         "max_abs_err": big["max_abs_err"], "ms": big["ms"],
+        "ms_drop": big["ms_drop"],
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+        "bound_ms_drop": big["bound_ms_drop"],
         "bound_by": big["bound_by"], "library_ms": None}, {
         "name": "fused_merge", "route": "cuda",
         "source": "consul_tpu_torch/csrc/dissem_tail.cu",
         "replaces": "consul_tpu/gossip/fused.py:199",
         "launches": sharded["merge_launches"],
         "plane_launches": plane8["merge_launches"],
+        "nemesis_launches": nem8["merge_drop_launches"],
         "max_abs_err": mbig["max_abs_err"], "ms": mbig["ms"],
+        "ms_drop": mbig["ms_drop"],
         "plain_ms": mbig["plain_ms"], "bound_ms": mbig["bound_ms"],
+        "bound_ms_drop": mbig["bound_ms_drop"],
         "bound_by": mbig["bound_by"], "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

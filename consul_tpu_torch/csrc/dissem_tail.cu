@@ -15,39 +15,39 @@
 // rolled sender masks and merge_ref per shard).
 //
 // What it computes.  The belief matrix heard[S, N] is held as ndev column
-// shards, each a contiguous u8 [S, L] buffer, L = N / ndev.  For every
-// slot row s and column c of shard i (global column gc = i * L + c), and
-// each gossip leg f with shift o_f, the pin is heard[s, g] at g = (gc -
-// o_f) mod N: shard g / L, local column g mod L, read straight from that
-// shard.  The pin counts if its sender is alive (mf[g] > rnd) and its age
-// is below the budget; the rule (belief_merge.cuh) ages the current byte,
-// takes the priority-max of the live messages, counts the SUSPECTs, and
-// where the receiver rx[gc] takes messages applies the upgrade or the
-// Lifeguard confirmation bump capped at cap[s].  The byte goes to out[i,
-// s, c], a fresh buffer (pins read neighbouring columns, so an in-place
-// write would race).  The TPU kernel cut each pin out of two block windows
-// chosen by scalar prefetch, because Mosaic could not copy at an
-// arbitrary offset; the earlier sharded port copied each leg's pins into
-// a rolled buffer first (24 copies per round of 1M nodes on 8 shards).
-// Here a thread loads the aligned words around column g and joins them
-// with funnel shifts, from whichever shard holds them.
+// shards, each a contiguous u8 [S, L] buffer, L = N / ndev.  For every slot row
+// s and column c of shard i (global column gc = i * L + c), and each gossip leg
+// f with shift o_f, the pin is heard[s, g] at g = (gc - o_f) mod N: shard g /
+// L, local column g mod L, read straight from that shard.  The pin counts if
+// its sender is alive (mf[g] > rnd), its leg is not dropped into column gc (a
+// nemesis partition's drop operand: drop[f, gc] != 0; the reference folds the
+// same drops into the sender masks its `_src_masks` builds) and its age is
+// below the budget; the rule (belief_merge.cuh) ages the current byte, takes
+// the priority-max of the live messages, counts the SUSPECTs, and where the
+// receiver rx[gc] takes messages applies the upgrade or the Lifeguard
+// confirmation bump capped at cap[s].  The byte goes to out[i, s, c], a fresh
+// buffer (pins read neighbouring columns, so an in-place write would race).
+// The TPU kernel cut each pin out of two block windows chosen by scalar
+// prefetch, because Mosaic could not copy at an arbitrary offset; the earlier
+// sharded port copied each leg's pins into a rolled buffer first (24 copies per
+// round of 1M nodes on 8 shards). Here a thread loads the aligned words around
+// column g and joins them with funnel shifts, from whichever shard holds them.
 //
-// Bound: operations.  At S = 64, N = 1,000,000, F = 3 the function must
-// read the 64 MB matrix and write 64 MB, plus 5 MB of [N] vectors (mf,
-// rx): 0.040 ms at 3.35 TB/s.  The per-byte rule is 86 integer operations
-// at fanout 3.  The first design spent one byte per 32-bit lane and sat
-// at the integer unit's rate (0.322 ms).  This one runs the rule on four
-// bytes per word, so the operations term is counted per word from the
+// Bound: operations.  At S = 64, N = 1,000,000, F = 3 the function must read
+// the 64 MB matrix and write 64 MB, plus 5 MB of [N] vectors (mf, rx): 0.040 ms
+// at 3.35 TB/s; a drop operand adds F * N bytes (3 MB). The per-byte rule is 86
+// integer operations at fanout 3.  The first design spent one byte per 32-bit
+// lane and sat at the integer unit's rate (0.322 ms).  This one runs the rule
+// on four bytes per word, so the operations term is counted per word from the
 // SASS of the row loop (consul_tpu_torch/sass_count.py): per execution unit
-// (the integer ALU, and the FMA unit that runs IMAD), one alignment way
-// of the loop, at each unit's 32-bit rate (67e12 / 4 per second on an
-// H100 SXM); the busier unit sets the term.  At fanout 3 the integer ALU
-// runs 62 instructions per word (LOP3, SHF, IADD3, PRMT, ...) and the FMA
-// unit 12.25, so the term is 0.059 ms at [64, 1M].  On an H100 80GB HBM3
-// at 700 W both entry points take about 0.11-0.12 ms there, a bit over
-// half of the bound (chip_smoke.py; PERF.md keeps the measurements).
-// What remains between the kernel and its bound is not attributed yet:
-// no hardware profiler runs on that machine.
+// (the integer ALU, and the FMA unit that runs IMAD), one alignment way of the
+// loop, at each unit's 32-bit rate (67e12 / 4 per second on an H100 SXM); the
+// busier unit sets the term.  At fanout 3 the integer ALU runs 62 instructions
+// per word (LOP3, SHF, IADD3, PRMT, ...) and the FMA unit 12.25, so the term is
+// 0.059 ms at [64, 1M].  On an H100 80GB HBM3 at 700 W both entry points take
+// about 0.11-0.12 ms there, a bit over half of the bound (chip_smoke.py;
+// PERF.md keeps the measurements). What remains between the kernel and its
+// bound is not attributed yet: no hardware profiler runs on that machine.
 //
 // Work split.  A thread takes kCols = 16 contiguous columns of one shard
 // (four 32-bit words) and the rows of one row group (at most kRows; fewer
@@ -59,7 +59,10 @@
 // pins starts, and the sender-liveness masks of its 16 columns (one byte
 // each in a 32-bit word), read with 16-byte loads of mf (a lane reading
 // its 16 entries one by one touches 16 cache lines per warp load; the
-// setup then cost about a fifth of the kernel).
+// setup then cost about a fifth of the kernel).  With a drop operand the
+// leg's 16 drop bytes (one 16-byte load where aligned, four 4-byte loads
+// where 4-byte aligned) clear their columns from that mask, so the row
+// loop is the same with or without.
 //
 // The word path, nearly every thread: per row, the current 16 bytes in
 // one 16-byte load where the row is 16-byte aligned (four 4-byte loads
@@ -100,7 +103,7 @@ constexpr int kMinBlocks = 3;
 constexpr long long kFillThreads = 132LL * 2048;
 
 // Everything a launch needs, passed by value in the kernel's parameter
-// block (about 620 bytes of its 4 KB).  The kernel takes it as a
+// block (about 630 bytes of its 4 KB).  The kernel takes it as a
 // __grid_constant__, so indexing the shard table by a runtime index reads
 // the parameter space and makes no per-thread copy.
 struct Args {
@@ -109,6 +112,8 @@ struct Args {
   const int32_t* mf;              // [N]: a sender is alive if mf > rnd
   const uint8_t* rx;              // [N] bool: the receiver takes messages
   const int32_t* cap;             // [S] confirmation caps, >= 0
+  const uint8_t* drop;            // nullptr, or [F, N] by global column:
+                                  //   nonzero kills leg f into that column
   int o[kMaxFanout];              // circulant shifts, each in [0, N)
   int S, L, ndev;
   int i0;          // first shard this launch writes
@@ -154,6 +159,43 @@ __device__ __forceinline__ uint32_t sender_flags(const Args& a, int g, int N,
     bits |= (k < n_cols && __ldg(a.mf + gk) > a.rnd ? 1u : 0u) << k;
   }
   return bits;
+}
+
+// 0x01 per byte of `x` that is not 0 (any byte value): bit 7 of the byte
+// or of its low seven bits plus 0x7F, which cannot carry out of the byte.
+__device__ __forceinline__ uint32_t nonzero_lsb(uint32_t x) {
+  return (((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) >> 7 & kLsb;
+}
+
+// Clears from leg f's sender masks the columns gc0 .. gc0 + n_cols - 1
+// that its drop row kills: one 16-byte load where the 16 bytes are
+// aligned, four 4-byte loads where they are 4-byte aligned (a shard of L
+// % 16 == 8 columns starts there), single loads otherwise (columns past
+// n_cols are don't-cares).
+__device__ __forceinline__ void apply_drops(const Args& a, int f, int N,
+                                            int gc0, int n_cols,
+                                            uint32_t live[kWords]) {
+  const uint8_t* d = a.drop + static_cast<size_t>(f) * N + gc0;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(d);
+  uint32_t w[kWords] = {};
+  if (n_cols == kCols && (at & 15) == 0) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(d));
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if (n_cols == kCols && (at & 3) == 0) {
+#pragma unroll
+    for (int v = 0; v < kWords; ++v) {
+      w[v] = __ldg(reinterpret_cast<const uint32_t*>(d) + v);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      if (k < n_cols) {
+        w[k / 4] |= static_cast<uint32_t>(__ldg(d + k)) << (8 * (k % 4));
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < kWords; ++v) live[v] &= ~(nonzero_lsb(w[v]) * 3u);
 }
 
 // 0xFF per byte whose receiver takes messages, columns gc0 .. gc0 + 15:
@@ -256,6 +298,7 @@ tail_kernel(const __grid_constant__ Args a) {
     const uint32_t bits = sender_flags(a, g, N, n_cols);
 #pragma unroll
     for (int w = 0; w < kWords; ++w) live[f][w] = byte_flags(bits, w) * 3u;
+    if (a.drop != nullptr) apply_drops(a, f, N, gc0, n_cols, live[f]);
   }
   uint32_t rxw[kWords];
   receiver_masks(a, gc0, n_cols, rxw);
@@ -354,9 +397,10 @@ inline bool aligned4(const void* p) {
 // Validates, fills in the derived fields and launches shards [i0, i1) of
 // the table.  `in` holds ndev shard pointers; offsets are reduced mod N.
 inline int launch(const void* const* in, int ndev, void* out,
-                  const void* mf, const void* rx, const void* cap, int S,
-                  int L, int fanout, const int* offsets, int rnd, int budget,
-                  int i0, int i1, cudaStream_t stream) {
+                  const void* mf, const void* rx, const void* cap,
+                  const void* drop, int S, int L, int fanout,
+                  const int* offsets, int rnd, int budget, int i0, int i1,
+                  cudaStream_t stream) {
   if (S <= 0 || L <= 0 || ndev < 1 || ndev > kMaxShards || fanout < 1 ||
       fanout > kMaxFanout || budget < 1 || budget > 14 || i0 < 0 ||
       i1 > ndev || i0 >= i1 ||
@@ -378,6 +422,7 @@ inline int launch(const void* const* in, int ndev, void* out,
   a.mf = static_cast<const int32_t*>(mf);
   a.rx = static_cast<const uint8_t*>(rx);
   a.cap = static_cast<const int32_t*>(cap);
+  a.drop = static_cast<const uint8_t*>(drop);
   a.S = S;
   a.L = L;
   a.ndev = ndev;
@@ -407,32 +452,35 @@ inline int launch(const void* const* in, int ndev, void* out,
 
 // out[S, N] = the round's dissemination of heard[S, N].  mf: int32 [N];
 // rx: one byte per column (a torch bool tensor); cap: int32 [S], >= 0;
+// drop: nullptr, or one byte per leg and column, u8 [fanout, N];
 // offsets: `fanout` host ints; budget in [1, 14].  Launches on `stream`,
 // does not synchronise, returns cudaGetLastError() after the launch (or
 // cudaErrorInvalidValue for arguments it does not take).
 extern "C" int fused_dissem(const void* heard, void* out, const void* mf,
-                            const void* rx, const void* cap, int S, int N,
-                            int fanout, const int* offsets, int rnd,
-                            int budget, void* stream) {
+                            const void* rx, const void* cap,
+                            const void* drop, int S, int N, int fanout,
+                            const int* offsets, int rnd, int budget,
+                            void* stream) {
   const void* table[1] = {heard};
-  return dissem_tail::launch(table, 1, out, mf, rx, cap, S, N, fanout,
+  return dissem_tail::launch(table, 1, out, mf, rx, cap, drop, S, N, fanout,
                              offsets, rnd, budget, 0, 1,
                              static_cast<cudaStream_t>(stream));
 }
 
 // out[i] = the merge of shard i for i in [i0, i1).  shards: ndev pointers
 // to u8 [S, L]; out: u8 [ndev, S, L]; mf: int32 [N]; rx: one byte per
-// global column; cap: int32 [S], >= 0; offsets: `fanout` host ints;
+// global column; cap: int32 [S], >= 0; drop: nullptr, or u8 [fanout, N]
+// by global column; offsets: `fanout` host ints;
 // budget in [1, 14]; ndev <= 64 and N = ndev * L below 2**31.  Launches on
 // `stream`, does not synchronise, returns cudaGetLastError() after the
 // launch (or cudaErrorInvalidValue for arguments it does not take).
 extern "C" int fused_merge(const void* const* shards, int ndev, void* out,
                            const void* mf, const void* rx, const void* cap,
-                           int S, int L, int fanout, const int* offsets,
-                           int rnd, int budget, int i0, int i1,
-                           void* stream) {
-  return dissem_tail::launch(shards, ndev, out, mf, rx, cap, S, L, fanout,
-                             offsets, rnd, budget, i0, i1,
+                           const void* drop, int S, int L, int fanout,
+                           const int* offsets, int rnd, int budget, int i0,
+                           int i1, void* stream) {
+  return dissem_tail::launch(shards, ndev, out, mf, rx, cap, drop, S, L,
+                             fanout, offsets, rnd, budget, i0, i1,
                              static_cast<cudaStream_t>(stream));
 }
 

@@ -1,12 +1,12 @@
 """Carry state and keys across from the reference as numpy arrays.
 
 This system has no weights: its state (``SwimState``, ``FlightRing``,
-``HistBank``, the event flood's ``EventState``) and its PRNG key play
-that role.  A test, or a caller migrating a live pool, exports the
-reference's NamedTuples field by field as numpy
-(``{f: np.asarray(getattr(st, f)) for f in st._fields}``) and the key as
-``jax.random.key_data(key)``; these functions take them onto a torch
-device and back.
+``HistBank``, the Lifeguard registers ``NemState``, the event flood's
+``EventState``) and its PRNG key play that role.  A test, or a caller
+migrating a live pool, exports the reference's NamedTuples field by
+field as numpy (``{f: np.asarray(getattr(st, f)) for f in st._fields}``)
+and the key as ``jax.random.key_data(key)``; these functions take them
+onto a torch device and back.
 """
 
 from __future__ import annotations
@@ -16,14 +16,15 @@ import torch
 
 from consul_tpu_torch._device import resolve_device
 from consul_tpu_torch.gossip.events import EventState
-from consul_tpu_torch.gossip.kernel import (FlightRing, HistBank, SwimState,
-                                            unshard_state)
+from consul_tpu_torch.gossip.kernel import (FlightRing, HistBank, NemState,
+                                            SwimState, unshard_state)
 
-_TYPES = (SwimState, FlightRing, HistBank, EventState)
+_TYPES = (SwimState, FlightRing, HistBank, NemState, EventState)
 
 
 def state_from_numpy(arrays: dict, device=None):
-    """A ``SwimState``, ``FlightRing``, ``HistBank`` or ``EventState`` —
+    """A ``SwimState``, ``FlightRing``, ``HistBank``, ``NemState`` or
+    ``EventState`` —
     whichever has exactly the dict's field names — with each array on
     ``device``."""
     for cls in _TYPES:

@@ -26,6 +26,12 @@ pins, the rolled sender masks, ``merge_ref`` per shard).
 ``disseminate`` — what the round calls — takes the plain versions only
 for CPU tensors; for CUDA tensors it launches the kernels or raises.
 There is no fallback.
+
+Under a partitioned nemesis scenario every function here takes a drop
+operand: ``drop``, u8 or bool ``[F, N]`` by global destination column,
+where a set byte kills leg ``f``'s delivery into that column (the
+reference folds it into the sender masks, ``fused._src_masks``).
+``None`` means no partition.
 """
 
 from __future__ import annotations
@@ -53,6 +59,10 @@ BUDGET_RANGE = (1, 14)
 launches = 0
 # Kernel launches made by ``fused_merge`` (one per launch, nowhere else).
 merge_launches = 0
+# Of those, the launches given a drop operand (``fused_dissem``,
+# ``fused_merge``).
+drop_launches = 0
+merge_drop_launches = 0
 
 
 def _age_u8(x: torch.Tensor) -> torch.Tensor:
@@ -93,16 +103,23 @@ def _merge(p: SwimParams, cur, pins, srcs, rx, cap) -> torch.Tensor:
     return (out_msg << _MSG_SHIFT) | (out_conf << _CONF_SHIFT) | out_age
 
 
+def _live(live: torch.Tensor, drop, f: int) -> torch.Tensor:
+    """Leg ``f``'s sender mask less its dropped columns."""
+    return live if drop is None else live & (drop[f] == 0)
+
+
 def disseminate_ref(p: SwimParams, rnd: int, offs, heard: torch.Tensor,
                     mf: torch.Tensor, rx_ok: torch.Tensor,
-                    conf_cap: torch.Tensor) -> torch.Tensor:
+                    conf_cap: torch.Tensor, drop=None) -> torch.Tensor:
     """The plain torch version of the kernel, on any device.
 
     ``offs``: the round's ``fanout`` gossip shifts (host ints); the
-    sender into column ``c`` on leg ``f`` is ``c - offs[f]``."""
+    sender into column ``c`` on leg ``f`` is ``c - offs[f]``.  ``drop``:
+    the partition's drop operand (module docstring) or None."""
     h = heard.to(torch.int32)
     pins = [_age_u8(torch.roll(h, o, dims=1)) for o in offs]
-    srcs = [(torch.roll(mf, o) > rnd)[None, :] for o in offs]
+    srcs = [_live(torch.roll(mf, o) > rnd, drop, f)[None, :]
+            for f, o in enumerate(offs)]
     out = _merge(p, _age_u8(h), pins, srcs, rx_ok[None, :],
                  conf_cap.to(torch.int32)[:, None])
     return out.to(torch.uint8)
@@ -110,24 +127,28 @@ def disseminate_ref(p: SwimParams, rnd: int, offs, heard: torch.Tensor,
 
 def merge_ref(p: SwimParams, cur: torch.Tensor, pins: torch.Tensor,
               src: torch.Tensor, rx: torch.Tensor,
-              cap: torch.Tensor) -> torch.Tensor:
+              cap: torch.Tensor, drop=None) -> torch.Tensor:
     """The reference's ``_fused_sharded`` body on one shard, in plain
     torch, on any device.  ``cur`` u8 [S, L]; ``pins`` u8 [F, S, L],
     aligned with ``cur``; ``src`` bool [F, L], the live senders of each
-    leg; ``rx`` bool [L]; ``cap`` i32 [S]."""
+    leg; ``rx`` bool [L]; ``cap`` i32 [S]; ``drop`` None or [F, L], this
+    shard's columns of the drop operand."""
     out = _merge(p, _age_u8(cur.to(torch.int32)),
                  [_age_u8(pin.to(torch.int32)) for pin in pins],
-                 [s[None, :] for s in src], rx[None, :],
+                 [_live(s, drop, f)[None, :] for f, s in enumerate(src)],
+                 rx[None, :],
                  cap.to(torch.int32)[:, None])
     return out.to(torch.uint8)
 
 
 def merge_shards_ref(p: SwimParams, rnd: int, offs, heard, mf: torch.Tensor,
-                     rx_ok: torch.Tensor, conf_cap: torch.Tensor, sc):
+                     rx_ok: torch.Tensor, conf_cap: torch.Tensor, sc,
+                     drop=None):
     """The plain torch version of ``fused_merge``, on any device: the
     reference's sharded tail.  The halo hop rolls each leg's pins into a
     [F, S, L] buffer per shard, the rolled ``mf > rnd`` gives each leg's
-    live senders, and ``merge_ref`` merges each shard."""
+    live senders, and ``merge_ref`` merges each shard; ``drop`` is the
+    global [F, N] operand, each shard taking its own columns."""
     S, L = heard[0].shape
     pins = [h.new_empty((len(offs), S, L)) for h in heard]
     for f, o in enumerate(offs):
@@ -135,7 +156,8 @@ def merge_shards_ref(p: SwimParams, rnd: int, offs, heard, mf: torch.Tensor,
     return tuple(
         merge_ref(p, h, pins[i],
                   torch.stack([_sloc_roll(sc, mf, o, i) > rnd for o in offs]),
-                  _sloc(sc, rx_ok, i), conf_cap)
+                  _sloc(sc, rx_ok, i), conf_cap,
+                  None if drop is None else drop[:, i * L:(i + 1) * L])
         for i, h in enumerate(heard))
 
 
@@ -149,9 +171,9 @@ def _array(ctype, n: int):
 
 
 _ARGTYPES = {  # C entry point -> its argument types (pointers, ints, stream)
-    "fused_dissem": [_VP] * 5 + [_CI] * 3 + [ctypes.POINTER(_CI)]
+    "fused_dissem": [_VP] * 6 + [_CI] * 3 + [ctypes.POINTER(_CI)]
                     + [_CI] * 2 + [_VP],
-    "fused_merge": [ctypes.POINTER(_VP), _CI] + [_VP] * 4 + [_CI] * 3
+    "fused_merge": [ctypes.POINTER(_VP), _CI] + [_VP] * 5 + [_CI] * 3
                    + [ctypes.POINTER(_CI)] + [_CI] * 4 + [_VP],
 }
 
@@ -208,14 +230,26 @@ def _check_legs(offs, budget: int) -> None:
         raise ValueError(f"budget must be in [{lo}, {hi}], got {budget}")
 
 
+def _drop_ptr(drop, F: int, N: int, device) -> int | None:
+    """The drop operand's address for the kernel (None for no operand):
+    a contiguous u8 or bool [F, N] tensor on ``device``."""
+    if drop is None:
+        return None
+    if drop.dtype == torch.bool:
+        drop = drop.view(torch.uint8)
+    _check("drop", drop, torch.uint8, (F, N), device)
+    return drop.data_ptr()
+
+
 def fused_dissem(heard: torch.Tensor, offs, mf: torch.Tensor,
                  rx_ok: torch.Tensor, conf_cap: torch.Tensor, rnd: int,
-                 budget: int) -> torch.Tensor:
+                 budget: int, drop=None) -> torch.Tensor:
     """Launch ``fused_dissem`` of ``csrc/dissem_tail.cu`` on CUDA
-    tensors (the arguments of ``disseminate_ref``; caps >= 0); returns a
-    new ``[S, N]`` u8 tensor.  Launches on the current stream and does
-    not synchronise.  Raises on anything the kernel does not take."""
-    global launches
+    tensors (the arguments of ``disseminate_ref``; caps >= 0; ``drop``
+    None or u8/bool [F, N]); returns a new ``[S, N]`` u8 tensor.  Launches
+    on the current stream and does not synchronise.  Raises on anything
+    the kernel does not take."""
+    global launches, drop_launches
     _require_cuda("fused_dissem", heard)
     if heard.dim() != 2 or heard.dtype != torch.uint8:
         raise ValueError(f"heard must be u8 [S, N], got {heard.dtype}"
@@ -228,27 +262,30 @@ def fused_dissem(heard: torch.Tensor, offs, mf: torch.Tensor,
     _check("conf_cap", conf_cap, torch.int32, (S,), dev)
     budget = int(budget)
     _check_legs(offs, budget)
+    drop_p = _drop_ptr(drop, len(offs), N, dev)
     out = torch.empty_like(heard)
     if heard.numel() == 0:
         return out
     c_offs = _array(_CI, len(offs))(*(int(o) % N for o in offs))
     _launch("fused_dissem", dev, heard.data_ptr(), out.data_ptr(),
-            mf.data_ptr(), rx_ok.data_ptr(), conf_cap.data_ptr(), S, N,
-            len(offs), c_offs, int(rnd), budget)
+            mf.data_ptr(), rx_ok.data_ptr(), conf_cap.data_ptr(), drop_p, S,
+            N, len(offs), c_offs, int(rnd), budget)
     launches += 1
+    drop_launches += drop_p is not None
     return out
 
 
 def fused_merge(heard, offs, mf: torch.Tensor, rx_ok: torch.Tensor,
-                conf_cap: torch.Tensor, rnd: int, budget: int):
+                conf_cap: torch.Tensor, rnd: int, budget: int, drop=None):
     """Launch ``fused_merge`` of ``csrc/dissem_tail.cu`` on a tuple of
     CUDA shards (the arguments of ``merge_shards_ref`` but ``p`` and
     ``sc``: ``heard`` is ``ndev`` u8 [S, L] shards, ``mf``/``rx_ok`` the
-    global [N] vectors, caps >= 0): every shard in one launch.  Returns
-    the tuple of the merged shards, views ``out[i]`` of one new
-    [ndev, S, L] buffer.  Launches on the current stream and does not
-    synchronise.  Raises on anything the kernel does not take."""
-    global merge_launches
+    global [N] vectors, caps >= 0, ``drop`` None or the global u8/bool
+    [F, N] operand): every shard in one launch.  Returns the tuple of the
+    merged shards, views ``out[i]`` of one new [ndev, S, L] buffer.
+    Launches on the current stream and does not synchronise.  Raises on
+    anything the kernel does not take."""
+    global merge_launches, merge_drop_launches
     ndev = len(heard)
     if not 1 <= ndev <= MAX_SHARDS:
         raise ValueError(f"fused_merge takes 1 to {MAX_SHARDS} shards, "
@@ -269,46 +306,51 @@ def fused_merge(heard, offs, mf: torch.Tensor, rx_ok: torch.Tensor,
     _check("conf_cap", conf_cap, torch.int32, (S,), dev)
     budget = int(budget)
     _check_legs(offs, budget)
+    drop_p = _drop_ptr(drop, len(offs), N, dev)
     out = torch.empty((ndev, S, L), dtype=torch.uint8, device=dev)
     if out.numel() == 0:
         return out.unbind(0)
     table = _array(_VP, ndev)(*(h.data_ptr() for h in heard))
     c_offs = _array(_CI, len(offs))(*(int(o) % N for o in offs))
     _launch("fused_merge", dev, table, ndev, out.data_ptr(), mf.data_ptr(),
-            rx_ok.data_ptr(), conf_cap.data_ptr(), S, L, len(offs), c_offs,
-            int(rnd), budget, 0, ndev)
+            rx_ok.data_ptr(), conf_cap.data_ptr(), drop_p, S, L, len(offs),
+            c_offs, int(rnd), budget, 0, ndev)
     merge_launches += 1
+    merge_drop_launches += drop_p is not None
     return out.unbind(0)
 
 
 def _disseminate_sharded(p: SwimParams, rnd: int, offs, heard, mf, rx_ok,
-                         conf_cap, sc):
+                         conf_cap, sc, drop):
     """The reference's ``_fused_sharded`` with its halo hop: one launch
     for all shards on CUDA tensors, the plain composition on CPU
     tensors."""
     if heard[0].device.type == "cpu":
-        return merge_shards_ref(p, rnd, offs, heard, mf, rx_ok, conf_cap, sc)
+        return merge_shards_ref(p, rnd, offs, heard, mf, rx_ok, conf_cap, sc,
+                                drop)
     return fused_merge(heard, offs, mf, rx_ok, conf_cap, rnd,
-                       p.spread_budget_rounds)
+                       p.spread_budget_rounds, drop)
 
 
 def disseminate(p: SwimParams, rnd: int, offs, heard, mf: torch.Tensor,
-                rx_ok: torch.Tensor, conf_cap: torch.Tensor, sc=None):
+                rx_ok: torch.Tensor, conf_cap: torch.Tensor, sc=None,
+                drop=None):
     """The round's dense tail (reference ``fused_disseminate``): the
     kernels on CUDA tensors, the plain versions on CPU tensors.
     Sharded (``sc``), ``heard`` is the tuple of shards and so is the
-    result."""
+    result.  ``drop``: the partition's drop operand, or None."""
     if sc is not None:
         # No fused_nb check: the reference makes it only in
         # _fused_single, so the sharded round takes any fused_nb.
         return _disseminate_sharded(p, rnd, offs, heard, mf, rx_ok,
-                                    conf_cap, sc)
+                                    conf_cap, sc, drop)
     if p.dissem == "fused":
         # The reference's grid contract (fused.py:146); the kernel here
         # tiles on its own, but the same configurations are refused.
         require_divisible(heard.shape[1], p.fused_nb, what="n",
                           by="fused_nb")
     if heard.device.type == "cpu":
-        return disseminate_ref(p, rnd, offs, heard, mf, rx_ok, conf_cap)
+        return disseminate_ref(p, rnd, offs, heard, mf, rx_ok, conf_cap,
+                               drop)
     return fused_dissem(heard, offs, mf, rx_ok, conf_cap, rnd,
-                        p.spread_budget_rounds)
+                        p.spread_budget_rounds, drop)

@@ -3,9 +3,10 @@
 Port of ``consul_tpu/gossip/kernel.py`` (the reference; its module
 docstring explains the protocol, the ``heard [S, N]`` belief-byte layout
 and the circulant gossip graph).  Under the same key and inputs this
-round is bit-identical to the reference's single-device round without
-nemesis — every field of ``SwimState``, ``FlightRing``, ``HistBank`` and
-``RoundTrace`` (``tests/test_torch_kernel.py``).
+round is bit-identical to the reference's — every field of
+``SwimState``, ``FlightRing``, ``HistBank``, ``NemState`` and
+``RoundTrace`` (``tests/test_torch_kernel.py``; under each nemesis
+scenario, ``tests/test_torch_nemesis.py``).
 
 How the JAX program maps onto eager PyTorch:
 
@@ -26,6 +27,12 @@ How the JAX program maps onto eager PyTorch:
   off (``_set_drop``/``_add_drop``); torch would raise on them.
 - The hot tier's ``top_k`` over a 0/1 vector (ties to the lowest index)
   is a stable argsort.
+- A nemesis schedule (``gossip/nemesis.py``) is decided on the host
+  where it can be: the fault window is a host test on the mirrored
+  round, and a drop draw whose outcome is certain (outside the window,
+  a drop probability of 0 or 1, a prober block with no degraded
+  observer) is not made.  Every draw has its own key (``fold_in`` and
+  ``split``, never a sequence), so skipping one changes no other.
 
 Tensors are never modified in place except those the round allocated
 itself (the belief matrix after the probe tick's rearm clear, the rows
@@ -47,6 +54,7 @@ import torch
 
 from consul_tpu_torch import prng
 from consul_tpu_torch._device import resolve_device
+from consul_tpu_torch.gossip.nemesis import NemesisParams
 from consul_tpu_torch.gossip.params import SwimParams
 from consul_tpu_torch.obs.constants import LATENCY_BUCKETS as _HIST_LAT
 from consul_tpu_torch.obs.constants import N_COLS as _FLIGHT_COLS
@@ -173,6 +181,22 @@ def init_hist(device=None) -> HistBank:
                                 _HIST_SPREAD)))
 
 
+class NemState(NamedTuple):
+    """Per-node Lifeguard local-health registers, threaded through the
+    round when a nemesis scenario needs them (``needs_state``).  Held
+    once under sharding, like every register but ``heard``."""
+
+    lhm: torch.Tensor     # i32 [N] — local-health multiplier, [0, lhm_max]
+    streak: torch.Tensor  # i32 [N] — consecutive direct-probe misses,
+                          #   clamped at lhm_max + 1
+
+
+def init_nem_state(n: int, device=None) -> NemState:
+    dev = resolve_device(device)
+    return NemState(lhm=torch.zeros((n,), dtype=_I32, device=dev),
+                    streak=torch.zeros((n,), dtype=_I32, device=dev))
+
+
 class RoundTrace(NamedTuple):
     """Per-round observables emitted by run_rounds (small: O(S))."""
 
@@ -229,6 +253,76 @@ def _hist_add(bank: torch.Tensor, mask: torch.Tensor,
 @functools.lru_cache(maxsize=64)
 def _timeout_table(p: SwimParams, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(p.timeout_table(), device=device)
+
+
+# -- nemesis injection (the reference's statics, decided on the host) ---------
+
+@functools.lru_cache(maxsize=32)
+def _nem_group(nem: NemesisParams, n: int, device) -> torch.Tensor:
+    """Partition group bit per node, i32 [n] (``nemesis.group_of`` bit
+    for bit), built once per (schedule, n, device).  The hash is the
+    uint32 product's top bit, carried in int64."""
+    ids = torch.arange(n, dtype=torch.int64, device=device)
+    if nem.part_kind == "hash":
+        return (((ids * 2654435761) & 0xFFFFFFFF) >> 31).to(_I32)
+    return (ids >= n // 2).to(_I32)
+
+
+@functools.lru_cache(maxsize=32)
+def _nem_flap_ids(nem: NemesisParams, n: int, device) -> torch.Tensor:
+    ids = torch.arange(n, dtype=_I32, device=device)
+    return (ids >= nem.flap_lo) & (ids < nem.flap_hi)
+
+
+def _nem_in_window(nem: NemesisParams, rnd: int) -> bool:
+    return nem.start <= rnd < nem.stop
+
+
+def _nem_schedule(nem: NemesisParams, rnd: int, fail_round, join_round):
+    """The round's injection schedule on the ground-truth inputs
+    (reference ``_nem_schedule``): a flapping node's down phase fails it
+    now, its up phase re-arms ``join_round``; after a healed partition
+    every node is join-pending (the join tick ignores members)."""
+    if nem.has_flap:
+        flap = _nem_flap_ids(nem, fail_round.shape[0], fail_round.device)
+        down_phase = ((rnd - nem.start) % nem.flap_period) >= nem.flap_up
+        if _nem_in_window(nem, rnd) and down_phase:
+            fail_round = torch.where(flap, fail_round.clamp(max=rnd),
+                                     fail_round)
+        else:
+            join_round = torch.where(flap, join_round.clamp(max=rnd),
+                                     join_round)
+    if nem.heal_rejoin:
+        join_round = join_round.clamp(max=nem.stop)
+    return fail_round, join_round
+
+
+def _draw_below(key, shape, p: float, device) -> torch.Tensor:
+    """``uniform(key, shape) < p`` for a float32 ``p``; a certain outcome
+    (``p`` <= 0 or >= 1, the draw being in [0, 1)) is not drawn."""
+    if p <= 0.0 or p >= 1.0:
+        return torch.full(shape, p >= 1.0, dtype=torch.bool, device=device)
+    return prng.uniform_tensor(key, shape, device) < p
+
+
+def _nem_edge_drops(nem: NemesisParams, n: int, device, keys,
+                    shifts) -> torch.Tensor:
+    """Bool ``[len(shifts), n]``: where a message into destination ``d``
+    along shift ``o`` (sender ``d - o``) is dropped inside the fault
+    window — cross-group senders at their group's edge probability, one
+    ``uniform(keys[j], (n,))`` per shift (reference ``_nem_leg_drop``
+    and the push/pull legs)."""
+    grp = _nem_group(nem, n, device)
+    g_src = torch.stack([torch.roll(grp, o) for o in shifts])
+    cross = g_src != grp
+    p_ab, p_ba = _f32(nem.p_ab), _f32(nem.p_ba)
+    if all(q <= 0.0 or q >= 1.0 for q in (p_ab, p_ba)):
+        # Certain: every cross edge of a direction drops, or none does.
+        if (p_ab >= 1.0) == (p_ba >= 1.0):
+            return cross if p_ab >= 1.0 else torch.zeros_like(cross)
+        return cross & ((g_src == 0) == (p_ab >= 1.0))
+    p_edge = torch.where(g_src == 0, p_ab, p_ba)
+    return cross & (prng.uniform_rows(keys, n, device) < p_edge)
 
 
 # -- sharding along the observer axis -----------------------------------------
@@ -453,15 +547,22 @@ def _f32(x: float) -> float:
 
 
 def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
-                sc: _ShardCtx | None = None):
+                sc: _ShardCtx | None = None,
+                nem: NemesisParams | None = None,
+                nem_state: NemState | None = None):
     """One round's probe slice: direct probe -> k indirect probes ->
     suspicion initiation for this round's prober block (reference
-    ``_probe_tick`` without the nemesis legs).  ``mf`` packs membership
-    and ground truth: ``member ? fail_round : -1``.  Returns
-    ``(carry, probe_stats)``."""
+    ``_probe_tick``).  ``mf`` packs membership and ground truth:
+    ``member ? fail_round : -1``.
+
+    ``nem`` adds the nemesis probe legs: cross-group round-trip drops
+    and a degraded observer's missed replies; with ``nem_state`` also
+    Lifeguard's local-health multiplier, which holds back a prober's
+    suspicion until it has missed more probes in a row than its LHM.
+    Returns ``(carry, probe_stats, nem_state)``."""
     (heard, slot_node, slot_phase, slot_inc, slot_start, slot_nsusp,
      slot_dead_round, slot_of_node, incarnation, member, drops) = carry
-    k_t, k_dl, _k_h, k_hl = keys
+    k_t, k_dl, k_h, k_hl = keys
     N, S = p.n, p.slots
     B = _block_size(p)
     dev = mf.device
@@ -486,9 +587,36 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
     tgt_member = mf_t >= 0
     tgt_alive = mf_t > rnd
 
+    # -- nemesis probe legs, off the probe key k_h (split four ways);
+    # inside the fault window only, so outside it nothing is drawn.
+    # ``part`` (the partition legs) and ``degraded`` (this block's slow
+    # observers) stay None where they cannot drop anything.
+    part = degraded = dir_nem_drop = None
+    if nem is not None and (nem.has_partition or nem.has_degraded):
+        k_np, k_no, k_nip, k_nio = prng.split(k_h, 4)
+        in_win = _nem_in_window(nem, rnd)
+        if nem.has_partition and in_win:
+            grp2 = torch.cat([_nem_group(nem, N, dev)] * 2)
+            g_p = _dslice(grp2, blk, B)
+            g_t = _dslice(grp2, (blk + offs[0]) % N, B)
+            part = (grp2, g_p, g_t)
+            # A round trip crosses both directions once: the drop
+            # probability does not depend on the direction.
+            dir_nem_drop = (g_p != g_t) & _draw_below(
+                k_np, (B,), _f32(nem.p_roundtrip), dev)
+        if (nem.has_degraded and in_win and blk < nem.obs_hi
+                and blk + B > nem.obs_lo):
+            degraded = (pid >= nem.obs_lo) & (pid < nem.obs_hi)
+            miss = degraded & _draw_below(k_no, (B,), _f32(nem.p_obs_miss),
+                                          dev)
+            dir_nem_drop = miss if dir_nem_drop is None else (
+                dir_nem_drop | miss)
+
     u = prng.uniform_tensor(k_dl, (B,), dev)
-    direct_fail = tgt_member & (~tgt_alive
-                                | (u < _f32(p.p_direct_fail_alive)))
+    lost = ~tgt_alive | (u < _f32(p.p_direct_fail_alive))
+    if dir_nem_drop is not None:
+        lost = lost | dir_nem_drop
+    direct_fail = tgt_member & lost
 
     if p.indirect_k:
         hu = prng.uniform_tensor(k_hl, (B, p.indirect_k), dev)
@@ -497,6 +625,31 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
             dim=1)
         ind_ok = (helper_alive & (tgt_alive & tgt_member)[:, None]
                   & (hu >= _f32(p.p_indirect_fail_alive)))
+        if part is not None:
+            # Prober<->helper and helper<->target are each a round trip
+            # that crosses or not; one draw per helper at the combined
+            # drop probability of its crossings.
+            grp2, g_p, g_t = part
+            g_h = torch.stack([_dslice(grp2, (blk + offs[1 + j]) % N, B)
+                               for j in range(p.indirect_k)], dim=1)
+            n_cross = ((g_p[:, None] != g_h).to(_I32)
+                       + (g_h != g_t[:, None]).to(_I32))
+            p1 = nem.p_roundtrip
+            p_one = _f32(p1)
+            p_two = _f32(1.0 - (1.0 - p1) * (1.0 - p1))  # float64 on the host
+            shape = (B, p.indirect_k)
+            if p_one >= 1.0:
+                ind_ok = ind_ok & (n_cross == 0)
+            elif p_one > 0.0:
+                p_ind = torch.full(shape, p_two, dtype=torch.float32,
+                                   device=dev).masked_fill(n_cross == 1, p_one)
+                ind_ok = ind_ok & ~((n_cross > 0) & (
+                    prng.uniform_tensor(k_nip, shape, dev) < p_ind))
+        if degraded is not None:
+            # A degraded prober also mishandles replies its helpers
+            # relay back.
+            ind_ok = ind_ok & ~(degraded[:, None] & _draw_below(
+                k_nio, (B, p.indirect_k), _f32(nem.p_obs_miss), dev))
         rescued = ind_ok.any(dim=1)
     else:
         rescued = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -521,6 +674,24 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
     else:
         cur = heard[rows, pid_c.long()]
     init = init & ~((s_t >= 0) & ((cur >> _MSG_SHIFT) == MSG_DEAD))
+
+    if nem is not None and nem_state is not None:
+        # Lifeguard LHM: a prober suspects only after more consecutive
+        # direct misses than its LHM (at LHM 0, every miss).  LHM rises
+        # on a miss the helpers contradict and falls on a clean probe.
+        lhm, streak = nem_state
+        lhm_b = _dslice(torch.cat([lhm, lhm]), blk, B)
+        streak_b = _dslice(torch.cat([streak, streak]), blk, B)
+        miss = prober_ok & tgt_member & direct_fail
+        streak_new = torch.where(
+            miss, (streak_b + 1).clamp(max=nem.lhm_max + 1), 0)
+        init = init & (streak_new > lhm_b)
+        lhm_new = (lhm_b + (miss & rescued).to(_I32)
+                   - (prober_ok & tgt_member & ~direct_fail).to(_I32)
+                   ).clamp(0, nem.lhm_max)
+        widx = torch.where(pvalid, pid, N)
+        nem_state = NemState(lhm=_set_drop(lhm, widx, lhm_new),
+                             streak=_set_drop(streak, widx, streak_new))
 
     node_c = slot_node.clamp(0, N - 1)
     valid = slot_node >= 0
@@ -609,7 +780,7 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
     out_carry = (heard, slot_node, slot_phase, slot_inc, slot_start,
                  slot_nsusp, slot_dead_round, slot_of_node, incarnation,
                  member, drops)
-    return out_carry, probe_stats
+    return out_carry, probe_stats, nem_state
 
 
 def gossip_offsets(key, n: int, fanout: int) -> list[int]:
@@ -619,20 +790,31 @@ def gossip_offsets(key, n: int, fanout: int) -> list[int]:
 
 
 def _disseminate(p: SwimParams, rnd: int, k_gossip, heard, mf, rx_ok,
-                 conf_cap, sc: _ShardCtx | None = None):
+                 conf_cap, sc: _ShardCtx | None = None,
+                 nem: NemesisParams | None = None, k_nem=None):
     """One round of rumor push: the dense tail of ``gossip/fused.py`` —
     the Hopper kernels on CUDA tensors, their plain versions on the
-    CPU."""
+    CPU.  Inside a partition's fault window each leg ``f`` drops its
+    cross-group deliveries off ``fold_in(k_nem, f)``: the tail takes them
+    as its drop operand, ``[fanout, N]`` by destination column."""
     from consul_tpu_torch.gossip.fused import disseminate
     offs = gossip_offsets(k_gossip, p.n, p.fanout)
-    return disseminate(p, rnd, offs, heard, mf, rx_ok, conf_cap, sc)
+    drop = None
+    if (nem is not None and nem.has_partition
+            and _nem_in_window(nem, rnd)):
+        drop = _nem_edge_drops(nem, p.n, mf.device,
+                               [prng.fold_in(k_nem, f)
+                                for f in range(p.fanout)], offs)
+    return disseminate(p, rnd, offs, heard, mf, rx_ok, conf_cap, sc, drop)
 
 
 def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
                   alive, member, heard_sub, full_heard, idx, slot_node,
                   slot_phase, slot_inc, slot_start, slot_nsusp,
                   slot_dead_round, slot_of_node, incarnation, drops,
-                  conf_cap, rx_ok, sc: _ShardCtx | None = None, hist=None):
+                  conf_cap, rx_ok, sc: _ShardCtx | None = None, hist=None,
+                  nem: NemesisParams | None = None,
+                  nem_state: NemState | None = None):
     """Refutation, suspicion-timer firing, episode GC, stats (reference
     ``_finish_round``).
 
@@ -641,8 +823,9 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
     ``full_heard=None``; the hot path passes the gathered rows and
     writes them back into ``full_heard``.  Both ``heard_sub`` and
     ``full_heard`` are the round's own tensors (one per shard when
-    sharded) and are written in place.  Returns ``state`` or
-    ``(state, hist)``."""
+    sharded) and are written in place.  With ``nem_state`` threaded, a
+    subject that refuted a suspicion about itself raises its own LHM
+    (Lifeguard).  Returns ``(state, hist, nem_state)``."""
     N = p.n
     H = idx.shape[0]
     dev = slot_node.device
@@ -694,6 +877,12 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
             for (i, h), (owned, loc, byte) in zip(shards, local):
                 h[hrows, loc] = torch.where(owned, new, byte)
         n_refuted = n_refuted + refute_now.sum(dtype=_I32)
+
+    if nem is not None and nem_state is not None:
+        # Subjects are distinct node ids: at most one bump a node.
+        lhm = _add_drop(nem_state.lhm, torch.where(refute_now, node_c, N),
+                        torch.ones_like(node_c)).clamp(max=nem.lhm_max)
+        nem_state = nem_state._replace(lhm=lhm)
 
     # -- suspicion timers fire -> dead declared.  The reference looks up
     # tbl[min(conf, cc)] per byte; conf is 2 bits, so per row the four
@@ -815,24 +1004,35 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
         n_false_dead=n_false_dead,
         n_refuted=n_refuted,
     )
-    return st if hist is None else (st, hist)
+    return st, hist, nem_state
 
 
 def _swim_round_impl(state: SwimState, rnd: int, base_key,
                      fail_round: torch.Tensor, p: SwimParams,
                      join_round: torch.Tensor | None, collect: bool,
                      hist: HistBank | None = None,
-                     sc: _ShardCtx | None = None):
-    """One round + (optionally) its flight-recorder row + histograms.
+                     sc: _ShardCtx | None = None,
+                     nem: NemesisParams | None = None,
+                     nem_state: NemState | None = None):
+    """One round + (optionally) its flight-recorder row + histograms,
+    under a nemesis schedule when ``nem`` is given (with the Lifeguard
+    registers when ``nem_state`` is).
 
     ``rnd`` is the host mirror of ``state.round``.  Returns
-    ``(state, row, hist)``; ``row`` is None unless ``collect``."""
+    ``(state, row, hist, nem_state)``; ``row`` is None unless
+    ``collect``."""
     key = prng.fold_in(base_key, rnd)
     k_probe = prng.split(prng.fold_in(key, 1), 4)
     k_gossip = prng.fold_in(key, 2)
 
     N, S = p.n, p.slots
     dev = state.slot_node.device
+    if nem is not None:
+        # The kills half of the schedule rewrites the ground truth before
+        # any phase reads it.
+        _require_join(nem, join_round)
+        fail_round, join_round = _nem_schedule(nem, rnd, fail_round,
+                                               join_round)
     alive = fail_round > rnd
 
     carry = (state.heard, state.slot_node, state.slot_phase, state.slot_inc,
@@ -850,7 +1050,8 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
     mf = torch.where(member_now, fail_round, -1)
 
     # -- 1. probe tick, on the un-aged matrix.
-    carry, probe_stats = _probe_tick(p, rnd, k_probe, mf, carry, sc)
+    carry, probe_stats, nem_state = _probe_tick(p, rnd, k_probe, mf, carry,
+                                                sc, nem, nem_state)
     (heard, slot_node, slot_phase, slot_inc, slot_start, slot_nsusp,
      slot_dead_round, slot_of_node, incarnation, member, drops) = carry
 
@@ -873,27 +1074,44 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
                         & ok[None, :])
             return torch.where(upgraded, hin, h)
 
-        for shift in (o, -o):
+        shifts = (o, -o)
+        # Inside a partition's window the two sync legs drop cross-group
+        # columns off fold_in(fold_in(key, 5), j), drawn over all N.
+        live = [None, None]
+        if (nem is not None and nem.has_partition
+                and _nem_in_window(nem, rnd)):
+            k_pp = prng.fold_in(key, 5)
+            live = ~_nem_edge_drops(nem, N, dev, [prng.fold_in(k_pp, j)
+                                                  for j in (0, 1)], shifts)
+        for shift, lv in zip(shifts, live):
             if sc is None:
                 ok = sub_rx_ok & (torch.roll(mf, shift) > rnd)
+                if lv is not None:
+                    ok = ok & lv
                 h = _take(h, torch.roll(h, shift, dims=1), ok)
             else:
                 hin = _roll_sharded(sc, h, shift)
                 h = tuple(
                     _take(h[i], hin[i], _sloc(sc, sub_rx_ok, i)
-                          & (_sloc_roll(sc, mf, shift, i) > rnd))
+                          & (_sloc_roll(sc, mf, shift, i) > rnd)
+                          & (True if lv is None else _sloc(sc, lv, i)))
                     for i in range(sc.ndev))
         return h
 
+    # Key 4 is the dissemination legs' drops (5 is push/pull's).
+    k_nem = (prng.fold_in(key, 4)
+             if nem is not None and nem.has_partition else None)
+
     def _tail(heard_sub, full_heard, idx, cap):
         heard_sub = _disseminate(p, rnd, k_gossip, heard_sub, mf, rx_ok, cap,
-                                 sc)
+                                 sc, nem, k_nem)
         heard_sub = _maybe_pushpull(heard_sub, rx_ok)
         return _finish_round(p, state, rnd, fail_round, alive, member,
                              heard_sub, full_heard, idx, slot_node,
                              slot_phase, slot_inc, slot_start, slot_nsusp,
                              slot_dead_round, slot_of_node, incarnation,
-                             drops, conf_cap, rx_ok, sc, hist)
+                             drops, conf_cap, rx_ok, sc, hist, nem,
+                             nem_state)
 
     n_active = _host_int((slot_node >= 0).sum(dtype=_I32))
     hot = bool(p.hot_slots) and S > p.hot_slots and n_active <= p.hot_slots
@@ -925,9 +1143,9 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
         else:
             out = _tail(heard, None,
                         torch.arange(S, dtype=_I32, device=dev), conf_cap)
-        new_state, hist_out = (out, hist) if hist is None else out
+        new_state, hist_out, nem_state = out
     if not collect:
-        return new_state, None, hist_out
+        return new_state, None, hist_out, nem_state
 
     # -- flight row (obs.constants.FLIGHT_COLS order).  Dissemination
     # bytes: every in-budget rumor entry pushed to ``fanout`` peers.
@@ -954,7 +1172,7 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
         new_state.drops - state.drops,
         new_state.member.sum(dtype=_I32),
     ]).to(_I32)
-    return new_state, row, hist_out
+    return new_state, row, hist_out, nem_state
 
 
 def _on(dev: torch.device, tup):
@@ -973,56 +1191,95 @@ def _require_unsharded(state: SwimState) -> None:
                          "unshard_state first")
 
 
+def _require_join(nem: NemesisParams, join_round) -> None:
+    if nem.needs_join and join_round is None:
+        raise ValueError(
+            f"nemesis scenario {nem.scenario!r} rewrites join_round; "
+            "pass a join_round array (all-NEVER works)")
+
+
+def _require_nem_state(nem: NemesisParams | None, nem_state) -> None:
+    if nem is not None and nem.needs_state and nem_state is None:
+        raise ValueError(
+            f"nemesis scenario {nem.scenario!r} needs NemState; pass "
+            "nem_state=init_nem_state(p.n)")
+
+
 def swim_round(state: SwimState, base_key, fail_round, p: SwimParams,
-               join_round=None, device=None) -> SwimState:
-    """Advance the pool by one gossip round (reference ``swim_round``)."""
+               join_round=None, device=None,
+               nem: NemesisParams | None = None,
+               nem_state: NemState | None = None):
+    """Advance the pool by one gossip round (reference ``swim_round``),
+    under the nemesis schedule ``nem`` if given: ``state``, or
+    ``(state, nem_state)`` when ``nem_state`` is threaded."""
     return _one_round(state, base_key, fail_round, p, None, join_round,
-                      device)[0]
+                      device, nem=nem, nem_state=nem_state)
 
 
 def swim_round_hist(state: SwimState, base_key, fail_round, p: SwimParams,
-                    hist: HistBank, join_round=None, device=None):
-    """One round threading the observatory banks: ``(state, hist)``."""
+                    hist: HistBank, join_round=None, device=None,
+                    nem: NemesisParams | None = None,
+                    nem_state: NemState | None = None):
+    """One round threading the observatory banks: ``(state, hist)``, or
+    ``(state, hist, nem_state)`` when ``nem_state`` is threaded."""
     return _one_round(state, base_key, fail_round, p, hist, join_round,
-                      device)
+                      device, nem=nem, nem_state=nem_state)
 
 
 def _one_round(state, base_key, fail_round, p, hist, join_round, device,
-               sc=None):
+               sc=None, nem=None, nem_state=None):
+    """One round; returns the state packed with whichever of hist and
+    nem_state are threaded, in that order."""
+    _require_nem_state(nem, nem_state)
     dev = resolve_device(device)
     if sc is None:
         _require_unsharded(state)
     state = _on(dev, state)
     hist = None if hist is None else _on(dev, hist)
+    nem_state = None if nem_state is None else _on(dev, nem_state)
     jr = None if join_round is None else _as_i32(join_round, dev)
-    st, _, hb = _swim_round_impl(state, _host_int(state.round), base_key,
-                                 _as_i32(fail_round, dev), p, jr,
-                                 collect=False, hist=hist, sc=sc)
-    return st, hb
+    st, _, hb, ns = _swim_round_impl(state, _host_int(state.round), base_key,
+                                     _as_i32(fail_round, dev), p, jr,
+                                     collect=False, hist=hist, sc=sc,
+                                     nem=nem, nem_state=nem_state)
+    out = ((st,) + ((hb,) if hist is not None else ())
+           + ((ns,) if nem_state is not None else ()))
+    return out[0] if len(out) == 1 else out
 
 
 def run_rounds(state: SwimState, base_key, fail_round, p: SwimParams,
                steps: int, trace: bool = False, join_round=None,
                flight: FlightRing | None = None,
-               hist: HistBank | None = None, device=None):
-    """Run ``steps`` rounds (reference ``run_rounds``).
+               hist: HistBank | None = None, device=None,
+               nem: NemesisParams | None = None,
+               nem_state: NemState | None = None):
+    """Run ``steps`` rounds (reference ``run_rounds``), under the
+    nemesis schedule ``nem`` if given.
 
     Returns ``(carry, trace)``: ``carry`` is ``state`` alone, or the
-    tuple ``(state[, flight][, hist])`` when those are threaded;
-    ``trace`` is a ``RoundTrace`` of ``[steps, S]`` tensors, or None.
-    ``base_key`` is a ``prng`` key (``uint32[2]``); ``fail_round`` and
-    ``join_round`` may be numpy arrays or tensors."""
+    tuple ``(state[, flight][, hist][, nem_state])`` when those are
+    threaded; ``trace`` is a ``RoundTrace`` of ``[steps, S]`` tensors, or
+    None.  ``base_key`` is a ``prng`` key (``uint32[2]``); ``fail_round``
+    and ``join_round`` may be numpy arrays or tensors.  A scenario that
+    needs ``NemState`` (Lifeguard LHM) must be given one
+    (``init_nem_state``)."""
+    _require_nem_state(nem, nem_state)
     _require_unsharded(state)
     return _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
-                            join_round, flight, hist, resolve_device(device))
+                            join_round, flight, hist, resolve_device(device),
+                            nem=nem, nem_state=nem_state)
 
 
 def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
-                     join_round, flight, hist, dev, sc=None):
+                     join_round, flight, hist, dev, sc=None, nem=None,
+                     nem_state=None):
     state = _on(dev, state)
     fail_round = _as_i32(fail_round, dev)
     join_round = None if join_round is None else _as_i32(join_round, dev)
     hist = None if hist is None else _on(dev, hist)
+    nem_state = None if nem_state is None else _on(dev, nem_state)
+    if nem is not None:
+        _require_join(nem, join_round)
     rnd = _host_int(state.round)
     if flight is not None:
         flight = _on(dev, flight)
@@ -1031,9 +1288,10 @@ def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
         cur = _host_int(flight.cursor)
     snaps = []
     for _ in range(steps):
-        state, row, hist = _swim_round_impl(
+        state, row, hist, nem_state = _swim_round_impl(
             state, rnd, base_key, fail_round, p, join_round,
-            collect=flight is not None, hist=hist, sc=sc)
+            collect=flight is not None, hist=hist, sc=sc, nem=nem,
+            nem_state=nem_state)
         rnd += 1
         if flight is not None:
             rows[cur % R] = row
@@ -1068,6 +1326,8 @@ def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
         out.append(FlightRing(rows=rows, cursor=flight.cursor + steps))
     if hist is not None:
         out.append(hist)
+    if nem_state is not None:
+        out.append(nem_state)
     return (out[0] if len(out) == 1 else tuple(out)), tr
 
 
@@ -1138,25 +1398,32 @@ def _sharded_setup(state, p, ndev, device):
 
 def swim_round_sharded(state: SwimState, base_key, fail_round,
                        p: SwimParams, join_round=None, ndev: int | None = None,
-                       device=None) -> SwimState:
+                       device=None, nem: NemesisParams | None = None,
+                       nem_state: NemState | None = None):
     """``swim_round`` on ``ndev`` column shards (reference
     ``swim_round_sharded``): bit-identical to it, returns the sharded
-    state.  ``ndev=None`` takes a sharded state's own shard count."""
+    state (with ``nem_state``, as ``swim_round`` does).  ``ndev=None``
+    takes a sharded state's own shard count."""
+    _require_nem_state(nem, nem_state)
     state, sc, dev = _sharded_setup(state, p, ndev, device)
     return _one_round(state, base_key, fail_round, p, None, join_round,
-                      dev, sc)[0]
+                      dev, sc, nem, nem_state)
 
 
 def run_rounds_sharded(state: SwimState, base_key, fail_round, p: SwimParams,
                        steps: int, trace: bool = False, join_round=None,
                        flight: FlightRing | None = None,
-                       hist: HistBank | None = None, ndev: int | None = None,
-                       device=None):
+                       hist: HistBank | None = None,
+                       nem: NemesisParams | None = None,
+                       nem_state: NemState | None = None,
+                       ndev: int | None = None, device=None):
     """``run_rounds`` on ``ndev`` column shards (reference
     ``run_rounds_sharded``): same contract and return shape, bit-identical
-    results, the carry's state sharded.  ``state`` may be sharded (with
-    ``ndev`` shards) or not (it is sharded here).  Constraints:
-    ``_check_shardable``."""
+    results, the carry's state sharded; ``nem_state`` is held once.
+    ``state`` may be sharded (with ``ndev`` shards) or not (it is sharded
+    here).  Constraints: ``_check_shardable``."""
+    _require_nem_state(nem, nem_state)
     state, sc, dev = _sharded_setup(state, p, ndev, device)
     return _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
-                            join_round, flight, hist, dev, sc)
+                            join_round, flight, hist, dev, sc, nem,
+                            nem_state)

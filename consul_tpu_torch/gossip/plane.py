@@ -20,9 +20,9 @@ membership to this daemon over the bridge wire.
   user events stream to every connected agent.
 
 Under the same key the plane is bit-identical to the reference's: the
-same ``SwimState``, ``EventState``, ``FlightRing`` and ``HistBank`` after
-every dispatch, and byte-identical bridge frames
-(``tests/test_torch_plane.py``).
+same ``SwimState``, ``EventState``, ``FlightRing``, ``HistBank`` and,
+under a nemesis scenario, ``NemState`` after every dispatch, and
+byte-identical bridge frames (``tests/test_torch_plane.py``).
 
 Wire protocol (shared with the agents' C++ bridge): 4-byte big-endian
 length + msgpack map.  Client->plane: register / hb / leave / force-leave / tags / event /
@@ -38,8 +38,10 @@ memory only (a restart reopens a replay window of up to
 ``auth_skew_s``).
 
 Device: ``PlaneConfig.device`` (None = the CUDA card; ``"cpu"`` is the
-only way onto the CPU).  Nemesis scenarios are not ported yet: a
-non-empty ``PlaneConfig.nemesis`` raises at ``start``.
+only way onto the CPU).  ``PlaneConfig.nemesis`` runs the round under a
+scenario of the nemesis catalog (``gossip/nemesis.py``): its injection
+schedule in every round, its kills folded into the dispatch's fail
+rounds, and its detections attributed to it in the observatory.
 """
 
 from __future__ import annotations
@@ -114,8 +116,11 @@ class PlaneConfig:
     # probe-selection period.
     slo_objective_rounds: int = 0
     slo_attainment_target: float = 0.99
-    # Nemesis scenario (the reference's gossip/nemesis.py catalog).  Not
-    # ported yet: a non-empty value raises at start().
+    # Nemesis scenario to run the round under (gossip/nemesis.py catalog
+    # name; "" = none): its injection schedule runs in every round, its
+    # kills merge into the dispatch's fail rounds, and every drained
+    # histogram delta is attributed to the scenario (the slo frame's
+    # ``scenario`` and ``scenarios``).
     nemesis: str = ""
     # Autotuned knobs (obs/tuner.py): each defaults to an AUTO sentinel
     # that resolves at start() (explicit config value > verdict >
@@ -250,6 +255,10 @@ class GossipPlane:
         self._hist = None                    # kernel.HistBank (device)
         self._hist_recorder = None           # obs.hist.HistRecorder
         self._slo = None                     # obs.slo.SloTracker
+        self._slo_board = None               # obs.slo.SloBoard (nemesis)
+        self._nem = None                     # nemesis.NemesisParams
+        self._nem_state = None               # kernel.NemState (device)
+        self._nem_fail = None                # scheduled kills (np i32 [n])
         # Device/kernel observatory (obs/devstats.py); None when
         # CONSUL_TPU_DEV_OBS=0.
         self._dev = None                     # devstats.DevStats
@@ -271,20 +280,15 @@ class GossipPlane:
         from consul_tpu_torch.gossip.events import (init_events,
                                                     run_event_rounds)
         from consul_tpu_torch.gossip.kernel import (
-            _check_shardable, init_flight, init_hist, init_state, run_rounds,
-            run_rounds_sharded, shard_state)
+            _check_shardable, init_flight, init_hist, init_nem_state,
+            init_state, run_rounds, run_rounds_sharded, shard_state)
         from consul_tpu_torch.gossip.params import SwimParams
         from consul_tpu_torch.obs import devstats, tuner
         from consul_tpu_torch.obs.flight import FlightRecorder
         from consul_tpu_torch.obs.hist import HistRecorder
-        from consul_tpu_torch.obs.slo import SloTracker
+        from consul_tpu_torch.obs.slo import SloBoard, SloTracker
 
         c = self.config
-        if c.nemesis:
-            raise NotImplementedError(
-                f"nemesis scenario {c.nemesis!r}: nemesis is not ported to "
-                f"consul_tpu_torch yet (ROADMAP, queue 1, item 7); leave "
-                f"PlaneConfig.nemesis empty")
         dev = resolve_device(c.device)
         self._device = dev
         n = self.n_universe
@@ -325,6 +329,18 @@ class GossipPlane:
         self._eligible = np.zeros((c.capacity,), bool)  # registered, not left
         self._alive_mask = np.zeros((c.capacity,), bool)  # status == alive
         self._ev_state = init_events(self._p, slots=c.event_slots, device=dev)
+        # Nemesis injection (config docstring): the schedule runs in the
+        # round, the scenario's kills merge into the dispatch's fail
+        # rounds, and LHM scenarios thread NemState through the carry.
+        self._nem = self._nem_state = self._nem_fail = None
+        if c.nemesis:
+            from consul_tpu_torch.gossip.nemesis import build
+            sc = build(c.nemesis, n)
+            self._nem = sc.nem
+            self._nem_fail = (np.asarray(sc.fail_round)
+                              if bool(sc.killed.any()) else None)
+            if sc.nem.needs_state:
+                self._nem_state = init_nem_state(n, device=dev)
         # The shard count (config docstring: 1 = off, >1 = explicit and
         # strict, 0 = one per card when aligned, -1 = verdict).
         ndev = c.shard_devices
@@ -351,17 +367,20 @@ class GossipPlane:
             self._state = shard_state(self._state, ndev, dev)
         self._ndev = ndev
         if ndev > 1:
-            def _run(state, key, fail, steps, join_round, flight, hist):
+            def _run(state, key, fail, steps, join_round, flight, hist,
+                     nem_state=None):
                 return run_rounds_sharded(
                     state, key, fail, self._p, steps=steps, trace=True,
                     join_round=join_round, flight=flight, hist=hist,
-                    ndev=self._ndev, device=dev)
+                    nem=self._nem, nem_state=nem_state, ndev=self._ndev,
+                    device=dev)
         else:
-            def _run(state, key, fail, steps, join_round, flight, hist):
+            def _run(state, key, fail, steps, join_round, flight, hist,
+                     nem_state=None):
                 return run_rounds(
                     state, key, fail, self._p, steps=steps, trace=True,
                     join_round=join_round, flight=flight, hist=hist,
-                    device=dev)
+                    nem=self._nem, nem_state=nem_state, device=dev)
         self._run = _run
         # Flight ring sized so a full drain interval fits with headroom
         # (bounded-burst catch-up can run extra dispatches before the
@@ -378,6 +397,8 @@ class GossipPlane:
             self._p.suspicion_max_rounds + self._p.probe_every)
         self._slo = SloTracker(objective,
                                attainment_target=c.slo_attainment_target)
+        self._slo_board = SloBoard(
+            objective, attainment_target=c.slo_attainment_target)
         self._dev = devstats.DevStats(dev) if devstats.enabled() else None
         if self._dev is not None:
             self._dev.set_session(slots=c.slots, n=n)
@@ -399,7 +420,7 @@ class GossipPlane:
                                        cache_hit=hit)
         t_compile = time.monotonic()
         self._run(self._state, self._key, self._fail, STEPS_PER_TICK,
-                  self._join, self._flight, self._hist)
+                  self._join, self._flight, self._hist, self._nem_state)
         _sync(dev)
         if self._dev is not None:
             self._dev.note_compile("plane_dispatch",
@@ -553,10 +574,18 @@ class GossipPlane:
         self._journey_round0 = (
             t_disp if t_disp else
             (time.monotonic() if _journey.journey is not None else 0.0))
+        fail = self._fail
+        if self._nem_fail is not None:
+            # Scenario-scheduled kills (absolute rounds) override live
+            # heartbeats: an injected fault is the node failing.
+            fail = np.minimum(fail, self._nem_fail)
         out, trace = self._run(
-            self._state, self._key, self._fail, STEPS_PER_TICK,
-            self._join, self._flight, self._hist)
-        state, self._flight, self._hist = out
+            self._state, self._key, fail, STEPS_PER_TICK,
+            self._join, self._flight, self._hist, self._nem_state)
+        if self._nem_state is not None:
+            state, self._flight, self._hist, self._nem_state = out
+        else:
+            state, self._flight, self._hist = out
         self._state = state
         self._rounds_done += STEPS_PER_TICK
         # Amortized drain: one host transfer per drain cadence.
@@ -696,14 +725,19 @@ class GossipPlane:
 
     def _drain_hist(self) -> None:
         """Pull the device histogram banks to the host recorder and feed
-        the detect delta to the SLO tracker."""
+        the detect delta to the SLO tracker (and, under a nemesis
+        scenario, to its row of the SLO board)."""
         if self._hist is None or self._hist_recorder is None:
             return
+        scenario = self._nem.scenario if self._nem is not None else None
         deltas = self._hist_recorder.ingest(
             {f: getattr(self._hist, f).cpu().numpy()
-             for f in self._hist._fields})
-        if "detect" in deltas and self._slo is not None:
-            self._slo.observe(deltas["detect"])
+             for f in self._hist._fields}, scenario=scenario)
+        if "detect" in deltas:
+            if self._slo is not None:
+                self._slo.observe(deltas["detect"])
+            if scenario and self._slo_board is not None:
+                self._slo_board.observe(scenario, deltas["detect"])
 
     def event_coverage(self) -> Dict[int, float]:
         """Live event slots -> fraction of members holding the event
@@ -784,11 +818,23 @@ class GossipPlane:
         banks first."""
         self._drain_hist()
         out: Dict[str, Any] = {"t": "slo"}
+        if self._nem is not None:
+            out["scenario"] = self._nem.scenario
         if self._slo is not None:
             out["slo"] = self._slo.snapshot()
         if self._hist_recorder is not None:
             out["latency"] = self._hist_recorder.summary()
             out["hists"] = self._hist_recorder.families()
+            # Per scenario: a burn-rate and percentile row for each
+            # nemesis scenario with attributed detections.
+            board = (self._slo_board.snapshot()
+                     if self._slo_board is not None else {})
+            scns = self._hist_recorder.scenarios()
+            if scns:
+                out["scenarios"] = {
+                    scn: {"slo": board.get(scn),
+                          "latency": self._hist_recorder.summary(scn)}
+                    for scn in scns}
         return out
 
     def _device_wire(self) -> Dict[str, Any]:
@@ -839,7 +885,7 @@ class GossipPlane:
                 for _ in range(ndisp):
                     self._run(self._state, self._key, self._fail,
                               STEPS_PER_TICK, self._join, self._flight,
-                              self._hist)
+                              self._hist, self._nem_state)
                     _sync(self._device)
             wall = time.perf_counter() - t0
             prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

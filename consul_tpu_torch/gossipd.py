@@ -3,13 +3,15 @@
 round runs on the CUDA card.
 
     python -m consul_tpu_torch.gossipd [-port 8310] [-capacity 256]
-        [-sim-nodes 0] [-shard-devices -1] [--device cpu] ...
+        [-sim-nodes 0] [-shard-devices -1] [-nemesis partition_heal]
+        [--device cpu] ...
 
 The flags are those of the reference's ``consul-tpu gossipd``
 (``consul_tpu/cli/main.py``), plus ``--device`` (default: the card;
-``cpu`` runs the plane on the CPU).  Nemesis scenarios are not ported:
-the plane refuses a ``-nemesis`` scenario at start.  SIGINT or SIGTERM
-stops the plane and exits 0.
+``cpu`` runs the plane on the CPU).  ``-nemesis`` runs the round under a
+scenario of the nemesis catalog (``gossip/nemesis.py``); a name not in
+the catalog exits 1 before the plane starts.  SIGINT or SIGTERM stops
+the plane and exits 0.
 """
 
 from __future__ import annotations
@@ -55,8 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-keyring-file", dest="keyring_file", default="",
                    help="load accepted keys from a serf keyring file")
     p.add_argument("-nemesis", default="",
-                   help="not ported: the plane refuses any scenario at "
-                        "start")
+                   help="run the round under this nemesis catalog "
+                        "scenario (gossip/nemesis.py)")
     p.add_argument("-device", "--device", dest="device", default=None,
                    help="torch device of the round (default: the CUDA "
                         "card; 'cpu' runs on the CPU)")
@@ -74,6 +76,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         from consul_tpu_torch.keyring import list_keys
         keys.extend(k for k in list_keys(args.keyring_file)
                     if k not in keys)
+    if args.nemesis:
+        # A typo'd scenario fails here, before the round session boots.
+        from consul_tpu_torch.gossip.nemesis import names as nemesis_names
+        if args.nemesis not in nemesis_names():
+            print(f"Unknown nemesis scenario {args.nemesis!r}; catalog: "
+                  f"{', '.join(nemesis_names())}", file=sys.stderr)
+            return 1
     cfg = PlaneConfig(
         bind_addr=args.bind, bind_port=args.port, unix_path=args.unix,
         capacity=args.capacity, sim_nodes=args.sim_nodes,
@@ -87,9 +96,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         plane = GossipPlane(cfg)
         await plane.start()
         addr = cfg.unix_path or "%s:%s" % plane.local_addr
+        nem = f", nemesis={cfg.nemesis}" if cfg.nemesis else ""
         print(f"==> gossip plane running at {addr} "
               f"(capacity={cfg.capacity}, sim_nodes={cfg.sim_nodes}, "
-              f"round={cfg.gossip_interval_s * 1000:.0f}ms)", flush=True)
+              f"round={cfg.gossip_interval_s * 1000:.0f}ms{nem})", flush=True)
         loop = asyncio.get_event_loop()
         stop = asyncio.Event()
         loop.add_signal_handler(signal.SIGINT, stop.set)

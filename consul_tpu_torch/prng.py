@@ -152,9 +152,26 @@ def random_bits_tensor(k, shape, device) -> torch.Tensor:
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform_tensor(k, shape, device) -> torch.Tensor:
-    """``uniform`` computed on ``device`` (float32, bit-identical)."""
-    bits = random_bits_tensor(k, shape, device)
+def _unit_float(bits: torch.Tensor) -> torch.Tensor:
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     return mant.view(torch.float32) - 1.0
+
+
+def uniform_tensor(k, shape, device) -> torch.Tensor:
+    """``uniform`` computed on ``device`` (float32, bit-identical)."""
+    return _unit_float(random_bits_tensor(k, shape, device))
+
+
+def uniform_rows(keys, n: int, device) -> torch.Tensor:
+    """``[uniform(k, (n,)) for k in keys]`` stacked into one float32
+    ``[len(keys), n]`` tensor, bit-identical, in one pass of the threefry
+    ops (the keys ride a broadcast dimension)."""
+    words = [_key_words(k) for k in keys]
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    # Fills on the device, not a host->device copy (which would
+    # synchronise the stream).
+    k1, k2 = (torch.cat([lo.new_full((1, 1), w[i]) for w in words])
+              for i in (0, 1))
+    b1, b2 = _threefry2x32(k1, k2, 0, lo)
+    return _unit_float(b1 ^ b2)
 

@@ -1,7 +1,7 @@
 """Where a round's time goes: the port's main path, timed and profiled.
 
     python -m consul_tpu_torch.profile_round [--churn-ppm 1000] [--rounds 30]
-                                             [--ndev N]
+                                             [--ndev N] [--nemesis SCENARIO]
 
 Runs bench.py's LAN regime on the card (``lan_profile(N, SLOTS,
 hot_slots=0)``, churn failures on a stride) for ``WARM`` rounds, then
@@ -12,7 +12,14 @@ the card), and the phases add the sharded round's own: the halo pins
 merge reads its pins from the shards, so the phase must show no calls),
 the merge kernel's launches (``fused_merge``, one per round for all
 shards) and the probe tick's window read and write.  The single-device
-round adds the launches of ``fused_dissem``.
+round adds the launches of ``fused_dissem``.  With ``--nemesis`` the
+rounds run under that scenario of the nemesis catalog
+(``gossip/nemesis.py``; its kills join the churn failures), and the
+profiled rounds lie inside its fault window (the warm-up ends at round
+60; every scenario's window is open from round 40 to 160): the phase
+``nemesis_drops`` is the partition's drop masks (their threefry draws
+included), and ``dissem_launches``/``merge_launches`` the kernel launches,
+each with its drop operand.
 
 - pass A, no profiler: host time per round, and the host time and the
   calls per round of each round phase (the probe tick, the uniform draws
@@ -43,6 +50,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from consul_tpu_torch import prng
 from consul_tpu_torch.gossip import fused, kernel
+from consul_tpu_torch.gossip.nemesis import build as build_nemesis
 from consul_tpu_torch.gossip.params import lan_profile
 
 N, SLOTS, WARM = 1_000_000, 64, 60  # the main path's size; warm-up rounds
@@ -51,6 +59,7 @@ PHASES = {  # label -> (module, attribute) of the function timed
     "uniform_draws": (prng, "uniform_tensor"),
     "disseminate": (kernel, "_disseminate"),
     "finish_round": (kernel, "_finish_round"),
+    "nemesis_drops": (kernel, "_nem_edge_drops"),
 }
 SINGLE_PHASES = {  # the single-device round's own
     "dissem_launches": (fused, "fused_dissem"),
@@ -133,6 +142,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--ndev", type=int, default=0,
                     help="profile the sharded round on this many shards")
+    ap.add_argument("--nemesis", default="",
+                    help="run the rounds under this nemesis catalog "
+                         "scenario, profiling rounds inside its window")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA card")
@@ -140,11 +152,21 @@ def main(argv=None) -> int:
     phases = dict(PHASES,
                   **(SHARDED_PHASES if args.ndev else SINGLE_PHASES))
 
+    # The scenario's schedule and its Lifeguard registers, carried from
+    # call to call (``nem_kw["nem_state"]``).
+    nem_kw = {}
+
     def run(st, steps):
         if args.ndev:
-            return kernel.run_rounds_sharded(st, key, fail_t, p, steps,
-                                             ndev=args.ndev, device=dev)[0]
-        return kernel.run_rounds(st, key, fail_t, p, steps, device=dev)[0]
+            out = kernel.run_rounds_sharded(st, key, fail_t, p, steps,
+                                            ndev=args.ndev, device=dev,
+                                            **nem_kw)[0]
+        else:
+            out = kernel.run_rounds(st, key, fail_t, p, steps, device=dev,
+                                    **nem_kw)[0]
+        if nem_kw.get("nem_state") is not None:
+            out, nem_kw["nem_state"] = out
+        return out
 
     p = lan_profile(N, slots=SLOTS, hot_slots=0, dissem="fused")
     n_fail = max(1, N * args.churn_ppm // 1_000_000) if args.churn_ppm else 0
@@ -152,6 +174,14 @@ def main(argv=None) -> int:
     fail = np.full(p.n, kernel.NEVER, np.int32)
     if n_fail:
         fail[:n_fail] = (np.arange(n_fail, dtype=np.int64) * total) // n_fail
+    if args.nemesis:
+        sc = build_nemesis(args.nemesis, N)
+        fail = np.minimum(fail, sc.fail_round)
+        nem_kw["nem"] = sc.nem
+        if sc.join_round is not None:
+            nem_kw["join_round"] = torch.from_numpy(sc.join_round).to(dev)
+        if sc.nem.needs_state:
+            nem_kw["nem_state"] = kernel.init_nem_state(N, device=dev)
     fail_t = torch.from_numpy(fail).to(dev)
     key = prng.key(42)
 
@@ -198,7 +228,9 @@ def main(argv=None) -> int:
     res = {
         "device": torch.cuda.get_device_name(dev),
         "n": p.n, "slots": p.slots, "churn_ppm": args.churn_ppm,
-        "ndev": args.ndev or None, "warm_rounds": WARM, "rounds": R,
+        "ndev": args.ndev or None, "nemesis": args.nemesis or None,
+        "warm_rounds": WARM, "rounds": R,
+        "drop_launches": fused.drop_launches + fused.merge_drop_launches,
         "tail_rounds_both_passes": {k: kernel.tail_rounds[k] - tails0[k]
                         for k in tails0},
         "host_ms_per_round": wall_a * 1e3 / R,

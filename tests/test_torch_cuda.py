@@ -144,3 +144,41 @@ def test_sharded_round_on_card_matches_single_on_card():
     for a, b in list(zip(cs, cg)) + [(ts, tg)]:
         for f in a._fields:
             assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("shape", [(6, 40), (64, 4099), (8, 1000)])
+def test_kernels_take_the_drop_operand_on_card(shape):
+    """Both kernels with a partition's drop operand (u8 with any nonzero
+    value, and bool) against their plain versions; a drop operand on the
+    wrong device or of the wrong shape raises."""
+    _need_card()
+    S, N = shape
+    heard, mf, rx_ok, cap = (torch.from_numpy(a).cuda()
+                             for a in _random_round_inputs(S, N, seed=N))
+    rng = np.random.default_rng(S)
+    d = (rng.random((3, N)) < 0.5) * rng.integers(1, 256, (3, N))
+    drop = torch.from_numpy(d.astype(np.uint8)).cuda()
+    p = SwimParams(n=N, slots=S)
+    offs = [1, N - 1, 7]
+    for dr in (drop, drop != 0):
+        ref = fused.disseminate_ref(p, 50, offs, heard, mf, rx_ok, cap, dr)
+        before = fused.drop_launches
+        out = fused.fused_dissem(heard, offs, mf, rx_ok, cap, 50,
+                                 p.spread_budget_rounds, dr)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref) and fused.drop_launches == before + 1
+    for ndev in (1, 2):
+        L = N // ndev
+        if L * ndev != N:
+            continue
+        shards = tuple(h.contiguous() for h in heard.split(L, dim=1))
+        ref = fused.merge_shards_ref(p, 50, offs, shards, mf, rx_ok, cap,
+                                     tk._ShardCtx(ndev, L), drop)
+        out = fused.fused_merge(shards, offs, mf, rx_ok, cap, 50,
+                                p.spread_budget_rounds, drop)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    for bad in (drop.cpu(), drop[:2].contiguous()):
+        with pytest.raises(ValueError, match="drop"):
+            fused.fused_dissem(heard, offs, mf, rx_ok, cap, 50,
+                               p.spread_budget_rounds, bad)

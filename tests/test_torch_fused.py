@@ -153,3 +153,101 @@ def test_plain_version_matches_reference_directly(shape):
                                 torch.from_numpy(cap))
     np.testing.assert_array_equal(
         got.numpy(), _ref("fused", heard, mf, rx_ok, cap, 70, 6))
+
+
+# -- the drop operand (a nemesis partition's per-leg drops) -------------------
+
+def _nem_tail(name, sharded, S, N, rnd, seed):
+    """The reference's ``fused_disseminate`` (Pallas, interpret mode)
+    under scenario ``name``'s partition legs, single-device or on 8
+    shards under ``shard_map``, and the port's tail on the same inputs:
+    ``disseminate_ref`` / ``merge_shards_ref`` given the drop operand
+    the port's round builds (``kernel._disseminate``)."""
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as Ps
+
+    from consul_tpu.gossip import fused as j_fused
+    from consul_tpu.gossip.nemesis import build as j_build
+    from consul_tpu_torch.gossip.nemesis import build as t_build
+
+    heard, mf, rx_ok, cap = _random_round_inputs(S, N, seed=seed)
+    jp = JParams(n=N, slots=S, dissem="fused")
+    tp = TParams(n=N, slots=S, dissem="fused")
+    jnem, tnem = j_build(name, N).nem, t_build(name, N).nem
+    k_gossip, k_nem = seed + 1, seed + 2
+    args = [jax.numpy.asarray(a) for a in (heard, mf, rx_ok, cap)]
+    if not sharded:
+        want = j_fused.fused_disseminate(
+            jp, rnd, jax.random.key(k_gossip), *args, nem=jnem,
+            k_nem=jax.random.key(k_nem))
+    else:
+        sc = jk._ShardCtx(8, N // 8)
+
+        def body(h, m, r, c):
+            return j_fused.fused_disseminate(
+                jp, rnd, jax.random.key(k_gossip), h, m, r, c, sc, jnem,
+                jax.random.key(k_nem))
+
+        fn = shard_map(body, mesh=jk._shard_mesh(8),
+                       in_specs=(Ps(None, jk._SHARD_AXIS), Ps(), Ps(), Ps()),
+                       out_specs=Ps(None, jk._SHARD_AXIS), check_rep=False)
+        want = jax.jit(fn)(*args)
+    offs = tk.gossip_offsets(prng.key(k_gossip), N, tp.fanout)
+    drop = None
+    if tk._nem_in_window(tnem, rnd):
+        drop = tk._nem_edge_drops(tnem, N, torch.device("cpu"),
+                                  [prng.fold_in(prng.key(k_nem), f)
+                                   for f in range(tp.fanout)], offs)
+    t = [torch.from_numpy(a) for a in (heard, mf, rx_ok, cap)]
+    if not sharded:
+        got = fused.disseminate_ref(tp, rnd, offs, *t, drop=drop)
+    else:
+        L = N // 8
+        shards = tuple(t[0][:, i * L:(i + 1) * L].contiguous()
+                       for i in range(8))
+        got = torch.cat(fused.merge_shards_ref(
+            tp, rnd, offs, shards, *t[1:], tk._ShardCtx(8, L), drop=drop),
+            dim=1)
+    return np.asarray(want), got.numpy(), drop
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("name, rnd, in_window", [
+    ("partition_heal", 50, True), ("partition_heal", 170, False),
+    ("asym_loss", 30, True), ("asym_loss", 10, False)])
+def test_drop_operand_matches_reference(name, rnd, in_window, sharded):
+    want, got, drop = _nem_tail(name, sharded, 8, 160, rnd, seed=rnd)
+    np.testing.assert_array_equal(got, want)
+    assert (drop is not None) == in_window
+    if drop is not None:
+        # Not vacuous: some cross-group leg dropped, and the drops change
+        # the result.
+        assert bool(drop.any())
+        heard, mf, rx_ok, cap = _random_round_inputs(8, 160, seed=rnd)
+        offs = tk.gossip_offsets(prng.key(rnd + 1), 160, 3)
+        free = fused.disseminate_ref(TParams(n=160, slots=8), rnd, offs,
+                                     *(torch.from_numpy(a) for a in
+                                       (heard, mf, rx_ok, cap)))
+        assert not np.array_equal(free.numpy(), got)
+
+
+def test_drop_operand_takes_bool_and_u8():
+    """The plain versions read any nonzero byte as a drop, and take bool
+    or u8 alike; ``merge_ref`` takes a shard's columns of it."""
+    S, N = 6, 40
+    heard, mf, rx_ok, cap = (torch.from_numpy(a) for a in
+                             _random_round_inputs(S, N, seed=4))
+    p = TParams(n=N, slots=S)
+    offs = [1, 7, 33]
+    rng = np.random.default_rng(1)
+    drop_b = torch.from_numpy(rng.random((3, N)) < 0.5)
+    drop_u = drop_b.to(torch.uint8) * torch.from_numpy(
+        rng.integers(1, 256, (3, N)).astype(np.uint8))
+    a = fused.disseminate_ref(p, 50, offs, heard, mf, rx_ok, cap, drop_b)
+    b = fused.disseminate_ref(p, 50, offs, heard, mf, rx_ok, cap, drop_u)
+    assert torch.equal(a, b)
+    src = torch.stack([torch.roll(mf, o) > 50 for o in offs])
+    pins = torch.stack([torch.roll(heard, o, dims=1) for o in offs])
+    c = fused.merge_ref(p, heard, pins, src, rx_ok, cap, drop_u)
+    d = fused.merge_ref(p, heard, pins, src & ~drop_b, rx_ok, cap)
+    assert torch.equal(a, c) and torch.equal(c, d)

@@ -17,10 +17,12 @@ import torch
 import consul_tpu.obs.flight as j_flight
 import consul_tpu.obs.hist as j_hist
 from consul_tpu.gossip import kernel as jk
+from consul_tpu.gossip import nemesis as j_nem
 from consul_tpu.gossip import params as j_params
 from consul_tpu.ops import divisibility as j_div
 from consul_tpu_torch.gossip import fused
 from consul_tpu_torch.gossip import kernel as tk
+from consul_tpu_torch.gossip import nemesis as t_nem
 from consul_tpu_torch.gossip import params as t_params
 from consul_tpu_torch.obs import constants
 from consul_tpu_torch.ops import divisibility as t_div
@@ -92,8 +94,53 @@ def test_divisibility_copy_matches():
         assert errs[0] == errs[1]
 
 
+def test_nemesis_copy_matches():
+    """The catalog copy builds the reference's scenarios (and its group
+    bits, its errors) at every size, and its code is the original's
+    statement for statement: only docstrings differ."""
+    def code(mod):
+        tree = ast.parse(Path(mod.__file__).read_text())
+        for node in ast.walk(tree):
+            body = getattr(node, "body", None)
+            if (isinstance(body, list) and body
+                    and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                node.body = body[1:]
+        return ast.dump(tree)
+
+    assert code(t_nem) == code(j_nem)
+    assert t_nem.names() == j_nem.names()
+    assert int(t_nem.NEVER) == int(j_nem.NEVER)
+    for n in (2, 160, 320, 4096, 1_000_000):
+        for name in j_nem.names():
+            a, b = j_nem.build(name, n), t_nem.build(name, n)
+            assert a.name == b.name and a.steps == b.steps
+            assert a.description == b.description
+            assert a.nem == j_nem.NemesisParams(**vars(b.nem))
+            for prop in ("has_partition", "has_flap", "has_degraded",
+                         "needs_state", "needs_join", "p_roundtrip"):
+                assert getattr(a.nem, prop) == getattr(b.nem, prop), prop
+            assert np.array_equal(a.fail_round, b.fail_round)
+            assert (a.join_round is None) == (b.join_round is None)
+            if a.join_round is not None:
+                assert np.array_equal(a.join_round, b.join_round)
+            for kind in ("contig", "hash"):
+                nem = j_nem.NemesisParams(part_kind=kind)
+                assert np.array_equal(
+                    j_nem.group_of(nem, n),
+                    t_nem.group_of(t_nem.NemesisParams(part_kind=kind), n))
+    with pytest.raises(ValueError) as a:
+        j_nem.build("bogus", 8)
+    with pytest.raises(ValueError) as b:
+        t_nem.build("bogus", 8)
+    assert str(a.value) == str(b.value)
+
+
+
 @pytest.mark.parametrize("entry", ["init_state", "init_flight", "init_hist",
-                                   "swim_round", "run_rounds", "shard_state",
+                                   "init_nem_state", "swim_round",
+                                   "run_rounds", "shard_state",
                                    "swim_round_sharded",
                                    "run_rounds_sharded"])
 def test_default_device_is_the_card(entry):
@@ -107,6 +154,7 @@ def test_default_device_is_the_card(entry):
         "init_state": lambda **kw: tk.init_state(p, **kw),
         "init_flight": lambda **kw: tk.init_flight(8, **kw),
         "init_hist": lambda **kw: tk.init_hist(**kw),
+        "init_nem_state": lambda **kw: tk.init_nem_state(20, **kw),
         "swim_round": lambda **kw: tk.swim_round(
             tk.init_state(p, device="cpu"), np.zeros(2, np.uint32), fail,
             p, **kw),
@@ -148,6 +196,14 @@ def test_wrapper_never_falls_back():
     before = fused.launches
     fused.disseminate(p, 5, [1, 2, 3], heard, mf, rx, cap)
     assert fused.launches == before  # the CPU path launches nothing
+    # With a partition's drop operand: the same.
+    drop = torch.ones((3, N), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused.fused_dissem(heard, [1, 2, 3], mf, rx, cap, 5, 3, drop)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused.disseminate(p, 5, [1, 2, 3], *meta, drop=drop.to("meta"))
+    fused.disseminate(p, 5, [1, 2, 3], heard, mf, rx, cap, drop=drop)
+    assert fused.launches == before and fused.drop_launches == 0
 
     # Kernel 2, fused_merge, and the sharded tail that routes to it.
     sc = tk._ShardCtx(2, N // 2)
@@ -158,8 +214,13 @@ def test_wrapper_never_falls_back():
         fused.disseminate(p, 5, [1, 2, 3],
                           tuple(h.to("meta") for h in shards), *meta[1:],
                           sc=sc)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused.fused_merge(shards, [1, 2, 3], mf, rx, cap, 5, 3, drop)
     before = fused.merge_launches
     out = fused.disseminate(p, 5, [1, 2, 3], shards, mf, rx, cap, sc=sc)
+    assert len(out) == 2 and fused.merge_launches == before
+    out = fused.disseminate(p, 5, [1, 2, 3], shards, mf, rx, cap, sc=sc,
+                            drop=drop)
     assert len(out) == 2 and fused.merge_launches == before
 
 
@@ -359,6 +420,16 @@ def test_gossipd_options_match_the_reference_cli():
     ref, port = options(sub.choices["gossipd"]), options(t_parser())
     assert set(port) - set(ref) == {"-device", "--device"}
     assert {o: port[o] for o in ref} == ref
+
+
+def test_gossipd_refuses_unknown_nemesis(capsys):
+    """``-nemesis`` takes the catalog's names only: anything else exits 1
+    before the plane starts, with the reference CLI's message."""
+    from consul_tpu_torch.gossipd import main
+    assert main(["-nemesis", "bogus", "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert err.strip() == ("Unknown nemesis scenario 'bogus'; catalog: "
+                           + ", ".join(j_nem.names()))
 
 
 def test_keyring_parse_matches(tmp_path):

@@ -4,9 +4,11 @@ reference's (consul_tpu/gossip/plane.py) on the CPU.
 - Lockstep: both planes with the same config and key, driven by one
   script with no client sockets (registrations through ``_register``
   with writers that record every frame).  After every ``_dispatch``
-  their ``SwimState``, ``EventState``, ``FlightRing`` and ``HistBank``
-  are equal (tolerance 0) and every recorded frame is byte-identical;
-  the stats, members, slo and event-coverage surfaces agree too.
+  their ``SwimState``, ``EventState``, ``FlightRing``, ``HistBank`` (and
+  under a nemesis scenario ``NemState``) are equal (tolerance 0) and
+  every recorded frame is byte-identical; the stats, members, slo and
+  event-coverage surfaces agree too.  Without a scenario, and under
+  ``degraded_observer`` and ``partition_heal``, at 1 and 2 shards.
 - Socket round trip: the JAX package's agent-side backend
   (``TpuSerfPool``) against the port's plane: join visibility and a user
   event.
@@ -29,6 +31,7 @@ from consul_tpu.membership.swim import (EV_FAILED, EV_JOIN, EV_LEAVE,
                                         STATE_ALIVE, STATE_DEAD)
 from consul_tpu.membership.tpu_backend import TpuSerfPool
 from consul_tpu_torch.gossip import convert
+from consul_tpu_torch.gossip import nemesis as t_nem
 from consul_tpu_torch.gossip import plane as tplane
 
 pytestmark = pytest.mark.timeout_s(300)
@@ -47,12 +50,12 @@ class _Recorder:
         pass
 
 
-def _config(mod, ndev):
+def _config(mod, ndev, nemesis=""):
     kw = dict(bind_port=0, capacity=32, sim_nodes=2968, slots=16,
               gossip_interval_s=0.02, probe_every=5, suspicion_mult=1.0,
               hb_lapse_s=0.3, event_slots=8, shard_devices=ndev,
               dissem="swar", hot_slots=0, fused_nb=1, unroll=1,
-              flight_drain_every=2)
+              flight_drain_every=2, nemesis=nemesis)
     if mod is tplane:
         kw["device"] = "cpu"
     return mod.PlaneConfig(**kw)
@@ -66,10 +69,10 @@ class _Lockstep:
     """One script, two planes: every step is applied to both, and every
     dispatch is followed by the comparison."""
 
-    def __init__(self, ndev):
+    def __init__(self, ndev, nemesis=""):
         self.loop = asyncio.new_event_loop()
-        self.ref = jplane.GossipPlane(_config(jplane, ndev))
-        self.port = tplane.GossipPlane(_config(tplane, ndev))
+        self.ref = jplane.GossipPlane(_config(jplane, ndev, nemesis))
+        self.port = tplane.GossipPlane(_config(tplane, ndev, nemesis))
         for plane in (self.ref, self.port):
             self.loop.run_until_complete(plane.start())
             # The script dispatches; the wall-clock ticker must not.
@@ -107,6 +110,9 @@ class _Lockstep:
         ref, port = self.ref, self.port
         pairs = ((ref._state, port._state), (ref._ev_state, port._ev_state),
                  (ref._flight, port._flight), (ref._hist, port._hist))
+        assert (ref._nem_state is None) == (port._nem_state is None), where
+        if ref._nem_state is not None:
+            pairs += ((ref._nem_state, port._nem_state),)
         for a, b in pairs:
             want, got = _np_fields(a), convert.state_to_numpy(b)
             assert set(want) == set(got)
@@ -200,18 +206,41 @@ def test_plane_lockstep_with_reference(ndev, monkeypatch):
         ls.close()
 
 
-def test_plane_nemesis_refused():
-    """A nemesis scenario is not ported: the plane refuses it rather than
-    run without it."""
-    plane = tplane.GossipPlane(tplane.PlaneConfig(
-        bind_port=0, capacity=8, device="cpu", nemesis="partition_heal"))
-    loop = asyncio.new_event_loop()
+@pytest.mark.parametrize("ndev", [1, 2])
+@pytest.mark.parametrize("nemesis", ["degraded_observer", "partition_heal"])
+def test_plane_nemesis_lockstep_with_reference(nemesis, ndev, monkeypatch):
+    """Both planes under a nemesis scenario through 200 rounds (the
+    partition's window [40, 160) and its heal; the degraded observers'
+    kills at round 30): every state field, NemState and frame after each
+    dispatch, and the slo frame's ``scenario``/``scenarios``."""
+    monkeypatch.setattr(jplane._journey, "journey", None)
+    monkeypatch.setattr(tplane._journey, "journey", None)
+    ls = _Lockstep(ndev, nemesis)
     try:
-        with pytest.raises(NotImplementedError, match="nemesis"):
-            loop.run_until_complete(plane.start())
-        assert plane._state is None and plane._server is None
+        assert ls.port._nem == t_nem.build(nemesis,
+                                           ls.port.n_universe).nem
+        assert (ls.ref._nem_fail is None) == (ls.port._nem_fail is None)
+        names = [f"n{i}" for i in range(10)]
+        for name in names:
+            ls.register(name)
+        while ls.dispatches < 50:
+            ls.dispatch()
+        ls.surfaces()
+        slo = ls.port._slo_wire()
+        assert slo["scenario"] == nemesis
+        assert set(slo["scenarios"]) == {nemesis}
+        kernel = ls.port._stats_wire()["kernel"]
+        if nemesis == "partition_heal":
+            # Each half declared members of the other dead.
+            assert kernel["n_false_dead"] > 0
+        else:
+            # Id 7 (an agent) is among the scenario's kills at round 30.
+            assert kernel["n_detected"] > 0
+            assert ls.statuses("n7") == ("failed", "failed")
+            assert int(ls.port._nem_state.lhm.max()) > 0
     finally:
-        loop.close()
+        ls.close()
+
 
 
 # -- the agents' backend against the port's plane over sockets --------------

@@ -101,6 +101,21 @@ def test_uniform_bitwise(shape):
                               t.numpy().view(np.uint32))
 
 
+@pytest.mark.parametrize("legs, n", [(1, 7), (3, 240), (2, 4099)])
+def test_uniform_rows_bitwise(legs, n):
+    """The drop masks' batched draw: one [N] uniform per key (the keys of
+    the nemesis legs, ``fold_in(k_nem, f)``), bitwise."""
+    jk, tk = jax.random.key(5), prng.key(5)
+    want = [np.asarray(jax.random.uniform(jax.random.fold_in(jk, f), (n,)))
+            for f in range(legs)]
+    got = prng.uniform_rows([prng.fold_in(tk, f) for f in range(legs)], n,
+                            "cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == (legs, n)
+    for f in range(legs):
+        assert np.array_equal(want[f].view(np.uint32),
+                              got[f].numpy().view(np.uint32)), f
+
+
 def test_bad_key_rejected():
     with pytest.raises(ValueError):
         prng.fold_in(np.zeros(2, np.int32), 1)

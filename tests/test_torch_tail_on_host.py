@@ -6,7 +6,8 @@ runs the grid one thread at a time.
 This checks the kernels' own indexing before any card does: the shard
 table, pins read across shard edges and around the wrap at N, the funnel
 shifts of every byte offset, 16-byte and 4-byte row alignment, the ragged
-row end and the byte path.  Each launch is held byte for byte against the
+row end and the byte path, each with and without a drop operand (16-byte
+aligned and not).  Each launch is held byte for byte against the
 plain torch versions (``disseminate_ref``, ``merge_shards_ref``).  Needs
 ``g++``; builds into the test's temporary directory.
 """
@@ -104,8 +105,20 @@ def _inputs(S, N, seed):
     return heard, mf, rx, cap
 
 
-def _ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _drops(F, N, seed):
+    """No drop operand, a u8 [F, N] one (about half its bytes set, to
+    any nonzero value) and the same one byte into a larger buffer (not
+    16-byte aligned: the single loads)."""
+    rng = np.random.default_rng(seed)
+    d = (rng.random((F, N)) < 0.5) * rng.integers(1, 256, (F, N))
+    drop = torch.from_numpy(d.astype(np.uint8))
+    back = torch.zeros(F * N + 1, dtype=torch.uint8)
+    back[1:] = drop.reshape(-1)
+    return [None, drop, back[1:].view(F, N)]
 
 
 def _offsets(N, L, seed):
@@ -128,16 +141,18 @@ def test_fused_dissem_body_matches_plain(libs, S, N):
     p = SwimParams(n=N, slots=S)
     for k in range(0, len(offs), 3):
         legs = offs[k:k + 3]
-        ref = fused.disseminate_ref(p, 50, legs, heard, mf, rx, cap)
-        for m in (mf, mf_odd[1:]):
-            out = torch.empty_like(heard)
-            c_offs = (ctypes.c_int * len(legs))(*legs)
-            rc = libs["fused_dissem"](_ptr(heard), _ptr(out), _ptr(m),
-                                      _ptr(rx), _ptr(cap), S, N, len(legs),
-                                      c_offs, 50, p.spread_budget_rounds,
-                                      None)
-            assert rc == 0
-            assert torch.equal(out, ref), legs
+        for drop in _drops(len(legs), N, k):
+            ref = fused.disseminate_ref(p, 50, legs, heard, mf, rx, cap,
+                                        drop)
+            for m in (mf, mf_odd[1:]) if drop is None else (mf,):
+                out = torch.empty_like(heard)
+                c_offs = (ctypes.c_int * len(legs))(*legs)
+                rc = libs["fused_dissem"](_ptr(heard), _ptr(out), _ptr(m),
+                                          _ptr(rx), _ptr(cap), _ptr(drop),
+                                          S, N, len(legs), c_offs, 50,
+                                          p.spread_budget_rounds, None)
+                assert rc == 0
+                assert torch.equal(out, ref), (legs, drop is None)
 
 
 @pytest.mark.parametrize("ndev, L", [(1, 2048), (2, 1024), (4, 512),
@@ -160,18 +175,23 @@ def test_fused_merge_body_matches_plain(libs, ndev, L):
     offs = _offsets(N, L, ndev)
     for k in range(0, len(offs), 3):
         legs = [o % N or 1 for o in offs[k:k + 3]]
-        ref = fused.merge_shards_ref(p, 50, legs, shards, mf, rx, cap, sc)
-        for table in (shards, odd):
-            out = torch.empty((ndev, S, L), dtype=torch.uint8)
-            ptrs = (ctypes.c_void_p * ndev)(*(h.data_ptr() for h in table))
-            c_offs = (ctypes.c_int * len(legs))(*legs)
-            rc = libs["fused_merge"](ptrs, ndev, _ptr(out), _ptr(mf),
-                                     _ptr(rx), _ptr(cap), S, L, len(legs),
-                                     c_offs, 50, p.spread_budget_rounds, 0,
-                                     ndev, None)
-            assert rc == 0
-            for i in range(ndev):
-                assert torch.equal(out[i], ref[i]), (legs, i)
+        for drop in _drops(len(legs), N, k):
+            ref = fused.merge_shards_ref(p, 50, legs, shards, mf, rx, cap, sc,
+                                         drop)
+            for table in (shards, odd):
+                out = torch.empty((ndev, S, L), dtype=torch.uint8)
+                ptrs = (ctypes.c_void_p * ndev)(*(h.data_ptr()
+                                                  for h in table))
+                c_offs = (ctypes.c_int * len(legs))(*legs)
+                rc = libs["fused_merge"](ptrs, ndev, _ptr(out), _ptr(mf),
+                                         _ptr(rx), _ptr(cap), _ptr(drop), S,
+                                         L, len(legs), c_offs, 50,
+                                         p.spread_budget_rounds, 0, ndev,
+                                         None)
+                assert rc == 0
+                for i in range(ndev):
+                    assert torch.equal(out[i], ref[i]), (legs, i,
+                                                         drop is None)
 
 
 def test_fused_merge_body_shard_range(libs):
@@ -187,8 +207,9 @@ def test_fused_merge_body_shard_range(libs):
     out = torch.full((ndev, S, L), 0xAB, dtype=torch.uint8)
     ptrs = (ctypes.c_void_p * ndev)(*(h.data_ptr() for h in shards))
     rc = libs["fused_merge"](ptrs, ndev, _ptr(out), _ptr(mf), _ptr(rx),
-                             _ptr(cap), S, L, 3, (ctypes.c_int * 3)(*legs),
-                             50, p.spread_budget_rounds, 1, 3, None)
+                             _ptr(cap), None, S, L, 3,
+                             (ctypes.c_int * 3)(*legs), 50,
+                             p.spread_budget_rounds, 1, 3, None)
     assert rc == 0
     for i in range(ndev):
         if 1 <= i < 3:
@@ -210,7 +231,7 @@ def test_entry_points_refuse_what_they_do_not_take(libs, bad):
         kw["i1"] = kw.pop("range")
     ptrs = (ctypes.c_void_p * 65)(*([buf[0].data_ptr()] * 65))
     rc = libs["fused_merge"](ptrs, kw["ndev"], _ptr(buf), _ptr(mf), _ptr(rx),
-                             _ptr(cap), S, L, kw["fanout"],
+                             _ptr(cap), None, S, L, kw["fanout"],
                              (ctypes.c_int * 9)(*([1] * 9)), 0, kw["budget"],
                              kw["i0"], kw["i1"], None)
     assert rc != 0
