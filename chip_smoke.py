@@ -14,7 +14,9 @@ result lines are not printed.
    (``consul_tpu_torch/sass_count.py``, cuobjdump).
 4. kernel: the Hopper dissemination kernel against its plain torch
    version on the card (with and without a drop operand), adversarial
-   bytes at [64, 1M], [8, 1M] and the ragged [64, 16,001], each under
+   bytes at [64, 1M], [8, 1M], the ragged [64, 16,001], the multi-DC
+   LAN pool's [64, 250,000] and [8, 250,000] and the crossval widths
+   [64, 10,000] and [64, 1,000], each under
    offset triples that start with 1,
    N-1 and a random one and together cover every residue mod 16;
    byte-identical results required; kernel time (``ms``: CUDA events
@@ -27,8 +29,10 @@ result lines are not printed.
    integer rate.
 5. merge_kernel: the sharded round's merge (``fused_merge``, all shards
    in one launch) against the plain composition ``merge_shards_ref`` in
-   the same way, at [64, 1M] and [8, 1M] on 8 shards and at n = 16,000 on
-   1, 2, 4 and 8 shards, with offsets above L.  Its bound is kernel 1's
+   the same way, at [64, 1M] and [8, 1M] on 8 shards, at n = 16,000 on
+   1, 2, 4 and 8 shards, at [64, 250,000] and [8, 250,000] on 8 shards
+   of 31,250 and at [64, 10,000] on 8 shards of 1,250, with offsets
+   above L.  Its bound is kernel 1's
    at the same [S, N]: the function is the same.
 6. repeat: both kernels at [8, 1M] (the merge on 8 shards) over many
    seeds, each seed with its own offset triple and three launches, every
@@ -98,9 +102,45 @@ The nemesis phases (the catalog of ``gossip/nemesis.py``):
   slo frame's scenario, launches with a drop operand), then the card
   plane in lockstep with the CPU plane at universe 16,384.
 
+The cross-validation and multi-DC phases:
+
+- multidc_full_path (after nemesis_full_path): ``run_multidc_rounds`` at
+  D = 3, n_lan = 16,000, S = 64 for 200 rounds (LAN and WAN failures,
+  events fired in two DCs and one past the last free slot, hist banks),
+  with the hot tier off and on, on the card against the CPU workers' runs
+  and with each DC's LAN pool on 8 column shards against the card's
+  single-device run: state, banks and coverage trace bit-identical;
+- crossval: ``crossval.run_config`` at n = 1,000 and 10,000 (16 victims,
+  8 seeds) on the card, its kernel statistics equal to CROSSVAL.json's
+  (at 1,000 the whole row: the oracle's seeds run in the CPU workers; at
+  10,000 its recorded numbers stand in), seed 0 at 10,000 on 8 shards
+  equal to one device, ``run_join_config`` and ``run_event_config`` rows
+  equal to CROSSVAL.json's;
+- crossval_nemesis: ``run_nemesis_config`` for every catalog scenario at
+  n = 256, 2 seeds: its kernel side on the card equal to the port's row
+  from a CPU worker (where the oracle runs), and the reference suite's
+  gates on partition_heal and flapping;
+- crossval_1m (after events): the kernel-only push/pull row at 1M
+  (2 seeds), gated on completeness, false dead, slot drops and the
+  Lifeguard envelope; rounds/s and launches;
+- multidc_main_path and sharded_multidc_main_path: bench.py's multidc
+  shape at 1M (4 DCs x 250,000, one event, 250 failures per DC): rounds/s
+  over 3 blocks of 50, on one device and on 8 shards per DC, launches and
+  host syncs per round, peak memory, the event at 0.99 of every DC; the
+  8-shard run's final state, after DEAD verdicts in every DC, equal to
+  the single-device state.
+
+Last, path_shapes: every (kernel, S, L, ndev, fanout, budget) that the
+wrappers launched at after the kernel phases (``fused.launch_shapes``:
+every path above, the WAN pool's fanout 4 and crossval_nemesis's
+[256, 256] included) held against the plain version as in 4 and 5, with
+fanout-sized offset sets, tolerance 0.
+
 Then the kernels line (each kernel's launches on the main path, on the
-plane's path as ``plane_launches``, and with a drop operand on the
-nemesis main paths as ``nemesis_launches``) and, last, the ok line.  Needs
+plane's path as ``plane_launches``, with a drop operand on the nemesis
+main paths as ``nemesis_launches``, in the crossval phase as
+``crossval_launches`` and on the 1M multi-DC paths as
+``multidc_launches``) and, last, the ok line.  Needs
 one CUDA card: without one it exits 2 before printing anything else.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -285,16 +325,22 @@ def _bound(S: int, N: int, F: int, sass: dict, drop: bool = False) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def _offset_sets(N: int, L: int, seed: int) -> list:
-    """Triples of gossip shifts: first 1, N - 1 and a random one (the
-    timed set); then, together, every residue mod 16 (2..17 and large
-    shifts of each residue), and shifts above L (pins from a shard
-    further on)."""
+def _offset_sets(N: int, L: int, seed: int, F: int = 3) -> list:
+    """Sets of F gossip shifts (N >= 4): first 1, N - 1 and random ones
+    (the timed set); then, together, every residue mod 16 (2..17 and
+    large shifts of each residue; below N = 48 every shift), and shifts
+    above L (pins from a shard further on), the last set padded with
+    random shifts."""
     rng = np.random.default_rng(seed)
-    first = [1, N - 1, int(rng.integers(2, N - 1))]
-    big = [int(rng.integers(1, (N - 16) // 16)) * 16 + r for r in range(16)]
-    rest = list(range(2, 18)) + big + [L + 1, 2 * L + 7, N - L - 3]
-    return [first] + [rest[k:k + 3] for k in range(0, len(rest), 3)]
+    first = [1, N - 1] + [int(rng.integers(2, N - 1)) for _ in range(F - 2)]
+    if N < 48:
+        rest = list(range(2, N - 1))
+    else:
+        rest = list(range(2, 18)) + [
+            int(rng.integers(1, (N - 16) // 16)) * 16 + r for r in range(16)]
+    rest += [L + 1, 2 * L + 7, N - L - 3]
+    rest += [int(rng.integers(1, N)) for _ in range(-len(rest) % F)]
+    return [first] + [rest[k:k + F] for k in range(0, len(rest), F)]
 
 
 def _held(name: str, shape, kern, plain) -> int:
@@ -477,6 +523,55 @@ def repeat(S: int, N: int, seeds: int, ndev: int | None = None,
     return res
 
 
+def path_shapes_vs_plain(shapes: set) -> dict:
+    """Every (kernel, S, L, ndev, F, budget) that the paths launched at
+    (``fused.launch_shapes``) held against the plain version on fresh
+    adversarial bytes, under the offset sets of ``_offset_sets`` with F
+    shifts each, every set with no drop operand, a random one and the
+    bisection's: byte-identical required."""
+    from types import SimpleNamespace
+
+    from consul_tpu_torch.gossip import fused, kernel
+
+    t0 = time.perf_counter()
+    rows, err = [], 0
+    for i, (name, S, L, ndev, F, budget) in enumerate(sorted(shapes)):
+        N, seed, rnd = L * ndev, 100 + i, 50
+        # The plain versions read only the spread budget of the params.
+        p = SimpleNamespace(spread_budget_rounds=budget)
+        heard, mf, rx_ok, cap = adversarial(S, N, seed, "cuda")
+        sc = kernel._ShardCtx(ndev, L)
+        shards = tuple(h.contiguous() for h in heard.split(L, dim=1))
+
+        def kern(offs, drop):
+            if name == "fused_dissem":
+                return fused.fused_dissem(heard, offs, mf, rx_ok, cap, rnd,
+                                          budget, drop)
+            return fused.fused_merge(shards, offs, mf, rx_ok, cap, rnd,
+                                     budget, drop)
+
+        def plain(offs, drop):
+            if name == "fused_dissem":
+                return fused.disseminate_ref(p, rnd, offs, heard, mf, rx_ok,
+                                             cap, drop)
+            return fused.merge_shards_ref(p, rnd, offs, shards, mf, rx_ok,
+                                          cap, sc, drop)
+
+        variants = _drop_variants(N, _offset_sets(N, L, seed, F), seed)
+        err = max([err] + [_held(name, [S, N, ndev], lambda: kern(o, d),
+                                 lambda: plain(o, d)) for o, d in variants])
+        rows.append({"kernel": name, "shape": [S, N], "ndev": ndev,
+                     "L": L, "fanout": F, "budget": budget,
+                     "launches_held": len(variants)})
+    res = {"phase": "path_shapes", "shapes": rows, "tolerance": 0,
+           "max_abs_err": err, "seconds": time.perf_counter() - t0}
+    emit(res)
+    kernels = {r["kernel"] for r in rows}
+    if kernels != {"fused_dissem", "fused_merge"}:
+        raise AssertionError(f"the paths launched only {sorted(kernels)}")
+    return res
+
+
 def _reset_counts() -> None:
     """Every kernel launch count and round counter to 0."""
     from consul_tpu_torch.gossip import fused, kernel
@@ -528,6 +623,10 @@ def _diverged(pairs) -> list:
 
 
 FULL_PATH = dict(n=16_000, S=64, steps=300, seed=11)
+# Worker processes for the CPU runs: two of the card machine's 8 cores
+# stay with this process, which drives the card (its rounds are host-
+# bound: a worker beside it on one core halves its pace).
+CPU_WORKERS = 6
 
 
 def _full_path_params(n: int, S: int):
@@ -934,6 +1033,392 @@ def events_phase(seed: int = 21) -> dict:
         raise AssertionError(f"one event did not reach 0.99 of 1M nodes "
                              f"within {pm.event_ttl_rounds} rounds: {trace}")
     return res
+
+
+# -- cross-validation against the SWIM oracle ----------------------------------
+
+def _recorded() -> dict:
+    """CROSSVAL.json: the reference's published cross-validation rows."""
+    return json.loads((ROOT / "CROSSVAL.json").read_text())
+
+
+def _row_diff(row: dict, ref: dict) -> list:
+    """Keys of ``ref`` (but ``wall_s``) whose value ``row`` does not
+    equal."""
+    return [k for k in ref if k != "wall_s" and row.get(k) != ref[k]]
+
+
+def _kernel_fields_diff(card: dict, full: dict) -> list:
+    """Fields of a kernel-only row (``oracle=False``) that differ from the
+    same config's row with the oracle (``full``): of each per-model pair,
+    only the kernel's."""
+    out = []
+    for k, v in full.items():
+        if k in ("wall_s", "relative_error", "oracle"):
+            continue
+        if isinstance(v, dict) and "kernel" in v:
+            if card[k]["kernel"] != v["kernel"]:
+                out.append(k)
+        elif card[k] != v:
+            out.append(k)
+    return out
+
+
+def _seed0_cpu() -> tuple:
+    """Seed 0 of crossval's 10,000-node config on one device, the CPU, in
+    a worker process."""
+    from consul_tpu_torch.gossip import crossval
+    torch.set_num_threads(1)
+    p, fail_at, steps = crossval.config_inputs(10000, 16)
+    return crossval.kernel_event_latencies(p, fail_at, steps, 0,
+                                           device="cpu")
+
+
+def crossval_phase(pool, cpu_seed0) -> dict:
+    """The port's detection statistics on the card against CROSSVAL.json:
+    ``run_config`` at n = 1,000 (the oracle's 8 seeds in the CPU workers)
+    and 10,000 (kernel only; the oracle's recorded numbers stand in), seed
+    0 at 10,000 on 8 shards of the card against the same seed on one
+    device (``cpu_seed0``: the future of its CPU worker), then
+    ``run_join_config`` and ``run_event_config`` (oracles in the
+    workers).  Every compared field must equal the record."""
+    from consul_tpu_torch.gossip import crossval, fused, kernel
+
+    rec = _recorded()
+    t0 = time.perf_counter()
+    _reset_counts()
+    bad = []
+    row1k = crossval.run_config(1000, 16, 8, device="cuda", executor=pool)
+    bad += [f"1k.{k}" for k in _row_diff(row1k, rec["configs"][0])]
+    row10k = crossval.run_config(10000, 16, 8, oracle=False, device="cuda")
+    bad += [f"10k.{k}" for k in _kernel_fields_diff(row10k,
+                                                     rec["configs"][1])]
+    p, fail_at, steps = crossval.config_inputs(10000, 16)
+    merges0 = fused.merge_launches
+    eight = crossval.kernel_event_latencies(p, fail_at, steps, 0, ndev=8,
+                                            device="cuda")
+    merges = fused.merge_launches - merges0
+    one = cpu_seed0.result()
+    if one != eight or merges == 0:
+        bad.append("10k seed 0 on 8 shards")
+    join = crossval.run_join_config(1000, 8, 8, 4, device="cuda",
+                                    executor=pool)
+    bad += [f"join.{k}" for k in _row_diff(join, rec["join_churn"])]
+    ev = [crossval.run_event_config(n, 4, device="cuda", executor=pool)
+          for n in (1000, 10000)]
+    for row, ref in zip(ev, rec["event_convergence"]):
+        bad += [f"event{row['n']}.{k}" for k in _row_diff(row, ref)]
+    recorded10k = rec["configs"][1]
+    res = {"phase": "crossval", "seconds": time.perf_counter() - t0,
+           "configs": [row1k, {
+               **row10k,
+               "refmodel": "recorded",
+               "detection_latency_rounds": {
+                   "kernel": row10k["detection_latency_rounds"]["kernel"],
+                   "refmodel": recorded10k["detection_latency_rounds"][
+                       "refmodel"]},
+               # The kernel side equals the record's, so the record's
+               # errors against its oracle hold.
+               "relative_error": recorded10k["relative_error"]}],
+           "seed0_10k_8_shards": {"latencies": eight[0],
+                                  "equal_to_one_device": one == eight,
+                                  "merge_launches": merges},
+           "join_churn": join, "event_convergence": ev,
+           "dissem_launches": fused.launches,
+           "merge_launches": fused.merge_launches,
+           "host_syncs": kernel.host_syncs, "diverged": bad}
+    emit(res)
+    if bad:
+        raise AssertionError(f"crossval differs from CROSSVAL.json in {bad}")
+    if fused.launches == 0:
+        raise AssertionError("crossval launched no fused_dissem")
+    return res
+
+
+NEMX = dict(n=256, seeds=2)
+
+
+def _nemx_cpu(name: str, n: int, seeds: int) -> dict:
+    """A catalog scenario's cross-validation row from the port on the
+    CPU, in a worker process."""
+    from consul_tpu_torch.gossip import crossval
+    torch.set_num_threads(1)
+    return crossval.run_nemesis_config(name, n, seeds, device="cpu")
+
+
+def crossval_nemesis_phase(cpu_rows: dict, n: int, seeds: int) -> dict:
+    """Every catalog scenario through ``run_nemesis_config`` on the card,
+    kernel side only, against the port's whole row from a CPU worker
+    (``cpu_rows``: scenario -> future; the oracle runs there, once):
+    every kernel field equal, and the reference suite's gates on
+    ``partition_heal`` and ``flapping``."""
+    from consul_tpu_torch.gossip import crossval, fused
+    from consul_tpu_torch.gossip.nemesis import names
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    rows, bad, card_s, wait_s = {}, [], {}, 0.0
+    for name in names():
+        t1 = time.perf_counter()
+        card = crossval.run_nemesis_config(name, n, seeds, oracle=False,
+                                           device="cuda")
+        card_s[name] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        rows[name] = cpu_rows[name].result()
+        wait_s += time.perf_counter() - t1
+        bad += [f"{name}.{k}" for k in _kernel_fields_diff(card, rows[name])]
+    ph, fl = rows["partition_heal"], rows["flapping"]
+    for model in ("kernel", "refmodel"):
+        if not (ph["false_dead"][model] > 0
+                and ph["member_frac_end"][model] >= 0.95):
+            bad.append(f"partition_heal gate ({model})")
+        if not (fl["completeness"][model] >= 0.9
+                and fl["member_frac_end"][model] >= 0.95):
+            bad.append(f"flapping gate ({model})")
+    if ph["kernel_slot_drops"] != 0:
+        bad.append("partition_heal slot drops")
+    if not (fl["relative_error"]["p50"] is not None
+            and fl["relative_error"]["p50"] <= 0.25):
+        bad.append("flapping p50 relative error")
+    res = {"phase": "crossval_nemesis", "n": n, "seeds": seeds,
+           "seconds": time.perf_counter() - t0, "card_s": card_s,
+           "cpu_wait_s": wait_s, "scenarios": rows,
+           "dissem_launches": fused.launches,
+           "drop_launches": fused.drop_launches, "diverged": bad}
+    emit(res)
+    if bad:
+        raise AssertionError(f"crossval_nemesis: {bad}")
+    return res
+
+
+def crossval_1m_phase() -> dict:
+    """The first distribution of detection latency at 1M nodes on the
+    card: CROSSVAL.json's kernel-only push/pull row at the BASELINE's n,
+    gated on its own criterion (the Lifeguard envelope)."""
+    from consul_tpu_torch.gossip import crossval, fused, kernel
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    row = crossval.run_config(1_000_000, 16, 2, pushpull=True, oracle=False,
+                              device="cuda")
+    wall = time.perf_counter() - t0
+    _, _, steps = crossval.config_inputs(1_000_000, 16, pushpull=True)
+    lo, hi = row["lifeguard_envelope_rounds"]
+    lat = row["detection_latency_rounds"]["kernel"]
+    res = {"phase": "crossval_1m", "row": row, "steps_per_seed": steps,
+           "rounds": 2 * steps, "seconds": wall,
+           "rounds_per_s": 2 * steps / wall,
+           "mean": lat["mean"], "p50": lat["p50"], "p99": lat["p99"],
+           "envelope": [lo, hi], "dissem_launches": fused.launches,
+           "host_syncs_per_round": kernel.host_syncs / (2 * steps),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(res)
+    if not (row["completeness"]["kernel"] == 1.0
+            and row["false_dead"]["kernel"] == 0
+            and row["kernel_slot_drops"] == 0
+            and 0.8 * lo <= lat["p99"] <= hi):
+        raise AssertionError(f"crossval_1m outside its gates: {row}")
+    if fused.launches == 0:
+        raise AssertionError("crossval_1m launched no fused_dissem")
+    return res
+
+
+# -- multi-DC gossip ---------------------------------------------------------------
+
+MDC = dict(D=3, n=16_000, S=64, steps=200, seed=17)
+
+
+def _mdc_run(D: int, n: int, S: int, steps: int, seed: int, hot: int,
+             dev: str, ndev: int = 0):
+    """``steps`` multi-DC rounds with hist banks: LAN failures in every DC
+    (servers included in the last), a WAN server failure, one event fired
+    in DC 0 before the run and, halfway, one in DC 2 and one past the
+    last free slot.  Returns (state, hist, coverage) as numpy."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import convert
+    from consul_tpu_torch.gossip import multidc as md
+
+    rng = np.random.default_rng(seed)
+    lan_fail = np.full((D, n), NEVER, np.int32)
+    for d in range(D):
+        ids = rng.choice(np.arange(1 if d == D - 1 else 3, n), 6, False)
+        lan_fail[d, ids] = rng.integers(5, steps - 40, 6)
+    wan_fail = np.full((D * 3,), NEVER, np.int32)
+    wan_fail[4] = 30
+    p = md.make_params(D, n, event_slots=2, slots=S, hot_slots=hot,
+                       lan_devices=ndev)
+    st = md.fire_in_dc(md.init_multidc(p, device=dev), 0, n // 3, p)
+    hb = md.init_multidc_hist(p, device=dev)
+    covs = []
+    for half in range(2):
+        if half:
+            st = md.fire_in_dc(st, 2, (n * 5) // 16, p)
+            st = md.fire_in_dc(st, 1, 77, p)
+        (st, hb), cov = md.run_multidc_rounds(st, prng.key(seed), lan_fail,
+                                              wan_fail, p, steps // 2,
+                                              lan_hist=hb, device=dev)
+        covs.append(cov)
+    return (convert.multidc_to_numpy(st), convert.hist_banks_to_numpy(hb),
+            torch.cat(covs).cpu().numpy())
+
+
+def _mdc_cpu(hot: int, D: int, n: int, S: int, steps: int, seed: int):
+    """multidc_full_path's run on the CPU, in a worker process."""
+    torch.set_num_threads(1)
+    return _mdc_run(D, n, S, steps, seed, hot, "cpu")
+
+
+def _mdc_diff(a, b) -> list:
+    (sa, ha, ca), (sb, hb, cb) = a, b
+    out = [f"{pool}.{f}" for pool in sa for f in sa[pool]
+           if sa[pool][f].dtype != sb[pool][f].dtype
+           or not np.array_equal(sa[pool][f], sb[pool][f])]
+    out += [f"hist.{f}" for f in ha if not np.array_equal(ha[f], hb[f])]
+    if ca.dtype != cb.dtype or not np.array_equal(ca, cb):
+        out.append("coverage")
+    return out
+
+
+def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
+                      seed: int) -> dict:
+    """The multi-DC round on the card against the CPU workers' runs (hot
+    tier off and on), and with each DC's LAN pool on 8 column shards
+    against the card's single-device run: every field of the state, the
+    hist banks and the coverage trace bit-identical."""
+    from consul_tpu_torch.gossip import fused, kernel
+
+    t0 = time.perf_counter()
+    runs, bad = {}, []
+    for hot in (0, 8):
+        _reset_counts()
+        t1 = time.perf_counter()
+        single = _mdc_run(D, n, S, steps, seed, hot, "cuda")
+        row = {"cuda_s": time.perf_counter() - t1,
+               "dissem_launches": fused.launches,
+               "tail_rounds": dict(kernel.tail_rounds)}
+        _reset_counts()
+        t1 = time.perf_counter()
+        sharded = _mdc_run(D, n, S, steps, seed, hot, "cuda", ndev=8)
+        row.update(cuda_8_shards_s=time.perf_counter() - t1,
+                   sharded_merge_launches=fused.merge_launches,
+                   sharded_dissem_launches=fused.launches,
+                   sharded_tail_rounds=dict(kernel.tail_rounds))
+        t1 = time.perf_counter()
+        row["diverged_cpu"] = _mdc_diff(single, cpu[hot].result())
+        row["cpu_wait_s"] = time.perf_counter() - t1
+        row["diverged_8_shards"] = _mdc_diff(single, sharded)
+        row["n_detected"] = single[0]["lan"]["n_detected"].tolist()
+        row["wan_n_detected"] = int(single[0]["wan"]["n_detected"])
+        row["event_drops"] = single[0]["lan_events"]["drops"].tolist()
+        row["coverage_max"] = single[2].max(axis=0).tolist()
+        runs[f"hot_slots={hot}"] = row
+        busy = row["tail_rounds"]["hot"] + row["tail_rounds"]["full"]
+        if row["diverged_cpu"] or row["diverged_8_shards"]:
+            bad.append(f"hot_slots={hot}: diverged")
+        if row["dissem_launches"] != busy or busy == 0:
+            bad.append(f"hot_slots={hot}: fused_dissem launches "
+                       f"{row['dissem_launches']} != busy rounds {busy}")
+        if row["sharded_merge_launches"] == 0:
+            bad.append(f"hot_slots={hot}: no fused_merge launch")
+    res = {"phase": "multidc_full_path", "D": D, "n_lan": n, "slots": S,
+           "steps": steps, "seconds": time.perf_counter() - t0,
+           "runs": runs, "bad": bad}
+    emit(res)
+    if bad:
+        raise AssertionError(f"multidc_full_path: {bad}")
+    return res
+
+
+def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
+                      block: int = 50, blocks: int = 3,
+                      lan_devices: int = 0):
+    """bench.py's multidc regime on the port: ``dcs`` LAN pools of
+    ``n // dcs`` nodes, 3 servers each, 32 event slots, S = 64, one event
+    fired at (dc 0, node 7), ``n_lan // 1000`` failures per DC past the
+    servers, spaced over ``warm + block * blocks`` rounds; rounds/s over
+    the timed blocks, each ending in a device->host read.  Returns the result line and the state at the end
+    of the warm-up and of each block (the round never writes into a state
+    it was given)."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import fused, kernel
+    from consul_tpu_torch.gossip import multidc as md
+
+    n_lan = n // dcs
+    p = md.make_params(dcs, n_lan, n_servers=3, event_slots=32, slots=64,
+                       lan_devices=lan_devices)
+    n_fail = max(1, n_lan // 1000)
+    lan_fail = np.full((dcs, n_lan), NEVER, np.int32)
+    s0 = p.n_servers
+    lan_fail[:, s0:s0 + n_fail] = ((np.arange(n_fail, dtype=np.int64)
+                                    * (warm + block * blocks))
+                                   // n_fail)[None, :]
+    total = warm + block * blocks
+    lan_fail_t = torch.from_numpy(lan_fail).cuda()
+    wan_fail_t = torch.full((dcs * s0,), NEVER, dtype=torch.int32,
+                            device="cuda")
+    key = prng.key(42)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    state = md.fire_in_dc(md.init_multidc(p), 0, 7, p)
+    _reset_counts()
+    t0 = time.perf_counter()
+    state, cov = md.run_multidc_rounds(state, key, lan_fail_t, wan_fail_t,
+                                       p, warm)
+    int(state.wan.round)
+    warm_s = time.perf_counter() - t0
+    covs, times, states = [cov], [], [state]
+    for _ in range(blocks):
+        t0 = time.perf_counter()
+        state, cov = md.run_multidc_rounds(state, key, lan_fail_t,
+                                           wan_fail_t, p, block)
+        int(state.wan.round)
+        times.append(time.perf_counter() - t0)
+        covs.append(cov)
+        states.append(state)
+    cov = torch.cat(covs)[:, :, 0].cpu().numpy()          # [T, D], slot 0
+    reached = [next((r + 1 for r in range(total) if cov[r, d] >= 0.99),
+                    None) for d in range(dcs)]
+    res = {"phase": ("multidc_main_path" if lan_devices <= 1
+                     else "sharded_multidc_main_path"),
+           "n": n, "dcs": dcs, "n_lan": n_lan, "lan_devices": lan_devices,
+           "slots": 64, "event_slots": 32, "n_fail_per_dc": n_fail,
+           "rounds": total, "seconds": time.perf_counter() - t_phase,
+           "warmup_s": warm_s, "block_rounds": block, "block_s": times,
+           "rounds_per_s_mean": block * blocks / sum(times),
+           "rounds_per_s_best_block": block / min(times),
+           "dissem_launches": fused.launches,
+           "merge_launches": fused.merge_launches,
+           "dissem_launches_per_round": fused.launches / total,
+           "merge_launches_per_round": fused.merge_launches / total,
+           "tail_rounds": dict(kernel.tail_rounds),
+           "host_syncs_per_round": kernel.host_syncs / total,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "rounds_to_coverage_99": reached,
+           "coverage_end": cov[-1].tolist(),
+           "n_detected": [int(st.n_detected) for st in state.lan],
+           "n_false_dead": [int(st.n_false_dead) for st in state.lan],
+           "event_n_seen_slot0": [int(ev.n_seen[0])
+                                  for ev in state.lan_events]}
+    emit(res)
+    if None in reached:
+        raise AssertionError(f"{res['phase']}: the event did not reach 0.99 "
+                             f"of every DC: {reached}")
+    launched = fused.merge_launches if lan_devices > 1 else fused.launches
+    if launched == 0:
+        raise AssertionError(f"{res['phase']} launched no kernel")
+    return res, states
+
+
+def _mdc_state_diff(a, b) -> list:
+    """Fields that differ between two multi-DC states on the card."""
+    pairs = ([(f"{pool}[{d}]", x, y) for pool in ("lan", "lan_events")
+              for d, (x, y) in enumerate(zip(getattr(a, pool),
+                                             getattr(b, pool)))]
+             + [("wan", a.wan, b.wan),
+                ("wan_events", a.wan_events, b.wan_events)])
+    return [f"{name}: {f}" for name, x, y in pairs
+            for f in _diverged([(x, y)])]
 
 
 # -- the gossip plane ------------------------------------------------------------
@@ -1366,34 +1851,57 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    # The CPU runs that the card's runs are held against go to worker
-    # processes at once (one thread each), and compute while the kernel
-    # phases run; every one has finished before the first timed main
-    # path.
+    # The CPU runs that the card's runs are held against, and the oracle's
+    # seeds, go to worker processes at once (one thread each), and compute
+    # while the card's phases run; every one has finished before the first
+    # timed main path.
     pool = ProcessPoolExecutor(
-        1 + len(NEM_STEPS), mp_context=multiprocessing.get_context("spawn"))
+        CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"))
     try:
         cpu_full = pool.submit(_full_path_cpu, **FULL_PATH)
         cpu_nem = {name: pool.submit(_nem_run_cpu, name, NEM["n"], NEM["S"],
                                      steps, NEM["seed"])
                    for name, steps in NEM_STEPS.items()}
+        # Longest first: asym_loss's oracle is the longest CPU task.
+        cpu_nemx = {name: pool.submit(_nemx_cpu, name, **NEMX)
+                    for name in ("asym_loss", "partition_heal",
+                                 "degraded_observer", "block_kill",
+                                 "flapping", "zone_kill")}
+        cpu_seed0 = pool.submit(_seed0_cpu)
+        cpu_mdc = {hot: pool.submit(_mdc_cpu, hot, **MDC) for hot in (0, 8)}
         card()
         build()
         sass = sass_phase()
         big = kernel_vs_plain(64, 1_000_000, seed=1, sass=sass)
         kernel_vs_plain(8, 1_000_000, seed=2, sass=sass)
         kernel_vs_plain(64, 16_001, seed=5, sass=sass)
+        # The multi-DC LAN pools (250,000 a DC, the hot tier's 8 rows) and
+        # the crossval widths.
+        kernel_vs_plain(64, 250_000, seed=21, sass=sass)
+        kernel_vs_plain(8, 250_000, seed=22, sass=sass)
+        kernel_vs_plain(64, 10_000, seed=23, sass=sass)
+        kernel_vs_plain(64, 1_000, seed=24, sass=sass)
         mbig = merge_vs_plain(64, 1_000_000, 8, seed=3, sass=sass)
         merge_vs_plain(8, 1_000_000, 8, seed=4, sass=sass)
         for ndev in (1, 2, 4, 8):
             merge_vs_plain(64, 16_000, ndev, seed=6 + ndev, sass=sass)
+        merge_vs_plain(64, 250_000, 8, seed=25, sass=sass)
+        merge_vs_plain(8, 250_000, 8, seed=26, sass=sass)
+        merge_vs_plain(64, 10_000, 8, seed=27, sass=sass)
         repeat(8, 1_000_000, seeds=256)
         repeat(8, 1_000_000, seeds=128, ndev=8)
         repeat(64, 1_000_000, seeds=16)
+        # From here on every launch is a path's: its shapes are held
+        # against the plain version after the last path.
+        from consul_tpu_torch.gossip import fused
+        fused.launch_shapes.clear()
         single = full_path(cpu_full, **FULL_PATH)
         sharded_full_path(single, **FULL_PATH)
         del single
         nemesis_full_path(cpu_nem, **NEM)
+        cross = crossval_phase(pool, cpu_seed0)
+        crossval_nemesis_phase(cpu_nemx, **NEMX)
+        multidc_full_path(cpu_mdc, **MDC)
         pool.shutdown()
         churn, churn_state = main_path(1_000_000, 64, 1000, warm=50,
                                        block=100, blocks=3)
@@ -1428,10 +1936,31 @@ def main() -> int:
                                  f"{diverged}")
         del nem1_state, nem8_state
         events_phase()
+        crossval_1m_phase()
+        mdc1, mdc1_states = multidc_main_path()
+        mdc8, mdc8_states = multidc_main_path(lan_devices=8)
+        # The final states, after the first LAN detections: the parity
+        # covers DEAD verdicts on the 31,250-column shards.
+        diverged = _mdc_state_diff(mdc1_states[-1], mdc8_states[-1])
+        detected = mdc8["n_detected"]
+        emit({"phase": "sharded_multidc_main_path_parity",
+              "rounds": mdc8["rounds"], "diverged": diverged,
+              "n_detected": detected,
+              "rounds_per_s_mean": {
+                  "single": mdc1["rounds_per_s_mean"],
+                  "sharded": mdc8["rounds_per_s_mean"]}})
+        if diverged:
+            raise AssertionError(f"sharded and single-device 1M multi-DC "
+                                 f"runs diverged in {diverged}")
+        if min(detected) == 0:
+            raise AssertionError(f"the 1M multi-DC parity saw no DEAD "
+                                 f"verdict in some DC: {detected}")
+        del mdc1_states, mdc8_states
         plane1 = plane_phase(1, full=True)
         plane8 = plane_phase(8, full=False)
         plane_nem = plane_nemesis_phase()
         gossipd_phase()
+        path_shapes_vs_plain(set(fused.launch_shapes))
     except Exception:
         traceback.print_exc()
         return 1
@@ -1446,6 +1975,8 @@ def main() -> int:
         "plane_launches": plane1["dissem_launches"],
         "nemesis_launches": nem1["drop_launches"],
         "plane_nemesis_launches": plane_nem["drop_launches"],
+        "crossval_launches": cross["dissem_launches"],
+        "multidc_launches": mdc1["dissem_launches"],
         "max_abs_err": big["max_abs_err"], "ms": big["ms"],
         "ms_drop": big["ms_drop"],
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
@@ -1457,6 +1988,7 @@ def main() -> int:
         "launches": sharded["merge_launches"],
         "plane_launches": plane8["merge_launches"],
         "nemesis_launches": nem8["merge_drop_launches"],
+        "multidc_launches": mdc8["merge_launches"],
         "max_abs_err": mbig["max_abs_err"], "ms": mbig["ms"],
         "ms_drop": mbig["ms_drop"],
         "plain_ms": mbig["plain_ms"], "bound_ms": mbig["bound_ms"],

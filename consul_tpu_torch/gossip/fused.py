@@ -63,6 +63,10 @@ merge_launches = 0
 # ``fused_merge``).
 drop_launches = 0
 merge_drop_launches = 0
+# (kernel, S, L, ndev, F, budget) of every launch of either kernel, so a
+# smoke run can hold each shape its paths launched at against the plain
+# version (``chip_smoke.py``).
+launch_shapes: set = set()
 
 
 def _age_u8(x: torch.Tensor) -> torch.Tensor:
@@ -272,6 +276,7 @@ def fused_dissem(heard: torch.Tensor, offs, mf: torch.Tensor,
             N, len(offs), c_offs, int(rnd), budget)
     launches += 1
     drop_launches += drop_p is not None
+    launch_shapes.add(("fused_dissem", S, N, 1, len(offs), budget))
     return out
 
 
@@ -317,6 +322,7 @@ def fused_merge(heard, offs, mf: torch.Tensor, rx_ok: torch.Tensor,
             c_offs, int(rnd), budget, 0, ndev)
     merge_launches += 1
     merge_drop_launches += drop_p is not None
+    launch_shapes.add(("fused_merge", S, L, ndev, len(offs), budget))
     return out.unbind(0)
 
 

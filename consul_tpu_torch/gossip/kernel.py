@@ -1227,9 +1227,10 @@ def swim_round_hist(state: SwimState, base_key, fail_round, p: SwimParams,
 
 
 def _one_round(state, base_key, fail_round, p, hist, join_round, device,
-               sc=None, nem=None, nem_state=None):
+               sc=None, nem=None, nem_state=None, rnd: int | None = None):
     """One round; returns the state packed with whichever of hist and
-    nem_state are threaded, in that order."""
+    nem_state are threaded, in that order.  ``rnd`` is the caller's host
+    mirror of ``state.round`` (None reads the counter from the device)."""
     _require_nem_state(nem, nem_state)
     dev = resolve_device(device)
     if sc is None:
@@ -1238,7 +1239,9 @@ def _one_round(state, base_key, fail_round, p, hist, join_round, device,
     hist = None if hist is None else _on(dev, hist)
     nem_state = None if nem_state is None else _on(dev, nem_state)
     jr = None if join_round is None else _as_i32(join_round, dev)
-    st, _, hb, ns = _swim_round_impl(state, _host_int(state.round), base_key,
+    if rnd is None:
+        rnd = _host_int(state.round)
+    st, _, hb, ns = _swim_round_impl(state, rnd, base_key,
                                      _as_i32(fail_round, dev), p, jr,
                                      collect=False, hist=hist, sc=sc,
                                      nem=nem, nem_state=nem_state)
@@ -1394,6 +1397,32 @@ def _sharded_setup(state, p, ndev, device):
     else:
         state = shard_state(state, ndev, dev)
     return state, _ShardCtx(ndev, L), dev
+
+
+def sharded_round_callable(p: SwimParams, ndev: int, has_join: bool = False,
+                           has_hist: bool = False,
+                           nem: NemesisParams | None = None,
+                           has_nem_state: bool = False, device=None):
+    """The single round on ``ndev`` column shards of one device, as a
+    callable (reference ``sharded_round_callable``; the multi-DC round
+    runs each DC's LAN pool through it).  Signature: ``(state, base_key,
+    fail_round[, join_round][, hist][, nem_state], rnd=None)`` -> the
+    sharded state, packed with whichever of hist and nem_state are
+    threaded.  ``state`` may be sharded (``ndev`` shards) or not;
+    ``rnd`` is the caller's host mirror of ``state.round`` (None reads
+    it).  Constraints: ``_check_shardable``, raised here."""
+    _check_shardable(p, ndev)
+
+    def _round(state, base_key, fail_round, *rest, rnd: int | None = None):
+        rest = iter(rest)
+        join_round = next(rest) if has_join else None
+        hist = next(rest) if has_hist else None
+        nem_state = next(rest) if has_nem_state else None
+        state, sc, dev = _sharded_setup(state, p, ndev, device)
+        return _one_round(state, base_key, fail_round, p, hist, join_round,
+                          dev, sc, nem, nem_state, rnd)
+
+    return _round
 
 
 def swim_round_sharded(state: SwimState, base_key, fail_round,

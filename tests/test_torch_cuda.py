@@ -182,3 +182,43 @@ def test_kernels_take_the_drop_operand_on_card(shape):
         with pytest.raises(ValueError, match="drop"):
             fused.fused_dissem(heard, offs, mf, rx_ok, cap, 50,
                                p.spread_budget_rounds, bad)
+
+
+def test_multidc_on_card_matches_cpu():
+    """run_multidc_rounds with per-DC hist banks, LAN and WAN failures,
+    an event fired before the run and one past the last free slot: the
+    card against the CPU (state, banks, coverage trace), and the LAN pools
+    on 2 column shards of the card against one."""
+    _need_card()
+    from consul_tpu_torch.gossip import convert
+    from consul_tpu_torch.gossip import multidc as tm
+
+    D, n = 2, 320
+    lan_fail = np.full((D, n), NEVER, np.int32)
+    lan_fail[0, [40, 200]] = [10, 60]
+    lan_fail[1, 77] = 30
+    wan_fail = np.full((D * 3,), NEVER, np.int32)
+    wan_fail[4] = 15
+    outs = []
+    for dev, ndev in (("cuda", 0), ("cpu", 0), ("cuda", 2)):
+        p = tm.make_params(D, n, event_slots=2, slots=8, hot_slots=0,
+                           lan_devices=ndev)
+        st = tm.fire_in_dc(tm.init_multidc(p, device=dev), 0, 150, p)
+        st = tm.fire_in_dc(tm.fire_in_dc(st, 1, 9, p), 1, 10, p)
+        merges0 = fused.merge_launches
+        (st, hb), cov = tm.run_multidc_rounds(
+            st, prng.key(4), lan_fail, wan_fail, p, 120,
+            lan_hist=tm.init_multidc_hist(p, device=dev), device=dev)
+        if ndev:
+            assert fused.merge_launches > merges0
+        outs.append((convert.multidc_to_numpy(st),
+                     convert.hist_banks_to_numpy(hb), cov.cpu().numpy()))
+    ref = outs[1]
+    for out in (outs[0], outs[2]):
+        for pool in ref[0]:
+            for f in ref[0][pool]:
+                assert np.array_equal(out[0][pool][f], ref[0][pool][f]), \
+                    (pool, f)
+        for f in ref[1]:
+            assert np.array_equal(out[1][f], ref[1][f]), f
+        assert np.array_equal(out[2], ref[2])

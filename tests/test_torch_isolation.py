@@ -138,18 +138,67 @@ def test_nemesis_copy_matches():
 
 
 
+def test_refmodel_copy_matches():
+    """The oracle's copy is the original statement for statement: only
+    docstrings differ, and the two imports name the port's package."""
+    from consul_tpu.gossip import refmodel as j_ref
+    from consul_tpu_torch.gossip import refmodel as t_ref
+
+    def code(mod, package):
+        tree = ast.parse(Path(mod.__file__).read_text())
+        for node in ast.walk(tree):
+            body = getattr(node, "body", None)
+            if (isinstance(body, list) and body
+                    and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                node.body = body[1:]
+        imports = [node for node in ast.walk(tree)
+                   if isinstance(node, ast.ImportFrom)
+                   and node.module.startswith(package + ".")]
+        assert [i.module for i in imports] == [f"{package}.gossip.nemesis",
+                                               f"{package}.gossip.params"]
+        for node in imports:
+            node.module = "PKG" + node.module[len(package):]
+        return ast.dump(tree)
+
+    assert code(t_ref, "consul_tpu_torch") == code(j_ref, "consul_tpu")
+
+
+def _tensors(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, tuple):
+        return [t for x in out for t in _tensors(x)]
+    return []
+
+
+# The cross-validation entry points return host values (latencies, counts,
+# report rows): for them the CPU call only has to run.
+_HOST_RESULT = ("kernel_event_latencies", "kernel_nemesis_stats",
+                "kernel_event_curve", "run_config", "run_nemesis_config",
+                "run_join_config", "run_event_config")
+
+
 @pytest.mark.parametrize("entry", ["init_state", "init_flight", "init_hist",
                                    "init_nem_state", "swim_round",
                                    "run_rounds", "shard_state",
                                    "swim_round_sharded",
-                                   "run_rounds_sharded"])
+                                   "run_rounds_sharded", "init_multidc",
+                                   "init_multidc_hist", "multidc_round",
+                                   "run_multidc_rounds", *_HOST_RESULT])
 def test_default_device_is_the_card(entry):
     """device=None means CUDA: without a card every entry point raises
     instead of running on the CPU; device="cpu" is the way there."""
+    from consul_tpu_torch.gossip import crossval as tc
+    from consul_tpu_torch.gossip import multidc as tm
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     p = t_params.SwimParams(n=20, slots=4)
     fail = np.full(20, tk.NEVER, np.int32)
+    mp = tm.make_params(2, 20, event_slots=2, slots=4)
+    lan_fail = np.full((2, 20), tk.NEVER, np.int32)
+    wan_fail = np.full((6,), tk.NEVER, np.int32)
     calls = {
         "init_state": lambda **kw: tk.init_state(p, **kw),
         "init_flight": lambda **kw: tk.init_flight(8, **kw),
@@ -169,13 +218,36 @@ def test_default_device_is_the_card(entry):
         "run_rounds_sharded": lambda **kw: tk.run_rounds_sharded(
             tk.init_state(p, device="cpu"), np.zeros(2, np.uint32), fail,
             p, 2, ndev=2, **kw),
+        "init_multidc": lambda **kw: tm.init_multidc(mp, **kw),
+        "init_multidc_hist": lambda **kw: tm.init_multidc_hist(mp, **kw),
+        "multidc_round": lambda **kw: tm.multidc_round(
+            tm.init_multidc(mp, device="cpu"), np.zeros(2, np.uint32),
+            lan_fail, wan_fail, mp, **kw),
+        "run_multidc_rounds": lambda **kw: tm.run_multidc_rounds(
+            tm.init_multidc(mp, device="cpu"), np.zeros(2, np.uint32),
+            lan_fail, wan_fail, mp, 2, **kw),
+        "kernel_event_latencies": lambda **kw: tc.kernel_event_latencies(
+            p, {3: 1}, 4, 0, **kw),
+        "kernel_nemesis_stats": lambda **kw: tc.kernel_nemesis_stats(
+            p, t_nem.build("block_kill", 20), 4, 0, **kw),
+        "kernel_event_curve": lambda **kw: tc.kernel_event_curve(p, 4, 0,
+                                                                 **kw),
+        "run_config": lambda **kw: tc.run_config(20, 1, 1, oracle=False,
+                                                 **kw),
+        "run_nemesis_config": lambda **kw: tc.run_nemesis_config(
+            "block_kill", 20, 1, steps=4, **kw),
+        "run_join_config": lambda **kw: tc.run_join_config(20, 1, 1, 1,
+                                                           **kw),
+        "run_event_config": lambda **kw: tc.run_event_config(20, 1, **kw),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
     out = calls[entry](device="cpu")
-    first = out[0] if entry.startswith("run_rounds") else out
-    tensors = [x for t in first
-               for x in (t if isinstance(t, tuple) else (t,))]
+    if entry in _HOST_RESULT:
+        assert out is not None
+        return
+    first = out[0] if entry.startswith("run_") else out
+    tensors = _tensors(first)
     assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 

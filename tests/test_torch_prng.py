@@ -76,6 +76,17 @@ def test_randint(shape, n):
         assert np.array_equal(a, b), (seed, a, b)
 
 
+@pytest.mark.parametrize("n", [4, 1000, 10_000, 1_000_000])
+def test_randint_scalar_from_zero(n):
+    """The event flood's origin: ``randint(key(seed ^ 0x5EED), (), 0, n)``."""
+    for seed in (0, 1, 2, 3, 17):
+        a = np.asarray(jax.random.randint(jax.random.key(seed ^ 0x5EED), (),
+                                          0, n))
+        b = prng.randint(prng.key(seed ^ 0x5EED), (), 0, n)
+        assert a.dtype == b.dtype and a.shape == b.shape == ()
+        assert int(a) == int(b), (seed, a, b)
+
+
 def test_randint_empty_span():
     """maxval <= minval returns minval, as jax does."""
     k = jax.random.key(4)
