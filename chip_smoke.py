@@ -2090,6 +2090,20 @@ def _store_stream(seed: int, fill: int, start: int, sizes) -> tuple:
     return chunks, store
 
 
+def _one_key_ops(n: int, start: int) -> list:
+    """``n`` kv ops of one key on the stand-in: sets, and deletes where it
+    is live (a quarter of the draws), raft indexes from ``start``."""
+    rng = np.random.default_rng(STORE["seed"] + 2)
+    store, index = _StoreStandIn(), start
+    while len(store.cap.kv_ops) < n:
+        index += 1
+        if rng.random() < 0.25:
+            store.delete(index, "web/one/key")
+        else:
+            store.set(index, "web/one/key", rng.bytes(8), 1)
+    return store.cap.kv_ops
+
+
 def _store_encoder():
     from consul_tpu_torch.state import device_store as tds
     return tds.DeviceStoreBridge(capacity=64, stats=None, device="cpu")
@@ -2273,21 +2287,53 @@ def store_apply_phase(cpu, card_line: str) -> dict:
                              f"windows and re-set {resets} deleted keys")
 
     # Times: each size on a copy of the final table, the ops of its last
-    # chunk; the plain version on the card at the same shapes.
+    # chunk; the plain version on the card at the same shapes.  How each
+    # batch ran (its levels, the ops walked in order, each phase's clock
+    # cycles) from its first launch.
     times = {}
     last = {len(c): cards[k][3] for k, c in enumerate(chunks)}
     for B, _ in STORE_BATCHES:
         ops = last[B].cuda()
         copy = tuple(t.clone() for t in tab)
         before = copy[0].clone()
-        tds.kv_apply(copy, ops, P)
+        _, sched = tds.kv_apply_schedule(copy, ops, P)
         bound = _store_bound(ops, before, copy[0], P)
         ms = graph_ms(lambda: tds.kv_apply(copy, ops, P))
         plain_ms = cuda_ms(lambda: tds.apply_ref(copy, ops, P),
                            1 if B > 64 else 3, warm=1)
         times[B] = {"ms": ms, "ns_per_op": ms * 1e6 / B,
-                    "plain_ms": plain_ms, **bound,
+                    "plain_ms": plain_ms, **sched, **bound,
                     "share_of_bound": bound["bound_ms"] / ms}
+    # Two chains the schedule must survive, on the final table, held
+    # against apply_ref and timed: 4,096 ops on one key (one chain, walked
+    # in order) and the first 2,049 ops of the last 4,096 chunk padded as
+    # the bridge pads it (2,047 pad rows at the end, which must not chain).
+    edge = {"one_key": _one_key_ops(4096, 2**31 - 10),
+            "trailing_pads": [c for c in chunks if len(c) == 4096][-1][:2049]}
+    for name, kv_ops in edge.items():
+        ops = enc._encode_ops(kv_ops)[0].cuda()
+        copy = tuple(t.clone() for t in tab)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want, (re, ro) = tds.apply_ref(tab, ops, P)
+        end.record()
+        end.synchronize()
+        (e, o), sched = tds.kv_apply_schedule(copy, ops, P)
+        err = max(err, _same(f"kv_apply existed ({name})", e, re),
+                  _same(f"kv_apply old index ({name})", o, ro),
+                  _same(f"kv_apply slots ({name})", copy[0], want[0]),
+                  _same(f"kv_apply full ({name})", copy[1], want[1]))
+        bound = _store_bound(ops, tab[0], want[0], P)
+        ms = graph_ms(lambda: tds.kv_apply(copy, ops, P))
+        times[name] = {"ms": ms, "ns_per_op": ms * 1e6 / ops.shape[0],
+                       "plain_ms": start.elapsed_time(end), **sched,
+                       **bound, "share_of_bound": bound["bound_ms"] / ms}
+    if (times["one_key"]["walked_ops"] != 4096
+            or times["trailing_pads"]["walked_ops"]):
+        raise AssertionError(f"kv_apply scheduled the one-key batch "
+                             f"{times['one_key']} and the padded chunk "
+                             f"{times['trailing_pads']}")
     res = {"phase": "store_apply", "card": card_line, "capacity": C,
            "probe": P,
            "chunks": len(chunks), "ops": sum(len(c) for c in chunks),
@@ -2470,12 +2516,24 @@ def store_match_phase(oracle: dict, card_line: str) -> dict:
             fired_n += len(got)
         B = ev.shape[1]
         bound = _match_bound(W, ev, WATCH["lmax"])
+        # The pairs the kernel evaluated: every watch against each KV and
+        # TABLE event, as _match_bound counts them.
+        counts = tds.watch_match_stats(watches, ev, hp, WATCH["lmax"])
+        pairs = counts["pairs"]
+        bound_pairs = W * (bound["kv_events"] + bound["table_events"])
+        if pairs != bound_pairs:
+            raise AssertionError(f"watch_match at W={W} evaluated {pairs} "
+                                 f"pairs, _match_bound counts "
+                                 f"{bound_pairs}")
         ms = graph_ms(lambda: tds.watch_match(watches, ev, hp,
                                               WATCH["lmax"]))
         plain_ms = cuda_ms(lambda: tds.match_ref(watches, ev, hp,
                                                  WATCH["lmax"]), 3, warm=1)
         rows[W] = {"W": W, "B": B, "batches": WATCH_BATCHES[W],
                    "fired": fired_n, "ms": ms, "plain_ms": plain_ms,
+                   "pairs_evaluated": pairs, "pairs_in_bound": bound_pairs,
+                   "staging_cycles": counts["staging_cycles"],
+                   "matching_cycles": counts["matching_cycles"],
                    **bound, "share_of_bound": bound["bound_ms"] / ms}
         del watches
     res = {"phase": "store_match", "card": card_line,
@@ -2755,9 +2813,13 @@ def _store_kernel_row(name: str, store: dict) -> dict:
                 "max_abs_err": store["apply"]["max_abs_err"],
                 "ms": big["ms"], "plain_ms": big["plain_ms"],
                 "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-                "ns_per_op": big["ns_per_op"], "ms_64": small["ms"],
+                "ns_per_op": big["ns_per_op"], "levels": big["levels"],
+                "walked_ops": big["walked_ops"], "ms_64": small["ms"],
                 "ms_1": one["ms"], "plain_ms_64": small["plain_ms"],
-                "plain_ms_1": one["plain_ms"]}
+                "plain_ms_1": one["plain_ms"],
+                "ms_one_key": store["apply"]["times"]["one_key"]["ms"],
+                "ms_trailing_pads":
+                    store["apply"]["times"]["trailing_pads"]["ms"]}
     small, big = store["match"]["rows"]
     return {**row, "replaces": "consul_tpu/state/device_store.py:215",
             "max_abs_err": store["match"]["max_abs_err"],

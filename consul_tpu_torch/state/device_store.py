@@ -7,9 +7,9 @@ entry to it first, capturing per-key ops and watch events
 (``DeviceStoreBridge.on_batch``), which
 
 * ships the per-key ops to an open-addressed key-hash table on the card
-  in one kernel launch (``kv_apply``, ``csrc/kv_store.cu``), in order
-  over the batch, and holds the card's per-op ``(existed, old_index)``
-  verdicts against the host's pre-state;
+  in one kernel launch (``kv_apply``, ``csrc/kv_store.cu``), with the
+  result of applying them in batch order, and holds the card's per-op
+  ``(existed, old_index)`` verdicts against the host's pre-state;
 * evaluates the standing watch set against the batch's KV events in one
   kernel launch (``watch_match``), and holds the fired set against the
   host's radix walk;
@@ -304,8 +304,8 @@ launch_shapes: set = set()
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 
 _ARGTYPES = {  # C entry point -> its argument types (pointers, ints, stream)
-    "kv_apply": [_VP, _VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP],
-    "watch_match": [_VP, _CI, _VP, _VP, _CI, _CI, _VP, _VP, _VP],
+    "kv_apply": [_VP, _VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP],
+    "watch_match": [_VP, _CI, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _VP],
 }
 
 
@@ -333,6 +333,28 @@ def kv_apply(tab: Tuple[torch.Tensor, torch.Tensor], ops: torch.Tensor,
     probe <= 32): applies the batch to ``tab`` in place and returns
     ``(existed, old_index)``.  Launches on the current stream and does not
     synchronise.  Raises on anything the kernel does not take."""
+    return _kv_apply(tab, ops, probe, None)
+
+
+def kv_apply_schedule(tab: Tuple[torch.Tensor, torch.Tensor],
+                      ops: torch.Tensor, probe: int):
+    """``kv_apply`` (in place) that also reads back how the kernel ran the
+    batch: returns ``((existed, old_index), stats)``, ``stats`` with
+    ``levels`` (the most levels a block ran: the batch's dependency
+    depth), ``walked_ops`` (ops walked in order), ``walked_blocks``,
+    ``blocks`` (the blocks that held ops) and the blocks' first-thread
+    clock cycles summed by phase: ``bucket_cycles`` (buckets and cuts),
+    ``list_cycles`` (the block's ops and run heads), ``level_cycles`` (the
+    heads' levels), ``run_cycles`` (the levels, or the walk).
+    Synchronises."""
+    stats = torch.zeros(8, dtype=torch.int32, device=tab[0].device)
+    out = _kv_apply(tab, ops, probe, stats)
+    return out, dict(zip(("levels", "walked_ops", "walked_blocks", "blocks",
+                          "bucket_cycles", "list_cycles", "level_cycles",
+                          "run_cycles"), stats.tolist()))
+
+
+def _kv_apply(tab, ops, probe, stats):
     global apply_launches
     slots, full = tab
     require_cuda("kv_apply", slots)
@@ -354,7 +376,7 @@ def kv_apply(tab: Tuple[torch.Tensor, torch.Tensor], ops: torch.Tensor,
         return existed, old_index
     _launch("kv_apply", dev, slots.data_ptr(), full.data_ptr(),
             ops.data_ptr(), B, C, probe, existed.data_ptr(),
-            old_index.data_ptr())
+            old_index.data_ptr(), None if stats is None else stats.data_ptr())
     apply_launches += 1
     launch_shapes.add(("kv_apply", C, probe, B))
     return existed, old_index
@@ -366,6 +388,22 @@ def watch_match(watches: torch.Tensor, events: torch.Tensor,
     arguments of ``match_ref``; W a power of two >= 32); returns
     ``(fired, packed)``.  Launches on the current stream and does not
     synchronise.  Raises on anything the kernel does not take."""
+    return _watch_match(watches, events, hp, lmax, None)
+
+
+def watch_match_stats(watches: torch.Tensor, events: torch.Tensor,
+                      hp: torch.Tensor, lmax: int) -> Dict[str, int]:
+    """``watch_match`` (one launch) that also reads back the (watch,
+    event) ``pairs`` the kernel evaluated, and the clock cycles the first
+    thread of each block spent ``staging`` event chunks into shared memory
+    and ``matching`` them, summed over the blocks.  Synchronises."""
+    stats = torch.zeros(3, dtype=torch.int64, device=watches.device)
+    _watch_match(watches, events, hp, lmax, stats)
+    return dict(zip(("pairs", "staging_cycles", "matching_cycles"),
+                    stats.tolist()))
+
+
+def _watch_match(watches, events, hp, lmax, stats):
     global match_launches
     require_cuda("watch_match", watches)
     dev = watches.device
@@ -383,7 +421,8 @@ def watch_match(watches: torch.Tensor, events: torch.Tensor,
     fired = torch.empty(W, dtype=torch.bool, device=dev)
     packed = torch.empty(W // 32, dtype=torch.int32, device=dev)
     _launch("watch_match", dev, watches.data_ptr(), W, events.data_ptr(),
-            hp.data_ptr(), B, lmax, fired.data_ptr(), packed.data_ptr())
+            hp.data_ptr(), B, lmax, fired.data_ptr(), packed.data_ptr(),
+            None if stats is None else stats.data_ptr())
     match_launches += 1
     launch_shapes.add(("watch_match", W, B, lmax))
     return fired, packed

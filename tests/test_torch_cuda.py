@@ -274,6 +274,49 @@ def test_kv_apply_matches_plain_on_card(capacity, probe, n_keys, batch):
         assert int(tab[1]) > 0
 
 
+@pytest.mark.parametrize("layout", ["one_key", "trailing_pads"])
+def test_kv_apply_schedules_chains_on_card(layout):
+    """The two chains the schedule must survive, on a half-full table of
+    65,536 slots: 4,096 ops on one key (walked in order) and 2,049 ops of
+    spread keys with 2,047 pad rows at the end, as the bridge pads a chunk
+    (run in levels, not chained).  Every verdict, table word and the full
+    count against apply_ref on the CPU."""
+    _need_card()
+    from consul_tpu_torch.state import device_store as tds
+    rng = np.random.default_rng(8)
+    C, P = 65536, 16
+    ref = (torch.zeros((C, tds.SLOT_COLS), dtype=torch.int32),
+           torch.zeros((), dtype=torch.int32))
+    spread = lambda n: rng.integers(0, 2**32, n,  # noqa: E731
+                                    dtype=np.uint64).astype(np.uint32)
+    fill = torch.from_numpy(tds._pack_ops(
+        np.zeros(4096, np.int32), spread(4096), spread(4096),
+        np.arange(4096, dtype=np.uint32), spread(4096), spread(4096)))
+    ref, _ = tds.apply_ref(ref, fill, P)
+    tab = tuple(t.cuda() for t in ref)
+    opc = rng.choice(np.asarray([tds.OP_SET, tds.OP_SET, tds.OP_DEL],
+                                np.int32), 4096)
+    if layout == "one_key":
+        h1 = np.full(4096, spread(1)[0], np.uint32)
+        h2 = np.full(4096, spread(1)[0], np.uint32)
+    else:
+        keys = spread(1500), spread(1500)
+        k = rng.integers(0, 1500, 4096)
+        h1, h2 = keys[0][k], keys[1][k]
+        opc[2049:] = tds.OP_PAD
+        h1[2049:] = h2[2049:] = 0
+    ops = torch.from_numpy(tds._pack_ops(
+        opc, h1, h2, (2**31 - 5 + np.arange(4096)).astype(np.uint32),
+        spread(4096), spread(4096)))
+    ref, (want_e, want_o) = tds.apply_ref(ref, ops, P)
+    (existed, old), stats = tds.kv_apply_schedule(tab, ops.cuda(), P)
+    assert torch.equal(existed.cpu(), want_e)
+    assert torch.equal(old.cpu(), want_o)
+    assert torch.equal(tab[0].cpu(), ref[0])
+    assert int(tab[1]) == int(ref[1])
+    assert stats["walked_ops"] == (4096 if layout == "one_key" else 0), stats
+
+
 @pytest.mark.parametrize("W, B, lmax", [(32, 1, 0), (512, 16, 8),
                                         (4096, 256, 64)])
 def test_watch_match_matches_plain_on_card(W, B, lmax):
