@@ -8,7 +8,21 @@ result lines are not printed.
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name/count.
 2. build: ``csrc/dissem_tail.cu`` (both entry points, ``fused_dissem``
-   and ``fused_merge``) with nvcc for sm_90a (ptxas report).
+   and ``fused_merge``), ``csrc/kv_store.cu`` and ``csrc/threefry.cu``
+   with nvcc for sm_90a, one nvcc each, all started together (ptxas
+   report).
+   threefry: every entry point of the round's draws
+   (``consul_tpu_torch/prng.py``: bits, uniform, uniform rows, below,
+   randint, edge drops) against its plain torch version on the card, bit
+   for bit, over 16 keys (4 at 1M elements; keys with the high bit set
+   among them), at the 1M paths' shapes (the probe tick's [200,000] and
+   [200,000, 3], the drop legs' [3, 1M] and
+   [2, 1M] under asym_loss's and partition_heal's probabilities, the
+   Feistel targets' [1M]) and at odd lengths; per shape the kernel's time
+   (CUDA-graph replays and back-to-back wrapper calls), the plain
+   version's, and the bound: output bytes over the memory rate, or the
+   hashed elements times the SASS count per element of the entry point's
+   loop (``sass_count.py --threefry``) over the INT32 rate.
 3. sass: the instructions per 32-bit word in the word path's row loop at
    fanout 3, per execution unit, one alignment way
    (``consul_tpu_torch/sass_count.py``, cuobjdump).
@@ -50,7 +64,10 @@ result lines are not printed.
    bench.py's churn1000ppm failure stride — warm-up, timed blocks each
    ending in a device->host read; rounds/s, kernel launches (must equal
    the non-quiescent rounds), host syncs per round, peak device memory;
-   ``n_detected > 0`` and ``n_false_dead == 0`` required.
+   ``n_detected > 0`` and ``n_false_dead == 0`` required; draw launches
+   per round, which must equal the device draws the paths asked for and
+   the probe tick's one a round (the indirect probes' losses; at loss 0
+   the direct probes' is certain and not drawn).
 10. sharded_main_path: the same churn run through
     ``run_rounds_sharded(ndev=8)``: rounds/s, merge launches (= the
     non-quiescent rounds), host syncs per round (equal to phase 9's),
@@ -130,6 +147,11 @@ The cross-validation and multi-DC phases:
   8-shard run's final state, after DEAD verdicts in every DC, equal to
   the single-device state.
 
+Every card path (full_path, sharded_full_path, nemesis_full_path,
+crossval, multidc_full_path, the main paths) reports its launches of the
+draws' kernel, which must equal the device draws it asked for
+(``prng.calls``): on the card every draw is one launch.
+
 Last, path_shapes: every (kernel, S, L, ndev, fanout, budget) that the
 wrappers launched at after the kernel phases (``fused.launch_shapes``:
 every path above, the WAN pool's fanout 4 and crossval_nemesis's
@@ -137,7 +159,9 @@ every path above, the WAN pool's fanout 4 and crossval_nemesis's
 fanout-sized offset sets, tolerance 0; and every (kernel, capacity, probe,
 B) / (kernel, W, B, lmax) the store's phases launched its kernels at
 (``device_store.launch_shapes``), on fresh random inputs against the
-plain versions on the card.
+plain versions on the card; and every shape the draws' kernel was
+launched at (``prng.launch_shapes``), with 4 fresh keys against the plain
+version on the card.
 
 The device-resident state store (phase device_store, after gossipd;
 ``consul_tpu_torch/state/device_store.py``, kernels ``kv_apply`` and
@@ -180,7 +204,9 @@ plane's path as ``plane_launches``, with a drop operand on the nemesis
 main paths as ``nemesis_launches``, in the crossval phase as
 ``crossval_launches`` and on the 1M multi-DC paths as
 ``multidc_launches``; for the store's kernels, their launches in
-store_bridge) and, last, the ok line.  Needs
+store_bridge; for the draws' kernel, its launches on the main paths, its
+time the main path's one probe-tick draw a round) and, last, the ok
+line.  Needs
 one CUDA card: without one it exits 2 before printing anything else.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -290,8 +316,9 @@ def card() -> str:
 
 # The port's kernel sources (csrc/<name>.cu), one nvcc each: the gossip
 # tail's entry points fused_dissem and fused_merge are in dissem_tail.cu,
-# the device store's kv_apply and watch_match in kv_store.cu.
-SOURCES = ("dissem_tail", "kv_store")
+# the device store's kv_apply and watch_match in kv_store.cu, the round's
+# random draws in threefry.cu.
+SOURCES = ("dissem_tail", "kv_store", "threefry")
 
 
 def build() -> None:
@@ -307,6 +334,247 @@ def build() -> None:
             print(f"  nvcc {name}: {ln}", flush=True)
     emit({"phase": "build", "libraries": [so.name for so in libs],
           "seconds": time.perf_counter() - t0})
+
+
+# -- the draws' kernel ----------------------------------------------------------
+
+# The draws the paths make at 1M: the probe tick's B = 200,000 probers
+# and their 3 helpers (the main path's one draw a round, ``main``); the
+# direct probes' losses (a compared draw, ``below``); the drop legs at
+# 1M (3 gossip legs, 2 push/pull legs; asym_loss's hash partition at
+# p_ab 0.6, p_ba 0, partition_heal's halves at 1); the degraded
+# observers' misses (p 0.3); the Feistel targets at 1M.  Then odd and
+# small lengths: 1, 4,099, the 16,000-node paths' 3,200 probers, one past
+# the grid's cap of 1,056 blocks of 256 (threads stride), 16,001 columns.
+DRAW_N, DRAW_B = 1_000_000, 200_000
+DRAWS = (
+    dict(entry="uniform", shape=(DRAW_B,)),
+    dict(entry="uniform", shape=(DRAW_B, 3), main=True),
+    dict(entry="uniform", shape=(1,)),
+    dict(entry="uniform", shape=(4_099,)),
+    dict(entry="uniform", shape=(3_200, 3)),
+    dict(entry="uniform", shape=(1_056 * 256 + 3,)),
+    dict(entry="below", shape=(DRAW_B,), p=0.3),
+    dict(entry="below", shape=(DRAW_B,), p=1.0 - 0.99 * 0.99),  # loss 0.01
+    dict(entry="below", shape=(DRAW_B, 3), p=0.3),
+    dict(entry="below", shape=(4_099,), p=2.0**-24),
+    dict(entry="rows", shape=(3, DRAW_N)),
+    dict(entry="rows", shape=(2, DRAW_N)),
+    dict(entry="rows", shape=(3, 16_001)),
+    dict(entry="edge_drops", shape=(3, DRAW_N), groups="hash", p_ab=0.6,
+         p_ba=0.0),
+    dict(entry="edge_drops", shape=(3, DRAW_N), groups="half", p_ab=1.0,
+         p_ba=1.0),
+    dict(entry="edge_drops", shape=(2, DRAW_N), groups="hash", p_ab=0.6,
+         p_ba=0.0),
+    dict(entry="edge_drops", shape=(3, 16_001), groups="hash", p_ab=0.3,
+         p_ba=0.45),
+    dict(entry="randint", shape=(DRAW_N,), minval=0, maxval=DRAW_N - 1),
+    dict(entry="randint", shape=(7,), minval=-500, maxval=499),
+    dict(entry="randint", shape=(4_099,), minval=1, maxval=16_000),
+    dict(entry="bits", shape=(DRAW_N,)),
+    dict(entry="bits", shape=(4_099,)),
+)
+# The sass mode whose loop each entry point runs.
+DRAW_SASS_MODE = {"bits": "bits", "uniform": "uniform", "rows": "uniform",
+                  "below": "below", "randint": "randint",
+                  "edge_drops": "edge_drops"}
+
+
+def _draw_keys(seed: int, count: int) -> list:
+    """``count`` keys: fold_in chains of one seed, and two whose words have
+    the high bit set."""
+    from consul_tpu_torch import prng
+    return ([np.asarray([0x80000000, 0xFFFFFFFF], np.uint32),
+             np.asarray([0xDEADBEEF, 0x80000001], np.uint32)]
+            + [prng.fold_in(prng.key(seed), i) for i in range(count - 2)])
+
+
+def _draw_groups(kind: str, n: int) -> torch.Tensor:
+    """A partition's groups on the card: the catalog's hash or halves."""
+    ids = torch.arange(n, dtype=torch.int64, device="cuda")
+    if kind == "hash":
+        return (((ids * 2654435761) & 0xFFFFFFFF) >> 31).to(torch.int32)
+    return (ids >= n // 2).to(torch.int32)
+
+
+def _draw_fns(spec: dict, k):
+    """(kernel call, plain call) of the draw ``spec`` under key ``k``, on
+    the card; edge drops also return how many elements need a hash."""
+    from consul_tpu_torch import prng
+    e, shape = spec["entry"], spec["shape"]
+    if e == "uniform":
+        return (lambda: prng.uniform_tensor(k, shape, "cuda"),
+                lambda: prng.uniform_ref(k, shape, "cuda"))
+    if e == "below":
+        return (lambda: prng.below(k, shape, spec["p"], "cuda"),
+                lambda: prng.below_ref(k, shape, spec["p"], "cuda"))
+    if e == "randint":
+        lo, hi = spec["minval"], spec["maxval"]
+        return (lambda: prng.randint_tensor(k, shape, lo, hi, "cuda"),
+                lambda: prng.randint_ref(k, shape, lo, hi, "cuda"))
+    if e == "bits":
+        return (lambda: prng.random_bits_tensor(k, shape, "cuda"),
+                lambda: prng.random_bits_ref(k, shape, "cuda"))
+    rows, n = shape
+    keys = [prng.fold_in(k, f) for f in range(rows)]
+    if e == "rows":
+        return (lambda: prng.uniform_rows(keys, n, "cuda"),
+                lambda: prng.uniform_rows_ref(keys, n, "cuda"))
+    args = _edge_args(spec, keys, k)
+    return (lambda: prng.edge_drops(*args), lambda: prng.edge_drops_ref(*args))
+
+
+def _edge_args(spec: dict, keys: list, k):
+    """The edge drops' arguments: the spec's groups (the group vector a
+    path gave, ``grp``, or a catalog kind), shifts drawn from the key's
+    words (two legs: o and -o, as push/pull's)."""
+    rows, n = spec["shape"]
+    o = np.random.default_rng(int(k[1])).integers(1, n, rows).tolist()
+    shifts = [o[0], -o[0]] if rows == 2 else o
+    grp = spec["grp"] if "grp" in spec else _draw_groups(spec["groups"], n)
+    return keys, grp, shifts, spec["p_ab"], spec["p_ba"]
+
+
+def _draw_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest difference of the two draws' bit patterns (0: equal)."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes {list(got.shape)} != "
+                             f"{list(want.shape)}")
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    a = got.to(torch.int64) & 0xFFFFFFFF
+    b = want.to(torch.int64) & 0xFFFFFFFF
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+def _elements(spec: dict, k) -> int:
+    """Elements of the draw under key ``k`` that run the hash: all of
+    them, but for the edge drops only the cross-group edges of a
+    direction whose probability lies strictly between 0 and 1."""
+    if spec["entry"] != "edge_drops":
+        return int(np.prod(spec["shape"]))
+    _, grp, shifts, p_ab, p_ba = _edge_args(spec, [], k)
+    total = 0
+    for o in shifts:
+        g_src = torch.roll(grp, o)
+        p = torch.where(g_src == 0, p_ab, p_ba)
+        total += int(((g_src != grp) & (p > 0) & (p < 1)).sum())
+    return total
+
+
+def _draw_bound(spec: dict, k, out: torch.Tensor, sass: dict) -> dict:
+    """The least time the card could take for the draw: its output bytes
+    (and the group vector's, for the edge drops) over the memory rate, or
+    the operations of the elements that run the hash (the SASS count of
+    the busiest unit per element of the entry point's loop) over the
+    INT32 rate."""
+    nbytes = out.numel() * out.element_size()
+    if spec["entry"] == "edge_drops":
+        nbytes += 4 * spec["shape"][1]
+    per = sass[DRAW_SASS_MODE[spec["entry"]]]["busiest_unit_per_element"]
+    elements = _elements(spec, k)
+    ops = elements * per
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "bytes_ms": bytes_ms, "hashed_elements": elements,
+            "operations_per_element": per, "operations": ops,
+            "operations_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def threefry_phase(card_line: str, keys: int = 16) -> dict:
+    """Every entry point of the draws' kernel against its plain version on
+    the card, at the paths' shapes and odd lengths, over ``keys`` keys
+    (4 at 1M elements), bit for bit; per shape the kernel's time (CUDA
+    graph replays, ``ms``; back-to-back wrapper calls, ``eager_ms``), the
+    plain version's (``plain_ms``, eager; at the main path's shapes also
+    ``plain_graph_ms``), the bound and the share."""
+    from consul_tpu_torch import prng, sass_count
+    t0 = time.perf_counter()
+    sass = sass_count.threefry_counts(sass_count.disassemble("threefry"))
+    emit({"phase": "threefry_sass",
+          **{m: {k: v for k, v in c.items() if k != "by_opcode"}
+             for m, c in sass.items()}})
+    rows, err = [], 0
+    for i, spec in enumerate(DRAWS):
+        big = int(np.prod(spec["shape"])) >= DRAW_N
+        ks = _draw_keys(1000 + i, 4 if big else keys)
+        for k in ks:
+            kern, plain = _draw_fns(spec, k)
+            e = _draw_err(kern(), plain())
+            if e != 0:
+                raise AssertionError(f"threefry {spec['entry']} != plain at "
+                                     f"{list(spec['shape'])}, key "
+                                     f"{k.tolist()}: max abs err {e}")
+            err = max(err, e)
+        kern, plain = _draw_fns(spec, ks[-1])
+        out = kern()
+        row = {"entry": spec["entry"], "shape": list(spec["shape"]),
+               "keys_held": len(ks), "ms": graph_ms(kern),
+               "eager_ms": cuda_ms(kern, 200),
+               "plain_ms": cuda_ms(plain, 5, warm=1),
+               **_draw_bound(spec, ks[-1], out, sass)}
+        row.update({k: spec[k] for k in ("p", "p_ab", "p_ba", "groups",
+                                         "minval", "maxval") if k in spec})
+        if spec.get("main"):
+            row["main_path"] = True
+            row["plain_graph_ms"] = graph_ms(plain, per_graph=5, replays=4)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        emit({"phase": "threefry", **row, "card": card_line})
+    main = [r for r in rows if r.get("main_path")]
+    res = {"phase": "threefry_summary", "tolerance": 0, "max_abs_err": err,
+           "shapes": len(rows), "launches_held": sum(r["keys_held"]
+                                                     for r in rows),
+           "main_path_ms": sum(r["ms"] for r in main),
+           "main_path_plain_ms": sum(r["plain_ms"] for r in main),
+           "main_path_plain_graph_ms": sum(r["plain_graph_ms"]
+                                           for r in main),
+           "main_path_bound_ms": sum(r["bound_ms"] for r in main),
+           "main_path_bound_by": (
+               "operations" if sum(r["operations_ms"] for r in main)
+               >= sum(r["bytes_ms"] for r in main) else "bytes"),
+           "seconds": time.perf_counter() - t0, "card": card_line}
+    emit(res)
+    prng.launch_shapes.clear()
+    prng.launch_groups.clear()
+    return {"summary": res, "rows": rows, "sass": sass}
+
+
+def _spec_of_launch(shape: tuple) -> dict:
+    """The ``DRAWS``-style spec of a launch shape the wrappers recorded
+    (``prng.launch_shapes``); an edge-drops launch takes the group vector
+    the path gave it (``prng.launch_groups``)."""
+    from consul_tpu_torch import prng
+    e, dims = shape[0], shape[1]
+    if e == "bits":
+        return dict(entry=e, shape=dims)
+    if e == "uniform":
+        return dict(entry="rows" if shape[2] > 1 else e, shape=dims)
+    if e == "below":
+        return dict(entry=e, shape=dims, p=shape[2])
+    if e == "randint":
+        return dict(entry=e, shape=dims, minval=shape[2], maxval=shape[3])
+    return dict(entry=e, shape=dims, grp=prng.launch_groups[shape[4]],
+                p_ab=shape[2], p_ba=shape[3])
+
+
+def draw_shapes_vs_plain(shapes: set) -> list:
+    """Every shape the paths launched the draws' kernel at, with 4 fresh
+    keys against the plain version on the card; tolerance 0."""
+    rows = []
+    for i, shape in enumerate(sorted(shapes, key=repr)):
+        spec = _spec_of_launch(shape)
+        for k in _draw_keys(3000 + i, 4):
+            kern, plain = _draw_fns(spec, k)
+            e = _draw_err(kern(), plain())
+            if e != 0:
+                raise AssertionError(f"threefry at the path shape {shape} "
+                                     f"!= plain: max abs err {e}")
+        rows.append({"kernel": "threefry", "entry": spec["entry"],
+                     "shape": list(spec["shape"]), "launches_held": 4})
+    return rows
 
 
 def adversarial(S: int, N: int, seed: int, dev):
@@ -566,14 +834,17 @@ def repeat(S: int, N: int, seeds: int, ndev: int | None = None,
     return res
 
 
-def path_shapes_vs_plain(shapes: set, store_shapes: set) -> dict:
+def path_shapes_vs_plain(shapes: set, store_shapes: set,
+                         draw_shapes: set) -> dict:
     """Every (kernel, S, L, ndev, F, budget) that the paths launched at
     (``fused.launch_shapes``) held against the plain version on fresh
     adversarial bytes, under the offset sets of ``_offset_sets`` with F
     shifts each, every set with no drop operand, a random one and the
     bisection's: byte-identical required.  Then every shape the store's
     paths launched its kernels at (``store_shapes``), as
-    ``store_shapes_vs_plain`` holds them."""
+    ``store_shapes_vs_plain`` holds them, and every shape the draws'
+    kernel was launched at (``draw_shapes``), as ``draw_shapes_vs_plain``
+    holds them."""
     from types import SimpleNamespace
 
     from consul_tpu_torch.gossip import fused, kernel
@@ -609,19 +880,23 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set) -> dict:
                      "L": L, "fanout": F, "budget": budget,
                      "launches_held": len(variants)})
     rows += store_shapes_vs_plain(store_shapes)
+    rows += draw_shapes_vs_plain(draw_shapes)
     res = {"phase": "path_shapes", "shapes": rows, "tolerance": 0,
            "max_abs_err": err, "seconds": time.perf_counter() - t0}
     emit(res)
     kernels = {r["kernel"] for r in rows}
     if kernels != {"fused_dissem", "fused_merge", "kv_apply",
-                   "watch_match"}:
+                   "watch_match", "threefry"}:
         raise AssertionError(f"the paths launched only {sorted(kernels)}")
     return res
 
 
 def _reset_counts() -> None:
     """Every kernel launch count and round counter to 0."""
+    from consul_tpu_torch import prng
     from consul_tpu_torch.gossip import fused, kernel
+    prng.launches = 0
+    prng.calls = 0
     fused.launches = 0
     fused.merge_launches = 0
     fused.drop_launches = 0
@@ -629,6 +904,36 @@ def _reset_counts() -> None:
     kernel.host_syncs = 0
     for k in kernel.tail_rounds:
         kernel.tail_rounds[k] = 0
+
+
+def _draws(rounds: int | None = None) -> dict:
+    """The draws' kernel launches since the last ``_reset_counts`` and
+    the device draws the paths asked for (``prng.calls``), per round where
+    ``rounds`` is given."""
+    from consul_tpu_torch import prng
+    out = {"draw_launches": prng.launches, "draw_calls": prng.calls}
+    if rounds:
+        out["draw_launches_per_round"] = prng.launches / rounds
+    return out
+
+
+def _draw_gate(what: str, draws: dict, expected: int | None = None) -> None:
+    """Every device draw of a card path was one launch of the draws'
+    kernel (and, where the round's structure fixes it, as many as
+    ``expected``)."""
+    n, calls = draws["draw_launches"], draws["draw_calls"]
+    if n == 0 or n != calls or (expected is not None and n != expected):
+        raise AssertionError(f"{what}: {n} draw launches for {calls} device "
+                             f"draws (expected {expected})")
+
+
+def _probe_draws(p) -> int:
+    """The probe tick's device draws a round outside a fault window: the
+    direct probes' losses where they are neither certain nor impossible,
+    and the indirect probes'."""
+    from consul_tpu_torch import prng
+    return (int(0.0 < prng._f32(p.p_direct_fail_alive) < 1.0)
+            + int(p.indirect_k > 0))
 
 
 def _full_path_inputs(n: int, steps: int, seed: int):
@@ -699,18 +1004,19 @@ def full_path(cpu, n: int, S: int, steps: int, seed: int):
     p = _full_path_params(n, S)
     fail, join, member0 = _full_path_inputs(n, steps, seed)
 
-    launches0 = fused.launches
+    _reset_counts()
     t0 = time.perf_counter()
     (st_g, fl_g, hb_g), tr_g = _run(p, fail, join, member0, steps, seed,
                                     "cuda")
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
-    launches = fused.launches - launches0
+    launches = fused.launches
+    draws = _draws(steps)
     t0 = time.perf_counter()
     diverged = _diverged_np(_as_numpy((st_g, fl_g, hb_g), tr_g),
                             cpu.result())
     emit({"phase": "full_path", "n": n, "slots": S, "steps": steps,
-          "kernel_launches": launches, "cuda_s": t_gpu,
+          "kernel_launches": launches, **draws, "cuda_s": t_gpu,
           "cpu_wait_s": time.perf_counter() - t0,
           "n_detected": int(st_g.n_detected),
           "n_refuted": int(st_g.n_refuted),
@@ -719,6 +1025,7 @@ def full_path(cpu, n: int, S: int, steps: int, seed: int):
         raise AssertionError(f"card and CPU runs diverged in {diverged}")
     if launches == 0 or int(st_g.n_detected) == 0:
         raise AssertionError("the full-path run exercised no dissemination")
+    _draw_gate("full_path", draws, _probe_draws(p) * steps)
     return (st_g, fl_g, hb_g), tr_g
 
 
@@ -737,11 +1044,12 @@ def sharded_full_path(single, n: int, S: int, steps: int, seed: int,
     t_gpu = time.perf_counter() - t0
     merges, dissems = fused.merge_launches, fused.launches
     tails = dict(kernel.tail_rounds)
+    draws = _draws(steps)
     (st_1, fl_1, hb_1), tr_1 = single
     diverged = _diverged(list(zip((st_1, fl_1, hb_1), carry)) + [(tr_1, tr)])
     emit({"phase": "sharded_full_path", "n": n, "slots": S, "steps": steps,
           "ndev": ndev, "merge_launches": merges,
-          "dissem_launches": dissems, "tail_rounds": tails,
+          "dissem_launches": dissems, "tail_rounds": tails, **draws,
           "cuda_s": t_gpu, "n_detected": int(carry[0].n_detected),
           "diverged": diverged})
     if diverged:
@@ -752,6 +1060,7 @@ def sharded_full_path(single, n: int, S: int, steps: int, seed: int,
                              "(or fused_dissem ran)")
     if tails["hot"] == 0 or tails["full"] == 0:
         raise AssertionError(f"both tails must run: {tails}")
+    _draw_gate("sharded_full_path", draws, _probe_draws(p) * steps)
 
 
 def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
@@ -803,6 +1112,7 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
            "rounds_per_s_best_block": block / min(times),
            "kernel_launches": fused.launches,
            "merge_launches": fused.merge_launches, "tail_rounds": tails,
+           **_draws(total),
            "host_syncs_per_round": kernel.host_syncs / total,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "n_detected": int(state.n_detected),
@@ -816,6 +1126,8 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
                              or fused.launches != 0):
         raise AssertionError("merge launches != non-quiescent rounds "
                              "(or fused_dissem ran)")
+    # The probe tick's draws are all that draws on the card.
+    _draw_gate(res["phase"], res, _probe_draws(p) * total)
     return res, state
 
 
@@ -895,6 +1207,7 @@ def nemesis_full_path(cpu, n: int, S: int, seed: int) -> dict:
         torch.cuda.synchronize()
         cuda_s = time.perf_counter() - t1
         drops = fused.drop_launches
+        draws = _draws(steps)
         t1 = time.perf_counter()
         card8 = _nem_run(name, n, S, steps, seed, "cuda", ndev=8)
         torch.cuda.synchronize()
@@ -902,7 +1215,7 @@ def nemesis_full_path(cpu, n: int, S: int, seed: int) -> dict:
         single = _as_numpy(*card)
         rows[name] = {
             "steps": steps, "cuda_s": cuda_s, "cuda_8_shards_s": cuda8_s,
-            "drop_launches": drops,
+            "drop_launches": drops, **draws,
             "merge_drop_launches": fused.merge_drop_launches,
             "n_detected": int(card[0][0].n_detected),
             "n_false_dead": int(card[0][0].n_false_dead),
@@ -918,6 +1231,10 @@ def nemesis_full_path(cpu, n: int, S: int, seed: int) -> dict:
     for name, row in rows.items():
         if row["diverged_cpu"] or row["diverged_8_shards"]:
             bad.append(name)
+        if row["draw_launches"] == 0 or \
+                row["draw_launches"] != row["draw_calls"]:
+            bad.append(f"{name}: {row['draw_launches']} draw launches for "
+                       f"{row['draw_calls']} device draws")
         partition = name in ("partition_heal", "asym_loss")
         if partition and not (row["drop_launches"] > 0
                               and row["merge_drop_launches"] > 0):
@@ -980,6 +1297,7 @@ def nemesis_main_path(n: int = 1_000_000, S: int = 64, warm: int = 10,
            "merge_launches": fused.merge_launches,
            "drop_launches": fused.drop_launches,
            "merge_drop_launches": fused.merge_drop_launches,
+           **_draws(total),
            "host_syncs_per_round": kernel.host_syncs / total,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "n_false_dead": int(state.n_false_dead),
@@ -994,6 +1312,14 @@ def nemesis_main_path(n: int = 1_000_000, S: int = 64, warm: int = 10,
         raise AssertionError(f"{res['phase']}: {launched} launches with a "
                              f"drop operand in {first + inside} rounds "
                              f"inside the window, drops {res['drops']}")
+    # The probe tick's draws; inside the window one edge-drop launch for
+    # the gossip legs and one for the push/pull legs of a push/pull round
+    # (the probe legs' drops are certain at p = 1: not drawn).
+    window = range(sc.nem.start, min(sc.nem.stop, total))
+    pushpull = sum(1 for r in window if p.pushpull_every
+                   and r % p.pushpull_every == p.pushpull_every - 1)
+    _draw_gate(res["phase"], res,
+               _probe_draws(p) * total + len(window) + pushpull)
     return res, state
 
 
@@ -1172,9 +1498,10 @@ def crossval_phase(pool, cpu_seed0) -> dict:
                                   "merge_launches": merges},
            "join_churn": join, "event_convergence": ev,
            "dissem_launches": fused.launches,
-           "merge_launches": fused.merge_launches,
+           "merge_launches": fused.merge_launches, **_draws(),
            "host_syncs": kernel.host_syncs, "diverged": bad}
     emit(res)
+    _draw_gate("crossval", res)
     if bad:
         raise AssertionError(f"crossval differs from CROSSVAL.json in {bad}")
     if fused.launches == 0:
@@ -1342,7 +1669,7 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
         t1 = time.perf_counter()
         single = _mdc_run(D, n, S, steps, seed, hot, "cuda")
         row = {"cuda_s": time.perf_counter() - t1,
-               "dissem_launches": fused.launches,
+               "dissem_launches": fused.launches, **_draws(steps),
                "tail_rounds": dict(kernel.tail_rounds)}
         _reset_counts()
         t1 = time.perf_counter()
@@ -1368,6 +1695,10 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
                        f"{row['dissem_launches']} != busy rounds {busy}")
         if row["sharded_merge_launches"] == 0:
             bad.append(f"hot_slots={hot}: no fused_merge launch")
+        if row["draw_launches"] == 0 or \
+                row["draw_launches"] != row["draw_calls"]:
+            bad.append(f"hot_slots={hot}: {row['draw_launches']} draw "
+                       f"launches for {row['draw_calls']} device draws")
     res = {"phase": "multidc_full_path", "D": D, "n_lan": n, "slots": S,
            "steps": steps, "seconds": time.perf_counter() - t0,
            "runs": runs, "bad": bad}
@@ -1438,6 +1769,7 @@ def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
            "merge_launches": fused.merge_launches,
            "dissem_launches_per_round": fused.launches / total,
            "merge_launches_per_round": fused.merge_launches / total,
+           **_draws(total),
            "tail_rounds": dict(kernel.tail_rounds),
            "host_syncs_per_round": kernel.host_syncs / total,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -1454,6 +1786,7 @@ def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
     launched = fused.merge_launches if lan_devices > 1 else fused.launches
     if launched == 0:
         raise AssertionError(f"{res['phase']} launched no kernel")
+    _draw_gate(res["phase"], res)
     return res, states
 
 
@@ -2885,6 +3218,7 @@ def main() -> int:
         cpu_mdc = {hot: pool.submit(_mdc_cpu, hot, **MDC) for hot in (0, 8)}
         card_line = card()
         build()
+        tf = threefry_phase(card_line)
         sass = sass_phase()
         big = kernel_vs_plain(64, 1_000_000, seed=1, sass=sass)
         kernel_vs_plain(8, 1_000_000, seed=2, sass=sass)
@@ -2907,8 +3241,11 @@ def main() -> int:
         repeat(64, 1_000_000, seeds=16)
         # From here on every launch is a path's: its shapes are held
         # against the plain version after the last path.
+        from consul_tpu_torch import prng
         from consul_tpu_torch.gossip import fused
         fused.launch_shapes.clear()
+        prng.launch_shapes.clear()
+        prng.launch_groups.clear()
         single = full_path(cpu_full, **FULL_PATH)
         sharded_full_path(single, **FULL_PATH)
         del single
@@ -2996,7 +3333,8 @@ def main() -> int:
         store = store_phases(store_cpu, watch_oracle, bridge_oracle,
                              card_line)
         path_shapes_vs_plain(set(fused.launch_shapes),
-                             set(tds.launch_shapes))
+                             set(tds.launch_shapes),
+                             set(prng.launch_shapes))
     except Exception:
         traceback.print_exc()
         return 1
@@ -3031,7 +3369,22 @@ def main() -> int:
         "bound_ms_drop": mbig["bound_ms_drop"],
         "bound_by": mbig["bound_by"], "library_ms": None},
         _store_kernel_row("kv_apply", store), _store_kernel_row(
-            "watch_match", store)]})
+            "watch_match", store), {
+        "name": "threefry", "route": "cuda",
+        "source": "consul_tpu_torch/csrc/threefry.cu",
+        "replaces": "consul_tpu/gossip/kernel.py:607",
+        "launches": churn["draw_launches"],
+        "nemesis_launches": nem1["draw_launches"],
+        "crossval_launches": cross["draw_launches"],
+        "multidc_launches": mdc1["draw_launches"],
+        "max_abs_err": tf["summary"]["max_abs_err"],
+        # A 1M churn round's one probe-tick draw, [200,000, 3].
+        "ms": tf["summary"]["main_path_ms"],
+        "plain_ms": tf["summary"]["main_path_plain_ms"],
+        "plain_graph_ms": tf["summary"]["main_path_plain_graph_ms"],
+        "bound_ms": tf["summary"]["main_path_bound_ms"],
+        "bound_by": tf["summary"]["main_path_bound_by"],
+        "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

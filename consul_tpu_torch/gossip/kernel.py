@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from consul_tpu_torch import prng
+from consul_tpu_torch.prng import _f32
 from consul_tpu_torch._device import resolve_device
 from consul_tpu_torch.gossip.nemesis import NemesisParams
 from consul_tpu_torch.gossip.params import SwimParams
@@ -298,11 +299,12 @@ def _nem_schedule(nem: NemesisParams, rnd: int, fail_round, join_round):
 
 
 def _draw_below(key, shape, p: float, device) -> torch.Tensor:
-    """``uniform(key, shape) < p`` for a float32 ``p``; a certain outcome
-    (``p`` <= 0 or >= 1, the draw being in [0, 1)) is not drawn."""
+    """``uniform(key, shape) < p`` for a float32 ``p`` (``prng.below``: one
+    launch on a card); a certain outcome (``p`` <= 0 or >= 1, the draw
+    being in [0, 1)) is not drawn."""
     if p <= 0.0 or p >= 1.0:
         return torch.full(shape, p >= 1.0, dtype=torch.bool, device=device)
-    return prng.uniform_tensor(key, shape, device) < p
+    return prng.below(key, shape, p, device)
 
 
 def _nem_edge_drops(nem: NemesisParams, n: int, device, keys,
@@ -311,18 +313,9 @@ def _nem_edge_drops(nem: NemesisParams, n: int, device, keys,
     along shift ``o`` (sender ``d - o``) is dropped inside the fault
     window — cross-group senders at their group's edge probability, one
     ``uniform(keys[j], (n,))`` per shift (reference ``_nem_leg_drop``
-    and the push/pull legs)."""
-    grp = _nem_group(nem, n, device)
-    g_src = torch.stack([torch.roll(grp, o) for o in shifts])
-    cross = g_src != grp
-    p_ab, p_ba = _f32(nem.p_ab), _f32(nem.p_ba)
-    if all(q <= 0.0 or q >= 1.0 for q in (p_ab, p_ba)):
-        # Certain: every cross edge of a direction drops, or none does.
-        if (p_ab >= 1.0) == (p_ba >= 1.0):
-            return cross if p_ab >= 1.0 else torch.zeros_like(cross)
-        return cross & ((g_src == 0) == (p_ab >= 1.0))
-    p_edge = torch.where(g_src == 0, p_ab, p_ba)
-    return cross & (prng.uniform_rows(keys, n, device) < p_edge)
+    and the push/pull legs); ``prng.edge_drops``: one launch on a card."""
+    return prng.edge_drops(keys, _nem_group(nem, n, device), shifts,
+                           nem.p_ab, nem.p_ba)
 
 
 # -- sharding along the observer axis -----------------------------------------
@@ -540,12 +533,6 @@ def _block_size(p: SwimParams) -> int:
     return max(1, -(-p.n // p.probe_every))
 
 
-def _f32(x: float) -> float:
-    """A Python float compared against a float32 draw: jax rounds the
-    weakly typed constant to float32 first."""
-    return float(np.float32(x))
-
-
 def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
                 sc: _ShardCtx | None = None,
                 nem: NemesisParams | None = None,
@@ -612,8 +599,8 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
             dir_nem_drop = miss if dir_nem_drop is None else (
                 dir_nem_drop | miss)
 
-    u = prng.uniform_tensor(k_dl, (B,), dev)
-    lost = ~tgt_alive | (u < _f32(p.p_direct_fail_alive))
+    lost = ~tgt_alive | _draw_below(k_dl, (B,), _f32(p.p_direct_fail_alive),
+                                    dev)
     if dir_nem_drop is not None:
         lost = lost | dir_nem_drop
     direct_fail = tgt_member & lost

@@ -23,14 +23,17 @@ each with its drop operand.
 
 - pass A, no profiler: host time per round, and the host time and the
   calls per round of each round phase (the probe tick, the uniform draws
-  inside it, the dissemination tail, the finish step, the kernel
+  and the compared draws (``prng.below``) inside it; on a card each a
+  launch of ``csrc/threefry.cu``, the dissemination tail, the finish step, the kernel
   wrappers), each phase timed by a host clock around the round's own
   function; a kernel wrapper's host time over its calls is its host cost
   per launch;
 - pass B, under torch.profiler: the device kernels' time per round (busy
   time), each phase's device time (the kernels launched inside it), the
-  number of kernels per round, and the ops and kernels that take the
-  most device time.
+  number of kernels per round, the port's own kernels' calls and device
+  time per round (``hand_kernels``: the draws' and the tail's, which the
+  profiler leaves out of the phases' device time), and the ops and
+  kernels that take the most device time.
 
 The device's idle share is ``1 - busy(B) / host time(A)``.  Phases are
 timed by wrapping the round's functions for the duration of a pass; the
@@ -57,6 +60,7 @@ N, SLOTS, WARM = 1_000_000, 64, 60  # the main path's size; warm-up rounds
 PHASES = {  # label -> (module, attribute) of the function timed
     "probe_tick": (kernel, "_probe_tick"),
     "uniform_draws": (prng, "uniform_tensor"),
+    "below_draws": (prng, "below"),
     "disseminate": (kernel, "_disseminate"),
     "finish_round": (kernel, "_finish_round"),
     "nemesis_drops": (kernel, "_nem_edge_drops"),
@@ -64,6 +68,11 @@ PHASES = {  # label -> (module, attribute) of the function timed
 SINGLE_PHASES = {  # the single-device round's own
     "dissem_launches": (fused, "fused_dissem"),
 }
+# The port's own kernels, by a part of their device names: the profiler
+# does not tie a launch made through ctypes to the phase around it, so
+# their device time is read from the kernel rows.
+HAND_KERNELS = {"draws": "threefry::draw_kernel",
+                "tail": "dissem_tail::tail_kernel"}
 SHARDED_PHASES = {  # the sharded round's own, inside the phases above
     "halo_pins": (fused, "_roll_sharded"),
     "merge_launches": (fused, "fused_merge"),
@@ -205,6 +214,7 @@ def main(argv=None) -> int:
                 setattr(mod, attr, saved[label])
 
     tails0 = dict(kernel.tail_rounds)
+    draws0 = prng.launches
     host_s = {}
     state, wall_a = measured_pass(_timed, host_s, state)
     with profile(activities=[ProfilerActivity.CPU,
@@ -231,6 +241,7 @@ def main(argv=None) -> int:
         "ndev": args.ndev or None, "nemesis": args.nemesis or None,
         "warm_rounds": WARM, "rounds": R,
         "drop_launches": fused.drop_launches + fused.merge_drop_launches,
+        "draw_launches_per_round": (prng.launches - draws0) / (2 * R),
         "tail_rounds_both_passes": {k: kernel.tail_rounds[k] - tails0[k]
                         for k in tails0},
         "host_ms_per_round": wall_a * 1e3 / R,
@@ -238,6 +249,12 @@ def main(argv=None) -> int:
         "device_busy_ms_per_round": busy_us / 1e3 / R,
         "device_idle_share": 1 - busy_us / 1e6 / wall_a,
         "device_kernels_per_round": sum(e.count for e in kernels) / R,
+        "hand_kernels": {
+            label: {"calls_per_round": sum(e.count for e in rows) / R,
+                    "device_ms_per_round":
+                        sum(self_device_us(e) for e in rows) / 1e3 / R}
+            for label, name in HAND_KERNELS.items()
+            for rows in [[e for e in kernels if name in e.key]]},
         "phases": timed,
         "top_ops": [{"op": e.key, "calls_per_round": e.count / R,
                      "device_ms_per_round": self_device_us(e) / 1e3 / R,

@@ -1,7 +1,9 @@
 """Count the instructions the card runs per belief word in the dissemination
-tail's kernel, from its SASS, per execution unit.
+tail's kernel, and per element in the draws' kernel, from their SASS, per
+execution unit.
 
     python -m consul_tpu_torch.sass_count [--fanout 3]
+    python -m consul_tpu_torch.sass_count --threefry
 
 Builds ``csrc/dissem_tail.cu``, disassembles it with the toolkit's
 ``cuobjdump -sass``, takes the kernel instantiated for ``--fanout``, and
@@ -23,6 +25,12 @@ run 16 lanes a cycle per SM sub-partition on Hopper, so each has the
 32-bit integer rate.  ``VIADD`` and ``VIADDMNMX``, whose unit is not
 documented, go to whichever unit is less busy (``flexible``).  The
 busiest unit's count per word sets the kernel's operations bound.
+
+``--threefry`` builds ``csrc/threefry.cu`` instead and counts, for each
+of its modes (``draw_kernel<mode>``), the grid-stride loop: one iteration
+is one element of the draw.  Every instruction of the loop counts once
+(the edge drops' loop holds the hash behind a branch: its count is an
+element that is hashed).
 
 Prints the loop's instructions, then the counts as one JSON line.
 Needs nvcc and cuobjdump (the card's machine has both), not a card.
@@ -82,10 +90,10 @@ def _functions(sass: str) -> dict[str, list[tuple]]:
     return out
 
 
-def disassemble() -> str:
-    """The SASS of the built ``dissem_tail`` library."""
+def disassemble(name: str = "dissem_tail") -> str:
+    """The SASS of the built ``csrc/<name>.cu`` library."""
     from consul_tpu_torch import _build
-    so = _build.build("dissem_tail")
+    so = _build.build(name)
     r = subprocess.run([cuobjdump(), "-sass", str(so)], capture_output=True,
                        text=True, timeout=300)
     if r.returncode != 0:
@@ -93,28 +101,36 @@ def disassemble() -> str:
     return r.stdout
 
 
-def _row_loop(sass: str, fanout: int):
-    funcs = {k: v for k, v in _functions(sass).items()
-             if f"tail_kernelILi{fanout}E" in k}
+def _function(sass: str, pattern: str, what: str):
+    """The one function of ``sass`` whose name holds ``pattern``."""
+    funcs = {k: v for k, v in _functions(sass).items() if pattern in k}
     if len(funcs) != 1:
-        raise RuntimeError(f"expected one tail_kernel<{fanout}>, found "
-                           f"{sorted(funcs)}")
+        raise RuntimeError(f"expected one {what}, found {sorted(funcs)}")
     (name, insns), = funcs.items()
-    best = None
+    return name, insns
+
+
+def _loops(insns) -> list:
+    """Every loop of a function: the instructions from a backward branch's
+    target to the branch."""
+    out = []
     for addr, op, _, text in insns:
         t = re.search(r"0x([0-9a-f]+)", text)
-        if op != "BRA" or not t or int(t.group(1), 16) >= addr:
-            continue
-        target = int(t.group(1), 16)
-        span = [x for x in insns if target <= x[0] <= addr]
-        if not any(x[1] == "LDG" and ".128" in x[3] for x in span):
-            continue
-        n_lop3 = sum(x[1] == "LOP3" for x in span)
-        if best is None or n_lop3 > best[0]:
-            best = (n_lop3, span)
-    if best is None:
+        if op == "BRA" and t and int(t.group(1), 16) < addr:
+            target = int(t.group(1), 16)
+            out.append([x for x in insns if target <= x[0] <= addr])
+    return out
+
+
+def _row_loop(sass: str, fanout: int):
+    name, insns = _function(sass, f"tail_kernelILi{fanout}E",
+                            f"tail_kernel<{fanout}>")
+    rows = [span for span in _loops(insns)
+            if any(x[1] == "LDG" and ".128" in x[3] for x in span)]
+    if not rows:
         raise RuntimeError(f"no loop with a 16-byte load found in {name}")
-    return name, best[1]
+    return name, max(rows, key=lambda span: sum(x[1] == "LOP3"
+                                                for x in span))
 
 
 def _units(ops: Counter) -> dict:
@@ -162,10 +178,53 @@ def row_loop_counts(sass: str, fanout: int = 3) -> dict:
             "by_opcode": dict(ops.most_common())}
 
 
+# draw_kernel<mode> of csrc/threefry.cu, by the wrappers' names.
+DRAW_MODES = {"bits": 0, "uniform": 1, "below": 2, "randint": 3,
+              "edge_drops": 4}
+
+
+def _draw_loop(sass: str, mode: int):
+    name, insns = _function(sass, f"draw_kernelILi{mode}E",
+                            f"draw_kernel<{mode}>")
+    loops = _loops(insns)
+    if not loops:
+        raise RuntimeError(f"no loop found in {name}")
+    return name, max(loops, key=len)
+
+
+def draw_loop_counts(sass: str, mode: int) -> dict:
+    """The grid-stride loop of ``draw_kernel<mode>`` in ``sass`` (one
+    iteration, one element): its instructions per execution unit, each
+    instruction of the loop counted once."""
+    name, span = _draw_loop(sass, mode)
+    ops = Counter(op for _, op, _, _ in span)
+    units = _units(ops)
+    return {"function": name, "mode": mode,
+            "loop": [hex(span[0][0]), hex(span[-1][0])],
+            "instructions_per_element": len(span), **units,
+            "busiest_unit_per_element": units["busiest_unit"],
+            "memory": sum(v for k, v in ops.items() if k in MEMORY),
+            "by_opcode": dict(ops.most_common())}
+
+
+def threefry_counts(sass: str) -> dict:
+    """``draw_loop_counts`` of every mode of ``csrc/threefry.cu``."""
+    return {name: draw_loop_counts(sass, mode)
+            for name, mode in DRAW_MODES.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fanout", type=int, default=3)
+    ap.add_argument("--threefry", action="store_true",
+                    help="count the draws' kernel, per mode")
     args = ap.parse_args(argv)
+    if args.threefry:
+        sass = disassemble("threefry")
+        for addr, _, _, text in _draw_loop(sass, DRAW_MODES["uniform"])[1]:
+            print(f"{addr:05x}  {text}")
+        print(json.dumps(threefry_counts(sass)), flush=True)
+        return 0
     sass = disassemble()
     for addr, _, guard, text in _row_loop(sass, args.fanout)[1]:
         g = "" if guard is None else f"@{'' if guard[1] else '!'}{guard[0]} "

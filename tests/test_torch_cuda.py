@@ -1,7 +1,7 @@
 """The port on a CUDA card: the Hopper kernels (fused_dissem and the
-sharded round's all-shards fused_merge) against their plain torch
-versions, the
-whole round loop on the card against the same loop on the CPU, and the
+sharded round's all-shards fused_merge, the store's kv_apply and
+watch_match, the draws' threefry entry points) against their plain
+torch versions, the whole round loop on the card against the same loop on the CPU, and the
 sharded round on the card against the single-device round on the card.
 Exact: belief bytes and every state field are compared bit for bit.
 
@@ -346,3 +346,54 @@ def test_watch_match_matches_plain_on_card(W, B, lmax):
     torch.cuda.synchronize()
     assert torch.equal(fired.cpu(), want_f)
     assert torch.equal(packed.cpu(), want_p)
+
+
+# The draws' kernel (csrc/threefry.cu): every entry point against its
+# plain version at the main path's shapes (the probe tick's [200,000] and
+# [200,000, 3] at 1M nodes, the drop legs' [3, 1M] and [2, 1M], the
+# Feistel targets' [1M]) and at odd lengths; bit for bit.
+DRAW_KEYS = [prng.key(0), prng.fold_in(prng.key(42), 7),
+             np.asarray([0x80000000, 0xFFFFFFFF], np.uint32)]
+
+
+@pytest.mark.parametrize("shape", [(200_000,), (200_000, 3), (1,), (4099,)])
+def test_uniform_and_below_on_card(shape):
+    _need_card()
+    for k in DRAW_KEYS:
+        got = prng.uniform_tensor(k, shape, "cuda")
+        want = prng.uniform_ref(k, shape, "cuda")
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        for p in (2.0**-24, 0.010000000000000009, 0.5, 1.0 - 2.0**-24):
+            assert torch.equal(prng.below(k, shape, p, "cuda"),
+                               prng.below_ref(k, shape, p, "cuda")), p
+
+
+@pytest.mark.parametrize("n", [1_000_000, 7])
+def test_bits_and_randint_on_card(n):
+    _need_card()
+    for k in DRAW_KEYS:
+        bits = prng.random_bits_tensor(k, (n,), "cuda")
+        assert bits.dtype == torch.int64
+        assert torch.equal(bits, prng.random_bits_ref(k, (n,), "cuda"))
+        for lo, hi in ((0, n - 1), (1, 1_000_000), (-500, 499)):
+            assert torch.equal(prng.randint_tensor(k, (n,), lo, hi, "cuda"),
+                               prng.randint_ref(k, (n,), lo, hi, "cuda"))
+
+
+@pytest.mark.parametrize("rows, n", [(3, 1_000_000), (2, 1_000_000),
+                                     (4, 16_001)])
+def test_uniform_rows_and_edge_drops_on_card(rows, n):
+    _need_card()
+    keys = [prng.fold_in(DRAW_KEYS[1], f) for f in range(rows)]
+    got = prng.uniform_rows(keys, n, "cuda")
+    want = prng.uniform_rows_ref(keys, n, "cuda")
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ids = torch.arange(n, dtype=torch.int64, device="cuda")
+    for grp in ((((ids * 2654435761) & 0xFFFFFFFF) >> 31).to(torch.int32),
+                (ids >= n // 2).to(torch.int32)):
+        shifts = [1, n - 1, -(n // 3), 5, n + 2][:rows]
+        for p_ab, p_ba in ((1.0, 1.0), (0.6, 0.0), (0.3, 0.45), (0.0, 1.0)):
+            assert torch.equal(
+                prng.edge_drops(keys, grp, shifts, p_ab, p_ba),
+                prng.edge_drops_ref(keys, grp, shifts, p_ab, p_ba)), (p_ab,
+                                                                      p_ba)
