@@ -8,9 +8,10 @@ result lines are not printed.
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name/count.
 2. build: ``csrc/dissem_tail.cu`` (both entry points, ``fused_dissem``
-   and ``fused_merge``), ``csrc/kv_store.cu`` and ``csrc/threefry.cu``
-   with nvcc for sm_90a, one nvcc each, all started together (ptxas
-   report).
+   and ``fused_merge``), ``csrc/kv_store.cu``,
+   ``csrc/threefry.cu`` and ``csrc/round_graph.cu`` (the round
+   program's conditional nodes) with nvcc for sm_90a, one nvcc each,
+   all started together (ptxas report).
    threefry: every entry point of the round's draws
    (``consul_tpu_torch/prng.py``: bits, uniform, uniform rows, below,
    randint, edge drops) against its plain torch version on the card, bit
@@ -33,7 +34,9 @@ result lines are not printed.
    [64, 10,000] and [64, 1,000], each under
    offset triples that start with 1,
    N-1 and a random one and together cover every residue mod 16;
-   byte-identical results required; kernel time (``ms``: CUDA events
+   byte-identical results required (the round and shifts read from
+   device memory as ``[rnd, o_0 ..]``, the kernels' only form, once also
+   with shifts off by -N); kernel time (``ms``: CUDA events
    over replays of a CUDA graph of 20 launches, the first triple; and
    ``eager_ms`` over back-to-back wrapper calls, which the wrapper's host
    time sets at small shapes), the plain version's time and the bound:
@@ -74,6 +77,24 @@ result lines are not printed.
     peak device memory; the final state, unsharded, must equal phase 9's
     field by field.  Then the healthy regime (no churn, single-device)
     for rounds/s.
+    Since the round program (``gossip/program.py``), every card path
+    above and below runs the graphed round: one graph launch a round
+    (gated on the main paths), the launches of its kernels counted as
+    captured launches times replays and branch bodies times their
+    device-counted runs (``program.settle_counts()`` before every read;
+    no gate changed), two host reads a call.
+10b. round_program (after the nemesis main paths): the graphed round
+    against the eager round (``graphed=False``) in this call at 1M, S =
+    64: churn on one device and on 8 shards, healthy, and
+    ``partition_heal`` across its window's start, each from the same
+    state with the flight ring, hist banks and trace threaded; final
+    state, ring, banks and the last block's trace bit-identical; the
+    graphed call's host reads (2: round counter, flight cursor) and
+    graph launches a round (1); rounds/s of both routes, captures, their
+    seconds and the pool's bytes; for churn, device kernels and busy
+    time a round and the idle share of both routes (torch.profiler), and
+    the ``tail_kernel`` and ``draw_kernel`` runs the profiler saw equal
+    to the settled ``fused.launches`` and ``prng.launches``.
 11. events: the user-event flood (``gossip/events.py``) at E = 64,
     n = 16,000 for 300 rounds (fires with overflow, -1 entries and
     repeated nodes, push/pull rounds, an alive mask with holes, slot GC
@@ -205,8 +226,9 @@ main paths as ``nemesis_launches``, in the crossval phase as
 ``crossval_launches`` and on the 1M multi-DC paths as
 ``multidc_launches``; for the store's kernels, their launches in
 store_bridge; for the draws' kernel, its launches on the main paths, its
-time the main path's one probe-tick draw a round) and, last, the ok
-line.  Needs
+time the main path's one probe-tick draw a round; for the round
+program, its graph launches on the churn main path and a graphed round's
+time against the eager round's) and, last, the ok line.  Needs
 one CUDA card: without one it exits 2 before printing anything else.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -318,7 +340,7 @@ def card() -> str:
 # tail's entry points fused_dissem and fused_merge are in dissem_tail.cu,
 # the device store's kv_apply and watch_match in kv_store.cu, the round's
 # random draws in threefry.cu.
-SOURCES = ("dissem_tail", "kv_store", "threefry")
+SOURCES = ("dissem_tail", "kv_store", "threefry", "round_graph")
 
 
 def build() -> None:
@@ -425,6 +447,37 @@ def _draw_fns(spec: dict, k):
     return (lambda: prng.edge_drops(*args), lambda: prng.edge_drops_ref(*args))
 
 
+def _device_words(keys) -> torch.Tensor:
+    """Keys as a round's table row holds them: int32 words on the card."""
+    words = np.asarray(keys, np.uint32).reshape(-1, 2).view(np.int32)
+    return torch.from_numpy(words.copy()).cuda()
+
+
+def _draw_dev_fn(spec: dict, k):
+    """The draw ``spec`` under key ``k`` through the kernel's device-key
+    entry point (the round's: keys, and the edge drops' shifts, read from
+    memory, put on the card once here), or None for the entry points the
+    round does not call."""
+    from consul_tpu_torch import prng
+    e, shape = spec["entry"], spec["shape"]
+    if e in ("uniform", "below"):
+        dk = _device_words([k])[0]
+        if e == "uniform":
+            return lambda: prng.uniform_tensor(dk, shape, "cuda")
+        return lambda: prng.below(dk, shape, spec["p"], "cuda")
+    if e not in ("rows", "edge_drops"):
+        return None
+    rows, n = shape
+    keys = [prng.fold_in(k, f) for f in range(rows)]
+    dk = _device_words(keys)
+    if e == "rows":
+        return lambda: prng.uniform_rows(dk, n, "cuda")
+    _, grp, shifts, p_ab, p_ba = _edge_args(spec, keys, k)
+    d_shifts = torch.tensor([int(o) for o in shifts], dtype=torch.int32,
+                            device="cuda")
+    return lambda: prng.edge_drops(dk, grp, d_shifts, p_ab, p_ba)
+
+
 def _edge_args(spec: dict, keys: list, k):
     """The edge drops' arguments: the spec's groups (the group vector a
     path gave, ``grp``, or a catalog kind), shifts drawn from the key's
@@ -487,7 +540,9 @@ def threefry_phase(card_line: str, keys: int = 16) -> dict:
     """Every entry point of the draws' kernel against its plain version on
     the card, at the paths' shapes and odd lengths, over ``keys`` keys
     (4 at 1M elements), bit for bit; per shape the kernel's time (CUDA
-    graph replays, ``ms``; back-to-back wrapper calls, ``eager_ms``), the
+    graph replays, ``ms``, keys read from device memory where the round's
+    draws take them so, else by value, ``by_value_ms`` beside it;
+    back-to-back wrapper calls, ``eager_ms``), the
     plain version's (``plain_ms``, eager; at the main path's shapes also
     ``plain_graph_ms``), the bound and the share."""
     from consul_tpu_torch import prng, sass_count
@@ -502,7 +557,11 @@ def threefry_phase(card_line: str, keys: int = 16) -> dict:
         ks = _draw_keys(1000 + i, 4 if big else keys)
         for k in ks:
             kern, plain = _draw_fns(spec, k)
-            e = _draw_err(kern(), plain())
+            want = plain()
+            e = _draw_err(kern(), want)
+            dev = _draw_dev_fn(spec, k)
+            if dev is not None:
+                e = max(e, _draw_err(dev(), want))
             if e != 0:
                 raise AssertionError(f"threefry {spec['entry']} != plain at "
                                      f"{list(spec['shape'])}, key "
@@ -510,11 +569,19 @@ def threefry_phase(card_line: str, keys: int = 16) -> dict:
             err = max(err, e)
         kern, plain = _draw_fns(spec, ks[-1])
         out = kern()
+        # The round's draws take their keys from device memory: where the
+        # entry point has that route, ``ms`` times it (the launch the paths
+        # make) and ``by_value_ms`` the keys-by-value launch.
+        dev = _draw_dev_fn(spec, ks[-1])
+        timed = kern if dev is None else dev
         row = {"entry": spec["entry"], "shape": list(spec["shape"]),
-               "keys_held": len(ks), "ms": graph_ms(kern),
-               "eager_ms": cuda_ms(kern, 200),
+               "keys_held": len(ks),
+               "keys": "by_value" if dev is None else "device",
+               "ms": graph_ms(timed), "eager_ms": cuda_ms(timed, 200),
                "plain_ms": cuda_ms(plain, 5, warm=1),
                **_draw_bound(spec, ks[-1], out, sass)}
+        if dev is not None:
+            row["by_value_ms"] = graph_ms(kern)
         row.update({k: spec[k] for k in ("p", "p_ab", "p_ba", "groups",
                                          "minval", "maxval") if k in spec})
         if spec.get("main"):
@@ -528,6 +595,7 @@ def threefry_phase(card_line: str, keys: int = 16) -> dict:
            "shapes": len(rows), "launches_held": sum(r["keys_held"]
                                                      for r in rows),
            "main_path_ms": sum(r["ms"] for r in main),
+           "main_path_by_value_ms": sum(r["by_value_ms"] for r in main),
            "main_path_plain_ms": sum(r["plain_ms"] for r in main),
            "main_path_plain_graph_ms": sum(r["plain_graph_ms"]
                                            for r in main),
@@ -693,6 +761,13 @@ def _drop_variants(N: int, sets, seed: int):
             for d in (None, rand[:len(o)], bisection(o))]
 
 
+def _tail_args(rnd: int, sets) -> dict:
+    """Each offset set's ``[rnd, o_0 ..]`` buffer on the card, as the
+    tail reads it (made once, outside the timed captures)."""
+    from consul_tpu_torch.gossip import fused
+    return {tuple(o): fused.tail_args(rnd, o, "cuda") for o in sets}
+
+
 def kernel_vs_plain(S: int, N: int, seed: int, sass: dict) -> dict:
     from consul_tpu_torch.gossip import fused
     from consul_tpu_torch.gossip.params import lan_profile
@@ -703,17 +778,22 @@ def kernel_vs_plain(S: int, N: int, seed: int, sass: dict) -> dict:
     budget = p.spread_budget_rounds
     sets = _offset_sets(N, N, seed)
     variants = _drop_variants(N, sets, seed)
+    dargs = _tail_args(rnd, sets)
 
     def kern(offs=sets[0], drop=None):
-        return fused.fused_dissem(heard, offs, mf, rx_ok, cap, rnd, budget,
-                                  drop)
+        r, o = dargs[tuple(offs)]
+        return fused.fused_dissem(heard, o, mf, rx_ok, cap, r, budget, drop)
 
     def plain(offs=sets[0], drop=None):
-        return fused.disseminate_ref(p, rnd, offs, heard, mf, rx_ok, cap,
-                                     drop)
+        r, o = dargs[tuple(offs)]
+        return fused.disseminate_ref(p, r, o, heard, mf, rx_ok, cap, drop)
 
     err = max(_held("fused_dissem", [S, N], lambda: kern(o, d),
                     lambda: plain(o, d)) for o, d in variants)
+    # Shifts given off by -N, which the kernel reduces.
+    r_n, o_n = fused.tail_args(rnd, [o - N for o in sets[0]], "cuda")
+    err = max(err, _held("fused_dissem", [S, N], lambda: fused.fused_dissem(
+        heard, o_n, mf, rx_ok, cap, r_n, budget), plain))
     drop = variants[1][1]
     ms = graph_ms(kern)
     ms_drop = graph_ms(lambda: kern(sets[0], drop))
@@ -750,17 +830,22 @@ def merge_vs_plain(S: int, N: int, ndev: int, seed: int,
     budget = p.spread_budget_rounds
     sets = _offset_sets(N, L, seed)
     variants = _drop_variants(N, sets, seed)
+    dargs = _tail_args(rnd, sets)
 
     def kern(offs=sets[0], drop=None):
-        return fused.fused_merge(shards, offs, mf, rx_ok, cap, rnd, budget,
-                                 drop)
+        r, o = dargs[tuple(offs)]
+        return fused.fused_merge(shards, o, mf, rx_ok, cap, r, budget, drop)
 
     def plain(offs=sets[0], drop=None):
-        return fused.merge_shards_ref(p, rnd, offs, shards, mf, rx_ok, cap,
-                                      sc, drop)
+        r, o = dargs[tuple(offs)]
+        return fused.merge_shards_ref(p, r, o, shards, mf, rx_ok, cap, sc,
+                                      drop)
 
     err = max(_held("fused_merge", [S, N, ndev], lambda: kern(o, d),
                     lambda: plain(o, d)) for o, d in variants)
+    r_n, o_n = fused.tail_args(rnd, [o - N for o in sets[0]], "cuda")
+    err = max(err, _held("fused_merge", [S, N, ndev], lambda: fused.fused_merge(
+        shards, o_n, mf, rx_ok, cap, r_n, budget), plain))
     drop = variants[1][1]
     ms = graph_ms(kern)
     ms_drop = graph_ms(lambda: kern(sets[0], drop))
@@ -800,25 +885,26 @@ def repeat(S: int, N: int, seeds: int, ndev: int | None = None,
     t0 = time.perf_counter()
     for seed in range(seeds):
         heard, mf, rx_ok, cap = adversarial(S, N, 1000 + seed, "cuda")
-        offs = [int(o) for o in
+        legs = [int(o) for o in
                 np.random.default_rng(seed).integers(1, N, 3)]
+        r, offs = fused.tail_args(rnd, legs, "cuda")
         drop = None
         if seed % 3:
             rand, bisection = _drops(N, 3, seed)
-            drop = rand if seed % 3 == 1 else bisection(offs)
+            drop = rand if seed % 3 == 1 else bisection(legs)
         if ndev is None:
-            ref = (fused.disseminate_ref(p, rnd, offs, heard, mf, rx_ok,
+            ref = (fused.disseminate_ref(p, r, offs, heard, mf, rx_ok,
                                          cap, drop),)
         else:
             heard = tuple(h.contiguous() for h in heard.split(L, dim=1))
-            ref = fused.merge_shards_ref(p, rnd, offs, heard, mf, rx_ok,
+            ref = fused.merge_shards_ref(p, r, offs, heard, mf, rx_ok,
                                          cap, sc, drop)
         for _ in range(launches):
             if ndev is None:
-                out = (fused.fused_dissem(heard, offs, mf, rx_ok, cap, rnd,
+                out = (fused.fused_dissem(heard, offs, mf, rx_ok, cap, r,
                                           budget, drop),)
             else:
-                out = fused.fused_merge(heard, offs, mf, rx_ok, cap, rnd,
+                out = fused.fused_merge(heard, offs, mf, rx_ok, cap, r,
                                         budget, drop)
             bad += sum(int((a != b).sum()) for a, b in zip(out, ref))
             held += 1
@@ -859,18 +945,20 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
         sc = kernel._ShardCtx(ndev, L)
         shards = tuple(h.contiguous() for h in heard.split(L, dim=1))
 
-        def kern(offs, drop):
+        def kern(legs, drop):
+            r, offs = fused.tail_args(rnd, legs, "cuda")
             if name == "fused_dissem":
-                return fused.fused_dissem(heard, offs, mf, rx_ok, cap, rnd,
+                return fused.fused_dissem(heard, offs, mf, rx_ok, cap, r,
                                           budget, drop)
-            return fused.fused_merge(shards, offs, mf, rx_ok, cap, rnd,
+            return fused.fused_merge(shards, offs, mf, rx_ok, cap, r,
                                      budget, drop)
 
-        def plain(offs, drop):
+        def plain(legs, drop):
+            r, offs = fused.tail_args(rnd, legs, "cuda")
             if name == "fused_dissem":
-                return fused.disseminate_ref(p, rnd, offs, heard, mf, rx_ok,
+                return fused.disseminate_ref(p, r, offs, heard, mf, rx_ok,
                                              cap, drop)
-            return fused.merge_shards_ref(p, rnd, offs, shards, mf, rx_ok,
+            return fused.merge_shards_ref(p, r, offs, shards, mf, rx_ok,
                                           cap, sc, drop)
 
         variants = _drop_variants(N, _offset_sets(N, L, seed, F), seed)
@@ -891,10 +979,19 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
     return res
 
 
+def _settle() -> None:
+    """The replayed rounds' branch counts into the host counters (one
+    device read, outside any round): call before reading a count."""
+    from consul_tpu_torch.gossip import program
+    program.settle_counts()
+
+
 def _reset_counts() -> None:
     """Every kernel launch count and round counter to 0."""
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import fused, kernel
+    from consul_tpu_torch.gossip import fused, kernel, program
+    _settle()
+    program.launches = 0
     prng.launches = 0
     prng.calls = 0
     fused.launches = 0
@@ -911,6 +1008,7 @@ def _draws(rounds: int | None = None) -> dict:
     the device draws the paths asked for (``prng.calls``), per round where
     ``rounds`` is given."""
     from consul_tpu_torch import prng
+    _settle()
     out = {"draw_launches": prng.launches, "draw_calls": prng.calls}
     if rounds:
         out["draw_launches_per_round"] = prng.launches / rounds
@@ -1010,6 +1108,7 @@ def full_path(cpu, n: int, S: int, steps: int, seed: int):
                                     "cuda")
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
+    _settle()
     launches = fused.launches
     draws = _draws(steps)
     t0 = time.perf_counter()
@@ -1042,6 +1141,7 @@ def sharded_full_path(single, n: int, S: int, steps: int, seed: int,
     carry, tr = _run(p, fail, join, member0, steps, seed, "cuda", ndev)
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
+    _settle()
     merges, dissems = fused.merge_launches, fused.launches
     tails = dict(kernel.tail_rounds)
     draws = _draws(steps)
@@ -1069,7 +1169,7 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
     through run_rounds_sharded when ``ndev`` is given.  Returns the
     result line and the final state."""
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import fused, kernel
+    from consul_tpu_torch.gossip import fused, kernel, program
     from consul_tpu_torch.gossip.params import lan_profile
 
     p = lan_profile(n, slots=S, hot_slots=0, dissem="fused")
@@ -1103,6 +1203,7 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
         state = rounds(state, block)
         int(state.round)
         times.append(time.perf_counter() - t0)
+    _settle()
     tails = dict(kernel.tail_rounds)
     res = {"phase": "main_path" if ndev is None else "sharded_main_path",
            "n": n, "slots": S, "churn_ppm": churn_ppm, "ndev": ndev,
@@ -1112,13 +1213,16 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
            "rounds_per_s_best_block": block / min(times),
            "kernel_launches": fused.launches,
            "merge_launches": fused.merge_launches, "tail_rounds": tails,
-           **_draws(total),
+           **_draws(total), "graph_launches": program.launches,
            "host_syncs_per_round": kernel.host_syncs / total,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "n_detected": int(state.n_detected),
            "n_false_dead": int(state.n_false_dead),
            "drops": int(state.drops)}
     emit(res)
+    if program.launches != total:
+        raise AssertionError(f"{program.launches} graph launches in {total} "
+                             f"rounds")
     busy = tails["hot"] + tails["full"]
     if ndev is None and fused.launches != busy:
         raise AssertionError("kernel launches != non-quiescent rounds")
@@ -1206,12 +1310,14 @@ def nemesis_full_path(cpu, n: int, S: int, seed: int) -> dict:
         card = _nem_run(name, n, S, steps, seed, "cuda")
         torch.cuda.synchronize()
         cuda_s = time.perf_counter() - t1
+        _settle()
         drops = fused.drop_launches
         draws = _draws(steps)
         t1 = time.perf_counter()
         card8 = _nem_run(name, n, S, steps, seed, "cuda", ndev=8)
         torch.cuda.synchronize()
         cuda8_s = time.perf_counter() - t1
+        _settle()
         single = _as_numpy(*card)
         rows[name] = {
             "steps": steps, "cuda_s": cuda_s, "cuda_8_shards_s": cuda8_s,
@@ -1283,6 +1389,7 @@ def nemesis_main_path(n: int = 1_000_000, S: int = 64, warm: int = 10,
         int(state.round)
         times[label] = time.perf_counter() - t0
     total = warm + before + first + inside
+    _settle()
     tails = dict(kernel.tail_rounds)
     res = {"phase": ("nemesis_main_path" if ndev is None
                      else "sharded_nemesis_main_path"),
@@ -1321,6 +1428,262 @@ def nemesis_main_path(n: int = 1_000_000, S: int = 64, warm: int = 10,
     _draw_gate(res["phase"], res,
                _probe_draws(p) * total + len(window) + pushpull)
     return res, state
+
+
+# -- the round program: the replayed round against the eager round -----------
+
+# Rounds of each round_program case: warm-up (captures included), then
+# timed blocks each ending in a device->host read; the two routes start
+# from the same state in the same call.
+RP = dict(warm=20, block=40, blocks=2)
+RP_PROFILED = 10  # rounds of each route under the profiler (churn, 1 card)
+
+
+def _rp_inputs(churn_ppm: int, scenario: str | None, total: int):
+    """The 1M main path's parameters, ground truth and extras: churn on
+    bench.py's stride, or partition_heal's schedule from round 30."""
+    from consul_tpu_torch.gossip import kernel
+    from consul_tpu_torch.gossip.nemesis import build
+    from consul_tpu_torch.gossip.params import lan_profile
+
+    n = 1_000_000
+    p = lan_profile(n, slots=64, hot_slots=0, dissem="fused")
+    fail = np.full(n, NEVER, np.int32)
+    n_fail = n * churn_ppm // 1_000_000
+    if n_fail:
+        fail[:n_fail] = (np.arange(n_fail, dtype=np.int64) * total) // n_fail
+    kw, start = {}, 0
+    if scenario:
+        sc = build(scenario, n)
+        fail = np.minimum(fail, sc.fail_round)
+        kw = {"nem": sc.nem, "join_round": torch.from_numpy(
+            sc.join_round).cuda()}
+        start = sc.nem.start - 10
+    st = kernel.init_state(p)._replace(
+        round=torch.tensor(start, dtype=torch.int32, device="cuda"))
+    return p, torch.from_numpy(fail).cuda(), kw, st
+
+
+def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool) -> dict:
+    """One route over the case's rounds: rounds/s over the timed blocks,
+    host reads per call and per round, graph launches and captures, the
+    final carry and the last block's trace."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import kernel, program
+
+    key = prng.key(42)
+    carry = [st0, kernel.init_flight(), kernel.init_hist()]
+
+    def rounds(steps):
+        st, fl, hb = carry
+        a = dict(trace=True, flight=fl, hist=hb, graphed=graphed, **kw)
+        if ndev:
+            out, tr = kernel.run_rounds_sharded(st, key, fail_t, p, steps,
+                                                ndev=ndev, **a)
+        else:
+            out, tr = kernel.run_rounds(st, key, fail_t, p, steps, **a)
+        carry[:] = out
+        return tr
+
+    _reset_counts()
+    captures0, capture_s0 = program.captures, program.capture_s
+    pool0 = program.pool_bytes
+    t0 = time.perf_counter()
+    rounds(RP["warm"])
+    int(carry[0].round)
+    warm_s = time.perf_counter() - t0
+    syncs0, launches0 = kernel.host_syncs, program.launches
+    times = []
+    for _ in range(RP["blocks"]):
+        t0 = time.perf_counter()
+        tr = rounds(RP["block"])
+        int(carry[0].round)
+        times.append(time.perf_counter() - t0)
+    timed = RP["block"] * RP["blocks"]
+    _settle()
+    return {"rounds_per_s": timed / sum(times), "block_s": times,
+            "warmup_s": warm_s, "ms_per_round": sum(times) * 1e3 / timed,
+            "host_syncs_per_call": (kernel.host_syncs - syncs0)
+            / RP["blocks"],
+            "host_syncs_per_round": (kernel.host_syncs - syncs0) / timed,
+            "graph_launches_per_round": (program.launches - launches0)
+            / timed,
+            "captures": program.captures - captures0,
+            "capture_s": program.capture_s - capture_s0,
+            "pool_bytes": program.pool_bytes - pool0,
+            "tail_rounds": dict(kernel.tail_rounds),
+            "carry": tuple(carry), "trace": tr}
+
+
+def _rp_profile(p, fail_t, st0, graphed: bool) -> dict:
+    """Device kernels and busy time a round, and the card's idle share,
+    over RP_PROFILED rounds of the route (after a warm call).  Also the
+    tail's and the draws' kernels as the profiler saw them run
+    (``tail_kernel``, ``draw_kernel``) beside the launches the wrappers
+    counted for the same rounds (``fused.launches``, ``prng.launches``,
+    settled); the caller holds them equal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import fused, kernel
+    from consul_tpu_torch.profile_round import device_kernels, self_device_us
+
+    key = prng.key(42)
+    st = kernel.run_rounds(st0, key, fail_t, p, RP_PROFILED,
+                           graphed=graphed)[0]
+    int(st.round)
+    _settle()
+    tails0, draws0 = fused.launches, prng.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = kernel.run_rounds(st, key, fail_t, p, RP_PROFILED,
+                               graphed=graphed)[0]
+        int(st.round)
+        wall = time.perf_counter() - t0
+    _settle()
+    rows = device_kernels(prof)
+    busy_us = sum(self_device_us(e) for e in rows)
+
+    def seen(name):
+        return sum(e.count for e in rows if name in e.key)
+
+    return {"device_kernels_per_round": sum(e.count for e in rows)
+            / RP_PROFILED,
+            "device_busy_ms_per_round": busy_us / 1e3 / RP_PROFILED,
+            "profiled_ms_per_round": wall * 1e3 / RP_PROFILED,
+            "device_idle_share": 1 - busy_us / 1e6 / wall,
+            "tail_kernels_profiled": seen("tail_kernel"),
+            "tail_launches_counted": fused.launches - tails0,
+            "draw_kernels_profiled": seen("draw_kernel"),
+            "draw_launches_counted": prng.launches - draws0}
+
+
+def _roll_sharded_views(sc, xs, o: int) -> tuple:
+    """What ``_roll_sharded`` did with a host shift before the round's
+    shifts moved to the device: with ``q, r = divmod(o mod N, L)``, output
+    shard ``i`` joins the last ``r`` columns of shard ``i - q - 1`` and
+    the first ``L - r`` of shard ``i - q``."""
+    L, nd = sc.L, sc.ndev
+    q, r = divmod(o % (L * nd), L)
+    return tuple(torch.cat([xs[(i - q - 1) % nd][..., L - r:],
+                            xs[(i - q) % nd][..., :L - r]], dim=-1)
+                 if r else xs[(i - q) % nd] for i in range(nd))
+
+
+def _sloc_roll_view(sc, v: torch.Tensor, o: int, i: int) -> torch.Tensor:
+    """What ``_sloc_roll`` did with a host shift: shard ``i``'s slice of
+    ``torch.roll(v, o)`` as a view, or two slices joined where it wraps."""
+    n, start = v.shape[0], (i * sc.L - o) % v.shape[0]
+    if start + sc.L <= n:
+        return v[start:start + sc.L]
+    return torch.cat([v[start:], v[:start + sc.L - n]])
+
+
+def _gathers_vs_views() -> dict:
+    """What the device shifts cost: each gather the round now makes
+    against the view or roll it replaces, at 1M, S = 64, B = 200,000, the
+    shift a device scalar (ms, CUDA-graph replays, equal results)."""
+    from consul_tpu_torch.gossip import kernel
+
+    n, S, B, o = 1_000_000, 64, 200_000, 377_771
+    g = torch.Generator(device="cuda").manual_seed(5)
+    mf = torch.randint(-1, 2**31 - 1, (n,), device="cuda", dtype=torch.int32,
+                       generator=g)
+    heard = torch.randint(0, 256, (S, n), device="cuda", dtype=torch.uint8,
+                          generator=g)
+    o_t = torch.tensor(o, dtype=torch.int32, device="cuda")
+    blk = 3 * B
+    pid = blk + torch.arange(B, dtype=torch.int32, device="cuda")
+    sc = kernel._ShardCtx(8, n // 8)
+    shards = tuple(h.contiguous() for h in heard.split(n // 8, dim=1))
+    pairs = {
+        # the probe tick's window of mf at the prober block plus a shift
+        "probe_window": (lambda: mf[(pid + o_t).remainder(n).long()],
+                         lambda: torch.cat([mf, mf])[(blk + o) % n:
+                                                     (blk + o) % n + B]),
+        # push/pull's roll of the belief matrix and of mf
+        "pushpull_roll_heard": (lambda: kernel._roll(heard, o_t, 1),
+                                lambda: torch.roll(heard, o, dims=1)),
+        "pushpull_roll_mf": (lambda: kernel._roll(mf, o_t, 0),
+                             lambda: torch.roll(mf, o)),
+        # the sharded round's roll (8 shards) and a shard's mf window
+        "roll_sharded": (lambda: kernel._roll_sharded(sc, shards, o_t),
+                         lambda: _roll_sharded_views(sc, shards, o)),
+        "sloc_roll": (lambda: kernel._sloc_roll(sc, mf, o_t, 3),
+                      lambda: _sloc_roll_view(sc, mf, o, 3)),
+    }
+    out = {}
+    for name, (gather, view) in pairs.items():
+        a, b = gather(), view()
+        if isinstance(a, tuple):
+            a, b = torch.cat(a, dim=-1), torch.cat(b, dim=-1)
+        if not torch.equal(a, b):
+            raise AssertionError(f"gathers_vs_views: {name} differs")
+        out[name] = {"gather_ms": graph_ms(gather),
+                     "replaced_ms": graph_ms(view)}
+    return out
+
+
+def round_program_phase(card_line: str) -> dict:
+    """The graphed round (``gossip/program.py``) against the eager round,
+    in this call, at 1M nodes: churn on one device and on 8 shards,
+    healthy, ``partition_heal`` across its window's start.  Final state,
+    flight ring, hist banks and the last block's trace bit-identical; the
+    graphed call reads the device twice (round counter, flight cursor)
+    whatever its rounds; one graph launch a round; rounds/s of both
+    routes, device kernels a round and idle share (profiled, churn; there
+    the tail's and the draws' kernels the profiler saw run must equal the
+    launches the wrappers counted), captures, their seconds and the
+    pool's bytes."""
+    from consul_tpu_torch.gossip import kernel
+
+    cases = {"churn": (1000, None, None), "churn_8_shards": (1000, None, 8),
+             "healthy": (0, None, None),
+             "partition_heal": (0, "partition_heal", None)}
+    total = RP["warm"] + RP["block"] * RP["blocks"]
+    rows, bad = {}, []
+    t0 = time.perf_counter()
+    for name, (ppm, scenario, ndev) in cases.items():
+        p, fail_t, kw, st0 = _rp_inputs(ppm, scenario, total)
+        eager = _rp_route(p, fail_t, kw, st0, ndev, graphed=False)
+        graphed = _rp_route(p, fail_t, kw, st0, ndev, graphed=True)
+        diverged = _diverged(list(zip(eager.pop("carry"),
+                                      graphed.pop("carry")))
+                             + [(eager.pop("trace"), graphed.pop("trace"))])
+        row = {"eager": eager, "graphed": graphed, "diverged": diverged,
+               "speedup": graphed["rounds_per_s"] / eager["rounds_per_s"]}
+        if name == "churn":
+            for route in ("eager", "graphed"):
+                prof = _rp_profile(p, fail_t, st0, route == "graphed")
+                row[route].update(prof)
+                # The counts are observed, not derived from the capture:
+                # each kernel the wrappers counted ran on the card.
+                for k in ("tail", "draw"):
+                    seen = prof[f"{k}_kernels_profiled"]
+                    counted = prof[f"{k}_launches_counted"]
+                    if seen == 0 or seen != counted:
+                        bad.append(f"{name} {route}: the profiler saw "
+                                   f"{seen} {k} kernels for {counted} "
+                                   f"counted launches")
+        rows[name] = row
+        if diverged:
+            bad.append(f"{name}: diverged in {diverged}")
+        if graphed["host_syncs_per_call"] != 2:
+            bad.append(f"{name}: {graphed['host_syncs_per_call']} host "
+                       f"reads a graphed call")
+        if graphed["graph_launches_per_round"] != 1:
+            bad.append(f"{name}: {graphed['graph_launches_per_round']} "
+                       f"graph launches a round")
+        del p, fail_t, kw, st0
+    res = {"phase": "round_program", "card": card_line, "n": 1_000_000,
+           "slots": 64, "rounds": total, "cases": rows,
+           "gathers_vs_views": _gathers_vs_views(),
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if bad or kernel._recorder is not None:
+        raise AssertionError(f"round_program: {bad}")
+    return res
 
 
 # -- the event flood -----------------------------------------------------------
@@ -1467,9 +1830,11 @@ def crossval_phase(pool, cpu_seed0) -> dict:
     bad += [f"10k.{k}" for k in _kernel_fields_diff(row10k,
                                                      rec["configs"][1])]
     p, fail_at, steps = crossval.config_inputs(10000, 16)
+    _settle()
     merges0 = fused.merge_launches
     eight = crossval.kernel_event_latencies(p, fail_at, steps, 0, ndev=8,
                                             device="cuda")
+    _settle()
     merges = fused.merge_launches - merges0
     one = cpu_seed0.result()
     if one != eight or merges == 0:
@@ -1481,6 +1846,7 @@ def crossval_phase(pool, cpu_seed0) -> dict:
           for n in (1000, 10000)]
     for row, ref in zip(ev, rec["event_convergence"]):
         bad += [f"event{row['n']}.{k}" for k in _row_diff(row, ref)]
+    _settle()
     recorded10k = rec["configs"][1]
     res = {"phase": "crossval", "seconds": time.perf_counter() - t0,
            "configs": [row1k, {
@@ -1554,6 +1920,7 @@ def crossval_nemesis_phase(cpu_rows: dict, n: int, seeds: int) -> dict:
     if not (fl["relative_error"]["p50"] is not None
             and fl["relative_error"]["p50"] <= 0.25):
         bad.append("flapping p50 relative error")
+    _settle()
     res = {"phase": "crossval_nemesis", "n": n, "seeds": seeds,
            "seconds": time.perf_counter() - t0, "card_s": card_s,
            "cpu_wait_s": wait_s, "scenarios": rows,
@@ -1577,6 +1944,7 @@ def crossval_1m_phase() -> dict:
     row = crossval.run_config(1_000_000, 16, 2, pushpull=True, oracle=False,
                               device="cuda")
     wall = time.perf_counter() - t0
+    _settle()
     _, _, steps = crossval.config_inputs(1_000_000, 16, pushpull=True)
     lo, hi = row["lifeguard_envelope_rounds"]
     lat = row["detection_latency_rounds"]["kernel"]
@@ -1965,6 +2333,7 @@ async def _plane_run(ndev: int, full: bool, n_clients: int = 8) -> dict:
         for c in clients:
             await c.close()
         await plane.stop()
+    _settle()
     res.update(dissem_launches=fused.launches,
                merge_launches=fused.merge_launches,
                max_memory_allocated=torch.cuda.max_memory_allocated())
@@ -2045,6 +2414,7 @@ async def _plane_nemesis_run(n_clients: int = 8, rounds: int = 200) -> dict:
         for c in clients:
             await c.close()
         await plane.stop()
+    _settle()
     res.update(dissem_launches=fused.launches,
                drop_launches=fused.drop_launches,
                max_memory_allocated=torch.cuda.max_memory_allocated())
@@ -2135,8 +2505,10 @@ def plane_nemesis_phase() -> dict:
     finally:
         sys.stderr.write(err.getvalue())
     res["tick_errors"] = err.getvalue().count("[gossip-plane] tick error")
+    _settle()
     drops0 = fused.drop_launches
     res["lockstep"] = _plane_lockstep()
+    _settle()
     res["lockstep"]["drop_launches"] = fused.drop_launches - drops0
     emit(res)
     if (res["tick_errors"] or res["drop_launches"] <= 0
@@ -3178,6 +3550,32 @@ def store_phases(store_cpu, watch_oracle, bridge_oracle,
     return out
 
 
+def _round_graph_row(rp: dict, churn: dict) -> dict:
+    """The kernels line's entry of the round program
+    (``csrc/round_graph.cu``: the joined graph and its condition kernels),
+    which replaces the reference's jitted scan: launches on the churn main
+    path (one a round), its time a 1M churn round against the eager
+    round's (the plain version), both from round_program.  Bound: the
+    bytes a round must move, the state read once and written once (heard
+    [S, N] u8; slot_of_node, incarnation, fail_round and member [N]; the
+    ground truth read only)."""
+    case = rp["cases"]["churn"]
+    S, N = rp["slots"], rp["n"]
+    state_bytes = S * N + 4 * N + 4 * N + N
+    bound_bytes = 2 * state_bytes + 4 * N
+    return {"name": "round_graph", "route": "cuda",
+            "source": "consul_tpu_torch/csrc/round_graph.cu",
+            "replaces": "consul_tpu/gossip/kernel.py:1689",
+            "launches": churn["graph_launches"],
+            "max_abs_err": 0 if not case["diverged"] else None,
+            "ms": case["graphed"]["ms_per_round"],
+            "plain_ms": case["eager"]["ms_per_round"],
+            "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "device_kernels_per_round":
+                case["graphed"]["device_kernels_per_round"]}
+
+
 def _churn_gates(res: dict, launches_key: str) -> None:
     if res["n_detected"] <= 0 or res["n_false_dead"] != 0:
         raise AssertionError(
@@ -3303,6 +3701,7 @@ def main() -> int:
                                  f"partition_heal runs diverged in "
                                  f"{diverged}")
         del nem1_state, nem8_state
+        rp = round_program_phase(card_line)
         events_phase()
         crossval_1m_phase()
         mdc1, mdc1_states = multidc_main_path()
@@ -3352,7 +3751,7 @@ def main() -> int:
         "crossval_launches": cross["dissem_launches"],
         "multidc_launches": mdc1["dissem_launches"],
         "max_abs_err": big["max_abs_err"], "ms": big["ms"],
-        "ms_drop": big["ms_drop"],
+        "share_of_bound": big["share_of_bound"], "ms_drop": big["ms_drop"],
         "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
         "bound_ms_drop": big["bound_ms_drop"],
         "bound_by": big["bound_by"], "library_ms": None}, {
@@ -3364,6 +3763,7 @@ def main() -> int:
         "nemesis_launches": nem8["merge_drop_launches"],
         "multidc_launches": mdc8["merge_launches"],
         "max_abs_err": mbig["max_abs_err"], "ms": mbig["ms"],
+        "share_of_bound": mbig["share_of_bound"],
         "ms_drop": mbig["ms_drop"],
         "plain_ms": mbig["plain_ms"], "bound_ms": mbig["bound_ms"],
         "bound_ms_drop": mbig["bound_ms_drop"],
@@ -3378,13 +3778,17 @@ def main() -> int:
         "crossval_launches": cross["draw_launches"],
         "multidc_launches": mdc1["draw_launches"],
         "max_abs_err": tf["summary"]["max_abs_err"],
-        # A 1M churn round's one probe-tick draw, [200,000, 3].
+        # A 1M churn round's one probe-tick draw, [200,000, 3], its key
+        # read from device memory (the launch the round makes).
         "ms": tf["summary"]["main_path_ms"],
+        "by_value_ms": tf["summary"]["main_path_by_value_ms"],
         "plain_ms": tf["summary"]["main_path_plain_ms"],
         "plain_graph_ms": tf["summary"]["main_path_plain_graph_ms"],
         "bound_ms": tf["summary"]["main_path_bound_ms"],
         "bound_by": tf["summary"]["main_path_bound_by"],
-        "library_ms": None}]})
+        "share_of_bound": tf["summary"]["main_path_bound_ms"]
+        / tf["summary"]["main_path_ms"],
+        "library_ms": None}, _round_graph_row(rp, churn)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -78,6 +78,13 @@
 // flight at once, so such a thread costs one memory latency per row, not
 // one per byte.
 //
+// Arguments from device memory.  The round number and the F shifts are
+// read, as [rnd, o_0 .. o_F-1] (int32, any shift value, reduced mod N
+// here), from device memory when the kernel runs: a row of the round's
+// argument table (consul_tpu_torch/gossip/round_args.py), so that one
+// captured launch serves every round of a replayed CUDA graph.  Each
+// thread reads the F + 1 words once, before its rows.
+//
 // A launch covers the shards [i0, i1) of the table; one card passes the
 // whole range.  The range leaves room for one launch per card when the
 // shards live on several cards (the table then holds peer pointers).
@@ -103,7 +110,7 @@ constexpr int kMinBlocks = 3;
 constexpr long long kFillThreads = 132LL * 2048;
 
 // Everything a launch needs, passed by value in the kernel's parameter
-// block (about 630 bytes of its 4 KB).  The kernel takes it as a
+// block (about 590 bytes of its 4 KB).  The kernel takes it as a
 // __grid_constant__, so indexing the shard table by a runtime index reads
 // the parameter space and makes no per-thread copy.
 struct Args {
@@ -114,12 +121,13 @@ struct Args {
   const int32_t* cap;             // [S] confirmation caps, >= 0
   const uint8_t* drop;            // nullptr, or [F, N] by global column:
                                   //   nonzero kills leg f into that column
-  int o[kMaxFanout];              // circulant shifts, each in [0, N)
+  const int32_t* dargs;           // [rnd, o_0 .. o_F-1] in device memory:
+                                  //   the round and the circulant shifts
   int S, L, ndev;
   int i0;          // first shard this launch writes
   int tiles;       // column tiles per shard
   int rows;        // rows per row group, <= kRows
-  int rnd, budget;
+  int budget;
   bool words_ok;   // L % 4 == 0 and every buffer 4-byte aligned
 };
 
@@ -138,8 +146,8 @@ __device__ __forceinline__ uint32_t byte_flags(uint32_t bits, int w) {
 // (bits past n_cols are don't-cares).  A lane's 16 entries of mf span 64
 // bytes: five aligned 16-byte loads cover them where they do not wrap, 16
 // single loads where they do (or mf is not 16-byte aligned).
-__device__ __forceinline__ uint32_t sender_flags(const Args& a, int g, int N,
-                                                 int n_cols) {
+__device__ __forceinline__ uint32_t sender_flags(const Args& a, int rnd,
+                                                 int g, int N, int n_cols) {
   uint32_t bits = 0;
   const int gq = g & ~3;
   if (gq + 20 <= N && (reinterpret_cast<uintptr_t>(a.mf) & 15) == 0) {
@@ -147,8 +155,8 @@ __device__ __forceinline__ uint32_t sender_flags(const Args& a, int g, int N,
 #pragma unroll
     for (int v = 0; v < 5; ++v) {
       const int4 x = __ldg(q + v);
-      bits |= ((x.x > a.rnd ? 1u : 0u) | (x.y > a.rnd ? 2u : 0u) |
-               (x.z > a.rnd ? 4u : 0u) | (x.w > a.rnd ? 8u : 0u)) << (4 * v);
+      bits |= ((x.x > rnd ? 1u : 0u) | (x.y > rnd ? 2u : 0u) |
+               (x.z > rnd ? 4u : 0u) | (x.w > rnd ? 8u : 0u)) << (4 * v);
     }
     return bits >> (g & 3);
   }
@@ -156,7 +164,7 @@ __device__ __forceinline__ uint32_t sender_flags(const Args& a, int g, int N,
   for (int k = 0; k < kCols; ++k) {
     int gk = g + k;
     if (gk >= N) gk -= N;
-    bits |= (k < n_cols && __ldg(a.mf + gk) > a.rnd ? 1u : 0u) << k;
+    bits |= (k < n_cols && __ldg(a.mf + gk) > rnd ? 1u : 0u) << k;
   }
   return bits;
 }
@@ -276,6 +284,7 @@ tail_kernel(const __grid_constant__ Args a) {
   const int gc0 = i * a.L + c0;
   const int s_begin = static_cast<int>(blockIdx.y) * a.rows;
   const int s_end = min(s_begin + a.rows, a.S);
+  const int rnd = __ldg(a.dargs);
 
   // Per leg: the window's first pin is global column g0, i.e. local column
   // lc of shard j; its first `split` bytes lie in shard j, the rest at the
@@ -288,14 +297,16 @@ tail_kernel(const __grid_constant__ Args a) {
   bool words = a.words_ok && n_cols == kCols;
 #pragma unroll
   for (int f = 0; f < F; ++f) {
-    int g = gc0 - a.o[f];
+    int o = __ldg(a.dargs + 1 + f) % N;
+    if (o < 0) o += N;
+    int g = gc0 - o;
     if (g < 0) g += N;
     g0[f] = g;
     const int j = g / a.L;
     lc[f] = g - j * a.L;
     split[f] = min(kCols, a.L - lc[f]);
     words = words && split[f] == kCols;
-    const uint32_t bits = sender_flags(a, g, N, n_cols);
+    const uint32_t bits = sender_flags(a, rnd, g, N, n_cols);
 #pragma unroll
     for (int w = 0; w < kWords; ++w) live[f][w] = byte_flags(bits, w) * 3u;
     if (a.drop != nullptr) apply_drops(a, f, N, gc0, n_cols, live[f]);
@@ -395,13 +406,14 @@ inline bool aligned4(const void* p) {
 }
 
 // Validates, fills in the derived fields and launches shards [i0, i1) of
-// the table.  `in` holds ndev shard pointers; offsets are reduced mod N.
+// the table.  `in` holds ndev shard pointers; `dargs` the device buffer
+// [rnd, o_0 .. o_fanout-1].
 inline int launch(const void* const* in, int ndev, void* out,
                   const void* mf, const void* rx, const void* cap,
                   const void* drop, int S, int L, int fanout,
-                  const int* offsets, int rnd, int budget, int i0, int i1,
+                  const void* dargs, int budget, int i0, int i1,
                   cudaStream_t stream) {
-  if (S <= 0 || L <= 0 || ndev < 1 || ndev > kMaxShards || fanout < 1 ||
+  if (dargs == nullptr || S <= 0 || L <= 0 || ndev < 1 || ndev > kMaxShards || fanout < 1 ||
       fanout > kMaxFanout || budget < 1 || budget > 14 || i0 < 0 ||
       i1 > ndev || i0 >= i1 ||
       static_cast<long long>(ndev) * L >= (1LL << 31) - kCols) {
@@ -414,10 +426,7 @@ inline int launch(const void* const* in, int ndev, void* out,
     a.in[j] = static_cast<const uint8_t*>(in[j]);
     ok = ok && aligned4(in[j]);
   }
-  for (int f = 0; f < fanout; ++f) {
-    const long long o = offsets[f] % N;
-    a.o[f] = static_cast<int>(o < 0 ? o + N : o);
-  }
+  a.dargs = static_cast<const int32_t*>(dargs);
   a.out = static_cast<uint8_t*>(out);
   a.mf = static_cast<const int32_t*>(mf);
   a.rx = static_cast<const uint8_t*>(rx);
@@ -433,7 +442,6 @@ inline int launch(const void* const* in, int ndev, void* out,
   const long long groups = (kFillThreads + per_group - 1) / per_group;
   const long long rows = (S + groups - 1) / groups;
   a.rows = static_cast<int>(rows < 1 ? 1 : (rows > kRows ? kRows : rows));
-  a.rnd = rnd;
   a.budget = budget;
   a.words_ok = ok;
   switch (fanout) {
@@ -453,34 +461,35 @@ inline int launch(const void* const* in, int ndev, void* out,
 // out[S, N] = the round's dissemination of heard[S, N].  mf: int32 [N];
 // rx: one byte per column (a torch bool tensor); cap: int32 [S], >= 0;
 // drop: nullptr, or one byte per leg and column, u8 [fanout, N];
-// offsets: `fanout` host ints; budget in [1, 14].  Launches on `stream`,
-// does not synchronise, returns cudaGetLastError() after the launch (or
+// dargs: int32 [rnd, o_0 .. o_fanout-1] in device memory, read when the
+// kernel runs; budget in [1, 14].  Launches on `stream`, does not
+// synchronise, returns cudaGetLastError() after the launch (or
 // cudaErrorInvalidValue for arguments it does not take).
 extern "C" int fused_dissem(const void* heard, void* out, const void* mf,
                             const void* rx, const void* cap,
                             const void* drop, int S, int N, int fanout,
-                            const int* offsets, int rnd, int budget,
-                            void* stream) {
+                            const void* dargs, int budget, void* stream) {
   const void* table[1] = {heard};
   return dissem_tail::launch(table, 1, out, mf, rx, cap, drop, S, N, fanout,
-                             offsets, rnd, budget, 0, 1,
+                             dargs, budget, 0, 1,
                              static_cast<cudaStream_t>(stream));
 }
 
 // out[i] = the merge of shard i for i in [i0, i1).  shards: ndev pointers
 // to u8 [S, L]; out: u8 [ndev, S, L]; mf: int32 [N]; rx: one byte per
 // global column; cap: int32 [S], >= 0; drop: nullptr, or u8 [fanout, N]
-// by global column; offsets: `fanout` host ints;
-// budget in [1, 14]; ndev <= 64 and N = ndev * L below 2**31.  Launches on
-// `stream`, does not synchronise, returns cudaGetLastError() after the
-// launch (or cudaErrorInvalidValue for arguments it does not take).
+// by global column; dargs: int32 [rnd, o_0 .. o_fanout-1] in device
+// memory; budget in [1, 14]; ndev <= 64 and N = ndev * L below 2**31.
+// Launches on `stream`, does not synchronise, returns cudaGetLastError()
+// after the launch (or cudaErrorInvalidValue for arguments it does not
+// take).
 extern "C" int fused_merge(const void* const* shards, int ndev, void* out,
                            const void* mf, const void* rx, const void* cap,
                            const void* drop, int S, int L, int fanout,
-                           const int* offsets, int rnd, int budget, int i0,
-                           int i1, void* stream) {
+                           const void* dargs, int budget, int i0, int i1,
+                           void* stream) {
   return dissem_tail::launch(shards, ndev, out, mf, rx, cap, drop, S, L,
-                             fanout, offsets, rnd, budget, i0, i1,
+                             fanout, dargs, budget, i0, i1,
                              static_cast<cudaStream_t>(stream));
 }
 

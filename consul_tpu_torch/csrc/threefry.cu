@@ -37,7 +37,11 @@
 // the kernel is one launch a draw where the torch version made ~180.
 //
 // Design.  Keys come by value in the kernel's parameters (the host holds
-// them as uint32[2]): no copy to the device, no synchronisation.  A 2-D
+// them as uint32[2]): no copy to the device, no synchronisation.  The
+// round's own draws (the `_dev` entry points) read their keys, and the edge
+// drops their shifts, from device memory instead: a row of the round's
+// argument table (consul_tpu_torch/gossip/round_args.py), so that one
+// captured launch serves every round of a replayed CUDA graph.  A 2-D
 // grid: blockIdx.y is the row, and the threads of a row stride over its
 // columns, one element a step, 32-bit rotates as funnel shifts; stores are
 // coalesced (neighbouring threads, neighbouring elements).  The edge drops
@@ -68,6 +72,8 @@ enum Mode : int {
 struct Args {
   uint32_t k0[kMaxRows], k1[kMaxRows];  // row r's key; randint: rows 0, 1
   int64_t shift[kMaxRows];              // edge drops: leg r's shift in [0, n)
+  const uint32_t* dkeys;  // nullptr, or row r's key at dkeys[2r], [2r + 1]
+  const int32_t* dshift;  // nullptr, or edge drops: leg r's shift, any int
   void* out;
   const int32_t* grp;  // edge drops: group of each node, int32 [n]
   uint64_t n;          // elements a row
@@ -118,7 +124,14 @@ __device__ __forceinline__ float unit_float(uint32_t bits) {
 template <int M>
 __global__ void __launch_bounds__(kThreads) draw_kernel(const Args a) {
   const int r = blockIdx.y;
-  const uint32_t k0 = a.k0[r], k1 = a.k1[r];
+  const uint32_t k0 = a.dkeys ? a.dkeys[2 * r] : a.k0[r];
+  const uint32_t k1 = a.dkeys ? a.dkeys[2 * r + 1] : a.k1[r];
+  int64_t shift = 0;
+  if constexpr (M == kEdgeDrops) {
+    const int64_t n = static_cast<int64_t>(a.n);
+    shift = a.dshift ? static_cast<int64_t>(a.dshift[r]) % n : a.shift[r];
+    if (shift < 0) shift += n;
+  }
   const uint64_t row = static_cast<uint64_t>(r) * a.n;
   const uint64_t stride = static_cast<uint64_t>(gridDim.x) * blockDim.x;
 #pragma unroll 1
@@ -140,7 +153,7 @@ __global__ void __launch_bounds__(kThreads) draw_kernel(const Args a) {
       static_cast<int32_t*>(a.out)[c] = static_cast<int32_t>(
           static_cast<uint32_t>(a.minval) + off % a.span);
     } else {  // kEdgeDrops
-      int64_t s = static_cast<int64_t>(c) - a.shift[r];
+      int64_t s = static_cast<int64_t>(c) - shift;
       if (s < 0) s += static_cast<int64_t>(a.n);
       const int32_t g_src = a.grp[s];
       const float p = g_src == 0 ? a.p_ab : a.p_ba;
@@ -244,6 +257,49 @@ extern "C" int threefry_edge_drops(const uint32_t* keys,
     const int64_t s = shifts[r] % static_cast<int64_t>(n);
     a.shift[r] = s < 0 ? s + static_cast<int64_t>(n) : s;
   }
+  a.grp = static_cast<const int32_t*>(grp);
+  a.p_ab = p_ab;
+  a.p_ba = p_ba;
+  return threefry::launch<threefry::kEdgeDrops>(
+      a, rows, static_cast<cudaStream_t>(stream));
+}
+
+// The round's draws with keys (and shifts) in device memory: as
+// threefry_uniform, threefry_below and threefry_edge_drops, but row r's key
+// is the u32 pair dkeys[2r], dkeys[2r + 1] and leg r's shift the int32
+// dshifts[r] (any value; reduced mod n in the kernel), read when the kernel
+// runs.
+extern "C" int threefry_uniform_dev(const void* dkeys, int rows, uint64_t n,
+                                    void* out, void* stream) {
+  if (rows < 1 || rows > threefry::kMaxRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a = threefry::keyed(nullptr, 0, n, out);
+  a.dkeys = static_cast<const uint32_t*>(dkeys);
+  return threefry::launch<threefry::kUniform>(
+      a, rows, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int threefry_below_dev(const void* dkey, uint64_t n, float p,
+                                  void* out, void* stream) {
+  Args a = threefry::keyed(nullptr, 0, n, out);
+  a.dkeys = static_cast<const uint32_t*>(dkey);
+  a.p = p;
+  return threefry::launch<threefry::kBelow>(a, 1,
+                                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int threefry_edge_drops_dev(const void* dkeys,
+                                       const void* dshifts, int rows,
+                                       uint64_t n, const void* grp,
+                                       float p_ab, float p_ba, void* out,
+                                       void* stream) {
+  if (rows < 1 || rows > threefry::kMaxRows || n == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a = threefry::keyed(nullptr, 0, n, out);
+  a.dkeys = static_cast<const uint32_t*>(dkeys);
+  a.dshift = static_cast<const int32_t*>(dshifts);
   a.grp = static_cast<const int32_t*>(grp);
   a.p_ab = p_ab;
   a.p_ba = p_ba;

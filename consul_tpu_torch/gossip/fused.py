@@ -32,6 +32,14 @@ operand: ``drop``, u8 or bool ``[F, N]`` by global destination column,
 where a set byte kills leg ``f``'s delivery into that column (the
 reference folds it into the sender masks, ``fused._src_masks``).
 ``None`` means no partition.
+
+The round number ``rnd`` and the shifts ``offs`` are device tensors:
+``rnd`` an int32 scalar and ``offs`` int32 ``[F]``, lying back to back as
+``[rnd, o_0 .. o_F-1]`` (the round's ``RoundArgs.rnd`` and ``.gossip``,
+``gossip/round_args.py``; ``tail_args`` makes such a pair).  The kernels
+read them from device memory when they run, so one captured launch serves
+every round of a replayed CUDA graph; the plain versions take the same
+tensors (their rolls are gathers).
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from consul_tpu_torch import _build
 from consul_tpu_torch._device import check_tensor, require_cuda
 from consul_tpu_torch.gossip.kernel import (_AGE_FRESH, _AGE_MASK,
                                             _CONF_MASK, _CONF_SHIFT,
-                                            _MSG_SHIFT, MSG_SUSPECT,
+                                            _MSG_SHIFT, MSG_SUSPECT, _roll,
                                             _roll_sharded, _sloc,
                                             _sloc_roll)
 from consul_tpu_torch.gossip.params import SwimParams
@@ -69,6 +77,26 @@ merge_drop_launches = 0
 # smoke run can hold each shape its paths launched at against the plain
 # version (``chip_smoke.py``).
 launch_shapes: set = set()
+# A list while a caller records the tails (None otherwise): per tail asked
+# for, the kernel, its shape and its by-value arguments, whether it has a
+# drop operand (the round and the shifts are read from device memory).
+launch_log: list | None = None
+
+
+def _log(name: str, S: int, L: int, ndev: int, offs, budget: int,
+         drop) -> None:
+    if launch_log is not None:
+        launch_log.append((name, S, L, ndev, len(offs), budget,
+                           drop is None))
+
+
+def tail_args(rnd: int, offs, device) -> tuple:
+    """``(rnd, offs)`` as the tail takes them: views of one new int32
+    buffer ``[rnd, o_0 .. o_F-1]`` on ``device``, for a caller outside the
+    round (the round passes its table row)."""
+    buf = torch.tensor([int(rnd), *(int(o) for o in offs)],
+                       dtype=torch.int32, device=device)
+    return buf[0], buf[1:]
 
 
 def _age_u8(x: torch.Tensor) -> torch.Tensor:
@@ -114,17 +142,18 @@ def _live(live: torch.Tensor, drop, f: int) -> torch.Tensor:
     return live if drop is None else live & (drop[f] == 0)
 
 
-def disseminate_ref(p: SwimParams, rnd: int, offs, heard: torch.Tensor,
+def disseminate_ref(p: SwimParams, rnd, offs, heard: torch.Tensor,
                     mf: torch.Tensor, rx_ok: torch.Tensor,
                     conf_cap: torch.Tensor, drop=None) -> torch.Tensor:
     """The plain torch version of the kernel, on any device.
 
-    ``offs``: the round's ``fanout`` gossip shifts (host ints); the
-    sender into column ``c`` on leg ``f`` is ``c - offs[f]``.  ``drop``:
-    the partition's drop operand (module docstring) or None."""
+    ``rnd``, ``offs``: the round and its ``fanout`` gossip shifts (device
+    tensors, module docstring); the sender into column ``c`` on leg
+    ``f`` is ``c - offs[f]``.  ``drop``: the partition's drop operand
+    (module docstring) or None."""
     h = heard.to(torch.int32)
-    pins = [_age_u8(torch.roll(h, o, dims=1)) for o in offs]
-    srcs = [_live(torch.roll(mf, o) > rnd, drop, f)[None, :]
+    pins = [_age_u8(_roll(h, o, 1)) for o in offs]
+    srcs = [_live(_roll(mf, o, 0) > rnd, drop, f)[None, :]
             for f, o in enumerate(offs)]
     out = _merge(p, _age_u8(h), pins, srcs, rx_ok[None, :],
                  conf_cap.to(torch.int32)[:, None])
@@ -147,7 +176,7 @@ def merge_ref(p: SwimParams, cur: torch.Tensor, pins: torch.Tensor,
     return out.to(torch.uint8)
 
 
-def merge_shards_ref(p: SwimParams, rnd: int, offs, heard, mf: torch.Tensor,
+def merge_shards_ref(p: SwimParams, rnd, offs, heard, mf: torch.Tensor,
                      rx_ok: torch.Tensor, conf_cap: torch.Tensor, sc,
                      drop=None):
     """The plain torch version of ``fused_merge``, on any device: the
@@ -177,10 +206,9 @@ def _array(ctype, n: int):
 
 
 _ARGTYPES = {  # C entry point -> its argument types (pointers, ints, stream)
-    "fused_dissem": [_VP] * 6 + [_CI] * 3 + [ctypes.POINTER(_CI)]
-                    + [_CI] * 2 + [_VP],
+    "fused_dissem": [_VP] * 6 + [_CI] * 3 + [_VP, _CI, _VP],
     "fused_merge": [ctypes.POINTER(_VP), _CI] + [_VP] * 5 + [_CI] * 3
-                   + [ctypes.POINTER(_CI)] + [_CI] * 4 + [_VP],
+                   + [_VP] + [_CI] * 3 + [_VP],
 }
 
 
@@ -210,6 +238,20 @@ def _check_legs(offs, budget: int) -> None:
         raise ValueError(f"budget must be in [{lo}, {hi}], got {budget}")
 
 
+def _device_args(rnd, offs, device) -> int:
+    """The address of ``[rnd, o_0 .. o_F-1]``: a device ``rnd`` and
+    ``offs`` lying back to back."""
+    if not isinstance(rnd, torch.Tensor) \
+            or not isinstance(offs, torch.Tensor) or rnd.dtype != torch.int32 \
+            or offs.dtype != torch.int32 or rnd.numel() != 1 \
+            or offs.dim() != 1 or not offs.is_contiguous() \
+            or rnd.device != device or offs.device != device \
+            or offs.data_ptr() != rnd.data_ptr() + 4:
+        raise ValueError("device rnd and offs must be int32 [rnd, o_0 .. "
+                         f"o_F-1] back to back on {device}")
+    return rnd.data_ptr()
+
+
 def _drop_ptr(drop, F: int, N: int, device) -> int | None:
     """The drop operand's address for the kernel (None for no operand):
     a contiguous u8 or bool [F, N] tensor on ``device``."""
@@ -222,13 +264,14 @@ def _drop_ptr(drop, F: int, N: int, device) -> int | None:
 
 
 def fused_dissem(heard: torch.Tensor, offs, mf: torch.Tensor,
-                 rx_ok: torch.Tensor, conf_cap: torch.Tensor, rnd: int,
+                 rx_ok: torch.Tensor, conf_cap: torch.Tensor, rnd,
                  budget: int, drop=None) -> torch.Tensor:
     """Launch ``fused_dissem`` of ``csrc/dissem_tail.cu`` on CUDA
     tensors (the arguments of ``disseminate_ref``; caps >= 0; ``drop``
-    None or u8/bool [F, N]); returns a new ``[S, N]`` u8 tensor.  Launches
-    on the current stream and does not synchronise.  Raises on anything
-    the kernel does not take."""
+    None or u8/bool [F, N]; ``rnd`` and ``offs`` back to back in device
+    memory); returns a new ``[S, N]`` u8
+    tensor.  Launches on the current stream and does not synchronise.
+    Raises on anything the kernel does not take."""
     global launches, drop_launches
     require_cuda("fused_dissem", heard)
     if heard.dim() != 2 or heard.dtype != torch.uint8:
@@ -243,13 +286,13 @@ def fused_dissem(heard: torch.Tensor, offs, mf: torch.Tensor,
     budget = int(budget)
     _check_legs(offs, budget)
     drop_p = _drop_ptr(drop, len(offs), N, dev)
+    args_p = _device_args(rnd, offs, dev)
     out = torch.empty_like(heard)
     if heard.numel() == 0:
         return out
-    c_offs = _array(_CI, len(offs))(*(int(o) % N for o in offs))
-    _launch("fused_dissem", dev, heard.data_ptr(), out.data_ptr(),
-            mf.data_ptr(), rx_ok.data_ptr(), conf_cap.data_ptr(), drop_p, S,
-            N, len(offs), c_offs, int(rnd), budget)
+    head = (heard.data_ptr(), out.data_ptr(), mf.data_ptr(),
+            rx_ok.data_ptr(), conf_cap.data_ptr(), drop_p, S, N, len(offs))
+    _launch("fused_dissem", dev, *head, args_p, budget)
     launches += 1
     drop_launches += drop_p is not None
     launch_shapes.add(("fused_dissem", S, N, 1, len(offs), budget))
@@ -257,7 +300,7 @@ def fused_dissem(heard: torch.Tensor, offs, mf: torch.Tensor,
 
 
 def fused_merge(heard, offs, mf: torch.Tensor, rx_ok: torch.Tensor,
-                conf_cap: torch.Tensor, rnd: int, budget: int, drop=None):
+                conf_cap: torch.Tensor, rnd, budget: int, drop=None):
     """Launch ``fused_merge`` of ``csrc/dissem_tail.cu`` on a tuple of
     CUDA shards (the arguments of ``merge_shards_ref`` but ``p`` and
     ``sc``: ``heard`` is ``ndev`` u8 [S, L] shards, ``mf``/``rx_ok`` the
@@ -288,25 +331,27 @@ def fused_merge(heard, offs, mf: torch.Tensor, rx_ok: torch.Tensor,
     budget = int(budget)
     _check_legs(offs, budget)
     drop_p = _drop_ptr(drop, len(offs), N, dev)
+    args_p = _device_args(rnd, offs, dev)
     out = torch.empty((ndev, S, L), dtype=torch.uint8, device=dev)
     if out.numel() == 0:
         return out.unbind(0)
     table = _array(_VP, ndev)(*(h.data_ptr() for h in heard))
-    c_offs = _array(_CI, len(offs))(*(int(o) % N for o in offs))
-    _launch("fused_merge", dev, table, ndev, out.data_ptr(), mf.data_ptr(),
-            rx_ok.data_ptr(), conf_cap.data_ptr(), drop_p, S, L, len(offs),
-            c_offs, int(rnd), budget, 0, ndev)
+    head = (table, ndev, out.data_ptr(), mf.data_ptr(), rx_ok.data_ptr(),
+            conf_cap.data_ptr(), drop_p, S, L, len(offs))
+    _launch("fused_merge", dev, *head, args_p, budget, 0, ndev)
     merge_launches += 1
     merge_drop_launches += drop_p is not None
     launch_shapes.add(("fused_merge", S, L, ndev, len(offs), budget))
     return out.unbind(0)
 
 
-def _disseminate_sharded(p: SwimParams, rnd: int, offs, heard, mf, rx_ok,
+def _disseminate_sharded(p: SwimParams, rnd, offs, heard, mf, rx_ok,
                          conf_cap, sc, drop):
     """The reference's ``_fused_sharded`` with its halo hop: one launch
     for all shards on CUDA tensors, the plain composition on CPU
     tensors."""
+    _log("fused_merge", heard[0].shape[0], sc.L, sc.ndev, offs,
+         p.spread_budget_rounds, drop)
     if heard[0].device.type == "cpu":
         return merge_shards_ref(p, rnd, offs, heard, mf, rx_ok, conf_cap, sc,
                                 drop)
@@ -314,7 +359,7 @@ def _disseminate_sharded(p: SwimParams, rnd: int, offs, heard, mf, rx_ok,
                        p.spread_budget_rounds, drop)
 
 
-def disseminate(p: SwimParams, rnd: int, offs, heard, mf: torch.Tensor,
+def disseminate(p: SwimParams, rnd, offs, heard, mf: torch.Tensor,
                 rx_ok: torch.Tensor, conf_cap: torch.Tensor, sc=None,
                 drop=None):
     """The round's dense tail (reference ``fused_disseminate``): the
@@ -331,6 +376,8 @@ def disseminate(p: SwimParams, rnd: int, offs, heard, mf: torch.Tensor,
         # tiles on its own, but the same configurations are refused.
         require_divisible(heard.shape[1], p.fused_nb, what="n",
                           by="fused_nb")
+    _log("fused_dissem", *heard.shape, 1, offs, p.spread_budget_rounds,
+         drop)
     if heard.device.type == "cpu":
         return disseminate_ref(p, rnd, offs, heard, mf, rx_ok, conf_cap,
                                drop)

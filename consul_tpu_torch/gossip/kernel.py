@@ -8,20 +8,30 @@ round is bit-identical to the reference's — every field of
 ``RoundTrace`` (``tests/test_torch_kernel.py``; under each nemesis
 scenario, ``tests/test_torch_nemesis.py``).
 
-How the JAX program maps onto eager PyTorch:
+How the JAX program maps onto PyTorch:
 
-- ``jit`` has no counterpart; ``lax.scan`` is the Python loop of
-  ``run_rounds``.
-- The PRNG key lives on the host (``consul_tpu_torch.prng``); keys and
-  the small offset draws are host integers, the per-prober uniforms are
-  drawn on the device.
-- ``run_rounds`` mirrors the round counter on the host (one read per
-  call), so everything derived from ``rnd`` — the prober block, the
-  push/pull cadence — costs no device→host read.
-- Each ``lax.cond`` on a device value becomes a host branch on one read:
-  ``n_active`` once per round (quiescent / hot / full tail) and
-  ``any_join`` once per round when ``join_round`` is passed.
-  ``host_syncs`` counts every such read.
+- ``jax.jit(run_rounds)`` is ``gossip/program.py``'s ``RoundProgram`` on
+  a card: one round captured as a CUDA graph per variant (below) and
+  replayed once a round.  The eager round of this module is its plain
+  version: the CPU runs it, and so does a card when asked
+  (``graphed=False``).
+- ``lax.scan``'s traced round counter becomes a table: the scalars the
+  reference derives from ``rnd`` (the keys of the round's draws, the
+  probe offsets, the gossip shifts, the push/pull partner, the prober
+  block; ``gossip/round_args.py``) are built on the host for all of a
+  call's rounds and read on the device from row ``step`` (a device
+  counter).  No argument of an operation or a launch depends on the round
+  number, so one capture serves every round.  ``run_rounds`` mirrors the
+  round counter on the host (one read per call).
+- Branches on ``rnd`` alone (the push/pull round, the nemesis fault
+  window, the degraded observers' prober block, the flapping phase) are
+  taken on the host from that mirror: each is part of the round's
+  ``Variant``, one captured graph each.
+- Each ``lax.cond`` on a device value (the join tick on ``any_join``;
+  the quiescent / hot / full tail on ``n_active``) is ``_when`` /
+  ``_switch``: eagerly a host branch on one read (``host_syncs`` counts
+  every such read), and under the round program's capture a conditional
+  graph node on the device predicate, with no read.
 - ``.at[i].set/add(..., mode="drop")`` scatters, whose dropped indices
   equal the axis size, write into a padded sink element that is sliced
   off (``_set_drop``/``_add_drop``); torch would raise on them.
@@ -55,6 +65,7 @@ import torch
 from consul_tpu_torch import prng
 from consul_tpu_torch.prng import _f32
 from consul_tpu_torch._device import resolve_device
+from consul_tpu_torch.gossip import round_args
 from consul_tpu_torch.gossip.nemesis import NemesisParams
 from consul_tpu_torch.gossip.params import SwimParams
 from consul_tpu_torch.obs.constants import LATENCY_BUCKETS as _HIST_LAT
@@ -82,13 +93,18 @@ _AGE_FRESH = 0xF  # sentinel: written by this round's probe marks, pre-aging
 
 _I32 = torch.int32
 
-# Device->host reads made by the round loop (the round counter and the
-# flight cursor once per run_rounds call, n_active once per round,
-# any_join once per round when join_round is passed).
+# Device->host reads made by the round loop: the round counter and the
+# flight cursor once per run_rounds call; in the eager round also n_active
+# once per round and any_join once per round when join_round is passed.
 host_syncs = 0
 # Rounds by the tail they took: only "hot" and "full" rounds run the
-# dissemination tail (one kernel launch each on a card).
+# dissemination tail (one kernel launch each on a card).  Replayed rounds
+# count on the device; ``program.settle_counts()`` adds them here.
 tail_rounds = {"quiescent": 0, "hot": 0, "full": 0}
+# The round program's recorder while it captures a round
+# (``gossip/program.py``), else None: ``_when`` and ``_switch`` then emit
+# conditional graph nodes instead of reading their predicate.
+_recorder = None
 
 
 def _enc(msg: int, conf: int = 0, age: int = 0) -> int:
@@ -235,11 +251,80 @@ def _add_drop(x: torch.Tensor, idx: torch.Tensor,
     return out[:n]
 
 
-def _dslice(x: torch.Tensor, start: int, size: int) -> torch.Tensor:
-    """``lax.dynamic_slice`` along dim 0 with a host start (clamped so
-    the window fits, as XLA clamps it)."""
-    start = min(max(start, 0), x.shape[0] - size)
-    return x[start:start + size]
+def _roll(x: torch.Tensor, o, dim: int) -> torch.Tensor:
+    """``torch.roll(x, o, dims=dim)`` by a device shift ``o`` (an int32
+    scalar tensor from the round's row), as a gather, ``out[c] = x[(c - o)
+    mod n]``, whose arguments do not depend on the shift's value."""
+    n = x.shape[dim]
+    return x.index_select(dim, (torch.arange(n, device=x.device)
+                                - o).remainder(n))
+
+
+def _leaves(tree) -> list:
+    """The tensors of a nest of tuples (``None`` leaves skipped), in
+    order: how ``_when``/``_switch`` pair results with buffers."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for x in tree for t in _leaves(x)]
+
+
+def _when(pred: torch.Tensor, fn, operand):
+    """``lax.cond(pred, fn, identity, operand)`` for a device ``pred``:
+    eagerly one host read, then ``fn(operand)`` or ``operand``.  Under the
+    round program's capture, ``fn``'s work is the body of a conditional
+    graph node on ``pred`` and writes its result into ``operand``'s own
+    tensors (the program's buffers), so nothing is read."""
+    if _recorder is None:
+        return fn(operand) if _host_int(pred) else operand
+    return _recorder.when(pred, fn, operand)
+
+
+def _switch(which: torch.Tensor, branches, names, dst):
+    """``lax.switch(which, branches)`` for a device index: eagerly one
+    host read, then ``branches[which]()`` (counted in ``tail_rounds`` by
+    ``names``).  Under the round program's capture, each branch is the
+    body of a conditional graph node on ``which == i`` that writes its
+    result into ``dst`` (the program's buffers, of the results' structure),
+    and its rounds are counted on the device."""
+    if _recorder is None:
+        i = _host_int(which)
+        tail_rounds[names[i]] += 1
+        return branches[i]()
+    return _recorder.switch(which, branches, names, dst)
+
+
+class Variant(NamedTuple):
+    """The round's branches on ``rnd`` alone, taken on the host from its
+    mirror of the round counter (``round_variant``); each variant is one
+    captured graph of the round program.  There are at most
+    ``MAX_VARIANTS``: push/pull or not, times outside the fault window or
+    inside it with the prober block on the degraded observers or not and
+    the flapping nodes down or not."""
+
+    pushpull: bool    # a push/pull round
+    in_window: bool   # inside the nemesis fault window
+    degraded: bool    # ... and the prober block meets the degraded ids
+    flap_down: bool   # ... and the flapping nodes are in a down phase
+
+
+MAX_VARIANTS = 2 * (1 + 2 * 2)
+
+
+def round_variant(p: SwimParams, nem: NemesisParams | None,
+                  rnd: int) -> Variant:
+    pp = bool(p.pushpull_every) and (rnd % p.pushpull_every
+                                     == p.pushpull_every - 1)
+    if nem is None or not _nem_in_window(nem, rnd):
+        return Variant(pp, False, False, False)
+    B = _block_size(p)
+    blk = (rnd % p.probe_every) * B
+    degraded = (nem.has_degraded and blk < nem.obs_hi
+                and blk + B > nem.obs_lo)
+    down = nem.has_flap and (((rnd - nem.start) % nem.flap_period)
+                             >= nem.flap_up)
+    return Variant(pp, True, bool(degraded), bool(down))
 
 
 def _hist_add(bank: torch.Tensor, mask: torch.Tensor,
@@ -279,19 +364,20 @@ def _nem_in_window(nem: NemesisParams, rnd: int) -> bool:
     return nem.start <= rnd < nem.stop
 
 
-def _nem_schedule(nem: NemesisParams, rnd: int, fail_round, join_round):
+def _nem_schedule(nem: NemesisParams, v: Variant, rnd, fail_round,
+                  join_round):
     """The round's injection schedule on the ground-truth inputs
-    (reference ``_nem_schedule``): a flapping node's down phase fails it
-    now, its up phase re-arms ``join_round``; after a healed partition
-    every node is join-pending (the join tick ignores members)."""
+    (reference ``_nem_schedule``): a flapping node's down phase (in the
+    window; ``v.flap_down``) fails it now, its up phase re-arms
+    ``join_round``; after a healed partition every node is join-pending
+    (the join tick ignores members)."""
     if nem.has_flap:
         flap = _nem_flap_ids(nem, fail_round.shape[0], fail_round.device)
-        down_phase = ((rnd - nem.start) % nem.flap_period) >= nem.flap_up
-        if _nem_in_window(nem, rnd) and down_phase:
-            fail_round = torch.where(flap, fail_round.clamp(max=rnd),
+        if v.flap_down:
+            fail_round = torch.where(flap, torch.minimum(fail_round, rnd),
                                      fail_round)
         else:
-            join_round = torch.where(flap, join_round.clamp(max=rnd),
+            join_round = torch.where(flap, torch.minimum(join_round, rnd),
                                      join_round)
     if nem.heal_rejoin:
         join_round = join_round.clamp(max=nem.stop)
@@ -327,14 +413,15 @@ def _nem_edge_drops(nem: NemesisParams, n: int, device, keys,
 # replicates them by construction, so one copy is exact.  Its
 # collectives become tensor code on this known layout: a ppermute is
 # indexing into the shard list, a psum the sum of the per-shard
-# contributions.  Every shift (gossip offsets, the push/pull shift, the
-# prober block) is a host int, so each shard boundary is host
-# arithmetic and the sharded round makes no device->host read that the
+# contributions.  The shifts (gossip offsets, the push/pull shift, the
+# prober block) are device values from the round's row, so a read that
+# crosses shards masks each shard's own columns (``_owned``) and sums
+# (``_psum``), and the sharded round makes no device->host read that the
 # single-device round does not.  Bytes cross between shards only in
-# ``_roll_sharded``, ``_psum`` and the dissemination tail's merge kernel
-# (``fused.fused_merge``, which reads its pins from every shard through a
-# table of shard pointers); placing the shards on several cards changes
-# those three.
+# ``_roll_sharded``, ``_points``, ``_psum`` and the dissemination tail's
+# merge kernel (``fused.fused_merge``, which reads its pins from every
+# shard through a table of shard pointers); placing the shards on several
+# cards changes those.
 
 class _ShardCtx(NamedTuple):
     """Sharding context threaded through the round phases; ``None``
@@ -358,14 +445,11 @@ def _sloc(sc: _ShardCtx, v: torch.Tensor, i: int) -> torch.Tensor:
     return v[i * sc.L:(i + 1) * sc.L]
 
 
-def _sloc_roll(sc: _ShardCtx, v: torch.Tensor, o: int, i: int) -> torch.Tensor:
-    """Shard ``i``'s [L] slice of ``torch.roll(v, o)``: a view, or two
-    slices joined where the window wraps."""
-    n = v.shape[0]
-    start = (i * sc.L - o) % n
-    if start + sc.L <= n:
-        return v[start:start + sc.L]
-    return torch.cat([v[start:], v[:start + sc.L - n]])
+def _sloc_roll(sc: _ShardCtx, v: torch.Tensor, o, i: int) -> torch.Tensor:
+    """Shard ``i``'s [L] slice of ``torch.roll(v, o)`` for a device shift
+    ``o``: a gather."""
+    cols = i * sc.L + torch.arange(sc.L, device=v.device) - o
+    return v[cols.remainder(v.shape[0])]
 
 
 def _owned(sc: _ShardCtx, cols: torch.Tensor, i: int):
@@ -376,23 +460,19 @@ def _owned(sc: _ShardCtx, cols: torch.Tensor, i: int):
             (cols - base).clamp(0, sc.L - 1).long())
 
 
-def _roll_sharded(sc: _ShardCtx, xs, o: int, out=None):
-    """Global ``torch.roll(x, o, dims=-1)`` of a sharded ``x``.
-
-    With ``q, r = divmod(o mod N, L)``, output shard ``i`` is the last
-    ``r`` columns of source shard ``(i - q - 1) % ndev`` followed by the
-    first ``L - r`` columns of source shard ``(i - q) % ndev``.  ``out``
-    (one tensor per shard) receives the result in place."""
+def _roll_sharded(sc: _ShardCtx, xs, o, out=None):
+    """Global ``torch.roll(x, o, dims=-1)`` of a sharded ``x`` by a device
+    shift ``o``: each output shard's columns gathered from the joined
+    matrix.  ``out`` (one tensor per shard) receives the result in
+    place."""
     L, nd = sc.L, sc.ndev
-    q, r = divmod(o % (L * nd), L)
+    full = torch.cat(xs, dim=-1)
     res = []
     for i in range(nd):
-        prev, this = xs[(i - q - 1) % nd], xs[(i - q) % nd]
-        parts = [prev[..., L - r:], this[..., :L - r]] if r else [this]
-        if out is not None:
-            res.append(torch.cat(parts, dim=-1, out=out[i]))
-        else:
-            res.append(torch.cat(parts, dim=-1) if r else this)
+        cols = (i * L + torch.arange(L, device=full.device)
+                - o).remainder(L * nd)
+        res.append(torch.index_select(full, -1, cols, out=out[i])
+                   if out is not None else full.index_select(-1, cols))
     return tuple(res)
 
 
@@ -402,29 +482,16 @@ def _psum(parts):
     return functools.reduce(torch.add, parts)
 
 
-def _win_read(sc: _ShardCtx, hs, blk: int, B: int) -> torch.Tensor:
-    """The [S, B] window ``heard[:, blk:blk+B]`` of the sharded matrix.
-    It never wraps (``N = B * probe_every``, ``_check_shardable``) and
-    spans one, two or three shards: each contributes its overlap, zero
-    elsewhere, and ``_psum`` merges the disjoint parts exactly."""
+def _points(sc: _ShardCtx, hs, rows: torch.Tensor,
+            cols: torch.Tensor) -> torch.Tensor:
+    """``heard[rows[k], cols[k]]`` of the sharded matrix: each shard
+    gathers the points whose column it owns, zero elsewhere, and
+    ``_psum`` merges the disjoint parts exactly."""
     parts = []
     for i, h in enumerate(hs):
-        lo, hi = max(blk, i * sc.L), min(blk + B, (i + 1) * sc.L)
-        if lo < hi:
-            parts.append(torch.nn.functional.pad(
-                h[:, lo - i * sc.L:hi - i * sc.L], (lo - blk, blk + B - hi)))
+        owned, loc = _owned(sc, cols, i)
+        parts.append(torch.where(owned, h[rows, loc], 0))
     return _psum(parts)
-
-
-def _win_write(sc: _ShardCtx, hs, win: torch.Tensor, blk: int,
-               B: int) -> None:
-    """Write the [S, B] window ``win`` into columns [blk, blk+B) of the
-    sharded matrix, in place: each shard takes only the columns it
-    owns."""
-    for i, h in enumerate(hs):
-        lo, hi = max(blk, i * sc.L), min(blk + B, (i + 1) * sc.L)
-        if lo < hi:
-            h[:, lo - i * sc.L:hi - i * sc.L] = win[:, lo - blk:hi - blk]
 
 
 # -- round phases --------------------------------------------------------------
@@ -533,13 +600,15 @@ def _block_size(p: SwimParams) -> int:
     return max(1, -(-p.n // p.probe_every))
 
 
-def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
+def _probe_tick(p: SwimParams, ra, v: Variant, mf, carry,
                 sc: _ShardCtx | None = None,
                 nem: NemesisParams | None = None,
                 nem_state: NemState | None = None):
     """One round's probe slice: direct probe -> k indirect probes ->
     suspicion initiation for this round's prober block (reference
-    ``_probe_tick``).  ``mf`` packs membership and ground truth:
+    ``_probe_tick``).  ``ra``: the round's row (``round_args.RoundArgs``:
+    the round, the prober block, the probe offsets and the draws' keys, all
+    device values).  ``mf`` packs membership and ground truth:
     ``member ? fail_round : -1``.
 
     ``nem`` adds the nemesis probe legs: cross-group round-trip drops
@@ -549,28 +618,29 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
     Returns ``(carry, probe_stats, nem_state)``."""
     (heard, slot_node, slot_phase, slot_inc, slot_start, slot_nsusp,
      slot_dead_round, slot_of_node, incarnation, member, drops) = carry
-    k_t, k_dl, k_h, k_hl = keys
+    rnd = ra.rnd
     N, S = p.n, p.slots
     B = _block_size(p)
     dev = mf.device
 
-    # This round's probers: block (rnd % probe_every); ids >= N are
-    # padding lanes on the final block and initiate nothing.
-    blk = (rnd % p.probe_every) * B
-    pid = blk + torch.arange(B, dtype=_I32, device=dev)
+    # This round's probers: block (rnd % probe_every), from ra.blk; ids
+    # >= N are padding lanes on the final block and initiate nothing.
+    pid = ra.blk + torch.arange(B, dtype=_I32, device=dev)
     pid_c = pid.clamp(max=N - 1)
     pvalid = pid < N
 
-    mf2 = torch.cat([mf, mf])
-
-    def _mf_block(offset):
-        return _dslice(mf2, (blk + offset) % N, B)
+    def at(x, shift=None):
+        # ``x[(pid + shift) mod N]``: the reference's dynamic_slice of
+        # ``x`` twice over, at the prober block plus a shift.
+        i = pid if shift is None else pid + shift
+        return x[i.remainder(N).long()]
 
     # Direct-probe target pid + o_t, offsets in [1, N-1].
-    offs = [int(o) for o in prng.randint(k_t, (1 + p.indirect_k,), 1, N)]
-    tgt = (pid_c + offs[0]) % N
-    prober_ok = pvalid & (_dslice(mf2, blk, B) > rnd)
-    mf_t = _mf_block(offs[0])
+    offs = ra.probe
+    o_t = offs[0]
+    tgt = (pid_c + o_t) % N
+    prober_ok = pvalid & (at(mf) > rnd)
+    mf_t = at(mf, o_t)
     tgt_member = mf_t >= 0
     tgt_alive = mf_t > rnd
 
@@ -580,45 +650,40 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
     # observers) stay None where they cannot drop anything.
     part = degraded = dir_nem_drop = None
     if nem is not None and (nem.has_partition or nem.has_degraded):
-        k_np, k_no, k_nip, k_nio = prng.split(k_h, 4)
-        in_win = _nem_in_window(nem, rnd)
-        if nem.has_partition and in_win:
-            grp2 = torch.cat([_nem_group(nem, N, dev)] * 2)
-            g_p = _dslice(grp2, blk, B)
-            g_t = _dslice(grp2, (blk + offs[0]) % N, B)
-            part = (grp2, g_p, g_t)
+        k_np, k_no, k_nip, k_nio = ra.k_nem
+        if nem.has_partition and v.in_window:
+            grp = _nem_group(nem, N, dev)
+            g_p, g_t = at(grp), at(grp, o_t)
+            part = (grp, g_p, g_t)
             # A round trip crosses both directions once: the drop
             # probability does not depend on the direction.
             dir_nem_drop = (g_p != g_t) & _draw_below(
                 k_np, (B,), _f32(nem.p_roundtrip), dev)
-        if (nem.has_degraded and in_win and blk < nem.obs_hi
-                and blk + B > nem.obs_lo):
+        if v.degraded:
             degraded = (pid >= nem.obs_lo) & (pid < nem.obs_hi)
             miss = degraded & _draw_below(k_no, (B,), _f32(nem.p_obs_miss),
                                           dev)
             dir_nem_drop = miss if dir_nem_drop is None else (
                 dir_nem_drop | miss)
 
-    lost = ~tgt_alive | _draw_below(k_dl, (B,), _f32(p.p_direct_fail_alive),
-                                    dev)
+    lost = ~tgt_alive | _draw_below(ra.k_dl, (B,),
+                                    _f32(p.p_direct_fail_alive), dev)
     if dir_nem_drop is not None:
         lost = lost | dir_nem_drop
     direct_fail = tgt_member & lost
 
     if p.indirect_k:
-        hu = prng.uniform_tensor(k_hl, (B, p.indirect_k), dev)
-        helper_alive = torch.stack(
-            [_mf_block(offs[1 + j]) > rnd for j in range(p.indirect_k)],
-            dim=1)
+        hu = prng.uniform_tensor(ra.k_hl, (B, p.indirect_k), dev)
+        helpers = (pid[:, None] + offs[None, 1:]).remainder(N).long()
+        helper_alive = mf[helpers] > rnd
         ind_ok = (helper_alive & (tgt_alive & tgt_member)[:, None]
                   & (hu >= _f32(p.p_indirect_fail_alive)))
         if part is not None:
             # Prober<->helper and helper<->target are each a round trip
             # that crosses or not; one draw per helper at the combined
             # drop probability of its crossings.
-            grp2, g_p, g_t = part
-            g_h = torch.stack([_dslice(grp2, (blk + offs[1 + j]) % N, B)
-                               for j in range(p.indirect_k)], dim=1)
+            grp, g_p, g_t = part
+            g_h = grp[helpers]
             n_cross = ((g_p[:, None] != g_h).to(_I32)
                        + (g_h != g_t[:, None]).to(_I32))
             p1 = nem.p_roundtrip
@@ -642,24 +707,15 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
         rescued = torch.zeros((B,), dtype=torch.bool, device=dev)
     init = prober_ok & direct_fail & ~rescued
 
-    # Don't re-suspect a target this prober already believes dead.
-    # Aligned (N = probe_every * B): prober columns are one contiguous
-    # window, read as a slice plus a per-column row pick; otherwise a
-    # 2-D gather at (slot, prober).
+    # Don't re-suspect a target this prober already believes dead: the
+    # byte at (the target's slot, the prober's column), one gather.
+    # Sharded, each shard gathers the columns it owns (``_points``).
     aligned = N == B * p.probe_every
-    s2 = torch.cat([slot_of_node, slot_of_node])
-    s_t = _dslice(s2, (blk + offs[0]) % N, B)
+    s_t = at(slot_of_node, o_t)
     rows = s_t.clamp(0, S - 1).long()
-    if sc is not None:
-        # Sharded (aligned by _check_shardable): the window is read once
-        # and reused for the post-rearm read below (only the rearm clear
-        # touches heard in between, and it is recomputed exactly).
-        hblk_pre = _win_read(sc, heard, blk, B)
-        cur = hblk_pre.gather(0, rows[None, :])[0]
-    elif aligned:
-        cur = heard[:, blk:blk + B].gather(0, rows[None, :])[0]
-    else:
-        cur = heard[rows, pid_c.long()]
+    cols = pid_c.long()
+    cur = (heard[rows, cols] if sc is None
+           else _points(sc, heard, rows, cols))
     init = init & ~((s_t >= 0) & ((cur >> _MSG_SHIFT) == MSG_DEAD))
 
     if nem is not None and nem_state is not None:
@@ -667,8 +723,7 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
         # direct misses than its LHM (at LHM 0, every miss).  LHM rises
         # on a miss the helpers contradict and falls on a clean probe.
         lhm, streak = nem_state
-        lhm_b = _dslice(torch.cat([lhm, lhm]), blk, B)
-        streak_b = _dslice(torch.cat([streak, streak]), blk, B)
+        lhm_b, streak_b = at(lhm), at(streak)
         miss = prober_ok & tgt_member & direct_fail
         streak_new = torch.where(
             miss, (streak_b + 1).clamp(max=nem.lhm_max + 1), 0)
@@ -686,7 +741,7 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
     # Circulant targets are distinct within a round, so a slot's subject
     # has at most one initiator: i = (subject - blk - o) mod N.
     init_i = init.to(_I32)
-    i_s = (node_c - blk - offs[0]) % N
+    i_s = (node_c - ra.blk - o_t) % N
     in_blk = valid & (i_s < B)
     add_here = torch.where(in_blk, init_i[i_s.clamp(max=B - 1).long()], 0)
     slot_want = add_here > 0
@@ -729,34 +784,32 @@ def _probe_tick(p: SwimParams, rnd: int, keys, mf, carry,
     drops = drops + (n_need - served)
 
     # Initiators record their own suspicion with a fresh age so the
-    # rumor re-enters circulation.
-    s2b = torch.cat([slot_of_node, slot_of_node])
-    s_t2 = _dslice(s2b, (blk + offs[0]) % N, B)
+    # rumor re-enters circulation: one byte a marking prober, at (the
+    # target's slot, the prober's column).
+    s_t2 = at(slot_of_node, o_t)
     rows2 = s_t2.clamp(0, S - 1).long()
-    conf_bits = _CONF_MASK << _CONF_SHIFT
-    if sc is not None or aligned:
-        # Sharded: the post-rearm window, recomputed from the pre-rearm
-        # read; the write-back is per shard.
-        hblk = (heard[:, blk:blk + B] if sc is None
-                else hblk_pre.masked_fill(rearm[:, None], 0))
-        cur2 = hblk.gather(0, rows2[None, :])[0]
-        mark_ok = (init & (s_t2 >= 0)
-                   & ((cur2 >> _MSG_SHIFT) <= MSG_SUSPECT))
-        fresh = _enc(MSG_SUSPECT, age=_AGE_FRESH) | (cur2 & conf_bits)
-        sel = ((torch.arange(S, device=dev)[:, None] == rows2[None, :])
-               & mark_ok[None, :])
-        win = torch.where(sel, fresh[None, :], hblk)
-        if sc is None:
-            heard[:, blk:blk + B] = win
-        else:
-            _win_write(sc, heard, win, blk, B)
-    else:
-        cur2 = heard[rows2, pid_c.long()]
-        mark_ok = (init & (s_t2 >= 0)
-                   & ((cur2 >> _MSG_SHIFT) <= MSG_SUSPECT))
-        fresh = _enc(MSG_SUSPECT, age=_AGE_FRESH) | (cur2 & conf_bits)
+    cur2 = (heard[rows2, cols] if sc is None
+            else _points(sc, heard, rows2, cols))
+    mark_ok = init & (s_t2 >= 0) & ((cur2 >> _MSG_SHIFT) <= MSG_SUSPECT)
+    fresh = (_enc(MSG_SUSPECT, age=_AGE_FRESH)
+             | (cur2 & (_CONF_MASK << _CONF_SHIFT)))
+    if sc is None and aligned:
+        # Every lane a distinct column: each writes its mark or the byte
+        # it read, in place.
+        heard.index_put_((rows2, cols), torch.where(mark_ok, fresh, cur2))
+    elif sc is None:
+        # Padding lanes share column N - 1: marks only, through the sink.
         flat = torch.where(mark_ok, rows2 * N + pid_c, S * N)
         heard = _set_drop(heard.reshape(-1), flat, fresh).view(S, N)
+    else:
+        # Each shard takes the marks in the columns it owns.
+        shards = []
+        for i, h in enumerate(heard):
+            owned, loc = _owned(sc, cols, i)
+            flat = torch.where(owned & mark_ok, rows2 * sc.L + loc,
+                               S * sc.L)
+            shards.append(_set_drop(h.reshape(-1), flat, fresh).view(S, sc.L))
+        heard = tuple(shards)
 
     probe_stats = (
         prober_ok.sum(dtype=_I32),                                # probes
@@ -776,23 +829,22 @@ def gossip_offsets(key, n: int, fanout: int) -> list[int]:
     return [int(o) for o in prng.randint(key, (fanout,), 1, n)]
 
 
-def _disseminate(p: SwimParams, rnd: int, k_gossip, heard, mf, rx_ok,
-                 conf_cap, sc: _ShardCtx | None = None,
-                 nem: NemesisParams | None = None, k_nem=None):
+def _disseminate(p: SwimParams, ra, v: Variant, heard, mf, rx_ok, conf_cap,
+                 sc: _ShardCtx | None = None,
+                 nem: NemesisParams | None = None):
     """One round of rumor push: the dense tail of ``gossip/fused.py`` —
     the Hopper kernels on CUDA tensors, their plain versions on the
-    CPU.  Inside a partition's fault window each leg ``f`` drops its
-    cross-group deliveries off ``fold_in(k_nem, f)``: the tail takes them
-    as its drop operand, ``[fanout, N]`` by destination column."""
+    CPU, reading the round and its gossip shifts from the row ``ra``.
+    Inside a partition's fault window each leg ``f`` drops its
+    cross-group deliveries off ``fold_in(fold_in(key, 4), f)``: the tail
+    takes them as its drop operand, ``[fanout, N]`` by destination
+    column."""
     from consul_tpu_torch.gossip.fused import disseminate
-    offs = gossip_offsets(k_gossip, p.n, p.fanout)
     drop = None
-    if (nem is not None and nem.has_partition
-            and _nem_in_window(nem, rnd)):
-        drop = _nem_edge_drops(nem, p.n, mf.device,
-                               [prng.fold_in(k_nem, f)
-                                for f in range(p.fanout)], offs)
-    return disseminate(p, rnd, offs, heard, mf, rx_ok, conf_cap, sc, drop)
+    if nem is not None and nem.has_partition and v.in_window:
+        drop = _nem_edge_drops(nem, p.n, mf.device, ra.k_legs, ra.gossip)
+    return disseminate(p, ra.rnd, ra.gossip, heard, mf, rx_ok, conf_cap, sc,
+                       drop)
 
 
 def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
@@ -994,31 +1046,35 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
     return st, hist, nem_state
 
 
-def _swim_round_impl(state: SwimState, rnd: int, base_key,
+def _swim_round_impl(state: SwimState, ra, v: Variant,
                      fail_round: torch.Tensor, p: SwimParams,
                      join_round: torch.Tensor | None, collect: bool,
                      hist: HistBank | None = None,
                      sc: _ShardCtx | None = None,
                      nem: NemesisParams | None = None,
-                     nem_state: NemState | None = None):
+                     nem_state: NemState | None = None, dst=None):
     """One round + (optionally) its flight-recorder row + histograms,
     under a nemesis schedule when ``nem`` is given (with the Lifeguard
     registers when ``nem_state`` is).
 
-    ``rnd`` is the host mirror of ``state.round``.  Returns
-    ``(state, row, hist, nem_state)``; ``row`` is None unless
-    ``collect``."""
-    key = prng.fold_in(base_key, rnd)
-    k_probe = prng.split(prng.fold_in(key, 1), 4)
-    k_gossip = prng.fold_in(key, 2)
-
+    ``ra`` is the round's row (``round_args.RoundArgs``), ``v`` its
+    ``Variant``.  ``dst``: under the round program's capture, the
+    program's buffers ``(state, hist, nem_state, tx)`` that the tail's
+    branches write (``_switch``); unused eagerly.  Returns ``(state, row,
+    hist, nem_state)``; ``row`` is None unless ``collect``."""
+    rnd = ra.rnd
     N, S = p.n, p.slots
     dev = state.slot_node.device
+    # The counters the flight row differences, before any branch writes
+    # them (under capture ``state`` is the program's buffers).
+    before = (torch.stack([state.round, state.n_refuted,
+                           state.n_detected + state.n_false_dead,
+                           state.drops]) if collect else None)
     if nem is not None:
         # The kills half of the schedule rewrites the ground truth before
         # any phase reads it.
         _require_join(nem, join_round)
-        fail_round, join_round = _nem_schedule(nem, rnd, fail_round,
+        fail_round, join_round = _nem_schedule(nem, v, rnd, fail_round,
                                                join_round)
     alive = fail_round > rnd
 
@@ -1026,19 +1082,20 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
              state.slot_start, state.slot_nsusp, state.slot_dead_round,
              state.slot_of_node, state.incarnation, state.member, state.drops)
 
-    # -- 0. join tick: admit pending joiners (alive@inc rumors).
+    # -- 0. join tick: admit pending joiners (alive@inc rumors); the
+    # reference's lax.cond on any pending joiner.
     if join_round is not None:
         any_join = ((join_round <= rnd) & ~state.member
                     & (fail_round > rnd)).any()
-        if _host_int(any_join):
-            carry = _join_tick(p, rnd, carry, join_round, fail_round, sc)
+        carry = _when(any_join, lambda c: _join_tick(
+            p, rnd, c, join_round, fail_round, sc), carry)
 
     member_now = carry[9]
     mf = torch.where(member_now, fail_round, -1)
 
     # -- 1. probe tick, on the un-aged matrix.
-    carry, probe_stats, nem_state = _probe_tick(p, rnd, k_probe, mf, carry,
-                                                sc, nem, nem_state)
+    carry, probe_stats, nem_state = _probe_tick(p, ra, v, mf, carry, sc,
+                                                nem, nem_state)
     (heard, slot_node, slot_phase, slot_inc, slot_start, slot_nsusp,
      slot_dead_round, slot_of_node, incarnation, member, drops) = carry
 
@@ -1049,33 +1106,27 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
 
     def _maybe_pushpull(h, sub_rx_ok):
         # Push/pull anti-entropy: full belief exchange with one partner
-        # along a circulant pairing, both directions, ignoring the
-        # spread budget.
-        if (not p.pushpull_every
-                or rnd % p.pushpull_every != p.pushpull_every - 1):
+        # along a circulant pairing (shifts o and -o), both directions,
+        # ignoring the spread budget.
+        if not v.pushpull:
             return h
-        o = int(prng.randint(prng.fold_in(key, 3), (), 1, N))
 
         def _take(h, hin, ok):
             upgraded = (((hin >> _MSG_SHIFT) > (h >> _MSG_SHIFT))
                         & ok[None, :])
             return torch.where(upgraded, hin, h)
 
-        shifts = (o, -o)
         # Inside a partition's window the two sync legs drop cross-group
         # columns off fold_in(fold_in(key, 5), j), drawn over all N.
         live = [None, None]
-        if (nem is not None and nem.has_partition
-                and _nem_in_window(nem, rnd)):
-            k_pp = prng.fold_in(key, 5)
-            live = ~_nem_edge_drops(nem, N, dev, [prng.fold_in(k_pp, j)
-                                                  for j in (0, 1)], shifts)
-        for shift, lv in zip(shifts, live):
+        if nem is not None and nem.has_partition and v.in_window:
+            live = ~_nem_edge_drops(nem, N, dev, ra.k_pp, ra.pp)
+        for shift, lv in zip(ra.pp, live):
             if sc is None:
-                ok = sub_rx_ok & (torch.roll(mf, shift) > rnd)
+                ok = sub_rx_ok & (_roll(mf, shift, 0) > rnd)
                 if lv is not None:
                     ok = ok & lv
-                h = _take(h, torch.roll(h, shift, dims=1), ok)
+                h = _take(h, _roll(h, shift, 1), ok)
             else:
                 hin = _roll_sharded(sc, h, shift)
                 h = tuple(
@@ -1085,29 +1136,36 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
                     for i in range(sc.ndev))
         return h
 
-    # Key 4 is the dissemination legs' drops (5 is push/pull's).
-    k_nem = (prng.fold_in(key, 4)
-             if nem is not None and nem.has_partition else None)
+    def _tx(new_heard):
+        # Dissemination bytes: every in-budget rumor entry pushed to
+        # ``fanout`` peers.
+        if not collect:
+            return None
+
+        def one(h):
+            live = ((h >> _MSG_SHIFT) > 0) & ((h & _AGE_MASK)
+                                              < p.spread_budget_rounds)
+            return p.fanout * live.sum(dtype=_I32)
+
+        return one(new_heard) if sc is None else _psum(
+            [one(h) for h in new_heard])
 
     def _tail(heard_sub, full_heard, idx, cap):
-        heard_sub = _disseminate(p, rnd, k_gossip, heard_sub, mf, rx_ok, cap,
-                                 sc, nem, k_nem)
+        heard_sub = _disseminate(p, ra, v, heard_sub, mf, rx_ok, cap, sc,
+                                 nem)
         heard_sub = _maybe_pushpull(heard_sub, rx_ok)
-        return _finish_round(p, state, rnd, fail_round, alive, member,
-                             heard_sub, full_heard, idx, slot_node,
-                             slot_phase, slot_inc, slot_start, slot_nsusp,
-                             slot_dead_round, slot_of_node, incarnation,
-                             drops, conf_cap, rx_ok, sc, hist, nem,
-                             nem_state)
+        st, hb, ns = _finish_round(p, state, rnd, fail_round, alive, member,
+                                   heard_sub, full_heard, idx, slot_node,
+                                   slot_phase, slot_inc, slot_start,
+                                   slot_nsusp, slot_dead_round, slot_of_node,
+                                   incarnation, drops, conf_cap, rx_ok, sc,
+                                   hist, nem, nem_state)
+        return st, hb, ns, _tx(st.heard)
 
-    n_active = _host_int((slot_node >= 0).sum(dtype=_I32))
-    hot = bool(p.hot_slots) and S > p.hot_slots and n_active <= p.hot_slots
-    tail_rounds["quiescent" if n_active == 0 else "hot" if hot else
-                "full"] += 1
-    if n_active == 0:
-        # Quiescent: the belief matrix is all-zero and every
-        # age/gossip/timer/GC pass is a no-op; the banks pass through.
-        new_state = SwimState(
+    def quiescent():
+        # The belief matrix is all-zero and every age/gossip/timer/GC
+        # pass is a no-op; the banks pass through.
+        st = SwimState(
             round=state.round + 1, heard=heard, slot_node=slot_node,
             slot_phase=slot_phase, slot_inc=slot_inc, slot_start=slot_start,
             slot_nsusp=slot_nsusp, slot_dead_round=slot_dead_round,
@@ -1115,51 +1173,94 @@ def _swim_round_impl(state: SwimState, rnd: int, base_key,
             drops=drops, n_detected=state.n_detected,
             sum_detect_rounds=state.sum_detect_rounds,
             n_false_dead=state.n_false_dead, n_refuted=state.n_refuted)
-        hist_out = hist
+        tx = (torch.zeros((), dtype=_I32, device=dev) if collect else None)
+        return st, hist, nem_state, tx
+
+    def hot_tail():
+        # Hot tier: the H live episodes' rows (top_k over the 0/1 activity
+        # vector, lowest-index ties = stable argsort), padded with inactive
+        # rows, which are no-ops end to end.  Sharded: each shard gathers
+        # its own [H, L] rows.
+        act = (slot_node >= 0).to(_I32)
+        idx = torch.argsort(-act, stable=True)[:p.hot_slots].to(_I32)
+        il = idx.long()
+        return _tail(_per_shard(sc, heard, lambda h: h[il]), heard, idx,
+                     conf_cap[il])
+
+    def full_tail():
+        return _tail(heard, None, torch.arange(S, dtype=_I32, device=dev),
+                     conf_cap)
+
+    # The reference's lax.conds on the live episodes: quiescent, hot or
+    # full tail.
+    n_active = (slot_node >= 0).sum(dtype=_I32)
+    if bool(p.hot_slots) and S > p.hot_slots:
+        which = torch.where(n_active == 0, 0,
+                            torch.where(n_active <= p.hot_slots, 1, 2))
+        branches, names = ((quiescent, hot_tail, full_tail),
+                           ("quiescent", "hot", "full"))
     else:
-        if hot:
-            # Hot tier: the H live episodes' rows (top_k over the 0/1
-            # activity vector, lowest-index ties = stable argsort),
-            # padded with inactive rows, which are no-ops end to end.
-            # Sharded: each shard gathers its own [H, L] rows.
-            act = (slot_node >= 0).to(_I32)
-            idx = torch.argsort(-act, stable=True)[:p.hot_slots].to(_I32)
-            il = idx.long()
-            out = _tail(_per_shard(sc, heard, lambda h: h[il]), heard, idx,
-                        conf_cap[il])
-        else:
-            out = _tail(heard, None,
-                        torch.arange(S, dtype=_I32, device=dev), conf_cap)
-        new_state, hist_out, nem_state = out
+        which = (n_active > 0).to(_I32)
+        branches, names = (quiescent, full_tail), ("quiescent", "full")
+    new_state, hist_out, nem_state, tx = _switch(which, branches, names, dst)
     if not collect:
         return new_state, None, hist_out, nem_state
 
-    # -- flight row (obs.constants.FLIGHT_COLS order).  Dissemination
-    # bytes: every in-budget rumor entry pushed to ``fanout`` peers.
-    if n_active:
-        def _tx(h):
-            live = ((h >> _MSG_SHIFT) > 0) & ((h & _AGE_MASK)
-                                              < p.spread_budget_rounds)
-            return p.fanout * live.sum(dtype=_I32)
-
-        tx = (_tx(new_state.heard) if sc is None
-              else _psum([_tx(h) for h in new_state.heard]))
-    else:
-        tx = torch.zeros((), dtype=_I32, device=dev)
-    dead_before = state.n_detected + state.n_false_dead
-    dead_after = new_state.n_detected + new_state.n_false_dead
+    # -- flight row (obs.constants.FLIGHT_COLS order).
     row = torch.stack([
-        state.round,
+        before[0],
         *probe_stats,
-        new_state.n_refuted - state.n_refuted,
-        dead_after - dead_before,
+        new_state.n_refuted - before[1],
+        new_state.n_detected + new_state.n_false_dead - before[2],
         (new_state.slot_phase == PHASE_JOIN).sum(dtype=_I32),
         (new_state.slot_node >= 0).sum(dtype=_I32),
         tx,
-        new_state.drops - state.drops,
+        new_state.drops - before[3],
         new_state.member.sum(dtype=_I32),
     ]).to(_I32)
     return new_state, row, hist_out, nem_state
+
+
+def _trace_row(state: SwimState, sc: _ShardCtx | None):
+    """The round's ``RoundTrace`` row, six [S] tensors."""
+    def holders(h, mem):
+        msg = h >> _MSG_SHIFT
+        return (((msg == MSG_DEAD) & mem[None, :]).sum(dim=1, dtype=_I32),
+                ((msg == MSG_REFUTE) & mem[None, :]).sum(dim=1, dtype=_I32))
+
+    if sc is None:
+        n_dead, n_alive = holders(state.heard, state.member)
+    else:
+        per = [holders(h, _sloc(sc, state.member, i))
+               for i, h in enumerate(state.heard)]
+        n_dead = _psum([d for d, _ in per])
+        n_alive = _psum([a for _, a in per])
+    return (state.slot_node, state.slot_phase, state.slot_start,
+            state.slot_dead_round, n_dead, n_alive)
+
+
+def _round_once(p, table, step, state, v, fail_round, join_round, hist,
+                nem_state, sc=None, nem=None, rows=None, trace_bufs=None,
+                dst=None):
+    """The round at row ``step`` (a device counter, int64 [1]) of the
+    device ``table``: the round itself, its flight row into ``rows`` at
+    the row's ring slot and its trace row into ``trace_bufs`` at
+    ``step``, when given; then ``step`` advances.  Nothing here depends
+    on the round number but through the table, so the round program
+    captures this call once per variant.  Returns ``(state, hist,
+    nem_state)``."""
+    lay = round_args.layout(p.fanout, p.indirect_k)
+    ra = round_args.row_args(lay, table.index_select(0, step)[0])
+    state, row, hist, nem_state = _swim_round_impl(
+        state, ra, v, fail_round, p, join_round, rows is not None, hist, sc,
+        nem, nem_state, dst)
+    if rows is not None:
+        rows.index_copy_(0, ra.flight.view(1).long(), row[None])
+    if trace_bufs is not None:
+        for buf, x in zip(trace_bufs, _trace_row(state, sc)):
+            buf.index_copy_(0, step, x[None])
+    step.add_(1)
+    return state, hist, nem_state
 
 
 def _on(dev: torch.device, tup):
@@ -1228,10 +1329,12 @@ def _one_round(state, base_key, fail_round, p, hist, join_round, device,
     jr = None if join_round is None else _as_i32(join_round, dev)
     if rnd is None:
         rnd = _host_int(state.round)
-    st, _, hb, ns = _swim_round_impl(state, rnd, base_key,
-                                     _as_i32(fail_round, dev), p, jr,
-                                     collect=False, hist=hist, sc=sc,
-                                     nem=nem, nem_state=nem_state)
+    table = round_args.to_device(round_args.build(p, base_key, rnd, 1), dev)
+    step = torch.zeros(1, dtype=torch.int64, device=dev)
+    st, hb, ns = _round_once(p, table, step, state,
+                             round_variant(p, nem, rnd),
+                             _as_i32(fail_round, dev), jr, hist, nem_state,
+                             sc, nem)
     out = ((st,) + ((hb,) if hist is not None else ())
            + ((ns,) if nem_state is not None else ()))
     return out[0] if len(out) == 1 else out
@@ -1242,9 +1345,14 @@ def run_rounds(state: SwimState, base_key, fail_round, p: SwimParams,
                flight: FlightRing | None = None,
                hist: HistBank | None = None, device=None,
                nem: NemesisParams | None = None,
-               nem_state: NemState | None = None):
+               nem_state: NemState | None = None,
+               graphed: bool | None = None):
     """Run ``steps`` rounds (reference ``run_rounds``), under the
-    nemesis schedule ``nem`` if given.
+    nemesis schedule ``nem`` if given.  On a card the rounds are replays
+    of the round program's captured graphs (``gossip/program.py``, the
+    counterpart of the reference's ``jax.jit``); ``graphed=False`` runs
+    the eager round there instead (its plain version, bit-identical; the
+    CPU always runs it).
 
     Returns ``(carry, trace)``: ``carry`` is ``state`` alone, or the
     tuple ``(state[, flight][, hist][, nem_state])`` when those are
@@ -1257,60 +1365,51 @@ def run_rounds(state: SwimState, base_key, fail_round, p: SwimParams,
     _require_unsharded(state)
     return _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
                             join_round, flight, hist, resolve_device(device),
-                            nem=nem, nem_state=nem_state)
+                            nem=nem, nem_state=nem_state, graphed=graphed)
 
 
 def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
                      join_round, flight, hist, dev, sc=None, nem=None,
-                     nem_state=None):
+                     nem_state=None, graphed=None):
+    if graphed is None:
+        graphed = dev.type == "cuda"
     state = _on(dev, state)
     fail_round = _as_i32(fail_round, dev)
     join_round = None if join_round is None else _as_i32(join_round, dev)
     hist = None if hist is None else _on(dev, hist)
     nem_state = None if nem_state is None else _on(dev, nem_state)
+    flight = None if flight is None else _on(dev, flight)
     if nem is not None:
         _require_join(nem, join_round)
+    if graphed:
+        if dev.type != "cuda":
+            raise ValueError(f"graphed rounds run on a CUDA card, not {dev}")
+        from consul_tpu_torch.gossip import program
+        return program.run_rounds(state, base_key, fail_round, p, steps,
+                                  trace, join_round, flight, hist, sc, nem,
+                                  nem_state)
     rnd = _host_int(state.round)
+    rows, cur, R = None, 0, 1
     if flight is not None:
-        flight = _on(dev, flight)
         rows = flight.rows.clone()
         R = rows.shape[0]
         cur = _host_int(flight.cursor)
-    snaps = []
-    for _ in range(steps):
-        state, row, hist, nem_state = _swim_round_impl(
-            state, rnd, base_key, fail_round, p, join_round,
-            collect=flight is not None, hist=hist, sc=sc, nem=nem,
-            nem_state=nem_state)
-        rnd += 1
-        if flight is not None:
-            rows[cur % R] = row
-            cur += 1
-        if trace:
-            def _holders(h, mem):
-                msg = h >> _MSG_SHIFT
-                return (((msg == MSG_DEAD) & mem[None, :]).sum(dim=1,
-                                                               dtype=_I32),
-                        ((msg == MSG_REFUTE) & mem[None, :]).sum(dim=1,
-                                                                 dtype=_I32))
+    table = round_args.to_device(
+        round_args.build(p, base_key, rnd, steps, cur, R), dev)
+    step = torch.zeros(1, dtype=torch.int64, device=dev)
+    bufs = ([torch.zeros((steps, p.slots), dtype=_I32, device=dev)
+             for _ in RoundTrace._fields] if trace else None)
+    for k in range(steps):
+        state, hist, nem_state = _round_once(
+            p, table, step, state, round_variant(p, nem, rnd + k),
+            fail_round, join_round, hist, nem_state, sc, nem, rows, bufs)
+    return _carry(state, flight, rows, steps, hist, nem_state), (
+        RoundTrace(*bufs) if trace else None)
 
-            if sc is None:
-                n_dead, n_alive = _holders(state.heard, state.member)
-            else:
-                per = [_holders(h, _sloc(sc, state.member, i))
-                       for i, h in enumerate(state.heard)]
-                n_dead = _psum([d for d, _ in per])
-                n_alive = _psum([a for _, a in per])
-            snaps.append((state.slot_node, state.slot_phase,
-                          state.slot_start, state.slot_dead_round,
-                          n_dead, n_alive))
-    tr = None
-    if trace:
-        cols = list(zip(*snaps)) if snaps else [()] * 6
-        tr = RoundTrace(*(
-            torch.stack(c) if c
-            else torch.zeros((0, p.slots), dtype=_I32, device=dev)
-            for c in cols))
+
+def _carry(state, flight, rows, steps, hist, nem_state):
+    """``run_rounds``' carry: the state alone, or the tuple with the
+    flight ring, the banks and NemState where threaded."""
     out = [state]
     if flight is not None:
         out.append(FlightRing(rows=rows, cursor=flight.cursor + steps))
@@ -1318,7 +1417,7 @@ def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
         out.append(hist)
     if nem_state is not None:
         out.append(nem_state)
-    return (out[0] if len(out) == 1 else tuple(out)), tr
+    return out[0] if len(out) == 1 else tuple(out)
 
 
 # -- public sharded entry points -----------------------------------------------
@@ -1432,14 +1531,16 @@ def run_rounds_sharded(state: SwimState, base_key, fail_round, p: SwimParams,
                        hist: HistBank | None = None,
                        nem: NemesisParams | None = None,
                        nem_state: NemState | None = None,
-                       ndev: int | None = None, device=None):
+                       ndev: int | None = None, device=None,
+                       graphed: bool | None = None):
     """``run_rounds`` on ``ndev`` column shards (reference
     ``run_rounds_sharded``): same contract and return shape, bit-identical
     results, the carry's state sharded; ``nem_state`` is held once.
     ``state`` may be sharded (with ``ndev`` shards) or not (it is sharded
-    here).  Constraints: ``_check_shardable``."""
+    here).  Graphed on a card as ``run_rounds`` is.  Constraints:
+    ``_check_shardable``."""
     _require_nem_state(nem, nem_state)
     state, sc, dev = _sharded_setup(state, p, ndev, device)
     return _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
                             join_round, flight, hist, dev, sc, nem,
-                            nem_state)
+                            nem_state, graphed)

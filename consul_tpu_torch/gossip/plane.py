@@ -922,8 +922,10 @@ class GossipPlane:
         only: a sharded session reports just the profiler capture."""
         if self._ndev > 1:
             return {}
+        from consul_tpu_torch.gossip import round_args
         from consul_tpu_torch.gossip.kernel import (_age_tick, _disseminate,
-                                                    _probe_tick)
+                                                    _probe_tick,
+                                                    round_variant)
         from consul_tpu_torch.profile_round import timed
 
         p, st, key, dev = self._p, self._state, self._key, self._device
@@ -933,7 +935,10 @@ class GossipPlane:
         rx = (fail > rnd) & st.member
         cc = torch.clamp(st.slot_nsusp - 1, min=0).clamp(
             max=p.max_confirmations)
-        keys = prng.split(key, 4)
+        ra = round_args.row_args(
+            round_args.layout(p.fanout, p.indirect_k),
+            torch.from_numpy(round_args.build(p, key, rnd, 1)[0]).to(dev))
+        v = round_variant(p, None, rnd)
         carry = (st.heard, st.slot_node, st.slot_phase, st.slot_inc,
                  st.slot_start, st.slot_nsusp, st.slot_dead_round,
                  st.slot_of_node, st.incarnation, st.member, st.drops)
@@ -941,10 +946,10 @@ class GossipPlane:
         # age+gossip phase and the standalone age row is marked as such.
         out = {
             "age_tick_standalone": timed(lambda: _age_tick(st.heard), dev),
-            "probe_tick": timed(lambda: _probe_tick(p, rnd, keys, mf, carry),
+            "probe_tick": timed(lambda: _probe_tick(p, ra, v, mf, carry),
                                 dev),
             "age_gossip_merge": timed(lambda: _disseminate(
-                p, rnd, key, st.heard, mf, rx, cc), dev),
+                p, ra, v, st.heard, mf, rx, cc), dev),
         }
         return {k: v * 1e3 for k, v in out.items()}
 

@@ -1,0 +1,426 @@
+"""The SWIM round as replayed CUDA graphs: ``RoundProgram``, the
+counterpart of the reference's ``jax.jit(run_rounds)``.
+
+The reference runs ``steps`` rounds as one device program: a ``lax.scan``
+whose round counter is traced, with every branch a ``lax.cond`` on the
+device (``consul_tpu/gossip/kernel.py``: the join tick, the quiescent /
+hot / full tail).  Here one round is captured once per ``Variant`` (the
+branches on the round number alone, taken on the host; at most
+``kernel.MAX_VARIANTS``) and replayed once a round:
+
+- Every scalar a round derives from its number is a row of the call's
+  argument table (``round_args.py``), which reaches the card in one copy
+  per call (per ``TABLE_ROWS`` rounds); the round reads row ``step``, a
+  device counter the graph advances.
+- The round's ``lax.cond``s are conditional graph nodes
+  (``csrc/round_graph.cu``): the capture is cut into segments at each
+  branch (``_Recorder``), each a graph captured by PyTorch into one shared
+  memory pool, and the segments are joined in capture order, each branch
+  body under an IF node on its device predicate.  A branch writes its
+  result into the program's buffers, so what follows reads the same
+  memory whichever branch ran.
+- The program owns static buffers for everything the round reads and
+  writes: the state, the ground-truth rounds, the banks, NemState, the
+  flight ring, the trace rows and the table.  A round updates them in
+  place (the tail's branches write the new state straight into them), so
+  replays chain with no copy between rounds; a call copies its inputs in
+  and clones the results out, once each.
+- Before a variant is captured, one eager round of it runs on copies of
+  the buffers with every branch taken (``_Warm``), so each kernel has been
+  built, loaded and launched once and the capture only records.
+
+Counting.  The kernel wrappers count a launch when they are called, which
+under capture is once per captured launch.  The program keeps those counts
+per segment and puts the counters back as they were; each replay then adds
+its unconditional segments' launches on the host, and each branch body
+adds one to a device counter when it runs.  ``settle_counts()`` reads
+those counters (one read, outside any round) and adds the branch bodies'
+launches and ``kernel.tail_rounds`` to the host counters.
+
+A capture or a launch that fails raises; on a card there is no fallback to
+the eager round.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import time
+import warnings
+
+import torch
+
+from consul_tpu_torch import _build, prng
+from consul_tpu_torch.gossip import fused, kernel, round_args
+from consul_tpu_torch.gossip.kernel import (RoundTrace, _I32, _leaves,
+                                            _round_once, round_variant)
+
+TABLE_ROWS = 512     # rounds of argument table on the card: a call's chunk
+MAX_BRANCHES = 64    # branch bodies a program counts (4 a variant at most)
+MAX_PROGRAMS = 8     # programs kept (each holds its buffers and its pool)
+
+# Host counters the kernel wrappers keep, attributed per captured segment.
+_COUNTERS = ((prng, "launches"), (prng, "calls"), (fused, "launches"),
+             (fused, "merge_launches"), (fused, "drop_launches"),
+             (fused, "merge_drop_launches"))
+
+# Joined-graph launches (one a replayed round), captures, their seconds
+# and the memory the captures reserved.
+launches = 0
+captures = 0
+capture_s = 0.0
+pool_bytes = 0
+
+_VP = ctypes.c_void_p
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("round_graph")
+    lib.round_graph_build.argtypes = [ctypes.POINTER(_VP),
+                                      ctypes.POINTER(_VP), ctypes.c_int,
+                                      ctypes.POINTER(_VP),
+                                      ctypes.POINTER(_VP)]
+    lib.round_graph_launch.argtypes = [_VP, _VP]
+    lib.round_graph_destroy.argtypes = [_VP, _VP]
+    for fn in (lib.round_graph_build, lib.round_graph_launch,
+               lib.round_graph_destroy):
+        fn.restype = ctypes.c_int
+    lib.round_graph_error.argtypes = [ctypes.c_int]
+    lib.round_graph_error.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: "
+                           f"{_lib().round_graph_error(rc).decode()}")
+
+
+def _counts() -> tuple:
+    return tuple(getattr(m, a) for m, a in _COUNTERS)
+
+
+def _set_counts(values) -> None:
+    for (m, a), v in zip(_COUNTERS, values):
+        setattr(m, a, v)
+
+
+def _add_counts(deltas, times: int = 1) -> None:
+    _set_counts(c + d * times for c, d in zip(_counts(), deltas))
+
+
+def _copy_leaves(dst, src) -> None:
+    d, s = _leaves(dst), _leaves(src)
+    if len(d) != len(s):
+        raise RuntimeError(f"a branch gave {len(s)} tensors for {len(d)} "
+                           f"buffers")
+    for a, b in zip(d, s):
+        a.copy_(b)
+
+
+class _Warm:
+    """``kernel._recorder`` during the warm-up round: every branch runs
+    (on copies of the buffers), the last one's result goes on."""
+
+    def when(self, pred, fn, operand):
+        return fn(operand)
+
+    def switch(self, which, branches, names, dst):
+        out = None
+        for fn in branches:
+            out = fn()
+        return out
+
+
+class _Recorder:
+    """``kernel._recorder`` during a capture: the round as segment graphs,
+    cut at each branch (see the module docstring)."""
+
+    def __init__(self, program):
+        self.program = program
+        self.segs = []    # (graph, predicate or None, branch id, deltas)
+        self._open = None
+
+    def begin(self, pred=None, bid=None) -> None:
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        # Thread-local: another thread's CUDA calls (the plane's server)
+        # neither break this capture nor are refused by it.
+        g.capture_begin(pool=self.program.pool,
+                        capture_error_mode="thread_local")
+        self._open = (g, pred, bid, _counts())
+
+    def end(self) -> None:
+        g, pred, bid, c0 = self._open
+        self._open = None
+        with warnings.catch_warnings():
+            # A segment between two branches may hold nothing: joined as
+            # an empty node (csrc/round_graph.cu).
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            g.capture_end()
+        self.segs.append((g, pred, bid,
+                          tuple(b - a for a, b in zip(c0, _counts()))))
+
+    def abort(self) -> None:
+        """End an open capture after a failure (its graph is dropped)."""
+        if self._open is not None:
+            g, self._open = self._open[0], None
+            try:
+                g.capture_end()
+            except RuntimeError:
+                pass
+
+    def _body(self, pred, name, fn, dst) -> None:
+        bid = self.program.new_branch(name)
+        self.end()
+        self.begin(pred, bid)
+        _copy_leaves(dst, fn())
+        self.program.branch_runs[bid].add_(1)
+        self.end()
+        self.begin()
+
+    def when(self, pred, fn, operand):
+        self._body(pred, "join", lambda: fn(operand), operand)
+        return operand
+
+    def switch(self, which, branches, names, dst):
+        preds = [which == i for i in range(len(branches))]
+        for pred, fn, name in zip(preds, branches, names):
+            self._body(pred, name, fn, dst)
+        return dst
+
+
+class _Graph:
+    """One variant's joined graph and what its launches count."""
+
+    def __init__(self, segs):
+        self.segs = segs  # keeps the segment graphs (their pool) and preds
+        graphs = (_VP * len(segs))(*(g.raw_cuda_graph() for g, *_ in segs))
+        preds = (_VP * len(segs))(*(None if p is None else p.data_ptr()
+                                    for _, p, _, _ in segs))
+        self.graph, self.exec = _VP(), _VP()
+        _check(_lib().round_graph_build(graphs, preds, len(segs),
+                                        ctypes.byref(self.graph),
+                                        ctypes.byref(self.exec)),
+               "joining the round's graph")
+        self.plain = tuple(map(sum, zip(*(d for _, p, _, d in segs
+                                          if p is None))))
+        self.branch = {bid: d for _, p, bid, d in segs if p is not None}
+
+    def launch(self) -> None:
+        global launches
+        stream = torch.cuda.current_stream().cuda_stream
+        _check(_lib().round_graph_launch(self.exec, stream),
+               "launching the round's graph")
+        _add_counts(self.plain)
+        launches += 1
+
+    def close(self) -> None:
+        if self.exec:
+            _check(_lib().round_graph_destroy(self.graph, self.exec),
+                   "destroying the round's graph")
+            self.graph, self.exec = _VP(), _VP()
+
+
+def _clone(tree):
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(_clone(x) for x in tree)) if hasattr(
+        tree, "_fields") else tuple(_clone(x) for x in tree)
+
+
+class RoundProgram:
+    """The captured rounds of one configuration: parameters, nemesis
+    schedule, shard count and which of the join rounds, flight ring,
+    banks, NemState and trace are threaded.  ``run`` is ``run_rounds``."""
+
+    def __init__(self, p, nem, sc, dev, state, fail_round, join_round,
+                 flight, hist, nem_state, trace: bool):
+        self.p, self.nem, self.sc, self.dev = p, nem, sc, dev
+        self.pool = None  # the captures' shared memory pool (first capture)
+        z = functools.partial(torch.zeros, device=dev)
+        # The buffers (outside the pool): filled by each call.
+        self.state = _clone(state)
+        self.fail = fail_round.clone()
+        self.join = None if join_round is None else join_round.clone()
+        self.hist = _clone(hist)
+        self.nem_state = _clone(nem_state)
+        self.rows = None if flight is None else flight.rows.clone()
+        lay = round_args.layout(p.fanout, p.indirect_k)
+        self.table = z((TABLE_ROWS, lay.width), dtype=_I32)
+        self.step = z(1, dtype=torch.int64)
+        self.trace = ([z((TABLE_ROWS, p.slots), dtype=_I32)
+                       for _ in RoundTrace._fields] if trace else None)
+        self.tx = z((), dtype=_I32) if flight is not None else None
+        self.dst = (self.state, self.hist, self.nem_state, self.tx)
+        self.branch_runs = z(MAX_BRANCHES, dtype=torch.int64)
+        self.branch_names: list = []
+        self.graphs: dict = {}
+
+    def new_branch(self, name: str) -> int:
+        if len(self.branch_names) == MAX_BRANCHES:
+            raise RuntimeError("too many captured branch bodies")
+        self.branch_names.append(name)
+        return len(self.branch_names) - 1
+
+    def _round(self, v, **bufs):
+        return _round_once(self.p, self.table, bufs.get("step", self.step),
+                           bufs.get("state", self.state), v,
+                           self.fail, self.join,
+                           bufs.get("hist", self.hist),
+                           bufs.get("nem_state", self.nem_state), self.sc,
+                           self.nem, bufs.get("rows", self.rows),
+                           bufs.get("trace", self.trace),
+                           bufs.get("dst"))
+
+    def _capture(self, v) -> _Graph:
+        """Warm variant ``v`` up and capture it."""
+        global captures, capture_s, pool_bytes
+        t0 = time.perf_counter()
+        counts = _counts()
+        kernel._recorder = _Warm()
+        try:
+            self._round(v, step=self.step.clone(),
+                        state=_clone(self.state), hist=_clone(self.hist),
+                        nem_state=_clone(self.nem_state),
+                        rows=_clone(self.rows), trace=_clone(self.trace))
+        finally:
+            kernel._recorder = None
+            _set_counts(counts)
+        torch.cuda.synchronize(self.dev)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        reserved = torch.cuda.memory_reserved(self.dev)
+        rec = _Recorder(self)
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(torch.cuda.current_stream(self.dev))
+        kernel._recorder = rec
+        try:
+            with torch.cuda.stream(side):
+                rec.begin()
+                self._round(v, dst=self.dst)
+                rec.end()
+        except BaseException:
+            rec.abort()
+            raise
+        finally:
+            kernel._recorder = None
+            _set_counts(counts)
+        torch.cuda.current_stream(self.dev).wait_stream(side)
+        graph = _Graph(rec.segs)
+        pool_bytes += torch.cuda.memory_reserved(self.dev) - reserved
+        captures += 1
+        capture_s += time.perf_counter() - t0
+        return graph
+
+    def graph(self, v) -> _Graph:
+        g = self.graphs.get(v)
+        if g is None:
+            g = self.graphs[v] = self._capture(v)
+        return g
+
+    def settle(self) -> None:
+        """Add the branch bodies' counts since the last settle to the
+        host counters (one device read)."""
+        runs = self.branch_runs[:len(self.branch_names)].tolist()
+        for g in self.graphs.values():
+            for bid, deltas in g.branch.items():
+                _add_counts(deltas, runs[bid])
+        for name, n in zip(self.branch_names, runs):
+            if name in kernel.tail_rounds:
+                kernel.tail_rounds[name] += n
+        self.branch_runs.zero_()
+
+    def close(self) -> None:
+        for g in self.graphs.values():
+            g.close()
+        self.graphs.clear()
+
+    def run(self, state, base_key, fail_round, steps, join_round, flight,
+            hist, nem_state):
+        """``steps`` rounds from ``state``: ``(state, rows, hist,
+        nem_state, trace columns)``, new tensors."""
+        p = self.p
+        _copy_leaves(self.state, state)
+        self.fail.copy_(fail_round)
+        if self.join is not None:
+            self.join.copy_(join_round)
+        _copy_leaves(self.hist, hist)
+        _copy_leaves(self.nem_state, nem_state)
+        rnd0 = kernel._host_int(state.round)
+        cur, R = 0, 1
+        if flight is not None:
+            self.rows.copy_(flight.rows)
+            R = self.rows.shape[0]
+            cur = kernel._host_int(flight.cursor)
+        chunks = []
+        for done in range(0, steps, TABLE_ROWS):
+            n = min(TABLE_ROWS, steps - done)
+            tbl = round_args.build(p, base_key, rnd0 + done, n, cur + done, R)
+            # On a card one copy from pinned memory straight into the
+            # program's table (PyTorch's host allocator holds the pinned
+            # buffer until the copy is done).
+            host = torch.from_numpy(tbl)
+            if self.table.is_cuda:
+                host = host.pin_memory()
+            self.table[:n].copy_(host, non_blocking=True)
+            self.step.zero_()
+            for k in range(n):
+                self.graph(round_variant(p, self.nem, rnd0 + done + k)).launch()
+            if self.trace is not None:
+                chunks.append([b[:n].clone() for b in self.trace])
+        tr = None
+        if self.trace is not None:
+            tr = [torch.cat(c) if c else
+                  torch.zeros((0, p.slots), dtype=_I32, device=self.dev)
+                  for c in (zip(*chunks) if chunks else [()] * 6)]
+        return (_clone(self.state), _clone(self.rows), _clone(self.hist),
+                _clone(self.nem_state), tr)
+
+
+_programs: collections.OrderedDict = collections.OrderedDict()
+
+
+def program_for(p, nem, sc, dev, state, fail_round, join_round, flight,
+                hist, nem_state, trace: bool) -> RoundProgram:
+    """The cached program of this configuration (built on first use; the
+    least recently used of more than ``MAX_PROGRAMS`` is closed)."""
+    key = (p, nem, sc, str(dev), join_round is not None,
+           None if flight is None else tuple(flight.rows.shape),
+           hist is not None, nem_state is not None, bool(trace))
+    prog = _programs.get(key)
+    if prog is None:
+        prog = _programs[key] = RoundProgram(p, nem, sc, dev, state,
+                                             fail_round, join_round, flight,
+                                             hist, nem_state, trace)
+        while len(_programs) > MAX_PROGRAMS:
+            _, old = _programs.popitem(last=False)
+            old.settle()
+            old.close()
+    _programs.move_to_end(key)
+    return prog
+
+
+def run_rounds(state, base_key, fail_round, p, steps, trace, join_round,
+               flight, hist, sc, nem, nem_state):
+    """``kernel.run_rounds`` (and ``run_rounds_sharded``, ``sc`` set) on a
+    card, through the configuration's ``RoundProgram``; the arguments are
+    on the card already."""
+    prog = program_for(p, nem, sc, fail_round.device, state, fail_round,
+                       join_round, flight, hist, nem_state, trace)
+    st, rows, hb, ns, tr = prog.run(state, base_key, fail_round, steps,
+                                    join_round, flight, hist, nem_state)
+    return kernel._carry(st, flight, rows, steps, hb, ns), (
+        None if tr is None else RoundTrace(*tr))
+
+
+def settle_counts() -> None:
+    """Fold every program's device-side branch counts into the host
+    counters (``prng``'s and ``fused``'s launches, ``kernel.tail_rounds``);
+    a reader of those counters calls this first."""
+    for prog in _programs.values():
+        prog.settle()
+

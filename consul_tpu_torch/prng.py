@@ -31,9 +31,15 @@ outside any Pallas kernel.  Each public device draw (``random_bits_tensor``,
 ``edge_drops``) takes its plain torch version (``random_bits_ref``,
 ``uniform_ref``, ``uniform_rows_ref``, ``randint_ref``, ``below_ref``,
 ``edge_drops_ref``) on the CPU, and on a CUDA device launches one kernel
-of ``csrc/threefry.cu`` or raises: there is no fallback.  The keys travel
-by value in the launch's parameters, so a draw copies nothing to the
-device and never synchronises.  The plain versions carry all 32-bit
+of ``csrc/threefry.cu`` or raises: there is no fallback.  A key is a host
+key, which travels by value in the launch's parameters (a draw copies
+nothing to the device and never synchronises), or a device key: an int32
+tensor of the two words (the uint32 bit patterns), ``[2]`` or ``[rows,
+2]``, which the kernel reads from device memory when it runs.  The round
+takes its keys, and the edge drops their shifts, from its row of
+``gossip/round_args.py``'s table that way, so one captured launch serves
+every round (``gossip/program.py``); the plain versions take the same
+tensors.  The plain versions carry all 32-bit
 unsigned arithmetic in signed 64-bit values masked to 32 bits: torch's
 ``uint32`` does not support add, shifts or compares on the CPU.
 """
@@ -69,7 +75,12 @@ def _threefry2x32(k1, k2, x1, x2):
     return x0, x1
 
 
-def _key_words(key) -> tuple[int, int]:
+def _key_words(key) -> tuple:
+    """A key's two words: host ints, or for a device key (int32 tensor
+    ``[..., 2]``) int64 tensors in [0, 2**32) (the plain versions' form)."""
+    if isinstance(key, torch.Tensor):
+        w = key.to(torch.int64) & _M32
+        return w[..., 0], w[..., 1]
     k = np.asarray(key)
     if k.shape != (2,) or k.dtype != np.uint32:
         raise ValueError(f"a key is uint32[2], got {k.dtype}{list(k.shape)}")
@@ -170,6 +181,23 @@ calls = 0
 # a cache, so there are a few).
 launch_shapes: set = set()
 launch_groups: dict = {}
+# A list while a caller records the draws (None otherwise): per draw asked
+# for, its kind, shape and what the kernel takes by value.  A device key or
+# shift is logged as "dev": a replayed graph reads it when it runs.
+launch_log: list | None = None
+
+
+def _log(*entry) -> None:
+    if launch_log is not None:
+        launch_log.append(entry)
+
+
+def _by_value(x):
+    """How a key or shift list reaches the kernel, for ``launch_log``."""
+    if isinstance(x, torch.Tensor):
+        return "dev"
+    return tuple(int(v) for v in np.asarray(x).reshape(-1))
+
 
 MAX_ROWS = 16          # kMaxRows of csrc/threefry.cu: keys of one launch
 MAX_COUNTERS = 2**32   # counters 0 .. 2**32 - 1: the high word stays 0
@@ -220,12 +248,15 @@ def uniform_ref(k, shape, device) -> torch.Tensor:
 def uniform_rows_ref(keys, n: int, device) -> torch.Tensor:
     """The plain version of ``uniform_rows``, on any device, in one pass
     of the threefry ops (the keys ride a broadcast dimension)."""
-    words = [_key_words(k) for k in keys]
     lo = torch.arange(n, dtype=torch.int64, device=device)
-    # Fills on the device, not a host->device copy (which would
-    # synchronise the stream).
-    k1, k2 = (torch.cat([lo.new_full((1, 1), w[i]) for w in words])
-              for i in (0, 1))
+    if isinstance(keys, torch.Tensor):
+        k1, k2 = (w[:, None] for w in _key_words(keys.view(-1, 2)))
+    else:
+        words = [_key_words(k) for k in keys]
+        # Fills on the device, not a host->device copy (which would
+        # synchronise the stream).
+        k1, k2 = (torch.cat([lo.new_full((1, 1), w[i]) for w in words])
+                  for i in (0, 1))
     b1, b2 = _threefry2x32(k1, k2, 0, lo)
     return _unit_float(b1 ^ b2)
 
@@ -247,7 +278,12 @@ def edge_drops_ref(keys, grp: torch.Tensor, shifts, p_ab: float,
     rolled group stack, and one ``uniform_rows_ref`` pass where an edge's
     outcome is not certain."""
     n = grp.shape[0]
-    g_src = torch.stack([torch.roll(grp, o) for o in shifts])
+    if isinstance(shifts, torch.Tensor):
+        # Device shifts: the rolls as one gather, sender d - o (mod n).
+        src = torch.arange(n, device=grp.device)[None, :] - shifts[:, None]
+        g_src = grp[src.remainder(n)]
+    else:
+        g_src = torch.stack([torch.roll(grp, o) for o in shifts])
     cross = g_src != grp
     p_ab, p_ba = _f32(p_ab), _f32(p_ba)
     if all(q <= 0.0 or q >= 1.0 for q in (p_ab, p_ba)):
@@ -270,6 +306,10 @@ _ARGTYPES = {  # C entry point -> its argument types (..., out, stream)
     "threefry_edge_drops": [ctypes.POINTER(_U32),
                             ctypes.POINTER(ctypes.c_int64), _CI, _U64, _VP,
                             ctypes.c_float, ctypes.c_float, _VP, _VP],
+    "threefry_uniform_dev": [_VP, _CI, _U64, _VP, _VP],
+    "threefry_below_dev": [_VP, _U64, ctypes.c_float, _VP, _VP],
+    "threefry_edge_drops_dev": [_VP, _VP, _CI, _U64, _VP, ctypes.c_float,
+                                ctypes.c_float, _VP, _VP],
 }
 
 
@@ -294,6 +334,18 @@ def _launch(name: str, out: torch.Tensor, *args) -> None:
     launches += 1
 
 
+def _device_words(name: str, t: torch.Tensor, rows: int, width: int,
+                  device) -> int:
+    """The address of a device argument: a contiguous int32 tensor of
+    ``rows * width`` words on ``device``."""
+    if t.dtype != torch.int32 or t.numel() != rows * width \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous int32 tensor of "
+                         f"{rows * width} words on {device}, got {t.dtype}"
+                         f"{list(t.shape)} on {t.device}")
+    return t.data_ptr()
+
+
 def _key_array(keys):
     """Row keys as the kernel's ``uint32[2 * rows]`` host array."""
     if not 1 <= len(keys) <= MAX_ROWS:
@@ -311,14 +363,28 @@ def _bits_into(out: torch.Tensor, k) -> None:
 
 def _uniform_into(out: torch.Tensor, keys) -> None:
     """``out``: float32 [rows, n] (or any shape, one key)."""
-    rows = len(keys)
-    _launch("threefry_uniform", out, _key_array(keys), rows,
-            out.numel() // rows)
+    if isinstance(keys, torch.Tensor):
+        rows = keys.numel() // 2
+        if not 1 <= rows <= MAX_ROWS:
+            raise ValueError(f"a draw takes 1 to {MAX_ROWS} row keys, "
+                             f"got {rows}")
+        _launch("threefry_uniform_dev", out,
+                _device_words("keys", keys, rows, 2, out.device), rows,
+                out.numel() // rows)
+    else:
+        rows = len(keys)
+        _launch("threefry_uniform", out, _key_array(keys), rows,
+                out.numel() // rows)
     launch_shapes.add(("uniform", tuple(out.shape), rows))
 
 
 def _below_into(out: torch.Tensor, k, p: float) -> None:
-    _launch("threefry_below", out, *_key_words(k), out.numel(), _f32(p))
+    if isinstance(k, torch.Tensor):
+        _launch("threefry_below_dev", out,
+                _device_words("key", k, 1, 2, out.device), out.numel(),
+                _f32(p))
+    else:
+        _launch("threefry_below", out, *_key_words(k), out.numel(), _f32(p))
     launch_shapes.add(("below", tuple(out.shape), _f32(p)))
 
 
@@ -333,9 +399,18 @@ def _randint_into(out: torch.Tensor, k, minval: int, maxval: int) -> None:
 def _edge_drops_into(out: torch.Tensor, keys, grp: torch.Tensor, shifts,
                      p_ab: float, p_ba: float) -> None:
     rows, n = out.shape
-    c_shifts = (ctypes.c_int64 * rows)(*(int(o) % n for o in shifts))
-    _launch("threefry_edge_drops", out, _key_array(keys), c_shifts, rows, n,
-            grp.data_ptr(), _f32(p_ab), _f32(p_ba))
+    if isinstance(keys, torch.Tensor):
+        if rows > MAX_ROWS:
+            raise ValueError(f"a draw takes 1 to {MAX_ROWS} row keys, "
+                             f"got {rows}")
+        _launch("threefry_edge_drops_dev", out,
+                _device_words("keys", keys, rows, 2, out.device),
+                _device_words("shifts", shifts, rows, 1, out.device), rows,
+                n, grp.data_ptr(), _f32(p_ab), _f32(p_ba))
+    else:
+        c_shifts = (ctypes.c_int64 * rows)(*(int(o) % n for o in shifts))
+        _launch("threefry_edge_drops", out, _key_array(keys), c_shifts,
+                rows, n, grp.data_ptr(), _f32(p_ab), _f32(p_ba))
     launch_groups[id(grp)] = grp
     launch_shapes.add(("edge_drops", (rows, n), _f32(p_ab), _f32(p_ba),
                        id(grp)))
@@ -387,14 +462,17 @@ def randint_tensor(k, shape, minval: int, maxval: int,
 
 
 def uniform_tensor(k, shape, device) -> torch.Tensor:
-    """``uniform`` computed on ``device`` (float32, bit-identical)."""
+    """``uniform`` computed on ``device`` (float32, bit-identical); ``k``
+    a host key or a device key ``[2]``."""
     shape = tuple(shape)
     dev = _draw_device(device, math.prod(shape))
+    _log("uniform", shape, _by_value(k))
     if dev.type == "cpu":
         return uniform_ref(k, shape, dev)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     if out.numel():
-        _uniform_into(out, [k])
+        _uniform_into(out, k.view(1, 2) if isinstance(k, torch.Tensor)
+                      else [k])
     return out
 
 
@@ -417,6 +495,7 @@ def below(k, shape, p: float, device) -> torch.Tensor:
     the kernel, so the uniforms are never stored."""
     shape = tuple(shape)
     dev = _draw_device(device, math.prod(shape))
+    _log("below", shape, _f32(p), _by_value(k))
     if dev.type == "cpu":
         return below_ref(k, shape, p, dev)
     out = torch.empty(shape, dtype=torch.bool, device=dev)
@@ -433,11 +512,15 @@ def edge_drops(keys, grp: torch.Tensor, shifts, p_ab: float,
     sender's group (``grp``, int32 [n]) differs from ``d``'s and
     ``uniform(keys[f], (n,))[d]`` is below the sender's direction's
     probability (``p_ab`` from group 0, ``p_ba`` from the other).  On a
-    card one launch for all legs, with no rolled group stack."""
+    card one launch for all legs, with no rolled group stack.  ``keys``
+    and ``shifts`` are host values, or device tensors (int32 ``[legs, 2]``
+    and ``[legs]``) that the kernel reads when it runs."""
     n = grp.shape[0]
     if len(keys) != len(shifts):
         raise ValueError(f"{len(keys)} keys for {len(shifts)} legs")
     dev = _draw_device(grp.device, n)
+    _log("edge_drops", len(shifts), n, _f32(p_ab), _f32(p_ba),
+         _by_value(keys), _by_value(shifts))
     if dev.type == "cpu":
         return edge_drops_ref(keys, grp, shifts, p_ab, p_ba)
     if grp.dtype != torch.int32 or grp.dim() != 1 \

@@ -2,16 +2,26 @@
 
     python -m consul_tpu_torch.profile_round [--churn-ppm 1000] [--rounds 30]
                                              [--ndev N] [--nemesis SCENARIO]
+                                             [--eager] [--observers]
 
 Runs bench.py's LAN regime on the card (``lan_profile(N, SLOTS,
 hot_slots=0)``, churn failures on a stride) for ``WARM`` rounds, then
-twice ``--rounds`` more and prints one JSON line.  With ``--ndev N`` the
+twice ``--rounds`` more and prints one JSON line for the graphed round
+(``gossip/program.py``: replayed CUDA graphs, the main path): host time a
+round, device busy time, kernels and graph launches a round, the idle
+share, the captures, their seconds and the graphs' pool bytes.  The
+round's Python phases do not run in a replay, so the graphed line has no
+phase rows.  ``--eager`` also profiles the eager round in the same call
+(an A/B on one card) and prints its line after, with the phases below.
+``--observers`` threads the flight ring, the hist banks and the trace
+through the rounds, as the plane's dispatch does.
+With ``--ndev N`` the
 rounds are the sharded round (``run_rounds_sharded``, N column shards on
 the card), and the phases add the sharded round's own: the halo pins
-(``_roll_sharded``, which only the plain version runs now: the card's
-merge reads its pins from the shards, so the phase must show no calls),
-the merge kernel's launches (``fused_merge``, one per round for all
-shards) and the probe tick's window read and write.  The single-device
+(``_roll_sharded``: the push/pull rounds' rolls only, the card's merge
+reads its pins from the shards), the merge kernel's launches
+(``fused_merge``, one per round for all shards) and the probe tick's
+point reads across shards (``_points``).  The single-device
 round adds the launches of ``fused_dissem``.  With ``--nemesis`` the
 rounds run under that scenario of the nemesis catalog
 (``gossip/nemesis.py``; its kills join the churn failures), and the
@@ -52,7 +62,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from consul_tpu_torch import prng
-from consul_tpu_torch.gossip import fused, kernel
+from consul_tpu_torch.gossip import fused, kernel, program
 from consul_tpu_torch.gossip.nemesis import build as build_nemesis
 from consul_tpu_torch.gossip.params import lan_profile
 
@@ -72,12 +82,12 @@ SINGLE_PHASES = {  # the single-device round's own
 # does not tie a launch made through ctypes to the phase around it, so
 # their device time is read from the kernel rows.
 HAND_KERNELS = {"draws": "threefry::draw_kernel",
-                "tail": "dissem_tail::tail_kernel"}
+                "tail": "dissem_tail::tail_kernel",
+                "conditions": "round_graph::set_condition"}
 SHARDED_PHASES = {  # the sharded round's own, inside the phases above
     "halo_pins": (fused, "_roll_sharded"),
     "merge_launches": (fused, "fused_merge"),
-    "probe_window_read": (kernel, "_win_read"),
-    "probe_window_write": (kernel, "_win_write"),
+    "probe_points": (kernel, "_points"),
 }
 
 
@@ -154,27 +164,45 @@ def main(argv=None) -> int:
     ap.add_argument("--nemesis", default="",
                     help="run the rounds under this nemesis catalog "
                          "scenario, profiling rounds inside its window")
+    ap.add_argument("--eager", action="store_true",
+                    help="also profile the eager round (A/B, one call)")
+    ap.add_argument("--observers", action="store_true",
+                    help="thread the flight ring, hist banks and trace "
+                         "through the rounds, as the plane does")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA card")
+    for graphed in (True, False) if args.eager else (True,):
+        print(json.dumps(profile_route(args, graphed)), flush=True)
+    return 0
+
+
+def profile_route(args, graphed: bool) -> dict:
+    """One route's profile (the module docstring)."""
     dev = torch.device("cuda")
-    phases = dict(PHASES,
-                  **(SHARDED_PHASES if args.ndev else SINGLE_PHASES))
+    phases = {} if graphed else dict(
+        PHASES, **(SHARDED_PHASES if args.ndev else SINGLE_PHASES))
 
     # The scenario's schedule and its Lifeguard registers, carried from
     # call to call (``nem_kw["nem_state"]``).
     nem_kw = {}
+    # With --observers, the flight ring and hist banks, carried likewise.
+    obs = ({"flight": kernel.init_flight(device=dev),
+            "hist": kernel.init_hist(device=dev)} if args.observers else {})
 
     def run(st, steps):
+        kw = dict(nem_kw, **obs, trace=bool(obs), device=dev,
+                  graphed=graphed)
         if args.ndev:
             out = kernel.run_rounds_sharded(st, key, fail_t, p, steps,
-                                            ndev=args.ndev, device=dev,
-                                            **nem_kw)[0]
+                                            ndev=args.ndev, **kw)[0]
         else:
-            out = kernel.run_rounds(st, key, fail_t, p, steps, device=dev,
-                                    **nem_kw)[0]
-        if nem_kw.get("nem_state") is not None:
-            out, nem_kw["nem_state"] = out
+            out = kernel.run_rounds(st, key, fail_t, p, steps, **kw)[0]
+        if not isinstance(out, kernel.SwimState):
+            out, *rest = out
+            for k in ("flight", "hist", "nem_state"):
+                if kw.get(k) is not None:
+                    (obs if k in obs else nem_kw)[k] = rest.pop(0)
         return out
 
     p = lan_profile(N, slots=SLOTS, hot_slots=0, dissem="fused")
@@ -194,6 +222,8 @@ def main(argv=None) -> int:
     fail_t = torch.from_numpy(fail).to(dev)
     key = prng.key(42)
 
+    captures0, capture_s0 = program.captures, program.capture_s
+    pool0 = program.pool_bytes
     state = run(kernel.init_state(p, device=dev), WARM)
     torch.cuda.synchronize()
     R = args.rounds
@@ -213,13 +243,16 @@ def main(argv=None) -> int:
             for label, (mod, attr) in phases.items():
                 setattr(mod, attr, saved[label])
 
+    program.settle_counts()
     tails0 = dict(kernel.tail_rounds)
-    draws0 = prng.launches
+    draws0, graphs0, syncs0 = prng.launches, program.launches, \
+        kernel.host_syncs
     host_s = {}
     state, wall_a = measured_pass(_timed, host_s, state)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         state, wall_b = measured_pass(_annotated, None, state)
+    program.settle_counts()
 
     timed = {}
     for k in phases:
@@ -237,11 +270,17 @@ def main(argv=None) -> int:
     busy_us = sum(self_device_us(e) for e in kernels)
     res = {
         "device": torch.cuda.get_device_name(dev),
+        "route": "graphed" if graphed else "eager",
         "n": p.n, "slots": p.slots, "churn_ppm": args.churn_ppm,
         "ndev": args.ndev or None, "nemesis": args.nemesis or None,
-        "warm_rounds": WARM, "rounds": R,
+        "observers": args.observers, "warm_rounds": WARM, "rounds": R,
         "drop_launches": fused.drop_launches + fused.merge_drop_launches,
         "draw_launches_per_round": (prng.launches - draws0) / (2 * R),
+        "graph_launches_per_round": (program.launches - graphs0) / (2 * R),
+        "host_syncs_per_round": (kernel.host_syncs - syncs0) / (2 * R),
+        "captures": program.captures - captures0,
+        "capture_s": program.capture_s - capture_s0,
+        "pool_bytes": program.pool_bytes - pool0,
         "tail_rounds_both_passes": {k: kernel.tail_rounds[k] - tails0[k]
                         for k in tails0},
         "host_ms_per_round": wall_a * 1e3 / R,
@@ -264,8 +303,7 @@ def main(argv=None) -> int:
                          "device_ms_per_round": self_device_us(e) / 1e3 / R}
                         for e in kernels[:8]],
     }
-    print(json.dumps(res), flush=True)
-    return 0
+    return res
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from consul_tpu_torch import prng
-from consul_tpu_torch.gossip import fused
+from consul_tpu_torch.gossip import fused, program
 from consul_tpu_torch.gossip import kernel as tk
 from consul_tpu_torch.gossip.params import SwimParams
 
@@ -50,9 +50,10 @@ def test_kernel_matches_plain_on_card(shape):
     heard, mf, rx_ok, cap = (torch.from_numpy(a).cuda()
                              for a in _random_round_inputs(S, N, seed=N))
     p = SwimParams(n=N, slots=S)
-    for offs in ([1, N - 1, 7], [3], [N - 1] * 8):
-        ref = fused.disseminate_ref(p, 50, offs, heard, mf, rx_ok, cap)
-        out = fused.fused_dissem(heard, offs, mf, rx_ok, cap, 50,
+    for legs in ([1, N - 1, 7], [3], [N - 1] * 8):
+        rnd, offs = fused.tail_args(50, legs, "cuda")
+        ref = fused.disseminate_ref(p, rnd, offs, heard, mf, rx_ok, cap)
+        out = fused.fused_dissem(heard, offs, mf, rx_ok, cap, rnd,
                                  p.spread_budget_rounds)
         torch.cuda.synchronize()
         assert torch.equal(out, ref), offs
@@ -70,6 +71,7 @@ def test_round_on_card_matches_cpu():
     fail[40], fail[170] = 20, 50
     p = SwimParams(n=n, slots=16, probe_every=5, loss_rate=0.05,
                    pushpull_every=20, hot_slots=4)
+    program.settle_counts()
     launches0 = fused.launches
     outs = []
     for dev in ("cuda", "cpu"):
@@ -79,6 +81,9 @@ def test_round_on_card_matches_cpu():
                                   trace=True, join_round=join,
                                   flight=tk.init_flight(device=dev),
                                   hist=tk.init_hist(device=dev), device=dev))
+    # The card's rounds are graph replays: their launches are counted
+    # once their branch runs are read.
+    program.settle_counts()
     assert fused.launches > launches0
     (cg, tg), (cc, tc) = outs
     for a, b in list(zip(cg, cc)) + [(tg, tc)]:
@@ -102,11 +107,12 @@ def test_merge_kernel_matches_plain_on_card(shape):
         shards = tuple(h.contiguous() for h in heard.split(L, dim=1))
         sc = tk._ShardCtx(ndev, L)
         for F in (1, 3, 8):
-            offs = ([1, N - 1, L + 3] + rng.integers(1, N, F).tolist())[:F]
+            rnd, offs = fused.tail_args(50, ([1, N - 1, L + 3] + rng.integers(
+                1, N, F).tolist())[:F], "cuda")
             p = SwimParams(n=N, slots=S, fanout=F)
-            ref = fused.merge_shards_ref(p, 50, offs, shards, mf, rx_ok, cap,
-                                         sc)
-            out = fused.fused_merge(shards, offs, mf, rx_ok, cap, 50,
+            ref = fused.merge_shards_ref(p, rnd, offs, shards, mf, rx_ok,
+                                         cap, sc)
+            out = fused.fused_merge(shards, offs, mf, rx_ok, cap, rnd,
                                     p.spread_budget_rounds)
             torch.cuda.synchronize()
             for i in range(ndev):
@@ -125,6 +131,7 @@ def test_sharded_round_on_card_matches_single_on_card():
     fail[[159, 160, 40]] = [20, 35, 50]
     p = SwimParams(n=n, slots=16, probe_every=5, loss_rate=0.05,
                    pushpull_every=20, hot_slots=4)
+    program.settle_counts()
     merges0 = fused.merge_launches
     outs = []
     for ndev in (None, 8):
@@ -138,6 +145,7 @@ def test_sharded_round_on_card_matches_single_on_card():
         else:
             outs.append(tk.run_rounds_sharded(st, prng.key(2), fail, p, 200,
                                               ndev=ndev, **kw))
+    program.settle_counts()
     assert fused.merge_launches > merges0
     (cs, ts), (cg, tg) = outs
     cg = (tk.unshard_state(cg[0]),) + tuple(cg[1:])
@@ -159,11 +167,11 @@ def test_kernels_take_the_drop_operand_on_card(shape):
     d = (rng.random((3, N)) < 0.5) * rng.integers(1, 256, (3, N))
     drop = torch.from_numpy(d.astype(np.uint8)).cuda()
     p = SwimParams(n=N, slots=S)
-    offs = [1, N - 1, 7]
+    rnd, offs = fused.tail_args(50, [1, N - 1, 7], "cuda")
     for dr in (drop, drop != 0):
-        ref = fused.disseminate_ref(p, 50, offs, heard, mf, rx_ok, cap, dr)
+        ref = fused.disseminate_ref(p, rnd, offs, heard, mf, rx_ok, cap, dr)
         before = fused.drop_launches
-        out = fused.fused_dissem(heard, offs, mf, rx_ok, cap, 50,
+        out = fused.fused_dissem(heard, offs, mf, rx_ok, cap, rnd,
                                  p.spread_budget_rounds, dr)
         torch.cuda.synchronize()
         assert torch.equal(out, ref) and fused.drop_launches == before + 1
@@ -172,15 +180,15 @@ def test_kernels_take_the_drop_operand_on_card(shape):
         if L * ndev != N:
             continue
         shards = tuple(h.contiguous() for h in heard.split(L, dim=1))
-        ref = fused.merge_shards_ref(p, 50, offs, shards, mf, rx_ok, cap,
+        ref = fused.merge_shards_ref(p, rnd, offs, shards, mf, rx_ok, cap,
                                      tk._ShardCtx(ndev, L), drop)
-        out = fused.fused_merge(shards, offs, mf, rx_ok, cap, 50,
+        out = fused.fused_merge(shards, offs, mf, rx_ok, cap, rnd,
                                 p.spread_budget_rounds, drop)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
     for bad in (drop.cpu(), drop[:2].contiguous()):
         with pytest.raises(ValueError, match="drop"):
-            fused.fused_dissem(heard, offs, mf, rx_ok, cap, 50,
+            fused.fused_dissem(heard, offs, mf, rx_ok, cap, rnd,
                                p.spread_budget_rounds, bad)
 
 
@@ -397,3 +405,145 @@ def test_uniform_rows_and_edge_drops_on_card(rows, n):
                 prng.edge_drops(keys, grp, shifts, p_ab, p_ba),
                 prng.edge_drops_ref(keys, grp, shifts, p_ab, p_ba)), (p_ab,
                                                                       p_ba)
+
+
+# -- the round as replayed CUDA graphs (gossip/program.py) ---------------------
+
+def _churn_inputs(n, steps, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(n)
+    fail = np.full(n, NEVER, np.int32)
+    fail[ids[:24]] = rng.integers(0, steps // 2, 24)
+    join = np.full(n, NEVER, np.int32)
+    join[ids[24:36]] = rng.integers(1, steps // 2, 12)
+    return fail, join
+
+
+def _same_fields(a, b):
+    from consul_tpu_torch.gossip import convert
+    bad = []
+    for x, y in zip(a, b):
+        if isinstance(x, tk.SwimState):
+            x, y = tk.unshard_state(x), tk.unshard_state(y)
+        X, Y = convert.state_to_numpy(x), convert.state_to_numpy(y)
+        bad += [f"{type(x).__name__}.{f}" for f in X
+                if not np.array_equal(X[f], Y[f])]
+    return bad
+
+
+@pytest.mark.parametrize("ndev, scenario", [(None, None), (4, None),
+                                            (None, "partition_heal"),
+                                            (None, "degraded_observer")])
+def test_graphed_round_matches_eager_on_card(ndev, scenario):
+    """The replayed graphs against the eager round on the card: every
+    field of the carry and the trace; the graphed call reads the round
+    counter and the flight cursor and nothing else; launches, settled,
+    equal the non-quiescent rounds."""
+    _need_card()
+    from consul_tpu_torch.gossip.nemesis import build
+    from consul_tpu_torch.gossip.params import lan_profile
+    n, steps = 4000, 120
+    p = lan_profile(n, slots=32, loss_rate=0.01)
+    fail, join = _churn_inputs(n, steps, 3)
+    kw = {}
+    if scenario:
+        sc = build(scenario, n)
+        fail = np.minimum(fail, sc.fail_round)
+        kw["nem"] = sc.nem
+        if sc.join_round is not None:
+            join = np.minimum(join, sc.join_round)
+        if sc.nem.needs_state:
+            kw["nem_state"] = tk.init_nem_state(n)
+    st = tk.init_state(p)._replace(member=torch.from_numpy(join == NEVER)
+                                   .cuda())
+    runs = {}
+    for graphed in (False, True):
+        program.settle_counts()
+        syncs, dissems = tk.host_syncs, fused.launches + fused.merge_launches
+        tails = dict(tk.tail_rounds)
+        a = dict(trace=True, join_round=join, flight=tk.init_flight(),
+                 hist=tk.init_hist(), graphed=graphed, **kw)
+        if ndev:
+            out = tk.run_rounds_sharded(st, prng.key(5), fail, p, steps,
+                                        ndev=ndev, **a)
+        else:
+            out = tk.run_rounds(st, prng.key(5), fail, p, steps, **a)
+        torch.cuda.synchronize()
+        syncs = tk.host_syncs - syncs
+        program.settle_counts()
+        busy = sum(tk.tail_rounds[k] - tails[k] for k in ("hot", "full"))
+        assert fused.launches + fused.merge_launches - dissems == busy
+        runs[graphed] = out
+        if graphed:
+            assert syncs == 2
+    (ce, te), (cg, tg) = runs[False], runs[True]
+    assert _same_fields(list(ce) + [te], list(cg) + [tg]) == []
+    assert int(ce[0].n_detected) > 0
+
+
+def test_device_argument_modes_on_card():
+    """The tail's shifts off by -N against the same shifts in [1, N), and
+    the draws' device-argument entry points against their by-value
+    launches."""
+    _need_card()
+    S, N = 64, 4099
+    heard, mf, rx_ok, cap = (torch.from_numpy(a).cuda()
+                             for a in _random_round_inputs(S, N, seed=9))
+    p = SwimParams(n=N, slots=S)
+    legs = [1, N - 1, 777]
+    rnd, offs = fused.tail_args(50, legs, "cuda")
+    want = fused.fused_dissem(heard, offs, mf, rx_ok, cap, rnd,
+                              p.spread_budget_rounds)
+    rnd, offs = fused.tail_args(50, [o - N for o in legs], "cuda")
+    got = fused.fused_dissem(heard, offs, mf, rx_ok, cap, rnd,
+                             p.spread_budget_rounds)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(want, fused.disseminate_ref(p, rnd, offs, heard, mf,
+                                                   rx_ok, cap))
+    keys = [prng.fold_in(prng.key(3), f) for f in range(3)]
+    dkeys = torch.from_numpy(np.asarray(keys, np.uint32).view(np.int32)
+                             .copy()).cuda()
+    assert torch.equal(prng.uniform_tensor(dkeys[0], (200_000, 3), "cuda"),
+                       prng.uniform_tensor(keys[0], (200_000, 3), "cuda"))
+    assert torch.equal(prng.below(dkeys[1], (200_000,), 0.3, "cuda"),
+                       prng.below(keys[1], (200_000,), 0.3, "cuda"))
+    grp = (torch.arange(N, device="cuda") >= N // 2).to(torch.int32)
+    shifts = torch.tensor([5, -7, N + 3], dtype=torch.int32, device="cuda")
+    assert torch.equal(prng.edge_drops(dkeys, grp, shifts, 0.6, 0.3),
+                       prng.edge_drops(keys, grp, [5, -7, N + 3], 0.6, 0.3))
+
+
+def test_conditional_graph_nodes_on_card():
+    """``csrc/round_graph.cu``: a segment under an IF node runs exactly
+    when its device predicate holds."""
+    _need_card()
+    import ctypes
+
+    x = torch.zeros(1024, device="cuda")
+    pool = torch.cuda.graph_pool_handle()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    segs = []
+    with torch.cuda.stream(side):
+        # x + 1, then x * 3, then x * 3 again under IF (x + 1 > 1).
+        for seg in ("add", "mul", "if_mul"):
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            g.capture_begin(pool=pool)
+            if seg == "add":
+                x.add_(1)
+                pred = x[0] > 1
+            else:
+                x.mul_(3)
+            g.capture_end()
+            segs.append((g, pred if seg == "if_mul" else None, None, ()))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = program._Graph([(g, p, b, (0,) * len(program._COUNTERS))
+                            for g, p, b, _ in segs])
+    for x0, want in ((0.0, 3.0), (1.0, 18.0)):
+        x.fill_(x0)
+        graph.launch()
+        torch.cuda.synchronize()
+        assert float(x[0]) == want, x0
+    graph.close()
+    assert isinstance(graph.exec, ctypes.c_void_p)

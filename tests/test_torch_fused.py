@@ -14,7 +14,7 @@ import torch
 from consul_tpu.gossip import kernel as jk
 from consul_tpu.gossip.params import SwimParams as JParams
 from consul_tpu_torch import prng
-from consul_tpu_torch.gossip import fused
+from consul_tpu_torch.gossip import fused, round_args
 from consul_tpu_torch.gossip import kernel as tk
 from consul_tpu_torch.gossip.params import SwimParams as TParams
 
@@ -48,9 +48,12 @@ def _ref(dissem, heard, mf, rx_ok, cap, rnd, seed, **kw):
 def _port(heard, mf, rx_ok, cap, rnd, seed, slots=None, **kw):
     S, N = heard.shape
     p = TParams(n=N, slots=slots or S, **kw)
-    out = tk._disseminate(p, rnd, prng.key(seed), torch.from_numpy(heard),
-                          torch.from_numpy(mf), torch.from_numpy(rx_ok),
-                          torch.from_numpy(cap))
+    # The round's row holding the reference's shifts for this key.
+    ra = round_args.custom(p, rnd, gossip=tk.gossip_offsets(
+        prng.key(seed), N, p.fanout))
+    out = tk._disseminate(p, ra, tk.round_variant(p, None, rnd),
+                          torch.from_numpy(heard), torch.from_numpy(mf),
+                          torch.from_numpy(rx_ok), torch.from_numpy(cap))
     assert out.dtype == torch.uint8
     return out.numpy()
 

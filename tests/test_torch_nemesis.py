@@ -170,10 +170,15 @@ def test_schedule_matches_reference(name):
                     int(j_nem.NEVER)).astype(np.int32)
     join = np.where(rng.random(n) < 0.1, rng.integers(0, 400, n),
                     int(j_nem.NEVER)).astype(np.int32)
+    p = t_lan(n)
     for rnd in (0, 29, 30, 89, 90, 91, 159, 160, 169, 170, 309, 310, 400):
         jf, jj = jk._nem_schedule(a.nem, jnp.int32(rnd), jnp.asarray(fail),
                                   jnp.asarray(join))
-        tf, tj = tk._nem_schedule(b.nem, rnd, torch.from_numpy(fail),
+        # The port: the flap phase from the round's variant (host), the
+        # clamps at the round's device value.
+        tf, tj = tk._nem_schedule(b.nem, tk.round_variant(p, b.nem, rnd),
+                                  torch.tensor(rnd, dtype=torch.int32),
+                                  torch.from_numpy(fail),
                                   torch.from_numpy(join))
         assert np.array_equal(np.asarray(jf), tf.numpy()), rnd
         assert np.array_equal(np.asarray(jj), tj.numpy()), rnd

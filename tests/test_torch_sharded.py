@@ -1,7 +1,8 @@
 """The port's sharded round on the CPU, tolerance 0 everywhere.
 
-- the shard helpers (``_roll_sharded``, ``_sloc_roll``, ``_win_read``,
-  ``_win_write``) against plain torch on the concatenated matrix;
+- the shard helpers (``_roll_sharded``, ``_sloc_roll``, ``_points``; the
+  shifts on the host and as device values) against plain torch on the
+  concatenated matrix;
 - kernel 2's plain version ``fused.merge_ref`` against the reference's
   ``_age_u8``/``_merge`` composed as ``_fused_sharded``'s body;
 - the sharded dissemination tail against the reference's
@@ -28,7 +29,7 @@ from consul_tpu.gossip import kernel as jk
 from consul_tpu.gossip.params import SwimParams as JParams
 from consul_tpu.gossip.params import lan_profile as j_lan
 from consul_tpu_torch import prng
-from consul_tpu_torch.gossip import convert, fused
+from consul_tpu_torch.gossip import convert, fused, round_args
 from consul_tpu_torch.gossip import kernel as tk
 from consul_tpu_torch.gossip.params import SwimParams as TParams
 from consul_tpu_torch.gossip.params import lan_profile as t_lan
@@ -74,14 +75,17 @@ def test_roll_sharded_matches_roll(ndev):
                     | set(rng.integers(-2 * N, 2 * N, 6).tolist()))
     for o in shifts:
         want = torch.roll(x, o, dims=1)
-        assert torch.equal(torch.cat(tk._roll_sharded(sc, xs, o), dim=1),
+        vr = torch.roll(v, o)
+        # The shift as a device value, as the round's row holds it.
+        s = torch.tensor(o, dtype=torch.int32)
+        assert torch.equal(torch.cat(tk._roll_sharded(sc, xs, s), dim=1),
                            want), o
         out = tuple(torch.empty_like(h) for h in xs)
-        tk._roll_sharded(sc, xs, o, out=out)
+        tk._roll_sharded(sc, xs, s, out=out)
         assert torch.equal(torch.cat(out, dim=1), want), o
-        vr = torch.roll(v, o)
+        assert torch.equal(tk._roll(x, s, 1), want), o
         for i in range(ndev):
-            assert torch.equal(tk._sloc_roll(sc, v, o, i),
+            assert torch.equal(tk._sloc_roll(sc, v, s, i),
                                vr[i * L:(i + 1) * L]), (o, i)
             assert torch.equal(tk._sloc(sc, v, i), v[i * L:(i + 1) * L])
 
@@ -105,19 +109,19 @@ def test_window_pools_cover_one_two_and_three_shards():
 
 @pytest.mark.parametrize("pool", WINDOW_POOLS)
 def test_window_read_write_match_slicing(pool):
+    """The probe tick's reads in the prober window of the sharded matrix
+    (``_points``: one byte a prober column, at any slot row) equal the
+    unsharded matrix's, whichever shards the window spans."""
     N, ndev, probe_every = pool
     B = N // probe_every
     sc = tk._ShardCtx(ndev, N // ndev)
     x = _bytes((6, N), seed=N + ndev)
+    xs = _split(x, ndev)
+    rng = np.random.default_rng(N)
     for k in range(probe_every):
-        blk = k * B
-        xs = _split(x, ndev)
-        assert torch.equal(tk._win_read(sc, xs, blk, B), x[:, blk:blk + B])
-        win = _bytes((6, B), seed=k)
-        want = x.clone()
-        want[:, blk:blk + B] = win
-        tk._win_write(sc, xs, win, blk, B)
-        assert torch.equal(torch.cat(xs, dim=1), want), blk
+        cols = k * B + torch.arange(B)
+        rows = torch.from_numpy(rng.integers(0, 6, B))
+        assert torch.equal(tk._points(sc, xs, rows, cols), x[rows, cols]), k
 
 
 # -- (b) kernel 2's plain version ---------------------------------------------
@@ -197,7 +201,9 @@ def test_sharded_tail_matches_reference_shard_map(S, N, fused_nb):
     heard, mf, rx_ok, cap = _round_inputs(S, N, seed=N)
     for rnd, seed in ((50, 3), (150, 21)):
         want = _reference_sharded_tail(jp, rnd, seed, heard, mf, rx_ok, cap)
-        got = tk._disseminate(tp, rnd, prng.key(seed),
+        ra = round_args.custom(tp, rnd, gossip=tk.gossip_offsets(
+            prng.key(seed), N, tp.fanout))
+        got = tk._disseminate(tp, ra, tk.round_variant(tp, None, rnd),
                               _split(torch.from_numpy(heard), 8),
                               torch.from_numpy(mf), torch.from_numpy(rx_ok),
                               torch.from_numpy(cap), tk._ShardCtx(8, N // 8))

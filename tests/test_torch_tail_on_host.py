@@ -7,7 +7,8 @@ This checks the kernels' own indexing before any card does: the shard
 table, pins read across shard edges and around the wrap at N, the funnel
 shifts of every byte offset, 16-byte and 4-byte row alignment, the ragged
 row end and the byte path, each with and without a drop operand (16-byte
-aligned and not).  Each launch is held byte for byte against the
+aligned and not), and the round and shifts read from device memory as
+``[rnd, o_0 ..]`` (shifts outside [0, N) reduced).  Each launch is held byte for byte against the
 plain torch versions (``disseminate_ref``, ``merge_shards_ref``).  Needs
 ``g++``; builds into the test's temporary directory.
 """
@@ -109,6 +110,13 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _args(rnd, legs):
+    """``(rnd, offs)`` in one ``[rnd, o_0 .. o_F-1]`` buffer, as the
+    round's table row holds them; the kernel reads from ``rnd``'s
+    address."""
+    return fused.tail_args(rnd, legs, "cpu")
+
+
 def _drops(F, N, seed):
     """No drop operand, a u8 [F, N] one (about half its bytes set, to
     any nonzero value) and the same one byte into a larger buffer (not
@@ -141,15 +149,14 @@ def test_fused_dissem_body_matches_plain(libs, S, N):
     p = SwimParams(n=N, slots=S)
     for k in range(0, len(offs), 3):
         legs = offs[k:k + 3]
+        rnd, o = _args(50, legs)
         for drop in _drops(len(legs), N, k):
-            ref = fused.disseminate_ref(p, 50, legs, heard, mf, rx, cap,
-                                        drop)
+            ref = fused.disseminate_ref(p, rnd, o, heard, mf, rx, cap, drop)
             for m in (mf, mf_odd[1:]) if drop is None else (mf,):
                 out = torch.empty_like(heard)
-                c_offs = (ctypes.c_int * len(legs))(*legs)
                 rc = libs["fused_dissem"](_ptr(heard), _ptr(out), _ptr(m),
                                           _ptr(rx), _ptr(cap), _ptr(drop),
-                                          S, N, len(legs), c_offs, 50,
+                                          S, N, len(legs), _ptr(rnd),
                                           p.spread_budget_rounds, None)
                 assert rc == 0
                 assert torch.equal(out, ref), (legs, drop is None)
@@ -175,17 +182,17 @@ def test_fused_merge_body_matches_plain(libs, ndev, L):
     offs = _offsets(N, L, ndev)
     for k in range(0, len(offs), 3):
         legs = [o % N or 1 for o in offs[k:k + 3]]
+        rnd, o = _args(50, legs)
         for drop in _drops(len(legs), N, k):
-            ref = fused.merge_shards_ref(p, 50, legs, shards, mf, rx, cap, sc,
+            ref = fused.merge_shards_ref(p, rnd, o, shards, mf, rx, cap, sc,
                                          drop)
             for table in (shards, odd):
                 out = torch.empty((ndev, S, L), dtype=torch.uint8)
                 ptrs = (ctypes.c_void_p * ndev)(*(h.data_ptr()
                                                   for h in table))
-                c_offs = (ctypes.c_int * len(legs))(*legs)
                 rc = libs["fused_merge"](ptrs, ndev, _ptr(out), _ptr(mf),
                                          _ptr(rx), _ptr(cap), _ptr(drop), S,
-                                         L, len(legs), c_offs, 50,
+                                         L, len(legs), _ptr(rnd),
                                          p.spread_budget_rounds, 0, ndev,
                                          None)
                 assert rc == 0
@@ -201,14 +208,13 @@ def test_fused_merge_body_shard_range(libs):
     heard, mf, rx, cap = (torch.from_numpy(a) for a in _inputs(S, N, 5))
     shards = tuple(h.contiguous() for h in heard.split(L, dim=1))
     p = SwimParams(n=N, slots=S)
-    legs = [5, L + 7, N - 3]
-    ref = fused.merge_shards_ref(p, 50, legs, shards, mf, rx, cap,
+    rnd, o = _args(50, [5, L + 7, N - 3])
+    ref = fused.merge_shards_ref(p, rnd, o, shards, mf, rx, cap,
                                  tk._ShardCtx(ndev, L))
     out = torch.full((ndev, S, L), 0xAB, dtype=torch.uint8)
     ptrs = (ctypes.c_void_p * ndev)(*(h.data_ptr() for h in shards))
     rc = libs["fused_merge"](ptrs, ndev, _ptr(out), _ptr(mf), _ptr(rx),
-                             _ptr(cap), None, S, L, 3,
-                             (ctypes.c_int * 3)(*legs), 50,
+                             _ptr(cap), None, S, L, 3, _ptr(rnd),
                              p.spread_budget_rounds, 1, 3, None)
     assert rc == 0
     for i in range(ndev):
@@ -218,22 +224,92 @@ def test_fused_merge_body_shard_range(libs):
             assert bool((out[i] == 0xAB).all()), i
 
 
-@pytest.mark.parametrize("bad", ["fanout", "budget", "range", "ndev"])
+@pytest.mark.parametrize("S, N", [(7, 4099), (9, 160), (16, 4096)])
+def test_fused_dissem_reduces_shifts_mod_n(libs, S, N):
+    """Shifts read from memory off by +-N give the bytes of the shifts in
+    [1, N), in the kernel and in the plain version."""
+    heard, mf, rx, cap = (torch.from_numpy(a) for a in _inputs(S, N, N + 1))
+    p = SwimParams(n=N, slots=S)
+    offs = [o % N or 1 for o in _offsets(N, N // 2, S)]
+    for k in range(0, len(offs), 3):
+        legs = offs[k:k + 3]
+        for drop in _drops(len(legs), N, k)[:2]:
+            ref = fused.disseminate_ref(p, *_args(77, legs), heard, mf, rx,
+                                        cap, drop)
+            for raw in ([o + N for o in legs], [o - N for o in legs]):
+                rnd, o = _args(77, raw)
+                out = torch.empty_like(heard)
+                rc = libs["fused_dissem"](
+                    _ptr(heard), _ptr(out), _ptr(mf), _ptr(rx), _ptr(cap),
+                    _ptr(drop), S, N, len(legs), _ptr(rnd),
+                    p.spread_budget_rounds, None)
+                assert rc == 0
+                assert torch.equal(out, ref), (legs, raw)
+                assert torch.equal(fused.disseminate_ref(
+                    p, rnd, o, heard, mf, rx, cap, drop), ref)
+
+
+@pytest.mark.parametrize("ndev, L", [(2, 1024), (8, 256), (3, 1001)])
+def test_fused_merge_reduces_shifts_mod_n(libs, ndev, L):
+    S, N = 5, ndev * L
+    heard, mf, rx, cap = (torch.from_numpy(a)
+                          for a in _inputs(S, N, ndev + L))
+    sc = tk._ShardCtx(ndev, L)
+    shards = tuple(h.contiguous() for h in heard.split(L, dim=1))
+    p = SwimParams(n=N, slots=S)
+    offs = _offsets(N, L, ndev + 1)
+    for k in range(0, len(offs), 3):
+        legs = [o % N or 1 for o in offs[k:k + 3]]
+        for drop in _drops(len(legs), N, k)[:2]:
+            ref = fused.merge_shards_ref(p, *_args(77, legs), shards, mf, rx,
+                                         cap, sc, drop)
+            rnd, o = _args(77, [o - N for o in legs])
+            out = torch.empty((ndev, S, L), dtype=torch.uint8)
+            ptrs = (ctypes.c_void_p * ndev)(*(h.data_ptr() for h in shards))
+            rc = libs["fused_merge"](ptrs, ndev, _ptr(out), _ptr(mf),
+                                     _ptr(rx), _ptr(cap), _ptr(drop), S, L,
+                                     len(legs), _ptr(rnd),
+                                     p.spread_budget_rounds, 0, ndev, None)
+            assert rc == 0
+            plain = fused.merge_shards_ref(p, rnd, o, shards, mf, rx, cap,
+                                           sc, drop)
+            for i in range(ndev):
+                assert torch.equal(out[i], ref[i]), (legs, i)
+                assert torch.equal(plain[i], ref[i]), (legs, i)
+
+
+def test_device_args_must_lie_back_to_back():
+    """The wrappers take the round and its shifts only as one device
+    ``[rnd, o_0 ..]`` buffer (the kernel reads them from one address)."""
+    rnd, offs = fused.tail_args(5, [1, 2, 3], "cpu")
+    assert fused._device_args(rnd, offs, rnd.device) == rnd.data_ptr()
+    with pytest.raises(ValueError, match="back to back"):
+        fused._device_args(5, [1, 2, 3], rnd.device)
+    with pytest.raises(ValueError, match="back to back"):
+        fused._device_args(rnd, offs[1:], rnd.device)
+    with pytest.raises(ValueError, match="back to back"):
+        fused._device_args(7, offs, rnd.device)
+
+
+@pytest.mark.parametrize("bad", ["fanout", "budget", "range", "ndev",
+                                 "args"])
 def test_entry_points_refuse_what_they_do_not_take(libs, bad):
     S, L, ndev = 2, 16, 2
     buf = torch.zeros((ndev, S, L), dtype=torch.uint8)
     mf = torch.zeros(ndev * L, dtype=torch.int32)
     rx = torch.ones(ndev * L, dtype=torch.bool)
     cap = torch.zeros(S, dtype=torch.int32)
-    kw = dict(fanout=1, budget=3, i0=0, i1=ndev, ndev=ndev)
-    kw[bad] = {"fanout": 9, "budget": 15, "range": ndev + 1, "ndev": 65}[bad]
+    args = torch.ones(10, dtype=torch.int32)
+    kw = dict(fanout=1, budget=3, i0=0, i1=ndev, ndev=ndev,
+              args=_ptr(args))
+    kw[bad] = {"fanout": 9, "budget": 15, "range": ndev + 1, "ndev": 65,
+               "args": None}[bad]
     if bad == "range":
         kw["i1"] = kw.pop("range")
     ptrs = (ctypes.c_void_p * 65)(*([buf[0].data_ptr()] * 65))
     rc = libs["fused_merge"](ptrs, kw["ndev"], _ptr(buf), _ptr(mf), _ptr(rx),
-                             _ptr(cap), None, S, L, kw["fanout"],
-                             (ctypes.c_int * 9)(*([1] * 9)), 0, kw["budget"],
-                             kw["i0"], kw["i1"], None)
+                             _ptr(cap), None, S, L, kw["fanout"], kw["args"],
+                             kw["budget"], kw["i0"], kw["i1"], None)
     assert rc != 0
 
 

@@ -209,6 +209,57 @@ def test_edge_drops(on_host, kind, n, p_ab, p_ba):
         assert torch.equal(out, ref), shifts
 
 
+def _dev_keys(keys):
+    """Row keys as a table row holds them: int32 words, [rows, 2]."""
+    return torch.from_numpy(np.asarray(keys, np.uint32).reshape(-1, 2)
+                            .view(np.int32).copy())
+
+
+@pytest.mark.parametrize("shape", [(1,), (257,), (1001, 3)])
+def test_device_keys_match_by_value(on_host, shape):
+    """Keys read from memory (the round's table row) give the by-value
+    launch's bits: uniform, uniform rows, below."""
+    for k in KEYS:
+        a, b = (torch.empty(shape, dtype=torch.float32) for _ in range(2))
+        prng._uniform_into(a, [k])
+        prng._uniform_into(b, _dev_keys([k]))
+        assert _same_bits(a, b)
+        c, d = (torch.empty(shape, dtype=torch.bool) for _ in range(2))
+        prng._below_into(c, k, 0.3)
+        prng._below_into(d, _dev_keys([k])[0], 0.3)
+        assert torch.equal(c, d)
+        assert torch.equal(d, prng.below_ref(_dev_keys([k])[0], shape, 0.3,
+                                             "cpu"))
+    rows = [prng.fold_in(KEYS[3], f) for f in range(3)]
+    a, b = (torch.empty((3, shape[0]), dtype=torch.float32) for _ in range(2))
+    prng._uniform_into(a, rows)
+    prng._uniform_into(b, _dev_keys(rows))
+    assert _same_bits(a, b)
+    assert _same_bits(b, prng.uniform_rows_ref(_dev_keys(rows), shape[0],
+                                               "cpu"))
+
+
+@pytest.mark.parametrize("p_ab, p_ba", [(1.0, 1.0), (0.6, 0.3), (0.0, 0.45)])
+@pytest.mark.parametrize("kind, n", [("hash", 4099), ("half", 1000)])
+def test_edge_drops_device_keys_and_shifts(on_host, kind, n, p_ab, p_ba):
+    """Keys and shifts read from memory (any int32 shift, reduced mod n in
+    the kernel) give the by-value launch's mask, and the plain version
+    takes the same tensors."""
+    grp = _groups(kind, n, n)
+    keys = [prng.fold_in(KEYS[1], f) for f in range(3)]
+    for shifts in ([1], [n - 1, -(n // 3)], [5, n + 5, -(2 * n) + 7]):
+        legs = keys[:len(shifts)]
+        want = torch.empty((len(shifts), n), dtype=torch.bool)
+        prng._edge_drops_into(want, legs, grp, shifts, p_ab, p_ba)
+        got = torch.empty_like(want)
+        d_shifts = torch.tensor(shifts, dtype=torch.int32)
+        prng._edge_drops_into(got, _dev_keys(legs), grp, d_shifts, p_ab,
+                              p_ba)
+        assert torch.equal(got, want), shifts
+        assert torch.equal(prng.edge_drops_ref(_dev_keys(legs), grp,
+                                               d_shifts, p_ab, p_ba), want)
+
+
 def test_launches_counted(on_host):
     """One count and one recorded shape a launch; an edge-drops launch
     also records the group vector it was given."""
