@@ -9,9 +9,10 @@ result lines are not printed.
 1. card: ``nvidia-smi`` name and power limit, torch's device name/count.
 2. build: ``csrc/dissem_tail.cu`` (both entry points, ``fused_dissem``
    and ``fused_merge``), ``csrc/kv_store.cu``,
-   ``csrc/threefry.cu`` and ``csrc/round_graph.cu`` (the round
-   program's conditional nodes) with nvcc for sm_90a, one nvcc each,
-   all started together (ptxas report).
+   ``csrc/threefry.cu``, ``csrc/round_graph.cu`` (the round
+   program's conditional nodes) and ``csrc/event_flood.cu`` (the event
+   round) with nvcc for sm_90a, one nvcc each, all started together
+   (ptxas report).
    threefry: every entry point of the round's draws
    (``consul_tpu_torch/prng.py``: bits, uniform, uniform rows, below,
    randint, edge drops) against its plain torch version on the card, bit
@@ -54,6 +55,18 @@ result lines are not printed.
 6. repeat: both kernels at [8, 1M] (the merge on 8 shards) over many
    seeds, each seed with its own offset triple and three launches, every
    launch byte-identical to the plain version.
+6b. event_flood: the event round's kernel (``csrc/event_flood.cu``)
+   against ``event_flood_ref`` on the card, tolerance 0 in every output
+   (the bytes, slot_used, origin, node_ltime, n_seen), at [32, 250,000]
+   (the multi-DC LAN pool), [64, 1M] (the plane), [32, 12] (the WAN pool,
+   fanout 4) and [64, 16,001], over rows with shifts 1 and N - 1, random
+   ones and the same off by -N, push/pull off and on, budgets 1, 3 and
+   14, on inputs with every byte value, alive holes, slots on both sides
+   of their TTL and clocks and counts at the int32 edge; then [32,
+   250,000] over 64 seeds.  Its time (CUDA-graph replays of 20 launches,
+   the row read from device memory) with push/pull off and on, the plain
+   version's, and the bytes bound (has read and written, alive,
+   node_ltime read and written).
 7. full_path: ``run_rounds`` at n=16,000, S=64 (lan_profile, churn,
    loss, joins, flight ring, hist banks, trace) once on the card and
    once on the CPU (a worker process started with the script, which runs
@@ -98,11 +111,14 @@ result lines are not printed.
 11. events: the user-event flood (``gossip/events.py``) at E = 64,
     n = 16,000 for 300 rounds (fires with overflow, -1 entries and
     repeated nodes, push/pull rounds, an alive mask with holes, slot GC
-    and reuse) on the card and on the CPU: every field and the coverage
-    trace bit-identical.  Then at [64, 1M] with the plane's parameters:
-    one fired event must reach coverage >= 0.99 within
-    ``event_ttl_rounds``; the event round's time (CUDA events over 100
-    rounds ending in a device->host read) and peak device memory.
+    and reuse) on the card (the graphed route: replays of the event
+    program, one ``event_flood`` launch a round, 300 launches gated) and
+    on the CPU: every field and the coverage trace bit-identical.  Then
+    at [64, 1M] with the plane's parameters: one fired event must reach
+    coverage >= 0.99 within ``event_ttl_rounds``; with 64 live events the
+    event round's time graphed and eager from one state (CUDA events over
+    a call of 100 rounds ending in a device->host read), the two routes'
+    states and coverage bit-identical, and peak device memory.
 12. plane: the port's gossip plane in this process on the card, universe
     1M (capacity 1,024 + 998,976 simulated nodes, 64 slots, 64 event
     slots, 20 ms rounds, suspicion_mult 1.0, 0.3 s heartbeat lapse),
@@ -145,8 +161,10 @@ The cross-validation and multi-DC phases:
 - multidc_full_path (after nemesis_full_path): ``run_multidc_rounds`` at
   D = 3, n_lan = 16,000, S = 64 for 200 rounds (LAN and WAN failures,
   events fired in two DCs and one past the last free slot, hist banks),
-  with the hot tier off and on, on the card against the CPU workers' runs
-  and with each DC's LAN pool on 8 column shards against the card's
+  with the hot tier off and on, on the card (the graphed route,
+  ``MultiDCProgram``: D + 1 flood launches and 2 D + 3 graph launches a
+  round, one host read a call) against the CPU workers' eager runs and
+  with each DC's LAN pool on 8 column shards against the card's
   single-device run: state, banks and coverage trace bit-identical;
 - crossval: ``crossval.run_config`` at n = 1,000 and 10,000 (16 victims,
   8 seeds) on the card, its kernel statistics equal to CROSSVAL.json's
@@ -162,11 +180,16 @@ The cross-validation and multi-DC phases:
   (2 seeds), gated on completeness, false dead, slot drops and the
   Lifeguard envelope; rounds/s and launches;
 - multidc_main_path and sharded_multidc_main_path: bench.py's multidc
-  shape at 1M (4 DCs x 250,000, one event, 250 failures per DC): rounds/s
-  over 3 blocks of 50, on one device and on 8 shards per DC, launches and
-  host syncs per round, peak memory, the event at 0.99 of every DC; the
-  8-shard run's final state, after DEAD verdicts in every DC, equal to
-  the single-device state.
+  shape at 1M (4 DCs x 250,000, one event, 250 failures per DC), the
+  eager route (``graphed=False``) and the graphed route
+  (``MultiDCProgram``) from one state in this call, each a warm-up call
+  of 20 rounds and 3 timed calls of 50: rounds/s of both, host reads a
+  call (1 graphed) and a round, graph launches a round (2 D + 3),
+  captures, their seconds and each program's pool bytes, the table's host
+  ms a call, launches and peak memory; the states after every call
+  bit-identical between the routes, D + 1 flood launches a round on both,
+  the event at 0.99 of every DC on both; the 8-shard run's final state,
+  after DEAD verdicts in every DC, equal to the single-device state.
 
 Every card path (full_path, sharded_full_path, nemesis_full_path,
 crossval, multidc_full_path, the main paths) reports its launches of the
@@ -182,7 +205,9 @@ B) / (kernel, W, B, lmax) the store's phases launched its kernels at
 (``device_store.launch_shapes``), on fresh random inputs against the
 plain versions on the card; and every shape the draws' kernel was
 launched at (``prng.launch_shapes``), with 4 fresh keys against the plain
-version on the card.
+version on the card; and every (E, N, F, budget, TTL, push/pull) the
+event flood was launched at (``events.launch_shapes``), under 4 rows on
+fresh inputs against the plain version.
 
 The device-resident state store (phase device_store, after gossipd;
 ``consul_tpu_torch/state/device_store.py``, kernels ``kv_apply`` and
@@ -228,7 +253,9 @@ main paths as ``nemesis_launches``, in the crossval phase as
 store_bridge; for the draws' kernel, its launches on the main paths, its
 time the main path's one probe-tick draw a round; for the round
 program, its graph launches on the churn main path and a graphed round's
-time against the eager round's) and, last, the ok line.  Needs
+time against the eager round's; for the event flood, its launches on the
+1M multi-DC paths, in the events phase and on the plane, its time at
+[32, 250,000] and [64, 1M]) and, last, the ok line.  Needs
 one CUDA card: without one it exits 2 before printing anything else.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -340,7 +367,7 @@ def card() -> str:
 # tail's entry points fused_dissem and fused_merge are in dissem_tail.cu,
 # the device store's kv_apply and watch_match in kv_store.cu, the round's
 # random draws in threefry.cu.
-SOURCES = ("dissem_tail", "kv_store", "threefry", "round_graph")
+SOURCES = ("dissem_tail", "kv_store", "threefry", "round_graph", "event_flood")
 
 
 def build() -> None:
@@ -920,8 +947,163 @@ def repeat(S: int, N: int, seeds: int, ndev: int | None = None,
     return res
 
 
+# -- the event flood's kernel ----------------------------------------------------
+
+# (E, N, fanout): the multi-DC LAN pool's [32, 250,000], the plane's
+# [64, 1M], the WAN pool's [32, 12] at fanout 4, and odd N.
+FLOOD_SHAPES = ((32, 250_000, 3), (64, 1_000_000, 3), (32, 12, 4),
+                (64, 16_001, 3))
+FLOOD_RND, FLOOD_TTL = 500, 40
+
+
+def flood_inputs(E: int, N: int, seed: int, dev="cuda"):
+    """Every byte value (a third of the bytes; the rest seen or not with
+    every age, so ages lie at and across any budget), senders alive with
+    holes, slots used or free with start rounds on both sides of the TTL
+    at round ``FLOOD_RND``, Lamport times and clocks at the int32 edge,
+    counts next to the 2**32 wrap."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(n, hi):
+        return torch.randint(0, hi, (n,), generator=g, device=dev)
+
+    def pick(values, n):
+        v = torch.tensor(values, dtype=torch.int32, device=dev)
+        return v[ints(n, len(values))]
+
+    rand = torch.randint(0, 256, (E, N), generator=g, device=dev,
+                         dtype=torch.uint8)
+    aged = ((torch.rand((E, N), generator=g, device=dev) < 0.4).to(
+        torch.uint8) * 0x80 | torch.randint(0, 16, (E, N), generator=g,
+                                             device=dev, dtype=torch.uint8))
+    has = torch.where(torch.rand((E, N), generator=g, device=dev) < 0.35,
+                      rand, aged)
+    alive = torch.rand(N, generator=g, device=dev) < 0.8
+    used = torch.rand(E, generator=g, device=dev) < 0.8
+    ltime = pick([-5, 0, 1, 7, 1000, NEVER], E)
+    origin = (ints(E, N + 1) - 1).to(torch.int32)
+    start = (FLOOD_RND - FLOOD_TTL + ints(E, 5) - 2).to(torch.int32)
+    node_ltime = pick([-3, 0, 2, 999, NEVER - 1, NEVER], N)
+    n_seen = pick([0, 5, NEVER - 2, -1, -2**31], E)
+    return [has, alive, used, ltime, origin, start, node_ltime, n_seen]
+
+
+def _flood_rows(N: int, F: int, seed: int) -> list:
+    """Event rows ``[rnd, o_0 .., pp, -pp]``: shifts 1 and N - 1 with a
+    random one, random sets, and the same sets off by -N (the kernel
+    reduces them), each once with push/pull off and on."""
+    rng = np.random.default_rng(seed)
+    sets = []
+    for k in range(3):
+        offs = ([1, N - 1] + rng.integers(1, N, F).tolist())[:F] if k == 0 \
+            else rng.integers(1, N, F).tolist()
+        pp = int(rng.integers(1, N))
+        sets.append((offs, pp))
+        sets.append(([o - N for o in offs], pp - N))
+    return [(torch.tensor([FLOOD_RND, *offs, pp, -pp], dtype=torch.int32,
+                          device="cuda"), pushpull)
+            for offs, pp in sets for pushpull in (False, True)]
+
+
+def _flood_err(got, want) -> int:
+    """The largest difference over every output of one flood (0 for
+    equal), raising where any differs."""
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              if a.numel() else 0 for a, b in zip(got, want))
+    if err:
+        bad = [f for f, a, b in zip(got._fields, got, want)
+               if not torch.equal(a, b)]
+        raise AssertionError(f"event_flood != plain in {bad}, max abs err "
+                             f"{err}")
+    return err
+
+
+def _flood_bound(E: int, N: int, F: int) -> float:
+    """The least time of one flood on the card (ms): has read and written
+    once, alive read, node_ltime read and written, the [E] registers (the
+    live holders' counts among them) and the row."""
+    bytes_ = 2 * E * N + N + 8 * N + 30 * E + 4 * (F + 3)
+    return bytes_ / HBM_BYTES_PER_S * 1e3
+
+
+def flood_phase(card_line: str, seeds: int = 64) -> dict:
+    """``event_flood`` (``csrc/event_flood.cu``) against ``event_flood_ref``
+    on the card, tolerance 0 in every output (has, slot_used, origin,
+    node_ltime, n_seen), at ``FLOOD_SHAPES`` over ``_flood_rows`` and
+    budgets 1, 3 and 14; its time in CUDA-graph replays (the row read from
+    device memory) beside the bytes bound and the plain version's time;
+    then [32, 250,000] over ``seeds`` fresh inputs, push/pull off and on."""
+    from consul_tpu_torch.gossip import events
+    from consul_tpu_torch.gossip.params import lan_profile
+
+    t0 = time.perf_counter()
+    rows, err, held = {}, 0, 0
+    for i, (E, N, F) in enumerate(FLOOD_SHAPES):
+        ins = flood_inputs(E, N, 500 + i)
+        for j, (row, pp) in enumerate(_flood_rows(N, F, 600 + i)):
+            budget = (1, 3, 14)[j % 3]
+            err = max(err, _flood_err(
+                events.event_flood(*ins, row, budget, FLOOD_TTL, pp),
+                events.event_flood_ref(*ins, row, budget, FLOOD_TTL, pp)))
+            held += 1
+        budget = lan_profile(N).spread_budget_rounds
+        timed = {}
+        for pp, (row, _) in ((False, _flood_rows(N, F, 700)[0]),
+                             (True, _flood_rows(N, F, 700)[1])):
+            timed[pp] = graph_ms(lambda: events.event_flood(
+                *ins, row, budget, FLOOD_TTL, pp))
+        plain_ms = cuda_ms(lambda: events.event_flood_ref(
+            *ins, _flood_rows(N, F, 700)[0][0], budget, FLOOD_TTL, False),
+            iters=5 if N >= 250_000 else 20)
+        bound = _flood_bound(E, N, F)
+        rows[f"{E}x{N}"] = {"shape": [E, N], "fanout": F, "budget": budget,
+                            "ms": timed[False], "ms_pushpull": timed[True],
+                            "plain_ms": plain_ms, "bound_ms": bound,
+                            "bound_by": "bytes",
+                            "share_of_bound": bound / timed[False]}
+        del ins
+    # Many seeds at the multi-DC LAN pool's shape.
+    E, N, F = FLOOD_SHAPES[0]
+    for seed in range(seeds):
+        ins = flood_inputs(E, N, 2000 + seed)
+        rng = np.random.default_rng(seed)
+        offs, pp = rng.integers(1, N, F).tolist(), int(rng.integers(1, N))
+        row = torch.tensor([FLOOD_RND, *offs, pp, -pp], dtype=torch.int32,
+                           device="cuda")
+        for pushpull in (False, True):
+            err = max(err, _flood_err(
+                events.event_flood(*ins, row, 4, FLOOD_TTL, pushpull),
+                events.event_flood_ref(*ins, row, 4, FLOOD_TTL, pushpull)))
+            held += 1
+    torch.cuda.empty_cache()
+    res = {"phase": "event_flood", "card": card_line, "tolerance": 0,
+           "max_abs_err": err, "launches_held": held, "seeds": seeds,
+           "shapes": rows, "library_ms": None,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def flood_shapes_vs_plain(shapes: set) -> list:
+    """Every (E, N, F, budget, ttl, push/pull) the paths launched the
+    flood at (``events.launch_shapes``), on fresh inputs under four rows
+    (shifts off by -N among them) against the plain version."""
+    from consul_tpu_torch.gossip import events
+
+    rows = []
+    for i, (E, N, F, budget, ttl, pp) in enumerate(sorted(shapes)):
+        ins = flood_inputs(E, N, 900 + i)
+        for row, _ in _flood_rows(N, F, 950 + i)[:8:2]:
+            _flood_err(events.event_flood(*ins, row, budget, ttl, pp),
+                       events.event_flood_ref(*ins, row, budget, ttl, pp))
+        rows.append({"kernel": "event_flood", "shape": [E, N], "fanout": F,
+                     "budget": budget, "ttl": ttl, "pushpull": pp,
+                     "launches_held": 4})
+    return rows
+
+
 def path_shapes_vs_plain(shapes: set, store_shapes: set,
-                         draw_shapes: set) -> dict:
+                         draw_shapes: set, flood_shapes: set) -> dict:
     """Every (kernel, S, L, ndev, F, budget) that the paths launched at
     (``fused.launch_shapes``) held against the plain version on fresh
     adversarial bytes, under the offset sets of ``_offset_sets`` with F
@@ -930,7 +1112,8 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
     paths launched its kernels at (``store_shapes``), as
     ``store_shapes_vs_plain`` holds them, and every shape the draws'
     kernel was launched at (``draw_shapes``), as ``draw_shapes_vs_plain``
-    holds them."""
+    holds them, and every shape the event flood was launched at
+    (``flood_shapes``), as ``flood_shapes_vs_plain`` holds them."""
     from types import SimpleNamespace
 
     from consul_tpu_torch.gossip import fused, kernel
@@ -969,12 +1152,13 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
                      "launches_held": len(variants)})
     rows += store_shapes_vs_plain(store_shapes)
     rows += draw_shapes_vs_plain(draw_shapes)
+    rows += flood_shapes_vs_plain(flood_shapes)
     res = {"phase": "path_shapes", "shapes": rows, "tolerance": 0,
            "max_abs_err": err, "seconds": time.perf_counter() - t0}
     emit(res)
     kernels = {r["kernel"] for r in rows}
     if kernels != {"fused_dissem", "fused_merge", "kv_apply",
-                   "watch_match", "threefry"}:
+                   "watch_match", "threefry", "event_flood"}:
         raise AssertionError(f"the paths launched only {sorted(kernels)}")
     return res
 
@@ -989,9 +1173,10 @@ def _settle() -> None:
 def _reset_counts() -> None:
     """Every kernel launch count and round counter to 0."""
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import fused, kernel, program
+    from consul_tpu_torch.gossip import events, fused, kernel, program
     _settle()
     program.launches = 0
+    events.launches = 0
     prng.launches = 0
     prng.calls = 0
     fused.launches = 0
@@ -1704,8 +1889,10 @@ def _events_16k(dev, p, alive, fires, seed):
 
 
 def events_phase(seed: int = 21) -> dict:
-    """The event flood on the card against the CPU at n = 16,000, then
-    its time and its coverage gate at [64, 1M]."""
+    """The event flood on the card (the graphed route: the event program,
+    one ``event_flood`` launch a round) against the CPU at n = 16,000,
+    then its coverage gate at [64, 1M] and its time there, graphed against
+    eager in this call."""
     from consul_tpu_torch import prng
     from consul_tpu_torch.gossip import events
     from consul_tpu_torch.gossip.params import SwimParams, lan_profile
@@ -1723,9 +1910,11 @@ def events_phase(seed: int = 21) -> dict:
     second[5] = -1
     fires = [(first, 200), (second, 100)]
     t0 = time.perf_counter()
+    _reset_counts()
     st_g, cov_g = _events_16k("cuda", p, alive, fires, seed)
     torch.cuda.synchronize()
     cuda_s = time.perf_counter() - t0
+    flood_16k = events.launches
     st_c, cov_c = _events_16k("cpu", p, alive, fires, seed)
     diverged = _diverged([(st_g, st_c)])
     if not torch.equal(cov_g.cpu(), cov_c):
@@ -1746,23 +1935,43 @@ def events_phase(seed: int = 21) -> dict:
     reached = next((r + 1 for r, c in enumerate(trace) if c >= 0.99), None)
     st = events.fire_events(st, torch.from_numpy(
         rng.integers(0, N, 64).astype(np.int32)))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    st, cov = events.run_event_rounds(st, key, alive_m, pm, 100)
-    int(st.round)
-    end.record()
-    end.synchronize()
+    # The event round at [64, 1M], 64 live events: graphed (replays of
+    # the event program) and eager (the plain version) from one state,
+    # each a call of 100 rounds ending in a device->host read, timed by
+    # CUDA events, after a warm-up call each.
+    timed, outs = {}, {}
+    for graphed in (True, False):
+        events.run_event_rounds(st, key, alive_m, pm, 2, graphed=graphed)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs[graphed] = events.run_event_rounds(st, key, alive_m, pm, 100,
+                                                graphed=graphed)
+        int(outs[graphed][0].round)
+        end.record()
+        end.synchronize()
+        timed[graphed] = start.elapsed_time(end) / 100
+    diverged_1m = _diverged([(outs[True][0], outs[False][0])])
+    if not torch.equal(outs[True][1], outs[False][1]):
+        diverged_1m.append("coverage")
+    del outs
     res = {"phase": "events", "n": n, "slots": 64, "rounds": 300,
            "drops": drops, "cuda_s": cuda_s, "diverged": diverged,
+           "flood_launches_16k_card": flood_16k,
            "n_1m": N, "event_ttl_rounds": pm.event_ttl_rounds,
            "coverage_trace_1m": trace, "rounds_to_coverage_99": reached,
-           "event_round_ms_1m": start.elapsed_time(end) / 100,
+           "event_round_ms_1m": timed[True],
+           "event_round_ms_1m_eager": timed[False],
+           "diverged_1m_graphed_vs_eager": diverged_1m,
            "max_memory_allocated_1m": torch.cuda.max_memory_allocated()}
     emit(res)
-    if diverged:
-        raise AssertionError(f"card and CPU event floods diverged in "
-                             f"{diverged}")
+    if diverged or diverged_1m:
+        raise AssertionError(f"event floods diverged: card vs CPU in "
+                             f"{diverged}, graphed vs eager at 1M in "
+                             f"{diverged_1m}")
+    if flood_16k != 300:
+        raise AssertionError(f"the card's 300 event rounds made {flood_16k} "
+                             f"flood launches")
     if drops == 0:
         raise AssertionError("the 16,000-node flood overflowed no slot")
     if reached is None:
@@ -2028,7 +2237,9 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
     tier off and on), and with each DC's LAN pool on 8 column shards
     against the card's single-device run: every field of the state, the
     hist banks and the coverage trace bit-identical."""
-    from consul_tpu_torch.gossip import fused, kernel
+    from consul_tpu_torch.gossip import events, fused, kernel
+    from consul_tpu_torch.gossip import multidc as md
+    from consul_tpu_torch.gossip import program
 
     t0 = time.perf_counter()
     runs, bad = {}, []
@@ -2036,12 +2247,18 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
         _reset_counts()
         t1 = time.perf_counter()
         single = _mdc_run(D, n, S, steps, seed, hot, "cuda")
+        _settle()
         row = {"cuda_s": time.perf_counter() - t1,
                "dissem_launches": fused.launches, **_draws(steps),
+               "flood_launches": events.launches,
+               "graph_launches": program.launches,
+               "host_syncs": kernel.host_syncs,
                "tail_rounds": dict(kernel.tail_rounds)}
         _reset_counts()
         t1 = time.perf_counter()
         sharded = _mdc_run(D, n, S, steps, seed, hot, "cuda", ndev=8)
+        _settle()
+        md.close_programs()
         row.update(cuda_8_shards_s=time.perf_counter() - t1,
                    sharded_merge_launches=fused.merge_launches,
                    sharded_dissem_launches=fused.launches,
@@ -2067,6 +2284,14 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
                 row["draw_launches"] != row["draw_calls"]:
             bad.append(f"hot_slots={hot}: {row['draw_launches']} draw "
                        f"launches for {row['draw_calls']} device draws")
+        # The card's route is the graphed one: D + 1 floods, 2 D + 3
+        # graph launches a round, one host read a call (two calls).
+        if row["flood_launches"] != (D + 1) * steps \
+                or row["graph_launches"] != (2 * D + 3) * steps \
+                or row["host_syncs"] != 2:
+            bad.append(f"hot_slots={hot}: {row['flood_launches']} floods, "
+                       f"{row['graph_launches']} graph launches, "
+                       f"{row['host_syncs']} host reads in {steps} rounds")
     res = {"phase": "multidc_full_path", "D": D, "n_lan": n, "slots": S,
            "steps": steps, "seconds": time.perf_counter() - t0,
            "runs": runs, "bad": bad}
@@ -2076,18 +2301,97 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
     return res
 
 
+def _mdc_route(p, lan_fail_t, wan_fail_t, key, warm: int, block: int,
+               blocks: int, graphed: bool) -> tuple:
+    """One route of the 1M multi-DC main path from a fresh state (one
+    event fired at (dc 0, node 7)): the warm-up call, then ``blocks``
+    timed calls of ``block`` rounds, each ending in a device->host read.
+    Returns the route's numbers and its state after each call."""
+    from consul_tpu_torch.gossip import events, fused, kernel
+    from consul_tpu_torch.gossip import multidc as md
+    from consul_tpu_torch.gossip import program
+
+    total = warm + block * blocks
+    table_s = []
+    tables = md._tables
+
+    def timed_tables(*a):
+        t = time.perf_counter()
+        out = tables(*a)
+        table_s.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    state = md.fire_in_dc(md.init_multidc(p), 0, 7, p)
+    _reset_counts()
+    cap0 = (program.captures, program.capture_s)
+    md._tables = timed_tables
+    try:
+        t0 = time.perf_counter()
+        state, cov = md.run_multidc_rounds(state, key, lan_fail_t, wan_fail_t,
+                                           p, warm, graphed=graphed)
+        int(state.wan.round)
+        warm_s = time.perf_counter() - t0
+        covs, times, states = [cov], [], [state]
+        for _ in range(blocks):
+            t0 = time.perf_counter()
+            state, cov = md.run_multidc_rounds(state, key, lan_fail_t,
+                                               wan_fail_t, p, block,
+                                               graphed=graphed)
+            int(state.wan.round)
+            times.append(time.perf_counter() - t0)
+            covs.append(cov)
+            states.append(state)
+    finally:
+        md._tables = tables
+    _settle()
+    calls = 1 + blocks
+    cov = torch.cat(covs)[:, :, 0].cpu().numpy()          # [T, D], slot 0
+    out = {"warmup_s": warm_s, "block_s": times,
+           "rounds_per_s_mean": block * blocks / sum(times),
+           "rounds_per_s_best_block": block / min(times),
+           "dissem_launches": fused.launches,
+           "merge_launches": fused.merge_launches,
+           "flood_launches": events.launches,
+           "dissem_launches_per_round": fused.launches / total,
+           "merge_launches_per_round": fused.merge_launches / total,
+           **_draws(total),
+           "tail_rounds": dict(kernel.tail_rounds),
+           "host_syncs_per_call": kernel.host_syncs / calls,
+           "host_syncs_per_round": kernel.host_syncs / total,
+           "graph_launches_per_round": program.launches / total,
+           "table_host_ms_per_call": 1e3 * sum(table_s) / len(table_s),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "rounds_to_coverage_99": [
+               next((r + 1 for r in range(total) if cov[r, d] >= 0.99),
+                    None) for d in range(p.n_dcs)],
+           "coverage_end": cov[-1].tolist()}
+    if graphed:
+        out.update(captures=program.captures - cap0[0],
+                   capture_s=program.capture_s - cap0[1],
+                   pool_bytes=[prog.pool_bytes
+                               for prog in md._programs.values()])
+        md.close_programs()
+        torch.cuda.empty_cache()
+    return out, states
+
+
 def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
                       block: int = 50, blocks: int = 3,
                       lan_devices: int = 0):
     """bench.py's multidc regime on the port: ``dcs`` LAN pools of
     ``n // dcs`` nodes, 3 servers each, 32 event slots, S = 64, one event
     fired at (dc 0, node 7), ``n_lan // 1000`` failures per DC past the
-    servers, spaced over ``warm + block * blocks`` rounds; rounds/s over
-    the timed blocks, each ending in a device->host read.  Returns the result line and the state at the end
-    of the warm-up and of each block (the round never writes into a state
-    it was given)."""
+    servers, spaced over ``warm + block * blocks`` rounds.  Both routes
+    from the same state in this call, the eager one (``graphed=False``,
+    the plain version) first, then the graphed one (``MultiDCProgram``,
+    the main path): rounds/s over the timed blocks, host reads a call and
+    a round, graph launches a round, captures, their seconds and each
+    program's pool bytes, the table's host ms a call, kernel launches.
+    The two routes' states after every call must be bit-identical.
+    Returns the result line (the graphed route's numbers at its top
+    level) and the graphed route's states."""
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import fused, kernel
     from consul_tpu_torch.gossip import multidc as md
 
     n_lan = n // dcs
@@ -2096,65 +2400,61 @@ def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
     n_fail = max(1, n_lan // 1000)
     lan_fail = np.full((dcs, n_lan), NEVER, np.int32)
     s0 = p.n_servers
-    lan_fail[:, s0:s0 + n_fail] = ((np.arange(n_fail, dtype=np.int64)
-                                    * (warm + block * blocks))
-                                   // n_fail)[None, :]
     total = warm + block * blocks
+    lan_fail[:, s0:s0 + n_fail] = ((np.arange(n_fail, dtype=np.int64)
+                                    * total) // n_fail)[None, :]
     lan_fail_t = torch.from_numpy(lan_fail).cuda()
     wan_fail_t = torch.full((dcs * s0,), NEVER, dtype=torch.int32,
                             device="cuda")
     key = prng.key(42)
-    torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
-    state = md.fire_in_dc(md.init_multidc(p), 0, 7, p)
-    _reset_counts()
-    t0 = time.perf_counter()
-    state, cov = md.run_multidc_rounds(state, key, lan_fail_t, wan_fail_t,
-                                       p, warm)
-    int(state.wan.round)
-    warm_s = time.perf_counter() - t0
-    covs, times, states = [cov], [], [state]
-    for _ in range(blocks):
-        t0 = time.perf_counter()
-        state, cov = md.run_multidc_rounds(state, key, lan_fail_t,
-                                           wan_fail_t, p, block)
-        int(state.wan.round)
-        times.append(time.perf_counter() - t0)
-        covs.append(cov)
-        states.append(state)
-    cov = torch.cat(covs)[:, :, 0].cpu().numpy()          # [T, D], slot 0
-    reached = [next((r + 1 for r in range(total) if cov[r, d] >= 0.99),
-                    None) for d in range(dcs)]
+    eager, eager_states = _mdc_route(p, lan_fail_t, wan_fail_t, key, warm,
+                                     block, blocks, graphed=False)
+    graphed, states = _mdc_route(p, lan_fail_t, wan_fail_t, key, warm,
+                                 block, blocks, graphed=True)
+    diverged = [f"call {i}: {d}" for i, (a, b) in
+                enumerate(zip(eager_states, states))
+                for d in _mdc_state_diff(a, b)]
+    del eager_states
+    state = states[-1]
     res = {"phase": ("multidc_main_path" if lan_devices <= 1
                      else "sharded_multidc_main_path"),
            "n": n, "dcs": dcs, "n_lan": n_lan, "lan_devices": lan_devices,
            "slots": 64, "event_slots": 32, "n_fail_per_dc": n_fail,
-           "rounds": total, "seconds": time.perf_counter() - t_phase,
-           "warmup_s": warm_s, "block_rounds": block, "block_s": times,
-           "rounds_per_s_mean": block * blocks / sum(times),
-           "rounds_per_s_best_block": block / min(times),
-           "dissem_launches": fused.launches,
-           "merge_launches": fused.merge_launches,
-           "dissem_launches_per_round": fused.launches / total,
-           "merge_launches_per_round": fused.merge_launches / total,
-           **_draws(total),
-           "tail_rounds": dict(kernel.tail_rounds),
-           "host_syncs_per_round": kernel.host_syncs / total,
-           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "rounds_to_coverage_99": reached,
-           "coverage_end": cov[-1].tolist(),
+           "rounds": total, "block_rounds": block,
+           "seconds": time.perf_counter() - t_phase,
+           **graphed, "eager": eager, "diverged": diverged,
+           "speedup": graphed["rounds_per_s_mean"]
+           / eager["rounds_per_s_mean"],
            "n_detected": [int(st.n_detected) for st in state.lan],
            "n_false_dead": [int(st.n_false_dead) for st in state.lan],
            "event_n_seen_slot0": [int(ev.n_seen[0])
                                   for ev in state.lan_events]}
     emit(res)
-    if None in reached:
-        raise AssertionError(f"{res['phase']}: the event did not reach 0.99 "
-                             f"of every DC: {reached}")
-    launched = fused.merge_launches if lan_devices > 1 else fused.launches
-    if launched == 0:
-        raise AssertionError(f"{res['phase']} launched no kernel")
+    bad = []
+    if diverged:
+        bad.append(f"graphed and eager diverged: {diverged[:8]}")
+    for route, r in (("graphed", graphed), ("eager", eager)):
+        if None in r["rounds_to_coverage_99"]:
+            bad.append(f"{route}: the event did not reach 0.99 of every "
+                       f"DC: {r['rounds_to_coverage_99']}")
+        launched = r["merge_launches"] if lan_devices > 1 \
+            else r["dissem_launches"]
+        if launched == 0:
+            bad.append(f"{route} launched no tail kernel")
+        if r["flood_launches"] != (dcs + 1) * total:
+            bad.append(f"{route}: {r['flood_launches']} flood launches in "
+                       f"{total} rounds of {dcs + 1} event pools")
+    if graphed["host_syncs_per_call"] != 1:
+        bad.append(f"{graphed['host_syncs_per_call']} host reads a graphed "
+                   f"call")
+    if graphed["graph_launches_per_round"] != 2 * dcs + 3:
+        bad.append(f"{graphed['graph_launches_per_round']} graph launches "
+                   f"a round")
+    if bad:
+        raise AssertionError(f"{res['phase']}: {bad}")
     _draw_gate(res["phase"], res)
+    _draw_gate(res["phase"] + " (eager)", eager)
     return res, states
 
 
@@ -2250,7 +2550,7 @@ async def _until(cond, timeout: float, what: str) -> float:
 
 
 async def _plane_run(ndev: int, full: bool, n_clients: int = 8) -> dict:
-    from consul_tpu_torch.gossip import fused
+    from consul_tpu_torch.gossip import events, fused
     from consul_tpu_torch.gossip import plane as gp
 
     cfg = gp.PlaneConfig(
@@ -2336,6 +2636,7 @@ async def _plane_run(ndev: int, full: bool, n_clients: int = 8) -> dict:
     _settle()
     res.update(dissem_launches=fused.launches,
                merge_launches=fused.merge_launches,
+               flood_launches=events.launches,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     return res
 
@@ -2352,6 +2653,8 @@ def plane_phase(ndev: int, full: bool) -> dict:
     res["tick_errors"] = err.getvalue().count("[gossip-plane] tick error")
     emit(res)
     launches = res["merge_launches"] if ndev > 1 else res["dissem_launches"]
+    if full and res["flood_launches"] <= 0:
+        raise AssertionError("plane: the user event made no flood launch")
     if res["tick_errors"] or res["failed_others"] or launches <= 0:
         raise AssertionError(f"plane (shard_devices={ndev}): tick errors "
                              f"{res['tick_errors']}, failed others "
@@ -3576,6 +3879,34 @@ def _round_graph_row(rp: dict, churn: dict) -> dict:
                 case["graphed"]["device_kernels_per_round"]}
 
 
+def _flood_row(flood: dict, mdc1: dict, mdc8: dict, ev: dict,
+               plane1: dict) -> dict:
+    """The kernels line's entry of the event flood (``csrc/event_flood.cu``),
+    which replaces the reference's jitted ``event_round``: launches on the
+    1M multi-DC main path (D + 1 a round), on 8 shards per DC, in the
+    events phase's card run and on the plane; its time at the multi-DC
+    LAN pool's [32, 250,000] (``ms``) and at the plane's [64, 1M], each
+    beside its bytes bound and the plain version's time."""
+    main = flood["shapes"]["32x250000"]
+    big = flood["shapes"]["64x1000000"]
+    return {"name": "event_flood", "route": "cuda",
+            "source": "consul_tpu_torch/csrc/event_flood.cu",
+            "replaces": "consul_tpu/gossip/events.py:100",
+            "launches": mdc1["flood_launches"],
+            "multidc_launches": mdc1["flood_launches"],
+            "sharded_multidc_launches": mdc8["flood_launches"],
+            "events_launches": ev["flood_launches_16k_card"],
+            "plane_launches": plane1["flood_launches"],
+            "max_abs_err": flood["max_abs_err"],
+            "ms": main["ms"], "ms_pushpull": main["ms_pushpull"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "share_of_bound": main["share_of_bound"],
+            "ms_1m": big["ms"], "plain_ms_1m": big["plain_ms"],
+            "bound_ms_1m": big["bound_ms"],
+            "share_of_bound_1m": big["share_of_bound"],
+            "library_ms": None}
+
+
 def _churn_gates(res: dict, launches_key: str) -> None:
     if res["n_detected"] <= 0 or res["n_false_dead"] != 0:
         raise AssertionError(
@@ -3637,10 +3968,12 @@ def main() -> int:
         repeat(8, 1_000_000, seeds=256)
         repeat(8, 1_000_000, seeds=128, ndev=8)
         repeat(64, 1_000_000, seeds=16)
+        flood = flood_phase(card_line)
         # From here on every launch is a path's: its shapes are held
         # against the plain version after the last path.
         from consul_tpu_torch import prng
-        from consul_tpu_torch.gossip import fused
+        from consul_tpu_torch.gossip import events, fused
+        events.launch_shapes.clear()
         fused.launch_shapes.clear()
         prng.launch_shapes.clear()
         prng.launch_groups.clear()
@@ -3702,7 +4035,7 @@ def main() -> int:
                                  f"{diverged}")
         del nem1_state, nem8_state
         rp = round_program_phase(card_line)
-        events_phase()
+        ev = events_phase()
         crossval_1m_phase()
         mdc1, mdc1_states = multidc_main_path()
         mdc8, mdc8_states = multidc_main_path(lan_devices=8)
@@ -3733,7 +4066,8 @@ def main() -> int:
                              card_line)
         path_shapes_vs_plain(set(fused.launch_shapes),
                              set(tds.launch_shapes),
-                             set(prng.launch_shapes))
+                             set(prng.launch_shapes),
+                             set(events.launch_shapes))
     except Exception:
         traceback.print_exc()
         return 1
@@ -3788,7 +4122,8 @@ def main() -> int:
         "bound_by": tf["summary"]["main_path_bound_by"],
         "share_of_bound": tf["summary"]["main_path_bound_ms"]
         / tf["summary"]["main_path_ms"],
-        "library_ms": None}, _round_graph_row(rp, churn)]})
+        "library_ms": None}, _round_graph_row(rp, churn),
+        _flood_row(flood, mdc1, mdc8, ev, plane1)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

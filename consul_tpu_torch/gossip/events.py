@@ -8,38 +8,67 @@ Layout: E concurrent event slots over N nodes.
     has[e, i]  (uint8)  bits 7: seen   bits 3-0: age (rounds since seen)
 
 Under the same key and inputs every function here is bit-identical to
-the reference's (``tests/test_torch_events.py``).  How the JAX program
-maps onto eager PyTorch:
+the reference's (``tests/test_torch_events.py``,
+``tests/test_torch_event_program.py``).  How the JAX program maps onto
+PyTorch:
 
-- the round counter is mirrored on the host (one read per
-  ``run_event_rounds`` call), so the round key, the gossip offsets and
-  the push/pull cadence (a ``lax.cond`` in the reference) are host
-  decisions that cost no device read;
-- the reference's ``mode="drop"`` scatters write into a padded sink
+- ``jax.jit(run_event_rounds)`` (and ``event_round``) is
+  ``gossip/program.py``'s ``EventProgram`` on a card: one event round
+  captured as a CUDA graph per push/pull variant and replayed once a
+  round.  The eager loop here is its plain version: the CPU runs it, and
+  so does a card when asked (``graphed=False``).
+- The round's scalars (its number, the F gossip shifts and the push/pull
+  partner, drawn under ``fold_in(fold_in(key, 7), rnd)``) are a row of
+  ``round_args.build_events``' table, built on the host for a whole call
+  and read on the device; the round counter is mirrored on the host (one
+  read per call), so the push/pull cadence (a ``lax.cond`` in the
+  reference) is a host decision, the program's variant.
+- The whole round on ``[E, N]`` is one function, ``flood``: on a CUDA
+  tensor one launch of the Hopper kernel ``csrc/event_flood.cu``
+  (``event_flood``), on a CPU tensor its plain version
+  ``event_flood_ref`` (the reference's rolls as gathers by the row's
+  device shifts, ``kernel._roll``).  There is no fallback.
+- The reference's ``mode="drop"`` scatters write into a padded sink
   element that is sliced off (``kernel._set_drop``);
 - the Lamport witness max over ``[E, N]`` stays int32 (an int64
-  promotion would double a 256 MB temporary at [64, 1M]).
+  promotion would double a 256 MB temporary at [64, 1M]); ``n_seen``
+  wraps mod 2**32 as the reference's int32 sum does.
 
-These are plain torch ops: the reference has no Pallas kernel here.
 Tensors passed in are never modified in place.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
-from consul_tpu_torch import prng
-from consul_tpu_torch._device import resolve_device
-from consul_tpu_torch.gossip.kernel import (_host_int, _set_drop,
-                                            alloc_free_slots, gossip_offsets)
+from consul_tpu_torch import _build
+from consul_tpu_torch._device import (check_tensor, require_cuda,
+                                      resolve_device)
+from consul_tpu_torch.gossip import round_args
+from consul_tpu_torch.gossip.kernel import (_host_int, _roll, _set_drop,
+                                            alloc_free_slots)
 from consul_tpu_torch.gossip.params import SwimParams
 
 _SEEN = 0x80
 _AGE_MASK = 0x0F
 
 _I32 = torch.int32
+
+MAX_FANOUT = 8     # kMaxFanout of csrc/event_flood.cu
+MAX_SLOTS = 3072   # kMaxSlots: the slots' registers in shared memory
+# Kernel launches made by ``event_flood`` (one per launch, nowhere else).
+launches = 0
+# (E, N, F, budget, ttl, pushpull) of every launch, so a smoke run can
+# hold each shape its paths launched at against the plain version.
+launch_shapes: set = set()
+# A list while a caller records the floods (None otherwise): per flood
+# asked for, its shape and by-value arguments (the round and the shifts
+# are read from device memory).
+launch_log: list | None = None
 
 
 class EventState(NamedTuple):
@@ -105,70 +134,196 @@ def fire_events(state: EventState, nodes) -> EventState:
                           node_ltime=node_ltime, n_seen=n_seen, drops=drops)
 
 
-def _event_round(state: EventState, rnd: int, base_key, alive: torch.Tensor,
-                 p: SwimParams) -> EventState:
-    """One gossip round of event flooding; ``rnd`` is the host mirror of
-    ``state.round``."""
-    key = prng.fold_in(prng.fold_in(base_key, 7), rnd)
-    N = p.n
+class Flood(NamedTuple):
+    """What one event round writes: the fields of ``EventState`` it
+    changes (but the round counter)."""
 
+    has: torch.Tensor          # u8 [E, N]
+    slot_used: torch.Tensor    # bool [E]
+    origin: torch.Tensor       # i32 [E]
+    node_ltime: torch.Tensor   # i32 [N]
+    n_seen: torch.Tensor       # i32 [E]
+    alive_seen: torch.Tensor   # i32 [E]: live nodes holding each slot after
+                               #   the round (``coverage``'s numerator)
+
+
+def event_flood_ref(has, alive, slot_used, ltime, origin, start_round,
+                    node_ltime, n_seen, row, budget: int, ttl: int,
+                    pushpull: bool) -> Flood:
+    """One event round on any device, in plain torch (the reference's
+    ``event_round`` body).  ``row``: the round's event row, int32 ``[rnd,
+    o_0 .. o_F-1, pp_o, -pp_o]`` (``round_args.build_events``); the
+    rolls are gathers by its device shifts.  ``pushpull``: a push/pull
+    round (both partner legs, no budget)."""
+    ea = round_args.event_args(row.shape[0] - 3, row)
+    rnd = ea.rnd
     # Gossip on pre-tick ages (a copy received last round, age 0, gets
     # its first send this round even with a 1-round budget).
-    cur = state.has
+    cur = has
     seen = (cur & _SEEN) > 0
-
     rx_ok = alive
     new_seen = torch.zeros_like(seen)
-    for o in gossip_offsets(key, N, p.fanout):
-        src_ok = torch.roll(alive, o)
-        hin = torch.roll(cur, o, dims=1)
+    for o in ea.gossip:
+        src_ok = _roll(alive, o, 0)
+        hin = _roll(cur, o, 1)
         active = (src_ok[None, :] & ((hin & _SEEN) > 0)
-                  & ((hin & _AGE_MASK) < p.spread_budget_rounds))
+                  & ((hin & _AGE_MASK) < budget))
         new_seen |= active & rx_ok[None, :]
-
-    # Push/pull anti-entropy: full-state sync with one partner, spread
-    # budget ignored.
-    if p.pushpull_every and rnd % p.pushpull_every == p.pushpull_every - 1:
-        o = int(prng.randint(prng.fold_in(key, 9), (), 1, N))
-        for shift in (o, -o):
-            ok = rx_ok & torch.roll(alive, shift)
-            hin = torch.roll(cur, shift, dims=1)
+    if pushpull:
+        # Anti-entropy: full-state sync with one partner, both ways,
+        # spread budget ignored.
+        for shift in ea.pp:
+            ok = rx_ok & _roll(alive, shift, 0)
+            hin = _roll(cur, shift, 1)
             new_seen |= ((hin & _SEEN) > 0) & ok[None, :]
 
     fresh = new_seen & ~seen
     age = cur & _AGE_MASK
     aged = torch.where(seen, _SEEN | torch.clamp(age + 1, max=_AGE_MASK), cur)
-    has = torch.where(fresh, _SEEN, aged).to(torch.uint8)
-    n_seen = state.n_seen + fresh.sum(dim=1, dtype=_I32)
+    out = torch.where(fresh, _SEEN, aged).to(torch.uint8)
+    n_seen = n_seen + fresh.sum(dim=1, dtype=_I32)
 
     # Lamport witness: clock = max(clock, max ltime of newly seen
     # events) + 1, in int32 throughout.
-    wit = torch.where(fresh, state.ltime[:, None], 0).amax(dim=0)
-    node_ltime = torch.where(wit > 0,
-                             torch.maximum(state.node_ltime, wit) + 1,
-                             state.node_ltime)
+    wit = torch.where(fresh, ltime[:, None], 0).amax(dim=0)
+    node_ltime = torch.where(wit > 0, torch.maximum(node_ltime, wit) + 1,
+                             node_ltime)
 
     # Slot GC after the event TTL (flood window + push/pull recovery).
-    done = state.slot_used & (rnd - state.start_round > p.event_ttl_rounds)
-    has = torch.where(done[:, None], 0, has).to(torch.uint8)
-    slot_used = state.slot_used & ~done
-    origin = torch.where(done, -1, state.origin)
+    done = slot_used & (rnd - start_round > ttl)
+    out = torch.where(done[:, None], 0, out).to(torch.uint8)
+    alive_seen = (((out & _SEEN) > 0) & alive[None, :]).sum(dim=1,
+                                                          dtype=_I32)
+    return Flood(has=out, slot_used=slot_used & ~done,
+                 origin=torch.where(done, -1, origin),
+                 node_ltime=node_ltime, n_seen=n_seen, alive_seen=alive_seen)
 
-    return state._replace(round=state.round + 1, has=has,
-                          slot_used=slot_used, origin=origin,
-                          node_ltime=node_ltime, n_seen=n_seen)
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# The C entry point's argument types: 13 pointers, E, N, F, the row, the
+# budget, the TTL, the push/pull flag and the stream.
+_ARGTYPES = [_VP] * 13 + [_CI] * 3 + [_VP] + [_CI] * 3 + [_VP]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """``event_flood`` of ``csrc/event_flood.cu``, built and loaded, and
+    the library's error-string function, both typed."""
+    lib = _build.load("event_flood")
+    fn, err = lib.event_flood, lib.event_flood_error
+    fn.argtypes, fn.restype = _ARGTYPES, _CI
+    err.argtypes, err.restype = [_CI], ctypes.c_char_p
+    return fn, err
+
+
+def event_flood(has, alive, slot_used, ltime, origin, start_round,
+                node_ltime, n_seen, row, budget: int, ttl: int,
+                pushpull: bool) -> Flood:
+    """Launch ``event_flood`` of ``csrc/event_flood.cu`` on CUDA tensors
+    (the arguments of ``event_flood_ref``; ``row`` contiguous int32 [F +
+    3] in device memory, which the kernel reads when it runs): the whole
+    event round in one launch.  Returns new tensors.  Launches on the
+    current stream and does not synchronise.  Raises on anything the
+    kernel does not take."""
+    global launches
+    require_cuda("event_flood", has)
+    if has.dim() != 2 or has.dtype != torch.uint8:
+        raise ValueError(f"has must be u8 [E, N], got {has.dtype}"
+                         f"{list(has.shape)}")
+    E, N = has.shape
+    dev = has.device
+    check_tensor("has", has, torch.uint8, (E, N), dev)
+    check_tensor("alive", alive, torch.bool, (N,), dev)
+    check_tensor("slot_used", slot_used, torch.bool, (E,), dev)
+    for name, t in (("ltime", ltime), ("origin", origin),
+                    ("start_round", start_round), ("n_seen", n_seen)):
+        check_tensor(name, t, _I32, (E,), dev)
+    check_tensor("node_ltime", node_ltime, _I32, (N,), dev)
+    F = row.shape[0] - 3 if row.dim() == 1 else 0
+    if not 1 <= F <= MAX_FANOUT:
+        raise ValueError(f"row must be int32 [F + 3] with F in [1, "
+                         f"{MAX_FANOUT}], got {list(row.shape)}")
+    check_tensor("row", row, _I32, (F + 3,), dev)
+    if E > MAX_SLOTS:
+        raise ValueError(f"E must be at most {MAX_SLOTS}, got {E}")
+    if N >= 2**31 - 8:
+        raise ValueError(f"N must be below 2**31 - 8, got {N}")
+    out = Flood(has=torch.empty_like(has),
+                slot_used=torch.empty_like(slot_used),
+                origin=torch.empty_like(origin),
+                node_ltime=torch.empty_like(node_ltime),
+                n_seen=n_seen.clone(), alive_seen=torch.zeros_like(n_seen))
+    if E == 0 or N == 0:
+        out.node_ltime.copy_(node_ltime)
+        return out
+    _build.launch(*_lib(), "event_flood", dev, has.data_ptr(),
+                  alive.data_ptr(), slot_used.data_ptr(), ltime.data_ptr(),
+                  origin.data_ptr(), start_round.data_ptr(),
+                  node_ltime.data_ptr(), out.has.data_ptr(),
+                  out.slot_used.data_ptr(), out.origin.data_ptr(),
+                  out.node_ltime.data_ptr(), out.n_seen.data_ptr(),
+                  out.alive_seen.data_ptr(), E, N, F, row.data_ptr(),
+                  int(budget), int(ttl),
+                  int(bool(pushpull)))
+    launches += 1
+    launch_shapes.add((E, N, F, int(budget), int(ttl), bool(pushpull)))
+    return out
+
+
+def flood(has, alive, slot_used, ltime, origin, start_round, node_ltime,
+          n_seen, row, budget: int, ttl: int, pushpull: bool) -> Flood:
+    """One event round on ``[E, N]``: the kernel on CUDA tensors, its
+    plain version on CPU tensors."""
+    args = (has, alive, slot_used, ltime, origin, start_round, node_ltime,
+            n_seen, row, budget, ttl, pushpull)
+    if launch_log is not None:
+        launch_log.append(("event_flood", tuple(has.shape), row.shape[0],
+                           int(budget), int(ttl), bool(pushpull)))
+    if has.device.type == "cpu":
+        return event_flood_ref(*args)
+    return event_flood(*args)
+
+
+def is_pushpull(p: SwimParams, rnd: int) -> bool:
+    """Whether round ``rnd`` is a push/pull round (the reference's
+    ``lax.cond`` predicate, on the host mirror)."""
+    return bool(p.pushpull_every) and (rnd % p.pushpull_every
+                                       == p.pushpull_every - 1)
+
+
+def _event_round(state: EventState, row: torch.Tensor, alive: torch.Tensor,
+                 p: SwimParams, pushpull: bool):
+    """One gossip round of event flooding from its table row ``row``
+    (device int32 ``[rnd, o .., pp_o, -pp_o]``, ``rnd`` equal to
+    ``state.round``); ``pushpull`` is the round's variant.  Returns the
+    new state and each slot's live holders after the round."""
+    fl = flood(state.has, alive, state.slot_used, state.ltime, state.origin,
+               state.start_round, state.node_ltime, state.n_seen, row,
+               p.spread_budget_rounds, p.event_ttl_rounds, pushpull)
+    new = state._replace(round=state.round + 1, has=fl.has,
+                         slot_used=fl.slot_used, origin=fl.origin,
+                         node_ltime=fl.node_ltime, n_seen=fl.n_seen)
+    return new, fl.alive_seen
 
 
 def _alive_on(alive, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(alive).to(device=dev, dtype=torch.bool)
 
 
-def event_round(state: EventState, base_key, alive, p: SwimParams
-                ) -> EventState:
+def event_round(state: EventState, base_key, alive, p: SwimParams,
+                graphed: bool | None = None) -> EventState:
     """One gossip round of event flooding (reference ``event_round``);
-    ``base_key`` is a ``prng`` key."""
-    alive = _alive_on(alive, state.has.device)
-    return _event_round(state, _host_int(state.round), base_key, alive, p)
+    ``base_key`` is a ``prng`` key.  On a card a replay of the event
+    program (``graphed=False``: the eager round there)."""
+    return run_event_rounds(state, base_key, alive, p, 1, graphed)[0]
+
+
+def _coverage_of(alive_seen: torch.Tensor, alive: torch.Tensor
+                 ) -> torch.Tensor:
+    """``coverage`` from the flood's count of live holders (the same
+    int32 / int32 in float32)."""
+    n_alive = alive.sum(dtype=_I32).clamp(min=1)
+    return alive_seen.to(torch.float32) / n_alive.to(torch.float32)
 
 
 def coverage(state: EventState, alive) -> torch.Tensor:
@@ -182,18 +337,30 @@ def coverage(state: EventState, alive) -> torch.Tensor:
 
 
 def run_event_rounds(state: EventState, base_key, alive, p: SwimParams,
-                     steps: int):
+                     steps: int, graphed: bool | None = None):
     """``steps`` rounds (reference ``run_event_rounds``): returns the
-    state and the per-round coverage trace ``[steps, E]``.  One
-    device->host read per call (the round counter)."""
+    state and the per-round coverage trace ``[steps, E]``.  On a card the
+    rounds are replays of ``gossip/program.py``'s ``EventProgram``;
+    ``graphed=False`` runs the eager rounds there instead (the plain
+    version, bit-identical; the CPU always runs it).  One device->host
+    read per call (the round counter)."""
     dev = state.has.device
     alive = _alive_on(alive, dev)
-    rnd = _host_int(state.round)
+    if graphed is None:
+        graphed = dev.type == "cuda"
+    if graphed:
+        if dev.type != "cuda":
+            raise ValueError(f"graphed rounds run on a CUDA card, not {dev}")
+        from consul_tpu_torch.gossip import program
+        return program.run_event_rounds(state, base_key, alive, p, steps)
+    rnd0 = _host_int(state.round)
+    table = round_args.to_device(
+        round_args.build_events(p, base_key, rnd0, steps), dev)
     covs = []
-    for _ in range(steps):
-        state = _event_round(state, rnd, base_key, alive, p)
-        rnd += 1
-        covs.append(coverage(state, alive))
+    for k in range(steps):
+        state, held = _event_round(state, table[k], alive, p,
+                                   is_pushpull(p, rnd0 + k))
+        covs.append(_coverage_of(held, alive))
     cov = (torch.stack(covs) if covs else
            torch.zeros((0, state.has.shape[0]), dtype=torch.float32,
                        device=dev))

@@ -5,9 +5,20 @@ servers also form one WAN pool with coarser timers, and user events
 cross DCs through the servers).
 
 Under the same key and inputs every function here is bit-identical to
-the reference's (``tests/test_torch_multidc.py``).  How the JAX program
-maps onto eager PyTorch:
+the reference's (``tests/test_torch_multidc.py``,
+``tests/test_torch_multidc_program.py``).  How the JAX program maps onto
+PyTorch:
 
+- ``jax.jit(run_multidc_rounds)`` is ``MultiDCProgram`` on a card: each
+  pool's rounds are replays of its own captured programs
+  (``gossip/program.py``: a ``RoundProgram`` per DC's LAN pool, sharded
+  or not, and for the WAN pool; an ``EventProgram`` per event pool; one
+  small program for the server bridge and the coverage row), each holding
+  its pool's state in its buffers for the whole call.  A round replays
+  2 D + 3 graphs and reads nothing on the host; each pool's variant is
+  picked on the host from its own mirror of its round counter.  The eager
+  loop here is the plain version: the CPU runs it, and so does a card
+  when asked (``graphed=False``).
 - The reference stacks the D LAN pools on a leading axis and runs a
   static Python loop over them inside the jit (not ``vmap``).  Here the
   loop is the same, and ``MultiDCState`` holds a tuple of D per-DC
@@ -17,6 +28,10 @@ maps onto eager PyTorch:
   ``multidc_from_numpy`` map to and from the reference's stacked arrays.
 - Every pool's round counter is mirrored on the host: one device read
   for all of them per ``multidc_round`` or ``run_multidc_rounds`` call.
+  The pools' keys (``split(fold_in(key, 11), D)`` for the LAN pools,
+  ``fold_in(key, 13)`` for the WAN pool) do not depend on the round, so
+  every pool's table of round and event rows for the call is built in
+  one vectorised pass (``round_args.build_pools``).
 - With ``lan_devices > 1`` each DC's round runs on that many column
   shards of the one device (``kernel.sharded_round_callable``).
 
@@ -25,6 +40,7 @@ Tensors passed in are never modified in place.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import numpy as np
@@ -33,13 +49,15 @@ import torch
 from consul_tpu_torch import prng
 from consul_tpu_torch._device import resolve_device
 from consul_tpu_torch.gossip import kernel as _kernel
+from consul_tpu_torch.gossip import round_args
 from consul_tpu_torch.gossip.events import (_SEEN, EventState, _event_round,
-                                            init_events)
+                                            init_events, is_pushpull)
 from consul_tpu_torch.gossip.kernel import (SwimState, _as_i32,
-                                            _check_shardable, _on, _one_round,
-                                            init_hist, init_state,
-                                            shard_state,
-                                            sharded_round_callable)
+                                            _check_shardable, _on,
+                                            _require_unsharded, _round_once,
+                                            _sharded_setup, init_hist,
+                                            init_state, round_variant,
+                                            shard_state)
 from consul_tpu_torch.gossip.params import SwimParams, lan_profile, wan_profile
 
 
@@ -105,9 +123,7 @@ def init_multidc_hist(p: MultiDCParams, device=None) -> tuple:
 
 def _merge_seen(dst: torch.Tensor, src_seen: torch.Tensor) -> torch.Tensor:
     """Set the seen-bit (age 0) where src has seen and dst hasn't."""
-    newly = src_seen & ((dst & _SEEN) == 0)
-    return torch.where(newly, torch.tensor(_SEEN, dtype=torch.uint8,
-                                           device=dst.device), dst)
+    return dst.masked_fill(src_seen & ((dst & _SEEN) == 0), _SEEN)
 
 
 def _host_rounds(state: MultiDCState) -> list:
@@ -119,74 +135,103 @@ def _host_rounds(state: MultiDCState) -> list:
                        + [state.wan.round, state.wan_events.round]).tolist()
 
 
-def _lan_round_fn(p: MultiDCParams, has_hist: bool, dev: torch.device):
-    """Each DC's LAN round: ``(state, key, fail[, hist], rnd=)``."""
+def _pool_keys(base_key, D: int):
+    """The D LAN pools' keys and the WAN pool's (round-independent)."""
+    return prng.split(prng.fold_in(base_key, 11), D), prng.fold_in(base_key,
+                                                                   13)
+
+
+def _tables(p: MultiDCParams, base_key, rounds: list, steps: int) -> tuple:
+    """A call's tables from the counters ``rounds`` (``_host_rounds``'
+    order): the LAN pools' round rows ``[D, steps, W]`` and event rows
+    ``[D, steps, We]``, each in one vectorised pass over the pools, and
+    the WAN pool's ``[steps, W']`` and ``[steps, We']``."""
+    D = p.n_dcs
+    keys, wan_key = _pool_keys(base_key, D)
+    return (round_args.build_pools(p.lan, keys, rounds[:D], steps),
+            round_args.build_pools(p.lan, keys, rounds[D:2 * D], steps,
+                                   events=True),
+            round_args.build(p.wan, wan_key, rounds[2 * D], steps),
+            round_args.build_events(p.wan, wan_key, rounds[2 * D + 1],
+                                    steps))
+
+
+def _shard_ctx(p: MultiDCParams):
     if p.lan_devices > 1:
-        return sharded_round_callable(p.lan, p.lan_devices,
-                                      has_hist=has_hist, device=dev)
-
-    def _round(st, k, f, *hist, rnd):
-        return _one_round(st, k, f, p.lan, hist[0] if hist else None, None,
-                          dev, rnd=rnd)
-    return _round
+        return _kernel._ShardCtx(p.lan_devices, p.n_lan // p.lan_devices)
+    return None
 
 
-def _round(state: MultiDCState, rounds: list, base_key, lan_fail, wan_fail,
-           p: MultiDCParams, lan_hist, lan_round, dev):
-    """One LAN gossip interval across every pool; ``rounds`` is the host
-    mirror of the counters (``_host_rounds``)."""
-    D, s = p.n_dcs, p.n_servers
-    lan_r, ev_r = rounds[:D], rounds[D:2 * D]
-    wan_r, wev_r = rounds[2 * D:]
-    keys = prng.split(prng.fold_in(base_key, 11), D)
-    has_hist = lan_hist is not None
-
-    # -- LAN pools: membership, then events, one static loop over the DCs.
-    lan, hists = [], []
-    for d in range(D):
-        out = lan_round(state.lan[d], keys[d], lan_fail[d],
-                        *((lan_hist[d],) if has_hist else ()), rnd=lan_r[d])
-        if has_hist:
-            out, hb = out
-            hists.append(hb)
-        lan.append(out)
-    # Liveness from the pre-round event clock.
-    lan_events = [_event_round(state.lan_events[d], ev_r[d], keys[d],
-                               lan_fail[d] > ev_r[d], p.lan)
-                  for d in range(D)]
-
-    # -- WAN pool: its membership round and its event round share a key.
-    wan_key = prng.fold_in(base_key, 13)
-    wan = _one_round(state.wan, wan_key, wan_fail, p.wan, None, None, dev,
-                     rnd=wan_r)
-    wan_events = _event_round(state.wan_events, wev_r, wan_key,
-                              wan_fail > wev_r, p.wan)
-
-    # -- event bridge at the servers (serf's WAN user-event relay).  Slot
-    # ids are global (fire_in_dc stamps every pool), so the bridge only
-    # merges seen-bits: first into the WAN pool from every DC's servers
-    # (WAN id d * s + j is server j of DC d), then back into each DC's
-    # servers from the updated WAN bits, each gated on the receiving
-    # pool's live slots.
+def _bridge(lan_events, wan_events, s: int):
+    """The event bridge at the servers (serf's WAN user-event relay).
+    Slot ids are global (fire_in_dc stamps every pool), so the bridge only
+    merges seen-bits: first into the WAN pool from every DC's servers (WAN
+    id d * s + j is server j of DC d), then back into each DC's servers
+    from the updated WAN bits, each gated on the receiving pool's live
+    slots.  Returns each DC's new ``has[:, :s]`` and the WAN pool's
+    ``has``."""
     lan_srv_flat = torch.cat([(ev.has[:, :s] & _SEEN) > 0
                               for ev in lan_events], dim=1)     # [E, D*s]
     wan_has = _merge_seen(wan_events.has,
                           lan_srv_flat & wan_events.slot_used[:, None])
     wan_seen = (wan_has & _SEEN) > 0
-    bridged = []
-    for d, ev in enumerate(lan_events):
-        srv = _merge_seen(ev.has[:, :s],
-                          wan_seen[:, d * s:(d + 1) * s]
-                          & ev.slot_used[:, None])
-        bridged.append(ev._replace(
-            has=torch.cat([srv, ev.has[:, s:]], dim=1)))
-    out = MultiDCState(lan=tuple(lan), lan_events=tuple(bridged), wan=wan,
+    srvs = [_merge_seen(ev.has[:, :s],
+                        wan_seen[:, d * s:(d + 1) * s] & ev.slot_used[:, None])
+            for d, ev in enumerate(lan_events)]
+    return srvs, wan_has
+
+
+def _round(state: MultiDCState, tabs: tuple, steps: tuple, k: int,
+           rounds: list, lan_fail, wan_fail, p: MultiDCParams, lan_hist):
+    """Round ``k`` of a call across every pool, eagerly: ``tabs`` the
+    call's tables on the device (``_tables``), ``steps`` each round pool's
+    device row counter, ``rounds`` the counters at the call's start."""
+    D, s = p.n_dcs, p.n_servers
+    lan_t, lan_ev_t, wan_t, wan_ev_t = tabs
+    sc = _shard_ctx(p)
+    has_hist = lan_hist is not None
+
+    # -- LAN pools: membership, then events, one static loop over the DCs.
+    lan, hists = [], []
+    for d in range(D):
+        st, hb, _ = _round_once(
+            p.lan, lan_t[d], steps[d], state.lan[d],
+            round_variant(p.lan, None, rounds[d] + k), lan_fail[d], None,
+            lan_hist[d] if has_hist else None, None, sc)
+        lan.append(st)
+        hists.append(hb)
+    # Liveness from the pre-round event clock.
+    lan_events = [_event_round(ev, lan_ev_t[d][k], lan_fail[d] > ev.round,
+                               p.lan, is_pushpull(p.lan, rounds[D + d] + k))[0]
+                  for d, ev in enumerate(state.lan_events)]
+
+    # -- WAN pool: its membership round and its event round share a key.
+    wan, _, _ = _round_once(p.wan, wan_t, steps[D], state.wan,
+                            round_variant(p.wan, None, rounds[2 * D] + k),
+                            wan_fail, None, None, None)
+    wev = state.wan_events
+    wan_events, _ = _event_round(wev, wan_ev_t[k], wan_fail > wev.round,
+                                 p.wan, is_pushpull(p.wan,
+                                                    rounds[2 * D + 1] + k))
+
+    srvs, wan_has = _bridge(lan_events, wan_events, s)
+    bridged = tuple(ev._replace(has=torch.cat([srv, ev.has[:, s:]], dim=1))
+                    for ev, srv in zip(lan_events, srvs))
+    out = MultiDCState(lan=tuple(lan), lan_events=bridged, wan=wan,
                        wan_events=wan_events._replace(has=wan_has))
     return out, (tuple(hists) if has_hist else None)
 
 
-def _inputs(state, lan_fail, wan_fail, lan_hist, dev):
-    state = MultiDCState(lan=tuple(_on(dev, st) for st in state.lan),
+def _inputs(state, lan_fail, wan_fail, lan_hist, p: MultiDCParams, dev):
+    """The call's inputs on ``dev``; each LAN pool sharded as ``p`` says
+    (a pool given unsharded is split here)."""
+    def lan_pool(st):
+        if p.lan_devices > 1:
+            return _sharded_setup(st, p.lan, p.lan_devices, dev)[0]
+        _require_unsharded(st)
+        return _on(dev, st)
+
+    state = MultiDCState(lan=tuple(lan_pool(st) for st in state.lan),
                          lan_events=tuple(_on(dev, e)
                                           for e in state.lan_events),
                          wan=_on(dev, state.wan),
@@ -196,21 +241,59 @@ def _inputs(state, lan_fail, wan_fail, lan_hist, dev):
     return state, _as_i32(lan_fail, dev), _as_i32(wan_fail, dev), lan_hist
 
 
+def _recip(n: int, dev) -> torch.Tensor:
+    """1 / n in float32, as a device scalar (made outside any capture)."""
+    return torch.tensor(np.float32(1) / np.float32(n), device=dev)
+
+
+def _coverage(lan_events, recip: torch.Tensor) -> torch.Tensor:
+    """[D, E] float32: the seen count over n_lan (every node, live or
+    not).  The reference's mean divides by a constant, which XLA
+    compiles as a product with the float32 reciprocal ``recip``
+    (``_recip``): so here."""
+    seen = torch.stack([((ev.has & _SEEN) > 0).sum(dim=1, dtype=torch.int32)
+                        for ev in lan_events])
+    return seen.to(torch.float32) * recip
+
+
+def event_coverage(state: MultiDCState) -> torch.Tensor:
+    """[D, E] fraction of each DC's nodes holding each event (all nodes:
+    ``events.coverage`` divides by the live ones instead)."""
+    ev = state.lan_events
+    return _coverage(ev, _recip(ev[0].has.shape[1], ev[0].has.device))
+
+
+def _run_eager(state, base_key, lan_fail, wan_fail, p: MultiDCParams,
+               steps: int, lan_hist, dev, cov: bool = True):
+    rounds = _host_rounds(state)
+    tabs = tuple(round_args.to_device(t, dev)
+                 for t in _tables(p, base_key, rounds, steps))
+    ctr = tuple(torch.zeros(1, dtype=torch.int64, device=dev)
+                for _ in range(p.n_dcs + 1))
+    recip = _recip(p.n_lan, dev)
+    covs = []
+    for k in range(steps):
+        state, lan_hist = _round(state, tabs, ctr, k, rounds, lan_fail,
+                                 wan_fail, p, lan_hist)
+        if cov:
+            covs.append(_coverage(state.lan_events, recip))
+    return state, lan_hist, (torch.stack(covs) if covs else torch.zeros(
+        (0, p.n_dcs, p.event_slots), dtype=torch.float32, device=dev))
+
+
 def multidc_round(state: MultiDCState, base_key, lan_fail, wan_fail,
                   p: MultiDCParams, lan_hist: tuple | None = None,
-                  device=None):
+                  device=None, graphed: bool | None = None):
     """One LAN gossip interval across every pool (reference
     ``multidc_round``).  ``lan_fail``: [D, n_lan] fail rounds;
     ``wan_fail``: [D * n_servers].  The WAN pool ticks every round too
     (its protocol is slower through its own parameters).  With
-    ``lan_hist`` (``init_multidc_hist``) returns ``(state, lan_hist)``."""
-    dev = resolve_device(device)
-    state, lan_fail, wan_fail, lan_hist = _inputs(state, lan_fail, wan_fail,
-                                                  lan_hist, dev)
-    out, hists = _round(state, _host_rounds(state), base_key, lan_fail,
-                        wan_fail, p, lan_hist,
-                        _lan_round_fn(p, lan_hist is not None, dev), dev)
-    return (out, hists) if lan_hist is not None else out
+    ``lan_hist`` (``init_multidc_hist``) returns ``(state, lan_hist)``.
+    On a card a replay of ``MultiDCProgram`` (``graphed=False``: the eager
+    round there)."""
+    out, _ = run_multidc_rounds(state, base_key, lan_fail, wan_fail, p, 1,
+                                lan_hist, device, graphed, _cov=False)
+    return out
 
 
 def fire_in_dc(state: MultiDCState, dc: int, node: int,
@@ -260,41 +343,215 @@ def fire_in_dc(state: MultiDCState, dc: int, node: int,
                           wan_events=wan_events)
 
 
-def _coverage(lan_events) -> torch.Tensor:
-    """[D, E] float32: the seen count over n_lan (every node, live or
-    not).  The reference's mean divides by a constant, which XLA
-    compiles as a product with the float32 reciprocal: so here."""
-    seen = torch.stack([((ev.has & _SEEN) > 0).sum(dim=1, dtype=torch.int32)
-                        for ev in lan_events])
-    n = lan_events[0].has.shape[1]
-    recip = torch.tensor(np.float32(1) / np.float32(n), device=seen.device)
-    return seen.to(torch.float32) * recip
 
 
-def event_coverage(state: MultiDCState) -> torch.Tensor:
-    """[D, E] fraction of each DC's nodes holding each event (all nodes:
-    ``events.coverage`` divides by the live ones instead)."""
-    return _coverage(state.lan_events)
+# -- the multi-DC round as replayed graphs ----------------------------------------
+
+MAX_PROGRAMS = 2   # MultiDCPrograms kept (each holds 2 D + 3 programs)
+_programs: collections.OrderedDict = collections.OrderedDict()
+
+
+def _bridge_program(p: MultiDCParams, dev, lan_events, wan_events, pool):
+    """The server bridge and the coverage row as a program of its own:
+    reads and writes the event programs' buffers, and the round's [D, E]
+    coverage row into its trace buffer at ``step``."""
+    from consul_tpu_torch.gossip import program
+
+    class BridgeProgram(program._Program):
+        def __init__(self):
+            super().__init__(dev, pool)
+            self.step = torch.zeros(1, dtype=torch.int64, device=dev)
+            self.cov = torch.zeros((program.TABLE_ROWS, p.n_dcs,
+                                    p.event_slots), dtype=torch.float32,
+                                   device=dev)
+            self.recip = _recip(p.n_lan, dev)
+
+        def _states(self):
+            return [e.state for e in lan_events], wan_events.state
+
+        def _warm(self, v) -> None:
+            lan, wan = self._states()
+            _bridge(lan, wan, p.n_servers)
+            _coverage(lan, self.recip)
+
+        def _body(self, v) -> None:
+            lan, wan = self._states()
+            srvs, wan_has = _bridge(lan, wan, p.n_servers)
+            for ev, srv in zip(lan, srvs):
+                ev.has[:, :p.n_servers].copy_(srv)
+            wan.has.copy_(wan_has)
+            self.cov.index_copy_(0, self.step,
+                                 _coverage(lan, self.recip)[None])
+            self.step.add_(1)
+
+    return BridgeProgram()
+
+
+class MultiDCProgram:
+    """``jax.jit(run_multidc_rounds)`` on a card, for one configuration:
+    each pool's own programs (module docstring), outside the round
+    programs' cache and sharing one memory pool, their state in their
+    buffers across all the rounds of a call (no copy between pools or
+    rounds).  ``run`` makes one host read a call (every pool's counter)
+    and none inside a round; a round is 2 D + 3 graph launches."""
+
+    def __init__(self, p: MultiDCParams, dev, state, lan_fail, wan_fail,
+                 lan_hist):
+        from consul_tpu_torch.gossip import program
+        self.p, self.dev = p, dev
+        pool = (torch.cuda.graph_pool_handle() if dev.type == "cuda"
+                else None)
+        D, sc = p.n_dcs, _shard_ctx(p)
+        self.lan = [program.RoundProgram(
+            p.lan, None, sc, dev, state.lan[d], lan_fail[d], None, None,
+            None if lan_hist is None else lan_hist[d], None, False,
+            pool=pool) for d in range(D)]
+        self.lan_events = [program.EventProgram(
+            p.lan, dev, state.lan_events[d], fail=lan_fail[d], cov=False,
+            pool=pool) for d in range(D)]
+        self.wan = program.RoundProgram(p.wan, None, None, dev, state.wan,
+                                        wan_fail, None, None, None, None,
+                                        False, pool=pool)
+        self.wan_events = program.EventProgram(
+            p.wan, dev, state.wan_events, fail=wan_fail, cov=False,
+            pool=pool)
+        self.bridge = _bridge_program(p, dev, self.lan_events,
+                                      self.wan_events, pool)
+        self.programs = [*self.lan, *self.lan_events, self.wan,
+                         self.wan_events, self.bridge]
+        for prog in self.programs:
+            program.own(prog)
+        self.captured = False
+
+    def capture_all(self) -> None:
+        """Capture every variant the pools can take (push/pull or not)
+        before the first round, so that no capture falls inside a call's
+        rounds later; the buffers are left as they were."""
+        p = self.p
+        for q, rounds, evs in ((p.lan, self.lan, self.lan_events),
+                               (p.wan, [self.wan], [self.wan_events])):
+            for pp in (False, True) if q.pushpull_every else (False,):
+                for prog in rounds:
+                    prog.graph(_kernel.Variant(pp, False, False, False))
+                for prog in evs:
+                    prog.graph(pp)
+        self.bridge.graph(None)
+        self.captured = True
+
+    @property
+    def pool_bytes(self) -> list:
+        """What each program's captures reserved: LAN pools, their event
+        pools, the WAN pool, its event pool, the bridge."""
+        return [prog.pool_bytes for prog in self.programs]
+
+    def close(self) -> None:
+        from consul_tpu_torch.gossip import program
+        for prog in self.programs:
+            program.disown(prog)
+
+    def run(self, state, base_key, lan_fail, wan_fail, steps: int,
+            lan_hist, cov: bool = True):
+        """``steps`` rounds from ``state``: ``(state, lan_hist, cov)``,
+        new tensors (``cov`` [steps, D, E], or None)."""
+        from consul_tpu_torch.gossip import program
+        p, D = self.p, self.p.n_dcs
+        rounds = _host_rounds(state)
+        for d in range(D):
+            self.lan[d].load(state.lan[d], lan_fail[d],
+                             hist=None if lan_hist is None else lan_hist[d])
+            self.lan_events[d].load(state.lan_events[d], fail=lan_fail[d])
+        self.wan.load(state.wan, wan_fail)
+        self.wan_events.load(state.wan_events, fail=wan_fail)
+        if not self.captured:
+            self.capture_all()
+        covs = []
+        for done in range(0, steps, program.TABLE_ROWS):
+            n = min(program.TABLE_ROWS, steps - done)
+            lan_t, lan_ev_t, wan_t, wan_ev_t = (
+                program._pinned(t, self.dev) for t in _tables(
+                    p, base_key, [r + done for r in rounds], n))
+            for d in range(D):
+                self.lan[d].set_rows(lan_t[d])
+                self.lan_events[d].set_rows(lan_ev_t[d])
+            self.wan.set_rows(wan_t)
+            self.wan_events.set_rows(wan_ev_t)
+            self.bridge.step.zero_()
+            for k in range(done, done + n):
+                for d in range(D):
+                    self.lan[d].replay(round_variant(p.lan, None,
+                                                     rounds[d] + k))
+                for d in range(D):
+                    self.lan_events[d].replay(
+                        is_pushpull(p.lan, rounds[D + d] + k))
+                self.wan.replay(round_variant(p.wan, None,
+                                              rounds[2 * D] + k))
+                self.wan_events.replay(is_pushpull(p.wan,
+                                                   rounds[2 * D + 1] + k))
+                self.bridge.replay(None)
+            if cov:
+                covs.append(self.bridge.cov[:n].clone())
+        lan = [prog.result() for prog in self.lan]
+        out = MultiDCState(
+            lan=tuple(r[0] for r in lan),
+            lan_events=tuple(program._clone(e.state)
+                             for e in self.lan_events),
+            wan=self.wan.result()[0],
+            wan_events=program._clone(self.wan_events.state))
+        hists = None if lan_hist is None else tuple(r[2] for r in lan)
+        if not cov:
+            return out, hists, None
+        return out, hists, (torch.cat(covs) if covs else torch.zeros(
+            (0, D, p.event_slots), dtype=torch.float32, device=self.dev))
+
+
+def program_for(p: MultiDCParams, dev, state, lan_fail, wan_fail,
+                lan_hist) -> MultiDCProgram:
+    """The cached ``MultiDCProgram`` of this configuration (built on first
+    use; the least recently used of more than ``MAX_PROGRAMS`` is
+    closed)."""
+    key = (p, str(dev), lan_hist is not None)
+    prog = _programs.get(key)
+    if prog is None:
+        prog = _programs[key] = MultiDCProgram(p, dev, state, lan_fail,
+                                               wan_fail, lan_hist)
+        while len(_programs) > MAX_PROGRAMS:
+            _programs.popitem(last=False)[1].close()
+    _programs.move_to_end(key)
+    return prog
+
+
+def close_programs() -> None:
+    """Close every cached ``MultiDCProgram`` (its graphs and buffers go;
+    its counts are settled first)."""
+    while _programs:
+        _programs.popitem()[1].close()
+
+
+def _run_graphed(state, base_key, lan_fail, wan_fail, p: MultiDCParams,
+                 steps: int, lan_hist, dev, cov: bool = True):
+    prog = program_for(p, dev, state, lan_fail, wan_fail, lan_hist)
+    return prog.run(state, base_key, lan_fail, wan_fail, steps, lan_hist,
+                    cov)
 
 
 def run_multidc_rounds(state: MultiDCState, base_key, lan_fail, wan_fail,
                        p: MultiDCParams, steps: int,
-                       lan_hist: tuple | None = None, device=None):
+                       lan_hist: tuple | None = None, device=None,
+                       graphed: bool | None = None, _cov: bool = True):
     """``steps`` rounds (reference ``run_multidc_rounds``): returns
     ``(state, cov)``, or ``((state, lan_hist), cov)`` with ``lan_hist``;
-    ``cov`` is the per-round [steps, D, E] event coverage."""
+    ``cov`` is the per-round [steps, D, E] event coverage.  On a card the
+    rounds are replays of ``MultiDCProgram``'s graphs; ``graphed=False``
+    runs the eager rounds there instead (the plain version, bit-identical;
+    the CPU always runs it)."""
     dev = resolve_device(device)
+    if graphed is None:
+        graphed = dev.type == "cuda"
+    if graphed and dev.type != "cuda":
+        raise ValueError(f"graphed rounds run on a CUDA card, not {dev}")
     state, lan_fail, wan_fail, lan_hist = _inputs(state, lan_fail, wan_fail,
-                                                  lan_hist, dev)
-    lan_round = _lan_round_fn(p, lan_hist is not None, dev)
-    rounds = _host_rounds(state)
-    covs = []
-    for _ in range(steps):
-        state, lan_hist = _round(state, rounds, base_key, lan_fail, wan_fail,
-                                 p, lan_hist, lan_round, dev)
-        rounds = [r + 1 for r in rounds]
-        covs.append(_coverage(state.lan_events))
-    cov = (torch.stack(covs) if covs else
-           torch.zeros((0, p.n_dcs, p.event_slots), dtype=torch.float32,
-                       device=dev))
+                                                  lan_hist, p, dev)
+    run = _run_graphed if graphed else _run_eager
+    state, lan_hist, cov = run(state, base_key, lan_fail, wan_fail, p, steps,
+                               lan_hist, dev, _cov)
     return ((state, lan_hist) if lan_hist is not None else state), cov

@@ -37,6 +37,15 @@ adds one to a device counter when it runs.  ``settle_counts()`` reads
 those counters (one read, outside any round) and adds the branch bodies'
 launches and ``kernel.tail_rounds`` to the host counters.
 
+The event round (``EventProgram``, the counterpart of
+``jax.jit(run_event_rounds)``) is the same machinery with no branch: one
+capture per push/pull variant of a round that reads its row of the call's
+event table and floods through ``csrc/event_flood.cu``.  Programs are
+cached by configuration (``program_for``, at most ``MAX_PROGRAMS``); a
+caller that runs several pools at once (``multidc.MultiDCProgram``) owns
+its programs instead, outside that cache (``own``/``disown``), so that
+each pool keeps its state in its own buffers.
+
 A capture or a launch that fails raises; on a card there is no fallback to
 the eager round.
 """
@@ -52,7 +61,7 @@ import warnings
 import torch
 
 from consul_tpu_torch import _build, prng
-from consul_tpu_torch.gossip import fused, kernel, round_args
+from consul_tpu_torch.gossip import events, fused, kernel, round_args
 from consul_tpu_torch.gossip.kernel import (RoundTrace, _I32, _leaves,
                                             _round_once, round_variant)
 
@@ -63,7 +72,7 @@ MAX_PROGRAMS = 8     # programs kept (each holds its buffers and its pool)
 # Host counters the kernel wrappers keep, attributed per captured segment.
 _COUNTERS = ((prng, "launches"), (prng, "calls"), (fused, "launches"),
              (fused, "merge_launches"), (fused, "drop_launches"),
-             (fused, "merge_drop_launches"))
+             (fused, "merge_drop_launches"), (events, "launches"))
 
 # Joined-graph launches (one a replayed round), captures, their seconds
 # and the memory the captures reserved.
@@ -232,15 +241,118 @@ def _clone(tree):
         tree, "_fields") else tuple(_clone(x) for x in tree)
 
 
-class RoundProgram:
+def _pinned(tbl, dev) -> torch.Tensor:
+    """A host table as a tensor to copy to ``dev`` from: pinned for a card
+    (PyTorch's host allocator holds the pinned buffer until the copies
+    from it are done, so they need not wait)."""
+    host = torch.from_numpy(tbl)
+    return host.pin_memory() if torch.device(dev).type == "cuda" else host
+
+
+class _Program:
+    """Static buffers and one captured graph per variant; a subclass
+    defines ``_warm(v)`` (one round of variant ``v`` on copies of the
+    buffers, every branch taken) and ``_body(v)`` (one round that reads
+    and writes the buffers), which ``_capture`` records.  ``pool``: the
+    captures' memory pool, shared by the programs of one caller (every
+    result lies in the programs' own buffers, outside the pool, so nothing
+    in the pool outlives a replay); None makes one at the first capture."""
+
+    def __init__(self, dev, pool=None):
+        self.dev = dev
+        self.pool = pool
+        self.branch_runs = torch.zeros(MAX_BRANCHES, dtype=torch.int64,
+                                       device=dev)
+        self.branch_names: list = []
+        self.graphs: dict = {}
+        self.pool_bytes = 0  # what this program's captures reserved
+
+    def new_branch(self, name: str) -> int:
+        if len(self.branch_names) == MAX_BRANCHES:
+            raise RuntimeError("too many captured branch bodies")
+        self.branch_names.append(name)
+        return len(self.branch_names) - 1
+
+    def _capture(self, v) -> _Graph:
+        """Warm variant ``v`` up and capture it."""
+        global captures, capture_s, pool_bytes
+        t0 = time.perf_counter()
+        counts = _counts()
+        kernel._recorder = _Warm()
+        try:
+            self._warm(v)
+        finally:
+            kernel._recorder = None
+            _set_counts(counts)
+        torch.cuda.synchronize(self.dev)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        reserved = torch.cuda.memory_reserved(self.dev)
+        rec = _Recorder(self)
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(torch.cuda.current_stream(self.dev))
+        kernel._recorder = rec
+        try:
+            with torch.cuda.stream(side):
+                rec.begin()
+                self._body(v)
+                rec.end()
+        except BaseException:
+            rec.abort()
+            raise
+        finally:
+            kernel._recorder = None
+            _set_counts(counts)
+        torch.cuda.current_stream(self.dev).wait_stream(side)
+        graph = _Graph(rec.segs)
+        grown = torch.cuda.memory_reserved(self.dev) - reserved
+        pool_bytes += grown
+        self.pool_bytes += grown
+        captures += 1
+        capture_s += time.perf_counter() - t0
+        return graph
+
+    def graph(self, v) -> _Graph:
+        g = self.graphs.get(v)
+        if g is None:
+            g = self.graphs[v] = self._capture(v)
+        return g
+
+    def replay(self, v) -> None:
+        """One round of variant ``v`` (captured at its first replay)."""
+        self.graph(v).launch()
+
+    def settle(self) -> None:
+        """Add the branch bodies' counts since the last settle to the
+        host counters (one device read, none without branches)."""
+        if not self.branch_names:
+            return
+        runs = self.branch_runs[:len(self.branch_names)].tolist()
+        for g in self.graphs.values():
+            for bid, deltas in g.branch.items():
+                _add_counts(deltas, runs[bid])
+        for name, n in zip(self.branch_names, runs):
+            if name in kernel.tail_rounds:
+                kernel.tail_rounds[name] += n
+        self.branch_runs.zero_()
+
+    def close(self) -> None:
+        for g in self.graphs.values():
+            g.close()
+        self.graphs.clear()
+
+
+class RoundProgram(_Program):
     """The captured rounds of one configuration: parameters, nemesis
     schedule, shard count and which of the join rounds, flight ring,
-    banks, NemState and trace are threaded.  ``run`` is ``run_rounds``."""
+    banks, NemState and trace are threaded.  ``run`` is ``run_rounds``;
+    a caller that interleaves programs (``multidc.MultiDCProgram``) uses
+    ``load``, ``set_rows``, ``replay`` and ``result``."""
 
     def __init__(self, p, nem, sc, dev, state, fail_round, join_round,
-                 flight, hist, nem_state, trace: bool):
-        self.p, self.nem, self.sc, self.dev = p, nem, sc, dev
-        self.pool = None  # the captures' shared memory pool (first capture)
+                 flight, hist, nem_state, trace: bool, pool=None):
+        super().__init__(dev, pool)
+        self.p, self.nem, self.sc = p, nem, sc
         z = functools.partial(torch.zeros, device=dev)
         # The buffers (outside the pool): filled by each call.
         self.state = _clone(state)
@@ -256,15 +368,6 @@ class RoundProgram:
                        for _ in RoundTrace._fields] if trace else None)
         self.tx = z((), dtype=_I32) if flight is not None else None
         self.dst = (self.state, self.hist, self.nem_state, self.tx)
-        self.branch_runs = z(MAX_BRANCHES, dtype=torch.int64)
-        self.branch_names: list = []
-        self.graphs: dict = {}
-
-    def new_branch(self, name: str) -> int:
-        if len(self.branch_names) == MAX_BRANCHES:
-            raise RuntimeError("too many captured branch bodies")
-        self.branch_names.append(name)
-        return len(self.branch_names) - 1
 
     def _round(self, v, **bufs):
         return _round_once(self.p, self.table, bufs.get("step", self.step),
@@ -276,100 +379,56 @@ class RoundProgram:
                            bufs.get("trace", self.trace),
                            bufs.get("dst"))
 
-    def _capture(self, v) -> _Graph:
-        """Warm variant ``v`` up and capture it."""
-        global captures, capture_s, pool_bytes
-        t0 = time.perf_counter()
-        counts = _counts()
-        kernel._recorder = _Warm()
-        try:
-            self._round(v, step=self.step.clone(),
-                        state=_clone(self.state), hist=_clone(self.hist),
-                        nem_state=_clone(self.nem_state),
-                        rows=_clone(self.rows), trace=_clone(self.trace))
-        finally:
-            kernel._recorder = None
-            _set_counts(counts)
-        torch.cuda.synchronize(self.dev)
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        reserved = torch.cuda.memory_reserved(self.dev)
-        rec = _Recorder(self)
-        side = torch.cuda.Stream(self.dev)
-        side.wait_stream(torch.cuda.current_stream(self.dev))
-        kernel._recorder = rec
-        try:
-            with torch.cuda.stream(side):
-                rec.begin()
-                self._round(v, dst=self.dst)
-                rec.end()
-        except BaseException:
-            rec.abort()
-            raise
-        finally:
-            kernel._recorder = None
-            _set_counts(counts)
-        torch.cuda.current_stream(self.dev).wait_stream(side)
-        graph = _Graph(rec.segs)
-        pool_bytes += torch.cuda.memory_reserved(self.dev) - reserved
-        captures += 1
-        capture_s += time.perf_counter() - t0
-        return graph
+    def _warm(self, v) -> None:
+        self._round(v, step=self.step.clone(),
+                    state=_clone(self.state), hist=_clone(self.hist),
+                    nem_state=_clone(self.nem_state),
+                    rows=_clone(self.rows), trace=_clone(self.trace))
 
-    def graph(self, v) -> _Graph:
-        g = self.graphs.get(v)
-        if g is None:
-            g = self.graphs[v] = self._capture(v)
-        return g
+    def _body(self, v) -> None:
+        self._round(v, dst=self.dst)
 
-    def settle(self) -> None:
-        """Add the branch bodies' counts since the last settle to the
-        host counters (one device read)."""
-        runs = self.branch_runs[:len(self.branch_names)].tolist()
-        for g in self.graphs.values():
-            for bid, deltas in g.branch.items():
-                _add_counts(deltas, runs[bid])
-        for name, n in zip(self.branch_names, runs):
-            if name in kernel.tail_rounds:
-                kernel.tail_rounds[name] += n
-        self.branch_runs.zero_()
-
-    def close(self) -> None:
-        for g in self.graphs.values():
-            g.close()
-        self.graphs.clear()
-
-    def run(self, state, base_key, fail_round, steps, join_round, flight,
-            hist, nem_state):
-        """``steps`` rounds from ``state``: ``(state, rows, hist,
-        nem_state, trace columns)``, new tensors."""
-        p = self.p
+    def load(self, state, fail_round, join_round=None, flight=None,
+             hist=None, nem_state=None) -> None:
+        """Copy a call's inputs into the buffers."""
         _copy_leaves(self.state, state)
         self.fail.copy_(fail_round)
         if self.join is not None:
             self.join.copy_(join_round)
         _copy_leaves(self.hist, hist)
         _copy_leaves(self.nem_state, nem_state)
+        if flight is not None:
+            self.rows.copy_(flight.rows)
+
+    def set_rows(self, host: torch.Tensor) -> None:
+        """The next chunk of the call's table (a host tensor, pinned on a
+        card: one asynchronous copy), from its first row."""
+        self.table[:host.shape[0]].copy_(host, non_blocking=True)
+        self.step.zero_()
+
+    def result(self):
+        """New tensors of the buffers: ``(state, rows, hist, nem_state)``."""
+        return (_clone(self.state), _clone(self.rows), _clone(self.hist),
+                _clone(self.nem_state))
+
+    def run(self, state, base_key, fail_round, steps, join_round, flight,
+            hist, nem_state):
+        """``steps`` rounds from ``state``: ``(state, rows, hist,
+        nem_state, trace columns)``, new tensors."""
+        p = self.p
+        self.load(state, fail_round, join_round, flight, hist, nem_state)
         rnd0 = kernel._host_int(state.round)
         cur, R = 0, 1
         if flight is not None:
-            self.rows.copy_(flight.rows)
             R = self.rows.shape[0]
             cur = kernel._host_int(flight.cursor)
         chunks = []
         for done in range(0, steps, TABLE_ROWS):
             n = min(TABLE_ROWS, steps - done)
-            tbl = round_args.build(p, base_key, rnd0 + done, n, cur + done, R)
-            # On a card one copy from pinned memory straight into the
-            # program's table (PyTorch's host allocator holds the pinned
-            # buffer until the copy is done).
-            host = torch.from_numpy(tbl)
-            if self.table.is_cuda:
-                host = host.pin_memory()
-            self.table[:n].copy_(host, non_blocking=True)
-            self.step.zero_()
+            self.set_rows(_pinned(round_args.build(
+                p, base_key, rnd0 + done, n, cur + done, R), self.dev))
             for k in range(n):
-                self.graph(round_variant(p, self.nem, rnd0 + done + k)).launch()
+                self.replay(round_variant(p, self.nem, rnd0 + done + k))
             if self.trace is not None:
                 chunks.append([b[:n].clone() for b in self.trace])
         tr = None
@@ -377,11 +436,100 @@ class RoundProgram:
             tr = [torch.cat(c) if c else
                   torch.zeros((0, p.slots), dtype=_I32, device=self.dev)
                   for c in (zip(*chunks) if chunks else [()] * 6)]
-        return (_clone(self.state), _clone(self.rows), _clone(self.hist),
-                _clone(self.nem_state), tr)
+        return (*self.result(), tr)
+
+
+class EventProgram(_Program):
+    """The captured event rounds of one configuration (the counterpart of
+    ``jax.jit(run_event_rounds)``): one graph per push/pull variant, the
+    round's row read from the call's event table at ``step``, its flood
+    one launch of ``csrc/event_flood.cu``.  Liveness is a buffer
+    (``run_event_rounds``' ``alive``) or, with ``fail`` set, ``fail >
+    round`` from the pool's own round counter before the round (the
+    multi-DC pools); with ``cov`` the round's coverage row goes to the
+    ``[TABLE_ROWS, E]`` trace buffer."""
+
+    def __init__(self, p, dev, state, alive=None, fail=None,
+                 cov: bool = True, pool=None):
+        super().__init__(dev, pool)
+        self.p = p
+        z = functools.partial(torch.zeros, device=dev)
+        self.state = _clone(state)
+        self.alive = None if alive is None else alive.clone()
+        self.fail = None if fail is None else fail.clone()
+        E = state.has.shape[0]
+        self.table = z((TABLE_ROWS, round_args.event_layout(p.fanout).width),
+                       dtype=_I32)
+        self.step = z(1, dtype=torch.int64)
+        self.cov = z((TABLE_ROWS, E), dtype=torch.float32) if cov else None
+
+    def _round(self, pushpull: bool, state, step, cov) -> None:
+        """One event round from row ``step``, written into ``state``'s own
+        tensors (the buffers, or their copies while warming up)."""
+        row = self.table.index_select(0, step)[0]
+        alive = self.alive if self.fail is None else self.fail > state.round
+        new, held = events._event_round(state, row, alive, self.p, pushpull)
+        _copy_leaves(state, new)
+        if cov is not None:
+            cov.index_copy_(0, step, events._coverage_of(held, alive)[None])
+        step.add_(1)
+
+    def _warm(self, v) -> None:
+        self._round(v, _clone(self.state), self.step.clone(),
+                    _clone(self.cov))
+
+    def _body(self, v) -> None:
+        self._round(v, self.state, self.step, self.cov)
+
+    def load(self, state, alive=None, fail=None) -> None:
+        _copy_leaves(self.state, state)
+        if alive is not None:
+            self.alive.copy_(alive)
+        if fail is not None:
+            self.fail.copy_(fail)
+
+    def set_rows(self, host: torch.Tensor) -> None:
+        self.table[:host.shape[0]].copy_(host, non_blocking=True)
+        self.step.zero_()
+
+    def run(self, state, base_key, alive, steps):
+        """``steps`` event rounds from ``state``: ``(state, cov)``, new
+        tensors.  One host read (the round counter)."""
+        p = self.p
+        self.load(state, alive)
+        rnd0 = kernel._host_int(state.round)
+        covs = []
+        for done in range(0, steps, TABLE_ROWS):
+            n = min(TABLE_ROWS, steps - done)
+            self.set_rows(_pinned(round_args.build_events(
+                p, base_key, rnd0 + done, n), self.dev))
+            for k in range(n):
+                self.replay(events.is_pushpull(p, rnd0 + done + k))
+            covs.append(self.cov[:n].clone())
+        cov = (torch.cat(covs) if covs else
+               torch.zeros((0, self.cov.shape[1]), dtype=torch.float32,
+                           device=self.dev))
+        return _clone(self.state), cov
 
 
 _programs: collections.OrderedDict = collections.OrderedDict()
+# Programs a caller owns (each multi-DC program's pools), outside the
+# cache: ``settle_counts`` reads them too.
+_owned: list = []
+
+
+def _cached(key, make) -> _Program:
+    """The cached program under ``key`` (``make()`` on first use; the
+    least recently used of more than ``MAX_PROGRAMS`` is closed)."""
+    prog = _programs.get(key)
+    if prog is None:
+        prog = _programs[key] = make()
+        while len(_programs) > MAX_PROGRAMS:
+            _, old = _programs.popitem(last=False)
+            old.settle()
+            old.close()
+    _programs.move_to_end(key)
+    return prog
 
 
 def program_for(p, nem, sc, dev, state, fail_round, join_round, flight,
@@ -391,17 +539,9 @@ def program_for(p, nem, sc, dev, state, fail_round, join_round, flight,
     key = (p, nem, sc, str(dev), join_round is not None,
            None if flight is None else tuple(flight.rows.shape),
            hist is not None, nem_state is not None, bool(trace))
-    prog = _programs.get(key)
-    if prog is None:
-        prog = _programs[key] = RoundProgram(p, nem, sc, dev, state,
-                                             fail_round, join_round, flight,
-                                             hist, nem_state, trace)
-        while len(_programs) > MAX_PROGRAMS:
-            _, old = _programs.popitem(last=False)
-            old.settle()
-            old.close()
-    _programs.move_to_end(key)
-    return prog
+    return _cached(key, lambda: RoundProgram(
+        p, nem, sc, dev, state, fail_round, join_round, flight, hist,
+        nem_state, trace))
 
 
 def run_rounds(state, base_key, fail_round, p, steps, trace, join_round,
@@ -417,10 +557,30 @@ def run_rounds(state, base_key, fail_round, p, steps, trace, join_round,
         None if tr is None else RoundTrace(*tr))
 
 
+def run_event_rounds(state, base_key, alive, p, steps):
+    """``events.run_event_rounds`` on a card, through the configuration's
+    ``EventProgram``; the arguments are on the card already."""
+    key = ("events", p, str(alive.device), tuple(state.has.shape))
+    prog = _cached(key, lambda: EventProgram(p, alive.device, state,
+                                             alive=alive))
+    return prog.run(state, base_key, alive, steps)
+
+
+def own(prog: _Program) -> None:
+    """Count a caller's program in ``settle_counts``."""
+    _owned.append(prog)
+
+
+def disown(prog: _Program) -> None:
+    """Settle, close and forget a caller's program."""
+    prog.settle()
+    prog.close()
+    _owned[:] = [q for q in _owned if q is not prog]
+
+
 def settle_counts() -> None:
     """Fold every program's device-side branch counts into the host
     counters (``prng``'s and ``fused``'s launches, ``kernel.tail_rounds``);
     a reader of those counters calls this first."""
-    for prog in _programs.values():
+    for prog in list(_programs.values()) + _owned:
         prog.settle()
-

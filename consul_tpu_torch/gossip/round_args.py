@@ -77,10 +77,15 @@ def layout(fanout: int, indirect_k: int) -> Layout:
 
 
 # -- the host twin, one lane per round ---------------------------------------
+#
+# A lane value is a Python int (a one-row build: the scalar path, about
+# five times quicker than numpy on length-1 arrays) or an int64 numpy
+# array with one entry per lane (every round of a call, of every pool of a
+# multi-pool call).  The same code computes both, bit for bit.
 
 def _hash(k, x):
     """threefry2x32 of the counter (0, x) under the keys ``k`` (a pair of
-    int64 arrays), one lane per round: the two output words."""
+    lane values): the two output words."""
     return _threefry2x32(k[0], k[1], 0, x)
 
 
@@ -92,24 +97,67 @@ def _split(k, num: int):
     return [_hash(k, i) for i in range(num)]
 
 
-def _randint(k, count: int, minval: int, maxval: int) -> np.ndarray:
-    """``randint(k, (count,), minval, maxval)`` per lane: int64
-    ``[lanes, count]`` with the int32 values."""
+def _i32(v):
+    """uint32 bit patterns (lane values in [0, 2**32)) as int32 values."""
+    return v - ((v >> 31) << 32)
+
+
+def _randint(k, count: int, minval: int, maxval: int) -> list:
+    """``randint(k, (count,), minval, maxval)`` per lane: ``count`` lane
+    values (int32 values)."""
     span, mult = _randint_span(minval, maxval)
     k_hi, k_lo = _split(k, 2)
     out = []
     for i in range(count):
-        hi = np.bitwise_xor(*_hash(k_hi, i))
-        lo = np.bitwise_xor(*_hash(k_lo, i))
+        a, b = _hash(k_hi, i)
+        c, d = _hash(k_lo, i)
+        hi, lo = a ^ b, c ^ d
         off = ((((hi % span) * mult) & _M32) + lo % span) & _M32
-        v = (minval + off % span) & _M32
-        out.append(np.where(v >= 2**31, v - 2**32, v))
-    return np.stack(out, axis=1)
+        out.append(_i32((minval + off % span) & _M32))
+    return out
 
 
-def _words(k) -> np.ndarray:
+def _put_key(tbl: np.ndarray, at: int, k) -> None:
     """A key per lane as two int32 columns (the uint32 bit patterns)."""
-    return np.stack(k, axis=1).astype(np.uint32).view(np.int32)
+    tbl[:, at] = _i32(k[0])
+    tbl[:, at + 1] = _i32(k[1])
+
+
+def _check_rounds(rnd0: int, steps: int) -> None:
+    if steps and rnd0 + steps - 1 >= 2**31:
+        raise OverflowError("the round counter passes int32")
+
+
+def _fill(tbl: np.ndarray, p, lay: Layout, base, rnd, flight) -> None:
+    """The round columns of every lane: ``base`` the pool's key, ``rnd``
+    the round and ``flight`` the flight-ring slot, each a lane value."""
+    N, F, K = p.n, p.fanout, p.indirect_k
+    key = _hash(base, rnd & _M32)
+    k_t, k_dl, k_h, k_hl = _split(_fold_in(key, 1), 4)
+    B = max(1, -(-N // p.probe_every))
+    tbl[:, RND] = rnd
+    for f, o in enumerate(_randint(_fold_in(key, 2), F, 1, N)):
+        tbl[:, GOSSIP + f] = o
+    tbl[:, lay.blk] = (rnd % p.probe_every) * B
+    tbl[:, lay.flight] = flight
+    for j, o in enumerate(_randint(k_t, 1 + K, 1, N)):
+        tbl[:, lay.probe + j] = o
+    o = _randint(_fold_in(key, 3), 1, 1, N)[0]
+    tbl[:, lay.pp], tbl[:, lay.pp + 1] = o, -o
+    _put_key(tbl, lay.k_dl, k_dl)
+    _put_key(tbl, lay.k_hl, k_hl)
+    for j, sub in enumerate(_split(k_h, 4)):
+        _put_key(tbl, lay.k_nem + 2 * j, sub)
+    k_nem = _fold_in(key, 4)
+    for f in range(F):
+        _put_key(tbl, lay.k_legs + 2 * f, _fold_in(k_nem, f))
+    k_pp = _fold_in(key, 5)
+    for j in range(2):
+        _put_key(tbl, lay.k_pp + 2 * j, _fold_in(k_pp, j))
+
+
+def _base_words(base_key) -> tuple:
+    return tuple(int(w) for w in np.asarray(base_key).astype(np.int64))
 
 
 def build(p, base_key, rnd0: int, steps: int, cursor: int = 0,
@@ -117,39 +165,87 @@ def build(p, base_key, rnd0: int, steps: int, cursor: int = 0,
     """The int32 table ``[steps, width]`` of rounds ``rnd0 ..
     rnd0 + steps - 1`` under ``base_key`` (``prng`` key, uint32[2]) for
     the parameters ``p``; ``cursor`` and ``ring`` place each round's
-    flight row (ignored without a ring)."""
+    flight row (ignored without a ring).  One row (an eager round) takes
+    the scalar path on Python ints, more rows one vectorised pass."""
     lay = layout(p.fanout, p.indirect_k)
-    N, F, K = p.n, p.fanout, p.indirect_k
     tbl = np.zeros((steps, lay.width), np.int32)
-    if steps == 0:
-        return tbl
-    rnd = np.arange(rnd0, rnd0 + steps, dtype=np.int64)
-    if rnd[-1] >= 2**31:
-        raise OverflowError("the round counter passes int32")
-    base = np.asarray(base_key).astype(np.int64)
-    key = _hash((np.full(steps, base[0]), np.full(steps, base[1])), rnd)
-    k_t, k_dl, k_h, k_hl = _split(_fold_in(key, 1), 4)
-    B = max(1, -(-N // p.probe_every))
-    tbl[:, RND] = rnd
-    tbl[:, GOSSIP:GOSSIP + F] = _randint(_fold_in(key, 2), F, 1, N)
-    tbl[:, lay.blk] = (rnd % p.probe_every) * B
-    tbl[:, lay.flight] = (cursor + np.arange(steps)) % ring
-    tbl[:, lay.probe:lay.probe + 1 + K] = _randint(k_t, 1 + K, 1, N)
-    o = _randint(_fold_in(key, 3), 1, 1, N)[:, 0]
-    tbl[:, lay.pp], tbl[:, lay.pp + 1] = o, -o
-    tbl[:, lay.k_dl:lay.k_dl + 2] = _words(k_dl)
-    tbl[:, lay.k_hl:lay.k_hl + 2] = _words(k_hl)
-    for j, sub in enumerate(_split(k_h, 4)):
-        tbl[:, lay.k_nem + 2 * j:lay.k_nem + 2 * j + 2] = _words(sub)
-    k_nem = _fold_in(key, 4)
-    for f in range(F):
-        tbl[:, lay.k_legs + 2 * f:lay.k_legs + 2 * f + 2] = _words(
-            _fold_in(k_nem, f))
-    k_pp = _fold_in(key, 5)
-    for j in range(2):
-        tbl[:, lay.k_pp + 2 * j:lay.k_pp + 2 * j + 2] = _words(
-            _fold_in(k_pp, j))
+    _check_rounds(rnd0, steps)
+    if steps == 1:
+        _fill(tbl, p, lay, _base_words(base_key), int(rnd0),
+              int(cursor) % ring)
+    elif steps:
+        _fill(tbl, p, lay, _base_words(base_key),
+              np.arange(rnd0, rnd0 + steps, dtype=np.int64),
+              (cursor + np.arange(steps)) % ring)
     return tbl
+
+
+# -- the event round's row ------------------------------------------------------
+#
+# The user-event flood (``gossip/events.py``) draws, per round, under
+# ``key = fold_in(fold_in(pool_key, 7), rnd)``: its F gossip shifts
+# ``randint(key, (F,), 1, N)`` (``kernel.gossip_offsets`` of ``key`` itself)
+# and its push/pull partner ``randint(fold_in(key, 9), (), 1, N)``.  Row
+# ``[rnd, o_0 .. o_F-1, pp_o, -pp_o]``: the first F + 1 words are the flood
+# kernel's argument buffer, as ``[rnd, o ..]`` is the tail's; a push/pull
+# round's kernel also reads the two partner shifts after them.
+
+
+class EventLayout(NamedTuple):
+    F: int       # gossip fanout
+    pp: int      # 2 columns: pp_o, -pp_o
+    width: int
+
+
+def event_layout(fanout: int) -> EventLayout:
+    return EventLayout(fanout, 1 + fanout, 3 + fanout)
+
+
+def _fill_events(tbl: np.ndarray, p, base, rnd) -> None:
+    N, F = p.n, p.fanout
+    key = _hash(_fold_in(base, 7), rnd & _M32)
+    tbl[:, RND] = rnd
+    for f, o in enumerate(_randint(key, F, 1, N)):
+        tbl[:, GOSSIP + f] = o
+    o = _randint(_fold_in(key, 9), 1, 1, N)[0]
+    tbl[:, 1 + F], tbl[:, 2 + F] = o, -o
+
+
+def build_events(p, base_key, rnd0: int, steps: int) -> np.ndarray:
+    """The event rounds' int32 table ``[steps, F + 3]`` of rounds ``rnd0
+    ..`` under the pool's ``base_key``; one row on the scalar path."""
+    tbl = np.zeros((steps, event_layout(p.fanout).width), np.int32)
+    _check_rounds(rnd0, steps)
+    if steps == 1:
+        _fill_events(tbl, p, _base_words(base_key), int(rnd0))
+    elif steps:
+        _fill_events(tbl, p, _base_words(base_key),
+                     np.arange(rnd0, rnd0 + steps, dtype=np.int64))
+    return tbl
+
+
+def build_pools(p, keys, rnd0s, steps: int, events: bool = False
+                ) -> np.ndarray:
+    """The tables ``[P, steps, width]`` of P pools of the parameters
+    ``p``: pool ``j`` under ``keys[j]`` (uint32[P, 2]) from round
+    ``rnd0s[j]``, its round rows (no flight ring) or with ``events`` its
+    event rows; every pool's rounds in one vectorised pass."""
+    keys = np.asarray(keys).reshape(-1, 2).astype(np.int64)
+    P = keys.shape[0]
+    r0 = np.asarray(rnd0s, np.int64).reshape(P)
+    for r in r0:
+        _check_rounds(int(r), steps)
+    width = (event_layout(p.fanout).width if events
+             else layout(p.fanout, p.indirect_k).width)
+    tbl = np.zeros((P * steps, width), np.int32)
+    if tbl.shape[0]:
+        base = (np.repeat(keys[:, 0], steps), np.repeat(keys[:, 1], steps))
+        rnd = (r0[:, None] + np.arange(steps)).reshape(-1)
+        if events:
+            _fill_events(tbl, p, base, rnd)
+        else:
+            _fill(tbl, p, layout(p.fanout, p.indirect_k), base, rnd, 0)
+    return tbl.reshape(P, steps, width)
 
 
 def to_device(tbl: np.ndarray, device) -> torch.Tensor:
@@ -211,3 +307,19 @@ def custom(p, rnd: int, device="cpu", **cols) -> RoundArgs:
         words = np.asarray(val, np.int64).reshape(-1).astype(np.uint32)
         row[start[name]:start[name] + words.size] = words.view(np.int32)
     return row_args(lay, torch.from_numpy(row).to(device))
+
+
+class EventArgs(NamedTuple):
+    """One event round's row as device views."""
+
+    rnd: torch.Tensor     # i32 scalar
+    gossip: torch.Tensor  # i32 [F]
+    pp: torch.Tensor      # i32 [2]: pp_o, -pp_o
+    row: torch.Tensor     # i32 [F + 3], the whole row (the kernel's buffer)
+
+
+def event_args(fanout: int, row: torch.Tensor) -> EventArgs:
+    """Views of one event table row (``row``: i32 [F + 3], contiguous)."""
+    F = fanout
+    return EventArgs(rnd=row[RND], gossip=row[GOSSIP:GOSSIP + F],
+                     pp=row[1 + F:3 + F], row=row)

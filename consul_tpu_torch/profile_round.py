@@ -3,6 +3,7 @@
     python -m consul_tpu_torch.profile_round [--churn-ppm 1000] [--rounds 30]
                                              [--ndev N] [--nemesis SCENARIO]
                                              [--eager] [--observers]
+    python -m consul_tpu_torch.profile_round --multidc [--ndev 8]
 
 Runs bench.py's LAN regime on the card (``lan_profile(N, SLOTS,
 hot_slots=0)``, churn failures on a stride) for ``WARM`` rounds, then
@@ -48,6 +49,16 @@ each with its drop operand.
 The device's idle share is ``1 - busy(B) / host time(A)``.  Phases are
 timed by wrapping the round's functions for the duration of a pass; the
 round's code is not changed.  Needs one CUDA card.
+
+``--multidc`` profiles the multi-DC round instead (bench.py's regime:
+4 DCs of N / 4 nodes, 3 servers each, 32 event slots, one event fired,
+N / 4000 failures per DC on a stride; ``--ndev`` shards each DC's LAN
+pool): the graphed route (``multidc.MultiDCProgram``) and then the eager
+one in one process, each ``WARM`` rounds and then passes A and B of
+``--rounds`` rounds in one call each: host ms a round, device busy ms a
+round and idle share, device kernels and graph launches a round, the
+flood's and the tail's kernels a round, and the host ms of the call's
+table build (``multidc._tables``).
 """
 
 from __future__ import annotations
@@ -62,7 +73,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from consul_tpu_torch import prng
-from consul_tpu_torch.gossip import fused, kernel, program
+from consul_tpu_torch.gossip import events, fused, kernel, program
+from consul_tpu_torch.gossip import multidc as md
 from consul_tpu_torch.gossip.nemesis import build as build_nemesis
 from consul_tpu_torch.gossip.params import lan_profile
 
@@ -83,7 +95,8 @@ SINGLE_PHASES = {  # the single-device round's own
 # their device time is read from the kernel rows.
 HAND_KERNELS = {"draws": "threefry::draw_kernel",
                 "tail": "dissem_tail::tail_kernel",
-                "conditions": "round_graph::set_condition"}
+                "conditions": "round_graph::set_condition",
+                "flood": "evflood::flood_kernel"}
 SHARDED_PHASES = {  # the sharded round's own, inside the phases above
     "halo_pins": (fused, "_roll_sharded"),
     "merge_launches": (fused, "fused_merge"),
@@ -169,12 +182,110 @@ def main(argv=None) -> int:
     ap.add_argument("--observers", action="store_true",
                     help="thread the flight ring, hist banks and trace "
                          "through the rounds, as the plane does")
+    ap.add_argument("--multidc", action="store_true",
+                    help="profile the multi-DC round, graphed and eager")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA card")
+    if args.multidc:
+        for graphed in (True, False):
+            print(json.dumps(profile_multidc(args, graphed)), flush=True)
+        return 0
     for graphed in (True, False) if args.eager else (True,):
         print(json.dumps(profile_route(args, graphed)), flush=True)
     return 0
+
+
+def profile_multidc(args, graphed: bool) -> dict:
+    """One route of the multi-DC round (the module docstring)."""
+    dev = torch.device("cuda")
+    D = 4
+    n_lan = N // D
+    p = md.make_params(D, n_lan, n_servers=3, event_slots=32, slots=SLOTS,
+                       lan_devices=args.ndev)
+    R = args.rounds
+    total = WARM + 2 * R
+    n_fail = max(1, n_lan // 1000)
+    lan_fail = np.full((D, n_lan), kernel.NEVER, np.int32)
+    s0 = p.n_servers
+    lan_fail[:, s0:s0 + n_fail] = ((np.arange(n_fail, dtype=np.int64)
+                                    * total) // n_fail)[None, :]
+    lan_fail_t = torch.from_numpy(lan_fail).to(dev)
+    wan_fail_t = torch.full((D * s0,), kernel.NEVER, dtype=torch.int32,
+                            device=dev)
+    key = prng.key(42)
+    table_s = []
+    tables = md._tables
+
+    def timed_tables(*a):
+        t0 = time.perf_counter()
+        out = tables(*a)
+        table_s.append(time.perf_counter() - t0)
+        return out
+
+    def run(st, steps):
+        st, _ = md.run_multidc_rounds(st, key, lan_fail_t, wan_fail_t, p,
+                                      steps, device=dev, graphed=graphed)
+        int(st.wan.round)
+        torch.cuda.synchronize()
+        return st
+
+    captures0, capture_s0 = program.captures, program.capture_s
+    md._tables = timed_tables
+    try:
+        state = run(md.fire_in_dc(md.init_multidc(p, device=dev), 0, 7, p),
+                    WARM)
+        program.settle_counts()
+        table_s.clear()
+        counts0 = (prng.launches, program.launches, kernel.host_syncs,
+                   events.launches, fused.launches + fused.merge_launches)
+        t0 = time.perf_counter()
+        state = run(state, R)
+        wall_a = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state = run(state, R)
+    finally:
+        md._tables = tables
+    program.settle_counts()
+    d_draws, d_graphs, d_syncs, d_floods, d_tails = (
+        b - a for a, b in zip(counts0, (
+            prng.launches, program.launches, kernel.host_syncs,
+            events.launches, fused.launches + fused.merge_launches)))
+    kernels = device_kernels(prof)
+    busy_us = sum(self_device_us(e) for e in kernels)
+    res = {
+        "device": torch.cuda.get_device_name(dev),
+        "route": "graphed" if graphed else "eager", "multidc": True,
+        "n": N, "dcs": D, "n_lan": n_lan, "slots": SLOTS,
+        "lan_devices": args.ndev or None, "warm_rounds": WARM, "rounds": R,
+        "host_ms_per_round": wall_a * 1e3 / R,
+        "device_busy_ms_per_round": busy_us / 1e3 / R,
+        "device_idle_share": 1 - busy_us / 1e6 / wall_a,
+        "device_kernels_per_round": sum(e.count for e in kernels) / R,
+        "graph_launches_per_round": d_graphs / (2 * R),
+        "host_syncs_per_round": d_syncs / (2 * R),
+        "flood_launches_per_round": d_floods / (2 * R),
+        "tail_launches_per_round": d_tails / (2 * R),
+        "draw_launches_per_round": d_draws / (2 * R),
+        "table_host_ms_per_call": 1e3 * sum(table_s) / len(table_s),
+        "captures": program.captures - captures0,
+        "capture_s": program.capture_s - capture_s0,
+        "pool_bytes": ([prog.pool_bytes for prog in md._programs.values()]
+                       if graphed else None),
+        "hand_kernels": {
+            label: {"calls_per_round": sum(e.count for e in rows) / R,
+                    "device_ms_per_round":
+                        sum(self_device_us(e) for e in rows) / 1e3 / R}
+            for label, name in HAND_KERNELS.items()
+            for rows in [[e for e in kernels if name in e.key]]},
+        "top_kernels": [{"kernel": e.key[:90], "calls_per_round": e.count / R,
+                         "device_ms_per_round": self_device_us(e) / 1e3 / R}
+                        for e in kernels[:8]],
+    }
+    md.close_programs()
+    torch.cuda.empty_cache()
+    return res
 
 
 def profile_route(args, graphed: bool) -> dict:

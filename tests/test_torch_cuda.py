@@ -213,10 +213,14 @@ def test_multidc_on_card_matches_cpu():
                            lan_devices=ndev)
         st = tm.fire_in_dc(tm.init_multidc(p, device=dev), 0, 150, p)
         st = tm.fire_in_dc(tm.fire_in_dc(st, 1, 9, p), 1, 10, p)
+        program.settle_counts()
         merges0 = fused.merge_launches
         (st, hb), cov = tm.run_multidc_rounds(
             st, prng.key(4), lan_fail, wan_fail, p, 120,
             lan_hist=tm.init_multidc_hist(p, device=dev), device=dev)
+        # The card's rounds are replays: their branch bodies' launches
+        # are counted once settled.
+        program.settle_counts()
         if ndev:
             assert fused.merge_launches > merges0
         outs.append((convert.multidc_to_numpy(st),
@@ -547,3 +551,125 @@ def test_conditional_graph_nodes_on_card():
         assert float(x[0]) == want, x0
     graph.close()
     assert isinstance(graph.exec, ctypes.c_void_p)
+
+
+# -- the event flood and the multi-DC program ------------------------------------
+
+def _flood_inputs(E, N, seed, rnd=500, ttl=40):
+    """Every byte value, alive holes, slots on both sides of the TTL,
+    clocks and counts at the int32 edge."""
+    rng = np.random.default_rng(seed)
+    i32 = 2**31 - 1
+    has = np.where(rng.random((E, N)) < 0.35, rng.integers(0, 256, (E, N)),
+                   (rng.random((E, N)) < 0.4) * 0x80
+                   + rng.integers(0, 16, (E, N))).astype(np.uint8)
+    arrays = (has, rng.random(N) < 0.8, rng.random(E) < 0.8,
+              rng.choice(np.asarray([-5, 0, 7, i32], np.int32), E),
+              rng.integers(-1, N, E).astype(np.int32),
+              (rnd - ttl + rng.integers(-2, 3, E)).astype(np.int32),
+              rng.choice(np.asarray([-3, 0, 999, i32], np.int32), N),
+              rng.choice(np.asarray([0, i32 - 2, -1], np.int32), E))
+    return [torch.from_numpy(a).cuda() for a in arrays]
+
+
+@pytest.mark.parametrize("E, N, F", [(8, 4096, 3), (16, 1001, 3),
+                                     (32, 12, 4), (64, 4099, 3),
+                                     (300, 40, 2)])
+def test_event_flood_matches_plain_on_card(E, N, F):
+    """``csrc/event_flood.cu`` against ``event_flood_ref`` on the card,
+    push/pull on and off, budgets 1 to 14, shifts off by -N: every
+    output, tolerance 0."""
+    _need_card()
+    from consul_tpu_torch.gossip import events as te
+    rng = np.random.default_rng(N)
+    ins = _flood_inputs(E, N, seed=E + N)
+    for budget, pushpull in ((3, False), (3, True), (1, True), (14, False)):
+        offs = rng.integers(1, N, F).tolist()
+        pp = int(rng.integers(1, N))
+        want = te.event_flood_ref(*ins, torch.tensor(
+            [500, *offs, pp, -pp], dtype=torch.int32, device="cuda"),
+            budget, 40, pushpull)
+        row = torch.tensor([500, *(o - N for o in offs), pp - N, N - pp],
+                           dtype=torch.int32, device="cuda")
+        n0 = te.launches
+        got = te.event_flood(*ins, row, budget, 40, pushpull)
+        torch.cuda.synchronize()
+        assert te.launches == n0 + 1
+        for f in te.Flood._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), \
+                (budget, pushpull, f)
+
+
+def test_graphed_events_match_eager_on_card():
+    """``run_event_rounds`` replayed against eager on the card: every
+    field and the coverage trace; one host read a graphed call; one
+    flood launch a round on both routes."""
+    _need_card()
+    from consul_tpu_torch.gossip import events as te
+    from consul_tpu_torch.gossip.params import lan_profile
+    n, steps = 4000, 90
+    p = lan_profile(n, pushpull_every=4)
+    alive = torch.from_numpy(np.random.default_rng(2).random(n) > 0.1).cuda()
+    st = te.init_events(p, slots=16)
+    st = te.fire_events(st, torch.tensor([5, 900, 17, 17, -1, 3999],
+                                         dtype=torch.int32))
+    runs = {}
+    for graphed in (False, True):
+        program.settle_counts()
+        syncs, n0 = tk.host_syncs, te.launches
+        runs[graphed] = te.run_event_rounds(st, prng.key(6), alive, p, steps,
+                                            graphed=graphed)
+        torch.cuda.synchronize()
+        assert te.launches - n0 == steps
+        if graphed:
+            assert tk.host_syncs - syncs == 1
+    (a, ca), (b, cb) = runs[False], runs[True]
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(ca, cb)
+    # The first event reached the live nodes, and its slot was freed
+    # after the TTL (coverage 0 again).
+    assert float(cb[:, 0].max()) > 0.9 and float(cb[-1, 0]) == 0.0
+    assert not bool(b.slot_used[0])
+
+
+@pytest.mark.parametrize("ndev", [0, 2])
+def test_graphed_multidc_matches_eager_on_card(ndev):
+    """``MultiDCProgram`` against the eager multi-DC round on the card:
+    state, banks and coverage trace; one host read a graphed call, and
+    2 D + 3 graph launches a round."""
+    _need_card()
+    from consul_tpu_torch.gossip import convert
+    from consul_tpu_torch.gossip import multidc as tm
+
+    D, n, steps = 2, 320, 80
+    lan_fail = np.full((D, n), NEVER, np.int32)
+    lan_fail[0, [40, 200]] = [10, 60]
+    lan_fail[1, [1, 77]] = [20, 30]
+    wan_fail = np.full((D * 3,), NEVER, np.int32)
+    wan_fail[4] = 15
+    p = tm.make_params(D, n, event_slots=2, slots=8, hot_slots=4,
+                       lan_devices=ndev)
+    st = tm.fire_in_dc(tm.init_multidc(p), 0, 150, p)
+    st = tm.fire_in_dc(st, 1, 9, p)
+    outs = {}
+    for graphed in (False, True):
+        syncs, graphs = tk.host_syncs, program.launches
+        (s, hb), cov = tm.run_multidc_rounds(
+            st, prng.key(4), lan_fail, wan_fail, p, steps,
+            lan_hist=tm.init_multidc_hist(p), graphed=graphed)
+        torch.cuda.synchronize()
+        if graphed:
+            assert tk.host_syncs - syncs == 1
+            assert program.launches - graphs == (2 * D + 3) * steps
+        outs[graphed] = (convert.multidc_to_numpy(s),
+                         convert.hist_banks_to_numpy(hb), cov.cpu().numpy())
+    tm.close_programs()
+    (se, he, ce), (sg, hg, cg) = outs[False], outs[True]
+    for pool in se:
+        for f in se[pool]:
+            assert np.array_equal(se[pool][f], sg[pool][f]), (pool, f)
+    for f in he:
+        assert np.array_equal(he[f], hg[f]), f
+    assert np.array_equal(ce, cg)
+    assert se["lan"]["n_detected"].min() > 0
