@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``consul_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase event_flood   # that phase alone (A/B)
 
 Each phase prints one JSON line; any failure exits non-zero and the
 result lines are not printed.
@@ -27,7 +28,8 @@ result lines are not printed.
    loop (``sass_count.py --threefry``) over the INT32 rate.
 3. sass: the instructions per 32-bit word in the word path's row loop at
    fanout 3, per execution unit, one alignment way
-   (``consul_tpu_torch/sass_count.py``, cuobjdump).
+   (``consul_tpu_torch/sass_count.py``, cuobjdump); and in the event
+   flood's slot loop at fanouts 3 and 4 (``sass_count.py --flood``).
 4. kernel: the Hopper dissemination kernel against its plain torch
    version on the card (with and without a drop operand), adversarial
    bytes at [64, 1M], [8, 1M], the ragged [64, 16,001], the multi-DC
@@ -64,9 +66,15 @@ result lines are not printed.
    14, on inputs with every byte value, alive holes, slots on both sides
    of their TTL and clocks and counts at the int32 edge; then [32,
    250,000] over 64 seeds.  Its time (CUDA-graph replays of 20 launches,
-   the row read from device memory) with push/pull off and on, the plain
-   version's, and the bytes bound (has read and written, alive,
-   node_ltime read and written).
+   the row read from device memory) as the event program launches it
+   (outputs and scratch kept) with push/pull off and on, and through the
+   wrapper alone; the plain version's; and the bound: the bytes (has read
+   and written, alive, node_ltime read and written) over the memory rate
+   or the rule's operations (``flood_ops_per_word``, counted by hand) over
+   the INT32 rate, the larger, with the kernel's slot loop's SASS a word
+   (``sass_count.py --flood``) beside it.  ``--phase event_flood`` runs
+   the card line, the flood's build and SASS count and this phase alone,
+   so that two checkouts can be timed on one card in one call.
 7. full_path: ``run_rounds`` at n=16,000, S=64 (lan_profile, churn,
    loss, joins, flight ring, hist banks, trace) once on the card and
    once on the CPU (a worker process started with the script, which runs
@@ -688,11 +696,28 @@ def adversarial(S: int, N: int, seed: int, dev):
     return heard, mf, rx_ok, cap
 
 
+def flood_sass() -> dict:
+    """The event flood's slot loop at fanouts 3 and 4, per execution unit
+    (``sass_count.py --flood``): what the kernel runs a word, shown beside
+    the flood's bound, which is counted from the rule."""
+    from consul_tpu_torch import sass_count
+    sass = sass_count.disassemble("event_flood")
+    out = {}
+    for F in (3, 4):
+        try:
+            out[F] = sass_count.row_loop_counts(sass, F, "flood_kernel")
+        except RuntimeError as e:  # a count that cannot be taken bounds nothing
+            out[F] = {"error": str(e)}
+    return out
+
+
 def sass_phase() -> dict:
-    """The SASS count of the word path's row loop at fanout 3, per execution
-    unit (consul_tpu_torch/sass_count.py), for the operations bound."""
+    """The SASS count of the tail's word path's row loop at fanout 3, per
+    execution unit (consul_tpu_torch/sass_count.py), for the operations
+    bound; under ``flood``, the event flood's (``flood_sass``)."""
     from consul_tpu_torch import sass_count
     res = sass_count.row_loop_counts(sass_count.disassemble(), 3)
+    res["flood"] = flood_sass()
     emit({"phase": "sass", **res})
     return res
 
@@ -1018,21 +1043,60 @@ def _flood_err(got, want) -> int:
     return err
 
 
-def _flood_bound(E: int, N: int, F: int) -> float:
-    """The least time of one flood on the card (ms): has read and written
-    once, alive read, node_ltime read and written, the [E] registers (the
-    live holders' counts among them) and the row."""
+def flood_ops_per_word(F: int) -> int:
+    """The flood's integer operations a 32-bit word (four columns of one
+    slot) at fanout F on a round without push/pull, counted by hand from
+    the rule (``event_flood_ref``), not from any kernel: 8 a leg (the
+    funnel shift that makes the pin word, the budget test's mask, or and
+    subtract, its two shifts and and-not, the gate with the live senders,
+    the or into new_seen) and 24 a word (2 the seen bits, 1 fresh, 10 to
+    age and blend the bytes, 1 the slot's TTL, 6 the two counts' masks,
+    popcounts and adds, 4 the witness's max on each column)."""
+    return 8 * F + 24
+
+
+def _flood_bound(E: int, N: int, F: int, sass: dict | None) -> dict:
+    """The least time of one flood on the card (ms): the larger of its
+    bytes (has read and written once, alive read, node_ltime read and
+    written, the [E] registers, the live holders' counts among them, and
+    the row) over the memory rate and its operations
+    (``flood_ops_per_word`` for E N / 4 words) over the INT32 rate.  The
+    kernel's own slot loop (``flood_sass``: the busiest unit's
+    instructions a word) is shown beside it and bounds nothing."""
     bytes_ = 2 * E * N + N + 8 * N + 30 * E + 4 * (F + 3)
-    return bytes_ / HBM_BYTES_PER_S * 1e3
+    per_word = flood_ops_per_word(F)
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = E * N / 4 * per_word / INT32_OPS_PER_S * 1e3
+    return {"bytes": bytes_, "bytes_ms": bytes_ms,
+            "operations_per_word": per_word, "operations_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "kernel_sass_busiest_unit_per_word":
+                (sass or {}).get(F, {}).get("busiest_unit_per_word")}
 
 
-def flood_phase(card_line: str, seeds: int = 64) -> dict:
+def _flood_into(ins, E: int, N: int):
+    """Outputs and a scratch for ``event_flood`` at [E, N], made once, as
+    the event program keeps them: a launch with them is the one kernel
+    node of a replayed round."""
+    from consul_tpu_torch.gossip import events
+    has, _, used, _, origin, _, node_ltime, n_seen = ins
+    out = events.Flood(*(torch.empty_like(t) for t in (
+        has, used, origin, node_ltime, n_seen, n_seen)))
+    return out, events.flood_scratch(E, N, has.device)
+
+
+def flood_phase(card_line: str, sass: dict | None, seeds: int = 64) -> dict:
     """``event_flood`` (``csrc/event_flood.cu``) against ``event_flood_ref``
     on the card, tolerance 0 in every output (has, slot_used, origin,
-    node_ltime, n_seen), at ``FLOOD_SHAPES`` over ``_flood_rows`` and
-    budgets 1, 3 and 14; its time in CUDA-graph replays (the row read from
-    device memory) beside the bytes bound and the plain version's time;
-    then [32, 250,000] over ``seeds`` fresh inputs, push/pull off and on."""
+    node_ltime, n_seen, the live holders), at ``FLOOD_SHAPES`` over
+    ``_flood_rows`` and budgets 1, 3 and 14; its time in CUDA-graph
+    replays (the row read from device memory), as the event program
+    launches it (outputs and scratch kept: one kernel node) and through
+    the wrapper alone (new outputs, a memset of the scratch), beside the
+    bound (``_flood_bound``; ``sass``: ``flood_sass``, or None) and the
+    plain version's time; then [32, 250,000] over ``seeds`` fresh inputs,
+    push/pull off and on."""
     from consul_tpu_torch.gossip import events
     from consul_tpu_torch.gossip.params import lan_profile
 
@@ -1042,26 +1106,32 @@ def flood_phase(card_line: str, seeds: int = 64) -> dict:
         ins = flood_inputs(E, N, 500 + i)
         for j, (row, pp) in enumerate(_flood_rows(N, F, 600 + i)):
             budget = (1, 3, 14)[j % 3]
-            err = max(err, _flood_err(
-                events.event_flood(*ins, row, budget, FLOOD_TTL, pp),
-                events.event_flood_ref(*ins, row, budget, FLOOD_TTL, pp)))
+            want = events.event_flood_ref(*ins, row, budget, FLOOD_TTL, pp)
+            err = max(err, _flood_err(events.event_flood(
+                *ins, row, budget, FLOOD_TTL, pp), want))
             held += 1
         budget = lan_profile(N).spread_budget_rounds
-        timed = {}
-        for pp, (row, _) in ((False, _flood_rows(N, F, 700)[0]),
-                             (True, _flood_rows(N, F, 700)[1])):
-            timed[pp] = graph_ms(lambda: events.event_flood(
-                *ins, row, budget, FLOOD_TTL, pp))
+        out, scratch = _flood_into(ins, E, N)
+        row0, row1 = _flood_rows(N, F, 700)[0][0], _flood_rows(N, F, 700)[1][0]
+
+        def kernel_ms(row, pp):
+            return graph_ms(lambda: events.event_flood(
+                *ins, row, budget, FLOOD_TTL, pp, out=out, scratch=scratch))
+
+        ms = kernel_ms(row0, False)
+        wrapper_ms = graph_ms(lambda: events.event_flood(
+            *ins, row0, budget, FLOOD_TTL, False))
+        ms_pp = kernel_ms(row1, True)
         plain_ms = cuda_ms(lambda: events.event_flood_ref(
-            *ins, _flood_rows(N, F, 700)[0][0], budget, FLOOD_TTL, False),
+            *ins, row0, budget, FLOOD_TTL, False),
             iters=5 if N >= 250_000 else 20)
-        bound = _flood_bound(E, N, F)
+        bound = _flood_bound(E, N, F, sass)
         rows[f"{E}x{N}"] = {"shape": [E, N], "fanout": F, "budget": budget,
-                            "ms": timed[False], "ms_pushpull": timed[True],
-                            "plain_ms": plain_ms, "bound_ms": bound,
-                            "bound_by": "bytes",
-                            "share_of_bound": bound / timed[False]}
-        del ins
+                            "ms": ms, "ms_pushpull": ms_pp,
+                            "ms_wrapper": wrapper_ms,
+                            "plain_ms": plain_ms, **bound,
+                            "share_of_bound": bound["bound_ms"] / ms}
+        del ins, out, scratch
     # Many seeds at the multi-DC LAN pool's shape.
     E, N, F = FLOOD_SHAPES[0]
     for seed in range(seeds):
@@ -2367,6 +2437,10 @@ def _mdc_route(p, lan_fail_t, wan_fail_t, key, warm: int, block: int,
                     None) for d in range(p.n_dcs)],
            "coverage_end": cov[-1].tolist()}
     if graphed:
+        # Captures: a RoundProgram's variant once, an EventProgram's
+        # variant and the bridge once per parity of the buffer sets (32 at
+        # D = 4 with push/pull in both tiers; 21 before the event programs
+        # kept two sets).
         out.update(captures=program.captures - cap0[0],
                    capture_s=program.capture_s - cap0[1],
                    pool_bytes=[prog.pool_bytes
@@ -3900,7 +3974,8 @@ def _flood_row(flood: dict, mdc1: dict, mdc8: dict, ev: dict,
             "max_abs_err": flood["max_abs_err"],
             "ms": main["ms"], "ms_pushpull": main["ms_pushpull"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": "bytes", "share_of_bound": main["share_of_bound"],
+            "bound_by": main["bound_by"],
+            "share_of_bound": main["share_of_bound"],
             "ms_1m": big["ms"], "plain_ms_1m": big["plain_ms"],
             "bound_ms_1m": big["bound_ms"],
             "share_of_bound_1m": big["share_of_bound"],
@@ -3916,6 +3991,20 @@ def _churn_gates(res: dict, launches_key: str) -> None:
         raise AssertionError(f"{res['phase']} launched no kernel")
 
 
+def flood_only() -> int:
+    """``--phase event_flood``: the card line, the flood's build and SASS
+    count, and the event_flood phase."""
+    from consul_tpu_torch import _build
+    card_line = card()
+    _build.build("event_flood")
+    for ln in _build.build_logs.get("event_flood", "").strip().splitlines():
+        print(f"  nvcc event_flood: {ln}", flush=True)
+    sass = flood_sass()
+    emit({"phase": "sass", "flood": sass})
+    flood_phase(card_line, sass)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -3926,6 +4015,16 @@ def main() -> int:
               "this script; run it from the root of a checkout",
               file=sys.stderr)
         return 2
+    if sys.argv[1:]:
+        if sys.argv[1:] != ["--phase", "event_flood"]:
+            print("usage: chip_smoke.py [--phase event_flood]",
+                  file=sys.stderr)
+            return 2
+        try:
+            return flood_only()
+        except Exception:
+            traceback.print_exc()
+            return 1
     t_start = time.perf_counter()
     # The CPU runs that the card's runs are held against, and the oracle's
     # seeds, go to worker processes at once (one thread each), and compute
@@ -3968,7 +4067,7 @@ def main() -> int:
         repeat(8, 1_000_000, seeds=256)
         repeat(8, 1_000_000, seeds=128, ndev=8)
         repeat(64, 1_000_000, seeds=16)
-        flood = flood_phase(card_line)
+        flood = flood_phase(card_line, sass["flood"])
         # From here on every launch is a path's: its shapes are held
         # against the plain version after the last path.
         from consul_tpu_torch import prng

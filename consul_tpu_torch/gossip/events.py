@@ -59,7 +59,9 @@ _AGE_MASK = 0x0F
 _I32 = torch.int32
 
 MAX_FANOUT = 8     # kMaxFanout of csrc/event_flood.cu
-MAX_SLOTS = 3072   # kMaxSlots: the slots' registers in shared memory
+MAX_SLOTS = 3072   # kMaxSlots
+TILE_COLS = 512    # kTile: the columns of one block
+STRIPES = 32       # kStripes: copies of each slot's counts in the scratch
 # Kernel launches made by ``event_flood`` (one per launch, nowhere else).
 launches = 0
 # (E, N, F, budget, ttl, pushpull) of every launch, so a smoke run can
@@ -149,12 +151,15 @@ class Flood(NamedTuple):
 
 def event_flood_ref(has, alive, slot_used, ltime, origin, start_round,
                     node_ltime, n_seen, row, budget: int, ttl: int,
-                    pushpull: bool) -> Flood:
+                    pushpull: bool, out: Flood | None = None) -> Flood:
     """One event round on any device, in plain torch (the reference's
     ``event_round`` body).  ``row``: the round's event row, int32 ``[rnd,
     o_0 .. o_F-1, pp_o, -pp_o]`` (``round_args.build_events``); the
     rolls are gathers by its device shifts.  ``pushpull``: a push/pull
-    round (both partner legs, no budget)."""
+    round (both partner legs, no budget).  With ``out`` (tensors of the
+    result's shapes, ``out.has`` apart from ``has``) the result is
+    written into them, the new ``has`` by the op that makes it, and
+    ``out`` is returned."""
     ea = round_args.event_args(row.shape[0] - 3, row)
     rnd = ea.rnd
     # Gossip on pre-tick ages (a copy received last round, age 0, gets
@@ -180,7 +185,7 @@ def event_flood_ref(has, alive, slot_used, ltime, origin, start_round,
     fresh = new_seen & ~seen
     age = cur & _AGE_MASK
     aged = torch.where(seen, _SEEN | torch.clamp(age + 1, max=_AGE_MASK), cur)
-    out = torch.where(fresh, _SEEN, aged).to(torch.uint8)
+    nxt = torch.where(fresh, _SEEN, aged).to(torch.uint8)
     n_seen = n_seen + fresh.sum(dim=1, dtype=_I32)
 
     # Lamport witness: clock = max(clock, max ltime of newly seen
@@ -191,18 +196,40 @@ def event_flood_ref(has, alive, slot_used, ltime, origin, start_round,
 
     # Slot GC after the event TTL (flood window + push/pull recovery).
     done = slot_used & (rnd - start_round > ttl)
-    out = torch.where(done[:, None], 0, out).to(torch.uint8)
-    alive_seen = (((out & _SEEN) > 0) & alive[None, :]).sum(dim=1,
+    zero = torch.zeros((), dtype=torch.uint8, device=has.device)
+    nxt = torch.where(done[:, None], zero, nxt,
+                      out=None if out is None else out.has)
+    alive_seen = (((nxt & _SEEN) > 0) & alive[None, :]).sum(dim=1,
                                                           dtype=_I32)
-    return Flood(has=out, slot_used=slot_used & ~done,
-                 origin=torch.where(done, -1, origin),
-                 node_ltime=node_ltime, n_seen=n_seen, alive_seen=alive_seen)
+    res = Flood(has=nxt, slot_used=slot_used & ~done,
+                origin=torch.where(done, -1, origin),
+                node_ltime=node_ltime, n_seen=n_seen, alive_seen=alive_seen)
+    if out is None:
+        return res
+    for f in Flood._fields[1:]:
+        getattr(out, f).copy_(getattr(res, f))
+    return out
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-# The C entry point's argument types: 13 pointers, E, N, F, the row, the
+# The C entry point's argument types: 15 pointers, E, N, F, the row, the
 # budget, the TTL, the push/pull flag and the stream.
-_ARGTYPES = [_VP] * 13 + [_CI] * 3 + [_VP] + [_CI] * 3 + [_VP]
+_ARGTYPES = [_VP] * 15 + [_CI] * 3 + [_VP] + [_CI] * 3 + [_VP]
+
+
+def scratch_words(E: int, N: int) -> int:
+    """The int32 words of ``event_flood``'s scratch at ``[E, N]``
+    (``event_flood_scratch_words`` of ``csrc/event_flood.cu``): the
+    witness [N], one arrival counter a column tile, two counts a slot in
+    each of ``STRIPES`` copies, the grid's arrival counter."""
+    return N + -(-N // TILE_COLS) + 2 * STRIPES * E + 1
+
+
+def flood_scratch(E: int, N: int, device) -> torch.Tensor:
+    """A zero scratch for ``event_flood`` at ``[E, N]``: every launch
+    leaves it zero, so a caller that floods one launch at a time keeps one
+    (an ``EventProgram`` does) and its rounds need no memset."""
+    return torch.zeros(scratch_words(E, N), dtype=_I32, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -218,13 +245,16 @@ def _lib():
 
 def event_flood(has, alive, slot_used, ltime, origin, start_round,
                 node_ltime, n_seen, row, budget: int, ttl: int,
-                pushpull: bool) -> Flood:
+                pushpull: bool, out: Flood | None = None,
+                scratch: torch.Tensor | None = None) -> Flood:
     """Launch ``event_flood`` of ``csrc/event_flood.cu`` on CUDA tensors
     (the arguments of ``event_flood_ref``; ``row`` contiguous int32 [F +
     3] in device memory, which the kernel reads when it runs): the whole
-    event round in one launch.  Returns new tensors.  Launches on the
-    current stream and does not synchronise.  Raises on anything the
-    kernel does not take."""
+    event round in one launch.  Returns new tensors, or ``out`` written
+    (its ``has`` apart from ``has``).  ``scratch``: a ``flood_scratch``
+    that no other launch uses meanwhile (else a new one, a memset).
+    Launches on the current stream and does not synchronise.  Raises on
+    anything the kernel does not take."""
     global launches
     require_cuda("event_flood", has)
     if has.dim() != 2 or has.dtype != torch.uint8:
@@ -248,40 +278,52 @@ def event_flood(has, alive, slot_used, ltime, origin, start_round,
         raise ValueError(f"E must be at most {MAX_SLOTS}, got {E}")
     if N >= 2**31 - 8:
         raise ValueError(f"N must be below 2**31 - 8, got {N}")
-    out = Flood(has=torch.empty_like(has),
-                slot_used=torch.empty_like(slot_used),
-                origin=torch.empty_like(origin),
-                node_ltime=torch.empty_like(node_ltime),
-                n_seen=n_seen.clone(), alive_seen=torch.zeros_like(n_seen))
+    if out is None:
+        out = Flood(*(torch.empty_like(t) for t in (
+            has, slot_used, origin, node_ltime, n_seen, n_seen)))
+    else:
+        for name, t, ref in zip(Flood._fields, out, (
+                has, slot_used, origin, node_ltime, n_seen, n_seen)):
+            check_tensor(f"out.{name}", t, ref.dtype, tuple(ref.shape), dev)
+        if out.has.data_ptr() == has.data_ptr():
+            raise ValueError("out.has must not be has: the flood reads "
+                             "neighbouring columns")
     if E == 0 or N == 0:
         out.node_ltime.copy_(node_ltime)
+        out.n_seen.copy_(n_seen)
         return out
+    if scratch is None:
+        scratch = flood_scratch(E, N, dev)
+    check_tensor("scratch", scratch, _I32, (scratch_words(E, N),), dev)
     _build.launch(*_lib(), "event_flood", dev, has.data_ptr(),
                   alive.data_ptr(), slot_used.data_ptr(), ltime.data_ptr(),
                   origin.data_ptr(), start_round.data_ptr(),
-                  node_ltime.data_ptr(), out.has.data_ptr(),
-                  out.slot_used.data_ptr(), out.origin.data_ptr(),
-                  out.node_ltime.data_ptr(), out.n_seen.data_ptr(),
-                  out.alive_seen.data_ptr(), E, N, F, row.data_ptr(),
-                  int(budget), int(ttl),
-                  int(bool(pushpull)))
+                  node_ltime.data_ptr(), n_seen.data_ptr(),
+                  out.has.data_ptr(), out.slot_used.data_ptr(),
+                  out.origin.data_ptr(), out.node_ltime.data_ptr(),
+                  out.n_seen.data_ptr(), out.alive_seen.data_ptr(),
+                  scratch.data_ptr(), E, N, F, row.data_ptr(),
+                  int(budget), int(ttl), int(bool(pushpull)))
     launches += 1
     launch_shapes.add((E, N, F, int(budget), int(ttl), bool(pushpull)))
     return out
 
 
 def flood(has, alive, slot_used, ltime, origin, start_round, node_ltime,
-          n_seen, row, budget: int, ttl: int, pushpull: bool) -> Flood:
+          n_seen, row, budget: int, ttl: int, pushpull: bool,
+          out: Flood | None = None,
+          scratch: torch.Tensor | None = None) -> Flood:
     """One event round on ``[E, N]``: the kernel on CUDA tensors, its
-    plain version on CPU tensors."""
+    plain version on CPU tensors (``out`` and ``scratch`` as
+    ``event_flood`` takes them; the plain version needs no scratch)."""
     args = (has, alive, slot_used, ltime, origin, start_round, node_ltime,
-            n_seen, row, budget, ttl, pushpull)
+            n_seen, row, budget, ttl, pushpull, out)
     if launch_log is not None:
         launch_log.append(("event_flood", tuple(has.shape), row.shape[0],
                            int(budget), int(ttl), bool(pushpull)))
     if has.device.type == "cpu":
         return event_flood_ref(*args)
-    return event_flood(*args)
+    return event_flood(*args, scratch=scratch)
 
 
 def is_pushpull(p: SwimParams, rnd: int) -> bool:
@@ -291,18 +333,36 @@ def is_pushpull(p: SwimParams, rnd: int) -> bool:
                                        == p.pushpull_every - 1)
 
 
+# The fields of EventState that an event round writes (it only reads the
+# rest).
+ROUND_WRITES = ("round", "has", "slot_used", "origin", "node_ltime",
+                "n_seen")
+
+
 def _event_round(state: EventState, row: torch.Tensor, alive: torch.Tensor,
-                 p: SwimParams, pushpull: bool):
+                 p: SwimParams, pushpull: bool,
+                 dst: EventState | None = None,
+                 held: torch.Tensor | None = None,
+                 scratch: torch.Tensor | None = None):
     """One gossip round of event flooding from its table row ``row``
     (device int32 ``[rnd, o .., pp_o, -pp_o]``, ``rnd`` equal to
     ``state.round``); ``pushpull`` is the round's variant.  Returns the
-    new state and each slot's live holders after the round."""
+    new state and each slot's live holders after the round: new tensors,
+    or, with ``dst`` (a state whose ``ROUND_WRITES`` tensors are apart
+    from ``state``'s) and ``held`` (int32 [E]), those written in place,
+    the flood taking ``scratch`` (``flood``)."""
+    out = None if dst is None else Flood(
+        has=dst.has, slot_used=dst.slot_used, origin=dst.origin,
+        node_ltime=dst.node_ltime, n_seen=dst.n_seen, alive_seen=held)
     fl = flood(state.has, alive, state.slot_used, state.ltime, state.origin,
                state.start_round, state.node_ltime, state.n_seen, row,
-               p.spread_budget_rounds, p.event_ttl_rounds, pushpull)
-    new = state._replace(round=state.round + 1, has=fl.has,
-                         slot_used=fl.slot_used, origin=fl.origin,
-                         node_ltime=fl.node_ltime, n_seen=fl.n_seen)
+               p.spread_budget_rounds, p.event_ttl_rounds, pushpull,
+               out=out, scratch=scratch)
+    rnd = (state.round + 1 if dst is None
+           else torch.add(state.round, 1, out=dst.round))
+    new = state._replace(round=rnd, has=fl.has, slot_used=fl.slot_used,
+                         origin=fl.origin, node_ltime=fl.node_ltime,
+                         n_seen=fl.n_seen)
     return new, fl.alive_seen
 
 

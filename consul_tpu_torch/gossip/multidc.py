@@ -354,7 +354,9 @@ _programs: collections.OrderedDict = collections.OrderedDict()
 def _bridge_program(p: MultiDCParams, dev, lan_events, wan_events, pool):
     """The server bridge and the coverage row as a program of its own:
     reads and writes the event programs' buffers, and the round's [D, E]
-    coverage row into its trace buffer at ``step``."""
+    coverage row into its trace buffer at ``step``.  Its variant is the
+    event programs' parity after their floods (the set of buffers that
+    holds their state), so it is captured once per parity."""
     from consul_tpu_torch.gossip import program
 
     class BridgeProgram(program._Program):
@@ -366,16 +368,16 @@ def _bridge_program(p: MultiDCParams, dev, lan_events, wan_events, pool):
                                    device=dev)
             self.recip = _recip(p.n_lan, dev)
 
-        def _states(self):
-            return [e.state for e in lan_events], wan_events.state
+        def _states(self, cur):
+            return [e.sets[cur] for e in lan_events], wan_events.sets[cur]
 
         def _warm(self, v) -> None:
-            lan, wan = self._states()
+            lan, wan = self._states(v)
             _bridge(lan, wan, p.n_servers)
             _coverage(lan, self.recip)
 
         def _body(self, v) -> None:
-            lan, wan = self._states()
+            lan, wan = self._states(v)
             srvs, wan_has = _bridge(lan, wan, p.n_servers)
             for ev, srv in zip(lan, srvs):
                 ev.has[:, :p.n_servers].copy_(srv)
@@ -434,8 +436,9 @@ class MultiDCProgram:
                 for prog in rounds:
                     prog.graph(_kernel.Variant(pp, False, False, False))
                 for prog in evs:
-                    prog.graph(pp)
-        self.bridge.graph(None)
+                    prog.capture(pp)
+        for cur in (0, 1):
+            self.bridge.graph(cur)
         self.captured = True
 
     @property
@@ -487,7 +490,7 @@ class MultiDCProgram:
                                               rounds[2 * D] + k))
                 self.wan_events.replay(is_pushpull(p.wan,
                                                    rounds[2 * D + 1] + k))
-                self.bridge.replay(None)
+                self.bridge.replay(self.wan_events.cur)
             if cov:
                 covs.append(self.bridge.cov[:n].clone())
         lan = [prog.result() for prog in self.lan]

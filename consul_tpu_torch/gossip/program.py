@@ -38,9 +38,10 @@ those counters (one read, outside any round) and adds the branch bodies'
 launches and ``kernel.tail_rounds`` to the host counters.
 
 The event round (``EventProgram``, the counterpart of
-``jax.jit(run_event_rounds)``) is the same machinery with no branch: one
-capture per push/pull variant of a round that reads its row of the call's
-event table and floods through ``csrc/event_flood.cu``.  Programs are
+``jax.jit(run_event_rounds)``) is the same machinery with no branch: a
+round that reads its row of the call's event table and floods through
+``csrc/event_flood.cu`` from one set of state buffers into the other, one
+capture per push/pull variant and parity.  Programs are
 cached by configuration (``program_for``, at most ``MAX_PROGRAMS``); a
 caller that runs several pools at once (``multidc.MultiDCProgram``) owns
 its programs instead, outside that cache (``own``/``disown``), so that
@@ -441,48 +442,82 @@ class RoundProgram(_Program):
 
 class EventProgram(_Program):
     """The captured event rounds of one configuration (the counterpart of
-    ``jax.jit(run_event_rounds)``): one graph per push/pull variant, the
-    round's row read from the call's event table at ``step``, its flood
-    one launch of ``csrc/event_flood.cu``.  Liveness is a buffer
-    (``run_event_rounds``' ``alive``) or, with ``fail`` set, ``fail >
-    round`` from the pool's own round counter before the round (the
-    multi-DC pools); with ``cov`` the round's coverage row goes to the
-    ``[TABLE_ROWS, E]`` trace buffer."""
+    ``jax.jit(run_event_rounds)``): the round's row read from the call's
+    event table at ``step``, its flood one launch of
+    ``csrc/event_flood.cu``.  Liveness is a buffer (``run_event_rounds``'
+    ``alive``) or, with ``fail`` set, ``fail > round`` from the pool's own
+    round counter before the round (the multi-DC pools); with ``cov`` the
+    round's coverage row goes to the ``[TABLE_ROWS, E]`` trace buffer.
+
+    Two sets of state buffers: a round reads set ``cur`` and the flood
+    writes the other straight (the fields a round does not change, the
+    slots' Lamport times, start rounds and drops, are one tensor in both),
+    so no round copies ``has``.  So each push/pull variant is captured
+    once per parity, ``(pushpull, cur)``; ``replay`` flips ``cur`` and
+    ``state`` is the set the last round wrote.  A call's ``load`` fills set
+    0."""
 
     def __init__(self, p, dev, state, alive=None, fail=None,
                  cov: bool = True, pool=None):
         super().__init__(dev, pool)
         self.p = p
         z = functools.partial(torch.zeros, device=dev)
-        self.state = _clone(state)
+        first = _clone(state)
+        self.sets = (first, first._replace(**{
+            f: getattr(first, f).clone() for f in events.ROUND_WRITES}))
+        self.cur = 0
         self.alive = None if alive is None else alive.clone()
         self.fail = None if fail is None else fail.clone()
-        E = state.has.shape[0]
+        E, N = state.has.shape
         self.table = z((TABLE_ROWS, round_args.event_layout(p.fanout).width),
                        dtype=_I32)
         self.step = z(1, dtype=torch.int64)
         self.cov = z((TABLE_ROWS, E), dtype=torch.float32) if cov else None
+        self.held = z(E, dtype=_I32)  # the round's live holders a slot
+        self.scratch = events.flood_scratch(E, N, dev)
 
-    def _round(self, pushpull: bool, state, step, cov) -> None:
-        """One event round from row ``step``, written into ``state``'s own
-        tensors (the buffers, or their copies while warming up)."""
+    @property
+    def state(self):
+        """The buffers of the state after the last round."""
+        return self.sets[self.cur]
+
+    def _round(self, pushpull: bool, src, dst, step, cov, held,
+               scratch) -> None:
+        """One event round from row ``step``: reads state ``src`` and
+        writes ``dst`` (the two sets, or their copies while warming up)."""
         row = self.table.index_select(0, step)[0]
-        alive = self.alive if self.fail is None else self.fail > state.round
-        new, held = events._event_round(state, row, alive, self.p, pushpull)
-        _copy_leaves(state, new)
+        alive = self.alive if self.fail is None else self.fail > src.round
+        events._event_round(src, row, alive, self.p, pushpull, dst=dst,
+                            held=held, scratch=scratch)
         if cov is not None:
             cov.index_copy_(0, step, events._coverage_of(held, alive)[None])
         step.add_(1)
 
     def _warm(self, v) -> None:
-        self._round(v, _clone(self.state), self.step.clone(),
-                    _clone(self.cov))
+        pushpull, cur = v
+        self._round(pushpull, _clone(self.sets[cur]),
+                    _clone(self.sets[1 - cur]), self.step.clone(),
+                    _clone(self.cov), self.held.clone(),
+                    self.scratch.clone())
 
     def _body(self, v) -> None:
-        self._round(v, self.state, self.step, self.cov)
+        pushpull, cur = v
+        self._round(pushpull, self.sets[cur], self.sets[1 - cur], self.step,
+                    self.cov, self.held, self.scratch)
+
+    def capture(self, pushpull: bool) -> None:
+        """Capture variant ``pushpull`` at both parities."""
+        for cur in (0, 1):
+            self.graph((pushpull, cur))
+
+    def replay(self, pushpull: bool) -> None:
+        """One round of variant ``pushpull``, from set ``cur``."""
+        super().replay((pushpull, self.cur))
+        self.cur = 1 - self.cur
 
     def load(self, state, alive=None, fail=None) -> None:
-        _copy_leaves(self.state, state)
+        self.cur = 0
+        _copy_leaves(self.sets[0], state)
         if alive is not None:
             self.alive.copy_(alive)
         if fail is not None:

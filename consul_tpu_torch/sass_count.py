@@ -1,8 +1,9 @@
 """Count the instructions the card runs per belief word in the dissemination
-tail's kernel, and per element in the draws' kernel, from their SASS, per
-execution unit.
+tail's kernel, per slot word in the event flood's kernel, and per element
+in the draws' kernel, from their SASS, per execution unit.
 
     python -m consul_tpu_torch.sass_count [--fanout 3]
+    python -m consul_tpu_torch.sass_count --flood [--fanout 3]
     python -m consul_tpu_torch.sass_count --threefry
 
 Builds ``csrc/dissem_tail.cu``, disassembles it with the toolkit's
@@ -25,6 +26,14 @@ run 16 lanes a cycle per SM sub-partition on Hopper, so each has the
 32-bit integer rate.  ``VIADD`` and ``VIADDMNMX``, whose unit is not
 documented, go to whichever unit is less busy (``flexible``).  The
 busiest unit's count per word sets the kernel's operations bound.
+
+``--flood`` builds ``csrc/event_flood.cu`` instead and counts the word
+path's slot loop of ``flood_kernel<fanout, false>`` (a round without
+push/pull) the same way: the innermost loop with a shuffle (``SHFL``, how
+a lane gets its neighbour's word of a window), one iteration one slot of
+a lane's four words (its byte path is a loop of its own, without a
+shuffle).  The count describes the kernel; the flood's operations bound
+is counted from its rule instead (``chip_smoke.py``'s ``_flood_bound``).
 
 ``--threefry`` builds ``csrc/threefry.cu`` instead and counts, for each
 of its modes (``draw_kernel<mode>``), the grid-stride loop: one iteration
@@ -122,13 +131,27 @@ def _loops(insns) -> list:
     return out
 
 
-def _row_loop(sass: str, fanout: int):
-    name, insns = _function(sass, f"tail_kernelILi{fanout}E",
-                            f"tail_kernel<{fanout}>")
+# What marks each kernel's row loop, the 32-bit words one iteration
+# covers, and the rest of the instance's mangled template arguments after
+# the fanout (the flood's: push/pull false).
+LOOP_MARK = {"tail_kernel": (("LDG", ".128"), 4, ""),
+             "flood_kernel": (("SHFL", ""), 4, "Lb0E")}
+
+
+def _row_loop(sass: str, fanout: int, kernel: str = "tail_kernel"):
+    rest = LOOP_MARK[kernel][2]
+    name, insns = _function(sass, f"{kernel}ILi{fanout}E{rest}",
+                            f"{kernel}<{fanout}>")
+    (op, suffix), _, _ = LOOP_MARK[kernel]
     rows = [span for span in _loops(insns)
-            if any(x[1] == "LDG" and ".128" in x[3] for x in span)]
+            if any(x[1] == op and suffix in x[3] for x in span)]
     if not rows:
-        raise RuntimeError(f"no loop with a 16-byte load found in {name}")
+        raise RuntimeError(f"no loop with {op}{suffix} found in {name}")
+    if kernel == "flood_kernel":
+        # The slot loop is the innermost such loop: a warp sum's fallback
+        # (after BRA.DIV) branches back into it from the end of the
+        # function, which also looks like a loop around it.
+        return name, min(rows, key=len)
     return name, max(rows, key=lambda span: sum(x[1] == "LOP3"
                                                 for x in span))
 
@@ -143,11 +166,14 @@ def _units(ops: Counter) -> dict:
             "busiest_unit": busiest}
 
 
-def row_loop_counts(sass: str, fanout: int = 3) -> dict:
-    """The word path's row loop of ``tail_kernel<fanout>`` in ``sass``:
-    its instructions per execution unit, total and per word, for the setting
-    of its guard predicates that leaves the busiest unit the fewest."""
-    name, span = _row_loop(sass, fanout)
+def row_loop_counts(sass: str, fanout: int = 3,
+                    kernel: str = "tail_kernel") -> dict:
+    """The word path's row loop of ``kernel<fanout>`` in ``sass``
+    (``tail_kernel`` of ``csrc/dissem_tail.cu`` or ``flood_kernel`` of
+    ``csrc/event_flood.cu``): its instructions per execution unit, total
+    and per word, for the setting of its guard predicates that leaves the
+    busiest unit the fewest."""
+    name, span = _row_loop(sass, fanout, kernel)
     preds = sorted({g[0] for _, _, g, _ in span if g is not None})
     if len(preds) > 12:
         raise RuntimeError(f"{len(preds)} guard predicates in the loop")
@@ -163,18 +189,19 @@ def row_loop_counts(sass: str, fanout: int = 3) -> dict:
     _, setting, ops, units = best
     n_mem = sum(v for k, v in ops.items() if k in MEMORY)
     n_run = sum(ops.values())
+    words = LOOP_MARK[kernel][1]
     return {"function": name, "fanout": fanout,
             "loop": [hex(span[0][0]), hex(span[-1][0])],
             "instructions_in_loop": len(span),
             "guarded_in_loop": sum(g is not None for _, _, g, _ in span),
             "predicates": dict(setting),
             "instructions": n_run, **units, "memory": n_mem,
-            "words_per_iteration": 4,
-            "integer_alu_per_word": units["integer_alu"] / 4,
-            "fma_per_word": units["fma"] / 4,
-            "flexible_per_word": units["flexible"] / 4,
-            "busiest_unit_per_word": units["busiest_unit"] / 4,
-            "instructions_per_word": n_run / 4,
+            "words_per_iteration": words,
+            "integer_alu_per_word": units["integer_alu"] / words,
+            "fma_per_word": units["fma"] / words,
+            "flexible_per_word": units["flexible"] / words,
+            "busiest_unit_per_word": units["busiest_unit"] / words,
+            "instructions_per_word": n_run / words,
             "by_opcode": dict(ops.most_common())}
 
 
@@ -218,6 +245,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fanout", type=int, default=3)
     ap.add_argument("--threefry", action="store_true",
                     help="count the draws' kernel, per mode")
+    ap.add_argument("--flood", action="store_true",
+                    help="count the event flood's slot loop")
     args = ap.parse_args(argv)
     if args.threefry:
         sass = disassemble("threefry")
@@ -225,11 +254,13 @@ def main(argv=None) -> int:
             print(f"{addr:05x}  {text}")
         print(json.dumps(threefry_counts(sass)), flush=True)
         return 0
-    sass = disassemble()
-    for addr, _, guard, text in _row_loop(sass, args.fanout)[1]:
+    name, kernel = (("event_flood", "flood_kernel") if args.flood
+                    else ("dissem_tail", "tail_kernel"))
+    sass = disassemble(name)
+    for addr, _, guard, text in _row_loop(sass, args.fanout, kernel)[1]:
         g = "" if guard is None else f"@{'' if guard[1] else '!'}{guard[0]} "
         print(f"{addr:05x}  {g}{text}")
-    print(json.dumps(row_loop_counts(sass, args.fanout)), flush=True)
+    print(json.dumps(row_loop_counts(sass, args.fanout, kernel)), flush=True)
     return 0
 
 

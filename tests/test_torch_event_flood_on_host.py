@@ -45,16 +45,49 @@ using std::max;
 using std::min;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __grid_constant__
+// A block's shared memory: one static per kernel, the blocks run one
+// after another.
+#define __shared__ static
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
+struct uint4 {
+  uint32_t x, y, z, w;
+};
+static inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z,
+                               uint32_t w) {
+  return uint4{x, y, z, w};
+}
+struct int4 {
+  int x, y, z, w;
+};
+static inline int4 make_int4(int x, int y, int z, int w) {
+  return int4{x, y, z, w};
+}
 static thread_local dim3 threadIdx, blockIdx;
 template <class T> static inline T __ldg(const T* p) { return *p; }
+template <class T> static inline T __ldcg(const T* p) {
+  return __atomic_load_n(p, __ATOMIC_SEQ_CST);
+}
+static inline uint4 __ldg(const uint4* p) { return *p; }
+static inline void __threadfence() {
+  __atomic_thread_fence(__ATOMIC_SEQ_CST);
+}
 static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+static inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = (static_cast<uint64_t>(y) << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i) {
+    r |= static_cast<uint32_t>((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF)
+         << (8 * i);
+  }
+  return r;
+}
 static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi,
                                        uint32_t sh) {
   return static_cast<uint32_t>(((static_cast<uint64_t>(hi) << 32) | lo)
@@ -90,13 +123,45 @@ static inline unsigned __reduce_add_sync(unsigned, unsigned v) {
   host_warp->bar.sync();
   return r;
 }
+static inline uint32_t __shfl_down_sync(unsigned, uint32_t v,
+                                        unsigned delta) {
+  const unsigned lane = threadIdx.x & 31u;
+  host_warp->slot[lane] = v;
+  host_warp->bar.sync();
+  const uint32_t r = lane + delta < 32 ? host_warp->slot[lane + delta] : v;
+  host_warp->bar.sync();
+  return r;
+}
+static inline uint32_t __shfl_sync(unsigned, uint32_t v, int src) {
+  const unsigned lane = threadIdx.x & 31u;
+  host_warp->slot[lane] = v;
+  host_warp->bar.sync();
+  const uint32_t r = host_warp->slot[src & 31];
+  host_warp->bar.sync();
+  return r;
+}
+static inline int __all_sync(unsigned, int v) {
+  return static_cast<int>(__reduce_add_sync(0xFFFFFFFFu, v ? 1u : 0u) == 32);
+}
 static inline void __syncthreads() { host_block->sync(); }
 template <class T> static inline T atomicAdd(T* p, T v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
-// A launch: blocks one after another, each block's threads at once.
-template <class K, class A>
-static void host_launch(K kernel, dim3 grid, dim3 block, const A& args) {
+static inline int atomicMax(int* p, int v) {
+  int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(
+                        p, &old, v, false, __ATOMIC_SEQ_CST,
+                        __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
+// A launch: blocks one after another (x fastest), each block's threads
+// at once.  `order` > 1 runs the slot groups (y) of each column tile
+// last-first, so that a tile's witness is finished by another group than
+// the last one in y.
+static int host_order = 1;
+template <class K, class... A>
+static void host_launch(K kernel, dim3 grid, dim3 block, const A&... args) {
   if (block.x % 32 != 0) std::abort();
   HostBarrier bar;
   bar.n = block.x;
@@ -104,16 +169,26 @@ static void host_launch(K kernel, dim3 grid, dim3 block, const A& args) {
   std::unique_ptr<HostWarp[]> warps(new HostWarp[block.x / 32]);
   std::vector<std::thread> threads;
   for (unsigned t = 0; t < block.x; ++t)
-    threads.emplace_back([=, &warps] {
+    threads.emplace_back([=, &warps, &args...] {
       threadIdx = dim3(t);
       host_warp = &warps[t / 32];
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        blockIdx = dim3(bx);
-        kernel(args);
-        host_block->sync();
+      for (unsigned k = 0; k < grid.y; ++k) {
+        const unsigned by = host_order > 1 ? grid.y - 1 - k : k;
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+          blockIdx = dim3(bx, by);
+          kernel(args...);
+          host_block->sync();
+        }
       }
     });
   for (auto& th : threads) th.join();
+}
+extern "C" void event_flood_host_order(int order) { host_order = order; }
+// The slots of a slot group, set by a test (0: the launcher's rule); the
+// source's EVFLOOD_HOST_GROUP_ROWS names it in this build.
+static int host_group_rows = 0;
+extern "C" void event_flood_host_group_rows(int rows) {
+  host_group_rows = rows;
 }
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -121,14 +196,13 @@ static inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 static inline const char* cudaGetErrorString(cudaError_t) { return "error"; }
 """
 
-# Text of the source -> its host form: the dynamic shared memory as one
-# static buffer (the blocks run one after another), the launch as
-# host_launch.
+# Text of the source -> its host form: the launch as host_launch.
 HOST_FORMS = {
-    "extern __shared__ uint32_t flood_smem[];":
-        "alignas(16) static uint32_t flood_smem[3 * kMaxSlots];",
-    "flood_kernel<F><<<blocks, kThreads, smem, stream>>>(a);":
-        "host_launch(flood_kernel<F>, dim3(blocks), dim3(kThreads), a);",
+    f"flood_kernel<F, {pp}><<<grid, kThreads, 0, stream>>>(has, alive, "
+    f"out_has, a);":
+        f"host_launch(flood_kernel<F, {pp}>, grid, dim3(kThreads), has, "
+        f"alive, out_has, a);"
+    for pp in ("true", "false")
 }
 
 
@@ -146,12 +220,18 @@ def flood_lib(tmp_path_factory):
     src.write_text(body)
     so = d / "libevent_flood.so"
     r = subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC",
-                        "-pthread", f"-I{d}", "-o", str(so), str(src)],
+                        "-pthread", "-DEVFLOOD_HOST_GROUP_ROWS=host_group_rows",
+                        f"-I{d}", "-o", str(so), str(src)],
                        capture_output=True, text=True, timeout=180)
     assert r.returncode == 0, r.stderr
     lib = ctypes.CDLL(str(so))
     fn = lib.event_flood
     fn.argtypes, fn.restype = te._ARGTYPES, ctypes.c_int
+    lib.event_flood_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.event_flood_scratch_words.restype = ctypes.c_longlong
+    lib.event_flood_host_order.argtypes = [ctypes.c_int]
+    lib.event_flood_host_group_rows.argtypes = [ctypes.c_int]
+    fn.lib = lib
     return fn
 
 
@@ -183,23 +263,35 @@ def event_row(rnd, offs, pp):
     return torch.tensor([rnd, *offs, pp, -pp], dtype=torch.int32)
 
 
-def _run(fn, ins, row, budget, ttl, pushpull, held=True):
+def _run(fn, ins, row, budget, ttl, pushpull, held=True, group_rows=None,
+         scratch=None):
+    """One launch through the C entry point, as the wrapper packs it, into
+    new outputs (the live holders' buffer zero), in the launcher's slot
+    groups unless ``group_rows`` sets the slots of a group (0: the
+    launcher's rule).  The scratch must be left zero."""
     has, alive, used, ltime, origin, start, node_ltime, n_seen = ins
     E, N = has.shape
+    fn.lib.event_flood_host_group_rows(group_rows or 0)
     out = te.Flood(has=torch.empty_like(has),
                    slot_used=torch.empty_like(used),
                    origin=torch.empty_like(origin),
                    node_ltime=torch.empty_like(node_ltime),
-                   n_seen=n_seen.clone(), alive_seen=torch.zeros_like(n_seen))
+                   n_seen=torch.empty_like(n_seen),
+                   alive_seen=torch.zeros_like(n_seen))
+    if scratch is None:
+        scratch = te.flood_scratch(E, N, "cpu")
+    assert fn.lib.event_flood_scratch_words(E, N) == scratch.numel()
     rc = fn(has.data_ptr(), alive.data_ptr(), used.data_ptr(),
             ltime.data_ptr(), origin.data_ptr(), start.data_ptr(),
-            node_ltime.data_ptr(), out.has.data_ptr(),
+            node_ltime.data_ptr(), n_seen.data_ptr(), out.has.data_ptr(),
             out.slot_used.data_ptr(), out.origin.data_ptr(),
             out.node_ltime.data_ptr(), out.n_seen.data_ptr(),
-            out.alive_seen.data_ptr() if held else None, E, N,
-            row.shape[0] - 3, row.data_ptr(), budget, ttl, int(pushpull),
-            None)
+            out.alive_seen.data_ptr() if held else None,
+            scratch.data_ptr(), E, N, row.shape[0] - 3, row.data_ptr(),
+            budget, ttl, int(pushpull), None)
+    fn.lib.event_flood_host_group_rows(0)
     assert rc == 0
+    assert int(scratch.abs().sum()) == 0, "the scratch was not left zero"
     return out
 
 
@@ -216,11 +308,13 @@ def _offsets(N, F, rng):
     return [base[i % len(base)] % N or 1 for i in range(F)]
 
 
-# (E, N, fanout): the word path at widths % 16 of 0, 4, 8, 12; rows that
-# are not word-aligned (odd N, N % 4 = 2); the WAN pool (12 nodes, fanout
-# 4); fewer nodes than a word; more slots than a block's threads.
-SHAPES = [(8, 4096, 3), (5, 1028, 3), (16, 1001, 3), (7, 4098, 3),
-          (32, 12, 4), (4, 3, 1), (300, 40, 2), (3, 2052, 8)]
+# (E, N, fanout): the word path (N % 4 == 0) at N % 1024 of 0, 16, 4 and
+# 8, and at fanout 8; the byte path at odd N and N % 4 = 2; the WAN pool
+# (12 nodes, fanout 4); fewer nodes than a word; more slots than a block's
+# threads.
+SHAPES = [(8, 4096, 3), (5, 1040, 3), (3, 2064, 8), (5, 1028, 3),
+          (16, 1001, 3), (7, 4098, 3), (32, 12, 4), (4, 3, 1), (300, 40, 2),
+          (3, 2052, 8)]
 
 
 @pytest.mark.parametrize("E, N, F", SHAPES)
@@ -303,10 +397,148 @@ def test_flood_over_many_seeds(flood_lib):
 
 
 def test_flood_refuses_what_it_does_not_take(flood_lib):
+    """Each argument out of range, or a pointer missing, refuses the
+    launch with every other argument valid (which alone launches)."""
     ins = flood_inputs(4, 64, seed=1)
     row = event_row(1, [1] * 9, 2)
-    args = [t.data_ptr() for t in ins[:7]] + [None] * 5
-    for E, N, F, r in ((0, 64, 3, row), (4, 0, 3, row), (4, 64, 0, row),
-                       (4, 64, 9, row), (4, 64, 3, None), (3073, 64, 3, row)):
-        assert flood_lib(*args, None, E, N, F, None if r is None
-                         else r.data_ptr(), 3, 40, 0, None) != 0
+    outs = [torch.empty_like(t) for t in (ins[0], ins[2], ins[4], ins[6],
+                                          ins[7], ins[7])]
+    scratch = te.flood_scratch(3073, 64, "cpu")
+    ptrs = [t.data_ptr() for t in ins + outs] + [scratch.data_ptr()]
+
+    def call(ptrs=ptrs, E=4, N=64, F=3, r=row.data_ptr()):
+        return flood_lib(*ptrs, E, N, F, r, 3, 40, 0, None)
+
+    assert call() == 0
+    for kw in ({"E": 0}, {"N": 0}, {"F": 0}, {"F": 9}, {"r": None},
+               {"E": 3073}, {"N": 2**31 - 8}):
+        assert call(**kw) != 0, kw
+    for i in range(len(ptrs)):
+        if i != 13:  # the live holders' counts may be null
+            assert call(ptrs=ptrs[:i] + [None] + ptrs[i + 1:]) != 0, i
+    assert call(ptrs=ptrs[:14] + [scratch.data_ptr() + 2]) != 0
+
+
+@pytest.fixture
+def reversed_groups(flood_lib):
+    """Launches run each column tile's slot groups last-first."""
+    flood_lib.lib.event_flood_host_order(2)
+    yield
+    flood_lib.lib.event_flood_host_order(1)
+
+
+# (E, N, F, group_rows; 0 the launcher's rule): one slot; slot counts that
+# are no multiple of a group or of the block's 8 warps (13 over groups of
+# 8, 3 and 5); every slot the kernel takes (in groups of 256, the most a
+# group holds: a block runs on the host in about a tenth of a second); 96
+# slots of a short row; the WAN pool's [32, 12] under the launcher's rule,
+# in one group and in groups of 8; odd N [64, 16,001] in groups of 32 and
+# 64; groups of 3 slots over 16 column tiles.
+GROUP_CASES = [(1, 1000, 3, 0), (13, 700, 2, 8), (13, 700, 2, 3),
+               (13, 2060, 3, 5), (3072, 40, 3, 256), (96, 40, 3, 0),
+               (32, 12, 4, 0), (32, 12, 4, 32), (32, 12, 4, 8),
+               (64, 16_001, 3, 32), (64, 16_001, 3, 64), (24, 2048, 3, 3)]
+
+
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("E, N, F, group_rows", GROUP_CASES)
+def test_flood_slot_groups_match_plain(flood_lib, E, N, F, group_rows,
+                                       order):
+    """Every output against the plain version however the slots are split
+    into groups and in whichever order the groups of a tile arrive, with
+    windows that wrap at N (shifts 1 and N - 1), push/pull off and on."""
+    flood_lib.lib.event_flood_host_order(order)
+    try:
+        rng = np.random.default_rng(E * 7 + N + group_rows)
+        ins = flood_inputs(E, N, seed=E + N + group_rows)
+        for k, (budget, pushpull) in enumerate([(3, False), (14, True)]):
+            offs = _offsets(N, F, rng) if k == 0 else \
+                rng.integers(1, N, F).tolist()
+            row = event_row(500, offs, int(rng.integers(1, N)))
+            want = te.event_flood_ref(*ins, row, budget, 40, pushpull)
+            got = _run(flood_lib, ins, row, budget, 40, pushpull,
+                       group_rows=group_rows)
+            _assert_flood_equal(got, want, (E, N, group_rows, order, k))
+    finally:
+        flood_lib.lib.event_flood_host_order(1)
+
+
+def _witness_case():
+    """24 slots over 1,500 columns (3 column tiles of 512), every node
+    alive, one shift of 1: column c takes slot e's event where has[e, c -
+    1] is seen and has[e, c] is not.  Column 100 takes slots 2, 13 and 22
+    (warps 2, 5 and 6 of one group; groups 0, 1 and 2 of 8), the largest
+    Lamport time in slot 22, from a
+    clock of 5; column 1100 (another tile) the largest in slot 2, from a
+    clock at 2**31 - 2; column 300 only slots of times 0 and -5; column
+    301 slot 13 alone, from the clock 2**31 - 1, past which it wraps."""
+    E, N = 24, 1500
+    has = torch.zeros((E, N), dtype=torch.uint8)
+    ltime = torch.zeros(E, dtype=torch.int32)
+    node_ltime = torch.full((N,), 9, dtype=torch.int32)
+    for e, lt in ((2, 1000), (13, 70), (22, I32_MAX)):
+        has[e, 99] = 0x80
+        ltime[e] = lt
+    for e in (2, 13):
+        has[e, 1099] = 0x80
+    has[22, 1099] = 0x80 | 14   # too old to be sent
+    has[5, 299], ltime[5] = 0x80, 0
+    has[6, 299], ltime[6] = 0x80, -5
+    has[13, 300] = 0x80
+    node_ltime[100], node_ltime[1100] = 5, I32_MAX - 1
+    node_ltime[301] = I32_MAX
+    ins = [has, torch.ones(N, dtype=torch.bool), torch.ones(E, dtype=torch.bool),
+           ltime, torch.arange(E, dtype=torch.int32),
+           torch.zeros(E, dtype=torch.int32), node_ltime,
+           torch.zeros(E, dtype=torch.int32)]
+    return ins, event_row(3, [1], 7)
+
+
+@pytest.mark.parametrize("group_rows", [0, 8, 24, 3, 1])
+def test_flood_witness_crosses_slot_groups(flood_lib, group_rows,
+                                           reversed_groups):
+    """The witness max of a column over slots of other slot groups,
+    finished by whichever group of the tile arrives last, at the int32
+    edge."""
+    ins, row = _witness_case()
+    want = te.event_flood_ref(*ins, row, 3, 100, False)
+    got = _run(flood_lib, ins, row, 3, 100, False, group_rows=group_rows)
+    _assert_flood_equal(got, want, group_rows)
+    nl = got.node_ltime
+    assert int(nl[100]) == -2**31            # max(5, 2**31 - 1) + 1 wraps
+    assert int(nl[1100]) == I32_MAX          # max(2**31 - 2, 1000) + 1
+    assert int(nl[300]) == 9                 # witness 0: unchanged
+    assert int(nl[301]) == -2**31
+    assert int(nl[99]) == 9 and int(nl[0]) == 9
+
+
+def test_flood_scratch_serves_many_launches(flood_lib):
+    """One scratch through launches of other shapes' groups and of the
+    same shape: each launch leaves it zero, so the next sees no count or
+    witness of the last."""
+    E, N = 16, 1100
+    scratch = te.flood_scratch(E, N, "cpu")
+    rng = np.random.default_rng(5)
+    for k, group_rows in enumerate([0, 8, 16, 3, 0]):
+        ins = flood_inputs(E, N, seed=70 + k)
+        row = event_row(500, rng.integers(1, N, 3).tolist(),
+                        int(rng.integers(1, N)))
+        want = te.event_flood_ref(*ins, row, 4, 40, k % 2 == 1)
+        got = _run(flood_lib, ins, row, 4, 40, k % 2 == 1,
+                   group_rows=group_rows, scratch=scratch)
+        _assert_flood_equal(got, want, group_rows)
+
+
+@pytest.mark.parametrize("pushpull", [False, True])
+def test_flood_word_path_every_window_residue(flood_lib, pushpull):
+    """The word path's windows at every column offset mod 16 (every byte
+    shift a lane's word is joined with its neighbour's at), with the
+    partner legs at two more."""
+    E, N = 6, 2048
+    ins = flood_inputs(E, N, seed=31)
+    for lo in (0, 8):
+        offs = [32 * (k + 1) + lo + k for k in range(8)]
+        row = event_row(500, offs, 64 + lo + 3)
+        want = te.event_flood_ref(*ins, row, 5, 40, pushpull)
+        _assert_flood_equal(_run(flood_lib, ins, row, 5, 40, pushpull),
+                            want, (lo, pushpull))

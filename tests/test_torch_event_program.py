@@ -178,6 +178,33 @@ def test_device_row_event_round_matches_reference(case):
         assert int(ts.drops) > 0
 
 
+@pytest.mark.parametrize("pushpull", [False, True])
+def test_event_round_writes_into_dst(pushpull):
+    """The one event-round body (``events._event_round``) with ``dst`` and
+    ``held``, as the event program runs it: the written fields of ``dst``
+    (``ROUND_WRITES``) and ``held`` hold the round in place, equal to the
+    round into new tensors; the fields it only reads are the source's."""
+    profile, n, E, kw, alive, fires = _event_inputs("pushpull_E8")
+    p = getattr(t_params, profile)(n, **kw)
+    src = te.fire_events(te.init_events(p, slots=E, device="cpu"),
+                         torch.tensor(fires[0], dtype=torch.int32))
+    row = torch.from_numpy(round_args.build_events(
+        p, prng.key(5), int(src.round), 1)[0])
+    al = torch.from_numpy(alive)
+    want, want_held = te._event_round(src, row, al, p, pushpull)
+    dst = src._replace(**{f: torch.empty_like(getattr(src, f))
+                          for f in te.ROUND_WRITES})
+    held = torch.empty(E, dtype=torch.int32)
+    got, got_held = te._event_round(src, row, al, p, pushpull, dst=dst,
+                                    held=held)
+    assert got_held is held and torch.equal(held, want_held)
+    for f in te.EventState._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+        same = getattr(dst if f in te.ROUND_WRITES else src, f)
+        assert getattr(got, f).data_ptr() == same.data_ptr(), f
+    assert int(got.round) == int(src.round) + 1
+
+
 # -- the program's buffers, its captures emulated ------------------------------
 
 class _EmulatedGraph:
@@ -216,6 +243,70 @@ def test_program_buffers_match_eager(case, emulated):
     assert te.launches == floods  # CPU tensors: the plain version
 
 
+@pytest.mark.parametrize("steps", [[7, 8, 1, 10], [2, 9, 9, 3]])
+def test_program_buffer_sets_after_odd_and_even_steps(steps, emulated):
+    """Calls of odd and even round counts (within and across the table's
+    chunks of 7): the state a call returns and its coverage trace equal the
+    eager route's and the reference's after every call, whichever buffer
+    set holds it; each call starts from set 0."""
+    profile, n, E, kw, alive, fires = _event_inputs("pushpull_E8")
+    p = getattr(t_params, profile)(n, **kw)
+    jp = getattr(j_params, profile)(n, **kw)
+    al = torch.from_numpy(alive)
+    st = te.fire_events(te.init_events(p, slots=E, device="cpu"),
+                        torch.tensor(fires[0], dtype=torch.int32))
+    eager = graphed = st
+    js = je.fire_events(je.init_events(jp, slots=E),
+                        jnp.asarray(fires[0], jnp.int32))
+    prog = None
+    for k in steps:
+        eager, ce = te.run_event_rounds(eager, prng.key(3), al, p, k,
+                                        graphed=False)
+        graphed, cg = program.run_event_rounds(graphed, prng.key(3), al, p, k)
+        js, cj = je.run_event_rounds(js, jax.random.PRNGKey(3),
+                                     jnp.asarray(alive), jp, k)
+        prog = prog or next(iter(program._programs.values()))
+        assert prog.cur == k % 2
+        assert torch.equal(ce, cg) and np.array_equal(np.asarray(cj),
+                                                      cg.numpy())
+        for f in te.EventState._fields:
+            assert torch.equal(getattr(eager, f), getattr(graphed, f)), (k, f)
+            assert np.array_equal(np.asarray(getattr(js, f)),
+                                  getattr(graphed, f).numpy()), (k, f)
+    assert len(program._programs) == 1
+
+
+def test_replay_copies_no_event_matrix(emulated, monkeypatch):
+    """No replayed event round copies an [E, N] tensor: the flood writes
+    the other set's ``has`` itself, and the two sets' matrices alternate
+    as the round's source and destination."""
+    rounds = []
+    body = program.EventProgram._body
+
+    def logged(self, v):
+        src, dst = self.sets[v[1]].has, self.sets[1 - v[1]].has
+        with _OpLog() as log:
+            body(self, v)
+        rounds.append((v, src.data_ptr(), dst.data_ptr(), log.ops))
+
+    monkeypatch.setattr(program.EventProgram, "_body", logged)
+    profile, n, E, kw, alive, fires = _event_inputs("wan_E16")
+    p = getattr(t_params, profile)(n, **kw)
+    st = te.fire_events(te.init_events(p, slots=E, device="cpu"),
+                        torch.tensor(fires[0], dtype=torch.int32))
+    program.run_event_rounds(st, prng.key(1), torch.from_numpy(alive), p, 9)
+    assert len(rounds) == 9
+    big = ("T", "torch.uint8", (E, n))
+    for i, (v, src, dst, ops) in enumerate(rounds):
+        assert v[1] == i % 2 and src != dst
+        copies = [op for op in ops if "copy" in op[0] and big in op[1]]
+        assert not copies, (i, copies)
+        # The flood's last op on the matrix writes the destination set.
+        assert (("out", big),) in [op[2] for op in ops
+                                   if "where" in op[0]], i
+    assert {r[1] for r in rounds} == {r[2] for r in rounds}
+
+
 # -- the replay check ------------------------------------------------------------
 
 class _OpLog(TorchDispatchMode):
@@ -243,8 +334,9 @@ class _OpLog(TorchDispatchMode):
 
 
 def test_replay_logs_do_not_depend_on_the_round(emulated, monkeypatch):
-    """Per replayed event round: its variant and its op log (with the
-    flood's by-value arguments).  Rounds of one variant log the same."""
+    """Per replayed event round: its variant (push/pull and the parity of
+    the buffer set it reads) and its op log (with the flood's by-value
+    arguments).  Rounds of one variant log the same."""
     rounds = []
     body = program.EventProgram._body
 
@@ -260,7 +352,9 @@ def test_replay_logs_do_not_depend_on_the_round(emulated, monkeypatch):
     groups = {}
     for i, (v, log) in enumerate(rounds):
         groups.setdefault(v, []).append((i, log))
-    assert set(groups) == {False, True}
+    # Push/pull every 4 rounds from round 0 of a call: its rounds read
+    # set 1 (the 4th, 8th, ...), the others either set.
+    assert set(groups) == {(False, 0), (False, 1), (True, 1)}
     for v, members in groups.items():
         first_i, first = members[0]
         for i, log in members[1:]:
