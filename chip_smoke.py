@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase event_flood   # that phase alone (A/B)
+    python3 chip_smoke.py --phase observe       # that phase alone (A/B)
 
 Each phase prints one JSON line; any failure exits non-zero and the
 result lines are not printed.
@@ -11,9 +12,9 @@ result lines are not printed.
 2. build: ``csrc/dissem_tail.cu`` (both entry points, ``fused_dissem``
    and ``fused_merge``), ``csrc/kv_store.cu``,
    ``csrc/threefry.cu``, ``csrc/round_graph.cu`` (the round
-   program's conditional nodes) and ``csrc/event_flood.cu`` (the event
-   round) with nvcc for sm_90a, one nvcc each, all started together
-   (ptxas report).
+   program's conditional nodes), ``csrc/event_flood.cu`` (the event
+   round) and ``csrc/observe.cu`` (the round's observers' counts) with
+   nvcc for sm_90a, one nvcc each, all started together (ptxas report).
    threefry: every entry point of the round's draws
    (``consul_tpu_torch/prng.py``: bits, uniform, uniform rows, below,
    randint, edge drops) against its plain torch version on the card, bit
@@ -75,11 +76,30 @@ result lines are not printed.
    (``sass_count.py --flood``) beside it.  ``--phase event_flood`` runs
    the card line, the flood's build and SASS count and this phase alone,
    so that two checkouts can be timed on one card in one call.
+6c. observe: the round's observers' kernel (``csrc/observe.cu``,
+   ``heard_counts``) against ``heard_counts_ref`` on the card, tolerance 0
+   in every count, at [64, 1M] (the 1M round's final matrix), [32,
+   250,000] (a multi-DC LAN pool), [64, 16,001] (the byte path), [64,
+   250,000] on 8 shards of 31,250 (L % 16 == 2), [64, 1M] on 8 shards and
+   [8, 1M] (the hot tier's rows), over 64 seeds each (every byte value,
+   member holes, verdicts DEAD, REFUTE and out of range), in the forms
+   the round launches it (every row and no verdict; a verdict and a want
+   mask with holes; no row wanted), budgets 0 to 16 on the first seed.
+   Its time in each form (CUDA-graph replays of 20 launches), the plain
+   version's, and the bound: the bytes (the rows read and member once,
+   the counts written) over the memory rate or the rule's operations
+   (``observe_ops_per_word``, counted by hand) over the INT32 rate, the
+   larger.  ``--phase observe`` runs the card line, the kernel's build
+   and this phase alone.
 7. full_path: ``run_rounds`` at n=16,000, S=64 (lan_profile, churn,
    loss, joins, flight ring, hist banks, trace) once on the card and
    once on the CPU (a worker process started with the script, which runs
    while the kernel phases do); every field of the carry and the trace
-   must be bit-identical.
+   must be bit-identical; the observers' kernel launched once a round
+   (the trace and the flight row) and once a non-quiescent round (the
+   hist banks' spread), and no more (gated here, on 8 shards in 8, and on
+   the main paths, round_program, crossval, multidc_full_path and the
+   plane wherever those thread an observer).
 8. sharded_full_path: the same run through ``run_rounds_sharded(ndev=8)``
    on the card; every field must equal the card run of phase 7; merge
    launches = the non-quiescent rounds (one launch for all shards), none
@@ -96,8 +116,11 @@ result lines are not printed.
     ``run_rounds_sharded(ndev=8)``: rounds/s, merge launches (= the
     non-quiescent rounds), host syncs per round (equal to phase 9's),
     peak device memory; the final state, unsharded, must equal phase 9's
-    field by field.  Then the healthy regime (no churn, single-device)
-    for rounds/s.
+    field by field.  Then the same churn with the flight ring, hist banks
+    and trace threaded (observers_main_path, 1 and 8 shards, final
+    carries equal; the observers' kernel's launches gated, and none on
+    the paths without an observer).  Then the healthy regime (no churn,
+    single-device) for rounds/s.
     Since the round program (``gossip/program.py``), every card path
     above and below runs the graphed round: one graph launch a round
     (gated on the main paths), the launches of its kernels counted as
@@ -115,7 +138,10 @@ result lines are not printed.
     seconds and the pool's bytes; for churn, device kernels and busy
     time a round and the idle share of both routes (torch.profiler), and
     the ``tail_kernel`` and ``draw_kernel`` runs the profiler saw equal
-    to the settled ``fused.launches`` and ``prng.launches``.
+    to the settled ``fused.launches`` and ``prng.launches``, and the
+    graphed churn round with the observers threaded profiled the same
+    way (``counts_kernel`` runs equal to ``observe.launches``, its device
+    ms a round); the observers' kernel launches of both routes gated.
 11. events: the user-event flood (``gossip/events.py``) at E = 64,
     n = 16,000 for 300 rounds (fires with overflow, -1 entries and
     repeated nodes, push/pull rounds, an alive mask with holes, slot GC
@@ -215,7 +241,10 @@ plain versions on the card; and every shape the draws' kernel was
 launched at (``prng.launch_shapes``), with 4 fresh keys against the plain
 version on the card; and every (E, N, F, budget, TTL, push/pull) the
 event flood was launched at (``events.launch_shapes``), under 4 rows on
-fresh inputs against the plain version.
+fresh inputs against the plain version; and every (R, L, ndev, budget,
+verdict, want) the observers' counts were launched at
+(``observe.launch_shapes``), on 4 fresh inputs against the plain
+version.
 
 The device-resident state store (phase device_store, after gossipd;
 ``consul_tpu_torch/state/device_store.py``, kernels ``kv_apply`` and
@@ -263,7 +292,10 @@ time the main path's one probe-tick draw a round; for the round
 program, its graph launches on the churn main path and a graphed round's
 time against the eager round's; for the event flood, its launches on the
 1M multi-DC paths, in the events phase and on the plane, its time at
-[32, 250,000] and [64, 1M]) and, last, the ok line.  Needs
+[32, 250,000] and [64, 1M]; for the observers' counts, their launches on
+the 1M churn path with the observers threaded, on 8 shards, on the plane
+and in crossval, their time at [64, 1M] in the final matrix's and the
+spread's forms) and, last, the ok line.  Needs
 one CUDA card: without one it exits 2 before printing anything else.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -374,8 +406,11 @@ def card() -> str:
 # The port's kernel sources (csrc/<name>.cu), one nvcc each: the gossip
 # tail's entry points fused_dissem and fused_merge are in dissem_tail.cu,
 # the device store's kv_apply and watch_match in kv_store.cu, the round's
-# random draws in threefry.cu.
-SOURCES = ("dissem_tail", "kv_store", "threefry", "round_graph", "event_flood")
+# random draws in threefry.cu, the round program's conditional nodes in
+# round_graph.cu, the event round in event_flood.cu and the round's
+# observers' counts (heard_counts) in observe.cu.
+SOURCES = ("dissem_tail", "kv_store", "threefry", "round_graph", "event_flood",
+           "observe")
 
 
 def build() -> None:
@@ -1172,8 +1207,162 @@ def flood_shapes_vs_plain(shapes: set) -> list:
     return rows
 
 
+# -- the observers' kernel ------------------------------------------------------
+
+# (R, N, ndev) where the paths count: the 1M round's final matrix, a
+# multi-DC LAN pool, the byte path (N % 4 != 0), the multi-DC LAN pool on
+# 8 shards of 31,250 (L % 16 == 2: the byte path across shards), the 1M
+# round on 8 shards of 125,000, the hot tier's gathered rows at 1M.
+OBSERVE_SHAPES = ((64, 1_000_000, 1), (32, 250_000, 1), (64, 16_001, 1),
+                  (64, 250_000, 8), (64, 1_000_000, 8), (8, 1_000_000, 1))
+OBSERVE_BUDGET = 6  # lan_profile's spread budget at 4,000 to 1M nodes
+
+
+def observe_ops_per_word() -> int:
+    """The counts' integer operations a 32-bit word (four columns of one
+    row), counted by hand from the rule of ``csrc/observe.cu`` in instruction
+    slots, a three-input logic op (LOP3) or add (IADD3) being one slot,
+    constants held in registers: 4 to decode the message field's two bits
+    as 0x01-a-byte flags (a shift and a mask each), 1 each for DEAD and
+    REFUTE (one LOP3 of the flags and the member byte), 4 for a live rumor
+    (the age's mask-and-or in one LOP3, the budget's subtract, a shift,
+    one LOP3 of the flags and the age test), 3 for a holder (each flag
+    against the verdict's, two XORs, and one LOP3 of both with the member
+    byte), 2 for the four flags' byte sums (IADD3s) and 2 for the sums
+    across the bytes (a multiply and a shift-add a count, every four
+    words): 17."""
+    return 4 + 1 + 1 + 4 + 3 + 2 + 2
+
+
+def _observe_bound(R: int, N: int, rows_read: int) -> dict:
+    """The least time of one launch that reads ``rows_read`` of its ``R``
+    rows (ms): the larger of its bytes (those rows and member read once,
+    the verdict and want rows read, the counts written) over the memory
+    rate and its operations (``observe_ops_per_word`` for the words of
+    the rows it reads) over the INT32 rate."""
+    bytes_ = rows_read * N + (N if rows_read else 0) + 5 * R + 16 * R
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = (rows_read * N / 4 * observe_ops_per_word()
+              / INT32_OPS_PER_S * 1e3)
+    return {"bytes": bytes_, "bytes_ms": bytes_ms,
+            "operations_per_word": observe_ops_per_word(),
+            "operations_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _observe_inputs(R: int, N: int, ndev: int, seed: int):
+    """Every byte value, member with holes, verdicts DEAD and REFUTE (and
+    one out of range), a want mask with holes; the matrix as ``ndev``
+    column shards (the tensor itself at 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    heard = torch.randint(0, 256, (R, N), device="cuda", dtype=torch.uint8,
+                          generator=g)
+    if R > 2:
+        heard[1] = 0
+        heard[2] = (2 << 6) | (heard[2] & 0x3F)
+    member = torch.rand(N, device="cuda", generator=g) < 0.9
+    verdict = 2 + (torch.rand(R, device="cuda", generator=g) < 0.5).to(
+        torch.int32)
+    verdict[0] = -1
+    want = torch.rand(R, device="cuda", generator=g) < 0.5
+    L = N // ndev
+    arg = heard if ndev == 1 else tuple(
+        heard[:, i * L:(i + 1) * L].contiguous() for i in range(ndev))
+    return arg, member, verdict, want
+
+
+def _observe_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest difference of two launches' counts; raises unless 0."""
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err or got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"heard_counts != plain, max abs err {err}")
+    return err
+
+
+def observe_phase(card_line: str, seeds: int = 64) -> dict:
+    """``heard_counts`` (``csrc/observe.cu``) against ``heard_counts_ref``
+    on the card, tolerance 0 in every count, at ``OBSERVE_SHAPES`` over
+    ``seeds`` fresh inputs each, in the forms the round launches it: the
+    final matrix (every row, no verdict: the trace's holders and the
+    flight row's rumors), the spread (a verdict, ``want`` with holes) and
+    a spread with no row wanted; budgets 0 to 16 on the first seed.  Its
+    time in CUDA-graph replays (20 launches a graph) in each form, the
+    plain version's, and the bound (``_observe_bound``)."""
+    from consul_tpu_torch.gossip import observe
+
+    t0 = time.perf_counter()
+    rows, err, held = {}, 0, 0
+    for R, N, ndev in OBSERVE_SHAPES:
+        for seed in range(seeds):
+            arg, member, verdict, want = _observe_inputs(R, N, ndev,
+                                                         1000 * R + seed)
+            none = torch.zeros_like(want)
+            budgets = (0, 1, 3, 6, 14, 16) if seed == 0 else (OBSERVE_BUDGET,)
+            for budget in budgets:
+                for v, w in ((None, None), (verdict, want), (verdict, none)):
+                    err = max(err, _observe_err(
+                        observe.heard_counts(arg, member, budget, v, w),
+                        observe.heard_counts_ref(arg, member, budget, v, w)))
+                    held += 1
+        arg, member, verdict, want = _observe_inputs(R, N, ndev, 7)
+        none = torch.zeros_like(want)
+        b = OBSERVE_BUDGET
+        sc = observe.counts_scratch(R, "cuda")  # as a round program's
+        ms = graph_ms(lambda: observe.heard_counts(arg, member, b,
+                                                   scratch=sc))
+        ms_spread = graph_ms(lambda: observe.heard_counts(
+            arg, member, b, verdict, want, sc))
+        ms_idle = graph_ms(lambda: observe.heard_counts(
+            arg, member, b, verdict, none, sc))
+        plain_ms = cuda_ms(lambda: observe.heard_counts_ref(arg, member, b),
+                           iters=5 if N >= 250_000 else 20)
+        bound = _observe_bound(R, N, R)
+        rows[f"{R}x{N}" + (f"/{ndev}" if ndev > 1 else "")] = {
+            "shape": [R, N], "ndev": ndev, "L": N // ndev, "budget": b,
+            "ms": ms, "ms_spread": ms_spread,
+            "spread_rows_read": int(want.sum()), "ms_no_row": ms_idle,
+            "plain_ms": plain_ms, **bound,
+            "share_of_bound": bound["bound_ms"] / ms,
+            "spread_bound_ms": _observe_bound(
+                R, N, int(want.sum()))["bound_ms"],
+            "no_row_bound_ms": _observe_bound(R, N, 0)["bound_ms"]}
+        if int(sc.abs().sum()):
+            raise AssertionError(f"heard_counts left its scratch non-zero "
+                                 f"at {R}x{N}/{ndev}")
+        del arg, member, verdict, want, none
+    torch.cuda.empty_cache()
+    res = {"phase": "observe", "card": card_line, "tolerance": 0,
+           "max_abs_err": err, "launches_held": held, "seeds": seeds,
+           "shapes": rows, "library_ms": None,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def observe_shapes_vs_plain(shapes: set) -> list:
+    """Every (R, L, ndev, budget, verdict, want) the paths launched the
+    counts at (``observe.launch_shapes``), on fresh inputs in that form
+    against the plain version."""
+    from consul_tpu_torch.gossip import observe
+
+    rows = []
+    for i, (R, L, ndev, budget, has_v, has_w) in enumerate(sorted(shapes)):
+        for seed in range(4):
+            arg, member, verdict, want = _observe_inputs(R, L * ndev, ndev,
+                                                         5000 + 10 * i + seed)
+            v = verdict if has_v else None
+            w = want if has_w else None
+            _observe_err(observe.heard_counts(arg, member, budget, v, w),
+                         observe.heard_counts_ref(arg, member, budget, v, w))
+        rows.append({"kernel": "heard_counts", "shape": [R, L * ndev],
+                     "ndev": ndev, "L": L, "budget": budget,
+                     "verdict": has_v, "want": has_w, "launches_held": 4})
+    return rows
+
+
 def path_shapes_vs_plain(shapes: set, store_shapes: set,
-                         draw_shapes: set, flood_shapes: set) -> dict:
+                         draw_shapes: set, flood_shapes: set,
+                         observe_shapes: set) -> dict:
     """Every (kernel, S, L, ndev, F, budget) that the paths launched at
     (``fused.launch_shapes``) held against the plain version on fresh
     adversarial bytes, under the offset sets of ``_offset_sets`` with F
@@ -1183,7 +1372,9 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
     ``store_shapes_vs_plain`` holds them, and every shape the draws'
     kernel was launched at (``draw_shapes``), as ``draw_shapes_vs_plain``
     holds them, and every shape the event flood was launched at
-    (``flood_shapes``), as ``flood_shapes_vs_plain`` holds them."""
+    (``flood_shapes``), as ``flood_shapes_vs_plain`` holds them, and every
+    shape the observers' counts were launched at (``observe_shapes``), as
+    ``observe_shapes_vs_plain`` holds them."""
     from types import SimpleNamespace
 
     from consul_tpu_torch.gossip import fused, kernel
@@ -1223,12 +1414,14 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
     rows += store_shapes_vs_plain(store_shapes)
     rows += draw_shapes_vs_plain(draw_shapes)
     rows += flood_shapes_vs_plain(flood_shapes)
+    rows += observe_shapes_vs_plain(observe_shapes)
     res = {"phase": "path_shapes", "shapes": rows, "tolerance": 0,
            "max_abs_err": err, "seconds": time.perf_counter() - t0}
     emit(res)
     kernels = {r["kernel"] for r in rows}
     if kernels != {"fused_dissem", "fused_merge", "kv_apply",
-                   "watch_match", "threefry", "event_flood"}:
+                   "watch_match", "threefry", "event_flood",
+                   "heard_counts"}:
         raise AssertionError(f"the paths launched only {sorted(kernels)}")
     return res
 
@@ -1243,10 +1436,12 @@ def _settle() -> None:
 def _reset_counts() -> None:
     """Every kernel launch count and round counter to 0."""
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import events, fused, kernel, program
+    from consul_tpu_torch.gossip import (events, fused, kernel, observe,
+                                         program)
     _settle()
     program.launches = 0
     events.launches = 0
+    observe.launches = 0
     prng.launches = 0
     prng.calls = 0
     fused.launches = 0
@@ -1278,6 +1473,24 @@ def _draw_gate(what: str, draws: dict, expected: int | None = None) -> None:
     if n == 0 or n != calls or (expected is not None and n != expected):
         raise AssertionError(f"{what}: {n} draw launches for {calls} device "
                              f"draws (expected {expected})")
+
+
+def _observe_gate(what: str, rounds: int) -> dict:
+    """The observers' kernel launches since the last ``_reset_counts``
+    (settled), on a path that threads the trace or the flight ring and
+    the hist banks: one a round for the final matrix and one more a
+    non-quiescent round for the spread; raises unless they are exactly
+    that many (``rounds``: the rounds run since the reset)."""
+    from consul_tpu_torch.gossip import kernel, observe
+    _settle()
+    busy = kernel.tail_rounds["hot"] + kernel.tail_rounds["full"]
+    want = rounds + busy
+    if observe.launches != want or want == 0:
+        raise AssertionError(f"{what}: {observe.launches} heard_counts "
+                             f"launches, expected {want} ({rounds} rounds, "
+                             f"{busy} non-quiescent)")
+    return {"observe_launches": observe.launches,
+            "observe_launches_per_round": observe.launches / rounds}
 
 
 def _probe_draws(p) -> int:
@@ -1366,11 +1579,13 @@ def full_path(cpu, n: int, S: int, steps: int, seed: int):
     _settle()
     launches = fused.launches
     draws = _draws(steps)
+    observed = _observe_gate("full_path", steps)
     t0 = time.perf_counter()
     diverged = _diverged_np(_as_numpy((st_g, fl_g, hb_g), tr_g),
                             cpu.result())
     emit({"phase": "full_path", "n": n, "slots": S, "steps": steps,
-          "kernel_launches": launches, **draws, "cuda_s": t_gpu,
+          "kernel_launches": launches, **draws, **observed,
+          "cuda_s": t_gpu,
           "cpu_wait_s": time.perf_counter() - t0,
           "n_detected": int(st_g.n_detected),
           "n_refuted": int(st_g.n_refuted),
@@ -1400,11 +1615,13 @@ def sharded_full_path(single, n: int, S: int, steps: int, seed: int,
     merges, dissems = fused.merge_launches, fused.launches
     tails = dict(kernel.tail_rounds)
     draws = _draws(steps)
+    observed = _observe_gate("sharded_full_path", steps)
     (st_1, fl_1, hb_1), tr_1 = single
     diverged = _diverged(list(zip((st_1, fl_1, hb_1), carry)) + [(tr_1, tr)])
     emit({"phase": "sharded_full_path", "n": n, "slots": S, "steps": steps,
           "ndev": ndev, "merge_launches": merges,
           "dissem_launches": dissems, "tail_rounds": tails, **draws,
+          **observed,
           "cuda_s": t_gpu, "n_detected": int(carry[0].n_detected),
           "diverged": diverged})
     if diverged:
@@ -1419,12 +1636,17 @@ def sharded_full_path(single, n: int, S: int, steps: int, seed: int,
 
 
 def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
-              blocks: int, ndev: int | None = None):
+              blocks: int, ndev: int | None = None,
+              observers: bool = False):
     """bench.py's LAN regime on the port: rounds/s over timed blocks;
-    through run_rounds_sharded when ``ndev`` is given.  Returns the
-    result line and the final state."""
+    through run_rounds_sharded when ``ndev`` is given; with ``observers``
+    the flight ring, hist banks and trace threaded, as the plane threads
+    them (the observers' kernel launches gated: one a round and one a
+    non-quiescent round; none without).  Returns the result line and the
+    final state (with ``observers``, the tuple of state, ring and
+    banks)."""
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import fused, kernel, program
+    from consul_tpu_torch.gossip import fused, kernel, observe, program
     from consul_tpu_torch.gossip.params import lan_profile
 
     p = lan_profile(n, slots=S, hot_slots=0, dissem="fused")
@@ -1439,11 +1661,19 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
     fail_t = torch.from_numpy(fail).cuda()
     key = prng.key(42)
 
+    carry = {"flight": kernel.init_flight(device="cuda"),
+             "hist": kernel.init_hist(device="cuda")} if observers else {}
+
     def rounds(state, steps):
+        kw = dict(carry, trace=True) if observers else {}
         if ndev is None:
-            return kernel.run_rounds(state, key, fail_t, p, steps)[0]
-        return kernel.run_rounds_sharded(state, key, fail_t, p, steps,
-                                         ndev=ndev)[0]
+            out = kernel.run_rounds(state, key, fail_t, p, steps, **kw)[0]
+        else:
+            out = kernel.run_rounds_sharded(state, key, fail_t, p, steps,
+                                            ndev=ndev, **kw)[0]
+        if observers:
+            out, carry["flight"], carry["hist"] = out
+        return out
 
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1460,8 +1690,10 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
         times.append(time.perf_counter() - t0)
     _settle()
     tails = dict(kernel.tail_rounds)
-    res = {"phase": "main_path" if ndev is None else "sharded_main_path",
+    name = "observers_main_path" if observers else "main_path"
+    res = {"phase": name if ndev is None else f"sharded_{name}",
            "n": n, "slots": S, "churn_ppm": churn_ppm, "ndev": ndev,
+           "observers": observers,
            "rounds": total, "warmup_s": warm_s, "block_rounds": block,
            "block_s": times,
            "rounds_per_s_mean": block * blocks / sum(times),
@@ -1469,6 +1701,7 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
            "kernel_launches": fused.launches,
            "merge_launches": fused.merge_launches, "tail_rounds": tails,
            **_draws(total), "graph_launches": program.launches,
+           "observe_launches": observe.launches,
            "host_syncs_per_round": kernel.host_syncs / total,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "n_detected": int(state.n_detected),
@@ -1487,7 +1720,13 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
                              "(or fused_dissem ran)")
     # The probe tick's draws are all that draws on the card.
     _draw_gate(res["phase"], res, _probe_draws(p) * total)
-    return res, state
+    if not observers:
+        if observe.launches:
+            raise AssertionError(f"{res['phase']}: {observe.launches} "
+                                 f"heard_counts launches with no observer")
+        return res, state
+    _observe_gate(res["phase"], total)
+    return res, (state, carry["flight"], carry["hist"])
 
 
 # -- nemesis ------------------------------------------------------------------
@@ -1724,7 +1963,7 @@ def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool) -> dict:
     host reads per call and per round, graph launches and captures, the
     final carry and the last block's trace."""
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import kernel, program
+    from consul_tpu_torch.gossip import kernel, observe, program
 
     key = prng.key(42)
     carry = [st0, kernel.init_flight(), kernel.init_hist()]
@@ -1756,7 +1995,10 @@ def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool) -> dict:
         times.append(time.perf_counter() - t0)
     timed = RP["block"] * RP["blocks"]
     _settle()
+    busy = kernel.tail_rounds["hot"] + kernel.tail_rounds["full"]
     return {"rounds_per_s": timed / sum(times), "block_s": times,
+            "observe_launches": observe.launches,
+            "observe_launches_expected": RP["warm"] + timed + busy,
             "warmup_s": warm_s, "ms_per_round": sum(times) * 1e3 / timed,
             "host_syncs_per_call": (kernel.host_syncs - syncs0)
             / RP["blocks"],
@@ -1770,31 +2012,42 @@ def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool) -> dict:
             "carry": tuple(carry), "trace": tr}
 
 
-def _rp_profile(p, fail_t, st0, graphed: bool) -> dict:
+def _rp_profile(p, fail_t, st0, graphed: bool,
+                observers: bool = False) -> dict:
     """Device kernels and busy time a round, and the card's idle share,
-    over RP_PROFILED rounds of the route (after a warm call).  Also the
-    tail's and the draws' kernels as the profiler saw them run
-    (``tail_kernel``, ``draw_kernel``) beside the launches the wrappers
-    counted for the same rounds (``fused.launches``, ``prng.launches``,
+    over RP_PROFILED rounds of the route (after a warm call), with the
+    flight ring, hist banks and trace threaded or not (``observers``).
+    Also the tail's, the draws' and the observers' kernels as the profiler
+    saw them run (``tail_kernel``, ``draw_kernel``, ``counts_kernel``)
+    beside the launches the wrappers counted for the same rounds
+    (``fused.launches``, ``prng.launches``, ``observe.launches``,
     settled); the caller holds them equal."""
     from torch.profiler import ProfilerActivity, profile
 
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import fused, kernel
+    from consul_tpu_torch.gossip import fused, kernel, observe
     from consul_tpu_torch.profile_round import device_kernels, self_device_us
 
     key = prng.key(42)
-    st = kernel.run_rounds(st0, key, fail_t, p, RP_PROFILED,
-                           graphed=graphed)[0]
-    int(st.round)
+    carry = {"flight": kernel.init_flight(),
+             "hist": kernel.init_hist()} if observers else {}
+
+    def run(st):
+        out = kernel.run_rounds(st, key, fail_t, p, RP_PROFILED,
+                                graphed=graphed, trace=observers,
+                                **carry)[0]
+        if observers:
+            out, carry["flight"], carry["hist"] = out
+        int(out.round)
+        return out
+
+    st = run(st0)
     _settle()
-    tails0, draws0 = fused.launches, prng.launches
+    tails0, draws0, obs0 = fused.launches, prng.launches, observe.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st = kernel.run_rounds(st, key, fail_t, p, RP_PROFILED,
-                               graphed=graphed)[0]
-        int(st.round)
+        st = run(st)
         wall = time.perf_counter() - t0
     _settle()
     rows = device_kernels(prof)
@@ -1811,7 +2064,12 @@ def _rp_profile(p, fail_t, st0, graphed: bool) -> dict:
             "tail_kernels_profiled": seen("tail_kernel"),
             "tail_launches_counted": fused.launches - tails0,
             "draw_kernels_profiled": seen("draw_kernel"),
-            "draw_launches_counted": prng.launches - draws0}
+            "draw_launches_counted": prng.launches - draws0,
+            "observe_kernels_profiled": seen("observe::counts_kernel"),
+            "observe_launches_counted": observe.launches - obs0,
+            "observe_device_ms_per_round": sum(
+                self_device_us(e) for e in rows
+                if "observe::counts_kernel" in e.key) / 1e3 / RP_PROFILED}
 
 
 def _roll_sharded_views(sc, xs, o: int) -> tuple:
@@ -1912,15 +2170,26 @@ def round_program_phase(card_line: str) -> dict:
             for route in ("eager", "graphed"):
                 prof = _rp_profile(p, fail_t, st0, route == "graphed")
                 row[route].update(prof)
+                # With the observers threaded (graphed, the plane's route).
+                if route == "graphed":
+                    obs = _rp_profile(p, fail_t, st0, True, observers=True)
+                    row["graphed_observers"] = obs
                 # The counts are observed, not derived from the capture:
                 # each kernel the wrappers counted ran on the card.
-                for k in ("tail", "draw"):
-                    seen = prof[f"{k}_kernels_profiled"]
-                    counted = prof[f"{k}_launches_counted"]
+                checks = [(route, prof, k) for k in ("tail", "draw")]
+                if route == "graphed":
+                    checks += [("graphed_observers", obs, k)
+                               for k in ("tail", "draw", "observe")]
+                for label, pr, k in checks:
+                    seen = pr[f"{k}_kernels_profiled"]
+                    counted = pr[f"{k}_launches_counted"]
                     if seen == 0 or seen != counted:
-                        bad.append(f"{name} {route}: the profiler saw "
+                        bad.append(f"{name} {label}: the profiler saw "
                                    f"{seen} {k} kernels for {counted} "
                                    f"counted launches")
+                if prof["observe_launches_counted"] != 0:
+                    bad.append(f"{name} {route}: heard_counts launched "
+                               f"with no observer threaded")
         rows[name] = row
         if diverged:
             bad.append(f"{name}: diverged in {diverged}")
@@ -1930,6 +2199,14 @@ def round_program_phase(card_line: str) -> dict:
         if graphed["graph_launches_per_round"] != 1:
             bad.append(f"{name}: {graphed['graph_launches_per_round']} "
                        f"graph launches a round")
+        # The observers' kernel: one launch a round for the trace and the
+        # flight row, one a non-quiescent round for the spread, both
+        # routes.
+        for route, r in (("eager", eager), ("graphed", graphed)):
+            if r["observe_launches"] != r["observe_launches_expected"]:
+                bad.append(f"{name} {route}: {r['observe_launches']} "
+                           f"heard_counts launches, expected "
+                           f"{r['observe_launches_expected']}")
         del p, fail_t, kw, st0
     res = {"phase": "round_program", "card": card_line, "n": 1_000_000,
            "slots": 64, "rounds": total, "cases": rows,
@@ -2097,7 +2374,8 @@ def crossval_phase(pool, cpu_seed0) -> dict:
     device (``cpu_seed0``: the future of its CPU worker), then
     ``run_join_config`` and ``run_event_config`` (oracles in the
     workers).  Every compared field must equal the record."""
-    from consul_tpu_torch.gossip import crossval, fused, kernel
+    from consul_tpu_torch.gossip import (crossval, events, fused, kernel,
+                                         observe, program)
 
     rec = _recorded()
     t0 = time.perf_counter()
@@ -2144,9 +2422,19 @@ def crossval_phase(pool, cpu_seed0) -> dict:
            "join_churn": join, "event_convergence": ev,
            "dissem_launches": fused.launches,
            "merge_launches": fused.merge_launches, **_draws(),
+           "observe_launches": observe.launches,
+           "graph_launches": program.launches,
            "host_syncs": kernel.host_syncs, "diverged": bad}
     emit(res)
     _draw_gate("crossval", res)
+    # Every membership round threads the trace (no hist): the trace's
+    # holders are one launch of the observers' kernel a round, every
+    # round graphed (the event rounds, a flood launch each, are the rest
+    # of the graph launches).
+    rounds = program.launches - events.launches
+    if observe.launches == 0 or observe.launches != rounds:
+        raise AssertionError(f"crossval: {observe.launches} heard_counts "
+                             f"launches in {rounds} rounds")
     if bad:
         raise AssertionError(f"crossval differs from CROSSVAL.json in {bad}")
     if fused.launches == 0:
@@ -2301,13 +2589,30 @@ def _mdc_diff(a, b) -> list:
     return out
 
 
+def _mdc_lan_busy() -> int:
+    """The non-quiescent rounds of the multi-DC programs' LAN pools since
+    the last ``_reset_counts``: each LAN pool's program settled alone,
+    before ``_settle`` folds in the rest (the WAN pool's rounds too)."""
+    from consul_tpu_torch.gossip import kernel
+    from consul_tpu_torch.gossip import multidc as md
+
+    def busy():
+        return kernel.tail_rounds["hot"] + kernel.tail_rounds["full"]
+
+    before = busy()
+    for prog in md._programs.values():
+        for lan in prog.lan:
+            lan.settle()
+    return busy() - before
+
+
 def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
                       seed: int) -> dict:
     """The multi-DC round on the card against the CPU workers' runs (hot
     tier off and on), and with each DC's LAN pool on 8 column shards
     against the card's single-device run: every field of the state, the
     hist banks and the coverage trace bit-identical."""
-    from consul_tpu_torch.gossip import events, fused, kernel
+    from consul_tpu_torch.gossip import events, fused, kernel, observe
     from consul_tpu_torch.gossip import multidc as md
     from consul_tpu_torch.gossip import program
 
@@ -2317,9 +2622,12 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
         _reset_counts()
         t1 = time.perf_counter()
         single = _mdc_run(D, n, S, steps, seed, hot, "cuda")
+        lan_busy = _mdc_lan_busy()
         _settle()
         row = {"cuda_s": time.perf_counter() - t1,
+               "lan_busy_rounds": lan_busy,
                "dissem_launches": fused.launches, **_draws(steps),
+               "observe_launches": observe.launches,
                "flood_launches": events.launches,
                "graph_launches": program.launches,
                "host_syncs": kernel.host_syncs,
@@ -2327,9 +2635,12 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
         _reset_counts()
         t1 = time.perf_counter()
         sharded = _mdc_run(D, n, S, steps, seed, hot, "cuda", ndev=8)
+        sharded_lan_busy = _mdc_lan_busy()
         _settle()
         md.close_programs()
         row.update(cuda_8_shards_s=time.perf_counter() - t1,
+                   sharded_lan_busy_rounds=sharded_lan_busy,
+                   sharded_observe_launches=observe.launches,
                    sharded_merge_launches=fused.merge_launches,
                    sharded_dissem_launches=fused.launches,
                    sharded_tail_rounds=dict(kernel.tail_rounds))
@@ -2350,6 +2661,16 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
                        f"{row['dissem_launches']} != busy rounds {busy}")
         if row["sharded_merge_launches"] == 0:
             bad.append(f"hot_slots={hot}: no fused_merge launch")
+        # The LAN pools thread the hist banks: the spread is one launch
+        # of the observers' kernel a non-quiescent LAN round (the WAN
+        # pool threads none), on one device and on 8 shards.
+        for k, lb in (("observe_launches", "lan_busy_rounds"),
+                      ("sharded_observe_launches",
+                       "sharded_lan_busy_rounds")):
+            if row[k] != row[lb] or row[lb] == 0:
+                bad.append(f"hot_slots={hot}: {row[k]} heard_counts "
+                           f"launches ({k}) for {row[lb]} non-quiescent "
+                           f"LAN rounds")
         if row["draw_launches"] == 0 or \
                 row["draw_launches"] != row["draw_calls"]:
             bad.append(f"hot_slots={hot}: {row['draw_launches']} draw "
@@ -2624,7 +2945,7 @@ async def _until(cond, timeout: float, what: str) -> float:
 
 
 async def _plane_run(ndev: int, full: bool, n_clients: int = 8) -> dict:
-    from consul_tpu_torch.gossip import events, fused
+    from consul_tpu_torch.gossip import events, fused, kernel, observe
     from consul_tpu_torch.gossip import plane as gp
 
     cfg = gp.PlaneConfig(
@@ -2711,6 +3032,8 @@ async def _plane_run(ndev: int, full: bool, n_clients: int = 8) -> dict:
     res.update(dissem_launches=fused.launches,
                merge_launches=fused.merge_launches,
                flood_launches=events.launches,
+               observe_launches=observe.launches,
+               tail_rounds=dict(kernel.tail_rounds),
                max_memory_allocated=torch.cuda.max_memory_allocated())
     return res
 
@@ -2729,6 +3052,16 @@ def plane_phase(ndev: int, full: bool) -> dict:
     launches = res["merge_launches"] if ndev > 1 else res["dissem_launches"]
     if full and res["flood_launches"] <= 0:
         raise AssertionError("plane: the user event made no flood launch")
+    # The plane threads the ring, the banks and the trace in every round
+    # it runs (its dispatches and the profile query's): one launch of the
+    # observers' kernel a round and one more a non-quiescent round.
+    ran = sum(res["tail_rounds"].values())
+    busy = res["tail_rounds"]["hot"] + res["tail_rounds"]["full"]
+    if ran < res["rounds"] or res["observe_launches"] != ran + busy:
+        raise AssertionError(f"plane: {res['observe_launches']} "
+                             f"heard_counts launches in {ran} rounds "
+                             f"({res['rounds']} dispatched, {busy} "
+                             f"non-quiescent), expected {ran + busy}")
     if res["tick_errors"] or res["failed_others"] or launches <= 0:
         raise AssertionError(f"plane (shard_devices={ndev}): tick errors "
                              f"{res['tick_errors']}, failed others "
@@ -3982,6 +4315,40 @@ def _flood_row(flood: dict, mdc1: dict, mdc8: dict, ev: dict,
             "library_ms": None}
 
 
+def _observe_row(counts: dict, obs1: dict, obs8: dict, rp: dict,
+                 plane1: dict, cross: dict) -> dict:
+    """The kernels line's entry of the observers' counts
+    (``csrc/observe.cu``), which replace the reference's three XLA
+    reductions of the round: launches on the 1M churn main path with the
+    observers threaded (one a round and one a non-quiescent round), on 8
+    shards, on the plane and in the crossval phase; its time at [64, 1M]
+    in the final matrix's form (``ms``: every row) and the spread's
+    (``ms_spread``: half the rows wanted, and ``ms_no_row``: none, the
+    usual round), each beside its bound and the plain version's time;
+    the device ms a round the profiler saw it take on the graphed churn
+    round with the observers threaded."""
+    main = counts["shapes"]["64x1000000"]
+    obs = rp["cases"]["churn"]["graphed_observers"]
+    return {"name": "heard_counts", "route": "cuda",
+            "source": "consul_tpu_torch/csrc/observe.cu",
+            "replaces": "consul_tpu/gossip/kernel.py:1088",
+            "replaces_also": ["consul_tpu/gossip/kernel.py:1606",
+                              "consul_tpu/gossip/kernel.py:1762"],
+            "launches": obs1["observe_launches"],
+            "sharded_launches": obs8["observe_launches"],
+            "plane_launches": plane1["observe_launches"],
+            "crossval_launches": cross["observe_launches"],
+            "max_abs_err": counts["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "share_of_bound": main["share_of_bound"],
+            "ms_spread": main["ms_spread"],
+            "spread_bound_ms": main["spread_bound_ms"],
+            "ms_no_row": main["ms_no_row"],
+            "device_ms_per_round": obs["observe_device_ms_per_round"],
+            "library_ms": None}
+
+
 def _churn_gates(res: dict, launches_key: str) -> None:
     if res["n_detected"] <= 0 or res["n_false_dead"] != 0:
         raise AssertionError(
@@ -4005,6 +4372,21 @@ def flood_only() -> int:
     return 0
 
 
+def observe_only() -> int:
+    """``--phase observe``: the card line, the observers' kernel's build
+    and the observe phase."""
+    from consul_tpu_torch import _build
+    card_line = card()
+    _build.build("observe")
+    for ln in _build.build_logs.get("observe", "").strip().splitlines():
+        print(f"  nvcc observe: {ln}", flush=True)
+    observe_phase(card_line)
+    return 0
+
+
+PHASES_ALONE = {"event_flood": flood_only, "observe": observe_only}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
@@ -4016,12 +4398,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if sys.argv[1:]:
-        if sys.argv[1:] != ["--phase", "event_flood"]:
-            print("usage: chip_smoke.py [--phase event_flood]",
+        if len(sys.argv) != 3 or sys.argv[1] != "--phase" \
+                or sys.argv[2] not in PHASES_ALONE:
+            print("usage: chip_smoke.py [--phase event_flood|observe]",
                   file=sys.stderr)
             return 2
         try:
-            return flood_only()
+            return PHASES_ALONE[sys.argv[2]]()
         except Exception:
             traceback.print_exc()
             return 1
@@ -4068,12 +4451,14 @@ def main() -> int:
         repeat(8, 1_000_000, seeds=128, ndev=8)
         repeat(64, 1_000_000, seeds=16)
         flood = flood_phase(card_line, sass["flood"])
+        counts = observe_phase(card_line)
         # From here on every launch is a path's: its shapes are held
         # against the plain version after the last path.
         from consul_tpu_torch import prng
-        from consul_tpu_torch.gossip import events, fused
+        from consul_tpu_torch.gossip import events, fused, observe
         events.launch_shapes.clear()
         fused.launch_shapes.clear()
+        observe.launch_shapes.clear()
         prng.launch_shapes.clear()
         prng.launch_groups.clear()
         single = full_path(cpu_full, **FULL_PATH)
@@ -4118,6 +4503,22 @@ def main() -> int:
             raise AssertionError(f"sharded and single-device 1M churn runs "
                                  f"diverged in {diverged}")
         del churn_state, sharded_state
+        # The same churn with the flight ring, hist banks and trace
+        # threaded (the observers' kernel), on 1 and 8 shards.
+        obs1, obs1_carry = main_path(1_000_000, 64, 1000, warm=20,
+                                     block=100, blocks=3, observers=True)
+        obs8, obs8_carry = main_path(1_000_000, 64, 1000, warm=20,
+                                     block=100, blocks=3, ndev=8,
+                                     observers=True)
+        diverged = _diverged(list(zip(obs1_carry, obs8_carry)))
+        emit({"phase": "sharded_observers_main_path_parity",
+              "diverged": diverged,
+              "rounds_per_s_mean": {"single": obs1["rounds_per_s_mean"],
+                                    "sharded": obs8["rounds_per_s_mean"]}})
+        if diverged:
+            raise AssertionError(f"sharded and single-device 1M churn runs "
+                                 f"with observers diverged in {diverged}")
+        del obs1_carry, obs8_carry
         main_path(1_000_000, 64, 0, warm=20, block=100, blocks=3)
         nem1, nem1_state = nemesis_main_path()
         nem8, nem8_state = nemesis_main_path(ndev=8)
@@ -4166,7 +4567,8 @@ def main() -> int:
         path_shapes_vs_plain(set(fused.launch_shapes),
                              set(tds.launch_shapes),
                              set(prng.launch_shapes),
-                             set(events.launch_shapes))
+                             set(events.launch_shapes),
+                             set(observe.launch_shapes))
     except Exception:
         traceback.print_exc()
         return 1
@@ -4222,7 +4624,8 @@ def main() -> int:
         "share_of_bound": tf["summary"]["main_path_bound_ms"]
         / tf["summary"]["main_path_ms"],
         "library_ms": None}, _round_graph_row(rp, churn),
-        _flood_row(flood, mdc1, mdc8, ev, plane1)]})
+        _flood_row(flood, mdc1, mdc8, ev, plane1),
+        _observe_row(counts, obs1, obs8, rp, plane1, cross)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

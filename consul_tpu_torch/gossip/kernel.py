@@ -65,17 +65,15 @@ import torch
 from consul_tpu_torch import prng
 from consul_tpu_torch.prng import _f32
 from consul_tpu_torch._device import resolve_device
-from consul_tpu_torch.gossip import round_args
+from consul_tpu_torch.gossip import observe, round_args
+from consul_tpu_torch.gossip.belief import (  # noqa: F401
+    _AGE_FRESH, _AGE_MASK, _CONF_MASK, _CONF_SHIFT, _MSG_SHIFT, MSG_DEAD,
+    MSG_NONE, MSG_REFUTE, MSG_SUSPECT)
 from consul_tpu_torch.gossip.nemesis import NemesisParams
 from consul_tpu_torch.gossip.params import SwimParams
 from consul_tpu_torch.obs.constants import LATENCY_BUCKETS as _HIST_LAT
 from consul_tpu_torch.obs.constants import N_COLS as _FLIGHT_COLS
 from consul_tpu_torch.obs.constants import SPREAD_BUCKETS as _HIST_SPREAD
-
-MSG_NONE = 0
-MSG_SUSPECT = 1
-MSG_DEAD = 2
-MSG_REFUTE = 3   # alive@inc: refutations AND join announcements
 
 PHASE_FREE = 0
 PHASE_SUSPECT = 1
@@ -84,12 +82,6 @@ PHASE_REFUTED = 3
 PHASE_JOIN = 4   # alive@inc dissemination for a node joining the pool
 
 NEVER = np.int32(2**31 - 1)  # fail_round value for "never fails"
-
-_MSG_SHIFT = 6
-_CONF_SHIFT = 4
-_CONF_MASK = 0x3
-_AGE_MASK = 0xF
-_AGE_FRESH = 0xF  # sentinel: written by this round's probe marks, pre-aging
 
 _I32 = torch.int32
 
@@ -418,10 +410,11 @@ def _nem_edge_drops(nem: NemesisParams, n: int, device, keys,
 # crosses shards masks each shard's own columns (``_owned``) and sums
 # (``_psum``), and the sharded round makes no device->host read that the
 # single-device round does not.  Bytes cross between shards only in
-# ``_roll_sharded``, ``_points``, ``_psum`` and the dissemination tail's
+# ``_roll_sharded``, ``_points``, ``_psum``, the dissemination tail's
 # merge kernel (``fused.fused_merge``, which reads its pins from every
-# shard through a table of shard pointers); placing the shards on several
-# cards changes those.
+# shard through a table of shard pointers) and the observers' kernel
+# (``observe.heard_counts``, which counts every shard in one launch);
+# placing the shards on several cards changes those.
 
 class _ShardCtx(NamedTuple):
     """Sharding context threaded through the round phases; ``None``
@@ -853,7 +846,7 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
                   slot_dead_round, slot_of_node, incarnation, drops,
                   conf_cap, rx_ok, sc: _ShardCtx | None = None, hist=None,
                   nem: NemesisParams | None = None,
-                  nem_state: NemState | None = None):
+                  nem_state: NemState | None = None, obs_scratch=None):
     """Refutation, suspicion-timer firing, episode GC, stats (reference
     ``_finish_round``).
 
@@ -864,7 +857,8 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
     ``full_heard`` are the round's own tensors (one per shard when
     sharded) and are written in place.  With ``nem_state`` threaded, a
     subject that refuted a suspicion about itself raises its own LHM
-    (Lifeguard).  Returns ``(state, hist, nem_state)``."""
+    (Lifeguard).  ``obs_scratch``: the observers' kernel's scratch
+    (``observe.count``).  Returns ``(state, hist, nem_state)``."""
     N = p.n
     H = idx.shape[0]
     dev = slot_node.device
@@ -977,19 +971,15 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
 
     if hist is not None:
         # Spread: members still holding the verdict at slot GC (read
-        # before the GC wipe); integer log2 buckets via bit length.
+        # before the GC wipe), counted only on the rows recycled now (one
+        # launch of the observers' kernel, all shards); the others count
+        # 0, which _hist_add drops.  Integer log2 buckets via bit length.
+        spread = expired & (sl_dead_round >= 0)
         verdict_msg = torch.where(sl_phase == PHASE_DEAD, MSG_DEAD,
-                                  MSG_REFUTE)
-
-        def _n_hold(h, mem):
-            return (((h >> _MSG_SHIFT) == verdict_msg[:, None])
-                    & mem[None, :]).sum(dim=1, dtype=_I32)
-
-        if sc is None:
-            n_hold = _n_hold(heard_sub, member)
-        else:
-            n_hold = _psum([_n_hold(h, _sloc(sc, member, i))
-                            for i, h in shards])
+                                  MSG_REFUTE).to(_I32)
+        n_hold = observe.count(heard_sub, member, p.spread_budget_rounds,
+                               verdict_msg, spread,
+                               obs_scratch)[observe.HOLD]
         blen = ((n_hold[:, None]
                  >> torch.arange(31, dtype=_I32, device=dev)) > 0).sum(
             dim=1, dtype=_I32)
@@ -998,8 +988,7 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
             dwell=_hist_add(hist.dwell, new_dead | refute_now,
                             rnd - sl_start),
             refute=_hist_add(hist.refute, refute_now, rnd - sl_start),
-            spread=_hist_add(hist.spread, expired & (sl_dead_round >= 0),
-                             blen),
+            spread=_hist_add(hist.spread, spread, blen),
         )
 
     member = _set_drop(member, torch.where(is_dead, node_c, N), False)
@@ -1052,16 +1041,21 @@ def _swim_round_impl(state: SwimState, ra, v: Variant,
                      hist: HistBank | None = None,
                      sc: _ShardCtx | None = None,
                      nem: NemesisParams | None = None,
-                     nem_state: NemState | None = None, dst=None):
+                     nem_state: NemState | None = None, dst=None,
+                     trace: bool = False, obs_scratch=None):
     """One round + (optionally) its flight-recorder row + histograms,
     under a nemesis schedule when ``nem`` is given (with the Lifeguard
     registers when ``nem_state`` is).
 
     ``ra`` is the round's row (``round_args.RoundArgs``), ``v`` its
     ``Variant``.  ``dst``: under the round program's capture, the
-    program's buffers ``(state, hist, nem_state, tx)`` that the tail's
-    branches write (``_switch``); unused eagerly.  Returns ``(state, row,
-    hist, nem_state)``; ``row`` is None unless ``collect``."""
+    program's buffers ``(state, hist, nem_state)`` that the tail's
+    branches write (``_switch``); unused eagerly.  ``obs_scratch``: the
+    observers' kernel's scratch, of at least S rows (``observe.count``;
+    None: each launch makes one).  Returns ``(state, row, hist,
+    nem_state, holders)``; ``row`` is None unless ``collect``,
+    ``holders`` (the trace's DEAD and REFUTE holders a slot) None unless
+    ``trace``."""
     rnd = ra.rnd
     N, S = p.n, p.slots
     dev = state.slot_node.device
@@ -1136,31 +1130,16 @@ def _swim_round_impl(state: SwimState, ra, v: Variant,
                     for i in range(sc.ndev))
         return h
 
-    def _tx(new_heard):
-        # Dissemination bytes: every in-budget rumor entry pushed to
-        # ``fanout`` peers.
-        if not collect:
-            return None
-
-        def one(h):
-            live = ((h >> _MSG_SHIFT) > 0) & ((h & _AGE_MASK)
-                                              < p.spread_budget_rounds)
-            return p.fanout * live.sum(dtype=_I32)
-
-        return one(new_heard) if sc is None else _psum(
-            [one(h) for h in new_heard])
-
     def _tail(heard_sub, full_heard, idx, cap):
         heard_sub = _disseminate(p, ra, v, heard_sub, mf, rx_ok, cap, sc,
                                  nem)
         heard_sub = _maybe_pushpull(heard_sub, rx_ok)
-        st, hb, ns = _finish_round(p, state, rnd, fail_round, alive, member,
-                                   heard_sub, full_heard, idx, slot_node,
-                                   slot_phase, slot_inc, slot_start,
-                                   slot_nsusp, slot_dead_round, slot_of_node,
-                                   incarnation, drops, conf_cap, rx_ok, sc,
-                                   hist, nem, nem_state)
-        return st, hb, ns, _tx(st.heard)
+        return _finish_round(p, state, rnd, fail_round, alive, member,
+                             heard_sub, full_heard, idx, slot_node,
+                             slot_phase, slot_inc, slot_start, slot_nsusp,
+                             slot_dead_round, slot_of_node, incarnation,
+                             drops, conf_cap, rx_ok, sc, hist, nem,
+                             nem_state, obs_scratch)
 
     def quiescent():
         # The belief matrix is all-zero and every age/gossip/timer/GC
@@ -1173,8 +1152,7 @@ def _swim_round_impl(state: SwimState, ra, v: Variant,
             drops=drops, n_detected=state.n_detected,
             sum_detect_rounds=state.sum_detect_rounds,
             n_false_dead=state.n_false_dead, n_refuted=state.n_refuted)
-        tx = (torch.zeros((), dtype=_I32, device=dev) if collect else None)
-        return st, hist, nem_state, tx
+        return st, hist, nem_state
 
     def hot_tail():
         # Hot tier: the H live episodes' rows (top_k over the 0/1 activity
@@ -1202,9 +1180,23 @@ def _swim_round_impl(state: SwimState, ra, v: Variant,
     else:
         which = (n_active > 0).to(_I32)
         branches, names = (quiescent, full_tail), ("quiescent", "full")
-    new_state, hist_out, nem_state, tx = _switch(which, branches, names, dst)
+    new_state, hist_out, nem_state = _switch(which, branches, names, dst)
+    if not (collect or trace):
+        return new_state, None, hist_out, nem_state, None
+
+    # -- the observers of the final matrix: one launch of the observers'
+    # kernel (all shards) for the trace's holders and the flight row's
+    # dissemination bytes, every in-budget rumor entry pushed to
+    # ``fanout`` peers (0 on the quiescent branch, as the reference's
+    # cond gives it).
+    counts = observe.count(new_state.heard, new_state.member,
+                           p.spread_budget_rounds, scratch=obs_scratch)
+    holders = ((counts[observe.DEAD], counts[observe.REFUTE]) if trace
+               else None)
     if not collect:
-        return new_state, None, hist_out, nem_state
+        return new_state, None, hist_out, nem_state, holders
+    tx = torch.where(n_active > 0,
+                     p.fanout * counts[observe.LIVE].sum(dtype=_I32), 0)
 
     # -- flight row (obs.constants.FLIGHT_COLS order).
     row = torch.stack([
@@ -1218,46 +1210,34 @@ def _swim_round_impl(state: SwimState, ra, v: Variant,
         new_state.drops - before[3],
         new_state.member.sum(dtype=_I32),
     ]).to(_I32)
-    return new_state, row, hist_out, nem_state
-
-
-def _trace_row(state: SwimState, sc: _ShardCtx | None):
-    """The round's ``RoundTrace`` row, six [S] tensors."""
-    def holders(h, mem):
-        msg = h >> _MSG_SHIFT
-        return (((msg == MSG_DEAD) & mem[None, :]).sum(dim=1, dtype=_I32),
-                ((msg == MSG_REFUTE) & mem[None, :]).sum(dim=1, dtype=_I32))
-
-    if sc is None:
-        n_dead, n_alive = holders(state.heard, state.member)
-    else:
-        per = [holders(h, _sloc(sc, state.member, i))
-               for i, h in enumerate(state.heard)]
-        n_dead = _psum([d for d, _ in per])
-        n_alive = _psum([a for _, a in per])
-    return (state.slot_node, state.slot_phase, state.slot_start,
-            state.slot_dead_round, n_dead, n_alive)
+    return new_state, row, hist_out, nem_state, holders
 
 
 def _round_once(p, table, step, state, v, fail_round, join_round, hist,
                 nem_state, sc=None, nem=None, rows=None, trace_bufs=None,
-                dst=None):
+                dst=None, obs_scratch=None):
     """The round at row ``step`` (a device counter, int64 [1]) of the
     device ``table``: the round itself, its flight row into ``rows`` at
     the row's ring slot and its trace row into ``trace_bufs`` at
     ``step``, when given; then ``step`` advances.  Nothing here depends
     on the round number but through the table, so the round program
-    captures this call once per variant.  Returns ``(state, hist,
-    nem_state)``."""
+    captures this call once per variant; ``obs_scratch`` is the
+    observers' kernel's scratch (``_swim_round_impl``).  Returns
+    ``(state, hist, nem_state)``."""
     lay = round_args.layout(p.fanout, p.indirect_k)
     ra = round_args.row_args(lay, table.index_select(0, step)[0])
-    state, row, hist, nem_state = _swim_round_impl(
+    state, row, hist, nem_state, holders = _swim_round_impl(
         state, ra, v, fail_round, p, join_round, rows is not None, hist, sc,
-        nem, nem_state, dst)
+        nem, nem_state, dst, trace=trace_bufs is not None,
+        obs_scratch=obs_scratch)
     if rows is not None:
         rows.index_copy_(0, ra.flight.view(1).long(), row[None])
     if trace_bufs is not None:
-        for buf, x in zip(trace_bufs, _trace_row(state, sc)):
+        # The round's RoundTrace row: the slot registers and the members
+        # holding each slot's DEAD and REFUTE.
+        for buf, x in zip(trace_bufs, (state.slot_node, state.slot_phase,
+                                       state.slot_start,
+                                       state.slot_dead_round, *holders)):
             buf.index_copy_(0, step, x[None])
     step.add_(1)
     return state, hist, nem_state
@@ -1399,10 +1379,12 @@ def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
     step = torch.zeros(1, dtype=torch.int64, device=dev)
     bufs = ([torch.zeros((steps, p.slots), dtype=_I32, device=dev)
              for _ in RoundTrace._fields] if trace else None)
+    obs_scratch = observe.counts_scratch(p.slots, dev)
     for k in range(steps):
         state, hist, nem_state = _round_once(
             p, table, step, state, round_variant(p, nem, rnd + k),
-            fail_round, join_round, hist, nem_state, sc, nem, rows, bufs)
+            fail_round, join_round, hist, nem_state, sc, nem, rows, bufs,
+            obs_scratch=obs_scratch)
     return _carry(state, flight, rows, steps, hist, nem_state), (
         RoundTrace(*bufs) if trace else None)
 

@@ -62,7 +62,8 @@ import warnings
 import torch
 
 from consul_tpu_torch import _build, prng
-from consul_tpu_torch.gossip import events, fused, kernel, round_args
+from consul_tpu_torch.gossip import (events, fused, kernel, observe,
+                                     round_args)
 from consul_tpu_torch.gossip.kernel import (RoundTrace, _I32, _leaves,
                                             _round_once, round_variant)
 
@@ -73,7 +74,8 @@ MAX_PROGRAMS = 8     # programs kept (each holds its buffers and its pool)
 # Host counters the kernel wrappers keep, attributed per captured segment.
 _COUNTERS = ((prng, "launches"), (prng, "calls"), (fused, "launches"),
              (fused, "merge_launches"), (fused, "drop_launches"),
-             (fused, "merge_drop_launches"), (events, "launches"))
+             (fused, "merge_drop_launches"), (events, "launches"),
+             (observe, "launches"))
 
 # Joined-graph launches (one a replayed round), captures, their seconds
 # and the memory the captures reserved.
@@ -367,8 +369,10 @@ class RoundProgram(_Program):
         self.step = z(1, dtype=torch.int64)
         self.trace = ([z((TABLE_ROWS, p.slots), dtype=_I32)
                        for _ in RoundTrace._fields] if trace else None)
-        self.tx = z((), dtype=_I32) if flight is not None else None
-        self.dst = (self.state, self.hist, self.nem_state, self.tx)
+        self.dst = (self.state, self.hist, self.nem_state)
+        # The observers' kernel's scratch: the program's own, zero between
+        # its launches, which run one at a time on its stream.
+        self.obs_scratch = observe.counts_scratch(p.slots, dev)
 
     def _round(self, v, **bufs):
         return _round_once(self.p, self.table, bufs.get("step", self.step),
@@ -378,7 +382,7 @@ class RoundProgram(_Program):
                            bufs.get("nem_state", self.nem_state), self.sc,
                            self.nem, bufs.get("rows", self.rows),
                            bufs.get("trace", self.trace),
-                           bufs.get("dst"))
+                           bufs.get("dst"), self.obs_scratch)
 
     def _warm(self, v) -> None:
         self._round(v, step=self.step.clone(),
@@ -615,7 +619,8 @@ def disown(prog: _Program) -> None:
 
 def settle_counts() -> None:
     """Fold every program's device-side branch counts into the host
-    counters (``prng``'s and ``fused``'s launches, ``kernel.tail_rounds``);
-    a reader of those counters calls this first."""
+    counters (``prng``'s, ``fused``'s, ``events``' and ``observe``'s
+    launches, ``kernel.tail_rounds``); a reader of those counters calls
+    this first."""
     for prog in list(_programs.values()) + _owned:
         prog.settle()

@@ -3,6 +3,7 @@
     python -m consul_tpu_torch.profile_round [--churn-ppm 1000] [--rounds 30]
                                              [--ndev N] [--nemesis SCENARIO]
                                              [--eager] [--observers]
+                                             [--observer-fn FN=OBSERVER]
     python -m consul_tpu_torch.profile_round --multidc [--ndev 8]
 
 Runs bench.py's LAN regime on the card (``lan_profile(N, SLOTS,
@@ -15,7 +16,20 @@ round's Python phases do not run in a replay, so the graphed line has no
 phase rows.  ``--eager`` also profiles the eager round in the same call
 (an A/B on one card) and prints its line after, with the phases below.
 ``--observers`` threads the flight ring, the hist banks and the trace
-through the rounds, as the plane's dispatch does.
+through the rounds, as the plane's dispatch does, and then attributes
+the observers' device time: a third line, from ``--rounds`` eager rounds
+under the profiler, gives each observer its device ms and kernels a
+round and its kernels by name.  The observers' own kernel
+(``csrc/observe.cu``) goes by its name: the want-masked instance is the
+hist banks' spread, the other the final matrix's, which serves the
+flight row's dissemination bytes ``tx`` and the trace's holders at
+once.  Any other kernel goes by the torch op that launched it, which a
+dispatch mode runs under a profiler range naming the innermost frame of
+``gossip/kernel.py`` whose function is an observer's (``_hist_add``, the
+banks' adds, and those ``--observer-fn FN=OBSERVER`` adds: a checkout
+whose observers are torch ops in closures of their own names them so,
+and one that lacks a named function is refused).  The rest is the
+round's.
 With ``--ndev N`` the
 rounds are the sharded round (``run_rounds_sharded``, N column shards on
 the card), and the phases add the sharded round's own: the halo pins
@@ -64,7 +78,9 @@ table build (``multidc._tables``).
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import sys
 import time
 
 import numpy as np
@@ -96,7 +112,8 @@ SINGLE_PHASES = {  # the single-device round's own
 HAND_KERNELS = {"draws": "threefry::draw_kernel",
                 "tail": "dissem_tail::tail_kernel",
                 "conditions": "round_graph::set_condition",
-                "flood": "evflood::flood_kernel"}
+                "flood": "evflood::flood_kernel",
+                "observe": "observe::counts_kernel"}
 SHARDED_PHASES = {  # the sharded round's own, inside the phases above
     "halo_pins": (fused, "_roll_sharded"),
     "merge_launches": (fused, "fused_merge"),
@@ -182,6 +199,11 @@ def main(argv=None) -> int:
     ap.add_argument("--observers", action="store_true",
                     help="thread the flight ring, hist banks and trace "
                          "through the rounds, as the plane does")
+    ap.add_argument("--observer-fn", action="append", default=[],
+                    metavar="FN=OBSERVER",
+                    help="with --observers, also attribute the torch ops "
+                         "of gossip/kernel.py's function (or closure) FN "
+                         "to OBSERVER")
     ap.add_argument("--multidc", action="store_true",
                     help="profile the multi-DC round, graphed and eager")
     args = ap.parse_args(argv)
@@ -193,6 +215,8 @@ def main(argv=None) -> int:
         return 0
     for graphed in (True, False) if args.eager else (True,):
         print(json.dumps(profile_route(args, graphed)), flush=True)
+    if args.observers:
+        print(json.dumps(profile_observers(args)), flush=True)
     return 0
 
 
@@ -286,6 +310,173 @@ def profile_multidc(args, graphed: bool) -> dict:
     md.close_programs()
     torch.cuda.empty_cache()
     return res
+
+
+# The observers' kernel's instances (csrc/observe.cu): the want-masked
+# one is the spread's launch, the other the final matrix's.
+OBSERVER_KERNELS = (("observe::counts_kernel<true>", "spread"),
+                    ("observe::counts_kernel<false>", "tx_and_trace_holders"))
+# Functions of gossip/kernel.py whose torch ops are one observer's.
+OBSERVER_FUNCTIONS = {"_hist_add": "hist_adds"}
+_LABEL = "observer:"
+
+
+def _kernel_functions() -> set:
+    """The names of gossip/kernel.py's functions, closures included."""
+    todo = [c for c in (getattr(inspect.unwrap(f), "__code__", None)
+                        for f in vars(kernel).values() if callable(f))
+            if c is not None and c.co_filename == kernel.__file__]
+    names = set()
+    while todo:
+        code = todo.pop()
+        names.add(code.co_name)
+        todo += [c for c in code.co_consts if inspect.iscode(c)]
+    return names
+
+
+def _observer_functions(pairs) -> dict:
+    """``OBSERVER_FUNCTIONS`` with the ``--observer-fn FN=OBSERVER``
+    pairs; raises for a name that is no function of gossip/kernel.py."""
+    out = dict(OBSERVER_FUNCTIONS)
+    for pair in pairs:
+        fn, sep, name = pair.partition("=")
+        if not (fn and sep and name):
+            raise SystemExit(f"profile_round: --observer-fn takes "
+                             f"FN=OBSERVER, got {pair!r}")
+        out[fn] = name
+    missing = sorted(set(out) - _kernel_functions())
+    if missing:
+        raise SystemExit(f"profile_round: gossip/kernel.py has no "
+                         f"function {missing}")
+    return out
+
+
+def _observer_mode(functions: dict):
+    """A dispatch mode that runs each torch op under a profiler range
+    naming the observer whose code calls it: the innermost frame of the
+    kernel module, from the op outward, whose function ``functions``
+    names."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def observer(frame):
+        while frame is not None:
+            code = frame.f_code
+            if code.co_filename == kernel.__file__ \
+                    and code.co_name in functions:
+                return functions[code.co_name]
+            frame = frame.f_back
+        return None
+
+    class Labels(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = observer(sys._getframe(1))
+            if name is None:
+                return func(*args, **(kwargs or {}))
+            with record_function(_LABEL + name):
+                return func(*args, **(kwargs or {}))
+
+    return Labels()
+
+
+def _observer_of(op, kernel_name: str) -> str:
+    """The observer a device kernel is one of (``op``: the CPU op that
+    launched it, or None for a launch no op made), or ``round``."""
+    for part, name in OBSERVER_KERNELS:
+        if part in kernel_name:
+            return name
+    while op is not None:
+        if op.name.startswith(_LABEL):
+            return op.name[len(_LABEL):]
+        op = op.cpu_parent
+    return "round"
+
+
+def _attribute(events) -> dict:
+    """observer -> kernel name -> (device us, launches) of a profile's
+    device kernels: those a torch op launched by that op
+    (``_observer_of``), the rest (launches no op made, through ctypes) by
+    their names alone.  The profiler also puts each observer's range on
+    the device's timeline, over its kernels; those spans are not
+    kernels and are left out."""
+    left: dict = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA \
+                and not e.name.startswith(_LABEL):
+            us, n = left.get(e.name, (0.0, 0))
+            left[e.name] = (us + e.time_range.end - e.time_range.start, n + 1)
+    acc: dict = {}
+
+    def add(name, kname, us, n):
+        rows = acc.setdefault(name, {})
+        u0, n0 = rows.get(kname, (0.0, 0))
+        rows[kname] = (u0 + us, n0 + n)
+
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        for k in getattr(e, "kernels", ()):
+            add(_observer_of(e, k.name), k.name, k.duration, 1)
+            us, n = left.get(k.name, (0.0, 0))
+            left[k.name] = (us - k.duration, n - 1)
+    for kname, (us, n) in left.items():
+        if n > 0:
+            add(_observer_of(None, kname), kname, us, n)
+    return acc
+
+
+def profile_observers(args) -> dict:
+    """The observers' device time a round by observer and kernel name
+    (the module docstring): eager rounds of the 1M churn round with the
+    flight ring, hist banks and trace threaded, each torch op run under a
+    profiler range that names its observer."""
+    functions = _observer_functions(args.observer_fn)
+    dev = torch.device("cuda")
+    p = lan_profile(N, slots=SLOTS, hot_slots=0, dissem="fused")
+    n_fail = max(1, N * args.churn_ppm // 1_000_000) if args.churn_ppm else 0
+    R = args.rounds
+    fail = np.full(p.n, kernel.NEVER, np.int32)
+    if n_fail:
+        fail[:n_fail] = ((np.arange(n_fail, dtype=np.int64) * (WARM + R))
+                         // n_fail)
+    fail_t = torch.from_numpy(fail).to(dev)
+    key = prng.key(42)
+    obs = {"flight": kernel.init_flight(device=dev),
+           "hist": kernel.init_hist(device=dev)}
+
+    def run(st, steps):
+        (st, obs["flight"], obs["hist"]), _ = kernel.run_rounds(
+            st, key, fail_t, p, steps, trace=True, device=dev,
+            graphed=False, **obs)
+        int(st.round)
+        torch.cuda.synchronize()
+        return st
+
+    state = run(kernel.init_state(p, device=dev), WARM)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with _observer_mode(functions):
+            state = run(state, R)
+    acc = _attribute(list(prof.events()))
+    out = {}
+    for name, rows in sorted(acc.items()):
+        top = sorted(rows.items(), key=lambda kv: -kv[1][0])
+        out[name] = {
+            "device_ms_per_round": sum(us for us, _ in rows.values())
+            / 1e3 / R,
+            "kernels_per_round": sum(n for _, n in rows.values()) / R,
+            "by_kernel": [{"kernel": k[:90], "calls_per_round": n / R,
+                           "device_ms_per_round": us / 1e3 / R}
+                          for k, (us, n) in top[:6]]}
+    observers = {k: v for k, v in out.items() if k != "round"}
+    return {"device": torch.cuda.get_device_name(dev), "route": "eager",
+            "attribution": "observers", "n": p.n, "slots": p.slots,
+            "churn_ppm": args.churn_ppm, "warm_rounds": WARM, "rounds": R,
+            "observers_device_ms_per_round": sum(
+                v["device_ms_per_round"] for v in observers.values()),
+            "round_device_ms_per_round": out.get("round", {}).get(
+                "device_ms_per_round", 0.0),
+            "observers": observers,
+            "round_top_kernels": out.get("round", {}).get("by_kernel", [])}
 
 
 def profile_route(args, graphed: bool) -> dict:

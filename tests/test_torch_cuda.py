@@ -673,3 +673,98 @@ def test_graphed_multidc_matches_eager_on_card(ndev):
         assert np.array_equal(he[f], hg[f]), f
     assert np.array_equal(ce, cg)
     assert se["lan"]["n_detected"].min() > 0
+
+
+def _observe_inputs(R, N, seed):
+    """Every byte value, member with holes, verdicts DEAD and REFUTE and
+    out of range, a want mask with holes."""
+    rng = np.random.default_rng(seed)
+    heard = rng.integers(0, 256, (R, N)).astype(np.uint8)
+    member = rng.random(N) < 0.8
+    verdict = rng.choice(np.asarray([2, 3, 2, 3, -1, 7], np.int32), R)
+    want = rng.random(R) < 0.5
+    return [torch.from_numpy(a).cuda() for a in (heard, member, verdict,
+                                                 want)]
+
+
+@pytest.mark.parametrize("R, N, ndev", [(64, 4096, 1), (8, 1001, 1),
+                                        (64, 4104, 2), (16, 8 * 1250, 8),
+                                        (64, 8 * 31_250, 8), (5, 7, 1)])
+def test_heard_counts_match_plain_on_card(R, N, ndev):
+    """``csrc/observe.cu`` against ``heard_counts_ref`` on the card: the
+    16-byte, 4-byte and byte paths, 1, 2 and 8 shards, with and without
+    a verdict and a want mask, budgets 0 to 16: every count, tolerance
+    0; one launch each."""
+    _need_card()
+    from consul_tpu_torch.gossip import observe
+    heard, member, verdict, want = _observe_inputs(R, N, seed=R + N)
+    L = N // ndev
+    shards = tuple(heard[:, i * L:(i + 1) * L].contiguous()
+                   for i in range(ndev))
+    arg = shards if ndev > 1 else heard
+    for budget in (0, 1, 3, 14, 16):
+        for v, w in ((None, None), (verdict, None), (verdict, want),
+                     (None, torch.zeros_like(want))):
+            n0 = observe.launches
+            got = observe.heard_counts(arg, member, budget, v, w)
+            torch.cuda.synchronize()
+            assert observe.launches == n0 + 1
+            assert torch.equal(got, observe.heard_counts_ref(
+                arg, member, budget, v, w)), (budget, v is None, w is None)
+
+
+@pytest.mark.parametrize("ndev", [None, 4])
+def test_graphed_observers_launch_the_kernel_on_card(ndev):
+    """With the flight ring, hist banks and trace threaded, the graphed
+    round launches ``heard_counts`` once a round for the trace and the
+    flight row and once a non-quiescent round for the spread, on one card
+    and on shards; the results equal the eager round's."""
+    _need_card()
+    from consul_tpu_torch.gossip import observe
+    from consul_tpu_torch.gossip.params import lan_profile
+    n, steps = 4000, 120
+    p = lan_profile(n, slots=32, loss_rate=0.01, hot_slots=8)
+    fail, join = _churn_inputs(n, steps, 7)
+    st = tk.init_state(p)._replace(member=torch.from_numpy(join == NEVER)
+                                   .cuda())
+    runs = {}
+    for graphed in (False, True):
+        program.settle_counts()
+        n0, tails = observe.launches, dict(tk.tail_rounds)
+        a = dict(trace=True, join_round=join, flight=tk.init_flight(),
+                 hist=tk.init_hist(), graphed=graphed)
+        if ndev:
+            out = tk.run_rounds_sharded(st, prng.key(8), fail, p, steps,
+                                        ndev=ndev, **a)
+        else:
+            out = tk.run_rounds(st, prng.key(8), fail, p, steps, **a)
+        torch.cuda.synchronize()
+        program.settle_counts()
+        busy = sum(tk.tail_rounds[k] - tails[k] for k in ("hot", "full"))
+        assert busy > 0
+        assert observe.launches - n0 == steps + busy
+        runs[graphed] = out
+    (ce, te), (cg, tg) = runs[False], runs[True]
+    assert _same_fields(list(ce) + [te], list(cg) + [tg]) == []
+    assert int(ce[2].spread.sum()) > 0
+
+
+def test_round_programs_own_their_observer_scratch():
+    """Each round program launches the observers' kernel with a scratch
+    of its own, left zero by its replays."""
+    _need_card()
+    from consul_tpu_torch.gossip.params import lan_profile
+    before = {id(g) for g in program._programs.values()}
+    for n in (4000, 8000):
+        p = lan_profile(n, slots=24, loss_rate=0.01, hot_slots=8)
+        fail, join = _churn_inputs(n, 60, 3)
+        st = tk.init_state(p)._replace(
+            member=torch.from_numpy(join == NEVER).cuda())
+        tk.run_rounds(st, prng.key(5), fail, p, 60, trace=True,
+                      join_round=join, flight=tk.init_flight(),
+                      hist=tk.init_hist(), graphed=True)
+    torch.cuda.synchronize()
+    progs = [g for g in program._programs.values() if id(g) not in before]
+    assert len(progs) == 2
+    assert len({g.obs_scratch.data_ptr() for g in progs}) == 2
+    assert all(int(g.obs_scratch.abs().sum()) == 0 for g in progs)

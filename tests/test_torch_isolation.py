@@ -402,6 +402,48 @@ def test_store_wrappers_never_fall_back():
             set(tds.launch_shapes)) == before
 
 
+def test_observe_never_falls_back(monkeypatch):
+    """The observers' counts take the plain version only for a CPU
+    tensor: the kernel wrapper refuses anything but a CUDA tensor, and a
+    tensor that is not on the CPU whose kernel cannot be built raises the
+    build's error instead of counting with the plain version."""
+    from consul_tpu_torch import _build
+    from consul_tpu_torch.gossip import observe
+    R, N = 4, 16
+    heard = torch.zeros((R, N), dtype=torch.uint8)
+    member = torch.ones(N, dtype=torch.bool)
+    verdict = torch.full((R,), 2, dtype=torch.int32)
+    want = torch.ones(R, dtype=torch.bool)
+    before = (observe.launches, set(observe.launch_shapes))
+    out = observe.count(heard, member, 3, verdict, want)
+    assert out.shape == (4, R) and (observe.launches,
+                                    set(observe.launch_shapes)) == before
+    meta = [t.to("meta") for t in (heard, member, verdict, want)]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        observe.heard_counts(heard, member, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        observe.count(*meta[:2], 3, *meta[2:])
+    shards = tuple(h.to("meta") for h in heard.split(N // 2, dim=1))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        observe.count(shards, meta[1], 3)
+
+    # A tensor the wrapper takes, and a build that fails: the error, not
+    # the plain version's counts.
+    def failed_build(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(observe, "require_cuda", lambda name, t: None)
+    monkeypatch.setattr(_build, "build", failed_build)
+    monkeypatch.setattr(_build, "_libs", {})
+    observe._lib.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed for observe"):
+            observe.count(*meta[:2], 3, *meta[2:])
+    finally:
+        observe._lib.cache_clear()
+    assert (observe.launches, set(observe.launch_shapes)) == before
+
+
 def test_import_builds_nothing(tmp_path):
     """Importing the port compiles no kernel: not fused_dissem's or
     fused_merge's, not the store's kv_apply or watch_match (the build runs
