@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase event_flood   # that phase alone (A/B)
     python3 chip_smoke.py --phase observe       # that phase alone (A/B)
+    python3 chip_smoke.py --phase finish        # that phase alone (A/B)
 
 Each phase prints one JSON line; any failure exits non-zero and the
 result lines are not printed.
@@ -13,7 +14,8 @@ result lines are not printed.
    and ``fused_merge``), ``csrc/kv_store.cu``,
    ``csrc/threefry.cu``, ``csrc/round_graph.cu`` (the round
    program's conditional nodes), ``csrc/event_flood.cu`` (the event
-   round) and ``csrc/observe.cu`` (the round's observers' counts) with
+   round), ``csrc/observe.cu`` (the round's observers' counts) and
+   ``csrc/finish.cu`` (the finish step's fire pass and row wipes) with
    nvcc for sm_90a, one nvcc each, all started together (ptxas report).
    threefry: every entry point of the round's draws
    (``consul_tpu_torch/prng.py``: bits, uniform, uniform rows, below,
@@ -91,6 +93,23 @@ result lines are not printed.
    (``observe_ops_per_word``, counted by hand) over the INT32 rate, the
    larger.  ``--phase observe`` runs the card line, the kernel's build
    and this phase alone.
+6d. finish: the finish step's kernels (``csrc/finish.cu``:
+   ``fire_timers``, the refutation's byte and the timer fire, and
+   ``wipe_rows``) against ``fire_timers_ref`` / ``wipe_rows_ref`` on the
+   card, tolerance 0 in every byte and in ``fired``, at [64, 1M] (the 1M
+   round), [32, 250,000] (a multi-DC LAN pool), [64, 16,001] (the byte
+   path), [64, 250,000] on 8 shards of 31,250 (L % 16 == 2) and [8, 1M]
+   (the hot tier's rows), over 64 seeds each (every byte value, rx
+   holes, the timer masks of every row, of two and of none, with and
+   without the refutation, its columns on the shards' edges; the wipe of
+   two rows and the last, of none and of all).  Times from CUDA-graph
+   replays (20 launches a graph), the fire also on fresh bytes (replays
+   of a restore of the matrix and the launch, less the restore's), the
+   plain versions', each beside the
+   bytes bound of the rows the launch reads and writes (the rule's
+   operations, ``finish_ops_per_word``, counted by hand, over the INT32
+   rate where that is larger).  ``--phase finish`` runs the card line,
+   the kernels' build and this phase alone.
 7. full_path: ``run_rounds`` at n=16,000, S=64 (lan_profile, churn,
    loss, joins, flight ring, hist banks, trace) once on the card and
    once on the CPU (a worker process started with the script, which runs
@@ -99,7 +118,17 @@ result lines are not printed.
    (the trace and the flight row) and once a non-quiescent round (the
    hist banks' spread), and no more (gated here, on 8 shards in 8, and on
    the main paths, round_program, crossval, multidc_full_path and the
-   plane wherever those thread an observer).
+   plane wherever those thread an observer).  On every path, the finish
+   step's kernels at their exact count: ``fire_timers`` once a
+   non-quiescent round, ``wipe_rows`` once a round (the probe tick's
+   rearm), once a join round (the stale wipe) and once a non-quiescent
+   round (the GC), on every pool's rounds (gated here, in 8, on the main
+   and nemesis main paths, round_program's both routes, crossval, both
+   multi-DC paths and the plane); on the graphed single-pool paths the
+   belief matrix copied once a call and once a full-tail round, never in
+   a quiescent or hot round (``program.copy_bytes``; the healthy main
+   path: only the calls' loads), and round_program's caller state left
+   bit-identical by both routes.
 8. sharded_full_path: the same run through ``run_rounds_sharded(ndev=8)``
    on the card; every field must equal the card run of phase 7; merge
    launches = the non-quiescent rounds (one launch for all shards), none
@@ -244,7 +273,9 @@ event flood was launched at (``events.launch_shapes``), under 4 rows on
 fresh inputs against the plain version; and every (R, L, ndev, budget,
 verdict, want) the observers' counts were launched at
 (``observe.launch_shapes``), on 4 fresh inputs against the plain
-version.
+version; and every (kernel, R, L, ndev, refutation) the fire pass and
+the wipe were launched at (``finish.launch_shapes``), on 4 fresh inputs
+against the plain versions.
 
 The device-resident state store (phase device_store, after gossipd;
 ``consul_tpu_torch/state/device_store.py``, kernels ``kv_apply`` and
@@ -295,7 +326,10 @@ time against the eager round's; for the event flood, its launches on the
 [32, 250,000] and [64, 1M]; for the observers' counts, their launches on
 the 1M churn path with the observers threaded, on 8 shards, on the plane
 and in crossval, their time at [64, 1M] in the final matrix's and the
-spread's forms) and, last, the ok line.  Needs
+spread's forms; for the finish step's fire pass and wipe, their
+launches on the churn main path, on 8 shards, on the plane, in crossval
+and on the 1M multi-DC path, their time at [64, 1M]) and, last, the ok
+line.  Needs
 one CUDA card: without one it exits 2 before printing anything else.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -407,10 +441,11 @@ def card() -> str:
 # tail's entry points fused_dissem and fused_merge are in dissem_tail.cu,
 # the device store's kv_apply and watch_match in kv_store.cu, the round's
 # random draws in threefry.cu, the round program's conditional nodes in
-# round_graph.cu, the event round in event_flood.cu and the round's
-# observers' counts (heard_counts) in observe.cu.
+# round_graph.cu, the event round in event_flood.cu, the round's
+# observers' counts (heard_counts) in observe.cu and the finish step's
+# fire pass and row wipes (fire_timers, wipe_rows) in finish.cu.
 SOURCES = ("dissem_tail", "kv_store", "threefry", "round_graph", "event_flood",
-           "observe")
+           "observe", "finish")
 
 
 def build() -> None:
@@ -1360,9 +1395,250 @@ def observe_shapes_vs_plain(shapes: set) -> list:
     return rows
 
 
+# -- the finish step's passes: the fire pass and the row wipes ------------------
+
+# The 1M round's matrix, a multi-DC LAN pool's, the byte path (N % 4 ==
+# 1), 8 shards of 31,250 (L % 16 == 2: the byte path across shards), the
+# hot tier's gathered rows at 1M.
+FINISH_SHAPES = ((64, 1_000_000, 1), (32, 250_000, 1), (64, 16_001, 1),
+                 (64, 250_000, 8), (8, 1_000_000, 1))
+# Rows whose timer can fire in a usual 1M churn round (a slot or two at
+# the end of its suspicion), and rows a round wipes.
+FINISH_FEW = 2
+
+
+def finish_ops_per_word() -> int:
+    """The fire rule's integer operations a 32-bit word (four columns of
+    one row), counted by hand from ``csrc/finish.cu``'s ``fire_word`` in
+    instruction slots, a three-input logic op (LOP3) being one slot, each
+    test at bit 4 of its byte: 3 shifts (conf bit 1 and the message's two
+    bits to bit 4), 1 for rx's bit to bit 4, 4 LOP3s for the four (conf,
+    timer bit) terms and 2 to join them, 2 for the fire (SUSPECT, rx, the
+    timer), 2 to spread it over its byte (a shift and a multiply), 1 to
+    select DEAD, 1 for the row's fired flag and 1 to compare the word with
+    what was read: 17."""
+    return 3 + 1 + 4 + 2 + 2 + 2 + 1 + 1 + 1
+
+
+def _finish_bound(R: int, N: int, read_rows: int, written: int,
+                  rx: bool = True) -> dict:
+    """The least time of one launch (ms) that reads ``read_rows`` rows of
+    N bytes and writes ``written`` bytes of the matrix: the larger of its
+    bytes (those, rx read once where a row is read, the R row arguments:
+    one byte each for the wipe, ok, the refutation's column and byte and
+    fired for the fire) over the memory rate and its operations
+    (``finish_ops_per_word`` for the words of the rows read) over the
+    INT32 rate."""
+    args = 7 * R if rx else R
+    bytes_ = (read_rows * N + written + (N if rx and read_rows else 0)
+              + args)
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = (read_rows * N / 4 * finish_ops_per_word()
+              / INT32_OPS_PER_S * 1e3)
+    return {"bytes": bytes_, "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _finish_inputs(R: int, N: int, seed: int):
+    """Every byte value, rx with holes, the timer masks of every row
+    (1-15), of ``FINISH_FEW`` rows and of none, the refutation's columns
+    (the shards' first and last columns among them) and bytes (0xC0 on
+    about a third of the rows), and wipe flags on ``FINISH_FEW`` rows
+    (the last among them)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    heard = torch.randint(0, 256, (R, N), device="cuda", dtype=torch.uint8,
+                          generator=g)
+    rx = torch.rand(N, device="cuda", generator=g) < 0.9
+    ok_all = torch.randint(1, 16, (R,), device="cuda", dtype=torch.uint8,
+                           generator=g)
+    few = torch.zeros(R, dtype=torch.bool, device="cuda")
+    few[torch.randperm(R, device="cuda", generator=g)[:FINISH_FEW]] = True
+    ok_few = torch.where(few, ok_all, 0).to(torch.uint8)
+    col = torch.randint(0, N, (R,), device="cuda", dtype=torch.int32,
+                        generator=g)
+    col[:2] = torch.tensor([N - 1, 0], dtype=torch.int32)
+    rb = torch.where(torch.rand(R, device="cuda", generator=g) < 0.35,
+                     0xC0, 0).to(torch.uint8)
+    flags = few.clone()
+    flags[-1] = True
+    return heard, rx, ok_all, ok_few, (col, rb), flags
+
+
+def _split_rows(heard: torch.Tensor, ndev: int):
+    """The matrix as ``ndev`` column shards (new tensors; a new tensor at
+    1)."""
+    L = heard.shape[1] // ndev
+    out = tuple(heard[:, i * L:(i + 1) * L].clone() for i in range(ndev))
+    return out if ndev > 1 else out[0]
+
+
+def _same_rows(a, b) -> bool:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _finish_held(heard, ndev, rx, ok, refute, scratch) -> int:
+    """One fire launch on a copy against the plain version on another;
+    raises unless every byte and ``fired`` agree.  Returns the bytes the
+    launch changed."""
+    from consul_tpu_torch.gossip import finish
+    got, ref = _split_rows(heard, ndev), _split_rows(heard, ndev)
+    fired = finish.fire_timers(got, rx, ok, refute, scratch)
+    want = finish.fire_timers_ref(ref, rx, ok, refute)
+    if not (torch.equal(fired, want) and _same_rows(got, ref)):
+        raise AssertionError("fire_timers != plain")
+    got = torch.cat(got, dim=1) if ndev > 1 else got
+    return int((got != heard).sum())
+
+
+def _wipe_held(heard, ndev, flags) -> None:
+    from consul_tpu_torch.gossip import finish
+    got, ref = _split_rows(heard, ndev), _split_rows(heard, ndev)
+    finish.wipe_rows(got, flags)
+    finish.wipe_rows_ref(ref, flags)
+    if not _same_rows(got, ref):
+        raise AssertionError("wipe_rows != plain")
+
+
+def _first_launch_ms(heard, ndev, rx, ok, refute, scratch) -> float:
+    """The fire pass's device time on fresh bytes, where they change:
+    CUDA-graph replays of the matrix restored from a copy and then the
+    launch, less replays of the restore alone."""
+    from consul_tpu_torch.gossip import finish
+    h, src = _split_rows(heard, ndev), _split_rows(heard, ndev)
+    pairs = list(zip(*((h, src) if ndev > 1 else ((h,), (src,)))))
+
+    def restore():
+        for a, b in pairs:
+            a.copy_(b)
+
+    both = graph_ms(lambda: (restore(),
+                             finish.fire_timers(h, rx, ok, refute, scratch)))
+    return both - graph_ms(restore)
+
+
+def finish_phase(card_line: str, seeds: int = 64) -> dict:
+    """``fire_timers`` and ``wipe_rows`` (``csrc/finish.cu``) against
+    ``fire_timers_ref`` and ``wipe_rows_ref`` on the card, tolerance 0 in
+    every byte and in ``fired``, at ``FINISH_SHAPES`` over ``seeds`` fresh
+    inputs each: the fire with the timer masks of every row, of a few and
+    of none, each with the refutation, and of every row without it; the
+    wipe of a few rows (the last among them), of none and of every row.
+    Times from CUDA-graph replays (20 launches a graph; a replayed fire
+    finds its bytes already DEAD, so it reads its rows and writes none),
+    the fire on fresh bytes (``_first_launch_ms``), the plain versions'
+    and the wipe's one PyTorch call (``masked_fill_`` on the whole
+    matrix), each beside the bytes bound of the rows the launch reads and
+    writes (``_finish_bound``)."""
+    from consul_tpu_torch.gossip import finish, observe
+
+    t0 = time.perf_counter()
+    rows, held = {}, 0
+    for R, N, ndev in FINISH_SHAPES:
+        sc = observe.counts_scratch(R, "cuda")  # a round program's
+        for seed in range(seeds):
+            heard, rx, ok_all, ok_few, refute, flags = _finish_inputs(
+                R, N, 2000 * R + seed)
+            none = torch.zeros_like(ok_all)
+            for ok, ref in ((ok_all, refute), (ok_few, refute),
+                            (none, refute), (ok_all, None)):
+                _finish_held(heard, ndev, rx, ok, ref, sc)
+                held += 1
+            for fl in (flags, torch.zeros_like(flags),
+                       torch.ones_like(flags)):
+                _wipe_held(heard, ndev, fl)
+                held += 1
+        heard, rx, ok_all, ok_few, refute, flags = _finish_inputs(R, N, 7)
+        none = torch.zeros_like(ok_all)
+        changed = _finish_held(heard, ndev, rx, ok_all, refute, sc)
+        h = _split_rows(heard, ndev)
+        ms = graph_ms(lambda: finish.fire_timers(h, rx, ok_all, refute, sc))
+        ms_few = graph_ms(lambda: finish.fire_timers(h, rx, ok_few, refute,
+                                                     sc))
+        ms_none = graph_ms(lambda: finish.fire_timers(h, rx, none, refute,
+                                                      sc))
+        ms_first = _first_launch_ms(heard, ndev, rx, ok_all, refute, sc)
+        plain_ms = cuda_ms(lambda: finish.fire_timers_ref(h, rx, ok_all,
+                                                          refute),
+                           iters=5 if N >= 250_000 else 20)
+        n_few = int(flags.sum())
+        wipe_ms = graph_ms(lambda: finish.wipe_rows(h, flags))
+        wipe_ms_none = graph_ms(lambda: finish.wipe_rows(
+            h, torch.zeros_like(flags)))
+        ones = torch.ones_like(flags)
+        wipe_ms_all = graph_ms(lambda: finish.wipe_rows(h, ones))
+        wipe_plain_ms = cuda_ms(lambda: finish.wipe_rows_ref(h, flags),
+                                iters=5 if N >= 250_000 else 20)
+        # The one PyTorch call that computes the wipe: ``masked_fill_`` on
+        # the whole [R, N] matrix, whatever the shards.
+        wipe_library_ms = cuda_ms(
+            lambda: heard.masked_fill_(flags[:, None], 0),
+            iters=5 if N >= 250_000 else 20)
+        bound = _finish_bound(R, N, R, 0)
+        first = _finish_bound(R, N, R, changed)
+        few = _finish_bound(R, N, FINISH_FEW, 0)
+        wipe = _finish_bound(R, N, 0, n_few * N, rx=False)
+        wipe_all = _finish_bound(R, N, 0, R * N, rx=False)
+        rows[f"{R}x{N}" + (f"/{ndev}" if ndev > 1 else "")] = {
+            "shape": [R, N], "ndev": ndev, "L": N // ndev,
+            "ms": ms, **bound, "share_of_bound": bound["bound_ms"] / ms,
+            "ms_first": ms_first, "bytes_changed_first": changed,
+            "bound_first_ms": first["bound_ms"],
+            "share_of_bound_first": (first["bound_ms"] / ms_first
+                                     if ms_first > 0 else None),
+            "ms_few": ms_few, "few_rows": FINISH_FEW,
+            "bound_few_ms": few["bound_ms"], "ms_no_row": ms_none,
+            "bound_no_row_ms": _finish_bound(R, N, 0, 0)["bound_ms"],
+            "plain_ms": plain_ms,
+            "wipe_ms": wipe_ms, "wipe_rows": n_few,
+            "wipe_bound_ms": wipe["bound_ms"],
+            "wipe_share_of_bound": wipe["bound_ms"] / wipe_ms,
+            "wipe_ms_no_row": wipe_ms_none, "wipe_ms_all": wipe_ms_all,
+            "wipe_bound_all_ms": wipe_all["bound_ms"],
+            "wipe_share_of_bound_all": wipe_all["bound_ms"] / wipe_ms_all,
+            "wipe_plain_ms": wipe_plain_ms,
+            "wipe_library_ms": wipe_library_ms}
+        if int(sc.abs().sum()):
+            raise AssertionError(f"fire_timers left its scratch non-zero at "
+                                 f"{R}x{N}/{ndev}")
+        del heard, rx, ok_all, ok_few, refute, flags, h, none, ones
+    torch.cuda.empty_cache()
+    res = {"phase": "finish", "card": card_line, "tolerance": 0,
+           "max_abs_err": 0, "launches_held": held, "seeds": seeds,
+           "operations_per_word": finish_ops_per_word(), "shapes": rows,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def finish_shapes_vs_plain(shapes: set) -> list:
+    """Every (kernel, R, L, ndev, refutation) the paths launched the fire
+    pass and the wipe at (``finish.launch_shapes``), on 4 fresh inputs
+    against the plain version."""
+    from consul_tpu_torch.gossip import observe
+
+    rows = []
+    for i, (name, R, L, ndev, has_ref) in enumerate(sorted(shapes)):
+        sc = observe.counts_scratch(R, "cuda")
+        for seed in range(4):
+            heard, rx, ok_all, ok_few, refute, flags = _finish_inputs(
+                R, L * ndev, 7000 + 10 * i + seed)
+            if name == "fire_timers":
+                for ok in (ok_all, ok_few):
+                    _finish_held(heard, ndev, rx, ok,
+                                 refute if has_ref else None, sc)
+            else:
+                _wipe_held(heard, ndev, flags)
+        rows.append({"kernel": name, "shape": [R, L * ndev], "ndev": ndev,
+                     "L": L, "refute": has_ref, "launches_held": 4})
+    return rows
+
+
 def path_shapes_vs_plain(shapes: set, store_shapes: set,
                          draw_shapes: set, flood_shapes: set,
-                         observe_shapes: set) -> dict:
+                         observe_shapes: set, finish_shapes: set) -> dict:
     """Every (kernel, S, L, ndev, F, budget) that the paths launched at
     (``fused.launch_shapes``) held against the plain version on fresh
     adversarial bytes, under the offset sets of ``_offset_sets`` with F
@@ -1374,7 +1650,9 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
     holds them, and every shape the event flood was launched at
     (``flood_shapes``), as ``flood_shapes_vs_plain`` holds them, and every
     shape the observers' counts were launched at (``observe_shapes``), as
-    ``observe_shapes_vs_plain`` holds them."""
+    ``observe_shapes_vs_plain`` holds them, and every shape the fire pass
+    and the wipe were launched at (``finish_shapes``), as
+    ``finish_shapes_vs_plain`` holds them."""
     from types import SimpleNamespace
 
     from consul_tpu_torch.gossip import fused, kernel
@@ -1415,13 +1693,14 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
     rows += draw_shapes_vs_plain(draw_shapes)
     rows += flood_shapes_vs_plain(flood_shapes)
     rows += observe_shapes_vs_plain(observe_shapes)
+    rows += finish_shapes_vs_plain(finish_shapes)
     res = {"phase": "path_shapes", "shapes": rows, "tolerance": 0,
            "max_abs_err": err, "seconds": time.perf_counter() - t0}
     emit(res)
     kernels = {r["kernel"] for r in rows}
     if kernels != {"fused_dissem", "fused_merge", "kv_apply",
                    "watch_match", "threefry", "event_flood",
-                   "heard_counts"}:
+                   "heard_counts", "fire_timers", "wipe_rows"}:
         raise AssertionError(f"the paths launched only {sorted(kernels)}")
     return res
 
@@ -1436,12 +1715,17 @@ def _settle() -> None:
 def _reset_counts() -> None:
     """Every kernel launch count and round counter to 0."""
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import (events, fused, kernel, observe,
-                                         program)
+    from consul_tpu_torch.gossip import (events, finish, fused, kernel,
+                                         observe, program)
     _settle()
     program.launches = 0
+    program.copy_bytes = 0
     events.launches = 0
     observe.launches = 0
+    finish.launches = 0
+    finish.fire_launches = 0
+    finish.wipe_launches = 0
+    kernel.join_rounds = 0
     prng.launches = 0
     prng.calls = 0
     fused.launches = 0
@@ -1491,6 +1775,52 @@ def _observe_gate(what: str, rounds: int) -> dict:
                              f"{busy} non-quiescent)")
     return {"observe_launches": observe.launches,
             "observe_launches_per_round": observe.launches / rounds}
+
+
+def _finish_counts() -> dict:
+    """The fire pass's and the wipe's launches since the last
+    ``_reset_counts`` (settled), beside what the rounds run since make
+    them: ``fire_timers`` once a non-quiescent round; ``wipe_rows`` once a
+    round (the probe tick's rearm), once a join round (the join tick's
+    stale episodes) and once a non-quiescent round (the slot GC)."""
+    from consul_tpu_torch.gossip import finish, kernel
+    _settle()
+    t = kernel.tail_rounds
+    busy = t["hot"] + t["full"]
+    return {"fire_launches": finish.fire_launches,
+            "wipe_launches": finish.wipe_launches,
+            "fire_launches_expected": busy,
+            "wipe_launches_expected": busy + t["quiescent"]
+            + kernel.join_rounds + busy,
+            "join_rounds": kernel.join_rounds}
+
+
+def _finish_gate(what: str) -> dict:
+    """Raises unless the fire pass's and the wipe's launches are exactly
+    what the rounds run since the last ``_reset_counts`` make them
+    (``_finish_counts``), and some were made."""
+    c = _finish_counts()
+    if c["fire_launches"] != c["fire_launches_expected"] \
+            or c["wipe_launches"] != c["wipe_launches_expected"] \
+            or c["wipe_launches"] == 0:
+        raise AssertionError(f"{what}: finish launches {c}")
+    return c
+
+
+def _copy_gate(what: str, p, calls: int) -> int:
+    """A graphed single-pool path's belief-matrix copies since the last
+    ``_reset_counts`` (``program.copy_bytes``, settled): one a call (its
+    load into the program's buffers) and one a full-tail round (the tail's
+    out-of-place matrix into them), none in a quiescent or hot round;
+    raises unless exactly so."""
+    from consul_tpu_torch.gossip import kernel, program
+    _settle()
+    want = p.slots * p.n * (calls + kernel.tail_rounds["full"])
+    if program.copy_bytes != want:
+        raise AssertionError(f"{what}: {program.copy_bytes} matrix bytes "
+                             f"copied, expected {want} ({calls} calls, "
+                             f"{kernel.tail_rounds['full']} full tails)")
+    return program.copy_bytes
 
 
 def _probe_draws(p) -> int:
@@ -1580,11 +1910,14 @@ def full_path(cpu, n: int, S: int, steps: int, seed: int):
     launches = fused.launches
     draws = _draws(steps)
     observed = _observe_gate("full_path", steps)
+    finished = _finish_gate("full_path")
+    copied = _copy_gate("full_path", p, 1)
     t0 = time.perf_counter()
     diverged = _diverged_np(_as_numpy((st_g, fl_g, hb_g), tr_g),
                             cpu.result())
     emit({"phase": "full_path", "n": n, "slots": S, "steps": steps,
-          "kernel_launches": launches, **draws, **observed,
+          "kernel_launches": launches, **draws, **observed, **finished,
+          "matrix_copy_bytes": copied,
           "cuda_s": t_gpu,
           "cpu_wait_s": time.perf_counter() - t0,
           "n_detected": int(st_g.n_detected),
@@ -1616,12 +1949,14 @@ def sharded_full_path(single, n: int, S: int, steps: int, seed: int,
     tails = dict(kernel.tail_rounds)
     draws = _draws(steps)
     observed = _observe_gate("sharded_full_path", steps)
+    finished = _finish_gate("sharded_full_path")
+    copied = _copy_gate("sharded_full_path", p, 1)
     (st_1, fl_1, hb_1), tr_1 = single
     diverged = _diverged(list(zip((st_1, fl_1, hb_1), carry)) + [(tr_1, tr)])
     emit({"phase": "sharded_full_path", "n": n, "slots": S, "steps": steps,
           "ndev": ndev, "merge_launches": merges,
           "dissem_launches": dissems, "tail_rounds": tails, **draws,
-          **observed,
+          **observed, **finished, "matrix_copy_bytes": copied,
           "cuda_s": t_gpu, "n_detected": int(carry[0].n_detected),
           "diverged": diverged})
     if diverged:
@@ -1701,7 +2036,9 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
            "kernel_launches": fused.launches,
            "merge_launches": fused.merge_launches, "tail_rounds": tails,
            **_draws(total), "graph_launches": program.launches,
-           "observe_launches": observe.launches,
+           "observe_launches": observe.launches, **_finish_counts(),
+           "matrix_copy_bytes": program.copy_bytes,
+           "matrix_copy_bytes_per_call": p.slots * p.n,
            "host_syncs_per_round": kernel.host_syncs / total,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "n_detected": int(state.n_detected),
@@ -1720,6 +2057,11 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
                              "(or fused_dissem ran)")
     # The probe tick's draws are all that draws on the card.
     _draw_gate(res["phase"], res, _probe_draws(p) * total)
+    # The fire pass once and the wipe twice a non-quiescent round, the
+    # wipe once more a round; the matrix copied into the program once a
+    # call and once a full-tail round (a healthy run: never in a round).
+    _finish_gate(res["phase"])
+    _copy_gate(res["phase"], p, 1 + blocks)
     if not observers:
         if observe.launches:
             raise AssertionError(f"{res['phase']}: {observe.launches} "
@@ -1903,8 +2245,10 @@ def nemesis_main_path(n: int = 1_000_000, S: int = 64, warm: int = 10,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "n_false_dead": int(state.n_false_dead),
            "n_refuted": int(state.n_refuted), "drops": int(state.drops),
-           "slots_live": int((state.slot_node >= 0).sum())}
+           "slots_live": int((state.slot_node >= 0).sum()),
+           **_finish_counts()}
     emit(res)
+    _finish_gate(res["phase"])
     launched = (fused.drop_launches if ndev is None
                 else fused.merge_drop_launches)
     # Every round inside the window runs the tail with the drops; the
@@ -1967,6 +2311,7 @@ def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool) -> dict:
 
     key = prng.key(42)
     carry = [st0, kernel.init_flight(), kernel.init_hist()]
+    before = {f: getattr(st0, f).clone() for f in st0._fields}
 
     def rounds(steps):
         st, fl, hb = carry
@@ -1996,9 +2341,18 @@ def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool) -> dict:
     timed = RP["block"] * RP["blocks"]
     _settle()
     busy = kernel.tail_rounds["hot"] + kernel.tail_rounds["full"]
+    calls = 1 + RP["blocks"]
     return {"rounds_per_s": timed / sum(times), "block_s": times,
             "observe_launches": observe.launches,
             "observe_launches_expected": RP["warm"] + timed + busy,
+            **_finish_counts(),
+            # The matrix into the program's buffers: once a call and once
+            # a full-tail round (graphed); the eager round copies none.
+            "matrix_copy_bytes": program.copy_bytes,
+            "matrix_copy_bytes_expected": p.slots * p.n * (
+                calls + kernel.tail_rounds["full"]) if graphed else 0,
+            "input_unchanged": all(torch.equal(v, getattr(st0, f))
+                                   for f, v in before.items()),
             "warmup_s": warm_s, "ms_per_round": sum(times) * 1e3 / timed,
             "host_syncs_per_call": (kernel.host_syncs - syncs0)
             / RP["blocks"],
@@ -2025,7 +2379,7 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
     from torch.profiler import ProfilerActivity, profile
 
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import fused, kernel, observe
+    from consul_tpu_torch.gossip import finish, fused, kernel, observe
     from consul_tpu_torch.profile_round import device_kernels, self_device_us
 
     key = prng.key(42)
@@ -2044,6 +2398,7 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
     st = run(st0)
     _settle()
     tails0, draws0, obs0 = fused.launches, prng.launches, observe.launches
+    fire0, wipe0 = finish.fire_launches, finish.wipe_launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2067,6 +2422,13 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
             "draw_launches_counted": prng.launches - draws0,
             "observe_kernels_profiled": seen("observe::counts_kernel"),
             "observe_launches_counted": observe.launches - obs0,
+            "fire_kernels_profiled": seen("finish::fire_kernel"),
+            "fire_launches_counted": finish.fire_launches - fire0,
+            "wipe_kernels_profiled": seen("finish::wipe_kernel"),
+            "wipe_launches_counted": finish.wipe_launches - wipe0,
+            "finish_device_ms_per_round": sum(
+                self_device_us(e) for e in rows
+                if "finish::" in e.key) / 1e3 / RP_PROFILED,
             "observe_device_ms_per_round": sum(
                 self_device_us(e) for e in rows
                 if "observe::counts_kernel" in e.key) / 1e3 / RP_PROFILED}
@@ -2176,10 +2538,12 @@ def round_program_phase(card_line: str) -> dict:
                     row["graphed_observers"] = obs
                 # The counts are observed, not derived from the capture:
                 # each kernel the wrappers counted ran on the card.
-                checks = [(route, prof, k) for k in ("tail", "draw")]
+                checks = [(route, prof, k)
+                          for k in ("tail", "draw", "fire", "wipe")]
                 if route == "graphed":
                     checks += [("graphed_observers", obs, k)
-                               for k in ("tail", "draw", "observe")]
+                               for k in ("tail", "draw", "observe", "fire",
+                                         "wipe")]
                 for label, pr, k in checks:
                     seen = pr[f"{k}_kernels_profiled"]
                     counted = pr[f"{k}_launches_counted"]
@@ -2207,6 +2571,19 @@ def round_program_phase(card_line: str) -> dict:
                 bad.append(f"{name} {route}: {r['observe_launches']} "
                            f"heard_counts launches, expected "
                            f"{r['observe_launches_expected']}")
+            # The fire pass and the wipes at their exact counts, the
+            # matrix's copies, and the caller's state left as it was.
+            for k in ("fire", "wipe"):
+                if r[f"{k}_launches"] != r[f"{k}_launches_expected"]:
+                    bad.append(f"{name} {route}: {r[f'{k}_launches']} {k} "
+                               f"launches, expected "
+                               f"{r[f'{k}_launches_expected']}")
+            if r["matrix_copy_bytes"] != r["matrix_copy_bytes_expected"]:
+                bad.append(f"{name} {route}: {r['matrix_copy_bytes']} "
+                           f"matrix bytes copied, expected "
+                           f"{r['matrix_copy_bytes_expected']}")
+            if not r["input_unchanged"]:
+                bad.append(f"{name} {route}: the caller's state changed")
         del p, fail_t, kw, st0
     res = {"phase": "round_program", "card": card_line, "n": 1_000_000,
            "slots": 64, "rounds": total, "cases": rows,
@@ -2422,11 +2799,12 @@ def crossval_phase(pool, cpu_seed0) -> dict:
            "join_churn": join, "event_convergence": ev,
            "dissem_launches": fused.launches,
            "merge_launches": fused.merge_launches, **_draws(),
-           "observe_launches": observe.launches,
+           "observe_launches": observe.launches, **_finish_counts(),
            "graph_launches": program.launches,
            "host_syncs": kernel.host_syncs, "diverged": bad}
     emit(res)
     _draw_gate("crossval", res)
+    _finish_gate("crossval")
     # Every membership round threads the trace (no hist): the trace's
     # holders are one launch of the observers' kernel a round, every
     # round graphed (the event rounds, a flood launch each, are the rest
@@ -2628,6 +3006,7 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
                "lan_busy_rounds": lan_busy,
                "dissem_launches": fused.launches, **_draws(steps),
                "observe_launches": observe.launches,
+               "finish": _finish_counts(),
                "flood_launches": events.launches,
                "graph_launches": program.launches,
                "host_syncs": kernel.host_syncs,
@@ -2639,6 +3018,7 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
         _settle()
         md.close_programs()
         row.update(cuda_8_shards_s=time.perf_counter() - t1,
+                   sharded_finish=_finish_counts(),
                    sharded_lan_busy_rounds=sharded_lan_busy,
                    sharded_observe_launches=observe.launches,
                    sharded_merge_launches=fused.merge_launches,
@@ -2661,6 +3041,14 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
                        f"{row['dissem_launches']} != busy rounds {busy}")
         if row["sharded_merge_launches"] == 0:
             bad.append(f"hot_slots={hot}: no fused_merge launch")
+        # Every pool's round (LAN and WAN): the fire pass once and the
+        # wipe twice a non-quiescent round, the wipe once more a round.
+        for k in ("finish", "sharded_finish"):
+            c = row[k]
+            if c["fire_launches"] != c["fire_launches_expected"] \
+                    or c["wipe_launches"] != c["wipe_launches_expected"] \
+                    or c["fire_launches"] == 0:
+                bad.append(f"hot_slots={hot}: {k} launches {c}")
         # The LAN pools thread the hist banks: the spread is one launch
         # of the observers' kernel a non-quiescent LAN round (the WAN
         # pool threads none), on one device and on 8 shards.
@@ -2746,7 +3134,7 @@ def _mdc_route(p, lan_fail_t, wan_fail_t, key, warm: int, block: int,
            "flood_launches": events.launches,
            "dissem_launches_per_round": fused.launches / total,
            "merge_launches_per_round": fused.merge_launches / total,
-           **_draws(total),
+           **_draws(total), **_finish_counts(),
            "tail_rounds": dict(kernel.tail_rounds),
            "host_syncs_per_call": kernel.host_syncs / calls,
            "host_syncs_per_round": kernel.host_syncs / total,
@@ -2840,6 +3228,13 @@ def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
         if r["flood_launches"] != (dcs + 1) * total:
             bad.append(f"{route}: {r['flood_launches']} flood launches in "
                        f"{total} rounds of {dcs + 1} event pools")
+        # Every pool's round: the fire pass once and the wipe twice a
+        # non-quiescent round, the wipe once more a round.
+        for k in ("fire", "wipe"):
+            if r[f"{k}_launches"] != r[f"{k}_launches_expected"] \
+                    or r["wipe_launches"] < (dcs + 1) * total:
+                bad.append(f"{route}: {r[f'{k}_launches']} {k} launches, "
+                           f"expected {r[f'{k}_launches_expected']}")
     if graphed["host_syncs_per_call"] != 1:
         bad.append(f"{graphed['host_syncs_per_call']} host reads a graphed "
                    f"call")
@@ -3032,7 +3427,7 @@ async def _plane_run(ndev: int, full: bool, n_clients: int = 8) -> dict:
     res.update(dissem_launches=fused.launches,
                merge_launches=fused.merge_launches,
                flood_launches=events.launches,
-               observe_launches=observe.launches,
+               observe_launches=observe.launches, **_finish_counts(),
                tail_rounds=dict(kernel.tail_rounds),
                max_memory_allocated=torch.cuda.max_memory_allocated())
     return res
@@ -3062,6 +3457,15 @@ def plane_phase(ndev: int, full: bool) -> dict:
                              f"heard_counts launches in {ran} rounds "
                              f"({res['rounds']} dispatched, {busy} "
                              f"non-quiescent), expected {ran + busy}")
+    # Every round it runs: the fire pass once and the wipe twice a
+    # non-quiescent round, the wipe once more a round and once a join
+    # round.
+    for k in ("fire", "wipe"):
+        if res[f"{k}_launches"] != res[f"{k}_launches_expected"] \
+                or res["wipe_launches"] < ran:
+            raise AssertionError(f"plane: {res[f'{k}_launches']} {k} "
+                                 f"launches, expected "
+                                 f"{res[f'{k}_launches_expected']}")
     if res["tick_errors"] or res["failed_others"] or launches <= 0:
         raise AssertionError(f"plane (shard_devices={ndev}): tick errors "
                              f"{res['tick_errors']}, failed others "
@@ -4349,6 +4753,63 @@ def _observe_row(counts: dict, obs1: dict, obs8: dict, rp: dict,
             "library_ms": None}
 
 
+def _finish_rows(fin: dict, churn: dict, sharded: dict, plane1: dict,
+                 cross: dict, mdc1: dict, rp: dict) -> list:
+    """The kernels line's entries of the finish step's passes
+    (``csrc/finish.cu``), which replace the reference's XLA fire pass and
+    row wipes: launches on the 1M churn main path (the fire once a
+    non-quiescent round; the wipe once a round and once a non-quiescent
+    round), on 8 shards, on the plane, in crossval and on the 1M multi-DC
+    path; their time at [64, 1M] beside the bytes bound of the rows each
+    launch reads and writes, the plain version's time and, for the wipe,
+    the library call's (``masked_fill_``): the fire with
+    every row's timer live (a replay: its rows read, its bytes already
+    DEAD), on fresh bytes, with a few rows live and none; the wipe of a
+    few rows, of none and of all; the device ms a round the profiler saw
+    both take on the graphed churn round."""
+    main = fin["shapes"]["64x1000000"]
+    prof = rp["cases"]["churn"]["graphed"]
+    common = {"route": "cuda", "source": "consul_tpu_torch/csrc/finish.cu",
+              "max_abs_err": fin["max_abs_err"],
+              "finish_device_ms_per_round":
+                  prof["finish_device_ms_per_round"]}
+    fire = {"name": "fire_timers", **common,
+            "replaces": "consul_tpu/gossip/kernel.py:1548",
+            "replaces_also": ["consul_tpu/gossip/kernel.py:1529"],
+            "launches": churn["fire_launches"],
+            # No one PyTorch call refutes and fires.
+            "library_ms": None,
+            "sharded_launches": sharded["fire_launches"],
+            "plane_launches": plane1["fire_launches"],
+            "crossval_launches": cross["fire_launches"],
+            "multidc_launches": mdc1["fire_launches"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "share_of_bound": main["share_of_bound"],
+            "ms_first": main["ms_first"],
+            "bound_first_ms": main["bound_first_ms"],
+            "ms_few": main["ms_few"], "bound_few_ms": main["bound_few_ms"],
+            "ms_no_row": main["ms_no_row"]}
+    wipe = {"name": "wipe_rows", **common,
+            "replaces": "consul_tpu/gossip/kernel.py:1629",
+            "replaces_also": ["consul_tpu/gossip/kernel.py:734",
+                              "consul_tpu/gossip/kernel.py:478"],
+            "launches": churn["wipe_launches"],
+            "sharded_launches": sharded["wipe_launches"],
+            "plane_launches": plane1["wipe_launches"],
+            "crossval_launches": cross["wipe_launches"],
+            "multidc_launches": mdc1["wipe_launches"],
+            "ms": main["wipe_ms"], "rows_wiped": main["wipe_rows"],
+            "plain_ms": main["wipe_plain_ms"],
+            "library_ms": main["wipe_library_ms"],
+            "bound_ms": main["wipe_bound_ms"], "bound_by": "bytes",
+            "share_of_bound": main["wipe_share_of_bound"],
+            "ms_no_row": main["wipe_ms_no_row"],
+            "ms_all": main["wipe_ms_all"],
+            "bound_all_ms": main["wipe_bound_all_ms"]}
+    return [fire, wipe]
+
+
 def _churn_gates(res: dict, launches_key: str) -> None:
     if res["n_detected"] <= 0 or res["n_false_dead"] != 0:
         raise AssertionError(
@@ -4384,7 +4845,20 @@ def observe_only() -> int:
     return 0
 
 
-PHASES_ALONE = {"event_flood": flood_only, "observe": observe_only}
+def finish_only() -> int:
+    """``--phase finish``: the card line, the finish step's kernels'
+    build and the finish phase."""
+    from consul_tpu_torch import _build
+    card_line = card()
+    _build.build("finish")
+    for ln in _build.build_logs.get("finish", "").strip().splitlines():
+        print(f"  nvcc finish: {ln}", flush=True)
+    finish_phase(card_line)
+    return 0
+
+
+PHASES_ALONE = {"event_flood": flood_only, "observe": observe_only,
+                "finish": finish_only}
 
 
 def main() -> int:
@@ -4400,7 +4874,7 @@ def main() -> int:
     if sys.argv[1:]:
         if len(sys.argv) != 3 or sys.argv[1] != "--phase" \
                 or sys.argv[2] not in PHASES_ALONE:
-            print("usage: chip_smoke.py [--phase event_flood|observe]",
+            print("usage: chip_smoke.py [--phase event_flood|observe|finish]",
                   file=sys.stderr)
             return 2
         try:
@@ -4452,13 +4926,15 @@ def main() -> int:
         repeat(64, 1_000_000, seeds=16)
         flood = flood_phase(card_line, sass["flood"])
         counts = observe_phase(card_line)
+        fin = finish_phase(card_line)
         # From here on every launch is a path's: its shapes are held
         # against the plain version after the last path.
         from consul_tpu_torch import prng
-        from consul_tpu_torch.gossip import events, fused, observe
+        from consul_tpu_torch.gossip import events, finish, fused, observe
         events.launch_shapes.clear()
         fused.launch_shapes.clear()
         observe.launch_shapes.clear()
+        finish.launch_shapes.clear()
         prng.launch_shapes.clear()
         prng.launch_groups.clear()
         single = full_path(cpu_full, **FULL_PATH)
@@ -4568,7 +5044,8 @@ def main() -> int:
                              set(tds.launch_shapes),
                              set(prng.launch_shapes),
                              set(events.launch_shapes),
-                             set(observe.launch_shapes))
+                             set(observe.launch_shapes),
+                             set(finish.launch_shapes))
     except Exception:
         traceback.print_exc()
         return 1
@@ -4625,7 +5102,8 @@ def main() -> int:
         / tf["summary"]["main_path_ms"],
         "library_ms": None}, _round_graph_row(rp, churn),
         _flood_row(flood, mdc1, mdc8, ev, plane1),
-        _observe_row(counts, obs1, obs8, rp, plane1, cross)]})
+        _observe_row(counts, obs1, obs8, rp, plane1, cross),
+        *_finish_rows(fin, churn, sharded, plane1, cross, mdc1, rp)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

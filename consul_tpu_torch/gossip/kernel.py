@@ -44,9 +44,14 @@ How the JAX program maps onto PyTorch:
   observer) is not made.  Every draw has its own key (``fold_in`` and
   ``split``, never a sequence), so skipping one changes no other.
 
-Tensors are never modified in place except those the round allocated
-itself (the belief matrix after the probe tick's rearm clear, the rows
-produced by the dissemination tail): the caller's state is left intact.
+The round writes its belief matrix in place: the probe and join ticks'
+row wipes and point writes, the finish step's fire pass and GC wipe
+(``gossip/finish.py``: one launch of ``csrc/finish.cu`` each on a card)
+and the hot tail's rows.  So no step outside the dissemination tail
+copies the ``[S, N]`` matrix.  The caller's tensors are never written:
+an eager entry point (``swim_round*``, ``run_rounds*``) copies the
+caller's matrix once per call, and the round program copies the state
+into its buffers once per call.
 
 The sharded round (``run_rounds_sharded``, the reference's "ICI
 sharding" section) is the same code with ``sc`` set: the belief matrix
@@ -65,7 +70,7 @@ import torch
 from consul_tpu_torch import prng
 from consul_tpu_torch.prng import _f32
 from consul_tpu_torch._device import resolve_device
-from consul_tpu_torch.gossip import observe, round_args
+from consul_tpu_torch.gossip import finish, observe, round_args
 from consul_tpu_torch.gossip.belief import (  # noqa: F401
     _AGE_FRESH, _AGE_MASK, _CONF_MASK, _CONF_SHIFT, _MSG_SHIFT, MSG_DEAD,
     MSG_NONE, MSG_REFUTE, MSG_SUSPECT)
@@ -93,6 +98,9 @@ host_syncs = 0
 # dissemination tail (one kernel launch each on a card).  Replayed rounds
 # count on the device; ``program.settle_counts()`` adds them here.
 tail_rounds = {"quiescent": 0, "hot": 0, "full": 0}
+# Rounds whose join tick ran (the ``_when`` on a pending joiner taken);
+# replayed rounds count on the device, as ``tail_rounds`` do.
+join_rounds = 0
 # The round program's recorder while it captures a round
 # (``gossip/program.py``), else None: ``_when`` and ``_switch`` then emit
 # conditional graph nodes instead of reading their predicate.
@@ -268,8 +276,12 @@ def _when(pred: torch.Tensor, fn, operand):
     round program's capture, ``fn``'s work is the body of a conditional
     graph node on ``pred`` and writes its result into ``operand``'s own
     tensors (the program's buffers), so nothing is read."""
+    global join_rounds
     if _recorder is None:
-        return fn(operand) if _host_int(pred) else operand
+        if not _host_int(pred):
+            return operand
+        join_rounds += 1
+        return fn(operand)
     return _recorder.when(pred, fn, operand)
 
 
@@ -469,6 +481,24 @@ def _roll_sharded(sc: _ShardCtx, xs, o, out=None):
     return tuple(res)
 
 
+def _put_points(h: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                keep: torch.Tensor) -> None:
+    """``h.view(-1)[idx[k]] = val[k]`` in place where ``keep[k]`` (the
+    kept indices distinct, every index inside ``h``): a lane not kept
+    writes the first kept lane's pair again, or, when no lane is kept, the
+    byte already at its own index, so that every element written receives
+    one value and no sink element (no copy of ``h``) is needed."""
+    flat = h.view(-1)
+    # The first kept lane, a device index (an int would be a host read).
+    first = torch.argmax(keep.to(_I32)).view(1)
+    some = keep.any()
+    flat.index_put_(
+        (torch.where(keep, idx, torch.where(some, idx.index_select(0, first),
+                                            idx)),),
+        torch.where(keep, val, torch.where(some, val.index_select(0, first),
+                                           flat[idx])))
+
+
 def _psum(parts):
     """The reference's psum over the shard axis: the sum of the
     per-shard contributions."""
@@ -549,10 +579,11 @@ def _join_tick(p: SwimParams, rnd: int, carry, join_round, fail_round,
     incarnation = incarnation + joining.to(_I32)
     member = member | joining
 
-    # Clear any stale episode about a rejoining winner.
+    # Clear any stale episode about a rejoining winner (its rows wiped in
+    # place: one launch of the wipe kernel on a card).
     node_c0 = slot_node.clamp(0, N - 1)
     stale = (slot_node >= 0) & joining[node_c0.long()]
-    heard = _per_shard(sc, heard, lambda h: h.masked_fill(stale[:, None], 0))
+    finish.wipe(heard, stale)
     slot_of_node = _set_drop(slot_of_node, torch.where(stale, node_c0, N), -1)
     slot_node = torch.where(stale, -1, slot_node)
     slot_phase = torch.where(stale, PHASE_FREE, slot_phase)
@@ -567,21 +598,19 @@ def _join_tick(p: SwimParams, rnd: int, carry, join_round, fail_round,
     slot_dead_round = _set_drop(slot_dead_round, sidx, rnd)
     slot_of_node = _set_drop(slot_of_node, torch.where(can_k, cand_c, N),
                              slot_k)
-    # The joiner seeds its own announcement flood: heard[sidx, cand] on
-    # the flattened matrix, sink S*N for unserved candidates.  Sharded:
-    # the seed column belongs to one shard; the others drop the write.
-    seed = _enc(MSG_REFUTE, age=_AGE_FRESH)
+    # The joiner seeds its own announcement flood: heard[sidx, cand] in
+    # place for served candidates.  Sharded: the seed column belongs to
+    # one shard; the others write nothing.
+    served = sidx < S
+    row = sidx.clamp(max=S - 1).long()
+    seed = torch.full(sidx.shape, _enc(MSG_REFUTE, age=_AGE_FRESH),
+                      dtype=torch.uint8, device=dev)
     if sc is None:
-        flat = torch.where(sidx < S, sidx.long() * N + cand_c, S * N)
-        heard = _set_drop(heard.reshape(-1), flat, seed).view(S, N)
+        _put_points(heard, row * N + cand_c, seed, served)
     else:
-        shards = []
         for i, h in enumerate(heard):
             owned, loc = _owned(sc, cand_c, i)
-            flat = torch.where(owned & (sidx < S), sidx * sc.L + loc,
-                               S * sc.L)
-            shards.append(_set_drop(h.reshape(-1), flat, seed).view(S, sc.L))
-        heard = tuple(shards)
+            _put_points(h, row * sc.L + loc, seed, owned & served)
 
     return (heard, slot_node, slot_phase, slot_inc, slot_start, slot_nsusp,
             slot_dead_round, slot_of_node, incarnation, member, drops)
@@ -752,9 +781,9 @@ def _probe_tick(p: SwimParams, ra, v: Variant, mf, carry,
     slot_start = torch.where(rearm, rnd, slot_start)
     slot_nsusp = torch.where(rearm, add_here, slot_nsusp)
     slot_dead_round = torch.where(rearm, -1, slot_dead_round)
-    # A new tensor (one per shard): from here on the round owns
-    # ``heard`` and may write it in place.
-    heard = _per_shard(sc, heard, lambda h: h.masked_fill(rearm[:, None], 0))
+    # The rearmed rows wiped in place (one launch of the wipe kernel on a
+    # card, which writes those rows alone: none in most rounds).
+    finish.wipe(heard, rearm)
 
     # Allocate fresh slots: needy targets compacted to kk candidates
     # with a segmented min, one winner per prober segment.
@@ -791,18 +820,13 @@ def _probe_tick(p: SwimParams, ra, v: Variant, mf, carry,
         # it read, in place.
         heard.index_put_((rows2, cols), torch.where(mark_ok, fresh, cur2))
     elif sc is None:
-        # Padding lanes share column N - 1: marks only, through the sink.
-        flat = torch.where(mark_ok, rows2 * N + pid_c, S * N)
-        heard = _set_drop(heard.reshape(-1), flat, fresh).view(S, N)
+        # Padding lanes share column N - 1: marks only.
+        _put_points(heard, rows2 * N + pid_c, fresh, mark_ok)
     else:
         # Each shard takes the marks in the columns it owns.
-        shards = []
         for i, h in enumerate(heard):
             owned, loc = _owned(sc, cols, i)
-            flat = torch.where(owned & mark_ok, rows2 * sc.L + loc,
-                               S * sc.L)
-            shards.append(_set_drop(h.reshape(-1), flat, fresh).view(S, sc.L))
-        heard = tuple(shards)
+            _put_points(h, rows2 * sc.L + loc, fresh, owned & mark_ok)
 
     probe_stats = (
         prober_ok.sum(dtype=_I32),                                # probes
@@ -857,8 +881,10 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
     ``full_heard`` are the round's own tensors (one per shard when
     sharded) and are written in place.  With ``nem_state`` threaded, a
     subject that refuted a suspicion about itself raises its own LHM
-    (Lifeguard).  ``obs_scratch``: the observers' kernel's scratch
-    (``observe.count``).  Returns ``(state, hist, nem_state)``."""
+    (Lifeguard).  ``obs_scratch``: the round's kernels' scratch, which
+    the observers' counts (``observe.count``) and the fire pass
+    (``finish.fire``) take in turn.  Returns ``(state, hist,
+    nem_state)``."""
     N = p.n
     H = idx.shape[0]
     dev = slot_node.device
@@ -878,17 +904,18 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
     ncl = node_c.long()
     n_refuted = state.n_refuted
     refute_now = torch.zeros((H,), dtype=torch.bool, device=dev)
+    refute = None
     if p.refute:
         if sc is None:
             own = heard_sub[hrows, ncl]
         else:
             # Each subject's own-belief byte lives on one shard: mask
             # local ownership, psum the disjoint contributions.
-            local = []
+            parts = []
             for i, h in shards:
                 owned, loc = _owned(sc, node_c, i)
-                local.append((owned, loc, h[hrows, loc]))
-            own = _psum([torch.where(o, b, 0) for o, _, b in local])
+                parts.append(torch.where(owned, h[hrows, loc], 0))
+            own = _psum(parts)
         own_msg = own >> _MSG_SHIFT
         refutable = (sl_phase == PHASE_SUSPECT) | (sl_phase == PHASE_DEAD)
         refute_now = (refutable & (sl_node >= 0) & alive[ncl] & member[ncl]
@@ -899,16 +926,10 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
         sl_phase = torch.where(refute_now, PHASE_REFUTED, sl_phase)
         sl_dead_round = torch.where(refute_now, rnd, sl_dead_round)
         # .at[hrows, node_c].max(refute_val): one (row, column) pair per
-        # row, so a gather, a max and a put.
-        refute_val = torch.where(refute_now, _enc(MSG_REFUTE), 0).to(
-            torch.uint8)
-        if sc is None:
-            heard_sub[hrows, ncl] = torch.maximum(own, refute_val)
-        else:
-            # Written only on the owning shard.
-            new = torch.maximum(own, refute_val)
-            for (i, h), (owned, loc, byte) in zip(shards, local):
-                h[hrows, loc] = torch.where(owned, new, byte)
+        # row, written by the fire pass below before its fire test (on the
+        # shard that owns the column).
+        refute = (node_c, torch.where(refute_now, _enc(MSG_REFUTE), 0).to(
+            torch.uint8))
         n_refuted = n_refuted + refute_now.sum(dtype=_I32)
 
     if nem is not None and nem_state is not None:
@@ -930,21 +951,11 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
     ok_mask = (ok.to(torch.uint8) << cs.to(torch.uint8)).sum(
         dim=1, dtype=torch.uint8)
 
-    def _fire(h, rx):
-        # Bytes whose timer fires take the dead verdict; returns which
-        # rows (slots) fired.
-        conf = (h >> _CONF_SHIFT) & _CONF_MASK
-        fire = (((h >> _MSG_SHIFT) == MSG_SUSPECT) & rx[None, :]
-                & (((ok_mask[:, None] >> conf) & 1) == 1))
-        h.masked_fill_(fire, _enc(MSG_DEAD))
-        return fire.any(dim=1)
-
-    if sc is None:
-        slot_fired = _fire(heard_sub, rx_ok)
-    else:
-        # Any observer on any shard fires the slot's timer.
-        slot_fired = _psum([_fire(h, _sloc(sc, rx_ok, i)).to(_I32)
-                            for i, h in shards]) > 0
+    # The refutation's byte, then the fire, in place on the rows whose
+    # timer can fire alone (one launch of the fire kernel on a card, every
+    # shard): bytes whose timer fires take the dead verdict, and
+    # ``slot_fired`` says which rows (slots) fired on any shard.
+    slot_fired = finish.fire(heard_sub, rx_ok, ok_mask, refute, obs_scratch)
     new_dead = slot_fired & (sl_dead_round < 0)
     sl_phase = torch.where(slot_fired, PHASE_DEAD, sl_phase)
     sl_dead_round = torch.where(new_dead, rnd, sl_dead_round)
@@ -994,7 +1005,7 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
     member = _set_drop(member, torch.where(is_dead, node_c, N), False)
     slot_of_node = _set_drop(slot_of_node, torch.where(expired, node_c, N),
                              -1)
-    _per_shard(sc, heard_sub, lambda h: h.masked_fill_(expired[:, None], 0))
+    finish.wipe(heard_sub, expired)
     sl_node = torch.where(expired, -1, sl_node)
     sl_phase = torch.where(expired, PHASE_FREE, sl_phase)
     sl_dead_round = torch.where(expired, -1, sl_dead_round)
@@ -1051,8 +1062,9 @@ def _swim_round_impl(state: SwimState, ra, v: Variant,
     ``Variant``.  ``dst``: under the round program's capture, the
     program's buffers ``(state, hist, nem_state)`` that the tail's
     branches write (``_switch``); unused eagerly.  ``obs_scratch``: the
-    observers' kernel's scratch, of at least S rows (``observe.count``;
-    None: each launch makes one).  Returns ``(state, row, hist,
+    round's kernels' scratch, an ``observe.counts_scratch`` of at least S
+    rows (``observe.count`` and ``finish.fire`` take it in turn; None:
+    each launch makes one).  Returns ``(state, row, hist,
     nem_state, holders)``; ``row`` is None unless ``collect``,
     ``holders`` (the trace's DEAD and REFUTE holders a slot) None unless
     ``trace``."""
@@ -1222,7 +1234,7 @@ def _round_once(p, table, step, state, v, fail_round, join_round, hist,
     ``step``, when given; then ``step`` advances.  Nothing here depends
     on the round number but through the table, so the round program
     captures this call once per variant; ``obs_scratch`` is the
-    observers' kernel's scratch (``_swim_round_impl``).  Returns
+    round's kernels' scratch (``_swim_round_impl``).  Returns
     ``(state, hist, nem_state)``."""
     lay = round_args.layout(p.fanout, p.indirect_k)
     ra = round_args.row_args(lay, table.index_select(0, step)[0])
@@ -1246,6 +1258,25 @@ def _round_once(p, table, step, state, v, fail_round, join_round, hist,
 def _on(dev: torch.device, tup):
     return type(tup)(*(tuple(x.to(dev) for x in t) if _sharded(t)
                        else t.to(dev) for t in tup))
+
+
+def _own_heard(state: SwimState, dev: torch.device) -> SwimState:
+    """``state`` with its belief matrix (each shard of it) copied onto
+    ``dev``: the eager round writes the matrix in place, so an eager entry
+    point gives it a copy of the caller's, one a call."""
+    h = state.heard
+    return state._replace(heard=tuple(x.to(dev, copy=True) for x in h)
+                          if _sharded(h) else h.to(dev, copy=True))
+
+
+def _graphed(graphed: bool | None, dev: torch.device) -> bool:
+    """Whether a call runs the round program (a card's default) or the
+    eager round."""
+    if graphed is None:
+        graphed = dev.type == "cuda"
+    if graphed and dev.type != "cuda":
+        raise ValueError(f"graphed rounds run on a CUDA card, not {dev}")
+    return graphed
 
 
 def _as_i32(x, dev: torch.device) -> torch.Tensor:
@@ -1298,11 +1329,14 @@ def _one_round(state, base_key, fail_round, p, hist, join_round, device,
                sc=None, nem=None, nem_state=None, rnd: int | None = None):
     """One round; returns the state packed with whichever of hist and
     nem_state are threaded, in that order.  ``rnd`` is the caller's host
-    mirror of ``state.round`` (None reads the counter from the device)."""
+    mirror of ``state.round`` (None reads the counter from the device).
+    The round writes the matrix in place: an unsharded one is copied
+    here, sharded ones come from ``_sharded_setup(own=True)``."""
     _require_nem_state(nem, nem_state)
     dev = resolve_device(device)
     if sc is None:
         _require_unsharded(state)
+        state = _own_heard(state, dev)
     state = _on(dev, state)
     hist = None if hist is None else _on(dev, hist)
     nem_state = None if nem_state is None else _on(dev, nem_state)
@@ -1343,16 +1377,21 @@ def run_rounds(state: SwimState, base_key, fail_round, p: SwimParams,
     (``init_nem_state``)."""
     _require_nem_state(nem, nem_state)
     _require_unsharded(state)
+    dev = resolve_device(device)
+    graphed = _graphed(graphed, dev)
+    if not graphed:
+        state = _own_heard(state, dev)
     return _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
-                            join_round, flight, hist, resolve_device(device),
-                            nem=nem, nem_state=nem_state, graphed=graphed)
+                            join_round, flight, hist, dev, nem=nem,
+                            nem_state=nem_state, graphed=graphed)
 
 
 def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
                      join_round, flight, hist, dev, sc=None, nem=None,
-                     nem_state=None, graphed=None):
-    if graphed is None:
-        graphed = dev.type == "cuda"
+                     nem_state=None, graphed: bool = False):
+    """The rounds of ``run_rounds`` / ``run_rounds_sharded`` (``graphed``
+    as ``_graphed`` decided it); the eager route's matrix is already the
+    call's own (``_own_heard``)."""
     state = _on(dev, state)
     fail_round = _as_i32(fail_round, dev)
     join_round = None if join_round is None else _as_i32(join_round, dev)
@@ -1362,8 +1401,6 @@ def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
     if nem is not None:
         _require_join(nem, join_round)
     if graphed:
-        if dev.type != "cuda":
-            raise ValueError(f"graphed rounds run on a CUDA card, not {dev}")
         from consul_tpu_torch.gossip import program
         return program.run_rounds(state, base_key, fail_round, p, steps,
                                   trace, join_round, flight, hist, sc, nem,
@@ -1426,7 +1463,8 @@ def _check_shardable(p: SwimParams, ndev: int) -> None:
 
 def shard_state(state: SwimState, ndev: int, device=None) -> SwimState:
     """``state`` on ``device`` with ``heard`` split into ``ndev``
-    contiguous column shards; every other register is held once."""
+    contiguous column shards, new tensors; every other register is held
+    once."""
     _require_unsharded(state)
     dev = resolve_device(device)
     S, N = state.heard.shape
@@ -1435,8 +1473,9 @@ def shard_state(state: SwimState, ndev: int, device=None) -> SwimState:
                          f"ndev={ndev} shards")
     L = N // ndev
     st = _on(dev, state)
-    return st._replace(heard=tuple(st.heard[:, i * L:(i + 1) * L].contiguous()
-                                   for i in range(ndev)))
+    return st._replace(heard=tuple(
+        st.heard[:, i * L:(i + 1) * L].clone(
+            memory_format=torch.contiguous_format) for i in range(ndev)))
 
 
 def unshard_state(state: SwimState) -> SwimState:
@@ -1447,8 +1486,11 @@ def unshard_state(state: SwimState) -> SwimState:
     return state._replace(heard=torch.cat(state.heard, dim=1))
 
 
-def _sharded_setup(state, p, ndev, device):
-    """(state on the device with ndev shards, its _ShardCtx, device)."""
+def _sharded_setup(state, p, ndev, device, own: bool = False):
+    """(state on the device with ndev shards, its _ShardCtx, device);
+    ``own``: the shards are the call's own (a new split of an unsharded
+    state, else copies of the caller's shards), which the eager round
+    writes in place."""
     dev = resolve_device(device)
     if ndev is None:
         if not _sharded(state.heard):
@@ -1461,7 +1503,7 @@ def _sharded_setup(state, p, ndev, device):
         if shapes != [(p.slots, L)] * ndev:
             raise ValueError(f"state has shards {shapes}, expected {ndev} "
                              f"of {[p.slots, L]}")
-        state = _on(dev, state)
+        state = _on(dev, _own_heard(state, dev) if own else state)
     else:
         state = shard_state(state, ndev, dev)
     return state, _ShardCtx(ndev, L), dev
@@ -1486,7 +1528,7 @@ def sharded_round_callable(p: SwimParams, ndev: int, has_join: bool = False,
         join_round = next(rest) if has_join else None
         hist = next(rest) if has_hist else None
         nem_state = next(rest) if has_nem_state else None
-        state, sc, dev = _sharded_setup(state, p, ndev, device)
+        state, sc, dev = _sharded_setup(state, p, ndev, device, own=True)
         return _one_round(state, base_key, fail_round, p, hist, join_round,
                           dev, sc, nem, nem_state, rnd)
 
@@ -1502,7 +1544,7 @@ def swim_round_sharded(state: SwimState, base_key, fail_round,
     state (with ``nem_state``, as ``swim_round`` does).  ``ndev=None``
     takes a sharded state's own shard count."""
     _require_nem_state(nem, nem_state)
-    state, sc, dev = _sharded_setup(state, p, ndev, device)
+    state, sc, dev = _sharded_setup(state, p, ndev, device, own=True)
     return _one_round(state, base_key, fail_round, p, None, join_round,
                       dev, sc, nem, nem_state)
 
@@ -1522,7 +1564,9 @@ def run_rounds_sharded(state: SwimState, base_key, fail_round, p: SwimParams,
     here).  Graphed on a card as ``run_rounds`` is.  Constraints:
     ``_check_shardable``."""
     _require_nem_state(nem, nem_state)
-    state, sc, dev = _sharded_setup(state, p, ndev, device)
+    dev = resolve_device(device)
+    graphed = _graphed(graphed, dev)
+    state, sc, dev = _sharded_setup(state, p, ndev, dev, own=not graphed)
     return _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
                             join_round, flight, hist, dev, sc, nem,
                             nem_state, graphed)

@@ -54,7 +54,8 @@ from consul_tpu_torch.gossip.events import (_SEEN, EventState, _event_round,
                                             init_events, is_pushpull)
 from consul_tpu_torch.gossip.kernel import (SwimState, _as_i32,
                                             _check_shardable, _on,
-                                            _require_unsharded, _round_once,
+                                            _own_heard, _require_unsharded,
+                                            _round_once,
                                             _sharded_setup, init_hist,
                                             init_state, round_variant,
                                             shard_state)
@@ -222,19 +223,24 @@ def _round(state: MultiDCState, tabs: tuple, steps: tuple, k: int,
     return out, (tuple(hists) if has_hist else None)
 
 
-def _inputs(state, lan_fail, wan_fail, lan_hist, p: MultiDCParams, dev):
+def _inputs(state, lan_fail, wan_fail, lan_hist, p: MultiDCParams, dev,
+            own: bool):
     """The call's inputs on ``dev``; each LAN pool sharded as ``p`` says
-    (a pool given unsharded is split here)."""
+    (a pool given unsharded is split here).  ``own``: every pool's belief
+    matrix a copy of the caller's (the eager rounds write it in place)."""
+    def pool(st):
+        return _on(dev, _own_heard(st, dev) if own else st)
+
     def lan_pool(st):
         if p.lan_devices > 1:
-            return _sharded_setup(st, p.lan, p.lan_devices, dev)[0]
+            return _sharded_setup(st, p.lan, p.lan_devices, dev, own)[0]
         _require_unsharded(st)
-        return _on(dev, st)
+        return pool(st)
 
     state = MultiDCState(lan=tuple(lan_pool(st) for st in state.lan),
                          lan_events=tuple(_on(dev, e)
                                           for e in state.lan_events),
-                         wan=_on(dev, state.wan),
+                         wan=pool(state.wan),
                          wan_events=_on(dev, state.wan_events))
     if lan_hist is not None:
         lan_hist = tuple(_on(dev, hb) for hb in lan_hist)
@@ -553,7 +559,8 @@ def run_multidc_rounds(state: MultiDCState, base_key, lan_fail, wan_fail,
     if graphed and dev.type != "cuda":
         raise ValueError(f"graphed rounds run on a CUDA card, not {dev}")
     state, lan_fail, wan_fail, lan_hist = _inputs(state, lan_fail, wan_fail,
-                                                  lan_hist, p, dev)
+                                                  lan_hist, p, dev,
+                                                  own=not graphed)
     run = _run_graphed if graphed else _run_eager
     state, lan_hist, cov = run(state, base_key, lan_fail, wan_fail, p, steps,
                                lan_hist, dev, _cov)

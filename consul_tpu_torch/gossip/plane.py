@@ -939,15 +939,24 @@ class GossipPlane:
             round_args.layout(p.fanout, p.indirect_k),
             torch.from_numpy(round_args.build(p, key, rnd, 1)[0]).to(dev))
         v = round_variant(p, None, rnd)
-        carry = (st.heard, st.slot_node, st.slot_phase, st.slot_inc,
+        # The probe tick writes the matrix in place: each timed call
+        # ticks a copy of the session's, restored before it, and the
+        # restore's own time is taken off.
+        heard = st.heard.clone()
+        carry = (heard, st.slot_node, st.slot_phase, st.slot_inc,
                  st.slot_start, st.slot_nsusp, st.slot_dead_round,
                  st.slot_of_node, st.incarnation, st.member, st.drops)
+
+        def probe():
+            heard.copy_(st.heard)
+            _probe_tick(p, ra, v, mf, carry)
+
         # The port's tail ages inside the merge, so its row is the merged
         # age+gossip phase and the standalone age row is marked as such.
         out = {
             "age_tick_standalone": timed(lambda: _age_tick(st.heard), dev),
-            "probe_tick": timed(lambda: _probe_tick(p, ra, v, mf, carry),
-                                dev),
+            "probe_tick": (timed(probe, dev)
+                           - timed(lambda: heard.copy_(st.heard), dev)),
             "age_gossip_merge": timed(lambda: _disseminate(
                 p, ra, v, st.heard, mf, rx, cc), dev),
         }

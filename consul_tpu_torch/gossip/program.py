@@ -56,14 +56,15 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import sys
 import time
 import warnings
 
 import torch
 
 from consul_tpu_torch import _build, prng
-from consul_tpu_torch.gossip import (events, fused, kernel, observe,
-                                     round_args)
+from consul_tpu_torch.gossip import (events, finish, fused, kernel,
+                                     observe, round_args)
 from consul_tpu_torch.gossip.kernel import (RoundTrace, _I32, _leaves,
                                             _round_once, round_variant)
 
@@ -71,18 +72,27 @@ TABLE_ROWS = 512     # rounds of argument table on the card: a call's chunk
 MAX_BRANCHES = 64    # branch bodies a program counts (4 a variant at most)
 MAX_PROGRAMS = 8     # programs kept (each holds its buffers and its pool)
 
-# Host counters the kernel wrappers keep, attributed per captured segment.
-_COUNTERS = ((prng, "launches"), (prng, "calls"), (fused, "launches"),
-             (fused, "merge_launches"), (fused, "drop_launches"),
-             (fused, "merge_drop_launches"), (events, "launches"),
-             (observe, "launches"))
-
 # Joined-graph launches (one a replayed round), captures, their seconds
 # and the memory the captures reserved.
 launches = 0
 captures = 0
 capture_s = 0.0
 pool_bytes = 0
+# Bytes of u8 matrices (a round's belief matrix or its shards; an event
+# program's ``has``) that ``_copy_leaves`` copied: a call's load of the
+# state, and in a replayed round the branch bodies' results that are not
+# already the buffers (the full tail's matrix; the quiescent and hot
+# branches and the join tick write the buffers in place and copy none).
+copy_bytes = 0
+
+# Host counters the kernel wrappers (and ``_copy_leaves``) keep,
+# attributed per captured segment.
+_COUNTERS = ((prng, "launches"), (prng, "calls"), (fused, "launches"),
+             (fused, "merge_launches"), (fused, "drop_launches"),
+             (fused, "merge_drop_launches"), (events, "launches"),
+             (observe, "launches"), (finish, "launches"),
+             (finish, "fire_launches"), (finish, "wipe_launches"),
+             (sys.modules[__name__], "copy_bytes"))
 
 _VP = ctypes.c_void_p
 
@@ -124,12 +134,20 @@ def _add_counts(deltas, times: int = 1) -> None:
 
 
 def _copy_leaves(dst, src) -> None:
+    """Each tensor of ``src`` into its buffer of ``dst``, but for those
+    that are the buffer already (a result written in place)."""
+    global copy_bytes
     d, s = _leaves(dst), _leaves(src)
     if len(d) != len(s):
         raise RuntimeError(f"a branch gave {len(s)} tensors for {len(d)} "
                            f"buffers")
     for a, b in zip(d, s):
+        if a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride()):
+            continue
         a.copy_(b)
+        if a.dtype == torch.uint8 and a.dim() == 2:
+            copy_bytes += a.numel()
 
 
 class _Warm:
@@ -337,6 +355,8 @@ class _Program:
         for name, n in zip(self.branch_names, runs):
             if name in kernel.tail_rounds:
                 kernel.tail_rounds[name] += n
+            elif name == "join":
+                kernel.join_rounds += n
         self.branch_runs.zero_()
 
     def close(self) -> None:
@@ -619,8 +639,9 @@ def disown(prog: _Program) -> None:
 
 def settle_counts() -> None:
     """Fold every program's device-side branch counts into the host
-    counters (``prng``'s, ``fused``'s, ``events``' and ``observe``'s
-    launches, ``kernel.tail_rounds``); a reader of those counters calls
-    this first."""
+    counters (``prng``'s, ``fused``'s, ``events``', ``observe``'s and
+    ``finish``'s launches, ``copy_bytes``, ``kernel.tail_rounds`` and
+    ``kernel.join_rounds``); a reader of those counters calls this
+    first."""
     for prog in list(_programs.values()) + _owned:
         prog.settle()

@@ -4,6 +4,8 @@
                                              [--ndev N] [--nemesis SCENARIO]
                                              [--eager] [--observers]
                                              [--observer-fn FN=OBSERVER]
+                                             [--functions]
+                                             [--round-fn FN=NAME]
     python -m consul_tpu_torch.profile_round --multidc [--ndev 8]
 
 Runs bench.py's LAN regime on the card (``lan_profile(N, SLOTS,
@@ -30,6 +32,20 @@ banks' adds, and those ``--observer-fn FN=OBSERVER`` adds: a checkout
 whose observers are torch ops in closures of their own names them so,
 and one that lacks a named function is refused).  The rest is the
 round's.
+``--functions`` attributes the round itself the same way, on another
+line: ``--rounds`` rounds of the round program's own body
+(``gossip/program.py``'s ``RoundProgram``) run eagerly, each branch taken
+on a host read of its predicate and its result copied into the program's
+buffers as the replayed conditional node does, so that its kernels are
+the graph's; each kernel goes to the innermost function of
+``ROUND_FUNCTIONS`` on the stack of the torch op that launched it: the
+join tick, the probe tick, the finish step, push/pull, the copies into
+the buffers (``program._copy_leaves``) and the rest of
+``_swim_round_impl``, and those ``--round-fn FN=NAME`` adds (an older
+checkout's closures, for an A/B: parent, change, change, parent; a
+name the checkout lacks is refused); the hand kernels, launched through
+ctypes and tied to no op by the profiler, go by their names
+(``ROUND_KERNELS``).
 With ``--ndev N`` the
 rounds are the sharded round (``run_rounds_sharded``, N column shards on
 the card), and the phases add the sharded round's own: the halo pins
@@ -113,7 +129,8 @@ HAND_KERNELS = {"draws": "threefry::draw_kernel",
                 "tail": "dissem_tail::tail_kernel",
                 "conditions": "round_graph::set_condition",
                 "flood": "evflood::flood_kernel",
-                "observe": "observe::counts_kernel"}
+                "observe": "observe::counts_kernel",
+                "finish": "finish::"}
 SHARDED_PHASES = {  # the sharded round's own, inside the phases above
     "halo_pins": (fused, "_roll_sharded"),
     "merge_launches": (fused, "fused_merge"),
@@ -204,6 +221,14 @@ def main(argv=None) -> int:
                     help="with --observers, also attribute the torch ops "
                          "of gossip/kernel.py's function (or closure) FN "
                          "to OBSERVER")
+    ap.add_argument("--functions", action="store_true",
+                    help="attribute the round's device time by function "
+                         "(the round program's body run eagerly)")
+    ap.add_argument("--round-fn", action="append", default=[],
+                    metavar="FN=NAME",
+                    help="with --functions, also attribute the torch ops "
+                         "of gossip/kernel.py's function (or closure) FN "
+                         "to NAME")
     ap.add_argument("--multidc", action="store_true",
                     help="profile the multi-DC round, graphed and eager")
     args = ap.parse_args(argv)
@@ -217,6 +242,8 @@ def main(argv=None) -> int:
         print(json.dumps(profile_route(args, graphed)), flush=True)
     if args.observers:
         print(json.dumps(profile_observers(args)), flush=True)
+    if args.functions:
+        print(json.dumps(profile_functions(args)), flush=True)
     return 0
 
 
@@ -334,38 +361,44 @@ def _kernel_functions() -> set:
     return names
 
 
-def _observer_functions(pairs) -> dict:
-    """``OBSERVER_FUNCTIONS`` with the ``--observer-fn FN=OBSERVER``
-    pairs; raises for a name that is no function of gossip/kernel.py."""
-    out = dict(OBSERVER_FUNCTIONS)
+def _named_functions(base: dict, pairs, flag: str,
+                     present: set) -> dict:
+    """``base`` with the ``FN=NAME`` pairs given by ``flag``; raises for
+    a name that is not in ``present``."""
+    out = dict(base)
     for pair in pairs:
         fn, sep, name = pair.partition("=")
         if not (fn and sep and name):
-            raise SystemExit(f"profile_round: --observer-fn takes "
-                             f"FN=OBSERVER, got {pair!r}")
+            raise SystemExit(f"profile_round: {flag} takes FN=NAME, "
+                             f"got {pair!r}")
         out[fn] = name
-    missing = sorted(set(out) - _kernel_functions())
+    missing = sorted(set(out) - present)
     if missing:
-        raise SystemExit(f"profile_round: gossip/kernel.py has no "
-                         f"function {missing}")
+        raise SystemExit(f"profile_round: the tree has no function "
+                         f"{missing}")
     return out
 
 
-def _observer_mode(functions: dict):
+def _label_of(frame, functions: dict, files: tuple):
+    """The label of the innermost frame, from ``frame`` outward, of a
+    function in ``files`` whose name ``functions`` maps, or None."""
+    while frame is not None:
+        code = frame.f_code
+        if code.co_filename in files and code.co_name in functions:
+            return functions[code.co_name]
+        frame = frame.f_back
+    return None
+
+
+def _observer_mode(functions: dict, files: tuple = (kernel.__file__,)):
     """A dispatch mode that runs each torch op under a profiler range
-    naming the observer whose code calls it: the innermost frame of the
-    kernel module, from the op outward, whose function ``functions``
-    names."""
+    naming the observer (or, with ``--functions``, the round's function)
+    whose code calls it: the innermost frame of ``files`` (the kernel
+    module), from the op outward, whose function ``functions`` names."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     def observer(frame):
-        while frame is not None:
-            code = frame.f_code
-            if code.co_filename == kernel.__file__ \
-                    and code.co_name in functions:
-                return functions[code.co_name]
-            frame = frame.f_back
-        return None
+        return _label_of(frame, functions, files)
 
     class Labels(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -378,25 +411,34 @@ def _observer_mode(functions: dict):
     return Labels()
 
 
-def _observer_of(op, kernel_name: str) -> str:
+def _observer_of(op, kernel_name: str, by_name=OBSERVER_KERNELS,
+                 names_first: bool = True) -> str:
     """The observer a device kernel is one of (``op``: the CPU op that
-    launched it, or None for a launch no op made), or ``round``."""
-    for part, name in OBSERVER_KERNELS:
-        if part in kernel_name:
-            return name
+    launched it, or None for a launch no op made), or ``round``: by the
+    kernel's name (``by_name``) and by the labelled ranges around ``op``,
+    the name first or, with ``names_first`` off, last."""
+    def named():
+        for part, name in by_name:
+            if part in kernel_name:
+                return name
+        return None
+
+    if names_first and named():
+        return named()
     while op is not None:
         if op.name.startswith(_LABEL):
             return op.name[len(_LABEL):]
         op = op.cpu_parent
-    return "round"
+    return named() or "round"
 
 
-def _attribute(events) -> dict:
+def _attribute(events, by_name=OBSERVER_KERNELS,
+               names_first: bool = True) -> dict:
     """observer -> kernel name -> (device us, launches) of a profile's
-    device kernels: those a torch op launched by that op
-    (``_observer_of``), the rest (launches no op made, through ctypes) by
-    their names alone.  The profiler also puts each observer's range on
-    the device's timeline, over its kernels; those spans are not
+    device kernels: those a CPU event launched by that event and its
+    ranges (``_observer_of``), the rest (launches the profiler ties to no
+    event) by their names alone.  The profiler also puts each observer's
+    range on the device's timeline, over its kernels; those spans are not
     kernels and are left out."""
     left: dict = {}
     for e in events:
@@ -415,13 +457,31 @@ def _attribute(events) -> dict:
         if e.device_type != DeviceType.CPU:
             continue
         for k in getattr(e, "kernels", ()):
-            add(_observer_of(e, k.name), k.name, k.duration, 1)
+            add(_observer_of(e, k.name, by_name, names_first), k.name,
+                k.duration, 1)
             us, n = left.get(k.name, (0.0, 0))
             left[k.name] = (us - k.duration, n - 1)
     for kname, (us, n) in left.items():
         if n > 0:
-            add(_observer_of(None, kname), kname, us, n)
+            add(_observer_of(None, kname, by_name, names_first), kname,
+                us, n)
     return acc
+
+
+def _by_function(acc: dict, R: int) -> dict:
+    """``_attribute``'s rows as device ms, kernels a round and the top
+    kernels by name, for each label."""
+    out = {}
+    for name, rows in sorted(acc.items()):
+        top = sorted(rows.items(), key=lambda kv: -kv[1][0])
+        out[name] = {
+            "device_ms_per_round": sum(us for us, _ in rows.values())
+            / 1e3 / R,
+            "kernels_per_round": sum(n for _, n in rows.values()) / R,
+            "by_kernel": [{"kernel": k[:90], "calls_per_round": n / R,
+                           "device_ms_per_round": us / 1e3 / R}
+                          for k, (us, n) in top[:6]]}
+    return out
 
 
 def profile_observers(args) -> dict:
@@ -429,7 +489,8 @@ def profile_observers(args) -> dict:
     (the module docstring): eager rounds of the 1M churn round with the
     flight ring, hist banks and trace threaded, each torch op run under a
     profiler range that names its observer."""
-    functions = _observer_functions(args.observer_fn)
+    functions = _named_functions(OBSERVER_FUNCTIONS, args.observer_fn,
+                                 "--observer-fn", _kernel_functions())
     dev = torch.device("cuda")
     p = lan_profile(N, slots=SLOTS, hot_slots=0, dissem="fused")
     n_fail = max(1, N * args.churn_ppm // 1_000_000) if args.churn_ppm else 0
@@ -456,17 +517,7 @@ def profile_observers(args) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         with _observer_mode(functions):
             state = run(state, R)
-    acc = _attribute(list(prof.events()))
-    out = {}
-    for name, rows in sorted(acc.items()):
-        top = sorted(rows.items(), key=lambda kv: -kv[1][0])
-        out[name] = {
-            "device_ms_per_round": sum(us for us, _ in rows.values())
-            / 1e3 / R,
-            "kernels_per_round": sum(n for _, n in rows.values()) / R,
-            "by_kernel": [{"kernel": k[:90], "calls_per_round": n / R,
-                           "device_ms_per_round": us / 1e3 / R}
-                          for k, (us, n) in top[:6]]}
+    out = _by_function(_attribute(list(prof.events())), R)
     observers = {k: v for k, v in out.items() if k != "round"}
     return {"device": torch.cuda.get_device_name(dev), "route": "eager",
             "attribution": "observers", "n": p.n, "slots": p.slots,
@@ -477,6 +528,104 @@ def profile_observers(args) -> dict:
                 "device_ms_per_round", 0.0),
             "observers": observers,
             "round_top_kernels": out.get("round", {}).get("by_kernel", [])}
+
+
+# The round's functions (gossip/kernel.py, and program.py's copies into
+# the buffers) that ``--functions`` names; the innermost on a stack wins.
+ROUND_FUNCTIONS = {"_join_tick": "join_tick", "_probe_tick": "probe_tick",
+                   "_finish_round": "finish_round",
+                   "_maybe_pushpull": "pushpull",
+                   "_copy_leaves": "copy_leaves",
+                   "_swim_round_impl": "round_rest"}
+# Hand kernels (ctypes launches, which the profiler ties to no op), by a
+# part of their names.
+ROUND_KERNELS = (("finish::fire_kernel", "fire_timers"),
+                 ("finish::wipe_kernel", "wipe_rows"),
+                 ("dissem_tail::tail_kernel", "tail"),
+                 ("threefry::draw_kernel", "draws"),
+                 ("observe::counts_kernel", "observers"))
+
+
+class _EagerBranches:
+    """``kernel._recorder`` for a round program's body run eagerly: each
+    branch is taken on a host read of its predicate and its result is
+    copied into the program's buffers (``program._copy_leaves``), as the
+    replayed conditional node does; ``taken`` counts the branches run."""
+
+    def __init__(self):
+        self.taken: dict = {}
+
+    def when(self, pred, fn, operand):
+        if int(pred):
+            self.taken["join"] = self.taken.get("join", 0) + 1
+            program._copy_leaves(operand, fn(operand))
+        return operand
+
+    def switch(self, which, branches, names, dst):
+        i = int(which)
+        self.taken[names[i]] = self.taken.get(names[i], 0) + 1
+        program._copy_leaves(dst, branches[i]())
+        return dst
+
+
+def profile_functions(args) -> dict:
+    """The round's device time a round by function (the module
+    docstring): the 1M round (churn as ``--churn-ppm`` says, on
+    ``--ndev`` shards), ``WARM`` graphed rounds, then ``--rounds`` rounds
+    of the round program's body run eagerly under the profiler."""
+    from consul_tpu_torch.gossip import round_args
+    dev = torch.device("cuda")
+    p = lan_profile(N, slots=SLOTS, hot_slots=0, dissem="fused")
+    n_fail = max(1, N * args.churn_ppm // 1_000_000) if args.churn_ppm else 0
+    R = args.rounds
+    fail = np.full(p.n, kernel.NEVER, np.int32)
+    if n_fail:
+        fail[:n_fail] = ((np.arange(n_fail, dtype=np.int64) * (WARM + R))
+                         // n_fail)
+    fail_t = torch.from_numpy(fail).to(dev)
+    key = prng.key(42)
+    sc = kernel._ShardCtx(args.ndev, N // args.ndev) if args.ndev else None
+    if sc is None:
+        state = kernel.run_rounds(kernel.init_state(p, device=dev), key,
+                                  fail_t, p, WARM, device=dev)[0]
+    else:
+        state = kernel.run_rounds_sharded(kernel.init_state(p, device=dev),
+                                          key, fail_t, p, WARM,
+                                          ndev=args.ndev, device=dev)[0]
+    rnd0 = int(state.round)
+    prog = program.RoundProgram(p, None, sc, dev, state, fail_t, None, None,
+                                None, None, False)
+    prog.load(state, fail_t)
+    prog.set_rows(program._pinned(round_args.build(p, key, rnd0, R), dev))
+    functions = _named_functions(ROUND_FUNCTIONS, args.round_fn,
+                                 "--round-fn",
+                                 _kernel_functions() | {"_copy_leaves"})
+    files = (kernel.__file__, program.__file__)
+    torch.cuda.synchronize()
+    branches = _EagerBranches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with _observer_mode(functions, files):
+            for k in range(R):
+                kernel._recorder = branches
+                try:
+                    prog._body(kernel.round_variant(p, None, rnd0 + k))
+                finally:
+                    kernel._recorder = None
+            torch.cuda.synchronize()
+    out = _by_function(_attribute(list(prof.events()), ROUND_KERNELS,
+                                  names_first=False), R)
+    return {"device": torch.cuda.get_device_name(dev),
+            "route": "program body, eager branches",
+            "attribution": "functions", "n": p.n, "slots": p.slots,
+            "churn_ppm": args.churn_ppm, "ndev": args.ndev or None,
+            "warm_rounds": WARM, "rounds": R, "branches": branches.taken,
+            "functions": sorted(functions),
+            "device_ms_per_round": sum(v["device_ms_per_round"]
+                                       for v in out.values()),
+            "kernels_per_round": sum(v["kernels_per_round"]
+                                     for v in out.values()),
+            "by_function": out}
 
 
 def profile_route(args, graphed: bool) -> dict:

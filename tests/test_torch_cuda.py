@@ -768,3 +768,111 @@ def test_round_programs_own_their_observer_scratch():
     assert len(progs) == 2
     assert len({g.obs_scratch.data_ptr() for g in progs}) == 2
     assert all(int(g.obs_scratch.abs().sum()) == 0 for g in progs)
+
+
+def _finish_inputs(R, N, seed):
+    """Bytes of every message, conf and age (a third any byte value), rx
+    with holes, a timer mask a row (0 on about half the rows), a
+    refutation on some rows."""
+    rng = np.random.default_rng(seed)
+    heard = np.where(rng.random((R, N)) < 0.35,
+                     rng.integers(0, 256, (R, N)),
+                     rng.integers(0, 4, (R, N)) << 6
+                     | rng.integers(0, 4, (R, N)) << 4
+                     | rng.integers(0, 16, (R, N))).astype(np.uint8)
+    rx = rng.random(N) < 0.8
+    ok = np.where(rng.random(R) < 0.5, rng.integers(1, 16, R), 0)
+    ok[0] = 15
+    col = rng.integers(0, N, R).astype(np.int32)
+    rb = np.where(rng.random(R) < 0.4, 0xC0, 0).astype(np.uint8)
+    return [torch.from_numpy(a).cuda() for a in (heard, rx,
+                                                 ok.astype(np.uint8), col,
+                                                 rb)]
+
+
+@pytest.mark.parametrize("R, N, ndev", [(64, 4096, 1), (8, 1001, 1),
+                                        (64, 4104, 2), (16, 8 * 1250, 8),
+                                        (64, 8 * 31_250, 8), (5, 7, 1)])
+def test_finish_kernels_match_plain_on_card(R, N, ndev):
+    """``csrc/finish.cu`` against ``fire_timers_ref`` / ``wipe_rows_ref``
+    on the card: the 16-byte, 4-byte and byte paths, 1, 2 and 8 shards,
+    with and without the refutation, no row live and some: every byte and
+    ``fired``, tolerance 0; one launch each."""
+    _need_card()
+    from consul_tpu_torch.gossip import finish
+    heard, rx, ok, col, rb = _finish_inputs(R, N, seed=R + N)
+    L = N // ndev
+
+    def split(h):
+        out = tuple(h[:, i * L:(i + 1) * L].clone() for i in range(ndev))
+        return out if ndev > 1 else out[0]
+
+    for mask in (ok, torch.zeros_like(ok)):
+        for refute in (None, (col, rb)):
+            got, ref = split(heard), split(heard)
+            n0 = finish.fire_launches
+            fired = finish.fire_timers(got, rx, mask, refute)
+            torch.cuda.synchronize()
+            assert finish.fire_launches == n0 + 1
+            assert torch.equal(fired, finish.fire_timers_ref(ref, rx, mask,
+                                                             refute))
+            for a, b in zip(got if ndev > 1 else (got,),
+                            ref if ndev > 1 else (ref,)):
+                assert torch.equal(a, b)
+    for flags in (ok > 0, torch.zeros_like(ok, dtype=torch.bool),
+                  torch.ones_like(ok, dtype=torch.bool)):
+        got, ref = split(heard), split(heard)
+        n0 = finish.wipe_launches
+        finish.wipe_rows(got, flags)
+        torch.cuda.synchronize()
+        assert finish.wipe_launches == n0 + 1
+        finish.wipe_rows_ref(ref, flags)
+        for a, b in zip(got if ndev > 1 else (got,),
+                        ref if ndev > 1 else (ref,)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("ndev", [None, 4])
+def test_graphed_round_launches_finish_on_card(ndev):
+    """The graphed round launches ``fire_timers`` once and ``wipe_rows``
+    twice a non-quiescent round (the fire and the GC), ``wipe_rows`` once
+    more a round (the probe tick's rearm) and once a join round (the
+    stale wipe); its matrix is copied once a call and once a full-tail
+    round; results equal the eager round's, which launches the same."""
+    _need_card()
+    from consul_tpu_torch.gossip import finish
+    from consul_tpu_torch.gossip.params import lan_profile
+    n, steps = 4000, 120
+    p = lan_profile(n, slots=32, loss_rate=0.01, hot_slots=8)
+    fail, join = _churn_inputs(n, steps, 9)
+    st = tk.init_state(p)._replace(member=torch.from_numpy(join == NEVER)
+                                   .cuda())
+    before = {f: getattr(st, f).clone() for f in st._fields}
+    runs = {}
+    for graphed in (False, True):
+        program.settle_counts()
+        f0, w0, j0 = finish.fire_launches, finish.wipe_launches, \
+            tk.join_rounds
+        c0, tails = program.copy_bytes, dict(tk.tail_rounds)
+        a = dict(trace=True, join_round=join, flight=tk.init_flight(),
+                 hist=tk.init_hist(), graphed=graphed)
+        if ndev:
+            out = tk.run_rounds_sharded(st, prng.key(8), fail, p, steps,
+                                        ndev=ndev, **a)
+        else:
+            out = tk.run_rounds(st, prng.key(8), fail, p, steps, **a)
+        torch.cuda.synchronize()
+        program.settle_counts()
+        busy = sum(tk.tail_rounds[k] - tails[k] for k in ("hot", "full"))
+        joins = tk.join_rounds - j0
+        assert busy > 0 and joins > 0
+        assert finish.fire_launches - f0 == busy
+        assert finish.wipe_launches - w0 == steps + joins + busy
+        full = tk.tail_rounds["full"] - tails["full"]
+        copied = program.copy_bytes - c0
+        assert copied == (p.slots * p.n * (1 + full) if graphed else 0)
+        runs[graphed] = out
+    (ce, te), (cg, tg) = runs[False], runs[True]
+    assert _same_fields(list(ce) + [te], list(cg) + [tg]) == []
+    for f in st._fields:
+        assert torch.equal(before[f], getattr(st, f)), f

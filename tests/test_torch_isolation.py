@@ -444,15 +444,67 @@ def test_observe_never_falls_back(monkeypatch):
     assert (observe.launches, set(observe.launch_shapes)) == before
 
 
+def test_finish_never_falls_back(monkeypatch):
+    """The fire pass and the row wipe take the plain version only for a
+    CPU tensor: the kernel wrappers refuse anything but a CUDA tensor, and
+    a tensor that is not on the CPU whose kernels cannot be built raises
+    the build's error instead of running the plain version."""
+    from consul_tpu_torch import _build
+    from consul_tpu_torch.gossip import finish
+    R, N = 4, 16
+    heard = torch.full((R, N), 1 << 6, dtype=torch.uint8)
+    rx = torch.ones(N, dtype=torch.bool)
+    ok = torch.full((R,), 15, dtype=torch.uint8)
+    flags = torch.ones(R, dtype=torch.bool)
+    refute = (torch.zeros(R, dtype=torch.int32),
+              torch.zeros(R, dtype=torch.uint8))
+    before = (finish.launches, set(finish.launch_shapes))
+    assert finish.fire(heard, rx, ok, refute).all()
+    assert finish.wipe(heard, flags) is heard and not heard.any()
+    assert (finish.launches, set(finish.launch_shapes)) == before
+    meta = [t.to("meta") for t in (heard, rx, ok, flags)]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        finish.fire_timers(heard, rx, ok)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        finish.wipe_rows(heard, flags)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        finish.fire(*meta[:3])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        finish.wipe(meta[0], meta[3])
+    shards = tuple(h.to("meta") for h in heard.split(N // 2, dim=1))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        finish.wipe(shards, meta[3])
+
+    # Tensors the wrappers take, and a build that fails: the error, not
+    # the plain version's bytes.
+    def failed_build(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(finish, "require_cuda", lambda name, t: None)
+    monkeypatch.setattr(_build, "build", failed_build)
+    monkeypatch.setattr(_build, "_libs", {})
+    finish._lib.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed for finish"):
+            finish.fire(*meta[:3], tuple(t.to("meta") for t in refute))
+        with pytest.raises(RuntimeError, match="nvcc failed for finish"):
+            finish.wipe(meta[0], meta[3])
+    finally:
+        finish._lib.cache_clear()
+    assert (finish.launches, set(finish.launch_shapes)) == before
+
+
 def test_import_builds_nothing(tmp_path):
     """Importing the port compiles no kernel: not fused_dissem's or
     fused_merge's, not the store's kv_apply or watch_match (the build runs
     at the first launch on a card)."""
     code = ("import consul_tpu_torch.gossip.fused as f, "
             "consul_tpu_torch.gossip.kernel, consul_tpu_torch._build as b, "
-            "consul_tpu_torch.state.device_store as d; "
+            "consul_tpu_torch.state.device_store as d, "
+            "consul_tpu_torch.gossip.finish as fi; "
             "assert f._lib.cache_info().currsize == 0 and not b.build_logs; "
             "assert d._lib.cache_info().currsize == 0; "
+            "assert fi._lib.cache_info().currsize == 0; "
             "print(b._libs)")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
