@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase event_flood   # that phase alone (A/B)
     python3 chip_smoke.py --phase observe       # that phase alone (A/B)
     python3 chip_smoke.py --phase finish        # that phase alone (A/B)
+    python3 chip_smoke.py --phase probe         # that phase alone (A/B)
 
 Each phase prints one JSON line; any failure exits non-zero and the
 result lines are not printed.
@@ -14,17 +15,18 @@ result lines are not printed.
    and ``fused_merge``), ``csrc/kv_store.cu``,
    ``csrc/threefry.cu``, ``csrc/round_graph.cu`` (the round
    program's conditional nodes), ``csrc/event_flood.cu`` (the event
-   round), ``csrc/observe.cu`` (the round's observers' counts) and
-   ``csrc/finish.cu`` (the finish step's fire pass and row wipes) with
-   nvcc for sm_90a, one nvcc each, all started together (ptxas report).
+   round), ``csrc/observe.cu`` (the round's observers' counts),
+   ``csrc/finish.cu`` (the finish step's fire pass and row wipes) and
+   ``csrc/probe.cu`` (the probe tick) with nvcc for sm_90a, one nvcc
+   each, all started together (ptxas report).
    threefry: every entry point of the round's draws
    (``consul_tpu_torch/prng.py``: bits, uniform, uniform rows, below,
    randint, edge drops) against its plain torch version on the card, bit
    for bit, over 16 keys (4 at 1M elements; keys with the high bit set
-   among them), at the 1M paths' shapes (the probe tick's [200,000] and
-   [200,000, 3], the drop legs' [3, 1M] and
+   among them), at the 1M paths' shapes (the drop legs' [3, 1M] and
    [2, 1M] under asym_loss's and partition_heal's probabilities, the
-   Feistel targets' [1M]) and at odd lengths; per shape the kernel's time
+   Feistel targets' [1M]; the probe tick's former [200,000] and
+   [200,000, 3]) and at odd lengths; per shape the kernel's time
    (CUDA-graph replays and back-to-back wrapper calls), the plain
    version's, and the bound: output bytes over the memory rate, or the
    hashed elements times the SASS count per element of the entry point's
@@ -110,6 +112,25 @@ result lines are not printed.
    operations, ``finish_ops_per_word``, counted by hand, over the INT32
    rate where that is larger).  ``--phase finish`` runs the card line,
    the kernels' build and this phase alone.
+6e. probe: the probe tick's kernels (``csrc/probe.cu``: ``probe_lanes``,
+   ``probe_slots``, ``probe_marks``, with ``wipe_rows`` between the last
+   two as the round runs them) against ``probe_lanes_ref``,
+   ``probe_slots_ref`` and ``probe_marks_ref`` on the card, tolerance 0
+   in every field of the state, NemState and the scratch after every
+   step, over 64 seeds of each ``PROBE_CASES`` entry ([64, 1M] with B =
+   200,000, K = 3 at loss 0 and 0.01, the partition legs by hash and by
+   halves at 0 < p < 1 and at p = 1, degraded observers with NemState;
+   16,001 with padding lanes, K 3 and 0; 8 shards of [64, 1M]; the WAN
+   pool's [32, 12] with B = 2), each state with free, SUSPECT, DEAD,
+   REFUTED and JOIN slots and more needy targets than free slots (every
+   state must initiate and allocate or drop; rearms and drops must
+   occur).  Times from CUDA-graph replays of the whole tick and of each
+   kernel, the plain versions', on each case's state and on the 1M main
+   path's data (1 and 8 shards), beside the bound (``_probe_bound``: the
+   bytes the data needs, and the hashes at the SASS count of a uniform
+   element, ``sass_count.py --threefry``); the lanes kernel's SASS
+   (``sass_count.py --probe``).  ``--phase probe`` runs the card line,
+   the builds and this phase alone.
 7. full_path: ``run_rounds`` at n=16,000, S=64 (lan_profile, churn,
    loss, joins, flight ring, hist banks, trace) once on the card and
    once on the CPU (a worker process started with the script, which runs
@@ -122,8 +143,9 @@ result lines are not printed.
    step's kernels at their exact count: ``fire_timers`` once a
    non-quiescent round, ``wipe_rows`` once a round (the probe tick's
    rearm), once a join round (the stale wipe) and once a non-quiescent
-   round (the GC), on every pool's rounds (gated here, in 8, on the main
-   and nemesis main paths, round_program's both routes, crossval, both
+   round (the GC), and each of the probe tick's kernels once a round, on
+   every pool's rounds (gated here, in 8, on the main and nemesis main
+   paths, nemesis_full_path, round_program's both routes, crossval, both
    multi-DC paths and the plane); on the graphed single-pool paths the
    belief matrix copied once a call and once a full-tail round, never in
    a quiescent or hot round (``program.copy_bytes``; the healthy main
@@ -138,9 +160,8 @@ result lines are not printed.
    ending in a device->host read; rounds/s, kernel launches (must equal
    the non-quiescent rounds), host syncs per round, peak device memory;
    ``n_detected > 0`` and ``n_false_dead == 0`` required; draw launches
-   per round, which must equal the device draws the paths asked for and
-   the probe tick's one a round (the indirect probes' losses; at loss 0
-   the direct probes' is certain and not drawn).
+   per round, which must equal the device draws the paths asked for: none
+   (the probe tick draws inside its own kernel).
 10. sharded_main_path: the same churn run through
     ``run_rounds_sharded(ndev=8)``: rounds/s, merge launches (= the
     non-quiescent rounds), host syncs per round (equal to phase 9's),
@@ -166,8 +187,10 @@ result lines are not printed.
     graph launches a round (1); rounds/s of both routes, captures, their
     seconds and the pool's bytes; for churn, device kernels and busy
     time a round and the idle share of both routes (torch.profiler), and
-    the ``tail_kernel`` and ``draw_kernel`` runs the profiler saw equal
-    to the settled ``fused.launches`` and ``prng.launches``, and the
+    the ``tail_kernel``, ``draw_kernel`` (none), ``finish::`` and
+    ``probe::`` runs the profiler saw equal to the settled
+    ``fused.launches``, ``prng.launches``, ``finish``'s and
+    ``probe.launches``, and the
     graphed churn round with the observers threaded profiled the same
     way (``counts_kernel`` runs equal to ``observe.launches``, its device
     ms a round); the observers' kernel launches of both routes gated.
@@ -257,7 +280,9 @@ The cross-validation and multi-DC phases:
 Every card path (full_path, sharded_full_path, nemesis_full_path,
 crossval, multidc_full_path, the main paths) reports its launches of the
 draws' kernel, which must equal the device draws it asked for
-(``prng.calls``): on the card every draw is one launch.
+(``prng.calls``): on the card every draw is one launch; since the probe
+tick draws inside ``csrc/probe.cu``, a path without a nemesis partition
+makes none.
 
 Last, path_shapes: every (kernel, S, L, ndev, fanout, budget) that the
 wrappers launched at after the kernel phases (``fused.launch_shapes``:
@@ -275,7 +300,9 @@ verdict, want) the observers' counts were launched at
 (``observe.launch_shapes``), on 4 fresh inputs against the plain
 version; and every (kernel, R, L, ndev, refutation) the fire pass and
 the wipe were launched at (``finish.launch_shapes``), on 4 fresh inputs
-against the plain versions.
+against the plain versions; and every (B, S, N, L, ndev, variant) the
+probe tick's kernels were launched at (``probe.launch_shapes``), the
+whole tick on 4 fresh states against the plain versions.
 
 The device-resident state store (phase device_store, after gossipd;
 ``consul_tpu_torch/state/device_store.py``, kernels ``kv_apply`` and
@@ -318,8 +345,8 @@ plane's path as ``plane_launches``, with a drop operand on the nemesis
 main paths as ``nemesis_launches``, in the crossval phase as
 ``crossval_launches`` and on the 1M multi-DC paths as
 ``multidc_launches``; for the store's kernels, their launches in
-store_bridge; for the draws' kernel, its launches on the main paths, its
-time the main path's one probe-tick draw a round; for the round
+store_bridge; for the draws' kernel, its launches on the nemesis main
+path, its time that path's gossip legs' drops [3, 1M]; for the round
 program, its graph launches on the churn main path and a graphed round's
 time against the eager round's; for the event flood, its launches on the
 1M multi-DC paths, in the events phase and on the plane, its time at
@@ -328,7 +355,10 @@ the 1M churn path with the observers threaded, on 8 shards, on the plane
 and in crossval, their time at [64, 1M] in the final matrix's and the
 spread's forms; for the finish step's fire pass and wipe, their
 launches on the churn main path, on 8 shards, on the plane, in crossval
-and on the 1M multi-DC path, their time at [64, 1M]) and, last, the ok
+and on the 1M multi-DC path, their time at [64, 1M]; for the probe
+tick's three kernels, their launches on the churn main path, on 8
+shards, under partition_heal, on the plane, in crossval and on the 1M
+multi-DC path, their time on the 1M main path's data) and, last, the ok
 line.  Needs
 one CUDA card: without one it exits 2 before printing anything else.
 Imports nothing of JAX and nothing of the JAX package.
@@ -442,10 +472,11 @@ def card() -> str:
 # the device store's kv_apply and watch_match in kv_store.cu, the round's
 # random draws in threefry.cu, the round program's conditional nodes in
 # round_graph.cu, the event round in event_flood.cu, the round's
-# observers' counts (heard_counts) in observe.cu and the finish step's
-# fire pass and row wipes (fire_timers, wipe_rows) in finish.cu.
+# observers' counts (heard_counts) in observe.cu, the finish step's fire
+# pass and row wipes (fire_timers, wipe_rows) in finish.cu and the probe
+# tick (probe_lanes, probe_slots, probe_marks) in probe.cu.
 SOURCES = ("dissem_tail", "kv_store", "threefry", "round_graph", "event_flood",
-           "observe", "finish")
+           "observe", "finish", "probe")
 
 
 def build() -> None:
@@ -465,18 +496,19 @@ def build() -> None:
 
 # -- the draws' kernel ----------------------------------------------------------
 
-# The draws the paths make at 1M: the probe tick's B = 200,000 probers
-# and their 3 helpers (the main path's one draw a round, ``main``); the
-# direct probes' losses (a compared draw, ``below``); the drop legs at
-# 1M (3 gossip legs, 2 push/pull legs; asym_loss's hash partition at
-# p_ab 0.6, p_ba 0, partition_heal's halves at 1); the degraded
-# observers' misses (p 0.3); the Feistel targets at 1M.  Then odd and
-# small lengths: 1, 4,099, the 16,000-node paths' 3,200 probers, one past
-# the grid's cap of 1,056 blocks of 256 (threads stride), 16,001 columns.
+# The entry points at the 1M paths' shapes: the drop legs at 1M (3
+# gossip legs, 2 push/pull legs; asym_loss's hash partition at p_ab 0.6,
+# p_ba 0, partition_heal's halves at 1: the nemesis main path's draw a
+# round, ``main``); the Feistel targets at 1M; the shapes of the probe
+# tick's former draws (B = 200,000 probers and their 3 helpers, the
+# direct probes' losses, the degraded observers' misses at p 0.3), whose
+# hash the probe tick's own kernel now runs inline.  Then odd and small
+# lengths: 1, 4,099, 3,200 a row of 3, one past the grid's cap of 1,056
+# blocks of 256 (threads stride), 16,001 columns.
 DRAW_N, DRAW_B = 1_000_000, 200_000
 DRAWS = (
     dict(entry="uniform", shape=(DRAW_B,)),
-    dict(entry="uniform", shape=(DRAW_B, 3), main=True),
+    dict(entry="uniform", shape=(DRAW_B, 3)),
     dict(entry="uniform", shape=(1,)),
     dict(entry="uniform", shape=(4_099,)),
     dict(entry="uniform", shape=(3_200, 3)),
@@ -491,7 +523,7 @@ DRAWS = (
     dict(entry="edge_drops", shape=(3, DRAW_N), groups="hash", p_ab=0.6,
          p_ba=0.0),
     dict(entry="edge_drops", shape=(3, DRAW_N), groups="half", p_ab=1.0,
-         p_ba=1.0),
+         p_ba=1.0, main=True),
     dict(entry="edge_drops", shape=(2, DRAW_N), groups="hash", p_ab=0.6,
          p_ba=0.0),
     dict(entry="edge_drops", shape=(3, 16_001), groups="hash", p_ab=0.3,
@@ -1636,9 +1668,564 @@ def finish_shapes_vs_plain(shapes: set) -> list:
     return rows
 
 
+# -- the probe tick: the prober lanes, the slot step and the marks ---------------
+
+# (N, S, probe_every, K, loss, nemesis fields or None, LHM threaded, shards,
+# free slots) of the probe phase: the 1M round (B = 200,000, K = 3) at the
+# main paths' loss 0 and at 0.01, under every nemesis leg (the hash and
+# the halves at 0 < p < 1 and at 1, degraded observers with Lifeguard's
+# registers); the unaligned 16,001 (padding lanes); 8 shards of the 1M
+# round; the WAN pool's two lanes; each state with free, SUSPECT, DEAD,
+# REFUTED and JOIN slots and more needy targets than free slots.
+_PROBE_HASH = dict(part_kind="hash", p_ab=0.6, p_ba=0.0)
+_PROBE_HALVES = dict(part_kind="contig", p_ab=0.3, p_ba=0.45)
+_PROBE_DEGRADED = dict(obs_lo=0, obs_hi=1_000_000, p_obs_miss=0.3,
+                       lhm_max=3)
+PROBE_CASES = {
+    "1m": (1_000_000, 64, 5, 3, 0.0, None, False, 1, 8),
+    "1m_loss": (1_000_000, 64, 5, 3, 0.01, None, False, 1, 8),
+    "1m_hash": (1_000_000, 64, 5, 3, 0.01, _PROBE_HASH, False, 1, 8),
+    "1m_hash_p1": (1_000_000, 64, 5, 3, 0.0, dict(part_kind="hash",
+                                                  p_ab=1.0, p_ba=1.0),
+                   False, 1, 8),
+    "1m_halves": (1_000_000, 64, 5, 3, 0.01, _PROBE_HALVES, False, 1, 8),
+    "1m_halves_p1": (1_000_000, 64, 5, 3, 0.0, dict(part_kind="contig",
+                                                    p_ab=1.0, p_ba=1.0),
+                     False, 1, 8),
+    "1m_degraded_lhm": (1_000_000, 64, 5, 3, 0.01, _PROBE_DEGRADED, True,
+                        1, 8),
+    "16001_all_legs": (16_001, 64, 5, 3, 0.01, dict(
+        _PROBE_HASH, obs_lo=0, obs_hi=16_001, p_obs_miss=0.3, lhm_max=3),
+        True, 1, 8),
+    "16001_k0": (16_001, 64, 5, 0, 0.01, None, False, 1, 8),
+    "1m_8_shards": (1_000_000, 64, 5, 3, 0.01, None, False, 8, 8),
+    "1m_8_shards_legs": (1_000_000, 64, 5, 3, 0.01, dict(
+        _PROBE_HALVES, **_PROBE_DEGRADED), True, 8, 8),
+    "wan": (12, 32, 10, 3, 0.0, None, False, 1, 4),
+}
+PROBE_RND = 52
+
+
+def _probe_params(case: str):
+    """(params, nemesis schedule or None, shards, LHM threaded, free slots)
+    of a probe case."""
+    from consul_tpu_torch.gossip.nemesis import NemesisParams
+    from consul_tpu_torch.gossip.params import SwimParams
+    n, S, pe, K, loss, nem_f, lhm, ndev, free = PROBE_CASES[case]
+    p = SwimParams(n=n, slots=S, probe_every=pe, indirect_k=K,
+                   loss_rate=loss)
+    nem = None
+    if nem_f is not None:
+        fields = dict(nem_f)
+        if "obs_hi" in fields:
+            fields["obs_hi"] = min(fields["obs_hi"], n)
+        nem = NemesisParams(scenario="probe", start=0, stop=NEVER, **fields)
+    return p, nem, ndev, lhm, free
+
+
+def _probe_inputs(p, nem, ndev: int, lhm: bool, free: int, seed: int):
+    """A round's probe-tick inputs on the card, as ``probe.Tick``, with
+    its configuration: the round's row under ``prng.key(seed)``; mf with
+    non-members, dead and live nodes; half the lanes a live prober of a
+    dead member; ``S - free`` live slots in every phase, their subjects
+    mostly this round's targets (rearms); every byte value in the matrix;
+    ``drops`` near the int32 edge; NemState's registers around the LHM
+    ceiling."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import kernel, probe, round_args
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    N, S = p.n, p.slots
+    cfg = probe.config(p, kernel.round_variant(p, nem, PROBE_RND), nem)
+    B = cfg.B
+    ra = round_args.row_args(
+        round_args.layout(p.fanout, p.indirect_k),
+        torch.from_numpy(round_args.build(p, prng.key(seed), PROBE_RND,
+                                          1)[0]).to(dev))
+    blk, o_t = int(ra.blk), int(ra.probe[0])
+    u = torch.rand(N, device=dev, generator=g)
+    mf = torch.where(u < 0.05, -1, torch.where(
+        u < 0.1, 10, torch.where(u < 0.12, PROBE_RND, NEVER))).to(
+        torch.int32)
+    lanes = torch.randperm(B, device=dev, generator=g)
+    pids = blk + lanes
+    pids = pids[pids < N]
+    half = max(1, pids.numel() // 2)
+    mf[pids[:half]] = NEVER
+    tg = (pids + o_t) % N
+    mf[tg[:half]] = torch.where(torch.rand(half, device=dev, generator=g)
+                                < 0.5, 10, PROBE_RND).to(torch.int32)
+    live = S - free
+    # The first forced lane's target keeps no slot: a needy target in
+    # every state.
+    first = int(tg[0])
+    cand = tg[1:max(2, live)].tolist() + rng.permutation(N)[:live].tolist()
+    subjects = [x for x in dict.fromkeys(cand) if x != first][:live]
+    slot_ids = rng.permutation(S)[:len(subjects)]
+    slot_node = np.full(S, -1, np.int32)
+    slot_node[slot_ids] = subjects
+    slot_phase = np.where(slot_node >= 0, rng.integers(1, 5, S),
+                          0).astype(np.int32)
+    son = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    son[torch.as_tensor(subjects, device=dev).long()] = torch.as_tensor(
+        slot_ids, dtype=torch.int32, device=dev)
+    heard = torch.randint(0, 256, (S, N), device=dev, dtype=torch.uint8,
+                          generator=g)
+    if ndev > 1:
+        L = N // ndev
+        heard = tuple(heard[:, i * L:(i + 1) * L].clone()
+                      for i in range(ndev))
+
+    def small(lo, hi, n):
+        return torch.from_numpy(rng.integers(lo, hi, n).astype(
+            np.int32)).to(dev)
+
+    regs = (torch.from_numpy(slot_node).to(dev),
+            torch.from_numpy(slot_phase).to(dev), small(0, 9, S),
+            small(0, PROBE_RND, S), small(0, 4, S),
+            torch.from_numpy(np.where(rng.random(S) < 0.5, -1,
+                                      rng.integers(0, PROBE_RND, S))
+                             .astype(np.int32)).to(dev))
+    ns = None
+    if lhm:
+        top = nem.lhm_max
+        ns = kernel.NemState(
+            torch.randint(0, top + 1, (N,), device=dev, dtype=torch.int32,
+                          generator=g),
+            torch.randint(0, top + 2, (N,), device=dev, dtype=torch.int32,
+                          generator=g))
+        ns.streak[pids[:max(1, half // 2)]] = top + 1
+    inc = torch.randint(0, 9, (N,), device=dev, dtype=torch.int32,
+                        generator=g)
+    drops = torch.tensor(2**31 - 2, dtype=torch.int32, device=dev)
+    return cfg, probe.Tick(heard, ra, mf, son, ns, regs, inc, drops,
+                           probe.scratch(p, dev))
+
+
+def _probe_main_inputs(p, ndev: int, seed: int = 5,
+                       partition: bool = False):
+    """A probe tick's inputs as the 1M main path gives them: every node a
+    live member but 1,000 per million failed (dead members, on a stride),
+    8 live SUSPECT slots on failed nodes, the matrix zero but those rows
+    (random bytes), no nemesis.  ``partition``: as ``partition_heal``'s
+    window gives them instead (its contig bisection at p = 1, round
+    ``PROBE_RND`` inside [40, 160)): every node live, all S slots SUSPECT
+    on random nodes (the window's suspicions hold them), so each crossed
+    probe of a node without a slot is a needy target and is dropped."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import kernel, probe, round_args
+    from consul_tpu_torch.gossip.nemesis import build
+
+    dev = "cuda"
+    N, S = p.n, p.slots
+    nem = build("partition_heal", N).nem if partition else None
+    cfg = probe.config(p, kernel.round_variant(p, nem, PROBE_RND), nem)
+    ra = round_args.row_args(
+        round_args.layout(p.fanout, p.indirect_k),
+        torch.from_numpy(round_args.build(p, prng.key(seed), PROBE_RND,
+                                          1)[0]).to(dev))
+    mf = torch.full((N,), NEVER, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if partition:
+        live = torch.randperm(N, device=dev, generator=g)[:S]
+    else:
+        dead = torch.arange(0, N, 1000, device=dev)
+        mf[dead] = 10
+        live = dead[:8]
+    n_live = live.numel()
+    regs = [torch.full((S,), v, dtype=torch.int32, device=dev)
+            for v in (-1, 0, 0, 0, 0, -1)]
+    son = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    regs[0][:n_live] = live.to(torch.int32)
+    regs[1][:n_live] = 1
+    son[live] = torch.arange(n_live, dtype=torch.int32, device=dev)
+    heard = torch.zeros((S, N), dtype=torch.uint8, device=dev)
+    heard[:n_live] = torch.randint(0, 256, (n_live, N), device=dev,
+                                   dtype=torch.uint8, generator=g)
+    if ndev > 1:
+        L = N // ndev
+        heard = tuple(heard[:, i * L:(i + 1) * L].clone()
+                      for i in range(ndev))
+    return cfg, probe.Tick(heard, ra, mf, son, None, tuple(regs),
+                           torch.zeros(N, dtype=torch.int32, device=dev),
+                           torch.zeros((), dtype=torch.int32, device=dev),
+                           probe.scratch(p, dev))
+
+
+def _probe_timed(cfg, t, per_hash: float) -> dict:
+    """The tick's times on ``t`` (CUDA-graph replays of 20 ticks, the
+    state carried from tick to tick): the four launches together and each
+    kernel alone, the wipe of no row, the plain versions' four steps
+    (eager); beside ``_probe_bound``."""
+    from consul_tpu_torch.gossip import finish, probe
+    did = _probe_held(cfg, t)
+    bound = _probe_bound(cfg, t, did, per_hash)
+    tk = _tick_copy(t)
+    ms = graph_ms(lambda: _tick_kernels(cfg, tk))
+    lanes_ms = graph_ms(lambda: probe.probe_lanes(cfg, tk))
+    _tick_kernels(cfg, tk)  # the scratch as a round leaves it
+    slots_ms = graph_ms(lambda: probe.probe_slots(cfg, tk))
+    marks_ms = graph_ms(lambda: probe.probe_marks(cfg, tk))
+    tp = _tick_copy(t)
+    plain_ms = cuda_ms(lambda: _tick_plain(cfg, tp), iters=5, warm=1)
+    plain = {
+        "lanes": lambda: probe.probe_lanes_ref(
+            cfg, tp.ra, tp.mf, tp.heard, tp.slot_of_node, tp.nem_state,
+            tp.sp),
+        "slots": lambda: probe.probe_slots_ref(
+            cfg, tp.ra, tp.slots, tp.slot_of_node, tp.incarnation,
+            tp.drops, tp.sp),
+        "marks": lambda: probe.probe_marks_ref(cfg, tp.ra, tp.heard,
+                                               tp.slot_of_node, tp.sp)}
+    steps = {f"{k}_plain_ms": cuda_ms(fn, iters=5, warm=1)
+             for k, fn in plain.items()}
+    rearm = torch.zeros(cfg.S, dtype=torch.bool, device="cuda")
+    wipe_ms = graph_ms(lambda: finish.wipe_rows(tk.heard, rearm))
+    return {"stats": did["stats"], "needy": did["needy"], "ms": ms,
+            "lanes_ms": lanes_ms,
+            "slots_ms": slots_ms, "marks_ms": marks_ms,
+            "wipe_no_row_ms": wipe_ms, "plain_ms": plain_ms, **steps,
+            **bound, "share_of_bound": bound["bound_ms"] / ms,
+            "lanes_share_of_bound": bound["lanes_bound_ms"] / lanes_ms,
+            "slots_share_of_bound": bound["slots_bound_ms"] / slots_ms,
+            "marks_share_of_bound": bound["marks_bound_ms"] / marks_ms}
+
+
+def _tick_copy(t):
+    """The tick's tensors copied (the row shared)."""
+    from consul_tpu_torch.gossip import probe
+    heard = (tuple(h.clone() for h in t.heard)
+             if isinstance(t.heard, tuple) else t.heard.clone())
+    ns = None if t.nem_state is None else type(t.nem_state)(
+        *(x.clone() for x in t.nem_state))
+    return probe.Tick(heard, t.ra, t.mf, t.slot_of_node.clone(), ns,
+                      tuple(x.clone() for x in t.slots), t.incarnation,
+                      t.drops.clone(), t.sp.clone())
+
+
+def _tick_leaves(t) -> list:
+    heard = t.heard if isinstance(t.heard, tuple) else (t.heard,)
+    return [*heard, t.slot_of_node, *(t.nem_state or ()), *t.slots, t.drops,
+            t.sp]
+
+
+def _tick_kernels(cfg, t):
+    """The round's four launches: the probe kernels and the wipe."""
+    from consul_tpu_torch.gossip import finish, probe
+    probe.probe_lanes(cfg, t)
+    rearm, stats = probe.probe_slots(cfg, t)
+    finish.wipe_rows(t.heard, rearm)
+    probe.probe_marks(cfg, t)
+    return rearm, stats
+
+
+def _tick_plain(cfg, t):
+    from consul_tpu_torch.gossip import finish, probe
+    probe.probe_lanes_ref(cfg, t.ra, t.mf, t.heard, t.slot_of_node,
+                          t.nem_state, t.sp)
+    rearm, stats = probe.probe_slots_ref(cfg, t.ra, t.slots, t.slot_of_node,
+                                         t.incarnation, t.drops, t.sp)
+    finish.wipe_rows_ref(t.heard, rearm)
+    probe.probe_marks_ref(cfg, t.ra, t.heard, t.slot_of_node, t.sp)
+    return rearm, stats
+
+
+def _probe_held(cfg, t) -> dict:
+    """Each of the tick's kernels on a copy of ``t`` against its plain
+    version on another, every output field compared after each step
+    (tolerance 0); raises on a difference.  Returns the kernels' stats
+    and what the tick did."""
+    from consul_tpu_torch.gossip import finish, probe
+    got, want = _tick_copy(t), _tick_copy(t)
+
+    def same(what):
+        for i, (x, y) in enumerate(zip(_tick_leaves(got),
+                                       _tick_leaves(want))):
+            if not torch.equal(x, y):
+                raise AssertionError(f"probe {what} != plain (field {i})")
+
+    probe.probe_lanes(cfg, got)
+    probe.probe_lanes_ref(cfg, want.ra, want.mf, want.heard,
+                          want.slot_of_node, want.nem_state, want.sp)
+    same("lanes")
+    rearm, stats = probe.probe_slots(cfg, got)
+    rearm_w, stats_w = probe.probe_slots_ref(
+        cfg, want.ra, want.slots, want.slot_of_node, want.incarnation,
+        want.drops, want.sp)
+    same("slots")
+    if not (torch.equal(rearm, rearm_w) and torch.equal(stats, stats_w)):
+        raise AssertionError("probe slots != plain (rearm or stats)")
+    finish.wipe_rows(got.heard, rearm)
+    finish.wipe_rows_ref(want.heard, rearm_w)
+    # What the marks read and write: an initiator's slot, and its byte
+    # where the slot is live, written where the byte is at most SUSPECT.
+    init = probe._views(cfg, got.sp)[2] != 0
+    pid = int(t.ra.blk) + torch.arange(cfg.B, device=init.device)
+    s2 = got.slot_of_node[(pid + int(t.ra.probe[0])).remainder(cfg.N)]
+    cur = probe._points(got.heard, s2.clamp(0, cfg.S - 1).long(),
+                        pid.clamp(max=cfg.N - 1))
+    marked = init & (s2 >= 0)
+    probe.probe_marks(cfg, got)
+    probe.probe_marks_ref(cfg, want.ra, want.heard, want.slot_of_node,
+                          want.sp)
+    same("marks")
+    live0 = t.slots[0] >= 0
+    served = int((got.slots[0] >= 0).sum() - live0.sum())
+    dropped = (int(got.drops) - int(t.drops)) % 2**32
+    absorbed = live0 & ~rearm & (got.slots[4] != t.slots[4])
+    return {"stats": stats.tolist(), "rearmed": int(rearm.sum()),
+            "served": served, "absorbed": int(absorbed.sum()),
+            "dropped": dropped, "needy": served + dropped,
+            "marks_slot_reads": int(init.sum()),
+            "marks_byte_reads": int(marked.sum()),
+            "marks_writes": int((marked & ((cur >> 6) <= 1)).sum())}
+
+
+def _probe_work(cfg, t, stats: list) -> dict:
+    """What the lanes need on ``t``, lane by lane in the kernel's order:
+    mf at every valid prober, at the target of each live one, at each
+    helper asked (the helpers of a failed direct probe of a live member,
+    in order until one rescues); ``slot_of_node`` at the target of each
+    lane that would initiate, and the belief byte there where the target
+    holds a slot; the threefry hashes, one a draw that decides (its
+    probability strictly between 0 and 1, the lane still undecided).
+    Raises unless the acks missed and the suspicions counted so equal the
+    kernel's ``stats``."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import probe
+    N, S, B, K = cfg.N, cfg.S, cfg.B, cfg.K
+    dev = t.mf.device
+    ra = t.ra
+    rnd = int(ra.rnd)
+    pid = int(ra.blk) + torch.arange(B, device=dev)
+    pvalid = pid < N
+    ok = pvalid & (t.mf[pid.remainder(N)] > rnd)
+    tgt = (pid + int(ra.probe[0])).remainder(N)
+    mf_t = t.mf[tgt]
+    member, alive = mf_t >= 0, mf_t > rnd
+    k_np, k_no, k_nip, k_nio = ra.k_nem
+    hashes = 0
+
+    def below(key, shape, p, ask, j=None):
+        # Where ``ask``: the draw's outcome, hashed only at 0 < p < 1.
+        nonlocal hashes
+        if p <= 0.0 or p >= 1.0:
+            return ask & (p >= 1.0)
+        hashes += int(ask.sum())
+        u = prng.below_ref(key, shape, p, dev)
+        return ask & (u if j is None else u[:, j])
+
+    lost = ~alive
+    if cfg.part:
+        grp = probe.group(cfg.part == 1, N, dev)
+        g_p, g_t = grp[pid.remainder(N)], grp[tgt]
+        lost = lost | below(k_np, (B,), cfg.p_one,
+                            ok & ~lost & (g_p != g_t))
+    if cfg.degraded:
+        deg = (pid >= cfg.obs_lo) & (pid < cfg.obs_hi)
+        lost = lost | below(k_no, (B,), cfg.p_obs, ok & ~lost & deg)
+    lost = lost | below(ra.k_dl, (B,), cfg.p_dl, ok & ~lost)
+    missed = ok & member & lost
+    rescued = torch.zeros_like(missed)
+    helpers = 0
+    for j in range(K):
+        asked = missed & alive & ~rescued
+        helpers += int(asked.sum())
+        h = (pid + int(ra.probe[1 + j])).remainder(N)
+        cand = asked & (t.mf[h] > rnd)
+        cand = cand & ~below(ra.k_hl, (B, K), cfg.p_il, cand, j)
+        if cfg.part:
+            g_h = grp[h]
+            cross = (g_p != g_h).to(torch.int32) + (g_h != g_t).to(
+                torch.int32)
+            if cfg.p_one >= 1.0:
+                cand = cand & (cross == 0)
+            elif cfg.p_one > 0.0:
+                p_leg = torch.where(cross == 1, cfg.p_one, cfg.p_two).to(
+                    torch.float32)
+                ask = cand & (cross > 0)
+                hashes += int((ask & (p_leg < 1.0)).sum())
+                u = prng.uniform_ref(k_nip, (B, K), dev)[:, j]
+                cand = cand & ~(ask & ((p_leg >= 1.0) | (u < p_leg)))
+        if cfg.degraded:
+            cand = cand & ~below(k_nio, (B, K), cfg.p_obs, cand & deg, j)
+        rescued = rescued | cand
+    init = missed & ~rescued
+    if t.nem_state is not None:
+        lhm, streak = (x[pid.remainder(N)] for x in t.nem_state)
+        streak_new = torch.where(
+            missed, (streak + 1).clamp(max=cfg.lhm_max + 1), 0)
+        init = init & (streak_new > lhm)
+    s_t = t.slot_of_node[tgt]
+    reads_byte = init & (s_t >= 0)
+    cur = probe._points(t.heard, s_t.clamp(0, S - 1).long(),
+                        pid.clamp(max=N - 1))
+    final = init & ~(reads_byte & ((cur >> 6) == 2))
+    if int(missed.sum()) != stats[1] or int(final.sum()) != stats[3]:
+        raise AssertionError(f"probe bound: the lanes' work emulated "
+                             f"({int(missed.sum())} missed, "
+                             f"{int(final.sum())} suspicions) is not the "
+                             f"kernel's ({stats})")
+    return {"probers": int(pvalid.sum()), "targets": int(ok.sum()),
+            "helpers": helpers, "slot_reads": int(init.sum()),
+            "byte_reads": int(reads_byte.sum()),
+            "lhm_lanes": int(pvalid.sum()) if t.nem_state is not None
+            else 0, "hashes": hashes}
+
+
+def _probe_bound(cfg, t, did: dict, per_hash: float) -> dict:
+    """The least time of one probe tick's launches (ms): its bytes over
+    the memory rate and its hashes' operations over the INT32 rate, the
+    larger.  Bytes, each read or write the data needs once, 4 an int32
+    element and 1 a belief byte or flag: the lanes' reads of
+    ``_probe_work`` (mf, ``slot_of_node`` and the bytes; NemState's two
+    registers read and written at every valid prober) and a flag written
+    a lane; the slot step's reads of slot_node and slot_phase, of a
+    flag a slot and of the kk minima and 5 counts, its writes of the
+    rearm flags, the stats, the minima and counts set back and drops, and
+    the registers it changes (an absorb's count read and written, a
+    rearm's 5 registers and an allocation's 6 and ``slot_of_node``, with
+    the incarnation read for each); the marks' flags, an initiator's
+    slot, the byte where the slot is live and the byte written where it
+    is at most SUSPECT (``_probe_held``).  The reads are scattered: at a
+    32-byte sector a read the needy lanes' rows would move more."""
+    B, S, kk = cfg.B, cfg.S, cfg.kk
+    work = _probe_work(cfg, t, did["stats"])
+    lanes = (4 * (work["probers"] + work["targets"] + work["helpers"]
+                  + work["slot_reads"]) + work["byte_reads"]
+             + 16 * work["lhm_lanes"] + B)
+    slots = (2 * 4 * S + S + 4 * (2 * kk + 5 + 8) + S + 16 + 8
+             + 8 * did["absorbed"] + 4 * 6 * did["rearmed"]
+             + 4 * 8 * did["served"])
+    marks = (B + 4 * did["marks_slot_reads"] + did["marks_byte_reads"]
+             + did["marks_writes"])
+    bytes_ = lanes + slots + marks
+    hashes = work["hashes"]
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = hashes * per_hash / INT32_OPS_PER_S * 1e3
+    lanes_ms = lanes / HBM_BYTES_PER_S * 1e3
+    return {"bytes": bytes_, "lanes_bytes": lanes, "slots_bytes": slots,
+            "marks_bytes": marks, "lanes_work": work, "bytes_ms": bytes_ms,
+            "hashes": hashes, "operations_per_hash": per_hash,
+            "operations_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "lanes_bound_ms": max(lanes_ms, ops_ms),
+            "lanes_bound_by": "bytes" if lanes_ms >= ops_ms
+            else "operations",
+            "slots_bound_ms": slots / HBM_BYTES_PER_S * 1e3,
+            "marks_bound_ms": marks / HBM_BYTES_PER_S * 1e3}
+
+
+def probe_phase(card_line: str, seeds: int = 64) -> dict:
+    """The probe tick's kernels (``csrc/probe.cu``: ``probe_lanes``,
+    ``probe_slots``, ``probe_marks``, with ``finish.wipe_rows`` between the
+    last two) against their plain versions on the card, tolerance 0 in
+    every output field after every step, over ``seeds`` fresh states of
+    each ``PROBE_CASES`` entry; each state must initiate and allocate or
+    drop, and the phase must see rearms and drops.  Times
+    (``_probe_timed``) on each case's state and on the 1M main paths'
+    (``_probe_main_inputs``, 1 and 8 shards), beside the bound
+    (``_probe_bound``: the bytes, and the hashes at the SASS count a
+    uniform element of ``threefry.cu`` takes, ``sass_count.py
+    --threefry``)."""
+    from consul_tpu_torch import sass_count
+    from consul_tpu_torch.gossip import finish, probe
+
+    t0 = time.perf_counter()
+    sass = sass_count.threefry_counts(sass_count.disassemble("threefry"))
+    per_hash = sass["uniform"]["busiest_unit_per_element"]
+    lanes_sass = sass_count.probe_counts(sass_count.disassemble("probe"))
+    emit({"phase": "probe_sass", **{k: v for k, v in lanes_sass.items()
+                                     if k != "by_opcode"}})
+    rows, held, seen = {}, 0, {"rearmed": 0, "dropped": 0, "served": 0}
+    for case in PROBE_CASES:
+        p, nem, ndev, lhm, free = _probe_params(case)
+        for seed in range(seeds):
+            cfg, t = _probe_inputs(p, nem, ndev, lhm, free,
+                                   9000 + 97 * seed + len(case))
+            did = _probe_held(cfg, t)
+            held += 1
+            if did["stats"][3] == 0 or did["served"] + did["dropped"] == 0:
+                raise AssertionError(f"probe {case} seed {seed}: the tick "
+                                     f"initiated or allocated nothing: "
+                                     f"{did}")
+            seen["rearmed"] += did["rearmed"] > 0
+            seen["dropped"] += did["dropped"] > 0
+            seen["served"] += did["served"] > 0
+        cfg, t = _probe_inputs(p, nem, ndev, lhm, free, 7)
+        rows[case] = {"N": p.n, "S": p.slots, "B": cfg.B, "K": cfg.K,
+                      "ndev": ndev, "variant": list(cfg.variant(lhm)),
+                      "p_dl": cfg.p_dl, **_probe_timed(cfg, t, per_hash)}
+        del t
+    # The main paths' data: 1M at loss 0, on one device and on 8 shards,
+    # and partition_heal's window (its crossed probes needy targets).
+    main = {}
+    p, _, _, _, _ = _probe_params("1m")
+    for key, ndev, partition in (("1m/1", 1, False), ("1m/8", 8, False),
+                                 ("1m_partition_heal/1", 1, True)):
+        cfg, t = _probe_main_inputs(p, ndev, partition=partition)
+        main[key] = {"N": p.n, "S": p.slots, "B": cfg.B, "ndev": ndev,
+                     "variant": list(cfg.variant(False)),
+                     **_probe_timed(cfg, t, per_hash)}
+        del t
+    torch.cuda.empty_cache()
+    res = {"phase": "probe", "card": card_line, "tolerance": 0,
+           "max_abs_err": 0, "ticks_held": held, "seeds": seeds,
+           "states_with": seen, "lanes_sass": {
+               k: v for k, v in lanes_sass.items() if k != "by_opcode"},
+           "cases": rows, "main": main,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if not all(seen.values()):
+        raise AssertionError(f"probe: the states never rearmed, dropped or "
+                             f"allocated: {seen}")
+    return res
+
+
+def probe_shapes_vs_plain(shapes: set) -> list:
+    """Every (B, S, N, L, ndev, variant) the paths launched the probe
+    kernels at (``probe.launch_shapes``), the whole tick on 4 fresh states
+    against the plain versions (probabilities: loss 0.01, the legs at
+    0.3 and 0.45, degraded observers over every prober)."""
+    from consul_tpu_torch.gossip.nemesis import NemesisParams
+    from consul_tpu_torch.gossip.params import SwimParams
+
+    rows = []
+    ticks = sorted({s[1:] for s in shapes}, key=repr)
+    for i, (B, S, N, L, ndev, (part, degraded, K, lhm)) in enumerate(ticks):
+        pe = -(-N // B)
+        p = SwimParams(n=N, slots=S, probe_every=pe, indirect_k=K,
+                       loss_rate=0.01)
+        fields = {}
+        if part:
+            fields.update(part_kind="hash" if part == 1 else "contig",
+                          p_ab=0.3, p_ba=0.45)
+        if degraded:
+            fields.update(obs_lo=0, obs_hi=N, p_obs_miss=0.3)
+        if lhm:
+            fields["lhm_max"] = 3
+        nem = (NemesisParams(scenario="probe", start=0, stop=NEVER,
+                             **fields) if fields else None)
+        for seed in range(4):
+            cfg, t = _probe_inputs(p, nem, ndev, lhm, min(8, S // 2),
+                                   12000 + 10 * i + seed)
+            if cfg.B != B:
+                raise AssertionError(f"probe shape B={B} at N={N}")
+            _probe_held(cfg, t)
+        rows.append({"kernel": "probe", "shape": [S, N], "B": B,
+                     "ndev": ndev, "L": L,
+                     "variant": [part, degraded, K, lhm],
+                     "launches_held": 4})
+    return rows
+
+
 def path_shapes_vs_plain(shapes: set, store_shapes: set,
                          draw_shapes: set, flood_shapes: set,
-                         observe_shapes: set, finish_shapes: set) -> dict:
+                         observe_shapes: set, finish_shapes: set,
+                         probe_shapes: set) -> dict:
     """Every (kernel, S, L, ndev, F, budget) that the paths launched at
     (``fused.launch_shapes``) held against the plain version on fresh
     adversarial bytes, under the offset sets of ``_offset_sets`` with F
@@ -1652,7 +2239,9 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
     shape the observers' counts were launched at (``observe_shapes``), as
     ``observe_shapes_vs_plain`` holds them, and every shape the fire pass
     and the wipe were launched at (``finish_shapes``), as
-    ``finish_shapes_vs_plain`` holds them."""
+    ``finish_shapes_vs_plain`` holds them, and every shape the probe
+    tick's kernels were launched at (``probe_shapes``), as
+    ``probe_shapes_vs_plain`` holds them."""
     from types import SimpleNamespace
 
     from consul_tpu_torch.gossip import fused, kernel
@@ -1694,13 +2283,15 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
     rows += flood_shapes_vs_plain(flood_shapes)
     rows += observe_shapes_vs_plain(observe_shapes)
     rows += finish_shapes_vs_plain(finish_shapes)
+    rows += probe_shapes_vs_plain(probe_shapes)
     res = {"phase": "path_shapes", "shapes": rows, "tolerance": 0,
            "max_abs_err": err, "seconds": time.perf_counter() - t0}
     emit(res)
     kernels = {r["kernel"] for r in rows}
     if kernels != {"fused_dissem", "fused_merge", "kv_apply",
                    "watch_match", "threefry", "event_flood",
-                   "heard_counts", "fire_timers", "wipe_rows"}:
+                   "heard_counts", "fire_timers", "wipe_rows",
+                   "probe"}:
         raise AssertionError(f"the paths launched only {sorted(kernels)}")
     return res
 
@@ -1716,7 +2307,7 @@ def _reset_counts() -> None:
     """Every kernel launch count and round counter to 0."""
     from consul_tpu_torch import prng
     from consul_tpu_torch.gossip import (events, finish, fused, kernel,
-                                         observe, program)
+                                         observe, probe, program)
     _settle()
     program.launches = 0
     program.copy_bytes = 0
@@ -1725,6 +2316,9 @@ def _reset_counts() -> None:
     finish.launches = 0
     finish.fire_launches = 0
     finish.wipe_launches = 0
+    probe.launches = 0
+    for k in PROBE_KERNELS:
+        setattr(probe, f"{k}_launches", 0)
     kernel.join_rounds = 0
     prng.launches = 0
     prng.calls = 0
@@ -1749,12 +2343,13 @@ def _draws(rounds: int | None = None) -> dict:
     return out
 
 
-def _draw_gate(what: str, draws: dict, expected: int | None = None) -> None:
+def _draw_gate(what: str, draws: dict, expected: int) -> None:
     """Every device draw of a card path was one launch of the draws'
-    kernel (and, where the round's structure fixes it, as many as
-    ``expected``)."""
+    kernel, and they were exactly as many as the round's structure fixes
+    (``expected``: 0 on a path with no nemesis partition, the probe tick
+    drawing inside its own kernel)."""
     n, calls = draws["draw_launches"], draws["draw_calls"]
-    if n == 0 or n != calls or (expected is not None and n != expected):
+    if n != calls or n != expected:
         raise AssertionError(f"{what}: {n} draw launches for {calls} device "
                              f"draws (expected {expected})")
 
@@ -1777,13 +2372,17 @@ def _observe_gate(what: str, rounds: int) -> dict:
             "observe_launches_per_round": observe.launches / rounds}
 
 
-def _finish_counts() -> dict:
-    """The fire pass's and the wipe's launches since the last
+PROBE_KERNELS = ("lanes", "slots", "marks")
+
+
+def _round_counts() -> dict:
+    """The finish step's and the probe tick's launches since the last
     ``_reset_counts`` (settled), beside what the rounds run since make
     them: ``fire_timers`` once a non-quiescent round; ``wipe_rows`` once a
     round (the probe tick's rearm), once a join round (the join tick's
-    stale episodes) and once a non-quiescent round (the slot GC)."""
-    from consul_tpu_torch.gossip import finish, kernel
+    stale episodes) and once a non-quiescent round (the slot GC); each of
+    ``probe.cu``'s three kernels once a round (of every pool)."""
+    from consul_tpu_torch.gossip import finish, kernel, probe
     _settle()
     t = kernel.tail_rounds
     busy = t["hot"] + t["full"]
@@ -1792,18 +2391,31 @@ def _finish_counts() -> dict:
             "fire_launches_expected": busy,
             "wipe_launches_expected": busy + t["quiescent"]
             + kernel.join_rounds + busy,
-            "join_rounds": kernel.join_rounds}
+            "join_rounds": kernel.join_rounds,
+            **{f"probe_{k}_launches": getattr(probe, f"{k}_launches")
+               for k in PROBE_KERNELS},
+            "probe_launches_expected": busy + t["quiescent"]}
 
 
-def _finish_gate(what: str) -> dict:
-    """Raises unless the fire pass's and the wipe's launches are exactly
-    what the rounds run since the last ``_reset_counts`` make them
-    (``_finish_counts``), and some were made."""
-    c = _finish_counts()
-    if c["fire_launches"] != c["fire_launches_expected"] \
-            or c["wipe_launches"] != c["wipe_launches_expected"] \
-            or c["wipe_launches"] == 0:
-        raise AssertionError(f"{what}: finish launches {c}")
+def _round_bad(c: dict) -> bool:
+    """Whether ``_round_counts``' launches are not exactly what the rounds
+    make them, or none were made."""
+    return (c["fire_launches"] != c["fire_launches_expected"]
+            or c["wipe_launches"] != c["wipe_launches_expected"]
+            or c["wipe_launches"] == 0
+            or c["probe_launches_expected"] == 0
+            or any(c[f"probe_{k}_launches"] != c["probe_launches_expected"]
+                   for k in PROBE_KERNELS))
+
+
+def _round_gate(what: str) -> dict:
+    """Raises unless the fire pass's, the wipe's and the probe kernels'
+    launches are exactly what the rounds run since the last
+    ``_reset_counts`` make them (``_round_counts``), and some were
+    made."""
+    c = _round_counts()
+    if _round_bad(c):
+        raise AssertionError(f"{what}: finish and probe launches {c}")
     return c
 
 
@@ -1821,15 +2433,6 @@ def _copy_gate(what: str, p, calls: int) -> int:
                              f"copied, expected {want} ({calls} calls, "
                              f"{kernel.tail_rounds['full']} full tails)")
     return program.copy_bytes
-
-
-def _probe_draws(p) -> int:
-    """The probe tick's device draws a round outside a fault window: the
-    direct probes' losses where they are neither certain nor impossible,
-    and the indirect probes'."""
-    from consul_tpu_torch import prng
-    return (int(0.0 < prng._f32(p.p_direct_fail_alive) < 1.0)
-            + int(p.indirect_k > 0))
 
 
 def _full_path_inputs(n: int, steps: int, seed: int):
@@ -1910,7 +2513,7 @@ def full_path(cpu, n: int, S: int, steps: int, seed: int):
     launches = fused.launches
     draws = _draws(steps)
     observed = _observe_gate("full_path", steps)
-    finished = _finish_gate("full_path")
+    finished = _round_gate("full_path")
     copied = _copy_gate("full_path", p, 1)
     t0 = time.perf_counter()
     diverged = _diverged_np(_as_numpy((st_g, fl_g, hb_g), tr_g),
@@ -1927,7 +2530,7 @@ def full_path(cpu, n: int, S: int, steps: int, seed: int):
         raise AssertionError(f"card and CPU runs diverged in {diverged}")
     if launches == 0 or int(st_g.n_detected) == 0:
         raise AssertionError("the full-path run exercised no dissemination")
-    _draw_gate("full_path", draws, _probe_draws(p) * steps)
+    _draw_gate("full_path", draws, 0)
     return (st_g, fl_g, hb_g), tr_g
 
 
@@ -1949,7 +2552,7 @@ def sharded_full_path(single, n: int, S: int, steps: int, seed: int,
     tails = dict(kernel.tail_rounds)
     draws = _draws(steps)
     observed = _observe_gate("sharded_full_path", steps)
-    finished = _finish_gate("sharded_full_path")
+    finished = _round_gate("sharded_full_path")
     copied = _copy_gate("sharded_full_path", p, 1)
     (st_1, fl_1, hb_1), tr_1 = single
     diverged = _diverged(list(zip((st_1, fl_1, hb_1), carry)) + [(tr_1, tr)])
@@ -1967,7 +2570,7 @@ def sharded_full_path(single, n: int, S: int, steps: int, seed: int,
                              "(or fused_dissem ran)")
     if tails["hot"] == 0 or tails["full"] == 0:
         raise AssertionError(f"both tails must run: {tails}")
-    _draw_gate("sharded_full_path", draws, _probe_draws(p) * steps)
+    _draw_gate("sharded_full_path", draws, 0)
 
 
 def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
@@ -2036,7 +2639,7 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
            "kernel_launches": fused.launches,
            "merge_launches": fused.merge_launches, "tail_rounds": tails,
            **_draws(total), "graph_launches": program.launches,
-           "observe_launches": observe.launches, **_finish_counts(),
+           "observe_launches": observe.launches, **_round_counts(),
            "matrix_copy_bytes": program.copy_bytes,
            "matrix_copy_bytes_per_call": p.slots * p.n,
            "host_syncs_per_round": kernel.host_syncs / total,
@@ -2055,12 +2658,12 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
                              or fused.launches != 0):
         raise AssertionError("merge launches != non-quiescent rounds "
                              "(or fused_dissem ran)")
-    # The probe tick's draws are all that draws on the card.
-    _draw_gate(res["phase"], res, _probe_draws(p) * total)
+    # No draw is launched: the probe tick draws inside its own kernel.
+    _draw_gate(res["phase"], res, 0)
     # The fire pass once and the wipe twice a non-quiescent round, the
     # wipe once more a round; the matrix copied into the program once a
     # call and once a full-tail round (a healthy run: never in a round).
-    _finish_gate(res["phase"])
+    _round_gate(res["phase"])
     _copy_gate(res["phase"], p, 1 + blocks)
     if not observers:
         if observe.launches:
@@ -2162,6 +2765,8 @@ def nemesis_full_path(cpu, n: int, S: int, seed: int) -> dict:
             "n_detected": int(card[0][0].n_detected),
             "n_false_dead": int(card[0][0].n_false_dead),
             "drops": int(card[0][0].drops),
+            # Both runs' rounds: the probe kernels once a round each.
+            "round_counts": _round_counts(),
             "diverged_8_shards": _diverged_np(single, _as_numpy(*card8))}
         del card, card8
         t1 = time.perf_counter()
@@ -2173,10 +2778,12 @@ def nemesis_full_path(cpu, n: int, S: int, seed: int) -> dict:
     for name, row in rows.items():
         if row["diverged_cpu"] or row["diverged_8_shards"]:
             bad.append(name)
-        if row["draw_launches"] == 0 or \
-                row["draw_launches"] != row["draw_calls"]:
+        if row["draw_launches"] != row["draw_calls"]:
             bad.append(f"{name}: {row['draw_launches']} draw launches for "
                        f"{row['draw_calls']} device draws")
+        if _round_bad(row["round_counts"]):
+            bad.append(f"{name}: finish and probe launches "
+                       f"{row['round_counts']}")
         partition = name in ("partition_heal", "asym_loss")
         if partition and not (row["drop_launches"] > 0
                               and row["merge_drop_launches"] > 0):
@@ -2246,9 +2853,9 @@ def nemesis_main_path(n: int = 1_000_000, S: int = 64, warm: int = 10,
            "n_false_dead": int(state.n_false_dead),
            "n_refuted": int(state.n_refuted), "drops": int(state.drops),
            "slots_live": int((state.slot_node >= 0).sum()),
-           **_finish_counts()}
+           **_round_counts()}
     emit(res)
-    _finish_gate(res["phase"])
+    _round_gate(res["phase"])
     launched = (fused.drop_launches if ndev is None
                 else fused.merge_drop_launches)
     # Every round inside the window runs the tail with the drops; the
@@ -2257,14 +2864,13 @@ def nemesis_main_path(n: int = 1_000_000, S: int = 64, warm: int = 10,
         raise AssertionError(f"{res['phase']}: {launched} launches with a "
                              f"drop operand in {first + inside} rounds "
                              f"inside the window, drops {res['drops']}")
-    # The probe tick's draws; inside the window one edge-drop launch for
-    # the gossip legs and one for the push/pull legs of a push/pull round
-    # (the probe legs' drops are certain at p = 1: not drawn).
+    # Inside the window one edge-drop launch for the gossip legs and one
+    # for the push/pull legs of a push/pull round (the probe tick's draws
+    # are made inside its own kernel).
     window = range(sc.nem.start, min(sc.nem.stop, total))
     pushpull = sum(1 for r in window if p.pushpull_every
                    and r % p.pushpull_every == p.pushpull_every - 1)
-    _draw_gate(res["phase"], res,
-               _probe_draws(p) * total + len(window) + pushpull)
+    _draw_gate(res["phase"], res, len(window) + pushpull)
     return res, state
 
 
@@ -2345,7 +2951,7 @@ def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool) -> dict:
     return {"rounds_per_s": timed / sum(times), "block_s": times,
             "observe_launches": observe.launches,
             "observe_launches_expected": RP["warm"] + timed + busy,
-            **_finish_counts(),
+            **_round_counts(),
             # The matrix into the program's buffers: once a call and once
             # a full-tail round (graphed); the eager round copies none.
             "matrix_copy_bytes": program.copy_bytes,
@@ -2371,15 +2977,17 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
     """Device kernels and busy time a round, and the card's idle share,
     over RP_PROFILED rounds of the route (after a warm call), with the
     flight ring, hist banks and trace threaded or not (``observers``).
-    Also the tail's, the draws' and the observers' kernels as the profiler
-    saw them run (``tail_kernel``, ``draw_kernel``, ``counts_kernel``)
-    beside the launches the wrappers counted for the same rounds
-    (``fused.launches``, ``prng.launches``, ``observe.launches``,
-    settled); the caller holds them equal."""
+    Also the tail's, the draws', the observers', the finish step's and
+    the probe tick's kernels as the profiler saw them run
+    (``tail_kernel``, ``draw_kernel``, ``counts_kernel``, ``finish::``,
+    ``probe::``) beside the launches the wrappers counted for the same
+    rounds (``fused.launches``, ``prng.launches``, ``observe.launches``,
+    ``finish``'s, ``probe.launches``, settled); the caller holds them
+    equal."""
     from torch.profiler import ProfilerActivity, profile
 
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import finish, fused, kernel, observe
+    from consul_tpu_torch.gossip import finish, fused, kernel, observe, probe
     from consul_tpu_torch.profile_round import device_kernels, self_device_us
 
     key = prng.key(42)
@@ -2399,6 +3007,7 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
     _settle()
     tails0, draws0, obs0 = fused.launches, prng.launches, observe.launches
     fire0, wipe0 = finish.fire_launches, finish.wipe_launches
+    probe0 = probe.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2426,6 +3035,11 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
             "fire_launches_counted": finish.fire_launches - fire0,
             "wipe_kernels_profiled": seen("finish::wipe_kernel"),
             "wipe_launches_counted": finish.wipe_launches - wipe0,
+            "probe_kernels_profiled": seen("probe::"),
+            "probe_launches_counted": probe.launches - probe0,
+            "probe_device_ms_per_round": sum(
+                self_device_us(e) for e in rows
+                if "probe::" in e.key) / 1e3 / RP_PROFILED,
             "finish_device_ms_per_round": sum(
                 self_device_us(e) for e in rows
                 if "finish::" in e.key) / 1e3 / RP_PROFILED,
@@ -2538,16 +3152,18 @@ def round_program_phase(card_line: str) -> dict:
                     row["graphed_observers"] = obs
                 # The counts are observed, not derived from the capture:
                 # each kernel the wrappers counted ran on the card.
+                # The draws' kernel is not on this path (the probe tick
+                # draws inside its own): none seen, none counted.
                 checks = [(route, prof, k)
-                          for k in ("tail", "draw", "fire", "wipe")]
+                          for k in ("tail", "draw", "fire", "wipe", "probe")]
                 if route == "graphed":
                     checks += [("graphed_observers", obs, k)
                                for k in ("tail", "draw", "observe", "fire",
-                                         "wipe")]
+                                         "wipe", "probe")]
                 for label, pr, k in checks:
                     seen = pr[f"{k}_kernels_profiled"]
                     counted = pr[f"{k}_launches_counted"]
-                    if seen == 0 or seen != counted:
+                    if seen != counted or (seen == 0) != (k == "draw"):
                         bad.append(f"{name} {label}: the profiler saw "
                                    f"{seen} {k} kernels for {counted} "
                                    f"counted launches")
@@ -2571,13 +3187,12 @@ def round_program_phase(card_line: str) -> dict:
                 bad.append(f"{name} {route}: {r['observe_launches']} "
                            f"heard_counts launches, expected "
                            f"{r['observe_launches_expected']}")
-            # The fire pass and the wipes at their exact counts, the
-            # matrix's copies, and the caller's state left as it was.
-            for k in ("fire", "wipe"):
-                if r[f"{k}_launches"] != r[f"{k}_launches_expected"]:
-                    bad.append(f"{name} {route}: {r[f'{k}_launches']} {k} "
-                               f"launches, expected "
-                               f"{r[f'{k}_launches_expected']}")
+            # The fire pass, the wipes and the probe kernels at their
+            # exact counts, the matrix's copies, and the caller's state
+            # left as it was.
+            if _round_bad(r):
+                bad.append(f"{name} {route}: finish and probe launches "
+                           f"{ {k: v for k, v in r.items() if 'launches' in k} }")
             if r["matrix_copy_bytes"] != r["matrix_copy_bytes_expected"]:
                 bad.append(f"{name} {route}: {r['matrix_copy_bytes']} "
                            f"matrix bytes copied, expected "
@@ -2799,12 +3414,12 @@ def crossval_phase(pool, cpu_seed0) -> dict:
            "join_churn": join, "event_convergence": ev,
            "dissem_launches": fused.launches,
            "merge_launches": fused.merge_launches, **_draws(),
-           "observe_launches": observe.launches, **_finish_counts(),
+           "observe_launches": observe.launches, **_round_counts(),
            "graph_launches": program.launches,
            "host_syncs": kernel.host_syncs, "diverged": bad}
     emit(res)
-    _draw_gate("crossval", res)
-    _finish_gate("crossval")
+    _draw_gate("crossval", res, 0)
+    _round_gate("crossval")
     # Every membership round threads the trace (no hist): the trace's
     # holders are one launch of the observers' kernel a round, every
     # round graphed (the event rounds, a flood launch each, are the rest
@@ -3006,7 +3621,7 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
                "lan_busy_rounds": lan_busy,
                "dissem_launches": fused.launches, **_draws(steps),
                "observe_launches": observe.launches,
-               "finish": _finish_counts(),
+               "finish": _round_counts(),
                "flood_launches": events.launches,
                "graph_launches": program.launches,
                "host_syncs": kernel.host_syncs,
@@ -3018,7 +3633,7 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
         _settle()
         md.close_programs()
         row.update(cuda_8_shards_s=time.perf_counter() - t1,
-                   sharded_finish=_finish_counts(),
+                   sharded_finish=_round_counts(),
                    sharded_lan_busy_rounds=sharded_lan_busy,
                    sharded_observe_launches=observe.launches,
                    sharded_merge_launches=fused.merge_launches,
@@ -3045,9 +3660,7 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
         # wipe twice a non-quiescent round, the wipe once more a round.
         for k in ("finish", "sharded_finish"):
             c = row[k]
-            if c["fire_launches"] != c["fire_launches_expected"] \
-                    or c["wipe_launches"] != c["wipe_launches_expected"] \
-                    or c["fire_launches"] == 0:
+            if _round_bad(c) or c["fire_launches"] == 0:
                 bad.append(f"hot_slots={hot}: {k} launches {c}")
         # The LAN pools thread the hist banks: the spread is one launch
         # of the observers' kernel a non-quiescent LAN round (the WAN
@@ -3059,8 +3672,7 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
                 bad.append(f"hot_slots={hot}: {row[k]} heard_counts "
                            f"launches ({k}) for {row[lb]} non-quiescent "
                            f"LAN rounds")
-        if row["draw_launches"] == 0 or \
-                row["draw_launches"] != row["draw_calls"]:
+        if row["draw_launches"] != row["draw_calls"]:
             bad.append(f"hot_slots={hot}: {row['draw_launches']} draw "
                        f"launches for {row['draw_calls']} device draws")
         # The card's route is the graphed one: D + 1 floods, 2 D + 3
@@ -3134,7 +3746,7 @@ def _mdc_route(p, lan_fail_t, wan_fail_t, key, warm: int, block: int,
            "flood_launches": events.launches,
            "dissem_launches_per_round": fused.launches / total,
            "merge_launches_per_round": fused.merge_launches / total,
-           **_draws(total), **_finish_counts(),
+           **_draws(total), **_round_counts(),
            "tail_rounds": dict(kernel.tail_rounds),
            "host_syncs_per_call": kernel.host_syncs / calls,
            "host_syncs_per_round": kernel.host_syncs / total,
@@ -3235,6 +3847,11 @@ def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
                     or r["wipe_launches"] < (dcs + 1) * total:
                 bad.append(f"{route}: {r[f'{k}_launches']} {k} launches, "
                            f"expected {r[f'{k}_launches_expected']}")
+        # And each probe kernel once a round of every pool.
+        for k in PROBE_KERNELS:
+            if r[f"probe_{k}_launches"] != (dcs + 1) * total:
+                bad.append(f"{route}: {r[f'probe_{k}_launches']} probe_{k} "
+                           f"launches in {total} rounds of {dcs + 1} pools")
     if graphed["host_syncs_per_call"] != 1:
         bad.append(f"{graphed['host_syncs_per_call']} host reads a graphed "
                    f"call")
@@ -3243,8 +3860,8 @@ def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
                    f"a round")
     if bad:
         raise AssertionError(f"{res['phase']}: {bad}")
-    _draw_gate(res["phase"], res)
-    _draw_gate(res["phase"] + " (eager)", eager)
+    _draw_gate(res["phase"], res, 0)
+    _draw_gate(res["phase"] + " (eager)", eager, 0)
     return res, states
 
 
@@ -3427,7 +4044,7 @@ async def _plane_run(ndev: int, full: bool, n_clients: int = 8) -> dict:
     res.update(dissem_launches=fused.launches,
                merge_launches=fused.merge_launches,
                flood_launches=events.launches,
-               observe_launches=observe.launches, **_finish_counts(),
+               observe_launches=observe.launches, **_round_counts(),
                tail_rounds=dict(kernel.tail_rounds),
                max_memory_allocated=torch.cuda.max_memory_allocated())
     return res
@@ -3466,6 +4083,11 @@ def plane_phase(ndev: int, full: bool) -> dict:
             raise AssertionError(f"plane: {res[f'{k}_launches']} {k} "
                                  f"launches, expected "
                                  f"{res[f'{k}_launches_expected']}")
+    # And each probe kernel once a round.
+    for k in PROBE_KERNELS:
+        if res[f"probe_{k}_launches"] != ran:
+            raise AssertionError(f"plane: {res[f'probe_{k}_launches']} "
+                                 f"probe_{k} launches in {ran} rounds")
     if res["tick_errors"] or res["failed_others"] or launches <= 0:
         raise AssertionError(f"plane (shard_devices={ndev}): tick errors "
                              f"{res['tick_errors']}, failed others "
@@ -4810,6 +5432,49 @@ def _finish_rows(fin: dict, churn: dict, sharded: dict, plane1: dict,
     return [fire, wipe]
 
 
+def _probe_rows(probed: dict, churn: dict, sharded: dict, nem1: dict,
+                plane1: dict, cross: dict, mdc1: dict, rp: dict) -> list:
+    """The kernels line's entries of the probe tick's kernels
+    (``csrc/probe.cu``), which replace the reference's XLA probe tick
+    (``consul_tpu/gossip/kernel.py:519-822``, its draws included):
+    launches on the 1M churn main path (each once a round), on 8 shards,
+    under ``partition_heal``, on the plane, in crossval and on the 1M
+    multi-DC path (every pool); each kernel's time on the 1M main path's
+    data (``_probe_main_inputs``) beside its bound and its plain version's
+    time; the device ms a round the profiler saw them take on the graphed
+    churn round; and on ``partition_heal``'s window data (its crossed
+    probes needy)."""
+    main = probed["main"]["1m/1"]
+    part = probed["main"]["1m_partition_heal/1"]
+    prof = rp["cases"]["churn"]["graphed"]
+    rows = []
+    for k in PROBE_KERNELS:
+        key = f"probe_{k}_launches"
+        rows.append({
+            "name": f"probe_{k}", "route": "cuda",
+            "source": "consul_tpu_torch/csrc/probe.cu",
+            "replaces": "consul_tpu/gossip/kernel.py:519",
+            "launches": churn[key], "sharded_launches": sharded[key],
+            "nemesis_launches": nem1[key], "plane_launches": plane1[key],
+            "crossval_launches": cross[key],
+            "multidc_launches": mdc1[key],
+            "max_abs_err": probed["max_abs_err"],
+            "ms": main[f"{k}_ms"], "plain_ms": main[f"{k}_plain_ms"],
+            "bound_ms": main[f"{k}_bound_ms"],
+            "bound_by": main["lanes_bound_by"] if k == "lanes"
+            else "bytes",
+            "share_of_bound": main[f"{k}_share_of_bound"],
+            "tick_ms": main["ms"], "tick_plain_ms": main["plain_ms"],
+            "tick_bound_ms": main["bound_ms"],
+            "partition_window_ms": part[f"{k}_ms"],
+            "partition_window_bound_ms": part[f"{k}_bound_ms"],
+            "partition_window_needy": part["needy"],
+            "probe_device_ms_per_round": prof["probe_device_ms_per_round"],
+            # No one PyTorch call computes a step of the probe tick.
+            "library_ms": None})
+    return rows
+
+
 def _churn_gates(res: dict, launches_key: str) -> None:
     if res["n_detected"] <= 0 or res["n_false_dead"] != 0:
         raise AssertionError(
@@ -4857,8 +5522,23 @@ def finish_only() -> int:
     return 0
 
 
+def probe_only() -> int:
+    """``--phase probe``: the card line, the builds the probe tick needs
+    (``probe.cu``, the wipe's ``finish.cu``, ``threefry.cu`` for the SASS
+    count of a hash) and the probe phase."""
+    from consul_tpu_torch import _build
+    card_line = card()
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(_build.build, ("probe", "finish", "threefry")))
+    for name in ("probe", "finish", "threefry"):
+        for ln in _build.build_logs.get(name, "").strip().splitlines():
+            print(f"  nvcc {name}: {ln}", flush=True)
+    probe_phase(card_line)
+    return 0
+
+
 PHASES_ALONE = {"event_flood": flood_only, "observe": observe_only,
-                "finish": finish_only}
+                "finish": finish_only, "probe": probe_only}
 
 
 def main() -> int:
@@ -4874,8 +5554,8 @@ def main() -> int:
     if sys.argv[1:]:
         if len(sys.argv) != 3 or sys.argv[1] != "--phase" \
                 or sys.argv[2] not in PHASES_ALONE:
-            print("usage: chip_smoke.py [--phase event_flood|observe|finish]",
-                  file=sys.stderr)
+            print("usage: chip_smoke.py [--phase "
+                  "event_flood|observe|finish|probe]", file=sys.stderr)
             return 2
         try:
             return PHASES_ALONE[sys.argv[2]]()
@@ -4927,11 +5607,14 @@ def main() -> int:
         flood = flood_phase(card_line, sass["flood"])
         counts = observe_phase(card_line)
         fin = finish_phase(card_line)
+        probed = probe_phase(card_line)
         # From here on every launch is a path's: its shapes are held
         # against the plain version after the last path.
         from consul_tpu_torch import prng
-        from consul_tpu_torch.gossip import events, finish, fused, observe
+        from consul_tpu_torch.gossip import (events, finish, fused, observe,
+                                             probe)
         events.launch_shapes.clear()
+        probe.launch_shapes.clear()
         fused.launch_shapes.clear()
         observe.launch_shapes.clear()
         finish.launch_shapes.clear()
@@ -5045,7 +5728,8 @@ def main() -> int:
                              set(prng.launch_shapes),
                              set(events.launch_shapes),
                              set(observe.launch_shapes),
-                             set(finish.launch_shapes))
+                             set(finish.launch_shapes),
+                             set(probe.launch_shapes))
     except Exception:
         traceback.print_exc()
         return 1
@@ -5084,14 +5768,17 @@ def main() -> int:
             "watch_match", store), {
         "name": "threefry", "route": "cuda",
         "source": "consul_tpu_torch/csrc/threefry.cu",
-        "replaces": "consul_tpu/gossip/kernel.py:607",
-        "launches": churn["draw_launches"],
+        "replaces": "consul_tpu/gossip/kernel.py:972",
+        # The path that draws: the nemesis main path's edge drops (the
+        # probe tick draws inside its own kernel since probe.cu).
+        "launches": nem1["draw_launches"],
+        "churn_launches": churn["draw_launches"],
         "nemesis_launches": nem1["draw_launches"],
         "crossval_launches": cross["draw_launches"],
         "multidc_launches": mdc1["draw_launches"],
         "max_abs_err": tf["summary"]["max_abs_err"],
-        # A 1M churn round's one probe-tick draw, [200,000, 3], its key
-        # read from device memory (the launch the round makes).
+        # A 1M partition_heal round's gossip legs' drops, [3, 1M], its
+        # keys and shifts read from device memory (the launch it makes).
         "ms": tf["summary"]["main_path_ms"],
         "by_value_ms": tf["summary"]["main_path_by_value_ms"],
         "plain_ms": tf["summary"]["main_path_plain_ms"],
@@ -5103,7 +5790,9 @@ def main() -> int:
         "library_ms": None}, _round_graph_row(rp, churn),
         _flood_row(flood, mdc1, mdc8, ev, plane1),
         _observe_row(counts, obs1, obs8, rp, plane1, cross),
-        *_finish_rows(fin, churn, sharded, plane1, cross, mdc1, rp)]})
+        *_finish_rows(fin, churn, sharded, plane1, cross, mdc1, rp),
+        *_probe_rows(probed, churn, sharded, nem1, plane1, cross, mdc1,
+                     rp)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,21 +2,25 @@
 // mode per entry point, and its C entry points.
 //
 // Replaces the jax.random draws that XLA fuses inside the reference's jitted
-// round (no Pallas source): consul_tpu/gossip/kernel.py's probe-tick uniforms
-// (`_probe_tick`: the direct and indirect probes' losses, the partition and
-// degraded-observer legs), the nemesis drop legs (`_nem_leg_drop` and the
-// push/pull legs) and consul_tpu/ops/feistel.py's `randint`.  Before this,
+// round (no Pallas source): the nemesis drop legs of
+// consul_tpu/gossip/kernel.py (`_nem_leg_drop` and the push/pull legs) and
+// consul_tpu/ops/feistel.py's `randint`.  (The probe tick's uniforms, the
+// direct and indirect probes' losses and the partition and
+// degraded-observer legs, were draws of this kernel too; since the probe
+// tick became probe.cu, its lanes kernel makes them inline, from the same
+// hash: threefry.cuh.)  Before this,
 // the port computed each draw as ~180 int64 torch operations
 // (consul_tpu_torch/prng.py: `random_bits_ref`, `uniform_ref`,
 // `uniform_rows_ref`, `randint_ref`, `edge_drops_ref`, which stay beside the
 // wrappers as the plain versions).  Every entry point is bit-identical to
 // them and to jax.random.
 //
-// What it computes.  jax's partitionable threefry2x32 (20 rounds): element i
-// of a draw of any shape hashes the counter (0, i), i its flat index, under
-// the key (k0, k1), and its 32 random bits are the two output words XORed.
-// A uniform float32 in [0, 1) puts the top 23 bits under the exponent of
-// 1.0f and subtracts 1.0f; `below` compares that float with a float32 p;
+// What it computes.  jax's partitionable threefry2x32 (20 rounds; the hash,
+// the float and the counter layout are threefry.cuh's, shared with
+// probe.cu): element i of a draw of any shape hashes the counter (0, i), i
+// its flat index, under the key (k0, k1), and its 32 random bits are the
+// two output words XORed.  A uniform float32 in [0, 1) puts the top 23 bits
+// under the exponent of 1.0f and subtracts 1.0f; `below` compares that float with a float32 p;
 // randint draws two bit streams under split(key)'s two keys and reduces
 // them by jax.random.randint's span and multiplier in u32 arithmetic; the
 // edge drops are a nemesis partition's whole drop mask, per leg f and
@@ -31,9 +35,9 @@
 // Bound: operations.  A hash is 20 rounds of add, rotate and xor plus five
 // key injections, ~90 integer instructions an element (counted from the
 // SASS by consul_tpu_torch/sass_count.py), at 67e12 / 4 32-bit operations a
-// second on an H100 SXM; an element writes 1-8 bytes.  At the main path's
-// probe-tick shapes (200,000 and 600,000 elements) that is ~1-3 us, below a
-// launch's own cost, so these launches are bound by the launch: the point of
+// second on an H100 SXM; an element writes 1-8 bytes.  At the 1M paths'
+// shapes (200,000 to 3,000,000 elements) that is ~1-15 us, near a launch's
+// own cost, so the smaller launches are bound by the launch: the point of
 // the kernel is one launch a draw where the torch version made ~180.
 //
 // Design.  Keys come by value in the kernel's parameters (the host holds
@@ -53,6 +57,8 @@
 
 #include <cstdint>
 #include <cstring>
+
+#include "threefry.cuh"
 
 namespace threefry {
 
@@ -81,45 +87,6 @@ struct Args {
   int32_t minval;
   uint32_t span, mult;
 };
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// threefry2x32 of the counter (0, c) under (k0, k1): bits1 ^ bits2.
-__device__ __forceinline__ uint32_t hash(uint32_t k0, uint32_t k1,
-                                         uint32_t c) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = k0;
-  uint32_t x1 = c + k1;
-#define TF_ROUND(r) \
-  x0 += x1;         \
-  x1 = rotl(x1, r) ^ x0;
-#define TF_FOUR(a, b, c_, d) TF_ROUND(a) TF_ROUND(b) TF_ROUND(c_) TF_ROUND(d)
-  TF_FOUR(13, 15, 26, 6)
-  x0 += k1;
-  x1 += k2 + 1u;
-  TF_FOUR(17, 29, 16, 24)
-  x0 += k2;
-  x1 += k0 + 2u;
-  TF_FOUR(13, 15, 26, 6)
-  x0 += k0;
-  x1 += k1 + 3u;
-  TF_FOUR(17, 29, 16, 24)
-  x0 += k1;
-  x1 += k2 + 4u;
-  TF_FOUR(13, 15, 26, 6)
-  x0 += k2;
-  x1 += k0 + 5u;
-#undef TF_FOUR
-#undef TF_ROUND
-  return x0 ^ x1;
-}
-
-// jax.random.uniform's float32 from 32 bits.
-__device__ __forceinline__ float unit_float(uint32_t bits) {
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-}
 
 template <int M>
 __global__ void __launch_bounds__(kThreads) draw_kernel(const Args a) {

@@ -29,7 +29,7 @@ PyTorch:
   ``event_flood_ref`` (the reference's rolls as gathers by the row's
   device shifts, ``kernel._roll``).  There is no fallback.
 - The reference's ``mode="drop"`` scatters write into a padded sink
-  element that is sliced off (``kernel._set_drop``);
+  element that is sliced off (``slot_ops.set_drop``);
 - the Lamport witness max over ``[E, N]`` stays int32 (an int64
   promotion would double a 256 MB temporary at [64, 1M]); ``n_seen``
   wraps mod 2**32 as the reference's int32 sum does.
@@ -49,9 +49,9 @@ from consul_tpu_torch import _build
 from consul_tpu_torch._device import (check_tensor, require_cuda,
                                       resolve_device)
 from consul_tpu_torch.gossip import round_args
-from consul_tpu_torch.gossip.kernel import (_host_int, _roll, _set_drop,
-                                            alloc_free_slots)
+from consul_tpu_torch.gossip.kernel import _host_int, _roll
 from consul_tpu_torch.gossip.params import SwimParams
+from consul_tpu_torch.gossip.slot_ops import alloc_free_slots, set_drop
 
 _SEEN = 0x80
 _AGE_MASK = 0x0F
@@ -120,16 +120,16 @@ def fire_events(state: EventState, nodes) -> EventState:
     fire_lt = state.node_ltime[node_c.long()] + 1
     # A repeated node writes the same value from every entry, so which
     # duplicate lands does not matter; dropped entries go to the sink N.
-    node_ltime = _set_drop(state.node_ltime, torch.where(can, node_c, N),
+    node_ltime = set_drop(state.node_ltime, torch.where(can, node_c, N),
                            fire_lt)
-    slot_used = _set_drop(state.slot_used, sidx, True)
-    ltime = _set_drop(state.ltime, sidx, fire_lt)
-    origin = _set_drop(state.origin, sidx, nodes)
-    start_round = _set_drop(state.start_round, sidx,
+    slot_used = set_drop(state.slot_used, sidx, True)
+    ltime = set_drop(state.ltime, sidx, fire_lt)
+    origin = set_drop(state.origin, sidx, nodes)
+    start_round = set_drop(state.start_round, sidx,
                             state.round.expand(sidx.shape))
     flat = torch.where(can, sidx * N + node_c, E * N)
-    has = _set_drop(state.has.reshape(-1), flat, _SEEN).view(E, N)
-    n_seen = _set_drop(state.n_seen, sidx, 1)  # the origin has it
+    has = set_drop(state.has.reshape(-1), flat, _SEEN).view(E, N)
+    n_seen = set_drop(state.n_seen, sidx, 1)  # the origin has it
     drops = state.drops + (want & ~can).sum(dtype=_I32)
     return state._replace(has=has, slot_used=slot_used, ltime=ltime,
                           origin=origin, start_round=start_round,

@@ -34,7 +34,7 @@ How the JAX program maps onto PyTorch:
   graph node on the device predicate, with no read.
 - ``.at[i].set/add(..., mode="drop")`` scatters, whose dropped indices
   equal the axis size, write into a padded sink element that is sliced
-  off (``_set_drop``/``_add_drop``); torch would raise on them.
+  off (``slot_ops.set_drop``/``_add_drop``); torch would raise on them.
 - The hot tier's ``top_k`` over a 0/1 vector (ties to the lowest index)
   is a stable argsort.
 - A nemesis schedule (``gossip/nemesis.py``) is decided on the host
@@ -48,10 +48,13 @@ The round writes its belief matrix in place: the probe and join ticks'
 row wipes and point writes, the finish step's fire pass and GC wipe
 (``gossip/finish.py``: one launch of ``csrc/finish.cu`` each on a card)
 and the hot tail's rows.  So no step outside the dissemination tail
-copies the ``[S, N]`` matrix.  The caller's tensors are never written:
-an eager entry point (``swim_round*``, ``run_rounds*``) copies the
-caller's matrix once per call, and the round program copies the state
-into its buffers once per call.
+copies the ``[S, N]`` matrix.  The probe tick (``gossip/probe.py``: on a
+card three launches of ``csrc/probe.cu`` and the rearm's wipe) also writes
+the slot registers, ``slot_of_node``, ``drops`` and NemState in place.
+The caller's tensors are never written: an eager entry point
+(``swim_round*``, ``run_rounds*``) copies the caller's matrix and those
+registers once per call (``_own_state``), and the round program copies
+the state into its buffers once per call.
 
 The sharded round (``run_rounds_sharded``, the reference's "ICI
 sharding" section) is the same code with ``sc`` set: the belief matrix
@@ -68,14 +71,15 @@ import numpy as np
 import torch
 
 from consul_tpu_torch import prng
-from consul_tpu_torch.prng import _f32
 from consul_tpu_torch._device import resolve_device
-from consul_tpu_torch.gossip import finish, observe, round_args
+from consul_tpu_torch.gossip import finish, observe, probe, round_args
 from consul_tpu_torch.gossip.belief import (  # noqa: F401
     _AGE_FRESH, _AGE_MASK, _CONF_MASK, _CONF_SHIFT, _MSG_SHIFT, MSG_DEAD,
     MSG_NONE, MSG_REFUTE, MSG_SUSPECT)
 from consul_tpu_torch.gossip.nemesis import NemesisParams
 from consul_tpu_torch.gossip.params import SwimParams
+from consul_tpu_torch.gossip.slot_ops import (alloc_free_slots, put_points,
+                                              segment_min, set_drop)
 from consul_tpu_torch.obs.constants import LATENCY_BUCKETS as _HIST_LAT
 from consul_tpu_torch.obs.constants import N_COLS as _FLIGHT_COLS
 from consul_tpu_torch.obs.constants import SPREAD_BUCKETS as _HIST_SPREAD
@@ -227,20 +231,6 @@ class RoundTrace(NamedTuple):
 
 # -- scatter helpers -----------------------------------------------------------
 
-def _set_drop(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
-    """``x.at[idx].set(val, mode="drop")`` for a 1-D ``x`` whose dropped
-    indices equal ``len(x)``: write into a padded sink element, slice it
-    off.  The kept indices are distinct at every call site."""
-    n = x.shape[0]
-    out = torch.cat([x, x.new_zeros(1)])
-    if not isinstance(val, torch.Tensor):
-        # A fill on the device, not a host->device copy (which would
-        # synchronise the stream).
-        val = out.new_full(idx.shape, val)
-    out[idx.long()] = val
-    return out[:n]
-
-
 def _add_drop(x: torch.Tensor, idx: torch.Tensor,
               val: torch.Tensor) -> torch.Tensor:
     """``x.at[idx].add(val, mode="drop")``: duplicates accumulate, the
@@ -322,7 +312,7 @@ def round_variant(p: SwimParams, nem: NemesisParams | None,
                                      == p.pushpull_every - 1)
     if nem is None or not _nem_in_window(nem, rnd):
         return Variant(pp, False, False, False)
-    B = _block_size(p)
+    B = probe.block_size(p)
     blk = (rnd % p.probe_every) * B
     degraded = (nem.has_degraded and blk < nem.obs_hi
                 and blk + B > nem.obs_lo)
@@ -350,12 +340,8 @@ def _timeout_table(p: SwimParams, device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=32)
 def _nem_group(nem: NemesisParams, n: int, device) -> torch.Tensor:
     """Partition group bit per node, i32 [n] (``nemesis.group_of`` bit
-    for bit), built once per (schedule, n, device).  The hash is the
-    uint32 product's top bit, carried in int64."""
-    ids = torch.arange(n, dtype=torch.int64, device=device)
-    if nem.part_kind == "hash":
-        return (((ids * 2654435761) & 0xFFFFFFFF) >> 31).to(_I32)
-    return (ids >= n // 2).to(_I32)
+    for bit, ``probe.group``), built once per (schedule, n, device)."""
+    return probe.group(nem.part_kind == "hash", n, device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -388,15 +374,6 @@ def _nem_schedule(nem: NemesisParams, v: Variant, rnd, fail_round,
     return fail_round, join_round
 
 
-def _draw_below(key, shape, p: float, device) -> torch.Tensor:
-    """``uniform(key, shape) < p`` for a float32 ``p`` (``prng.below``: one
-    launch on a card); a certain outcome (``p`` <= 0 or >= 1, the draw
-    being in [0, 1)) is not drawn."""
-    if p <= 0.0 or p >= 1.0:
-        return torch.full(shape, p >= 1.0, dtype=torch.bool, device=device)
-    return prng.below(key, shape, p, device)
-
-
 def _nem_edge_drops(nem: NemesisParams, n: int, device, keys,
                     shifts) -> torch.Tensor:
     """Bool ``[len(shifts), n]``: where a message into destination ``d``
@@ -422,11 +399,12 @@ def _nem_edge_drops(nem: NemesisParams, n: int, device, keys,
 # crosses shards masks each shard's own columns (``_owned``) and sums
 # (``_psum``), and the sharded round makes no device->host read that the
 # single-device round does not.  Bytes cross between shards only in
-# ``_roll_sharded``, ``_points``, ``_psum``, the dissemination tail's
-# merge kernel (``fused.fused_merge``, which reads its pins from every
-# shard through a table of shard pointers) and the observers' kernel
-# (``observe.heard_counts``, which counts every shard in one launch);
-# placing the shards on several cards changes those.
+# ``_roll_sharded``, ``_psum``, the dissemination tail's merge kernel
+# (``fused.fused_merge``, which reads its pins from every shard through a
+# table of shard pointers), the probe tick's kernels (``gossip/probe.py``,
+# which read and mark the prober columns through such a table) and the
+# observers' kernel (``observe.heard_counts``, which counts every shard in
+# one launch); placing the shards on several cards changes those.
 
 class _ShardCtx(NamedTuple):
     """Sharding context threaded through the round phases; ``None``
@@ -481,40 +459,10 @@ def _roll_sharded(sc: _ShardCtx, xs, o, out=None):
     return tuple(res)
 
 
-def _put_points(h: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
-                keep: torch.Tensor) -> None:
-    """``h.view(-1)[idx[k]] = val[k]`` in place where ``keep[k]`` (the
-    kept indices distinct, every index inside ``h``): a lane not kept
-    writes the first kept lane's pair again, or, when no lane is kept, the
-    byte already at its own index, so that every element written receives
-    one value and no sink element (no copy of ``h``) is needed."""
-    flat = h.view(-1)
-    # The first kept lane, a device index (an int would be a host read).
-    first = torch.argmax(keep.to(_I32)).view(1)
-    some = keep.any()
-    flat.index_put_(
-        (torch.where(keep, idx, torch.where(some, idx.index_select(0, first),
-                                            idx)),),
-        torch.where(keep, val, torch.where(some, val.index_select(0, first),
-                                           flat[idx])))
-
-
 def _psum(parts):
     """The reference's psum over the shard axis: the sum of the
     per-shard contributions."""
     return functools.reduce(torch.add, parts)
-
-
-def _points(sc: _ShardCtx, hs, rows: torch.Tensor,
-            cols: torch.Tensor) -> torch.Tensor:
-    """``heard[rows[k], cols[k]]`` of the sharded matrix: each shard
-    gathers the points whose column it owns, zero elsewhere, and
-    ``_psum`` merges the disjoint parts exactly."""
-    parts = []
-    for i, h in enumerate(hs):
-        owned, loc = _owned(sc, cols, i)
-        parts.append(torch.where(owned, h[rows, loc], 0))
-    return _psum(parts)
 
 
 # -- round phases --------------------------------------------------------------
@@ -531,31 +479,6 @@ def _age_tick(heard: torch.Tensor) -> torch.Tensor:
     return torch.where(msg > 0, aged, heard)
 
 
-def alloc_free_slots(free: torch.Tensor, want: torch.Tensor):
-    """Rank the True entries of ``want`` onto the free slots of ``free``
-    in ascending slot order.  Returns ``(can, slot_ids, sidx)``: ``can``
-    marks served entries, ``slot_ids`` their slots, and ``sidx`` the slot
-    id for served entries and ``len(free)`` (the drop sink) otherwise."""
-    S = free.shape[0]
-    free_order = torch.argsort(torch.where(free, 0, 1),
-                               stable=True).to(_I32)
-    n_free = free.sum(dtype=_I32)
-    rank = torch.cumsum(want.to(_I32), 0, dtype=_I32) - 1
-    can = want & (rank < n_free)
-    slot_ids = free_order[rank.clamp(0, S - 1).long()]
-    sidx = torch.where(can, slot_ids, S)
-    return can, slot_ids, sidx
-
-
-def _segment_min(masked: torch.Tensor, kk: int, fill: int) -> torch.Tensor:
-    """Min over ``kk`` contiguous segments (padded with ``fill``)."""
-    GB = -(-masked.shape[0] // kk)
-    pad = kk * GB - masked.shape[0]
-    if pad:
-        masked = torch.cat([masked, masked.new_full((pad,), fill)])
-    return masked.view(kk, GB).amin(dim=1)
-
-
 def _join_tick(p: SwimParams, rnd: int, carry, join_round, fail_round,
                sc: _ShardCtx | None = None):
     """Activate pending joins (reference ``_join_tick``): a pending node
@@ -569,12 +492,12 @@ def _join_tick(p: SwimParams, rnd: int, carry, join_round, fail_round,
 
     pending = (join_round <= rnd) & ~member & (fail_round > rnd)
     masked = torch.where(pending, torch.arange(N, dtype=_I32, device=dev), N)
-    cand = _segment_min(masked, min(S, N), N)
+    cand = segment_min(masked, min(S, N), N)
     in_dom = cand < N
     can_k, slot_k, sidx = alloc_free_slots(slot_node < 0, in_dom)
     cand_c = cand.clamp(0, N - 1)
 
-    joining = _set_drop(torch.zeros((N,), dtype=torch.bool, device=dev),
+    joining = set_drop(torch.zeros((N,), dtype=torch.bool, device=dev),
                         torch.where(can_k, cand_c, N), True)
     incarnation = incarnation + joining.to(_I32)
     member = member | joining
@@ -584,19 +507,19 @@ def _join_tick(p: SwimParams, rnd: int, carry, join_round, fail_round,
     node_c0 = slot_node.clamp(0, N - 1)
     stale = (slot_node >= 0) & joining[node_c0.long()]
     finish.wipe(heard, stale)
-    slot_of_node = _set_drop(slot_of_node, torch.where(stale, node_c0, N), -1)
+    slot_of_node = set_drop(slot_of_node, torch.where(stale, node_c0, N), -1)
     slot_node = torch.where(stale, -1, slot_node)
     slot_phase = torch.where(stale, PHASE_FREE, slot_phase)
     slot_dead_round = torch.where(stale, -1, slot_dead_round)
 
-    slot_node = _set_drop(slot_node, sidx, cand_c)
-    slot_phase = _set_drop(slot_phase, sidx, PHASE_JOIN)
-    slot_inc = _set_drop(slot_inc, sidx, incarnation[cand_c.long()])
-    slot_start = _set_drop(slot_start, sidx, rnd)
-    slot_nsusp = _set_drop(slot_nsusp, sidx, 0)
+    slot_node = set_drop(slot_node, sidx, cand_c)
+    slot_phase = set_drop(slot_phase, sidx, PHASE_JOIN)
+    slot_inc = set_drop(slot_inc, sidx, incarnation[cand_c.long()])
+    slot_start = set_drop(slot_start, sidx, rnd)
+    slot_nsusp = set_drop(slot_nsusp, sidx, 0)
     # The join IS the episode's verdict (verdict-done GC).
-    slot_dead_round = _set_drop(slot_dead_round, sidx, rnd)
-    slot_of_node = _set_drop(slot_of_node, torch.where(can_k, cand_c, N),
+    slot_dead_round = set_drop(slot_dead_round, sidx, rnd)
+    slot_of_node = set_drop(slot_of_node, torch.where(can_k, cand_c, N),
                              slot_k)
     # The joiner seeds its own announcement flood: heard[sidx, cand] in
     # place for served candidates.  Sharded: the seed column belongs to
@@ -606,238 +529,56 @@ def _join_tick(p: SwimParams, rnd: int, carry, join_round, fail_round,
     seed = torch.full(sidx.shape, _enc(MSG_REFUTE, age=_AGE_FRESH),
                       dtype=torch.uint8, device=dev)
     if sc is None:
-        _put_points(heard, row * N + cand_c, seed, served)
+        put_points(heard, row * N + cand_c, seed, served)
     else:
         for i, h in enumerate(heard):
             owned, loc = _owned(sc, cand_c, i)
-            _put_points(h, row * sc.L + loc, seed, owned & served)
+            put_points(h, row * sc.L + loc, seed, owned & served)
 
     return (heard, slot_node, slot_phase, slot_inc, slot_start, slot_nsusp,
             slot_dead_round, slot_of_node, incarnation, member, drops)
 
 
-def _block_size(p: SwimParams) -> int:
-    """Probers per round: each node probes once per ``probe_every``
-    rounds, in contiguous id blocks."""
-    return max(1, -(-p.n // p.probe_every))
-
-
 def _probe_tick(p: SwimParams, ra, v: Variant, mf, carry,
-                sc: _ShardCtx | None = None,
-                nem: NemesisParams | None = None,
+                scratch: torch.Tensor, nem: NemesisParams | None = None,
                 nem_state: NemState | None = None):
     """One round's probe slice: direct probe -> k indirect probes ->
     suspicion initiation for this round's prober block (reference
-    ``_probe_tick``).  ``ra``: the round's row (``round_args.RoundArgs``:
-    the round, the prober block, the probe offsets and the draws' keys, all
-    device values).  ``mf`` packs membership and ground truth:
-    ``member ? fail_round : -1``.
+    ``_probe_tick``), as ``gossip/probe.py``'s steps: the prober lanes,
+    the slot bookkeeping, the rearmed rows' wipe, the marks (on a card one
+    launch each, of ``csrc/probe.cu`` and ``csrc/finish.cu``).  ``ra``:
+    the round's row (``round_args.RoundArgs``: the round, the prober
+    block, the probe offsets and the draws' keys, all device values).
+    ``mf`` packs membership and ground truth: ``member ? fail_round :
+    -1``.
 
     ``nem`` adds the nemesis probe legs: cross-group round-trip drops
     and a degraded observer's missed replies; with ``nem_state`` also
     Lifeguard's local-health multiplier, which holds back a prober's
     suspicion until it has missed more probes in a row than its LHM.
-    Returns ``(carry, probe_stats, nem_state)``."""
+
+    In place: the belief matrix, the slot registers, ``slot_of_node``,
+    ``drops`` and NemState's registers, so the carry's tensors are the
+    ones given.  The kernels take a sharded matrix's shards from
+    ``heard`` itself.  ``scratch``: the caller's ``probe.scratch(p,
+    device)``, made once a call or a program.  Returns ``(carry,
+    probe_stats, nem_state)``."""
     (heard, slot_node, slot_phase, slot_inc, slot_start, slot_nsusp,
      slot_dead_round, slot_of_node, incarnation, member, drops) = carry
-    rnd = ra.rnd
-    N, S = p.n, p.slots
-    B = _block_size(p)
-    dev = mf.device
-
-    # This round's probers: block (rnd % probe_every), from ra.blk; ids
-    # >= N are padding lanes on the final block and initiate nothing.
-    pid = ra.blk + torch.arange(B, dtype=_I32, device=dev)
-    pid_c = pid.clamp(max=N - 1)
-    pvalid = pid < N
-
-    def at(x, shift=None):
-        # ``x[(pid + shift) mod N]``: the reference's dynamic_slice of
-        # ``x`` twice over, at the prober block plus a shift.
-        i = pid if shift is None else pid + shift
-        return x[i.remainder(N).long()]
-
-    # Direct-probe target pid + o_t, offsets in [1, N-1].
-    offs = ra.probe
-    o_t = offs[0]
-    tgt = (pid_c + o_t) % N
-    prober_ok = pvalid & (at(mf) > rnd)
-    mf_t = at(mf, o_t)
-    tgt_member = mf_t >= 0
-    tgt_alive = mf_t > rnd
-
-    # -- nemesis probe legs, off the probe key k_h (split four ways);
-    # inside the fault window only, so outside it nothing is drawn.
-    # ``part`` (the partition legs) and ``degraded`` (this block's slow
-    # observers) stay None where they cannot drop anything.
-    part = degraded = dir_nem_drop = None
-    if nem is not None and (nem.has_partition or nem.has_degraded):
-        k_np, k_no, k_nip, k_nio = ra.k_nem
-        if nem.has_partition and v.in_window:
-            grp = _nem_group(nem, N, dev)
-            g_p, g_t = at(grp), at(grp, o_t)
-            part = (grp, g_p, g_t)
-            # A round trip crosses both directions once: the drop
-            # probability does not depend on the direction.
-            dir_nem_drop = (g_p != g_t) & _draw_below(
-                k_np, (B,), _f32(nem.p_roundtrip), dev)
-        if v.degraded:
-            degraded = (pid >= nem.obs_lo) & (pid < nem.obs_hi)
-            miss = degraded & _draw_below(k_no, (B,), _f32(nem.p_obs_miss),
-                                          dev)
-            dir_nem_drop = miss if dir_nem_drop is None else (
-                dir_nem_drop | miss)
-
-    lost = ~tgt_alive | _draw_below(ra.k_dl, (B,),
-                                    _f32(p.p_direct_fail_alive), dev)
-    if dir_nem_drop is not None:
-        lost = lost | dir_nem_drop
-    direct_fail = tgt_member & lost
-
-    if p.indirect_k:
-        hu = prng.uniform_tensor(ra.k_hl, (B, p.indirect_k), dev)
-        helpers = (pid[:, None] + offs[None, 1:]).remainder(N).long()
-        helper_alive = mf[helpers] > rnd
-        ind_ok = (helper_alive & (tgt_alive & tgt_member)[:, None]
-                  & (hu >= _f32(p.p_indirect_fail_alive)))
-        if part is not None:
-            # Prober<->helper and helper<->target are each a round trip
-            # that crosses or not; one draw per helper at the combined
-            # drop probability of its crossings.
-            grp, g_p, g_t = part
-            g_h = grp[helpers]
-            n_cross = ((g_p[:, None] != g_h).to(_I32)
-                       + (g_h != g_t[:, None]).to(_I32))
-            p1 = nem.p_roundtrip
-            p_one = _f32(p1)
-            p_two = _f32(1.0 - (1.0 - p1) * (1.0 - p1))  # float64 on the host
-            shape = (B, p.indirect_k)
-            if p_one >= 1.0:
-                ind_ok = ind_ok & (n_cross == 0)
-            elif p_one > 0.0:
-                p_ind = torch.full(shape, p_two, dtype=torch.float32,
-                                   device=dev).masked_fill(n_cross == 1, p_one)
-                ind_ok = ind_ok & ~((n_cross > 0) & (
-                    prng.uniform_tensor(k_nip, shape, dev) < p_ind))
-        if degraded is not None:
-            # A degraded prober also mishandles replies its helpers
-            # relay back.
-            ind_ok = ind_ok & ~(degraded[:, None] & _draw_below(
-                k_nio, (B, p.indirect_k), _f32(nem.p_obs_miss), dev))
-        rescued = ind_ok.any(dim=1)
-    else:
-        rescued = torch.zeros((B,), dtype=torch.bool, device=dev)
-    init = prober_ok & direct_fail & ~rescued
-
-    # Don't re-suspect a target this prober already believes dead: the
-    # byte at (the target's slot, the prober's column), one gather.
-    # Sharded, each shard gathers the columns it owns (``_points``).
-    aligned = N == B * p.probe_every
-    s_t = at(slot_of_node, o_t)
-    rows = s_t.clamp(0, S - 1).long()
-    cols = pid_c.long()
-    cur = (heard[rows, cols] if sc is None
-           else _points(sc, heard, rows, cols))
-    init = init & ~((s_t >= 0) & ((cur >> _MSG_SHIFT) == MSG_DEAD))
-
-    if nem is not None and nem_state is not None:
-        # Lifeguard LHM: a prober suspects only after more consecutive
-        # direct misses than its LHM (at LHM 0, every miss).  LHM rises
-        # on a miss the helpers contradict and falls on a clean probe.
-        lhm, streak = nem_state
-        lhm_b, streak_b = at(lhm), at(streak)
-        miss = prober_ok & tgt_member & direct_fail
-        streak_new = torch.where(
-            miss, (streak_b + 1).clamp(max=nem.lhm_max + 1), 0)
-        init = init & (streak_new > lhm_b)
-        lhm_new = (lhm_b + (miss & rescued).to(_I32)
-                   - (prober_ok & tgt_member & ~direct_fail).to(_I32)
-                   ).clamp(0, nem.lhm_max)
-        widx = torch.where(pvalid, pid, N)
-        nem_state = NemState(lhm=_set_drop(lhm, widx, lhm_new),
-                             streak=_set_drop(streak, widx, streak_new))
-
-    node_c = slot_node.clamp(0, N - 1)
-    valid = slot_node >= 0
-
-    # Circulant targets are distinct within a round, so a slot's subject
-    # has at most one initiator: i = (subject - blk - o) mod N.
-    init_i = init.to(_I32)
-    i_s = (node_c - ra.blk - o_t) % N
-    in_blk = valid & (i_s < B)
-    add_here = torch.where(in_blk, init_i[i_s.clamp(max=B - 1).long()], 0)
-    slot_want = add_here > 0
-
-    # Existing suspect episodes absorb new initiators.
-    slot_nsusp = torch.where((slot_phase == PHASE_SUSPECT) & slot_want,
-                             slot_nsusp + add_here, slot_nsusp)
-
-    # A refuted (or freshly-joined) episode whose subject fails probes
-    # re-arms as a suspicion at the bumped incarnation.
-    rearm = (((slot_phase == PHASE_REFUTED) | (slot_phase == PHASE_JOIN))
-             & slot_want)
-    slot_phase = torch.where(rearm, PHASE_SUSPECT, slot_phase)
-    slot_inc = torch.where(rearm, incarnation[node_c.long()], slot_inc)
-    slot_start = torch.where(rearm, rnd, slot_start)
-    slot_nsusp = torch.where(rearm, add_here, slot_nsusp)
-    slot_dead_round = torch.where(rearm, -1, slot_dead_round)
+    cfg = probe.config(p, v, nem)
+    tick = probe.Tick(heard, ra, mf, slot_of_node,
+                      nem_state if nem is not None else None,
+                      (slot_node, slot_phase, slot_inc, slot_start,
+                       slot_nsusp, slot_dead_round), incarnation, drops,
+                      scratch)
+    probe.lanes(cfg, tick)
+    rearm, stats = probe.slots(cfg, tick)
     # The rearmed rows wiped in place (one launch of the wipe kernel on a
-    # card, which writes those rows alone: none in most rounds).
+    # card, which writes those rows alone: none in most rounds), between
+    # the slot step and the marks, as the reference orders them.
     finish.wipe(heard, rearm)
-
-    # Allocate fresh slots: needy targets compacted to kk candidates
-    # with a segmented min, one winner per prober segment.
-    need_b = init & (s_t < 0) & (mf_t >= 0)
-    masked = torch.where(need_b, tgt, N)
-    cand = _segment_min(masked, min(S, N, B), N)
-    in_dom = cand < N
-    can_k, slot_k, sidx = alloc_free_slots(~valid, in_dom)
-    cand_c = cand.clamp(0, N - 1)
-    slot_node = _set_drop(slot_node, sidx, cand_c)
-    slot_phase = _set_drop(slot_phase, sidx, PHASE_SUSPECT)
-    slot_inc = _set_drop(slot_inc, sidx, incarnation[cand_c.long()])
-    slot_start = _set_drop(slot_start, sidx, rnd)
-    slot_nsusp = _set_drop(slot_nsusp, sidx, 1)
-    slot_dead_round = _set_drop(slot_dead_round, sidx, -1)
-    slot_of_node = _set_drop(slot_of_node, torch.where(can_k, cand_c, N),
-                             slot_k)
-    n_need = need_b.sum(dtype=_I32)
-    served = can_k.sum(dtype=_I32)
-    drops = drops + (n_need - served)
-
-    # Initiators record their own suspicion with a fresh age so the
-    # rumor re-enters circulation: one byte a marking prober, at (the
-    # target's slot, the prober's column).
-    s_t2 = at(slot_of_node, o_t)
-    rows2 = s_t2.clamp(0, S - 1).long()
-    cur2 = (heard[rows2, cols] if sc is None
-            else _points(sc, heard, rows2, cols))
-    mark_ok = init & (s_t2 >= 0) & ((cur2 >> _MSG_SHIFT) <= MSG_SUSPECT)
-    fresh = (_enc(MSG_SUSPECT, age=_AGE_FRESH)
-             | (cur2 & (_CONF_MASK << _CONF_SHIFT)))
-    if sc is None and aligned:
-        # Every lane a distinct column: each writes its mark or the byte
-        # it read, in place.
-        heard.index_put_((rows2, cols), torch.where(mark_ok, fresh, cur2))
-    elif sc is None:
-        # Padding lanes share column N - 1: marks only.
-        _put_points(heard, rows2 * N + pid_c, fresh, mark_ok)
-    else:
-        # Each shard takes the marks in the columns it owns.
-        for i, h in enumerate(heard):
-            owned, loc = _owned(sc, cols, i)
-            _put_points(h, rows2 * sc.L + loc, fresh, owned & mark_ok)
-
-    probe_stats = (
-        prober_ok.sum(dtype=_I32),                                # probes
-        (prober_ok & direct_fail).sum(dtype=_I32),                # acks missed
-        (prober_ok & direct_fail & tgt_member).sum(dtype=_I32),   # indirect
-        init.sum(dtype=_I32),                                     # suspicions
-    )
-    out_carry = (heard, slot_node, slot_phase, slot_inc, slot_start,
-                 slot_nsusp, slot_dead_round, slot_of_node, incarnation,
-                 member, drops)
-    return out_carry, probe_stats, nem_state
+    probe.marks(cfg, tick)
+    return carry, tuple(stats.unbind(0)), nem_state
 
 
 def gossip_offsets(key, n: int, fanout: int) -> list[int]:
@@ -1002,8 +743,8 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
             spread=_hist_add(hist.spread, spread, blen),
         )
 
-    member = _set_drop(member, torch.where(is_dead, node_c, N), False)
-    slot_of_node = _set_drop(slot_of_node, torch.where(expired, node_c, N),
+    member = set_drop(member, torch.where(is_dead, node_c, N), False)
+    slot_of_node = set_drop(slot_of_node, torch.where(expired, node_c, N),
                              -1)
     finish.wipe(heard_sub, expired)
     sl_node = torch.where(expired, -1, sl_node)
@@ -1053,7 +794,8 @@ def _swim_round_impl(state: SwimState, ra, v: Variant,
                      sc: _ShardCtx | None = None,
                      nem: NemesisParams | None = None,
                      nem_state: NemState | None = None, dst=None,
-                     trace: bool = False, obs_scratch=None):
+                     trace: bool = False, obs_scratch=None, *,
+                     probe_scratch: torch.Tensor):
     """One round + (optionally) its flight-recorder row + histograms,
     under a nemesis schedule when ``nem`` is given (with the Lifeguard
     registers when ``nem_state`` is).
@@ -1064,7 +806,8 @@ def _swim_round_impl(state: SwimState, ra, v: Variant,
     branches write (``_switch``); unused eagerly.  ``obs_scratch``: the
     round's kernels' scratch, an ``observe.counts_scratch`` of at least S
     rows (``observe.count`` and ``finish.fire`` take it in turn; None:
-    each launch makes one).  Returns ``(state, row, hist,
+    each launch makes one); ``probe_scratch``: the probe tick's
+    (``probe.scratch``, the caller's).  Returns ``(state, row, hist,
     nem_state, holders)``; ``row`` is None unless ``collect``,
     ``holders`` (the trace's DEAD and REFUTE holders a slot) None unless
     ``trace``."""
@@ -1100,8 +843,9 @@ def _swim_round_impl(state: SwimState, ra, v: Variant,
     mf = torch.where(member_now, fail_round, -1)
 
     # -- 1. probe tick, on the un-aged matrix.
-    carry, probe_stats, nem_state = _probe_tick(p, ra, v, mf, carry, sc,
-                                                nem, nem_state)
+    carry, probe_stats, nem_state = _probe_tick(p, ra, v, mf, carry,
+                                                probe_scratch, nem,
+                                                nem_state)
     (heard, slot_node, slot_phase, slot_inc, slot_start, slot_nsusp,
      slot_dead_round, slot_of_node, incarnation, member, drops) = carry
 
@@ -1227,21 +971,22 @@ def _swim_round_impl(state: SwimState, ra, v: Variant,
 
 def _round_once(p, table, step, state, v, fail_round, join_round, hist,
                 nem_state, sc=None, nem=None, rows=None, trace_bufs=None,
-                dst=None, obs_scratch=None):
+                dst=None, obs_scratch=None, *, probe_scratch: torch.Tensor):
     """The round at row ``step`` (a device counter, int64 [1]) of the
     device ``table``: the round itself, its flight row into ``rows`` at
     the row's ring slot and its trace row into ``trace_bufs`` at
     ``step``, when given; then ``step`` advances.  Nothing here depends
     on the round number but through the table, so the round program
-    captures this call once per variant; ``obs_scratch`` is the
-    round's kernels' scratch (``_swim_round_impl``).  Returns
+    captures this call once per variant; ``obs_scratch`` and
+    ``probe_scratch`` are the round's kernels' scratch
+    (``_swim_round_impl``).  Returns
     ``(state, hist, nem_state)``."""
     lay = round_args.layout(p.fanout, p.indirect_k)
     ra = round_args.row_args(lay, table.index_select(0, step)[0])
     state, row, hist, nem_state, holders = _swim_round_impl(
         state, ra, v, fail_round, p, join_round, rows is not None, hist, sc,
         nem, nem_state, dst, trace=trace_bufs is not None,
-        obs_scratch=obs_scratch)
+        obs_scratch=obs_scratch, probe_scratch=probe_scratch)
     if rows is not None:
         rows.index_copy_(0, ra.flight.view(1).long(), row[None])
     if trace_bufs is not None:
@@ -1260,13 +1005,32 @@ def _on(dev: torch.device, tup):
                        else t.to(dev) for t in tup))
 
 
-def _own_heard(state: SwimState, dev: torch.device) -> SwimState:
-    """``state`` with its belief matrix (each shard of it) copied onto
-    ``dev``: the eager round writes the matrix in place, so an eager entry
-    point gives it a copy of the caller's, one a call."""
-    h = state.heard
-    return state._replace(heard=tuple(x.to(dev, copy=True) for x in h)
-                          if _sharded(h) else h.to(dev, copy=True))
+# The registers the eager round writes in place besides the belief
+# matrix: the probe tick's slot bookkeeping (``gossip/probe.py``).
+_IN_PLACE = ("slot_node", "slot_phase", "slot_inc", "slot_start",
+             "slot_nsusp", "slot_dead_round", "slot_of_node", "drops")
+
+
+def _own_state(state: SwimState, dev: torch.device,
+               heard: bool = True) -> SwimState:
+    """``state`` with its belief matrix (each shard of it; not with
+    ``heard=False``) and the registers of ``_IN_PLACE`` copied onto
+    ``dev``: the eager round writes them in place, so an eager entry point
+    gives it copies of the caller's, once a call."""
+    regs = {f: getattr(state, f).to(dev, copy=True) for f in _IN_PLACE}
+    if heard:
+        h = state.heard
+        regs["heard"] = (tuple(x.to(dev, copy=True) for x in h)
+                         if _sharded(h) else h.to(dev, copy=True))
+    return state._replace(**regs)
+
+
+def _own_nem(nem_state, dev: torch.device):
+    """A copy of NemState on ``dev`` (the probe tick writes it in place),
+    or None."""
+    if nem_state is None:
+        return None
+    return NemState(*(x.to(dev, copy=True) for x in nem_state))
 
 
 def _graphed(graphed: bool | None, dev: torch.device) -> bool:
@@ -1330,16 +1094,17 @@ def _one_round(state, base_key, fail_round, p, hist, join_round, device,
     """One round; returns the state packed with whichever of hist and
     nem_state are threaded, in that order.  ``rnd`` is the caller's host
     mirror of ``state.round`` (None reads the counter from the device).
-    The round writes the matrix in place: an unsharded one is copied
-    here, sharded ones come from ``_sharded_setup(own=True)``."""
+    The round writes the matrix and the registers of ``_IN_PLACE`` in
+    place: an unsharded state is copied here, a sharded one comes from
+    ``_sharded_setup(own=True)``."""
     _require_nem_state(nem, nem_state)
     dev = resolve_device(device)
     if sc is None:
         _require_unsharded(state)
-        state = _own_heard(state, dev)
+        state = _own_state(state, dev)
     state = _on(dev, state)
     hist = None if hist is None else _on(dev, hist)
-    nem_state = None if nem_state is None else _on(dev, nem_state)
+    nem_state = _own_nem(nem_state, dev)
     jr = None if join_round is None else _as_i32(join_round, dev)
     if rnd is None:
         rnd = _host_int(state.round)
@@ -1348,7 +1113,7 @@ def _one_round(state, base_key, fail_round, p, hist, join_round, device,
     st, hb, ns = _round_once(p, table, step, state,
                              round_variant(p, nem, rnd),
                              _as_i32(fail_round, dev), jr, hist, nem_state,
-                             sc, nem)
+                             sc, nem, probe_scratch=probe.scratch(p, dev))
     out = ((st,) + ((hb,) if hist is not None else ())
            + ((ns,) if nem_state is not None else ()))
     return out[0] if len(out) == 1 else out
@@ -1380,7 +1145,7 @@ def run_rounds(state: SwimState, base_key, fail_round, p: SwimParams,
     dev = resolve_device(device)
     graphed = _graphed(graphed, dev)
     if not graphed:
-        state = _own_heard(state, dev)
+        state = _own_state(state, dev)
     return _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
                             join_round, flight, hist, dev, nem=nem,
                             nem_state=nem_state, graphed=graphed)
@@ -1390,8 +1155,9 @@ def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
                      join_round, flight, hist, dev, sc=None, nem=None,
                      nem_state=None, graphed: bool = False):
     """The rounds of ``run_rounds`` / ``run_rounds_sharded`` (``graphed``
-    as ``_graphed`` decided it); the eager route's matrix is already the
-    call's own (``_own_heard``)."""
+    as ``_graphed`` decided it); the eager route's matrix and registers are
+    already the call's own (``_own_state``), its NemState is copied
+    here."""
     state = _on(dev, state)
     fail_round = _as_i32(fail_round, dev)
     join_round = None if join_round is None else _as_i32(join_round, dev)
@@ -1405,6 +1171,7 @@ def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
         return program.run_rounds(state, base_key, fail_round, p, steps,
                                   trace, join_round, flight, hist, sc, nem,
                                   nem_state)
+    nem_state = _own_nem(nem_state, dev)
     rnd = _host_int(state.round)
     rows, cur, R = None, 0, 1
     if flight is not None:
@@ -1417,11 +1184,12 @@ def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
     bufs = ([torch.zeros((steps, p.slots), dtype=_I32, device=dev)
              for _ in RoundTrace._fields] if trace else None)
     obs_scratch = observe.counts_scratch(p.slots, dev)
+    probe_scratch = probe.scratch(p, dev)
     for k in range(steps):
         state, hist, nem_state = _round_once(
             p, table, step, state, round_variant(p, nem, rnd + k),
             fail_round, join_round, hist, nem_state, sc, nem, rows, bufs,
-            obs_scratch=obs_scratch)
+            obs_scratch=obs_scratch, probe_scratch=probe_scratch)
     return _carry(state, flight, rows, steps, hist, nem_state), (
         RoundTrace(*bufs) if trace else None)
 
@@ -1488,9 +1256,10 @@ def unshard_state(state: SwimState) -> SwimState:
 
 def _sharded_setup(state, p, ndev, device, own: bool = False):
     """(state on the device with ndev shards, its _ShardCtx, device);
-    ``own``: the shards are the call's own (a new split of an unsharded
-    state, else copies of the caller's shards), which the eager round
-    writes in place."""
+    ``own``: the shards and the registers of ``_IN_PLACE`` are the call's
+    own (a new split of an unsharded state, else copies of the caller's
+    shards; copies of the registers), which the eager round writes in
+    place."""
     dev = resolve_device(device)
     if ndev is None:
         if not _sharded(state.heard):
@@ -1503,9 +1272,11 @@ def _sharded_setup(state, p, ndev, device, own: bool = False):
         if shapes != [(p.slots, L)] * ndev:
             raise ValueError(f"state has shards {shapes}, expected {ndev} "
                              f"of {[p.slots, L]}")
-        state = _on(dev, _own_heard(state, dev) if own else state)
+        state = _on(dev, _own_state(state, dev) if own else state)
     else:
         state = shard_state(state, ndev, dev)
+        if own:
+            state = _own_state(state, dev, heard=False)
     return state, _ShardCtx(ndev, L), dev
 
 

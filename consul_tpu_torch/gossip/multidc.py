@@ -49,12 +49,12 @@ import torch
 from consul_tpu_torch import prng
 from consul_tpu_torch._device import resolve_device
 from consul_tpu_torch.gossip import kernel as _kernel
-from consul_tpu_torch.gossip import round_args
+from consul_tpu_torch.gossip import probe, round_args
 from consul_tpu_torch.gossip.events import (_SEEN, EventState, _event_round,
                                             init_events, is_pushpull)
 from consul_tpu_torch.gossip.kernel import (SwimState, _as_i32,
                                             _check_shardable, _on,
-                                            _own_heard, _require_unsharded,
+                                            _own_state, _require_unsharded,
                                             _round_once,
                                             _sharded_setup, init_hist,
                                             init_state, round_variant,
@@ -183,10 +183,13 @@ def _bridge(lan_events, wan_events, s: int):
 
 
 def _round(state: MultiDCState, tabs: tuple, steps: tuple, k: int,
-           rounds: list, lan_fail, wan_fail, p: MultiDCParams, lan_hist):
+           rounds: list, lan_fail, wan_fail, p: MultiDCParams, lan_hist,
+           scratch: tuple):
     """Round ``k`` of a call across every pool, eagerly: ``tabs`` the
     call's tables on the device (``_tables``), ``steps`` each round pool's
-    device row counter, ``rounds`` the counters at the call's start."""
+    device row counter, ``rounds`` the counters at the call's start,
+    ``scratch`` the probe tick's scratch of the LAN pools (one serves
+    them in turn) and of the WAN pool, made once a call."""
     D, s = p.n_dcs, p.n_servers
     lan_t, lan_ev_t, wan_t, wan_ev_t = tabs
     sc = _shard_ctx(p)
@@ -198,7 +201,8 @@ def _round(state: MultiDCState, tabs: tuple, steps: tuple, k: int,
         st, hb, _ = _round_once(
             p.lan, lan_t[d], steps[d], state.lan[d],
             round_variant(p.lan, None, rounds[d] + k), lan_fail[d], None,
-            lan_hist[d] if has_hist else None, None, sc)
+            lan_hist[d] if has_hist else None, None, sc,
+            probe_scratch=scratch[0])
         lan.append(st)
         hists.append(hb)
     # Liveness from the pre-round event clock.
@@ -209,7 +213,8 @@ def _round(state: MultiDCState, tabs: tuple, steps: tuple, k: int,
     # -- WAN pool: its membership round and its event round share a key.
     wan, _, _ = _round_once(p.wan, wan_t, steps[D], state.wan,
                             round_variant(p.wan, None, rounds[2 * D] + k),
-                            wan_fail, None, None, None)
+                            wan_fail, None, None, None,
+                            probe_scratch=scratch[1])
     wev = state.wan_events
     wan_events, _ = _event_round(wev, wan_ev_t[k], wan_fail > wev.round,
                                  p.wan, is_pushpull(p.wan,
@@ -227,9 +232,10 @@ def _inputs(state, lan_fail, wan_fail, lan_hist, p: MultiDCParams, dev,
             own: bool):
     """The call's inputs on ``dev``; each LAN pool sharded as ``p`` says
     (a pool given unsharded is split here).  ``own``: every pool's belief
-    matrix a copy of the caller's (the eager rounds write it in place)."""
+    matrix and the registers the probe tick writes copies of the caller's
+    (the eager rounds write them in place)."""
     def pool(st):
-        return _on(dev, _own_heard(st, dev) if own else st)
+        return _on(dev, _own_state(st, dev) if own else st)
 
     def lan_pool(st):
         if p.lan_devices > 1:
@@ -277,10 +283,11 @@ def _run_eager(state, base_key, lan_fail, wan_fail, p: MultiDCParams,
     ctr = tuple(torch.zeros(1, dtype=torch.int64, device=dev)
                 for _ in range(p.n_dcs + 1))
     recip = _recip(p.n_lan, dev)
+    scratch = (probe.scratch(p.lan, dev), probe.scratch(p.wan, dev))
     covs = []
     for k in range(steps):
         state, lan_hist = _round(state, tabs, ctr, k, rounds, lan_fail,
-                                 wan_fail, p, lan_hist)
+                                 wan_fail, p, lan_hist, scratch)
         if cov:
             covs.append(_coverage(state.lan_events, recip))
     return state, lan_hist, (torch.stack(covs) if covs else torch.zeros(

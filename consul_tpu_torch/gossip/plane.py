@@ -926,6 +926,7 @@ class GossipPlane:
         from consul_tpu_torch.gossip.kernel import (_age_tick, _disseminate,
                                                     _probe_tick,
                                                     round_variant)
+        from consul_tpu_torch.gossip.probe import scratch as probe_scratch
         from consul_tpu_torch.profile_round import timed
 
         p, st, key, dev = self._p, self._state, self._key, self._device
@@ -939,24 +940,32 @@ class GossipPlane:
             round_args.layout(p.fanout, p.indirect_k),
             torch.from_numpy(round_args.build(p, key, rnd, 1)[0]).to(dev))
         v = round_variant(p, None, rnd)
-        # The probe tick writes the matrix in place: each timed call
-        # ticks a copy of the session's, restored before it, and the
-        # restore's own time is taken off.
-        heard = st.heard.clone()
-        carry = (heard, st.slot_node, st.slot_phase, st.slot_inc,
-                 st.slot_start, st.slot_nsusp, st.slot_dead_round,
-                 st.slot_of_node, st.incarnation, st.member, st.drops)
+        # The probe tick writes the matrix and the slot registers in
+        # place: each timed call ticks copies of the session's, restored
+        # before it, and the restore's own time is taken off.
+        src = (st.heard, st.slot_node, st.slot_phase, st.slot_inc,
+               st.slot_start, st.slot_nsusp, st.slot_dead_round,
+               st.slot_of_node)
+        own = [x.clone() for x in src] + [st.incarnation, st.member,
+                                           st.drops.clone()]
+        carry = tuple(own)
+
+        def restore():
+            for a, b in zip(own, src + (None, None, st.drops)):
+                if b is not None:
+                    a.copy_(b)
+
+        sp = probe_scratch(p, dev)  # every tick leaves it as it found it
 
         def probe():
-            heard.copy_(st.heard)
-            _probe_tick(p, ra, v, mf, carry)
+            restore()
+            _probe_tick(p, ra, v, mf, carry, sp)
 
         # The port's tail ages inside the merge, so its row is the merged
         # age+gossip phase and the standalone age row is marked as such.
         out = {
             "age_tick_standalone": timed(lambda: _age_tick(st.heard), dev),
-            "probe_tick": (timed(probe, dev)
-                           - timed(lambda: heard.copy_(st.heard), dev)),
+            "probe_tick": timed(probe, dev) - timed(restore, dev),
             "age_gossip_merge": timed(lambda: _disseminate(
                 p, ra, v, st.heard, mf, rx, cc), dev),
         }

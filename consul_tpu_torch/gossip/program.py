@@ -64,7 +64,7 @@ import torch
 
 from consul_tpu_torch import _build, prng
 from consul_tpu_torch.gossip import (events, finish, fused, kernel,
-                                     observe, round_args)
+                                     observe, probe, round_args)
 from consul_tpu_torch.gossip.kernel import (RoundTrace, _I32, _leaves,
                                             _round_once, round_variant)
 
@@ -92,6 +92,8 @@ _COUNTERS = ((prng, "launches"), (prng, "calls"), (fused, "launches"),
              (fused, "merge_drop_launches"), (events, "launches"),
              (observe, "launches"), (finish, "launches"),
              (finish, "fire_launches"), (finish, "wipe_launches"),
+             (probe, "launches"), (probe, "lanes_launches"),
+             (probe, "slots_launches"), (probe, "marks_launches"),
              (sys.modules[__name__], "copy_bytes"))
 
 _VP = ctypes.c_void_p
@@ -391,8 +393,10 @@ class RoundProgram(_Program):
                        for _ in RoundTrace._fields] if trace else None)
         self.dst = (self.state, self.hist, self.nem_state)
         # The observers' kernel's scratch: the program's own, zero between
-        # its launches, which run one at a time on its stream.
+        # its launches, which run one at a time on its stream; and the
+        # probe tick's, which every round leaves as it found it.
         self.obs_scratch = observe.counts_scratch(p.slots, dev)
+        self.probe_scratch = probe.scratch(p, dev)
 
     def _round(self, v, **bufs):
         return _round_once(self.p, self.table, bufs.get("step", self.step),
@@ -402,7 +406,8 @@ class RoundProgram(_Program):
                            bufs.get("nem_state", self.nem_state), self.sc,
                            self.nem, bufs.get("rows", self.rows),
                            bufs.get("trace", self.trace),
-                           bufs.get("dst"), self.obs_scratch)
+                           bufs.get("dst"), self.obs_scratch,
+                           probe_scratch=self.probe_scratch)
 
     def _warm(self, v) -> None:
         self._round(v, step=self.step.clone(),
@@ -639,8 +644,8 @@ def disown(prog: _Program) -> None:
 
 def settle_counts() -> None:
     """Fold every program's device-side branch counts into the host
-    counters (``prng``'s, ``fused``'s, ``events``', ``observe``'s and
-    ``finish``'s launches, ``copy_bytes``, ``kernel.tail_rounds`` and
+    counters (``prng``'s, ``fused``'s, ``events``', ``observe``'s,
+    ``finish``'s and ``probe``'s launches, ``copy_bytes``, ``kernel.tail_rounds`` and
     ``kernel.join_rounds``); a reader of those counters calls this
     first."""
     for prog in list(_programs.values()) + _owned:

@@ -45,14 +45,14 @@ the buffers (``program._copy_leaves``) and the rest of
 checkout's closures, for an A/B: parent, change, change, parent; a
 name the checkout lacks is refused); the hand kernels, launched through
 ctypes and tied to no op by the profiler, go by their names
-(``ROUND_KERNELS``).
+(``ROUND_KERNELS``: ``csrc/probe.cu``'s to the probe tick, the draws',
+the wipe's and the others' to labels of their own).
 With ``--ndev N`` the
 rounds are the sharded round (``run_rounds_sharded``, N column shards on
 the card), and the phases add the sharded round's own: the halo pins
 (``_roll_sharded``: the push/pull rounds' rolls only, the card's merge
-reads its pins from the shards), the merge kernel's launches
-(``fused_merge``, one per round for all shards) and the probe tick's
-point reads across shards (``_points``).  The single-device
+reads its pins from the shards) and the merge kernel's launches
+(``fused_merge``, one per round for all shards).  The single-device
 round adds the launches of ``fused_dissem``.  With ``--nemesis`` the
 rounds run under that scenario of the nemesis catalog
 (``gossip/nemesis.py``; its kills join the churn failures), and the
@@ -63,18 +63,20 @@ included), and ``dissem_launches``/``merge_launches`` the kernel launches,
 each with its drop operand.
 
 - pass A, no profiler: host time per round, and the host time and the
-  calls per round of each round phase (the probe tick, the uniform draws
-  and the compared draws (``prng.below``) inside it; on a card each a
-  launch of ``csrc/threefry.cu``, the dissemination tail, the finish step, the kernel
-  wrappers), each phase timed by a host clock around the round's own
-  function; a kernel wrapper's host time over its calls is its host cost
-  per launch;
+  calls per round of each round phase (the probe tick, whose draws are
+  made inside ``csrc/probe.cu``'s lanes kernel; the uniform draws and
+  the compared draws (``prng.below``), on a card each a launch of
+  ``csrc/threefry.cu``, which no round of the main path makes now; the
+  dissemination tail, the finish step, the kernel wrappers), each phase
+  timed by a host clock around the round's own function; a kernel
+  wrapper's host time over its calls is its host cost per launch;
 - pass B, under torch.profiler: the device kernels' time per round (busy
   time), each phase's device time (the kernels launched inside it), the
   number of kernels per round, the port's own kernels' calls and device
-  time per round (``hand_kernels``: the draws' and the tail's, which the
-  profiler leaves out of the phases' device time), and the ops and
-  kernels that take the most device time.
+  time per round (``hand_kernels``: the draws', the tail's, the probe
+  tick's and the others, which the profiler leaves out of the phases'
+  device time), and the ops and kernels that take the most device
+  time.
 
 The device's idle share is ``1 - busy(B) / host time(A)``.  Phases are
 timed by wrapping the round's functions for the duration of a pass; the
@@ -130,11 +132,11 @@ HAND_KERNELS = {"draws": "threefry::draw_kernel",
                 "conditions": "round_graph::set_condition",
                 "flood": "evflood::flood_kernel",
                 "observe": "observe::counts_kernel",
-                "finish": "finish::"}
+                "finish": "finish::",
+                "probe": "probe::"}
 SHARDED_PHASES = {  # the sharded round's own, inside the phases above
     "halo_pins": (fused, "_roll_sharded"),
     "merge_launches": (fused, "fused_merge"),
-    "probe_points": (kernel, "_points"),
 }
 
 
@@ -543,7 +545,8 @@ ROUND_KERNELS = (("finish::fire_kernel", "fire_timers"),
                  ("finish::wipe_kernel", "wipe_rows"),
                  ("dissem_tail::tail_kernel", "tail"),
                  ("threefry::draw_kernel", "draws"),
-                 ("observe::counts_kernel", "observers"))
+                 ("observe::counts_kernel", "observers"),
+                 ("probe::", "probe_tick"))
 
 
 class _EagerBranches:

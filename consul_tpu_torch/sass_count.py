@@ -1,10 +1,12 @@
 """Count the instructions the card runs per belief word in the dissemination
-tail's kernel, per slot word in the event flood's kernel, and per element
-in the draws' kernel, from their SASS, per execution unit.
+tail's kernel, per slot word in the event flood's kernel, per element in
+the draws' kernel and per lane in the probe tick's lanes kernel, from
+their SASS, per execution unit.
 
     python -m consul_tpu_torch.sass_count [--fanout 3]
     python -m consul_tpu_torch.sass_count --flood [--fanout 3]
     python -m consul_tpu_torch.sass_count --threefry
+    python -m consul_tpu_torch.sass_count --probe
 
 Builds ``csrc/dissem_tail.cu``, disassembles it with the toolkit's
 ``cuobjdump -sass``, takes the kernel instantiated for ``--fanout``, and
@@ -40,6 +42,14 @@ of its modes (``draw_kernel<mode>``), the grid-stride loop: one iteration
 is one element of the draw.  Every instruction of the loop counts once
 (the edge drops' loop holds the hash behind a branch: its count is an
 element that is hashed).
+
+``--probe`` builds ``csrc/probe.cu`` and counts ``probe::lanes_kernel``,
+a thread a lane with no loop but the helpers': every instruction of the
+function once, per unit.  A lane runs a part of them (the draws only
+where they decide something, the Lifeguard registers only when threaded),
+so the count is what the most a lane can run costs, not what the main
+path's lanes run; the draws' operations are counted per hash instead
+(``--threefry``'s uniform loop; ``chip_smoke.py``'s ``_probe_bound``).
 
 Prints the loop's instructions, then the counts as one JSON line.
 Needs nvcc and cuobjdump (the card's machine has both), not a card.
@@ -240,6 +250,18 @@ def threefry_counts(sass: str) -> dict:
             for name, mode in DRAW_MODES.items()}
 
 
+def probe_counts(sass: str) -> dict:
+    """``probe::lanes_kernel`` of ``csrc/probe.cu`` in ``sass``: its
+    instructions per execution unit, each instruction of the function
+    counted once (``--probe`` in the module docstring)."""
+    name, insns = _function(sass, "lanes_kernel", "probe::lanes_kernel")
+    ops = Counter(op for _, op, _, _ in insns)
+    units = _units(ops)
+    return {"function": name, "instructions": len(insns), **units,
+            "memory": sum(v for k, v in ops.items() if k in MEMORY),
+            "by_opcode": dict(ops.most_common())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fanout", type=int, default=3)
@@ -247,7 +269,18 @@ def main(argv=None) -> int:
                     help="count the draws' kernel, per mode")
     ap.add_argument("--flood", action="store_true",
                     help="count the event flood's slot loop")
+    ap.add_argument("--probe", action="store_true",
+                    help="count the probe tick's lanes kernel")
     args = ap.parse_args(argv)
+    if args.probe:
+        sass = disassemble("probe")
+        for addr, _, guard, text in _function(sass, "lanes_kernel",
+                                              "lanes_kernel")[1]:
+            g = "" if guard is None else \
+                f"@{'' if guard[1] else '!'}{guard[0]} "
+            print(f"{addr:05x}  {g}{text}")
+        print(json.dumps(probe_counts(sass)), flush=True)
+        return 0
     if args.threefry:
         sass = disassemble("threefry")
         for addr, _, _, text in _draw_loop(sass, DRAW_MODES["uniform"])[1]:

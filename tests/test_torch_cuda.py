@@ -876,3 +876,158 @@ def test_graphed_round_launches_finish_on_card(ndev):
     assert _same_fields(list(ce) + [te], list(cg) + [tg]) == []
     for f in st._fields:
         assert torch.equal(before[f], getattr(st, f)), f
+
+
+def _probe_tick_inputs(n, slots, probe_every, ndev, seed, nem=None,
+                       lhm=False):
+    """A probe tick's inputs on the card (``probe.Tick``) and its
+    configuration: a prober block half of whose lanes probe a dead
+    member, slots in every phase on targets of the round, every byte
+    value in the matrix, NemState where ``lhm``."""
+    from consul_tpu_torch.gossip import probe, round_args
+    from consul_tpu_torch.gossip.params import SwimParams
+    rng = np.random.default_rng(seed)
+    p = SwimParams(n=n, slots=slots, probe_every=probe_every,
+                   loss_rate=0.05)
+    rnd = 52
+    cfg = probe.config(p, tk.round_variant(p, nem, rnd), nem)
+    ra = round_args.row_args(
+        round_args.layout(p.fanout, p.indirect_k),
+        torch.from_numpy(round_args.build(p, prng.key(seed), rnd, 1)[0])
+        .cuda())
+    blk, o_t = int(ra.blk), int(ra.probe[0])
+    mf = rng.choice(np.asarray([-1, 10, rnd, NEVER], np.int32), n,
+                    p=[0.1, 0.2, 0.1, 0.6])
+    pids = [blk + i for i in rng.permutation(cfg.B) if blk + i < n]
+    tgts = [(q + o_t) % n for q in pids]
+    for q, t in zip(pids[:len(pids) // 2], tgts[:len(pids) // 2]):
+        mf[q], mf[t] = NEVER, 10
+    subjects = list(dict.fromkeys(tgts[1:slots]))[:slots - 4]
+    slot_node = np.full(slots, -1, np.int32)
+    slot_node[:len(subjects)] = subjects
+    son = np.full(n, -1, np.int32)
+    son[subjects] = np.arange(len(subjects), dtype=np.int32)
+    heard = torch.from_numpy(rng.integers(0, 256, (slots, n))
+                             .astype(np.uint8)).cuda()
+    if ndev > 1:
+        L = n // ndev
+        heard = tuple(heard[:, i * L:(i + 1) * L].clone()
+                      for i in range(ndev))
+    regs = (slot_node, np.where(slot_node >= 0, rng.integers(1, 5, slots),
+                                0), rng.integers(0, 9, slots),
+            rng.integers(0, rnd, slots), rng.integers(0, 4, slots),
+            np.full(slots, -1))
+    ns = None
+    if lhm:
+        ns = tk.NemState(*(torch.from_numpy(rng.integers(0, 4, n).astype(
+            np.int32)).cuda() for _ in range(2)))
+    return cfg, probe.Tick(
+        heard, ra, torch.from_numpy(mf).cuda(), torch.from_numpy(son).cuda(),
+        ns, tuple(torch.from_numpy(np.asarray(r, np.int32)).cuda()
+                  for r in regs),
+        torch.from_numpy(rng.integers(0, 9, n).astype(np.int32)).cuda(),
+        torch.tensor(2**31 - 2, dtype=torch.int32).cuda(),
+        probe.scratch(p, "cuda"))
+
+
+@pytest.mark.parametrize("n, slots, probe_every, ndev, legs", [
+    (4000, 32, 5, 1, False), (4001, 32, 5, 1, True), (4000, 32, 5, 8, True),
+    (12, 32, 10, 1, False), (200_000, 64, 5, 1, True)])
+def test_probe_kernels_match_plain_on_card(n, slots, probe_every, ndev,
+                                           legs):
+    """``csrc/probe.cu`` against ``probe_lanes_ref`` / ``probe_slots_ref``
+    / ``probe_marks_ref`` on the card, with the rearm's wipe between the
+    last two: every output field after every step, tolerance 0, one
+    launch each; aligned and unaligned N, 8 shards, the WAN pool's two
+    lanes, the partition and degraded legs with NemState."""
+    _need_card()
+    from consul_tpu_torch.gossip import finish, probe
+    from consul_tpu_torch.gossip.nemesis import NemesisParams
+    nem = (NemesisParams(scenario="probe", start=0, stop=NEVER,
+                         part_kind="hash", p_ab=0.6, p_ba=0.1, obs_lo=0,
+                         obs_hi=n, p_obs_miss=0.3, lhm_max=3)
+           if legs else None)
+    cfg, t = _probe_tick_inputs(n, slots, probe_every, ndev, n + slots,
+                                nem, legs)
+
+    def copy(t):
+        heard = (tuple(h.clone() for h in t.heard)
+                 if isinstance(t.heard, tuple) else t.heard.clone())
+        ns = None if t.nem_state is None else tk.NemState(
+            *(x.clone() for x in t.nem_state))
+        return t._replace(heard=heard, slot_of_node=t.slot_of_node.clone(),
+                          nem_state=ns,
+                          slots=tuple(x.clone() for x in t.slots),
+                          drops=t.drops.clone(), sp=t.sp.clone())
+
+    def leaves(t):
+        heard = t.heard if isinstance(t.heard, tuple) else (t.heard,)
+        return [*heard, t.slot_of_node, *(t.nem_state or ()), *t.slots,
+                t.drops, t.sp]
+
+    got, want = copy(t), copy(t)
+    n0 = (probe.lanes_launches, probe.slots_launches, probe.marks_launches)
+    probe.probe_lanes(cfg, got)
+    probe.probe_lanes_ref(cfg, want.ra, want.mf, want.heard,
+                          want.slot_of_node, want.nem_state, want.sp)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
+    rearm, stats = probe.probe_slots(cfg, got)
+    rearm_w, stats_w = probe.probe_slots_ref(
+        cfg, want.ra, want.slots, want.slot_of_node, want.incarnation,
+        want.drops, want.sp)
+    torch.cuda.synchronize()
+    assert torch.equal(rearm, rearm_w) and torch.equal(stats, stats_w)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
+    finish.wipe_rows(got.heard, rearm)
+    finish.wipe_rows_ref(want.heard, rearm_w)
+    probe.probe_marks(cfg, got)
+    probe.probe_marks_ref(cfg, want.ra, want.heard, want.slot_of_node,
+                          want.sp)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
+    assert (probe.lanes_launches, probe.slots_launches,
+            probe.marks_launches) == tuple(x + 1 for x in n0)
+    assert int(stats[3]) > 0
+
+
+@pytest.mark.parametrize("ndev", [None, 4])
+def test_graphed_round_launches_probe_on_card(ndev):
+    """The graphed and the eager round launch each of ``probe.cu``'s
+    kernels once a round and the draws' kernel not at all (no nemesis);
+    their results are equal and the caller's state and NemState are left
+    as they were."""
+    _need_card()
+    from consul_tpu_torch.gossip import probe
+    from consul_tpu_torch.gossip.nemesis import build
+    from consul_tpu_torch.gossip.params import lan_profile
+    n, steps = 4000, 60
+    p = lan_profile(n, slots=32, loss_rate=0.01, hot_slots=8)
+    fail, join = _churn_inputs(n, steps, 9)
+    sc = build("degraded_observer", n)
+    st = tk.init_state(p)._replace(member=torch.from_numpy(join == NEVER)
+                                   .cuda())
+    ns = tk.init_nem_state(n, device="cuda")
+    before = [x.clone() for x in list(st) + list(ns)]
+    runs = {}
+    for graphed in (False, True):
+        program.settle_counts()
+        n0 = (probe.lanes_launches, probe.slots_launches,
+              probe.marks_launches)
+        d0 = prng.launches
+        a = dict(join_round=join, graphed=graphed, nem=sc.nem,
+                 nem_state=ns)
+        if ndev:
+            out = tk.run_rounds_sharded(st, prng.key(8), fail, p, steps,
+                                        ndev=ndev, **a)
+        else:
+            out = tk.run_rounds(st, prng.key(8), fail, p, steps, **a)
+        torch.cuda.synchronize()
+        program.settle_counts()
+        assert (probe.lanes_launches, probe.slots_launches,
+                probe.marks_launches) == tuple(x + steps for x in n0)
+        assert prng.launches == d0
+        runs[graphed] = out
+    assert _same_fields(list(runs[False][0]), list(runs[True][0])) == []
+    for a, b in zip(before, list(st) + list(ns)):
+        assert torch.equal(a, b)

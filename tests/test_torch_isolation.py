@@ -494,6 +494,68 @@ def test_finish_never_falls_back(monkeypatch):
     assert (finish.launches, set(finish.launch_shapes)) == before
 
 
+def test_probe_never_falls_back(monkeypatch):
+    """The probe tick's steps take the plain versions only for CPU
+    tensors: the kernel wrappers refuse anything but CUDA tensors, and
+    tensors that are not on the CPU whose kernels cannot be built raise
+    the build's error instead of running the plain versions."""
+    from consul_tpu_torch import _build
+    from consul_tpu_torch.gossip import kernel as tkm
+    from consul_tpu_torch.gossip import probe, round_args
+    from consul_tpu_torch.gossip.params import SwimParams as TParams
+    p = TParams(n=40, slots=8, probe_every=5)
+    cfg = probe.config(p, tkm.round_variant(p, None, 3))
+    ra = round_args.custom(p, 3, probe=[1, 2, 3, 4], blk=8)
+    i32 = dict(dtype=torch.int32)
+
+    def tick(dev):
+        row = round_args.row_args(round_args.layout(p.fanout, p.indirect_k),
+                                  torch.cat([ra.rnd.view(1), ra.gossip,
+                                             ra.blk.view(1), ra.flight.view(1),
+                                             ra.probe, ra.pp, ra.k_dl, ra.k_hl,
+                                             ra.k_nem.reshape(-1),
+                                             ra.k_legs.reshape(-1),
+                                             ra.k_pp.reshape(-1)]).to(dev))
+        return probe.Tick(
+            torch.zeros((p.slots, p.n), dtype=torch.uint8, device=dev), row,
+            torch.full((p.n,), 10**6, device=dev, **i32),
+            torch.full((p.n,), -1, device=dev, **i32), None,
+            tuple(torch.full((p.slots,), v, device=dev, **i32)
+                  for v in (-1, 0, 0, 0, 0, -1)),
+            torch.zeros(p.n, device=dev, **i32),
+            torch.zeros((), device=dev, **i32), probe.scratch(p, dev))
+
+    before = (probe.launches, set(probe.launch_shapes))
+    t = tick("cpu")
+    probe.lanes(cfg, t)
+    rearm, stats = probe.slots(cfg, t)
+    probe.marks(cfg, t)
+    assert stats.tolist() == [8, 0, 0, 0] and not rearm.any()
+    assert (probe.launches, set(probe.launch_shapes)) == before
+    meta = tick("meta")
+    for fn in (probe.probe_lanes, probe.probe_slots, probe.probe_marks,
+               probe.lanes, probe.slots, probe.marks):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(cfg, t if fn.__name__.startswith("probe_") else meta)
+
+    # Tensors the wrappers take, and a build that fails: the error, not
+    # the plain versions' results.
+    def failed_build(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(probe, "require_cuda", lambda name, t: None)
+    monkeypatch.setattr(_build, "build", failed_build)
+    monkeypatch.setattr(_build, "_libs", {})
+    probe._lib.cache_clear()
+    try:
+        for fn in (probe.lanes, probe.slots, probe.marks):
+            with pytest.raises(RuntimeError, match="nvcc failed for probe"):
+                fn(cfg, meta)
+    finally:
+        probe._lib.cache_clear()
+    assert (probe.launches, set(probe.launch_shapes)) == before
+
+
 def test_import_builds_nothing(tmp_path):
     """Importing the port compiles no kernel: not fused_dissem's or
     fused_merge's, not the store's kv_apply or watch_match (the build runs

@@ -1,6 +1,7 @@
 """The draws' Hopper kernel on the CPU: ``csrc/threefry.cu`` (its body and
-every entry point) compiled by the host's C++ compiler against a small
-stand-in for the CUDA runtime, which runs the grid one thread at a time.
+every entry point, with the hash of ``csrc/threefry.cuh``) compiled by the
+host's C++ compiler against a small stand-in for the CUDA runtime, which
+runs the grid one thread at a time.
 
 Each launch goes through the port's own wrappers (``prng._bits_into``,
 ``_uniform_into``, ``_below_into``, ``_randint_into``, ``_edge_drops_into``:
@@ -86,7 +87,8 @@ def lib(tmp_path_factory):
     src.write_text(body.replace(LAUNCH, SERIAL))
     so = d / "libthreefry.so"
     r = subprocess.run(["g++", "-std=c++17", "-O2", "-shared", "-fPIC",
-                        f"-I{d}", "-o", str(so), str(src)],
+                        f"-I{d}", f"-I{_build.CSRC}", "-o", str(so),
+                        str(src)],
                        capture_output=True, text=True, timeout=180)
     assert r.returncode == 0, r.stderr
     return ctypes.CDLL(str(so))
