@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase observe       # that phase alone (A/B)
     python3 chip_smoke.py --phase finish        # that phase alone (A/B)
     python3 chip_smoke.py --phase probe         # that phase alone (A/B)
+    python3 chip_smoke.py --phase finish_slots  # that phase alone (A/B)
 
 Each phase prints one JSON line; any failure exits non-zero and the
 result lines are not printed.
@@ -16,9 +17,10 @@ result lines are not printed.
    ``csrc/threefry.cu``, ``csrc/round_graph.cu`` (the round
    program's conditional nodes), ``csrc/event_flood.cu`` (the event
    round), ``csrc/observe.cu`` (the round's observers' counts),
-   ``csrc/finish.cu`` (the finish step's fire pass and row wipes) and
-   ``csrc/probe.cu`` (the probe tick) with nvcc for sm_90a, one nvcc
-   each, all started together (ptxas report).
+   ``csrc/finish.cu`` (the finish step's fire pass and row wipes),
+   ``csrc/probe.cu`` (the probe tick) and ``csrc/finish_slots.cu`` (the
+   finish step's slot logic) with nvcc for sm_90a, one nvcc each, all
+   started together (ptxas report).
    threefry: every entry point of the round's draws
    (``consul_tpu_torch/prng.py``: bits, uniform, uniform rows, below,
    randint, edge drops) against its plain torch version on the card, bit
@@ -131,6 +133,25 @@ result lines are not printed.
    element, ``sass_count.py --threefry``); the lanes kernel's SASS
    (``sass_count.py --probe``).  ``--phase probe`` runs the card line,
    the builds and this phase alone.
+6f. finish_slots: the finish step's slot kernels
+   (``csrc/finish_slots.cu``: ``finish_decide``, ``finish_settle``,
+   ``finish_record``, with ``fire_timers``, the spread's
+   ``heard_counts`` and ``wipe_rows`` between them as the round runs
+   them) against ``finish_decide_ref``, ``finish_settle_ref`` and
+   ``finish_record_ref`` on the card, tolerance 0 in every field of the
+   state, the banks, LHM and every output after every launch, over 32
+   seeds of each ``FINISH_SLOTS_CASES`` entry (the 1M main path's S = 64
+   with every slot, its hot tier's 8 rows, 8 shards, the multi-DC LAN
+   pool's 250,000 with hot tier 8 and WAN pool's 12 nodes and 32 slots,
+   the hist banks and LHM on and off; at 16,000-16,001 states where every
+   row fires, every row expires, or detections share buckets with the
+   counters and banks near 2**31); the phase must see refutations, fires,
+   detections, false dead verdicts, expiries, dropped members and spread
+   rows.  Times from CUDA-graph replays of each kernel and of the whole
+   step, the plain versions', on each case's state and on the 1M main
+   path's data (1 and 8 shards, and with the banks), beside the bytes
+   the data needs (``_finish_slots_bound``).  ``--phase finish_slots``
+   runs the card line, the builds and this phase alone.
 7. full_path: ``run_rounds`` at n=16,000, S=64 (lan_profile, churn,
    loss, joins, flight ring, hist banks, trace) once on the card and
    once on the CPU (a worker process started with the script, which runs
@@ -143,7 +164,8 @@ result lines are not printed.
    step's kernels at their exact count: ``fire_timers`` once a
    non-quiescent round, ``wipe_rows`` once a round (the probe tick's
    rearm), once a join round (the stale wipe) and once a non-quiescent
-   round (the GC), and each of the probe tick's kernels once a round, on
+   round (the GC), each of the probe tick's kernels once a round and
+   each of the finish step's slot kernels once a non-quiescent round, on
    every pool's rounds (gated here, in 8, on the main and nemesis main
    paths, nemesis_full_path, round_program's both routes, crossval, both
    multi-DC paths and the plane); on the graphed single-pool paths the
@@ -187,10 +209,10 @@ result lines are not printed.
     graph launches a round (1); rounds/s of both routes, captures, their
     seconds and the pool's bytes; for churn, device kernels and busy
     time a round and the idle share of both routes (torch.profiler), and
-    the ``tail_kernel``, ``draw_kernel`` (none), ``finish::`` and
-    ``probe::`` runs the profiler saw equal to the settled
-    ``fused.launches``, ``prng.launches``, ``finish``'s and
-    ``probe.launches``, and the
+    the ``tail_kernel``, ``draw_kernel`` (none), ``finish::``,
+    ``probe::`` and ``finish_slots::`` runs the profiler saw equal to the
+    settled ``fused.launches``, ``prng.launches``, ``finish``'s,
+    ``probe.launches`` and ``finish_slots.launches``, and the
     graphed churn round with the observers threaded profiled the same
     way (``counts_kernel`` runs equal to ``observe.launches``, its device
     ms a round); the observers' kernel launches of both routes gated.
@@ -302,7 +324,10 @@ version; and every (kernel, R, L, ndev, refutation) the fire pass and
 the wipe were launched at (``finish.launch_shapes``), on 4 fresh inputs
 against the plain versions; and every (B, S, N, L, ndev, variant) the
 probe tick's kernels were launched at (``probe.launch_shapes``), the
-whole tick on 4 fresh states against the plain versions.
+whole tick on 4 fresh states against the plain versions; and every (H,
+S, N, L, ndev, variant) the finish step's slot kernels were launched at
+(``finish_slots.launch_shapes``), the whole step on 4 fresh states
+against the plain versions.
 
 The device-resident state store (phase device_store, after gossipd;
 ``consul_tpu_torch/state/device_store.py``, kernels ``kv_apply`` and
@@ -358,6 +383,9 @@ launches on the churn main path, on 8 shards, on the plane, in crossval
 and on the 1M multi-DC path, their time at [64, 1M]; for the probe
 tick's three kernels, their launches on the churn main path, on 8
 shards, under partition_heal, on the plane, in crossval and on the 1M
+multi-DC path, their time on the 1M main path's data; for the finish
+step's three slot kernels, their launches on the churn main path, on 8
+shards, with the observers, on the plane, in crossval and on the 1M
 multi-DC path, their time on the 1M main path's data) and, last, the ok
 line.  Needs
 one CUDA card: without one it exits 2 before printing anything else.
@@ -473,10 +501,12 @@ def card() -> str:
 # random draws in threefry.cu, the round program's conditional nodes in
 # round_graph.cu, the event round in event_flood.cu, the round's
 # observers' counts (heard_counts) in observe.cu, the finish step's fire
-# pass and row wipes (fire_timers, wipe_rows) in finish.cu and the probe
-# tick (probe_lanes, probe_slots, probe_marks) in probe.cu.
+# pass and row wipes (fire_timers, wipe_rows) in finish.cu, the probe
+# tick (probe_lanes, probe_slots, probe_marks) in probe.cu and the finish
+# step's slot logic (finish_decide, finish_settle, finish_record) in
+# finish_slots.cu.
 SOURCES = ("dissem_tail", "kv_store", "threefry", "round_graph", "event_flood",
-           "observe", "finish", "probe")
+           "observe", "finish", "probe", "finish_slots")
 
 
 def build() -> None:
@@ -1938,6 +1968,7 @@ def _probe_held(cfg, t) -> dict:
     (tolerance 0); raises on a difference.  Returns the kernels' stats
     and what the tick did."""
     from consul_tpu_torch.gossip import finish, probe
+    from consul_tpu_torch.gossip.slot_ops import get_points
     got, want = _tick_copy(t), _tick_copy(t)
 
     def same(what):
@@ -1964,7 +1995,7 @@ def _probe_held(cfg, t) -> dict:
     init = probe._views(cfg, got.sp)[2] != 0
     pid = int(t.ra.blk) + torch.arange(cfg.B, device=init.device)
     s2 = got.slot_of_node[(pid + int(t.ra.probe[0])).remainder(cfg.N)]
-    cur = probe._points(got.heard, s2.clamp(0, cfg.S - 1).long(),
+    cur = get_points(got.heard, s2.clamp(0, cfg.S - 1).long(),
                         pid.clamp(max=cfg.N - 1))
     marked = init & (s2 >= 0)
     probe.probe_marks(cfg, got)
@@ -1995,6 +2026,7 @@ def _probe_work(cfg, t, stats: list) -> dict:
     kernel's ``stats``."""
     from consul_tpu_torch import prng
     from consul_tpu_torch.gossip import probe
+    from consul_tpu_torch.gossip.slot_ops import get_points
     N, S, B, K = cfg.N, cfg.S, cfg.B, cfg.K
     dev = t.mf.device
     ra = t.ra
@@ -2060,7 +2092,7 @@ def _probe_work(cfg, t, stats: list) -> dict:
         init = init & (streak_new > lhm)
     s_t = t.slot_of_node[tgt]
     reads_byte = init & (s_t >= 0)
-    cur = probe._points(t.heard, s_t.clamp(0, S - 1).long(),
+    cur = get_points(t.heard, s_t.clamp(0, S - 1).long(),
                         pid.clamp(max=N - 1))
     final = init & ~(reads_byte & ((cur >> 6) == 2))
     if int(missed.sum()) != stats[1] or int(final.sum()) != stats[3]:
@@ -2222,10 +2254,489 @@ def probe_shapes_vs_plain(shapes: set) -> list:
     return rows
 
 
+# -- the finish step's slot logic -----------------------------------------------
+
+# name -> (n, slots, hot rows or None (every slot), shards, hist banks, LHM
+# threaded, refutation, kind of state): the 1M main path's (S = 64, every
+# slot), its hot tier (8 of 64), 8 shards, the multi-DC LAN pool (250,000,
+# hot tier 8) and WAN pool (12 nodes, 32 slots), the hist banks and
+# Lifeguard's LHM on and off; then the states in which every row fires,
+# every row expires, or the detections share buckets with the counters
+# and banks near 2**31.
+FINISH_SLOTS_CASES = {
+    "1m": (1_000_000, 64, None, 1, False, False, True, "mixed"),
+    "1m_hist_lhm": (1_000_000, 64, None, 1, True, True, True, "mixed"),
+    "1m_hot8": (1_000_000, 64, 8, 1, True, False, True, "mixed"),
+    "1m_8_shards": (1_000_000, 64, None, 8, True, True, True, "mixed"),
+    "lan_250k_hot8": (250_000, 64, 8, 1, True, False, True, "mixed"),
+    "wan_12": (12, 32, None, 1, False, False, True, "mixed"),
+    "16001_all_fire": (16_001, 64, None, 1, True, False, False, "all_fire"),
+    "16000_all_expire": (16_000, 64, None, 8, True, True, True,
+                         "all_expire"),
+    "16001_collide_wrap": (16_001, 64, None, 1, True, True, True,
+                           "collide_wrap"),
+}
+FINISH_SLOTS_LHM_MAX = 3
+
+
+def _finish_slots_params(spec):
+    """(params, the step's configuration, the round) of a case: the WAN
+    pool's profile at 12 nodes, else the LAN profile; the round past every
+    timer and the TTL."""
+    from consul_tpu_torch.gossip import finish_slots
+    from consul_tpu_torch.gossip.nemesis import NemesisParams
+    from consul_tpu_torch.gossip.params import lan_profile, wan_profile
+    n, S, hot, _, _, lhm, refute, _ = spec
+    make = wan_profile if n == 12 else lan_profile
+    p = make(n, slots=S, hot_slots=hot or 0, refute=refute)
+    nem = (NemesisParams(scenario="probe", start=0, stop=NEVER,
+                         lhm_max=FINISH_SLOTS_LHM_MAX) if lhm else None)
+    rnd = max(1000, p.slot_ttl_rounds + 200)
+    return p, finish_slots.config(p, nem), rnd
+
+
+def _finish_slots_inputs(spec, seed: int):
+    """A round's finish-step inputs on the card, as ``finish_slots.Step``,
+    with its configuration and ``rx_ok``: the live slots' subjects
+    distinct, every phase, half the starts and dead rounds on the edges of
+    the timers, the TTL and the GC window; the first live rows forced to
+    refute, to fire on a failed subject (a detection) and on a live one
+    (a false dead), and to expire DEAD and REFUTED; every byte value in
+    the matrix, 30% of it SUSPECT; hot cases list their live slots and
+    then free ones (padding rows)."""
+    from consul_tpu_torch.gossip import finish_slots
+    from consul_tpu_torch.gossip.kernel import HistBank
+    n, S, hot, ndev, has_hist, lhm, _, kind = spec
+    p, cfg, rnd = _finish_slots_params(spec)
+    dev = "cuda"
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gc, top = cfg.gc_rounds, cfg.tbl[0]
+    live = max(1, min(S if hot is None or kind == "all_expire"
+                      else hot - 3, n))
+    subjects = rng.permutation(n)[:live].astype(np.int32)
+    slots = np.sort(rng.permutation(S)[:live])
+    slot_node = np.full(S, -1, np.int32)
+    slot_node[slots] = subjects
+    phase = np.zeros(S, np.int32)
+    phase[slots] = rng.choice([1, 1, 2, 3, 4], live)
+    edges = [p.slot_ttl_rounds, p.slot_ttl_rounds + 1] + [
+        e for v in p.timeout_table() for e in (int(v), int(v) - 1)]
+    start = np.zeros(S, np.int32)
+    start[slots] = rnd - np.where(rng.random(live) < 0.5,
+                                  rng.choice(edges, live),
+                                  rng.integers(0, top + 120, live))
+    dead = np.full(S, -1, np.int32)
+    late = slots[(phase[slots] != 1) | (rng.random(live) < 0.2)]
+    dead[late] = rnd - np.where(rng.random(late.size) < 0.5,
+                                rng.choice([gc, gc + 1], late.size),
+                                rng.integers(0, 3 * gc, late.size))
+    nsusp = rng.integers(0, 5, S).astype(np.int32)
+    u = torch.rand(n, device=dev, generator=g)
+    fail = torch.where(u < 0.6, NEVER, torch.where(
+        u < 0.8, rnd - 40, torch.where(u < 0.9, rnd, rnd + 3))).to(
+        torch.int32)
+    member = torch.rand(n, device=dev, generator=g) < 0.92
+    heard = torch.randint(0, 256, (S, n), device=dev, dtype=torch.uint8,
+                          generator=g)
+    susp = (torch.randint(0, 64, (S, n), device=dev, dtype=torch.uint8,
+                          generator=g) | 0x40)
+    heard = torch.where(torch.rand((S, n), device=dev, generator=g) < 0.3,
+                        susp, heard)
+
+    def own(s, msg):
+        x = int(slot_node[s])
+        heard[s, x] = (msg << 6) | (int(heard[s, x]) & 0x3F)
+
+    subj = torch.from_numpy(subjects).to(dev).long()
+    if kind == "mixed" and live >= 5:
+        a, b, c, d, e = (int(x) for x in slots[:5])
+        for s in (a, b, c):
+            phase[s], start[s], dead[s] = 1, rnd - top - 5, -1
+        na, nb, nc = (int(slot_node[s]) for s in (a, b, c))
+        fail[na], member[na] = NEVER, True
+        own(a, 2)
+        fail[nb] = rnd - 40
+        fail[nc], member[nc] = NEVER, True
+        own(c, 0)
+        phase[d], dead[d] = 2, rnd - gc - 3
+        phase[e], dead[e] = 3, rnd - gc - 1
+    elif kind == "all_fire":
+        phase[slots], start[slots], dead[slots] = 1, rnd - top - 1, -1
+    elif kind == "all_expire":
+        phase[slots] = rng.choice([2, 3, 4], live)
+        dead[slots] = rnd - gc - 1 - rng.integers(0, 50, live)
+        fail[subj] = rnd - 40
+    elif kind == "collide_wrap":
+        phase[slots], start[slots], dead[slots] = 1, rnd - top - 2, -1
+        far = torch.from_numpy(rng.random(live) < 0.5).to(dev)
+        fail[subj] = torch.where(far, rnd - 400, rnd - 7).to(torch.int32)
+        fail[subj[: live // 4]] = NEVER
+        own(int(slots[0]), 1)
+        member[subj[0]] = True
+        nsusp[:] = 1
+    inc = torch.randint(0, 9, (n,), device=dev, dtype=torch.int32,
+                        generator=g)
+    inc[subj[0]] = NEVER
+    edge = kind == "collide_wrap"
+
+    def i32(x):
+        return torch.from_numpy(np.asarray(x, np.int32)).to(dev)
+
+    son = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    son[subj] = i32(slots)
+    hist = None
+    if has_hist:
+        hist = HistBank(*(
+            (torch.full((b,), 2**31 - 1, dtype=torch.int32, device=dev)
+             - torch.randint(0, 3, (b,), device=dev, dtype=torch.int32,
+                             generator=g)) if edge else
+            torch.randint(0, 5, (b,), device=dev, dtype=torch.int32,
+                          generator=g) for b in (256, 256, 256, 32)))
+    lhm_t = None
+    if lhm:
+        lhm_t = torch.randint(0, FINISH_SLOTS_LHM_MAX + 1, (n,), device=dev,
+                              dtype=torch.int32, generator=g)
+        lhm_t[subj[0]] = FINISH_SLOTS_LHM_MAX
+    idx = np.arange(S, dtype=np.int32)
+    if hot is not None:
+        idx = np.argsort(-(slot_node >= 0).astype(np.int32),
+                         kind="stable")[:hot].astype(np.int32)
+    idx_t = i32(idx)
+    sub = heard if hot is None else heard[idx_t.long()]
+    if ndev > 1:
+        L = n // ndev
+        sub = tuple(sub[:, i * L:(i + 1) * L].clone() for i in range(ndev))
+    stats = tuple(torch.tensor(v, dtype=torch.int32, device=dev) for v in (
+        (2**31 - 2, 2**31 - 50, 2**31 - 1, 2**31 - 1) if edge
+        else (17, 400, 2, 9)))
+    alive = fail > rnd
+    t = finish_slots.Step(
+        sub, torch.tensor(rnd, dtype=torch.int32, device=dev), idx_t,
+        (i32(slot_node), i32(phase), i32(start), i32(dead)),
+        i32(np.clip(nsusp - 1, 0, p.max_confirmations)), alive, member,
+        fail, son, inc, stats, lhm_t, hist)
+    return cfg, t, alive & member
+
+
+def _finish_slots_main_inputs(ndev: int, hist: bool):
+    """The finish step's inputs as the 1M churn main path gives them
+    (``lan_profile(1_000_000, slots=64, hot_slots=0)``): every node a live
+    member but 1,000 per million failed; 8 live slots on failed nodes, 6
+    SUSPECT whose timers run on, one SUSPECT whose timer has run out and
+    one DEAD past its GC window; the matrix zero but those rows (random
+    bytes)."""
+    from consul_tpu_torch.gossip import finish_slots
+    from consul_tpu_torch.gossip.kernel import init_hist
+    spec = (1_000_000, 64, None, ndev, hist, False, True, "main")
+    n, S = spec[0], spec[1]
+    _, cfg, rnd = _finish_slots_params(spec)
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(5)
+    fail = torch.full((n,), NEVER, dtype=torch.int32, device=dev)
+    failed = torch.arange(0, n, 1000, device=dev)
+    fail[failed] = 10
+    live = failed[:8]
+    regs = [torch.full((S,), v, dtype=torch.int32, device=dev)
+            for v in (-1, 0, 0, -1)]
+    regs[0][:8] = live.to(torch.int32)
+    regs[1][:8] = 1
+    regs[2][:8] = rnd - 10
+    regs[2][6] = rnd - cfg.tbl[0]
+    regs[1][7], regs[3][7] = 2, rnd - cfg.gc_rounds - 1
+    son = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    son[live] = torch.arange(8, dtype=torch.int32, device=dev)
+    heard = torch.zeros((S, n), dtype=torch.uint8, device=dev)
+    heard[:8] = torch.randint(0, 256, (8, n), device=dev, dtype=torch.uint8,
+                              generator=g)
+    if ndev > 1:
+        L = n // ndev
+        heard = tuple(heard[:, i * L:(i + 1) * L].clone()
+                      for i in range(ndev))
+    member = torch.ones(n, dtype=torch.bool, device=dev)
+    t = finish_slots.Step(
+        heard, torch.tensor(rnd, dtype=torch.int32, device=dev),
+        torch.arange(S, dtype=torch.int32, device=dev), tuple(regs),
+        torch.zeros(S, dtype=torch.int32, device=dev), fail > rnd, member,
+        fail, son, torch.zeros(n, dtype=torch.int32, device=dev),
+        tuple(torch.zeros((), dtype=torch.int32, device=dev)
+              for _ in range(4)), None, init_hist(device=dev) if hist
+        else None)
+    return cfg, t, (fail > rnd) & member
+
+
+def _fs_copy(t):
+    """The step's tensors copied (the read-only ones shared)."""
+    heard = (tuple(h.clone() for h in t.heard)
+             if isinstance(t.heard, tuple) else t.heard.clone())
+    return t._replace(
+        heard=heard, slots=tuple(x.clone() for x in t.slots),
+        member=t.member.clone(), slot_of_node=t.slot_of_node.clone(),
+        incarnation=t.incarnation.clone(),
+        stats=tuple(x.clone() for x in t.stats),
+        lhm=None if t.lhm is None else t.lhm.clone(),
+        hist=None if t.hist is None else type(t.hist)(
+            *(x.clone() for x in t.hist)))
+
+
+def _fs_leaves(t) -> list:
+    heard = t.heard if isinstance(t.heard, tuple) else (t.heard,)
+    return [*heard, *t.slots, t.member, t.slot_of_node, t.incarnation,
+            *t.stats, *([] if t.lhm is None else [t.lhm]),
+            *(t.hist or ())]
+
+
+def _fs_chain(cfg, t, rx, scratch, plain: bool):
+    """The finish step as the round runs it on ``t``: the three kernels
+    (or, ``plain``, their plain versions) with the fire pass, the spread's
+    count (with the banks) and the GC wipe between them."""
+    from consul_tpu_torch.gossip import finish, finish_slots as fs, observe
+    if plain:
+        dec = fs.finish_decide_ref(cfg, t)
+        fired = finish.fire_timers_ref(t.heard, rx, dec.ok_mask, dec.refute)
+        st = fs.finish_settle_ref(cfg, t, fired)
+    else:
+        dec = fs.finish_decide(cfg, t)
+        fired = finish.fire_timers(t.heard, rx, dec.ok_mask, dec.refute,
+                                   scratch)
+        st = fs.finish_settle(cfg, t, fired)
+    n_hold = None
+    if t.hist is not None:
+        n_hold = (observe.heard_counts_ref(t.heard, t.member, cfg.budget,
+                                           st.verdict, st.spread)
+                  if plain else observe.heard_counts(
+                      t.heard, t.member, cfg.budget, st.verdict, st.spread,
+                      scratch))[observe.HOLD]
+    if plain:
+        fs.finish_record_ref(cfg, t, dec, st, n_hold)
+        finish.wipe_rows_ref(t.heard, st.expired)
+    else:
+        fs.finish_record(cfg, t, dec, st, n_hold)
+        finish.wipe_rows(t.heard, st.expired)
+    return dec, fired, st, n_hold
+
+
+def _finish_slots_held(cfg, t, rx) -> dict:
+    """Each of the step's kernels on a copy of ``t`` against its plain
+    version on another, every field and output compared after each launch
+    (tolerance 0; the fire pass and the spread's count between them, each
+    kernel against its plain version too); raises on a difference.
+    Returns what the step did and the bytes each kernel needs
+    (``_finish_slots_bound``)."""
+    from consul_tpu_torch.gossip import finish, finish_slots as fs, observe
+    got, want = _fs_copy(t), _fs_copy(t)
+    scratch = observe.counts_scratch(cfg.S, "cuda")
+
+    def same(what, extra=(), extra_w=()):
+        for i, (x, y) in enumerate(zip(_fs_leaves(got) + list(extra),
+                                       _fs_leaves(want) + list(extra_w))):
+            if (x is None) != (y is None) or (
+                    x is not None and not torch.equal(x, y)):
+                raise AssertionError(f"finish_slots {what} != plain "
+                                     f"(field {i})")
+
+    dec = fs.finish_decide(cfg, got)
+    dec_w = fs.finish_decide_ref(cfg, want)
+    same("decide", [dec.ok_mask, *(dec.refute or ())],
+         [dec_w.ok_mask, *(dec_w.refute or ())])
+    fired = finish.fire_timers(got.heard, rx, dec.ok_mask, dec.refute,
+                               scratch)
+    fired_w = finish.fire_timers_ref(want.heard, rx, dec_w.ok_mask,
+                                     dec_w.refute)
+    same("fire", [fired], [fired_w])
+    st = fs.finish_settle(cfg, got, fired)
+    st_w = fs.finish_settle_ref(cfg, want, fired_w)
+    same("settle", list(st), list(st_w))
+    n_hold = n_hold_w = None
+    if got.hist is not None:
+        n_hold = observe.heard_counts(got.heard, got.member, cfg.budget,
+                                      st.verdict, st.spread,
+                                      scratch)[observe.HOLD]
+        n_hold_w = observe.heard_counts_ref(want.heard, want.member,
+                                            cfg.budget, st_w.verdict,
+                                            st_w.spread)[observe.HOLD]
+        same("count", [n_hold], [n_hold_w])
+    fs.finish_record(cfg, got, dec, st, n_hold)
+    fs.finish_record_ref(cfg, want, dec_w, st_w, n_hold_w)
+    same("record")
+    return _finish_slots_bound(cfg, t, dec, fired, st, n_hold)
+
+
+def _finish_slots_bound(cfg, t, dec, fired, st, n_hold) -> dict:
+    """What the step did on ``t`` (its state before) and the least bytes
+    each kernel must move for it, 4 an int32 element, 1 a bool or byte,
+    each read or written once: decide reads the round, a row's slot id,
+    subject and phase, a refutable row's own byte and its subject's alive
+    and member flags, a SUSPECT row's start and confirmation cap, and
+    writes the timer mask (and with the refutation the column and byte);
+    a refuting row reads and writes the incarnation (and LHM) and writes
+    its phase and dead round, and n_refuted is read and written.  Settle
+    reads the round, a row's slot id, fired flag, subject, phase and dead
+    round, a live row's start, a new verdict's fail round, writes the
+    expired flag and marks (and the spread's mask and verdict), a fired
+    row's phase and dead round and the counters that change.  Record reads
+    the round, a row's slot id, marks and expired flag, an expired or
+    dropped row's subject, writes the member flag and an expired row's
+    slot_of_node entry and three registers; with the banks, a row's
+    refutation byte and spread flag, a spread row's holders, a dwell row's
+    start, a detection's fail round, and each touched bucket read and
+    written."""
+    il = t.idx.long()
+    H = il.numel()
+    node0, phase0 = t.slots[0][il], t.slots[1][il]
+    refuting = (torch.zeros(H, dtype=torch.bool, device=il.device)
+                if dec.refute is None else dec.refute[1] != 0)
+
+    def n(x):
+        return int(x.sum())
+
+    refutable = ((phase0 == 1) | (phase0 == 2)) & (node0 >= 0)
+    suspect_after = (phase0 == 1) & ~refuting
+    lhm, hist = t.lhm is not None, t.hist is not None
+    decide = (4 + 12 * H + H + ((5 * H + 3 * n(refutable)) if cfg.refute
+                                else 0)
+              + n(refuting) * (16 + (8 if lhm else 0))
+              + 8 * n(suspect_after) + (8 if n(refuting) else 0))
+    det = (st.marks & 1) != 0
+    new_v = (st.marks & 2) != 0
+    dropped = (st.marks & 4) != 0
+    settle = (4 + 17 * H + 4 * n(phase0 > 0) + 4 * n(new_v) + 8 * n(fired)
+              + 2 * H + (5 * H if hist else 0) + (16 if n(det) else 0)
+              + (8 if n(new_v & ~det) else 0))
+    record = (4 + 6 * H + 4 * n(st.expired | dropped) + n(dropped)
+              + 16 * n(st.expired))
+    touched = 0
+    if hist:
+        rnd = int(t.rnd)
+        node_c = node0.clamp(0, cfg.N - 1).long()
+        dwell = (rnd - t.slots[2][il]).clamp(0, 255)
+        det_b = (rnd - t.fail_round[node_c]).clamp(0, 255)
+        blen = ((n_hold[:, None] >> torch.arange(31, device=il.device))
+                > 0).sum(dim=1).clamp(max=31)
+        touched = sum(x.unique().numel() for x in (
+            det_b[det], dwell[new_v | refuting], dwell[refuting],
+            blen[st.spread]))
+        record += (2 * H + 4 * n(st.spread) + 4 * n(new_v | refuting)
+                   + 4 * n(det) + 8 * touched)
+    out = {"rows": H, "refuted": n(refuting), "fired": n(fired),
+           "detected": n(det), "false_dead": n(new_v & ~det),
+           "expired": n(st.expired), "dropped": n(dropped),
+           "spread": n(st.spread) if hist else 0, "buckets": touched,
+           "decide_bytes": decide, "settle_bytes": settle,
+           "record_bytes": record}
+    for k in FINISH_SLOTS_KERNELS:
+        out[f"{k}_bound_ms"] = out[f"{k}_bytes"] / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def _finish_slots_timed(cfg, t, rx) -> dict:
+    """The step's times on ``t`` (CUDA-graph replays of 20 launches, the
+    state carried from launch to launch): each kernel alone, and the
+    whole step as the round runs it (with the fire, the count and the
+    wipe); the plain versions' (eager); beside ``_finish_slots_bound``."""
+    from consul_tpu_torch.gossip import finish_slots as fs, observe
+    did = _finish_slots_held(cfg, t, rx)
+    scratch = observe.counts_scratch(cfg.S, "cuda")
+    tk = _fs_copy(t)
+    dec, fired, st, n_hold = _fs_chain(cfg, _fs_copy(t), rx, scratch, False)
+    out = {"did": {k: v for k, v in did.items() if "bound" not in k
+                   and "bytes" not in k}}
+    for k, fn in (("decide", lambda: fs.finish_decide(cfg, tk)),
+                  ("settle", lambda: fs.finish_settle(cfg, tk, fired)),
+                  ("record", lambda: fs.finish_record(cfg, tk, dec, st,
+                                                      n_hold))):
+        ms = graph_ms(fn)
+        out[f"{k}_ms"] = ms
+        out[f"{k}_bytes"] = did[f"{k}_bytes"]
+        out[f"{k}_bound_ms"] = did[f"{k}_bound_ms"]
+        out[f"{k}_share_of_bound"] = did[f"{k}_bound_ms"] / ms
+    tp = _fs_copy(t)
+    for k, fn in (("decide", lambda: fs.finish_decide_ref(cfg, tp)),
+                  ("settle", lambda: fs.finish_settle_ref(cfg, tp, fired)),
+                  ("record", lambda: fs.finish_record_ref(cfg, tp, dec, st,
+                                                          n_hold))):
+        out[f"{k}_plain_ms"] = cuda_ms(fn, iters=5, warm=1)
+    tc = _fs_copy(t)
+    out["step_ms"] = graph_ms(lambda: _fs_chain(cfg, tc, rx, scratch,
+                                                False))
+    tq = _fs_copy(t)
+    out["step_plain_ms"] = cuda_ms(lambda: _fs_chain(cfg, tq, rx, scratch,
+                                                     True), iters=5, warm=1)
+    return out
+
+
+def finish_slots_phase(card_line: str, seeds: int = 32) -> dict:
+    """The finish step's slot kernels (``csrc/finish_slots.cu``:
+    ``finish_decide``, ``finish_settle``, ``finish_record``, with the fire
+    pass, the spread's count and the GC wipe between them as the round
+    runs them) against their plain versions on the card, tolerance 0 in
+    every field and output after every launch, over ``seeds`` fresh states
+    of each ``FINISH_SLOTS_CASES`` entry; the phase must see refutations,
+    fires, detections, false dead verdicts, expiries, dropped members and
+    spread rows.  Times (``_finish_slots_timed``) on the 1M main path's
+    data (``_finish_slots_main_inputs``: 1 and 8 shards, and with the
+    hist banks) and on the first state of each case, beside the bytes
+    bound (``_finish_slots_bound``)."""
+    t0 = time.perf_counter()
+    rows, held = {}, 0
+    seen = {k: 0 for k in ("refuted", "fired", "detected", "false_dead",
+                           "expired", "dropped", "spread")}
+    for case, spec in FINISH_SLOTS_CASES.items():
+        for seed in range(seeds):
+            cfg, t, rx = _finish_slots_inputs(spec, 7000 + 89 * seed
+                                              + len(case))
+            did = _finish_slots_held(cfg, t, rx)
+            held += 1
+            for k in seen:
+                seen[k] += did[k] > 0
+        cfg, t, rx = _finish_slots_inputs(spec, 7)
+        n, S, hot, ndev, hist, lhm, refute, kind = spec
+        rows[case] = {"N": n, "S": S, "H": hot or S, "ndev": ndev,
+                      "hist": hist, "lhm": lhm, "refute": refute,
+                      "kind": kind, **_finish_slots_timed(cfg, t, rx)}
+        del t
+    main = {}
+    for key, ndev, hist in (("1m/1", 1, False), ("1m/8", 8, False),
+                            ("1m_hist/1", 1, True)):
+        cfg, t, rx = _finish_slots_main_inputs(ndev, hist)
+        main[key] = {"N": cfg.N, "S": cfg.S, "ndev": ndev, "hist": hist,
+                     **_finish_slots_timed(cfg, t, rx)}
+        del t
+    torch.cuda.empty_cache()
+    res = {"phase": "finish_slots", "card": card_line, "tolerance": 0,
+           "max_abs_err": 0, "steps_held": held, "seeds": seeds,
+           "states_with": seen, "cases": rows, "main": main,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if not all(seen.values()):
+        raise AssertionError(f"finish_slots: the states never did some of "
+                             f"{seen}")
+    return res
+
+
+def finish_slots_shapes_vs_plain(shapes: set) -> list:
+    """Every (H, S, N, L, ndev, variant) the paths launched the finish
+    step's slot kernels at (``finish_slots.launch_shapes``), the whole
+    step on 4 fresh states against the plain versions."""
+    rows = []
+    steps = sorted({s[1:] for s in shapes}, key=repr)
+    for i, (H, S, N, L, ndev, (refute, lhm, hist)) in enumerate(steps):
+        spec = (N, S, None if H == S else H, ndev, hist, lhm, refute,
+                "mixed")
+        for seed in range(4):
+            cfg, t, rx = _finish_slots_inputs(spec, 13000 + 10 * i + seed)
+            _finish_slots_held(cfg, t, rx)
+        rows.append({"kernel": "finish_slots", "shape": [H, N], "S": S,
+                     "ndev": ndev, "L": L,
+                     "variant": [refute, lhm, hist], "launches_held": 4})
+    return rows
+
+
 def path_shapes_vs_plain(shapes: set, store_shapes: set,
                          draw_shapes: set, flood_shapes: set,
                          observe_shapes: set, finish_shapes: set,
-                         probe_shapes: set) -> dict:
+                         probe_shapes: set,
+                         finish_slots_shapes: set) -> dict:
     """Every (kernel, S, L, ndev, F, budget) that the paths launched at
     (``fused.launch_shapes``) held against the plain version on fresh
     adversarial bytes, under the offset sets of ``_offset_sets`` with F
@@ -2241,7 +2752,9 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
     and the wipe were launched at (``finish_shapes``), as
     ``finish_shapes_vs_plain`` holds them, and every shape the probe
     tick's kernels were launched at (``probe_shapes``), as
-    ``probe_shapes_vs_plain`` holds them."""
+    ``probe_shapes_vs_plain`` holds them, and every shape the finish
+    step's slot kernels were launched at (``finish_slots_shapes``), as
+    ``finish_slots_shapes_vs_plain`` holds them."""
     from types import SimpleNamespace
 
     from consul_tpu_torch.gossip import fused, kernel
@@ -2284,6 +2797,7 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
     rows += observe_shapes_vs_plain(observe_shapes)
     rows += finish_shapes_vs_plain(finish_shapes)
     rows += probe_shapes_vs_plain(probe_shapes)
+    rows += finish_slots_shapes_vs_plain(finish_slots_shapes)
     res = {"phase": "path_shapes", "shapes": rows, "tolerance": 0,
            "max_abs_err": err, "seconds": time.perf_counter() - t0}
     emit(res)
@@ -2291,7 +2805,7 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
     if kernels != {"fused_dissem", "fused_merge", "kv_apply",
                    "watch_match", "threefry", "event_flood",
                    "heard_counts", "fire_timers", "wipe_rows",
-                   "probe"}:
+                   "probe", "finish_slots"}:
         raise AssertionError(f"the paths launched only {sorted(kernels)}")
     return res
 
@@ -2306,8 +2820,8 @@ def _settle() -> None:
 def _reset_counts() -> None:
     """Every kernel launch count and round counter to 0."""
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import (events, finish, fused, kernel,
-                                         observe, probe, program)
+    from consul_tpu_torch.gossip import (events, finish, finish_slots, fused,
+                                         kernel, observe, probe, program)
     _settle()
     program.launches = 0
     program.copy_bytes = 0
@@ -2319,6 +2833,9 @@ def _reset_counts() -> None:
     probe.launches = 0
     for k in PROBE_KERNELS:
         setattr(probe, f"{k}_launches", 0)
+    finish_slots.launches = 0
+    for k in FINISH_SLOTS_KERNELS:
+        setattr(finish_slots, f"{k}_launches", 0)
     kernel.join_rounds = 0
     prng.launches = 0
     prng.calls = 0
@@ -2373,6 +2890,7 @@ def _observe_gate(what: str, rounds: int) -> dict:
 
 
 PROBE_KERNELS = ("lanes", "slots", "marks")
+FINISH_SLOTS_KERNELS = ("decide", "settle", "record")
 
 
 def _round_counts() -> dict:
@@ -2381,8 +2899,9 @@ def _round_counts() -> dict:
     them: ``fire_timers`` once a non-quiescent round; ``wipe_rows`` once a
     round (the probe tick's rearm), once a join round (the join tick's
     stale episodes) and once a non-quiescent round (the slot GC); each of
-    ``probe.cu``'s three kernels once a round (of every pool)."""
-    from consul_tpu_torch.gossip import finish, kernel, probe
+    ``probe.cu``'s three kernels once a round (of every pool); each of
+    ``finish_slots.cu``'s three kernels once a non-quiescent round."""
+    from consul_tpu_torch.gossip import finish, finish_slots, kernel, probe
     _settle()
     t = kernel.tail_rounds
     busy = t["hot"] + t["full"]
@@ -2394,7 +2913,11 @@ def _round_counts() -> dict:
             "join_rounds": kernel.join_rounds,
             **{f"probe_{k}_launches": getattr(probe, f"{k}_launches")
                for k in PROBE_KERNELS},
-            "probe_launches_expected": busy + t["quiescent"]}
+            "probe_launches_expected": busy + t["quiescent"],
+            **{f"finish_{k}_launches": getattr(finish_slots,
+                                               f"{k}_launches")
+               for k in FINISH_SLOTS_KERNELS},
+            "finish_slots_launches_expected": busy}
 
 
 def _round_bad(c: dict) -> bool:
@@ -2405,14 +2928,17 @@ def _round_bad(c: dict) -> bool:
             or c["wipe_launches"] == 0
             or c["probe_launches_expected"] == 0
             or any(c[f"probe_{k}_launches"] != c["probe_launches_expected"]
-                   for k in PROBE_KERNELS))
+                   for k in PROBE_KERNELS)
+            or any(c[f"finish_{k}_launches"]
+                   != c["finish_slots_launches_expected"]
+                   for k in FINISH_SLOTS_KERNELS))
 
 
 def _round_gate(what: str) -> dict:
-    """Raises unless the fire pass's, the wipe's and the probe kernels'
-    launches are exactly what the rounds run since the last
-    ``_reset_counts`` make them (``_round_counts``), and some were
-    made."""
+    """Raises unless the fire pass's, the wipe's, the probe kernels' and
+    the finish step's slot kernels' launches are exactly what the rounds
+    run since the last ``_reset_counts`` make them (``_round_counts``),
+    and some were made."""
     c = _round_counts()
     if _round_bad(c):
         raise AssertionError(f"{what}: finish and probe launches {c}")
@@ -2987,7 +3513,8 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
     from torch.profiler import ProfilerActivity, profile
 
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import finish, fused, kernel, observe, probe
+    from consul_tpu_torch.gossip import (finish, finish_slots, fused, kernel,
+                                         observe, probe)
     from consul_tpu_torch.profile_round import device_kernels, self_device_us
 
     key = prng.key(42)
@@ -3008,6 +3535,7 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
     tails0, draws0, obs0 = fused.launches, prng.launches, observe.launches
     fire0, wipe0 = finish.fire_launches, finish.wipe_launches
     probe0 = probe.launches
+    slots0 = finish_slots.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3037,6 +3565,11 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
             "wipe_launches_counted": finish.wipe_launches - wipe0,
             "probe_kernels_profiled": seen("probe::"),
             "probe_launches_counted": probe.launches - probe0,
+            "finish_slots_kernels_profiled": seen("finish_slots::"),
+            "finish_slots_launches_counted": finish_slots.launches - slots0,
+            "finish_slots_device_ms_per_round": sum(
+                self_device_us(e) for e in rows
+                if "finish_slots::" in e.key) / 1e3 / RP_PROFILED,
             "probe_device_ms_per_round": sum(
                 self_device_us(e) for e in rows
                 if "probe::" in e.key) / 1e3 / RP_PROFILED,
@@ -3155,11 +3688,12 @@ def round_program_phase(card_line: str) -> dict:
                 # The draws' kernel is not on this path (the probe tick
                 # draws inside its own): none seen, none counted.
                 checks = [(route, prof, k)
-                          for k in ("tail", "draw", "fire", "wipe", "probe")]
+                          for k in ("tail", "draw", "fire", "wipe", "probe",
+                                    "finish_slots")]
                 if route == "graphed":
                     checks += [("graphed_observers", obs, k)
                                for k in ("tail", "draw", "observe", "fire",
-                                         "wipe", "probe")]
+                                         "wipe", "probe", "finish_slots")]
                 for label, pr, k in checks:
                     seen = pr[f"{k}_kernels_profiled"]
                     counted = pr[f"{k}_launches_counted"]
@@ -3187,9 +3721,9 @@ def round_program_phase(card_line: str) -> dict:
                 bad.append(f"{name} {route}: {r['observe_launches']} "
                            f"heard_counts launches, expected "
                            f"{r['observe_launches_expected']}")
-            # The fire pass, the wipes and the probe kernels at their
-            # exact counts, the matrix's copies, and the caller's state
-            # left as it was.
+            # The fire pass, the wipes, the probe kernels and the finish
+            # step's slot kernels at their exact counts, the matrix's
+            # copies, and the caller's state left as it was.
             if _round_bad(r):
                 bad.append(f"{name} {route}: finish and probe launches "
                            f"{ {k: v for k, v in r.items() if 'launches' in k} }")
@@ -3771,6 +4305,21 @@ def _mdc_route(p, lan_fail_t, wan_fail_t, key, warm: int, block: int,
     return out, states
 
 
+def _mdc_round_bound(state, *truth) -> dict:
+    """The least time of a multi-DC round on the card, bound by bytes:
+    every pool's state (the LAN and WAN pools' belief matrices, slot
+    registers and per-node vectors, the event pools' states) read once and
+    written once, the ground truth (``truth``: the failure rounds) read
+    once, over the memory rate."""
+    from consul_tpu_torch.gossip.kernel import _leaves
+    state_bytes = sum(x.numel() * x.element_size() for x in _leaves(state))
+    truth_bytes = sum(x.numel() * x.element_size() for x in truth)
+    total = 2 * state_bytes + truth_bytes
+    return {"state_bytes": state_bytes, "round_bound_bytes": total,
+            "round_bound_ms": total / HBM_BYTES_PER_S * 1e3,
+            "round_bound_by": "bytes"}
+
+
 def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
                       block: int = 50, blocks: int = 3,
                       lan_devices: int = 0):
@@ -3824,7 +4373,8 @@ def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
            "n_detected": [int(st.n_detected) for st in state.lan],
            "n_false_dead": [int(st.n_false_dead) for st in state.lan],
            "event_n_seen_slot0": [int(ev.n_seen[0])
-                                  for ev in state.lan_events]}
+                                  for ev in state.lan_events],
+           **_mdc_round_bound(state, lan_fail_t, wan_fail_t)}
     emit(res)
     bad = []
     if diverged:
@@ -3847,11 +4397,17 @@ def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
                     or r["wipe_launches"] < (dcs + 1) * total:
                 bad.append(f"{route}: {r[f'{k}_launches']} {k} launches, "
                            f"expected {r[f'{k}_launches_expected']}")
-        # And each probe kernel once a round of every pool.
+        # And each probe kernel once a round of every pool, each of the
+        # finish step's slot kernels once a non-quiescent one.
         for k in PROBE_KERNELS:
             if r[f"probe_{k}_launches"] != (dcs + 1) * total:
                 bad.append(f"{route}: {r[f'probe_{k}_launches']} probe_{k} "
                            f"launches in {total} rounds of {dcs + 1} pools")
+        for k in FINISH_SLOTS_KERNELS:
+            if r[f"finish_{k}_launches"] != r["fire_launches_expected"]:
+                bad.append(f"{route}: {r[f'finish_{k}_launches']} "
+                           f"finish_{k} launches, expected "
+                           f"{r['fire_launches_expected']}")
     if graphed["host_syncs_per_call"] != 1:
         bad.append(f"{graphed['host_syncs_per_call']} host reads a graphed "
                    f"call")
@@ -4083,11 +4639,17 @@ def plane_phase(ndev: int, full: bool) -> dict:
             raise AssertionError(f"plane: {res[f'{k}_launches']} {k} "
                                  f"launches, expected "
                                  f"{res[f'{k}_launches_expected']}")
-    # And each probe kernel once a round.
+    # And each probe kernel once a round, each of the finish step's slot
+    # kernels once a non-quiescent one.
     for k in PROBE_KERNELS:
         if res[f"probe_{k}_launches"] != ran:
             raise AssertionError(f"plane: {res[f'probe_{k}_launches']} "
                                  f"probe_{k} launches in {ran} rounds")
+    for k in FINISH_SLOTS_KERNELS:
+        if res[f"finish_{k}_launches"] != busy:
+            raise AssertionError(f"plane: {res[f'finish_{k}_launches']} "
+                                 f"finish_{k} launches in {busy} "
+                                 f"non-quiescent rounds")
     if res["tick_errors"] or res["failed_others"] or launches <= 0:
         raise AssertionError(f"plane (shard_devices={ndev}): tick errors "
                              f"{res['tick_errors']}, failed others "
@@ -5475,6 +6037,46 @@ def _probe_rows(probed: dict, churn: dict, sharded: dict, nem1: dict,
     return rows
 
 
+def _finish_slots_rows(fslots: dict, churn: dict, sharded: dict,
+                       obs1: dict, plane1: dict, cross: dict, mdc1: dict,
+                       rp: dict) -> list:
+    """The kernels line's entries of the finish step's slot kernels
+    (``csrc/finish_slots.cu``), which replace the reference's XLA slot
+    logic of ``_finish_round`` (``consul_tpu/gossip/kernel.py:1461-1672``
+    but for the matrix passes): launches on the 1M churn main path (each
+    once a non-quiescent round), on 8 shards, with the observers threaded
+    (the hist banks' adds), on the plane, in crossval and on the 1M
+    multi-DC path (every pool); each kernel's time on the 1M main path's
+    data (``_finish_slots_main_inputs``) beside its bytes bound and its
+    plain version's time, and with the hist banks; the device ms a round
+    the profiler saw them take on the graphed churn round."""
+    main = fslots["main"]["1m/1"]
+    hist = fslots["main"]["1m_hist/1"]
+    prof = rp["cases"]["churn"]["graphed"]
+    rows = []
+    for k in FINISH_SLOTS_KERNELS:
+        key = f"finish_{k}_launches"
+        rows.append({
+            "name": f"finish_{k}", "route": "cuda",
+            "source": "consul_tpu_torch/csrc/finish_slots.cu",
+            "replaces": "consul_tpu/gossip/kernel.py:1461",
+            "launches": churn[key], "sharded_launches": sharded[key],
+            "observers_launches": obs1[key], "plane_launches": plane1[key],
+            "crossval_launches": cross[key], "multidc_launches": mdc1[key],
+            "max_abs_err": fslots["max_abs_err"],
+            "ms": main[f"{k}_ms"], "plain_ms": main[f"{k}_plain_ms"],
+            "bound_ms": main[f"{k}_bound_ms"], "bound_by": "bytes",
+            "share_of_bound": main[f"{k}_share_of_bound"],
+            "hist_ms": hist[f"{k}_ms"],
+            "hist_bound_ms": hist[f"{k}_bound_ms"],
+            "step_ms": main["step_ms"], "step_plain_ms": main["step_plain_ms"],
+            "finish_slots_device_ms_per_round":
+                prof["finish_slots_device_ms_per_round"],
+            # No one PyTorch call computes a step of the slot logic.
+            "library_ms": None})
+    return rows
+
+
 def _churn_gates(res: dict, launches_key: str) -> None:
     if res["n_detected"] <= 0 or res["n_false_dead"] != 0:
         raise AssertionError(
@@ -5537,8 +6139,25 @@ def probe_only() -> int:
     return 0
 
 
+def finish_slots_only() -> int:
+    """``--phase finish_slots``: the card line, the builds the finish step
+    needs (``finish_slots.cu``, the fire's and wipe's ``finish.cu``, the
+    count's ``observe.cu``) and the finish_slots phase."""
+    from consul_tpu_torch import _build
+    card_line = card()
+    names = ("finish_slots", "finish", "observe")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.build, names))
+    for name in names:
+        for ln in _build.build_logs.get(name, "").strip().splitlines():
+            print(f"  nvcc {name}: {ln}", flush=True)
+    finish_slots_phase(card_line)
+    return 0
+
+
 PHASES_ALONE = {"event_flood": flood_only, "observe": observe_only,
-                "finish": finish_only, "probe": probe_only}
+                "finish": finish_only, "probe": probe_only,
+                "finish_slots": finish_slots_only}
 
 
 def main() -> int:
@@ -5555,7 +6174,8 @@ def main() -> int:
         if len(sys.argv) != 3 or sys.argv[1] != "--phase" \
                 or sys.argv[2] not in PHASES_ALONE:
             print("usage: chip_smoke.py [--phase "
-                  "event_flood|observe|finish|probe]", file=sys.stderr)
+                  "event_flood|observe|finish|probe|finish_slots]",
+                  file=sys.stderr)
             return 2
         try:
             return PHASES_ALONE[sys.argv[2]]()
@@ -5608,12 +6228,14 @@ def main() -> int:
         counts = observe_phase(card_line)
         fin = finish_phase(card_line)
         probed = probe_phase(card_line)
+        fslots = finish_slots_phase(card_line)
         # From here on every launch is a path's: its shapes are held
         # against the plain version after the last path.
         from consul_tpu_torch import prng
-        from consul_tpu_torch.gossip import (events, finish, fused, observe,
-                                             probe)
+        from consul_tpu_torch.gossip import (events, finish, finish_slots,
+                                             fused, observe, probe)
         events.launch_shapes.clear()
+        finish_slots.launch_shapes.clear()
         probe.launch_shapes.clear()
         fused.launch_shapes.clear()
         observe.launch_shapes.clear()
@@ -5729,7 +6351,8 @@ def main() -> int:
                              set(events.launch_shapes),
                              set(observe.launch_shapes),
                              set(finish.launch_shapes),
-                             set(probe.launch_shapes))
+                             set(probe.launch_shapes),
+                             set(finish_slots.launch_shapes))
     except Exception:
         traceback.print_exc()
         return 1
@@ -5792,7 +6415,9 @@ def main() -> int:
         _observe_row(counts, obs1, obs8, rp, plane1, cross),
         *_finish_rows(fin, churn, sharded, plane1, cross, mdc1, rp),
         *_probe_rows(probed, churn, sharded, nem1, plane1, cross, mdc1,
-                     rp)]})
+                     rp),
+        *_finish_slots_rows(fslots, churn, sharded, obs1, plane1, cross,
+                            mdc1, rp)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,474 @@
+// The finish step's slot logic, for Hopper (sm_90a): refutation, the timer
+// mask, verdicts, detection statistics, the slot GC decision, the hist
+// banks' adds and the register writes, as three one-block kernels and their
+// C entry points.
+//
+// Replaces one stretch of the reference's jitted round that XLA fuses (no
+// Pallas source): consul_tpu/gossip/kernel.py:1461-1672, `_finish_round`,
+// everything in it but the belief-matrix passes (the refutation byte and
+// the timer fire, the GC wipe: csrc/finish.cu) and the spread's count
+// (csrc/observe.cu).  Before this the port ran it as ~113 torch launches a
+// round over [H] vectors; each kernel here is bit-identical to the plain
+// torch version beside its wrapper (consul_tpu_torch/gossip/
+// finish_slots.py: finish_decide_ref, finish_settle_ref,
+// finish_record_ref), the port's former expressions cut at these kernels'
+// boundaries.
+//
+// The rows.  The step works on H rows, row h the slot idx[h] (distinct slot
+// ids, H <= S <= 1024): the full tail passes every slot, the hot tier its
+// live ones padded with free ones.  Registers are read and written at
+// idx[h]; the belief rows (heard_sub: ndev column shards, u8 [H, L] each)
+// by h.  node_c = clamp(slot_node, 0, N - 1), as the reference scatters
+// and gathers at it: a flag that is false drops the scatter, so a padding
+// row (slot_node -1, phase FREE) changes nothing, and no row is skipped for
+// its node.
+//
+// The round's order, six launches (the second, fifth and sixth are not
+// here):
+//   1. decide_kernel, a thread a row: where the round refutes, the row's
+//      own byte heard_sub[h, node_c] (on the shard that owns the column,
+//      through the shard table) and the refutation test; a refuting row
+//      bumps incarnation[node_c] (an atomic: rows may share node_c),
+//      becomes REFUTED at dead round rnd, and with the Lifeguard registers
+//      bumps lhm[node_c], clamped at lhm_max; n_refuted grows by the
+//      block's count.  Out: the fire pass's inputs, a 4-bit timer mask a
+//      row (bit c: the timer of a SUSPECT slot has run out at confirmation
+//      count c, from the timeout table and conf_cap[idx[h]], after the
+//      refutation) and the refutation's column and byte (0: none).
+//   2. fire_timers (finish.cu): the refutation byte, the fire, fired [H].
+//   3. settle_kernel: where fired, the slot becomes DEAD (its dead round
+//      rnd where it had none: a new verdict); a new verdict counts as a
+//      detection (its subject failed by rnd; the rounds since added) or a
+//      false dead; the GC decision (the verdict spread for two budgets and
+//      8 rounds, or the slot's TTL ran out).  Out: the expired flags a
+//      row (the wipe's), the row's marks (detected, new verdict, a dead
+//      subject dropped) and with the hist banks the spread's want mask and
+//      verdict message (observe.cu's count).
+//   4. heard_counts (observe.cu), only with the hist banks: the members
+//      holding each expiring row's verdict, before the drop and the wipe.
+//   5. record_kernel: with the hist banks, the four adds (detect, dwell,
+//      refute and the spread's bit length of its holders), each value
+//      clipped into the top bucket, duplicates summed in shared memory and
+//      one global add a touched bucket; a dead subject's member flag
+//      dropped; an expired slot's slot_of_node entry, node, phase and dead
+//      round reset.
+//   6. wipe_rows (finish.cu): the expired rows zeroed.
+// The reference's order holds: the own byte is read after the tail and
+// push/pull and before the fire, the mask is built after the refutation,
+// and member and the matrix are read by the count before the drop and the
+// wipe.
+//
+// Wrap.  The four counters and the banks wrap mod 2**32 as the reference's
+// int32 sums do: every add is unsigned, every difference of rounds is taken
+// mod 2**32 as an int32 one.
+//
+// Bound.  A row reads five registers and a few [N] entries and writes a
+// few bytes: at S = 64 about 3 KB a launch, under a microsecond at
+// 3.35 TB/s; a launch costs more.  The design's point is three launches
+// where the port made ~113.
+//
+// Capture.  No launch reads the host or needs a memset: the round is read
+// from its row in device memory, the statics (the budget, the TTL, the
+// timeout table, lhm_max) are launch arguments that no round changes, and
+// every output is written whole for its H rows.  So the launches run
+// inside the round program's captured graphs as they are.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace finish_slots {
+
+constexpr int kMaxShards = 64;
+constexpr int kMaxRows = 1024;     // rows: a thread each in one block
+constexpr int kMaxBuckets = 256;   // the largest bank (LATENCY_BUCKETS)
+enum Phase { kFree = 0, kSuspect = 1, kDeadPhase = 2, kRefuted = 3,
+             kJoin = 4 };
+// The belief byte: msg:2 | conf:2 | age:4 (gossip/belief.py).
+constexpr uint32_t kMsgShift = 6;
+constexpr int32_t kMsgSuspect = 1;
+constexpr int32_t kMsgDead = 2;
+constexpr int32_t kMsgRefute = 3;
+constexpr uint8_t kRefuteByte = 0xC0;  // REFUTE, conf 0, age 0
+// A row's marks (settle_kernel's, for record_kernel).
+enum Mark { kDetected = 1, kNewVerdict = 2, kDropped = 4 };
+enum Bank { kDetect = 0, kDwell, kRefute, kSpread, kBanks };
+
+// The pointer table's entries (finish_slots.py's _PTRS order).
+enum Ptr {
+  kRnd = 0, kIdx, kSlotNode, kSlotPhase, kSlotStart, kSlotDead, kConfCap,
+  kAlive, kMember, kFail, kSlotOfNode, kIncarnation, kLhm, kNDetected,
+  kSumDetect, kNFalseDead, kNRefuted, kOkMask, kRefCol, kRefByte, kFired,
+  kExpired, kMarks, kSpreadWant, kVerdict, kNHold, kHistDetect, kHistDwell,
+  kHistRefute, kHistSpread, kNumPtrs
+};
+// The integer arguments (finish_slots.py's _INTS order).
+enum Int {
+  iN = 0, iH, iS, iRefute, iBudget, iTtl, iLhmMax, iTbl0, iTbl1, iTbl2,
+  iTbl3, iLatBuckets, iSpreadBuckets, kNumInts
+};
+
+// Everything a launch needs, by value (about 800 bytes of the 4 KB
+// parameter block) as a __grid_constant__.
+struct Args {
+  const uint8_t* heard[kMaxShards];  // ndev shards, u8 [H, L] each
+  const int32_t* rnd;          // the round's row: the round
+  const int32_t* idx;          // [H] distinct slot ids
+  int32_t* slot_node;          // [S] each
+  int32_t* slot_phase;
+  const int32_t* slot_start;
+  int32_t* slot_dead;
+  const int32_t* conf_cap;     // [S]
+  const uint8_t* alive;        // [N] bool
+  uint8_t* member;             // [N] bool
+  const int32_t* fail;         // [N] fail_round
+  int32_t* slot_of_node;       // [N]
+  int32_t* incarnation;        // [N]
+  int32_t* lhm;                // [N] or null (no Lifeguard registers)
+  int32_t* n_detected;         // [1] each
+  int32_t* sum_detect;
+  int32_t* n_false_dead;
+  int32_t* n_refuted;
+  uint8_t* ok_mask;            // [H] decide's outputs
+  int32_t* ref_col;            //   (null without the refutation)
+  uint8_t* ref_byte;
+  const uint8_t* fired;        // [H] fire_timers'
+  uint8_t* expired;            // [H] settle's outputs
+  uint8_t* marks;
+  uint8_t* spread_want;        //   (null without the hist banks)
+  int32_t* verdict;
+  const int32_t* n_hold;       // [H] heard_counts' hold row
+  int32_t* hist[kBanks];       // the banks, or all null
+  int N, H, S, L, ndev, threads, refute, budget, ttl, lhm_max;
+  int tbl[4];                  // the timeout table at conf 0..3
+  int buckets[kBanks];
+};
+
+__device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) -
+                              static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ void add32(int32_t* p, uint32_t v) {
+  *p = static_cast<int32_t>(static_cast<uint32_t>(*p) + v);
+}
+
+__device__ __forceinline__ int32_t clamp_node(int32_t node, int N) {
+  return min(max(node, 0), N - 1);
+}
+
+// The belief byte at (row, global column c), through the shard table.
+__device__ __forceinline__ uint32_t byte_at(const Args& a, int row,
+                                            int32_t c) {
+  const int i = c / a.L;
+  return a.heard[i][static_cast<size_t>(row) * a.L + (c - i * a.L)];
+}
+
+__global__ void __launch_bounds__(kMaxRows)
+decide_kernel(const __grid_constant__ Args a) {
+  const int h = static_cast<int>(threadIdx.x);
+  bool refute_now = false;
+  if (h < a.H) {
+    const int32_t rnd = __ldg(a.rnd);
+    const int s = a.idx[h];
+    const int32_t node = a.slot_node[s];
+    const int32_t node_c = clamp_node(node, a.N);
+    int32_t phase = a.slot_phase[s];
+    if (a.refute) {
+      // A live subject that hears of its own suspicion refutes it.
+      const int32_t own = static_cast<int32_t>(byte_at(a, h, node_c) >>
+                                               kMsgShift);
+      refute_now = (phase == kSuspect || phase == kDeadPhase) && node >= 0 &&
+                   a.alive[node_c] != 0 && a.member[node_c] != 0 &&
+                   (own == kMsgSuspect || own == kMsgDead);
+      if (refute_now) {
+        atomicAdd(a.incarnation + node_c, 1);
+        phase = kRefuted;
+        a.slot_phase[s] = kRefuted;
+        a.slot_dead[s] = rnd;
+        if (a.lhm != nullptr) {
+          // Lifeguard: the refuter's own LHM rises, clamped.
+          atomicAdd(a.lhm + node_c, 1);
+          atomicMin(a.lhm + node_c, a.lhm_max);
+        }
+      }
+      a.ref_col[h] = node_c;
+      a.ref_byte[h] = refute_now ? kRefuteByte : 0;
+    }
+    // The timer mask: bit c where a SUSPECT slot's timer has run out at
+    // confirmation count c (the table at min(c, conf_cap)).
+    uint32_t ok = 0;
+    if (phase == kSuspect) {
+      const int32_t elapsed = sub32(rnd, a.slot_start[s]);
+      const int32_t cc = max(a.conf_cap[s], 0);  // in [0, max_conf]
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (elapsed >= a.tbl[min(c, cc)]) ok |= 1u << c;
+      }
+    }
+    a.ok_mask[h] = static_cast<uint8_t>(ok);
+  }
+  const int n = __syncthreads_count(refute_now);
+  if (threadIdx.x == 0 && n != 0) add32(a.n_refuted, n);
+}
+
+__global__ void __launch_bounds__(kMaxRows)
+settle_kernel(const __grid_constant__ Args a) {
+  __shared__ uint32_t s_rounds;  // the detections' rounds, summed
+  const int h = static_cast<int>(threadIdx.x);
+  if (h == 0) s_rounds = 0u;
+  __syncthreads();
+  bool detected = false, false_dead = false;
+  if (h < a.H) {
+    const int32_t rnd = __ldg(a.rnd);
+    const int s = a.idx[h];
+    const int32_t node_c = clamp_node(a.slot_node[s], a.N);
+    int32_t phase = a.slot_phase[s];
+    int32_t dead = a.slot_dead[s];
+    const bool fired = a.fired[h] != 0;
+    // Fired on any shard: dead declared, a new verdict where none was.
+    const bool new_verdict = fired && dead < 0;
+    if (fired) {
+      phase = kDeadPhase;
+      if (new_verdict) dead = rnd;
+      a.slot_phase[s] = phase;
+      a.slot_dead[s] = dead;
+    }
+    // Detection statistics at declaration time.
+    const int32_t fail_c = __ldg(a.fail + node_c);
+    detected = new_verdict && fail_c <= rnd;
+    false_dead = new_verdict && !(fail_c <= rnd);
+    if (detected) {
+      atomicAdd(&s_rounds, static_cast<uint32_t>(sub32(rnd, fail_c)));
+    }
+    // Episode GC: the verdict has spread, or the slot's TTL ran out.
+    const bool verdict_done =
+        (phase == kDeadPhase || phase == kRefuted || phase == kJoin) &&
+        dead >= 0 && sub32(rnd, dead) > 2 * a.budget + 8;
+    const bool expired =
+        phase > kFree &&
+        (sub32(rnd, a.slot_start[s]) > a.ttl || verdict_done);
+    const bool dropped = expired && phase == kDeadPhase;
+    a.expired[h] = expired ? 1 : 0;
+    a.marks[h] = static_cast<uint8_t>((detected ? kDetected : 0) |
+                                      (new_verdict ? kNewVerdict : 0) |
+                                      (dropped ? kDropped : 0));
+    if (a.spread_want != nullptr) {
+      a.spread_want[h] = expired && dead >= 0 ? 1 : 0;
+      a.verdict[h] = phase == kDeadPhase ? kMsgDead : kMsgRefute;
+    }
+  }
+  const int n_det = __syncthreads_count(detected);
+  const int n_false = __syncthreads_count(false_dead);
+  if (threadIdx.x == 0) {
+    if (n_det != 0) {
+      add32(a.n_detected, n_det);
+      add32(a.sum_detect, s_rounds);
+    }
+    if (n_false != 0) add32(a.n_false_dead, n_false);
+  }
+}
+
+// The bit length of a count (0 for 0 or less): its spread bucket.
+__device__ __forceinline__ int32_t bit_length(int32_t n) {
+  return n > 0 ? 32 - __clz(n) : 0;
+}
+
+__device__ __forceinline__ void bucket(uint32_t* bank, int B, int32_t v) {
+  atomicAdd(bank + min(max(v, 0), B - 1), 1u);
+}
+
+__global__ void __launch_bounds__(kMaxRows)
+record_kernel(const __grid_constant__ Args a) {
+  __shared__ uint32_t s_bank[kBanks][kMaxBuckets];
+  const int h = static_cast<int>(threadIdx.x);
+  const bool hist = a.hist[kDetect] != nullptr;
+  if (hist) {
+    for (int k = 0; k < kBanks; ++k) {
+      for (int b = h; b < a.buckets[k]; b += a.threads) s_bank[k][b] = 0u;
+    }
+    __syncthreads();
+  }
+  if (h < a.H) {
+    const int s = a.idx[h];
+    const int32_t node_c = clamp_node(a.slot_node[s], a.N);
+    const uint32_t m = a.marks[h];
+    if (hist) {
+      const int32_t rnd = __ldg(a.rnd);
+      const bool refute_now = a.ref_byte != nullptr && a.ref_byte[h] != 0;
+      const int32_t dwell = sub32(rnd, a.slot_start[s]);
+      if (m & kDetected) {
+        bucket(s_bank[kDetect], a.buckets[kDetect],
+               sub32(rnd, __ldg(a.fail + node_c)));
+      }
+      if ((m & kNewVerdict) || refute_now) {
+        bucket(s_bank[kDwell], a.buckets[kDwell], dwell);
+      }
+      if (refute_now) bucket(s_bank[kRefute], a.buckets[kRefute], dwell);
+      if (a.spread_want[h] != 0) {
+        bucket(s_bank[kSpread], a.buckets[kSpread],
+               bit_length(a.n_hold[h]));
+      }
+    }
+    if (m & kDropped) a.member[node_c] = 0;
+    if (a.expired[h] != 0) {
+      a.slot_of_node[node_c] = -1;
+      a.slot_node[s] = -1;
+      a.slot_phase[s] = kFree;
+      a.slot_dead[s] = -1;
+    }
+  }
+  if (hist) {
+    __syncthreads();
+    for (int k = 0; k < kBanks; ++k) {
+      for (int b = h; b < a.buckets[k]; b += a.threads) {
+        if (s_bank[k][b] != 0u) add32(a.hist[k] + b, s_bank[k][b]);
+      }
+    }
+  }
+}
+
+// The launch's Args from the entry points' tables; false for arguments
+// the kernels do not take.
+inline bool setup(Args& a, void* const* shards, int ndev, void* const* ptrs,
+                  const int* ints) {
+  if (shards == nullptr || ptrs == nullptr || ints == nullptr || ndev < 1 ||
+      ndev > kMaxShards) {
+    return false;
+  }
+  const int N = ints[iN], H = ints[iH], S = ints[iS];
+  if (N < 1 || N % ndev != 0 || S < 1 || S > kMaxRows || H < 1 || H > S) {
+    return false;
+  }
+  for (int j = 0; j < ndev; ++j) {
+    if (shards[j] == nullptr) return false;
+    a.heard[j] = static_cast<const uint8_t*>(shards[j]);
+  }
+  // Always needed: the row, the registers, the [N] vectors, the counters.
+  for (int k = kRnd; k <= kNRefuted; ++k) {
+    if (ptrs[k] == nullptr && k != kLhm) return false;
+  }
+  a.rnd = static_cast<const int32_t*>(ptrs[kRnd]);
+  a.idx = static_cast<const int32_t*>(ptrs[kIdx]);
+  a.slot_node = static_cast<int32_t*>(ptrs[kSlotNode]);
+  a.slot_phase = static_cast<int32_t*>(ptrs[kSlotPhase]);
+  a.slot_start = static_cast<const int32_t*>(ptrs[kSlotStart]);
+  a.slot_dead = static_cast<int32_t*>(ptrs[kSlotDead]);
+  a.conf_cap = static_cast<const int32_t*>(ptrs[kConfCap]);
+  a.alive = static_cast<const uint8_t*>(ptrs[kAlive]);
+  a.member = static_cast<uint8_t*>(ptrs[kMember]);
+  a.fail = static_cast<const int32_t*>(ptrs[kFail]);
+  a.slot_of_node = static_cast<int32_t*>(ptrs[kSlotOfNode]);
+  a.incarnation = static_cast<int32_t*>(ptrs[kIncarnation]);
+  a.lhm = static_cast<int32_t*>(ptrs[kLhm]);
+  a.n_detected = static_cast<int32_t*>(ptrs[kNDetected]);
+  a.sum_detect = static_cast<int32_t*>(ptrs[kSumDetect]);
+  a.n_false_dead = static_cast<int32_t*>(ptrs[kNFalseDead]);
+  a.n_refuted = static_cast<int32_t*>(ptrs[kNRefuted]);
+  a.ok_mask = static_cast<uint8_t*>(ptrs[kOkMask]);
+  a.ref_col = static_cast<int32_t*>(ptrs[kRefCol]);
+  a.ref_byte = static_cast<uint8_t*>(ptrs[kRefByte]);
+  a.fired = static_cast<const uint8_t*>(ptrs[kFired]);
+  a.expired = static_cast<uint8_t*>(ptrs[kExpired]);
+  a.marks = static_cast<uint8_t*>(ptrs[kMarks]);
+  a.spread_want = static_cast<uint8_t*>(ptrs[kSpreadWant]);
+  a.verdict = static_cast<int32_t*>(ptrs[kVerdict]);
+  a.n_hold = static_cast<const int32_t*>(ptrs[kNHold]);
+  for (int k = 0; k < kBanks; ++k) {
+    a.hist[k] = static_cast<int32_t*>(ptrs[kHistDetect + k]);
+  }
+  a.N = N;
+  a.H = H;
+  a.S = S;
+  a.ndev = ndev;
+  a.L = N / ndev;
+  a.threads = (H + 31) / 32 * 32;
+  a.refute = ints[iRefute];
+  a.budget = ints[iBudget];
+  a.ttl = ints[iTtl];
+  a.lhm_max = ints[iLhmMax];
+  for (int c = 0; c < 4; ++c) a.tbl[c] = ints[iTbl0 + c];
+  a.buckets[kDetect] = a.buckets[kDwell] = a.buckets[kRefute] =
+      ints[iLatBuckets];
+  a.buckets[kSpread] = ints[iSpreadBuckets];
+  // The refutation's outputs come together; the banks, the spread's mask,
+  // verdict and holders come together, and need the refutation's byte
+  // where the round refutes.
+  if ((a.ref_col == nullptr) != (a.ref_byte == nullptr)) return false;
+  const bool hist = a.hist[0] != nullptr;
+  for (int k = 1; k < kBanks; ++k) {
+    if ((a.hist[k] != nullptr) != hist) return false;
+  }
+  if (hist) {
+    for (int k = 0; k < kBanks; ++k) {
+      if (a.buckets[k] < 1 || a.buckets[k] > kMaxBuckets) return false;
+    }
+  }
+  return true;
+}
+
+}  // namespace finish_slots
+
+// The three launches of the top of this file, one block each.  Each takes
+// the same arguments: `shards`, ndev pointers to the u8 [H, N / ndev]
+// column shards of heard_sub (the rows of idx); `ptrs`, the
+// finish_slots::Ptr table (the round's row, idx, the registers, the [N]
+// vectors, the four counters, the steps' outputs and inputs, the banks;
+// kLhm null without the Lifeguard registers); `ints`, the
+// finish_slots::Int table.  finish_decide needs kOkMask, and kRefCol and
+// kRefByte where the round refutes (ints[iRefute] != 0); finish_settle
+// kFired, kExpired and kMarks, and with the banks kSpreadWant and kVerdict;
+// finish_record kExpired and kMarks, and with the banks (kHistDetect ..
+// kHistSpread, all or none) kSpreadWant and kNHold.  Each launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() after the
+// launch (or cudaErrorInvalidValue for arguments it does not take).
+extern "C" int finish_decide(void* const* shards, int ndev,
+                             void* const* ptrs, const int* ints,
+                             void* stream) {
+  using namespace finish_slots;
+  Args a{};
+  if (!setup(a, shards, ndev, ptrs, ints) || a.ok_mask == nullptr ||
+      (a.refute != 0 && a.ref_col == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  decide_kernel<<<1, a.threads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int finish_settle(void* const* shards, int ndev,
+                             void* const* ptrs, const int* ints,
+                             void* stream) {
+  using namespace finish_slots;
+  Args a{};
+  if (!setup(a, shards, ndev, ptrs, ints) || a.fired == nullptr ||
+      a.expired == nullptr || a.marks == nullptr ||
+      (a.hist[0] != nullptr &&
+       (a.spread_want == nullptr || a.verdict == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  settle_kernel<<<1, a.threads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int finish_record(void* const* shards, int ndev,
+                             void* const* ptrs, const int* ints,
+                             void* stream) {
+  using namespace finish_slots;
+  Args a{};
+  if (!setup(a, shards, ndev, ptrs, ints) || a.expired == nullptr ||
+      a.marks == nullptr ||
+      (a.hist[0] != nullptr &&
+       (a.spread_want == nullptr || a.n_hold == nullptr ||
+        (a.refute != 0 && a.ref_byte == nullptr)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  record_kernel<<<1, a.threads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* finish_slots_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -34,7 +34,7 @@ How the JAX program maps onto PyTorch:
   graph node on the device predicate, with no read.
 - ``.at[i].set/add(..., mode="drop")`` scatters, whose dropped indices
   equal the axis size, write into a padded sink element that is sliced
-  off (``slot_ops.set_drop``/``_add_drop``); torch would raise on them.
+  off (``slot_ops.set_drop``); torch would raise on them.
 - The hot tier's ``top_k`` over a 0/1 vector (ties to the lowest index)
   is a stable argsort.
 - A nemesis schedule (``gossip/nemesis.py``) is decided on the host
@@ -50,11 +50,15 @@ row wipes and point writes, the finish step's fire pass and GC wipe
 and the hot tail's rows.  So no step outside the dissemination tail
 copies the ``[S, N]`` matrix.  The probe tick (``gossip/probe.py``: on a
 card three launches of ``csrc/probe.cu`` and the rearm's wipe) also writes
-the slot registers, ``slot_of_node``, ``drops`` and NemState in place.
+the slot registers, ``slot_of_node``, ``drops`` and NemState in place, and
+the finish step's slot logic (``gossip/finish_slots.py``: three launches
+of ``csrc/finish_slots.cu``) the slot registers, ``slot_of_node``,
+``incarnation``, ``member``, the counters, LHM and the hist banks.
 The caller's tensors are never written: an eager entry point
-(``swim_round*``, ``run_rounds*``) copies the caller's matrix and those
-registers once per call (``_own_state``), and the round program copies
-the state into its buffers once per call.
+(``swim_round*``, ``run_rounds*``) copies the caller's matrix, those
+registers, NemState and the banks once per call (``_own_state``,
+``_own_nem``, ``_own_hist``), and the round program copies the state into
+its buffers once per call.
 
 The sharded round (``run_rounds_sharded``, the reference's "ICI
 sharding" section) is the same code with ``sc`` set: the belief matrix
@@ -72,7 +76,8 @@ import torch
 
 from consul_tpu_torch import prng
 from consul_tpu_torch._device import resolve_device
-from consul_tpu_torch.gossip import finish, observe, probe, round_args
+from consul_tpu_torch.gossip import (finish, finish_slots, observe, probe,
+                                     round_args)
 from consul_tpu_torch.gossip.belief import (  # noqa: F401
     _AGE_FRESH, _AGE_MASK, _CONF_MASK, _CONF_SHIFT, _MSG_SHIFT, MSG_DEAD,
     MSG_NONE, MSG_REFUTE, MSG_SUSPECT)
@@ -229,17 +234,7 @@ class RoundTrace(NamedTuple):
     n_heard_alive: torch.Tensor   # [T, S] — members that hold the alive@inc
 
 
-# -- scatter helpers -----------------------------------------------------------
-
-def _add_drop(x: torch.Tensor, idx: torch.Tensor,
-              val: torch.Tensor) -> torch.Tensor:
-    """``x.at[idx].add(val, mode="drop")``: duplicates accumulate, the
-    sink index ``len(x)`` is dropped."""
-    n = x.shape[0]
-    out = torch.cat([x, x.new_zeros(1)])
-    out.index_add_(0, idx.long(), val.to(x.dtype))
-    return out[:n]
-
+# -- helpers -------------------------------------------------------------------
 
 def _roll(x: torch.Tensor, o, dim: int) -> torch.Tensor:
     """``torch.roll(x, o, dims=dim)`` by a device shift ``o`` (an int32
@@ -321,20 +316,6 @@ def round_variant(p: SwimParams, nem: NemesisParams | None,
     return Variant(pp, True, bool(degraded), bool(down))
 
 
-def _hist_add(bank: torch.Tensor, mask: torch.Tensor,
-              val: torch.Tensor) -> torch.Tensor:
-    """Scatter masked observations into a bank: value clipped into the
-    top (overflow) bucket, unmasked lanes dropped."""
-    B = bank.shape[0]
-    idx = torch.where(mask, val.clamp(0, B - 1), B)
-    return _add_drop(bank, idx, mask.to(_I32))
-
-
-@functools.lru_cache(maxsize=64)
-def _timeout_table(p: SwimParams, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(p.timeout_table(), device=device)
-
-
 # -- nemesis injection (the reference's statics, decided on the host) ---------
 
 @functools.lru_cache(maxsize=32)
@@ -395,16 +376,17 @@ def _nem_edge_drops(nem: NemesisParams, n: int, device, keys,
 # collectives become tensor code on this known layout: a ppermute is
 # indexing into the shard list, a psum the sum of the per-shard
 # contributions.  The shifts (gossip offsets, the push/pull shift, the
-# prober block) are device values from the round's row, so a read that
-# crosses shards masks each shard's own columns (``_owned``) and sums
-# (``_psum``), and the sharded round makes no device->host read that the
-# single-device round does not.  Bytes cross between shards only in
-# ``_roll_sharded``, ``_psum``, the dissemination tail's merge kernel
-# (``fused.fused_merge``, which reads its pins from every shard through a
-# table of shard pointers), the probe tick's kernels (``gossip/probe.py``,
-# which read and mark the prober columns through such a table) and the
-# observers' kernel (``observe.heard_counts``, which counts every shard in
-# one launch); placing the shards on several cards changes those.
+# prober block) are device values from the round's row, so a write that
+# crosses shards masks each shard's own columns (``_owned``), and the
+# sharded round makes no device->host read that the single-device round
+# does not.  Bytes cross between shards only in ``_roll_sharded``, the
+# dissemination tail's merge kernel (``fused.fused_merge``, which reads
+# its pins from every shard through a table of shard pointers), the probe
+# tick's and the finish step's kernels (``gossip/probe.py``,
+# ``gossip/finish_slots.py``, which read the prober columns and the
+# subjects' own bytes through such a table) and the observers' kernel
+# (``observe.heard_counts``, which counts every shard in one launch);
+# placing the shards on several cards changes those.
 
 class _ShardCtx(NamedTuple):
     """Sharding context threaded through the round phases; ``None``
@@ -457,12 +439,6 @@ def _roll_sharded(sc: _ShardCtx, xs, o, out=None):
         res.append(torch.index_select(full, -1, cols, out=out[i])
                    if out is not None else full.index_select(-1, cols))
     return tuple(res)
-
-
-def _psum(parts):
-    """The reference's psum over the shard axis: the sum of the
-    per-shard contributions."""
-    return functools.reduce(torch.add, parts)
 
 
 # -- round phases --------------------------------------------------------------
@@ -605,7 +581,7 @@ def _disseminate(p: SwimParams, ra, v: Variant, heard, mf, rx_ok, conf_cap,
                        drop)
 
 
-def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
+def _finish_round(p: SwimParams, state: SwimState, rnd, fail_round,
                   alive, member, heard_sub, full_heard, idx, slot_node,
                   slot_phase, slot_inc, slot_start, slot_nsusp,
                   slot_dead_round, slot_of_node, incarnation, drops,
@@ -613,176 +589,80 @@ def _finish_round(p: SwimParams, state: SwimState, rnd: int, fail_round,
                   nem: NemesisParams | None = None,
                   nem_state: NemState | None = None, obs_scratch=None):
     """Refutation, suspicion-timer firing, episode GC, stats (reference
-    ``_finish_round``).
+    ``_finish_round``), as ``gossip/finish_slots.py``'s steps around the
+    matrix passes: the decision (refutation, the timer mask), the fire,
+    the verdicts and the GC decision, the spread's count (with the hist
+    banks), the banks' adds and the register writes, the GC wipe (on a card
+    one launch each, of ``csrc/finish_slots.cu``, ``csrc/finish.cu`` and
+    ``csrc/observe.cu``).  ``rnd`` is the round from its row (a device
+    value).
 
     Operates on ``heard_sub``, the belief rows of the slots in ``idx``
     (distinct slot ids).  The full path passes ``idx = arange(S)`` with
     ``full_heard=None``; the hot path passes the gathered rows and
     writes them back into ``full_heard``.  Both ``heard_sub`` and
     ``full_heard`` are the round's own tensors (one per shard when
-    sharded) and are written in place.  With ``nem_state`` threaded, a
-    subject that refuted a suspicion about itself raises its own LHM
-    (Lifeguard).  ``obs_scratch``: the round's kernels' scratch, which
-    the observers' counts (``observe.count``) and the fire pass
-    (``finish.fire``) take in turn.  Returns ``(state, hist,
-    nem_state)``."""
-    N = p.n
-    H = idx.shape[0]
-    dev = slot_node.device
-    il = idx.long()
-    shards = () if sc is None else tuple(enumerate(heard_sub))
-
-    sl_node = slot_node[il]
-    sl_phase = slot_phase[il]
-    sl_start = slot_start[il]
-    sl_dead_round = slot_dead_round[il]
-    cc = conf_cap[il]
-
-    # -- refutation: a live subject that hears of its own suspicion
-    # bumps its incarnation and spreads alive@inc+1.
-    hrows = torch.arange(H, device=dev)
-    node_c = sl_node.clamp(0, N - 1)
-    ncl = node_c.long()
-    n_refuted = state.n_refuted
-    refute_now = torch.zeros((H,), dtype=torch.bool, device=dev)
-    refute = None
-    if p.refute:
-        if sc is None:
-            own = heard_sub[hrows, ncl]
-        else:
-            # Each subject's own-belief byte lives on one shard: mask
-            # local ownership, psum the disjoint contributions.
-            parts = []
-            for i, h in shards:
-                owned, loc = _owned(sc, node_c, i)
-                parts.append(torch.where(owned, h[hrows, loc], 0))
-            own = _psum(parts)
-        own_msg = own >> _MSG_SHIFT
-        refutable = (sl_phase == PHASE_SUSPECT) | (sl_phase == PHASE_DEAD)
-        refute_now = (refutable & (sl_node >= 0) & alive[ncl] & member[ncl]
-                      & ((own_msg == MSG_SUSPECT) | (own_msg == MSG_DEAD)))
-        incarnation = _add_drop(incarnation,
-                                torch.where(refute_now, node_c, N),
-                                torch.ones_like(node_c))
-        sl_phase = torch.where(refute_now, PHASE_REFUTED, sl_phase)
-        sl_dead_round = torch.where(refute_now, rnd, sl_dead_round)
-        # .at[hrows, node_c].max(refute_val): one (row, column) pair per
-        # row, written by the fire pass below before its fire test (on the
-        # shard that owns the column).
-        refute = (node_c, torch.where(refute_now, _enc(MSG_REFUTE), 0).to(
-            torch.uint8))
-        n_refuted = n_refuted + refute_now.sum(dtype=_I32)
-
-    if nem is not None and nem_state is not None:
-        # Subjects are distinct node ids: at most one bump a node.
-        lhm = _add_drop(nem_state.lhm, torch.where(refute_now, node_c, N),
-                        torch.ones_like(node_c)).clamp(max=nem.lhm_max)
-        nem_state = nem_state._replace(lhm=lhm)
-
-    # -- suspicion timers fire -> dead declared.  The reference looks up
-    # tbl[min(conf, cc)] per byte; conf is 2 bits, so per row the four
-    # outcomes "elapsed >= tbl[min(c, cc)]" fold into a 4-bit mask that
-    # each byte indexes by its conf — the same bits without an int32
-    # [H, N] intermediate.
-    tbl = _timeout_table(p, dev)
-    cs = torch.arange(4, device=dev)
-    elapsed = rnd - sl_start
-    ok = elapsed[:, None] >= tbl[torch.minimum(cs[None, :], cc[:, None].long())]
-    ok = ok & (sl_phase == PHASE_SUSPECT)[:, None]
-    ok_mask = (ok.to(torch.uint8) << cs.to(torch.uint8)).sum(
-        dim=1, dtype=torch.uint8)
-
+    sharded) and are written in place, as are the slot registers,
+    ``slot_of_node``, ``incarnation``, ``member``, the state's counters,
+    NemState's LHM and the banks.  With ``nem_state`` threaded, a subject
+    that refuted a suspicion about itself raises its own LHM (Lifeguard).
+    ``obs_scratch``: the round's kernels' scratch, which the observers'
+    counts (``observe.count``) and the fire pass (``finish.fire``) take in
+    turn.  Returns ``(state, hist, nem_state)``."""
+    lhm = None if nem is None or nem_state is None else nem_state.lhm
+    cfg = finish_slots.config(p, nem if lhm is not None else None)
+    t = finish_slots.Step(
+        heard_sub, rnd, idx,
+        (slot_node, slot_phase, slot_start, slot_dead_round), conf_cap,
+        alive, member, fail_round, slot_of_node, incarnation,
+        (state.n_detected, state.sum_detect_rounds, state.n_false_dead,
+         state.n_refuted), lhm, hist)
+    dec = finish_slots.decide(cfg, t)
     # The refutation's byte, then the fire, in place on the rows whose
     # timer can fire alone (one launch of the fire kernel on a card, every
-    # shard): bytes whose timer fires take the dead verdict, and
-    # ``slot_fired`` says which rows (slots) fired on any shard.
-    slot_fired = finish.fire(heard_sub, rx_ok, ok_mask, refute, obs_scratch)
-    new_dead = slot_fired & (sl_dead_round < 0)
-    sl_phase = torch.where(slot_fired, PHASE_DEAD, sl_phase)
-    sl_dead_round = torch.where(new_dead, rnd, sl_dead_round)
-
-    # Detection stats are recorded at declaration time.
-    fail_c = fail_round[ncl]
-    truly_dead = fail_c <= rnd
-    det = new_dead & truly_dead
-    n_detected = state.n_detected + det.sum(dtype=_I32)
-    sum_detect_rounds = state.sum_detect_rounds + torch.where(
-        det, rnd - fail_c, 0).sum(dtype=_I32)
-    n_false_dead = state.n_false_dead + (new_dead & ~truly_dead).sum(
-        dtype=_I32)
-
-    # -- episode GC: recycle slots whose verdict has disseminated (or
-    # whose TTL ran out), apply dead verdicts.
-    verdict_done = ((((sl_phase == PHASE_DEAD) | (sl_phase == PHASE_REFUTED)
-                      | (sl_phase == PHASE_JOIN))
-                     & (sl_dead_round >= 0))
-                    & (rnd - sl_dead_round > 2 * p.spread_budget_rounds + 8))
-    expired = ((sl_phase > PHASE_FREE)
-               & ((rnd - sl_start > p.slot_ttl_rounds) | verdict_done))
-    is_dead = expired & (sl_phase == PHASE_DEAD)
-
+    # shard): ``fired`` says which rows fired on any shard.
+    fired = finish.fire(heard_sub, rx_ok, dec.ok_mask, dec.refute,
+                        obs_scratch)
+    st = finish_slots.settle(cfg, t, fired)
+    n_hold = None
     if hist is not None:
         # Spread: members still holding the verdict at slot GC (read
-        # before the GC wipe), counted only on the rows recycled now (one
-        # launch of the observers' kernel, all shards); the others count
-        # 0, which _hist_add drops.  Integer log2 buckets via bit length.
-        spread = expired & (sl_dead_round >= 0)
-        verdict_msg = torch.where(sl_phase == PHASE_DEAD, MSG_DEAD,
-                                  MSG_REFUTE).to(_I32)
+        # before the drop and the GC wipe), counted only on the rows
+        # recycled now (one launch of the observers' kernel, all shards).
         n_hold = observe.count(heard_sub, member, p.spread_budget_rounds,
-                               verdict_msg, spread,
+                               st.verdict, st.spread,
                                obs_scratch)[observe.HOLD]
-        blen = ((n_hold[:, None]
-                 >> torch.arange(31, dtype=_I32, device=dev)) > 0).sum(
-            dim=1, dtype=_I32)
-        hist = HistBank(
-            detect=_hist_add(hist.detect, det, rnd - fail_c),
-            dwell=_hist_add(hist.dwell, new_dead | refute_now,
-                            rnd - sl_start),
-            refute=_hist_add(hist.refute, refute_now, rnd - sl_start),
-            spread=_hist_add(hist.spread, spread, blen),
-        )
-
-    member = set_drop(member, torch.where(is_dead, node_c, N), False)
-    slot_of_node = set_drop(slot_of_node, torch.where(expired, node_c, N),
-                             -1)
-    finish.wipe(heard_sub, expired)
-    sl_node = torch.where(expired, -1, sl_node)
-    sl_phase = torch.where(expired, PHASE_FREE, sl_phase)
-    sl_dead_round = torch.where(expired, -1, sl_dead_round)
+    finish_slots.record(cfg, t, dec, st, n_hold)
+    finish.wipe(heard_sub, st.expired)
 
     if full_heard is None:
         heard = heard_sub
-        slot_node_o, slot_phase_o = sl_node, sl_phase
-        slot_dead_o = sl_dead_round
     else:
         heard = full_heard
+        il = idx.long()
         if sc is None:
             heard[il] = heard_sub
         else:
             for h, sub in zip(heard, heard_sub):
                 h[il] = sub
-        slot_node_o = slot_node.index_put((il,), sl_node)
-        slot_phase_o = slot_phase.index_put((il,), sl_phase)
-        slot_dead_o = slot_dead_round.index_put((il,), sl_dead_round)
 
     st = SwimState(
         round=state.round + 1,
         heard=heard,
-        slot_node=slot_node_o,
-        slot_phase=slot_phase_o,
+        slot_node=slot_node,
+        slot_phase=slot_phase,
         slot_inc=slot_inc,
         slot_start=slot_start,
         slot_nsusp=slot_nsusp,
-        slot_dead_round=slot_dead_o,
+        slot_dead_round=slot_dead_round,
         slot_of_node=slot_of_node,
         incarnation=incarnation,
         member=member,
         drops=drops,
-        n_detected=n_detected,
-        sum_detect_rounds=sum_detect_rounds,
-        n_false_dead=n_false_dead,
-        n_refuted=n_refuted,
+        n_detected=state.n_detected,
+        sum_detect_rounds=state.sum_detect_rounds,
+        n_false_dead=state.n_false_dead,
+        n_refuted=state.n_refuted,
     )
     return st, hist, nem_state
 
@@ -1006,9 +886,12 @@ def _on(dev: torch.device, tup):
 
 
 # The registers the eager round writes in place besides the belief
-# matrix: the probe tick's slot bookkeeping (``gossip/probe.py``).
+# matrix: the probe tick's slot bookkeeping (``gossip/probe.py``) and the
+# finish step's (``gossip/finish_slots.py``).
 _IN_PLACE = ("slot_node", "slot_phase", "slot_inc", "slot_start",
-             "slot_nsusp", "slot_dead_round", "slot_of_node", "drops")
+             "slot_nsusp", "slot_dead_round", "slot_of_node", "incarnation",
+             "member", "drops", "n_detected", "sum_detect_rounds",
+             "n_false_dead", "n_refuted")
 
 
 def _own_state(state: SwimState, dev: torch.device,
@@ -1026,11 +909,19 @@ def _own_state(state: SwimState, dev: torch.device,
 
 
 def _own_nem(nem_state, dev: torch.device):
-    """A copy of NemState on ``dev`` (the probe tick writes it in place),
-    or None."""
+    """A copy of NemState on ``dev`` (the probe tick and the finish step
+    write it in place), or None."""
     if nem_state is None:
         return None
     return NemState(*(x.to(dev, copy=True) for x in nem_state))
+
+
+def _own_hist(hist, dev: torch.device):
+    """A copy of the banks on ``dev`` (the finish step adds into them in
+    place), or None."""
+    if hist is None:
+        return None
+    return HistBank(*(x.to(dev, copy=True) for x in hist))
 
 
 def _graphed(graphed: bool | None, dev: torch.device) -> bool:
@@ -1103,7 +994,7 @@ def _one_round(state, base_key, fail_round, p, hist, join_round, device,
         _require_unsharded(state)
         state = _own_state(state, dev)
     state = _on(dev, state)
-    hist = None if hist is None else _on(dev, hist)
+    hist = _own_hist(hist, dev)
     nem_state = _own_nem(nem_state, dev)
     jr = None if join_round is None else _as_i32(join_round, dev)
     if rnd is None:
@@ -1156,8 +1047,8 @@ def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
                      nem_state=None, graphed: bool = False):
     """The rounds of ``run_rounds`` / ``run_rounds_sharded`` (``graphed``
     as ``_graphed`` decided it); the eager route's matrix and registers are
-    already the call's own (``_own_state``), its NemState is copied
-    here."""
+    already the call's own (``_own_state``), its NemState and banks are
+    copied here."""
     state = _on(dev, state)
     fail_round = _as_i32(fail_round, dev)
     join_round = None if join_round is None else _as_i32(join_round, dev)
@@ -1172,6 +1063,7 @@ def _run_rounds_impl(state, base_key, fail_round, p, steps, trace,
                                   trace, join_round, flight, hist, sc, nem,
                                   nem_state)
     nem_state = _own_nem(nem_state, dev)
+    hist = _own_hist(hist, dev)
     rnd = _host_int(state.round)
     rows, cur, R = None, 0, 1
     if flight is not None:

@@ -54,7 +54,8 @@ from consul_tpu_torch.gossip.events import (_SEEN, EventState, _event_round,
                                             init_events, is_pushpull)
 from consul_tpu_torch.gossip.kernel import (SwimState, _as_i32,
                                             _check_shardable, _on,
-                                            _own_state, _require_unsharded,
+                                            _own_hist, _own_state,
+                                            _require_unsharded,
                                             _round_once,
                                             _sharded_setup, init_hist,
                                             init_state, round_variant,
@@ -232,8 +233,8 @@ def _inputs(state, lan_fail, wan_fail, lan_hist, p: MultiDCParams, dev,
             own: bool):
     """The call's inputs on ``dev``; each LAN pool sharded as ``p`` says
     (a pool given unsharded is split here).  ``own``: every pool's belief
-    matrix and the registers the probe tick writes copies of the caller's
-    (the eager rounds write them in place)."""
+    matrix, the registers the probe tick and the finish step write and the
+    banks copies of the caller's (the eager rounds write them in place)."""
     def pool(st):
         return _on(dev, _own_state(st, dev) if own else st)
 
@@ -249,7 +250,8 @@ def _inputs(state, lan_fail, wan_fail, lan_hist, p: MultiDCParams, dev,
                          wan=pool(state.wan),
                          wan_events=_on(dev, state.wan_events))
     if lan_hist is not None:
-        lan_hist = tuple(_on(dev, hb) for hb in lan_hist)
+        lan_hist = tuple(_own_hist(hb, dev) if own else _on(dev, hb)
+                         for hb in lan_hist)
     return state, _as_i32(lan_fail, dev), _as_i32(wan_fail, dev), lan_hist
 
 

@@ -50,8 +50,9 @@ from consul_tpu_torch._device import check_tensor, require_cuda
 from consul_tpu_torch.gossip.belief import (_AGE_FRESH, _CONF_MASK,
                                             _CONF_SHIFT, _MSG_SHIFT,
                                             MSG_DEAD, MSG_SUSPECT)
-from consul_tpu_torch.gossip.slot_ops import (alloc_free_slots, put_points,
-                                              segment_min, set_drop)
+from consul_tpu_torch.gossip.slot_ops import (alloc_free_slots, get_points,
+                                              put_points, segment_min,
+                                              set_drop)
 
 _I32 = torch.int32
 MAX_SHARDS = 64    # kMaxShards of csrc/probe.cu
@@ -166,19 +167,6 @@ def _shards(heard) -> tuple:
     return heard if isinstance(heard, tuple) else (heard,)
 
 
-def _points(heard, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """``heard[rows[k], cols[k]]`` (global columns) of the matrix or of its
-    shards: each shard gathers the points whose column it owns."""
-    shards = _shards(heard)
-    L = shards[0].shape[1]
-    out = torch.zeros(rows.shape, dtype=torch.uint8, device=rows.device)
-    for i, h in enumerate(shards):
-        owned = (cols >= i * L) & (cols < (i + 1) * L)
-        loc = (cols - i * L).clamp(0, L - 1)
-        out = torch.where(owned, h[rows, loc], out)
-    return out
-
-
 def _below(k, shape, p: float, device) -> torch.Tensor:
     """``uniform(k, shape) < p`` for a float32 ``p``; a certain outcome is
     not drawn."""
@@ -277,7 +265,7 @@ def probe_lanes_ref(cfg: Config, ra, mf: torch.Tensor, heard,
 
     # Don't re-suspect a target this prober already believes dead.
     s_t = at(slot_of_node, o_t)
-    cur = _points(heard, s_t.clamp(0, S - 1).long(), pid_c.long())
+    cur = get_points(heard, s_t.clamp(0, S - 1).long(), pid_c.long())
     init = init & ~((s_t >= 0) & ((cur >> _MSG_SHIFT) == MSG_DEAD))
 
     if nem_state is not None:
@@ -374,7 +362,7 @@ def probe_marks_ref(cfg: Config, ra, heard, slot_of_node: torch.Tensor,
     s_t2 = slot_of_node[(pid + ra.probe[0]).remainder(N).long()]
     rows = s_t2.clamp(0, S - 1).long()
     cols = pid.clamp(max=N - 1).long()
-    cur = _points(heard, rows, cols)
+    cur = get_points(heard, rows, cols)
     ok = init & (s_t2 >= 0) & ((cur >> _MSG_SHIFT) <= MSG_SUSPECT)
     fresh = _FRESH | (cur & (_CONF_MASK << _CONF_SHIFT))
     # Each shard takes the marks in the columns it owns.

@@ -63,8 +63,8 @@ import warnings
 import torch
 
 from consul_tpu_torch import _build, prng
-from consul_tpu_torch.gossip import (events, finish, fused, kernel,
-                                     observe, probe, round_args)
+from consul_tpu_torch.gossip import (events, finish, finish_slots, fused,
+                                     kernel, observe, probe, round_args)
 from consul_tpu_torch.gossip.kernel import (RoundTrace, _I32, _leaves,
                                             _round_once, round_variant)
 
@@ -94,6 +94,9 @@ _COUNTERS = ((prng, "launches"), (prng, "calls"), (fused, "launches"),
              (finish, "fire_launches"), (finish, "wipe_launches"),
              (probe, "launches"), (probe, "lanes_launches"),
              (probe, "slots_launches"), (probe, "marks_launches"),
+             (finish_slots, "launches"), (finish_slots, "decide_launches"),
+             (finish_slots, "settle_launches"),
+             (finish_slots, "record_launches"),
              (sys.modules[__name__], "copy_bytes"))
 
 _VP = ctypes.c_void_p
@@ -645,7 +648,8 @@ def disown(prog: _Program) -> None:
 def settle_counts() -> None:
     """Fold every program's device-side branch counts into the host
     counters (``prng``'s, ``fused``'s, ``events``', ``observe``'s,
-    ``finish``'s and ``probe``'s launches, ``copy_bytes``, ``kernel.tail_rounds`` and
+    ``finish``'s, ``probe``'s and ``finish_slots``' launches,
+    ``copy_bytes``, ``kernel.tail_rounds`` and
     ``kernel.join_rounds``); a reader of those counters calls this
     first."""
     for prog in list(_programs.values()) + _owned:

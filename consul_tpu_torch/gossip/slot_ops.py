@@ -1,12 +1,13 @@
 """The slot registers' scatter and allocation helpers, shared by the
 round's ticks (``gossip/kernel.py``), the plain versions of the probe
-tick's kernels (``gossip/probe.py``) and the event round
-(``gossip/events.py``).
+tick's and the finish step's kernels (``gossip/probe.py``,
+``gossip/finish_slots.py``) and the event round (``gossip/events.py``).
 
 - ``set_drop``: the reference's ``.at[idx].set(val, mode="drop")`` on a
   1-D register, the dropped indices equal to its length;
 - ``put_points``: point writes into a matrix in place, only the kept
   lanes' values landing;
+- ``get_points``: point reads of a matrix or of its column shards;
 - ``segment_min``: the minima of contiguous segments of a vector, as the
   ticks pick their candidates;
 - ``alloc_free_slots``: candidates ranked onto the free slots in
@@ -32,6 +33,20 @@ def set_drop(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
         val = out.new_full(idx.shape, val)
     out[idx.long()] = val
     return out[:n]
+
+
+def get_points(heard, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """``heard[rows[k], cols[k]]`` (global columns) of the matrix or of a
+    tuple of its column shards: each shard gathers the points whose
+    column it owns."""
+    shards = heard if isinstance(heard, tuple) else (heard,)
+    L = shards[0].shape[1]
+    out = torch.zeros(rows.shape, dtype=torch.uint8, device=rows.device)
+    for i, h in enumerate(shards):
+        owned = (cols >= i * L) & (cols < (i + 1) * L)
+        loc = (cols - i * L).clamp(0, L - 1)
+        out = torch.where(owned, h[rows, loc], out)
+    return out
 
 
 def put_points(h: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,

@@ -27,11 +27,12 @@ hist banks' spread, the other the final matrix's, which serves the
 flight row's dissemination bytes ``tx`` and the trace's holders at
 once.  Any other kernel goes by the torch op that launched it, which a
 dispatch mode runs under a profiler range naming the innermost frame of
-``gossip/kernel.py`` whose function is an observer's (``_hist_add``, the
-banks' adds, and those ``--observer-fn FN=OBSERVER`` adds: a checkout
-whose observers are torch ops in closures of their own names them so,
-and one that lacks a named function is refused).  The rest is the
-round's.
+``gossip/kernel.py`` whose function is an observer's (those
+``--observer-fn FN=OBSERVER`` names: a checkout whose observers are torch
+ops in closures of their own names them so, and one that lacks a named
+function is refused).  The rest is the round's, the banks' adds among it:
+they run inside the finish step's record kernel
+(``csrc/finish_slots.cu``).
 ``--functions`` attributes the round itself the same way, on another
 line: ``--rounds`` rounds of the round program's own body
 (``gossip/program.py``'s ``RoundProgram``) run eagerly, each branch taken
@@ -45,8 +46,9 @@ the buffers (``program._copy_leaves``) and the rest of
 checkout's closures, for an A/B: parent, change, change, parent; a
 name the checkout lacks is refused); the hand kernels, launched through
 ctypes and tied to no op by the profiler, go by their names
-(``ROUND_KERNELS``: ``csrc/probe.cu``'s to the probe tick, the draws',
-the wipe's and the others' to labels of their own).
+(``ROUND_KERNELS``: ``csrc/probe.cu``'s to the probe tick,
+``csrc/finish_slots.cu``'s to the finish step, the draws', the wipe's and
+the others' to labels of their own).
 With ``--ndev N`` the
 rounds are the sharded round (``run_rounds_sharded``, N column shards on
 the card), and the phases add the sharded round's own: the halo pins
@@ -133,6 +135,7 @@ HAND_KERNELS = {"draws": "threefry::draw_kernel",
                 "flood": "evflood::flood_kernel",
                 "observe": "observe::counts_kernel",
                 "finish": "finish::",
+                "finish_slots": "finish_slots::",
                 "probe": "probe::"}
 SHARDED_PHASES = {  # the sharded round's own, inside the phases above
     "halo_pins": (fused, "_roll_sharded"),
@@ -345,8 +348,12 @@ def profile_multidc(args, graphed: bool) -> dict:
 # one is the spread's launch, the other the final matrix's.
 OBSERVER_KERNELS = (("observe::counts_kernel<true>", "spread"),
                     ("observe::counts_kernel<false>", "tx_and_trace_holders"))
-# Functions of gossip/kernel.py whose torch ops are one observer's.
-OBSERVER_FUNCTIONS = {"_hist_add": "hist_adds"}
+# Functions of gossip/kernel.py whose torch ops are one observer's: none
+# since the hist banks' adds run inside the finish step's record kernel
+# (``csrc/finish_slots.cu``), which the observers' line leaves to the
+# round; an older checkout names its ``_hist_add`` with ``--observer-fn
+# _hist_add=hist_adds``.
+OBSERVER_FUNCTIONS: dict = {}
 _LABEL = "observer:"
 
 
@@ -543,6 +550,7 @@ ROUND_FUNCTIONS = {"_join_tick": "join_tick", "_probe_tick": "probe_tick",
 # part of their names.
 ROUND_KERNELS = (("finish::fire_kernel", "fire_timers"),
                  ("finish::wipe_kernel", "wipe_rows"),
+                 ("finish_slots::", "finish_round"),
                  ("dissem_tail::tail_kernel", "tail"),
                  ("threefry::draw_kernel", "draws"),
                  ("observe::counts_kernel", "observers"),

@@ -1031,3 +1031,171 @@ def test_graphed_round_launches_probe_on_card(ndev):
     assert _same_fields(list(runs[False][0]), list(runs[True][0])) == []
     for a, b in zip(before, list(st) + list(ns)):
         assert torch.equal(a, b)
+
+
+def _finish_slots_inputs(n, S, hot, ndev, hist, lhm, refute, seed):
+    """The finish step's inputs on the card: distinct live subjects in
+    every phase, starts and dead rounds on both sides of the timers, the
+    TTL and the GC window, every byte value, 30% SUSPECT bytes; hot cases
+    list their live slots and then free ones."""
+    from consul_tpu_torch.gossip import finish_slots
+    from consul_tpu_torch.gossip.nemesis import NemesisParams
+    from consul_tpu_torch.gossip.params import lan_profile
+    p = lan_profile(n, slots=S, refute=refute)
+    cfg = finish_slots.config(p, NemesisParams(
+        scenario="probe", start=0, stop=NEVER, lhm_max=3) if lhm else None)
+    rnd = p.slot_ttl_rounds + 300
+    rng = np.random.default_rng(seed)
+    live = min(S if hot is None else hot - 3, n)
+    subjects = rng.permutation(n)[:live].astype(np.int32)
+    slots = np.sort(rng.permutation(S)[:live])
+    node = np.full(S, -1, np.int32)
+    node[slots] = subjects
+    phase = np.zeros(S, np.int32)
+    phase[slots] = rng.choice([1, 1, 2, 3, 4], live)
+    start = np.zeros(S, np.int32)
+    start[slots] = rnd - rng.integers(0, p.slot_ttl_rounds + 20, live)
+    dead = np.full(S, -1, np.int32)
+    late = slots[phase[slots] != 1]
+    dead[late] = rnd - rng.integers(0, 3 * cfg.gc_rounds, late.size)
+    fail = rng.choice(np.asarray([NEVER, rnd - 40, rnd + 3], np.int32), n,
+                      p=[0.6, 0.3, 0.1])
+    member = rng.random(n) < 0.92
+    heard = rng.integers(0, 256, (S, n)).astype(np.uint8)
+    heard = np.where(rng.random((S, n)) < 0.3, heard & 0x3F | 0x40, heard)
+    son = np.full(n, -1, np.int32)
+    son[subjects] = slots
+    idx = np.arange(S, dtype=np.int32)
+    if hot is not None:
+        idx = np.argsort(-(node >= 0).astype(np.int32),
+                         kind="stable")[:hot].astype(np.int32)
+    cuda = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in
+            dict(node=node, phase=phase, start=start, dead=dead, fail=fail,
+                 member=member, heard=heard[idx], son=son, idx=idx,
+                 cc=np.clip(rng.integers(0, 5, S) - 1, 0, 3).astype(
+                     np.int32),
+                 inc=rng.integers(0, 9, n).astype(np.int32)).items()}
+    sub = cuda["heard"]
+    if ndev:
+        L = n // ndev
+        sub = tuple(sub[:, i * L:(i + 1) * L].clone() for i in range(ndev))
+    t = finish_slots.Step(
+        sub, torch.tensor(rnd, dtype=torch.int32, device="cuda"),
+        cuda["idx"], tuple(cuda[k] for k in ("node", "phase", "start",
+                                              "dead")), cuda["cc"],
+        cuda["fail"] > rnd, cuda["member"], cuda["fail"], cuda["son"],
+        cuda["inc"], tuple(torch.tensor(v, dtype=torch.int32, device="cuda")
+                           for v in (2**31 - 2, 5, 2**31 - 1, 7)),
+        torch.randint(0, 4, (n,), dtype=torch.int32, device="cuda")
+        if lhm else None, tk.init_hist() if hist else None)
+    return cfg, t, (cuda["fail"] > rnd) & cuda["member"]
+
+
+@pytest.mark.parametrize("n, S, hot, ndev, hist, lhm, refute", [
+    (4000, 64, None, None, True, True, True),
+    (4000, 64, 8, None, True, False, True),
+    (4000, 64, None, 8, False, True, True),
+    (4001, 32, None, None, True, False, False),
+    (12, 32, None, None, False, False, True)])
+def test_finish_slots_kernels_match_plain_on_card(n, S, hot, ndev, hist,
+                                                  lhm, refute):
+    """``csrc/finish_slots.cu``'s three kernels against their plain
+    versions, with the fire pass and the spread's count between them as
+    the round runs them: every field and output after every launch,
+    tolerance 0, one launch each."""
+    _need_card()
+    from consul_tpu_torch.gossip import finish, finish_slots as fs, observe
+    cfg, t, rx = _finish_slots_inputs(n, S, hot, ndev, hist, lhm, refute,
+                                      n + S)
+
+    def copy(t):
+        heard = (tuple(h.clone() for h in t.heard)
+                 if isinstance(t.heard, tuple) else t.heard.clone())
+        return t._replace(
+            heard=heard, slots=tuple(x.clone() for x in t.slots),
+            member=t.member.clone(), slot_of_node=t.slot_of_node.clone(),
+            incarnation=t.incarnation.clone(),
+            stats=tuple(x.clone() for x in t.stats),
+            lhm=None if t.lhm is None else t.lhm.clone(),
+            hist=None if t.hist is None else tk.HistBank(
+                *(x.clone() for x in t.hist)))
+
+    def leaves(t):
+        heard = t.heard if isinstance(t.heard, tuple) else (t.heard,)
+        return [*heard, *t.slots, t.member, t.slot_of_node, t.incarnation,
+                *t.stats, *([] if t.lhm is None else [t.lhm]),
+                *(t.hist or ())]
+
+    def same(a, b):
+        torch.cuda.synchronize()
+        return all((x is None and y is None) or torch.equal(x, y)
+                   for x, y in zip(a, b))
+
+    got, want = copy(t), copy(t)
+    n0 = (fs.decide_launches, fs.settle_launches, fs.record_launches)
+    dec = fs.finish_decide(cfg, got)
+    dec_w = fs.finish_decide_ref(cfg, want)
+    assert same(leaves(got) + [dec.ok_mask, *(dec.refute or ())],
+                leaves(want) + [dec_w.ok_mask, *(dec_w.refute or ())])
+    fired = finish.fire_timers(got.heard, rx, dec.ok_mask, dec.refute)
+    fired_w = finish.fire_timers_ref(want.heard, rx, dec_w.ok_mask,
+                                     dec_w.refute)
+    st = fs.finish_settle(cfg, got, fired)
+    st_w = fs.finish_settle_ref(cfg, want, fired_w)
+    assert same(leaves(got) + list(st), leaves(want) + list(st_w))
+    n_hold = n_hold_w = None
+    if hist:
+        n_hold = observe.heard_counts(got.heard, got.member, cfg.budget,
+                                      st.verdict, st.spread)[observe.HOLD]
+        n_hold_w = observe.heard_counts_ref(
+            want.heard, want.member, cfg.budget, st_w.verdict,
+            st_w.spread)[observe.HOLD]
+    fs.finish_record(cfg, got, dec, st, n_hold)
+    fs.finish_record_ref(cfg, want, dec_w, st_w, n_hold_w)
+    assert same(leaves(got), leaves(want))
+    assert (fs.decide_launches, fs.settle_launches,
+            fs.record_launches) == tuple(x + 1 for x in n0)
+    assert bool(fired.any()) or bool(st.expired.any())
+
+
+@pytest.mark.parametrize("ndev", [None, 4])
+def test_graphed_round_launches_finish_slots_on_card(ndev):
+    """The graphed and the eager round launch each of
+    ``finish_slots.cu``'s kernels once a non-quiescent round, with the hist
+    banks and NemState threaded; their results are equal and the caller's
+    state, banks and NemState are left as they were."""
+    _need_card()
+    from consul_tpu_torch.gossip import finish_slots as fs
+    from consul_tpu_torch.gossip.nemesis import build
+    from consul_tpu_torch.gossip.params import lan_profile
+    n, steps = 4000, 80
+    p = lan_profile(n, slots=32, loss_rate=0.01, hot_slots=8)
+    fail, join = _churn_inputs(n, steps, 9)
+    sc = build("degraded_observer", n)
+    st = tk.init_state(p)._replace(member=torch.from_numpy(join == NEVER)
+                                   .cuda())
+    ns = tk.init_nem_state(n, device="cuda")
+    hist = tk.init_hist()
+    before = [x.clone() for x in list(st) + list(ns) + list(hist)]
+    runs = {}
+    for graphed in (False, True):
+        program.settle_counts()
+        n0 = (fs.decide_launches, fs.settle_launches, fs.record_launches)
+        tails = dict(tk.tail_rounds)
+        a = dict(join_round=join, graphed=graphed, nem=sc.nem,
+                 nem_state=ns, hist=hist)
+        if ndev:
+            out = tk.run_rounds_sharded(st, prng.key(8), fail, p, steps,
+                                        ndev=ndev, **a)
+        else:
+            out = tk.run_rounds(st, prng.key(8), fail, p, steps, **a)
+        torch.cuda.synchronize()
+        program.settle_counts()
+        busy = sum(tk.tail_rounds[k] - tails[k] for k in ("hot", "full"))
+        assert busy > 0
+        assert (fs.decide_launches, fs.settle_launches,
+                fs.record_launches) == tuple(x + busy for x in n0)
+        runs[graphed] = out
+    assert _same_fields(list(runs[False][0]), list(runs[True][0])) == []
+    for a, b in zip(before, list(st) + list(ns) + list(hist)):
+        assert torch.equal(a, b)

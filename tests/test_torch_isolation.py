@@ -556,6 +556,71 @@ def test_probe_never_falls_back(monkeypatch):
     assert (probe.launches, set(probe.launch_shapes)) == before
 
 
+def test_finish_slots_never_falls_back(monkeypatch):
+    """The finish step's slot logic takes the plain versions only for CPU
+    tensors; its kernel wrappers refuse CPU tensors, and dispatchers given
+    tensors that are not on the CPU whose kernels cannot be built raise
+    the build's error instead of running the plain versions."""
+    from consul_tpu_torch import _build
+    from consul_tpu_torch.gossip import finish_slots
+    from consul_tpu_torch.gossip import kernel as tkm
+    from consul_tpu_torch.gossip.params import SwimParams as TParams
+    p = TParams(n=40, slots=8)
+    cfg = finish_slots.config(p)
+    i32 = dict(dtype=torch.int32)
+
+    def step(dev):
+        def z(n, v=0, **kw):
+            return torch.full((n,), v, device=dev, **(kw or i32))
+        return finish_slots.Step(
+            torch.zeros((p.slots, p.n), dtype=torch.uint8, device=dev),
+            torch.full((), 500, device=dev, **i32),
+            torch.arange(p.slots, device=dev, **i32),
+            (z(p.slots, 3), z(p.slots, tkm.PHASE_SUSPECT), z(p.slots),
+             z(p.slots, -1)), z(p.slots),
+            z(p.n, True, dtype=torch.bool), z(p.n, True, dtype=torch.bool),
+            z(p.n, 10), z(p.n, -1), z(p.n),
+            tuple(torch.zeros((), device=dev, **i32) for _ in range(4)),
+            None, tkm.init_hist(device=dev))
+
+    before = (finish_slots.launches, set(finish_slots.launch_shapes))
+    t = step("cpu")
+    dec = finish_slots.decide(cfg, t)
+    st = finish_slots.settle(cfg, t, dec.ok_mask != 0)
+    finish_slots.record(cfg, t, dec, st,
+                        torch.zeros(p.slots, dtype=torch.int32))
+    # Every slot's timer ran out and fired (8 detections) and its TTL
+    # too: the slots recycled, their dead subject dropped.
+    assert int(t.stats[0]) == p.slots and bool((t.slots[0] == -1).all())
+    assert not bool(t.member[3]) and bool(st.expired.all())
+    assert (finish_slots.launches, set(finish_slots.launch_shapes)) == before
+    meta = step("meta")
+    for fn in (finish_slots.finish_decide, finish_slots.decide):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(cfg, t if fn.__name__.startswith("finish_") else meta)
+
+    # Tensors the wrappers take, and a build that fails: the error, not
+    # the plain versions' results.
+    def failed_build(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(finish_slots, "require_cuda", lambda name, t: None)
+    monkeypatch.setattr(_build, "build", failed_build)
+    monkeypatch.setattr(_build, "_libs", {})
+    finish_slots._lib.cache_clear()
+    fired = torch.zeros(p.slots, dtype=torch.bool, device="meta")
+    try:
+        with pytest.raises(RuntimeError,
+                           match="nvcc failed for finish_slots"):
+            finish_slots.decide(cfg, meta)
+        with pytest.raises(RuntimeError,
+                           match="nvcc failed for finish_slots"):
+            finish_slots.settle(cfg, meta, fired)
+    finally:
+        finish_slots._lib.cache_clear()
+    assert (finish_slots.launches, set(finish_slots.launch_shapes)) == before
+
+
 def test_import_builds_nothing(tmp_path):
     """Importing the port compiles no kernel: not fused_dissem's or
     fused_merge's, not the store's kv_apply or watch_match (the build runs
@@ -563,10 +628,12 @@ def test_import_builds_nothing(tmp_path):
     code = ("import consul_tpu_torch.gossip.fused as f, "
             "consul_tpu_torch.gossip.kernel, consul_tpu_torch._build as b, "
             "consul_tpu_torch.state.device_store as d, "
-            "consul_tpu_torch.gossip.finish as fi; "
+            "consul_tpu_torch.gossip.finish as fi, "
+            "consul_tpu_torch.gossip.finish_slots as fs; "
             "assert f._lib.cache_info().currsize == 0 and not b.build_logs; "
             "assert d._lib.cache_info().currsize == 0; "
             "assert fi._lib.cache_info().currsize == 0; "
+            "assert fs._lib.cache_info().currsize == 0; "
             "print(b._libs)")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

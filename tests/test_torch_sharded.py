@@ -1,7 +1,7 @@
 """The port's sharded round on the CPU, tolerance 0 everywhere.
 
 - the shard helpers (``_roll_sharded``, ``_sloc_roll``, the probe
-  tick's point reads ``probe._points``; the shifts on the host and as
+  tick's point reads ``slot_ops.get_points``; the shifts on the host and as
   device values) against plain torch on the concatenated matrix;
 - kernel 2's plain version ``fused.merge_ref`` against the reference's
   ``_age_u8``/``_merge`` composed as ``_fused_sharded``'s body;
@@ -29,7 +29,7 @@ from consul_tpu.gossip import kernel as jk
 from consul_tpu.gossip.params import SwimParams as JParams
 from consul_tpu.gossip.params import lan_profile as j_lan
 from consul_tpu_torch import prng
-from consul_tpu_torch.gossip import convert, fused, probe, round_args
+from consul_tpu_torch.gossip import convert, fused, round_args, slot_ops
 from consul_tpu_torch.gossip import kernel as tk
 from consul_tpu_torch.gossip.params import SwimParams as TParams
 from consul_tpu_torch.gossip.params import lan_profile as t_lan
@@ -110,7 +110,7 @@ def test_window_pools_cover_one_two_and_three_shards():
 @pytest.mark.parametrize("pool", WINDOW_POOLS)
 def test_window_read_write_match_slicing(pool):
     """The probe tick's reads in the prober window of the sharded matrix
-    (``probe._points``: one byte a prober column, at any slot row) equal
+    (``slot_ops.get_points``: one byte a prober column, at any slot row) equal
     the unsharded matrix's, whichever shards the window spans."""
     N, ndev, probe_every = pool
     B = N // probe_every
@@ -120,7 +120,8 @@ def test_window_read_write_match_slicing(pool):
     for k in range(probe_every):
         cols = k * B + torch.arange(B)
         rows = torch.from_numpy(rng.integers(0, 6, B))
-        assert torch.equal(probe._points(xs, rows, cols), x[rows, cols]), k
+        assert torch.equal(slot_ops.get_points(xs, rows, cols),
+                           x[rows, cols]), k
 
 
 # -- (b) kernel 2's plain version ---------------------------------------------
