@@ -101,12 +101,14 @@ result lines are not printed.
    ``fire_timers``, the refutation's byte and the timer fire, and
    ``wipe_rows``) against ``fire_timers_ref`` / ``wipe_rows_ref`` on the
    card, tolerance 0 in every byte and in ``fired``, at [64, 1M] (the 1M
-   round), [32, 250,000] (a multi-DC LAN pool), [64, 16,001] (the byte
-   path), [64, 250,000] on 8 shards of 31,250 (L % 16 == 2) and [8, 1M]
-   (the hot tier's rows), over 64 seeds each (every byte value, rx
-   holes, the timer masks of every row, of two and of none, with and
-   without the refutation, its columns on the shards' edges; the wipe of
-   two rows and the last, of none and of all).  Times from CUDA-graph
+   round), [32, 250,000] (a multi-DC LAN pool), [64, 16,001] (odd N),
+   [64, 250,000] on 8 shards of 31,250 (L % 16 == 2), [8, 1M] (the hot
+   tier's rows) and [64, 1M] on 8 shards of 125,000 (L % 16 == 8), over
+   64 seeds each (every byte value, rx holes, the timer masks of every
+   row, of two and of none, with and without the refutation, its columns
+   on the shards' edges; the wipe of two rows and the last, of none and
+   of all; every fourth seed with the shards and rx at odd byte
+   offsets).  Times from CUDA-graph
    replays (20 launches a graph), the fire also on fresh bytes (replays
    of a restore of the matrix and the launch, less the restore's), the
    plain versions', each beside the
@@ -1459,11 +1461,12 @@ def observe_shapes_vs_plain(shapes: set) -> list:
 
 # -- the finish step's passes: the fire pass and the row wipes ------------------
 
-# The 1M round's matrix, a multi-DC LAN pool's, the byte path (N % 4 ==
-# 1), 8 shards of 31,250 (L % 16 == 2: the byte path across shards), the
-# hot tier's gathered rows at 1M.
+# The 1M round's matrix, a multi-DC LAN pool's, odd N (N % 16 == 1), 8
+# shards of 31,250 (a sharded multi-DC pool's, L % 16 == 2), the hot
+# tier's gathered rows at 1M, 8 shards of 125,000 (the sharded 1M round's,
+# L % 16 == 8).
 FINISH_SHAPES = ((64, 1_000_000, 1), (32, 250_000, 1), (64, 16_001, 1),
-                 (64, 250_000, 8), (8, 1_000_000, 1))
+                 (64, 250_000, 8), (8, 1_000_000, 1), (64, 1_000_000, 8))
 # Rows whose timer can fire in a usual 1M churn round (a slot or two at
 # the end of its suspicion), and rows a round wipes.
 FINISH_FEW = 2
@@ -1472,14 +1475,14 @@ FINISH_FEW = 2
 def finish_ops_per_word() -> int:
     """The fire rule's integer operations a 32-bit word (four columns of
     one row), counted by hand from ``csrc/finish.cu``'s ``fire_word`` in
-    instruction slots, a three-input logic op (LOP3) being one slot, each
-    test at bit 4 of its byte: 3 shifts (conf bit 1 and the message's two
-    bits to bit 4), 1 for rx's bit to bit 4, 4 LOP3s for the four (conf,
-    timer bit) terms and 2 to join them, 2 for the fire (SUSPECT, rx, the
-    timer), 2 to spread it over its byte (a shift and a multiply), 1 to
-    select DEAD, 1 for the row's fired flag and 1 to compare the word with
-    what was read: 17."""
-    return 3 + 1 + 4 + 2 + 2 + 2 + 1 + 1 + 1
+    instruction slots, a three-input logic op (LOP3) being one slot, the
+    rule one table lookup a byte: 1 shift of each byte's top nibble down,
+    1 LOP3 to mask it and add the no-rx bit, 1 to join each half's two
+    nibbles, 1 byte permute to pack them into the lookup's selector, 1 byte
+    permute for the lookup, 1 shift and 1 LOP3 to write DEAD where it
+    fired, 1 for the row's fired flag and 1 to compare the word with what
+    was read: 9."""
+    return 1 + 1 + 1 + 1 + 1 + 2 + 1 + 1
 
 
 def _finish_bound(R: int, N: int, read_rows: int, written: int,
@@ -1527,12 +1530,34 @@ def _finish_inputs(R: int, N: int, seed: int):
     return heard, rx, ok_all, ok_few, (col, rb), flags
 
 
-def _split_rows(heard: torch.Tensor, ndev: int):
+def _split_rows(heard: torch.Tensor, ndev: int, offset: int = 0):
     """The matrix as ``ndev`` column shards (new tensors; a new tensor at
-    1)."""
-    L = heard.shape[1] // ndev
-    out = tuple(heard[:, i * L:(i + 1) * L].clone() for i in range(ndev))
+    1); with ``offset``, shard i is an [R, L] view that starts (offset +
+    5 i) % 16 bytes into a buffer of its own, so its rows sit at other
+    phases mod 16 than an allocation gives."""
+    R, N = heard.shape
+    L = N // ndev
+    if not offset:
+        out = tuple(heard[:, i * L:(i + 1) * L].clone() for i in range(ndev))
+    else:
+        out = []
+        for i in range(ndev):
+            o = (offset + 5 * i) % 16
+            buf = torch.empty(R * L + 16, dtype=torch.uint8,
+                              device=heard.device)
+            view = buf[o:o + R * L].view(R, L)
+            view.copy_(heard[:, i * L:(i + 1) * L])
+            out.append(view)
+        out = tuple(out)
     return out if ndev > 1 else out[0]
+
+
+def _shifted(v: torch.Tensor, offset: int) -> torch.Tensor:
+    """``v`` (1-D) as a view ``offset`` bytes into a buffer of its own."""
+    buf = torch.empty(v.numel() + 16, dtype=v.dtype, device=v.device)
+    out = buf[offset:offset + v.numel()]
+    out.copy_(v)
+    return out
 
 
 def _same_rows(a, b) -> bool:
@@ -1541,13 +1566,15 @@ def _same_rows(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def _finish_held(heard, ndev, rx, ok, refute, scratch) -> int:
-    """One fire launch on a copy against the plain version on another;
-    raises unless every byte and ``fired`` agree.  Returns the bytes the
-    launch changed."""
+def _finish_held(heard, ndev, rx, ok, refute, scratch, offset=0) -> int:
+    """One fire launch on a copy (its shards and rx ``offset`` bytes into
+    buffers of their own where that is nonzero, ``_split_rows``) against
+    the plain version on another; raises unless every byte and ``fired``
+    agree.  Returns the bytes the launch changed."""
     from consul_tpu_torch.gossip import finish
-    got, ref = _split_rows(heard, ndev), _split_rows(heard, ndev)
-    fired = finish.fire_timers(got, rx, ok, refute, scratch)
+    got, ref = _split_rows(heard, ndev, offset), _split_rows(heard, ndev)
+    fired = finish.fire_timers(got, _shifted(rx, offset) if offset else rx,
+                               ok, refute, scratch)
     want = finish.fire_timers_ref(ref, rx, ok, refute)
     if not (torch.equal(fired, want) and _same_rows(got, ref)):
         raise AssertionError("fire_timers != plain")
@@ -1555,9 +1582,9 @@ def _finish_held(heard, ndev, rx, ok, refute, scratch) -> int:
     return int((got != heard).sum())
 
 
-def _wipe_held(heard, ndev, flags) -> None:
+def _wipe_held(heard, ndev, flags, offset=0) -> None:
     from consul_tpu_torch.gossip import finish
-    got, ref = _split_rows(heard, ndev), _split_rows(heard, ndev)
+    got, ref = _split_rows(heard, ndev, offset), _split_rows(heard, ndev)
     finish.wipe_rows(got, flags)
     finish.wipe_rows_ref(ref, flags)
     if not _same_rows(got, ref):
@@ -1587,7 +1614,8 @@ def finish_phase(card_line: str, seeds: int = 64) -> dict:
     every byte and in ``fired``, at ``FINISH_SHAPES`` over ``seeds`` fresh
     inputs each: the fire with the timer masks of every row, of a few and
     of none, each with the refutation, and of every row without it; the
-    wipe of a few rows (the last among them), of none and of every row.
+    wipe of a few rows (the last among them), of none and of every row;
+    every fourth seed with the shards and rx at odd byte offsets.
     Times from CUDA-graph replays (20 launches a graph; a replayed fire
     finds its bytes already DEAD, so it reads its rows and writes none),
     the fire on fresh bytes (``_first_launch_ms``), the plain versions'
@@ -1597,21 +1625,24 @@ def finish_phase(card_line: str, seeds: int = 64) -> dict:
     from consul_tpu_torch.gossip import finish, observe
 
     t0 = time.perf_counter()
-    rows, held = {}, 0
+    rows, held, held_offset = {}, 0, 0
     for R, N, ndev in FINISH_SHAPES:
         sc = observe.counts_scratch(R, "cuda")  # a round program's
         for seed in range(seeds):
             heard, rx, ok_all, ok_few, refute, flags = _finish_inputs(
                 R, N, 2000 * R + seed)
             none = torch.zeros_like(ok_all)
+            off = 1 + seed % 15 if seed % 4 == 3 else 0
             for ok, ref in ((ok_all, refute), (ok_few, refute),
                             (none, refute), (ok_all, None)):
-                _finish_held(heard, ndev, rx, ok, ref, sc)
+                _finish_held(heard, ndev, rx, ok, ref, sc, off)
                 held += 1
+                held_offset += off > 0
             for fl in (flags, torch.zeros_like(flags),
                        torch.ones_like(flags)):
-                _wipe_held(heard, ndev, fl)
+                _wipe_held(heard, ndev, fl, off)
                 held += 1
+                held_offset += off > 0
         heard, rx, ok_all, ok_few, refute, flags = _finish_inputs(R, N, 7)
         none = torch.zeros_like(ok_all)
         changed = _finish_held(heard, ndev, rx, ok_all, refute, sc)
@@ -1627,8 +1658,8 @@ def finish_phase(card_line: str, seeds: int = 64) -> dict:
                            iters=5 if N >= 250_000 else 20)
         n_few = int(flags.sum())
         wipe_ms = graph_ms(lambda: finish.wipe_rows(h, flags))
-        wipe_ms_none = graph_ms(lambda: finish.wipe_rows(
-            h, torch.zeros_like(flags)))
+        no_flags = torch.zeros_like(flags)
+        wipe_ms_none = graph_ms(lambda: finish.wipe_rows(h, no_flags))
         ones = torch.ones_like(flags)
         wipe_ms_all = graph_ms(lambda: finish.wipe_rows(h, ones))
         wipe_plain_ms = cuda_ms(lambda: finish.wipe_rows_ref(h, flags),
@@ -1665,10 +1696,11 @@ def finish_phase(card_line: str, seeds: int = 64) -> dict:
         if int(sc.abs().sum()):
             raise AssertionError(f"fire_timers left its scratch non-zero at "
                                  f"{R}x{N}/{ndev}")
-        del heard, rx, ok_all, ok_few, refute, flags, h, none, ones
+        del heard, rx, ok_all, ok_few, refute, flags, h, none, ones, no_flags
     torch.cuda.empty_cache()
     res = {"phase": "finish", "card": card_line, "tolerance": 0,
-           "max_abs_err": 0, "launches_held": held, "seeds": seeds,
+           "max_abs_err": 0, "launches_held": held,
+           "launches_held_at_offsets": held_offset, "seeds": seeds,
            "operations_per_word": finish_ops_per_word(), "shapes": rows,
            "seconds": time.perf_counter() - t0}
     emit(res)

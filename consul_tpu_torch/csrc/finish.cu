@@ -36,54 +36,91 @@
 // is not wiped, and a wipe reads nothing of the matrix.  So the least
 // bytes are the live rows read and written (a fired row's bytes mostly
 // change), rx read once, the per-row arguments; for a wipe the flagged
-// rows written.  A round with no live row pays a launch: every block
-// reads the R row arguments and leaves.  The rule is 17 integer
-// instructions a 32-bit word of four bytes, counted by hand in issue slots
-// (chip_smoke.py finish_ops_per_word): at 67e12 / 4 ops/s under the
-// bytes' time at 3.35 TB/s, so the bytes bound it.
+// rows written.  A round with no live row pays a launch.  The rule is one
+// table lookup a byte, 9 integer instructions a 32-bit word of four bytes
+// counted by hand in issue slots (chip_smoke.py finish_ops_per_word): at
+// 67e12 / 4 ops/s under the bytes' time at 3.35 TB/s, so the bytes bound
+// it.
 //
-// Work split.  Every block first lists the rows to touch in shared memory
-// (warp 0, 32 row arguments a ballot, in row order, the same list in
-// every block), then the grid's threads stride over (listed row, unit)
-// pairs, a unit being kCols = 16 columns of one shard, neighbouring
-// threads on neighbouring units of a row.  The path is the launch's, as
-// observe.cu's: 16-byte accesses where L % 16 == 0 and every buffer is
-// 16-byte aligned, 4-byte ones where L % 4 == 0 and they are 4-byte
-// aligned, and bytes otherwise (a ragged unit's bytes past the row's end
-// are neither read nor written).  The fire writes only the words (bytes,
-// on the byte path) that change.
+// Work split.  The grid is at most one wave, kBlocksPerSM blocks of
+// kThreads on each of the H100's 132 SMs (fewer where the matrix has less
+// work at its most), fixed at capture; the blocks find the work inside it.
+//   - The live rows.  Every block lists the rows whose argument is nonzero
+//     in shared memory, in row order, the same list in every block: warp 0
+//     ballots 32 row arguments at a time, the loads of four ballots issued
+//     together (at R = 64 one round trip, one barrier); the fire packs each
+//     listed row's ok mask and refutation in the same round trip (a
+//     listing by every warp, with a prefix of their counts and three
+//     barriers, made every launch slower on the card).  The list is each
+//     block's own rather than one the kernel before writes
+//     (decide_kernel's ok_mask, slots_kernel's rearm, settle_kernel's
+//     expired): a launch with no live row costs the fire about 0.0022 ms
+//     and the wipe 0.0017 on an H100 (chip_smoke.py --phase finish), and
+//     the kernels keep no contract with another kernel's outputs.
+//   - Units.  A shard's row is cut into 16-byte units at its own 16-byte
+//     address boundaries: unit u of the row covers columns [a - 16 + 16 u,
+//     a + 16 u) where a is the row's first aligned column (a head unit u = 0
+//     and a tail unit clipped to the row, both read and written a byte at
+//     a time; every other unit one 16-byte access).  So every row of every
+//     shard width takes 16-byte accesses whatever L % 16, and alignment
+//     the caller's buffers do not give is handled the same way.
+//   - Items.  A fire's span is kSpan units of one shard (kUnits a thread,
+//     kThreads apart), the same unit numbers in every row; its item is a
+//     span and a group of the listed rows, G groups, as many as fill the
+//     grid and at most one a row, so a few live rows still spread over the
+//     card and many let a block walk several rows over one span.  A
+//     thread loads the next row's units before it fires the current one's.
+//     A wipe's item is one row and a span of kThreads units (a unit a
+//     thread), in row order.  Blocks stride over items.  No unit needs a
+//     division: an item's shard, span and rows are found once, a unit's
+//     columns from the thread's index.
+//   - rx.  The fire stages a span's rx in shared memory once an item, as
+//     no-rx bytes (0x08 where rx is 0: the bit the rule's lookup reads),
+//     with the item's first row's loads in flight.  A row reads its unit's
+//     16 bytes there at its own phase against rx: one 16-byte read where
+//     the phases agree, else the two aligned 16-byte words around them and
+//     funnel shifts, one code path for each word offset (the phase is the
+//     row's, so the path is the warp's; 16-byte reads a thread at a
+//     16-byte stride share no bank).
+//   - A row whose units of this thread are all whole takes a path with no
+//     test a unit but the refutation's.
+//   - Writes: the fire writes only the 4-byte words (bytes, in a head or
+//     tail unit) that change; the wipe writes the units of its rows.
 //
-// fired without a memset.  A thread that fires a byte marks its listed
-// row in shared memory; the block adds its marks into a caller's scratch
-// (one word a row, atomicOr) and arrives at a grid counter after them
-// (release); the last block to arrive (acquire) writes fired[0, R) from
-// the scratch and zeroes the scratch and the counter.  So the scratch is
-// zero between launches (its owner makes it zero once, observe.cu's
-// scratch serves: a launch uses its first R + 1 words), fired needs no
-// memset, and a launch reads nothing from the host: it runs inside the
-// round program's captured graphs.  One scratch serves one launch at a
-// time.
+// fired without a memset, and no arrival over more than one wave.  A
+// thread that fires a byte marks its listed row in shared memory; the
+// block adds its marks into a caller's scratch (one word a row, atomicOr)
+// and arrives at a counter after them (release); the last of the blocks
+// that had an item (at most the grid, one wave) to arrive (acquire) writes
+// fired[0, R) from the scratch and zeroes the scratch and the counter.
+// With no live row no block arrives: block 0 writes fired zero.  So the
+// scratch is zero between launches (its owner makes it zero once,
+// observe.cu's scratch serves: a launch uses its first R + 1 words), fired
+// needs no memset, and a launch reads nothing from the host: it runs
+// inside the round program's captured graphs.  One scratch serves one
+// launch at a time.  (Having the decision kernel zero fired would spare
+// the arrival but tie the fire to that kernel's outputs.)
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "belief_merge.cuh"
-
 namespace finish {
 
 constexpr int kMaxShards = 64;
 constexpr int kMaxRows = 2048;     // rows a launch takes (the listed rows)
-constexpr int kThreads = 256;
-constexpr int kCols = 16;          // a unit: columns of one shard
+constexpr int kThreads = 256;      // a block
+constexpr int kCols = 16;          // a unit: columns of one shard row
 constexpr int kWords = kCols / 4;
-// Blocks the launcher aims at: 8 of 256 threads on each of the H100's 132
-// SMs; a small matrix takes fewer (a thread a unit of every row at least).
-constexpr int kFillBlocks = 132 * 8;
-constexpr uint32_t kDead = 0x80u;  // DEAD, conf 0, age 0
-constexpr uint32_t kBit4 = 0x10101010u;  // bit 4 of each byte
-
-enum Path { kBytes = 0, kWords4 = 1, kWords16 = 2 };
+constexpr int kUnits = 2;          // units a thread fires of each row
+constexpr int kSpan = kThreads * kUnits;  // units a fire's span
+constexpr int kWipeSpan = kThreads;       // a wipe's: a unit a thread
+constexpr int kListBallots = 4;           // ballots a round of the listing
+// The grid at most: one wave of kBlocksPerSM blocks on each of the H100's
+// 132 SMs.
+constexpr int kBlocksPerSM = 4;
+constexpr int kMaxBlocks = 132 * kBlocksPerSM;
+constexpr uint32_t kNib = 0x0F0F0F0Fu;  // the low nibble of each byte
 
 // Everything a launch needs, passed by value (about 560 bytes of the 4 KB
 // parameter block) as a __grid_constant__.
@@ -96,9 +133,8 @@ struct Args {
   uint8_t* fired;           // [R] (fire)
   uint32_t* scratch;        // >= R + 1 words, zero between launches (fire)
   int R, L, ndev;
-  int units;      // units a shard, ceil(L / kCols)
-  int blocks;
-  int path;
+  int units;      // units a shard row at most: L / 16 rounded up, + 1
+  int spans;      // spans a shard: units / (kSpan or kWipeSpan) rounded up
 };
 
 // Adds one to a counter in device memory at GPU scope with release
@@ -124,227 +160,510 @@ __device__ __forceinline__ void fence_acquire() {
 }
 
 // A mark that several threads of a block may set at once (each writes 1).
-__device__ __forceinline__ void mark(uint32_t* p) {
+__device__ __forceinline__ void mark(uint8_t* p) {
 #ifdef __CUDA_ARCH__
-  *reinterpret_cast<volatile uint32_t*>(p) = 1u;
+  *reinterpret_cast<volatile uint8_t*>(p) = 1;
 #else
-  __atomic_store_n(p, 1u, __ATOMIC_RELAXED);
+  __atomic_store_n(p, static_cast<uint8_t>(1), __ATOMIC_RELAXED);
 #endif
 }
 
-// The rows whose argument sel[r] is nonzero, in row order, into list[];
-// returns how many.  Warp 0 builds it, 32 rows a ballot; every block
-// builds the same list.
-__device__ __forceinline__ int list_rows(const uint8_t* sel, int R,
-                                         uint16_t* list, int* s_n) {
-  const int t = static_cast<int>(threadIdx.x);
-  if (t < 32) {
+// PTX prmt in its default mode: result byte i is byte (c's nibble i & 7)
+// of the eight bytes {b, a} (a's first), or, where the nibble's bit 3 is
+// set, that byte's top bit copied over all eight bits.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t c) {
+#ifdef __CUDA_ARCH__
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+#else
+  const uint64_t v = static_cast<uint64_t>(b) << 32 | a;
+  uint32_t d = 0u;
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t n = (c >> (4 * i)) & 15u;
+    uint32_t x = static_cast<uint32_t>(v >> (8 * (n & 7u))) & 0xFFu;
+    if (n & 8u) x = (x & 0x80u) != 0u ? 0xFFu : 0u;
+    d |= x << (8 * i);
+  }
+  return d;
+#endif
+}
+
+// The 32 bits of {hi, lo} from bit sh (0 <= sh < 32) on.
+__device__ __forceinline__ uint32_t funnel(uint32_t lo, uint32_t hi, int sh) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(lo, hi, static_cast<unsigned>(sh));
+#else
+  return static_cast<uint32_t>((static_cast<uint64_t>(hi) << 32 | lo) >> sh);
+#endif
+}
+
+// A block's list of the rows whose argument sel[r] is nonzero, in row
+// order, and how many (the same in every block).  For the fire each entry
+// is the row's arguments packed (pack_row), for the wipe the row.
+struct Listing {
+  uint32_t rows[kMaxRows];
+  int n;
+};
+
+// A row's fire arguments packed: the row (bits 0-10), its ok mask
+// (12-15), its refutation byte (16-23) and the refutation's shard + 1
+// (24-30; 0: none); and the refutation's column in that shard (lc).
+__device__ __forceinline__ uint32_t pack_row(const Args& a, int r,
+                                             uint32_t ok, uint32_t rb, int c,
+                                             int& lc) {
+  uint32_t v = static_cast<uint32_t>(r) | (ok & 15u) << 12;
+  lc = 0;
+  if (rb != 0u && c >= 0 && c / a.L < a.ndev) {
+    const int i = c / a.L;
+    lc = c - i * a.L;
+    v |= rb << 16 | static_cast<uint32_t>(i + 1) << 24;
+  }
+  return v;
+}
+
+// Warp 0 lists the rows, kListBallots ballots of 32 row arguments a
+// round, their loads (with the fire's refutation arguments) issued
+// together: at R = 64 one round trip; one barrier for the block.
+// Returns how many rows are listed.
+template <bool kFire>
+__device__ __forceinline__ int list_rows(const Args& a, Listing& s,
+                                         int* ref_col) {
+  const int lane = static_cast<int>(threadIdx.x);
+  if (lane < 32) {
     int n = 0;
-    for (int r0 = 0; r0 < R; r0 += 32) {
-      const int r = r0 + t;
-      const bool on = r < R && __ldg(sel + r) != 0;
-      const unsigned m = __ballot_sync(0xFFFFFFFFu, on);
-      if (on) {
-        list[n + __popc(m & ((1u << t) - 1u))] = static_cast<uint16_t>(r);
-      }
-      n += __popc(m);
-    }
-    if (t == 0) *s_n = n;
-  }
-  __syncthreads();
-  return *s_n;
-}
-
-// The n (<= kCols) bytes at p as four words, zero past n, by the launch's
-// path (observe.cu's load_unit).
-__device__ __forceinline__ void load_unit(const uint8_t* p, int n, int path,
-                                          uint32_t w[kWords]) {
-  if (path == kWords16) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-    return;
-  }
-  if (path == kWords4) {
+    for (int r0 = 0; r0 < a.R; r0 += 32 * kListBallots) {
+      uint32_t ok[kListBallots], rb[kListBallots];
+      int col[kListBallots];
 #pragma unroll
-    for (int k = 0; k < kWords; ++k) {
-      w[k] = 4 * k < n ? reinterpret_cast<const uint32_t*>(p)[k] : 0u;
-    }
-    return;
-  }
-  uint32_t b[kCols];
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) {
-    b[k] = k < n ? static_cast<uint32_t>(p[k]) : 0u;
-  }
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    w[k] = b[4 * k] | b[4 * k + 1] << 8 | b[4 * k + 2] << 16 |
-           b[4 * k + 3] << 24;
-  }
-}
-
-// The rx bytes of a unit (read-only for the whole launch).
-__device__ __forceinline__ void load_rx(const uint8_t* p, int n, int path,
-                                        uint32_t w[kWords]) {
-  if (path == kWords16) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-    return;
-  }
-  if (path == kWords4) {
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) {
-      w[k] = 4 * k < n ? __ldg(reinterpret_cast<const uint32_t*>(p) + k)
-                       : 0u;
-    }
-    return;
-  }
-  uint32_t b[kCols];
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) {
-    b[k] = k < n ? static_cast<uint32_t>(__ldg(p + k)) : 0u;
-  }
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    w[k] = b[4 * k] | b[4 * k + 1] << 8 | b[4 * k + 2] << 16 |
-           b[4 * k + 3] << 24;
-  }
-}
-
-// Writes back the words of a unit that differ from what was read: a word
-// at a time on the word paths, a byte at a time (the n of the unit) on
-// the byte path.
-__device__ __forceinline__ void store_changed(uint8_t* p, int n, int path,
-                                              const uint32_t was[kWords],
-                                              const uint32_t now[kWords]) {
-  if (path != kBytes) {
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) {
-      if (now[k] != was[k] && 4 * k < n) {
-        reinterpret_cast<uint32_t*>(p)[k] = now[k];
-      }
-    }
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) {
-    const uint32_t a = (was[k / 4] >> (8 * (k % 4))) & 0xFFu;
-    const uint32_t b = (now[k / 4] >> (8 * (k % 4))) & 0xFFu;
-    if (a != b && k < n) p[k] = static_cast<uint8_t>(b);
-  }
-}
-
-// The fire rule on four bytes, each test at bit 4 of its byte (where conf
-// bit 0 sits; w >> 1, >> 2 and >> 3 bring conf bit 1 and the message's
-// two bits there, from the same byte): a byte whose message is SUSPECT
-// (01), whose column takes messages (rx4: bit 4 set) and whose
-// confirmation count c has bit c of the row's ok set (kc[c]: kBit4 where
-// set, else 0) becomes kDead.  Returns the new word; fired_w gets bit 4
-// in each byte that fired.
-__device__ __forceinline__ uint32_t fire_word(uint32_t w, uint32_t rx4,
-                                              const uint32_t kc[4],
-                                              uint32_t& fired_w) {
-  const uint32_t a = w >> 1;             // conf bit 1 at bit 4
-  const uint32_t ok = (kc[0] & ~a & ~w) | (kc[1] & ~a & w) |
-                      (kc[2] & a & ~w) | (kc[3] & a & w);
-  const uint32_t f = ok & (w >> 2) & ~(w >> 3) & rx4;
-  fired_w = f;
-  const uint32_t fm = (f >> 4) * 0xFFu;  // 0xFF in each byte that fired
-  return (w & ~fm) | (kDead * kLsb & fm);
-}
-
-__global__ void __launch_bounds__(kThreads)
-fire_kernel(const __grid_constant__ Args a) {
-  __shared__ uint16_t s_list[kMaxRows];
-  __shared__ uint32_t s_fired[kMaxRows];
-  __shared__ int s_n;
-  __shared__ int s_last;
-  const int t = static_cast<int>(threadIdx.x);
-  const int n_live = list_rows(a.sel, a.R, s_list, &s_n);
-  for (int j = t; j < n_live; j += kThreads) s_fired[j] = 0u;
-  __syncthreads();
-
-  const long long gtid =
-      static_cast<long long>(blockIdx.x) * kThreads + t;
-  const long long gstride = static_cast<long long>(a.blocks) * kThreads;
-
-  // The refutation byte of a row that is not listed: one byte, by one
-  // thread of the grid.  (A listed row's is applied in its unit below,
-  // before the fire test.)
-  if (a.col != nullptr) {
-    for (long long row = gtid; row < a.R; row += gstride) {
-      const uint8_t b = __ldg(a.rb + row);
-      if (b == 0 || __ldg(a.sel + row) != 0) continue;
-      const int c = __ldg(a.col + row);
-      const int i = c / a.L;
-      uint8_t* p = a.in[i] + row * a.L + (c - i * a.L);
-      if (*p < b) *p = b;
-    }
-  }
-
-  const int per_row = a.ndev * a.units;
-  const long long total = static_cast<long long>(n_live) * per_row;
-  int j_cur = -1;
-  int r = 0, ref_i = -1, ref_u = -1, ref_k = 0;
-  uint32_t kc[4] = {}, rb = 0u;
-  for (long long x = gtid; x < total; x += gstride) {
-    const int j = static_cast<int>(x / per_row);
-    const int u = static_cast<int>(x - static_cast<long long>(j) * per_row);
-    if (j != j_cur) {
-      j_cur = j;
-      r = s_list[j];
-      const uint32_t ok = __ldg(a.sel + r);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kc[c] = ((ok >> c) & 1u) * kBit4;
-      ref_i = -1;
-      if (a.col != nullptr) {
-        rb = __ldg(a.rb + r);
-        if (rb != 0u) {
-          const int c = __ldg(a.col + r);
-          ref_i = c / a.L;
-          const int lc = c - ref_i * a.L;
-          ref_u = lc / kCols;
-          ref_k = lc - ref_u * kCols;
+      for (int q = 0; q < kListBallots; ++q) {
+        const int r = r0 + 32 * q + lane;
+        ok[q] = 0u;
+        rb[q] = 0u;
+        col[q] = -1;
+        if (r < a.R) {
+          ok[q] = __ldg(a.sel + r);
+          if (kFire && a.col != nullptr) {
+            rb[q] = __ldg(a.rb + r);
+            col[q] = __ldg(a.col + r);
+          }
         }
       }
-    }
-    const int i = u / a.units;
-    const int un = u - i * a.units;
-    const int c0 = un * kCols;
-    const int n = min(kCols, a.L - c0);
-    uint8_t* p = a.in[i] + static_cast<size_t>(r) * a.L + c0;
-    uint32_t was[kWords], rxw[kWords], now[kWords];
-    load_unit(p, n, a.path, was);
-    load_rx(a.rx + static_cast<size_t>(i) * a.L + c0, n, a.path, rxw);
 #pragma unroll
-    for (int k = 0; k < kWords; ++k) now[k] = was[k];
-    if (i == ref_i && un == ref_u) {
-      // The refutation first: max of the byte and rb.
-      const int w = ref_k / 4, s = 8 * (ref_k % 4);
-      const uint32_t b = (now[w] >> s) & 0xFFu;
-      if (b < rb) now[w] = (now[w] & ~(0xFFu << s)) | (rb << s);
+      for (int q = 0; q < kListBallots; ++q) {
+        const int r = r0 + 32 * q + lane;
+        const unsigned m = __ballot_sync(0xFFFFFFFFu, ok[q] != 0u);
+        if (ok[q] != 0u) {
+          const int j = n + __popc(m & ((1u << lane) - 1u));
+          if (kFire) {
+            s.rows[j] = pack_row(a, r, ok[q], rb[q], col[q], ref_col[j]);
+          } else {
+            s.rows[j] = static_cast<uint32_t>(r);
+          }
+        }
+        n += __popc(m);
+      }
     }
-    uint32_t any = 0u;
+    if (lane == 0) s.n = n;
+  }
+  __syncthreads();
+  return s.n;
+}
+
+// The launch's cut into items: spans x groups of the n_live listed rows.
+struct Split {
+  int spans;   // spans over all shards
+  int groups;  // row groups
+  int items;
+};
+
+__device__ __forceinline__ Split split(const Args& a, int n_live,
+                                       bool row_items) {
+  Split p;
+  p.spans = a.ndev * a.spans;
+  const int fill = static_cast<int>(gridDim.x) / p.spans;
+  p.groups = row_items || fill >= n_live ? n_live : (fill < 1 ? 1 : fill);
+  p.items = p.spans * p.groups;
+  return p;
+}
+
+// Item x: its shard, its span there and its listed rows [jlo, jhi).
+struct Item {
+  int i, s, jlo, jhi;
+};
+
+__device__ __forceinline__ Item item_of(const Args& a, const Split& p, int x,
+                                        int n_live) {
+  const int g = x / p.spans;
+  const int sp = x - g * p.spans;
+  Item it;
+  it.i = sp / a.spans;
+  it.s = sp - it.i * a.spans;
+  // g < groups <= n_live <= kMaxRows, so the products fit an int.
+  it.jlo = g * n_live / p.groups;
+  it.jhi = (g + 1) * n_live / p.groups;
+  return it;
+}
+
+// The first aligned column of the shard row starting at `row`: unit u of
+// the row covers columns [a - 16 + 16 u, a + 16 u), so unit 0 starts
+// before the row and every unit at a 16-byte address boundary.
+__device__ __forceinline__ int phase(const uint8_t* row) {
+  return static_cast<int>((0u - reinterpret_cast<uintptr_t>(row)) & 15u);
+}
+
+// A 16-byte access to the matrix at p, which must be 16-byte aligned: the
+// card faults otherwise, and the host build of this file (its tests) traps.
+__device__ __forceinline__ uint4* at16(uint8_t* p) {
+#ifndef __CUDA_ARCH__
+  if ((reinterpret_cast<uintptr_t>(p) & 15u) != 0u) __builtin_trap();
+#endif
+  return reinterpret_cast<uint4*>(p);
+}
+
+// A unit lies wholly in its row (one 16-byte access), in part (a head or
+// tail, byte by byte) or not at all.
+__device__ __forceinline__ bool whole(int c0, int L) {
+  return c0 >= 0 && c0 <= L - kCols;
+}
+
+__device__ __forceinline__ bool touches(int c0, int L) {
+  return c0 > -kCols && c0 < L;
+}
+
+// The unit at p (first column c0 of a row of L bytes) as four words, the
+// bytes outside the row 0.
+__device__ __forceinline__ void load_unit(const uint8_t* p, int c0, int L,
+                                          uint32_t w[kWords]) {
+  if (whole(c0, L)) {
+    const uint4 v = *at16(const_cast<uint8_t*>(p));
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) w[k] = 0u;
+  if (!touches(c0, L)) return;
+  for (int k = 0; k < kCols; ++k) {
+    if (c0 + k >= 0 && c0 + k < L) {
+      w[k / 4] |= static_cast<uint32_t>(p[k]) << (8 * (k % 4));
+    }
+  }
+}
+
+// Writes back the words of a unit that differ from what was read (in a
+// head or tail unit, the bytes of the row that differ).
+__device__ __forceinline__ void store_changed(uint8_t* p, int c0, int L,
+                                              const uint32_t was[kWords],
+                                              const uint32_t now[kWords]) {
+  if (whole(c0, L)) {
 #pragma unroll
     for (int k = 0; k < kWords; ++k) {
-      uint32_t f;
-      now[k] = fire_word(now[k], rxw[k] << 4, kc, f);
-      any |= f;
+      if (now[k] != was[k]) reinterpret_cast<uint32_t*>(p)[k] = now[k];
     }
-    store_changed(p, n, a.path, was, now);
-    if (any != 0u) mark(&s_fired[j]);
+    return;
+  }
+  for (int k = 0; k < kCols; ++k) {
+    const uint32_t b = (now[k / 4] >> (8 * (k % 4))) & 0xFFu;
+    if (b != ((was[k / 4] >> (8 * (k % 4))) & 0xFFu) && c0 + k >= 0 &&
+        c0 + k < L) {
+      p[k] = static_cast<uint8_t>(b);
+    }
+  }
+}
+
+// The 16 staged bytes at byte offset `off` of the span's rx, as four
+// words, by path P: 0 where off % 16 == 0 (one 16-byte read), else 1 + the
+// word offset (off % 16) / 4: the two aligned 16-byte words around them
+// and funnel shifts.  Every path reads 16 bytes a thread at a 16-byte
+// stride, so no two threads of a quarter warp share a bank.
+template <int P>
+__device__ __forceinline__ void rx_path(const uint4* s, int off,
+                                        uint32_t w[kWords]) {
+  const uint4 lo = s[off >> 4];
+  if (P == 0) {
+    w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
+    return;
+  }
+  const uint4 hi = s[(off >> 4) + 1];
+  const uint32_t x[2 * kWords] = {lo.x, lo.y, lo.z, lo.w,
+                                  hi.x, hi.y, hi.z, hi.w};
+  const int sh = 8 * (off & 3);
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) {
+    w[k] = funnel(x[P - 1 + k], x[P + k], sh);
+  }
+}
+
+// The rx path of a row: `off` mod 16 is its phase against rx's, the same
+// for every thread of the row, so the choice is the warp's.
+__device__ __forceinline__ int rx_path_of(int off) {
+  return (off & 15) == 0 ? 0 : 1 + ((off & 15) >> 2);
+}
+
+__device__ __forceinline__ void rx_at(const uint4* s, int off,
+                                      uint32_t w[kWords]) {
+  switch (rx_path_of(off)) {
+    case 0: rx_path<0>(s, off, w); break;
+    case 1: rx_path<1>(s, off, w); break;
+    case 2: rx_path<2>(s, off, w); break;
+    case 3: rx_path<3>(s, off, w); break;
+    default: rx_path<4>(s, off, w); break;
+  }
+}
+
+// The row's fire table: byte c is 0x7F where bit c of its ok mask is set
+// (a SUSPECT byte of confirmation count c fires), else 0.
+__device__ __forceinline__ uint32_t fire_table(uint32_t ok) {
+  return ((ok * 0x00204081u) & 0x01010101u) * 0x7Fu;
+}
+
+// The fire rule on four bytes by one table lookup: each byte's top nibble
+// (message, confirmation count), its bit 3 also set where the column
+// takes no message (no_rx: 0x08 there, else 0), selects a byte of {table,
+// 0}: index 4 + c (SUSPECT, count c) the table's byte c; 0-3 (message 0)
+// a zero; with bit 3 set (DEAD, REFUTE or no rx) the top bit of a byte
+// that has none, so 0.  fm gets 0x7F in each byte that fires, and those
+// become 0x80 (DEAD, conf 0, age 0).  Returns the new word.
+__device__ __forceinline__ uint32_t fire_word(uint32_t w, uint32_t no_rx,
+                                              uint32_t table, uint32_t& fm) {
+  const uint32_t x = ((w >> 4) | no_rx) & kNib;  // a nibble a byte
+  const uint32_t y = x | (x >> 4);  // bytes 0 and 2: nibbles 0-1 and 2-3
+  fm = prmt(0u, table, prmt(y, 0u, 0x0020u));
+  return (w | fm << 1) & ~fm;
+}
+
+// A thread's kUnits units of one row (its first at column c00, the
+// others kThreads units apart), loaded.
+struct RowUnits {
+  uint32_t w[kUnits][kWords];
+};
+
+__device__ __forceinline__ void load_row(const Args& a, const uint8_t* row,
+                                         int u0, RowUnits& b) {
+  const int c00 = phase(row) - kCols + kCols * u0;
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int c0 = c00 + kCols * kThreads * k;
+    if (u0 + kThreads * k < a.units) load_unit(row + c0, c0, a.L, b.w[k]);
+  }
+}
+
+// The refutation's max of byte e (0-15) of a unit and rb, the word chosen
+// by compile-time indices so that `now` stays in registers.
+__device__ __forceinline__ void refute_unit(uint32_t now[kWords], int e,
+                                            uint32_t rb) {
+  const int sh = 8 * (e & 3);
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    if (q == e >> 2 && ((now[q] >> sh) & 0xFFu) < rb) {
+      now[q] = (now[q] & ~(0xFFu << sh)) | (rb << sh);
+    }
+  }
+}
+
+// The refutation and the fire on the four words of a unit (was: as
+// loaded); returns the fire marks (fm of each word ORed).
+__device__ __forceinline__ uint32_t fire_unit(const uint32_t was[kWords],
+                                              const uint32_t no_rx[kWords],
+                                              uint32_t table, int e,
+                                              uint32_t rb,
+                                              uint32_t now[kWords]) {
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) now[q] = was[q];
+  if (static_cast<unsigned>(e) < static_cast<unsigned>(kCols)) {
+    refute_unit(now, e, rb);  // the refutation first
+  }
+  uint32_t any = 0u;
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    uint32_t fm;
+    now[q] = fire_word(now[q], no_rx[q], table, fm);
+    any |= fm;
+  }
+  return any;
+}
+
+// A row whose kUnits units of this thread are all whole, its rx by path
+// P: no test a unit but the refutation's.
+template <int P>
+__device__ __forceinline__ uint32_t fire_whole(uint8_t* row, int c00, int off,
+                                               int rk, uint32_t rb,
+                                               uint32_t table,
+                                               const uint4* rxs,
+                                               const RowUnits& b) {
+  uint32_t any = 0u;
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    uint32_t no_rx[kWords], now[kWords];
+    rx_path<P>(rxs, off + kCols * kThreads * k, no_rx);
+    any |= fire_unit(b.w[k], no_rx, table, rk - kCols * kThreads * k, rb,
+                     now);
+    uint32_t* p = reinterpret_cast<uint32_t*>(
+        at16(row + c00 + kCols * kThreads * k));
+#pragma unroll
+    for (int q = 0; q < kWords; ++q) {
+      if (now[q] != b.w[k][q]) p[q] = now[q];
+    }
+  }
+  return any;
+}
+
+// The refutation and the fire on a thread's units of listed row j (v its
+// packed arguments), loaded in b; writes back what changed.  Returns
+// nonzero where a byte fired.
+__device__ __forceinline__ uint32_t fire_row(const Args& a, const Item& it,
+                                             uint8_t* row, uint32_t v,
+                                             int ref_lc, int u0, int delta,
+                                             const uint4* rxs,
+                                             const RowUnits& b) {
+  const int a0 = phase(row);
+  const int c00 = a0 - kCols + kCols * u0;
+  const uint32_t table = fire_table((v >> 12) & 15u);
+  const uint32_t rb = (v >> 16) & 0xFFu;
+  // The refutation's column from unit 0's first (outside every unit where
+  // the row has none on this shard).
+  const int rk = static_cast<int>(v >> 24) == it.i + 1 ? ref_lc - c00 : -1;
+  // Unit 0's rx sits at smem byte delta + c00 - (16 kSpan s - 16).
+  const int off = delta + a0 + kCols * static_cast<int>(threadIdx.x);
+  if (c00 >= 0 && c00 <= a.L - kCols - kCols * kThreads * (kUnits - 1)) {
+    switch (rx_path_of(off)) {
+      case 0: return fire_whole<0>(row, c00, off, rk, rb, table, rxs, b);
+      case 1: return fire_whole<1>(row, c00, off, rk, rb, table, rxs, b);
+      case 2: return fire_whole<2>(row, c00, off, rk, rb, table, rxs, b);
+      case 3: return fire_whole<3>(row, c00, off, rk, rb, table, rxs, b);
+      default: return fire_whole<4>(row, c00, off, rk, rb, table, rxs, b);
+    }
+  }
+  // A head or tail unit, or units past the row's end.
+  uint32_t any = 0u;
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int c0 = c00 + kCols * kThreads * k;
+    if (u0 + kThreads * k >= a.units || !touches(c0, a.L)) continue;
+    uint32_t no_rx[kWords], now[kWords];
+    rx_at(rxs, off + kCols * kThreads * k, no_rx);
+    any |= fire_unit(b.w[k], no_rx, table, rk - kCols * kThreads * k, rb,
+                     now);
+    store_changed(row + c0, c0, a.L, b.w[k], now);
+  }
+  return any;
+}
+
+// The fire on one item: its first row's units loaded, its span's rx
+// staged, then its rows in turn, each row's units loaded before the row
+// before it fires.  Marks the rows that fired in `marks`.
+__device__ __forceinline__ void fire_item(const Args& a, const Item& it,
+                                          const uint32_t* rows,
+                                          const int* ref_col, uint8_t* marks,
+                                          uint4* s_rx) {
+  const int t = static_cast<int>(threadIdx.x);
+  const int u0 = it.s * kSpan + t;
+  uint8_t* const shard = a.in[it.i];
+  const size_t L = static_cast<size_t>(a.L);
+  RowUnits cur, next;
+  load_row(a, shard + (rows[it.jlo] & 0x7FFu) * L, u0, cur);
+
+  // The span's rx as no_rx bytes (0x08 where rx is 0): the aligned 16-byte
+  // words from column 16 kSpan s - 16 on (what any row's units of the span
+  // reach) that hold a column of the shard, zero elsewhere; smem byte
+  // delta + c - (16 kSpan s - 16) holds column c's.
+  const uintptr_t rx_lo = reinterpret_cast<uintptr_t>(a.rx) + it.i * L;
+  const uintptr_t rx_hi = rx_lo + L;
+  const uintptr_t from =
+      rx_lo + static_cast<uintptr_t>(kCols) * kSpan * it.s - kCols;
+  const int delta = static_cast<int>(from & 15u);
+  const uintptr_t w0 = from - delta;
+  for (int k = t; k < kSpan + 2; k += kThreads) {
+    const uintptr_t w = w0 + static_cast<uintptr_t>(kCols) * k;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (w + kCols > rx_lo && w < rx_hi) {
+      v = __ldg(reinterpret_cast<const uint4*>(w));
+      v.x = (~v.x & 0x01010101u) << 3;
+      v.y = (~v.y & 0x01010101u) << 3;
+      v.z = (~v.z & 0x01010101u) << 3;
+      v.w = (~v.w & 0x01010101u) << 3;
+    }
+    s_rx[k] = v;
+  }
+  __syncthreads();
+
+  const uint4* rxs = s_rx;
+  for (int j = it.jlo; j < it.jhi; j += 2) {
+    const uint32_t v = rows[j];
+    if (j + 1 < it.jhi) {
+      load_row(a, shard + (rows[j + 1] & 0x7FFu) * L, u0, next);
+    }
+    if (fire_row(a, it, shard + (v & 0x7FFu) * L, v, ref_col[j], u0, delta,
+                 rxs, cur) != 0u) {
+      mark(&marks[j]);
+    }
+    if (j + 1 >= it.jhi) break;
+    const uint32_t v1 = rows[j + 1];
+    if (j + 2 < it.jhi) {
+      load_row(a, shard + (rows[j + 2] & 0x7FFu) * L, u0, cur);
+    }
+    if (fire_row(a, it, shard + (v1 & 0x7FFu) * L, v1, ref_col[j + 1], u0,
+                 delta, rxs, next) != 0u) {
+      mark(&marks[j + 1]);
+    }
+  }
+  __syncthreads();  // the next item stages over s_rx
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+fire_kernel(const __grid_constant__ Args a) {
+  __shared__ Listing s_list;
+  __shared__ int s_ref_col[kMaxRows];
+  __shared__ uint8_t s_marks[kMaxRows];
+  __shared__ uint4 s_rx[kSpan + 2];
+  __shared__ int s_last;
+  const int t = static_cast<int>(threadIdx.x);
+  const int b = static_cast<int>(blockIdx.x);
+  const int n_live = list_rows<true>(a, s_list, s_ref_col);
+
+  // The refutation byte of a row that is not listed: one byte, by one
+  // thread of the grid.  (A listed row's is applied in its unit, before
+  // the fire test.)
+  if (a.col != nullptr) {
+    for (int row = b * kThreads + t; row < a.R;
+         row += static_cast<int>(gridDim.x) * kThreads) {
+      const uint8_t rb = __ldg(a.rb + row);
+      const int c = __ldg(a.col + row);
+      if (rb == 0 || __ldg(a.sel + row) != 0 || c < 0 || c / a.L >= a.ndev) {
+        continue;
+      }
+      const int i = c / a.L;
+      uint8_t* p = a.in[i] + static_cast<size_t>(row) * a.L + (c - i * a.L);
+      if (*p < rb) *p = rb;
+    }
+  }
+  if (n_live == 0) {
+    if (b == 0) {
+      for (int e = t; e < a.R; e += kThreads) a.fired[e] = 0;
+    }
+    return;
+  }
+  const Split p = split(a, n_live, false);
+  if (b >= p.items) return;
+
+  for (int j = t; j < n_live; j += kThreads) s_marks[j] = 0;
+  __syncthreads();
+  for (int x = b; x < p.items; x += static_cast<int>(gridDim.x)) {
+    fire_item(a, item_of(a, p, x, n_live), s_list.rows, s_ref_col, s_marks,
+              s_rx);
   }
 
-  // The block's marks into the scratch, then arrive at the grid; the
-  // last block writes fired and zeroes the scratch.
-  __syncthreads();
+  // The block's marks into the scratch, then arrive; the last of the
+  // blocks that had an item writes fired and zeroes the scratch.
   for (int j = t; j < n_live; j += kThreads) {
-    if (s_fired[j] != 0u) atomicOr(a.scratch + s_list[j], 1u);
+    if (s_marks[j] != 0) atomicOr(a.scratch + (s_list.rows[j] & 0x7FFu), 1u);
   }
   uint32_t* arrive = a.scratch + a.R;
+  const int working = p.items < static_cast<int>(gridDim.x)
+                          ? p.items : static_cast<int>(gridDim.x);
   __syncthreads();
   if (t == 0) {
-    s_last = add_release(arrive) == static_cast<unsigned>(a.blocks - 1);
+    s_last = add_release(arrive) == static_cast<unsigned>(working - 1);
     if (s_last) fence_acquire();
   }
   __syncthreads();
@@ -357,70 +676,59 @@ fire_kernel(const __grid_constant__ Args a) {
   if (t == 0) *arrive = 0u;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 wipe_kernel(const __grid_constant__ Args a) {
-  __shared__ uint16_t s_list[kMaxRows];
-  __shared__ int s_n;
-  const int n_live = list_rows(a.sel, a.R, s_list, &s_n);
-  const int per_row = a.ndev * a.units;
-  const long long total = static_cast<long long>(n_live) * per_row;
-  const long long gstride = static_cast<long long>(a.blocks) * kThreads;
-  for (long long x = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       x < total; x += gstride) {
-    const int j = static_cast<int>(x / per_row);
-    const int u = static_cast<int>(x - static_cast<long long>(j) * per_row);
-    const int i = u / a.units;
-    const int c0 = (u - i * a.units) * kCols;
-    const int n = min(kCols, a.L - c0);
-    uint8_t* p = a.in[i] + static_cast<size_t>(s_list[j]) * a.L + c0;
-    if (a.path == kWords16) {
-      *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
-    } else if (a.path == kWords4) {
-#pragma unroll
-      for (int k = 0; k < kWords; ++k) {
-        if (4 * k < n) reinterpret_cast<uint32_t*>(p)[k] = 0u;
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < kCols; ++k) {
-        if (k < n) p[k] = 0;
+  __shared__ Listing s_list;
+  const int n_live = list_rows<false>(a, s_list, nullptr);
+  if (n_live == 0) return;
+  const Split p = split(a, n_live, true);
+  const size_t L = static_cast<size_t>(a.L);
+  for (int x = static_cast<int>(blockIdx.x); x < p.items;
+       x += static_cast<int>(gridDim.x)) {
+    const Item it = item_of(a, p, x, n_live);
+    const int u = it.s * kWipeSpan + static_cast<int>(threadIdx.x);
+    if (u >= a.units) continue;
+    for (int j = it.jlo; j < it.jhi; ++j) {
+      uint8_t* row = a.in[it.i] + s_list.rows[j] * L;
+      const int c0 = phase(row) - kCols + kCols * u;
+      if (whole(c0, a.L)) {
+        *at16(row + c0) = make_uint4(0u, 0u, 0u, 0u);
+      } else if (touches(c0, a.L)) {
+        for (int q = 0; q < kCols; ++q) {
+          if (c0 + q >= 0 && c0 + q < a.L) row[c0 + q] = 0;
+        }
       }
     }
   }
 }
 
-inline bool aligned(const void* p, uintptr_t n) {
-  return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
-}
-
-// The shared part of both launchers: the shard table, the path and the
-// grid; false for arguments the kernels do not take.
-inline bool setup(Args& a, void* const* shards, int ndev, int R, int L,
-                  const void* sel, const void* rx) {
+// The shared part of both launchers: the shard table and the geometry,
+// and the grid (one block an item at most, so a small matrix takes fewer
+// than a wave); false for arguments the kernels do not take.
+inline bool setup(Args& a, int& blocks, void* const* shards, int ndev, int R,
+                  int L, const void* sel, int span) {
   if (shards == nullptr || sel == nullptr || R < 1 || R > kMaxRows ||
       L < 1 || ndev < 1 || ndev > kMaxShards ||
       static_cast<long long>(ndev) * L >= (1LL << 31) - kCols) {
     return false;
   }
-  bool w4 = L % 4 == 0 && (rx == nullptr || aligned(rx, 4));
-  bool w16 = L % kCols == 0 && (rx == nullptr || aligned(rx, 16));
   for (int j = 0; j < ndev; ++j) {
     if (shards[j] == nullptr) return false;
     a.in[j] = static_cast<uint8_t*>(shards[j]);
-    w4 = w4 && aligned(shards[j], 4);
-    w16 = w16 && aligned(shards[j], 16);
   }
   a.sel = static_cast<const uint8_t*>(sel);
   a.R = R;
   a.L = L;
   a.ndev = ndev;
-  a.units = (L + kCols - 1) / kCols;
-  const long long need =
-      (static_cast<long long>(R) * ndev * a.units + kThreads - 1) / kThreads;
-  a.blocks = static_cast<int>(need < kFillBlocks ? need : kFillBlocks);
-  a.path = w16 ? kWords16 : (w4 ? kWords4 : kBytes);
+  a.units = (L + kCols - 1) / kCols + 1;
+  a.spans = (a.units + span - 1) / span;
+  const long long most = static_cast<long long>(ndev) * a.spans * R;
+  blocks = static_cast<int>(most < kMaxBlocks ? most : kMaxBlocks);
   return true;
+}
+
+inline bool aligned(const void* p, uintptr_t n) {
+  return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
 }
 
 }  // namespace finish
@@ -438,18 +746,19 @@ extern "C" long long fire_timers_scratch_words(int R) {
 // the refutation, both or neither null; fired: one byte per row, written
 // whole; scratch: at least fire_timers_scratch_words(R) uint32 words,
 // 4-byte aligned, zero (and left zero; one launch at a time may use it).
-// Launches on `stream`, does not synchronise, returns cudaGetLastError()
-// after the launch (or cudaErrorInvalidValue for arguments it does not
-// take).
+// Any alignment of the shards and rx.  Launches on `stream`, does not
+// synchronise, returns cudaGetLastError() after the launch (or
+// cudaErrorInvalidValue for arguments it does not take).
 extern "C" int fire_timers(void* const* shards, int ndev, const void* rx,
                            const void* ok, const void* col, const void* rb,
                            void* fired, void* scratch, int R, int L,
                            void* stream) {
   using namespace finish;
   Args a{};
+  int blocks = 0;
   if (rx == nullptr || fired == nullptr || scratch == nullptr ||
       !aligned(scratch, 4) || (col == nullptr) != (rb == nullptr) ||
-      !setup(a, shards, ndev, R, L, ok, rx)) {
+      !setup(a, blocks, shards, ndev, R, L, ok, kSpan)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.rx = static_cast<const uint8_t*>(rx);
@@ -457,8 +766,7 @@ extern "C" int fire_timers(void* const* shards, int ndev, const void* rx,
   a.rb = static_cast<const uint8_t*>(rb);
   a.fired = static_cast<uint8_t*>(fired);
   a.scratch = static_cast<uint32_t*>(scratch);
-  fire_kernel<<<a.blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a);
+  fire_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -470,11 +778,11 @@ extern "C" int wipe_rows(void* const* shards, int ndev, const void* flags,
                          int R, int L, void* stream) {
   using namespace finish;
   Args a{};
-  if (!setup(a, shards, ndev, R, L, flags, nullptr)) {
+  int blocks = 0;
+  if (!setup(a, blocks, shards, ndev, R, L, flags, kWipeSpan)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  wipe_kernel<<<a.blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a);
+  wipe_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

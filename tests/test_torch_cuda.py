@@ -790,22 +790,30 @@ def _finish_inputs(R, N, seed):
                                                  rb)]
 
 
+@pytest.mark.parametrize("offset", [0, 7])
 @pytest.mark.parametrize("R, N, ndev", [(64, 4096, 1), (8, 1001, 1),
                                         (64, 4104, 2), (16, 8 * 1250, 8),
-                                        (64, 8 * 31_250, 8), (5, 7, 1)])
-def test_finish_kernels_match_plain_on_card(R, N, ndev):
+                                        (64, 8 * 31_250, 8), (5, 7, 1),
+                                        (16, 8 * 125_000, 8)])
+def test_finish_kernels_match_plain_on_card(R, N, ndev, offset):
     """``csrc/finish.cu`` against ``fire_timers_ref`` / ``wipe_rows_ref``
-    on the card: the 16-byte, 4-byte and byte paths, 1, 2 and 8 shards,
-    with and without the refutation, no row live and some: every byte and
-    ``fired``, tolerance 0; one launch each."""
+    on the card: rows at every phase mod 16 (L % 16 of 0, 8, 2 and odd N;
+    the shards ``offset`` bytes into buffers of their own), 1, 2 and 8
+    shards, with and without the refutation, no row live and some: every
+    byte and ``fired``, tolerance 0; one launch each."""
     _need_card()
     from consul_tpu_torch.gossip import finish
     heard, rx, ok, col, rb = _finish_inputs(R, N, seed=R + N)
     L = N // ndev
 
     def split(h):
-        out = tuple(h[:, i * L:(i + 1) * L].clone() for i in range(ndev))
-        return out if ndev > 1 else out[0]
+        out = []
+        for i in range(ndev):
+            o = (offset * (i + 1)) % 16
+            buf = torch.empty(R * L + 16, dtype=h.dtype, device=h.device)
+            out.append(buf[o:o + R * L].view(R, L))
+            out[-1].copy_(h[:, i * L:(i + 1) * L])
+        return tuple(out) if ndev > 1 else out[0]
 
     for mask in (ok, torch.zeros_like(ok)):
         for refute in (None, (col, rb)):

@@ -6,16 +6,24 @@ host threads at once: a warp's ballot meets at a barrier of its 32
 threads, ``__syncthreads`` at a barrier of the block, and the atomics are
 the compiler's ``__atomic`` builtins.
 
-This checks the kernels' own logic before any card does: the 16-byte,
-4-byte and byte paths (N % 16, N % 4 and odd N), N shorter than a unit,
-2 and 8 column shards with L % 16 == 2, every confirmation count against
-every bit of the row's timer mask, ``ok_mask`` 0 on every row and mixed,
-``rx_ok`` holes, the refutation's byte on a listed and an unlisted row and
-on both sides of a shard boundary, ``fired`` set from one shard only, the
-last block's copy and the scratch left zero; and the wipe of no row,
-every row and the last row.  Each launch is held byte for byte against
-the plain versions (``finish.fire_timers_ref``, ``finish.wipe_rows_ref``).
-Needs ``g++``; builds into the test's temporary directory.
+This checks the kernels' own logic before any card does: rows at every
+phase mod 16 (L % 16 in 0, 2, 4, 8 and 15, odd N, N shorter than a unit,
+shards and ``rx_ok`` at any byte offset), so head, body and tail units
+and every realignment of rx; 1, 2 and 8 column shards, the sharded main
+path's 8 x 125,000 and a multi-DC pool's 8 x 31,250 among them; every
+confirmation count against every bit of the row's timer mask,
+``ok_mask`` 0 on every row, on one, on all and mixed, R up to 2,048;
+``rx_ok`` holes; the refutation's byte on a listed and an unlisted row and
+on both sides of a shard boundary; ``fired`` set from one shard only; the
+last block's copy and the scratch left zero over repeated launches on
+one buffer set; the same results from one block, a few and the whole
+grid; and the wipe of no row, every row and the last row.  Most cases
+run the source with a small block and grid (32 host threads, at most 6
+blocks, so small shapes cross spans and blocks stride over items), a
+few at the card's (256 threads, at most 528 blocks).  Each launch is
+held byte for byte against the plain versions
+(``finish.fire_timers_ref``, ``finish.wipe_rows_ref``).  Needs ``g++``;
+builds into the test's temporary directory.
 """
 
 import ctypes
@@ -34,11 +42,10 @@ from consul_tpu_torch.gossip import finish
 CUDA_STUB = r"""
 #pragma once
 #include <algorithm>
-#include <condition_variable>
+#include <atomic>
 #include <cstdint>
 #include <cstdlib>
 #include <memory>
-#include <mutex>
 #include <thread>
 #include <vector>
 using std::max;
@@ -56,33 +63,34 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-struct uint4 {
+struct alignas(16) uint4 {  // 16-byte aligned, as CUDA's
   uint32_t x, y, z, w;
 };
 static inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c,
                                uint32_t d) {
   return uint4{a, b, c, d};
 }
-static thread_local dim3 threadIdx, blockIdx;
+static thread_local dim3 threadIdx, blockIdx, gridDim;
 template <class T> static inline T __ldg(const T* p) { return *p; }
 template <class T> static inline T __ldcg(const T* p) {
   return __atomic_load_n(p, __ATOMIC_SEQ_CST);
 }
 static inline uint4 __ldg(const uint4* p) { return *p; }
 static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// A barrier of n host threads; a waiting thread yields its core to those
+// still on their way.
 struct HostBarrier {
-  std::mutex m;
-  std::condition_variable cv;
-  unsigned n = 32, arrived = 0, generation = 0;
+  std::atomic<unsigned> arrived{0}, generation{0};
+  unsigned n = 32;
   void sync() {
-    std::unique_lock<std::mutex> lock(m);
-    const unsigned gen = generation;
-    if (++arrived == n) {
-      arrived = 0;
-      ++generation;
-      cv.notify_all();
+    const unsigned gen = generation.load(std::memory_order_acquire);
+    if (arrived.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
+      arrived.store(0, std::memory_order_relaxed);
+      generation.fetch_add(1, std::memory_order_acq_rel);
     } else {
-      cv.wait(lock, [&] { return generation != gen; });
+      while (generation.load(std::memory_order_acquire) == gen) {
+        std::this_thread::yield();
+      }
     }
   }
 };
@@ -106,11 +114,14 @@ template <class T> static inline T atomicOr(T* p, T v) {
 }
 // A launch: blocks one after another, each block's threads at once;
 // `host_reverse` runs them last-first, so that another block than the
-// last in grid order arrives last.
+// last in grid order arrives last; `host_grid`, where nonzero, replaces
+// the launcher's grid (the kernels read theirs from gridDim).
 static int host_reverse = 0;
+static unsigned host_grid = 0;
 template <class K, class... A>
 static void host_launch(K kernel, dim3 grid, dim3 block, const A&... args) {
   if (block.x % 32 != 0) std::abort();
+  if (host_grid != 0) grid.x = host_grid;
   HostBarrier bar;
   bar.n = block.x;
   host_block = &bar;
@@ -120,6 +131,7 @@ static void host_launch(K kernel, dim3 grid, dim3 block, const A&... args) {
   for (unsigned t = 0; t < block.x; ++t)
     threads.emplace_back([=, &warps, &args...] {
       threadIdx = dim3(t);
+      gridDim = grid;
       host_warp = &warps[t / 32];
       for (unsigned k = 0; k < blocks; ++k) {
         blockIdx = dim3(host_reverse ? blocks - 1 - k : k);
@@ -130,6 +142,7 @@ static void host_launch(K kernel, dim3 grid, dim3 block, const A&... args) {
   for (auto& th : threads) th.join();
 }
 extern "C" void finish_host_reverse(int on) { host_reverse = on; }
+extern "C" void finish_host_grid(unsigned blocks) { host_grid = blocks; }
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 static inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -138,20 +151,27 @@ static inline const char* cudaGetErrorString(cudaError_t) { return "error"; }
 
 # Text of the source -> its host form: the launches as host_launch.
 HOST_FORMS = {
-    f"{k}<<<a.blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(\n"
-    f"      a);": f"host_launch({k}, dim3(a.blocks), dim3(kThreads), a);"
+    f"{k}<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);":
+    f"host_launch({k}, dim3(blocks), dim3(kThreads), a);"
     for k in ("fire_kernel", "wipe_kernel")
 }
+# The card's block and grid, and the small ones most cases run with on
+# the host (a block is that many host threads, the blocks run one after
+# another): the same code over 1,024-column spans (a block of one warp,
+# two units a thread) and at most 6 blocks, so that small shapes cross
+# spans and blocks stride over items.
+BLOCK_TEXT = "constexpr int kThreads = 256;"
+GRID_TEXT = "constexpr int kMaxBlocks = 132 * kBlocksPerSM;"
+CARD, SMALL = (256, 528), (32, 6)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to compile the kernels for the host")
-    d = tmp_path_factory.mktemp("finish_on_host")
+def _host_lib(d, threads, blocks):
     (d / "cuda_runtime.h").write_text(CUDA_STUB)
     body = (_build.CSRC / "finish.cu").read_text()
-    for text, host in HOST_FORMS.items():
+    forms = dict(HOST_FORMS)
+    forms[BLOCK_TEXT] = f"constexpr int kThreads = {threads};"
+    forms[GRID_TEXT] = f"constexpr int kMaxBlocks = {blocks};"
+    for text, host in forms.items():
         assert body.count(text) == 1, text
         body = body.replace(text, host)
     src = d / "finish.cpp"
@@ -170,12 +190,49 @@ def lib(tmp_path_factory):
     lib.fire_timers_scratch_words.argtypes = [ctypes.c_int]
     lib.fire_timers_scratch_words.restype = ctypes.c_longlong
     lib.finish_host_reverse.argtypes = [ctypes.c_int]
+    lib.finish_host_grid.argtypes = [ctypes.c_uint]
     return lib
 
 
-def _split(x, ndev):
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    """The kernels at the small block and grid."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernels for the host")
+    return _host_lib(tmp_path_factory.mktemp("finish_on_host"), *SMALL)
+
+
+@pytest.fixture(scope="module")
+def lib_card(tmp_path_factory):
+    """The kernels at the card's block and grid, as the source has them."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernels for the host")
+    return _host_lib(tmp_path_factory.mktemp("finish_on_card_grid"), *CARD)
+
+
+def _split(x, ndev, offsets=None):
+    """The ``ndev`` column shards of ``x``, new tensors; with ``offsets``,
+    each an [R, L] view that starts that many bytes into a buffer of its
+    own (so its rows sit at other phases mod 16)."""
     L = x.shape[1] // ndev
-    return tuple(x[:, i * L:(i + 1) * L].clone() for i in range(ndev))
+    if offsets is None:
+        return tuple(x[:, i * L:(i + 1) * L].clone() for i in range(ndev))
+    out = []
+    for i in range(ndev):
+        o = offsets[i % len(offsets)]
+        buf = torch.full((x.shape[0] * L + o + 16,), 0xA5, dtype=torch.uint8)
+        view = buf[o:o + x.shape[0] * L].view(x.shape[0], L)
+        view.copy_(x[:, i * L:(i + 1) * L])
+        out.append(view)
+    return tuple(out)
+
+
+def _shifted(v, o):
+    """``v`` (1-D) as a view ``o`` bytes into a buffer of its own."""
+    buf = torch.zeros(v.numel() + o + 16, dtype=v.dtype)
+    out = buf[o:o + v.numel()]
+    out.copy_(v)
+    return out
 
 
 def _fire_host(lib, shards, rx, ok, refute=None, reverse=False,
@@ -202,10 +259,12 @@ def _fire_host(lib, shards, rx, ok, refute=None, reverse=False,
     return fired.bool()
 
 
-def _check_fire(lib, heard, rx, ok, refute=None, ndev=1, **kw):
-    """The kernel on the shards of ``heard`` against the plain version on
-    the shards and on the whole matrix: every byte and ``fired``."""
-    got = _split(heard, ndev)
+def _check_fire(lib, heard, rx, ok, refute=None, ndev=1, offsets=None,
+                **kw):
+    """The kernel on the shards of ``heard`` (at ``offsets``, as
+    ``_split`` places them) against the plain version on the shards and
+    on the whole matrix: every byte and ``fired``."""
+    got = _split(heard, ndev, offsets)
     fired = _fire_host(lib, got, rx, ok, refute, **kw)
     ref = _split(heard, ndev)
     ref_fired = finish.fire_timers_ref(ref, rx, ok, refute)
@@ -240,11 +299,10 @@ def _inputs(R, N, seed, rx_holes=0.2, live=0.5):
             (torch.from_numpy(col), torch.from_numpy(rb)))
 
 
-# (R, N, ndev): the 16-byte path (N % 16 == 0), the 4-byte path (N % 16
-# == 4), the byte path (odd N, N % 4 == 2), N shorter than a unit, more
-# units than a block has threads (a thread strides), 2 and 8 shards with
-# L % 16 == 2 (the byte path across shards), 8 shards with L % 16 == 8
-# (1M's shape), the hot tier's 8 rows.
+# (R, N, ndev): N % 16 == 0, N % 16 == 4, odd N (N % 4 == 2), N shorter
+# than a unit, more units than a span (a block walks several), 2 and 8
+# shards with L % 16 == 2, 8 shards with L % 16 == 8 (1M's shape), the hot
+# tier's 8 rows.
 SHAPES = [(8, 4096, 1), (5, 1028, 1), (7, 1001, 1), (4, 1030, 1),
           (3, 5, 1), (9, 12, 1), (2, 16 * 256 * 3 + 16, 1), (6, 2 * 146, 2),
           (5, 8 * 18, 8), (4, 8 * 24, 8), (8, 4096 + 8, 2)]
@@ -354,8 +412,8 @@ def test_scratch_serves_many_launches(lib):
                     reverse=bool(seed % 2))
 
 
-def _check_wipe(lib, heard, flags, ndev):
-    got = _split(heard, ndev)
+def _check_wipe(lib, heard, flags, ndev, offsets=None):
+    got = _split(heard, ndev, offsets)
     table = finish._array(ndev)(*(h.data_ptr() for h in got))
     R, L = got[0].shape
     assert lib.wipe_rows(table, ndev, flags.data_ptr(), R, L, None) == 0
@@ -409,3 +467,133 @@ def test_kernels_refuse_what_they_do_not_take(lib):
         assert lib.wipe_rows(table, 1, None if flags is None
                              else flags.data_ptr(), R, L, None) != 0
     assert lib.wipe_rows(table, 1, ok.data_ptr(), 4, 64, None) == 0
+
+
+# Shard widths by L % 16 (0, 2, 4, 8, 15), each over more than one span of
+# the small block (64 units).
+PHASE_WIDTHS = {0: 2096, 2: 2114, 4: 2068, 8: 2168, 15: 2079}
+# Byte offsets of the shards' buffers and of rx: aligned, and off by odd
+# and even amounts.
+OFFSETS = (0, 3, 8, 13, 6, 1, 15, 10)
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 8])
+@pytest.mark.parametrize("rem", sorted(PHASE_WIDTHS))
+def test_every_row_phase(lib, rem, ndev):
+    """Rows at every phase mod 16 (L % 16 moves each row's, the offsets
+    each shard's), rx at another: the fire with and without the
+    refutation and with one row live, and the wipe, byte for byte."""
+    L = PHASE_WIDTHS[rem]
+    assert L % 16 == rem
+    R = 7
+    heard, rx, ok, refute = _inputs(R, ndev * L, seed=100 * rem + ndev,
+                                    live=0.7)
+    for offs, rx_off in ((None, 0), (OFFSETS, 5), (OFFSETS[3:], 12)):
+        x = _shifted(rx, rx_off)
+        out, fired = _check_fire(lib, heard, x, ok, refute, ndev, offs)
+        assert int(fired.sum()) > 0 and (out != heard).any()
+        one = torch.zeros_like(ok)
+        one[3] = 15
+        _check_fire(lib, heard, x, one, None, ndev, offs, reverse=True)
+        flags = ok != 0
+        _check_wipe(lib, heard | 1, flags, ndev, offs)
+
+
+@pytest.mark.parametrize("L", [31_250, 125_000])
+def test_main_path_shard_widths(lib, L):
+    """8 shards of 125,000 (the sharded 1M round, L % 16 == 8) and of
+    31,250 (a multi-DC pool's, L % 16 == 2) at a few rows, offsets
+    included: every row live, two rows live, the wipe."""
+    R, ndev = 3, 8
+    heard, rx, ok, refute = _inputs(R, ndev * L, seed=L, live=1.0)
+    _check_fire(lib, heard, rx, ok, refute, ndev)
+    two = ok.clone()
+    two[1] = 0
+    _check_fire(lib, heard, _shifted(rx, 9), two, refute, ndev, OFFSETS)
+    _check_wipe(lib, heard | 1, two != 0, ndev, OFFSETS)
+
+
+@pytest.mark.parametrize("live", ["none", "one", "all", "all_2048",
+                                  "mixed_2048"])
+def test_live_row_counts(lib, live):
+    """No row, one row (the last), every row, and R = 2,048 (the most a
+    launch takes) with every row and about half the rows live."""
+    R = 2048 if live.endswith("2048") else 9
+    ndev, L = 2, 45
+    heard, rx, ok, refute = _inputs(R, ndev * L, seed=R + len(live),
+                                    live=0.5)
+    if live == "none":
+        ok = torch.zeros_like(ok)
+    elif live == "one":
+        ok = torch.zeros_like(ok)
+        ok[-1] = 9
+    elif live.startswith("all"):
+        ok = torch.where(ok == 0, 1, ok).to(torch.uint8)
+    out, fired = _check_fire(lib, heard, rx, ok, refute, ndev, OFFSETS)
+    assert bool(fired.any()) == (live != "none")
+    flags = ok != 0
+    _check_wipe(lib, heard | 1, flags, ndev, OFFSETS)
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 5, 0])
+def test_any_block_count(lib, blocks):
+    """The same inputs on one block, two, five and the launcher's grid:
+    every result byte-identical to the plain version (and so to each
+    other), the scratch left zero, whichever block arrives last."""
+    heard, rx, ok, refute = _inputs(6, 4 * 530, seed=11, live=0.6)
+    lib.finish_host_grid(blocks)
+    try:
+        for rev in (False, True):
+            _check_fire(lib, heard, rx, ok, refute, 4, OFFSETS, reverse=rev)
+        _check_wipe(lib, heard | 1, ok != 0, 4, OFFSETS)
+    finally:
+        lib.finish_host_grid(0)
+
+
+def test_repeated_launches_on_one_buffer_set(lib):
+    """One set of shards, rx, scratch and ``fired`` through a sequence of
+    fires (different live rows, one with none) and wipes in place, as the
+    round runs them: after each launch every byte equals the plain
+    version's run of the same sequence, ``fired`` is written whole and
+    the scratch is zero."""
+    R, ndev, L = 8, 3, 300
+    heard, rx, _, refute = _inputs(R, ndev * L, seed=5)
+    got = _split(heard, ndev, OFFSETS)
+    want = _split(heard, ndev)
+    scratch = torch.zeros(finish.scratch_words(R), dtype=torch.int32)
+    fired = torch.full((R,), 7, dtype=torch.uint8)
+    table = finish._array(ndev)(*(h.data_ptr() for h in got))
+    rng = np.random.default_rng(6)
+    for step in range(8):
+        ok = torch.from_numpy(np.where(rng.random(R) < 0.4,
+                                       rng.integers(1, 16, R), 0)
+                              .astype(np.uint8))
+        if step == 3:
+            ok.zero_()
+        ref = refute if step % 2 else None
+        col, rb = (None, None) if ref is None else (ref[0].data_ptr(),
+                                                    ref[1].data_ptr())
+        assert lib.fire_timers(table, ndev, rx.data_ptr(), ok.data_ptr(),
+                               col, rb, fired.data_ptr(), scratch.data_ptr(),
+                               R, L, None) == 0
+        want_fired = finish.fire_timers_ref(want, rx, ok, ref)
+        assert torch.equal(fired.bool(), want_fired), step
+        assert set(fired.unique().tolist()) <= {0, 1}
+        assert int(scratch.abs().sum()) == 0
+        flags = torch.from_numpy(rng.random(R) < 0.25)
+        assert lib.wipe_rows(table, ndev, flags.data_ptr(), R, L, None) == 0
+        finish.wipe_rows_ref(want, flags)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), step
+
+
+@pytest.mark.parametrize("R, L, ndev", [(3, 16_400, 1), (2, 16_395, 2)])
+def test_card_block_and_grid(lib_card, R, L, ndev):
+    """The source's own block (256 threads, spans of 8,192 columns) and
+    grid: shard rows over two spans at odd phases, the fire with the
+    refutation and the wipe."""
+    heard, rx, ok, refute = _inputs(R, ndev * L, seed=L, live=1.0)
+    out, fired = _check_fire(lib_card, heard, _shifted(rx, 3), ok, refute,
+                             ndev, OFFSETS[1:])
+    assert int(fired.sum()) > 0
+    _check_wipe(lib_card, heard | 1, ok != 0, ndev, OFFSETS[1:])
