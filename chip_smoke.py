@@ -116,23 +116,25 @@ result lines are not printed.
    operations, ``finish_ops_per_word``, counted by hand, over the INT32
    rate where that is larger).  ``--phase finish`` runs the card line,
    the kernels' build and this phase alone.
-6e. probe: the probe tick's kernels (``csrc/probe.cu``: ``probe_lanes``,
-   ``probe_slots``, ``probe_marks``, with ``wipe_rows`` between the last
-   two as the round runs them) against ``probe_lanes_ref``,
-   ``probe_slots_ref`` and ``probe_marks_ref`` on the card, tolerance 0
-   in every field of the state, NemState and the scratch after every
-   step, over 64 seeds of each ``PROBE_CASES`` entry ([64, 1M] with B =
-   200,000, K = 3 at loss 0 and 0.01, the partition legs by hash and by
-   halves at 0 < p < 1 and at p = 1, degraded observers with NemState;
-   16,001 with padding lanes, K 3 and 0; 8 shards of [64, 1M]; the WAN
-   pool's [32, 12] with B = 2), each state with free, SUSPECT, DEAD,
-   REFUTED and JOIN slots and more needy targets than free slots (every
-   state must initiate and allocate or drop; rearms and drops must
-   occur).  Times from CUDA-graph replays of the whole tick and of each
-   kernel, the plain versions', on each case's state and on the 1M main
-   path's data (1 and 8 shards), beside the bound (``_probe_bound``: the
-   bytes the data needs, and the hashes at the SASS count of a uniform
-   element, ``sass_count.py --threefry``); the lanes kernel's SASS
+6e. probe: the probe tick's kernels (``csrc/probe.cu``:
+   ``probe_lanes_slots``, the lanes and the slot step in one launch, and
+   ``probe_marks``, with ``wipe_rows`` between them as the round runs
+   them) against ``probe_lanes_ref`` then ``probe_slots_ref``, and
+   ``probe_marks_ref``, on the card, tolerance 0 in every field of the
+   state, NemState and the scratch after each launch, over 64 seeds of
+   each ``PROBE_CASES`` entry ([64, 1M] with B = 200,000, K = 3 at loss 0
+   and 0.01, the partition legs by hash and by halves at 0 < p < 1 and at
+   p = 1, degraded observers with NemState; 16,001 with padding lanes, K
+   3 and 0, and with 600 slots, the slot step in chunks; 8 shards of
+   [64, 1M]; the WAN pool's [32, 12] with B = 2), each state with free,
+   SUSPECT, DEAD, REFUTED and JOIN slots and more needy targets than free
+   slots (every state must initiate and allocate or drop; rearms and
+   drops must occur).  Times from CUDA-graph replays of the whole tick
+   and of each kernel, the plain versions', on each case's state and on
+   the 1M main path's data (1 and 8 shards, and ``partition_heal``'s
+   window), beside the bound (``_probe_bound``: the bytes the data
+   needs, and the hashes at the SASS count of a uniform element,
+   ``sass_count.py --threefry``); the merged kernel's SASS
    (``sass_count.py --probe``).  ``--phase probe`` runs the card line,
    the builds and this phase alone.
 6f. finish_slots: the finish step's slot kernels
@@ -504,7 +506,7 @@ def card() -> str:
 # round_graph.cu, the event round in event_flood.cu, the round's
 # observers' counts (heard_counts) in observe.cu, the finish step's fire
 # pass and row wipes (fire_timers, wipe_rows) in finish.cu, the probe
-# tick (probe_lanes, probe_slots, probe_marks) in probe.cu and the finish
+# tick (probe_lanes_slots, probe_marks) in probe.cu and the finish
 # step's slot logic (finish_decide, finish_settle, finish_record) in
 # finish_slots.cu.
 SOURCES = ("dissem_tail", "kv_store", "threefry", "round_graph", "event_flood",
@@ -1737,8 +1739,10 @@ def finish_shapes_vs_plain(shapes: set) -> list:
 # main paths' loss 0 and at 0.01, under every nemesis leg (the hash and
 # the halves at 0 < p < 1 and at 1, degraded observers with Lifeguard's
 # registers); the unaligned 16,001 (padding lanes); 8 shards of the 1M
-# round; the WAN pool's two lanes; each state with free, SUSPECT, DEAD,
-# REFUTED and JOIN slots and more needy targets than free slots.
+# round; the WAN pool's two lanes; 600 slots (the merged kernel's slot
+# step in three chunks of slots and of candidates); each state with free,
+# SUSPECT, DEAD, REFUTED and JOIN slots and more needy targets than free
+# slots.
 _PROBE_HASH = dict(part_kind="hash", p_ab=0.6, p_ba=0.0)
 _PROBE_HALVES = dict(part_kind="contig", p_ab=0.3, p_ba=0.45)
 _PROBE_DEGRADED = dict(obs_lo=0, obs_hi=1_000_000, p_obs_miss=0.3,
@@ -1760,6 +1764,7 @@ PROBE_CASES = {
         _PROBE_HASH, obs_lo=0, obs_hi=16_001, p_obs_miss=0.3, lhm_max=3),
         True, 1, 8),
     "16001_k0": (16_001, 64, 5, 0, 0.01, None, False, 1, 8),
+    "16001_s600": (16_001, 600, 5, 3, 0.01, None, False, 1, 400),
     "1m_8_shards": (1_000_000, 64, 5, 3, 0.01, None, False, 8, 8),
     "1m_8_shards_legs": (1_000_000, 64, 5, 3, 0.01, dict(
         _PROBE_HALVES, **_PROBE_DEGRADED), True, 8, 8),
@@ -1918,27 +1923,28 @@ def _probe_main_inputs(p, ndev: int, seed: int = 5,
 
 def _probe_timed(cfg, t, per_hash: float) -> dict:
     """The tick's times on ``t`` (CUDA-graph replays of 20 ticks, the
-    state carried from tick to tick): the four launches together and each
-    kernel alone, the wipe of no row, the plain versions' four steps
-    (eager); beside ``_probe_bound``."""
+    state carried from tick to tick): the three launches together and
+    each kernel alone, the wipe of no row, the plain versions' steps
+    (eager: the lanes and the slot step together, the marks); beside
+    ``_probe_bound``."""
     from consul_tpu_torch.gossip import finish, probe
     did = _probe_held(cfg, t)
     bound = _probe_bound(cfg, t, did, per_hash)
     tk = _tick_copy(t)
     ms = graph_ms(lambda: _tick_kernels(cfg, tk))
-    lanes_ms = graph_ms(lambda: probe.probe_lanes(cfg, tk))
-    _tick_kernels(cfg, tk)  # the scratch as a round leaves it
-    slots_ms = graph_ms(lambda: probe.probe_slots(cfg, tk))
+    lanes_slots_ms = graph_ms(lambda: probe.probe_lanes_slots(cfg, tk))
     marks_ms = graph_ms(lambda: probe.probe_marks(cfg, tk))
     tp = _tick_copy(t)
     plain_ms = cuda_ms(lambda: _tick_plain(cfg, tp), iters=5, warm=1)
+
+    def lanes_slots_plain():
+        probe.probe_lanes_ref(cfg, tp.ra, tp.mf, tp.heard, tp.slot_of_node,
+                              tp.nem_state, tp.sp)
+        probe.probe_slots_ref(cfg, tp.ra, tp.slots, tp.slot_of_node,
+                              tp.incarnation, tp.drops, tp.sp)
+
     plain = {
-        "lanes": lambda: probe.probe_lanes_ref(
-            cfg, tp.ra, tp.mf, tp.heard, tp.slot_of_node, tp.nem_state,
-            tp.sp),
-        "slots": lambda: probe.probe_slots_ref(
-            cfg, tp.ra, tp.slots, tp.slot_of_node, tp.incarnation,
-            tp.drops, tp.sp),
+        "lanes_slots": lanes_slots_plain,
         "marks": lambda: probe.probe_marks_ref(cfg, tp.ra, tp.heard,
                                                tp.slot_of_node, tp.sp)}
     steps = {f"{k}_plain_ms": cuda_ms(fn, iters=5, warm=1)
@@ -1946,12 +1952,13 @@ def _probe_timed(cfg, t, per_hash: float) -> dict:
     rearm = torch.zeros(cfg.S, dtype=torch.bool, device="cuda")
     wipe_ms = graph_ms(lambda: finish.wipe_rows(tk.heard, rearm))
     return {"stats": did["stats"], "needy": did["needy"], "ms": ms,
-            "lanes_ms": lanes_ms,
-            "slots_ms": slots_ms, "marks_ms": marks_ms,
+            "lanes_slots_ms": lanes_slots_ms,
+            "lanes_slots_blocks": probe.lanes_slots_blocks(cfg.B),
+            "marks_ms": marks_ms,
             "wipe_no_row_ms": wipe_ms, "plain_ms": plain_ms, **steps,
             **bound, "share_of_bound": bound["bound_ms"] / ms,
-            "lanes_share_of_bound": bound["lanes_bound_ms"] / lanes_ms,
-            "slots_share_of_bound": bound["slots_bound_ms"] / slots_ms,
+            "lanes_slots_share_of_bound":
+                bound["lanes_slots_bound_ms"] / lanes_slots_ms,
             "marks_share_of_bound": bound["marks_bound_ms"] / marks_ms}
 
 
@@ -1974,10 +1981,9 @@ def _tick_leaves(t) -> list:
 
 
 def _tick_kernels(cfg, t):
-    """The round's four launches: the probe kernels and the wipe."""
+    """The round's three launches: the probe kernels and the wipe."""
     from consul_tpu_torch.gossip import finish, probe
-    probe.probe_lanes(cfg, t)
-    rearm, stats = probe.probe_slots(cfg, t)
+    rearm, stats = probe.probe_lanes_slots(cfg, t)
     finish.wipe_rows(t.heard, rearm)
     probe.probe_marks(cfg, t)
     return rearm, stats
@@ -1996,7 +2002,7 @@ def _tick_plain(cfg, t):
 
 def _probe_held(cfg, t) -> dict:
     """Each of the tick's kernels on a copy of ``t`` against its plain
-    version on another, every output field compared after each step
+    versions on another, every output field compared after each launch
     (tolerance 0); raises on a difference.  Returns the kernels' stats
     and what the tick did."""
     from consul_tpu_torch.gossip import finish, probe
@@ -2009,17 +2015,15 @@ def _probe_held(cfg, t) -> dict:
             if not torch.equal(x, y):
                 raise AssertionError(f"probe {what} != plain (field {i})")
 
-    probe.probe_lanes(cfg, got)
+    rearm, stats = probe.probe_lanes_slots(cfg, got)
     probe.probe_lanes_ref(cfg, want.ra, want.mf, want.heard,
                           want.slot_of_node, want.nem_state, want.sp)
-    same("lanes")
-    rearm, stats = probe.probe_slots(cfg, got)
     rearm_w, stats_w = probe.probe_slots_ref(
         cfg, want.ra, want.slots, want.slot_of_node, want.incarnation,
         want.drops, want.sp)
-    same("slots")
+    same("lanes_slots")
     if not (torch.equal(rearm, rearm_w) and torch.equal(stats, stats_w)):
-        raise AssertionError("probe slots != plain (rearm or stats)")
+        raise AssertionError("probe lanes_slots != plain (rearm or stats)")
     finish.wipe_rows(got.heard, rearm)
     finish.wipe_rows_ref(want.heard, rearm_w)
     # What the marks read and write: an initiator's slot, and its byte
@@ -2142,8 +2146,9 @@ def _probe_work(cfg, t, stats: list) -> dict:
 def _probe_bound(cfg, t, did: dict, per_hash: float) -> dict:
     """The least time of one probe tick's launches (ms): its bytes over
     the memory rate and its hashes' operations over the INT32 rate, the
-    larger.  Bytes, each read or write the data needs once, 4 an int32
-    element and 1 a belief byte or flag: the lanes' reads of
+    larger; and of the merged launch's (the lanes' bytes and the slot
+    step's, the hashes).  Bytes, each read or write the data needs once,
+    4 an int32 element and 1 a belief byte or flag: the lanes' reads of
     ``_probe_work`` (mf, ``slot_of_node`` and the bytes; NemState's two
     registers read and written at every valid prober) and a flag written
     a lane; the slot step's reads of slot_node and slot_phase, of a
@@ -2170,6 +2175,7 @@ def _probe_bound(cfg, t, did: dict, per_hash: float) -> dict:
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     ops_ms = hashes * per_hash / INT32_OPS_PER_S * 1e3
     lanes_ms = lanes / HBM_BYTES_PER_S * 1e3
+    merged_ms = (lanes + slots) / HBM_BYTES_PER_S * 1e3
     return {"bytes": bytes_, "lanes_bytes": lanes, "slots_bytes": slots,
             "marks_bytes": marks, "lanes_work": work, "bytes_ms": bytes_ms,
             "hashes": hashes, "operations_per_hash": per_hash,
@@ -2180,13 +2186,16 @@ def _probe_bound(cfg, t, did: dict, per_hash: float) -> dict:
             "lanes_bound_by": "bytes" if lanes_ms >= ops_ms
             else "operations",
             "slots_bound_ms": slots / HBM_BYTES_PER_S * 1e3,
+            "lanes_slots_bound_ms": max(merged_ms, ops_ms),
+            "lanes_slots_bound_by": "bytes" if merged_ms >= ops_ms
+            else "operations",
             "marks_bound_ms": marks / HBM_BYTES_PER_S * 1e3}
 
 
 def probe_phase(card_line: str, seeds: int = 64) -> dict:
-    """The probe tick's kernels (``csrc/probe.cu``: ``probe_lanes``,
-    ``probe_slots``, ``probe_marks``, with ``finish.wipe_rows`` between the
-    last two) against their plain versions on the card, tolerance 0 in
+    """The probe tick's kernels (``csrc/probe.cu``: ``probe_lanes_slots``,
+    ``probe_marks``, with ``finish.wipe_rows`` between them) against their
+    plain versions on the card, tolerance 0 in
     every output field after every step, over ``seeds`` fresh states of
     each ``PROBE_CASES`` entry; each state must initiate and allocate or
     drop, and the phase must see rearms and drops.  Times
@@ -2201,8 +2210,8 @@ def probe_phase(card_line: str, seeds: int = 64) -> dict:
     t0 = time.perf_counter()
     sass = sass_count.threefry_counts(sass_count.disassemble("threefry"))
     per_hash = sass["uniform"]["busiest_unit_per_element"]
-    lanes_sass = sass_count.probe_counts(sass_count.disassemble("probe"))
-    emit({"phase": "probe_sass", **{k: v for k, v in lanes_sass.items()
+    lanes_slots_sass = sass_count.probe_counts(sass_count.disassemble("probe"))
+    emit({"phase": "probe_sass", **{k: v for k, v in lanes_slots_sass.items()
                                      if k != "by_opcode"}})
     rows, held, seen = {}, 0, {"rearmed": 0, "dropped": 0, "served": 0}
     for case in PROBE_CASES:
@@ -2238,8 +2247,8 @@ def probe_phase(card_line: str, seeds: int = 64) -> dict:
     torch.cuda.empty_cache()
     res = {"phase": "probe", "card": card_line, "tolerance": 0,
            "max_abs_err": 0, "ticks_held": held, "seeds": seeds,
-           "states_with": seen, "lanes_sass": {
-               k: v for k, v in lanes_sass.items() if k != "by_opcode"},
+           "states_with": seen, "lanes_slots_sass": {
+               k: v for k, v in lanes_slots_sass.items() if k != "by_opcode"},
            "cases": rows, "main": main,
            "seconds": time.perf_counter() - t0}
     emit(res)
@@ -2921,7 +2930,7 @@ def _observe_gate(what: str, rounds: int) -> dict:
             "observe_launches_per_round": observe.launches / rounds}
 
 
-PROBE_KERNELS = ("lanes", "slots", "marks")
+PROBE_KERNELS = ("lanes_slots", "marks")
 FINISH_SLOTS_KERNELS = ("decide", "settle", "record")
 
 
@@ -2931,7 +2940,7 @@ def _round_counts() -> dict:
     them: ``fire_timers`` once a non-quiescent round; ``wipe_rows`` once a
     round (the probe tick's rearm), once a join round (the join tick's
     stale episodes) and once a non-quiescent round (the slot GC); each of
-    ``probe.cu``'s three kernels once a round (of every pool); each of
+    ``probe.cu``'s two kernels once a round (of every pool); each of
     ``finish_slots.cu``'s three kernels once a non-quiescent round."""
     from consul_tpu_torch.gossip import finish, finish_slots, kernel, probe
     _settle()
@@ -6055,7 +6064,7 @@ def _probe_rows(probed: dict, churn: dict, sharded: dict, nem1: dict,
             "max_abs_err": probed["max_abs_err"],
             "ms": main[f"{k}_ms"], "plain_ms": main[f"{k}_plain_ms"],
             "bound_ms": main[f"{k}_bound_ms"],
-            "bound_by": main["lanes_bound_by"] if k == "lanes"
+            "bound_by": main["lanes_slots_bound_by"] if k == "lanes_slots"
             else "bytes",
             "share_of_bound": main[f"{k}_share_of_bound"],
             "tick_ms": main["ms"], "tick_plain_ms": main["plain_ms"],

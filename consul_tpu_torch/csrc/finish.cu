@@ -53,7 +53,7 @@
 //     listing by every warp, with a prefix of their counts and three
 //     barriers, made every launch slower on the card).  The list is each
 //     block's own rather than one the kernel before writes
-//     (decide_kernel's ok_mask, slots_kernel's rearm, settle_kernel's
+//     (decide_kernel's ok_mask, lanes_slots_kernel's rearm, settle_kernel's
 //     expired): a launch with no live row costs the fire about 0.0022 ms
 //     and the wipe 0.0017 on an H100 (chip_smoke.py --phase finish), and
 //     the kernels keep no contract with another kernel's outputs.

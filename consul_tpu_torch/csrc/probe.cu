@@ -1,5 +1,5 @@
 // The round's probe tick, for Hopper (sm_90a): direct probe -> indirect
-// probes -> suspicion initiation for the round's prober block, as three
+// probes -> suspicion initiation for the round's prober block, as two
 // kernels and their C entry points.
 //
 // Replaces one stretch of the reference's jitted round that XLA fuses (no
@@ -7,64 +7,99 @@
 // draws (jax.random.uniform under the round's probe keys) included.  Before
 // this the port ran it as ~184 torch launches a round, one of them a launch
 // of threefry.cu; each kernel here is bit-identical to the plain torch
-// version beside its wrapper (consul_tpu_torch/gossip/probe.py:
-// probe_lanes_ref, probe_slots_ref, probe_marks_ref), which are the port's
-// former expressions cut at these kernels' boundaries.
+// versions beside its wrapper (consul_tpu_torch/gossip/probe.py:
+// probe_lanes_ref followed by probe_slots_ref, and probe_marks_ref), which
+// are the port's former expressions cut at these kernels' boundaries.
 //
-// The round's order, four launches (the third is finish.cu's wipe_rows):
-//   1. lanes_kernel, a thread a prober lane, B = ceil(N / probe_every)
-//      lanes, prober id pid = blk + lane (ids >= N are padding lanes, which
-//      initiate nothing).  It reads the round's row (the round, the block,
-//      the probe offsets, the keys) from device memory, and per lane: the
-//      prober's liveness from mf (member ? fail_round : -1), its target
-//      (pid + o_t) mod N, the direct probe's loss (a draw under k_dl), the
-//      nemesis legs (the partition group in closed form: the top bit of
-//      the product with 2654435761, or id >= N / 2; draws under the four
-//      nemesis keys), the K helpers (draws under k_hl at element
-//      lane * K + j), Lifeguard's LHM and streak, read and written in
-//      place at pid, and, for a lane that would initiate, its target's
-//      slot and the belief byte at (that slot, the prober's column)
-//      through the shard table.  Out: a flag a lane (it initiates), the
-//      segment minima of the needy targets over kk = min(S, N, B)
-//      segments of GB = ceil(B / kk) lanes (by warp, then by block, then
-//      one atomicMin a segment a block), and the four probe statistics
-//      and the needy count (a block count each, one atomicAdd a block).
-//   2. slots_kernel, one block, a thread a slot: the lanes that initiate
-//      against a live slot's subject (the lane of subject x is (x - blk -
-//      o_t) mod N) grow its suspicion count, or re-arm a REFUTED or JOIN
-//      slot as a suspicion (a rearm flag a slot out, for the wipe); then
-//      the candidates (the segment minima) take the free slots in
-//      ascending slot order (the rank of each among the candidates, by
-//      ballots), and slot_of_node points at them; drops count the needy
-//      targets left unserved.  It resets the minima and counts.
-//   3. wipe_rows (finish.cu) zeroes the rearmed rows.
-//   4. marks_kernel, a thread a lane: an initiating lane reads its
+// The round's order, three launches (the second is finish.cu's wipe_rows):
+//   1. lanes_slots_kernel: the lanes, then the slot step in the last block
+//      to arrive.
+//      The lanes: B = ceil(N / probe_every) prober lanes, prober id pid =
+//      blk + lane (ids >= N are padding lanes, which initiate nothing), a
+//      thread a lane, blocks striding over chunks of kThreads lanes.  A
+//      lane reads the round's row (the round, the block, the probe
+//      offsets, the keys) from device memory, and: the prober's liveness
+//      from mf (member ? fail_round : -1), its target (pid + o_t) mod N,
+//      the direct probe's loss (a draw under k_dl), the nemesis legs (the
+//      partition group in closed form: the top bit of the product with
+//      2654435761, or id >= N / 2; draws under the four nemesis keys), the
+//      K helpers (draws under k_hl at element lane * K + j), Lifeguard's
+//      LHM and streak, read and written in place at pid, and, for a lane
+//      that would initiate, its target's slot and the belief byte at (that
+//      slot, the prober's column) through the shard table.  Out: a flag a
+//      lane (it initiates); the segment minima of the needy targets over
+//      kk = min(S, N, B) segments of GB = ceil(B / kk) lanes (by warp,
+//      then in shared memory over the chunk's segments, then one
+//      atomicMin a segment the chunk touches); the four probe
+//      statistics and the needy count, summed over the block's whole
+//      stride in registers, by warp, and in shared memory, then one atomic
+//      a nonzero count a block (the acks missed and the indirect
+//      escalations are the same lanes: one count serves both).
+//      The arrival: each block, its flags, minima and counts written,
+//      adds one to a counter in the scratch (atom.add.release.gpu); the
+//      last to arrive (fence.acq_rel.gpu) runs the slot step with the
+//      block's kThreads threads, in chunks of kThreads slots: the lanes
+//      that initiate against a live slot's subject (the lane of subject x
+//      is (x - blk - o_t) mod N) grow its suspicion count, or re-arm a
+//      REFUTED or JOIN slot as a suspicion (a rearm flag a slot out, for
+//      the wipe); then the candidates (the segment minima) take the free
+//      slots in ascending slot order (each one's rank among the candidates,
+//      by ballots, with the ranks' base carried from chunk to chunk), and
+//      slot_of_node points at them; drops count the needy targets left
+//      unserved; the stats are written, and the minima, counts and
+//      arrival counter set back.  Chunks, not a block of S threads: S is
+//      up to kMaxSlots = 1024, and a 1024-thread block would hold the
+//      lanes to one block an SM (a wave of 135,168 lanes against 202,752
+//      at kMinBlocks); the main path's S = 64 is one chunk.  Every block
+//      reads slot_node and slot_phase into shared memory before its
+//      lanes (no launch writes them before the slot step), so the last
+//      block's slot step starts with one round of loads: the flags, the
+//      first chunk's minima and the counts together.
+//   2. wipe_rows (finish.cu) zeroes the rearmed rows.
+//   3. marks_kernel, a thread a lane: an initiating lane reads its
 //      target's slot after the allocation and marks its own belief byte
 //      (SUSPECT, fresh age, the byte's confirmation count kept) where the
 //      byte is at most SUSPECT after the wipe.  Lanes' columns are
-//      distinct, so the marks are plain stores.
+//      distinct, so the marks are plain stores.  It stays a launch of its
+//      own: it must follow the wipe of the rearmed rows, whole rows of the
+//      [S, N] matrix that no one block wipes cheaply.
 // The reference's order holds: the belief byte of step 1 is read before
-// the wipe, the slot of step 4 after the allocation.
+// the wipe, the slot of step 3 after the allocation.
+//
+// The grid of step 1: at most one wave, the blocks an SM that the
+// occupancy query gives at kThreads (the launch bounds ask for
+// kMinBlocks: 6 x 132 x 256 lanes cover the 1M main path's B = 200,000
+// in one chunk a block) times the SMs, and no more blocks than chunks.
+// Nothing waits on the arrival (the last block alone goes on), so the
+// grid's size is for speed only.  The arrival (the release, one atomic a
+// block on one word) and the slot step after it (a round of reads at L2,
+// the ballots, the candidates' incarnations) are latency, not bytes:
+// `python3 -m consul_tpu_torch.probe_stages` times this kernel cut after
+// each stage.
 //
 // Bound.  The lanes read mf at up to 2 + K points (the prober, the
 // target, the helpers asked), slot_of_node and a belief byte where the
 // lane would initiate, and write one flag: at most ~26 bytes a lane at K
 // = 3, 5.2 MB at B = 200,000, ~1.6 us at 3.35 TB/s; the 1M churn path's
-// data needs ~9 a lane.  A draw is ~52 issue slots of the busiest
-// unit (sass_count.py --threefry), and a lane draws only where the draw
-// decides something (the direct loss of a live, probed target; a helper's
-// legs only for a prober whose direct probe failed; a probability of 0 or
-// 1 draws nothing), so the main path's data needs few: the bytes bound it,
-// and a launch costs more than either.  The slot step is S-sized; the
-// marks read a flag a lane.  The design keeps the probe tick to four
+// data needs ~9 a lane (1,800,000 bytes).  The slot step reads slot_node,
+// slot_phase, a flag a live slot, the kk minima and the counts, writes the
+// rearm flags, the stats, drops, the minima and counts set back and the
+// registers it changes: ~1,000 bytes at S = 64.  A draw is ~52 issue
+// slots of the busiest unit (sass_count.py --threefry), and a lane draws
+// only where the draw decides something (the direct loss of a live,
+// probed target; a helper's legs only for a prober whose direct probe
+// failed; a probability of 0 or 1 draws nothing), so the main path's data
+// needs few: the bytes bound it, and a launch costs more than either.
+// The marks read a flag a lane.  The design keeps the probe tick to three
 // launches (the point: ~184 before) and reads everything once.
 //
 // Capture.  No launch reads the host or needs a memset: the row is read
 // from device memory, and the scratch (the caller's, one per round
-// program) holds the minima at N and the counts at 0 between rounds, set
-// back by the slot step; the flags are written whole by every lanes
-// launch.  So the four launches run inside the round program's captured
-// graphs as they are.  One scratch serves one round at a time.
+// program) holds the minima at N and the counts and the arrival counter
+// at 0 between rounds, set back by the slot step; the flags are written
+// whole by every lanes_slots launch.  So the three launches run inside
+// the round program's captured graphs as they are.  One scratch serves
+// one round at a time.
 
 #include <cuda_runtime.h>
 
@@ -75,13 +110,15 @@
 namespace probe {
 
 constexpr int kMaxShards = 64;
-constexpr int kMaxSlots = 1024;   // slots: a thread each in one block
+constexpr int kMaxSlots = 1024;
 constexpr int kMaxHelpers = 64;
-constexpr int kThreads = 256;
-// The scratch: kk int32 minima, then kCounts int32 counts, then B flag
-// bytes.
+constexpr int kThreads = 256;     // a block; a chunk of lanes or of slots
+constexpr int kMinBlocks = 6;     // blocks an SM the launch bounds ask for
+// The scratch: kk int32 minima, then kCounts int32 counts (the last used
+// the arrival counter), then B flag bytes.
 constexpr int kCounts = 8;
-enum Count { kProbes = 0, kMissed, kIndirect, kSuspicions, kNeedy };
+enum Count { kProbes = 0, kMissed, kIndirect, kSuspicions, kNeedy,
+             kArrive = kCounts - 1 };
 enum Phase { kFree = 0, kSuspect = 1, kDeadPhase = 2, kRefuted = 3,
              kJoin = 4 };
 enum Partition { kNoPartition = 0, kHash = 1, kHalves = 2 };
@@ -132,7 +169,7 @@ struct Args {
   int32_t* minima;             // scratch: [kk]
   int32_t* counts;             //   [kCounts]
   uint8_t* flags;              //   [B]
-  int N, B, S, K, L, ndev, kk, GB, slot_threads;
+  int N, B, S, K, L, ndev, kk, GB;
   int part, degraded, obs_lo, obs_hi, lhm_max;
   float p_dl, p_il, p_one, p_two, p_obs;
 };
@@ -140,6 +177,29 @@ struct Args {
 __device__ __forceinline__ int64_t mod(int64_t a, int64_t n) {
   const int64_t r = a % n;
   return r < 0 ? r + n : r;
+}
+
+// Adds one to the arrival counter at GPU scope with release semantics and
+// returns the old value; and the acquire the last block to arrive makes
+// before it reads the others' flags, minima and counts (finish.cu's and
+// observe.cu's pair).
+__device__ __forceinline__ unsigned add_release(unsigned* counter) {
+#ifdef __CUDA_ARCH__
+  unsigned old;
+  asm volatile("atom.add.release.gpu.u32 %0, [%1], 1;"
+               : "=r"(old) : "l"(counter) : "memory");
+  return old;
+#else
+  return __atomic_fetch_add(counter, 1u, __ATOMIC_RELEASE);
+#endif
+}
+
+__device__ __forceinline__ void fence_acquire() {
+#ifdef __CUDA_ARCH__
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+#else
+  __atomic_thread_fence(__ATOMIC_ACQUIRE);
+#endif
 }
 
 // The partition group of node `id` (nemesis.group_of).
@@ -187,19 +247,97 @@ __device__ __forceinline__ bool rescued_by_helpers(const Args& a, int l,
   return false;
 }
 
-// The needy targets' minima into the kk segments of GB lanes, for a
-// block with a needy lane (every thread takes part): a warp whose lanes
-// lie in at most two segments takes each one's minimum by
-// __reduce_min_sync (GB >= 32: every warp), a straddling warp's needy
-// lanes go one by one; into the block's segments in shared memory, then
-// one atomicMin a segment the block touches.  So a round's many needy
-// lanes (a partition's crossed probes) contend on the kk words by
-// block, not by lane.
-__device__ __forceinline__ void segment_minima(const Args& a, int l,
+// What a lane did: a valid prober probed a target (ok), its direct probe
+// of a member failed (missed), it initiates (init), against a target with
+// no slot (need).
+struct Lane {
+  bool ok, missed, init, need;
+  int32_t tgt;
+};
+
+// Lane `l` of the tick (any l; past B it does nothing): its flag, and
+// LHM and streak in place.
+__device__ __forceinline__ Lane lane(const Args& a, int l) {
+  Lane r{false, false, false, false, 0};
+  if (l >= a.B) return r;
+  const int32_t rnd = __ldg(a.rnd);
+  const int64_t N = a.N;
+  const int64_t pid = static_cast<int64_t>(__ldg(a.blk)) + l;
+  const bool pvalid = pid < N;
+  r.ok = pvalid && __ldg(a.mf + mod(pid, N)) > rnd;
+  bool member = false, rescued = false, init = false;
+  int32_t s_t = -1;
+  int64_t tgt = 0;
+  if (r.ok) {
+    tgt = mod(pid + __ldg(a.probe), N);
+    const int32_t mf_t = __ldg(a.mf + tgt);
+    member = mf_t >= 0;
+    const bool alive = mf_t > rnd;
+    int g_p = 0, g_t = 0;
+    bool deg = false, lost = !alive;
+    if (a.part != kNoPartition) {
+      g_p = group(pid, a);
+      g_t = group(tgt, a);
+      lost = lost || (g_p != g_t &&
+                      threefry::below_at(a.k_nem, l, a.p_one));
+    }
+    if (a.degraded) {
+      deg = pid >= a.obs_lo && pid < a.obs_hi;
+      lost = lost || (deg && threefry::below_at(a.k_nem + 2, l, a.p_obs));
+    }
+    lost = lost || threefry::below_at(a.k_dl, l, a.p_dl);
+    r.missed = member && lost;
+    // The helpers decide only for a prober whose direct probe failed
+    // (and rescue only a live target).
+    if (r.missed && alive && a.K > 0) {
+      rescued = rescued_by_helpers(a, l, pid, rnd, g_p, g_t, deg);
+    }
+    init = r.missed && !rescued;
+  }
+  if (a.lhm != nullptr && pvalid) {
+    // Lifeguard: suspect only after more consecutive direct misses
+    // than the prober's LHM; LHM up on a miss the helpers contradict,
+    // down on a clean probe.
+    const int32_t lhm_b = a.lhm[pid], streak_b = a.streak[pid];
+    const int32_t streak_new =
+        r.missed ? min(streak_b + 1, a.lhm_max + 1) : 0;
+    init = init && streak_new > lhm_b;
+    const int32_t lhm_new =
+        max(0, min(a.lhm_max, lhm_b + int(r.missed && rescued) -
+                                  int(r.ok && member && !r.missed)));
+    a.lhm[pid] = lhm_new;
+    a.streak[pid] = streak_new;
+  }
+  // Only a lane that would initiate reads its target's slot (the
+  // reference's order of the tests, which commute, changed so).
+  if (init) {
+    s_t = a.slot_of_node[tgt];
+    if (s_t >= 0) {
+      // Don't re-suspect a target this prober already believes dead.
+      const uint32_t cur = *byte_at(a, min(s_t, a.S - 1), pid);
+      if ((cur >> kMsgShift) == kMsgDead) init = false;
+    }
+  }
+  r.init = init;
+  r.need = init && s_t < 0;
+  r.tgt = static_cast<int32_t>(tgt);
+  a.flags[l] = init ? 1 : 0;
+  return r;
+}
+
+// The needy targets' minima of chunk `c` (lanes c * kThreads on, lane `l`
+// this thread's) into the kk segments of GB lanes, for a chunk with a
+// needy lane (every thread takes part): a warp whose lanes lie in at most
+// two segments takes each one's minimum by __reduce_min_sync (GB >= 32:
+// every warp), a straddling warp's needy lanes go one by one; into the
+// chunk's segments in shared memory, then one atomicMin a segment the
+// chunk touches.  So a round's many needy lanes (a partition's crossed
+// probes) contend on the kk words by chunk, not by lane.
+__device__ __forceinline__ void segment_minima(const Args& a, int c, int l,
                                                bool need, int32_t tgt) {
-  __shared__ int32_t s_min[kThreads];  // the block's segments, from seg0
+  __shared__ int32_t s_min[kThreads];  // the chunk's segments, from seg0
   const int t = static_cast<int>(threadIdx.x);
-  const int seg0 = static_cast<int>(blockIdx.x) * kThreads / a.GB;
+  const int seg0 = c * kThreads / a.GB;
   s_min[t] = a.N;
   __syncthreads();
   const int seg = l / a.GB - seg0;
@@ -222,102 +360,17 @@ __device__ __forceinline__ void segment_minima(const Args& a, int l,
   if (s_min[t] < a.N) atomicMin(a.minima + seg0 + t, s_min[t]);
 }
 
-__global__ void __launch_bounds__(kThreads)
-lanes_kernel(const __grid_constant__ Args a) {
-  const int l = static_cast<int>(blockIdx.x) * kThreads +
-                static_cast<int>(threadIdx.x);
-  bool ok = false, missed = false, init = false, need = false;
-  int64_t tgt = 0;
-  if (l < a.B) {
-    const int32_t rnd = __ldg(a.rnd);
-    const int64_t N = a.N;
-    const int64_t pid = static_cast<int64_t>(__ldg(a.blk)) + l;
-    const bool pvalid = pid < N;
-    ok = pvalid && __ldg(a.mf + mod(pid, N)) > rnd;
-    bool member = false, rescued = false;
-    int32_t s_t = -1;
-    if (ok) {
-      tgt = mod(pid + __ldg(a.probe), N);
-      const int32_t mf_t = __ldg(a.mf + tgt);
-      member = mf_t >= 0;
-      const bool alive = mf_t > rnd;
-      int g_p = 0, g_t = 0;
-      bool deg = false, lost = !alive;
-      if (a.part != kNoPartition) {
-        g_p = group(pid, a);
-        g_t = group(tgt, a);
-        lost = lost || (g_p != g_t &&
-                        threefry::below_at(a.k_nem, l, a.p_one));
-      }
-      if (a.degraded) {
-        deg = pid >= a.obs_lo && pid < a.obs_hi;
-        lost = lost || (deg && threefry::below_at(a.k_nem + 2, l, a.p_obs));
-      }
-      lost = lost || threefry::below_at(a.k_dl, l, a.p_dl);
-      missed = member && lost;
-      // The helpers decide only for a prober whose direct probe failed
-      // (and rescue only a live target).
-      if (missed && alive && a.K > 0) {
-        rescued = rescued_by_helpers(a, l, pid, rnd, g_p, g_t, deg);
-      }
-      init = missed && !rescued;
-    }
-    if (a.lhm != nullptr && pvalid) {
-      // Lifeguard: suspect only after more consecutive direct misses
-      // than the prober's LHM; LHM up on a miss the helpers contradict,
-      // down on a clean probe.
-      const int32_t lhm_b = a.lhm[pid], streak_b = a.streak[pid];
-      const int32_t streak_new =
-          missed ? min(streak_b + 1, a.lhm_max + 1) : 0;
-      init = init && streak_new > lhm_b;
-      const int32_t lhm_new =
-          max(0, min(a.lhm_max, lhm_b + int(missed && rescued) -
-                                    int(ok && member && !missed)));
-      a.lhm[pid] = lhm_new;
-      a.streak[pid] = streak_new;
-    }
-    // Only a lane that would initiate reads its target's slot (the
-    // reference's order of the tests, which commute, changed so).
-    if (init) {
-      s_t = a.slot_of_node[tgt];
-      if (s_t >= 0) {
-        // Don't re-suspect a target this prober already believes dead.
-        const uint32_t cur = *byte_at(a, min(s_t, a.S - 1), pid);
-        if ((cur >> kMsgShift) == kMsgDead) init = false;
-      }
-    }
-    need = init && s_t < 0;
-    a.flags[l] = init ? 1 : 0;
-  }
-  // The block's counts, one atomic each (every thread takes part).
-  const int n_ok = __syncthreads_count(ok);
-  const int n_missed = __syncthreads_count(missed);
-  const int n_init = __syncthreads_count(init);
-  const int n_need = __syncthreads_count(need);
-  if (threadIdx.x == 0) {
-    if (n_ok) atomicAdd(a.counts + kProbes, n_ok);
-    if (n_missed) {
-      // A failed direct probe of a member escalates to the helpers: the
-      // acks missed and the indirect escalations are the same lanes.
-      atomicAdd(a.counts + kMissed, n_missed);
-      atomicAdd(a.counts + kIndirect, n_missed);
-    }
-    if (n_init) atomicAdd(a.counts + kSuspicions, n_init);
-    if (n_need) atomicAdd(a.counts + kNeedy, n_need);
-  }
-  if (n_need) segment_minima(a, l, need, static_cast<int32_t>(tgt));
-}
 // The exclusive rank of this thread's `pred` among the block's threads
 // (warp ballots, then the warps' totals) and, in *total, their count.
-__device__ __forceinline__ int block_rank(bool pred, int nthreads,
-                                          int* s_warp, int* total) {
+__device__ __forceinline__ int block_rank(bool pred, int* s_warp,
+                                          int* total) {
   const int t = static_cast<int>(threadIdx.x);
   const int lane = t & 31, w = t >> 5;
   const unsigned m = __ballot_sync(0xFFFFFFFFu, pred);
   if (lane == 0) s_warp[w] = __popc(m);
   __syncthreads();
   int base = 0, sum = 0;
-  for (int i = 0; i < nthreads / 32; ++i) {
+  for (int i = 0; i < kThreads / 32; ++i) {
     const int c = s_warp[i];
     if (i < w) base += c;
     sum += c;
@@ -327,76 +380,168 @@ __device__ __forceinline__ int block_rank(bool pred, int nthreads,
   return base + __popc(m & ((1u << lane) - 1u));
 }
 
-__global__ void __launch_bounds__(kMaxSlots)
-slots_kernel(const __grid_constant__ Args a) {
+// The flag of the lane that initiates against slot s's subject, if it is
+// live (at most one a subject: the round's targets are distinct); 0 if
+// none.  `first`: the lane of subject x is (x - first) mod N.
+__device__ __forceinline__ int32_t slot_flag(const Args& a,
+                                             const int32_t* s_node, int s,
+                                             int64_t first) {
+  const int32_t node = s_node[s];
+  if (node < 0) return 0;
+  const int64_t i_s = mod(static_cast<int64_t>(min(node, a.N - 1)) - first,
+                          a.N);
+  return i_s < a.B ? __ldcg(a.flags + i_s) : 0;
+}
+
+// The slot step, by the last block to arrive, from the slot registers
+// every block read (s_node, s_phase), the round's row (rnd; `first`, blk
+// + o_t), and the grid's flags, minima and counts (read at L2: other
+// blocks wrote them in this launch).
+__device__ __forceinline__ void slot_step(const Args& a,
+                                          const int32_t* s_node,
+                                          const int32_t* s_phase,
+                                          int32_t rnd, int64_t first) {
   __shared__ int s_free[kMaxSlots];  // the free slots by rank
-  __shared__ int s_warp[kMaxSlots / 32];
+  __shared__ int s_warp[kThreads / 32];
   const int t = static_cast<int>(threadIdx.x);
-  const int32_t rnd = __ldg(a.rnd);
-  const int64_t N = a.N;
-  bool valid = false;
-  if (t < a.S) {
-    // A lane that initiates against a live slot's subject: at most one a
-    // subject (the round's targets are distinct).
-    const int32_t node = a.slot_node[t];
-    valid = node >= 0;
-    const int32_t node_c = min(max(node, 0), a.N - 1);
-    const int64_t i_s = mod(static_cast<int64_t>(node_c) - __ldg(a.blk) -
-                                __ldg(a.probe),
-                            N);
-    const int32_t add = valid && i_s < a.B ? a.flags[i_s] : 0;
-    const int32_t phase = a.slot_phase[t];
-    bool rearm = false;
-    if (add > 0) {
-      if (phase == kSuspect) {
-        a.slot_nsusp[t] += add;  // an existing episode absorbs it
-      } else if (phase == kRefuted || phase == kJoin) {
-        // Re-arm as a suspicion at the bumped incarnation.
-        rearm = true;
-        a.slot_phase[t] = kSuspect;
-        a.slot_inc[t] = __ldg(a.incarnation + node_c);
-        a.slot_start[t] = rnd;
-        a.slot_nsusp[t] = add;
-        a.slot_dead[t] = -1;
+  // One round of loads: the first chunk's flags and candidates, the
+  // counts and drops.
+  const int32_t add0 = t < a.S ? slot_flag(a, s_node, t, first) : 0;
+  const int32_t cand0 = t < a.kk ? __ldcg(a.minima + t) : a.N;
+  int32_t c[kNeedy + 1];
+  uint32_t drops = 0u;
+  if (t == 0) {
+    for (int k = 0; k <= kNeedy; ++k) c[k] = __ldcg(a.counts + k);
+    drops = static_cast<uint32_t>(*a.drops);
+  }
+  // The absorbs and rearms, and the free slots in ascending order.
+  int n_free = 0;
+  for (int s0 = 0; s0 < a.S; s0 += kThreads) {
+    const int s = s0 + t;
+    bool valid = false;
+    if (s < a.S) {
+      const int32_t node = s_node[s];
+      valid = node >= 0;
+      const int32_t node_c = min(max(node, 0), a.N - 1);
+      const int32_t add = s0 == 0 ? add0 : slot_flag(a, s_node, s, first);
+      bool rearm = false;
+      if (add > 0) {
+        const int32_t phase = s_phase[s];
+        if (phase == kSuspect) {
+          a.slot_nsusp[s] += add;  // an existing episode absorbs it
+        } else if (phase == kRefuted || phase == kJoin) {
+          // Re-arm as a suspicion at the bumped incarnation.
+          rearm = true;
+          a.slot_phase[s] = kSuspect;
+          a.slot_inc[s] = __ldg(a.incarnation + node_c);
+          a.slot_start[s] = rnd;
+          a.slot_nsusp[s] = add;
+          a.slot_dead[s] = -1;
+        }
       }
+      a.rearm[s] = rearm ? 1 : 0;
     }
-    a.rearm[t] = rearm ? 1 : 0;
+    int n;
+    const bool free = s < a.S && !valid;
+    const int rank = block_rank(free, s_warp, &n);
+    if (free) s_free[n_free + rank] = s;
+    n_free += n;
   }
-  // The free slots in ascending order.
-  int n_free;
-  const bool free = t < a.S && !valid;
-  const int rank_free = block_rank(free, a.slot_threads, s_warp, &n_free);
-  if (free) s_free[rank_free] = t;
-  // The candidates (the segment minima; N: none), ranked; the scratch
-  // goes back to N.
-  int32_t cand = a.N;
-  if (t < a.kk) {
-    cand = a.minima[t];
-    a.minima[t] = a.N;
-  }
-  int n_dom;
-  const bool in_dom = t < a.kk && cand < a.N;
-  const int rank = block_rank(in_dom, a.slot_threads, s_warp, &n_dom);
-  if (in_dom && rank < n_free) {
-    const int slot = s_free[rank];
-    const int32_t c = min(max(cand, 0), a.N - 1);
-    a.slot_node[slot] = c;
-    a.slot_phase[slot] = kSuspect;
-    a.slot_inc[slot] = __ldg(a.incarnation + c);
-    a.slot_start[slot] = rnd;
-    a.slot_nsusp[slot] = 1;  // one initiator a distinct target
-    a.slot_dead[slot] = -1;
-    a.slot_of_node[c] = slot;
+  // The candidates (the segment minima; N: none) take the free slots in
+  // rank order; the minima go back to N.
+  int n_dom = 0;
+  for (int k0 = 0; k0 < a.kk; k0 += kThreads) {
+    const int k = k0 + t;
+    int32_t cand = k0 == 0 ? cand0 : a.N;
+    if (k < a.kk) {
+      if (k0 > 0) cand = __ldcg(a.minima + k);
+      a.minima[k] = a.N;
+    }
+    int n;
+    const bool in_dom = cand < a.N;
+    const int rank = n_dom + block_rank(in_dom, s_warp, &n);
+    if (in_dom && rank < n_free) {
+      const int slot = s_free[rank];
+      const int32_t c = min(max(cand, 0), a.N - 1);
+      a.slot_node[slot] = c;
+      a.slot_phase[slot] = kSuspect;
+      a.slot_inc[slot] = __ldg(a.incarnation + c);
+      a.slot_start[slot] = rnd;
+      a.slot_nsusp[slot] = 1;  // one initiator a distinct target
+      a.slot_dead[slot] = -1;
+      a.slot_of_node[c] = slot;
+    }
+    n_dom += n;
   }
   if (t == 0) {
     const int served = min(n_dom, n_free);
+    for (int k = 0; k <= kNeedy; ++k) a.counts[k] = 0;
     // drops wraps mod 2**32, as the reference's counter does.
     *a.drops = static_cast<int32_t>(
-        static_cast<uint32_t>(*a.drops) +
-        static_cast<uint32_t>(a.counts[kNeedy] - served));
-    for (int k = 0; k < 4; ++k) a.stats[k] = a.counts[k];
-    for (int k = 0; k < kCounts; ++k) a.counts[k] = 0;
+        drops + static_cast<uint32_t>(c[kNeedy] - served));
+    a.stats[kProbes] = c[kProbes];
+    a.stats[kMissed] = c[kMissed];
+    a.stats[kIndirect] = c[kMissed];
+    a.stats[kSuspicions] = c[kSuspicions];
   }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+lanes_slots_kernel(const __grid_constant__ Args a) {
+  __shared__ int32_t s_node[kMaxSlots];
+  __shared__ int32_t s_phase[kMaxSlots];
+  __shared__ int s_sum[4];
+  __shared__ int s_last;
+  const int t = static_cast<int>(threadIdx.x);
+  const int32_t rnd = __ldg(a.rnd);
+  const int64_t first = static_cast<int64_t>(__ldg(a.blk)) + __ldg(a.probe);
+  for (int s = t; s < a.S; s += kThreads) {
+    s_node[s] = a.slot_node[s];
+    s_phase[s] = a.slot_phase[s];
+  }
+  if (t < 4) s_sum[t] = 0;
+  // The lanes, chunk by chunk; the block's counts in registers.
+  unsigned n_ok = 0u, n_missed = 0u, n_init = 0u, n_need = 0u;
+  const int chunks = (a.B + kThreads - 1) / kThreads;
+  for (int c = static_cast<int>(blockIdx.x); c < chunks;
+       c += static_cast<int>(gridDim.x)) {
+    const int l = c * kThreads + t;
+    const Lane r = lane(a, l);
+    n_ok += r.ok;
+    n_missed += r.missed;
+    n_init += r.init;
+    n_need += r.need;
+    if (__syncthreads_or(r.need)) segment_minima(a, c, l, r.need, r.tgt);
+  }
+  // The block's counts, one atomic each that is not 0.
+  n_ok = __reduce_add_sync(0xFFFFFFFFu, n_ok);
+  n_missed = __reduce_add_sync(0xFFFFFFFFu, n_missed);
+  n_init = __reduce_add_sync(0xFFFFFFFFu, n_init);
+  n_need = __reduce_add_sync(0xFFFFFFFFu, n_need);
+  if ((t & 31) == 0) {
+    if (n_ok) atomicAdd(s_sum + 0, static_cast<int>(n_ok));
+    if (n_missed) atomicAdd(s_sum + 1, static_cast<int>(n_missed));
+    if (n_init) atomicAdd(s_sum + 2, static_cast<int>(n_init));
+    if (n_need) atomicAdd(s_sum + 3, static_cast<int>(n_need));
+  }
+  __syncthreads();
+  if (t == 0) {
+    if (s_sum[0]) atomicAdd(a.counts + kProbes, s_sum[0]);
+    if (s_sum[1]) atomicAdd(a.counts + kMissed, s_sum[1]);
+    if (s_sum[2]) atomicAdd(a.counts + kSuspicions, s_sum[2]);
+    if (s_sum[3]) atomicAdd(a.counts + kNeedy, s_sum[3]);
+  }
+  // Arrive; the last block runs the slot step.
+  unsigned* arrive = reinterpret_cast<unsigned*>(a.counts + kArrive);
+  __syncthreads();
+  if (t == 0) {
+    s_last = add_release(arrive) == gridDim.x - 1u;
+    if (s_last) fence_acquire();
+  }
+  __syncthreads();
+  if (!s_last) return;
+  slot_step(a, s_node, s_phase, rnd, first);
+  if (t == 0) *arrive = 0u;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -470,7 +615,6 @@ inline bool setup(Args& a, void* const* shards, int ndev,
   a.L = N / ndev;
   a.kk = min(S, B);  // B <= N
   a.GB = (B + a.kk - 1) / a.kk;
-  a.slot_threads = (S + 31) / 32 * 32;
   int32_t* scratch = static_cast<int32_t*>(ptrs[kScratch]);
   a.minima = scratch;
   a.counts = scratch + a.kk;
@@ -492,49 +636,69 @@ inline int lane_blocks(const Args& a) {
   return (a.B + kThreads - 1) / kThreads;
 }
 
+// The lanes_slots grid: one block a chunk, at most one wave of the
+// blocks an SM the occupancy query gives on the current device.
+inline cudaError_t lanes_slots_grid(const Args& a, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, lanes_slots_kernel, kThreads, 0);
+  }
+  if (e != cudaSuccess) return e;
+  if (sms < 1 || per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int chunks = lane_blocks(a);
+  *blocks = chunks < sms * per_sm ? chunks : sms * per_sm;
+  return cudaSuccess;
+}
+
 }  // namespace probe
 
+// The blocks of a probe_lanes_slots launch at B lanes on the current
+// device (the occupancy query's wave, or fewer), or a negative CUDA error.
+extern "C" int probe_lanes_slots_blocks(int B) {
+  probe::Args a{};
+  a.B = B;
+  int blocks = 0;
+  const cudaError_t e = probe::lanes_slots_grid(a, &blocks);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
+}
+
 // The scratch's int32 words at (S, B): kk = min(S, B) minima (N between
-// rounds), the counts (0 between rounds), B flag bytes.
+// rounds), the counts and the arrival counter (0 between rounds), B flag
+// bytes.
 extern "C" long long probe_scratch_words(int S, int B) {
   const int kk = S < B ? S : B;
   return static_cast<long long>(kk) + probe::kCounts + (B + 3) / 4;
 }
 
-// The three launches of the top of this file.  Each takes the same
+// The two launches of the top of this file.  Each takes the same
 // arguments: `shards`, ndev pointers to the u8 [S, N / ndev] column shards
 // of heard; `ptrs`, the probe::Ptr table (the round's row fields, the
 // vectors, the outputs and the scratch; kLhm and kStreak both null without
 // the Lifeguard registers); `ints`, the probe::Int table; `floats`, the
 // float32 probabilities.  kRearm and kStats (the slot step's outputs: u8
-// [S] and int32 [4]) may be null outside probe_slots.  Each launches on
-// `stream`, does not synchronise,
-// and returns cudaGetLastError() after the launch (or
-// cudaErrorInvalidValue for arguments it does not take).
-extern "C" int probe_lanes(void* const* shards, int ndev, void* const* ptrs,
-                           const int* ints, const float* floats,
-                           void* stream) {
-  using namespace probe;
-  Args a{};
-  if (!setup(a, shards, ndev, ptrs, ints, floats)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  lanes_kernel<<<lane_blocks(a), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int probe_slots(void* const* shards, int ndev, void* const* ptrs,
-                           const int* ints, const float* floats,
-                           void* stream) {
+// [S] and int32 [4]) may be null for probe_marks.  Each launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() after the
+// launch (or cudaErrorInvalidValue for arguments it does not take, or the
+// occupancy query's error).
+extern "C" int probe_lanes_slots(void* const* shards, int ndev,
+                                 void* const* ptrs, const int* ints,
+                                 const float* floats, void* stream) {
   using namespace probe;
   Args a{};
   if (!setup(a, shards, ndev, ptrs, ints, floats) || a.rearm == nullptr ||
       a.stats == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  slots_kernel<<<1, a.slot_threads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a);
+  int blocks = 0;
+  const cudaError_t e = lanes_slots_grid(a, &blocks);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  lanes_slots_kernel<<<blocks, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,8 +7,8 @@
 // consul_tpu/ops/feistel.py's `randint`.  (The probe tick's uniforms, the
 // direct and indirect probes' losses and the partition and
 // degraded-observer legs, were draws of this kernel too; since the probe
-// tick became probe.cu, its lanes kernel makes them inline, from the same
-// hash: threefry.cuh.)  Before this,
+// tick became probe.cu, its lanes_slots kernel makes them inline, from the
+// same hash: threefry.cuh.)  Before this,
 // the port computed each draw as ~180 int64 torch operations
 // (consul_tpu_torch/prng.py: `random_bits_ref`, `uniform_ref`,
 // `uniform_rows_ref`, `randint_ref`, `edge_drops_ref`, which stay beside the

@@ -1,7 +1,7 @@
 // jax.random's threefry2x32 for Hopper (sm_90a) kernels: the hash, the
 // float32 uniform made from its bits, and the counter of an element of a
 // draw.  Included by threefry.cu (the round's draws, draw_kernel) and
-// probe.cu (the probe tick's draws, made inline in its lanes kernel), so
+// probe.cu (the probe tick's draws, made inline in lanes_slots_kernel), so
 // that every kernel of the port draws the same bits as jax.random.
 //
 // Under jax_threefry_partitionable (the reference's configuration) a draw

@@ -520,7 +520,7 @@ def _probe_tick(p: SwimParams, ra, v: Variant, mf, carry,
                 nem_state: NemState | None = None):
     """One round's probe slice: direct probe -> k indirect probes ->
     suspicion initiation for this round's prober block (reference
-    ``_probe_tick``), as ``gossip/probe.py``'s steps: the prober lanes,
+    ``_probe_tick``), as ``gossip/probe.py``'s steps: the prober lanes and
     the slot bookkeeping, the rearmed rows' wipe, the marks (on a card one
     launch each, of ``csrc/probe.cu`` and ``csrc/finish.cu``).  ``ra``:
     the round's row (``round_args.RoundArgs``: the round, the prober
@@ -547,8 +547,7 @@ def _probe_tick(p: SwimParams, ra, v: Variant, mf, carry,
                       (slot_node, slot_phase, slot_inc, slot_start,
                        slot_nsusp, slot_dead_round), incarnation, drops,
                       scratch)
-    probe.lanes(cfg, tick)
-    rearm, stats = probe.slots(cfg, tick)
+    rearm, stats = probe.lanes_and_slots(cfg, tick)
     # The rearmed rows wiped in place (one launch of the wipe kernel on a
     # card, which writes those rows alone: none in most rounds), between
     # the slot step and the marks, as the reference orders them.

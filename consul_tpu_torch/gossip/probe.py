@@ -6,7 +6,7 @@ The reference runs its probe tick (``consul_tpu/gossip/kernel.py:519-822``,
 for the round's prober block, its ``jax.random`` draws included) as one
 stretch of its jitted round, which XLA fuses; there is no Pallas source.
 The round (``gossip/kernel.py``'s ``_probe_tick``) runs it here in four
-steps, in the reference's order:
+steps, in the reference's order, three launches on a card:
 
 - ``lanes``: per prober lane (``B = ceil(N / probe_every)`` lanes, prober
   ``blk + lane``, padding lanes past ``N``), the probes and their draws,
@@ -21,13 +21,16 @@ steps, in the reference's order:
 - the rearmed rows' wipe (``finish.wipe``, called by the round);
 - ``marks``: each initiator's own belief byte after the wipe.
 
-Each step is one launch of ``csrc/probe.cu`` on CUDA tensors (entry points
-``probe_lanes``, ``probe_slots`` and ``probe_marks``; the draws made
-inline from ``csrc/threefry.cuh``, no launch of ``threefry.cu``) and its
-plain version on CPU tensors (``probe_lanes_ref``, ``probe_slots_ref``,
-``probe_marks_ref``: the port's former expressions of the tick, cut at the
-kernels' boundaries; the draws their ``prng.*_ref`` twins, which
-``prng.calls`` does not count).  There is no fallback: a CUDA tensor
+On CUDA tensors the lanes and the slot step are one launch of
+``csrc/probe.cu`` (entry point ``probe_lanes_slots``: the slot step run
+by the last block of the lanes to arrive; dispatcher ``lanes_and_slots``)
+and the marks another (``probe_marks``; dispatcher ``marks``); the draws
+are made inline from ``csrc/threefry.cuh``, no launch of ``threefry.cu``.
+On CPU tensors each step is its plain version (``probe_lanes_ref``,
+``probe_slots_ref``, ``probe_marks_ref``: the port's former expressions of
+the tick, cut at the steps' boundaries; the draws their ``prng.*_ref``
+twins, which ``prng.calls`` does not count), the first two through the
+plain steps ``lanes`` and ``slots``.  There is no fallback: a CUDA tensor
 launches the kernel or raises.  ``heard`` is one u8 ``[S, N]`` tensor or a
 tuple of ``[S, L]`` column shards (one launch serves every shard).  The
 round's scalars (the round, the prober block, the probe offsets, the keys)
@@ -56,7 +59,7 @@ from consul_tpu_torch.gossip.slot_ops import (alloc_free_slots, get_points,
 
 _I32 = torch.int32
 MAX_SHARDS = 64    # kMaxShards of csrc/probe.cu
-MAX_SLOTS = 1024   # kMaxSlots: a thread a slot in one block
+MAX_SLOTS = 1024   # kMaxSlots
 MAX_HELPERS = 64   # kMaxHelpers
 COUNTS = 8         # kCounts: the scratch's count words
 # Slot phases (kernel.PHASE_*).
@@ -66,10 +69,9 @@ _SUSPECT, _REFUTED, _JOIN = 1, 3, 4
 _PARTS = {"hash": 1, "contig": 2}
 _FRESH = (MSG_SUSPECT << _MSG_SHIFT) | _AGE_FRESH
 
-# Kernel launches made by the three entry points (one per launch, nowhere
-# else), and by all three.
-lanes_launches = 0
-slots_launches = 0
+# Kernel launches made by the two entry points (one per launch, nowhere
+# else), and by both.
+lanes_slots_launches = 0
 marks_launches = 0
 launches = 0
 # (kernel, B, S, N, L, ndev, variant) of every launch, so a smoke run can
@@ -141,14 +143,15 @@ def config(p, v, nem=None) -> Config:
 
 def scratch_words(S: int, B: int) -> int:
     """The int32 words of the tick's scratch (``probe_scratch_words`` of
-    ``csrc/probe.cu``): the minima, the counts and the lanes' flag
-    bytes."""
+    ``csrc/probe.cu``): the minima, the counts (the last the kernel's
+    arrival counter) and the lanes' flag bytes."""
     return min(S, B) + COUNTS + -(-B // 4)
 
 
 def scratch(p, device) -> torch.Tensor:
     """A scratch for the tick of the parameters ``p`` on ``device``: the
-    minima at N, the counts at 0 (as every round leaves them)."""
+    minima at N, the counts and the arrival counter at 0 (as every round
+    leaves them)."""
     B = block_size(p)
     kk = min(p.slots, p.n, B)
     out = torch.zeros(scratch_words(p.slots, B), dtype=_I32, device=device)
@@ -190,12 +193,12 @@ def group(hashed: bool, n: int, device) -> torch.Tensor:
 def probe_lanes_ref(cfg: Config, ra, mf: torch.Tensor, heard,
                     slot_of_node: torch.Tensor, nem_state,
                     sp: torch.Tensor) -> None:
-    """The plain version of ``probe_lanes``, on any device: the lanes'
-    flags into the scratch ``sp``, their needy targets' segment minima
-    (a min with what it holds) and the counts (probes, acks missed,
-    indirect escalations, suspicions, needy targets; added); NemState's
-    LHM and streak (``nem_state``, or None) written at the valid
-    probers."""
+    """The plain version of ``probe_lanes_slots``' lanes, on any device:
+    the lanes' flags into the scratch ``sp``, their needy targets'
+    segment minima (a min with what it holds) and the counts (probes,
+    acks missed, indirect escalations, suspicions, needy targets; added);
+    NemState's LHM and streak (``nem_state``, or None) written at the
+    valid probers."""
     N, S, B, K = cfg.N, cfg.S, cfg.B, cfg.K
     dev = mf.device
     rnd = ra.rnd
@@ -303,11 +306,12 @@ def probe_lanes_ref(cfg: Config, ra, mf: torch.Tensor, heard,
 def probe_slots_ref(cfg: Config, ra, slots: tuple,
                     slot_of_node: torch.Tensor, incarnation: torch.Tensor,
                     drops: torch.Tensor, sp: torch.Tensor):
-    """The plain version of ``probe_slots``, on any device: the slot
-    registers ``slots`` (slot_node, slot_phase, slot_inc, slot_start,
-    slot_nsusp, slot_dead_round), ``slot_of_node`` and ``drops`` in place,
-    from the lanes' flags, minima and counts in the scratch ``sp``, which
-    goes back to N minima and 0 counts.  Returns ``(rearm, stats)``: bool
+    """The plain version of ``probe_lanes_slots``' slot step, on any
+    device, after ``probe_lanes_ref``: the slot registers ``slots``
+    (slot_node, slot_phase, slot_inc, slot_start, slot_nsusp,
+    slot_dead_round), ``slot_of_node`` and ``drops`` in place, from the
+    lanes' flags, minima and counts in the scratch ``sp``, which goes
+    back to N minima and 0 counts.  Returns ``(rearm, stats)``: bool
     ``[S]`` and int32 ``[4]``."""
     N, B = cfg.N, cfg.B
     slot_node, slot_phase, slot_inc, slot_start, slot_nsusp, slot_dead = \
@@ -381,7 +385,7 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # the integers, the probabilities and the stream.
 _ARGTYPES = [ctypes.POINTER(_VP), _CI, ctypes.POINTER(_VP),
              ctypes.POINTER(_CI), ctypes.POINTER(ctypes.c_float), _VP]
-ENTRY_POINTS = ("probe_lanes", "probe_slots", "probe_marks")
+ENTRY_POINTS = ("probe_lanes_slots", "probe_marks")
 
 
 @functools.lru_cache(maxsize=None)
@@ -395,6 +399,20 @@ def _lib():
     lib.probe_error.argtypes = [_CI]
     lib.probe_error.restype = ctypes.c_char_p
     return fns, lib.probe_error
+
+
+def lanes_slots_blocks(B: int) -> int:
+    """The blocks of a ``probe_lanes_slots`` launch at ``B`` lanes on the
+    current CUDA device: one wave at the occupancy the card gives, or one
+    block a chunk of 256 lanes where that is fewer."""
+    lib = _build.load("probe")
+    fn = lib.probe_lanes_slots_blocks
+    fn.argtypes, fn.restype = [_CI], _CI
+    n = fn(B)
+    if n < 0:
+        raise RuntimeError(f"probe_lanes_slots_blocks: "
+                           f"{_lib()[1](-n).decode()}")
+    return n
 
 
 class Tick(NamedTuple):
@@ -456,7 +474,7 @@ def _launch(which: int, cfg: Config, t: Tick, rearm=None,
             stats=None) -> None:
     """One launch of entry point ``ENTRY_POINTS[which]`` on the current
     stream; raises if it was refused."""
-    global launches, lanes_launches, slots_launches, marks_launches
+    global launches, lanes_slots_launches, marks_launches
     shards, dev = _checked(cfg, t)
     fns, err = _lib()  # built at the first launch; a failed build raises
     ra = t.ra
@@ -481,35 +499,28 @@ def _launch(which: int, cfg: Config, t: Tick, rearm=None,
                   ints, floats)
     launches += 1
     if which == 0:
-        lanes_launches += 1
-    elif which == 1:
-        slots_launches += 1
+        lanes_slots_launches += 1
     else:
         marks_launches += 1
     launch_shapes.add((name, cfg.B, cfg.S, cfg.N, cfg.N // len(shards),
                        len(shards), cfg.variant(t.nem_state is not None)))
 
 
-def probe_lanes(cfg: Config, t: Tick) -> None:
-    """Launch ``probe_lanes`` of ``csrc/probe.cu`` (the arguments of
-    ``probe_lanes_ref``, gathered in ``t``; only ``slots``, ``incarnation``
-    and ``drops`` are not read)."""
-    _launch(0, cfg, t)
-
-
-def probe_slots(cfg: Config, t: Tick):
-    """Launch ``probe_slots``: ``probe_slots_ref`` in one block.  Returns
-    new ``(rearm, stats)``, bool [S] and int32 [4]."""
+def probe_lanes_slots(cfg: Config, t: Tick):
+    """Launch ``probe_lanes_slots`` of ``csrc/probe.cu``:
+    ``probe_lanes_ref`` then ``probe_slots_ref`` (their arguments,
+    gathered in ``t``) in one launch.  Returns new ``(rearm, stats)``,
+    bool [S] and int32 [4]."""
     dev = t.mf.device
     rearm = torch.empty((cfg.S,), dtype=torch.bool, device=dev)
     stats = torch.empty((4,), dtype=_I32, device=dev)
-    _launch(1, cfg, t, rearm, stats)
+    _launch(0, cfg, t, rearm, stats)
     return rearm, stats
 
 
 def probe_marks(cfg: Config, t: Tick) -> None:
     """Launch ``probe_marks``: ``probe_marks_ref``'s marks, in place."""
-    _launch(2, cfg, t)
+    _launch(1, cfg, t)
 
 
 # -- the round's dispatchers ------------------------------------------------------
@@ -518,22 +529,37 @@ def _on_cpu(t: Tick) -> bool:
     return _shards(t.heard)[0].device.type == "cpu"
 
 
+def _alone(step: str, t: Tick) -> None:
+    if not _on_cpu(t):
+        raise ValueError(f"the probe tick's {step} runs alone only on CPU "
+                         f"tensors; on a card it is part of the one launch "
+                         f"of lanes_and_slots")
+
+
 def lanes(cfg: Config, t: Tick) -> None:
-    """The lanes step of the module docstring: the kernel on CUDA
-    tensors, its plain version on CPU tensors."""
-    if _on_cpu(t):
-        probe_lanes_ref(cfg, t.ra, t.mf, t.heard, t.slot_of_node,
-                        t.nem_state, t.sp)
-    else:
-        probe_lanes(cfg, t)
+    """The lanes step of the module docstring on CPU tensors: its plain
+    version."""
+    _alone("lanes step", t)
+    probe_lanes_ref(cfg, t.ra, t.mf, t.heard, t.slot_of_node, t.nem_state,
+                    t.sp)
 
 
 def slots(cfg: Config, t: Tick):
-    """The slot step: ``(rearm, stats)``."""
+    """The slot step on CPU tensors, after ``lanes``: ``(rearm,
+    stats)``."""
+    _alone("slot step", t)
+    return probe_slots_ref(cfg, t.ra, t.slots, t.slot_of_node,
+                           t.incarnation, t.drops, t.sp)
+
+
+def lanes_and_slots(cfg: Config, t: Tick):
+    """The lanes and the slot step: ``(rearm, stats)``.  The kernel on
+    CUDA tensors (one launch), ``lanes`` then ``slots`` on CPU
+    tensors."""
     if _on_cpu(t):
-        return probe_slots_ref(cfg, t.ra, t.slots, t.slot_of_node,
-                               t.incarnation, t.drops, t.sp)
-    return probe_slots(cfg, t)
+        lanes(cfg, t)
+        return slots(cfg, t)
+    return probe_lanes_slots(cfg, t)
 
 
 def marks(cfg: Config, t: Tick) -> None:

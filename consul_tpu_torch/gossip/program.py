@@ -92,8 +92,8 @@ _COUNTERS = ((prng, "launches"), (prng, "calls"), (fused, "launches"),
              (fused, "merge_drop_launches"), (events, "launches"),
              (observe, "launches"), (finish, "launches"),
              (finish, "fire_launches"), (finish, "wipe_launches"),
-             (probe, "launches"), (probe, "lanes_launches"),
-             (probe, "slots_launches"), (probe, "marks_launches"),
+             (probe, "launches"), (probe, "lanes_slots_launches"),
+             (probe, "marks_launches"),
              (finish_slots, "launches"), (finish_slots, "decide_launches"),
              (finish_slots, "settle_launches"),
              (finish_slots, "record_launches"),

@@ -66,7 +66,7 @@ each with its drop operand.
 
 - pass A, no profiler: host time per round, and the host time and the
   calls per round of each round phase (the probe tick, whose draws are
-  made inside ``csrc/probe.cu``'s lanes kernel; the uniform draws and
+  made inside ``csrc/probe.cu``'s lanes_slots kernel; the uniform draws and
   the compared draws (``prng.below``), on a card each a launch of
   ``csrc/threefry.cu``, which no round of the main path makes now; the
   dissemination tail, the finish step, the kernel wrappers), each phase

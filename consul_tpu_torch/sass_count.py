@@ -1,6 +1,6 @@
 """Count the instructions the card runs per belief word in the dissemination
 tail's kernel, per slot word in the event flood's kernel, per element in
-the draws' kernel and per lane in the probe tick's lanes kernel, from
+the draws' kernel and per lane in the probe tick's lanes_slots kernel, from
 their SASS, per execution unit.
 
     python -m consul_tpu_torch.sass_count [--fanout 3]
@@ -43,10 +43,11 @@ is one element of the draw.  Every instruction of the loop counts once
 (the edge drops' loop holds the hash behind a branch: its count is an
 element that is hashed).
 
-``--probe`` builds ``csrc/probe.cu`` and counts ``probe::lanes_kernel``,
-a thread a lane with no loop but the helpers': every instruction of the
-function once, per unit.  A lane runs a part of them (the draws only
-where they decide something, the Lifeguard registers only when threaded),
+``--probe`` builds ``csrc/probe.cu`` and counts
+``probe::lanes_slots_kernel``, a thread a lane and, in the last block to
+arrive, the slot step: every instruction of the function once, per unit.
+A lane runs a part of them (the draws only where they decide something,
+the Lifeguard registers only when threaded, the slot step in one block),
 so the count is what the most a lane can run costs, not what the main
 path's lanes run; the draws' operations are counted per hash instead
 (``--threefry``'s uniform loop; ``chip_smoke.py``'s ``_probe_bound``).
@@ -251,10 +252,11 @@ def threefry_counts(sass: str) -> dict:
 
 
 def probe_counts(sass: str) -> dict:
-    """``probe::lanes_kernel`` of ``csrc/probe.cu`` in ``sass``: its
+    """``probe::lanes_slots_kernel`` of ``csrc/probe.cu`` in ``sass``: its
     instructions per execution unit, each instruction of the function
     counted once (``--probe`` in the module docstring)."""
-    name, insns = _function(sass, "lanes_kernel", "probe::lanes_kernel")
+    name, insns = _function(sass, "lanes_slots_kernel",
+                            "probe::lanes_slots_kernel")
     ops = Counter(op for _, op, _, _ in insns)
     units = _units(ops)
     return {"function": name, "instructions": len(insns), **units,
@@ -270,12 +272,12 @@ def main(argv=None) -> int:
     ap.add_argument("--flood", action="store_true",
                     help="count the event flood's slot loop")
     ap.add_argument("--probe", action="store_true",
-                    help="count the probe tick's lanes kernel")
+                    help="count the probe tick's lanes and slots kernel")
     args = ap.parse_args(argv)
     if args.probe:
         sass = disassemble("probe")
-        for addr, _, guard, text in _function(sass, "lanes_kernel",
-                                              "lanes_kernel")[1]:
+        for addr, _, guard, text in _function(sass, "lanes_slots_kernel",
+                                              "lanes_slots_kernel")[1]:
             g = "" if guard is None else \
                 f"@{'' if guard[1] else '!'}{guard[0]} "
             print(f"{addr:05x}  {g}{text}")

@@ -943,11 +943,12 @@ def _probe_tick_inputs(n, slots, probe_every, ndev, seed, nem=None,
     (12, 32, 10, 1, False), (200_000, 64, 5, 1, True)])
 def test_probe_kernels_match_plain_on_card(n, slots, probe_every, ndev,
                                            legs):
-    """``csrc/probe.cu`` against ``probe_lanes_ref`` / ``probe_slots_ref``
-    / ``probe_marks_ref`` on the card, with the rearm's wipe between the
-    last two: every output field after every step, tolerance 0, one
-    launch each; aligned and unaligned N, 8 shards, the WAN pool's two
-    lanes, the partition and degraded legs with NemState."""
+    """``csrc/probe.cu`` against ``probe_lanes_ref`` then
+    ``probe_slots_ref`` (the merged launch) and ``probe_marks_ref`` on the
+    card, with the rearm's wipe between the two launches: every output
+    field after each, tolerance 0, one launch each; aligned and unaligned
+    N, 8 shards, the WAN pool's two lanes, the partition and degraded legs
+    with NemState."""
     _need_card()
     from consul_tpu_torch.gossip import finish, probe
     from consul_tpu_torch.gossip.nemesis import NemesisParams
@@ -974,13 +975,10 @@ def test_probe_kernels_match_plain_on_card(n, slots, probe_every, ndev,
                 t.drops, t.sp]
 
     got, want = copy(t), copy(t)
-    n0 = (probe.lanes_launches, probe.slots_launches, probe.marks_launches)
-    probe.probe_lanes(cfg, got)
+    n0 = (probe.lanes_slots_launches, probe.marks_launches)
+    rearm, stats = probe.probe_lanes_slots(cfg, got)
     probe.probe_lanes_ref(cfg, want.ra, want.mf, want.heard,
                           want.slot_of_node, want.nem_state, want.sp)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
-    rearm, stats = probe.probe_slots(cfg, got)
     rearm_w, stats_w = probe.probe_slots_ref(
         cfg, want.ra, want.slots, want.slot_of_node, want.incarnation,
         want.drops, want.sp)
@@ -994,14 +992,14 @@ def test_probe_kernels_match_plain_on_card(n, slots, probe_every, ndev,
                           want.sp)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
-    assert (probe.lanes_launches, probe.slots_launches,
+    assert (probe.lanes_slots_launches,
             probe.marks_launches) == tuple(x + 1 for x in n0)
     assert int(stats[3]) > 0
 
 
 @pytest.mark.parametrize("ndev", [None, 4])
 def test_graphed_round_launches_probe_on_card(ndev):
-    """The graphed and the eager round launch each of ``probe.cu``'s
+    """The graphed and the eager round launch each of ``probe.cu``'s two
     kernels once a round and the draws' kernel not at all (no nemesis);
     their results are equal and the caller's state and NemState are left
     as they were."""
@@ -1020,8 +1018,7 @@ def test_graphed_round_launches_probe_on_card(ndev):
     runs = {}
     for graphed in (False, True):
         program.settle_counts()
-        n0 = (probe.lanes_launches, probe.slots_launches,
-              probe.marks_launches)
+        n0 = (probe.lanes_slots_launches, probe.marks_launches)
         d0 = prng.launches
         a = dict(join_round=join, graphed=graphed, nem=sc.nem,
                  nem_state=ns)
@@ -1032,7 +1029,7 @@ def test_graphed_round_launches_probe_on_card(ndev):
             out = tk.run_rounds(st, prng.key(8), fail, p, steps, **a)
         torch.cuda.synchronize()
         program.settle_counts()
-        assert (probe.lanes_launches, probe.slots_launches,
+        assert (probe.lanes_slots_launches,
                 probe.marks_launches) == tuple(x + steps for x in n0)
         assert prng.launches == d0
         runs[graphed] = out

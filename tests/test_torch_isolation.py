@@ -496,7 +496,8 @@ def test_finish_never_falls_back(monkeypatch):
 
 def test_probe_never_falls_back(monkeypatch):
     """The probe tick's steps take the plain versions only for CPU
-    tensors: the kernel wrappers refuse anything but CUDA tensors, and
+    tensors: the kernel wrappers refuse anything but CUDA tensors, the
+    plain lanes and slot steps refuse anything but CPU tensors, and
     tensors that are not on the CPU whose kernels cannot be built raise
     the build's error instead of running the plain versions."""
     from consul_tpu_torch import _build
@@ -527,16 +528,18 @@ def test_probe_never_falls_back(monkeypatch):
 
     before = (probe.launches, set(probe.launch_shapes))
     t = tick("cpu")
-    probe.lanes(cfg, t)
-    rearm, stats = probe.slots(cfg, t)
+    rearm, stats = probe.lanes_and_slots(cfg, t)
     probe.marks(cfg, t)
     assert stats.tolist() == [8, 0, 0, 0] and not rearm.any()
     assert (probe.launches, set(probe.launch_shapes)) == before
     meta = tick("meta")
-    for fn in (probe.probe_lanes, probe.probe_slots, probe.probe_marks,
-               probe.lanes, probe.slots, probe.marks):
+    for fn in (probe.probe_lanes_slots, probe.probe_marks,
+               probe.lanes_and_slots, probe.marks):
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(cfg, t if fn.__name__.startswith("probe_") else meta)
+    for fn in (probe.lanes, probe.slots):
+        with pytest.raises(ValueError, match="only on CPU tensors"):
+            fn(cfg, meta)
 
     # Tensors the wrappers take, and a build that fails: the error, not
     # the plain versions' results.
@@ -548,7 +551,7 @@ def test_probe_never_falls_back(monkeypatch):
     monkeypatch.setattr(_build, "_libs", {})
     probe._lib.cache_clear()
     try:
-        for fn in (probe.lanes, probe.slots, probe.marks):
+        for fn in (probe.lanes_and_slots, probe.marks):
             with pytest.raises(RuntimeError, match="nvcc failed for probe"):
                 fn(cfg, meta)
     finally:

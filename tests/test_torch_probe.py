@@ -274,7 +274,7 @@ def test_scratch_serves_again_and_kernels_refuse_the_cpu():
                    torch.zeros(p.n, dtype=torch.int32),
                    torch.zeros((), dtype=torch.int32), sp)
     with pytest.raises(ValueError, match="CUDA"):
-        probe.probe_lanes(cfg, t)
+        probe.probe_lanes_slots(cfg, t)
 
 
 # -- whole runs -------------------------------------------------------------------

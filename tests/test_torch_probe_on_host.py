@@ -2,22 +2,28 @@
 shared ``csrc/threefry.cuh``) compiled by the host's C++ compiler against
 a small stand-in for the CUDA runtime in which a launch runs its blocks
 one after another (or last-first) and each block as ``blockDim.x`` host
-threads at once: a warp's ballot and minimum meet at a barrier of its 32
-threads, ``__syncthreads`` and ``__syncthreads_count`` at a barrier of
-the block, and the atomics are the compiler's ``__atomic`` builtins.
+threads at once: a warp's ballot, minimum and sum meet at a barrier of
+its 32 threads, ``__syncthreads``, ``__syncthreads_count`` and
+``__syncthreads_or`` at a barrier of the block, the atomics and the
+arrival's release and acquire are the compiler's ``__atomic`` builtins,
+and the occupancy query gives the grid the test asks for (one SM).
 
-Each launch goes through the port's own wrappers (``probe.probe_lanes``,
-``probe_slots``, ``probe_marks``: their checks, the pointer table, the
-integers and probabilities as the card gets them, the launch counters)
-and the tick's steps are held, field for field after each step, against
-the plain versions (``probe_lanes_ref``, ``probe_slots_ref``, the wipe's
-``finish.wipe_rows_ref``, ``probe_marks_ref``) on the cases of
-tests/test_torch_probe.py (every variant: aligned and unaligned N, K 0
-and 3, the partition legs by hash and by halves at 0 < p < 1 and 1,
-degraded observers, LHM threaded, a one-lane block, drops, 2 and 8
-shards) and a block of 300 lanes (two blocks of threads, in order and
-last-first); the scratch left as the next round needs it.  Needs ``g++``;
-builds into the test's temporary directory.
+Each launch goes through the port's own wrappers
+(``probe.probe_lanes_slots``, ``probe_marks``: their checks, the pointer
+table, the integers and probabilities as the card gets them, the launch
+counters) and the tick's launches are held, field for field after each,
+against the plain versions (``probe_lanes_ref`` then
+``probe_slots_ref``, the wipe's ``finish.wipe_rows_ref``,
+``probe_marks_ref``) on the cases of tests/test_torch_probe.py (every
+variant: aligned and unaligned N, K 0 and 3, the partition legs by hash
+and by halves at 0 < p < 1 and 1, degraded observers, LHM threaded, a
+one-lane block, drops, 2 and 8 shards), a block of 300 lanes, one of
+2,000 in 8 segments and 600 slots (the slot step's chunks), each on a
+grid of one block (every chunk of lanes by one block), of two and of a
+block a chunk, in block order and last-first (so the block that runs
+the slot step is the last, or block 0); the scratch left as the next
+round needs it.  Needs ``g++``; builds into the test's temporary
+directory.
 """
 
 import ctypes
@@ -66,6 +72,7 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 static thread_local dim3 threadIdx, blockIdx;
+static dim3 gridDim;
 template <class T> static inline T __ldg(const T* p) { return *p; }
 static inline int __popc(unsigned x) { return __builtin_popcount(x); }
 static inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi,
@@ -109,6 +116,14 @@ static inline unsigned __ballot_sync(unsigned, int pred) {
   host_warp->bar.sync();
   return m;
 }
+static inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  host_warp->slot[threadIdx.x & 31u] = v;
+  host_warp->bar.sync();
+  unsigned m = 0;
+  for (unsigned i = 0; i < 32; ++i) m += host_warp->slot[i];
+  host_warp->bar.sync();
+  return m;
+}
 static inline int __reduce_min_sync(unsigned, int v) {
   host_warp->slot[threadIdx.x & 31u] = static_cast<uint32_t>(v);
   host_warp->bar.sync();
@@ -128,6 +143,12 @@ static inline int __syncthreads_count(int pred) {
   host_block->sync();
   return v;
 }
+static inline int __syncthreads_or(int pred) {
+  return __syncthreads_count(pred) != 0;
+}
+template <class T> static inline T __ldcg(const T* p) {
+  return __atomic_load_n(p, __ATOMIC_RELAXED);
+}
 static inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
@@ -145,6 +166,7 @@ static int host_reverse = 0;
 template <class K, class... A>
 static void host_launch(K kernel, dim3 grid, dim3 block, const A&... args) {
   if (block.x % 32 != 0) std::abort();
+  gridDim = grid;
   HostBarrier bar;
   bar.n = block.x;
   host_block = &bar;
@@ -165,8 +187,28 @@ static void host_launch(K kernel, dim3 grid, dim3 block, const A&... args) {
 }
 extern "C" void probe_host_reverse(int on) { host_reverse = on; }
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+                   cudaErrorInvalidConfiguration = 9 };
 static inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// One SM, on which `host_blocks` blocks fit: the grid the test asks for.
+static int host_blocks = 1;
+extern "C" void probe_host_blocks(int n) { host_blocks = n; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+static inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+static inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr,
+                                                 int) {
+  *v = 1;
+  return cudaSuccess;
+}
+template <class K>
+static inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, K, int, size_t) {
+  *n = host_blocks;
+  return cudaSuccess;
+}
 static inline const char* cudaGetErrorString(cudaError_t e) {
   return e ? "invalid argument" : "no error";
 }
@@ -177,14 +219,19 @@ LAUNCH = re.compile(r"(\w+_kernel)<<<(.+?), (\S+?), 0,\s*"
                     r"static_cast<cudaStream_t>\(stream\)>>>\(a\);")
 
 # Beyond tests/test_torch_probe.py's cases: a block of 300 lanes, two
-# blocks of threads, every leg and the Lifeguard registers; 2,000 lanes in
+# chunks of lanes, every leg and the Lifeguard registers; 2,000 lanes in
 # 8 segments of 250 (a warp's needy minima reduced before its atomics,
-# one warp and each block across two segments).
+# one warp and each chunk across two segments); 600 slots, 400 of them
+# free, and 600 segments of 5 lanes (the slot step's three chunks of
+# slots and of candidates, the candidates more than the free slots).
 HOST_CASES = dict(CASES, two_blocks=(
     1500, 32, 5, 3, 0.1, dict(part_kind="hash", p_ab=0.6, p_ba=0.2,
                               obs_lo=100, obs_hi=1400, p_obs_miss=0.3,
                               lhm_max=3), True, 1, 10),
-    warp_minima=(2000, 8, 1, 3, 0.1, None, False, 1, 4))
+    warp_minima=(2000, 8, 1, 3, 0.1, None, False, 1, 4),
+    wide_slots=(3000, 600, 1, 3, 0.1, None, False, 1, 400))
+# Grids of the merged launch: one block, two, and a block a chunk.
+GRIDS = (1, 2, 1 << 20)
 
 
 @pytest.fixture(scope="module")
@@ -195,7 +242,7 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_STUB)
     body, n = LAUNCH.subn(r"host_launch(\1, dim3(\2), dim3(\3), a);",
                           (_build.CSRC / "probe.cu").read_text())
-    assert n == 3, n
+    assert n == 2, n
     src = d / "probe.cpp"
     src.write_text(body)
     so = d / "libprobe.so"
@@ -213,6 +260,7 @@ def lib(tmp_path_factory):
     lib.probe_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.probe_scratch_words.restype = ctypes.c_longlong
     lib.probe_host_reverse.argtypes = [ctypes.c_int]
+    lib.probe_host_blocks.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -281,49 +329,51 @@ def test_kernels_match_plain(on_host, name):
     p, cfg, ra, st, mf, ns, ndev = _case(name)
     assert on_host.probe_scratch_words(p.slots, cfg.B) \
         == probe.scratch_words(p.slots, cfg.B)
-    for reverse in (False, True):
-        got, want = _tick(p, cfg, ra, st, mf, ns, ndev), \
-            _tick(p, cfg, ra, st, mf, ns, ndev)
-        on_host.probe_host_reverse(int(reverse))
-        n0 = (probe.lanes_launches, probe.slots_launches,
-              probe.marks_launches)
-        try:
-            probe.probe_lanes(cfg, got)
-            probe.probe_lanes_ref(cfg, want.ra, want.mf, want.heard,
-                                  want.slot_of_node, want.nem_state,
-                                  want.sp)
-            _same(got, want, f"{name} lanes")
-            rearm, stats = probe.probe_slots(cfg, got)
-            rearm_w, stats_w = probe.probe_slots_ref(
-                cfg, want.ra, want.slots, want.slot_of_node,
-                want.incarnation, want.drops, want.sp)
-            _same(got, want, f"{name} slots")
-            assert torch.equal(rearm, rearm_w) and torch.equal(stats,
-                                                               stats_w)
-            finish.wipe_rows_ref(got.heard, rearm)
-            finish.wipe_rows_ref(want.heard, rearm_w)
-            probe.probe_marks(cfg, got)
-            probe.probe_marks_ref(cfg, want.ra, want.heard,
-                                  want.slot_of_node, want.sp)
-            _same(got, want, f"{name} marks")
-        finally:
-            on_host.probe_host_reverse(0)
-        assert (probe.lanes_launches, probe.slots_launches,
-                probe.marks_launches) == tuple(x + 1 for x in n0)
-        minima, counts, _ = probe._views(cfg, got.sp)
-        assert bool((minima == p.n).all()) and not bool(counts.any())
-        assert int(stats[3]) > 0, name  # initiators
+    for grid in GRIDS:
+        for reverse in (False, True):
+            got, want = _tick(p, cfg, ra, st, mf, ns, ndev), \
+                _tick(p, cfg, ra, st, mf, ns, ndev)
+            on_host.probe_host_blocks(grid)
+            on_host.probe_host_reverse(int(reverse))
+            what = f"{name} grid {grid} reverse {reverse}"
+            n0 = (probe.lanes_slots_launches, probe.marks_launches)
+            try:
+                rearm, stats = probe.probe_lanes_slots(cfg, got)
+                probe.probe_lanes_ref(cfg, want.ra, want.mf, want.heard,
+                                      want.slot_of_node, want.nem_state,
+                                      want.sp)
+                rearm_w, stats_w = probe.probe_slots_ref(
+                    cfg, want.ra, want.slots, want.slot_of_node,
+                    want.incarnation, want.drops, want.sp)
+                _same(got, want, f"{what} lanes_slots")
+                assert torch.equal(rearm, rearm_w), what
+                assert torch.equal(stats, stats_w), what
+                finish.wipe_rows_ref(got.heard, rearm)
+                finish.wipe_rows_ref(want.heard, rearm_w)
+                probe.probe_marks(cfg, got)
+                probe.probe_marks_ref(cfg, want.ra, want.heard,
+                                      want.slot_of_node, want.sp)
+                _same(got, want, f"{what} marks")
+            finally:
+                on_host.probe_host_reverse(0)
+                on_host.probe_host_blocks(1)
+            assert (probe.lanes_slots_launches, probe.marks_launches) \
+                == tuple(x + 1 for x in n0)
+            # The minima at N, the counts and the arrival counter at 0.
+            minima, counts, _ = probe._views(cfg, got.sp)
+            assert bool((minima == p.n).all()) and not bool(counts.any())
+            assert int(stats[3]) > 0, name  # initiators
 
 
 def test_launch_shapes_name_the_variant(on_host):
     p, cfg, ra, st, mf, ns, ndev = _case("sharded_8")
     probe.launch_shapes.clear()
     t = _tick(p, cfg, ra, st, mf, ns, ndev)
-    probe.probe_lanes(cfg, t)
-    probe.probe_slots(cfg, t)
+    probe.probe_lanes_slots(cfg, t)
+    probe.probe_marks(cfg, t)
     assert probe.launch_shapes == {
         (k, cfg.B, p.slots, p.n, p.n // 8, 8, (2, True, 3, True))
-        for k in ("probe_lanes", "probe_slots")}
+        for k in ("probe_lanes_slots", "probe_marks")}
 
 
 def test_refused_arguments(on_host):
@@ -332,17 +382,33 @@ def test_refused_arguments(on_host):
     p, cfg, ra, st, mf, ns, ndev = _case("aligned_k3")
     t = _tick(p, cfg, ra, st, mf, ns, ndev)
     with pytest.raises(ValueError, match="scratch"):
-        probe.probe_lanes(cfg, t._replace(sp=t.sp[:-1]))
+        probe.probe_lanes_slots(cfg, t._replace(sp=t.sp[:-1]))
     with pytest.raises(ValueError, match="S <= 1024"):
-        probe.probe_lanes(cfg._replace(S=2000), t)
+        probe.probe_lanes_slots(cfg._replace(S=2000), t)
     with pytest.raises(ValueError, match="slot register"):
-        probe.probe_slots(cfg, t._replace(slots=t.slots[:5] + (
+        probe.probe_lanes_slots(cfg, t._replace(slots=t.slots[:5] + (
             t.slots[5].to(torch.int64),)))
     ptrs = (ctypes.c_void_p * 21)(*([t.sp.data_ptr()] * 21))
     ints = (ctypes.c_int * 9)(p.n, p.n + 1, p.slots, 3, 0, 0, 0, 0, 0)
     floats = (ctypes.c_float * 5)()
     table = (ctypes.c_void_p * 1)(t.heard.data_ptr())
-    assert on_host.probe_lanes(table, 1, ptrs, ints, floats, None) != 0
-    ptrs[19] = None  # no stats: only the slot step refuses it
+    assert on_host.probe_lanes_slots(table, 1, ptrs, ints, floats,
+                                     None) != 0
+    assert on_host.probe_marks(table, 1, ptrs, ints, floats, None) != 0
+    ptrs[19] = None  # no stats: only the merged launch refuses it
     ints[1] = cfg.B
-    assert on_host.probe_slots(table, 1, ptrs, ints, floats, None) != 0
+    assert on_host.probe_lanes_slots(table, 1, ptrs, ints, floats,
+                                     None) != 0
+    # A device on which no block of the kernel fits.
+    ptrs[19] = t.sp.data_ptr()
+    on_host.probe_host_blocks(0)
+    try:
+        assert on_host.probe_lanes_slots(table, 1, ptrs, ints, floats,
+                                         None) != 0
+        assert on_host.probe_lanes_slots_blocks(1000) < 0
+        # The grid: the wave, or a block a chunk of 256 lanes.
+        on_host.probe_host_blocks(3)
+        assert [on_host.probe_lanes_slots_blocks(b)
+                for b in (1, 256, 257, 1000)] == [1, 1, 2, 3]
+    finally:
+        on_host.probe_host_blocks(1)
