@@ -118,9 +118,10 @@ result lines are not printed.
    the kernels' build and this phase alone.
 6e. probe: the probe tick's kernels (``csrc/probe.cu``:
    ``probe_lanes_slots``, the lanes and the slot step in one launch, and
-   ``probe_marks``, with ``wipe_rows`` between them as the round runs
-   them) against ``probe_lanes_ref`` then ``probe_slots_ref``, and
-   ``probe_marks_ref``, on the card, tolerance 0 in every field of the
+   ``probe_rearm_marks``, the rearmed rows' wipe and the marks in one)
+   against ``probe_lanes_ref`` then ``probe_slots_ref``, and
+   ``finish.wipe_rows_ref`` then ``probe_marks_ref``, on the card,
+   tolerance 0 in every field of the
    state, NemState and the scratch after each launch, over 64 seeds of
    each ``PROBE_CASES`` entry ([64, 1M] with B = 200,000, K = 3 at loss 0
    and 0.01, the partition legs by hash and by halves at 0 < p < 1 and at
@@ -129,12 +130,13 @@ result lines are not printed.
    [64, 1M]; the WAN pool's [32, 12] with B = 2), each state with free,
    SUSPECT, DEAD, REFUTED and JOIN slots and more needy targets than free
    slots (every state must initiate and allocate or drop; rearms and
-   drops must occur).  Times from CUDA-graph replays of the whole tick
-   and of each kernel, the plain versions', on each case's state and on
-   the 1M main path's data (1 and 8 shards, and ``partition_heal``'s
-   window), beside the bound (``_probe_bound``: the bytes the data
-   needs, and the hashes at the SASS count of a uniform element,
-   ``sass_count.py --threefry``); the merged kernel's SASS
+   drops must occur, and marks in rearmed rows).  Times from CUDA-graph
+   replays of the whole tick and of each kernel (the wipe and marks with
+   no rearmed row and with three), the plain versions', on each case's
+   state and on the 1M main path's data (1 and 8 shards, and
+   ``partition_heal``'s window), beside the bound (``_probe_bound``: the
+   bytes the data needs, and the hashes at the SASS count of a uniform
+   element, ``sass_count.py --threefry``); both kernels' SASS
    (``sass_count.py --probe``).  ``--phase probe`` runs the card line,
    the builds and this phase alone.
 6f. finish_slots: the finish step's slot kernels
@@ -154,8 +156,14 @@ result lines are not printed.
    rows.  Times from CUDA-graph replays of each kernel and of the whole
    step, the plain versions', on each case's state and on the 1M main
    path's data (1 and 8 shards, and with the banks), beside the bytes
-   the data needs (``_finish_slots_bound``).  ``--phase finish_slots``
-   runs the card line, the builds and this phase alone.
+   the data needs (``_finish_slots_bound``); the tail then decide as the
+   round runs them (decide a programmatic dependent launch), the tail
+   alone and the pair (``_tail_decide_times``), and whether the round's
+   joined graph keeps decide's programmatic edge (``pdl_check``: the
+   edges of the captured segment and of the IF node's body, the joined
+   graph run and held against the eager tail and plain decide, on rows
+   that refute only on the tail's output).  ``--phase finish_slots`` runs the
+   card line, the builds and this phase alone.
 7. full_path: ``run_rounds`` at n=16,000, S=64 (lan_profile, churn,
    loss, joins, flight ring, hist banks, trace) once on the card and
    once on the CPU (a worker process started with the script, which runs
@@ -402,6 +410,7 @@ import asyncio
 import bisect
 import collections
 import contextlib
+import ctypes
 import io
 import json
 import multiprocessing
@@ -506,7 +515,7 @@ def card() -> str:
 # round_graph.cu, the event round in event_flood.cu, the round's
 # observers' counts (heard_counts) in observe.cu, the finish step's fire
 # pass and row wipes (fire_timers, wipe_rows) in finish.cu, the probe
-# tick (probe_lanes_slots, probe_marks) in probe.cu and the finish
+# tick (probe_lanes_slots, probe_rearm_marks) in probe.cu and the finish
 # step's slot logic (finish_decide, finish_settle, finish_record) in
 # finish_slots.cu.
 SOURCES = ("dissem_tail", "kv_store", "threefry", "round_graph", "event_flood",
@@ -1923,17 +1932,22 @@ def _probe_main_inputs(p, ndev: int, seed: int = 5,
 
 def _probe_timed(cfg, t, per_hash: float) -> dict:
     """The tick's times on ``t`` (CUDA-graph replays of 20 ticks, the
-    state carried from tick to tick): the three launches together and
-    each kernel alone, the wipe of no row, the plain versions' steps
-    (eager: the lanes and the slot step together, the marks); beside
-    ``_probe_bound``."""
+    state carried from tick to tick): the two launches together and each
+    kernel alone, the wipe and marks with no rearmed row and with three
+    (rows 0-2), the plain versions' steps (eager: the lanes and the slot
+    step together, the wipe and the marks); beside ``_probe_bound``."""
     from consul_tpu_torch.gossip import finish, probe
     did = _probe_held(cfg, t)
     bound = _probe_bound(cfg, t, did, per_hash)
     tk = _tick_copy(t)
     ms = graph_ms(lambda: _tick_kernels(cfg, tk))
     lanes_slots_ms = graph_ms(lambda: probe.probe_lanes_slots(cfg, tk))
-    marks_ms = graph_ms(lambda: probe.probe_marks(cfg, tk))
+    none = torch.zeros(cfg.S, dtype=torch.bool, device="cuda")
+    three = none.clone()
+    three[:3] = True
+    rearm_marks_ms = graph_ms(lambda: probe.probe_rearm_marks(cfg, tk, none))
+    rearm_marks_3_ms = graph_ms(
+        lambda: probe.probe_rearm_marks(cfg, tk, three))
     tp = _tick_copy(t)
     plain_ms = cuda_ms(lambda: _tick_plain(cfg, tp), iters=5, warm=1)
 
@@ -1943,23 +1957,35 @@ def _probe_timed(cfg, t, per_hash: float) -> dict:
         probe.probe_slots_ref(cfg, tp.ra, tp.slots, tp.slot_of_node,
                               tp.incarnation, tp.drops, tp.sp)
 
-    plain = {
-        "lanes_slots": lanes_slots_plain,
-        "marks": lambda: probe.probe_marks_ref(cfg, tp.ra, tp.heard,
-                                               tp.slot_of_node, tp.sp)}
+    def rearm_marks_plain():
+        finish.wipe_rows_ref(tp.heard, none)
+        probe.probe_marks_ref(cfg, tp.ra, tp.heard, tp.slot_of_node, tp.sp)
+
+    plain = {"lanes_slots": lanes_slots_plain,
+             "rearm_marks": rearm_marks_plain}
     steps = {f"{k}_plain_ms": cuda_ms(fn, iters=5, warm=1)
              for k, fn in plain.items()}
-    rearm = torch.zeros(cfg.S, dtype=torch.bool, device="cuda")
-    wipe_ms = graph_ms(lambda: finish.wipe_rows(tk.heard, rearm))
-    return {"stats": did["stats"], "needy": did["needy"], "ms": ms,
+    return {"stats": did["stats"], "needy": did["needy"],
+            "rearmed": did["rearmed"],
+            "rearmed_marks": did["rearmed_marks"], "ms": ms,
             "lanes_slots_ms": lanes_slots_ms,
             "lanes_slots_blocks": probe.lanes_slots_blocks(cfg.B),
-            "marks_ms": marks_ms,
-            "wipe_no_row_ms": wipe_ms, "plain_ms": plain_ms, **steps,
+            "rearm_marks_ms": rearm_marks_ms,
+            "rearm_marks_3_ms": rearm_marks_3_ms,
+            "rearm_marks_blocks": probe.rearm_marks_blocks(
+                cfg.B, cfg.S, cfg.N, _ndev_of(t)),
+            "plain_ms": plain_ms, **steps,
             **bound, "share_of_bound": bound["bound_ms"] / ms,
             "lanes_slots_share_of_bound":
                 bound["lanes_slots_bound_ms"] / lanes_slots_ms,
-            "marks_share_of_bound": bound["marks_bound_ms"] / marks_ms}
+            "rearm_marks_share_of_bound":
+                bound["rearm_marks_bound_ms"] / rearm_marks_ms,
+            "rearm_marks_3_share_of_bound":
+                bound["rearm_marks_3_bound_ms"] / rearm_marks_3_ms}
+
+
+def _ndev_of(t) -> int:
+    return len(t.heard) if isinstance(t.heard, tuple) else 1
 
 
 def _tick_copy(t):
@@ -1981,11 +2007,10 @@ def _tick_leaves(t) -> list:
 
 
 def _tick_kernels(cfg, t):
-    """The round's three launches: the probe kernels and the wipe."""
-    from consul_tpu_torch.gossip import finish, probe
+    """The round's two launches of the probe kernels."""
+    from consul_tpu_torch.gossip import probe
     rearm, stats = probe.probe_lanes_slots(cfg, t)
-    finish.wipe_rows(t.heard, rearm)
-    probe.probe_marks(cfg, t)
+    probe.probe_rearm_marks(cfg, t, rearm)
     return rearm, stats
 
 
@@ -2024,20 +2049,21 @@ def _probe_held(cfg, t) -> dict:
     same("lanes_slots")
     if not (torch.equal(rearm, rearm_w) and torch.equal(stats, stats_w)):
         raise AssertionError("probe lanes_slots != plain (rearm or stats)")
-    finish.wipe_rows(got.heard, rearm)
-    finish.wipe_rows_ref(want.heard, rearm_w)
     # What the marks read and write: an initiator's slot, and its byte
-    # where the slot is live, written where the byte is at most SUSPECT.
+    # where the slot is live (after the wipe), written where the byte is
+    # at most SUSPECT; a byte of a rearmed row is not read (it is 0).
     init = probe._views(cfg, got.sp)[2] != 0
     pid = int(t.ra.blk) + torch.arange(cfg.B, device=init.device)
     s2 = got.slot_of_node[(pid + int(t.ra.probe[0])).remainder(cfg.N)]
-    cur = get_points(got.heard, s2.clamp(0, cfg.S - 1).long(),
-                        pid.clamp(max=cfg.N - 1))
+    row = s2.clamp(0, cfg.S - 1).long()
+    cur = get_points(got.heard, row, pid.clamp(max=cfg.N - 1))
     marked = init & (s2 >= 0)
-    probe.probe_marks(cfg, got)
+    in_rearmed = marked & rearm[row]
+    probe.probe_rearm_marks(cfg, got, rearm)
+    finish.wipe_rows_ref(want.heard, rearm_w)
     probe.probe_marks_ref(cfg, want.ra, want.heard, want.slot_of_node,
                           want.sp)
-    same("marks")
+    same("rearm_marks")
     live0 = t.slots[0] >= 0
     served = int((got.slots[0] >= 0).sum() - live0.sum())
     dropped = (int(got.drops) - int(t.drops)) % 2**32
@@ -2046,8 +2072,10 @@ def _probe_held(cfg, t) -> dict:
             "served": served, "absorbed": int(absorbed.sum()),
             "dropped": dropped, "needy": served + dropped,
             "marks_slot_reads": int(init.sum()),
-            "marks_byte_reads": int(marked.sum()),
-            "marks_writes": int((marked & ((cur >> 6) <= 1)).sum())}
+            "marks_byte_reads": int((marked & ~in_rearmed).sum()),
+            "marks_writes": int((marked & ~in_rearmed
+                                 & ((cur >> 6) <= 1)).sum()),
+            "rearmed_marks": int(in_rearmed.sum())}
 
 
 def _probe_work(cfg, t, stats: list) -> dict:
@@ -2156,10 +2184,12 @@ def _probe_bound(cfg, t, did: dict, per_hash: float) -> dict:
     rearm flags, the stats, the minima and counts set back and drops, and
     the registers it changes (an absorb's count read and written, a
     rearm's 5 registers and an allocation's 6 and ``slot_of_node``, with
-    the incarnation read for each); the marks' flags, an initiator's
-    slot, the byte where the slot is live and the byte written where it
-    is at most SUSPECT (``_probe_held``).  The reads are scattered: at a
-    32-byte sector a read the needy lanes' rows would move more."""
+    the incarnation read for each); the wipe and marks' flags, an
+    initiator's slot, outside the rearmed rows the byte where the slot is
+    live and the byte written where it is at most SUSPECT
+    (``_probe_held``), and N bytes written a rearmed row (the rows this
+    tick rearmed; for ``rearm_marks_3``, three).  The reads are scattered:
+    at a 32-byte sector a read the needy lanes' rows would move more."""
     B, S, kk = cfg.B, cfg.S, cfg.kk
     work = _probe_work(cfg, t, did["stats"])
     lanes = (4 * (work["probers"] + work["targets"] + work["helpers"]
@@ -2170,7 +2200,8 @@ def _probe_bound(cfg, t, did: dict, per_hash: float) -> dict:
              + 4 * 8 * did["served"])
     marks = (B + 4 * did["marks_slot_reads"] + did["marks_byte_reads"]
              + did["marks_writes"])
-    bytes_ = lanes + slots + marks
+    rearm_marks = marks + cfg.N * did["rearmed"]
+    bytes_ = lanes + slots + rearm_marks
     hashes = work["hashes"]
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     ops_ms = hashes * per_hash / INT32_OPS_PER_S * 1e3
@@ -2189,16 +2220,19 @@ def _probe_bound(cfg, t, did: dict, per_hash: float) -> dict:
             "lanes_slots_bound_ms": max(merged_ms, ops_ms),
             "lanes_slots_bound_by": "bytes" if merged_ms >= ops_ms
             else "operations",
-            "marks_bound_ms": marks / HBM_BYTES_PER_S * 1e3}
+            "rearm_marks_bytes": rearm_marks,
+            "rearm_marks_bound_ms": rearm_marks / HBM_BYTES_PER_S * 1e3,
+            "rearm_marks_3_bound_ms":
+                (marks + 3 * cfg.N) / HBM_BYTES_PER_S * 1e3}
 
 
 def probe_phase(card_line: str, seeds: int = 64) -> dict:
     """The probe tick's kernels (``csrc/probe.cu``: ``probe_lanes_slots``,
-    ``probe_marks``, with ``finish.wipe_rows`` between them) against their
-    plain versions on the card, tolerance 0 in
-    every output field after every step, over ``seeds`` fresh states of
-    each ``PROBE_CASES`` entry; each state must initiate and allocate or
-    drop, and the phase must see rearms and drops.  Times
+    ``probe_rearm_marks``) against their plain versions on the card,
+    tolerance 0 in every output field after every step, over ``seeds``
+    fresh states of each ``PROBE_CASES`` entry; each state must initiate
+    and allocate or drop, and the phase must see rearms, marks in rearmed
+    rows and drops.  Times
     (``_probe_timed``) on each case's state and on the 1M main paths'
     (``_probe_main_inputs``, 1 and 8 shards), beside the bound
     (``_probe_bound``: the bytes, and the hashes at the SASS count a
@@ -2210,10 +2244,13 @@ def probe_phase(card_line: str, seeds: int = 64) -> dict:
     t0 = time.perf_counter()
     sass = sass_count.threefry_counts(sass_count.disassemble("threefry"))
     per_hash = sass["uniform"]["busiest_unit_per_element"]
-    lanes_slots_sass = sass_count.probe_counts(sass_count.disassemble("probe"))
-    emit({"phase": "probe_sass", **{k: v for k, v in lanes_slots_sass.items()
-                                     if k != "by_opcode"}})
-    rows, held, seen = {}, 0, {"rearmed": 0, "dropped": 0, "served": 0}
+    probe_sass = sass_count.disassemble("probe")
+    kernels_sass = {
+        k: {f: v for f, v in sass_count.probe_counts(probe_sass, k).items()
+            if f != "by_opcode"} for k in sass_count.PROBE_KERNELS}
+    emit({"phase": "probe_sass", **kernels_sass})
+    rows, held = {}, 0
+    seen = {"rearmed": 0, "rearmed_marks": 0, "dropped": 0, "served": 0}
     for case in PROBE_CASES:
         p, nem, ndev, lhm, free = _probe_params(case)
         for seed in range(seeds):
@@ -2226,6 +2263,7 @@ def probe_phase(card_line: str, seeds: int = 64) -> dict:
                                      f"initiated or allocated nothing: "
                                      f"{did}")
             seen["rearmed"] += did["rearmed"] > 0
+            seen["rearmed_marks"] += did["rearmed_marks"] > 0
             seen["dropped"] += did["dropped"] > 0
             seen["served"] += did["served"] > 0
         cfg, t = _probe_inputs(p, nem, ndev, lhm, free, 7)
@@ -2247,14 +2285,13 @@ def probe_phase(card_line: str, seeds: int = 64) -> dict:
     torch.cuda.empty_cache()
     res = {"phase": "probe", "card": card_line, "tolerance": 0,
            "max_abs_err": 0, "ticks_held": held, "seeds": seeds,
-           "states_with": seen, "lanes_slots_sass": {
-               k: v for k, v in lanes_slots_sass.items() if k != "by_opcode"},
+           "states_with": seen, "sass": kernels_sass,
            "cases": rows, "main": main,
            "seconds": time.perf_counter() - t0}
     emit(res)
     if not all(seen.values()):
-        raise AssertionError(f"probe: the states never rearmed, dropped or "
-                             f"allocated: {seen}")
+        raise AssertionError(f"probe: the states never rearmed, marked a "
+                             f"rearmed row, dropped or allocated: {seen}")
     return res
 
 
@@ -2576,6 +2613,10 @@ def _finish_slots_held(cfg, t, rx) -> dict:
                 raise AssertionError(f"finish_slots {what} != plain "
                                      f"(field {i})")
 
+    # Decide loads before it waits for the kernel before it (the copies'
+    # last), which must write none of its inputs but the rows: they end
+    # first.
+    torch.cuda.synchronize()
     dec = fs.finish_decide(cfg, got)
     dec_w = fs.finish_decide_ref(cfg, want)
     same("decide", [dec.ok_mask, *(dec.refute or ())],
@@ -2672,14 +2713,17 @@ def _finish_slots_bound(cfg, t, dec, fired, st, n_hold) -> dict:
 
 def _finish_slots_timed(cfg, t, rx) -> dict:
     """The step's times on ``t`` (CUDA-graph replays of 20 launches, the
-    state carried from launch to launch): each kernel alone, and the
-    whole step as the round runs it (with the fire, the count and the
-    wipe); the plain versions' (eager); beside ``_finish_slots_bound``."""
+    state carried from launch to launch): each kernel alone (decide's
+    launches programmatic, each overlapping the end of the one before),
+    and the whole step as the round runs it (with the fire, the count and
+    the wipe); the plain versions' (eager); beside
+    ``_finish_slots_bound``."""
     from consul_tpu_torch.gossip import finish_slots as fs, observe
     did = _finish_slots_held(cfg, t, rx)
     scratch = observe.counts_scratch(cfg.S, "cuda")
-    tk = _fs_copy(t)
-    dec, fired, st, n_hold = _fs_chain(cfg, _fs_copy(t), rx, scratch, False)
+    tk, t0 = _fs_copy(t), _fs_copy(t)
+    torch.cuda.synchronize()  # decide loads before it waits
+    dec, fired, st, n_hold = _fs_chain(cfg, t0, rx, scratch, False)
     out = {"did": {k: v for k, v in did.items() if "bound" not in k
                    and "bytes" not in k}}
     for k, fn in (("decide", lambda: fs.finish_decide(cfg, tk)),
@@ -2704,6 +2748,130 @@ def _finish_slots_timed(cfg, t, rx) -> dict:
     out["step_plain_ms"] = cuda_ms(lambda: _fs_chain(cfg, tq, rx, scratch,
                                                      True), iters=5, warm=1)
     return out
+
+
+def _tail_decide_inputs(ndev: int):
+    """The tail's and decide's inputs: the 1M main path's data
+    (``_finish_slots_main_inputs``) with 8 more SUSPECT slots (rows 8-15)
+    on live members, whose rows are SUSPECT bytes but at the subject's own
+    column, zero there: only the tail's merge makes those bytes SUSPECT,
+    so those rows refute on the tail's output and on nothing before it.
+    Returns ``(cfg, t, tail)``; ``tail()`` runs the round's tail
+    (``fused.disseminate``, 3 random shifts) on ``t.heard`` and returns
+    its output."""
+    from consul_tpu_torch.gossip import fused, kernel
+    from consul_tpu_torch.gossip.params import lan_profile
+    cfg, t, rx = _finish_slots_main_inputs(ndev, False)
+    n, rnd = cfg.N, int(t.rnd)
+    p = lan_profile(n, slots=cfg.S, hot_slots=0)
+    rows = list(range(8, 16))
+    subjects = [500 + 1000 * k for k in range(8)]  # none failed
+    node, phase, start, _ = t.slots
+    shards = t.heard if isinstance(t.heard, tuple) else (t.heard,)
+    L = shards[0].shape[1]
+    for shard in shards:
+        shard[8:16] = 0x40  # SUSPECT, conf 0, age 0
+    for r, x in zip(rows, subjects):
+        node[r], phase[r], start[r] = x, 1, rnd - 10
+        t.slot_of_node[x] = r
+        shards[x // L][r, x % L] = 0
+    rnd_t, offs = fused.tail_args(
+        rnd, np.random.default_rng(7).integers(1, n, p.fanout), "cuda")
+    sc = None if ndev == 1 else kernel._ShardCtx(ndev, L)
+
+    def tail():
+        return fused.disseminate(p, rnd_t, offs, t.heard, t.fail_round, rx,
+                                 t.conf_cap, sc, None)
+
+    return cfg, t, tail
+
+
+def _tail_decide_times(ndev: int) -> dict:
+    """The tail alone and the tail then the round's decide on its output
+    (``_tail_decide_inputs``; CUDA-graph replays, the state carried)."""
+    from consul_tpu_torch.gossip import finish_slots as fs
+    cfg, t, tail = _tail_decide_inputs(ndev)
+    return {"tail_ms": graph_ms(tail),
+            "pair_ms": graph_ms(lambda: fs.decide(
+                cfg, t._replace(heard=tail())))}
+
+
+def pdl_check(ndev: int) -> dict:
+    """Whether the round's graph keeps decide's programmatic edge, and
+    whether decide waits for the tail: the tail (``fused.disseminate``)
+    then the round's decide (a programmatic dependent launch) captured by
+    ``torch.cuda.graph`` into a segment graph, the segment joined under an
+    IF node on a true predicate as ``round_graph_build`` joins the round's
+    (``round_graph_edges``: the edges of the segment and of the child
+    graph in the IF node's body, by type), instantiated and launched; the
+    tail's output, the state and decide's outputs held against the tail
+    run eagerly and decide's plain version on its output, tolerance 0.
+    On ``_tail_decide_inputs``, where 8 rows refute only on the tail's
+    output (a decide that read its own byte before the tail ended would
+    miss them); raises unless they refute.  Raises if the joined graph ran
+    and disagrees; a refusal is returned with its CUDA error."""
+    from consul_tpu_torch.gossip import finish_slots as fs, program
+    cfg, t, tail = _tail_decide_inputs(ndev)
+    lib = program._lib()
+    want = _fs_copy(t)
+    out_w = tail()
+    torch.cuda.synchronize()
+    dec_w = fs.finish_decide_ref(cfg, want._replace(heard=out_w))
+    refuted = int(dec_w.refute[1].count_nonzero())
+    if refuted < 8:
+        raise AssertionError(f"pdl_check {ndev}: {refuted} rows refute on "
+                             f"the tail's output, 8 expected")
+    got = _fs_copy(t)
+    warm = _fs_copy(t)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fs.decide(cfg, warm._replace(heard=tail()))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = tail()
+        dec = fs.decide(cfg, got._replace(heard=out))
+    pred = torch.ones((), dtype=torch.bool, device="cuda")
+    counts = (ctypes.c_int * 4)()
+    joined, exe = ctypes.c_void_p(), ctypes.c_void_p()
+    rc = lib.round_graph_edges(graph.raw_cuda_graph(), pred.data_ptr(),
+                               counts, ctypes.byref(joined),
+                               ctypes.byref(exe))
+    res = {"ndev": ndev, "refuted": refuted,
+           "segment_programmatic_edges": counts[0],
+           "segment_other_edges": counts[1],
+           "if_body_programmatic_edges": counts[2],
+           "if_body_other_edges": counts[3], "instantiated": rc == 0,
+           "cuda_error": None if rc == 0
+           else lib.round_graph_error(rc).decode()}
+    if rc == 0:
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.round_graph_launch(exe, stream)
+        torch.cuda.synchronize()
+        res["launched"] = rc == 0
+        if rc != 0:
+            res["cuda_error"] = lib.round_graph_error(rc).decode()
+        else:
+            outs = (out, out_w) if isinstance(out, tuple) else ((out,),
+                                                                (out_w,))
+            for i, (x, y) in enumerate(zip(
+                    [*outs[0], *_fs_leaves(got), dec.ok_mask, *dec.refute],
+                    [*outs[1], *_fs_leaves(want), dec_w.ok_mask,
+                     *dec_w.refute])):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"pdl_check {ndev}: the joined "
+                                         f"graph's tail and decide != the "
+                                         f"eager tail and plain decide "
+                                         f"(field {i})")
+            res["held"] = True
+        lib.round_graph_destroy(joined, exe)
+    del graph
+    torch.cuda.empty_cache()
+    res["kept"] = bool(res["instantiated"] and res.get("launched")
+                       and counts[0] > 0 and counts[2] > 0)
+    return res
 
 
 def finish_slots_phase(card_line: str, seeds: int = 32) -> dict:
@@ -2744,14 +2912,25 @@ def finish_slots_phase(card_line: str, seeds: int = 32) -> dict:
                      **_finish_slots_timed(cfg, t, rx)}
         del t
     torch.cuda.empty_cache()
+    # The tail then decide, as the round runs them (decide a programmatic
+    # dependent launch), and whether the round's joined graph keeps that
+    # edge.
+    pdl = {f"1m/{ndev}": pdl_check(ndev) for ndev in (1, 8)}
+    pair = {f"1m/{ndev}": _tail_decide_times(ndev) for ndev in (1, 8)}
     res = {"phase": "finish_slots", "card": card_line, "tolerance": 0,
            "max_abs_err": 0, "steps_held": held, "seeds": seeds,
            "states_with": seen, "cases": rows, "main": main,
+           "tail_decide": pair, "pdl": pdl,
            "seconds": time.perf_counter() - t0}
     emit(res)
     if not all(seen.values()):
         raise AssertionError(f"finish_slots: the states never did some of "
                              f"{seen}")
+    for key, r in pdl.items():
+        if r["instantiated"] and not r.get("launched"):
+            raise AssertionError(f"finish_slots: the joined graph with "
+                                 f"decide's edge did not launch ({key}): "
+                                 f"{r}")
     return res
 
 
@@ -2930,7 +3109,7 @@ def _observe_gate(what: str, rounds: int) -> dict:
             "observe_launches_per_round": observe.launches / rounds}
 
 
-PROBE_KERNELS = ("lanes_slots", "marks")
+PROBE_KERNELS = ("lanes_slots", "rearm_marks")
 FINISH_SLOTS_KERNELS = ("decide", "settle", "record")
 
 
@@ -2938,10 +3117,11 @@ def _round_counts() -> dict:
     """The finish step's and the probe tick's launches since the last
     ``_reset_counts`` (settled), beside what the rounds run since make
     them: ``fire_timers`` once a non-quiescent round; ``wipe_rows`` once a
-    round (the probe tick's rearm), once a join round (the join tick's
-    stale episodes) and once a non-quiescent round (the slot GC); each of
-    ``probe.cu``'s two kernels once a round (of every pool); each of
-    ``finish_slots.cu``'s three kernels once a non-quiescent round."""
+    join round (the join tick's stale episodes) and once a non-quiescent
+    round (the slot GC; the probe tick's rearm wipe is inside
+    ``probe_rearm_marks``); each of ``probe.cu``'s two kernels once a
+    round (of every pool); each of ``finish_slots.cu``'s three kernels
+    once a non-quiescent round."""
     from consul_tpu_torch.gossip import finish, finish_slots, kernel, probe
     _settle()
     t = kernel.tail_rounds
@@ -2949,8 +3129,7 @@ def _round_counts() -> dict:
     return {"fire_launches": finish.fire_launches,
             "wipe_launches": finish.wipe_launches,
             "fire_launches_expected": busy,
-            "wipe_launches_expected": busy + t["quiescent"]
-            + kernel.join_rounds + busy,
+            "wipe_launches_expected": kernel.join_rounds + busy,
             "join_rounds": kernel.join_rounds,
             **{f"probe_{k}_launches": getattr(probe, f"{k}_launches")
                for k in PROBE_KERNELS},
@@ -2963,10 +3142,11 @@ def _round_counts() -> dict:
 
 def _round_bad(c: dict) -> bool:
     """Whether ``_round_counts``' launches are not exactly what the rounds
-    make them, or none were made."""
+    make them, or none were made where the rounds make some."""
     return (c["fire_launches"] != c["fire_launches_expected"]
             or c["wipe_launches"] != c["wipe_launches_expected"]
-            or c["wipe_launches"] == 0
+            or (c["wipe_launches"] == 0
+                and c["wipe_launches_expected"] != 0)
             or c["probe_launches_expected"] == 0
             or any(c[f"probe_{k}_launches"] != c["probe_launches_expected"]
                    for k in PROBE_KERNELS)
@@ -3541,7 +3721,9 @@ def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool) -> dict:
 
 def _rp_profile(p, fail_t, st0, graphed: bool,
                 observers: bool = False) -> dict:
-    """Device kernels and busy time a round, and the card's idle share,
+    """Device kernels and busy time a round (their durations summed; and
+    the union of their spans, which counts a programmatic launch's wait
+    behind the kernel before it once), and the card's idle share by each,
     over RP_PROFILED rounds of the route (after a warm call), with the
     flight ring, hist banks and trace threaded or not (``observers``).
     Also the tail's, the draws', the observers', the finish step's and
@@ -3556,7 +3738,9 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
     from consul_tpu_torch import prng
     from consul_tpu_torch.gossip import (finish, finish_slots, fused, kernel,
                                          observe, probe)
-    from consul_tpu_torch.profile_round import device_kernels, self_device_us
+    from consul_tpu_torch.profile_round import (device_kernels,
+                                                device_timeline,
+                                                self_device_us)
 
     key = prng.key(42)
     carry = {"flight": kernel.init_flight(),
@@ -3585,6 +3769,7 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
     _settle()
     rows = device_kernels(prof)
     busy_us = sum(self_device_us(e) for e in rows)
+    span_us = device_timeline(prof)[0]
 
     def seen(name):
         return sum(e.count for e in rows if name in e.key)
@@ -3592,8 +3777,10 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
     return {"device_kernels_per_round": sum(e.count for e in rows)
             / RP_PROFILED,
             "device_busy_ms_per_round": busy_us / 1e3 / RP_PROFILED,
+            "device_span_ms_per_round": span_us / 1e3 / RP_PROFILED,
             "profiled_ms_per_round": wall * 1e3 / RP_PROFILED,
             "device_idle_share": 1 - busy_us / 1e6 / wall,
+            "device_span_idle_share": 1 - span_us / 1e6 / wall,
             "tail_kernels_profiled": seen("tail_kernel"),
             "tail_launches_counted": fused.launches - tails0,
             "draw_kernels_profiled": seen("draw_kernel"),
@@ -4431,11 +4618,10 @@ def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
         if r["flood_launches"] != (dcs + 1) * total:
             bad.append(f"{route}: {r['flood_launches']} flood launches in "
                        f"{total} rounds of {dcs + 1} event pools")
-        # Every pool's round: the fire pass once and the wipe twice a
-        # non-quiescent round, the wipe once more a round.
+        # Every pool's round: the fire pass and the wipe once a
+        # non-quiescent round, the wipe once more a join round.
         for k in ("fire", "wipe"):
-            if r[f"{k}_launches"] != r[f"{k}_launches_expected"] \
-                    or r["wipe_launches"] < (dcs + 1) * total:
+            if r[f"{k}_launches"] != r[f"{k}_launches_expected"]:
                 bad.append(f"{route}: {r[f'{k}_launches']} {k} launches, "
                            f"expected {r[f'{k}_launches_expected']}")
         # And each probe kernel once a round of every pool, each of the
@@ -4671,12 +4857,10 @@ def plane_phase(ndev: int, full: bool) -> dict:
                              f"heard_counts launches in {ran} rounds "
                              f"({res['rounds']} dispatched, {busy} "
                              f"non-quiescent), expected {ran + busy}")
-    # Every round it runs: the fire pass once and the wipe twice a
-    # non-quiescent round, the wipe once more a round and once a join
-    # round.
+    # Every round it runs: the fire pass and the wipe once a
+    # non-quiescent round, the wipe once more a join round.
     for k in ("fire", "wipe"):
-        if res[f"{k}_launches"] != res[f"{k}_launches_expected"] \
-                or res["wipe_launches"] < ran:
+        if res[f"{k}_launches"] != res[f"{k}_launches_expected"]:
             raise AssertionError(f"plane: {res[f'{k}_launches']} {k} "
                                  f"launches, expected "
                                  f"{res[f'{k}_launches_expected']}")
@@ -6115,6 +6299,10 @@ def _finish_slots_rows(fslots: dict, churn: dict, sharded: dict,
                 prof["finish_slots_device_ms_per_round"],
             # No one PyTorch call computes a step of the slot logic.
             "library_ms": None})
+    # Decide behind the tail: the pair's time, and whether the round's
+    # graph keeps the programmatic edge.
+    rows[0]["tail_decide_pair_ms"] = fslots["tail_decide"]["1m/1"]["pair_ms"]
+    rows[0]["pdl_edge_kept"] = fslots["pdl"]["1m/1"]["kept"]
     return rows
 
 
@@ -6167,13 +6355,13 @@ def finish_only() -> int:
 
 def probe_only() -> int:
     """``--phase probe``: the card line, the builds the probe tick needs
-    (``probe.cu``, the wipe's ``finish.cu``, ``threefry.cu`` for the SASS
-    count of a hash) and the probe phase."""
+    (``probe.cu``, ``threefry.cu`` for the SASS count of a hash) and the
+    probe phase."""
     from consul_tpu_torch import _build
     card_line = card()
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(_build.build, ("probe", "finish", "threefry")))
-    for name in ("probe", "finish", "threefry"):
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(_build.build, ("probe", "threefry")))
+    for name in ("probe", "threefry"):
         for ln in _build.build_logs.get(name, "").strip().splitlines():
             print(f"  nvcc {name}: {ln}", flush=True)
     probe_phase(card_line)
@@ -6183,10 +6371,12 @@ def probe_only() -> int:
 def finish_slots_only() -> int:
     """``--phase finish_slots``: the card line, the builds the finish step
     needs (``finish_slots.cu``, the fire's and wipe's ``finish.cu``, the
-    count's ``observe.cu``) and the finish_slots phase."""
+    count's ``observe.cu``, the tail's ``dissem_tail.cu`` and the joined
+    graph's ``round_graph.cu``) and the finish_slots phase."""
     from consul_tpu_torch import _build
     card_line = card()
-    names = ("finish_slots", "finish", "observe")
+    names = ("finish_slots", "finish", "observe", "dissem_tail",
+             "round_graph")
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.build, names))
     for name in names:

@@ -275,6 +275,12 @@ __device__ __forceinline__ void edge_row(const Args& a, int s, int i, int c0,
 template <int F>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 tail_kernel(const __grid_constant__ Args a) {
+#ifdef __CUDA_ARCH__
+  // Lets a programmatic dependent launch after the tail (the finish step's
+  // decide_kernel, finish_slots.cu) start now; it waits for this grid to
+  // end before it reads the tail's output.  No effect on other launches.
+  asm volatile("griddepcontrol.launch_dependents;");
+#endif
   const int i = a.i0 + static_cast<int>(blockIdx.x) / a.tiles;
   const int tile = static_cast<int>(blockIdx.x) % a.tiles;
   const int c0 = (tile * kThreads + static_cast<int>(threadIdx.x)) * kCols;

@@ -35,6 +35,35 @@
 //      row (bit c: the timer of a SUSPECT slot has run out at confirmation
 //      count c, from the timeout table and conf_cap[idx[h]], after the
 //      refutation) and the refutation's column and byte (0: none).
+//      A programmatic dependent launch (cudaLaunchKernelEx with
+//      cudaLaunchAttributeProgrammaticStreamSerialization): it may start
+//      while the kernel before it runs, once that kernel triggers
+//      (dissem_tail.cu's tail triggers griddepcontrol.launch_dependents
+//      as it starts) or its blocks have ended, and griddepcontrol.wait
+//      (cudaGridDependencySynchronize) then waits for that kernel to end
+//      with its writes visible.  Its loads come in three rounds of
+//      independent loads (the round and idx[h]; the slot's node, phase,
+//      start and conf_cap; the subject's alive and member flags), all
+//      before the wait; only the own byte and every write come after it.
+//      The refutation and the timer mask come from registers, the bumps
+//      are fire-and-forget atomics.  The launch's contract: the kernel
+//      launched just before it on the stream writes none of its inputs
+//      but the belief rows.  The round keeps it: decide follows the tail
+//      (fused_dissem, fused_merge, or on the hot path the tail on the
+//      gathered rows) or a push/pull round's last take, each writing only
+//      heard_sub, with no kernel between (the step's tensors are made
+//      with torch.empty), and every other input was written before that
+//      kernel began (the slot registers by the probe tick; alive,
+//      member, conf_cap, LHM, idx and the round's row earlier in the
+//      round), and a launch that is not programmatic starts only after
+//      the kernel before it has ended.  A caller whose kernel before may
+//      write decide's other inputs synchronises first.  Loading first
+//      makes the tail -> decide pair about 0.002 ms shorter than waiting
+//      first on an H100 (tools/torch_pair_ab.py, PERF.md).  In the round
+//      program the capture keeps the programmatic edge inside its
+//      segment graph, the child graph and the IF node's body
+//      (chip_smoke.py --phase finish_slots reads the joined graph's
+//      edges).
 //   2. fire_timers (finish.cu): the refutation byte, the fire, fired [H].
 //   3. settle_kernel: where fired, the slot becomes DEAD (its dead round
 //      rnd where it had none: a new verdict); a new verdict counts as a
@@ -65,7 +94,8 @@
 // Bound.  A row reads five registers and a few [N] entries and writes a
 // few bytes: at S = 64 about 3 KB a launch, under a microsecond at
 // 3.35 TB/s; a launch costs more.  The design's point is three launches
-// where the port made ~113.
+// where the port made ~113, and for decide, a chain of dependent loads
+// and a launch that overlap the tail.
 //
 // Capture.  No launch reads the host or needs a memset: the round is read
 // from its row in device memory, the statics (the budget, the TTL, the
@@ -164,22 +194,52 @@ __device__ __forceinline__ uint32_t byte_at(const Args& a, int row,
   return a.heard[i][static_cast<size_t>(row) * a.L + (c - i * a.L)];
 }
 
+// Waits for the kernel before this one on the stream (the grid this
+// launch depends on programmatically) to complete and its writes to be
+// visible: griddepcontrol.wait (cudaGridDependencySynchronize).  At once
+// where that kernel has ended, and where the launch was not programmatic.
+__device__ __forceinline__ void wait_for_primary() {
+#ifdef __CUDA_ARCH__
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+}
+
 __global__ void __launch_bounds__(kMaxRows)
 decide_kernel(const __grid_constant__ Args a) {
   const int h = static_cast<int>(threadIdx.x);
-  bool refute_now = false;
+  // Every load but the own byte, before the wait, in three rounds of
+  // independent loads: the round and the slot id; the slot's registers;
+  // the subject's flags.  The kernel before this one writes none of them
+  // (the launch's contract, finish_decide below).
+  bool live = false;  // a row of the H
+  int s = 0;
+  int32_t rnd = 0, node = -1, node_c = 0, phase = kFree, start = 0, cc = 0;
+  bool alive = false, member = false;
   if (h < a.H) {
-    const int32_t rnd = __ldg(a.rnd);
-    const int s = a.idx[h];
-    const int32_t node = a.slot_node[s];
-    const int32_t node_c = clamp_node(node, a.N);
-    int32_t phase = a.slot_phase[s];
+    live = true;
+    rnd = __ldg(a.rnd);
+    s = __ldg(a.idx + h);
+    node = a.slot_node[s];
+    phase = a.slot_phase[s];
+    start = __ldg(a.slot_start + s);
+    cc = max(__ldg(a.conf_cap + s), 0);  // in [0, max_conf]
+    node_c = clamp_node(node, a.N);
+    if (a.refute) {
+      alive = __ldg(a.alive + node_c) != 0;
+      member = a.member[node_c] != 0;
+    }
+  }
+  // The kernel before's output (the own byte), and every write, after
+  // the wait.
+  wait_for_primary();
+  bool refute_now = false;
+  if (live) {
     if (a.refute) {
       // A live subject that hears of its own suspicion refutes it.
       const int32_t own = static_cast<int32_t>(byte_at(a, h, node_c) >>
                                                kMsgShift);
       refute_now = (phase == kSuspect || phase == kDeadPhase) && node >= 0 &&
-                   a.alive[node_c] != 0 && a.member[node_c] != 0 &&
+                   alive && member &&
                    (own == kMsgSuspect || own == kMsgDead);
       if (refute_now) {
         atomicAdd(a.incarnation + node_c, 1);
@@ -199,8 +259,7 @@ decide_kernel(const __grid_constant__ Args a) {
     // confirmation count c (the table at min(c, conf_cap)).
     uint32_t ok = 0;
     if (phase == kSuspect) {
-      const int32_t elapsed = sub32(rnd, a.slot_start[s]);
-      const int32_t cc = max(a.conf_cap[s], 0);  // in [0, max_conf]
+      const int32_t elapsed = sub32(rnd, start);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         if (elapsed >= a.tbl[min(c, cc)]) ok |= 1u << c;
@@ -431,8 +490,23 @@ extern "C" int finish_decide(void* const* shards, int ndev,
       (a.refute != 0 && a.ref_col == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  decide_kernel<<<1, a.threads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(a);
+  // A programmatic dependent launch: the kernel may start while the one
+  // before it on the stream runs (once that one triggers, or its blocks
+  // have ended) and makes its loads but the own byte before it waits for
+  // that kernel in griddepcontrol.wait.  So that kernel must write none
+  // of decide's inputs but the belief rows (the top of this file).
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(static_cast<unsigned>(a.threads));
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, decide_kernel, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,10 +8,11 @@
 // this the port ran it as ~184 torch launches a round, one of them a launch
 // of threefry.cu; each kernel here is bit-identical to the plain torch
 // versions beside its wrapper (consul_tpu_torch/gossip/probe.py:
-// probe_lanes_ref followed by probe_slots_ref, and probe_marks_ref), which
-// are the port's former expressions cut at these kernels' boundaries.
+// probe_lanes_ref followed by probe_slots_ref; finish.py's wipe_rows_ref
+// of the rearmed rows followed by probe_marks_ref), which are the port's
+// former expressions cut at these kernels' boundaries.
 //
-// The round's order, three launches (the second is finish.cu's wipe_rows):
+// The round's order, two launches:
 //   1. lanes_slots_kernel: the lanes, then the slot step in the last block
 //      to arrive.
 //      The lanes: B = ceil(N / probe_every) prober lanes, prober id pid =
@@ -55,16 +56,39 @@
 //      lanes (no launch writes them before the slot step), so the last
 //      block's slot step starts with one round of loads: the flags, the
 //      first chunk's minima and the counts together.
-//   2. wipe_rows (finish.cu) zeroes the rearmed rows.
-//   3. marks_kernel, a thread a lane: an initiating lane reads its
-//      target's slot after the allocation and marks its own belief byte
-//      (SUSPECT, fresh age, the byte's confirmation count kept) where the
-//      byte is at most SUSPECT after the wipe.  Lanes' columns are
-//      distinct, so the marks are plain stores.  It stays a launch of its
-//      own: it must follow the wipe of the rearmed rows, whole rows of the
-//      [S, N] matrix that no one block wipes cheaply.
+//   2. rearm_marks_kernel: the rearmed rows zeroed and each initiator's
+//      own belief byte marked (SUSPECT, fresh age, the byte's
+//      confirmation count kept) at its target's slot after the
+//      allocation, where the byte is at most SUSPECT after the wipe.
+//      Ownership, with no arrival: every byte written has one writer
+//      thread.  A column of the prober block ([blk, blk + B), below N) is
+//      its lane's, in every row: the lane's thread marks its byte (its
+//      target's row), and once the block knows the rearmed rows writes
+//      the column in each of them whole, the mark where that row is its
+//      target's, else 0 (a wiped byte is 0, and the mark rule makes 0
+//      kFreshSuspect, 0 being at most SUSPECT); so its own mark in a
+//      rearmed row is overwritten by the same thread, in order.  Every
+//      other column of a rearmed row is zeroed by the thread whose 16-byte
+//      unit holds it.  So "wipe, then mark" needs no order between
+//      threads, and the rearmed rows' marks no loads beyond the marks'
+//      own.  (Slower on an H100: the thread that wipes a unit writing the
+//      marks of its columns, which puts a chain of flag and slot loads on
+//      the wipe; the listing before the marks, which puts its round trip
+//      on theirs.)  Warp 0 of every block lists the rearmed rows (four ballots
+//      of 32 rearm flags a round: at S = 64 one round trip) while warps
+//      1-7 take the marks, a word of 4 flags a thread (the flags start at
+//      a word of the scratch), its initiators' slot loads issued together,
+//      then their byte loads, then the stores; shards and columns by
+//      32-bit arithmetic (N < 2**30).  A barrier; with no rearmed row the
+//      block is done.  Else the marks' threads write their columns of the
+//      rearmed rows, and the blocks, from the last down, stride over items
+//      of a listed row and a span of 256 units of one shard, a unit a
+//      thread (finish.cu's wipe_kernel: units at the row's own 16-byte
+//      address boundaries, a head and a tail unit byte by byte, so every
+//      shard width takes 16-byte stores, L % 16 != 0 included), skipping
+//      the lanes' columns.
 // The reference's order holds: the belief byte of step 1 is read before
-// the wipe, the slot of step 3 after the allocation.
+// the wipe, the slot of step 2 after the allocation.
 //
 // The grid of step 1: at most one wave, the blocks an SM that the
 // occupancy query gives at kThreads (the launch bounds ask for
@@ -90,19 +114,27 @@
 // probed target; a helper's legs only for a prober whose direct probe
 // failed; a probability of 0 or 1 draws nothing), so the main path's data
 // needs few: the bytes bound it, and a launch costs more than either.
-// The marks read a flag a lane.  The design keeps the probe tick to three
-// launches (the point: ~184 before) and reads everything once.
+// Step 2 reads a flag a lane, an initiator's slot and its byte, writes the
+// marks, and writes the rearmed rows whole:
+// the main path's no-rearm round ~200,000 bytes, 0.00006 ms at 3.35
+// TB/s, each rearmed row N bytes more (0.0003 ms at N = 1M).  Its grid is
+// at most one wave of kRearmBlocksPerSM blocks an SM, fixed at capture
+// (fewer where the flags' words and the S rows' spans are fewer); a
+// round with no rearmed row pays a launch and the marks' chain of loads
+// (flag, slot, byte), the listing running beside it.  The design keeps the probe tick to two launches (the point:
+// ~184 before) and reads everything once.
 //
 // Capture.  No launch reads the host or needs a memset: the row is read
 // from device memory, and the scratch (the caller's, one per round
 // program) holds the minima at N and the counts and the arrival counter
 // at 0 between rounds, set back by the slot step; the flags are written
-// whole by every lanes_slots launch.  So the three launches run inside
+// whole by every lanes_slots launch.  So the two launches run inside
 // the round program's captured graphs as they are.  One scratch serves
 // one round at a time.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "threefry.cuh"
@@ -114,6 +146,11 @@ constexpr int kMaxSlots = 1024;
 constexpr int kMaxHelpers = 64;
 constexpr int kThreads = 256;     // a block; a chunk of lanes or of slots
 constexpr int kMinBlocks = 6;     // blocks an SM the launch bounds ask for
+// The rearm_marks grid at most: kRearmBlocksPerSM blocks an SM.
+constexpr int kRearmBlocksPerSM = 4;
+constexpr int kCols = 16;         // a unit: 16 columns of a shard row
+constexpr int kListBallots = 4;   // ballots a round of the rows' listing
+constexpr int kMarkThreads = kThreads - 32;  // a block's marks: warps 1 on
 // The scratch: kk int32 minima, then kCounts int32 counts (the last used
 // the arrival counter), then B flag bytes.
 constexpr int kCounts = 8;
@@ -164,7 +201,7 @@ struct Args {
   int32_t* slot_dead;
   const int32_t* incarnation;  // [N]
   int32_t* drops;              // [1]
-  uint8_t* rearm;              // [S] out
+  uint8_t* rearm;              // [S]: the slot step's out, the wipe's in
   int32_t* stats;              // [4] out
   int32_t* minima;             // scratch: [kk]
   int32_t* counts;             //   [kCounts]
@@ -544,19 +581,185 @@ lanes_slots_kernel(const __grid_constant__ Args a) {
   if (t == 0) *arrive = 0u;
 }
 
-__global__ void __launch_bounds__(kThreads)
-marks_kernel(const __grid_constant__ Args a) {
-  const int l = static_cast<int>(blockIdx.x) * kThreads +
-                static_cast<int>(threadIdx.x);
-  if (l >= a.B || a.flags[l] == 0) return;
-  // An initiating lane is a valid prober: its column is pid.
-  const int64_t pid = static_cast<int64_t>(__ldg(a.blk)) + l;
-  const int32_t s2 = a.slot_of_node[mod(pid + __ldg(a.probe), a.N)];
-  if (s2 < 0) return;
-  uint8_t* p = byte_at(a, min(s2, a.S - 1), pid);
-  const uint32_t cur = *p;
-  if ((cur >> kMsgShift) <= kMsgSuspect) {
-    *p = static_cast<uint8_t>(kFreshSuspect | (cur & kConfBits));
+// The rearm wipe and the marks (rearm_marks_kernel, step 2 at the top of
+// this file): a lane's column is its thread's in every row, every other
+// byte of a rearmed row the thread's that zeroes its unit.
+
+// A 16-byte access to the matrix at p, which must be 16-byte aligned: the
+// card faults otherwise, and the host build of this file (its tests) traps.
+__device__ __forceinline__ uint4* at16(uint8_t* p) {
+#ifndef __CUDA_ARCH__
+  if ((reinterpret_cast<uintptr_t>(p) & 15u) != 0u) __builtin_trap();
+#endif
+  return reinterpret_cast<uint4*>(p);
+}
+
+// The first aligned column of the shard row starting at `row`: unit u of
+// the row covers columns [a - 16 + 16 u, a + 16 u) (finish.cu's units).
+__device__ __forceinline__ int phase_of(const uint8_t* row) {
+  return static_cast<int>((0u - reinterpret_cast<uintptr_t>(row)) & 15u);
+}
+
+// Word q of the flags: lanes 4 q to 4 q + 3 (the flags start at a word of
+// the scratch; bytes past B are masked off).  For each lane, the column of
+// its prober in its shard (shard and local column, by 32-bit arithmetic:
+// N < 2**30) and the row it marks: its target's slot, clamped to S - 1,
+// or -1 where it marks nothing.  The word's slot loads are issued
+// together.
+struct Word {
+  int32_t row[4];
+  int shard[4];
+  int col[4];
+};
+
+__device__ __forceinline__ Word word_of(const Args& a, int q, uint32_t w,
+                                        int blk, int o_t) {
+  if (4 * q + 4 > a.B) w &= (1u << (8 * (a.B - 4 * q))) - 1u;
+  Word x;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // An initiating lane is a valid prober: its column is blk + l < N.
+    const int c = blk + 4 * q + k;
+    x.shard[k] = c / a.L;
+    x.col[k] = c - x.shard[k] * a.L;
+    x.row[k] = -1;
+    if ((w >> (8 * k)) & 0xFFu) {
+      int tgt = c + o_t;  // o_t in [0, N)
+      if (tgt >= a.N) tgt -= a.N;
+      const int32_t s2 = __ldg(a.slot_of_node + tgt);
+      x.row[k] = s2 < 0 ? -1 : min(s2, a.S - 1);
+    }
+  }
+  return x;
+}
+
+__device__ __forceinline__ uint8_t* at(const Args& a, const Word& x, int k,
+                                       int row) {
+  return a.heard[x.shard[k]] + static_cast<size_t>(row) * a.L + x.col[k];
+}
+
+// The marks of a word's lanes: each byte loaded, then the stores.  A byte
+// of a rearmed row is marked here too, and rewritten by the same thread
+// once the rearmed rows are known (lanes_in_rearmed).
+__device__ __forceinline__ void mark_word(const Args& a, const Word& x) {
+  uint32_t cur[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) cur[k] = x.row[k] >= 0 ? *at(a, x, k, x.row[k]) : 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (x.row[k] >= 0 && (cur[k] >> kMsgShift) <= kMsgSuspect) {
+      *at(a, x, k, x.row[k]) =
+          static_cast<uint8_t>(kFreshSuspect | (cur[k] & kConfBits));
+    }
+  }
+}
+
+// A word's lanes' columns (those below hi, N or the block's end) in the
+// listed rearmed rows: the mark where the lane's row is that row, else 0.
+__device__ __forceinline__ void lanes_in_rearmed(const Args& a, int q,
+                                                 const Word& x,
+                                                 const int* rows, int n,
+                                                 int blk, int hi) {
+  for (int j = 0; j < n; ++j) {
+    const int r = rows[j];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (blk + 4 * q + k < hi) {
+        *at(a, x, k, r) = x.row[k] == r ? static_cast<uint8_t>(kFreshSuspect)
+                                        : uint8_t{0};
+      }
+    }
+  }
+}
+
+// The unit of a rearmed row at shard i (its first column c0, of the
+// shard row at `row`) zeroed but for the lanes' columns [blk, hi), which
+// their owners write: one 16-byte store for a unit wholly in the row and
+// outside them, else byte by byte.
+__device__ __forceinline__ void wipe_unit(const Args& a, uint8_t* row, int i,
+                                          int c0, int blk, int hi) {
+  const int g0 = i * a.L + c0;
+  if (c0 >= 0 && c0 <= a.L - kCols && (g0 + kCols <= blk || g0 >= hi)) {
+    *at16(row + c0) = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  for (int k = 0; k < kCols; ++k) {
+    const int g = g0 + k;
+    if (c0 + k >= 0 && c0 + k < a.L && (g < blk || g >= hi)) row[c0 + k] = 0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kRearmBlocksPerSM)
+rearm_marks_kernel(const __grid_constant__ Args a) {
+  __shared__ int s_rows[kMaxSlots];  // the rearmed rows, in order
+  __shared__ int s_n;
+  const int t = static_cast<int>(threadIdx.x);
+  const int blk = __ldg(a.blk);
+  const int o_t = (__ldg(a.probe) % a.N + a.N) % a.N;
+  const int hi = blk + a.B < a.N ? blk + a.B : a.N;
+  // Warps 1 on take the marks, a word of 4 flags a thread, the first
+  // word's flags loaded before anything else; warp 0 lists the rearmed
+  // rows meanwhile, kListBallots ballots of 32 flags a round (at S = 64
+  // one round trip), the same list in every block.
+  const int words = (a.B + 3) / 4;
+  const int stride = static_cast<int>(gridDim.x) * kMarkThreads;
+  const int q0 = t < 32 ? words
+                        : static_cast<int>(blockIdx.x) * kMarkThreads + t - 32;
+  const uint32_t* flags = reinterpret_cast<const uint32_t*>(a.flags);
+  Word x0;
+  if (q0 < words) {
+    x0 = word_of(a, q0, __ldg(flags + q0), blk, o_t);
+    mark_word(a, x0);
+    for (int q = q0 + stride; q < words; q += stride) {
+      mark_word(a, word_of(a, q, __ldg(flags + q), blk, o_t));
+    }
+  }
+  if (t < 32) {
+    int n = 0;
+    for (int r0 = 0; r0 < a.S; r0 += 32 * kListBallots) {
+      uint32_t f[kListBallots];
+#pragma unroll
+      for (int k = 0; k < kListBallots; ++k) {
+        const int r = r0 + 32 * k + t;
+        f[k] = r < a.S ? __ldg(a.rearm + r) : 0u;
+      }
+#pragma unroll
+      for (int k = 0; k < kListBallots; ++k) {
+        const int r = r0 + 32 * k + t;
+        const unsigned m = __ballot_sync(0xFFFFFFFFu, f[k] != 0u);
+        if (f[k] != 0u) s_rows[n + __popc(m & ((1u << t) - 1u))] = r;
+        n += __popc(m);
+      }
+    }
+    if (t == 0) s_n = n;
+  }
+  __syncthreads();
+  const int n_rows = s_n;
+  if (n_rows == 0) return;
+  // The rearmed rows.  The lanes' columns [blk, hi) by their owners (the
+  // rows of a later word loaded again)...
+  if (q0 < words) {
+    lanes_in_rearmed(a, q0, x0, s_rows, n_rows, blk, hi);
+    for (int q = q0 + stride; q < words; q += stride) {
+      lanes_in_rearmed(a, q, word_of(a, q, __ldg(flags + q), blk, o_t),
+                       s_rows, n_rows, blk, hi);
+    }
+  }
+  // ...and every other column by the blocks over items of a listed row
+  // and a span of kThreads units of one shard, a unit a thread, items in
+  // row order from the last block down (the first blocks hold the marks).
+  const int units = (a.L + kCols - 1) / kCols + 1;
+  const int spans = (units + kThreads - 1) / kThreads;
+  const int per_row = a.ndev * spans;
+  for (int x = static_cast<int>(gridDim.x - 1 - blockIdx.x);
+       x < per_row * n_rows; x += static_cast<int>(gridDim.x)) {
+    const int j = x / per_row;
+    const int i = (x - j * per_row) / spans;
+    const int u = (x - j * per_row - i * spans) * kThreads + t;
+    if (u >= units) continue;
+    uint8_t* row = a.heard[i] + static_cast<size_t>(s_rows[j]) * a.L;
+    const int c0 = phase_of(row) - kCols + kCols * u;
+    if (c0 > -kCols && c0 < a.L) wipe_unit(a, row, i, c0, blk, hi);
   }
 }
 
@@ -655,6 +858,34 @@ inline cudaError_t lanes_slots_grid(const Args& a, int* blocks) {
   return cudaSuccess;
 }
 
+// The rearm_marks grid: the most items either half of the launch can
+// have (a word of 4 flags a thread; a rearmed row's spans of kThreads units
+// on every shard, S rows at most), at most one wave of kRearmBlocksPerSM
+// blocks an SM (or what the occupancy query gives, if fewer).  Fixed at
+// capture: the blocks find the rearmed rows inside it.
+inline cudaError_t rearm_marks_grid(const Args& a, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rearm_marks_kernel, kThreads, 0);
+  }
+  if (e != cudaSuccess) return e;
+  if (sms < 1 || per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long words = (a.B + 3) / 4;
+  const long long units = (a.L + kCols - 1) / kCols + 1;
+  const long long spans = (units + kThreads - 1) / kThreads;
+  const long long most = std::max((words + kMarkThreads - 1) / kMarkThreads,
+                                  spans * a.ndev * a.S);
+  const long long wave =
+      static_cast<long long>(sms) * std::min(per_sm, kRearmBlocksPerSM);
+  *blocks = static_cast<int>(std::min(most, wave));
+  return cudaSuccess;
+}
+
 }  // namespace probe
 
 // The blocks of a probe_lanes_slots launch at B lanes on the current
@@ -664,6 +895,19 @@ extern "C" int probe_lanes_slots_blocks(int B) {
   a.B = B;
   int blocks = 0;
   const cudaError_t e = probe::lanes_slots_grid(a, &blocks);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
+}
+
+// The blocks of a probe_rearm_marks launch at (B, S, N, ndev) on the
+// current device, or a negative CUDA error.
+extern "C" int probe_rearm_marks_blocks(int B, int S, int N, int ndev) {
+  probe::Args a{};
+  a.B = B;
+  a.S = S;
+  a.ndev = ndev;
+  a.L = ndev > 0 ? N / ndev : 0;
+  int blocks = 0;
+  const cudaError_t e = probe::rearm_marks_grid(a, &blocks);
   return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
@@ -680,8 +924,9 @@ extern "C" long long probe_scratch_words(int S, int B) {
 // of heard; `ptrs`, the probe::Ptr table (the round's row fields, the
 // vectors, the outputs and the scratch; kLhm and kStreak both null without
 // the Lifeguard registers); `ints`, the probe::Int table; `floats`, the
-// float32 probabilities.  kRearm and kStats (the slot step's outputs: u8
-// [S] and int32 [4]) may be null for probe_marks.  Each launches on
+// float32 probabilities.  kRearm (u8 [S]) is probe_lanes_slots' output
+// and probe_rearm_marks' input; kStats (int32 [4]) may be null for
+// probe_rearm_marks.  Each launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() after the
 // launch (or cudaErrorInvalidValue for arguments it does not take, or the
 // occupancy query's error).
@@ -702,16 +947,19 @@ extern "C" int probe_lanes_slots(void* const* shards, int ndev,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int probe_marks(void* const* shards, int ndev, void* const* ptrs,
-                           const int* ints, const float* floats,
-                           void* stream) {
+extern "C" int probe_rearm_marks(void* const* shards, int ndev,
+                                 void* const* ptrs, const int* ints,
+                                 const float* floats, void* stream) {
   using namespace probe;
   Args a{};
-  if (!setup(a, shards, ndev, ptrs, ints, floats)) {
+  if (!setup(a, shards, ndev, ptrs, ints, floats) || a.rearm == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  marks_kernel<<<lane_blocks(a), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a);
+  int blocks = 0;
+  const cudaError_t e = rearm_marks_grid(a, &blocks);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rearm_marks_kernel<<<blocks, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,6 +22,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <vector>
 
 namespace round_graph {
 
@@ -32,9 +33,12 @@ __global__ void set_condition(cudaGraphConditionalHandle handle,
 
 // Appends segment `seg` to `g` after `prev` (nullptr: first node), under
 // an IF node on *pred when pred is not nullptr.  An empty segment becomes
-// an empty node.
+// an empty node.  `child`, where not nullptr, gets the child-graph node
+// that holds the segment (nullptr for an empty one).
 cudaError_t append(cudaGraph_t g, cudaGraphNode_t prev, cudaGraph_t seg,
-                   const bool* pred, cudaGraphNode_t* node) {
+                   const bool* pred, cudaGraphNode_t* node,
+                   cudaGraphNode_t* child = nullptr) {
+  if (child != nullptr) *child = nullptr;
   const cudaGraphNode_t* deps = prev ? &prev : nullptr;
   const size_t n_deps = prev ? 1 : 0;
   size_t n_nodes = 0;
@@ -42,7 +46,9 @@ cudaError_t append(cudaGraph_t g, cudaGraphNode_t prev, cudaGraph_t seg,
   if (e != cudaSuccess) return e;
   if (pred == nullptr) {
     if (n_nodes == 0) return cudaGraphAddEmptyNode(node, g, deps, n_deps);
-    return cudaGraphAddChildGraphNode(node, g, deps, n_deps, seg);
+    e = cudaGraphAddChildGraphNode(node, g, deps, n_deps, seg);
+    if (e == cudaSuccess && child != nullptr) *child = *node;
+    return e;
   }
   cudaGraphConditionalHandle handle;
   e = cudaGraphConditionalHandleCreate(&handle, g, 0, 0);
@@ -63,9 +69,41 @@ cudaError_t append(cudaGraph_t g, cudaGraphNode_t prev, cudaGraph_t seg,
   cp.conditional.size = 1;
   e = cudaGraphAddNode(node, g, &set_node, 1, &cp);
   if (e != cudaSuccess || n_nodes == 0) return e;
-  cudaGraphNode_t child;
-  return cudaGraphAddChildGraphNode(&child, cp.conditional.phGraph_out[0],
-                                    nullptr, 0, seg);
+  cudaGraphNode_t body_node;
+  e = cudaGraphAddChildGraphNode(&body_node, cp.conditional.phGraph_out[0],
+                                 nullptr, 0, seg);
+  if (e == cudaSuccess && child != nullptr) *child = body_node;
+  return e;
+}
+
+// The edges of `g` (its own, not its child graphs'), counted by type:
+// programmatic (cudaGraphDependencyTypeProgrammatic, a programmatic
+// dependent launch's edge) and the rest.
+cudaError_t edge_types(cudaGraph_t g, int* programmatic, int* other) {
+  size_t n = 0;
+#if CUDART_VERSION >= 13000
+  cudaError_t e = cudaGraphGetEdges(g, nullptr, nullptr, nullptr, &n);
+#else
+  cudaError_t e = cudaGraphGetEdges_v2(g, nullptr, nullptr, nullptr, &n);
+#endif
+  *programmatic = *other = 0;
+  if (e != cudaSuccess || n == 0) return e;
+  std::vector<cudaGraphNode_t> from(n), to(n);
+  std::vector<cudaGraphEdgeData> data(n);
+#if CUDART_VERSION >= 13000
+  e = cudaGraphGetEdges(g, from.data(), to.data(), data.data(), &n);
+#else
+  e = cudaGraphGetEdges_v2(g, from.data(), to.data(), data.data(), &n);
+#endif
+  if (e != cudaSuccess) return e;
+  for (size_t k = 0; k < n; ++k) {
+    if (data[k].type == cudaGraphDependencyTypeProgrammatic) {
+      ++*programmatic;
+    } else {
+      ++*other;
+    }
+  }
+  return cudaSuccess;
 }
 
 }  // namespace round_graph
@@ -87,6 +125,44 @@ extern "C" int round_graph_build(void* const* segs, void* const* preds,
     e = round_graph::append(g, prev, static_cast<cudaGraph_t>(segs[i]),
                             static_cast<const bool*>(preds[i]), &node);
     prev = node;
+  }
+  cudaGraphExec_t x = nullptr;
+  if (e == cudaSuccess) e = cudaGraphInstantiate(&x, g, 0);
+  if (e != cudaSuccess) {
+    cudaGraphDestroy(g);
+    return static_cast<int>(e);
+  }
+  *graph = g;
+  *exec = x;
+  return 0;
+}
+
+// What the joining keeps of a segment's programmatic edges: the segment
+// `seg` joined alone, under an IF node on *pred (round_graph_build's
+// form), into an executable graph.  counts[0], counts[1]: the segment's
+// programmatic and other edges; counts[2], counts[3]: those of the child
+// graph in the IF node's body (the clone the joined graph runs).  Returns
+// the joined graph and its executable as round_graph_build does, or the
+// first CUDA error (the counts as far as they were read).
+extern "C" int round_graph_edges(void* seg, const void* pred, int* counts,
+                                 void** graph, void** exec) {
+  using namespace round_graph;
+  for (int k = 0; k < 4; ++k) counts[k] = 0;
+  cudaError_t e = edge_types(static_cast<cudaGraph_t>(seg), counts,
+                             counts + 1);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaGraph_t g = nullptr;
+  e = cudaGraphCreate(&g, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaGraphNode_t node = nullptr, child = nullptr;
+  e = append(g, nullptr, static_cast<cudaGraph_t>(seg),
+             static_cast<const bool*>(pred), &node, &child);
+  cudaGraph_t body = nullptr;
+  if (e == cudaSuccess && child != nullptr) {
+    e = cudaGraphChildGraphNodeGetGraph(child, &body);
+  }
+  if (e == cudaSuccess && body != nullptr) {
+    e = edge_types(body, counts + 2, counts + 3);
   }
   cudaGraphExec_t x = nullptr;
   if (e == cudaSuccess) e = cudaGraphInstantiate(&x, g, 0);

@@ -28,9 +28,11 @@ order:
 
 Each step is one launch of ``csrc/finish_slots.cu`` on CUDA tensors (entry
 points ``finish_decide``, ``finish_settle`` and ``finish_record``: one block,
-a thread a row) and its plain version on CPU tensors
-(``finish_decide_ref``, ``finish_settle_ref``, ``finish_record_ref``: the
-port's former expressions of the step, cut at the kernels' boundaries).
+a thread a row; the decide launch programmatic, overlapping the kernel
+before it, which may write only the belief rows) and its plain version on
+CPU tensors (``finish_decide_ref``, ``finish_settle_ref``,
+``finish_record_ref``: the port's former expressions of the step, cut at
+the kernels' boundaries).
 There is no fallback: a CUDA tensor launches the kernel or raises.  The
 steps write the slot registers, ``slot_of_node``, ``incarnation``,
 ``member``, the four counters, LHM and the banks in place.  The round is
@@ -417,7 +419,12 @@ def _launch(which: int, cfg: Config, t: Step, dec: Decided | None = None,
 
 def finish_decide(cfg: Config, t: Step) -> Decided:
     """Launch ``finish_decide`` of ``csrc/finish_slots.cu``:
-    ``finish_decide_ref`` in one block.  Returns new outputs."""
+    ``finish_decide_ref`` in one block, as a programmatic dependent launch:
+    it may start while the kernel before it on the stream runs, makes its
+    loads but the own bytes, then waits for that kernel.  So that kernel
+    must write none of ``t``'s tensors but the belief rows (in the round:
+    the tail, or a push/pull round's last take); a caller whose kernel
+    before may write them synchronises first.  Returns new outputs."""
     dev, H = t.idx.device, t.idx.shape[0]
     dec = Decided(torch.empty((H,), dtype=_U8, device=dev),
                   (torch.empty((H,), dtype=_I32, device=dev),

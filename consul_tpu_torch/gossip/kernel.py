@@ -49,11 +49,12 @@ row wipes and point writes, the finish step's fire pass and GC wipe
 (``gossip/finish.py``: one launch of ``csrc/finish.cu`` each on a card)
 and the hot tail's rows.  So no step outside the dissemination tail
 copies the ``[S, N]`` matrix.  The probe tick (``gossip/probe.py``: on a
-card three launches of ``csrc/probe.cu`` and the rearm's wipe) also writes
-the slot registers, ``slot_of_node``, ``drops`` and NemState in place, and
-the finish step's slot logic (``gossip/finish_slots.py``: three launches
-of ``csrc/finish_slots.cu``) the slot registers, ``slot_of_node``,
-``incarnation``, ``member``, the counters, LHM and the hist banks.
+card two launches of ``csrc/probe.cu``, its rearm's wipe in the second)
+also writes the slot registers, ``slot_of_node``, ``drops`` and NemState
+in place, and the finish step's slot logic (``gossip/finish_slots.py``:
+three launches of ``csrc/finish_slots.cu``) the slot registers,
+``slot_of_node``, ``incarnation``, ``member``, the counters, LHM and the
+hist banks.
 The caller's tensors are never written: an eager entry point
 (``swim_round*``, ``run_rounds*``) copies the caller's matrix, those
 registers, NemState and the banks once per call (``_own_state``,
@@ -521,8 +522,8 @@ def _probe_tick(p: SwimParams, ra, v: Variant, mf, carry,
     """One round's probe slice: direct probe -> k indirect probes ->
     suspicion initiation for this round's prober block (reference
     ``_probe_tick``), as ``gossip/probe.py``'s steps: the prober lanes and
-    the slot bookkeeping, the rearmed rows' wipe, the marks (on a card one
-    launch each, of ``csrc/probe.cu`` and ``csrc/finish.cu``).  ``ra``:
+    the slot bookkeeping, then the rearmed rows' wipe and the marks (on a
+    card two launches of ``csrc/probe.cu``).  ``ra``:
     the round's row (``round_args.RoundArgs``: the round, the prober
     block, the probe offsets and the draws' keys, all device values).
     ``mf`` packs membership and ground truth: ``member ? fail_round :
@@ -548,11 +549,9 @@ def _probe_tick(p: SwimParams, ra, v: Variant, mf, carry,
                        slot_nsusp, slot_dead_round), incarnation, drops,
                       scratch)
     rearm, stats = probe.lanes_and_slots(cfg, tick)
-    # The rearmed rows wiped in place (one launch of the wipe kernel on a
-    # card, which writes those rows alone: none in most rounds), between
-    # the slot step and the marks, as the reference orders them.
-    finish.wipe(heard, rearm)
-    probe.marks(cfg, tick)
+    # The rearmed rows wiped in place (none in most rounds), then the
+    # marks, as the reference orders them: one launch on a card.
+    probe.rearm_and_marks(cfg, tick, rearm)
     return carry, tuple(stats.unbind(0)), nem_state
 
 
@@ -616,6 +615,9 @@ def _finish_round(p: SwimParams, state: SwimState, rnd, fail_round,
         alive, member, fail_round, slot_of_node, incarnation,
         (state.n_detected, state.sum_detect_rounds, state.n_false_dead,
          state.n_refuted), lhm, hist)
+    # Right after the tail (or a push/pull round's last take), which
+    # writes only heard_sub: on a card decide loads the rest before it
+    # waits for that kernel.
     dec = finish_slots.decide(cfg, t)
     # The refutation's byte, then the fire, in place on the rows whose
     # timer can fire alone (one launch of the fire kernel on a card, every

@@ -1,12 +1,13 @@
-"""The round's probe tick: the prober block's lanes, the slot bookkeeping
-and the marks, the Hopper kernels and their plain torch versions.
+"""The round's probe tick: the prober block's lanes, the slot bookkeeping,
+the rearmed rows' wipe and the marks, the Hopper kernels and their plain
+torch versions.
 
 The reference runs its probe tick (``consul_tpu/gossip/kernel.py:519-822``,
 ``_probe_tick``: direct probe -> K indirect probes -> suspicion initiation
 for the round's prober block, its ``jax.random`` draws included) as one
 stretch of its jitted round, which XLA fuses; there is no Pallas source.
 The round (``gossip/kernel.py``'s ``_probe_tick``) runs it here in four
-steps, in the reference's order, three launches on a card:
+steps, in the reference's order, two launches on a card:
 
 - ``lanes``: per prober lane (``B = ceil(N / probe_every)`` lanes, prober
   ``blk + lane``, padding lanes past ``N``), the probes and their draws,
@@ -18,19 +19,22 @@ steps, in the reference's order, three launches on a card:
   episode or re-arm a REFUTED / JOIN one, the candidates take the free
   slots, ``slot_of_node`` and ``drops`` follow; returns the rearm flags
   ``[S]`` and ``probe_stats`` ``[4]``, and resets the scratch;
-- the rearmed rows' wipe (``finish.wipe``, called by the round);
+- the rearmed rows' wipe;
 - ``marks``: each initiator's own belief byte after the wipe.
 
 On CUDA tensors the lanes and the slot step are one launch of
 ``csrc/probe.cu`` (entry point ``probe_lanes_slots``: the slot step run
 by the last block of the lanes to arrive; dispatcher ``lanes_and_slots``)
-and the marks another (``probe_marks``; dispatcher ``marks``); the draws
-are made inline from ``csrc/threefry.cuh``, no launch of ``threefry.cu``.
-On CPU tensors each step is its plain version (``probe_lanes_ref``,
-``probe_slots_ref``, ``probe_marks_ref``: the port's former expressions of
-the tick, cut at the steps' boundaries; the draws their ``prng.*_ref``
-twins, which ``prng.calls`` does not count), the first two through the
-plain steps ``lanes`` and ``slots``.  There is no fallback: a CUDA tensor
+and the wipe and the marks another (``probe_rearm_marks``: a byte of a
+rearmed row written by the thread that wipes it, the mark included, a
+byte of another row by the lane that owns its column; dispatcher
+``rearm_and_marks``); the draws are made inline from
+``csrc/threefry.cuh``, no launch of ``threefry.cu``.  On CPU tensors each
+step is its plain version (``probe_lanes_ref``, ``probe_slots_ref``,
+``finish.wipe_rows_ref``, ``probe_marks_ref``: the port's former
+expressions of the tick, cut at the steps' boundaries; the draws their
+``prng.*_ref`` twins, which ``prng.calls`` does not count), the first two
+through the plain steps ``lanes`` and ``slots``.  There is no fallback: a CUDA tensor
 launches the kernel or raises.  ``heard`` is one u8 ``[S, N]`` tensor or a
 tuple of ``[S, L]`` column shards (one launch serves every shard).  The
 round's scalars (the round, the prober block, the probe offsets, the keys)
@@ -50,6 +54,7 @@ import torch
 
 from consul_tpu_torch import _build, prng
 from consul_tpu_torch._device import check_tensor, require_cuda
+from consul_tpu_torch.gossip import finish
 from consul_tpu_torch.gossip.belief import (_AGE_FRESH, _CONF_MASK,
                                             _CONF_SHIFT, _MSG_SHIFT,
                                             MSG_DEAD, MSG_SUSPECT)
@@ -72,7 +77,7 @@ _FRESH = (MSG_SUSPECT << _MSG_SHIFT) | _AGE_FRESH
 # Kernel launches made by the two entry points (one per launch, nowhere
 # else), and by both.
 lanes_slots_launches = 0
-marks_launches = 0
+rearm_marks_launches = 0
 launches = 0
 # (kernel, B, S, N, L, ndev, variant) of every launch, so a smoke run can
 # hold each shape its paths launched at against the plain versions;
@@ -357,9 +362,10 @@ def probe_slots_ref(cfg: Config, ra, slots: tuple,
 
 def probe_marks_ref(cfg: Config, ra, heard, slot_of_node: torch.Tensor,
                     sp: torch.Tensor) -> None:
-    """The plain version of ``probe_marks``, on any device: each
-    initiator (a flag of the scratch ``sp``) marks its own belief byte
-    at its target's slot, in place, where the byte is at most SUSPECT."""
+    """The plain version of ``probe_rearm_marks``' marks, on any device,
+    after the rearmed rows' wipe: each initiator (a flag of the scratch
+    ``sp``) marks its own belief byte at its target's slot, in place,
+    where the byte is at most SUSPECT."""
     N, S, B = cfg.N, cfg.S, cfg.B
     init = _views(cfg, sp)[2] != 0
     pid = ra.blk + torch.arange(B, dtype=_I32, device=slot_of_node.device)
@@ -385,7 +391,7 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # the integers, the probabilities and the stream.
 _ARGTYPES = [ctypes.POINTER(_VP), _CI, ctypes.POINTER(_VP),
              ctypes.POINTER(_CI), ctypes.POINTER(ctypes.c_float), _VP]
-ENTRY_POINTS = ("probe_lanes_slots", "probe_marks")
+ENTRY_POINTS = ("probe_lanes_slots", "probe_rearm_marks")
 
 
 @functools.lru_cache(maxsize=None)
@@ -411,6 +417,20 @@ def lanes_slots_blocks(B: int) -> int:
     n = fn(B)
     if n < 0:
         raise RuntimeError(f"probe_lanes_slots_blocks: "
+                           f"{_lib()[1](-n).decode()}")
+    return n
+
+
+def rearm_marks_blocks(B: int, S: int, N: int, ndev: int) -> int:
+    """The blocks of a ``probe_rearm_marks`` launch on the current CUDA
+    device: one wave of at most 4 blocks an SM, or fewer where the flags'
+    chunks of 16 and the S rows' spans of 4,096 columns are fewer."""
+    lib = _build.load("probe")
+    fn = lib.probe_rearm_marks_blocks
+    fn.argtypes, fn.restype = [_CI] * 4, _CI
+    n = fn(B, S, N, ndev)
+    if n < 0:
+        raise RuntimeError(f"probe_rearm_marks_blocks: "
                            f"{_lib()[1](-n).decode()}")
     return n
 
@@ -474,7 +494,7 @@ def _launch(which: int, cfg: Config, t: Tick, rearm=None,
             stats=None) -> None:
     """One launch of entry point ``ENTRY_POINTS[which]`` on the current
     stream; raises if it was refused."""
-    global launches, lanes_slots_launches, marks_launches
+    global launches, lanes_slots_launches, rearm_marks_launches
     shards, dev = _checked(cfg, t)
     fns, err = _lib()  # built at the first launch; a failed build raises
     ra = t.ra
@@ -501,7 +521,7 @@ def _launch(which: int, cfg: Config, t: Tick, rearm=None,
     if which == 0:
         lanes_slots_launches += 1
     else:
-        marks_launches += 1
+        rearm_marks_launches += 1
     launch_shapes.add((name, cfg.B, cfg.S, cfg.N, cfg.N // len(shards),
                        len(shards), cfg.variant(t.nem_state is not None)))
 
@@ -518,9 +538,12 @@ def probe_lanes_slots(cfg: Config, t: Tick):
     return rearm, stats
 
 
-def probe_marks(cfg: Config, t: Tick) -> None:
-    """Launch ``probe_marks``: ``probe_marks_ref``'s marks, in place."""
-    _launch(1, cfg, t)
+def probe_rearm_marks(cfg: Config, t: Tick, rearm: torch.Tensor) -> None:
+    """Launch ``probe_rearm_marks``: ``finish.wipe_rows_ref`` of the rows
+    ``rearm`` flags (bool [S], ``probe_lanes_slots``' output), then
+    ``probe_marks_ref``'s marks, in one launch, in place."""
+    check_tensor("rearm", rearm, torch.bool, (cfg.S,), t.mf.device)
+    _launch(1, cfg, t, rearm)
 
 
 # -- the round's dispatchers ------------------------------------------------------
@@ -562,9 +585,12 @@ def lanes_and_slots(cfg: Config, t: Tick):
     return probe_lanes_slots(cfg, t)
 
 
-def marks(cfg: Config, t: Tick) -> None:
-    """The marks step, after the rearmed rows' wipe."""
+def rearm_and_marks(cfg: Config, t: Tick, rearm: torch.Tensor) -> None:
+    """The rearmed rows' wipe and the marks step, after the slot step
+    (``rearm``: its flags): the kernel on CUDA tensors (one launch), the
+    plain wipe then ``probe_marks_ref`` on CPU tensors."""
     if _on_cpu(t):
+        finish.wipe_rows_ref(t.heard, rearm)
         probe_marks_ref(cfg, t.ra, t.heard, t.slot_of_node, t.sp)
     else:
-        probe_marks(cfg, t)
+        probe_rearm_marks(cfg, t, rearm)

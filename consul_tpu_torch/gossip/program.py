@@ -93,7 +93,7 @@ _COUNTERS = ((prng, "launches"), (prng, "calls"), (fused, "launches"),
              (observe, "launches"), (finish, "launches"),
              (finish, "fire_launches"), (finish, "wipe_launches"),
              (probe, "launches"), (probe, "lanes_slots_launches"),
-             (probe, "marks_launches"),
+             (probe, "rearm_marks_launches"),
              (finish_slots, "launches"), (finish_slots, "decide_launches"),
              (finish_slots, "settle_launches"),
              (finish_slots, "record_launches"),
@@ -111,8 +111,11 @@ def _lib():
                                       ctypes.POINTER(_VP)]
     lib.round_graph_launch.argtypes = [_VP, _VP]
     lib.round_graph_destroy.argtypes = [_VP, _VP]
+    lib.round_graph_edges.argtypes = [_VP, _VP, ctypes.POINTER(ctypes.c_int),
+                                      ctypes.POINTER(_VP),
+                                      ctypes.POINTER(_VP)]
     for fn in (lib.round_graph_build, lib.round_graph_launch,
-               lib.round_graph_destroy):
+               lib.round_graph_destroy, lib.round_graph_edges):
         fn.restype = ctypes.c_int
     lib.round_graph_error.argtypes = [ctypes.c_int]
     lib.round_graph_error.restype = ctypes.c_char_p

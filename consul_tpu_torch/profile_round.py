@@ -207,6 +207,32 @@ def device_kernels(prof, exclude=()) -> list:
                   key=lambda e: -self_device_us(e))
 
 
+def device_timeline(prof, exclude=()) -> tuple:
+    """The device's occupied time in the profile ``prof``, microseconds:
+    the union of its device events' spans (kernels and copies; not the
+    labels in ``exclude`` nor the observers' ranges).  Two kernels overlap
+    where one was launched programmatically behind the other (the finish
+    step's decide behind the tail, its span including its wait), so the
+    busy time, a sum of durations, counts that time twice; this one counts
+    it once.  Returns ``(occupied, exclusive, duration)``: ``exclusive``
+    maps a device event's name to the us of its spans that no event
+    started earlier covers (their sum is ``occupied``), ``duration`` to
+    its spans' whole length."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name not in exclude
+                   and not e.name.startswith(_LABEL))
+    busy, until, exclusive, duration = 0.0, float("-inf"), {}, {}
+    for start, end, name in spans:
+        own = max(0.0, end - max(start, until))
+        exclusive[name] = exclusive.get(name, 0.0) + own
+        duration[name] = duration.get(name, 0.0) + end - start
+        busy += own
+        until = max(until, end)
+    return busy, exclusive, duration
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--churn-ppm", type=int, default=1000)
@@ -310,6 +336,7 @@ def profile_multidc(args, graphed: bool) -> dict:
             events.launches, fused.launches + fused.merge_launches)))
     kernels = device_kernels(prof)
     busy_us = sum(self_device_us(e) for e in kernels)
+    span_us = device_timeline(prof)[0]
     res = {
         "device": torch.cuda.get_device_name(dev),
         "route": "graphed" if graphed else "eager", "multidc": True,
@@ -317,7 +344,9 @@ def profile_multidc(args, graphed: bool) -> dict:
         "lan_devices": args.ndev or None, "warm_rounds": WARM, "rounds": R,
         "host_ms_per_round": wall_a * 1e3 / R,
         "device_busy_ms_per_round": busy_us / 1e3 / R,
+        "device_span_ms_per_round": span_us / 1e3 / R,
         "device_idle_share": 1 - busy_us / 1e6 / wall_a,
+        "device_span_idle_share": 1 - span_us / 1e6 / wall_a,
         "device_kernels_per_round": sum(e.count for e in kernels) / R,
         "graph_launches_per_round": d_graphs / (2 * R),
         "host_syncs_per_round": d_syncs / (2 * R),
@@ -477,9 +506,12 @@ def _attribute(events, by_name=OBSERVER_KERNELS,
     return acc
 
 
-def _by_function(acc: dict, R: int) -> dict:
+def _by_function(acc: dict, R: int, timeline=None) -> dict:
     """``_attribute``'s rows as device ms, kernels a round and the top
-    kernels by name, for each label."""
+    kernels by name, for each label; with ``timeline``
+    (``device_timeline``'s), also the ms each label adds to the device's
+    occupied time, each kernel name's time scaled by the share of its
+    spans that no earlier kernel covers."""
     out = {}
     for name, rows in sorted(acc.items()):
         top = sorted(rows.items(), key=lambda kv: -kv[1][0])
@@ -490,6 +522,12 @@ def _by_function(acc: dict, R: int) -> dict:
             "by_kernel": [{"kernel": k[:90], "calls_per_round": n / R,
                            "device_ms_per_round": us / 1e3 / R}
                           for k, (us, n) in top[:6]]}
+        if timeline is not None:
+            _, exclusive, duration = timeline
+            out[name]["exclusive_ms_per_round"] = sum(
+                us * exclusive.get(k, 0.0) / duration[k]
+                if duration.get(k) else us
+                for k, (us, _) in rows.items()) / 1e3 / R
     return out
 
 
@@ -624,8 +662,9 @@ def profile_functions(args) -> dict:
                 finally:
                     kernel._recorder = None
             torch.cuda.synchronize()
+    timeline = device_timeline(prof)
     out = _by_function(_attribute(list(prof.events()), ROUND_KERNELS,
-                                  names_first=False), R)
+                                  names_first=False), R, timeline)
     return {"device": torch.cuda.get_device_name(dev),
             "route": "program body, eager branches",
             "attribution": "functions", "n": p.n, "slots": p.slots,
@@ -634,6 +673,7 @@ def profile_functions(args) -> dict:
             "functions": sorted(functions),
             "device_ms_per_round": sum(v["device_ms_per_round"]
                                        for v in out.values()),
+            "device_span_ms_per_round": timeline[0] / 1e3 / R,
             "kernels_per_round": sum(v["kernels_per_round"]
                                      for v in out.values()),
             "by_function": out}
@@ -730,6 +770,7 @@ def profile_route(args, graphed: bool) -> dict:
                   if e.key.startswith("aten::")),
                  key=lambda e: -(self_device_us(e) or e.self_cpu_time_total))
     busy_us = sum(self_device_us(e) for e in kernels)
+    span_us, exclusive, _ = device_timeline(prof, phases)
     res = {
         "device": torch.cuda.get_device_name(dev),
         "route": "graphed" if graphed else "eager",
@@ -748,12 +789,17 @@ def profile_route(args, graphed: bool) -> dict:
         "host_ms_per_round": wall_a * 1e3 / R,
         "profiled_host_ms_per_round": wall_b * 1e3 / R,
         "device_busy_ms_per_round": busy_us / 1e3 / R,
+        "device_span_ms_per_round": span_us / 1e3 / R,
         "device_idle_share": 1 - busy_us / 1e6 / wall_a,
+        "device_span_idle_share": 1 - span_us / 1e6 / wall_a,
         "device_kernels_per_round": sum(e.count for e in kernels) / R,
         "hand_kernels": {
             label: {"calls_per_round": sum(e.count for e in rows) / R,
                     "device_ms_per_round":
-                        sum(self_device_us(e) for e in rows) / 1e3 / R}
+                        sum(self_device_us(e) for e in rows) / 1e3 / R,
+                    "exclusive_ms_per_round": sum(
+                        us for k, us in exclusive.items() if name in k)
+                    / 1e3 / R}
             for label, name in HAND_KERNELS.items()
             for rows in [[e for e in kernels if name in e.key]]},
         "phases": timed,

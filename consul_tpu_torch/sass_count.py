@@ -43,9 +43,10 @@ is one element of the draw.  Every instruction of the loop counts once
 (the edge drops' loop holds the hash behind a branch: its count is an
 element that is hashed).
 
-``--probe`` builds ``csrc/probe.cu`` and counts
+``--probe`` builds ``csrc/probe.cu`` and counts its two kernels:
 ``probe::lanes_slots_kernel``, a thread a lane and, in the last block to
-arrive, the slot step: every instruction of the function once, per unit.
+arrive, the slot step, and ``probe::rearm_marks_kernel``, the rearmed
+rows' wipe and the marks: every instruction of a function once, per unit.
 A lane runs a part of them (the draws only where they decide something,
 the Lifeguard registers only when threaded, the slot step in one block),
 so the count is what the most a lane can run costs, not what the main
@@ -251,12 +252,15 @@ def threefry_counts(sass: str) -> dict:
             for name, mode in DRAW_MODES.items()}
 
 
-def probe_counts(sass: str) -> dict:
-    """``probe::lanes_slots_kernel`` of ``csrc/probe.cu`` in ``sass``: its
-    instructions per execution unit, each instruction of the function
-    counted once (``--probe`` in the module docstring)."""
-    name, insns = _function(sass, "lanes_slots_kernel",
-                            "probe::lanes_slots_kernel")
+PROBE_KERNELS = ("lanes_slots_kernel", "rearm_marks_kernel")
+
+
+def probe_counts(sass: str, kernel: str = "lanes_slots_kernel") -> dict:
+    """``probe::<kernel>`` of ``csrc/probe.cu`` in ``sass`` (one of
+    ``PROBE_KERNELS``): its instructions per execution unit, each
+    instruction of the function counted once (``--probe`` in the module
+    docstring)."""
+    name, insns = _function(sass, kernel, f"probe::{kernel}")
     ops = Counter(op for _, op, _, _ in insns)
     units = _units(ops)
     return {"function": name, "instructions": len(insns), **units,
@@ -272,16 +276,17 @@ def main(argv=None) -> int:
     ap.add_argument("--flood", action="store_true",
                     help="count the event flood's slot loop")
     ap.add_argument("--probe", action="store_true",
-                    help="count the probe tick's lanes and slots kernel")
+                    help="count the probe tick's two kernels")
     args = ap.parse_args(argv)
     if args.probe:
         sass = disassemble("probe")
-        for addr, _, guard, text in _function(sass, "lanes_slots_kernel",
-                                              "lanes_slots_kernel")[1]:
-            g = "" if guard is None else \
-                f"@{'' if guard[1] else '!'}{guard[0]} "
-            print(f"{addr:05x}  {g}{text}")
-        print(json.dumps(probe_counts(sass)), flush=True)
+        for kernel in PROBE_KERNELS:
+            for addr, _, guard, text in _function(sass, kernel, kernel)[1]:
+                g = "" if guard is None else \
+                    f"@{'' if guard[1] else '!'}{guard[0]} "
+                print(f"{addr:05x}  {g}{text}")
+        print(json.dumps({k: probe_counts(sass, k) for k in PROBE_KERNELS}),
+              flush=True)
         return 0
     if args.threefry:
         sass = disassemble("threefry")

@@ -842,11 +842,12 @@ def test_finish_kernels_match_plain_on_card(R, N, ndev, offset):
 
 @pytest.mark.parametrize("ndev", [None, 4])
 def test_graphed_round_launches_finish_on_card(ndev):
-    """The graphed round launches ``fire_timers`` once and ``wipe_rows``
-    twice a non-quiescent round (the fire and the GC), ``wipe_rows`` once
-    more a round (the probe tick's rearm) and once a join round (the
-    stale wipe); its matrix is copied once a call and once a full-tail
-    round; results equal the eager round's, which launches the same."""
+    """The graphed round launches ``fire_timers`` and ``wipe_rows`` once
+    a non-quiescent round (the fire and the GC) and ``wipe_rows`` once
+    more a join round (the stale wipe; the probe tick's rearm wipe is
+    inside ``probe_rearm_marks``); its matrix is copied once a call and
+    once a full-tail round; results equal the eager round's, which
+    launches the same."""
     _need_card()
     from consul_tpu_torch.gossip import finish
     from consul_tpu_torch.gossip.params import lan_profile
@@ -875,7 +876,7 @@ def test_graphed_round_launches_finish_on_card(ndev):
         joins = tk.join_rounds - j0
         assert busy > 0 and joins > 0
         assert finish.fire_launches - f0 == busy
-        assert finish.wipe_launches - w0 == steps + joins + busy
+        assert finish.wipe_launches - w0 == joins + busy
         full = tk.tail_rounds["full"] - tails["full"]
         copied = program.copy_bytes - c0
         assert copied == (p.slots * p.n * (1 + full) if graphed else 0)
@@ -944,8 +945,8 @@ def _probe_tick_inputs(n, slots, probe_every, ndev, seed, nem=None,
 def test_probe_kernels_match_plain_on_card(n, slots, probe_every, ndev,
                                            legs):
     """``csrc/probe.cu`` against ``probe_lanes_ref`` then
-    ``probe_slots_ref`` (the merged launch) and ``probe_marks_ref`` on the
-    card, with the rearm's wipe between the two launches: every output
+    ``probe_slots_ref`` (the merged launch) and the rearm's wipe then
+    ``probe_marks_ref`` (``probe_rearm_marks``) on the card: every output
     field after each, tolerance 0, one launch each; aligned and unaligned
     N, 8 shards, the WAN pool's two lanes, the partition and degraded legs
     with NemState."""
@@ -975,7 +976,7 @@ def test_probe_kernels_match_plain_on_card(n, slots, probe_every, ndev,
                 t.drops, t.sp]
 
     got, want = copy(t), copy(t)
-    n0 = (probe.lanes_slots_launches, probe.marks_launches)
+    n0 = (probe.lanes_slots_launches, probe.rearm_marks_launches)
     rearm, stats = probe.probe_lanes_slots(cfg, got)
     probe.probe_lanes_ref(cfg, want.ra, want.mf, want.heard,
                           want.slot_of_node, want.nem_state, want.sp)
@@ -985,15 +986,14 @@ def test_probe_kernels_match_plain_on_card(n, slots, probe_every, ndev,
     torch.cuda.synchronize()
     assert torch.equal(rearm, rearm_w) and torch.equal(stats, stats_w)
     assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
-    finish.wipe_rows(got.heard, rearm)
+    probe.probe_rearm_marks(cfg, got, rearm)
     finish.wipe_rows_ref(want.heard, rearm_w)
-    probe.probe_marks(cfg, got)
     probe.probe_marks_ref(cfg, want.ra, want.heard, want.slot_of_node,
                           want.sp)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
     assert (probe.lanes_slots_launches,
-            probe.marks_launches) == tuple(x + 1 for x in n0)
+            probe.rearm_marks_launches) == tuple(x + 1 for x in n0)
     assert int(stats[3]) > 0
 
 
@@ -1018,7 +1018,7 @@ def test_graphed_round_launches_probe_on_card(ndev):
     runs = {}
     for graphed in (False, True):
         program.settle_counts()
-        n0 = (probe.lanes_slots_launches, probe.marks_launches)
+        n0 = (probe.lanes_slots_launches, probe.rearm_marks_launches)
         d0 = prng.launches
         a = dict(join_round=join, graphed=graphed, nem=sc.nem,
                  nem_state=ns)
@@ -1030,7 +1030,7 @@ def test_graphed_round_launches_probe_on_card(ndev):
         torch.cuda.synchronize()
         program.settle_counts()
         assert (probe.lanes_slots_launches,
-                probe.marks_launches) == tuple(x + steps for x in n0)
+                probe.rearm_marks_launches) == tuple(x + steps for x in n0)
         assert prng.launches == d0
         runs[graphed] = out
     assert _same_fields(list(runs[False][0]), list(runs[True][0])) == []
@@ -1138,6 +1138,9 @@ def test_finish_slots_kernels_match_plain_on_card(n, S, hot, ndev, hist,
 
     got, want = copy(t), copy(t)
     n0 = (fs.decide_launches, fs.settle_launches, fs.record_launches)
+    # Decide loads before it waits for the kernel before it: the copies
+    # end first.
+    torch.cuda.synchronize()
     dec = fs.finish_decide(cfg, got)
     dec_w = fs.finish_decide_ref(cfg, want)
     assert same(leaves(got) + [dec.ok_mask, *(dec.refute or ())],
@@ -1161,6 +1164,54 @@ def test_finish_slots_kernels_match_plain_on_card(n, S, hot, ndev, hist,
     assert (fs.decide_launches, fs.settle_launches,
             fs.record_launches) == tuple(x + 1 for x in n0)
     assert bool(fired.any()) or bool(st.expired.any())
+
+
+@pytest.mark.parametrize("ndev", [None, 8])
+def test_decide_after_tail_matches_plain_on_card(ndev):
+    """Decide as the round makes it, right after the tail (a programmatic
+    dependent launch behind a kernel that triggers it as it starts), on
+    rows whose own bytes are zero before the tail, so that a row refutes
+    only where the tail's merge made its byte SUSPECT or DEAD, against its
+    plain version on the tail's output: every field and output, tolerance
+    0, and rows refute."""
+    _need_card()
+    from consul_tpu_torch.gossip import finish_slots as fs
+    from consul_tpu_torch.gossip.params import lan_profile
+    n, S = 4000, 64
+    cfg, t, rx_ok = _finish_slots_inputs(n, S, None, ndev, False, True,
+                                         True, 4064)
+    p = lan_profile(n, slots=S, refute=True)
+    shards = t.heard if isinstance(t.heard, tuple) else (t.heard,)
+    L = shards[0].shape[1]
+    for h, col in enumerate(t.slots[0].clamp(0, n - 1).tolist()):
+        shards[col // L][h, col % L] = 0
+    rnd, offs = fused.tail_args(
+        int(t.rnd), np.random.default_rng(4064).integers(1, n, p.fanout),
+        "cuda")
+    sc = None if ndev is None else tk._ShardCtx(ndev, L)
+
+    def copy(t):
+        return t._replace(
+            slots=tuple(x.clone() for x in t.slots),
+            member=t.member.clone(), incarnation=t.incarnation.clone(),
+            stats=tuple(x.clone() for x in t.stats),
+            lhm=None if t.lhm is None else t.lhm.clone())
+
+    before = fs.finish_decide_ref(cfg, copy(t))
+    assert int(before.refute[1].count_nonzero()) == 0
+    got, want = copy(t), copy(t)
+    torch.cuda.synchronize()
+    out = fused.disseminate(p, rnd, offs, t.heard, t.fail_round, rx_ok,
+                            t.conf_cap, sc, None)
+    dec = fs.decide(cfg, got._replace(heard=out))
+    torch.cuda.synchronize()
+    dec_w = fs.finish_decide_ref(cfg, want._replace(heard=out))
+    for x, y in zip([*got.slots, got.incarnation, *got.stats, got.lhm,
+                     dec.ok_mask, *dec.refute],
+                    [*want.slots, want.incarnation, *want.stats, want.lhm,
+                     dec_w.ok_mask, *dec_w.refute]):
+        assert torch.equal(x, y)
+    assert int(dec.refute[1].count_nonzero()) > 0
 
 
 @pytest.mark.parametrize("ndev", [None, 4])

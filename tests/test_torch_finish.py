@@ -24,7 +24,9 @@ the eager entry points.
   1 and 2), ``run_multidc_rounds``/``multidc_round`` (LAN pools on 1 and
   2 shards) and ``run_event_rounds``/``event_round``: every input tensor
   bit-identical after the call;
-- ``profile_round.py --functions`` names only functions the tree has.
+- ``profile_round.py --functions`` names only functions the tree has, and
+  its occupied time (``device_timeline``) is the union of the device's
+  spans.
 """
 
 import sys
@@ -40,7 +42,8 @@ from consul_tpu.gossip import nemesis as j_nem
 from consul_tpu.gossip.params import SwimParams as JParams
 from consul_tpu.gossip.params import lan_profile as j_lan
 from consul_tpu_torch import prng
-from consul_tpu_torch.gossip import convert, events, finish, program
+from consul_tpu_torch.gossip import (convert, events, finish, probe,
+                                     program)
 from consul_tpu_torch.gossip import kernel as tk
 from consul_tpu_torch.gossip import multidc as tmd
 from consul_tpu_torch.gossip import nemesis as t_nem
@@ -258,7 +261,8 @@ def _run(name, lib):
 
 def _watched(monkeypatch):
     """Record, by the round function that called it, whether each fire
-    pass fired and each wipe wiped a row."""
+    pass fired and each wipe wiped a row (the probe tick's, inside
+    ``probe.rearm_and_marks``)."""
     seen = {"fired": 0, "_probe_tick": 0, "_join_tick": 0,
             "_finish_round": 0}
     fire, wipe = finish.fire, finish.wipe
@@ -272,8 +276,15 @@ def _watched(monkeypatch):
         seen[sys._getframe(1).f_code.co_name] += int(flags.any())
         return wipe(heard, flags)
 
+    def watched_rearm(cfg, t, rearm):
+        # The probe tick's rearm wipe runs inside its rearm_and_marks step.
+        seen["_probe_tick"] += int(rearm.any())
+        return rearm_and_marks(cfg, t, rearm)
+
+    rearm_and_marks = probe.rearm_and_marks
     monkeypatch.setattr(finish, "fire", watched_fire)
     monkeypatch.setattr(finish, "wipe", watched_wipe)
+    monkeypatch.setattr(probe, "rearm_and_marks", watched_rearm)
     return seen
 
 
@@ -437,8 +448,8 @@ def test_program_route_leaves_its_inputs(busy_state, monkeypatch, ndev):
 
 def test_quiescent_program_round_copies_no_matrix(monkeypatch):
     """A healthy pool's rounds through the program: the matrix is copied
-    in once a call and never in a round, and each round launches the
-    probe tick's wipe alone."""
+    in once a call and never in a round, and each round makes the probe
+    tick's rearm wipe and marks step alone (no other wipe)."""
     monkeypatch.setattr(program.RoundProgram, "_capture",
                         lambda self, v: _EmulatedGraph(self, v))
     monkeypatch.setattr(program, "_programs", type(program._programs)())
@@ -447,20 +458,25 @@ def test_quiescent_program_round_copies_no_matrix(monkeypatch):
     fail = tk._as_i32(np.full(N_IN, NEVER, np.int32), "cpu")
     copied0, tails0 = program.copy_bytes, dict(tk.tail_rounds)
     calls = []
-    wipe = finish.wipe
+    wipe, rearm_and_marks = finish.wipe, probe.rearm_and_marks
 
     def counted(heard, flags):
         calls.append(sys._getframe(1).f_code.co_name)
         return wipe(heard, flags)
 
+    def counted_rearm(cfg, t, rearm):
+        calls.append("rearm_and_marks")
+        return rearm_and_marks(cfg, t, rearm)
+
     monkeypatch.setattr(finish, "wipe", counted)
+    monkeypatch.setattr(probe, "rearm_and_marks", counted_rearm)
     for _ in range(2):
         st = program.run_rounds(st, prng.key(1), fail, p, 10, False, None,
                                 None, None, None, None, None)[0]
     program.settle_counts()
     assert tk.tail_rounds["quiescent"] - tails0["quiescent"] == 20
     assert program.copy_bytes - copied0 == 2 * p.slots * p.n
-    assert calls == ["_probe_tick"] * 20
+    assert calls == ["rearm_and_marks"] * 20
 
 
 def test_multidc_and_events_leave_their_inputs():
@@ -507,3 +523,35 @@ def test_profile_round_names_only_functions_the_tree_has():
     with pytest.raises(SystemExit, match="FN=NAME"):
         pr._named_functions(pr.ROUND_FUNCTIONS, ["_fire"], "--round-fn",
                             present)
+
+
+def test_profile_round_busy_is_the_union_of_device_spans():
+    """A kernel launched programmatically behind another (decide behind
+    the tail) overlaps it: the device's busy time counts the overlap once,
+    each kernel keeps what no earlier one covers, and the observers'
+    ranges and host events are not device work."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    from consul_tpu_torch import profile_round as pr
+
+    def ev(name, start, end, dev=DeviceType.CUDA):
+        return NS(name=name, device_type=dev,
+                  time_range=NS(start=start, end=end))
+
+    prof = NS(events=lambda: [
+        ev("tail", 0.0, 100.0), ev("decide", 70.0, 102.0),
+        ev("fire", 105.0, 107.0), ev("fire", 106.0, 108.0),
+        ev(pr._LABEL + "spread", 0.0, 200.0), ev("phase", 0.0, 300.0),
+        ev("aten::add", 0.0, 500.0, DeviceType.CPU)])
+    busy, exclusive, duration = pr.device_timeline(prof, ("phase",))
+    assert busy == 105.0
+    assert exclusive == {"tail": 100.0, "decide": 2.0, "fire": 3.0}
+    assert duration == {"tail": 100.0, "decide": 32.0, "fire": 4.0}
+    rows = {"finish_round": {"decide": (32.0, 1)},
+            "tail": {"tail": (100.0, 1)}}
+    out = pr._by_function(rows, 1, (busy, exclusive, duration))
+    assert out["finish_round"]["device_ms_per_round"] == 0.032
+    assert out["finish_round"]["exclusive_ms_per_round"] == 0.002
+    assert out["tail"]["exclusive_ms_per_round"] == 0.1

@@ -137,6 +137,40 @@ static inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 static inline const char* cudaGetErrorString(cudaError_t e) {
   return e ? "invalid argument" : "no error";
 }
+// cudaLaunchKernelEx with its launch attributes: the launch runs as any
+// other; a programmatic one (griddepcontrol is the card's alone) counted.
+enum cudaLaunchAttributeID {
+  cudaLaunchAttributeProgrammaticStreamSerialization = 5
+};
+union cudaLaunchAttributeValue {
+  int programmaticStreamSerializationAllowed;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+static int host_programmatic = 0;
+extern "C" int finish_slots_host_programmatic() { return host_programmatic; }
+template <class K, class... A>
+static cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, K kernel,
+                                      const A&... args) {
+  for (unsigned i = 0; i < c->numAttrs; ++i) {
+    if (c->attrs[i].id ==
+            cudaLaunchAttributeProgrammaticStreamSerialization &&
+        c->attrs[i].val.programmaticStreamSerializationAllowed) {
+      ++host_programmatic;
+    }
+  }
+  host_launch(kernel, c->gridDim, c->blockDim, args...);
+  return cudaSuccess;
+}
 """
 
 # A launch in the source -> its host form.
@@ -157,7 +191,7 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_STUB)
     body, n = LAUNCH.subn(r"host_launch(\1, dim3(\2), dim3(\3), a);",
                           (_build.CSRC / "finish_slots.cu").read_text())
-    assert n == 3, n
+    assert n == 2, n  # decide launches through cudaLaunchKernelEx
     src = d / "finish_slots.cpp"
     src.write_text(body)
     so = d / "libfinish_slots.so"
@@ -171,6 +205,7 @@ def lib(tmp_path_factory):
         fn.argtypes, fn.restype = finish_slots._ARGTYPES, ctypes.c_int
     lib.finish_slots_error.argtypes = [ctypes.c_int]
     lib.finish_slots_error.restype = ctypes.c_char_p
+    lib.finish_slots_host_programmatic.restype = ctypes.c_int
     return lib
 
 
@@ -284,9 +319,44 @@ def test_launch_shapes_name_the_variant(on_host):
     p, spec, c, cfg, derived = _case("sharded_8_hot")
     finish_slots.launch_shapes.clear()
     t = _step(p, spec, c, derived)
+    n0 = on_host.finish_slots_host_programmatic()
     finish_slots.finish_decide(cfg, t)
     assert finish_slots.launch_shapes == {
         ("finish_decide", 10, 16, 640, 80, 8, (True, False, True))}
+    # Decide is a programmatic dependent launch, the others are not.
+    assert on_host.finish_slots_host_programmatic() == n0 + 1
+
+
+@pytest.mark.parametrize("name", ["full_mixed", "sharded_8_hot", "wide"])
+def test_decide_after_tail_matches_plain(on_host, name):
+    """Decide on rows whose own bytes only the write just before it made
+    SUSPECT (as the tail's merge does in the round; before it, no row
+    refutes) against its plain version, every field; rows refute; a
+    programmatic launch."""
+    p, spec, c, cfg, derived = _case(name)
+    got, want = _step(p, spec, c, derived), _step(p, spec, c, derived)
+
+    def own_bytes(t, value):
+        shards = t.heard if isinstance(t.heard, tuple) else (t.heard,)
+        L = shards[0].shape[1]
+        node_c = t.slots[0][t.idx.long()].clamp(0, cfg.N - 1)
+        for h, col in enumerate(node_c.tolist()):
+            shards[col // L][h, col % L] = value
+
+    before = _step(p, spec, c, derived)
+    own_bytes(before, 0)
+    assert int(finish_slots.finish_decide_ref(cfg, before).refute[1]
+               .count_nonzero()) == 0
+    for t in (got, want):
+        own_bytes(t, 0x40)  # SUSPECT, conf 0, age 0
+    n0 = on_host.finish_slots_host_programmatic()
+    dec = finish_slots.finish_decide(cfg, got)
+    dec_w = finish_slots.finish_decide_ref(cfg, want)
+    assert on_host.finish_slots_host_programmatic() == n0 + 1
+    _same(_leaves(got), _leaves(want), f"{name} decide")
+    _same([dec.ok_mask, *(dec.refute or ())],
+          [dec_w.ok_mask, *(dec_w.refute or ())], f"{name} decide's out")
+    assert int(dec.refute[1].count_nonzero()) > 0, name
 
 
 def test_refused_arguments(on_host):

@@ -529,14 +529,17 @@ def test_probe_never_falls_back(monkeypatch):
     before = (probe.launches, set(probe.launch_shapes))
     t = tick("cpu")
     rearm, stats = probe.lanes_and_slots(cfg, t)
-    probe.marks(cfg, t)
+    probe.rearm_and_marks(cfg, t, rearm)
     assert stats.tolist() == [8, 0, 0, 0] and not rearm.any()
     assert (probe.launches, set(probe.launch_shapes)) == before
     meta = tick("meta")
-    for fn in (probe.probe_lanes_slots, probe.probe_marks,
-               probe.lanes_and_slots, probe.marks):
+    no_rearm = torch.zeros(p.slots, dtype=torch.bool)
+    for fn in (probe.probe_lanes_slots, probe.probe_rearm_marks,
+               probe.lanes_and_slots, probe.rearm_and_marks):
         with pytest.raises(ValueError, match="CUDA tensor"):
-            fn(cfg, t if fn.__name__.startswith("probe_") else meta)
+            args = (cfg, t if fn.__name__.startswith("probe_") else meta)
+            fn(*args, *((no_rearm.to(args[1].mf.device),)
+                        if "rearm" in fn.__name__ else ()))
     for fn in (probe.lanes, probe.slots):
         with pytest.raises(ValueError, match="only on CPU tensors"):
             fn(cfg, meta)
@@ -551,9 +554,10 @@ def test_probe_never_falls_back(monkeypatch):
     monkeypatch.setattr(_build, "_libs", {})
     probe._lib.cache_clear()
     try:
-        for fn in (probe.lanes_and_slots, probe.marks):
+        for fn in (probe.lanes_and_slots, probe.rearm_and_marks):
             with pytest.raises(RuntimeError, match="nvcc failed for probe"):
-                fn(cfg, meta)
+                fn(cfg, meta, *((no_rearm.to("meta"),)
+                                if fn is probe.rearm_and_marks else ()))
     finally:
         probe._lib.cache_clear()
     assert (probe.launches, set(probe.launch_shapes)) == before

@@ -9,11 +9,11 @@ arrival's release and acquire are the compiler's ``__atomic`` builtins,
 and the occupancy query gives the grid the test asks for (one SM).
 
 Each launch goes through the port's own wrappers
-(``probe.probe_lanes_slots``, ``probe_marks``: their checks, the pointer
-table, the integers and probabilities as the card gets them, the launch
-counters) and the tick's launches are held, field for field after each,
-against the plain versions (``probe_lanes_ref`` then
-``probe_slots_ref``, the wipe's ``finish.wipe_rows_ref``,
+(``probe.probe_lanes_slots``, ``probe_rearm_marks``: their checks, the
+pointer table, the integers and probabilities as the card gets them, the
+launch counters) and the tick's launches are held, field for field after
+each, against the plain versions (``probe_lanes_ref`` then
+``probe_slots_ref``; the wipe's ``finish.wipe_rows_ref`` then
 ``probe_marks_ref``) on the cases of tests/test_torch_probe.py (every
 variant: aligned and unaligned N, K 0 and 3, the partition legs by hash
 and by halves at 0 < p < 1 and 1, degraded observers, LHM threaded, a
@@ -22,8 +22,12 @@ one-lane block, drops, 2 and 8 shards), a block of 300 lanes, one of
 grid of one block (every chunk of lanes by one block), of two and of a
 block a chunk, in block order and last-first (so the block that runs
 the slot step is the last, or block 0); the scratch left as the next
-round needs it.  Needs ``g++``; builds into the test's temporary
-directory.
+round needs it.  The wipe and the marks alone (``REARM_CASES``): rearmed
+rows that hold marks beside marks in rows that are not rearmed, none and
+every row rearmed, 8 shards of 250 and of 31 columns (L % 16 != 0) at
+odd byte offsets, flags at an odd word of the scratch, a block past N;
+16-byte accesses trap the host build where misaligned.  Needs ``g++``;
+builds into the test's temporary directory.
 """
 
 import ctypes
@@ -73,6 +77,13 @@ struct dim3 {
 };
 static thread_local dim3 threadIdx, blockIdx;
 static dim3 gridDim;
+struct uint4 {
+  uint32_t x, y, z, w;
+};
+static inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c,
+                               uint32_t d) {
+  return uint4{a, b, c, d};
+}
 template <class T> static inline T __ldg(const T* p) { return *p; }
 static inline int __popc(unsigned x) { return __builtin_popcount(x); }
 static inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi,
@@ -259,6 +270,8 @@ def lib(tmp_path_factory):
     lib.probe_error.restype = ctypes.c_char_p
     lib.probe_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.probe_scratch_words.restype = ctypes.c_longlong
+    lib.probe_rearm_marks_blocks.argtypes = [ctypes.c_int] * 4
+    lib.probe_rearm_marks_blocks.restype = ctypes.c_int
     lib.probe_host_reverse.argtypes = [ctypes.c_int]
     lib.probe_host_blocks.argtypes = [ctypes.c_int]
     return lib
@@ -336,7 +349,7 @@ def test_kernels_match_plain(on_host, name):
             on_host.probe_host_blocks(grid)
             on_host.probe_host_reverse(int(reverse))
             what = f"{name} grid {grid} reverse {reverse}"
-            n0 = (probe.lanes_slots_launches, probe.marks_launches)
+            n0 = (probe.lanes_slots_launches, probe.rearm_marks_launches)
             try:
                 rearm, stats = probe.probe_lanes_slots(cfg, got)
                 probe.probe_lanes_ref(cfg, want.ra, want.mf, want.heard,
@@ -348,17 +361,16 @@ def test_kernels_match_plain(on_host, name):
                 _same(got, want, f"{what} lanes_slots")
                 assert torch.equal(rearm, rearm_w), what
                 assert torch.equal(stats, stats_w), what
-                finish.wipe_rows_ref(got.heard, rearm)
+                probe.probe_rearm_marks(cfg, got, rearm)
                 finish.wipe_rows_ref(want.heard, rearm_w)
-                probe.probe_marks(cfg, got)
                 probe.probe_marks_ref(cfg, want.ra, want.heard,
                                       want.slot_of_node, want.sp)
-                _same(got, want, f"{what} marks")
+                _same(got, want, f"{what} rearm_marks")
             finally:
                 on_host.probe_host_reverse(0)
                 on_host.probe_host_blocks(1)
-            assert (probe.lanes_slots_launches, probe.marks_launches) \
-                == tuple(x + 1 for x in n0)
+            assert (probe.lanes_slots_launches,
+                    probe.rearm_marks_launches) == tuple(x + 1 for x in n0)
             # The minima at N, the counts and the arrival counter at 0.
             minima, counts, _ = probe._views(cfg, got.sp)
             assert bool((minima == p.n).all()) and not bool(counts.any())
@@ -369,11 +381,11 @@ def test_launch_shapes_name_the_variant(on_host):
     p, cfg, ra, st, mf, ns, ndev = _case("sharded_8")
     probe.launch_shapes.clear()
     t = _tick(p, cfg, ra, st, mf, ns, ndev)
-    probe.probe_lanes_slots(cfg, t)
-    probe.probe_marks(cfg, t)
+    rearm, _ = probe.probe_lanes_slots(cfg, t)
+    probe.probe_rearm_marks(cfg, t, rearm)
     assert probe.launch_shapes == {
         (k, cfg.B, p.slots, p.n, p.n // 8, 8, (2, True, 3, True))
-        for k in ("probe_lanes_slots", "probe_marks")}
+        for k in ("probe_lanes_slots", "probe_rearm_marks")}
 
 
 def test_refused_arguments(on_host):
@@ -394,8 +406,19 @@ def test_refused_arguments(on_host):
     table = (ctypes.c_void_p * 1)(t.heard.data_ptr())
     assert on_host.probe_lanes_slots(table, 1, ptrs, ints, floats,
                                      None) != 0
-    assert on_host.probe_marks(table, 1, ptrs, ints, floats, None) != 0
-    ptrs[19] = None  # no stats: only the merged launch refuses it
+    assert on_host.probe_rearm_marks(table, 1, ptrs, ints, floats,
+                                     None) != 0
+    with pytest.raises(ValueError, match="rearm"):
+        probe.probe_rearm_marks(cfg, t, torch.zeros(p.slots + 1,
+                                                    dtype=torch.bool))
+    ptrs[18] = None  # no rearm flags: neither launch takes that
+    ints[1] = cfg.B
+    assert on_host.probe_lanes_slots(table, 1, ptrs, ints, floats,
+                                     None) != 0
+    assert on_host.probe_rearm_marks(table, 1, ptrs, ints, floats,
+                                     None) != 0
+    ptrs[18] = t.sp.data_ptr()
+    ptrs[19] = None  # no stats: only the lanes and slots launch needs them
     ints[1] = cfg.B
     assert on_host.probe_lanes_slots(table, 1, ptrs, ints, floats,
                                      None) != 0
@@ -406,9 +429,116 @@ def test_refused_arguments(on_host):
         assert on_host.probe_lanes_slots(table, 1, ptrs, ints, floats,
                                          None) != 0
         assert on_host.probe_lanes_slots_blocks(1000) < 0
+        assert on_host.probe_rearm_marks_blocks(1000, 8, 1000, 1) < 0
         # The grid: the wave, or a block a chunk of 256 lanes.
         on_host.probe_host_blocks(3)
         assert [on_host.probe_lanes_slots_blocks(b)
                 for b in (1, 256, 257, 1000)] == [1, 1, 2, 3]
+        # The wipe and marks: the wave (at most 4 blocks an SM), or the
+        # most items a half of the launch has.
+        assert [on_host.probe_rearm_marks_blocks(16, S, 16, 1)
+                for S in (1, 2, 64)] == [1, 2, 3]
+        on_host.probe_host_blocks(8)
+        assert on_host.probe_rearm_marks_blocks(1000, 64, 1000, 1) == 4
     finally:
         on_host.probe_host_blocks(1)
+
+
+# The wipe and the marks alone: name -> (N, S, probe_every, shards, the
+# prober block's first id, byte offset of each shard's buffer, rearmed
+# rows: "some", "none" or "all").  At S = 5 the flags start at byte 52 of
+# the scratch (kk = 5: not 16-byte aligned); a block past N holds padding
+# lanes.
+REARM_CASES = {
+    "rearmed_rows_hold_marks": (2000, 16, 5, 1, 800, 0, "some"),
+    "no_row_rearmed": (2000, 16, 5, 1, 800, 0, "none"),
+    "every_row_rearmed": (2000, 16, 5, 1, 400, 0, "all"),
+    "shards_l250_odd_offsets": (2000, 5, 4, 8, 500, 3, "some"),
+    "shards_l31": (248, 8, 2, 8, 124, 5, "some"),
+    "block_past_n": (243, 8, 3, 1, 200, 0, "some"),
+}
+
+
+def _rearm_tick(name, seed):
+    """A tick's tensors after its slot step, for the wipe and the marks
+    alone: a flag on about a third of the valid lanes, their targets'
+    slots live (every row), the rearmed rows among those initiators'
+    targets (so they hold marks), every byte value in the matrix."""
+    n, S, pe, ndev, blk, off, which = REARM_CASES[name]
+    p = TParams(n=n, slots=S, probe_every=pe)
+    cfg = probe.config(p, tk.round_variant(p, None, RND))
+    rng = np.random.default_rng(seed)
+    B, N, L = cfg.B, n, n // ndev
+    o_t = int(rng.integers(1, N))
+    ra = round_args.custom(p, RND, probe=[o_t] + [1] * p.indirect_k,
+                           blk=blk)
+    pid = blk + np.arange(B)
+    init = (pid < N) & (rng.random(B) < 0.35)
+    son = np.where(rng.random(N) < 0.8, rng.integers(0, S, N),
+                   -1).astype(np.int32)
+    tgt_rows = np.unique(son[(pid[init] + o_t) % N])
+    tgt_rows = tgt_rows[tgt_rows >= 0]
+    rearm = np.zeros(S, bool)
+    if which == "all":
+        rearm[:] = True
+    elif which == "some":
+        rearm[rng.permutation(tgt_rows)[:max(1, len(tgt_rows) // 3)]] = True
+    heard = rng.integers(0, 256, (S, N)).astype(np.uint8)
+
+    def shard(a):
+        buf = torch.zeros(a.size + off, dtype=torch.uint8)
+        h = buf[off:].view(a.shape)
+        h.copy_(torch.from_numpy(a))
+        return h
+
+    shards = tuple(shard(heard[:, i * L:(i + 1) * L].copy())
+                   for i in range(ndev))
+    sp = probe.scratch(p, "cpu")
+    probe._views(cfg, sp)[2].copy_(torch.from_numpy(init.astype(np.uint8)))
+    i32 = dict(dtype=torch.int32)
+    t = probe.Tick(
+        shards if ndev > 1 else shards[0], ra,
+        torch.full((N,), 10**6, **i32), torch.from_numpy(son), None,
+        tuple(torch.zeros(S, **i32) for _ in range(6)), torch.zeros(N, **i32),
+        torch.zeros((), **i32), sp)
+    rows = (pid[init] + o_t) % N
+    marked = son[rows]
+    in_rearmed = int(rearm[marked[marked >= 0]].sum())
+    return cfg, t, torch.from_numpy(rearm), in_rearmed, int(
+        (marked >= 0).sum()) - in_rearmed
+
+
+def _tick_clone(t):
+    heard = (tuple(h.clone() for h in t.heard)
+             if isinstance(t.heard, tuple) else t.heard.clone())
+    return t._replace(heard=heard, sp=t.sp.clone())
+
+
+@pytest.mark.parametrize("name", sorted(REARM_CASES))
+def test_rearm_marks_match_plain(on_host, name):
+    """The merged wipe and marks against the plain wipe then marks, byte
+    for byte in every shard, on every grid in both block orders; the case
+    holds what its name says."""
+    which = REARM_CASES[name][-1]
+    for seed in range(3):
+        cfg, t0, rearm, in_rearmed, elsewhere = _rearm_tick(name, seed)
+        assert elsewhere > 0 or which == "all", (name, seed)
+        assert (in_rearmed > 0) == (which != "none"), (name, seed)
+        want = _tick_clone(t0)
+        finish.wipe_rows_ref(want.heard, rearm)
+        probe.probe_marks_ref(cfg, want.ra, want.heard, want.slot_of_node,
+                              want.sp)
+        for grid in GRIDS:
+            for reverse in (False, True):
+                got = _tick_clone(t0)
+                on_host.probe_host_blocks(grid)
+                on_host.probe_host_reverse(int(reverse))
+                n0 = probe.rearm_marks_launches
+                try:
+                    probe.probe_rearm_marks(cfg, got, rearm)
+                finally:
+                    on_host.probe_host_reverse(0)
+                    on_host.probe_host_blocks(1)
+                assert probe.rearm_marks_launches == n0 + 1
+                _same(got, want, f"{name} seed {seed} grid {grid} "
+                                 f"reverse {reverse}")
