@@ -89,14 +89,16 @@ result lines are not printed.
    250,000] on 8 shards of 31,250 (L % 16 == 2), [64, 1M] on 8 shards and
    [8, 1M] (the hot tier's rows), over 64 seeds each (every byte value,
    member holes, verdicts DEAD, REFUTE and out of range), in the forms
-   the round launches it (every row and no verdict; a verdict and a want
-   mask with holes; no row wanted), budgets 0 to 16 on the first seed.
-   Its time in each form (CUDA-graph replays of 20 launches), the plain
-   version's, and the bound: the bytes (the rows read and member once,
-   the counts written) over the memory rate or the rule's operations
-   (``observe_ops_per_word``, counted by hand) over the INT32 rate, the
-   larger.  ``--phase observe`` runs the card line, the kernel's build
-   and this phase alone.
+   the round launches it (every row and no verdict: dead, refute and
+   live; a verdict and a want mask with holes: the holders; no row
+   wanted; at [64, 1M], 1 and 3 rows wanted), budgets 0 to 16 on the
+   first seed.  Its time in each form (CUDA-graph replays of 20
+   launches), the plain version's, and the bound: the bytes (the rows
+   read and member once, the counts written) over the memory rate or the
+   form's operations (``observe_ops_per_word``, counted by hand, or the
+   row loop's SASS, ``sass_count.py --observe``, where fewer) over the
+   INT32 rate, the larger.  ``--phase observe`` runs the card line, the
+   kernel's build and this phase alone.
 6d. finish: the finish step's kernels (``csrc/finish.cu``:
    ``fire_timers``, the refutation's byte and the timer fire, and
    ``wipe_rows``) against ``fire_timers_ref`` / ``wipe_rows_ref`` on the
@@ -162,7 +164,11 @@ result lines are not printed.
    joined graph keeps decide's programmatic edge (``pdl_check``: the
    edges of the captured segment and of the IF node's body, the joined
    graph run and held against the eager tail and plain decide, on rows
-   that refute only on the tail's output).  ``--phase finish_slots`` runs the
+   that refute only on the tail's output); the same for the spread's
+   count then record with the banks (record a programmatic dependent
+   launch: ``_count_record_times``, ``pdl_record_check``, held against
+   the plain versions and the kernels run apart, on a row whose dropped
+   subject's own byte is DEAD).  ``--phase finish_slots`` runs the
    card line, the builds and this phase alone.
 7. full_path: ``run_rounds`` at n=16,000, S=64 (lan_profile, churn,
    loss, joins, flight ring, hist banks, trace) once on the card and
@@ -1328,34 +1334,64 @@ OBSERVE_SHAPES = ((64, 1_000_000, 1), (32, 250_000, 1), (64, 16_001, 1),
 OBSERVE_BUDGET = 6  # lan_profile's spread budget at 4,000 to 1M nodes
 
 
-def observe_ops_per_word() -> int:
+def observe_ops_per_word(form: str = "final") -> float:
     """The counts' integer operations a 32-bit word (four columns of one
-    row), counted by hand from the rule of ``csrc/observe.cu`` in instruction
-    slots, a three-input logic op (LOP3) or add (IADD3) being one slot,
-    constants held in registers: 4 to decode the message field's two bits
-    as 0x01-a-byte flags (a shift and a mask each), 1 each for DEAD and
-    REFUTE (one LOP3 of the flags and the member byte), 4 for a live rumor
-    (the age's mask-and-or in one LOP3, the budget's subtract, a shift,
-    one LOP3 of the flags and the age test), 3 for a holder (each flag
-    against the verdict's, two XORs, and one LOP3 of both with the member
-    byte), 2 for the four flags' byte sums (IADD3s) and 2 for the sums
-    across the bytes (a multiply and a shift-add a count, every four
-    words): 17."""
-    return 4 + 1 + 1 + 4 + 3 + 2 + 2
+    row) in ``form`` (``final``: dead, refute and live; ``spread``: the
+    holders), counted by hand from the rule of ``csrc/observe.cu`` in
+    instruction slots, a three-input logic op (LOP3) or add (IADD3) being
+    one slot, constants held in registers.  The final matrix's form: 2
+    shifts (the word by 6 and by 7: the message's bits at each byte's bit
+    0), 1 each for DEAD and REFUTE (one LOP3 of the two and the member
+    byte), 5 for a live rumor (the age's mask-and-or in one LOP3, the
+    budget's subtract, a shift, two LOP3s of the bits, the age test and the
+    byte mask), 1.5 to add three flags (IADD3s) and 0.75 for the sums
+    across the bytes (a multiply and a shift a count, every 8 words of a
+    row): 11.25.  The spread's: a shift, the verdict's XOR, a shift and one
+    LOP3 with the member byte, 0.5 to add, 0.25 for the byte sum: 4.75."""
+    if form == "spread":
+        return 1 + 1 + 1 + 1 + 0.5 + 0.25
+    return 2 + 1 + 1 + 5 + 1.5 + 0.75
 
 
-def _observe_bound(R: int, N: int, rows_read: int) -> dict:
-    """The least time of one launch that reads ``rows_read`` of its ``R``
-    rows (ms): the larger of its bytes (those rows and member read once,
-    the verdict and want rows read, the counts written) over the memory
-    rate and its operations (``observe_ops_per_word`` for the words of
-    the rows it reads) over the INT32 rate."""
-    bytes_ = rows_read * N + (N if rows_read else 0) + 5 * R + 16 * R
+def observe_sass() -> dict:
+    """Each form's row loop of ``csrc/observe.cu`` per execution unit
+    (``sass_count.py --observe``: the cheapest path, a row on the aligned
+    path), or the reason it could not be counted."""
+    from consul_tpu_torch import sass_count
+    out = {}
+    forms = getattr(sass_count, "OBSERVE_FORMS", ())  # none in an A/B's parent
+    try:
+        sass = sass_count.disassemble("observe")
+    except RuntimeError as e:  # a count that cannot be taken bounds nothing
+        return {f: {"error": str(e)} for f in forms}
+    for form in forms:
+        try:
+            out[form] = sass_count.observe_counts(sass, form)
+        except RuntimeError as e:
+            out[form] = {"error": str(e)}
+    return out
+
+
+def _observe_bound(R: int, N: int, rows_read: int, form: str = "final",
+                   sass: dict | None = None) -> dict:
+    """The least time of one launch in ``form`` that reads ``rows_read``
+    of its ``R`` rows (ms): the larger of its bytes (those rows and member
+    read once, the spread's verdict and want rows read, the counts
+    written) over the memory rate and its operations over the INT32 rate:
+    ``observe_ops_per_word(form)`` for the words of the rows it reads, or
+    the SASS count's busiest unit (``observe_sass``) where that is
+    fewer."""
+    per_word = observe_ops_per_word(form)
+    got = (sass or {}).get(form, {}).get("busiest_unit_per_word")
+    if got is not None and got < per_word:
+        per_word = got
+    bytes_ = (rows_read * N + (N if rows_read else 0)
+              + (5 * R if form == "spread" else 0) + 16 * R)
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    ops_ms = (rows_read * N / 4 * observe_ops_per_word()
-              / INT32_OPS_PER_S * 1e3)
+    ops_ms = rows_read * N / 4 * per_word / INT32_OPS_PER_S * 1e3
     return {"bytes": bytes_, "bytes_ms": bytes_ms,
-            "operations_per_word": observe_ops_per_word(),
+            "operations_per_word": per_word,
+            "operations_per_word_by_hand": observe_ops_per_word(form),
             "operations_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -1389,18 +1425,47 @@ def _observe_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return err
 
 
+# The spread's wanted rows of the forms the round launches at 1M: one
+# slot recycled, three (rows whose verdicts _observe_inputs makes DEAD or
+# REFUTE).
+OBSERVE_FEW = {1: (5,), 3: (5, 17, 40)}
+
+
+def _observe_forms(R: int, N: int, verdict, want, none) -> dict:
+    """form name -> (verdict, want, rows read) of the forms timed at a
+    shape: the final matrix's (every row), the spread's with ``want`` and
+    with no row; at [64, 1M], also the spread's with 1 and 3 rows."""
+    forms = {"": (None, None, R),
+             "_spread": (verdict, want, int((want & (verdict >= 0)
+                                             & (verdict <= 3)).sum())),
+             "_no_row": (verdict, none, 0)}
+    if (R, N) == (64, 1_000_000):
+        for k, rows in OBSERVE_FEW.items():
+            forms[f"_spread_{k}"] = (verdict, _few_wanted(want, rows), k)
+    return forms
+
+
+def _few_wanted(want, rows):
+    w = torch.zeros_like(want)
+    w[list(rows)] = True
+    return w
+
+
 def observe_phase(card_line: str, seeds: int = 64) -> dict:
     """``heard_counts`` (``csrc/observe.cu``) against ``heard_counts_ref``
     on the card, tolerance 0 in every count, at ``OBSERVE_SHAPES`` over
     ``seeds`` fresh inputs each, in the forms the round launches it: the
     final matrix (every row, no verdict: the trace's holders and the
     flight row's rumors), the spread (a verdict, ``want`` with holes) and
-    a spread with no row wanted; budgets 0 to 16 on the first seed.  Its
-    time in CUDA-graph replays (20 launches a graph) in each form, the
-    plain version's, and the bound (``_observe_bound``)."""
+    a spread with no row wanted; budgets 0 to 16 on the first seed; at
+    [64, 1M] also the spread with 1 and 3 rows wanted (``OBSERVE_FEW``) on
+    the first 8 seeds.  Each form's time in CUDA-graph replays (20
+    launches a graph), the plain version's, and the bound
+    (``_observe_bound``, with the SASS counts of ``observe_sass``)."""
     from consul_tpu_torch.gossip import observe
 
     t0 = time.perf_counter()
+    sass = observe_sass()
     rows, err, held = {}, 0, 0
     for R, N, ndev in OBSERVE_SHAPES:
         for seed in range(seeds):
@@ -1408,8 +1473,12 @@ def observe_phase(card_line: str, seeds: int = 64) -> dict:
                                                          1000 * R + seed)
             none = torch.zeros_like(want)
             budgets = (0, 1, 3, 6, 14, 16) if seed == 0 else (OBSERVE_BUDGET,)
+            forms = [(None, None), (verdict, want), (verdict, none)]
+            if seed < 8 and (R, N) == (64, 1_000_000):
+                forms += [(verdict, _few_wanted(want, rows))
+                          for rows in OBSERVE_FEW.values()]
             for budget in budgets:
-                for v, w in ((None, None), (verdict, want), (verdict, none)):
+                for v, w in forms:
                     err = max(err, _observe_err(
                         observe.heard_counts(arg, member, budget, v, w),
                         observe.heard_counts_ref(arg, member, budget, v, w)))
@@ -1418,32 +1487,35 @@ def observe_phase(card_line: str, seeds: int = 64) -> dict:
         none = torch.zeros_like(want)
         b = OBSERVE_BUDGET
         sc = observe.counts_scratch(R, "cuda")  # as a round program's
-        ms = graph_ms(lambda: observe.heard_counts(arg, member, b,
-                                                   scratch=sc))
-        ms_spread = graph_ms(lambda: observe.heard_counts(
-            arg, member, b, verdict, want, sc))
-        ms_idle = graph_ms(lambda: observe.heard_counts(
-            arg, member, b, verdict, none, sc))
-        plain_ms = cuda_ms(lambda: observe.heard_counts_ref(arg, member, b),
-                           iters=5 if N >= 250_000 else 20)
-        bound = _observe_bound(R, N, R)
-        rows[f"{R}x{N}" + (f"/{ndev}" if ndev > 1 else "")] = {
-            "shape": [R, N], "ndev": ndev, "L": N // ndev, "budget": b,
-            "ms": ms, "ms_spread": ms_spread,
-            "spread_rows_read": int(want.sum()), "ms_no_row": ms_idle,
-            "plain_ms": plain_ms, **bound,
-            "share_of_bound": bound["bound_ms"] / ms,
-            "spread_bound_ms": _observe_bound(
-                R, N, int(want.sum()))["bound_ms"],
-            "no_row_bound_ms": _observe_bound(R, N, 0)["bound_ms"]}
+        key = f"{R}x{N}" + (f"/{ndev}" if ndev > 1 else "")
+        row = {"shape": [R, N], "ndev": ndev, "L": N // ndev, "budget": b}
+        for name, (v, w, read) in _observe_forms(R, N, verdict, want,
+                                                 none).items():
+            ms = graph_ms(lambda: observe.heard_counts(arg, member, b, v, w,
+                                                       sc))
+            bound = _observe_bound(R, N, read,
+                                   "final" if v is None else "spread", sass)
+            row[f"ms{name}"] = ms
+            row[f"rows_read{name}"] = read
+            row[f"bound_ms{name}"] = bound["bound_ms"]
+            row[f"share_of_bound{name}"] = bound["bound_ms"] / ms
+            if not name:
+                row.update(bound)
+        row["plain_ms"] = cuda_ms(
+            lambda: observe.heard_counts_ref(arg, member, b),
+            iters=5 if N >= 250_000 else 20)
+        row["plain_ms_spread"] = cuda_ms(
+            lambda: observe.heard_counts_ref(arg, member, b, verdict, want),
+            iters=5 if N >= 250_000 else 20)
+        rows[key] = row
         if int(sc.abs().sum()):
             raise AssertionError(f"heard_counts left its scratch non-zero "
-                                 f"at {R}x{N}/{ndev}")
+                                 f"at {key}")
         del arg, member, verdict, want, none
     torch.cuda.empty_cache()
     res = {"phase": "observe", "card": card_line, "tolerance": 0,
            "max_abs_err": err, "launches_held": held, "seeds": seeds,
-           "shapes": rows, "library_ms": None,
+           "shapes": rows, "sass": sass, "library_ms": None,
            "seconds": time.perf_counter() - t0}
     emit(res)
     return res
@@ -2714,7 +2786,8 @@ def _finish_slots_bound(cfg, t, dec, fired, st, n_hold) -> dict:
 def _finish_slots_timed(cfg, t, rx) -> dict:
     """The step's times on ``t`` (CUDA-graph replays of 20 launches, the
     state carried from launch to launch): each kernel alone (decide's
-    launches programmatic, each overlapping the end of the one before),
+    launches, and record's with the banks, programmatic, each overlapping
+    the end of the one before),
     and the whole step as the round runs it (with the fire, the count and
     the wipe); the plain versions' (eager); beside
     ``_finish_slots_bound``."""
@@ -2796,51 +2869,34 @@ def _tail_decide_times(ndev: int) -> dict:
                 cfg, t._replace(heard=tail())))}
 
 
-def pdl_check(ndev: int) -> dict:
-    """Whether the round's graph keeps decide's programmatic edge, and
-    whether decide waits for the tail: the tail (``fused.disseminate``)
-    then the round's decide (a programmatic dependent launch) captured by
-    ``torch.cuda.graph`` into a segment graph, the segment joined under an
-    IF node on a true predicate as ``round_graph_build`` joins the round's
-    (``round_graph_edges``: the edges of the segment and of the child
-    graph in the IF node's body, by type), instantiated and launched; the
-    tail's output, the state and decide's outputs held against the tail
-    run eagerly and decide's plain version on its output, tolerance 0.
-    On ``_tail_decide_inputs``, where 8 rows refute only on the tail's
-    output (a decide that read its own byte before the tail ended would
-    miss them); raises unless they refute.  Raises if the joined graph ran
-    and disagrees; a refusal is returned with its CUDA error."""
-    from consul_tpu_torch.gossip import finish_slots as fs, program
-    cfg, t, tail = _tail_decide_inputs(ndev)
+def _joined_graph_run(capture, warm, check) -> dict:
+    """``capture()`` captured by ``torch.cuda.graph`` into a segment
+    graph (``warm()`` run first on a side stream), the segment joined
+    under an IF node on a true predicate as ``round_graph_build`` joins
+    the round's (``round_graph_edges``: the edges of the segment and of
+    the child graph in the IF node's body, by type), instantiated and
+    launched; ``check(out)`` then holds ``capture``'s output and raises
+    on a difference.  Returns the edges, whether it instantiated,
+    launched and held, and whether the programmatic edge was kept; a
+    refusal is returned with its CUDA error."""
+    from consul_tpu_torch.gossip import program
     lib = program._lib()
-    want = _fs_copy(t)
-    out_w = tail()
-    torch.cuda.synchronize()
-    dec_w = fs.finish_decide_ref(cfg, want._replace(heard=out_w))
-    refuted = int(dec_w.refute[1].count_nonzero())
-    if refuted < 8:
-        raise AssertionError(f"pdl_check {ndev}: {refuted} rows refute on "
-                             f"the tail's output, 8 expected")
-    got = _fs_copy(t)
-    warm = _fs_copy(t)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fs.decide(cfg, warm._replace(heard=tail()))
+        warm()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
-        out = tail()
-        dec = fs.decide(cfg, got._replace(heard=out))
+        out = capture()
     pred = torch.ones((), dtype=torch.bool, device="cuda")
     counts = (ctypes.c_int * 4)()
     joined, exe = ctypes.c_void_p(), ctypes.c_void_p()
     rc = lib.round_graph_edges(graph.raw_cuda_graph(), pred.data_ptr(),
                                counts, ctypes.byref(joined),
                                ctypes.byref(exe))
-    res = {"ndev": ndev, "refuted": refuted,
-           "segment_programmatic_edges": counts[0],
+    res = {"segment_programmatic_edges": counts[0],
            "segment_other_edges": counts[1],
            "if_body_programmatic_edges": counts[2],
            "if_body_other_edges": counts[3], "instantiated": rc == 0,
@@ -2854,17 +2910,7 @@ def pdl_check(ndev: int) -> dict:
         if rc != 0:
             res["cuda_error"] = lib.round_graph_error(rc).decode()
         else:
-            outs = (out, out_w) if isinstance(out, tuple) else ((out,),
-                                                                (out_w,))
-            for i, (x, y) in enumerate(zip(
-                    [*outs[0], *_fs_leaves(got), dec.ok_mask, *dec.refute],
-                    [*outs[1], *_fs_leaves(want), dec_w.ok_mask,
-                     *dec_w.refute])):
-                if not torch.equal(x, y):
-                    raise AssertionError(f"pdl_check {ndev}: the joined "
-                                         f"graph's tail and decide != the "
-                                         f"eager tail and plain decide "
-                                         f"(field {i})")
+            check(out)
             res["held"] = True
         lib.round_graph_destroy(joined, exe)
     del graph
@@ -2872,6 +2918,149 @@ def pdl_check(ndev: int) -> dict:
     res["kept"] = bool(res["instantiated"] and res.get("launched")
                        and counts[0] > 0 and counts[2] > 0)
     return res
+
+
+def _all_equal(what: str, got: list, want: list) -> None:
+    for i, (x, y) in enumerate(zip(got, want)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what} (field {i})")
+
+
+def pdl_check(ndev: int) -> dict:
+    """Whether the round's graph keeps decide's programmatic edge, and
+    whether decide waits for the tail: the tail (``fused.disseminate``)
+    then the round's decide (a programmatic dependent launch) in the
+    joined graph (``_joined_graph_run``); the tail's output, the state and
+    decide's outputs held against the tail run eagerly and decide's plain
+    version on its output, tolerance 0.  On ``_tail_decide_inputs``, where
+    8 rows refute only on the tail's output (a decide that read its own
+    byte before the tail ended would miss them); raises unless they
+    refute.  Raises if the joined graph ran and disagrees."""
+    from consul_tpu_torch.gossip import finish_slots as fs
+    cfg, t, tail = _tail_decide_inputs(ndev)
+    want = _fs_copy(t)
+    out_w = tail()
+    torch.cuda.synchronize()
+    dec_w = fs.finish_decide_ref(cfg, want._replace(heard=out_w))
+    refuted = int(dec_w.refute[1].count_nonzero())
+    if refuted < 8:
+        raise AssertionError(f"pdl_check {ndev}: {refuted} rows refute on "
+                             f"the tail's output, 8 expected")
+    got, warm = _fs_copy(t), _fs_copy(t)
+
+    def capture():
+        out = tail()
+        return out, fs.decide(cfg, got._replace(heard=out))
+
+    def check(res):
+        out, dec = res
+        outs = (out, out_w) if isinstance(out, tuple) else ((out,), (out_w,))
+        _all_equal(f"pdl_check {ndev}: the joined graph's tail and decide "
+                   f"!= the eager tail and plain decide",
+                   [*outs[0], *_fs_leaves(got), dec.ok_mask, *dec.refute],
+                   [*outs[1], *_fs_leaves(want), dec_w.ok_mask,
+                    *dec_w.refute])
+
+    return {"ndev": ndev, "refuted": refuted,
+            **_joined_graph_run(capture, lambda: fs.decide(
+                cfg, warm._replace(heard=tail())), check)}
+
+
+def _count_record_inputs(ndev: int):
+    """The spread's count's and record's inputs as the round gives them:
+    the 1M main path's data with the hist banks
+    (``_finish_slots_main_inputs``), decide, the fire and settle run on
+    it, so that slot 7 (DEAD past its GC window) expires with its verdict
+    and drops its subject, whose own column of the row is made DEAD first:
+    the count reads that member byte before record clears it.  Returns
+    ``(cfg, t, dec, st, scratch, subject)``."""
+    from consul_tpu_torch.gossip import finish, finish_slots as fs, observe
+    cfg, t, rx = _finish_slots_main_inputs(ndev, True)
+    subject = int(t.slots[0][7])
+    shards = t.heard if isinstance(t.heard, tuple) else (t.heard,)
+    L = shards[0].shape[1]
+    shards[subject // L][7, subject % L] = 0x80  # DEAD, conf 0, age 0
+    scratch = observe.counts_scratch(cfg.S, "cuda")
+    torch.cuda.synchronize()  # decide loads before it waits
+    dec = fs.finish_decide(cfg, t)
+    fired = finish.fire_timers(t.heard, rx, dec.ok_mask, dec.refute,
+                               scratch)
+    st = fs.finish_settle(cfg, t, fired)
+    torch.cuda.synchronize()
+    if not (int(st.marks[7]) & fs.DROPPED and bool(st.spread[7])):
+        raise AssertionError(f"count_record {ndev}: slot 7 neither drops "
+                             f"its subject nor spreads")
+    return cfg, t, dec, st, scratch, subject
+
+
+def _count_record(cfg, t, dec, st, scratch):
+    """The spread's count then record, as the round runs them."""
+    from consul_tpu_torch.gossip import finish_slots as fs, observe
+    n_hold = observe.count(t.heard, t.member, cfg.budget, st.verdict,
+                           st.spread, scratch)[observe.HOLD]
+    fs.record(cfg, t, dec, st, n_hold)
+    return n_hold
+
+
+def _count_record_times(ndev: int) -> dict:
+    """The spread's count alone, record with the banks alone (back-to-back
+    programmatic launches, each overlapping the end of the one before)
+    and the pair as the round runs it (``_count_record``), on
+    ``_count_record_inputs`` (CUDA-graph replays, the state carried)."""
+    from consul_tpu_torch.gossip import finish_slots as fs, observe
+    cfg, t, dec, st, scratch, _ = _count_record_inputs(ndev)
+    n_hold = observe.heard_counts(t.heard, t.member, cfg.budget, st.verdict,
+                                  st.spread, scratch)[observe.HOLD]
+    return {"count_ms": graph_ms(lambda: observe.heard_counts(
+                t.heard, t.member, cfg.budget, st.verdict, st.spread,
+                scratch)),
+            "record_ms": graph_ms(lambda: fs.finish_record(cfg, t, dec, st,
+                                                           n_hold)),
+            "pair_ms": graph_ms(lambda: _count_record(cfg, t, dec, st,
+                                                      scratch))}
+
+
+def pdl_record_check(ndev: int) -> dict:
+    """Whether the round's graph keeps record's programmatic edge behind
+    the spread's count, and whether record waits for the count: the pair
+    (``_count_record``) in the joined graph (``_joined_graph_run``); the
+    holders and every field held against the plain versions and against
+    the kernels run eagerly with the card synchronised between them,
+    tolerance 0, on ``_count_record_inputs``, where the dropped subject's
+    member byte counts among its row's holders only if the count read it
+    before record cleared it.  Raises if the joined graph ran and
+    disagrees."""
+    from consul_tpu_torch.gossip import finish_slots as fs, observe
+    cfg, t, dec, st, scratch, subject = _count_record_inputs(ndev)
+    want = _fs_copy(t)
+    n_hold_w = observe.heard_counts_ref(want.heard, want.member, cfg.budget,
+                                        st.verdict, st.spread)[observe.HOLD]
+    fs.finish_record_ref(cfg, want, dec, st, n_hold_w)
+    if bool(want.member[subject]):
+        raise AssertionError(f"pdl_record_check {ndev}: the subject was "
+                             f"not dropped")
+    apart = _fs_copy(t)
+    n_hold_a = observe.heard_counts(apart.heard, apart.member, cfg.budget,
+                                    st.verdict, st.spread,
+                                    scratch)[observe.HOLD]
+    torch.cuda.synchronize()
+    fs.finish_record(cfg, apart, dec, st, n_hold_a)
+    torch.cuda.synchronize()
+    _all_equal(f"pdl_record_check {ndev}: the count and record apart != "
+               f"plain", [*_fs_leaves(apart), n_hold_a],
+               [*_fs_leaves(want), n_hold_w])
+    got, warm = _fs_copy(t), _fs_copy(t)
+
+    def check(n_hold):
+        _all_equal(f"pdl_record_check {ndev}: the joined graph's count and "
+                   f"record != plain", [*_fs_leaves(got), n_hold],
+                   [*_fs_leaves(want), n_hold_w])
+
+    return {"ndev": ndev, "subject": subject,
+            "holders_of_the_dropped_row": int(n_hold_w[7]),
+            **_joined_graph_run(
+                lambda: _count_record(cfg, got, dec, st, scratch),
+                lambda: _count_record(cfg, warm, dec, st, scratch), check)}
 
 
 def finish_slots_phase(card_line: str, seeds: int = 32) -> dict:
@@ -2917,10 +3106,16 @@ def finish_slots_phase(card_line: str, seeds: int = 32) -> dict:
     # edge.
     pdl = {f"1m/{ndev}": pdl_check(ndev) for ndev in (1, 8)}
     pair = {f"1m/{ndev}": _tail_decide_times(ndev) for ndev in (1, 8)}
+    # And the spread's count then record (record programmatic with the
+    # banks), the same way.
+    pdl.update({f"count_record/1m/{ndev}": pdl_record_check(ndev)
+                for ndev in (1, 8)})
+    count_record = {f"1m/{ndev}": _count_record_times(ndev)
+                    for ndev in (1, 8)}
     res = {"phase": "finish_slots", "card": card_line, "tolerance": 0,
            "max_abs_err": 0, "steps_held": held, "seeds": seeds,
            "states_with": seen, "cases": rows, "main": main,
-           "tail_decide": pair, "pdl": pdl,
+           "tail_decide": pair, "count_record": count_record, "pdl": pdl,
            "seconds": time.perf_counter() - t0}
     emit(res)
     if not all(seen.values()):
@@ -6136,11 +6331,13 @@ def _observe_row(counts: dict, obs1: dict, obs8: dict, rp: dict,
     observers threaded (one a round and one a non-quiescent round), on 8
     shards, on the plane and in the crossval phase; its time at [64, 1M]
     in the final matrix's form (``ms``: every row) and the spread's
-    (``ms_spread``: half the rows wanted, and ``ms_no_row``: none, the
-    usual round), each beside its bound and the plain version's time;
+    (``ms_spread``: 25 of 64 rows wanted, ``ms_spread_1`` and
+    ``ms_spread_3``: 1 and 3, and ``ms_no_row``: none, the usual round),
+    each beside its bound and the plain version's time, and on 8 shards;
     the device ms a round the profiler saw it take on the graphed churn
     round with the observers threaded."""
     main = counts["shapes"]["64x1000000"]
+    sharded = counts["shapes"]["64x1000000/8"]
     obs = rp["cases"]["churn"]["graphed_observers"]
     return {"name": "heard_counts", "route": "cuda",
             "source": "consul_tpu_torch/csrc/observe.cu",
@@ -6155,9 +6352,12 @@ def _observe_row(counts: dict, obs1: dict, obs8: dict, rp: dict,
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "share_of_bound": main["share_of_bound"],
-            "ms_spread": main["ms_spread"],
-            "spread_bound_ms": main["spread_bound_ms"],
-            "ms_no_row": main["ms_no_row"],
+            **{f"{k}{f}": main[f"{k}{f}"]
+               for f in ("_spread", "_spread_1", "_spread_3", "_no_row")
+               for k in ("ms", "bound_ms")},
+            "plain_ms_spread": main["plain_ms_spread"],
+            "ms_8_shards": sharded["ms"],
+            "ms_spread_1_8_shards": sharded["ms_spread_1"],
             "device_ms_per_round": obs["observe_device_ms_per_round"],
             "library_ms": None}
 
@@ -6303,6 +6503,10 @@ def _finish_slots_rows(fslots: dict, churn: dict, sharded: dict,
     # graph keeps the programmatic edge.
     rows[0]["tail_decide_pair_ms"] = fslots["tail_decide"]["1m/1"]["pair_ms"]
     rows[0]["pdl_edge_kept"] = fslots["pdl"]["1m/1"]["kept"]
+    # Record behind the spread's count, the same.
+    rows[2]["count_record_pair_ms"] = \
+        fslots["count_record"]["1m/1"]["pair_ms"]
+    rows[2]["pdl_edge_kept"] = fslots["pdl"]["count_record/1m/1"]["kept"]
     return rows
 
 

@@ -36,7 +36,8 @@
 //      count c, from the timeout table and conf_cap[idx[h]], after the
 //      refutation) and the refutation's column and byte (0: none).
 //      A programmatic dependent launch (cudaLaunchKernelEx with
-//      cudaLaunchAttributeProgrammaticStreamSerialization): it may start
+//      cudaLaunchAttributeProgrammaticStreamSerialization; `programmatic`
+//      below): it may start
 //      while the kernel before it runs, once that kernel triggers
 //      (dissem_tail.cu's tail triggers griddepcontrol.launch_dependents
 //      as it starts) or its blocks have ended, and griddepcontrol.wait
@@ -74,13 +75,28 @@
 //      subject dropped) and with the hist banks the spread's want mask and
 //      verdict message (observe.cu's count).
 //   4. heard_counts (observe.cu), only with the hist banks: the members
-//      holding each expiring row's verdict, before the drop and the wipe.
+//      holding each expiring row's verdict, before the drop and the wipe;
+//      it triggers griddepcontrol.launch_dependents as it starts.
 //   5. record_kernel: with the hist banks, the four adds (detect, dwell,
 //      refute and the spread's bit length of its holders), each value
 //      clipped into the top bucket, duplicates summed in shared memory and
 //      one global add a touched bucket; a dead subject's member flag
 //      dropped; an expired slot's slot_of_node entry, node, phase and dead
-//      round reset.
+//      round reset.  With the banks (the holders given) a programmatic
+//      dependent launch as decide's, behind the spread's count: it zeroes
+//      its buckets and makes its loads in three rounds of independent loads
+//      (the row's slot id, marks, expired and spread flags, refutation byte
+//      and the round; the slot's node and start; the subject's fail round)
+//      before griddepcontrol.wait; only the holders and every write come
+//      after it, and so the member drop comes after the count has read
+//      member.  The launch's contract: the kernel launched just before it
+//      writes none of its inputs but the holders.  The round keeps it:
+//      record follows the count with no kernel between (the holders are a
+//      row of the count's output), the count writes only its output and
+//      its scratch, and every other input was written before the count
+//      began (by settle, decide, the probe tick).  Without the banks record
+//      follows settle, which writes its marks and flags: there it is a
+//      plain launch, which starts after settle has ended.
 //   6. wipe_rows (finish.cu): the expired rows zeroed.
 // The reference's order holds: the own byte is read after the tail and
 // push/pull and before the fire, the mask is built after the refutation,
@@ -94,8 +110,9 @@
 // Bound.  A row reads five registers and a few [N] entries and writes a
 // few bytes: at S = 64 about 3 KB a launch, under a microsecond at
 // 3.35 TB/s; a launch costs more.  The design's point is three launches
-// where the port made ~113, and for decide, a chain of dependent loads
-// and a launch that overlap the tail.
+// where the port made ~113, and for decide and record, a chain of
+// dependent loads and a launch that overlap the kernel before (the tail,
+// the spread's count).
 //
 // Capture.  No launch reads the host or needs a memset: the round is read
 // from its row in device memory, the statics (the budget, the TTL, the
@@ -346,31 +363,51 @@ record_kernel(const __grid_constant__ Args a) {
     for (int k = 0; k < kBanks; ++k) {
       for (int b = h; b < a.buckets[k]; b += a.threads) s_bank[k][b] = 0u;
     }
-    __syncthreads();
   }
-  if (h < a.H) {
-    const int s = a.idx[h];
-    const int32_t node_c = clamp_node(a.slot_node[s], a.N);
-    const uint32_t m = a.marks[h];
+  // Every load but the holders, before the wait, in three rounds of
+  // independent loads: the row's slot id, flags and marks (and the round);
+  // the slot's registers; the subject's fail round.  The kernel before
+  // this one writes none of them (the launch's contract, finish_record
+  // below).
+  const bool live = h < a.H;
+  int s = 0;
+  int32_t node_c = 0, rnd = 0, start = 0, fail_c = 0;
+  uint32_t m = 0;
+  bool expired = false, refute_now = false, spread = false;
+  if (live) {
+    s = a.idx[h];
+    m = a.marks[h];
+    expired = a.expired[h] != 0;
     if (hist) {
-      const int32_t rnd = __ldg(a.rnd);
-      const bool refute_now = a.ref_byte != nullptr && a.ref_byte[h] != 0;
-      const int32_t dwell = sub32(rnd, a.slot_start[s]);
+      rnd = __ldg(a.rnd);
+      refute_now = a.ref_byte != nullptr && a.ref_byte[h] != 0;
+      spread = a.spread_want[h] != 0;
+      start = a.slot_start[s];
+    }
+    node_c = clamp_node(a.slot_node[s], a.N);
+    if (hist) fail_c = __ldg(a.fail + node_c);
+  }
+  // The kernel before's output (the holders), and every write, after the
+  // wait: that kernel reads member, which a dropped subject's flag clears.
+  wait_for_primary();
+  if (hist) __syncthreads();  // the banks' buckets zeroed
+  if (live) {
+    if (hist) {
+      const int32_t dwell = sub32(rnd, start);
       if (m & kDetected) {
-        bucket(s_bank[kDetect], a.buckets[kDetect],
-               sub32(rnd, __ldg(a.fail + node_c)));
+        bucket(s_bank[kDetect], a.buckets[kDetect], sub32(rnd, fail_c));
       }
       if ((m & kNewVerdict) || refute_now) {
         bucket(s_bank[kDwell], a.buckets[kDwell], dwell);
       }
       if (refute_now) bucket(s_bank[kRefute], a.buckets[kRefute], dwell);
-      if (a.spread_want[h] != 0) {
+      if (spread) {
         bucket(s_bank[kSpread], a.buckets[kSpread],
                bit_length(a.n_hold[h]));
       }
     }
     if (m & kDropped) a.member[node_c] = 0;
-    if (a.expired[h] != 0) {
+    if (expired) {
       a.slot_of_node[node_c] = -1;
       a.slot_node[s] = -1;
       a.slot_phase[s] = kFree;
@@ -466,6 +503,27 @@ inline bool setup(Args& a, void* const* shards, int ndev, void* const* ptrs,
   return true;
 }
 
+// One block of `kernel` as a programmatic dependent launch
+// (cudaLaunchKernelEx with programmatic stream serialization): it may
+// start while the kernel before it on the stream runs, once that one
+// triggers griddepcontrol.launch_dependents or its blocks have ended, and
+// griddepcontrol.wait waits for that kernel.  Returns the launch's error.
+inline int programmatic(void (*kernel)(Args), const Args& a, void* stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(static_cast<unsigned>(a.threads));
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace finish_slots
 
 // The three launches of the top of this file, one block each.  Each takes
@@ -478,7 +536,9 @@ inline bool setup(Args& a, void* const* shards, int ndev, void* const* ptrs,
 // kRefByte where the round refutes (ints[iRefute] != 0); finish_settle
 // kFired, kExpired and kMarks, and with the banks kSpreadWant and kVerdict;
 // finish_record kExpired and kMarks, and with the banks (kHistDetect ..
-// kHistSpread, all or none) kSpreadWant and kNHold.  Each launches on
+// kHistSpread, all or none) kSpreadWant and kNHold; given kNHold it is a
+// programmatic dependent launch, whose kernel before (the spread's count)
+// may write none of its inputs but kNHold.  Each launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() after the
 // launch (or cudaErrorInvalidValue for arguments it does not take).
 extern "C" int finish_decide(void* const* shards, int ndev,
@@ -490,24 +550,10 @@ extern "C" int finish_decide(void* const* shards, int ndev,
       (a.refute != 0 && a.ref_col == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // A programmatic dependent launch: the kernel may start while the one
-  // before it on the stream runs (once that one triggers, or its blocks
-  // have ended) and makes its loads but the own byte before it waits for
-  // that kernel in griddepcontrol.wait.  So that kernel must write none
-  // of decide's inputs but the belief rows (the top of this file).
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1);
-  cfg.blockDim = dim3(static_cast<unsigned>(a.threads));
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, decide_kernel, a);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  // Makes its loads but the own byte before it waits for the kernel
+  // before it, which must write none of decide's inputs but the belief
+  // rows (the top of this file).
+  return programmatic(decide_kernel, a, stream);
 }
 
 extern "C" int finish_settle(void* const* shards, int ndev,
@@ -538,9 +584,15 @@ extern "C" int finish_record(void* const* shards, int ndev,
         (a.refute != 0 && a.ref_byte == nullptr)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  record_kernel<<<1, a.threads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (a.n_hold == nullptr) {
+    record_kernel<<<1, a.threads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // With the holders, the launch right after the spread's count: a
+  // programmatic dependent launch, which makes its loads but the holders
+  // before it waits for that kernel (the top of this file).
+  return programmatic(record_kernel, a, stream);
 }
 
 extern "C" const char* finish_slots_error(int code) {

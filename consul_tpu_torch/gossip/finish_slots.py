@@ -29,7 +29,9 @@ order:
 Each step is one launch of ``csrc/finish_slots.cu`` on CUDA tensors (entry
 points ``finish_decide``, ``finish_settle`` and ``finish_record``: one block,
 a thread a row; the decide launch programmatic, overlapping the kernel
-before it, which may write only the belief rows) and its plain version on
+before it, which may write only the belief rows; the record launch
+programmatic where it is given the holders, behind the spread's count,
+which may write only those) and its plain version on
 CPU tensors (``finish_decide_ref``, ``finish_settle_ref``,
 ``finish_record_ref``: the port's former expressions of the step, cut at
 the kernels' boundaries).
@@ -452,7 +454,13 @@ def finish_settle(cfg: Config, t: Step, fired: torch.Tensor) -> Settled:
 def finish_record(cfg: Config, t: Step, dec: Decided, st: Settled,
                   n_hold: torch.Tensor | None = None) -> None:
     """Launch ``finish_record``: ``finish_record_ref`` in one block, in
-    place."""
+    place.  With ``n_hold`` (the hist banks) a programmatic dependent
+    launch, as ``finish_decide`` is: it makes its loads but ``n_hold``
+    before it waits for the kernel before it on the stream, so that kernel
+    must write none of ``t``'s, ``dec``'s or ``st``'s tensors (in the
+    round: the spread's count, ``observe.count``, which writes ``n_hold``);
+    a caller whose kernel before may write them synchronises first.
+    Without, a plain launch (in the round it follows ``settle``)."""
     if t.hist is not None and n_hold is None:
         raise ValueError("the hist banks' adds need n_hold")
     _launch(2, cfg, t, dec, st, n_hold=n_hold if t.hist is not None

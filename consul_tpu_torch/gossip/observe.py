@@ -14,14 +14,19 @@ reads the matrix once, every column shard in the same launch; on a CPU
 tensor the plain version ``heard_counts_ref``.  ``count`` is what the
 round calls.  There is no fallback.
 
-The counts, int32 ``[4, R]`` for ``R`` rows (``COUNTS`` names them):
+The counts, int32 ``[4, R]`` for ``R`` rows (``COUNTS`` names them); a
+launch makes those of its form and 0 in the others:
 
-- ``dead``: columns whose message is DEAD and whose node is a member;
-- ``refute``: the same for REFUTE (alive@inc);
-- ``live``: columns with a message whose age is below the spread budget
-  (no member mask): the rumors the round pushes;
-- ``hold``: members whose message equals the row's ``verdict`` (0 without
-  one).
+- without a ``verdict`` (the final matrix's form: the trace's holders and
+  the flight row's rumors):
+
+  - ``dead``: columns whose message is DEAD and whose node is a member;
+  - ``refute``: the same for REFUTE (alive@inc);
+  - ``live``: columns with a message whose age is below the spread budget
+    (no member mask): the rumors the round pushes;
+
+- with a ``verdict`` (the spread's form), ``hold``: members whose message
+  equals the row's ``verdict`` (0 for a verdict outside 0..3).
 
 ``want`` (bool ``[R]``, or None for every row) masks the rows read: a row
 that is not wanted is not read and has 0 in every count, so a launch
@@ -33,7 +38,9 @@ inside the round program's captured graphs as it is.  Its scratch
 (``counts_scratch``) is the caller's, as the event flood's is: a zero
 buffer that every launch leaves zero, which the launches of one caller
 use one at a time (the round program and the eager round loop own one
-each); without one, a launch makes its own.
+each); without one, a launch makes its own.  The spread's form lets a
+programmatic dependent launch behind it start early (the round's
+``finish_slots.record``).
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ COUNTS = ("dead", "refute", "live", "hold")
 DEAD, REFUTE, LIVE, HOLD = range(len(COUNTS))
 _I32 = torch.int32
 MAX_SHARDS = 64        # kMaxShards of csrc/observe.cu
-MAX_ROWS = 65535 * 4   # the grid's rows: 65,535 row groups of kRows
+MAX_ROWS = 1024        # kMaxRows: the rows a block lists (the round's S)
 # Kernel launches made by ``heard_counts`` (one per launch, nowhere else).
 launches = 0
 # (R, L, ndev, budget, verdict given, want given) of every launch, so a
@@ -73,23 +80,27 @@ def _counts_one(h: torch.Tensor, mem: torch.Tensor, budget: int,
                 verdict) -> torch.Tensor:
     msg = h >> _MSG_SHIFT
     mem = mem[None, :]
-    rows = [((msg == MSG_DEAD) & mem).sum(dim=1, dtype=_I32),
-            ((msg == MSG_REFUTE) & mem).sum(dim=1, dtype=_I32),
-            ((msg > 0) & ((h & _AGE_MASK) < budget)).sum(dim=1, dtype=_I32)]
-    rows.append(torch.zeros_like(rows[0]) if verdict is None else
-                ((msg == verdict[:, None]) & mem).sum(dim=1, dtype=_I32))
-    return torch.stack(rows)
+    zero = torch.zeros(h.shape[0], dtype=_I32, device=h.device)
+    if verdict is not None:
+        return torch.stack([zero, zero, zero,
+                            ((msg == verdict[:, None]) & mem).sum(
+                                dim=1, dtype=_I32)])
+    return torch.stack([
+        ((msg == MSG_DEAD) & mem).sum(dim=1, dtype=_I32),
+        ((msg == MSG_REFUTE) & mem).sum(dim=1, dtype=_I32),
+        ((msg > 0) & ((h & _AGE_MASK) < budget)).sum(dim=1, dtype=_I32),
+        zero])
 
 
 def heard_counts_ref(heard, member: torch.Tensor, budget: int,
                      verdict: torch.Tensor | None = None,
                      want: torch.Tensor | None = None) -> torch.Tensor:
     """The plain torch version of the kernel, on any device: the counts
-    of the module docstring, int32 [4, R], each shard's columns against
-    its slice of ``member``, summed.  The budget is clamped into [0, 16]
-    first, as the kernel clamps it: an age (0..15) is below it exactly
-    when it is below the clamped budget, and a u8 compare would wrap a
-    negative one."""
+    of the module docstring in the form ``verdict`` selects, int32
+    [4, R], each shard's columns against its slice of ``member``, summed.
+    The budget is clamped into [0, 16] first, as the kernel clamps it: an
+    age (0..15) is below it exactly when it is below the clamped budget,
+    and a u8 compare would wrap a negative one."""
     budget = min(max(int(budget), 0), 16)
     shards = _shards(heard)
     L = shards[0].shape[1]
@@ -137,7 +148,8 @@ def heard_counts(heard, member: torch.Tensor, budget: int,
     """Launch ``heard_counts`` of ``csrc/observe.cu`` on CUDA tensors (the
     arguments of ``heard_counts_ref``: ``heard`` u8 [R, N] or 1 to
     ``MAX_SHARDS`` shards [R, L]; ``member`` bool [N]; ``verdict`` int32
-    [R] or None; ``want`` bool [R] or None): one launch for every shard.
+    [R] (the spread's form) or None (the final matrix's); ``want`` bool
+    [R] or None): one launch for every shard.
     ``scratch``: a ``counts_scratch`` of at least ``R`` rows that no
     other launch uses meanwhile, or None for a new one (refused during a
     capture, which would record its memset).  Returns a new int32 [4, R]

@@ -22,12 +22,13 @@ through the rounds, as the plane's dispatch does, and then attributes
 the observers' device time: a third line, from ``--rounds`` eager rounds
 under the profiler, gives each observer its device ms and kernels a
 round and its kernels by name.  The observers' own kernel
-(``csrc/observe.cu``) goes by its name: the want-masked instance is the
-hist banks' spread, the other the final matrix's, which serves the
-flight row's dissemination bytes ``tx`` and the trace's holders at
-once.  Any other kernel goes by the torch op that launched it, which a
-dispatch mode runs under a profiler range naming the innermost frame of
-``gossip/kernel.py`` whose function is an observer's (those
+(``csrc/observe.cu``) goes by its name: the spread's instance
+(``<true>``, a verdict given; the want-masked one before the kernel's
+redesign) is the hist banks' spread, the other the final matrix's, which
+serves the flight row's dissemination bytes ``tx`` and the trace's
+holders at once.  Any other kernel goes by the torch op that launched it,
+which a dispatch mode runs under a profiler range naming the innermost
+frame of ``gossip/kernel.py`` whose function is an observer's (those
 ``--observer-fn FN=OBSERVER`` names: a checkout whose observers are torch
 ops in closures of their own names them so, and one that lacks a named
 function is refused).  The rest is the round's, the banks' adds among it:
@@ -373,8 +374,9 @@ def profile_multidc(args, graphed: bool) -> dict:
     return res
 
 
-# The observers' kernel's instances (csrc/observe.cu): the want-masked
-# one is the spread's launch, the other the final matrix's.
+# The observers' kernel's instances (csrc/observe.cu): <true> is the
+# spread's launch (a verdict given; in older checkouts, the want-masked
+# one: the same launch), <false> the final matrix's.
 OBSERVER_KERNELS = (("observe::counts_kernel<true>", "spread"),
                     ("observe::counts_kernel<false>", "tx_and_trace_holders"))
 # Functions of gossip/kernel.py whose torch ops are one observer's: none

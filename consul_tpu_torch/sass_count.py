@@ -7,6 +7,7 @@ their SASS, per execution unit.
     python -m consul_tpu_torch.sass_count --flood [--fanout 3]
     python -m consul_tpu_torch.sass_count --threefry
     python -m consul_tpu_torch.sass_count --probe
+    python -m consul_tpu_torch.sass_count --observe
 
 Builds ``csrc/dissem_tail.cu``, disassembles it with the toolkit's
 ``cuobjdump -sass``, takes the kernel instantiated for ``--fanout``, and
@@ -52,6 +53,20 @@ the Lifeguard registers only when threaded, the slot step in one block),
 so the count is what the most a lane can run costs, not what the main
 path's lanes run; the draws' operations are counted per hash instead
 (``--threefry``'s uniform loop; ``chip_smoke.py``'s ``_probe_bound``).
+
+``--observe`` builds ``csrc/observe.cu`` and counts, for each form of
+``observe::counts_kernel`` (the final matrix's, ``<false>``, and the
+spread's, ``<true>``), its row loop: the smallest loop with a warp sum
+(``REDUX``, a row's counts summed over the warp) and a 16-byte load.  The
+loop holds every way a row can go (the member bytes' five realignments,
+whole units or a head or tail unit loaded a byte at a time, the next
+row's loads or none), so it is cut into basic blocks and the count takes
+the path through them from the loop's head to its backward branch with
+the most 16-byte loads (the next row's units loaded whole) and, of those,
+the fewest integer instructions (an inner loop's blocks once; a guarded
+instruction counts as run): what a row of whole units at the aligned
+member path runs.  The rows an iteration covers are its warp sums over
+the form's counts a row (3 or 1), each row a thread's 8 words.
 
 Prints the loop's instructions, then the counts as one JSON line.
 Needs nvcc and cuobjdump (the card's machine has both), not a card.
@@ -268,6 +283,113 @@ def probe_counts(sass: str, kernel: str = "lanes_slots_kernel") -> dict:
             "by_opcode": dict(ops.most_common())}
 
 
+# observe::counts_kernel<hold> by form: its mangled template argument, the
+# counts a row (warp sums), the 32-bit words a row of a thread.
+OBSERVE_FORMS = {"final": ("counts_kernelILb0E", 3),
+                 "spread": ("counts_kernelILb1E", 1)}
+OBSERVE_WORDS_PER_ROW = 8  # kUnits (2) units of four words
+_ENDS = {"BRA", "BRX", "JMP", "JMX", "EXIT", "RET", "BREAK"}
+
+
+def _observe_loop(sass: str, form: str):
+    pattern, _ = OBSERVE_FORMS[form]
+    name, insns = _function(sass, pattern, f"counts_kernel ({form})")
+    rows = [span for span in _loops(insns)
+            if any(x[1] == "REDUX" for x in span)
+            and any(x[1] == "LDG" and ".128" in x[3] for x in span)]
+    if not rows:
+        raise RuntimeError(f"no loop with REDUX and LDG.128 in {name}")
+    return name, min(rows, key=len)
+
+
+def _cheapest_path(span) -> list:
+    """The instructions of the path through ``span`` (a loop: its head
+    first, its backward branch last) from the head to the backward branch
+    with the most 16-byte loads and, of those, the fewest integer
+    instructions: basic blocks joined by their fall-throughs and forward
+    branches inside the span."""
+    addrs = [x[0] for x in span]
+    lead = {addrs[0]}
+    for i, (addr, op, _, text) in enumerate(span):
+        t = re.search(r"0x([0-9a-f]+)", text)
+        if op in _ENDS or (t and op.startswith("BR")):
+            if i + 1 < len(span):
+                lead.add(addrs[i + 1])
+            if t and int(t.group(1), 16) in addrs:
+                lead.add(int(t.group(1), 16))
+    blocks, cur = [], []
+    for x in span:
+        if x[0] in lead and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append(x)
+    blocks.append(cur)
+    start = {b[0][0]: k for k, b in enumerate(blocks)}
+
+    def cost(block):
+        # The most 16-byte loads first (the next row's whole units loaded,
+        # as in a row's steady state), then the fewest integer
+        # instructions.
+        return (-sum(x[1] == "LDG" and ".128" in x[3] for x in block),
+                sum(x[1] in INT_ALU or x[1] in FMA or x[1] in FLEXIBLE
+                    for x in block))
+
+    def add(c, d):
+        return (c[0] + d[0], c[1] + d[1])
+
+    best: list = [None] * len(blocks)
+    best[0] = (cost(blocks[0]), [0])
+    for k, b in enumerate(blocks):
+        if best[k] is None:
+            continue
+        addr, op, guard, text = b[-1]
+        succ = []
+        t = re.search(r"0x([0-9a-f]+)", text)
+        if t and op.startswith("BR") and int(t.group(1), 16) in start:
+            tgt = start[int(t.group(1), 16)]
+            if tgt > k:
+                succ.append(tgt)
+        if op not in _ENDS or guard is not None:
+            if k + 1 < len(blocks):
+                succ.append(k + 1)
+        for n in succ:
+            c = add(best[k][0], cost(blocks[n]))
+            if best[n] is None or c < best[n][0]:
+                best[n] = (c, best[k][1] + [n])
+    end = len(blocks) - 1
+    if best[end] is None:
+        raise RuntimeError("no path reaches the loop's backward branch")
+    return [x for k in best[end][1] for x in blocks[k]]
+
+
+def observe_counts(sass: str, form: str) -> dict:
+    """The row loop of ``counts_kernel`` in ``form`` (``final`` or
+    ``spread``) in ``sass``: the cheapest path's instructions per
+    execution unit, per iteration and per 32-bit word (``--observe`` in
+    the module docstring)."""
+    name, span = _observe_loop(sass, form)
+    path = _cheapest_path(span)
+    ops = Counter(op for _, op, _, _ in path)
+    units = _units(ops)
+    rows = ops.get("REDUX", 0) / OBSERVE_FORMS[form][1]
+    if rows < 1 or rows != int(rows):
+        raise RuntimeError(f"{ops.get('REDUX', 0)} warp sums on the path "
+                           f"of {name}")
+    words = int(rows) * OBSERVE_WORDS_PER_ROW
+    return {"function": name, "form": form,
+            "loop": [hex(span[0][0]), hex(span[-1][0])],
+            "instructions_in_loop": len(span),
+            "instructions_on_path": len(path), "rows_per_iteration": rows,
+            "words_per_iteration": words, **units,
+            "memory": sum(v for k, v in ops.items() if k in MEMORY),
+            "integer_alu_per_word": units["integer_alu"] / words,
+            "fma_per_word": units["fma"] / words,
+            "flexible_per_word": units["flexible"] / words,
+            "busiest_unit_per_word": units["busiest_unit"] / words,
+            "instructions_per_word": len(path) / words,
+            "by_opcode": dict(ops.most_common())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fanout", type=int, default=3)
@@ -277,7 +399,21 @@ def main(argv=None) -> int:
                     help="count the event flood's slot loop")
     ap.add_argument("--probe", action="store_true",
                     help="count the probe tick's two kernels")
+    ap.add_argument("--observe", action="store_true",
+                    help="count the observers' kernel's row loops")
     args = ap.parse_args(argv)
+    if args.observe:
+        sass = disassemble("observe")
+        out = {}
+        for form in OBSERVE_FORMS:
+            path = _cheapest_path(_observe_loop(sass, form)[1])
+            for addr, _, guard, text in path:
+                g = "" if guard is None else \
+                    f"@{'' if guard[1] else '!'}{guard[0]} "
+                print(f"{form} {addr:05x}  {g}{text}")
+            out[form] = observe_counts(sass, form)
+        print(json.dumps(out), flush=True)
+        return 0
     if args.probe:
         sass = disassemble("probe")
         for kernel in PROBE_KERNELS:

@@ -713,6 +713,112 @@ def test_heard_counts_match_plain_on_card(R, N, ndev):
                 arg, member, budget, v, w)), (budget, v is None, w is None)
 
 
+@pytest.mark.parametrize("L, offsets", [(16 * 700 + 1, (0, 3)),
+                                        (16 * 700 + 2, (5, 0, 11)),
+                                        (16 * 700 + 8, (8, 1))])
+@pytest.mark.parametrize("ndev", [1, 8])
+def test_heard_counts_forms_and_phases_on_card(L, offsets, ndev):
+    """``csrc/observe.cu`` in the forms the round launches it: the final
+    matrix's (every row), the spread's with 1, 3 and 40 of 64 rows wanted
+    and with none (``out`` all zero), on shards at byte offsets of their
+    buffers (rows at every phase mod 16, L % 16 of 1, 2 and 8) and
+    ``member`` at an odd offset: every count, tolerance 0, one launch
+    each, the scratch left zero."""
+    _need_card()
+    from consul_tpu_torch.gossip import observe
+    R = 64
+    heard, member, verdict, _ = _observe_inputs(R, L * ndev, seed=L + ndev)
+    shards = []
+    for i in range(ndev):
+        o = offsets[i % len(offsets)]
+        buf = torch.full((R * L + o + 16,), 0xA5, dtype=torch.uint8,
+                         device="cuda")
+        view = buf[o:o + R * L].view(R, L)
+        view.copy_(heard[:, i * L:(i + 1) * L])
+        shards.append(view)
+    arg = tuple(shards) if ndev > 1 else shards[0]
+    mbuf = torch.ones(L * ndev + 32, dtype=torch.bool, device="cuda")
+    mem = mbuf[7:7 + L * ndev]
+    mem.copy_(member)
+    verdict = torch.where((verdict >= 0) & (verdict <= 3), verdict, 2)
+    scratch = observe.counts_scratch(R, "cuda")
+    forms = [(None, None)]
+    for rows in ((5,), (5, 17, 40), tuple(range(0, 64, 3)), ()):
+        w = torch.zeros(R, dtype=torch.bool, device="cuda")
+        w[list(rows)] = True
+        forms.append((verdict, w))
+    for v, w in forms:
+        n0 = observe.launches
+        got = observe.heard_counts(arg, mem, 6, v, w, scratch)
+        torch.cuda.synchronize()
+        assert observe.launches == n0 + 1
+        assert torch.equal(got, observe.heard_counts_ref(arg, member, 6, v,
+                                                         w))
+        if w is not None and not w.any():
+            assert not got.any()
+        assert int(scratch.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("ndev", [None, 8])
+def test_record_behind_the_count_matches_plain_on_card(ndev):
+    """Record with the hist banks as the round launches it, a programmatic
+    dependent launch right behind the spread's count (which triggers it as
+    it starts), against the plain versions: every field, the holders and
+    the banks, tolerance 0; a dropped subject whose own byte is DEAD in
+    its row counts among the holders (the count read member before record
+    cleared it)."""
+    _need_card()
+    from consul_tpu_torch.gossip import finish, finish_slots as fs, observe
+    n, S = 4000, 64
+    cfg, t, rx = _finish_slots_inputs(n, S, None, ndev, True, False, True,
+                                      4065)
+    rnd = int(t.rnd)
+    node, phase, _, dead = t.slots
+    subject = 777
+    node[9], phase[9], dead[9] = subject, 2, rnd - cfg.gc_rounds - 1
+    t.slot_of_node[subject] = 9
+    t.member[subject] = True
+    t.fail_round[subject] = rnd - 40  # failed: the verdict stands
+    t.alive[subject] = False
+    shards = t.heard if isinstance(t.heard, tuple) else (t.heard,)
+    L = shards[0].shape[1]
+    shards[subject // L][9, subject % L] = 0x80  # DEAD, conf 0, age 0
+    scratch = observe.counts_scratch(S, "cuda")
+    torch.cuda.synchronize()
+    dec = fs.finish_decide(cfg, t)
+    fired = finish.fire_timers(t.heard, rx, dec.ok_mask, dec.refute,
+                               scratch)
+    st = fs.finish_settle(cfg, t, fired)
+    torch.cuda.synchronize()
+    assert int(st.marks[9]) & fs.DROPPED and bool(st.spread[9])
+
+    def copy(t):
+        heard = (tuple(h.clone() for h in t.heard)
+                 if isinstance(t.heard, tuple) else t.heard.clone())
+        return t._replace(
+            heard=heard, slots=tuple(x.clone() for x in t.slots),
+            member=t.member.clone(), slot_of_node=t.slot_of_node.clone(),
+            hist=tk.HistBank(*(x.clone() for x in t.hist)))
+
+    got, want = copy(t), copy(t)
+    n_hold_w = observe.heard_counts_ref(want.heard, want.member, cfg.budget,
+                                        st.verdict, st.spread)[observe.HOLD]
+    fs.finish_record_ref(cfg, want, dec, st, n_hold_w)
+    torch.cuda.synchronize()
+    n0 = fs.record_launches
+    n_hold = observe.count(got.heard, got.member, cfg.budget, st.verdict,
+                           st.spread, scratch)[observe.HOLD]
+    fs.record(cfg, got, dec, st, n_hold)
+    torch.cuda.synchronize()
+    assert fs.record_launches == n0 + 1
+    assert torch.equal(n_hold, n_hold_w) and int(n_hold[9]) > 0
+    for x, y in zip([*got.slots, got.member, got.slot_of_node, *got.hist],
+                    [*want.slots, want.member, want.slot_of_node,
+                     *want.hist]):
+        assert torch.equal(x, y)
+    assert not bool(got.member[subject])
+
+
 @pytest.mark.parametrize("ndev", [None, 4])
 def test_graphed_observers_launch_the_kernel_on_card(ndev):
     """With the flight ring, hist banks and trace threaded, the graphed

@@ -17,8 +17,12 @@ tests/test_torch_finish_slots.py (full and hot ``idx`` with padding rows,
 1, 2 and 8 shards, the hist banks, LHM and the refutation on and off,
 every row firing, every row expiring, shared buckets and counters near
 2**31) and on 200 rows (seven warps: the block counts and the shared
-buckets across warps).  Needs ``g++``; builds into the test's temporary
-directory.
+buckets across warps).  Decide's launch, and record's with the holders,
+go through ``cudaLaunchKernelEx`` as programmatic dependent launches
+(counted); at ``griddepcontrol.wait`` the block meets and a test's hook
+checks that nothing was written before it and writes what the kernel
+before would have (record's holders).  Needs ``g++``; builds into the
+test's temporary directory.
 """
 
 import ctypes
@@ -171,7 +175,25 @@ static cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, K kernel,
   host_launch(kernel, c->gridDim, c->blockDim, args...);
   return cudaSuccess;
 }
+// griddepcontrol.wait: the block meets, thread 0 calls the hook a test set
+// (it checks what the kernel wrote before the wait and writes what the
+// kernel before would have), and the block goes on.
+typedef void (*host_wait_fn)(void);
+static host_wait_fn host_wait_hook = nullptr;
+extern "C" void finish_slots_host_wait_hook(host_wait_fn f) {
+  host_wait_hook = f;
+}
+static inline void host_griddep_wait() {
+  host_block->sync();
+  if (threadIdx.x == 0 && host_wait_hook != nullptr) host_wait_hook();
+  host_block->sync();
+}
 """
+# The wait's host form.
+WAIT = 'asm volatile("griddepcontrol.wait;" ::: "memory");\n#endif'
+HOST_WAIT = ('asm volatile("griddepcontrol.wait;" ::: "memory");\n#else\n'
+             '  host_griddep_wait();\n#endif')
+WAIT_HOOK = ctypes.CFUNCTYPE(None)
 
 # A launch in the source -> its host form.
 LAUNCH = re.compile(r"(\w+_kernel)<<<(.+?), (\S+?), 0,\s*"
@@ -191,7 +213,10 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_STUB)
     body, n = LAUNCH.subn(r"host_launch(\1, dim3(\2), dim3(\3), a);",
                           (_build.CSRC / "finish_slots.cu").read_text())
-    assert n == 2, n  # decide launches through cudaLaunchKernelEx
+    assert n == 2, n  # decide, and record given the holders, launch
+    # through cudaLaunchKernelEx
+    assert body.count(WAIT) == 1
+    body = body.replace(WAIT, HOST_WAIT)
     src = d / "finish_slots.cpp"
     src.write_text(body)
     so = d / "libfinish_slots.so"
@@ -206,6 +231,7 @@ def lib(tmp_path_factory):
     lib.finish_slots_error.argtypes = [ctypes.c_int]
     lib.finish_slots_error.restype = ctypes.c_char_p
     lib.finish_slots_host_programmatic.restype = ctypes.c_int
+    lib.finish_slots_host_wait_hook.argtypes = [WAIT_HOOK]
     return lib
 
 
@@ -385,3 +411,79 @@ def test_refused_arguments(on_host):
     ptrs[18] = ptrs[17]
     ptrs[27] = None  # one bank missing
     assert on_host.finish_record(table, 1, ptrs, ints, None) != 0
+
+
+def _settled(name, on_host):
+    """A case's step up to the spread's count, through the kernels (the
+    fire by its plain version), on one copy of its tensors and through
+    the plain versions on another: ``(cfg, got, want, (dec, st),
+    (dec_w, st_w))``."""
+    p, spec, c, cfg, derived = _case(name)
+    rx = torch.from_numpy(derived[1])
+    got, want = _step(p, spec, c, derived), _step(p, spec, c, derived)
+    dec = finish_slots.finish_decide(cfg, got)
+    dec_w = finish_slots.finish_decide_ref(cfg, want)
+    fired = finish.fire_timers_ref(got.heard, rx, dec.ok_mask, dec.refute)
+    fired_w = finish.fire_timers_ref(want.heard, rx, dec_w.ok_mask,
+                                     dec_w.refute)
+    st = finish_slots.finish_settle(cfg, got, fired)
+    st_w = finish_slots.finish_settle_ref(cfg, want, fired_w)
+    return cfg, got, want, (dec, st), (dec_w, st_w)
+
+
+@pytest.mark.parametrize("name", ["full_mixed", "sharded_2",
+                                  "all_expire", "wide"])
+def test_record_behind_the_count_waits(on_host, name):
+    """Record with the holders: a programmatic dependent launch that
+    writes nothing before its wait and reads the holders only after it.
+    At the wait (``host_griddep_wait``) every tensor of the step still
+    equals its value before the launch (so a dropped subject's member flag
+    is still what the count read), and only then are the holders written,
+    as the count's end would make them visible: ``n_hold`` holds garbage
+    until then.  The result equals the plain versions' field for field;
+    the case drops subjects and counts spread rows."""
+    cfg, got, want, (dec, st), (dec_w, st_w) = _settled(name, on_host)
+    assert got.hist is not None
+    n_hold_w = observe.heard_counts_ref(want.heard, want.member, cfg.budget,
+                                        st_w.verdict, st_w.spread)[
+                                            observe.HOLD]
+    n_hold_true = observe.heard_counts_ref(got.heard, got.member,
+                                           cfg.budget, st.verdict,
+                                           st.spread)[observe.HOLD]
+    n_hold = torch.full_like(n_hold_true, 0x7FFFFFFF)
+    before = [x.clone() for x in _leaves(got)]
+    member_before = got.member.clone()
+    seen = []
+
+    def at_wait():
+        seen.append(all(torch.equal(x, y)
+                        for x, y in zip(_leaves(got), before)))
+        n_hold.copy_(n_hold_true)
+
+    hook = WAIT_HOOK(at_wait)
+    on_host.finish_slots_host_wait_hook(hook)
+    n0 = on_host.finish_slots_host_programmatic()
+    try:
+        finish_slots.finish_record(cfg, got, dec, st, n_hold)
+    finally:
+        on_host.finish_slots_host_wait_hook(WAIT_HOOK())
+    assert on_host.finish_slots_host_programmatic() == n0 + 1
+    assert seen == [True], "record wrote before its wait"
+    finish_slots.finish_record_ref(cfg, want, dec_w, st_w, n_hold_w)
+    _same(_leaves(got), _leaves(want), f"{name} record")
+    assert bool((st.marks & finish_slots.DROPPED).any()), name
+    assert bool(st.spread.any()), name
+    assert bool((member_before & ~got.member).any()), name
+
+
+@pytest.mark.parametrize("name", ["full_bare", "sharded_8_bare"])
+def test_record_without_the_banks_is_a_plain_launch(on_host, name):
+    """Without the hist banks record follows settle, which writes its
+    inputs: a plain launch, equal to the plain version."""
+    cfg, got, want, (dec, st), (dec_w, st_w) = _settled(name, on_host)
+    assert got.hist is None
+    n0 = on_host.finish_slots_host_programmatic()
+    finish_slots.finish_record(cfg, got, dec, st)
+    assert on_host.finish_slots_host_programmatic() == n0
+    finish_slots.finish_record_ref(cfg, want, dec_w, st_w)
+    _same(_leaves(got), _leaves(want), f"{name} record")

@@ -54,17 +54,23 @@ def _quick_reference_compiles():
 def _reference_counts(heard, member, budget, verdict, want):
     """The three observers as the reference spells them (kernel.py
     ``_tx_bytes`` without its fanout, the spread's ``n_hold``, the trace's
-    ``n_heard_dead``/``n_heard_alive``), per row, and 0 in every count of
-    a row ``want`` leaves out."""
+    ``n_heard_dead``/``n_heard_alive``), per row, in the form ``verdict``
+    selects (with one, the holders alone; without, the others alone), and
+    0 in every count of a row ``want`` leaves out."""
     h, mem = jnp.asarray(heard), jnp.asarray(member)[None, :]
     msg = h >> jk._MSG_SHIFT
     dead = jnp.sum((msg == jk.MSG_DEAD) & mem, axis=1, dtype=jnp.int32)
     alive = jnp.sum((msg == jk.MSG_REFUTE) & mem, axis=1, dtype=jnp.int32)
     live = jnp.sum(((h >> jk._MSG_SHIFT) > 0)
                    & ((h & jk._AGE_MASK) < budget), axis=1, dtype=jnp.int32)
-    hold = jnp.sum(((h >> jk._MSG_SHIFT).astype(jnp.int32)
-                    == jnp.asarray(verdict)[:, None]) & mem, axis=1,
-                   dtype=jnp.int32)
+    zero = jnp.zeros_like(dead)
+    if verdict is None:
+        hold = zero
+    else:
+        hold = jnp.sum(((h >> jk._MSG_SHIFT).astype(jnp.int32)
+                        == jnp.asarray(verdict)[:, None]) & mem, axis=1,
+                       dtype=jnp.int32)
+        dead = alive = live = zero
     out = np.stack([np.asarray(x) for x in (dead, alive, live, hold)])
     return np.where(want[None, :], out, 0)
 
@@ -84,15 +90,17 @@ def test_plain_counts_match_reference_expressions(R, N, ndev):
                    for i in range(ndev))
     for budget in (1, 3, 7, 14):
         for want in (np.ones(R, bool), rng.random(R) < 0.4):
-            got = observe.count(shards if ndev > 1 else shards[0],
-                                torch.from_numpy(member), budget,
-                                torch.from_numpy(verdict),
-                                torch.from_numpy(want))
-            assert got.dtype == torch.int32
-            np.testing.assert_array_equal(
-                got.numpy(), _reference_counts(heard, member, budget,
-                                               verdict, want),
-                err_msg=f"budget={budget}")
+            for v in (verdict, None):
+                got = observe.count(shards if ndev > 1 else shards[0],
+                                    torch.from_numpy(member), budget,
+                                    None if v is None
+                                    else torch.from_numpy(v),
+                                    torch.from_numpy(want))
+                assert got.dtype == torch.int32
+                np.testing.assert_array_equal(
+                    got.numpy(), _reference_counts(heard, member, budget,
+                                                   v, want),
+                    err_msg=f"budget={budget}, verdict={v is not None}")
 
 
 # -- whole runs ----------------------------------------------------------------

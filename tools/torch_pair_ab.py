@@ -2,7 +2,9 @@
 the round on the 1M main path's data, as the checkout in the current
 directory runs them: the probe tick (the tick, its lanes and slot step,
 and the rearmed rows' wipe and the marks with no rearmed row and with
-three) and the dissemination tail followed by the finish step's decide.
+three), the dissemination tail followed by the finish step's decide, and
+the spread's count followed by the finish step's record with the hist
+banks (one slot expiring with its verdict).
 
     cd <checkout> && PYTHONPATH=. python3 <repo>/tools/torch_pair_ab.py
 
@@ -10,7 +12,9 @@ Run it in each checkout in turns (parent, change, change, parent) in one
 call.  It calls only entry points that every checkout since the probe
 tick's lanes and slot step merged has (``kernel._probe_tick``,
 ``probe.probe_lanes_slots``, ``fused.disseminate``,
-``finish_slots.finish_decide`` and ``decide``), and, for the wipe and the
+``finish_slots.finish_decide`` and ``decide``, ``finish_settle``,
+``finish_record`` and ``record``, ``observe.count``,
+``finish.fire_timers``), and, for the wipe and the
 marks, whichever form the checkout has: one launch of
 ``probe.probe_rearm_marks``, or ``finish.wipe_rows`` then
 ``probe.probe_marks``.  The data: every node a live member but 1,000 per
@@ -195,6 +199,66 @@ def tail_decide_times(ndev: int) -> dict:
             "pair_ms": graph_ms(pair)}
 
 
+def count_record_setup(ndev: int):
+    """The spread's count's and record's inputs on the main path's data
+    with the hist banks: slot 7 made DEAD past its GC window (its
+    subject's own byte DEAD), then decide, the fire and settle run, so
+    that the slot expires with its verdict and drops its subject.
+    Returns ``(cfg, t, dec, st, scratch)``."""
+    from consul_tpu_torch.gossip import finish, finish_slots, kernel, observe
+    from consul_tpu_torch.gossip.params import lan_profile
+    p = lan_profile(N, slots=S, hot_slots=0)
+    cfg = finish_slots.config(p, None)
+    ra = _row(p, 7)
+    rnd = int(ra.rnd)
+    mf, regs, son, heard = _main_state()
+    regs[1][7], regs[5][7] = 2, rnd - cfg.gc_rounds - 1
+    subject = int(regs[0][7])
+    heard[7, subject] = 0x80
+    fail = torch.where(mf < 0, NEVER, mf)
+    alive = fail > rnd
+    member = torch.ones(N, dtype=torch.bool, device="cuda")
+    cap = torch.zeros(S, dtype=torch.int32, device="cuda")
+    t = finish_slots.Step(
+        _shard(heard, ndev), ra.rnd,
+        torch.arange(S, dtype=torch.int32, device="cuda"),
+        (regs[0], regs[1], regs[4], regs[5]), cap, alive, member, fail,
+        son, torch.zeros(N, dtype=torch.int32, device="cuda"),
+        tuple(torch.zeros((), dtype=torch.int32, device="cuda")
+              for _ in range(4)), None, kernel.init_hist(device="cuda"))
+    scratch = observe.counts_scratch(S, "cuda")
+    torch.cuda.synchronize()
+    dec = finish_slots.finish_decide(cfg, t)
+    fired = finish.fire_timers(t.heard, alive & member, dec.ok_mask,
+                               dec.refute, scratch)
+    st = finish_slots.finish_settle(cfg, t, fired)
+    torch.cuda.synchronize()
+    return cfg, t, dec, st, scratch
+
+
+def count_record_times(ndev: int) -> dict:
+    """The spread's count (one row wanted) and record with the banks on
+    the main path's data, each alone, and the pair as the round runs it
+    (``observe.count``, then ``finish_slots.record`` on its holders)."""
+    from consul_tpu_torch.gossip import finish_slots, observe
+    cfg, t, dec, st, scratch = count_record_setup(ndev)
+
+    def count():
+        return observe.count(t.heard, t.member, cfg.budget, st.verdict,
+                             st.spread, scratch)[observe.HOLD]
+
+    n_hold = count()
+
+    def pair():
+        finish_slots.record(cfg, t, dec, st, count())
+
+    return {"rows_wanted": int(st.spread.sum()),
+            "count_ms": graph_ms(count),
+            "record_ms": graph_ms(lambda: finish_slots.finish_record(
+                cfg, t, dec, st, n_hold)),
+            "pair_ms": graph_ms(pair)}
+
+
 def card() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -213,6 +277,7 @@ def main() -> int:
     for ndev in (1, 8):
         out[f"probe/{ndev}"] = probe_times(ndev)
         out[f"tail_decide/{ndev}"] = tail_decide_times(ndev)
+        out[f"count_record/{ndev}"] = count_record_times(ndev)
     out["card_after"] = card()
     print(json.dumps(out), flush=True)
     return 0
