@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase finish        # that phase alone (A/B)
     python3 chip_smoke.py --phase probe         # that phase alone (A/B)
     python3 chip_smoke.py --phase finish_slots  # that phase alone (A/B)
+    python3 chip_smoke.py --phase branch        # branch_check alone
 
 Each phase prints one JSON line; any failure exits non-zero and the
 result lines are not printed.
@@ -168,8 +169,16 @@ result lines are not printed.
    count then record with the banks (record a programmatic dependent
    launch: ``_count_record_times``, ``pdl_record_check``, held against
    the plain versions and the kernels run apart, on a row whose dropped
-   subject's own byte is DEAD).  ``--phase finish_slots`` runs the
-   card line, the builds and this phase alone.
+   subject's own byte is DEAD); and the fire then settle (settle a
+   programmatic dependent launch behind the fire, its loads but ``fired``
+   before its wait: ``_fire_settle_times``, the fire alone, settle alone
+   and the pair; ``pdl_settle_check``, the pair in the joined graph on 1
+   and 8 shards, its ``fired`` buffer holding the opposite verdicts until
+   the fire writes it, held against the plain versions and the kernels
+   run apart, on 7 rows that die only through ``fired``; the
+   programmatic edge must be kept, one in the segment and one in the IF
+   body).  ``--phase finish_slots`` runs the card line, the builds and
+   this phase alone.
 7. full_path: ``run_rounds`` at n=16,000, S=64 (lan_profile, churn,
    loss, joins, flight ring, hist banks, trace) once on the card and
    once on the CPU (a worker process started with the script, which runs
@@ -195,6 +204,27 @@ result lines are not printed.
    on the card; every field must equal the card run of phase 7; merge
    launches = the non-quiescent rounds (one launch for all shards), none
    of fused_dissem; both the hot and the full tail must run.
+8b. branch_check: the round program's chooser node
+   (``csrc/round_graph.cu``'s ``choose_kernel``, one a branch group: the
+   tail's switch, the join tick's cond) alone, ``program.Chooser``,
+   against its plain version ``program.choose_ref`` (S 64, 32 and 1,024,
+   hot tier off and 8, n_active at 0, 8, hot, hot + 1 and S; a cond on
+   true and false; tolerance 0 in each branch's runs, ``branch_runs`` and
+   n_active), its graph's time beside the plain version's and the bytes
+   bound; then the graphed round against the eager round at n = 16,000,
+   S = 64, hot tier 8, 160 rounds through every tail, on 1 and 8 shards,
+   with and without join rounds: carry and trace bit-identical,
+   ``tail_rounds`` and ``join_rounds`` counted by the choosers on the
+   card equal to the eager host counts, the chooser launched once a
+   replayed round and once more with a join tick, and every captured
+   graph holding one chooser node per group (its only kernel nodes of
+   its own) and the groups' IF nodes, read from the runtime's
+   description of the graph.  Every path's launch gate holds the
+   chooser's launches to that count (none on the eager route);
+   round_program's profiled churn sees one ``choose_kernel`` a graphed
+   round and no ``set_condition``, and then times the node alone by the
+   profiler (a profiler session earlier in the process leaves later ones
+   blind to kernels in conditional bodies).
 9. main_path: ``lan_profile(1_000_000, slots=64, hot_slots=0)`` with
    bench.py's churn1000ppm failure stride — warm-up, timed blocks each
    ending in a device->host read; rounds/s, kernel launches (must equal
@@ -391,7 +421,10 @@ main paths as ``nemesis_launches``, in the crossval phase as
 store_bridge; for the draws' kernel, its launches on the nemesis main
 path, its time that path's gossip legs' drops [3, 1M]; for the round
 program, its graph launches on the churn main path and a graphed round's
-time against the eager round's; for the event flood, its launches on the
+time against the eager round's; for its chooser node, its launches on the
+churn main path, on 8 shards, on the 1M multi-DC path, on the plane and
+in crossval, its time alone and in the graphed churn round; for the event
+flood, its launches on the
 1M multi-DC paths, in the events phase and on the plane, its time at
 [32, 250,000] and [64, 1M]; for the observers' counts, their launches on
 the 1M churn path with the observers threaded, on 8 shards, on the plane
@@ -2869,16 +2902,18 @@ def _tail_decide_times(ndev: int) -> dict:
                 cfg, t._replace(heard=tail())))}
 
 
-def _joined_graph_run(capture, warm, check) -> dict:
+def _joined_graph_run(capture, warm, check, before=None) -> dict:
     """``capture()`` captured by ``torch.cuda.graph`` into a segment
     graph (``warm()`` run first on a side stream), the segment joined
     under an IF node on a true predicate as ``round_graph_build`` joins
-    the round's (``round_graph_edges``: the edges of the segment and of
-    the child graph in the IF node's body, by type), instantiated and
-    launched; ``check(out)`` then holds ``capture``'s output and raises
-    on a difference.  Returns the edges, whether it instantiated,
-    launched and held, and whether the programmatic edge was kept; a
-    refusal is returned with its CUDA error."""
+    the round's (``round_graph_edges``: the chooser node of a cond, then
+    the IF node; the edges of the segment and of the child graph in the IF
+    node's body, by type), instantiated and launched (``before(out)``,
+    where given, first: it may write the capture's output buffers);
+    ``check(out)`` then holds ``capture``'s output and raises on a
+    difference.  Returns the edges, whether it instantiated, launched and
+    held, and whether the programmatic edge was kept; a refusal is
+    returned with its CUDA error."""
     from consul_tpu_torch.gossip import program
     lib = program._lib()
     side = torch.cuda.Stream()
@@ -2903,6 +2938,9 @@ def _joined_graph_run(capture, warm, check) -> dict:
            "cuda_error": None if rc == 0
            else lib.round_graph_error(rc).decode()}
     if rc == 0:
+        if before is not None:
+            before(out)
+            torch.cuda.synchronize()
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.round_graph_launch(exe, stream)
         torch.cuda.synchronize()
@@ -3063,6 +3101,99 @@ def pdl_record_check(ndev: int) -> dict:
                 lambda: _count_record(cfg, warm, dec, st, scratch), check)}
 
 
+def _fire_settle_inputs(ndev: int):
+    """The fire's and settle's inputs as the round gives them: the 1M main
+    path's data (``_finish_slots_main_inputs``) with the timers of slots
+    0-6 (SUSPECT on failed nodes) run out, so that those rows die only
+    through the fire's ``fired``, and decide run on it.  Returns ``(cfg,
+    t, dec, rx, scratch)``."""
+    from consul_tpu_torch.gossip import finish_slots as fs, observe
+    cfg, t, rx = _finish_slots_main_inputs(ndev, False)
+    t.slots[2][:7] = int(t.rnd) - cfg.tbl[0]
+    scratch = observe.counts_scratch(cfg.S, "cuda")
+    torch.cuda.synchronize()  # decide loads before it waits
+    dec = fs.finish_decide(cfg, t)
+    torch.cuda.synchronize()
+    return cfg, t, dec, rx, scratch
+
+
+def _fire_settle(cfg, t, dec, rx, scratch):
+    """The fire then settle, as the round runs them (``finish.fire``,
+    ``finish_slots.settle``): ``(fired, settled)``."""
+    from consul_tpu_torch.gossip import finish, finish_slots as fs
+    fired = finish.fire(t.heard, rx, dec.ok_mask, dec.refute, scratch)
+    return fired, fs.settle(cfg, t, fired)
+
+
+def _fire_settle_times(ndev: int) -> dict:
+    """The fire alone, settle alone (back-to-back programmatic launches)
+    and the pair as the round runs it (``_fire_settle``), on
+    ``_fire_settle_inputs`` (CUDA-graph replays, the state carried: after
+    the first fire its rows are DEAD, and the fire reads them and changes
+    nothing)."""
+    from consul_tpu_torch.gossip import finish, finish_slots as fs
+    cfg, t, dec, rx, scratch = _fire_settle_inputs(ndev)
+    fired = finish.fire_timers(t.heard, rx, dec.ok_mask, dec.refute,
+                               scratch)
+    torch.cuda.synchronize()
+    return {"fire_ms": graph_ms(lambda: finish.fire_timers(
+                t.heard, rx, dec.ok_mask, dec.refute, scratch)),
+            "settle_ms": graph_ms(lambda: fs.finish_settle(cfg, t, fired)),
+            "pair_ms": graph_ms(lambda: _fire_settle(cfg, t, dec, rx,
+                                                     scratch))}
+
+
+def pdl_settle_check(ndev: int) -> dict:
+    """Whether the round's graph keeps settle's programmatic edge behind
+    the fire, and whether settle waits for the fire: the pair
+    (``_fire_settle``) in the joined graph (``_joined_graph_run``), its
+    ``fired`` buffer written with the opposite of each row's verdict just
+    before the launch, so that a settle that read ``fired`` before the
+    fire ended would give other verdicts; ``fired``, settle's outputs and
+    every field held against the plain versions and against the kernels
+    run apart with the card synchronised between them, tolerance 0, on
+    ``_fire_settle_inputs`` (7 rows that die only through ``fired``).
+    Raises if the pair apart or the joined graph, where it ran,
+    disagrees."""
+    from consul_tpu_torch.gossip import finish, finish_slots as fs
+    cfg, t, dec, rx, scratch = _fire_settle_inputs(ndev)
+    want = _fs_copy(t)
+    fired_w = finish.fire_timers_ref(want.heard, rx, dec.ok_mask,
+                                     dec.refute)
+    st_w = fs.finish_settle_ref(cfg, want, fired_w)
+    new = int(((st_w.marks & fs.NEW_VERDICT) != 0).sum())
+    if int(fired_w.sum()) < 7 or new < 7:
+        raise AssertionError(f"pdl_settle_check {ndev}: {int(fired_w.sum())}"
+                             f" rows fire, {new} new verdicts; 7 expected")
+    outs_w = [fired_w, *(x for x in st_w if x is not None)]
+    apart = _fs_copy(t)
+    fired_a = finish.fire_timers(apart.heard, rx, dec.ok_mask, dec.refute,
+                                 scratch)
+    torch.cuda.synchronize()
+    st_a = fs.finish_settle(cfg, apart, fired_a)
+    torch.cuda.synchronize()
+    _all_equal(f"pdl_settle_check {ndev}: the fire and settle apart != "
+               f"plain", [*_fs_leaves(apart), fired_a,
+                          *(x for x in st_a if x is not None)],
+               [*_fs_leaves(want), *outs_w])
+    got, warm = _fs_copy(t), _fs_copy(t)
+
+    def check(res):
+        fired, st = res
+        _all_equal(f"pdl_settle_check {ndev}: the joined graph's fire and "
+                   f"settle != plain",
+                   [*_fs_leaves(got), fired,
+                    *(x for x in st if x is not None)],
+                   [*_fs_leaves(want), *outs_w])
+
+    return {"ndev": ndev, "fired_rows": int(fired_w.sum()),
+            "new_verdicts": new,
+            **_joined_graph_run(
+                lambda: _fire_settle(cfg, got, dec, rx, scratch),
+                lambda: _fire_settle(cfg, warm, dec, rx, scratch), check,
+                before=lambda res: res[0].copy_(~fired_w))}
+
+
 def finish_slots_phase(card_line: str, seeds: int = 32) -> dict:
     """The finish step's slot kernels (``csrc/finish_slots.cu``:
     ``finish_decide``, ``finish_settle``, ``finish_record``, with the fire
@@ -3112,10 +3243,16 @@ def finish_slots_phase(card_line: str, seeds: int = 32) -> dict:
                 for ndev in (1, 8)})
     count_record = {f"1m/{ndev}": _count_record_times(ndev)
                     for ndev in (1, 8)}
+    # And the fire then settle (settle programmatic behind the fire).
+    pdl.update({f"fire_settle/1m/{ndev}": pdl_settle_check(ndev)
+                for ndev in (1, 8)})
+    fire_settle = {f"1m/{ndev}": _fire_settle_times(ndev)
+                   for ndev in (1, 8)}
     res = {"phase": "finish_slots", "card": card_line, "tolerance": 0,
            "max_abs_err": 0, "steps_held": held, "seeds": seeds,
            "states_with": seen, "cases": rows, "main": main,
-           "tail_decide": pair, "count_record": count_record, "pdl": pdl,
+           "tail_decide": pair, "count_record": count_record,
+           "fire_settle": fire_settle, "pdl": pdl,
            "seconds": time.perf_counter() - t0}
     emit(res)
     if not all(seen.values()):
@@ -3124,8 +3261,16 @@ def finish_slots_phase(card_line: str, seeds: int = 32) -> dict:
     for key, r in pdl.items():
         if r["instantiated"] and not r.get("launched"):
             raise AssertionError(f"finish_slots: the joined graph with "
-                                 f"decide's edge did not launch ({key}): "
-                                 f"{r}")
+                                 f"a programmatic edge did not launch "
+                                 f"({key}): {r}")
+        # Settle's edge: one in the captured segment, one in the IF
+        # node's body, and the graph ran and held.
+        if key.startswith("fire_settle/") and not (
+                r["kept"] and r.get("held")
+                and r["segment_programmatic_edges"] == 1
+                and r["if_body_programmatic_edges"] == 1):
+            raise AssertionError(f"finish_slots: settle's programmatic "
+                                 f"edge was not kept ({key}): {r}")
     return res
 
 
@@ -3240,6 +3385,9 @@ def _reset_counts() -> None:
     _settle()
     program.launches = 0
     program.copy_bytes = 0
+    program.choose_launches = 0
+    program.round_replays = 0
+    program.join_replays = 0
     events.launches = 0
     observe.launches = 0
     finish.launches = 0
@@ -3316,12 +3464,18 @@ def _round_counts() -> dict:
     round (the slot GC; the probe tick's rearm wipe is inside
     ``probe_rearm_marks``); each of ``probe.cu``'s two kernels once a
     round (of every pool); each of ``finish_slots.cu``'s three kernels
-    once a non-quiescent round."""
-    from consul_tpu_torch.gossip import finish, finish_slots, kernel, probe
+    once a non-quiescent round; the round program's chooser node
+    (``round_graph.cu``) once a replayed round for its tail and once more
+    where it has a join tick, none in an eager round."""
+    from consul_tpu_torch.gossip import (finish, finish_slots, kernel, probe,
+                                         program)
     _settle()
     t = kernel.tail_rounds
     busy = t["hot"] + t["full"]
-    return {"fire_launches": finish.fire_launches,
+    return {"choose_launches": program.choose_launches,
+            "choose_launches_expected": program.round_replays
+            + program.join_replays,
+            "fire_launches": finish.fire_launches,
             "wipe_launches": finish.wipe_launches,
             "fire_launches_expected": busy,
             "wipe_launches_expected": kernel.join_rounds + busy,
@@ -3338,7 +3492,8 @@ def _round_counts() -> dict:
 def _round_bad(c: dict) -> bool:
     """Whether ``_round_counts``' launches are not exactly what the rounds
     make them, or none were made where the rounds make some."""
-    return (c["fire_launches"] != c["fire_launches_expected"]
+    return (c["choose_launches"] != c["choose_launches_expected"]
+            or c["fire_launches"] != c["fire_launches_expected"]
             or c["wipe_launches"] != c["wipe_launches_expected"]
             or (c["wipe_launches"] == 0
                 and c["wipe_launches_expected"] != 0)
@@ -3351,8 +3506,9 @@ def _round_bad(c: dict) -> bool:
 
 
 def _round_gate(what: str) -> dict:
-    """Raises unless the fire pass's, the wipe's, the probe kernels' and
-    the finish step's slot kernels' launches are exactly what the rounds
+    """Raises unless the chooser's, the fire pass's, the wipe's, the
+    probe kernels' and the finish step's slot kernels' launches are
+    exactly what the rounds
     run since the last ``_reset_counts`` make them (``_round_counts``),
     and some were made."""
     c = _round_counts()
@@ -3622,6 +3778,243 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
 # window and rounds on both sides of it (kills at round 30 or 40,
 # asym_loss from 20, partition_heal [40, 160), flapping [30, 310): two
 # down phases and two rejoins).
+# The round program's chooser node (``csrc/round_graph.cu``) alone:
+# (S, hot_slots) of the 1M main path, the multi-DC LAN pools (hot tier 8),
+# the WAN pool's 32 slots and the widest a program takes.
+CHOOSE_SHAPES = ((64, 0), (64, 8), (32, 0), (1024, 0), (1024, 8))
+# branch_check: graphed rounds against eager ones through every branch.
+BRANCH = dict(n=16_000, S=64, hot=8, steps=160, seed=19)
+
+
+def _choose_slots(S: int, n: int, seed: int) -> torch.Tensor:
+    """slot_node [S] on the card with n live slots at random places."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    node = torch.full((S,), -1, dtype=torch.int32, device="cuda")
+    node[torch.randperm(S, device="cuda", generator=g)[:n]] = torch.randint(
+        0, 1_000_000, (n,), device="cuda", dtype=torch.int32, generator=g)
+    return node
+
+
+def _main_chooser():
+    """The chooser node alone on the 1M main path's choice (S = 64, 8
+    live, the hot tier off), counting into a run vector of its own."""
+    from consul_tpu_torch.gossip import kernel, program
+    c = kernel.Choice(_choose_slots(64, 8, seed=1), 2)
+    runs = torch.zeros(program.MAX_BRANCHES, dtype=torch.int64,
+                       device="cuda")
+    n_a = torch.zeros((), dtype=torch.int32, device="cuda")
+    return c, runs, n_a, program.Chooser(c, runs, [0, 1], n_a)
+
+
+def choose_alone_ms(launches: int = 200) -> dict:
+    """The chooser node's own device time on the main path's choice: the
+    profiler's ``choose_kernel`` rows over ``launches`` launches of its
+    graph.  Run after the round_program phase's profiles: a profiler
+    session early in the process left the later ones blind to the kernels
+    in conditional bodies (the graphs instantiated meanwhile)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from consul_tpu_torch.profile_round import device_kernels, self_device_us
+    *_, one = _main_chooser()
+    try:
+        for _ in range(10):
+            one.launch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                one.launch()
+            torch.cuda.synchronize()
+    finally:
+        one.close()
+    rows = [e for e in device_kernels(prof) if "choose_kernel" in e.key]
+    seen = sum(e.count for e in rows)
+    return {"ms": sum(self_device_us(e) for e in rows) / 1e3 / max(seen, 1),
+            "kernels_profiled": seen, "launches": launches}
+
+
+def choose_vs_plain() -> dict:
+    """The chooser node alone (``program.Chooser``: the node and its
+    group's IF nodes, as the round's graph places them, each body adding
+    one to its branch's run) against its plain version
+    (``program.choose_ref``) on the card, tolerance 0 in the runs of each
+    branch, ``branch_runs`` and n_active: every ``CHOOSE_SHAPES`` entry at
+    n_active 0, 8, ``hot``, ``hot + 1`` and S, and a cond's group on a
+    true and a false bool.  On the 1M main path's choice (S = 64, 8 live,
+    hot tier off) its graph's time (the node and the group's IF nodes,
+    CUDA events over 200 launches; its own, ``choose_alone_ms``, comes
+    after round_program) beside the plain version's (CUDA-graph replays)
+    and the bytes bound (slot_node read, the count and the run
+    written)."""
+    from consul_tpu_torch.gossip import kernel, program
+    held = 0
+    for S, hot in CHOOSE_SHAPES:
+        k = 3 if hot else 2
+        bids = [5, 1, 3][:k]
+        for n in sorted({0, 8, hot, hot + 1, S} & set(range(S + 1))):
+            c = kernel.Choice(_choose_slots(S, n, seed=S + 7 * n), k, hot)
+            runs, runs_w = (torch.zeros(8, dtype=torch.int64, device="cuda")
+                            for _ in range(2))
+            n_a, n_w = (torch.full((), -1, dtype=torch.int32, device="cuda")
+                        for _ in range(2))
+            ran = program.choose(c, runs, bids, n_a)
+            ran_w = program.choose_ref(c, runs_w, bids, n_w)
+            torch.cuda.synchronize()
+            if not (torch.equal(ran, ran_w) and torch.equal(runs, runs_w)
+                    and torch.equal(n_a, n_w) and int(ran.sum()) == 1):
+                raise AssertionError(
+                    f"choose (S={S}, hot={hot}, n_active={n}): ran "
+                    f"{ran.tolist()} runs {runs.tolist()} n {int(n_a)}; "
+                    f"plain {ran_w.tolist()} {runs_w.tolist()} {int(n_w)}")
+            held += 1
+    for b in (True, False):
+        pred = torch.tensor(b, device="cuda")
+        runs, runs_w = (torch.zeros(4, dtype=torch.int64, device="cuda")
+                        for _ in range(2))
+        ran = program.choose(kernel.Choice(pred, 1), runs, [2])
+        ran_w = program.choose_ref(kernel.Choice(pred, 1), runs_w, [2])
+        if not (torch.equal(ran, ran_w) and torch.equal(runs, runs_w)):
+            raise AssertionError(f"choose (a cond on {b}): {ran.tolist()} "
+                                 f"{runs.tolist()}")
+        held += 1
+    c, runs, n_a, one = _main_chooser()
+    try:
+        for _ in range(10):
+            one.launch()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(200):
+            one.launch()
+        end.record()
+        end.synchronize()
+        graph = start.elapsed_time(end) / 200
+    finally:
+        one.close()
+    plain = graph_ms(lambda: program.choose_ref(c, runs, [0, 1], n_a))
+    bound_bytes = 4 * 64 + 4 + 2 * 8
+    return {"held": held, "tolerance": 0, "max_abs_err": 0, "S": 64,
+            "n_active": 8, "graph_ms": graph, "plain_ms": plain,
+            "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bound_bytes": bound_bytes}
+
+
+def _branch_inputs(n: int, steps: int, seed: int, join: bool):
+    """Failures that take the round through every tail: none live for
+    the first rounds (quiescent), one at a time from round 10 (the hot
+    tier's at most 8), then 24 at once at round 60 (full); with ``join``
+    12 pending joiners as well (join rounds)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(n)
+    fail = np.full(n, NEVER, np.int32)
+    fail[ids[:4]] = [10, 14, 18, 22]
+    fail[ids[4:28]] = 60
+    jr = None
+    member0 = np.ones(n, bool)
+    if join:
+        jr = np.full(n, NEVER, np.int32)
+        jr[ids[28:40]] = rng.integers(5, steps // 2, 12)
+        member0 = jr == NEVER
+    return fail, jr, member0
+
+
+def branch_check(card_line: str, n: int, S: int, hot: int, steps: int,
+                 seed: int) -> dict:
+    """The branch choice on the card: the chooser node alone against its
+    plain version (``choose_vs_plain``), then the graphed round (the
+    chooser node a branch group) against the eager round (``graphed=
+    False``, the host reading ``which``) from one state, with the flight
+    ring, hist banks and trace threaded, at n = 16,000, S = 64 with the
+    hot tier's 8 slots, on 1 and 8 shards, with and without join rounds:
+    every field and the trace bit-identical (tolerance 0), every tail
+    (quiescent, hot, full) taken and, with joins, the join tick; the
+    graphed rounds' ``tail_rounds`` and ``join_rounds``, which the
+    choosers count on the card (``branch_runs``), equal to the eager
+    route's host counts; the chooser's launches one a replayed round and
+    one more with a join tick; and every captured graph of the run
+    holding one chooser node per branch group (its only kernel nodes of
+    its own) and the groups' IF nodes, read from the runtime's
+    description of the graph (``round_graph_dot``: ``choose_kernel`` by
+    name, no ``set_condition``)."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import kernel, program
+    from consul_tpu_torch.gossip.params import lan_profile
+
+    t0 = time.perf_counter()
+    alone = choose_vs_plain()
+    p = lan_profile(n, slots=S, hot_slots=hot, dissem="fused")
+    rows, bad = {}, []
+    for ndev in (1, 8):
+        for join in (False, True):
+            fail, jr, member0 = _branch_inputs(n, steps, seed, join)
+            out = {}
+            for graphed in (False, True):
+                _reset_counts()
+                st = kernel.init_state(p, device="cuda")._replace(
+                    member=torch.from_numpy(member0).cuda())
+                kw = dict(trace=True, join_round=jr,
+                          flight=kernel.init_flight(device="cuda"),
+                          hist=kernel.init_hist(device="cuda"),
+                          device="cuda", graphed=graphed)
+                if ndev == 1:
+                    res = kernel.run_rounds(st, prng.key(seed), fail, p,
+                                            steps, **kw)
+                else:
+                    res = kernel.run_rounds_sharded(
+                        st, prng.key(seed), fail, p, steps, ndev=ndev, **kw)
+                _settle()
+                out[graphed] = (res, dict(kernel.tail_rounds),
+                                kernel.join_rounds, _round_counts())
+            (ec, etr), etails, ejoins, ecounts = out[False]
+            (gc, gtr), gtails, gjoins, gcounts = out[True]
+            diverged = _diverged(list(zip(ec, gc)) + [(etr, gtr)])
+            groups = 1 + join
+            dot = ROOT / "build" / "round_graph.dot"
+            graphs = [g.described(dot)
+                      for q in list(program._programs.values())
+                      if isinstance(q, program.RoundProgram) and q.p == p
+                      and (q.sc is None) == (ndev == 1)
+                      and (q.join is not None) == join
+                      for g in q.graphs.values()]
+            want = {"kernel": groups, "chooser": groups,
+                    "conditional": 3 + join, "set_condition": False}
+            key = f"ndev{ndev}/{'join' if join else 'no_join'}"
+            rows[key] = {
+                "diverged": diverged, "tail_rounds_eager": etails,
+                "tail_rounds_graphed": gtails, "join_rounds_eager": ejoins,
+                "join_rounds_graphed": gjoins,
+                "choose_launches": gcounts["choose_launches"],
+                "choose_launches_expected":
+                    gcounts["choose_launches_expected"],
+                "eager_choose_launches": ecounts["choose_launches"],
+                "graphs": len(graphs), "graph_nodes": graphs}
+            if diverged:
+                bad.append(f"{key}: diverged in {diverged}")
+            if gtails != etails or gjoins != ejoins:
+                bad.append(f"{key}: graphed tails {gtails} joins {gjoins} "
+                           f"!= eager {etails} {ejoins}")
+            if min(etails.values()) == 0 or (join and ejoins == 0):
+                bad.append(f"{key}: a branch never taken: {etails}, "
+                           f"{ejoins} join rounds")
+            if gcounts["choose_launches"] != steps * groups \
+                    or _round_bad(gcounts) or _round_bad(ecounts) \
+                    or ecounts["choose_launches"] != 0:
+                bad.append(f"{key}: launches graphed {gcounts}, eager "
+                           f"{ecounts}")
+            if not graphs or any(g != want for g in graphs):
+                bad.append(f"{key}: graph nodes {graphs}, each should hold "
+                           f"{want}")
+    res = {"phase": "branch_check", "card": card_line, "n": n, "slots": S,
+           "hot_slots": hot, "steps": steps, "tolerance": 0,
+           "choose": alone, "cases": rows,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if bad or kernel._recorder is not None:
+        raise AssertionError(f"branch_check: {bad}")
+    return res
+
+
 NEM_STEPS = {"block_kill": 150, "zone_kill": 150, "partition_heal": 180,
              "asym_loss": 100, "flapping": 320, "degraded_observer": 150}
 NEM = dict(n=16_000, S=64, seed=13)
@@ -3921,18 +4314,18 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
     behind the kernel before it once), and the card's idle share by each,
     over RP_PROFILED rounds of the route (after a warm call), with the
     flight ring, hist banks and trace threaded or not (``observers``).
-    Also the tail's, the draws', the observers', the finish step's and
-    the probe tick's kernels as the profiler saw them run
+    Also the tail's, the draws', the observers', the finish step's, the
+    probe tick's and the chooser's kernels as the profiler saw them run
     (``tail_kernel``, ``draw_kernel``, ``counts_kernel``, ``finish::``,
-    ``probe::``) beside the launches the wrappers counted for the same
-    rounds (``fused.launches``, ``prng.launches``, ``observe.launches``,
-    ``finish``'s, ``probe.launches``, settled); the caller holds them
-    equal."""
+    ``probe::``, ``choose_kernel``) beside the launches the wrappers
+    counted for the same rounds (``fused.launches``, ``prng.launches``,
+    ``observe.launches``, ``finish``'s, ``probe.launches``,
+    ``program.choose_launches``, settled); the caller holds them equal."""
     from torch.profiler import ProfilerActivity, profile
 
     from consul_tpu_torch import prng
     from consul_tpu_torch.gossip import (finish, finish_slots, fused, kernel,
-                                         observe, probe)
+                                         observe, probe, program)
     from consul_tpu_torch.profile_round import (device_kernels,
                                                 device_timeline,
                                                 self_device_us)
@@ -3956,6 +4349,7 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
     fire0, wipe0 = finish.fire_launches, finish.wipe_launches
     probe0 = probe.launches
     slots0 = finish_slots.launches
+    choose0 = program.choose_launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3990,6 +4384,13 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
             "probe_launches_counted": probe.launches - probe0,
             "finish_slots_kernels_profiled": seen("finish_slots::"),
             "finish_slots_launches_counted": finish_slots.launches - slots0,
+            "choose_kernels_profiled": seen("round_graph::choose_kernel"),
+            "choose_launches_counted": program.choose_launches - choose0,
+            "set_condition_kernels_profiled": seen("set_condition"),
+            "choose_device_ms_per_round": sum(
+                self_device_us(e) for e in rows
+                if "round_graph::choose_kernel" in e.key) / 1e3
+            / RP_PROFILED,
             "finish_slots_device_ms_per_round": sum(
                 self_device_us(e) for e in rows
                 if "finish_slots::" in e.key) / 1e3 / RP_PROFILED,
@@ -4114,9 +4515,26 @@ def round_program_phase(card_line: str) -> dict:
                           for k in ("tail", "draw", "fire", "wipe", "probe",
                                     "finish_slots")]
                 if route == "graphed":
+                    # The chooser node: one a replayed round (no join
+                    # round here), none eagerly; no set_condition left.
+                    checks += [(route, prof, "choose")]
                     checks += [("graphed_observers", obs, k)
                                for k in ("tail", "draw", "observe", "fire",
-                                         "wipe", "probe", "finish_slots")]
+                                         "wipe", "probe", "finish_slots",
+                                         "choose")]
+                    for label, pr in ((route, prof),
+                                      ("graphed_observers", obs)):
+                        if pr["choose_kernels_profiled"] != RP_PROFILED \
+                                or pr["set_condition_kernels_profiled"]:
+                            bad.append(f"{name} {label}: "
+                                       f"{pr['choose_kernels_profiled']} "
+                                       f"chooser kernels in {RP_PROFILED} "
+                                       f"rounds, "
+                                       f"{pr['set_condition_kernels_profiled']}"
+                                       f" set_condition")
+                elif prof["choose_kernels_profiled"] \
+                        or prof["choose_launches_counted"]:
+                    bad.append(f"{name} eager: a chooser ran")
                 for label, pr, k in checks:
                     seen = pr[f"{k}_kernels_profiled"]
                     counted = pr[f"{k}_launches_counted"]
@@ -4160,6 +4578,7 @@ def round_program_phase(card_line: str) -> dict:
     res = {"phase": "round_program", "card": card_line, "n": 1_000_000,
            "slots": 64, "rounds": total, "cases": rows,
            "gathers_vs_views": _gathers_vs_views(),
+           "choose_alone": choose_alone_ms(),
            "seconds": time.perf_counter() - t0}
     emit(res)
     if bad or kernel._recorder is not None:
@@ -6294,6 +6713,37 @@ def _round_graph_row(rp: dict, churn: dict) -> dict:
                 case["graphed"]["device_kernels_per_round"]}
 
 
+def _choose_row(branch: dict, churn: dict, sharded: dict, rp: dict,
+                mdc1: dict, plane1: dict, cross: dict) -> dict:
+    """The kernels line's entry of the round program's chooser node
+    (``round_graph.cu``'s ``choose_kernel``), which replaces the
+    reference's branch choice on the live slots (``n_active`` and the
+    conds on it, ``consul_tpu/gossip/kernel.py:1070-1078``): launches on
+    the churn main path (one a graphed round), on 8 shards, on the 1M
+    multi-DC path (every pool's), on the plane and in crossval; its own
+    time (the profiler's, the node alone on the main path's choice, taken
+    in round_program) and its graph's with the group's IF nodes, the plain version's, the bytes
+    bound, and the device ms a round the profiler saw it take in the
+    graphed churn round."""
+    alone = branch["choose"]
+    return {"name": "choose_kernel", "route": "cuda",
+            "source": "consul_tpu_torch/csrc/round_graph.cu",
+            "replaces": "consul_tpu/gossip/kernel.py:1070",
+            "launches": churn["choose_launches"],
+            "sharded_launches": sharded["choose_launches"],
+            "multidc_launches": mdc1["choose_launches"],
+            "plane_launches": plane1["choose_launches"],
+            "crossval_launches": cross["choose_launches"],
+            "max_abs_err": alone["max_abs_err"],
+            "ms": rp["choose_alone"]["ms"],
+            "graph_ms": alone["graph_ms"], "plain_ms": alone["plain_ms"],
+            "bound_ms": alone["bound_ms"], "bound_by": alone["bound_by"],
+            "round_device_ms": rp["cases"]["churn"]["graphed"][
+                "choose_device_ms_per_round"],
+            # No one PyTorch call makes a graph's branch choice.
+            "library_ms": None}
+
+
 def _flood_row(flood: dict, mdc1: dict, mdc8: dict, ev: dict,
                plane1: dict) -> dict:
     """The kernels line's entry of the event flood (``csrc/event_flood.cu``),
@@ -6507,6 +6957,10 @@ def _finish_slots_rows(fslots: dict, churn: dict, sharded: dict,
     rows[2]["count_record_pair_ms"] = \
         fslots["count_record"]["1m/1"]["pair_ms"]
     rows[2]["pdl_edge_kept"] = fslots["pdl"]["count_record/1m/1"]["kept"]
+    # Settle behind the fire, the same.
+    rows[1]["fire_settle_pair_ms"] = fslots["fire_settle"]["1m/1"]["pair_ms"]
+    rows[1]["fire_alone_ms"] = fslots["fire_settle"]["1m/1"]["fire_ms"]
+    rows[1]["pdl_edge_kept"] = fslots["pdl"]["fire_settle/1m/1"]["kept"]
     return rows
 
 
@@ -6590,9 +7044,19 @@ def finish_slots_only() -> int:
     return 0
 
 
+def branch_only() -> int:
+    """``--phase branch``: the card line, every build (the round runs every
+    kernel) and the branch_check phase."""
+    card_line = card()
+    build()
+    branch_check(card_line, **BRANCH)
+    emit({"phase": "choose_alone", **choose_alone_ms()})
+    return 0
+
+
 PHASES_ALONE = {"event_flood": flood_only, "observe": observe_only,
                 "finish": finish_only, "probe": probe_only,
-                "finish_slots": finish_slots_only}
+                "finish_slots": finish_slots_only, "branch": branch_only}
 
 
 def main() -> int:
@@ -6609,7 +7073,7 @@ def main() -> int:
         if len(sys.argv) != 3 or sys.argv[1] != "--phase" \
                 or sys.argv[2] not in PHASES_ALONE:
             print("usage: chip_smoke.py [--phase "
-                  "event_flood|observe|finish|probe|finish_slots]",
+                  "event_flood|observe|finish|probe|finish_slots|branch]",
                   file=sys.stderr)
             return 2
         try:
@@ -6680,6 +7144,7 @@ def main() -> int:
         single = full_path(cpu_full, **FULL_PATH)
         sharded_full_path(single, **FULL_PATH)
         del single
+        branch = branch_check(card_line, **BRANCH)
         nemesis_full_path(cpu_nem, **NEM)
         cross = crossval_phase(pool, cpu_seed0)
         # The device store's CPU sides, once the crossval phase's oracle
@@ -6846,6 +7311,7 @@ def main() -> int:
         "share_of_bound": tf["summary"]["main_path_bound_ms"]
         / tf["summary"]["main_path_ms"],
         "library_ms": None}, _round_graph_row(rp, churn),
+        _choose_row(branch, churn, sharded, rp, mdc1, plane1, cross),
         _flood_row(flood, mdc1, mdc8, ev, plane1),
         _observe_row(counts, obs1, obs8, rp, plane1, cross),
         *_finish_rows(fin, churn, sharded, plane1, cross, mdc1, rp),

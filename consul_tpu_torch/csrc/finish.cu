@@ -159,6 +159,14 @@ __device__ __forceinline__ void fence_acquire() {
 #endif
 }
 
+// Lets the launch that depends on this one programmatically start
+// (griddepcontrol.launch_dependents); nothing where none follows.
+__device__ __forceinline__ void trigger_dependents() {
+#ifdef __CUDA_ARCH__
+  asm volatile("griddepcontrol.launch_dependents;");
+#endif
+}
+
 // A mark that several threads of a block may set at once (each writes 1).
 __device__ __forceinline__ void mark(uint8_t* p) {
 #ifdef __CUDA_ARCH__
@@ -619,6 +627,9 @@ fire_kernel(const __grid_constant__ Args a) {
   __shared__ int s_last;
   const int t = static_cast<int>(threadIdx.x);
   const int b = static_cast<int>(blockIdx.x);
+  // The launch after this one (the round's settle) may start: it loads
+  // what the fire does not write, then waits for the fire to end.
+  trigger_dependents();
   const int n_live = list_rows<true>(a, s_list, s_ref_col);
 
   // The refutation byte of a row that is not listed: one byte, by one
@@ -746,9 +757,12 @@ extern "C" long long fire_timers_scratch_words(int R) {
 // the refutation, both or neither null; fired: one byte per row, written
 // whole; scratch: at least fire_timers_scratch_words(R) uint32 words,
 // 4-byte aligned, zero (and left zero; one launch at a time may use it).
-// Any alignment of the shards and rx.  Launches on `stream`, does not
-// synchronise, returns cudaGetLastError() after the launch (or
-// cudaErrorInvalidValue for arguments it does not take).
+// Any alignment of the shards and rx.  Each block triggers
+// griddepcontrol.launch_dependents as it starts, so a programmatic
+// dependent launch behind it (the round's settle, finish_slots.cu) may
+// start then.  Launches on `stream`, does not synchronise, returns
+// cudaGetLastError() after the launch (or cudaErrorInvalidValue for
+// arguments it does not take).
 extern "C" int fire_timers(void* const* shards, int ndev, const void* rx,
                            const void* ok, const void* col, const void* rb,
                            void* fired, void* scratch, int R, int L,

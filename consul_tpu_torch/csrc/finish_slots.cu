@@ -65,7 +65,8 @@
 //      segment graph, the child graph and the IF node's body
 //      (chip_smoke.py --phase finish_slots reads the joined graph's
 //      edges).
-//   2. fire_timers (finish.cu): the refutation byte, the fire, fired [H].
+//   2. fire_timers (finish.cu): the refutation byte, the fire, fired [H];
+//      it triggers griddepcontrol.launch_dependents as it starts.
 //   3. settle_kernel: where fired, the slot becomes DEAD (its dead round
 //      rnd where it had none: a new verdict); a new verdict counts as a
 //      detection (its subject failed by rnd; the rounds since added) or a
@@ -73,7 +74,19 @@
 //      8 rounds, or the slot's TTL ran out).  Out: the expired flags a
 //      row (the wipe's), the row's marks (detected, new verdict, a dead
 //      subject dropped) and with the hist banks the spread's want mask and
-//      verdict message (observe.cu's count).
+//      verdict message (observe.cu's count).  A programmatic dependent
+//      launch as decide's, behind the fire: its loads in three rounds of
+//      independent loads (the round and idx[h]; the slot's node, phase,
+//      dead round and start; the subject's fail round), all before
+//      griddepcontrol.wait; only fired and every write after it.  The
+//      launch's contract: the kernel launched just before it writes none
+//      of its inputs but fired.  The round keeps it: settle follows the
+//      fire with no kernel between (the outputs are made with
+//      torch.empty), the fire writes only the belief rows, the refutation
+//      byte, fired and its scratch, and decide, which writes slot_phase
+//      and slot_dead, ended before the fire began (the fire is a plain
+//      launch).  A caller whose kernel before settle may write settle's
+//      other inputs synchronises first.
 //   4. heard_counts (observe.cu), only with the hist banks: the members
 //      holding each expiring row's verdict, before the drop and the wipe;
 //      it triggers griddepcontrol.launch_dependents as it starts.
@@ -110,9 +123,9 @@
 // Bound.  A row reads five registers and a few [N] entries and writes a
 // few bytes: at S = 64 about 3 KB a launch, under a microsecond at
 // 3.35 TB/s; a launch costs more.  The design's point is three launches
-// where the port made ~113, and for decide and record, a chain of
+// where the port made ~113, and for each of the three, a chain of
 // dependent loads and a launch that overlap the kernel before (the tail,
-// the spread's count).
+// the fire, the spread's count).
 //
 // Capture.  No launch reads the host or needs a memset: the round is read
 // from its row in device memory, the statics (the budget, the TTL, the
@@ -293,14 +306,28 @@ settle_kernel(const __grid_constant__ Args a) {
   __shared__ uint32_t s_rounds;  // the detections' rounds, summed
   const int h = static_cast<int>(threadIdx.x);
   if (h == 0) s_rounds = 0u;
-  __syncthreads();
+  // Every load but fired, before the wait, in three rounds of independent
+  // loads: the round and the slot id; the slot's registers; the subject's
+  // fail round.  The kernel before this one (the fire) writes none of them
+  // (the launch's contract, finish_settle below).
+  const bool live = h < a.H;
+  int s = 0;
+  int32_t rnd = 0, node_c = 0, phase = kFree, dead = -1, start = 0;
+  int32_t fail_c = 0;
+  if (live) {
+    rnd = __ldg(a.rnd);
+    s = __ldg(a.idx + h);
+    node_c = clamp_node(a.slot_node[s], a.N);
+    phase = a.slot_phase[s];
+    dead = a.slot_dead[s];
+    start = __ldg(a.slot_start + s);
+    fail_c = __ldg(a.fail + node_c);
+  }
+  // The kernel before's output (fired), and every write, after the wait.
+  wait_for_primary();
+  __syncthreads();  // s_rounds zeroed
   bool detected = false, false_dead = false;
-  if (h < a.H) {
-    const int32_t rnd = __ldg(a.rnd);
-    const int s = a.idx[h];
-    const int32_t node_c = clamp_node(a.slot_node[s], a.N);
-    int32_t phase = a.slot_phase[s];
-    int32_t dead = a.slot_dead[s];
+  if (live) {
     const bool fired = a.fired[h] != 0;
     // Fired on any shard: dead declared, a new verdict where none was.
     const bool new_verdict = fired && dead < 0;
@@ -311,7 +338,6 @@ settle_kernel(const __grid_constant__ Args a) {
       a.slot_dead[s] = dead;
     }
     // Detection statistics at declaration time.
-    const int32_t fail_c = __ldg(a.fail + node_c);
     detected = new_verdict && fail_c <= rnd;
     false_dead = new_verdict && !(fail_c <= rnd);
     if (detected) {
@@ -322,8 +348,7 @@ settle_kernel(const __grid_constant__ Args a) {
         (phase == kDeadPhase || phase == kRefuted || phase == kJoin) &&
         dead >= 0 && sub32(rnd, dead) > 2 * a.budget + 8;
     const bool expired =
-        phase > kFree &&
-        (sub32(rnd, a.slot_start[s]) > a.ttl || verdict_done);
+        phase > kFree && (sub32(rnd, start) > a.ttl || verdict_done);
     const bool dropped = expired && phase == kDeadPhase;
     a.expired[h] = expired ? 1 : 0;
     a.marks[h] = static_cast<uint8_t>((detected ? kDetected : 0) |
@@ -538,7 +563,9 @@ inline int programmatic(void (*kernel)(Args), const Args& a, void* stream) {
 // finish_record kExpired and kMarks, and with the banks (kHistDetect ..
 // kHistSpread, all or none) kSpreadWant and kNHold; given kNHold it is a
 // programmatic dependent launch, whose kernel before (the spread's count)
-// may write none of its inputs but kNHold.  Each launches on
+// may write none of its inputs but kNHold.  finish_settle is a
+// programmatic dependent launch, whose kernel before (the fire) may write
+// none of its inputs but kFired.  Each launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() after the
 // launch (or cudaErrorInvalidValue for arguments it does not take).
 extern "C" int finish_decide(void* const* shards, int ndev,
@@ -567,9 +594,10 @@ extern "C" int finish_settle(void* const* shards, int ndev,
        (a.spread_want == nullptr || a.verdict == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  settle_kernel<<<1, a.threads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  // Makes its loads but fired before it waits for the kernel before it
+  // (the fire), which must write none of settle's inputs but fired (the
+  // top of this file).
+  return programmatic(settle_kernel, a, stream);
 }
 
 extern "C" int finish_record(void* const* shards, int ndev,

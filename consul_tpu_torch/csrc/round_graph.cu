@@ -7,17 +7,31 @@
 // of segment graphs, in the order they run; a segment is either plain work
 // or the body of a branch.  round_graph_build joins them into one graph: a
 // plain segment becomes a child-graph node, a branch body a conditional IF
-// node whose body holds the segment as a child graph, preceded by a
-// one-thread kernel that reads the branch's predicate (one bool in device
-// memory, computed by an earlier segment) and sets the node's condition.
-// Each node depends on the one before, so the segments run in capture order
-// and a replay reads nothing on the host.  This is the mechanism of
+// node whose body holds the segment as a child graph.  The IF nodes of one
+// branch group (the k bodies of one lax.switch, or the one of a lax.cond)
+// follow one chooser node, choose_kernel, the joined graph's own: it makes
+// the group's choice on the card from the group's operand, sets every
+// handle of the group (1 for the branch taken, 0 for the others) and adds
+// one to the taken branch's run counter (the program's branch_runs).  Each
+// node depends on the one before, so the segments run in capture order and
+// a replay reads nothing on the host.  This is the mechanism of
 // torch.cuda.CUDAGraph.begin_capture_to_if_node in later PyTorch releases,
 // built here from the CUDA runtime because the card's PyTorch lacks it.
 //
-// Bound: none to speak of.  A condition costs one kernel node of one
-// thread; a launch of the joined graph costs one cudaGraphLaunch on the
-// host, whatever the segments hold.
+// The choice (kernel.py's choice_ref is its plain version).  A cond's group
+// (k = 1, the join tick) reads one device bool, computed by an earlier
+// segment: its branch runs where the bool holds.  The tail's switch (k = 2:
+// quiescent, full; k = 3: quiescent, hot, full) counts the live slots,
+// n_active = #(slot_node >= 0) over slot_node [s], and takes branch 0 where
+// none is live, 1 where at most `hot` are (k = 3, the hot tier on), else
+// the last; it writes n_active where the round reads it after the tail
+// (the flight row's tx).  So the round makes no launch of its own for the
+// choice: the count, the rule, the conditions and the runs are this one
+// node's.
+//
+// Bound: the chooser reads slot_node and one int64 run counter and writes
+// the count and the counter, 276 bytes at S = 64; a launch costs more.  A launch of the joined graph costs one
+// cudaGraphLaunch on the host, whatever the segments hold.
 
 #include <cuda_runtime.h>
 
@@ -26,48 +40,113 @@
 
 namespace round_graph {
 
-__global__ void set_condition(cudaGraphConditionalHandle handle,
-                              const bool* pred) {
-  cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+constexpr int kMaxBranches = 3;
+constexpr int kMaxThreads = 1024;
+
+// One branch group's chooser node's arguments, by value (program.py's
+// _Choice mirrors this layout).
+struct Choice {
+  const void* operand;  // k = 1: one device bool; else slot_node, int32 [s]
+  int32_t* n_active;    // k > 1: the live slots' count (nullptr: not kept)
+  long long* runs;      // the program's branch_runs (nullptr: not counted)
+  int s;                // k > 1: slot_node's length
+  int hot;              // k = 3: the hot tier's slots
+  int k;                // branches: 1 (a cond), 2 or 3 (the tail's switch)
+  int bid[kMaxBranches];  // each branch's index into runs
+  cudaGraphConditionalHandle handle[kMaxBranches];  // the IF nodes', in order
+};
+
+// The branch of a switch group with n live slots.
+__device__ __forceinline__ int branch_of(int n, int k, int hot) {
+  if (n == 0) return 0;
+  if (k == 3 && n <= hot) return 1;
+  return k - 1;
+}
+
+// One block: the count by __syncthreads_count over chunks of the block's
+// width (every thread takes part in each), then thread 0 sets the handles
+// and writes the count and the run.
+__global__ void __launch_bounds__(kMaxThreads) choose_kernel(const Choice c) {
+  int taken, n = 0;
+  if (c.k == 1) {
+    taken = *static_cast<const bool*>(c.operand) ? 0 : -1;
+  } else {
+    const int32_t* node = static_cast<const int32_t*>(c.operand);
+    const int width = static_cast<int>(blockDim.x);
+    for (int i0 = 0; i0 < c.s; i0 += width) {
+      const int i = i0 + static_cast<int>(threadIdx.x);
+      n += __syncthreads_count(i < c.s && node[i] >= 0);
+    }
+    taken = branch_of(n, c.k, c.hot);
+  }
+  if (threadIdx.x != 0) return;
+  for (int b = 0; b < c.k; ++b) {
+    cudaGraphSetConditional(c.handle[b], b == taken ? 1u : 0u);
+  }
+  if (c.k > 1 && c.n_active != nullptr) *c.n_active = n;
+  if (taken >= 0 && c.runs != nullptr) c.runs[c.bid[taken]] += 1;
+}
+
+// The chooser's block: a warp for a cond's bool, else the slots rounded up
+// to warps, at most kMaxThreads (more slots loop).
+inline unsigned choose_threads(const Choice& c) {
+  if (c.k == 1) return 32u;
+  const int w = (c.s + 31) / 32 * 32;
+  return static_cast<unsigned>(w < kMaxThreads ? w : kMaxThreads);
+}
+
+inline bool valid(const Choice& c) {
+  if (c.operand == nullptr || c.k < 1 || c.k > kMaxBranches) return false;
+  if (c.k > 1 && c.s < 1) return false;
+  if (c.k == 3 && c.hot < 1) return false;
+  return true;
+}
+
+// Appends the chooser node of group `c` (its handles created here, in `g`)
+// after `prev`; *node gets it.
+cudaError_t add_chooser(cudaGraph_t g, cudaGraphNode_t prev, Choice* c,
+                        cudaGraphNode_t* node) {
+  if (!valid(*c)) return cudaErrorInvalidValue;
+  for (int b = 0; b < c->k; ++b) {
+    const cudaError_t e = cudaGraphConditionalHandleCreate(&c->handle[b], g,
+                                                           0, 0);
+    if (e != cudaSuccess) return e;
+  }
+  cudaKernelNodeParams kp = {};
+  void* args[1] = {c};
+  kp.func = reinterpret_cast<void*>(choose_kernel);
+  kp.gridDim = dim3(1);
+  kp.blockDim = dim3(choose_threads(*c));
+  kp.kernelParams = args;
+  return cudaGraphAddKernelNode(node, g, prev ? &prev : nullptr,
+                                prev ? 1 : 0, &kp);
 }
 
 // Appends segment `seg` to `g` after `prev` (nullptr: first node), under
-// an IF node on *pred when pred is not nullptr.  An empty segment becomes
-// an empty node.  `child`, where not nullptr, gets the child-graph node
-// that holds the segment (nullptr for an empty one).
+// an IF node on `handle` when `cond` is set.  An empty segment becomes an
+// empty node.  `child`, where not nullptr, gets the child-graph node that
+// holds the segment (nullptr for an empty one).
 cudaError_t append(cudaGraph_t g, cudaGraphNode_t prev, cudaGraph_t seg,
-                   const bool* pred, cudaGraphNode_t* node,
-                   cudaGraphNode_t* child = nullptr) {
+                   bool cond, cudaGraphConditionalHandle handle,
+                   cudaGraphNode_t* node, cudaGraphNode_t* child = nullptr) {
   if (child != nullptr) *child = nullptr;
   const cudaGraphNode_t* deps = prev ? &prev : nullptr;
   const size_t n_deps = prev ? 1 : 0;
   size_t n_nodes = 0;
   cudaError_t e = cudaGraphGetNodes(seg, nullptr, &n_nodes);
   if (e != cudaSuccess) return e;
-  if (pred == nullptr) {
+  if (!cond) {
     if (n_nodes == 0) return cudaGraphAddEmptyNode(node, g, deps, n_deps);
     e = cudaGraphAddChildGraphNode(node, g, deps, n_deps, seg);
     if (e == cudaSuccess && child != nullptr) *child = *node;
     return e;
   }
-  cudaGraphConditionalHandle handle;
-  e = cudaGraphConditionalHandleCreate(&handle, g, 0, 0);
-  if (e != cudaSuccess) return e;
-  cudaKernelNodeParams kp = {};
-  void* args[2] = {&handle, &pred};
-  kp.func = reinterpret_cast<void*>(set_condition);
-  kp.gridDim = dim3(1);
-  kp.blockDim = dim3(1);
-  kp.kernelParams = args;
-  cudaGraphNode_t set_node;
-  e = cudaGraphAddKernelNode(&set_node, g, deps, n_deps, &kp);
-  if (e != cudaSuccess) return e;
   cudaGraphNodeParams cp = {};
   cp.type = cudaGraphNodeTypeConditional;
   cp.conditional.handle = handle;
   cp.conditional.type = cudaGraphCondTypeIf;
   cp.conditional.size = 1;
-  e = cudaGraphAddNode(node, g, &set_node, 1, &cp);
+  e = cudaGraphAddNode(node, g, deps, n_deps, &cp);
   if (e != cudaSuccess || n_nodes == 0) return e;
   cudaGraphNode_t body_node;
   e = cudaGraphAddChildGraphNode(&body_node, cp.conditional.phGraph_out[0],
@@ -106,25 +185,55 @@ cudaError_t edge_types(cudaGraph_t g, int* programmatic, int* other) {
   return cudaSuccess;
 }
 
+// One thread: adds one to ran[b] (the body of branch b in
+// round_graph_choice's graph).
+__global__ void count_run(int32_t* ran, int b) { ran[b] += 1; }
+
 }  // namespace round_graph
 
 // Joins `n` segment graphs (cudaGraph_t) into one executable graph, in
-// order; segment i runs under an IF node on the device bool preds[i], or
-// unconditionally where preds[i] is nullptr.  The segments are cloned, so
-// their graphs may be destroyed after; the memory they use may not.
-// Returns the joined graph and its executable in *graph and *exec, or the
-// first CUDA error (then nothing is left allocated).
-extern "C" int round_graph_build(void* const* segs, void* const* preds,
-                                 int n, void** graph, void** exec) {
+// order; segment i runs unconditionally where group_of[i] is -1, else as
+// the next branch of group group_of[i], whose chooser node
+// (round_graph::Choice, choices[group_of[i]]: the operand, the count's
+// buffer, branch_runs and the branches' run indices; its handles are made
+// here) comes just before the group's first segment.  A group's k branches
+// are its segments in order, and each group must get exactly k.  The
+// segments are cloned, so their graphs may be destroyed after; the memory
+// they use may not.  Returns the joined graph and its executable in *graph
+// and *exec, or the first CUDA error (then nothing is left allocated).
+extern "C" int round_graph_build(void* const* segs, const int* group_of,
+                                 int n, const void* choices, int n_groups,
+                                 void** graph, void** exec) {
+  using namespace round_graph;
+  if (n < 0 || n_groups < 0 || (n_groups > 0 && choices == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Choice* given = static_cast<const Choice*>(choices);
+  std::vector<Choice> c(given, given + n_groups);
+  std::vector<int> seen(static_cast<size_t>(n_groups), 0);
   cudaGraph_t g = nullptr;
   cudaError_t e = cudaGraphCreate(&g, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaGraphNode_t prev = nullptr;
   for (int i = 0; i < n && e == cudaSuccess; ++i) {
+    const int grp = group_of[i];
     cudaGraphNode_t node = nullptr;
-    e = round_graph::append(g, prev, static_cast<cudaGraph_t>(segs[i]),
-                            static_cast<const bool*>(preds[i]), &node);
+    const cudaGraph_t seg = static_cast<cudaGraph_t>(segs[i]);
+    if (grp < 0) {
+      e = append(g, prev, seg, false, 0, &node);
+    } else if (grp >= n_groups || seen[grp] >= c[grp].k) {
+      e = cudaErrorInvalidValue;
+    } else {
+      const int b = seen[grp]++;
+      if (b == 0) e = add_chooser(g, prev, &c[grp], &prev);
+      if (e == cudaSuccess) {
+        e = append(g, prev, seg, true, c[grp].handle[b], &node);
+      }
+    }
     prev = node;
+  }
+  for (int k = 0; k < n_groups && e == cudaSuccess; ++k) {
+    if (seen[k] != c[k].k) e = cudaErrorInvalidValue;
   }
   cudaGraphExec_t x = nullptr;
   if (e == cudaSuccess) e = cudaGraphInstantiate(&x, g, 0);
@@ -138,12 +247,13 @@ extern "C" int round_graph_build(void* const* segs, void* const* preds,
 }
 
 // What the joining keeps of a segment's programmatic edges: the segment
-// `seg` joined alone, under an IF node on *pred (round_graph_build's
-// form), into an executable graph.  counts[0], counts[1]: the segment's
-// programmatic and other edges; counts[2], counts[3]: those of the child
-// graph in the IF node's body (the clone the joined graph runs).  Returns
-// the joined graph and its executable as round_graph_build does, or the
-// first CUDA error (the counts as far as they were read).
+// `seg` joined alone as the one branch of a cond's group on *pred
+// (round_graph_build's form: its chooser node, then the IF node), into an
+// executable graph.  counts[0], counts[1]: the segment's programmatic and
+// other edges; counts[2], counts[3]: those of the child graph in the IF
+// node's body (the clone the joined graph runs).  Returns the joined graph
+// and its executable as round_graph_build does, or the first CUDA error
+// (the counts as far as they were read).
 extern "C" int round_graph_edges(void* seg, const void* pred, int* counts,
                                  void** graph, void** exec) {
   using namespace round_graph;
@@ -154,15 +264,79 @@ extern "C" int round_graph_edges(void* seg, const void* pred, int* counts,
   cudaGraph_t g = nullptr;
   e = cudaGraphCreate(&g, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cudaGraphNode_t node = nullptr, child = nullptr;
-  e = append(g, nullptr, static_cast<cudaGraph_t>(seg),
-             static_cast<const bool*>(pred), &node, &child);
+  Choice c = {};
+  c.operand = pred;
+  c.k = 1;
+  cudaGraphNode_t chooser = nullptr, node = nullptr, child = nullptr;
+  e = add_chooser(g, nullptr, &c, &chooser);
+  if (e == cudaSuccess) {
+    e = append(g, chooser, static_cast<cudaGraph_t>(seg), true, c.handle[0],
+               &node, &child);
+  }
   cudaGraph_t body = nullptr;
   if (e == cudaSuccess && child != nullptr) {
     e = cudaGraphChildGraphNodeGetGraph(child, &body);
   }
   if (e == cudaSuccess && body != nullptr) {
     e = edge_types(body, counts + 2, counts + 3);
+  }
+  cudaGraphExec_t x = nullptr;
+  if (e == cudaSuccess) e = cudaGraphInstantiate(&x, g, 0);
+  if (e != cudaSuccess) {
+    cudaGraphDestroy(g);
+    return static_cast<int>(e);
+  }
+  *graph = g;
+  *exec = x;
+  return 0;
+}
+
+// The joined graph `graph` as the runtime describes it, in Graphviz's
+// language, into the file at `path` (cudaGraphDebugDotPrint, verbose: each
+// kernel node with its function's name).  Returns the CUDA error.
+extern "C" int round_graph_dot(void* graph, const char* path) {
+  return static_cast<int>(cudaGraphDebugDotPrint(
+      static_cast<cudaGraph_t>(graph), path, cudaGraphDebugDotFlagsVerbose));
+}
+
+// The chooser of one group alone, as round_graph_build places it: a graph
+// of the chooser node of `choice` (a round_graph::Choice; its handles made
+// here) and the group's k IF nodes in order, branch b's body one thread
+// adding one to ran[b] (int32 [k], the caller's).  Each launch (through
+// round_graph_launch) chooses on the operand as it then is.  Returns the
+// graph and its executable as round_graph_build does.
+extern "C" int round_graph_choice(const void* choice, int32_t* ran,
+                                  void** graph, void** exec) {
+  using namespace round_graph;
+  if (choice == nullptr || ran == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Choice c = *static_cast<const Choice*>(choice);
+  cudaGraph_t g = nullptr;
+  cudaError_t e = cudaGraphCreate(&g, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaGraphNode_t prev = nullptr;
+  e = add_chooser(g, nullptr, &c, &prev);
+  for (int b = 0; b < c.k && e == cudaSuccess; ++b) {
+    cudaGraphNodeParams cp = {};
+    cp.type = cudaGraphNodeTypeConditional;
+    cp.conditional.handle = c.handle[b];
+    cp.conditional.type = cudaGraphCondTypeIf;
+    cp.conditional.size = 1;
+    cudaGraphNode_t node = nullptr;
+    e = cudaGraphAddNode(&node, g, &prev, 1, &cp);
+    if (e != cudaSuccess) break;
+    int branch = b;
+    void* args[2] = {&ran, &branch};
+    cudaKernelNodeParams kp = {};
+    kp.func = reinterpret_cast<void*>(count_run);
+    kp.gridDim = dim3(1);
+    kp.blockDim = dim3(1);
+    kp.kernelParams = args;
+    cudaGraphNode_t body = nullptr;
+    e = cudaGraphAddKernelNode(&body, cp.conditional.phGraph_out[0],
+                               nullptr, 0, &kp);
+    prev = node;
   }
   cudaGraphExec_t x = nullptr;
   if (e == cudaSuccess) e = cudaGraphInstantiate(&x, g, 0);

@@ -29,9 +29,11 @@ order:
 Each step is one launch of ``csrc/finish_slots.cu`` on CUDA tensors (entry
 points ``finish_decide``, ``finish_settle`` and ``finish_record``: one block,
 a thread a row; the decide launch programmatic, overlapping the kernel
-before it, which may write only the belief rows; the record launch
-programmatic where it is given the holders, behind the spread's count,
-which may write only those) and its plain version on
+before it, which may write only the belief rows; the settle launch
+programmatic behind the fire, which may write only ``fired`` of its
+inputs; the record launch programmatic where it is given the holders,
+behind the spread's count, which may write only those) and its plain
+version on
 CPU tensors (``finish_decide_ref``, ``finish_settle_ref``,
 ``finish_record_ref``: the port's former expressions of the step, cut at
 the kernels' boundaries).
@@ -437,8 +439,14 @@ def finish_decide(cfg: Config, t: Step) -> Decided:
 
 
 def finish_settle(cfg: Config, t: Step, fired: torch.Tensor) -> Settled:
-    """Launch ``finish_settle``: ``finish_settle_ref`` in one block.
-    Returns new outputs."""
+    """Launch ``finish_settle``: ``finish_settle_ref`` in one block, as a
+    programmatic dependent launch, as ``finish_decide`` is: it makes its
+    loads but ``fired`` before it waits for the kernel before it on the
+    stream, so that kernel must write none of ``t``'s tensors (in the
+    round: the fire, ``finish.fire``, which writes ``fired`` and the belief
+    rows, which settle does not read); a caller whose kernel before may
+    write them synchronises first.  Returns new outputs (``torch.empty``:
+    no kernel comes between the fire and settle)."""
     dev, H = t.idx.device, t.idx.shape[0]
     hist = t.hist is not None
 

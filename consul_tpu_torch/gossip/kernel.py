@@ -30,8 +30,9 @@ How the JAX program maps onto PyTorch:
 - Each ``lax.cond`` on a device value (the join tick on ``any_join``;
   the quiescent / hot / full tail on ``n_active``) is ``_when`` /
   ``_switch``: eagerly a host branch on one read (``host_syncs`` counts
-  every such read), and under the round program's capture a conditional
-  graph node on the device predicate, with no read.
+  every such read), and under the round program's capture conditional
+  graph nodes behind one chooser node that makes the choice on the card
+  (``Choice``; for the tail from ``slot_node`` itself), with no read.
 - ``.at[i].set/add(..., mode="drop")`` scatters, whose dropped indices
   equal the axis size, write into a padded sink element that is sliced
   off (``slot_ops.set_drop``); torch would raise on them.
@@ -271,18 +272,52 @@ def _when(pred: torch.Tensor, fn, operand):
     return _recorder.when(pred, fn, operand)
 
 
-def _switch(which: torch.Tensor, branches, names, dst):
-    """``lax.switch(which, branches)`` for a device index: eagerly one
-    host read, then ``branches[which]()`` (counted in ``tail_rounds`` by
-    ``names``).  Under the round program's capture, each branch is the
-    body of a conditional graph node on ``which == i`` that writes its
-    result into ``dst`` (the program's buffers, of the results' structure),
-    and its rounds are counted on the device."""
+class Choice(NamedTuple):
+    """A branch group's choice, from its operand: for a cond (``k`` 1,
+    the join tick) a device bool, whose branch runs where it holds; for
+    the tail's switch (``k`` 2: quiescent, full; 3: quiescent, hot, full)
+    ``slot_node`` [S], from the live slots' count ``n_active``: branch 0
+    where none is live, 1 where at most ``hot`` are (the hot tier on), else
+    the last.  Under the round program's capture it is the argument of
+    the group's chooser node (``csrc/round_graph.cu``), whose plain version
+    is ``choice_ref``."""
+
+    operand: torch.Tensor
+    k: int
+    hot: int = 0
+
+
+def choice_ref(c: Choice):
+    """``(which, n_active)`` of a ``Choice``, as int32 device scalars:
+    ``which`` the branch taken (-1: a cond's bool is false), ``n_active``
+    the live slots (None for a cond)."""
+    if c.k == 1:
+        return torch.where(c.operand, 0, -1).to(_I32).reshape(()), None
+    n_active = (c.operand >= 0).sum(dtype=_I32)
+    if c.k == 3:
+        which = torch.where(n_active == 0, 0,
+                            torch.where(n_active <= c.hot, 1, 2))
+    else:
+        which = (n_active > 0).to(_I32)
+    return which.to(_I32), n_active
+
+
+def _switch(choice: Choice, branches, names, dst):
+    """``lax.switch(which, branches)`` on a device ``Choice``: eagerly one
+    host read of ``which`` (``choice_ref``), then ``branches[which]()``
+    (counted in ``tail_rounds`` by ``names``).  Under the round program's
+    capture, the group's chooser node makes the choice on the card, each
+    branch is the body of a conditional graph node that writes its result
+    into ``dst`` (the program's buffers, of the results' structure), and
+    the chooser counts its rounds on the device.  Returns ``(result,
+    n_active)``; under capture ``n_active`` is the program's buffer that
+    the chooser writes."""
     if _recorder is None:
+        which, n_active = choice_ref(choice)
         i = _host_int(which)
         tail_rounds[names[i]] += 1
-        return branches[i]()
-    return _recorder.switch(which, branches, names, dst)
+        return branches[i](), n_active
+    return _recorder.switch(choice, branches, names, dst)
 
 
 class Variant(NamedTuple):
@@ -807,17 +842,16 @@ def _swim_round_impl(state: SwimState, ra, v: Variant,
                      conf_cap)
 
     # The reference's lax.conds on the live episodes: quiescent, hot or
-    # full tail.
-    n_active = (slot_node >= 0).sum(dtype=_I32)
+    # full tail, from the live slots' count.
     if bool(p.hot_slots) and S > p.hot_slots:
-        which = torch.where(n_active == 0, 0,
-                            torch.where(n_active <= p.hot_slots, 1, 2))
+        choice = Choice(slot_node, 3, p.hot_slots)
         branches, names = ((quiescent, hot_tail, full_tail),
                            ("quiescent", "hot", "full"))
     else:
-        which = (n_active > 0).to(_I32)
+        choice = Choice(slot_node, 2)
         branches, names = (quiescent, full_tail), ("quiescent", "full")
-    new_state, hist_out, nem_state = _switch(which, branches, names, dst)
+    (new_state, hist_out, nem_state), n_active = _switch(choice, branches,
+                                                         names, dst)
     if not (collect or trace):
         return new_state, None, hist_out, nem_state, None
 

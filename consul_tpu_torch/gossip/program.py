@@ -16,9 +16,13 @@ branches on the round number alone, taken on the host; at most
   (``csrc/round_graph.cu``): the capture is cut into segments at each
   branch (``_Recorder``), each a graph captured by PyTorch into one shared
   memory pool, and the segments are joined in capture order, each branch
-  body under an IF node on its device predicate.  A branch writes its
-  result into the program's buffers, so what follows reads the same
-  memory whichever branch ran.
+  body under an IF node.  The IF nodes of one branch group (the tail's
+  switch, the join tick's cond: ``_Group``) follow one chooser node, which
+  makes the group's choice on the card (``kernel.Choice``; for the tail
+  from ``slot_node``, writing the live slots' count into the program's
+  ``n_active``), sets the group's conditions and counts the taken branch's
+  run.  A branch writes its result into the program's buffers, so what
+  follows reads the same memory whichever branch ran.
 - The program owns static buffers for everything the round reads and
   writes: the state, the ground-truth rounds, the banks, NemState, the
   flight ring, the trace rows and the table.  A round updates them in
@@ -32,10 +36,11 @@ branches on the round number alone, taken on the host; at most
 Counting.  The kernel wrappers count a launch when they are called, which
 under capture is once per captured launch.  The program keeps those counts
 per segment and puts the counters back as they were; each replay then adds
-its unconditional segments' launches on the host, and each branch body
-adds one to a device counter when it runs.  ``settle_counts()`` reads
-those counters (one read, outside any round) and adds the branch bodies'
-launches and ``kernel.tail_rounds`` to the host counters.
+its unconditional segments' launches (and its chooser nodes,
+``choose_launches``) on the host, and each group's chooser node adds one to
+the taken branch's device counter (``branch_runs``).  ``settle_counts()``
+reads those counters (one read, outside any round) and adds the branch
+bodies' launches and ``kernel.tail_rounds`` to the host counters.
 
 The event round (``EventProgram``, the counterpart of
 ``jax.jit(run_event_rounds)``) is the same machinery with no branch: a
@@ -84,6 +89,13 @@ pool_bytes = 0
 # already the buffers (the full tail's matrix; the quiescent and hot
 # branches and the join tick write the buffers in place and copy none).
 copy_bytes = 0
+# Chooser-node runs (``csrc/round_graph.cu``'s choose_kernel): one a branch
+# group a replay, and one a ``choose`` on a card.  Replays of a round
+# program, and of those the ones with a join group: every replayed round
+# runs its tail's chooser, and its join tick's where it has one.
+choose_launches = 0
+round_replays = 0
+join_replays = 0
 
 # Host counters the kernel wrappers (and ``_copy_leaves``) keep,
 # attributed per captured segment.
@@ -100,22 +112,34 @@ _COUNTERS = ((prng, "launches"), (prng, "calls"), (fused, "launches"),
              (sys.modules[__name__], "copy_bytes"))
 
 _VP = ctypes.c_void_p
+MAX_GROUP = 3  # kMaxBranches: a group's branches
+
+
+class _Choice(ctypes.Structure):
+    """``round_graph::Choice``: a chooser node's arguments (the handles
+    are made by the build)."""
+    _fields_ = [("operand", _VP), ("n_active", _VP), ("runs", _VP),
+                ("s", ctypes.c_int), ("hot", ctypes.c_int),
+                ("k", ctypes.c_int), ("bid", ctypes.c_int * MAX_GROUP),
+                ("handle", ctypes.c_uint64 * MAX_GROUP)]
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("round_graph")
+    out = [ctypes.POINTER(_VP), ctypes.POINTER(_VP)]
     lib.round_graph_build.argtypes = [ctypes.POINTER(_VP),
-                                      ctypes.POINTER(_VP), ctypes.c_int,
-                                      ctypes.POINTER(_VP),
-                                      ctypes.POINTER(_VP)]
+                                      ctypes.POINTER(ctypes.c_int),
+                                      ctypes.c_int, _VP, ctypes.c_int, *out]
     lib.round_graph_launch.argtypes = [_VP, _VP]
     lib.round_graph_destroy.argtypes = [_VP, _VP]
     lib.round_graph_edges.argtypes = [_VP, _VP, ctypes.POINTER(ctypes.c_int),
-                                      ctypes.POINTER(_VP),
-                                      ctypes.POINTER(_VP)]
+                                      *out]
+    lib.round_graph_choice.argtypes = [_VP, _VP, *out]
+    lib.round_graph_dot.argtypes = [_VP, ctypes.c_char_p]
     for fn in (lib.round_graph_build, lib.round_graph_launch,
-               lib.round_graph_destroy, lib.round_graph_edges):
+               lib.round_graph_destroy, lib.round_graph_edges,
+               lib.round_graph_choice, lib.round_graph_dot):
         fn.restype = ctypes.c_int
     lib.round_graph_error.argtypes = [ctypes.c_int]
     lib.round_graph_error.restype = ctypes.c_char_p
@@ -165,11 +189,41 @@ class _Warm:
     def when(self, pred, fn, operand):
         return fn(operand)
 
-    def switch(self, which, branches, names, dst):
+    def switch(self, choice, branches, names, dst):
         out = None
         for fn in branches:
             out = fn()
-        return out
+        return out, kernel.choice_ref(choice)[1]
+
+
+class _Group:
+    """One branch group of a captured round: its choice
+    (``kernel.Choice``), the buffer its chooser writes the live slots'
+    count into (a switch's; None for a cond) and the branches' indices
+    into the program's ``branch_runs``, in order."""
+
+    def __init__(self, choice, n_active=None):
+        op = choice.operand
+        want = torch.bool if choice.k == 1 else _I32
+        if op.dtype != want or not op.is_contiguous() or (
+                choice.k == 1 and op.numel() != 1):
+            raise ValueError(f"a group of {choice.k} branches takes a "
+                             f"contiguous {want} operand, got "
+                             f"{op.dtype}{list(op.shape)}")
+        if not 1 <= choice.k <= MAX_GROUP:
+            raise ValueError(f"a group has 1 to {MAX_GROUP} branches")
+        self.choice, self.n_active = choice, n_active
+        self.bids: list = []
+
+    def args(self, runs) -> _Choice:
+        """The chooser node's arguments, counting into ``runs``."""
+        c = self.choice
+        return _Choice(c.operand.data_ptr(),
+                       None if self.n_active is None
+                       else self.n_active.data_ptr(),
+                       None if runs is None else runs.data_ptr(),
+                       c.operand.numel() if c.k > 1 else 0, c.hot, c.k,
+                       (ctypes.c_int * MAX_GROUP)(*self.bids))
 
 
 class _Recorder:
@@ -178,26 +232,26 @@ class _Recorder:
 
     def __init__(self, program):
         self.program = program
-        self.segs = []    # (graph, predicate or None, branch id, deltas)
+        self.segs = []    # (graph, group or None, branch id, deltas)
         self._open = None
 
-    def begin(self, pred=None, bid=None) -> None:
+    def begin(self, group=None, bid=None) -> None:
         g = torch.cuda.CUDAGraph(keep_graph=True)
         # Thread-local: another thread's CUDA calls (the plane's server)
         # neither break this capture nor are refused by it.
         g.capture_begin(pool=self.program.pool,
                         capture_error_mode="thread_local")
-        self._open = (g, pred, bid, _counts())
+        self._open = (g, group, bid, _counts())
 
     def end(self) -> None:
-        g, pred, bid, c0 = self._open
+        g, group, bid, c0 = self._open
         self._open = None
         with warnings.catch_warnings():
             # A segment between two branches may hold nothing: joined as
             # an empty node (csrc/round_graph.cu).
             warnings.filterwarnings("ignore", "The CUDA Graph is empty")
             g.capture_end()
-        self.segs.append((g, pred, bid,
+        self.segs.append((g, group, bid,
                           tuple(b - a for a, b in zip(c0, _counts()))))
 
     def abort(self) -> None:
@@ -209,56 +263,156 @@ class _Recorder:
             except RuntimeError:
                 pass
 
-    def _body(self, pred, name, fn, dst) -> None:
+    def _body(self, group, name, fn, dst) -> None:
         bid = self.program.new_branch(name)
+        group.bids.append(bid)
         self.end()
-        self.begin(pred, bid)
+        self.begin(group, bid)
         _copy_leaves(dst, fn())
-        self.program.branch_runs[bid].add_(1)
         self.end()
         self.begin()
 
     def when(self, pred, fn, operand):
-        self._body(pred, "join", lambda: fn(operand), operand)
+        self._body(_Group(kernel.Choice(pred, 1)), "join",
+                   lambda: fn(operand), operand)
         return operand
 
-    def switch(self, which, branches, names, dst):
-        preds = [which == i for i in range(len(branches))]
-        for pred, fn, name in zip(preds, branches, names):
-            self._body(pred, name, fn, dst)
-        return dst
+    def switch(self, choice, branches, names, dst):
+        group = _Group(choice, self.program.n_active)
+        for fn, name in zip(branches, names):
+            self._body(group, name, fn, dst)
+        return dst, self.program.n_active
 
 
 class _Graph:
-    """One variant's joined graph and what its launches count."""
+    """One variant's joined graph and what its launches count.  ``segs``:
+    ``(segment graph, group or None, branch id, counter deltas)`` in
+    capture order; ``runs``: the branch counters the chooser nodes add
+    to."""
 
-    def __init__(self, segs):
-        self.segs = segs  # keeps the segment graphs (their pool) and preds
+    def __init__(self, segs, runs=None):
+        self.segs = segs  # keeps the segment graphs (their pool), operands
+        self.groups = []
+        for _, grp, _, _ in segs:
+            if grp is not None and all(grp is not q for q in self.groups):
+                self.groups.append(grp)
+        at = {id(q): i for i, q in enumerate(self.groups)}
         graphs = (_VP * len(segs))(*(g.raw_cuda_graph() for g, *_ in segs))
-        preds = (_VP * len(segs))(*(None if p is None else p.data_ptr()
-                                    for _, p, _, _ in segs))
+        group_of = (ctypes.c_int * len(segs))(*(
+            -1 if grp is None else at[id(grp)] for _, grp, _, _ in segs))
+        choices = (_Choice * max(1, len(self.groups)))(
+            *(q.args(runs) for q in self.groups))
         self.graph, self.exec = _VP(), _VP()
-        _check(_lib().round_graph_build(graphs, preds, len(segs),
+        _check(_lib().round_graph_build(graphs, group_of, len(segs),
+                                        ctypes.cast(choices, _VP),
+                                        len(self.groups),
                                         ctypes.byref(self.graph),
                                         ctypes.byref(self.exec)),
                "joining the round's graph")
-        self.plain = tuple(map(sum, zip(*(d for _, p, _, d in segs
-                                          if p is None))))
-        self.branch = {bid: d for _, p, bid, d in segs if p is not None}
+        self.plain = tuple(map(sum, zip(*(d for _, grp, _, d in segs
+                                          if grp is None))))
+        self.branch = {bid: d for _, grp, bid, d in segs if grp is not None}
 
     def launch(self) -> None:
-        global launches
+        global launches, choose_launches
         stream = torch.cuda.current_stream().cuda_stream
         _check(_lib().round_graph_launch(self.exec, stream),
                "launching the round's graph")
         _add_counts(self.plain)
+        choose_launches += len(self.groups)
         launches += 1
+
+    def described(self, path) -> dict:
+        """The joined graph's own nodes as the runtime describes them
+        (``round_graph_dot``, written to ``path``: its first cluster is the
+        graph itself, the others its child graphs): kernel nodes, those of
+        ``choose_kernel`` and conditional nodes; and whether
+        ``set_condition`` appears anywhere.  (The card's runtime reads no
+        conditional node's type through ``cudaGraphNodeGetType``: error
+        999.)"""
+        _check(_lib().round_graph_dot(self.graph, str(path).encode()),
+               "describing the round's graph")
+        with open(path) as f:
+            text = f.read()
+        own = text.split("subgraph cluster_")[1]
+        return {"kernel": own.count("{KERNEL"),
+                "chooser": own.count("choose_kernel"),
+                "conditional": own.count("CONDITIONAL"),
+                "set_condition": "set_condition" in text}
 
     def close(self) -> None:
         if self.exec:
             _check(_lib().round_graph_destroy(self.graph, self.exec),
                    "destroying the round's graph")
             self.graph, self.exec = _VP(), _VP()
+
+
+class Chooser:
+    """One group's chooser node alone, on a card, as the round's graph
+    places it (``round_graph_choice``): the node, then the group's k IF
+    nodes, branch b's body adding one to ``ran[b]``.  ``launch()`` chooses
+    on the operand as it then is (and counts in ``choose_launches``)."""
+
+    def __init__(self, choice, runs, bids, n_active=None):
+        group = _Group(choice, n_active)
+        group.bids = list(bids)
+        if len(group.bids) != choice.k:
+            raise ValueError(f"{choice.k} branches need as many run indices")
+        dev = choice.operand.device
+        self.ran = torch.zeros(choice.k, dtype=_I32, device=dev)
+        self.group, args = group, group.args(runs)
+        self.graph, self.exec = _VP(), _VP()
+        _check(_lib().round_graph_choice(ctypes.byref(args),
+                                         self.ran.data_ptr(),
+                                         ctypes.byref(self.graph),
+                                         ctypes.byref(self.exec)),
+               "building a chooser's graph")
+
+    def launch(self) -> None:
+        global choose_launches
+        stream = torch.cuda.current_stream().cuda_stream
+        _check(_lib().round_graph_launch(self.exec, stream),
+               "launching a chooser")
+        choose_launches += 1
+
+    def close(self) -> None:
+        if self.exec:
+            _check(_lib().round_graph_destroy(self.graph, self.exec),
+                   "destroying a chooser's graph")
+            self.graph, self.exec = _VP(), _VP()
+
+
+def choose_ref(choice, runs, bids, n_active=None) -> torch.Tensor:
+    """The plain version of a group's chooser node: the choice
+    (``kernel.choice_ref``), one added to ``runs[bids[which]]`` where a
+    branch is taken, the live slots' count into ``n_active`` where given
+    (a switch's).  Returns the runs of the group's branches, int32 [k]:
+    one 1 at the branch taken, or none."""
+    which, n = kernel.choice_ref(choice)
+    ran = (torch.arange(choice.k, device=which.device) == which).to(_I32)
+    if runs is not None:
+        for b, bid in enumerate(bids):
+            runs[bid:bid + 1].add_(ran[b:b + 1])
+    if n_active is not None and n is not None:
+        n_active.copy_(n)
+    return ran
+
+
+def choose(choice, runs, bids, n_active=None) -> torch.Tensor:
+    """A group's choice, as the round's chooser node makes it: on a card
+    one launch of the node (``Chooser``: its graph built, launched once and
+    freed), its plain version ``choose_ref`` on CPU tensors.  ``runs``: an
+    int64 counter vector (None: not counted), ``bids`` the branches' indices
+    into it, ``n_active`` an int32 word for a switch's count (or None).
+    Returns the runs of the group's branches, int32 [k], new."""
+    if choice.operand.device.type == "cpu":
+        return choose_ref(choice, runs, bids, n_active)
+    one = Chooser(choice, runs, bids, n_active)
+    try:
+        one.launch()
+        return one.ran.clone()
+    finally:
+        one.close()
 
 
 def _clone(tree):
@@ -292,6 +446,8 @@ class _Program:
         self.pool = pool
         self.branch_runs = torch.zeros(MAX_BRANCHES, dtype=torch.int64,
                                        device=dev)
+        # The tail's live slots, written by its chooser node a replay.
+        self.n_active = torch.zeros((), dtype=_I32, device=dev)
         self.branch_names: list = []
         self.graphs: dict = {}
         self.pool_bytes = 0  # what this program's captures reserved
@@ -333,7 +489,7 @@ class _Program:
             kernel._recorder = None
             _set_counts(counts)
         torch.cuda.current_stream(self.dev).wait_stream(side)
-        graph = _Graph(rec.segs)
+        graph = _Graph(rec.segs, self.branch_runs)
         grown = torch.cuda.memory_reserved(self.dev) - reserved
         pool_bytes += grown
         self.pool_bytes += grown
@@ -423,6 +579,14 @@ class RoundProgram(_Program):
 
     def _body(self, v) -> None:
         self._round(v, dst=self.dst)
+
+    def replay(self, v) -> None:
+        """One round of variant ``v``: its tail's chooser runs, and its
+        join tick's where the program has a join round."""
+        global round_replays, join_replays
+        super().replay(v)
+        round_replays += 1
+        join_replays += self.join is not None
 
     def load(self, state, fail_round, join_round=None, flight=None,
              hist=None, nem_state=None) -> None:

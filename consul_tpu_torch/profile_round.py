@@ -132,7 +132,7 @@ SINGLE_PHASES = {  # the single-device round's own
 # their device time is read from the kernel rows.
 HAND_KERNELS = {"draws": "threefry::draw_kernel",
                 "tail": "dissem_tail::tail_kernel",
-                "conditions": "round_graph::set_condition",
+                "conditions": "round_graph::choose_kernel",
                 "flood": "evflood::flood_kernel",
                 "observe": "observe::counts_kernel",
                 "finish": "finish::",
@@ -612,11 +612,12 @@ class _EagerBranches:
             program._copy_leaves(operand, fn(operand))
         return operand
 
-    def switch(self, which, branches, names, dst):
+    def switch(self, choice, branches, names, dst):
+        which, n_active = kernel.choice_ref(choice)
         i = int(which)
         self.taken[names[i]] = self.taken.get(names[i], 0) + 1
         program._copy_leaves(dst, branches[i]())
-        return dst
+        return dst, n_active
 
 
 def profile_functions(args) -> dict:

@@ -518,9 +518,10 @@ def test_device_argument_modes_on_card():
                        prng.edge_drops(keys, grp, [5, -7, N + 3], 0.6, 0.3))
 
 
-def test_conditional_graph_nodes_on_card():
+def test_conditional_graph_nodes_on_card(tmp_path):
     """``csrc/round_graph.cu``: a segment under an IF node runs exactly
-    when its device predicate holds."""
+    when its device predicate holds (a cond's group: its chooser node
+    reads the bool)."""
     _need_card()
     import ctypes
 
@@ -542,8 +543,16 @@ def test_conditional_graph_nodes_on_card():
             g.capture_end()
             segs.append((g, pred if seg == "if_mul" else None, None, ()))
     torch.cuda.current_stream().wait_stream(side)
-    graph = program._Graph([(g, p, b, (0,) * len(program._COUNTERS))
-                            for g, p, b, _ in segs])
+    groups = [None if p is None else program._Group(tk.Choice(p, 1))
+              for _, p, _, _ in segs]
+    for grp in groups:
+        if grp is not None:
+            grp.bids = [0]
+    graph = program._Graph([(g, grp, 0 if grp else None,
+                             (0,) * len(program._COUNTERS))
+                            for (g, _, _, _), grp in zip(segs, groups)])
+    assert graph.described(tmp_path / "joined.dot") == {
+        "kernel": 1, "chooser": 1, "conditional": 1, "set_condition": False}
     for x0, want in ((0.0, 3.0), (1.0, 18.0)):
         x.fill_(x0)
         graph.launch()

@@ -392,11 +392,12 @@ class _Emulate:
             program._copy_leaves(operand, fn(operand))
         return operand
 
-    def switch(self, which, branches, names, dst):
+    def switch(self, choice, branches, names, dst):
+        which, n_active = tk.choice_ref(choice)
         i = int(which)
         tk.tail_rounds[names[i]] += 1
         program._copy_leaves(dst, branches[i]())
-        return dst
+        return dst, n_active
 
 
 class _EmulatedGraph:

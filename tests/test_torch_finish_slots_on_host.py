@@ -17,12 +17,12 @@ tests/test_torch_finish_slots.py (full and hot ``idx`` with padding rows,
 1, 2 and 8 shards, the hist banks, LHM and the refutation on and off,
 every row firing, every row expiring, shared buckets and counters near
 2**31) and on 200 rows (seven warps: the block counts and the shared
-buckets across warps).  Decide's launch, and record's with the holders,
-go through ``cudaLaunchKernelEx`` as programmatic dependent launches
-(counted); at ``griddepcontrol.wait`` the block meets and a test's hook
-checks that nothing was written before it and writes what the kernel
-before would have (record's holders).  Needs ``g++``; builds into the
-test's temporary directory.
+buckets across warps).  Decide's and settle's launches, and record's with
+the holders, go through ``cudaLaunchKernelEx`` as programmatic dependent
+launches (counted); at ``griddepcontrol.wait`` the block meets and a
+test's hook checks that nothing was written before it and writes what the
+kernel before would have (settle's ``fired``, record's holders).  Needs
+``g++``; builds into the test's temporary directory.
 """
 
 import ctypes
@@ -213,8 +213,8 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_STUB)
     body, n = LAUNCH.subn(r"host_launch(\1, dim3(\2), dim3(\3), a);",
                           (_build.CSRC / "finish_slots.cu").read_text())
-    assert n == 2, n  # decide, and record given the holders, launch
-    # through cudaLaunchKernelEx
+    assert n == 1, n  # decide, settle, and record given the holders,
+    # launch through cudaLaunchKernelEx
     assert body.count(WAIT) == 1
     body = body.replace(WAIT, HOST_WAIT)
     src = d / "finish_slots.cpp"
@@ -487,3 +487,61 @@ def test_record_without_the_banks_is_a_plain_launch(on_host, name):
     assert on_host.finish_slots_host_programmatic() == n0
     finish_slots.finish_record_ref(cfg, want, dec_w, st_w)
     _same(_leaves(got), _leaves(want), f"{name} record")
+
+
+@pytest.mark.parametrize("name", ["full_mixed", "sharded_8_hot", "all_fire",
+                                  "wide"])
+def test_settle_behind_the_fire_waits(on_host, name, monkeypatch):
+    """Settle: a programmatic dependent launch that writes nothing before
+    its wait and reads ``fired`` only after it.  At the wait
+    (``host_griddep_wait``) every tensor of the step and every output of
+    settle still hold their values from before the launch, and only then
+    is ``fired`` written, as the fire's end would make it visible: until
+    then it holds the opposite of each row's verdict, so a settle that read
+    it early would give other verdicts.  The result equals the plain
+    version's field for field; rows fire."""
+    p, spec, c, cfg, derived = _case(name)
+    rx = torch.from_numpy(derived[1])
+    got, want = _step(p, spec, c, derived), _step(p, spec, c, derived)
+    dec = finish_slots.finish_decide(cfg, got)
+    dec_w = finish_slots.finish_decide_ref(cfg, want)
+    fired_true = finish.fire_timers_ref(got.heard, rx, dec.ok_mask,
+                                        dec.refute)
+    fired_w = finish.fire_timers_ref(want.heard, rx, dec_w.ok_mask,
+                                     dec_w.refute)
+    assert bool(fired_true.any()), name
+    fired = ~fired_true
+    before = [x.clone() for x in _leaves(got)]
+    outputs = []
+    launch = finish_slots._launch
+
+    def marked(which, cfg_, t, dec_=None, st=None, **kw):
+        # Settle's outputs hold a marker until it writes them.
+        for x in st or ():
+            if x is not None:
+                x.fill_(True if x.dtype == torch.bool else 0x5A)
+                outputs.append((x, x.clone()))
+        return launch(which, cfg_, t, dec_, st, **kw)
+
+    seen = []
+
+    def at_wait():
+        seen.append(all(torch.equal(x, y)
+                        for x, y in zip(_leaves(got), before))
+                    and all(torch.equal(x, y) for x, y in outputs))
+        fired.copy_(fired_true)
+
+    monkeypatch.setattr(finish_slots, "_launch", marked)
+    hook = WAIT_HOOK(at_wait)
+    on_host.finish_slots_host_wait_hook(hook)
+    n0 = on_host.finish_slots_host_programmatic()
+    try:
+        st = finish_slots.finish_settle(cfg, got, fired)
+    finally:
+        on_host.finish_slots_host_wait_hook(WAIT_HOOK())
+    assert on_host.finish_slots_host_programmatic() == n0 + 1
+    assert seen == [True], "settle wrote before its wait"
+    assert len(outputs) == (4 if got.hist is not None else 2)
+    st_w = finish_slots.finish_settle_ref(cfg, want, fired_w)
+    _same(_leaves(got), _leaves(want), f"{name} settle")
+    _same(list(st), list(st_w), f"{name} settle's out")

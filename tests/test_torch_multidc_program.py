@@ -97,9 +97,10 @@ class _Emulate:
             program._copy_leaves(operand, fn(operand))
         return operand
 
-    def switch(self, which, branches, names, dst):
+    def switch(self, choice, branches, names, dst):
+        which, n_active = tk.choice_ref(choice)
         program._copy_leaves(dst, branches[int(which)]())
-        return dst
+        return dst, n_active
 
 
 class _EmulatedGraph:
@@ -263,9 +264,9 @@ def test_replay_logs_do_not_depend_on_the_round(ndev, emulated,
             reads.append(("when", bool(pred)))
             return when(em, pred, fn, operand)
 
-        def r_switch(em, which, branches, names, dst):
-            reads.append(("switch", int(which)))
-            return switch(em, which, branches, names, dst)
+        def r_switch(em, choice, branches, names, dst):
+            reads.append(("switch", int(tk.choice_ref(choice)[0])))
+            return switch(em, choice, branches, names, dst)
 
         monkeypatch.setattr(_Emulate, "when", r_when)
         monkeypatch.setattr(_Emulate, "switch", r_switch)

@@ -17,10 +17,13 @@
   branches log the same, whatever their round numbers.  That is what lets
   one capture serve every round.
 - ``RoundProgram``'s buffers on the CPU: its captures replaced by an
-  emulation of the conditional nodes (a branch body runs when its
-  predicate holds and writes the program's buffers), its runs equal the
-  eager round's, in table chunks, and ``kernel.host_syncs`` moves by the
-  round counter and flight cursor reads of a call, not by its rounds.
+  emulation of the conditional nodes (each branch group's chooser node by
+  its plain version, ``program.choose``; the body taken writes the
+  program's buffers), its runs equal the eager round's, in table chunks,
+  and ``kernel.host_syncs`` moves by the round counter and flight cursor
+  reads of a call, not by its rounds; the runs the emulated choosers
+  count (``branch_runs``, settled) equal the eager round's
+  ``tail_rounds`` and ``join_rounds``.
 """
 
 import jax
@@ -321,25 +324,48 @@ def test_replay_logs_do_not_depend_on_the_round(name, monkeypatch):
 # -- the program's buffers, its branches emulated ------------------------------
 
 class _Emulate:
-    """Conditional-node semantics on the CPU: a body runs where its
-    predicate holds and writes the program's buffers."""
+    """Conditional-node semantics on the CPU: each branch group's chooser
+    node runs its plain version (``program.choose``: the group's choice,
+    one added to the taken branch's run in the program's
+    ``branch_runs``, the tail's live slots into the program's
+    ``n_active``), then the body taken writes the program's buffers.  A
+    group's branches get their run indices at the graph's first launch,
+    as a capture gives them."""
+
+    def __init__(self, graph):
+        self.graph, self.groups = graph, 0
+
+    def _bids(self, names):
+        key = self.groups
+        self.groups += 1
+        if key not in self.graph.bids:
+            self.graph.bids[key] = [self.graph.prog.new_branch(n)
+                                    for n in names]
+        return self.graph.bids[key]
 
     def when(self, pred, fn, operand):
-        if bool(pred):
+        ran = program.choose(tk.Choice(pred, 1), self.graph.prog.branch_runs,
+                             self._bids(["join"]))
+        if int(ran[0]):
             program._copy_leaves(operand, fn(operand))
         return operand
 
-    def switch(self, which, branches, names, dst):
-        program._copy_leaves(dst, branches[int(which)]())
-        return dst
+    def switch(self, choice, branches, names, dst):
+        prog = self.graph.prog
+        ran = program.choose(choice, prog.branch_runs, self._bids(names),
+                             prog.n_active)
+        assert int(ran.sum()) == 1  # exactly one body runs
+        program._copy_leaves(dst, branches[int(ran.argmax())]())
+        return dst, prog.n_active
 
 
 class _EmulatedGraph:
     def __init__(self, prog, v):
         self.prog, self.v = prog, v
+        self.bids, self.branch = {}, {}  # no captured launches to count
 
     def launch(self):
-        tk._recorder = _Emulate()
+        tk._recorder = _Emulate(self)
         try:
             self.prog._round(self.v, dst=self.prog.dst)
         finally:
@@ -375,3 +401,90 @@ def test_program_buffers_match_eager(name, monkeypatch):
         for f in x:
             assert x[f].dtype == y[f].dtype and np.array_equal(x[f], y[f]), \
                 f"{name}: {type(a).__name__}.{f}"
+
+
+def _counts():
+    return dict(tk.tail_rounds), tk.join_rounds
+
+
+def _zero_counts():
+    for k in tk.tail_rounds:
+        tk.tail_rounds[k] = 0
+    tk.join_rounds = 0
+
+
+@pytest.mark.parametrize("name", ["churn_joins_pushpull_hot",
+                                  "healthy_quiescent", "churn_2_shards"])
+def test_emulated_branch_runs_match_eager_counts(name, monkeypatch):
+    """The runs the choosers count on the device (``branch_runs``, read
+    by ``program.settle_counts``) equal the eager round's host counts of
+    each tail and of the join ticks: churn with joins and the hot tier,
+    healthy with quiescent rounds, 2 shards.  No body adds to a counter
+    of its own: the choosers alone count."""
+    monkeypatch.setattr(program.RoundProgram, "_capture",
+                        lambda self, v: _EmulatedGraph(self, v))
+    monkeypatch.setattr(program, "TABLE_ROWS", 7)
+    monkeypatch.setattr(program, "_programs", type(program._programs)())
+    saved = _counts()
+    try:
+        _zero_counts()
+        _port(name, graphed=False)
+        eager = _counts()
+
+        def via_program(state, base_key, fail, p, steps, trace, join,
+                        flight, hist, dev, sc=None, nem=None,
+                        nem_state=None, graphed=None):
+            return program.run_rounds(
+                state, base_key, tk._as_i32(fail, dev), p, steps, trace,
+                tk._as_i32(join, dev), flight, hist, sc, nem, nem_state)
+
+        monkeypatch.setattr(tk, "_run_rounds_impl", via_program)
+        _zero_counts()
+        _port(name)
+        assert _counts() == ({"quiescent": 0, "hot": 0, "full": 0}, 0)
+        program.settle_counts()
+        graphed = _counts()
+    finally:
+        tk.tail_rounds.update(saved[0])
+        tk.join_rounds = saved[1]
+    assert graphed == eager, name
+    tails, joins = eager
+    assert sum(tails.values()) == CASES[name][1]  # one tail a round
+    if name == "healthy_quiescent":
+        assert tails["quiescent"] == CASES[name][1] and joins == 0
+    else:
+        assert tails["full"] > 0 and joins > 0
+        assert tails["hot"] > 0 and tails["quiescent"] > 0
+
+
+@pytest.mark.parametrize("S, hot", [(1, 0), (63, 0), (64, 0), (1024, 0),
+                                    (64, 8), (1024, 8)])
+def test_choose_ref_follows_the_tail_rule(S, hot):
+    """``program.choose_ref`` (the chooser node's plain version) against
+    the rule written out, at n_active 0, hot, hot + 1 and S: the branch
+    taken, one run added at its index and none elsewhere, the count."""
+    k = 3 if hot else 2
+    bids = [5, 2, 9][:k]
+    for n in sorted({0, hot, hot + 1, S} & set(range(S + 1))):
+        node = torch.full((S,), -1, dtype=torch.int32)
+        node[torch.randperm(S, generator=torch.Generator().manual_seed(n))
+             [:n]] = 7
+        runs = torch.zeros(16, dtype=torch.int64)
+        n_active = torch.full((), -5, dtype=torch.int32)
+        ran = program.choose_ref(tk.Choice(node, k, hot), runs, bids,
+                                 n_active)
+        want = 0 if n == 0 else (1 if hot and n <= hot else k - 1)
+        assert ran.tolist() == [int(b == want) for b in range(k)], (S, n)
+        expect = torch.zeros(16, dtype=torch.int64)
+        expect[bids[want]] = 1
+        assert torch.equal(runs, expect) and int(n_active) == n, (S, n)
+
+
+def test_choose_ref_of_a_cond():
+    """A cond's group: its one branch runs, and is counted, where the
+    bool holds; nothing is counted where it does not."""
+    runs = torch.zeros(4, dtype=torch.int64)
+    for b, want in ((True, [1]), (False, [0])):
+        ran = program.choose_ref(tk.Choice(torch.tensor(b), 1), runs, [3])
+        assert ran.tolist() == want
+    assert runs.tolist() == [0, 0, 0, 1]

@@ -1,10 +1,11 @@
-"""A/B of two checkouts of the PyTorch/CUDA port on one card: two seams of
-the round on the 1M main path's data, as the checkout in the current
+"""A/B of two checkouts of the PyTorch/CUDA port on one card: seams of the
+round on the 1M main path's data, as the checkout in the current
 directory runs them: the probe tick (the tick, its lanes and slot step,
 and the rearmed rows' wipe and the marks with no rearmed row and with
-three), the dissemination tail followed by the finish step's decide, and
-the spread's count followed by the finish step's record with the hist
-banks (one slot expiring with its verdict).
+three), the dissemination tail followed by the finish step's decide, the
+spread's count followed by the finish step's record with the hist banks
+(one slot expiring with its verdict), and the fire pass followed by the
+finish step's settle (seven rows whose timers have run out).
 
     cd <checkout> && PYTHONPATH=. python3 <repo>/tools/torch_pair_ab.py
 
@@ -12,7 +13,8 @@ Run it in each checkout in turns (parent, change, change, parent) in one
 call.  It calls only entry points that every checkout since the probe
 tick's lanes and slot step merged has (``kernel._probe_tick``,
 ``probe.probe_lanes_slots``, ``fused.disseminate``,
-``finish_slots.finish_decide`` and ``decide``, ``finish_settle``,
+``finish_slots.finish_decide`` and ``decide``, ``finish_settle`` and
+``settle``,
 ``finish_record`` and ``record``, ``observe.count``,
 ``finish.fire_timers``), and, for the wipe and the
 marks, whichever form the checkout has: one launch of
@@ -259,6 +261,60 @@ def count_record_times(ndev: int) -> dict:
             "pair_ms": graph_ms(pair)}
 
 
+def fire_settle_setup(ndev: int):
+    """The fire's and settle's inputs on the main path's data: slots 0-6
+    (SUSPECT on failed nodes) with their timers run out, so those rows
+    fire, and decide run.  Returns ``(cfg, t, dec, rx, scratch)``."""
+    from consul_tpu_torch.gossip import finish_slots, observe
+    from consul_tpu_torch.gossip.params import lan_profile
+    p = lan_profile(N, slots=S, hot_slots=0)
+    cfg = finish_slots.config(p, None)
+    ra = _row(p, 7)
+    rnd = int(ra.rnd)
+    mf, regs, son, heard = _main_state()
+    regs[4][:7] = rnd - cfg.tbl[0]
+    fail = torch.where(mf < 0, NEVER, mf)
+    alive = fail > rnd
+    member = torch.ones(N, dtype=torch.bool, device="cuda")
+    cap = torch.zeros(S, dtype=torch.int32, device="cuda")
+    t = finish_slots.Step(
+        _shard(heard, ndev), ra.rnd,
+        torch.arange(S, dtype=torch.int32, device="cuda"),
+        (regs[0], regs[1], regs[4], regs[5]), cap, alive, member, fail,
+        son, torch.zeros(N, dtype=torch.int32, device="cuda"),
+        tuple(torch.zeros((), dtype=torch.int32, device="cuda")
+              for _ in range(4)), None, None)
+    scratch = observe.counts_scratch(S, "cuda")
+    torch.cuda.synchronize()
+    dec = finish_slots.finish_decide(cfg, t)
+    torch.cuda.synchronize()
+    return cfg, t, dec, alive & member, scratch
+
+
+def fire_settle_times(ndev: int) -> dict:
+    """The fire and settle on the main path's data, each alone, and the
+    pair as the round runs it (``finish.fire_timers``, then
+    ``finish_slots.settle`` on its ``fired``); the first fire turns the
+    rows DEAD, so the timed fires read rows and change none."""
+    from consul_tpu_torch.gossip import finish, finish_slots
+    cfg, t, dec, rx, scratch = fire_settle_setup(ndev)
+
+    def fire():
+        return finish.fire_timers(t.heard, rx, dec.ok_mask, dec.refute,
+                                  scratch)
+
+    fired = fire()
+    fired_rows = int(fired.sum())
+
+    def pair():
+        finish_slots.settle(cfg, t, fire())
+
+    return {"fired_rows": fired_rows, "fire_ms": graph_ms(fire),
+            "settle_ms": graph_ms(lambda: finish_slots.finish_settle(
+                cfg, t, fired)),
+            "pair_ms": graph_ms(pair)}
+
+
 def card() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -278,6 +334,7 @@ def main() -> int:
         out[f"probe/{ndev}"] = probe_times(ndev)
         out[f"tail_decide/{ndev}"] = tail_decide_times(ndev)
         out[f"count_record/{ndev}"] = count_record_times(ndev)
+        out[f"fire_settle/{ndev}"] = fire_settle_times(ndev)
     out["card_after"] = card()
     print(json.dumps(out), flush=True)
     return 0
