@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase probe         # that phase alone (A/B)
     python3 chip_smoke.py --phase finish_slots  # that phase alone (A/B)
     python3 chip_smoke.py --phase branch        # branch_check alone
+    python3 chip_smoke.py --phase loop          # the loop's checks alone
 
 Each phase prints one JSON line; any failure exits non-zero and the
 result lines are not printed.
@@ -225,6 +226,29 @@ result lines are not printed.
    round and no ``set_condition``, and then times the node alone by the
    profiler (a profiler session earlier in the process leaves later ones
    blind to kernels in conditional bodies).
+8c. loop (also ``--phase loop``): the round program's loop
+   (``csrc/round_graph.cu``: a WHILE node, ``loop_kernel``, an IF node a
+   captured variant; ``csrc/round_table.cu``'s ``table_kernel`` filling
+   the chunk's table): first the nested graph, a segment with a
+   programmatic edge (the tail then decide) under a cond's IF node under
+   a variant's IF node in a WHILE node, kept and held; the loop kernel in
+   a loop of toy rounds against ``program.loop_ref`` (chunks of 0 to 512
+   rounds, a code it was not built with), timed a round with 2 and 10
+   variants; ``table_kernel`` against its host twin over 320 draws of
+   (parameters, key, first round, rows) and the multi-DC pools' launch,
+   timed at 512 and 30 rows beside the host build and the bound; looped
+   calls against the per-round replays and the eager route at 16,000
+   (churn with joins on 1 and 8 shards, ``partition_heal``), two chunks,
+   every launch gate exact; a looped call's kernels under the profiler
+   equal to the host's counts.  On every single-pool path a call is one
+   table launch and one graph launch a chunk of up to 512 rounds, the
+   loop kernel one a round (multi-DC: 2 D + 3 graph launches a round,
+   one table launch a call); round_program runs each case looped, with
+   per-round replays and eagerly (carry and trace bit-identical), and
+   profiles the looped route in a fresh worker process; the plane's
+   lockstep adds a card plane replaying a round at a time; the
+   programmatic edges of decide, settle and record are checked in the
+   loop's nesting too.
 9. main_path: ``lan_profile(1_000_000, slots=64, hot_slots=0)`` with
    bench.py's churn1000ppm failure stride — warm-up, timed blocks each
    ending in a device->host read; rounds/s, kernel launches (must equal
@@ -450,6 +474,7 @@ import bisect
 import collections
 import contextlib
 import ctypes
+import functools
 import io
 import json
 import multiprocessing
@@ -554,11 +579,12 @@ def card() -> str:
 # round_graph.cu, the event round in event_flood.cu, the round's
 # observers' counts (heard_counts) in observe.cu, the finish step's fire
 # pass and row wipes (fire_timers, wipe_rows) in finish.cu, the probe
-# tick (probe_lanes_slots, probe_rearm_marks) in probe.cu and the finish
+# tick (probe_lanes_slots, probe_rearm_marks) in probe.cu, the finish
 # step's slot logic (finish_decide, finish_settle, finish_record) in
-# finish_slots.cu.
+# finish_slots.cu and the round program's table (table_kernel) in
+# round_table.cu.
 SOURCES = ("dissem_tail", "kv_store", "threefry", "round_graph", "event_flood",
-           "observe", "finish", "probe", "finish_slots")
+           "observe", "finish", "probe", "finish_slots", "round_table")
 
 
 def build() -> None:
@@ -2902,20 +2928,34 @@ def _tail_decide_times(ndev: int) -> dict:
                 cfg, t._replace(heard=tail())))}
 
 
-def _joined_graph_run(capture, warm, check, before=None) -> dict:
+def _joined_graph_run(capture, warm, check, before=None,
+                      looped: bool = False) -> dict:
     """``capture()`` captured by ``torch.cuda.graph`` into a segment
     graph (``warm()`` run first on a side stream), the segment joined
     under an IF node on a true predicate as ``round_graph_build`` joins
     the round's (``round_graph_edges``: the chooser node of a cond, then
     the IF node; the edges of the segment and of the child graph in the IF
-    node's body, by type), instantiated and launched (``before(out)``,
-    where given, first: it may write the capture's output buffers);
-    ``check(out)`` then holds ``capture``'s output and raises on a
-    difference.  Returns the edges, whether it instantiated, launched and
-    held, and whether the programmatic edge was kept; a refusal is
-    returned with its CUDA error."""
+    node's body, by type); with ``looped`` that cond inside the IF body
+    of a one-round loop's variant, as ``round_graph_loop_build`` places a
+    round (a WHILE node, the loop kernel, the variant's IF node: three
+    levels of conditional nodes); instantiated and launched
+    (``before(out)``, where given, first: it may write the capture's
+    output buffers); ``check(out)`` then holds ``capture``'s output and
+    raises on a difference.  Returns the edges, whether it instantiated,
+    launched and held (looped: and ran its one round), and whether the
+    programmatic edge was kept; a refusal is returned with its CUDA
+    error."""
     from consul_tpu_torch.gossip import program
     lib = program._lib()
+    loop, words = None, None
+    if looped:
+        # One round of variant code 0: one round left, the step at row 0.
+        words = (torch.ones(1, dtype=torch.int32, device="cuda"),
+                 torch.zeros(1, dtype=torch.int64, device="cuda"),
+                 torch.zeros(1, dtype=torch.int32, device="cuda"),
+                 torch.zeros(program.LOOP_WORDS, dtype=torch.int64,
+                             device="cuda"))
+        loop = program._LoopArgs(*(w.data_ptr() for w in words), 1, 1)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -2929,9 +2969,10 @@ def _joined_graph_run(capture, warm, check, before=None) -> dict:
     counts = (ctypes.c_int * 4)()
     joined, exe = ctypes.c_void_p(), ctypes.c_void_p()
     rc = lib.round_graph_edges(graph.raw_cuda_graph(), pred.data_ptr(),
-                               counts, ctypes.byref(joined),
-                               ctypes.byref(exe))
-    res = {"segment_programmatic_edges": counts[0],
+                               None if loop is None
+                               else ctypes.addressof(loop), counts,
+                               ctypes.byref(joined), ctypes.byref(exe))
+    res = {"looped": looped, "segment_programmatic_edges": counts[0],
            "segment_other_edges": counts[1],
            "if_body_programmatic_edges": counts[2],
            "if_body_other_edges": counts[3], "instantiated": rc == 0,
@@ -2950,6 +2991,11 @@ def _joined_graph_run(capture, warm, check, before=None) -> dict:
         else:
             check(out)
             res["held"] = True
+            if looped:
+                res["loop_runs"] = words[3].tolist()
+                res["held"] = (int(words[0]) == 0 and int(words[1]) == 0
+                               and words[3][0].item() == 1
+                               and int(words[3].sum()) == 1)
         lib.round_graph_destroy(joined, exe)
     del graph
     torch.cuda.empty_cache()
@@ -2964,7 +3010,7 @@ def _all_equal(what: str, got: list, want: list) -> None:
             raise AssertionError(f"{what} (field {i})")
 
 
-def pdl_check(ndev: int) -> dict:
+def pdl_check(ndev: int, looped: bool = False) -> dict:
     """Whether the round's graph keeps decide's programmatic edge, and
     whether decide waits for the tail: the tail (``fused.disseminate``)
     then the round's decide (a programmatic dependent launch) in the
@@ -3001,7 +3047,7 @@ def pdl_check(ndev: int) -> dict:
 
     return {"ndev": ndev, "refuted": refuted,
             **_joined_graph_run(capture, lambda: fs.decide(
-                cfg, warm._replace(heard=tail())), check)}
+                cfg, warm._replace(heard=tail())), check, looped=looped)}
 
 
 def _count_record_inputs(ndev: int):
@@ -3058,7 +3104,7 @@ def _count_record_times(ndev: int) -> dict:
                                                       scratch))}
 
 
-def pdl_record_check(ndev: int) -> dict:
+def pdl_record_check(ndev: int, looped: bool = False) -> dict:
     """Whether the round's graph keeps record's programmatic edge behind
     the spread's count, and whether record waits for the count: the pair
     (``_count_record``) in the joined graph (``_joined_graph_run``); the
@@ -3098,7 +3144,8 @@ def pdl_record_check(ndev: int) -> dict:
             "holders_of_the_dropped_row": int(n_hold_w[7]),
             **_joined_graph_run(
                 lambda: _count_record(cfg, got, dec, st, scratch),
-                lambda: _count_record(cfg, warm, dec, st, scratch), check)}
+                lambda: _count_record(cfg, warm, dec, st, scratch), check,
+                looped=looped)}
 
 
 def _fire_settle_inputs(ndev: int):
@@ -3143,7 +3190,7 @@ def _fire_settle_times(ndev: int) -> dict:
                                                      scratch))}
 
 
-def pdl_settle_check(ndev: int) -> dict:
+def pdl_settle_check(ndev: int, looped: bool = False) -> dict:
     """Whether the round's graph keeps settle's programmatic edge behind
     the fire, and whether settle waits for the fire: the pair
     (``_fire_settle``) in the joined graph (``_joined_graph_run``), its
@@ -3191,7 +3238,7 @@ def pdl_settle_check(ndev: int) -> dict:
             **_joined_graph_run(
                 lambda: _fire_settle(cfg, got, dec, rx, scratch),
                 lambda: _fire_settle(cfg, warm, dec, rx, scratch), check,
-                before=lambda res: res[0].copy_(~fired_w))}
+                before=lambda res: res[0].copy_(~fired_w), looped=looped)}
 
 
 def finish_slots_phase(card_line: str, seeds: int = 32) -> dict:
@@ -3248,6 +3295,14 @@ def finish_slots_phase(card_line: str, seeds: int = 32) -> dict:
                 for ndev in (1, 8)})
     fire_settle = {f"1m/{ndev}": _fire_settle_times(ndev)
                    for ndev in (1, 8)}
+    # Each pair again inside the loop's nesting (a WHILE node's variant IF
+    # node, then the cond's IF node), as the looped round holds them.
+    for ndev in (1, 8):
+        pdl[f"loop/1m/{ndev}"] = pdl_check(ndev, looped=True)
+        pdl[f"loop/count_record/1m/{ndev}"] = pdl_record_check(
+            ndev, looped=True)
+        pdl[f"loop/fire_settle/1m/{ndev}"] = pdl_settle_check(
+            ndev, looped=True)
     res = {"phase": "finish_slots", "card": card_line, "tolerance": 0,
            "max_abs_err": 0, "steps_held": held, "seeds": seeds,
            "states_with": seen, "cases": rows, "main": main,
@@ -3263,14 +3318,15 @@ def finish_slots_phase(card_line: str, seeds: int = 32) -> dict:
             raise AssertionError(f"finish_slots: the joined graph with "
                                  f"a programmatic edge did not launch "
                                  f"({key}): {r}")
-        # Settle's edge: one in the captured segment, one in the IF
-        # node's body, and the graph ran and held.
-        if key.startswith("fire_settle/") and not (
+        # Settle's edge, and each edge in the loop's nesting: one in the
+        # captured segment, one in the IF node's body, and the graph ran
+        # and held.
+        if key.startswith(("fire_settle/", "loop/")) and not (
                 r["kept"] and r.get("held")
                 and r["segment_programmatic_edges"] == 1
                 and r["if_body_programmatic_edges"] == 1):
-            raise AssertionError(f"finish_slots: settle's programmatic "
-                                 f"edge was not kept ({key}): {r}")
+            raise AssertionError(f"finish_slots: a programmatic edge "
+                                 f"was not kept ({key}): {r}")
     return res
 
 
@@ -3381,9 +3437,12 @@ def _reset_counts() -> None:
     """Every kernel launch count and round counter to 0."""
     from consul_tpu_torch import prng
     from consul_tpu_torch.gossip import (events, finish, finish_slots, fused,
-                                         kernel, observe, probe, program)
+                                         kernel, observe, probe, program,
+                                         round_table)
     _settle()
     program.launches = 0
+    program.loop_launches = 0
+    round_table.launches = 0
     program.copy_bytes = 0
     program.choose_launches = 0
     program.round_replays = 0
@@ -3745,10 +3804,10 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
            "n_detected": int(state.n_detected),
            "n_false_dead": int(state.n_false_dead),
            "drops": int(state.drops)}
+    # A call is one table launch and one loop launch a chunk of 512
+    # rounds, the loop kernel one a round.
+    res.update(_loop_gate(res["phase"], [warm] + [block] * blocks))
     emit(res)
-    if program.launches != total:
-        raise AssertionError(f"{program.launches} graph launches in {total} "
-                             f"rounds")
     busy = tails["hot"] + tails["full"]
     if ndev is None and fused.launches != busy:
         raise AssertionError("kernel launches != non-quiescent rounds")
@@ -4243,26 +4302,34 @@ def _rp_inputs(churn_ppm: int, scenario: str | None, total: int):
     return p, torch.from_numpy(fail).cuda(), kw, st
 
 
-def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool) -> dict:
-    """One route over the case's rounds: rounds/s over the timed blocks,
-    host reads per call and per round, graph launches and captures, the
-    final carry and the last block's trace."""
+def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool,
+              replays: bool = False, observers: bool = True) -> dict:
+    """One route over the case's rounds (graphed: looped, or with
+    ``replays`` a replay a round): rounds/s over the timed blocks, host
+    reads, graph and table launches per call and per round, captures, the
+    final carry and the last block's trace; the flight ring, hist banks
+    and trace threaded, or with ``observers`` off none of them."""
     from consul_tpu_torch import prng
-    from consul_tpu_torch.gossip import kernel, observe, program
+    from consul_tpu_torch.gossip import kernel, observe, program, round_table
 
     key = prng.key(42)
-    carry = [st0, kernel.init_flight(), kernel.init_hist()]
+    carry = ([st0, kernel.init_flight(), kernel.init_hist()] if observers
+             else [st0])
     before = {f: getattr(st0, f).clone() for f in st0._fields}
 
     def rounds(steps):
-        st, fl, hb = carry
-        a = dict(trace=True, flight=fl, hist=hb, graphed=graphed, **kw)
-        if ndev:
-            out, tr = kernel.run_rounds_sharded(st, key, fail_t, p, steps,
-                                                ndev=ndev, **a)
-        else:
-            out, tr = kernel.run_rounds(st, key, fail_t, p, steps, **a)
-        carry[:] = out
+        a = dict(graphed=graphed, **kw)
+        if observers:
+            a.update(trace=True, flight=carry[1], hist=carry[2])
+        with (_per_round_replays() if replays
+              else contextlib.nullcontext()):
+            if ndev:
+                out, tr = kernel.run_rounds_sharded(carry[0], key, fail_t, p,
+                                                    steps, ndev=ndev, **a)
+            else:
+                out, tr = kernel.run_rounds(carry[0], key, fail_t, p, steps,
+                                            **a)
+        carry[:] = out if observers else [out]
         return tr
 
     _reset_counts()
@@ -4273,6 +4340,7 @@ def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool) -> dict:
     int(carry[0].round)
     warm_s = time.perf_counter() - t0
     syncs0, launches0 = kernel.host_syncs, program.launches
+    tables0 = round_table.launches
     times = []
     for _ in range(RP["blocks"]):
         t0 = time.perf_counter()
@@ -4285,7 +4353,8 @@ def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool) -> dict:
     calls = 1 + RP["blocks"]
     return {"rounds_per_s": timed / sum(times), "block_s": times,
             "observe_launches": observe.launches,
-            "observe_launches_expected": RP["warm"] + timed + busy,
+            "observe_launches_expected": (RP["warm"] + timed + busy
+                                          if observers else 0),
             **_round_counts(),
             # The matrix into the program's buffers: once a call and once
             # a full-tail round (graphed); the eager round copies none.
@@ -4300,11 +4369,34 @@ def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool) -> dict:
             "host_syncs_per_round": (kernel.host_syncs - syncs0) / timed,
             "graph_launches_per_round": (program.launches - launches0)
             / timed,
+            "graph_launches_per_call": (program.launches - launches0)
+            / RP["blocks"],
+            "table_launches_per_call": (round_table.launches - tables0)
+            / RP["blocks"],
+            "loop_launches": program.loop_launches,
             "captures": program.captures - captures0,
             "capture_s": program.capture_s - capture_s0,
             "pool_bytes": program.pool_bytes - pool0,
             "tail_rounds": dict(kernel.tail_rounds),
             "carry": tuple(carry), "trace": tr}
+
+
+def _rp_calls_gate(name: str, route: str, r: dict) -> list:
+    """A round_program route's graph and table launches a call: looped,
+    ceil(rounds / 512) each and one loop kernel a round; replayed, a graph
+    launch a round and the same tables; eager, none.  Returns what is
+    wrong."""
+    from consul_tpu_torch.gossip import program
+    chunks = -(-RP["block"] // program.TABLE_ROWS)
+    want = {"eager": (0, 0, 0),
+            "graphed": (chunks, chunks,
+                        RP["warm"] + RP["block"] * RP["blocks"]),
+            "replays": (RP["block"], chunks, 0)}[route]
+    got = (r["graph_launches_per_call"], r["table_launches_per_call"],
+           r["loop_launches"])
+    return ([] if got == want else
+            [f"{name} {route}: graph, table and loop launches {got}, "
+             f"expected {want}"])
 
 
 def _rp_profile(p, fail_t, st0, graphed: bool,
@@ -4317,18 +4409,21 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
     Also the tail's, the draws', the observers', the finish step's, the
     probe tick's and the chooser's kernels as the profiler saw them run
     (``tail_kernel``, ``draw_kernel``, ``counts_kernel``, ``finish::``,
-    ``probe::``, ``choose_kernel``) beside the launches the wrappers
-    counted for the same rounds (``fused.launches``, ``prng.launches``,
-    ``observe.launches``, ``finish``'s, ``probe.launches``,
-    ``program.choose_launches``, settled); the caller holds them equal."""
+    ``probe::``, ``choose_kernel``, ``loop_kernel``, ``table_kernel``)
+    beside the launches the wrappers counted for the same rounds
+    (``fused.launches``, ``prng.launches``, ``observe.launches``,
+    ``finish``'s, ``probe.launches``, ``program.choose_launches``,
+    ``loop_launches``, ``round_table.launches``, settled); the caller
+    holds them equal."""
     from torch.profiler import ProfilerActivity, profile
 
     from consul_tpu_torch import prng
     from consul_tpu_torch.gossip import (finish, finish_slots, fused, kernel,
-                                         observe, probe, program)
+                                         observe, probe, program,
+                                         round_table)
     from consul_tpu_torch.profile_round import (device_kernels,
                                                 device_timeline,
-                                                self_device_us)
+                                                fresh_loops, self_device_us)
 
     key = prng.key(42)
     carry = {"flight": kernel.init_flight(),
@@ -4344,12 +4439,17 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
         return out
 
     st = run(st0)
+    if graphed:
+        # The loop built again after a profiler session, by a call.
+        fresh_loops()
+        st = run(st)
     _settle()
     tails0, draws0, obs0 = fused.launches, prng.launches, observe.launches
     fire0, wipe0 = finish.fire_launches, finish.wipe_launches
     probe0 = probe.launches
     slots0 = finish_slots.launches
     choose0 = program.choose_launches
+    loop0, table0 = program.loop_launches, round_table.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -4387,6 +4487,16 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
             "choose_kernels_profiled": seen("round_graph::choose_kernel"),
             "choose_launches_counted": program.choose_launches - choose0,
             "set_condition_kernels_profiled": seen("set_condition"),
+            "loop_kernels_profiled": seen("round_graph::loop_kernel"),
+            "loop_launches_counted": program.loop_launches - loop0,
+            "table_kernels_profiled": seen("round_table::table_kernel"),
+            "table_launches_counted": round_table.launches - table0,
+            "loop_device_ms_per_round": sum(
+                self_device_us(e) for e in rows
+                if "round_graph::loop_kernel" in e.key) / 1e3 / RP_PROFILED,
+            "table_device_ms_per_call": sum(
+                self_device_us(e) for e in rows
+                if "round_table::table_kernel" in e.key) / 1e3,
             "choose_device_ms_per_round": sum(
                 self_device_us(e) for e in rows
                 if "round_graph::choose_kernel" in e.key) / 1e3
@@ -4403,6 +4513,23 @@ def _rp_profile(p, fail_t, st0, graphed: bool,
             "observe_device_ms_per_round": sum(
                 self_device_us(e) for e in rows
                 if "observe::counts_kernel" in e.key) / 1e3 / RP_PROFILED}
+
+
+def _rp_profile_looped(observers_too: bool = True) -> list:
+    """``_rp_profile`` of the graphed churn route, without and with the
+    observers, in this process: run in a fresh worker process by
+    round_program.  On the H100 the profiler's view of the kernels in a
+    loop graph's conditional bodies depends on the profiler sessions the
+    process has seen: a loop instantiated before any session shows each
+    node once a launch, and one instantiated after several sessions of
+    this script (``loop_profiled``, the eager profile) showed none.  A
+    fresh process builds its program, then ``_rp_profile`` builds the loop
+    again after one profiler session (``profile_round.fresh_loops``),
+    which shows every round."""
+    total = RP["warm"] + RP["block"] * RP["blocks"]
+    p, fail_t, _, st0 = _rp_inputs(1000, None, total)
+    return [_rp_profile(p, fail_t, st0, True, observers=obs)
+            for obs in ((False, True) if observers_too else (False,))]
 
 
 def _roll_sharded_views(sc, xs, o: int) -> tuple:
@@ -4471,41 +4598,577 @@ def _gathers_vs_views() -> dict:
     return out
 
 
+# -- the loop: a chunk of rounds as one graph launch --------------------------
+
+# The table kernel's draws of (key, first round, rows) and their
+# parameters: the 1M main path's, the multi-DC LAN pool's, the WAN pool's
+# (12 servers) and the 16,000 paths'.
+TABLE_DRAWS = 320
+# A hash's integer instructions on the busiest execution unit (the bits
+# loop's SASS count, ``sass_count.py --threefry``): the table's
+# operations bound.
+HASH_OPS = 51
+# The loop at 16,000 nodes: 600 rounds a call (a chunk of 512, one of 88).
+LOOP_PATH = dict(n=16_000, S=64, steps=600, seed=31)
+
+
+def _table_params() -> dict:
+    from consul_tpu_torch.gossip.params import lan_profile, wan_profile
+    return {"lan_1m": lan_profile(1_000_000, slots=64, hot_slots=0),
+            "lan_250k": lan_profile(250_000, slots=64),
+            "wan_12": wan_profile(12, slots=32),
+            "lan_16k": lan_profile(16_000, slots=64)}
+
+
+def _table_hashes(p, events: bool) -> int:
+    """threefry hashes a row (``csrc/round_table.cu``'s count)."""
+    return 2 * p.fanout + 9 if events else (3 * p.fanout
+                                            + 2 * p.indirect_k + 26)
+
+
+def _table_job(p, key, rnd0: int, rows: int, events: bool, nem=None,
+               cursor: int = 0, ring: int = 1):
+    """A fresh ``round_table.Job`` on the card (its buffers poisoned with
+    -7), with the variant column and counters of a round table."""
+    from consul_tpu_torch.gossip import round_args, round_table
+    width = (round_args.event_layout(p.fanout).width if events
+             else round_args.layout(p.fanout, p.indirect_k).width)
+    full = torch.full
+    job = round_table.Job(p, key, rnd0, full((rows, width), -7,
+                                             dtype=torch.int32,
+                                             device="cuda"), events=events)
+    if events:
+        return job
+    return job._replace(variant=full((rows,), -7, dtype=torch.int32,
+                                     device="cuda"),
+                        nem=nem, left=full((1,), -7, dtype=torch.int32,
+                                           device="cuda"),
+                        step=full((1,), -7, dtype=torch.int64, device="cuda"),
+                        cursor=cursor, ring=ring)
+
+
+def _table_held(j, rows: int) -> int:
+    """Words of a filled job that differ from the plain version (its
+    table, variant column, counters); 0 when it holds."""
+    from consul_tpu_torch.gossip import kernel, round_args
+    if j.events:
+        want = round_args.build_events(j.p, j.key, j.rnd0, rows)
+    else:
+        want = round_args.build(j.p, j.key, j.rnd0, rows, j.cursor, j.ring)
+    bad = int((j.table.cpu() != torch.from_numpy(want)).sum())
+    if j.variant is not None:
+        codes = kernel.variant_codes(j.p, j.nem, j.rnd0, rows)
+        bad += int((j.variant.cpu() != torch.from_numpy(codes)).sum())
+        bad += int(j.left) != rows
+        bad += int(j.step) != 0
+    return bad
+
+
+def table_vs_plain(draws: int = TABLE_DRAWS) -> dict:
+    """``round_table.fill`` on the card (``table_kernel``) against its plain
+    version word for word (``round_args.build`` with a flight ring,
+    ``build_events``, and the variant column against
+    ``kernel.variant_codes``, which the host holds to ``round_variant``)
+    over ``draws`` draws of (parameters, key, first round, rows): rows 1 to
+    512, first rounds 0 to 2**31 - rows, every nemesis catalog schedule in
+    turn; then the multi-DC call's launch (4 LAN round and event tables
+    and the WAN pool's two, one launch) against ``build_pools``.  The
+    kernel's time at 512 and 30 rows (CUDA-graph replays; and back to back
+    through the wrapper) beside the plain version's (the host build and
+    its copy to the card) and the bound: the hashes' integer instructions
+    over the INT32 rate, or the rows' bytes over the memory rate."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import nemesis, round_args, round_table
+    params = _table_params()
+    names = sorted(params)
+    scen = sorted(nemesis.CATALOG)
+    nems = {}
+    rng = np.random.default_rng(22)
+    t0 = time.perf_counter()
+    bad, held, launches0 = [], 0, round_table.launches
+    for i in range(draws):
+        name = names[i % len(names)]
+        p = params[name]
+        key = rng.integers(0, 2**32, 2, dtype=np.uint64).astype(np.uint32)
+        rows = int(rng.choice([1, 2, 30, 511, 512]) if i % 3
+                   else rng.integers(1, 513))
+        rnd0 = int(rng.choice([0, 149, 2**31 - 512]) if i % 4 == 0
+                   else rng.integers(0, 2**31 - rows))
+        events = i % 5 == 4
+        nem = None
+        if not events and i % 2:
+            sc = scen[(i // 2) % len(scen)]
+            if (sc, p.n) not in nems:
+                nems[sc, p.n] = nemesis.build(sc, p.n).nem
+            nem = nems[sc, p.n]
+            rnd0 = int(rng.integers(0, 400)) if i % 4 != 0 else rnd0
+        j = _table_job(p, key, rnd0, rows, events, nem,
+                       int(rng.integers(0, 2**20)), int(rng.choice([1, 256])))
+        round_table.fill([j], rows)
+        n_bad = _table_held(j, rows)
+        held += 1
+        if n_bad:
+            bad.append({"draw": i, "params": name, "rows": rows,
+                        "rnd0": rnd0, "events": events, "words": n_bad})
+    # The multi-DC call's tables: D LAN round and event tables, the WAN
+    # pool's two, one launch, against build_pools' vectorised pass.
+    D, lan, wan = 4, params["lan_250k"], params["wan_12"]
+    keys = np.stack([rng.integers(0, 2**32, 2, dtype=np.uint64).astype(
+        np.uint32) for _ in range(D + 1)])
+    rounds = [int(r) for r in rng.integers(0, 10_000, 2 * D + 2)]
+    rows = 30
+    jobs = ([_table_job(lan, keys[d], rounds[d], rows, False)
+             ._replace(variant=None, left=None) for d in range(D)]
+            + [_table_job(lan, keys[d], rounds[D + d], rows, True)
+               for d in range(D)]
+            + [_table_job(wan, keys[D], rounds[2 * D], rows, False)
+               ._replace(variant=None, left=None),
+               _table_job(wan, keys[D], rounds[2 * D + 1], rows, True)])
+    before = round_table.launches
+    round_table.fill(jobs, rows)
+    pools_launches = round_table.launches - before
+    want = (round_args.build_pools(lan, keys[:D], rounds[:D], rows),
+            round_args.build_pools(lan, keys[:D], rounds[D:2 * D], rows,
+                                   events=True))
+    for d in range(D):
+        for j, w in ((jobs[d], want[0][d]), (jobs[D + d], want[1][d])):
+            if not np.array_equal(j.table.cpu().numpy(), w):
+                bad.append({"pools": d, "events": j.events})
+    for j in jobs[2 * D:]:
+        if _table_held(j, rows):
+            bad.append({"pools": "wan", "events": j.events})
+    if int(jobs[0].step) != 0:
+        bad.append({"pools": "step"})
+    timed = {}
+    p = params["lan_1m"]
+    for rows in (512, 30):
+        j = _table_job(p, prng.key(5), 1000, rows, False, cursor=17,
+                       ring=256)
+        fill = functools.partial(round_table.fill, [j], rows)
+        ms = graph_ms(fill)
+        eager_ms = cuda_ms(fill, 50)
+        host = _table_job(p, prng.key(5), 1000, rows, False, cursor=17,
+                          ring=256)
+        plain = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            round_table.fill_ref([host], rows)
+            torch.cuda.synchronize()
+            plain.append((time.perf_counter() - t1) * 1e3)
+        ops = rows * _table_hashes(p, False) * HASH_OPS
+        nbytes = rows * (j.table.shape[1] + 1) * 4 + 12
+        op_ms = ops / INT32_OPS_PER_S * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        timed[rows] = {"ms": ms, "eager_ms": eager_ms,
+                       "plain_ms": sum(plain) / len(plain),
+                       "plain_ms_each": plain, "hashes": ops // HASH_OPS,
+                       "bytes": nbytes, "bound_ms": max(op_ms, byte_ms),
+                       "bound_by": "operations" if op_ms >= byte_ms
+                       else "bytes", "share_of_bound": max(op_ms, byte_ms)
+                       / ms}
+        if _table_held(j, rows) or _table_held(host, rows):
+            bad.append({"timed": rows})
+    res = {"phase": "table", "draws": draws, "held": held,
+           "launches": round_table.launches - launches0,
+           "pools_launches": pools_launches, "tolerance": 0,
+           "max_abs_err": 0 if not bad else None, "mismatched": bad,
+           "timed": timed, "seconds": time.perf_counter() - t0}
+    emit(res)
+    if bad or pools_launches != 1:
+        raise AssertionError(f"table: {len(bad)} draws differ from the "
+                             f"plain version ({bad[:4]}), "
+                             f"{pools_launches} launches for the pools")
+    return res
+
+
+def _toy_loop(codes: list):
+    """A loop of toy rounds over ``codes`` on the card
+    (``round_graph_loop_toy``) and its buffers: ``(run(n, column) ->
+    (held, rounds), launch_ms(n, column), close())``; ``run`` launches it
+    on a chunk of ``n`` rounds of ``column`` and holds every round's IF
+    body, the step, the rounds left and the runs against
+    ``program.loop_ref``."""
+    from consul_tpu_torch.gossip import program
+    lib = program._lib()
+    rows = program.TABLE_ROWS
+    col = torch.zeros(rows, dtype=torch.int32, device="cuda")
+    left = torch.zeros(1, dtype=torch.int32, device="cuda")
+    step = torch.zeros(1, dtype=torch.int64, device="cuda")
+    runs = torch.zeros(program.LOOP_WORDS, dtype=torch.int64, device="cuda")
+    order = torch.full((rows + 1,), -1, dtype=torch.int32, device="cuda")
+    args = program._LoopArgs(left.data_ptr(), step.data_ptr(),
+                             col.data_ptr(), runs.data_ptr(), rows,
+                             len(codes))
+    for b, c in enumerate(codes):
+        args.code[b] = c
+    graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
+    program._check(lib.round_graph_loop_toy(ctypes.addressof(args),
+                                            order.data_ptr(),
+                                            ctypes.byref(graph),
+                                            ctypes.byref(exe)),
+                   "building the toy loop")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def reset(n, column):
+        col.copy_(column)
+        left.fill_(n)
+        step.zero_()
+        runs.zero_()
+        order.fill_(-1)
+
+    def run(n: int, column) -> tuple:
+        reset(n, column)
+        program._check(lib.round_graph_launch(exe, stream), "the toy loop")
+        torch.cuda.synchronize()
+        h = [column.clone(), torch.tensor([n], dtype=torch.int32),
+             torch.zeros(1, dtype=torch.int64),
+             torch.zeros(program.LOOP_WORDS, dtype=torch.int64)]
+        want = program.loop_ref(codes, *h)
+        got = order.cpu().tolist()
+        k = len(want)
+        return (got[:k] == want and all(x == -1 for x in got[k:])
+                and int(left) == int(h[1]) and int(step) == int(h[2])
+                and torch.equal(runs.cpu(), h[3])), k
+
+    def launch_ms(n: int, column, reps: int = 20) -> float:
+        out = []
+        for _ in range(reps):
+            reset(n, column)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            program._check(lib.round_graph_launch(exe, stream),
+                           "the toy loop")
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return sum(out) / len(out)
+
+    return run, launch_ms, lambda: lib.round_graph_destroy(graph, exe)
+
+
+def loop_vs_plain() -> dict:
+    """The loop kernel in a loop of toy rounds (``_toy_loop``: a WHILE
+    node, the loop kernel, an IF node a variant each holding one toy
+    round) on the card against its plain version ``program.loop_ref``:
+    10 variants, chunks of 0, 1, 2, 511 and 512 rows of a variant column
+    drawn from them, twice from one executable, and a column naming, at
+    row 300, a code the loop was not given: each round's IF body in order,
+    the step, the rounds left and the runs, tolerance 0.  Times (CUDA
+    events around each launch) with 10 variants and with 2 (the churn
+    paths'): a round of a 512-round chunk (the loop kernel, the IF nodes
+    and one toy kernel) and a 0-round launch (the WHILE node and one loop
+    kernel); beside them the plain version's host ms a round and the bytes
+    bound of the loop kernel's reads and writes."""
+    from consul_tpu_torch.gossip import kernel, program
+    rows = program.TABLE_ROWS
+    g = torch.Generator().manual_seed(9)
+    codes = torch.randperm(kernel.VARIANT_CODES, generator=g)[:10].tolist()
+    bad, timed = [], {}
+    for V in (10, 2):
+        col = torch.tensor(codes[:V], dtype=torch.int32)[
+            torch.randint(0, V, (rows,), generator=g)]
+        run, launch_ms, close = _toy_loop(codes[:V])
+        if V == 10:
+            for n in (0, 1, 2, 511, 512, 512):
+                ok, k = run(n, col)
+                if not ok or k != n:
+                    bad.append(f"{n} rounds")
+            faulty = col.clone()
+            faulty[300] = next(c for c in range(kernel.VARIANT_CODES)
+                               if c not in codes)
+            ok, k = run(rows, faulty)
+            if not ok or k != 300:
+                bad.append(f"a code it was not given: {k} rounds")
+        chunk_ms = launch_ms(rows, col)
+        timed[V] = {"chunk_ms": chunk_ms, "ms_per_round": chunk_ms / rows,
+                    "empty_launch_ms": launch_ms(0, col)}
+        close()
+    h = [col.clone(), torch.tensor([rows], dtype=torch.int32),
+         torch.zeros(1, dtype=torch.int64), None]
+    t0 = time.perf_counter()
+    program.loop_ref(codes[:2], *h)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / rows
+    # A round's loop kernel reads the rounds left (4), the step (8), the
+    # code (4) and a run counter (8), and writes the rounds left and the
+    # run counter (12).
+    bound_ms = 36 / HBM_BYTES_PER_S * 1e3
+    res = {"phase": "loop_kernel", "rows": rows, "tolerance": 0,
+           "max_abs_err": 0 if not bad else None, "mismatched": bad,
+           "timed": timed, "ms_per_round": timed[2]["ms_per_round"],
+           "empty_launch_ms": timed[2]["empty_launch_ms"],
+           "plain_ms_per_round": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes"}
+    emit(res)
+    if bad:
+        raise AssertionError(f"loop_kernel: the loop differs from "
+                             f"loop_ref in {bad}")
+    return res
+
+
+@contextlib.contextmanager
+def _per_round_replays():
+    """While the block runs, the round programs run each chunk as a replay
+    a round (``RoundProgram.run(replays=True)``: the loop's plain
+    version) in place of the loop."""
+    from consul_tpu_torch.gossip import program
+    run = program.RoundProgram.run
+    program.RoundProgram.run = functools.partialmethod(run, replays=True)
+    try:
+        yield
+    finally:
+        program.RoundProgram.run = run
+
+
+def _loop_gate(what: str, calls: list, looped: bool = True) -> dict:
+    """The graph, table and loop kernel launches since the last
+    ``_reset_counts`` on a single-pool path whose calls ran ``calls``
+    rounds each: looped, ceil(rounds / 512) graph launches and table
+    launches a call and one loop kernel a round; with per-round replays a
+    graph launch a round (the same tables).  Raises unless exactly so."""
+    from consul_tpu_torch.gossip import program, round_table
+    _settle()
+    chunks = sum(-(-c // program.TABLE_ROWS) for c in calls)
+    rounds = sum(calls)
+    got = {"graph_launches": program.launches,
+           "table_launches": round_table.launches,
+           "loop_launches": program.loop_launches,
+           "graph_launches_expected": chunks if looped else rounds,
+           "table_launches_expected": chunks,
+           "loop_launches_expected": rounds if looped else 0}
+    if any(got[k] != got[f"{k}_expected"] for k in
+           ("graph_launches", "table_launches", "loop_launches")):
+        raise AssertionError(f"{what}: launches {got}")
+    return got
+
+
+def _loop_case(name: str, n: int, S: int, steps: int, seed: int):
+    """A 16,000-node case of ``loop_paths``: parameters, ground truth, the
+    run's keywords and its start state on the card."""
+    from consul_tpu_torch.gossip import kernel, nemesis
+    p = _full_path_params(n, S)
+    fail, join, member0 = _full_path_inputs(n, steps, seed)
+    kw = dict(trace=True, flight=kernel.init_flight(device="cuda"),
+              hist=kernel.init_hist(device="cuda"),
+              join_round=torch.from_numpy(join).cuda())
+    if name == "partition_heal":
+        sc = nemesis.build(name, n)
+        fail = np.minimum(fail, sc.fail_round)
+        kw.update(nem=sc.nem, join_round=torch.from_numpy(
+            np.minimum(join, sc.join_round)).cuda())
+    st = kernel.init_state(p, device="cuda")._replace(
+        member=torch.from_numpy(member0).cuda())
+    return p, torch.from_numpy(fail).cuda(), kw, st
+
+
+def loop_paths(n: int, S: int, steps: int, seed: int) -> dict:
+    """``run_rounds`` as the card runs it (looped) against the per-round
+    replays (``_per_round_replays``) and the eager route, from one state,
+    at n = 16,000 over ``steps`` rounds in one call (two chunks): churn
+    with joins and the observers threaded, on 1 and 8 shards, and
+    ``partition_heal`` across its window (its join rounds and window
+    variants); carry and trace bit-identical, each route's launch gates
+    exact (``_loop_gate``, ``_round_gate``), the variants the calls met
+    and the loop's builds."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import kernel, program
+    t0 = time.perf_counter()
+    rows, bad = {}, []
+    for name, ndev in (("churn", None), ("churn", 8),
+                       ("partition_heal", None)):
+        p, fail_t, kw, st0 = _loop_case(name, n, S, steps, seed)
+        outs, row = {}, {}
+        for route in ("looped", "replays", "eager"):
+            a = dict(kw, graphed=route != "eager")
+            _reset_counts()
+            builds0 = program.loop_builds
+            with (_per_round_replays() if route == "replays"
+                  else contextlib.nullcontext()):
+                if ndev:
+                    out = kernel.run_rounds_sharded(st0, prng.key(seed),
+                                                    fail_t, p, steps,
+                                                    ndev=ndev, **a)
+                else:
+                    out = kernel.run_rounds(st0, prng.key(seed), fail_t, p,
+                                            steps, **a)
+            torch.cuda.synchronize()
+            outs[route] = out
+            r = {"round_counts": _round_gate(f"loop {name} {route}"),
+                 "tail_rounds": dict(kernel.tail_rounds),
+                 "join_rounds": kernel.join_rounds}
+            if route != "eager":
+                r.update(_loop_gate(f"loop {name} {route}", [steps],
+                                    route == "looped"),
+                         loop_builds=program.loop_builds - builds0)
+            row[route] = r
+        variants = sorted(set(kernel.variant_codes(
+            p, kw.get("nem"), 0, steps).tolist()))
+        (cl, tl), (cr, tr), (ce, te) = (outs[k] for k in
+                                        ("looped", "replays", "eager"))
+        diverged = {"replays": _diverged(list(zip(cl, cr)) + [(tl, tr)]),
+                    "eager": _diverged(list(zip(cl, ce)) + [(tl, te)])}
+        key = name if ndev is None else f"{name}_{ndev}_shards"
+        rows[key] = {"routes": row, "variant_codes": variants,
+                     "diverged": diverged}
+        if diverged["replays"] or diverged["eager"]:
+            bad.append(f"{key}: {diverged}")
+        if row["looped"]["tail_rounds"] != row["eager"]["tail_rounds"]:
+            bad.append(f"{key}: tails {row['looped']['tail_rounds']} vs "
+                       f"{row['eager']['tail_rounds']}")
+        if name == "partition_heal" and len(variants) < 3:
+            bad.append(f"{key}: only variants {variants}")
+        del outs, p, fail_t, kw, st0
+    res = {"phase": "loop_paths", "n": n, "slots": S, "steps": steps,
+           "cases": rows, "seconds": time.perf_counter() - t0}
+    emit(res)
+    if bad:
+        raise AssertionError(f"loop_paths: {bad}")
+    return res
+
+
+# The kernels a looped call launches, by a part of their device names,
+# and the host counter of each.
+LOOP_KERNELS = {"tail": "dissem_tail::tail_kernel", "probe": "probe::",
+                "finish_slots": "finish_slots::",
+                "fire": "finish::fire_kernel", "wipe": "finish::wipe_kernel",
+                "observe": "observe::counts_kernel",
+                "choose": "round_graph::choose_kernel",
+                "loop": "round_graph::loop_kernel",
+                "table": "round_table::table_kernel"}
+
+
+def _loop_counted() -> dict:
+    from consul_tpu_torch.gossip import (finish, finish_slots, fused,
+                                         observe, probe, program,
+                                         round_table)
+    _settle()
+    return {"tail": fused.launches, "probe": probe.launches,
+            "finish_slots": finish_slots.launches,
+            "fire": finish.fire_launches, "wipe": finish.wipe_launches,
+            "observe": observe.launches,
+            "choose": program.choose_launches,
+            "loop": program.loop_launches, "table": round_table.launches}
+
+
+def loop_profiled(n: int, S: int, steps: int, seed: int) -> dict:
+    """A looped call (``_loop_case``'s churn at 16,000, the observers
+    threaded, ``steps`` rounds: two chunks) under the profiler: each
+    kernel the profiler saw run equals the launches the host counted for
+    the call, settled (``LOOP_KERNELS``).  The loop is built again after
+    a profiler session first (``profile_round.fresh_loops``); a session
+    before that, on the loop built before any session in the process, is
+    recorded beside it, ungated."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import kernel
+    from consul_tpu_torch.profile_round import device_kernels, fresh_loops
+    p, fail_t, kw, st0 = _loop_case("churn", n, S, steps, seed)
+
+    def run():
+        kernel.run_rounds(st0, prng.key(seed), fail_t, p, steps, **kw)
+        torch.cuda.synchronize()
+
+    def profiled() -> dict:
+        c0 = _loop_counted()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+        c1 = _loop_counted()
+        rows = device_kernels(prof)
+        return {k: {"profiled": sum(e.count for e in rows if name in e.key),
+                    "counted": c1[k] - c0[k]}
+                for k, name in LOOP_KERNELS.items()}
+
+    run()
+    before = profiled()
+    fresh_loops()
+    run()
+    after = profiled()
+    res = {"phase": "loop_profiled", "n": n, "steps": steps,
+           "loop_built_before_any_session": before,
+           "loop_built_after_a_session": after}
+    emit(res)
+    bad = [k for k, r in after.items()
+           if r["profiled"] != r["counted"] or r["counted"] == 0]
+    if bad:
+        raise AssertionError(f"loop_profiled: the profiler's kernels differ "
+                             f"from the host's counts in {bad}: {after}")
+    return res
+
+
+def loop_phase() -> dict:
+    """The loop's checks: first the nested graph (a WHILE node whose body
+    holds an IF node holding a cond's IF node holding a captured segment
+    with a programmatic edge: the tail then decide, ``pdl_check`` in the
+    loop's form), then the loop kernel against its plain version, the
+    table kernel against its host twin, the looped paths at 16,000, and a
+    looped call's kernels as the profiler saw them against the host's
+    counts."""
+    nested = pdl_check(1, looped=True)
+    emit({"phase": "loop_nested", **nested})
+    if not (nested["kept"] and nested.get("held")):
+        raise AssertionError(f"loop: the nested graph did not keep and "
+                             f"hold its programmatic edge: {nested}")
+    return {"nested": nested, "kernel": loop_vs_plain(),
+            "table": table_vs_plain(), "paths": loop_paths(**LOOP_PATH),
+            "profiled": loop_profiled(**LOOP_PATH)}
+
+
 def round_program_phase(card_line: str) -> dict:
-    """The graphed round (``gossip/program.py``) against the eager round,
-    in this call, at 1M nodes: churn on one device and on 8 shards,
-    healthy, ``partition_heal`` across its window's start.  Final state,
-    flight ring, hist banks and the last block's trace bit-identical; the
-    graphed call reads the device twice (round counter, flight cursor)
-    whatever its rounds; one graph launch a round; rounds/s of both
-    routes, device kernels a round and idle share (profiled, churn; there
-    the tail's and the draws' kernels the profiler saw run must equal the
-    launches the wrappers counted), captures, their seconds and the
-    pool's bytes."""
+    """The graphed round (``gossip/program.py``: looped, and with a replay
+    a round, the loop's plain version) against the eager round, in this
+    call, at 1M nodes: churn on one device (with the observers threaded
+    and without) and on 8 shards, healthy, ``partition_heal`` across its
+    window's start.  Final state, flight ring, hist banks and the last
+    block's trace bit-identical; the graphed call reads the device twice
+    (round counter, flight cursor; once without the ring) whatever its
+    rounds; a table launch and a graph launch a call looped, a graph
+    launch a round replayed, the loop kernel once a looped round;
+    rounds/s of the three routes, device kernels a round and idle share
+    (profiled, churn, the looped route in a fresh worker process: there
+    each kernel the profiler saw run must equal the launches the wrappers
+    counted), captures, their seconds and the pool's bytes."""
     from consul_tpu_torch.gossip import kernel
 
-    cases = {"churn": (1000, None, None), "churn_8_shards": (1000, None, 8),
-             "healthy": (0, None, None),
-             "partition_heal": (0, "partition_heal", None)}
+    cases = {"churn": (1000, None, None, True),
+             "churn_no_observers": (1000, None, None, False),
+             "churn_8_shards": (1000, None, 8, True),
+             "healthy": (0, None, None, True),
+             "partition_heal": (0, "partition_heal", None, True)}
     total = RP["warm"] + RP["block"] * RP["blocks"]
     rows, bad = {}, []
     t0 = time.perf_counter()
-    for name, (ppm, scenario, ndev) in cases.items():
+    for name, (ppm, scenario, ndev, observers) in cases.items():
         p, fail_t, kw, st0 = _rp_inputs(ppm, scenario, total)
-        eager = _rp_route(p, fail_t, kw, st0, ndev, graphed=False)
-        graphed = _rp_route(p, fail_t, kw, st0, ndev, graphed=True)
-        diverged = _diverged(list(zip(eager.pop("carry"),
-                                      graphed.pop("carry")))
-                             + [(eager.pop("trace"), graphed.pop("trace"))])
-        row = {"eager": eager, "graphed": graphed, "diverged": diverged,
-               "speedup": graphed["rounds_per_s"] / eager["rounds_per_s"]}
+        eager, graphed, replays = (
+            _rp_route(p, fail_t, kw, st0, ndev, graphed=route != "eager",
+                      replays=route == "replays", observers=observers)
+            for route in ("eager", "graphed", "replays"))
+        carry, trace = graphed.pop("carry"), graphed.pop("trace")
+        diverged = {other: _diverged(list(zip(carry, r.pop("carry")))
+                                     + ([(trace, r.pop("trace"))]
+                                        if observers else []))
+                    for other, r in (("eager", eager),
+                                     ("replays", replays))}
+        row = {"eager": eager, "graphed": graphed, "replays": replays,
+               "diverged": diverged,
+               "speedup": graphed["rounds_per_s"] / eager["rounds_per_s"],
+               "speedup_over_replays": graphed["rounds_per_s"]
+               / replays["rounds_per_s"]}
         if name == "churn":
+            # The graphed profiles (without and with the observers, the
+            # plane's route) in a fresh process: ``_rp_profile_looped``.
+            with ProcessPoolExecutor(1, mp_context=multiprocessing
+                                     .get_context("spawn")) as child:
+                looped = child.submit(_rp_profile_looped).result()
             for route in ("eager", "graphed"):
-                prof = _rp_profile(p, fail_t, st0, route == "graphed")
+                prof = (looped[0] if route == "graphed"
+                        else _rp_profile(p, fail_t, st0, False))
                 row[route].update(prof)
-                # With the observers threaded (graphed, the plane's route).
                 if route == "graphed":
-                    obs = _rp_profile(p, fail_t, st0, True, observers=True)
+                    obs = looped[1]
                     row["graphed_observers"] = obs
                 # The counts are observed, not derived from the capture:
                 # each kernel the wrappers counted ran on the card.
@@ -4515,13 +5178,15 @@ def round_program_phase(card_line: str) -> dict:
                           for k in ("tail", "draw", "fire", "wipe", "probe",
                                     "finish_slots")]
                 if route == "graphed":
-                    # The chooser node: one a replayed round (no join
-                    # round here), none eagerly; no set_condition left.
-                    checks += [(route, prof, "choose")]
+                    # The chooser node: one a looped round (no join round
+                    # here), none eagerly; no set_condition left; the loop
+                    # kernel one a round, the table kernel one a call.
+                    checks += [(route, prof, k)
+                               for k in ("choose", "loop", "table")]
                     checks += [("graphed_observers", obs, k)
                                for k in ("tail", "draw", "observe", "fire",
                                          "wipe", "probe", "finish_slots",
-                                         "choose")]
+                                         "choose", "loop", "table")]
                     for label, pr in ((route, prof),
                                       ("graphed_observers", obs)):
                         if pr["choose_kernels_profiled"] != RP_PROFILED \
@@ -4546,18 +5211,20 @@ def round_program_phase(card_line: str) -> dict:
                     bad.append(f"{name} {route}: heard_counts launched "
                                f"with no observer threaded")
         rows[name] = row
-        if diverged:
+        if diverged["eager"] or diverged["replays"]:
             bad.append(f"{name}: diverged in {diverged}")
-        if graphed["host_syncs_per_call"] != 2:
-            bad.append(f"{name}: {graphed['host_syncs_per_call']} host "
-                       f"reads a graphed call")
-        if graphed["graph_launches_per_round"] != 1:
-            bad.append(f"{name}: {graphed['graph_launches_per_round']} "
-                       f"graph launches a round")
+        # The round counter, and the flight cursor where the ring is
+        # threaded.
+        for route, r in (("graphed", graphed), ("replays", replays)):
+            if r["host_syncs_per_call"] != 1 + observers:
+                bad.append(f"{name} {route}: {r['host_syncs_per_call']} "
+                           f"host reads a graphed call")
         # The observers' kernel: one launch a round for the trace and the
-        # flight row, one a non-quiescent round for the spread, both
-        # routes.
-        for route, r in (("eager", eager), ("graphed", graphed)):
+        # flight row, one a non-quiescent round for the spread, every
+        # route; a chunk's graph launches and tables.
+        for route, r in (("eager", eager), ("graphed", graphed),
+                         ("replays", replays)):
+            bad += _rp_calls_gate(name, route, r)
             if r["observe_launches"] != r["observe_launches_expected"]:
                 bad.append(f"{name} {route}: {r['observe_launches']} "
                            f"heard_counts launches, expected "
@@ -4792,15 +5459,19 @@ def crossval_phase(pool, cpu_seed0) -> dict:
            "merge_launches": fused.merge_launches, **_draws(),
            "observe_launches": observe.launches, **_round_counts(),
            "graph_launches": program.launches,
+           "loop_launches": program.loop_launches,
+           "round_rounds": program.round_replays,
            "host_syncs": kernel.host_syncs, "diverged": bad}
     emit(res)
     _draw_gate("crossval", res, 0)
     _round_gate("crossval")
     # Every membership round threads the trace (no hist): the trace's
     # holders are one launch of the observers' kernel a round, every
-    # round graphed (the event rounds, a flood launch each, are the rest
-    # of the graph launches).
-    rounds = program.launches - events.launches
+    # round looped (one loop kernel a round).
+    rounds = program.round_replays
+    if rounds != program.loop_launches:
+        raise AssertionError(f"crossval: {program.loop_launches} loop "
+                             f"kernels in {rounds} rounds")
     if observe.launches == 0 or observe.launches != rounds:
         raise AssertionError(f"crossval: {observe.launches} heard_counts "
                              f"launches in {rounds} rounds")
@@ -4983,7 +5654,7 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
     hist banks and the coverage trace bit-identical."""
     from consul_tpu_torch.gossip import events, fused, kernel, observe
     from consul_tpu_torch.gossip import multidc as md
-    from consul_tpu_torch.gossip import program
+    from consul_tpu_torch.gossip import program, round_table
 
     t0 = time.perf_counter()
     runs, bad = {}, []
@@ -5000,6 +5671,7 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
                "finish": _round_counts(),
                "flood_launches": events.launches,
                "graph_launches": program.launches,
+               "table_launches": round_table.launches,
                "host_syncs": kernel.host_syncs,
                "tail_rounds": dict(kernel.tail_rounds)}
         _reset_counts()
@@ -5052,13 +5724,16 @@ def multidc_full_path(cpu: dict, D: int, n: int, S: int, steps: int,
             bad.append(f"hot_slots={hot}: {row['draw_launches']} draw "
                        f"launches for {row['draw_calls']} device draws")
         # The card's route is the graphed one: D + 1 floods, 2 D + 3
-        # graph launches a round, one host read a call (two calls).
+        # graph launches a round, one host read and one table launch (every
+        # pool's tables) a call (two calls).
         if row["flood_launches"] != (D + 1) * steps \
                 or row["graph_launches"] != (2 * D + 3) * steps \
-                or row["host_syncs"] != 2:
+                or row["host_syncs"] != 2 or row["table_launches"] != 2:
             bad.append(f"hot_slots={hot}: {row['flood_launches']} floods, "
                        f"{row['graph_launches']} graph launches, "
-                       f"{row['host_syncs']} host reads in {steps} rounds")
+                       f"{row['host_syncs']} host reads, "
+                       f"{row['table_launches']} table launches in {steps} "
+                       f"rounds")
     res = {"phase": "multidc_full_path", "D": D, "n_lan": n, "slots": S,
            "steps": steps, "seconds": time.perf_counter() - t0,
            "runs": runs, "bad": bad}
@@ -5076,23 +5751,29 @@ def _mdc_route(p, lan_fail_t, wan_fail_t, key, warm: int, block: int,
     Returns the route's numbers and its state after each call."""
     from consul_tpu_torch.gossip import events, fused, kernel
     from consul_tpu_torch.gossip import multidc as md
-    from consul_tpu_torch.gossip import program
+    from consul_tpu_torch.gossip import program, round_table
 
     total = warm + block * blocks
+    # A call's tables: the host's build on the eager route, the table
+    # kernel's fill (one launch for every pool) on the graphed one.
     table_s = []
-    tables = md._tables
+    builds = {(md, "_tables"): md._tables,
+              (md.round_table, "fill"): md.round_table.fill}
 
-    def timed_tables(*a):
-        t = time.perf_counter()
-        out = tables(*a)
-        table_s.append(time.perf_counter() - t)
-        return out
+    def timed(fn):
+        def call(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            table_s.append(time.perf_counter() - t)
+            return out
+        return call
 
     torch.cuda.reset_peak_memory_stats()
     state = md.fire_in_dc(md.init_multidc(p), 0, 7, p)
     _reset_counts()
     cap0 = (program.captures, program.capture_s)
-    md._tables = timed_tables
+    for (mod, attr), fn in builds.items():
+        setattr(mod, attr, timed(fn))
     try:
         t0 = time.perf_counter()
         state, cov = md.run_multidc_rounds(state, key, lan_fail_t, wan_fail_t,
@@ -5110,7 +5791,8 @@ def _mdc_route(p, lan_fail_t, wan_fail_t, key, warm: int, block: int,
             covs.append(cov)
             states.append(state)
     finally:
-        md._tables = tables
+        for (mod, attr), fn in builds.items():
+            setattr(mod, attr, fn)
     _settle()
     calls = 1 + blocks
     cov = torch.cat(covs)[:, :, 0].cpu().numpy()          # [T, D], slot 0
@@ -5128,6 +5810,7 @@ def _mdc_route(p, lan_fail_t, wan_fail_t, key, warm: int, block: int,
            "host_syncs_per_round": kernel.host_syncs / total,
            "graph_launches_per_round": program.launches / total,
            "table_host_ms_per_call": 1e3 * sum(table_s) / len(table_s),
+           "table_launches_per_call": round_table.launches / calls,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "rounds_to_coverage_99": [
                next((r + 1 for r in range(total) if cov[r, d] >= 0.99),
@@ -5255,6 +5938,9 @@ def multidc_main_path(n: int = 1_000_000, dcs: int = 4, warm: int = 20,
     if graphed["graph_launches_per_round"] != 2 * dcs + 3:
         bad.append(f"{graphed['graph_launches_per_round']} graph launches "
                    f"a round")
+    if graphed["table_launches_per_call"] != 1:
+        bad.append(f"{graphed['table_launches_per_call']} table launches a "
+                   f"graphed call")
     if bad:
         raise AssertionError(f"{res['phase']}: {bad}")
     _draw_gate(res["phase"], res, 0)
@@ -5356,6 +6042,7 @@ async def _until(cond, timeout: float, what: str) -> float:
 async def _plane_run(ndev: int, full: bool, n_clients: int = 8) -> dict:
     from consul_tpu_torch.gossip import events, fused, kernel, observe
     from consul_tpu_torch.gossip import plane as gp
+    from consul_tpu_torch.gossip import program, round_table
 
     cfg = gp.PlaneConfig(
         bind_port=0, capacity=1024, sim_nodes=998_976, slots=64,
@@ -5438,10 +6125,18 @@ async def _plane_run(ndev: int, full: bool, n_clients: int = 8) -> dict:
             await c.close()
         await plane.stop()
     _settle()
+    # The round program's calls: one table launch and one loop launch a
+    # call (a dispatch's 4 rounds), the loop kernel once a round; the
+    # event rounds replay a graph each.
     res.update(dissem_launches=fused.launches,
                merge_launches=fused.merge_launches,
                flood_launches=events.launches,
                observe_launches=observe.launches, **_round_counts(),
+               graph_launches=program.launches,
+               round_graph_launches=program.launches - events.launches,
+               table_launches=round_table.launches,
+               loop_launches=program.loop_launches,
+               looped_rounds=program.round_replays,
                tail_rounds=dict(kernel.tail_rounds),
                max_memory_allocated=torch.cuda.max_memory_allocated())
     return res
@@ -5466,6 +6161,11 @@ def plane_phase(ndev: int, full: bool) -> dict:
     # observers' kernel a round and one more a non-quiescent round.
     ran = sum(res["tail_rounds"].values())
     busy = res["tail_rounds"]["hot"] + res["tail_rounds"]["full"]
+    if res["loop_launches"] != res["looped_rounds"] \
+            or res["loop_launches"] == 0:
+        raise AssertionError(f"plane: {res['loop_launches']} loop kernels "
+                             f"for {res['looped_rounds']} rounds of the "
+                             f"round program")
     if ran < res["rounds"] or res["observe_launches"] != ran + busy:
         raise AssertionError(f"plane: {res['observe_launches']} "
                              f"heard_counts launches in {ran} rounds "
@@ -5572,10 +6272,10 @@ class _Recorder:
 
 
 def _plane_lockstep(n: int = 16_384, dispatches: int = 15) -> dict:
-    """The plane on the card and on the CPU under ``partition_heal``,
-    same config and key, driven by one script without sockets: after
-    every dispatch every state field and every frame sent must be
-    identical."""
+    """The plane on the card and on the CPU under ``partition_heal``, and
+    a card plane whose calls replay a round at a time, same config and
+    key, driven by one script without sockets: after every dispatch every
+    state field and every frame sent must be identical."""
     from consul_tpu_torch import prng
     from consul_tpu_torch.gossip import convert
     from consul_tpu_torch.gossip import plane as gp
@@ -5583,12 +6283,14 @@ def _plane_lockstep(n: int = 16_384, dispatches: int = 15) -> dict:
     t0 = time.perf_counter()
     loop = asyncio.new_event_loop()
     journey, gp._journey.journey = gp._journey.journey, None
+    # The card's plane (looped calls), the CPU's (eager), and a card plane
+    # whose calls replay a round at a time (the loop's plain version).
     planes = [gp.GossipPlane(gp.PlaneConfig(
         bind_port=0, capacity=32, sim_nodes=n - 32, slots=64, event_slots=8,
         gossip_interval_s=0.02, probe_every=5, suspicion_mult=1.0,
         hb_lapse_s=0.3, shard_devices=1, dissem="fused", hot_slots=0,
         fused_nb=1, unroll=1, flight_drain_every=2, nemesis="partition_heal",
-        device=dev)) for dev in ("cuda", "cpu")]
+        device=dev)) for dev in ("cuda", "cpu", "cuda")]
     bad = []
     try:
         for plane in planes:
@@ -5599,24 +6301,30 @@ def _plane_lockstep(n: int = 16_384, dispatches: int = 15) -> dict:
         for i in range(6):
             msg = {"t": "register", "name": f"n{i}", "addr": "127.0.0.1",
                    "port": 7000 + i, "tags": {"role": "node"}}
-            pair = (_Recorder(), _Recorder())
-            writers.append(pair)
-            for plane, w in zip(planes, pair):
+            ws = (_Recorder(), _Recorder(), _Recorder())
+            writers.append(ws)
+            for plane, w in zip(planes, ws):
                 plane._register(dict(msg), w)
         for d in range(dispatches):
-            for plane in planes:
-                plane._dispatch()
-            g, c = planes
-            for a, b in ((g._state, c._state), (g._ev_state, c._ev_state),
-                         (g._flight, c._flight), (g._hist, c._hist)):
-                x, y = convert.state_to_numpy(a), convert.state_to_numpy(b)
-                bad += [f"dispatch {d}: {type(a).__name__}.{f}" for f in x
-                        if not np.array_equal(x[f], y[f])]
-            bad += [f"dispatch {d}: frames" for wg, wc in writers
-                    if wg.frames != wc.frames]
-        frames = sum(len(wg.frames) for wg, _ in writers)
+            planes[0]._dispatch()
+            planes[1]._dispatch()
+            with _per_round_replays():
+                planes[2]._dispatch()
+            g = planes[0]
+            for other, c in (("cpu", planes[1]), ("replays", planes[2])):
+                for a, b in ((g._state, c._state),
+                             (g._ev_state, c._ev_state),
+                             (g._flight, c._flight), (g._hist, c._hist)):
+                    x = convert.state_to_numpy(a)
+                    y = convert.state_to_numpy(b)
+                    bad += [f"dispatch {d} vs {other}: "
+                            f"{type(a).__name__}.{f}" for f in x
+                            if not np.array_equal(x[f], y[f])]
+            bad += [f"dispatch {d}: frames" for ws in writers
+                    if not ws[0].frames == ws[1].frames == ws[2].frames]
+        frames = sum(len(ws[0].frames) for ws in writers)
         slo = [p._slo_wire() for p in planes]
-        if slo[0] != slo[1]:
+        if not slo[0] == slo[1] == slo[2]:
             bad.append("slo frame")
     finally:
         for plane in planes:
@@ -6689,10 +7397,11 @@ def store_phases(store_cpu, watch_oracle, bridge_oracle,
 
 def _round_graph_row(rp: dict, churn: dict) -> dict:
     """The kernels line's entry of the round program
-    (``csrc/round_graph.cu``: the joined graph and its condition kernels),
-    which replaces the reference's jitted scan: launches on the churn main
-    path (one a round), its time a 1M churn round against the eager
-    round's (the plain version), both from round_program.  Bound: the
+    (``csrc/round_graph.cu``: the joined graphs under the loop, and their
+    condition kernels), which replaces the reference's jitted scan:
+    graph launches on the churn main path (one a chunk of a call), its
+    time a 1M churn round against the eager round's (the plain version)
+    and the per-round replays', all from round_program.  Bound: the
     bytes a round must move, the state read once and written once (heard
     [S, N] u8; slot_of_node, incarnation, fail_round and member [N]; the
     ground truth read only)."""
@@ -6704,13 +7413,60 @@ def _round_graph_row(rp: dict, churn: dict) -> dict:
             "source": "consul_tpu_torch/csrc/round_graph.cu",
             "replaces": "consul_tpu/gossip/kernel.py:1689",
             "launches": churn["graph_launches"],
-            "max_abs_err": 0 if not case["diverged"] else None,
+            "max_abs_err": (0 if not any(case["diverged"].values())
+                            else None),
             "ms": case["graphed"]["ms_per_round"],
             "plain_ms": case["eager"]["ms_per_round"],
+            "replays_ms": case["replays"]["ms_per_round"],
             "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None,
             "device_kernels_per_round":
                 case["graphed"]["device_kernels_per_round"]}
+
+
+def _loop_rows(loop: dict, churn: dict, sharded: dict, rp: dict,
+               mdc1: dict, plane1: dict, cross: dict) -> list:
+    """The kernels line's entries of the loop (``round_graph.cu``'s
+    ``loop_kernel``, which replaces the reference's ``lax.scan`` over a
+    call's rounds: one a looped round; its time a round of a 512-round
+    toy chunk, the plain version's ``program.loop_ref`` a round, and the
+    profiler's time of the node in the graphed churn round) and of the
+    table (``round_table.cu``'s ``table_kernel``, which replaces the
+    round's key derivation from the traced round counter: one a chunk of
+    a call; its time at 512 rows by CUDA-graph replays, the host build's
+    and copy's time, the bound)."""
+    lk, tab = loop["kernel"], loop["table"]["timed"][512]
+    prof = rp["cases"]["churn"]["graphed"]
+    return [{
+        "name": "loop_kernel", "route": "cuda",
+        "source": "consul_tpu_torch/csrc/round_graph.cu",
+        "replaces": "consul_tpu/gossip/kernel.py:1783",
+        "launches": churn["loop_launches"],
+        "sharded_launches": sharded["loop_launches"],
+        "plane_launches": plane1["loop_launches"],
+        "crossval_launches": cross["loop_launches"],
+        "max_abs_err": lk["max_abs_err"], "ms": lk["ms_per_round"],
+        "empty_launch_ms": lk["empty_launch_ms"],
+        "round_device_ms": prof["loop_device_ms_per_round"],
+        "plain_ms": lk["plain_ms_per_round"], "bound_ms": lk["bound_ms"],
+        "bound_by": lk["bound_by"],
+        # No one PyTorch call runs a graph's rounds.
+        "library_ms": None}, {
+        "name": "table_kernel", "route": "cuda",
+        "source": "consul_tpu_torch/csrc/round_table.cu",
+        "replaces": "consul_tpu/gossip/kernel.py:886",
+        "launches": churn["table_launches"],
+        "sharded_launches": sharded["table_launches"],
+        "plane_launches": plane1["table_launches"],
+        "multidc_launches_per_call": mdc1["table_launches_per_call"],
+        "max_abs_err": loop["table"]["max_abs_err"], "ms": tab["ms"],
+        "eager_ms": tab["eager_ms"], "ms_30_rows": loop["table"]["timed"][
+            30]["ms"], "plain_ms": tab["plain_ms"],
+        "bound_ms": tab["bound_ms"], "bound_by": tab["bound_by"],
+        "round_device_ms_per_call": prof["table_device_ms_per_call"],
+        # No one PyTorch call computes threefry keys (torch.rand is
+        # Philox, another function).
+        "library_ms": None}]
 
 
 def _choose_row(branch: dict, churn: dict, sharded: dict, rp: dict,
@@ -7054,9 +7810,19 @@ def branch_only() -> int:
     return 0
 
 
+def loop_only() -> int:
+    """``--phase loop``: the card line, every build (the looped paths run
+    every kernel) and the loop phase."""
+    card()
+    build()
+    loop_phase()
+    return 0
+
+
 PHASES_ALONE = {"event_flood": flood_only, "observe": observe_only,
                 "finish": finish_only, "probe": probe_only,
-                "finish_slots": finish_slots_only, "branch": branch_only}
+                "finish_slots": finish_slots_only, "branch": branch_only,
+                "loop": loop_only}
 
 
 def main() -> int:
@@ -7073,7 +7839,8 @@ def main() -> int:
         if len(sys.argv) != 3 or sys.argv[1] != "--phase" \
                 or sys.argv[2] not in PHASES_ALONE:
             print("usage: chip_smoke.py [--phase "
-                  "event_flood|observe|finish|probe|finish_slots|branch]",
+                  "event_flood|observe|finish|probe|finish_slots|branch|"
+                  "loop]",
                   file=sys.stderr)
             return 2
         try:
@@ -7145,6 +7912,7 @@ def main() -> int:
         sharded_full_path(single, **FULL_PATH)
         del single
         branch = branch_check(card_line, **BRANCH)
+        loop = loop_phase()
         nemesis_full_path(cpu_nem, **NEM)
         cross = crossval_phase(pool, cpu_seed0)
         # The device store's CPU sides, once the crossval phase's oracle
@@ -7312,6 +8080,7 @@ def main() -> int:
         / tf["summary"]["main_path_ms"],
         "library_ms": None}, _round_graph_row(rp, churn),
         _choose_row(branch, churn, sharded, rp, mdc1, plane1, cross),
+        *_loop_rows(loop, churn, sharded, rp, mdc1, plane1, cross),
         _flood_row(flood, mdc1, mdc8, ev, plane1),
         _observe_row(counts, obs1, obs8, rp, plane1, cross),
         *_finish_rows(fin, churn, sharded, plane1, cross, mdc1, rp),

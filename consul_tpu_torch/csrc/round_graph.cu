@@ -29,9 +29,31 @@
 // choice: the count, the rule, the conditions and the runs are this one
 // node's.
 //
+// The loop (the reference's lax.scan over a call's rounds).  A chunk of a
+// call's rounds runs as one launch of a loop graph: a WHILE node whose body
+// is one loop_kernel node and then one IF node a captured variant
+// (kernel.Variant: push/pull, in the nemesis window, degraded, flap down),
+// each holding that variant's joined round as above (its chooser nodes, its
+// IF nodes and their segments: three levels of conditional nodes).  The
+// loop kernel runs first in each iteration: while the chunk has rounds left
+// (a word in device memory, which the table kernel of round_table.cu sets
+// to the chunk's rows), it takes one, reads the round's variant code from
+// the table's variant column at the program's row counter `step` (which
+// the round advances), sets the IF handle of that variant to 1 and the
+// others to 0, counts the run, and keeps the WHILE handle set while rounds
+// are left after this one; with none left, or a code no IF node holds (the
+// fault word then gets the code), it sets every handle to 0 and the loop
+// ends.  The WHILE handle's default, 1, is applied at each launch, so one
+// executable serves every chunk length, 0 included; a launch takes at most
+// the chunk's rounds, whatever the other words hold.  So a chunk costs one
+// cudaGraphLaunch and one loop_kernel node a round, and its rounds read
+// nothing on the host.
+//
 // Bound: the chooser reads slot_node and one int64 run counter and writes
-// the count and the counter, 276 bytes at S = 64; a launch costs more.  A launch of the joined graph costs one
-// cudaGraphLaunch on the host, whatever the segments hold.
+// the count and the counter, 276 bytes at S = 64; the loop kernel reads
+// and writes the rounds left, a run counter and the step and code it reads,
+// about 36 bytes; a launch costs more.  A launch of the joined graph, or of the
+// loop, costs one cudaGraphLaunch on the host, whatever the segments hold.
 
 #include <cuda_runtime.h>
 
@@ -42,6 +64,7 @@ namespace round_graph {
 
 constexpr int kMaxBranches = 3;
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxVariants = 16;  // variant codes (kernel.VARIANT_CODES)
 
 // One branch group's chooser node's arguments, by value (program.py's
 // _Choice mirrors this layout).
@@ -100,6 +123,54 @@ inline bool valid(const Choice& c) {
   if (c.k > 1 && c.s < 1) return false;
   if (c.k == 3 && c.hot < 1) return false;
   return true;
+}
+
+// The loop node's arguments, by value (program.py's _LoopArgs mirrors this
+// layout; the build makes the handles and fills the codes).
+struct Loop {
+  int32_t* left;           // the chunk's rounds left
+  const long long* step;   // the program's row counter (the round advances)
+  const int32_t* variant;  // the table's variant column, `rows` long
+  long long* runs;         // rounds run a code (kMaxVariants), then the
+                           // faults and the last faulty code (nullptr: none)
+  int rows;
+  int n;                   // variants built
+  int code[kMaxVariants];  // each IF node's variant code
+  cudaGraphConditionalHandle handle[kMaxVariants];  // the IF nodes'
+  cudaGraphConditionalHandle loop;                  // the WHILE node's
+};
+
+// One thread: the next round of the chunk (module comment).
+__global__ void loop_kernel(const Loop l) {
+  const int left = *l.left;
+  int taken = -1, code = -1;
+  if (left > 0) {
+    const long long s = *l.step;
+    if (s >= 0 && s < l.rows) code = l.variant[s];
+    for (int b = 0; b < l.n; ++b) {
+      if (l.code[b] == code) taken = b;
+    }
+    *l.left = taken < 0 ? 0 : left - 1;
+    if (l.runs != nullptr) {
+      if (taken >= 0) {
+        l.runs[code] += 1;
+      } else {
+        l.runs[kMaxVariants] += 1;
+        l.runs[kMaxVariants + 1] = code;
+      }
+    }
+  }
+  for (int b = 0; b < l.n; ++b) {
+    cudaGraphSetConditional(l.handle[b], b == taken ? 1u : 0u);
+  }
+  cudaGraphSetConditional(l.loop, taken >= 0 && left > 1 ? 1u : 0u);
+}
+
+// One thread, a toy round: order[*step] = b, then the step advances (the
+// IF body of variant b in round_graph_loop_toy's loop).
+__global__ void toy_round(int32_t* order, int b, long long* step) {
+  order[*step] = b;
+  *step += 1;
 }
 
 // Appends the chooser node of group `c` (its handles created here, in `g`)
@@ -185,35 +256,18 @@ cudaError_t edge_types(cudaGraph_t g, int* programmatic, int* other) {
   return cudaSuccess;
 }
 
-// One thread: adds one to ran[b] (the body of branch b in
-// round_graph_choice's graph).
-__global__ void count_run(int32_t* ran, int b) { ran[b] += 1; }
-
-}  // namespace round_graph
-
-// Joins `n` segment graphs (cudaGraph_t) into one executable graph, in
-// order; segment i runs unconditionally where group_of[i] is -1, else as
-// the next branch of group group_of[i], whose chooser node
-// (round_graph::Choice, choices[group_of[i]]: the operand, the count's
-// buffer, branch_runs and the branches' run indices; its handles are made
-// here) comes just before the group's first segment.  A group's k branches
-// are its segments in order, and each group must get exactly k.  The
-// segments are cloned, so their graphs may be destroyed after; the memory
-// they use may not.  Returns the joined graph and its executable in *graph
-// and *exec, or the first CUDA error (then nothing is left allocated).
-extern "C" int round_graph_build(void* const* segs, const int* group_of,
-                                 int n, const void* choices, int n_groups,
-                                 void** graph, void** exec) {
-  using namespace round_graph;
-  if (n < 0 || n_groups < 0 || (n_groups > 0 && choices == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// Appends the joined round to `g` (segments in order, a group's chooser
+// node before its first segment; round_graph_build's contract), each node
+// after the one before, the first with no dependency.  The choosers'
+// handles are made in `g`.
+cudaError_t join(cudaGraph_t g, void* const* segs, const int* group_of,
+                 int n, const Choice* given, int n_groups) {
+  if (n < 0 || n_groups < 0 || (n_groups > 0 && given == nullptr)) {
+    return cudaErrorInvalidValue;
   }
-  const Choice* given = static_cast<const Choice*>(choices);
   std::vector<Choice> c(given, given + n_groups);
   std::vector<int> seen(static_cast<size_t>(n_groups), 0);
-  cudaGraph_t g = nullptr;
-  cudaError_t e = cudaGraphCreate(&g, 0);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaError_t e = cudaSuccess;
   cudaGraphNode_t prev = nullptr;
   for (int i = 0; i < n && e == cudaSuccess; ++i) {
     const int grp = group_of[i];
@@ -235,6 +289,67 @@ extern "C" int round_graph_build(void* const* segs, const int* group_of,
   for (int k = 0; k < n_groups && e == cudaSuccess; ++k) {
     if (seen[k] != c[k].k) e = cudaErrorInvalidValue;
   }
+  return e;
+}
+
+// Appends the loop to `g` (the module comment): the WHILE node, its handle
+// made in `g` with default 1 applied at each launch, and in its body the
+// loop kernel node then one IF node a variant of `l` (l->n of them, codes
+// l->code, distinct, in [0, kMaxVariants); their handles made in the body
+// and written to l->handle).  bodies[b] gets variant b's IF body.
+cudaError_t add_loop(cudaGraph_t g, Loop* l, cudaGraph_t* bodies) {
+  if (l->n < 1 || l->n > kMaxVariants || l->left == nullptr ||
+      l->step == nullptr || l->variant == nullptr || l->rows < 1) {
+    return cudaErrorInvalidValue;
+  }
+  for (int b = 0; b < l->n; ++b) {
+    if (l->code[b] < 0 || l->code[b] >= kMaxVariants) {
+      return cudaErrorInvalidValue;
+    }
+    for (int q = 0; q < b; ++q) {
+      if (l->code[q] == l->code[b]) return cudaErrorInvalidValue;
+    }
+  }
+  cudaError_t e = cudaGraphConditionalHandleCreate(
+      &l->loop, g, 1, cudaGraphCondAssignDefault);
+  if (e != cudaSuccess) return e;
+  cudaGraphNodeParams wp = {};
+  wp.type = cudaGraphNodeTypeConditional;
+  wp.conditional.handle = l->loop;
+  wp.conditional.type = cudaGraphCondTypeWhile;
+  wp.conditional.size = 1;
+  cudaGraphNode_t loop_node = nullptr;
+  e = cudaGraphAddNode(&loop_node, g, nullptr, 0, &wp);
+  if (e != cudaSuccess) return e;
+  const cudaGraph_t body = wp.conditional.phGraph_out[0];
+  for (int b = 0; b < l->n && e == cudaSuccess; ++b) {
+    e = cudaGraphConditionalHandleCreate(&l->handle[b], body, 0, 0);
+  }
+  if (e != cudaSuccess) return e;
+  cudaKernelNodeParams kp = {};
+  void* args[1] = {l};
+  kp.func = reinterpret_cast<void*>(loop_kernel);
+  kp.gridDim = dim3(1);
+  kp.blockDim = dim3(1);
+  kp.kernelParams = args;
+  cudaGraphNode_t prev = nullptr;
+  e = cudaGraphAddKernelNode(&prev, body, nullptr, 0, &kp);
+  for (int b = 0; b < l->n && e == cudaSuccess; ++b) {
+    cudaGraphNodeParams cp = {};
+    cp.type = cudaGraphNodeTypeConditional;
+    cp.conditional.handle = l->handle[b];
+    cp.conditional.type = cudaGraphCondTypeIf;
+    cp.conditional.size = 1;
+    cudaGraphNode_t node = nullptr;
+    e = cudaGraphAddNode(&node, body, &prev, 1, &cp);
+    if (e == cudaSuccess) bodies[b] = cp.conditional.phGraph_out[0];
+    prev = node;
+  }
+  return e;
+}
+
+// Instantiates `g` into *exec and hands both out; on an error destroys `g`.
+int finish(cudaGraph_t g, cudaError_t e, void** graph, void** exec) {
   cudaGraphExec_t x = nullptr;
   if (e == cudaSuccess) e = cudaGraphInstantiate(&x, g, 0);
   if (e != cudaSuccess) {
@@ -246,16 +361,123 @@ extern "C" int round_graph_build(void* const* segs, const int* group_of,
   return 0;
 }
 
+// One thread: adds one to ran[b] (the body of branch b in
+// round_graph_choice's graph).
+__global__ void count_run(int32_t* ran, int b) { ran[b] += 1; }
+
+}  // namespace round_graph
+
+// Joins `n` segment graphs (cudaGraph_t) into one executable graph, in
+// order; segment i runs unconditionally where group_of[i] is -1, else as
+// the next branch of group group_of[i], whose chooser node
+// (round_graph::Choice, choices[group_of[i]]: the operand, the count's
+// buffer, branch_runs and the branches' run indices; its handles are made
+// here) comes just before the group's first segment.  A group's k branches
+// are its segments in order, and each group must get exactly k.  The
+// segments are cloned, so their graphs may be destroyed after; the memory
+// they use may not.  Returns the joined graph and its executable in *graph
+// and *exec, or the first CUDA error (then nothing is left allocated).
+extern "C" int round_graph_build(void* const* segs, const int* group_of,
+                                 int n, const void* choices, int n_groups,
+                                 void** graph, void** exec) {
+  using namespace round_graph;
+  cudaGraph_t g = nullptr;
+  const cudaError_t e = cudaGraphCreate(&g, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return finish(g, join(g, segs, group_of, n,
+                        static_cast<const Choice*>(choices), n_groups),
+                graph, exec);
+}
+
+// One variant's joined round as round_graph_loop_build takes it
+// (program.py's _Join): round_graph_build's arguments and its code.
+struct RoundJoin {
+  void* const* segs;
+  const int* group_of;
+  int n;
+  const void* choices;
+  int n_groups;
+  int code;
+};
+
+// The loop of the module comment over `n_joins` variants (RoundJoin: each
+// joined as round_graph_build joins it, inside its IF node's body), into
+// an executable graph.  `loop`: a round_graph::Loop whose left, step,
+// variant, runs and rows are the program's; the build writes its count,
+// codes (the joins') and handles (made here) back into it.  The segments are cloned, as by
+// round_graph_build.  Returns the graph and its executable, or the first
+// CUDA error (then nothing is left allocated): invalid value for codes
+// that repeat or lie outside [0, kMaxVariants).
+extern "C" int round_graph_loop_build(const void* joins, int n_joins,
+                                      void* loop, void** graph,
+                                      void** exec) {
+  using namespace round_graph;
+  if (joins == nullptr || loop == nullptr || n_joins < 1 ||
+      n_joins > kMaxVariants) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const RoundJoin* j = static_cast<const RoundJoin*>(joins);
+  Loop& l = *static_cast<Loop*>(loop);
+  l.n = n_joins;
+  for (int b = 0; b < n_joins; ++b) l.code[b] = j[b].code;
+  cudaGraph_t g = nullptr;
+  cudaError_t e = cudaGraphCreate(&g, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaGraph_t bodies[kMaxVariants] = {};
+  e = add_loop(g, &l, bodies);
+  for (int b = 0; b < n_joins && e == cudaSuccess; ++b) {
+    e = join(bodies[b], j[b].segs, j[b].group_of, j[b].n,
+             static_cast<const Choice*>(j[b].choices), j[b].n_groups);
+  }
+  return finish(g, e, graph, exec);
+}
+
+// A loop of toy rounds (the loop kernel's check): round_graph_loop_build's
+// loop with the codes and count of `loop` (a round_graph::Loop; its
+// handles written back), variant b's IF body one toy_round node writing b
+// at order[*step] and advancing the step (`loop`'s step, here written).  Returns the graph and its
+// executable as round_graph_build does.
+extern "C" int round_graph_loop_toy(void* loop, int32_t* order,
+                                    void** graph, void** exec) {
+  using namespace round_graph;
+  if (loop == nullptr || order == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Loop& l = *static_cast<Loop*>(loop);
+  cudaGraph_t g = nullptr;
+  cudaError_t e = cudaGraphCreate(&g, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaGraph_t bodies[kMaxVariants] = {};
+  e = add_loop(g, &l, bodies);
+  long long* step = const_cast<long long*>(l.step);
+  for (int b = 0; b < l.n && e == cudaSuccess; ++b) {
+    int branch = b;
+    void* args[3] = {&order, &branch, &step};
+    cudaKernelNodeParams kp = {};
+    kp.func = reinterpret_cast<void*>(toy_round);
+    kp.gridDim = dim3(1);
+    kp.blockDim = dim3(1);
+    kp.kernelParams = args;
+    cudaGraphNode_t node = nullptr;
+    e = cudaGraphAddKernelNode(&node, bodies[b], nullptr, 0, &kp);
+  }
+  return finish(g, e, graph, exec);
+}
+
 // What the joining keeps of a segment's programmatic edges: the segment
 // `seg` joined alone as the one branch of a cond's group on *pred
 // (round_graph_build's form: its chooser node, then the IF node), into an
-// executable graph.  counts[0], counts[1]: the segment's programmatic and
-// other edges; counts[2], counts[3]: those of the child graph in the IF
-// node's body (the clone the joined graph runs).  Returns the joined graph
-// and its executable as round_graph_build does, or the first CUDA error
-// (the counts as far as they were read).
-extern "C" int round_graph_edges(void* seg, const void* pred, int* counts,
-                                 void** graph, void** exec) {
+// executable graph; with `loop` (a round_graph::Loop of one code, its left,
+// step, variant and rows the caller's) that group inside the IF body of
+// the loop's one variant, three levels of conditional nodes deep, as
+// round_graph_loop_build places a round.  counts[0], counts[1]: the
+// segment's programmatic and other edges; counts[2], counts[3]: those of
+// the child graph in the IF node's body (the clone the graph runs).
+// Returns the graph and its executable as round_graph_build does, or the
+// first CUDA error (the counts as far as they were read).
+extern "C" int round_graph_edges(void* seg, const void* pred,
+                                 const void* loop, int* counts, void** graph,
+                                 void** exec) {
   using namespace round_graph;
   for (int k = 0; k < 4; ++k) counts[k] = 0;
   cudaError_t e = edge_types(static_cast<cudaGraph_t>(seg), counts,
@@ -264,14 +486,22 @@ extern "C" int round_graph_edges(void* seg, const void* pred, int* counts,
   cudaGraph_t g = nullptr;
   e = cudaGraphCreate(&g, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
+  cudaGraph_t where = g;
+  if (loop != nullptr) {
+    Loop l = *static_cast<const Loop*>(loop);
+    l.n = 1;
+    cudaGraph_t bodies[kMaxVariants] = {};
+    e = add_loop(g, &l, bodies);
+    where = bodies[0];
+  }
   Choice c = {};
   c.operand = pred;
   c.k = 1;
   cudaGraphNode_t chooser = nullptr, node = nullptr, child = nullptr;
-  e = add_chooser(g, nullptr, &c, &chooser);
+  if (e == cudaSuccess) e = add_chooser(where, nullptr, &c, &chooser);
   if (e == cudaSuccess) {
-    e = append(g, chooser, static_cast<cudaGraph_t>(seg), true, c.handle[0],
-               &node, &child);
+    e = append(where, chooser, static_cast<cudaGraph_t>(seg), true,
+               c.handle[0], &node, &child);
   }
   cudaGraph_t body = nullptr;
   if (e == cudaSuccess && child != nullptr) {
@@ -280,15 +510,7 @@ extern "C" int round_graph_edges(void* seg, const void* pred, int* counts,
   if (e == cudaSuccess && body != nullptr) {
     e = edge_types(body, counts + 2, counts + 3);
   }
-  cudaGraphExec_t x = nullptr;
-  if (e == cudaSuccess) e = cudaGraphInstantiate(&x, g, 0);
-  if (e != cudaSuccess) {
-    cudaGraphDestroy(g);
-    return static_cast<int>(e);
-  }
-  *graph = g;
-  *exec = x;
-  return 0;
+  return finish(g, e, graph, exec);
 }
 
 // The joined graph `graph` as the runtime describes it, in Graphviz's
@@ -338,15 +560,7 @@ extern "C" int round_graph_choice(const void* choice, int32_t* ran,
                                nullptr, 0, &kp);
     prev = node;
   }
-  cudaGraphExec_t x = nullptr;
-  if (e == cudaSuccess) e = cudaGraphInstantiate(&x, g, 0);
-  if (e != cudaSuccess) {
-    cudaGraphDestroy(g);
-    return static_cast<int>(e);
-  }
-  *graph = g;
-  *exec = x;
-  return 0;
+  return finish(g, e, graph, exec);
 }
 
 // Launches the joined graph on `stream`; does not synchronise.

@@ -1,8 +1,10 @@
 // jax.random's threefry2x32 for Hopper (sm_90a) kernels: the hash, the
 // float32 uniform made from its bits, and the counter of an element of a
-// draw.  Included by threefry.cu (the round's draws, draw_kernel) and
-// probe.cu (the probe tick's draws, made inline in lanes_slots_kernel), so
-// that every kernel of the port draws the same bits as jax.random.
+// draw.  Included by threefry.cu (the round's draws, draw_kernel),
+// probe.cu (the probe tick's draws, made inline in lanes_slots_kernel) and
+// round_table.cu (the round program's table: fold_in, split and randint of
+// the round's keys), so that every kernel of the port draws the same bits
+// as jax.random.
 //
 // Under jax_threefry_partitionable (the reference's configuration) a draw
 // of any shape under one key hashes, for its element of flat index i (row
@@ -24,9 +26,15 @@ __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
 }
 
-// threefry2x32 of the counter (0, c) under (k0, k1): bits1 ^ bits2.
-__device__ __forceinline__ uint32_t hash(uint32_t k0, uint32_t k1,
-                                         uint32_t c) {
+// threefry2x32's two output words.
+struct Words {
+  uint32_t x0, x1;
+};
+
+// threefry2x32 of the counter (0, c) under (k0, k1): both output words (a
+// fold_in's or a split's new key).
+__device__ __forceinline__ Words hash2(uint32_t k0, uint32_t k1,
+                                       uint32_t c) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
   uint32_t x0 = k0;
   uint32_t x1 = c + k1;
@@ -51,7 +59,14 @@ __device__ __forceinline__ uint32_t hash(uint32_t k0, uint32_t k1,
   x1 += k0 + 5u;
 #undef TF_FOUR
 #undef TF_ROUND
-  return x0 ^ x1;
+  return Words{x0, x1};
+}
+
+// threefry2x32 of the counter (0, c) under (k0, k1): bits1 ^ bits2.
+__device__ __forceinline__ uint32_t hash(uint32_t k0, uint32_t k1,
+                                         uint32_t c) {
+  const Words w = hash2(k0, k1, c);
+  return w.x0 ^ w.x1;
 }
 
 // jax.random.uniform's float32 from 32 bits.

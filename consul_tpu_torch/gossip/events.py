@@ -19,8 +19,9 @@ PyTorch:
   so does a card when asked (``graphed=False``).
 - The round's scalars (its number, the F gossip shifts and the push/pull
   partner, drawn under ``fold_in(fold_in(key, 7), rnd)``) are a row of
-  ``round_args.build_events``' table, built on the host for a whole call
-  and read on the device; the round counter is mirrored on the host (one
+  the event layout's table, made for a whole call (on a card by the table
+  kernel, ``round_table.fill``; eagerly on the host,
+  ``round_args.build_events``) and read on the device; the round counter is mirrored on the host (one
   read per call), so the push/pull cadence (a ``lax.cond`` in the
   reference) is a host decision, the program's variant.
 - The whole round on ``[E, N]`` is one function, ``flood``: on a CUDA

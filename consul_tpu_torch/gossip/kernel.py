@@ -11,22 +11,25 @@ scenario, ``tests/test_torch_nemesis.py``).
 How the JAX program maps onto PyTorch:
 
 - ``jax.jit(run_rounds)`` is ``gossip/program.py``'s ``RoundProgram`` on
-  a card: one round captured as a CUDA graph per variant (below) and
-  replayed once a round.  The eager round of this module is its plain
+  a card: one round captured as a CUDA graph per variant (below), and a
+  call's rounds, up to 512 at a time, one launch of a loop graph over
+  them (``lax.scan``).  The eager round of this module is its plain
   version: the CPU runs it, and so does a card when asked
   (``graphed=False``).
 - ``lax.scan``'s traced round counter becomes a table: the scalars the
   reference derives from ``rnd`` (the keys of the round's draws, the
   probe offsets, the gossip shifts, the push/pull partner, the prober
-  block; ``gossip/round_args.py``) are built on the host for all of a
-  call's rounds and read on the device from row ``step`` (a device
-  counter).  No argument of an operation or a launch depends on the round
-  number, so one capture serves every round.  ``run_rounds`` mirrors the
-  round counter on the host (one read per call).
+  block; ``gossip/round_args.py``) are computed for all of a call's rounds
+  at once (on a card by a kernel, ``gossip/round_table.py``) and read on
+  the device from row ``step`` (a device counter).  No argument of an
+  operation or a launch depends on the round number, so one capture
+  serves every round.  ``run_rounds`` mirrors the round counter on the
+  host (one read per call).
 - Branches on ``rnd`` alone (the push/pull round, the nemesis fault
-  window, the degraded observers' prober block, the flapping phase) are
-  taken on the host from that mirror: each is part of the round's
-  ``Variant``, one captured graph each.
+  window, the degraded observers' prober block, the flapping phase) make
+  the round's ``Variant``, one captured graph each; the host takes them
+  from that mirror eagerly, and the loop graph on the card from the
+  table's column of variant codes (``variant_code``).
 - Each ``lax.cond`` on a device value (the join tick on ``any_join``;
   the quiescent / hot / full tail on ``n_active``) is ``_when`` /
   ``_switch``: eagerly a host branch on one read (``host_syncs`` counts
@@ -350,6 +353,43 @@ def round_variant(p: SwimParams, nem: NemesisParams | None,
     down = nem.has_flap and (((rnd - nem.start) % nem.flap_period)
                              >= nem.flap_up)
     return Variant(pp, True, bool(degraded), bool(down))
+
+
+# A variant as one int, the round program's variant column (bit 0
+# push/pull, 1 in the window, 2 degraded, 3 flap down): VARIANT_CODES values.
+VARIANT_CODES = 16
+
+
+def variant_code(v: Variant) -> int:
+    return (int(v.pushpull) | int(v.in_window) << 1 | int(v.degraded) << 2
+            | int(v.flap_down) << 3)
+
+
+def variant_of(code: int) -> Variant:
+    return Variant(*(bool(int(code) >> b & 1) for b in range(4)))
+
+
+def variant_codes(p: SwimParams, nem: NemesisParams | None, rnd0: int,
+                  steps: int) -> np.ndarray:
+    """``variant_code(round_variant(p, nem, r))`` for the rounds ``rnd0 ..
+    rnd0 + steps - 1``, int32 [steps]: the host's mirror of the table's
+    variant column, numpy arithmetic on the round numbers (no hashing)."""
+    rnd = np.arange(rnd0, rnd0 + steps, dtype=np.int64)
+    code = np.zeros(steps, np.int64)
+    if p.pushpull_every:
+        code |= rnd % p.pushpull_every == p.pushpull_every - 1
+    if nem is not None:
+        inside = (rnd >= nem.start) & (rnd < nem.stop)
+        code |= inside.astype(np.int64) << 1
+        if nem.has_degraded:
+            B = probe.block_size(p)
+            blk = (rnd % p.probe_every) * B
+            code |= (inside & (blk < nem.obs_hi)
+                     & (blk + B > nem.obs_lo)).astype(np.int64) << 2
+        if nem.has_flap:
+            down = (rnd - nem.start) % nem.flap_period >= nem.flap_up
+            code |= (inside & down).astype(np.int64) << 3
+    return code.astype(np.int32)
 
 
 # -- nemesis injection (the reference's statics, decided on the host) ---------
@@ -1053,11 +1093,12 @@ def run_rounds(state: SwimState, base_key, fail_round, p: SwimParams,
                nem_state: NemState | None = None,
                graphed: bool | None = None):
     """Run ``steps`` rounds (reference ``run_rounds``), under the
-    nemesis schedule ``nem`` if given.  On a card the rounds are replays
-    of the round program's captured graphs (``gossip/program.py``, the
-    counterpart of the reference's ``jax.jit``); ``graphed=False`` runs
-    the eager round there instead (its plain version, bit-identical; the
-    CPU always runs it).
+    nemesis schedule ``nem`` if given.  On a card each chunk of up to
+    512 rounds is one launch of the round program's loop graph over its
+    captured rounds, its table filled by a kernel (``gossip/program.py``,
+    the counterpart of the reference's ``jax.jit``); ``graphed=False``
+    runs the eager round there instead (its plain version, bit-identical;
+    the CPU always runs it).
 
     Returns ``(carry, trace)``: ``carry`` is ``state`` alone, or the
     tuple ``(state[, flight][, hist][, nem_state])`` when those are

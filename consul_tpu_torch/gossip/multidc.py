@@ -30,8 +30,10 @@ PyTorch:
   for all of them per ``multidc_round`` or ``run_multidc_rounds`` call.
   The pools' keys (``split(fold_in(key, 11), D)`` for the LAN pools,
   ``fold_in(key, 13)`` for the WAN pool) do not depend on the round, so
-  every pool's table of round and event rows for the call is built in
-  one vectorised pass (``round_args.build_pools``).
+  every pool's table of round and event rows for the call is made at
+  once: on a card one launch of the table kernel (``round_table.fill``)
+  into every program's buffer, eagerly one vectorised pass on the host
+  (``round_args.build_pools``, its plain version).
 - With ``lan_devices > 1`` each DC's round runs on that many column
   shards of the one device (``kernel.sharded_round_callable``).
 
@@ -49,7 +51,7 @@ import torch
 from consul_tpu_torch import prng
 from consul_tpu_torch._device import resolve_device
 from consul_tpu_torch.gossip import kernel as _kernel
-from consul_tpu_torch.gossip import probe, round_args
+from consul_tpu_torch.gossip import probe, round_args, round_table
 from consul_tpu_torch.gossip.events import (_SEEN, EventState, _event_round,
                                             init_events, is_pushpull)
 from consul_tpu_torch.gossip.kernel import (SwimState, _as_i32,
@@ -456,6 +458,23 @@ class MultiDCProgram:
             self.bridge.graph(cur)
         self.captured = True
 
+    def _jobs(self, keys, wan_key, rounds: list) -> list:
+        """Every pool's table of a chunk from the counters ``rounds``
+        (``_host_rounds``' order), as ``_tables`` builds them, each into
+        its program's buffer with its row counter reset: one fill."""
+        p, D = self.p, self.p.n_dcs
+        Job = round_table.Job
+        return ([Job(p.lan, keys[d], rounds[d], prog.table, step=prog.step)
+                 for d, prog in enumerate(self.lan)]
+                + [Job(p.lan, keys[d], rounds[D + d], prog.table,
+                       events=True, step=prog.step)
+                   for d, prog in enumerate(self.lan_events)]
+                + [Job(p.wan, wan_key, rounds[2 * D], self.wan.table,
+                       step=self.wan.step),
+                   Job(p.wan, wan_key, rounds[2 * D + 1],
+                       self.wan_events.table, events=True,
+                       step=self.wan_events.step)])
+
     @property
     def pool_bytes(self) -> list:
         """What each program's captures reserved: LAN pools, their event
@@ -483,16 +502,11 @@ class MultiDCProgram:
         if not self.captured:
             self.capture_all()
         covs = []
+        keys, wan_key = _pool_keys(base_key, D)
         for done in range(0, steps, program.TABLE_ROWS):
             n = min(program.TABLE_ROWS, steps - done)
-            lan_t, lan_ev_t, wan_t, wan_ev_t = (
-                program._pinned(t, self.dev) for t in _tables(
-                    p, base_key, [r + done for r in rounds], n))
-            for d in range(D):
-                self.lan[d].set_rows(lan_t[d])
-                self.lan_events[d].set_rows(lan_ev_t[d])
-            self.wan.set_rows(wan_t)
-            self.wan_events.set_rows(wan_ev_t)
+            round_table.fill(self._jobs(keys, wan_key,
+                                        [r + done for r in rounds]), n)
             self.bridge.step.zero_()
             for k in range(done, done + n):
                 for d in range(D):

@@ -5,13 +5,24 @@ The reference runs ``steps`` rounds as one device program: a ``lax.scan``
 whose round counter is traced, with every branch a ``lax.cond`` on the
 device (``consul_tpu/gossip/kernel.py``: the join tick, the quiescent /
 hot / full tail).  Here one round is captured once per ``Variant`` (the
-branches on the round number alone, taken on the host; at most
-``kernel.MAX_VARIANTS``) and replayed once a round:
+branches on the round number alone; at most ``kernel.MAX_VARIANTS``), and
+a call runs each chunk of up to ``TABLE_ROWS`` rounds as two launches:
 
-- Every scalar a round derives from its number is a row of the call's
-  argument table (``round_args.py``), which reaches the card in one copy
-  per call (per ``TABLE_ROWS`` rounds); the round reads row ``step``, a
-  device counter the graph advances.
+- The table kernel (``round_table.py``, ``csrc/round_table.cu``) writes
+  the chunk's argument table into the program's buffer: every scalar a
+  round derives from its number (``round_args.py``'s layout) and its
+  variant's code (``kernel.variant_code``), a row a round; it also sets
+  the chunk's rounds left (``left``) and the row counter ``step`` to 0.
+  The round reads row ``step``, which the round advances.
+- One launch of the loop graph (``_Loop``, ``csrc/round_graph.cu``): a
+  WHILE node whose body is the loop kernel, which takes a round from
+  ``left`` and sets the IF handle of the variant the table's column names
+  at ``step``, then an IF node a captured variant holding that variant's
+  joined round.  The host mirrors the chunk's variants (numpy on the round
+  numbers, ``kernel.variant_codes``): a variant the chunk needs is
+  captured first, and the loop built again when the set grows.  With
+  ``replays`` (a check's plain version of the loop) a chunk is a replay a
+  round of the variant's joined graph instead.
 - The round's ``lax.cond``s are conditional graph nodes
   (``csrc/round_graph.cu``): the capture is cut into segments at each
   branch (``_Recorder``), each a graph captured by PyTorch into one shared
@@ -35,12 +46,16 @@ branches on the round number alone, taken on the host; at most
 
 Counting.  The kernel wrappers count a launch when they are called, which
 under capture is once per captured launch.  The program keeps those counts
-per segment and puts the counters back as they were; each replay then adds
-its unconditional segments' launches (and its chooser nodes,
-``choose_launches``) on the host, and each group's chooser node adds one to
-the taken branch's device counter (``branch_runs``).  ``settle_counts()``
-reads those counters (one read, outside any round) and adds the branch
-bodies' launches and ``kernel.tail_rounds`` to the host counters.
+per segment and puts the counters back as they were; each replay, or each
+chunk of a loop for each variant times its rounds, then adds the
+unconditional segments' launches (and the chooser nodes,
+``choose_launches``, and the loop kernels, ``loop_launches``) on the host;
+each group's chooser node adds one to the taken branch's device counter
+(``branch_runs``) and the loop kernel one to its variant's
+(``loop_runs``).  ``settle_counts()`` reads those counters (one read,
+outside any round), adds the branch bodies' launches and
+``kernel.tail_rounds`` to the host counters, and raises if the loop ran
+other rounds than the host sent it.
 
 The event round (``EventProgram``, the counterpart of
 ``jax.jit(run_event_rounds)``) is the same machinery with no branch: a
@@ -52,8 +67,8 @@ caller that runs several pools at once (``multidc.MultiDCProgram``) owns
 its programs instead, outside that cache (``own``/``disown``), so that
 each pool keeps its state in its own buffers.
 
-A capture or a launch that fails raises; on a card there is no fallback to
-the eager round.
+A capture, a loop build or a launch that fails raises; on a card there
+is no fallback to per-round replays or to the eager round.
 """
 
 from __future__ import annotations
@@ -65,20 +80,25 @@ import sys
 import time
 import warnings
 
+import numpy as np
 import torch
 
 from consul_tpu_torch import _build, prng
 from consul_tpu_torch.gossip import (events, finish, finish_slots, fused,
-                                     kernel, observe, probe, round_args)
+                                     kernel, observe, probe, round_args,
+                                     round_table)
 from consul_tpu_torch.gossip.kernel import (RoundTrace, _I32, _leaves,
                                             _round_once, round_variant)
 
 TABLE_ROWS = 512     # rounds of argument table on the card: a call's chunk
 MAX_BRANCHES = 64    # branch bodies a program counts (4 a variant at most)
 MAX_PROGRAMS = 8     # programs kept (each holds its buffers and its pool)
+# The loop's device counters: rounds run a variant code, then its faults
+# and the last faulty code (csrc/round_graph.cu's Loop::runs).
+LOOP_WORDS = kernel.VARIANT_CODES + 2
 
-# Joined-graph launches (one a replayed round), captures, their seconds
-# and the memory the captures reserved.
+# Graph launches (a chunk's loop, or one replayed round), captures, their
+# seconds and the memory the captures reserved.
 launches = 0
 captures = 0
 capture_s = 0.0
@@ -96,6 +116,11 @@ copy_bytes = 0
 choose_launches = 0
 round_replays = 0
 join_replays = 0
+# The loop (csrc/round_graph.cu): loop_kernel nodes run (one a looped
+# round) and loop graphs built (one a program, again each time a call
+# meets a variant it had not captured).
+loop_launches = 0
+loop_builds = 0
 
 # Host counters the kernel wrappers (and ``_copy_leaves``) keep,
 # attributed per captured segment.
@@ -124,26 +149,52 @@ class _Choice(ctypes.Structure):
                 ("handle", ctypes.c_uint64 * MAX_GROUP)]
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("round_graph")
+class _Join(ctypes.Structure):
+    """``RoundJoin``: one variant's joined round inside the loop."""
+    _fields_ = [("segs", ctypes.POINTER(_VP)),
+                ("group_of", ctypes.POINTER(ctypes.c_int)),
+                ("n", ctypes.c_int), ("choices", _VP),
+                ("n_groups", ctypes.c_int), ("code", ctypes.c_int)]
+
+
+class _LoopArgs(ctypes.Structure):
+    """``round_graph::Loop``: the loop node's arguments (the build fills
+    the codes and makes the handles)."""
+    _fields_ = [("left", _VP), ("step", _VP), ("variant", _VP),
+                ("runs", _VP), ("rows", ctypes.c_int), ("n", ctypes.c_int),
+                ("code", ctypes.c_int * kernel.VARIANT_CODES),
+                ("handle", ctypes.c_uint64 * kernel.VARIANT_CODES),
+                ("loop", ctypes.c_uint64)]
+
+
+def set_argtypes(lib):
+    """Types ``csrc/round_graph.cu``'s entry points in ``lib`` (the card's
+    build, or a host build of the same source)."""
     out = [ctypes.POINTER(_VP), ctypes.POINTER(_VP)]
+    ci = ctypes.c_int
     lib.round_graph_build.argtypes = [ctypes.POINTER(_VP),
-                                      ctypes.POINTER(ctypes.c_int),
-                                      ctypes.c_int, _VP, ctypes.c_int, *out]
+                                      ctypes.POINTER(ci), ci, _VP, ci, *out]
+    lib.round_graph_loop_build.argtypes = [_VP, ci, _VP, *out]
+    lib.round_graph_loop_toy.argtypes = [_VP, _VP, *out]
     lib.round_graph_launch.argtypes = [_VP, _VP]
     lib.round_graph_destroy.argtypes = [_VP, _VP]
-    lib.round_graph_edges.argtypes = [_VP, _VP, ctypes.POINTER(ctypes.c_int),
+    lib.round_graph_edges.argtypes = [_VP, _VP, _VP, ctypes.POINTER(ci),
                                       *out]
     lib.round_graph_choice.argtypes = [_VP, _VP, *out]
     lib.round_graph_dot.argtypes = [_VP, ctypes.c_char_p]
-    for fn in (lib.round_graph_build, lib.round_graph_launch,
+    for fn in (lib.round_graph_build, lib.round_graph_loop_build,
+               lib.round_graph_loop_toy, lib.round_graph_launch,
                lib.round_graph_destroy, lib.round_graph_edges,
                lib.round_graph_choice, lib.round_graph_dot):
-        fn.restype = ctypes.c_int
-    lib.round_graph_error.argtypes = [ctypes.c_int]
+        fn.restype = ci
+    lib.round_graph_error.argtypes = [ci]
     lib.round_graph_error.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return set_argtypes(_build.load("round_graph"))
 
 
 def _check(rc: int, what: str) -> None:
@@ -297,14 +348,17 @@ class _Graph:
             if grp is not None and all(grp is not q for q in self.groups):
                 self.groups.append(grp)
         at = {id(q): i for i, q in enumerate(self.groups)}
-        graphs = (_VP * len(segs))(*(g.raw_cuda_graph() for g, *_ in segs))
-        group_of = (ctypes.c_int * len(segs))(*(
+        # The build's arguments, kept for the loop's (``join``).
+        self._segs = (_VP * len(segs))(*(g.raw_cuda_graph()
+                                         for g, *_ in segs))
+        self._group_of = (ctypes.c_int * len(segs))(*(
             -1 if grp is None else at[id(grp)] for _, grp, _, _ in segs))
-        choices = (_Choice * max(1, len(self.groups)))(
+        self._choices = (_Choice * max(1, len(self.groups)))(
             *(q.args(runs) for q in self.groups))
         self.graph, self.exec = _VP(), _VP()
-        _check(_lib().round_graph_build(graphs, group_of, len(segs),
-                                        ctypes.cast(choices, _VP),
+        _check(_lib().round_graph_build(self._segs, self._group_of,
+                                        len(segs),
+                                        ctypes.cast(self._choices, _VP),
                                         len(self.groups),
                                         ctypes.byref(self.graph),
                                         ctypes.byref(self.exec)),
@@ -321,6 +375,11 @@ class _Graph:
         _add_counts(self.plain)
         choose_launches += len(self.groups)
         launches += 1
+
+    def join(self, code: int) -> _Join:
+        """This round as the loop joins it, under variant code ``code``."""
+        return _Join(self._segs, self._group_of, len(self.segs),
+                     ctypes.cast(self._choices, _VP), len(self.groups), code)
 
     def described(self, path) -> dict:
         """The joined graph's own nodes as the runtime describes them
@@ -345,6 +404,74 @@ class _Graph:
             _check(_lib().round_graph_destroy(self.graph, self.exec),
                    "destroying the round's graph")
             self.graph, self.exec = _VP(), _VP()
+
+
+class _Loop:
+    """A program's loop graph (``csrc/round_graph.cu``): its captured
+    variants' joined rounds ``graphs`` (``{code: _Graph}``) under one
+    WHILE node, the loop kernel reading the program's rounds left
+    (``left``), row counter (``step``) and variant column (``variant``) and
+    counting into ``runs`` (``LOOP_WORDS`` int64)."""
+
+    def __init__(self, graphs: dict, left, step, variant, runs):
+        global loop_builds
+        codes = sorted(graphs)
+        joins = (_Join * len(codes))(*(graphs[c].join(c) for c in codes))
+        # The loop node's arguments, its handles written back by the build.
+        self.args = _LoopArgs(left.data_ptr(), step.data_ptr(),
+                              variant.data_ptr(), runs.data_ptr(),
+                              variant.numel())
+        self.codes = frozenset(codes)
+        self.graph, self.exec = _VP(), _VP()
+        _check(_lib().round_graph_loop_build(
+            ctypes.cast(joins, _VP), len(codes),
+            ctypes.addressof(self.args), ctypes.byref(self.graph),
+            ctypes.byref(self.exec)),
+            "building the round's loop")
+        loop_builds += 1
+
+    def launch(self) -> None:
+        """One chunk's rounds (one graph launch, counted in ``launches``)."""
+        global launches
+        stream = torch.cuda.current_stream().cuda_stream
+        _check(_lib().round_graph_launch(self.exec, stream),
+               "launching the round's loop")
+        launches += 1
+
+    def close(self) -> None:
+        if self.exec:
+            _check(_lib().round_graph_destroy(self.graph, self.exec),
+                   "destroying the round's loop")
+            self.graph, self.exec = _VP(), _VP()
+
+
+def loop_ref(codes, variant, left, step, runs=None) -> list:
+    """The plain version of one launch of the loop (``_Loop``; its loop
+    kernel, ``csrc/round_graph.cu``): while ``left`` (int32 [1]) holds
+    rounds, one is taken and the IF node of the code that the column
+    ``variant`` names at ``step`` (int64 [1]) runs, its run counted in
+    ``runs`` (``LOOP_WORDS`` int64, or None) and ``step`` advanced as the
+    round advances it; a code not among ``codes`` ends the loop, ``left``
+    set to 0 and the fault counted.  Returns the indices into ``codes`` of
+    the IF nodes taken, in order (a host read a round: a check's plain
+    version)."""
+    V = kernel.VARIANT_CODES
+    taken = []
+    while int(left) > 0:
+        s = int(step)
+        code = int(variant[s]) if 0 <= s < variant.numel() else -1
+        if code not in codes:
+            left.zero_()
+            if runs is not None:
+                runs[V] += 1
+                runs[V + 1] = code
+            break
+        left.sub_(1)
+        if runs is not None:
+            runs[code] += 1
+        taken.append(codes.index(code))
+        step.add_(1)
+    return taken
 
 
 class Chooser:
@@ -424,14 +551,6 @@ def _clone(tree):
         tree, "_fields") else tuple(_clone(x) for x in tree)
 
 
-def _pinned(tbl, dev) -> torch.Tensor:
-    """A host table as a tensor to copy to ``dev`` from: pinned for a card
-    (PyTorch's host allocator holds the pinned buffer until the copies
-    from it are done, so they need not wait)."""
-    host = torch.from_numpy(tbl)
-    return host.pin_memory() if torch.device(dev).type == "cuda" else host
-
-
 class _Program:
     """Static buffers and one captured graph per variant; a subclass
     defines ``_warm(v)`` (one round of variant ``v`` on copies of the
@@ -444,8 +563,15 @@ class _Program:
     def __init__(self, dev, pool=None):
         self.dev = dev
         self.pool = pool
-        self.branch_runs = torch.zeros(MAX_BRANCHES, dtype=torch.int64,
-                                       device=dev)
+        # The chooser nodes' runs of each branch body, then the loop's
+        # counters: one buffer, which ``settle`` reads at once.
+        self._runs = torch.zeros(MAX_BRANCHES + LOOP_WORDS,
+                                 dtype=torch.int64, device=dev)
+        self.branch_runs = self._runs[:MAX_BRANCHES]
+        self.loop_runs = self._runs[MAX_BRANCHES:]
+        # The rounds of each variant code the host sent through the loop
+        # since the last settle, which the loop's counts must equal.
+        self.looped = [0] * kernel.VARIANT_CODES
         # The tail's live slots, written by its chooser node a replay.
         self.n_active = torch.zeros((), dtype=_I32, device=dev)
         self.branch_names: list = []
@@ -509,10 +635,14 @@ class _Program:
 
     def settle(self) -> None:
         """Add the branch bodies' counts since the last settle to the
-        host counters (one device read, none without branches)."""
+        host counters (one device read, none without branches); raise if
+        the loop ran other rounds than the host sent it (a variant code it
+        was not built with, or other counts)."""
         if not self.branch_names:
             return
-        runs = self.branch_runs[:len(self.branch_names)].tolist()
+        words = self._runs.tolist()
+        self._runs.zero_()
+        runs, loop = words[:len(self.branch_names)], words[MAX_BRANCHES:]
         for g in self.graphs.values():
             for bid, deltas in g.branch.items():
                 _add_counts(deltas, runs[bid])
@@ -521,7 +651,15 @@ class _Program:
                 kernel.tail_rounds[name] += n
             elif name == "join":
                 kernel.join_rounds += n
-        self.branch_runs.zero_()
+        looped, self.looped = self.looped, [0] * kernel.VARIANT_CODES
+        V = kernel.VARIANT_CODES
+        if loop[V]:
+            raise RuntimeError(f"the round's loop met variant code "
+                               f"{loop[V + 1]}, which it was not built with "
+                               f"({loop[V]} times)")
+        if loop[:V] != looped:
+            raise RuntimeError(f"the round's loop ran {loop[:V]} rounds a "
+                               f"variant code, the host sent {looped}")
 
     def close(self) -> None:
         for g in self.graphs.values():
@@ -534,7 +672,8 @@ class RoundProgram(_Program):
     schedule, shard count and which of the join rounds, flight ring,
     banks, NemState and trace are threaded.  ``run`` is ``run_rounds``;
     a caller that interleaves programs (``multidc.MultiDCProgram``) uses
-    ``load``, ``set_rows``, ``replay`` and ``result``."""
+    ``load``, fills ``table`` and ``step`` (``round_table.fill``), and
+    uses ``replay`` and ``result``."""
 
     def __init__(self, p, nem, sc, dev, state, fail_round, join_round,
                  flight, hist, nem_state, trace: bool, pool=None):
@@ -551,6 +690,11 @@ class RoundProgram(_Program):
         lay = round_args.layout(p.fanout, p.indirect_k)
         self.table = z((TABLE_ROWS, lay.width), dtype=_I32)
         self.step = z(1, dtype=torch.int64)
+        # The table's variant column and the chunk's rounds left, both
+        # written by the table kernel, read by the loop (``self.loop``).
+        self.variant = z(TABLE_ROWS, dtype=_I32)
+        self.left = z(1, dtype=_I32)
+        self.loop = None
         self.trace = ([z((TABLE_ROWS, p.slots), dtype=_I32)
                        for _ in RoundTrace._fields] if trace else None)
         self.dst = (self.state, self.hist, self.nem_state)
@@ -600,21 +744,19 @@ class RoundProgram(_Program):
         if flight is not None:
             self.rows.copy_(flight.rows)
 
-    def set_rows(self, host: torch.Tensor) -> None:
-        """The next chunk of the call's table (a host tensor, pinned on a
-        card: one asynchronous copy), from its first row."""
-        self.table[:host.shape[0]].copy_(host, non_blocking=True)
-        self.step.zero_()
-
     def result(self):
         """New tensors of the buffers: ``(state, rows, hist, nem_state)``."""
         return (_clone(self.state), _clone(self.rows), _clone(self.hist),
                 _clone(self.nem_state))
 
     def run(self, state, base_key, fail_round, steps, join_round, flight,
-            hist, nem_state):
+            hist, nem_state, replays: bool = False):
         """``steps`` rounds from ``state``: ``(state, rows, hist,
-        nem_state, trace columns)``, new tensors."""
+        nem_state, trace columns)``, new tensors.  Two host reads (the
+        round counter, the flight cursor); each chunk of up to
+        ``TABLE_ROWS`` rounds is one fill of the table (``round_table``)
+        and, on a card, one launch of the loop (``replays``: a replay a
+        round instead, the loop's plain version, for a check)."""
         p = self.p
         self.load(state, fail_round, join_round, flight, hist, nem_state)
         rnd0 = kernel._host_int(state.round)
@@ -622,13 +764,16 @@ class RoundProgram(_Program):
         if flight is not None:
             R = self.rows.shape[0]
             cur = kernel._host_int(flight.cursor)
+        round_args._check_rounds(rnd0, steps)
         chunks = []
         for done in range(0, steps, TABLE_ROWS):
             n = min(TABLE_ROWS, steps - done)
-            self.set_rows(_pinned(round_args.build(
-                p, base_key, rnd0 + done, n, cur + done, R), self.dev))
-            for k in range(n):
-                self.replay(round_variant(p, self.nem, rnd0 + done + k))
+            round_table.fill([round_table.Job(
+                p, base_key, rnd0 + done, self.table, variant=self.variant,
+                nem=self.nem, left=self.left, step=self.step,
+                cursor=cur + done, ring=R)], n)
+            self._rounds(kernel.variant_codes(p, self.nem, rnd0 + done, n),
+                         replays)
             if self.trace is not None:
                 chunks.append([b[:n].clone() for b in self.trace])
         tr = None
@@ -637,6 +782,50 @@ class RoundProgram(_Program):
                   torch.zeros((0, p.slots), dtype=_I32, device=self.dev)
                   for c in (zip(*chunks) if chunks else [()] * 6)]
         return (*self.result(), tr)
+
+    def _rounds(self, codes: np.ndarray, replays: bool) -> None:
+        """A chunk's rounds from the table's first row, ``codes`` their
+        variants as the host's mirror gives them: on a card one launch of
+        the loop, whose counts the host adds here (each variant's
+        unconditional launches times its rounds; the branch bodies' at
+        ``settle``); with ``replays``, or off a card (the tests' emulated
+        captures), a replay a round."""
+        global choose_launches, loop_launches, round_replays, join_replays
+        if replays or self.dev.type != "cuda":
+            for c in codes.tolist():
+                self.replay(kernel.variant_of(c))
+            return
+        uniq, count = np.unique(codes, return_counts=True)
+        self._looped(uniq.tolist()).launch()
+        for c, m in zip(uniq.tolist(), count.tolist()):
+            g = self.graphs[kernel.variant_of(c)]
+            _add_counts(g.plain, m)
+            choose_launches += len(g.groups) * m
+            self.looped[c] += m
+        loop_launches += len(codes)
+        round_replays += len(codes)
+        join_replays += len(codes) * (self.join is not None)
+
+    def _looped(self, codes) -> _Loop:
+        """The loop over every captured variant, ``codes`` among them:
+        those missing are captured first, and the loop is built again
+        when that adds one."""
+        for c in codes:
+            self.graph(kernel.variant_of(c))
+        have = {kernel.variant_code(v): g for v, g in self.graphs.items()}
+        if self.loop is None or self.loop.codes != set(have):
+            if self.loop is not None:
+                self.loop.close()
+                self.loop = None
+            self.loop = _Loop(have, self.left, self.step, self.variant,
+                              self.loop_runs)
+        return self.loop
+
+    def close(self) -> None:
+        if self.loop is not None:
+            self.loop.close()
+            self.loop = None
+        super().close()
 
 
 class EventProgram(_Program):
@@ -722,21 +911,19 @@ class EventProgram(_Program):
         if fail is not None:
             self.fail.copy_(fail)
 
-    def set_rows(self, host: torch.Tensor) -> None:
-        self.table[:host.shape[0]].copy_(host, non_blocking=True)
-        self.step.zero_()
-
     def run(self, state, base_key, alive, steps):
         """``steps`` event rounds from ``state``: ``(state, cov)``, new
-        tensors.  One host read (the round counter)."""
+        tensors.  One host read (the round counter); a chunk's table from
+        one fill (``round_table``)."""
         p = self.p
         self.load(state, alive)
         rnd0 = kernel._host_int(state.round)
         covs = []
         for done in range(0, steps, TABLE_ROWS):
             n = min(TABLE_ROWS, steps - done)
-            self.set_rows(_pinned(round_args.build_events(
-                p, base_key, rnd0 + done, n), self.dev))
+            round_table.fill([round_table.Job(
+                p, base_key, rnd0 + done, self.table, events=True,
+                step=self.step)], n)
             for k in range(n):
                 self.replay(events.is_pushpull(p, rnd0 + done + k))
             covs.append(self.cov[:n].clone())

@@ -3,13 +3,17 @@
 The reference derives every per-round scalar inside its jitted scan from
 the traced round counter (``consul_tpu/gossip/kernel.py``: ``fold_in(key,
 rnd)`` and the sub-keys, the probe tick's target and helper offsets, the
-gossip shifts, the push/pull partner, the prober block).  The port builds
-the same values on the host, for all of a call's rounds at once, with the
-host twin of ``jax.random`` (``prng._threefry2x32`` over numpy arrays: one
-vectorised pass per key derivation, every round in a lane), and moves them
-to the device in one copy.  The round then reads its row with a device
-index, so no argument of any operation or launch depends on the round
-number, and one captured round serves every round (``gossip/program.py``).
+gossip shifts, the push/pull partner, the prober block).  On a card the
+round programs' tables come from a kernel (``round_table.py``,
+``csrc/round_table.cu``) that writes them straight into the programs'
+buffers; ``build``, ``build_events`` and ``build_pools`` here are its
+plain version, the eager round's table and the CPU's: the same values on
+the host, for all of a call's rounds at once, with the host twin of
+``jax.random`` (``prng._threefry2x32`` over numpy arrays: one vectorised
+pass per key derivation, every round in a lane).  The round reads its row
+with a device index, so no argument of any operation or launch depends on
+the round number, and one captured round serves every round
+(``gossip/program.py``).
 
 Row layout (``Layout``; widths from ``fanout`` F and ``indirect_k`` K):
 

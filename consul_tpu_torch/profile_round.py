@@ -7,6 +7,7 @@
                                              [--functions]
                                              [--round-fn FN=NAME]
     python -m consul_tpu_torch.profile_round --multidc [--ndev 8]
+    python -m consul_tpu_torch.profile_round --split [--rounds 30]
 
 Runs bench.py's LAN regime on the card (``lan_profile(N, SLOTS,
 hot_slots=0)``, churn failures on a stride) for ``WARM`` rounds, then
@@ -65,7 +66,8 @@ profiled rounds lie inside its fault window (the warm-up ends at round
 included), and ``dissem_launches``/``merge_launches`` the kernel launches,
 each with its drop operand.
 
-- pass A, no profiler: host time per round, and the host time and the
+- pass A, no profiler: host time per round (the call, then a read that
+  waits for the card), and the host time and the
   calls per round of each round phase (the probe tick, whose draws are
   made inside ``csrc/probe.cu``'s lanes_slots kernel; the uniform draws and
   the compared draws (``prng.below``), on a card each a launch of
@@ -73,7 +75,8 @@ each with its drop operand.
   dissemination tail, the finish step, the kernel wrappers), each phase
   timed by a host clock around the round's own function; a kernel
   wrapper's host time over its calls is its host cost per launch;
-- pass B, under torch.profiler: the device kernels' time per round (busy
+- pass B, under torch.profiler, over pass A's rounds again from the same
+  carry: the device kernels' time per round (busy
   time), each phase's device time (the kernels launched inside it), the
   number of kernels per round, the port's own kernels' calls and device
   time per round (``hand_kernels``: the draws', the tail's, the probe
@@ -93,12 +96,35 @@ one in one process, each ``WARM`` rounds and then passes A and B of
 ``--rounds`` rounds in one call each: host ms a round, device busy ms a
 round and idle share, device kernels and graph launches a round, the
 flood's and the tail's kernels a round, and the host ms of the call's
-table build (``multidc._tables``).
+table: the host's build (``multidc._tables``) on the eager route, the
+table kernel's fill (``round_table.fill``) on the graphed one.
+
+``--split`` splits the host time of a graphed call (``run_rounds`` on the
+card, the flight ring, hist banks and trace threaded, as the plane runs
+it) by part, on four paths in turn (churn, healthy, 8 shards and
+``partition_heal``, each as the flags above would run it): ``SPLIT``'s
+parts of ``gossip/program.py``'s call (the inputs' load, the results'
+clones, the two host reads, the table: a host build and its copy, or the
+table kernel's fill; the host's mirror of the variants; the graph
+launches; per round the host's variant choice and its counters' adds;
+captures and loop builds), each the host time of the functions named
+(found by name, so a checkout without one times none: the split runs on
+an older checkout too), exclusive of the parts called inside it, and
+``rest``, the call's host time the parts leave (the trace's chunks and
+their join, the entry point's own work).  ``SPLIT_CALLS`` calls of
+``--rounds`` rounds after the warm-up, whose rounds are first run once
+untimed (every variant they meet captured before them); each part's ms
+a call and a round.
+A line a path, with the graphed route's profile (``profile_route``)
+beside the split.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import copy
+import importlib
 import inspect
 import json
 import sys
@@ -133,6 +159,8 @@ SINGLE_PHASES = {  # the single-device round's own
 HAND_KERNELS = {"draws": "threefry::draw_kernel",
                 "tail": "dissem_tail::tail_kernel",
                 "conditions": "round_graph::choose_kernel",
+                "loop": "round_graph::loop_kernel",
+                "table": "round_table::table_kernel",
                 "flood": "evflood::flood_kernel",
                 "observe": "observe::counts_kernel",
                 "finish": "finish::",
@@ -199,6 +227,22 @@ def self_device_us(evt) -> float:
     return 0.0
 
 
+def fresh_loops() -> None:
+    """Have every cached round program build its loop graph again at its
+    next call, once a profiler session has run in this process.  On the
+    H100 a loop instantiated before the process's first profiler session
+    shows each of its nodes to the profiler once a launch, whatever its
+    rounds; one instantiated after a session shows every round's.  A
+    profile of looped calls calls this, then runs a call, first."""
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    for prog in list(program._programs.values()):
+        if getattr(prog, "loop", None) is not None:
+            prog.loop.close()
+            prog.loop = None
+
+
 def device_kernels(prof, exclude=()) -> list:
     """The profile's device kernels (``key_averages`` rows on the card,
     except the labels in ``exclude``), busiest first."""
@@ -263,9 +307,22 @@ def main(argv=None) -> int:
                          "to NAME")
     ap.add_argument("--multidc", action="store_true",
                     help="profile the multi-DC round, graphed and eager")
+    ap.add_argument("--split", action="store_true",
+                    help="split a graphed call's host time by part, on "
+                         "churn, healthy, 8 shards and partition_heal")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA card")
+    if args.split:
+        for name, over in SPLIT_PATHS.items():
+            a = copy.copy(args)
+            a.observers = True
+            for k, v in over.items():
+                setattr(a, k, v)
+            res = profile_route(a, True)
+            res.update(path=name, split=profile_split(a))
+            print(json.dumps(res), flush=True)
+        return 0
     if args.multidc:
         for graphed in (True, False):
             print(json.dumps(profile_multidc(args, graphed)), flush=True)
@@ -297,14 +354,20 @@ def profile_multidc(args, graphed: bool) -> dict:
     wan_fail_t = torch.full((D * s0,), kernel.NEVER, dtype=torch.int32,
                             device=dev)
     key = prng.key(42)
+    # A call's tables: the host's build (the eager route's ``_tables``) or
+    # the table kernel's fill (the graphed route's).
     table_s = []
-    tables = md._tables
+    builds = {(md, "_tables"): md._tables}
+    if hasattr(md, "round_table"):
+        builds[md.round_table, "fill"] = md.round_table.fill
 
-    def timed_tables(*a):
-        t0 = time.perf_counter()
-        out = tables(*a)
-        table_s.append(time.perf_counter() - t0)
-        return out
+    def timed(fn):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            table_s.append(time.perf_counter() - t0)
+            return out
+        return call
 
     def run(st, steps):
         st, _ = md.run_multidc_rounds(st, key, lan_fail_t, wan_fail_t, p,
@@ -314,7 +377,8 @@ def profile_multidc(args, graphed: bool) -> dict:
         return st
 
     captures0, capture_s0 = program.captures, program.capture_s
-    md._tables = timed_tables
+    for (mod, attr), fn in builds.items():
+        setattr(mod, attr, timed(fn))
     try:
         state = run(md.fire_in_dc(md.init_multidc(p, device=dev), 0, 7, p),
                     WARM)
@@ -329,7 +393,8 @@ def profile_multidc(args, graphed: bool) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             state = run(state, R)
     finally:
-        md._tables = tables
+        for (mod, attr), fn in builds.items():
+            setattr(mod, attr, fn)
     program.settle_counts()
     d_draws, d_graphs, d_syncs, d_floods, d_tails = (
         b - a for a, b in zip(counts0, (
@@ -355,6 +420,7 @@ def profile_multidc(args, graphed: bool) -> dict:
         "tail_launches_per_round": d_tails / (2 * R),
         "draw_launches_per_round": d_draws / (2 * R),
         "table_host_ms_per_call": 1e3 * sum(table_s) / len(table_s),
+        "table_route": "table kernel" if graphed else "host build",
         "captures": program.captures - captures0,
         "capture_s": program.capture_s - capture_s0,
         "pool_bytes": ([prog.pool_bytes for prog in md._programs.values()]
@@ -625,7 +691,7 @@ def profile_functions(args) -> dict:
     docstring): the 1M round (churn as ``--churn-ppm`` says, on
     ``--ndev`` shards), ``WARM`` graphed rounds, then ``--rounds`` rounds
     of the round program's body run eagerly under the profiler."""
-    from consul_tpu_torch.gossip import round_args
+    from consul_tpu_torch.gossip import round_table
     dev = torch.device("cuda")
     p = lan_profile(N, slots=SLOTS, hot_slots=0, dissem="fused")
     n_fail = max(1, N * args.churn_ppm // 1_000_000) if args.churn_ppm else 0
@@ -648,7 +714,8 @@ def profile_functions(args) -> dict:
     prog = program.RoundProgram(p, None, sc, dev, state, fail_t, None, None,
                                 None, None, False)
     prog.load(state, fail_t)
-    prog.set_rows(program._pinned(round_args.build(p, key, rnd0, R), dev))
+    round_table.fill([round_table.Job(p, key, rnd0, prog.table,
+                                      step=prog.step)], R)
     functions = _named_functions(ROUND_FUNCTIONS, args.round_fn,
                                  "--round-fn",
                                  _kernel_functions() | {"_copy_leaves"})
@@ -682,12 +749,122 @@ def profile_functions(args) -> dict:
             "by_function": out}
 
 
-def profile_route(args, graphed: bool) -> dict:
-    """One route's profile (the module docstring)."""
-    dev = torch.device("cuda")
-    phases = {} if graphed else dict(
-        PHASES, **(SHARDED_PHASES if args.ndev else SINGLE_PHASES))
+# --split: the paths, as flags, and the parts of a graphed call, each the
+# functions (module, then attribute path) whose host time it is.
+SPLIT_PATHS = {"churn": {}, "healthy": {"churn_ppm": 0},
+               "8_shards": {"ndev": 8},
+               "partition_heal": {"nemesis": "partition_heal"}}
+_G = "consul_tpu_torch.gossip."
+SPLIT = {
+    "load": [(_G + "program", "RoundProgram.load")],
+    "result": [(_G + "program", "RoundProgram.result")],
+    "reads": [(_G + "kernel", "_host_int")],
+    "table": [(_G + "round_args", "build"), (_G + "program", "_pinned"),
+              (_G + "program", "RoundProgram.set_rows"),
+              (_G + "round_table", "fill")],
+    "variant_mirror": [(_G + "kernel", "variant_codes")],
+    "launches": [(_G + "program", "_Graph.launch"),
+                 (_G + "program", "_Loop.launch")],
+    "round_variant": [(_G + "program", "round_variant")],
+    "add_counts": [(_G + "program", "_add_counts")],
+    "captures": [(_G + "program", "_Program._capture"),
+                 (_G + "program", "_Loop.__init__")],
+}
+SPLIT_CALLS = 10
 
+
+class _Split:
+    """Host seconds and calls a part, each call's time less that of the
+    timed calls inside it."""
+
+    def __init__(self):
+        self.s = collections.defaultdict(float)
+        self.calls = collections.defaultdict(int)
+        self._inner = []
+
+    def wrap(self, label, fn):
+        def timed_part(*a, **kw):
+            self._inner.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                self.s[label] += dt - self._inner.pop()
+                self.calls[label] += 1
+                if self._inner:
+                    self._inner[-1] += dt
+        return timed_part
+
+
+def _split_targets() -> list:
+    """``(label, owner, attribute, function)`` of every ``SPLIT`` function
+    this checkout has."""
+    out = []
+    for label, names in SPLIT.items():
+        for mod, path in names:
+            try:
+                owner = importlib.import_module(mod)
+            except ImportError:
+                continue
+            *outer, attr = path.split(".")
+            for o in outer:
+                owner = getattr(owner, o, None)
+            if owner is not None and attr in vars(owner):
+                out.append((label, owner, attr, vars(owner)[attr]))
+    return out
+
+
+def profile_split(args) -> dict:
+    """The host split of a graphed call (the module docstring)."""
+    dev = torch.device("cuda")
+    calls, R = SPLIT_CALLS, args.rounds
+    p, run, _ = _route(args, dev, True, calls * R)
+    start = run(kernel.init_state(p, device=dev), WARM)
+    # The timed calls' rounds once untimed, so that every variant they
+    # meet is captured before them.
+    state = start
+    for _ in range(calls):
+        state = run(state, R)
+    state = start
+    torch.cuda.synchronize()
+    split, targets = _Split(), _split_targets()
+    host = synced = 0.0
+    for label, owner, attr, fn in targets:
+        setattr(owner, attr, split.wrap(label, fn))
+    try:
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            state = run(state, R)
+            t1 = time.perf_counter()
+            int(state.round)
+            torch.cuda.synchronize()
+            host += t1 - t0
+            synced += time.perf_counter() - t0
+    finally:
+        for label, owner, attr, fn in targets:
+            setattr(owner, attr, fn)
+    parts = {label: {"ms_per_call": split.s[label] * 1e3 / calls,
+                     "ms_per_round": split.s[label] * 1e3 / (calls * R),
+                     "calls_per_call": split.calls[label] / calls}
+             for label in SPLIT}
+    rest = host - sum(split.s.values())
+    parts["rest"] = {"ms_per_call": rest * 1e3 / calls,
+                     "ms_per_round": rest * 1e3 / (calls * R)}
+    return {"calls": calls, "rounds_per_call": R,
+            "timed": sorted({label for label, *_ in targets}),
+            "host_ms_per_call": host * 1e3 / calls,
+            "host_ms_per_round": host * 1e3 / (calls * R),
+            "synced_ms_per_round": synced * 1e3 / (calls * R),
+            "parts": parts}
+
+
+def _route(args, dev, graphed: bool, rounds: int | None = None):
+    """The main path as the flags say: its parameters and ``run(state,
+    steps)``, which runs a call and returns the state (carrying the
+    scenario's NemState and, with ``--observers``, the flight ring and
+    hist banks from call to call); the churn failures strided over
+    ``WARM`` and ``rounds`` rounds (``--rounds``)."""
     # The scenario's schedule and its Lifeguard registers, carried from
     # call to call (``nem_kw["nem_state"]``).
     nem_kw = {}
@@ -712,7 +889,7 @@ def profile_route(args, graphed: bool) -> dict:
 
     p = lan_profile(N, slots=SLOTS, hot_slots=0, dissem="fused")
     n_fail = max(1, N * args.churn_ppm // 1_000_000) if args.churn_ppm else 0
-    total = WARM + args.rounds
+    total = WARM + (args.rounds if rounds is None else rounds)
     fail = np.full(p.n, kernel.NEVER, np.int32)
     if n_fail:
         fail[:n_fail] = (np.arange(n_fail, dtype=np.int64) * total) // n_fail
@@ -727,6 +904,21 @@ def profile_route(args, graphed: bool) -> dict:
     fail_t = torch.from_numpy(fail).to(dev)
     key = prng.key(42)
 
+    def snapshot():
+        """A function that puts the carried NemState, ring and banks back
+        as they are now (for a second pass over the same rounds)."""
+        saved = (dict(obs), dict(nem_kw))
+        return lambda: (obs.update(saved[0]), nem_kw.update(saved[1]))
+
+    return p, run, snapshot
+
+
+def profile_route(args, graphed: bool) -> dict:
+    """One route's profile (the module docstring)."""
+    dev = torch.device("cuda")
+    phases = {} if graphed else dict(
+        PHASES, **(SHARDED_PHASES if args.ndev else SINGLE_PHASES))
+    p, run, snapshot = _route(args, dev, graphed)
     captures0, capture_s0 = program.captures, program.capture_s
     pool0 = program.pool_bytes
     state = run(kernel.init_state(p, device=dev), WARM)
@@ -748,15 +940,22 @@ def profile_route(args, graphed: bool) -> dict:
             for label, (mod, attr) in phases.items():
                 setattr(mod, attr, saved[label])
 
+    if graphed:
+        # The loop built again after a profiler session (``fresh_loops``)
+        # by a call before the measured ones.
+        fresh_loops()
+        state = run(state, R)
     program.settle_counts()
     tails0 = dict(kernel.tail_rounds)
     draws0, graphs0, syncs0 = prng.launches, program.launches, \
         kernel.host_syncs
-    host_s = {}
-    state, wall_a = measured_pass(_timed, host_s, state)
+    # Passes A and B run the same rounds from the same carry.
+    host_s, start, restore = {}, state, snapshot()
+    state, wall_a = measured_pass(_timed, host_s, start)
+    restore()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state, wall_b = measured_pass(_annotated, None, state)
+        state, wall_b = measured_pass(_annotated, None, start)
     program.settle_counts()
 
     timed = {}

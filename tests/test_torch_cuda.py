@@ -485,6 +485,99 @@ def test_graphed_round_matches_eager_on_card(ndev, scenario):
     assert int(ce[0].n_detected) > 0
 
 
+@pytest.mark.parametrize("ndev, scenario", [(None, None), (4, None),
+                                            (None, "partition_heal")])
+def test_looped_calls_match_replays_on_card(ndev, scenario, monkeypatch):
+    """A call of 600 rounds (chunks of 512 and 88) as the card runs it, a
+    table launch and a loop launch a chunk, against the same call with a
+    replay a round (``RoundProgram.run(replays=True)``, the loop's plain
+    version): every field of the carry and the trace, the graph and table
+    launches, one loop kernel a round; the settled counts agree."""
+    _need_card()
+    import functools
+
+    from consul_tpu_torch.gossip import round_table
+    from consul_tpu_torch.gossip.nemesis import build
+    from consul_tpu_torch.gossip.params import lan_profile
+    n, steps = 4000, 600
+    p = lan_profile(n, slots=32, loss_rate=0.01)
+    fail, join = _churn_inputs(n, steps, 4)
+    kw = {}
+    if scenario:
+        sc = build(scenario, n)
+        fail = np.minimum(fail, sc.fail_round)
+        kw["nem"] = sc.nem
+        join = np.minimum(join, sc.join_round)
+    st = tk.init_state(p)._replace(member=torch.from_numpy(join == NEVER)
+                                   .cuda())
+    runs, counts = {}, {}
+    run = program.RoundProgram.run
+    for replays in (False, True):
+        if replays:
+            monkeypatch.setattr(program.RoundProgram, "run",
+                                functools.partialmethod(run, replays=True))
+        program.settle_counts()
+        c0 = (program.launches, round_table.launches, program.loop_launches,
+              dict(tk.tail_rounds))
+        a = dict(trace=True, join_round=join, flight=tk.init_flight(),
+                 hist=tk.init_hist(), **kw)
+        if ndev:
+            out = tk.run_rounds_sharded(st, prng.key(6), fail, p, steps,
+                                        ndev=ndev, **a)
+        else:
+            out = tk.run_rounds(st, prng.key(6), fail, p, steps, **a)
+        program.settle_counts()
+        runs[replays] = out
+        counts[replays] = (program.launches - c0[0],
+                           round_table.launches - c0[1],
+                           program.loop_launches - c0[2],
+                           {k: tk.tail_rounds[k] - c0[3][k]
+                            for k in c0[3]})
+    (cl, tl), (cr, tr) = runs[False], runs[True]
+    assert _same_fields(list(cl) + [tl], list(cr) + [tr]) == []
+    assert counts[False][:3] == (2, 2, steps)
+    assert counts[True][:3] == (steps, 2, 0)
+    assert counts[False][3] == counts[True][3]
+
+
+def test_table_kernel_matches_plain_on_card():
+    """``round_table.fill`` on the card against ``fill_ref`` on the CPU:
+    the round's layout with a flight ring and the variant column under a
+    nemesis schedule, and the event layout, at 1, 30 and 512 rows."""
+    _need_card()
+    from consul_tpu_torch.gossip import round_args, round_table
+    from consul_tpu_torch.gossip.nemesis import build
+    from consul_tpu_torch.gossip.params import lan_profile
+    p = lan_profile(1_000_000)
+    nem = build("flapping", p.n).nem
+    lay, ev = (round_args.layout(p.fanout, p.indirect_k),
+               round_args.event_layout(p.fanout))
+    for rows in (1, 30, 512):
+        for dev in ("cuda", "cpu"):
+            z = torch.zeros
+            jobs = [round_table.Job(
+                p, prng.key(rows), 40 + rows, z((rows, lay.width),
+                                                dtype=torch.int32,
+                                                device=dev),
+                variant=z(rows, dtype=torch.int32, device=dev), nem=nem,
+                left=z(1, dtype=torch.int32, device=dev),
+                step=torch.ones(1, dtype=torch.int64, device=dev),
+                cursor=rows * 7, ring=256),
+                round_table.Job(p, prng.key(rows), 9, z(
+                    (rows, ev.width), dtype=torch.int32, device=dev),
+                    events=True)]
+            round_table.fill(jobs, rows)
+            out = [(j.table.cpu(), None if j.variant is None
+                    else j.variant.cpu()) for j in jobs]
+            if dev == "cuda":
+                got = out
+                assert int(jobs[0].left) == rows and int(jobs[0].step) == 0
+        for (a, va), (b, vb) in zip(got, out):
+            assert torch.equal(a, b)
+            assert (va is None) == (vb is None)
+            assert va is None or torch.equal(va, vb)
+
+
 def test_device_argument_modes_on_card():
     """The tail's shifts off by -N against the same shifts in [1, N), and
     the draws' device-argument entry points against their by-value
