@@ -227,14 +227,21 @@ result lines are not printed.
    profiler (a profiler session earlier in the process leaves later ones
    blind to kernels in conditional bodies).
 8c. loop (also ``--phase loop``): the round program's loop
-   (``csrc/round_graph.cu``: a WHILE node, ``loop_kernel``, an IF node a
-   captured variant; ``csrc/round_table.cu``'s ``table_kernel`` filling
+   (``csrc/round_graph.cu``: a WHILE node, ``loop_kernel``, then
+   ``program.LOOP_ROUNDS`` round slots, each a SWITCH node over the
+   captured variants; ``csrc/round_table.cu``'s ``table_kernel`` filling
    the chunk's table): first the nested graph, a segment with a
-   programmatic edge (the tail then decide) under a cond's IF node under
-   a variant's IF node in a WHILE node, kept and held; the loop kernel in
-   a loop of toy rounds against ``program.loop_ref`` (chunks of 0 to 512
-   rounds, a code it was not built with), timed a round with 2 and 10
-   variants; ``table_kernel`` against its host twin over 320 draws of
+   programmatic edge (the tail then decide) under a cond's IF node in
+   each slot's SWITCH body in a WHILE node, kept and held; the toy loop's
+   table (an IF node a variant and one round an iteration, one SWITCH
+   node a round, 2, 4 and 8 rounds an iteration; 2 and 10 variants; 512,
+   4 and no rounds), every form and launch against ``program.loop_ref``
+   (chunks of 0 to 512 rounds, a code it was not built with at the first,
+   a middle and the last slot of an iteration), and the slots it favours;
+   the nesting's cost (a healthy 1M round's joined graph from the host,
+   inside an IF node, inside a WHILE iteration's IF node, and 30 of it
+   as one launch of the loop); ``table_kernel``
+   against its host twin over 320 draws of
    (parameters, key, first round, rows) and the multi-DC pools' launch,
    timed at 512 and 30 rows beside the host build and the bound; looped
    calls against the per-round replays and the eager route at 16,000
@@ -242,7 +249,8 @@ result lines are not printed.
    every launch gate exact; a looped call's kernels under the profiler
    equal to the host's counts.  On every single-pool path a call is one
    table launch and one graph launch a chunk of up to 512 rounds, the
-   loop kernel one a round (multi-DC: 2 D + 3 graph launches a round,
+   loop kernel ceil(n / U) a chunk of n rounds (multi-DC: 2 D + 3 graph
+   launches a round,
    one table launch a call); round_program runs each case looped, with
    per-round replays and eagerly (carry and trace bit-identical), and
    profiles the looped route in a fresh worker process; the plane's
@@ -2955,7 +2963,8 @@ def _joined_graph_run(capture, warm, check, before=None,
                  torch.zeros(1, dtype=torch.int32, device="cuda"),
                  torch.zeros(program.LOOP_WORDS, dtype=torch.int64,
                              device="cuda"))
-        loop = program._LoopArgs(*(w.data_ptr() for w in words), 1, 1)
+        loop = program._LoopArgs(*(w.data_ptr() for w in words), 1, 1,
+                                 program.LOOP_ROUNDS)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -2993,9 +3002,12 @@ def _joined_graph_run(capture, warm, check, before=None,
             res["held"] = True
             if looped:
                 res["loop_runs"] = words[3].tolist()
+                # Its one round of code 0 and its one loop kernel.
+                V = program.kernel.VARIANT_CODES
                 res["held"] = (int(words[0]) == 0 and int(words[1]) == 0
                                and words[3][0].item() == 1
-                               and int(words[3].sum()) == 1)
+                               and words[3][V + 2].item() == 1
+                               and int(words[3].sum()) == 2)
         lib.round_graph_destroy(joined, exe)
     del graph
     torch.cuda.empty_cache()
@@ -3442,6 +3454,7 @@ def _reset_counts() -> None:
     _settle()
     program.launches = 0
     program.loop_launches = 0
+    program.looped_rounds = 0
     round_table.launches = 0
     program.copy_bytes = 0
     program.choose_launches = 0
@@ -3805,7 +3818,7 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
            "n_false_dead": int(state.n_false_dead),
            "drops": int(state.drops)}
     # A call is one table launch and one loop launch a chunk of 512
-    # rounds, the loop kernel one a round.
+    # rounds, ceil(n / U) loop kernels a chunk of n.
     res.update(_loop_gate(res["phase"], [warm] + [block] * blocks))
     emit(res)
     busy = tails["hot"] + tails["full"]
@@ -4335,6 +4348,7 @@ def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool,
     _reset_counts()
     captures0, capture_s0 = program.captures, program.capture_s
     pool0 = program.pool_bytes
+    builds0, build_s0 = program.loop_builds, program.loop_build_s
     t0 = time.perf_counter()
     rounds(RP["warm"])
     int(carry[0].round)
@@ -4377,20 +4391,23 @@ def _rp_route(p, fail_t, kw, st0, ndev, graphed: bool,
             "captures": program.captures - captures0,
             "capture_s": program.capture_s - capture_s0,
             "pool_bytes": program.pool_bytes - pool0,
+            "loop_builds": program.loop_builds - builds0,
+            "loop_build_s": program.loop_build_s - build_s0,
             "tail_rounds": dict(kernel.tail_rounds),
             "carry": tuple(carry), "trace": tr}
 
 
 def _rp_calls_gate(name: str, route: str, r: dict) -> list:
     """A round_program route's graph and table launches a call: looped,
-    ceil(rounds / 512) each and one loop kernel a round; replayed, a graph
-    launch a round and the same tables; eager, none.  Returns what is
-    wrong."""
+    ceil(rounds / 512) each and ceil(n / U) loop kernels a chunk of n
+    rounds (``program.loop_kernels``); replayed, a graph launch a round
+    and the same tables; eager, none.  Returns what is wrong."""
     from consul_tpu_torch.gossip import program
     chunks = -(-RP["block"] // program.TABLE_ROWS)
     want = {"eager": (0, 0, 0),
             "graphed": (chunks, chunks,
-                        RP["warm"] + RP["block"] * RP["blocks"]),
+                        program.loop_kernels(RP["warm"])
+                        + RP["blocks"] * program.loop_kernels(RP["block"])),
             "replays": (RP["block"], chunks, 0)}[route]
     got = (r["graph_launches_per_call"], r["table_launches_per_call"],
            r["loop_launches"])
@@ -4782,13 +4799,33 @@ def table_vs_plain(draws: int = TABLE_DRAWS) -> dict:
     return res
 
 
-def _toy_loop(codes: list):
+# The toy loop's forms (round slots an iteration, the slot's node type):
+# (a) the older form, an IF node a variant, one round an iteration; (b)
+# one SWITCH node a round; (c) U rounds an iteration, each slot of the
+# better type of (a) and (b).
+TOY_FORMS = {"a": (1, "if"), "b": (1, "switch")}
+TOY_SLOTS = (2, 4, 8)
+TOY_VARIANTS = (2, 10)
+TOY_CHUNKS = (512, 4)  # a whole table; the plane's chunk
+# A loop iteration's loop kernel reads the rounds left (4) and the step
+# (8), writes the rounds left (4) and adds one to its run counter (16); a
+# round taken reads its code (4) and adds one to its run counter (16).
+LOOP_ITERATION_BYTES, LOOP_ROUND_BYTES = 32, 20
+
+
+# The loops of one round ``loop_nesting`` times: (slots, variants).
+LOOP_NESTS = ((8, 1), (8, 2), (8, 4), (1, 2), (2, 2), (4, 2))
+
+
+def _toy_loop(codes: list, u: int = 1, ifs: bool = False):
     """A loop of toy rounds over ``codes`` on the card
-    (``round_graph_loop_toy``) and its buffers: ``(run(n, column) ->
-    (held, rounds), launch_ms(n, column), close())``; ``run`` launches it
-    on a chunk of ``n`` rounds of ``column`` and holds every round's IF
-    body, the step, the rounds left and the runs against
-    ``program.loop_ref``."""
+    (``round_graph_loop_toy``: ``u`` round slots an iteration, SWITCH
+    nodes or with ``ifs`` an IF node a variant a slot) and its buffers:
+    ``(run(n, column) -> (held, rounds, loop kernels), launch_ms(n,
+    column), close())``; ``run`` launches it on a chunk of ``n`` rounds of
+    ``column``, and ``launch_ms`` times launches, each held like ``run``'s:
+    every round's body, the step, the rounds left and the runs (the loop
+    kernels' among them) against ``program.loop_ref``."""
     from consul_tpu_torch.gossip import program
     lib = program._lib()
     rows = program.TABLE_ROWS
@@ -4799,7 +4836,7 @@ def _toy_loop(codes: list):
     order = torch.full((rows + 1,), -1, dtype=torch.int32, device="cuda")
     args = program._LoopArgs(left.data_ptr(), step.data_ptr(),
                              col.data_ptr(), runs.data_ptr(), rows,
-                             len(codes))
+                             len(codes), u, int(ifs))
     for b, c in enumerate(codes):
         args.code[b] = c
     graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
@@ -4817,22 +4854,32 @@ def _toy_loop(codes: list):
         runs.zero_()
         order.fill_(-1)
 
-    def run(n: int, column) -> tuple:
-        reset(n, column)
-        program._check(lib.round_graph_launch(exe, stream), "the toy loop")
-        torch.cuda.synchronize()
+    def plain(n, column) -> tuple:
         h = [column.clone(), torch.tensor([n], dtype=torch.int32),
              torch.zeros(1, dtype=torch.int64),
              torch.zeros(program.LOOP_WORDS, dtype=torch.int64)]
-        want = program.loop_ref(codes, *h)
-        got = order.cpu().tolist()
-        k = len(want)
-        return (got[:k] == want and all(x == -1 for x in got[k:])
-                and int(left) == int(h[1]) and int(step) == int(h[2])
-                and torch.equal(runs.cpu(), h[3])), k
+        its = program.loop_ref(codes, *h, u=u)
+        return [b for it in its for b in it], h, len(its)
 
-    def launch_ms(n: int, column, reps: int = 20) -> float:
-        out = []
+    def held(want) -> bool:
+        taken, h, _ = want
+        got = order.cpu().tolist()
+        k = len(taken)
+        return (got[:k] == taken and all(x == -1 for x in got[k:])
+                and int(left) == int(h[1]) and int(step) == int(h[2])
+                and torch.equal(runs.cpu(), h[3]))
+
+    def run(n: int, column) -> tuple:
+        want = plain(n, column)
+        reset(n, column)
+        program._check(lib.round_graph_launch(exe, stream), "the toy loop")
+        torch.cuda.synchronize()
+        return held(want), len(want[0]), want[2]
+
+    def launch_ms(n: int, column, reps: int = 20) -> tuple:
+        """Mean ms a launch, and the launches that differ from the plain
+        version."""
+        want, out, bad = plain(n, column), [], 0
         for _ in range(reps):
             reset(n, column)
             start = torch.cuda.Event(enable_timing=True)
@@ -4843,67 +4890,281 @@ def _toy_loop(codes: list):
             end.record()
             end.synchronize()
             out.append(start.elapsed_time(end))
-        return sum(out) / len(out)
+            bad += not held(want)
+        return sum(out) / len(out), bad
 
     return run, launch_ms, lambda: lib.round_graph_destroy(graph, exe)
 
 
+def _toy_checks(codes: list, col, u: int, ifs: bool) -> list:
+    """A toy form with 10 variants against ``loop_ref``: chunks of 0, 1,
+    u - 1, u, u + 1, 511 and 512 rounds (512 twice from one executable),
+    each running ceil(n / u) loop kernels, and a code the loop was not
+    given at the first, a middle and the last slot of the 38th iteration;
+    what differs."""
+    from consul_tpu_torch.gossip import kernel, program
+    run, _, close = _toy_loop(codes, u, ifs)
+    bad = []
+    for n in sorted({0, 1, max(u - 1, 0), u, u + 1, 511, 512}) + [512]:
+        ok, k, its = run(n, col)
+        if not ok or k != n or its != max(1, -(-n // u)):
+            bad.append(f"u={u} ifs={ifs}: {n} rounds ({k}, {its} kernels)")
+    missing = next(c for c in range(kernel.VARIANT_CODES) if c not in codes)
+    for slot in sorted({0, u // 2, u - 1}):
+        at = 37 * u + slot
+        faulty = col.clone()
+        faulty[at] = missing
+        ok, k, its = run(program.TABLE_ROWS, faulty)
+        if not ok or k != at or its != 38:
+            bad.append(f"u={u} ifs={ifs}: a fault at row {at} ran {k} "
+                       f"rounds in {its} kernels")
+    close()
+    return bad
+
+
+def _toy_timed(codes: list, col, u: int, ifs: bool) -> tuple:
+    """A toy form's ms a launch and a round over each of ``TOY_CHUNKS``
+    and a 0-round launch, every launch held; and the launches that
+    differ."""
+    _, launch_ms, close = _toy_loop(codes, u, ifs)
+    row, bad = {}, 0
+    for n in TOY_CHUNKS:
+        ms, b = launch_ms(n, col, 20 if n > 64 else 100)
+        row[n] = {"launch_ms": ms, "ms_per_round": ms / n}
+        bad += b
+    ms, b = launch_ms(0, col, 50)
+    row["empty_launch_ms"] = ms
+    close()
+    return row, bad + b
+
+
 def loop_vs_plain() -> dict:
-    """The loop kernel in a loop of toy rounds (``_toy_loop``: a WHILE
-    node, the loop kernel, an IF node a variant each holding one toy
-    round) on the card against its plain version ``program.loop_ref``:
-    10 variants, chunks of 0, 1, 2, 511 and 512 rows of a variant column
-    drawn from them, twice from one executable, and a column naming, at
-    row 300, a code the loop was not given: each round's IF body in order,
-    the step, the rounds left and the runs, tolerance 0.  Times (CUDA
-    events around each launch) with 10 variants and with 2 (the churn
-    paths'): a round of a 512-round chunk (the loop kernel, the IF nodes
-    and one toy kernel) and a 0-round launch (the WHILE node and one loop
-    kernel); beside them the plain version's host ms a round and the bytes
-    bound of the loop kernel's reads and writes."""
+    """The toy loop (``_toy_loop``: a WHILE node, the loop kernel, round
+    slots holding one toy round a variant) on the card in each form
+    (``TOY_FORMS``: (a) an IF node a variant and one round an iteration,
+    (b) one SWITCH node a round, (c) 2, 4 and 8 rounds an iteration with
+    the better type of (a) and (b), by the ms a round over 512 rounds at 2
+    and 10 variants): every form against its plain version
+    ``program.loop_ref`` (``_toy_checks``), and each timed at 2 and 10
+    variants (the churn paths', and the most a program meets) over 512
+    rounds, 4 rounds and none, CUDA events around each launch, every
+    launch held against ``loop_ref``.  The slots the toy favours: the
+    fewest whose ms a round over 512 rounds is within 10% of 8 slots' at
+    both variant counts; the program's (``program.LOOP_ROUNDS``) beside
+    them.  Beside the table the plain version's host ms a round and the
+    loop kernel's bytes bound a round at the program's slots."""
     from consul_tpu_torch.gossip import kernel, program
     rows = program.TABLE_ROWS
     g = torch.Generator().manual_seed(9)
     codes = torch.randperm(kernel.VARIANT_CODES, generator=g)[:10].tolist()
-    bad, timed = [], {}
-    for V in (10, 2):
-        col = torch.tensor(codes[:V], dtype=torch.int32)[
-            torch.randint(0, V, (rows,), generator=g)]
-        run, launch_ms, close = _toy_loop(codes[:V])
-        if V == 10:
-            for n in (0, 1, 2, 511, 512, 512):
-                ok, k = run(n, col)
-                if not ok or k != n:
-                    bad.append(f"{n} rounds")
-            faulty = col.clone()
-            faulty[300] = next(c for c in range(kernel.VARIANT_CODES)
-                               if c not in codes)
-            ok, k = run(rows, faulty)
-            if not ok or k != 300:
-                bad.append(f"a code it was not given: {k} rounds")
-        chunk_ms = launch_ms(rows, col)
-        timed[V] = {"chunk_ms": chunk_ms, "ms_per_round": chunk_ms / rows,
-                    "empty_launch_ms": launch_ms(0, col)}
-        close()
-    h = [col.clone(), torch.tensor([rows], dtype=torch.int32),
+    cols = {V: torch.tensor(codes[:V], dtype=torch.int32)[
+        torch.randint(0, V, (rows,), generator=g)] for V in TOY_VARIANTS}
+    bad, table, wrong = [], {}, 0
+
+    def form(name, u, kind):
+        nonlocal wrong
+        ifs = kind == "if"
+        bad.extend(_toy_checks(codes, cols[10], u, ifs))
+        table[name] = {"slots": u, "node": kind}
+        for V in TOY_VARIANTS:
+            row, b = _toy_timed(codes[:V], cols[V], u, ifs)
+            table[name][V] = row
+            wrong += b
+
+    for name, (u, kind) in TOY_FORMS.items():
+        form(name, u, kind)
+
+    def per_round(name):
+        return [table[name][V][rows]["ms_per_round"] for V in TOY_VARIANTS]
+
+    better = ("switch" if sum(per_round("b")) <= sum(per_round("a"))
+              else "if")
+    for u in TOY_SLOTS:
+        form(f"c{u}", u, better)
+    top = per_round(f"c{TOY_SLOTS[-1]}")
+    by_slots = {1: "b" if better == "switch" else "a",
+                **{u: f"c{u}" for u in TOY_SLOTS}}
+    favoured = min(u for u, name in by_slots.items()
+                   if all(t <= 1.1 * t8
+                          for t, t8 in zip(per_round(name), top)))
+    h = [cols[2].clone(), torch.tensor([rows], dtype=torch.int32),
          torch.zeros(1, dtype=torch.int64), None]
     t0 = time.perf_counter()
     program.loop_ref(codes[:2], *h)
     plain_ms = (time.perf_counter() - t0) * 1e3 / rows
-    # A round's loop kernel reads the rounds left (4), the step (8), the
-    # code (4) and a run counter (8), and writes the rounds left and the
-    # run counter (12).
-    bound_ms = 36 / HBM_BYTES_PER_S * 1e3
+    U = program.LOOP_ROUNDS
+    bound_ms = (LOOP_ITERATION_BYTES / U + LOOP_ROUND_BYTES) \
+        / HBM_BYTES_PER_S * 1e3
+    mine = table[by_slots[U]]
     res = {"phase": "loop_kernel", "rows": rows, "tolerance": 0,
-           "max_abs_err": 0 if not bad else None, "mismatched": bad,
-           "timed": timed, "ms_per_round": timed[2]["ms_per_round"],
-           "empty_launch_ms": timed[2]["empty_launch_ms"],
+           "max_abs_err": 0 if not (bad or wrong) else None,
+           "mismatched": bad, "timed_launches_differing": wrong,
+           "toy": table, "better_node": better,
+           "favoured_slots": favoured, "program_slots": U,
+           "ms_per_round": mine[2][rows]["ms_per_round"],
+           "empty_launch_ms": mine[2]["empty_launch_ms"],
            "plain_ms_per_round": plain_ms, "bound_ms": bound_ms,
            "bound_by": "bytes"}
     emit(res)
-    if bad:
+    if bad or wrong:
         raise AssertionError(f"loop_kernel: the loop differs from "
-                             f"loop_ref in {bad}")
+                             f"loop_ref in {bad}, {wrong} timed launches")
+    return res
+
+
+def loop_nesting() -> dict:
+    """What the nesting costs (``round_graph_nest``): a healthy 1M round's
+    joined graph (the ring, banks and trace threaded, as round_program's
+    healthy case runs it) launched from the host, the same graph inside
+    one IF node, and inside a WHILE node's one iteration then an IF node;
+    and beside them the same round as loops run it (``LOOP_NESTS``:
+    ``round_graph_loop_build`` with u slots over v variants whose bodies
+    all hold it, a column naming the first at every row, and the same
+    over every variant the program captured: one launch of 30 rounds; the
+    host ms of each graph launch beside it), and the
+    program's own rounds over rows 0-29 of its table (the variants the
+    call met there) and over the first 30 rows that all name the round's
+    variant: one launch of its loop, and a replay a round.  Turns of 30
+    rounds, CUDA events around each turn; each turn must advance the row
+    counter by 30.  The graph's choosers and the one-round loops count
+    into scratch buffers; the program's rounds are counted as a call
+    counts them, and settled."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import kernel, program
+    lib = program._lib()
+    rows = program.TABLE_ROWS
+    p, fail_t, kw, st0 = _rp_inputs(0, None, rows)
+    # A whole table: every row of the program's table is a real round's.
+    kernel.run_rounds(st0, prng.key(42), fail_t, p, rows, trace=True,
+                      flight=kernel.init_flight(), hist=kernel.init_hist(),
+                      **kw)
+    torch.cuda.synchronize()
+    prog = next(reversed(program._programs.values()))
+    code = int(kernel.variant_codes(p, None, int(st0.round), 1)[0])
+    g = prog.graphs[kernel.variant_of(code)]
+    scratch = torch.zeros(program.MAX_BRANCHES, dtype=torch.int64,
+                          device="cuda")
+    choices = (program._Choice * max(1, len(g.groups)))(
+        *(q.args(scratch) for q in g.groups))
+    join = program._Join(g._segs, g._group_of, len(g.segs),
+                         ctypes.cast(choices, ctypes.c_void_p),
+                         len(g.groups), code)
+    names = {0: "host_graph", 1: "if_node", 2: "while_if"}
+    execs = {}
+    for depth in names:
+        graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
+        program._check(lib.round_graph_nest(ctypes.byref(join), depth,
+                                            ctypes.byref(graph),
+                                            ctypes.byref(exe)),
+                       "building a nesting")
+        execs[names[depth]] = (graph, exe)
+    # The round in loops of u slots and v variants, all v bodies the same
+    # joined round, the column naming the first at every row.
+    left = torch.zeros(1, dtype=torch.int32, device="cuda")
+    col = torch.full((rows,), code, dtype=torch.int32, device="cuda")
+    runs = torch.zeros(program.LOOP_WORDS, dtype=torch.int64, device="cuda")
+    others = [c for c in range(kernel.VARIANT_CODES) if c != code]
+    for u, v in LOOP_NESTS:
+        joins = (program._Join * v)(*(
+            program._Join(g._segs, g._group_of, len(g.segs),
+                          ctypes.cast(choices, ctypes.c_void_p),
+                          len(g.groups), c) for c in [code] + others[:v - 1]))
+        args = program._LoopArgs(left.data_ptr(), prog.step.data_ptr(),
+                                 col.data_ptr(), runs.data_ptr(), rows, 0, u)
+        graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
+        program._check(lib.round_graph_loop_build(
+            ctypes.cast(joins, ctypes.c_void_p), v, ctypes.byref(args),
+            ctypes.byref(graph), ctypes.byref(exe)),
+            "building a loop of one round")
+        execs[f"loop_u{u}_v{v}"] = (graph, exe)
+    # The program's variants' rounds (every variant it captured, as its
+    # loop holds them) in a loop of its slots, counting into scratch.
+    mine = {kernel.variant_code(vv): gg for vv, gg in prog.graphs.items()}
+    keep = []
+    for c, gg in sorted(mine.items()):
+        ch = (program._Choice * max(1, len(gg.groups)))(
+            *(q.args(scratch) for q in gg.groups))
+        keep.append((ch, program._Join(gg._segs, gg._group_of, len(gg.segs),
+                                       ctypes.cast(ch, ctypes.c_void_p),
+                                       len(gg.groups), c)))
+    joins = (program._Join * len(keep))(*(j for _, j in keep))
+    args = program._LoopArgs(left.data_ptr(), prog.step.data_ptr(),
+                             col.data_ptr(), runs.data_ptr(), rows, 0,
+                             program.LOOP_ROUNDS)
+    graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
+    program._check(lib.round_graph_loop_build(
+        ctypes.cast(joins, ctypes.c_void_p), len(keep), ctypes.byref(args),
+        ctypes.byref(graph), ctypes.byref(exe)),
+        "building a loop of the program's variants")
+    execs["loop_program_variants"] = (graph, exe)
+    stream = torch.cuda.current_stream().cuda_stream
+    # The program's own rounds over 30 rows of the table (its variants
+    # there): one loop launch, and a replay a round (its counts kept, as
+    # a call keeps them, and settled below); over rows 0-29, and over the
+    # first 30 rows that all name the round's variant.
+    column = prog.variant.cpu().numpy()
+    uniform = next(w for w in range(rows - 29)
+                   if (column[w:w + 30] == code).all())
+    starts = {"": 0, "_one_variant": uniform}
+
+    host = collections.defaultdict(list)  # host ms a graph launch
+
+    def launches(name):
+        for _ in range(1 if name.startswith("loop") else 30):
+            t0 = time.perf_counter()
+            program._check(lib.round_graph_launch(execs[name][1], stream),
+                           "a nesting")
+            host[name].append((time.perf_counter() - t0) * 1e3)
+
+    def program_rounds(w, replays):
+        prog.left.fill_(30)
+        prog._rounds(column[w:w + 30], replays)
+
+    cases = {name: (functools.partial(launches, name), 0) for name in execs}
+    for suffix, w in starts.items():
+        cases[f"program_loop{suffix}"] = (
+            functools.partial(program_rounds, w, False), w)
+        cases[f"program_replays{suffix}"] = (
+            functools.partial(program_rounds, w, True), w)
+    times = {k: [] for k in cases}
+    calls = {k: [] for k in cases}  # host ms a turn's calls
+    bad = []
+    for turn in range(6):
+        for name in (list(cases) if turn % 2 == 0
+                     else reversed(list(cases))):
+            run, w = cases[name]
+            prog.step.fill_(w)
+            left.fill_(30)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            run()
+            calls[name].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            if int(prog.step) != w + 30:
+                bad.append(f"{name}: step {int(prog.step)}")
+            if name.startswith("loop") and int(left) != 0:
+                bad.append(f"{name}: {int(left)} rounds left")
+            if turn:  # the first turn warms each up
+                times[name].append(start.elapsed_time(end) / 30)
+    for graph, exe in execs.values():
+        lib.round_graph_destroy(graph, exe)
+    _settle()
+    if int(runs[code]) != 6 * 30 * (len(LOOP_NESTS) + 1):
+        bad.append(f"loops: {int(runs[code])} rounds run")
+    res = {"phase": "loop_nesting", "n": p.n, "variant_code": code,
+           "codes_rows_0_29": column[:30].tolist(),
+           "one_variant_rows_from": uniform,
+           "ms_per_round": {k: sum(v) / len(v) for k, v in times.items()},
+           "ms_per_round_each_turn": times,
+           "launch_host_ms": {k: sum(v) / len(v) for k, v in host.items()},
+           "turn_host_ms": {k: sum(v) / len(v) for k, v in calls.items()},
+           "mismatched": bad}
+    emit(res)
+    if bad:
+        raise AssertionError(f"loop_nesting: {bad}")
     return res
 
 
@@ -4925,8 +5186,9 @@ def _loop_gate(what: str, calls: list, looped: bool = True) -> dict:
     """The graph, table and loop kernel launches since the last
     ``_reset_counts`` on a single-pool path whose calls ran ``calls``
     rounds each: looped, ceil(rounds / 512) graph launches and table
-    launches a call and one loop kernel a round; with per-round replays a
-    graph launch a round (the same tables).  Raises unless exactly so."""
+    launches a call and ceil(n / U) loop kernels a chunk of n rounds
+    (``program.loop_kernels``); with per-round replays a graph launch a
+    round (the same tables).  Raises unless exactly so."""
     from consul_tpu_torch.gossip import program, round_table
     _settle()
     chunks = sum(-(-c // program.TABLE_ROWS) for c in calls)
@@ -4936,7 +5198,8 @@ def _loop_gate(what: str, calls: list, looped: bool = True) -> dict:
            "loop_launches": program.loop_launches,
            "graph_launches_expected": chunks if looped else rounds,
            "table_launches_expected": chunks,
-           "loop_launches_expected": rounds if looped else 0}
+           "loop_launches_expected": sum(map(program.loop_kernels, calls))
+           if looped else 0}
     if any(got[k] != got[f"{k}_expected"] for k in
            ("graph_launches", "table_launches", "loop_launches")):
         raise AssertionError(f"{what}: launches {got}")
@@ -4982,7 +5245,7 @@ def loop_paths(n: int, S: int, steps: int, seed: int) -> dict:
         for route in ("looped", "replays", "eager"):
             a = dict(kw, graphed=route != "eager")
             _reset_counts()
-            builds0 = program.loop_builds
+            builds0, build_s0 = program.loop_builds, program.loop_build_s
             with (_per_round_replays() if route == "replays"
                   else contextlib.nullcontext()):
                 if ndev:
@@ -5000,7 +5263,8 @@ def loop_paths(n: int, S: int, steps: int, seed: int) -> dict:
             if route != "eager":
                 r.update(_loop_gate(f"loop {name} {route}", [steps],
                                     route == "looped"),
-                         loop_builds=program.loop_builds - builds0)
+                         loop_builds=program.loop_builds - builds0,
+                         loop_build_s=program.loop_build_s - build_s0)
             row[route] = r
         variants = sorted(set(kernel.variant_codes(
             p, kw.get("nem"), 0, steps).tolist()))
@@ -5100,18 +5364,20 @@ def loop_profiled(n: int, S: int, steps: int, seed: int) -> dict:
 
 def loop_phase() -> dict:
     """The loop's checks: first the nested graph (a WHILE node whose body
-    holds an IF node holding a cond's IF node holding a captured segment
-    with a programmatic edge: the tail then decide, ``pdl_check`` in the
-    loop's form), then the loop kernel against its plain version, the
-    table kernel against its host twin, the looped paths at 16,000, and a
-    looped call's kernels as the profiler saw them against the host's
-    counts."""
+    holds round slots' SWITCH nodes holding a cond's IF node holding a
+    captured segment with a programmatic edge: the tail then decide,
+    ``pdl_check`` in the loop's form), then the toy loop's forms against
+    their plain version and timed (``loop_vs_plain``), the nesting's cost
+    (``loop_nesting``), the table kernel against its host twin, the
+    looped paths at 16,000, and a looped call's kernels as the profiler
+    saw them against the host's counts."""
     nested = pdl_check(1, looped=True)
     emit({"phase": "loop_nested", **nested})
     if not (nested["kept"] and nested.get("held")):
         raise AssertionError(f"loop: the nested graph did not keep and "
                              f"hold its programmatic edge: {nested}")
     return {"nested": nested, "kernel": loop_vs_plain(),
+            "nesting": loop_nesting(),
             "table": table_vs_plain(), "paths": loop_paths(**LOOP_PATH),
             "profiled": loop_profiled(**LOOP_PATH)}
 
@@ -5125,7 +5391,8 @@ def round_program_phase(card_line: str) -> dict:
     block's trace bit-identical; the graphed call reads the device twice
     (round counter, flight cursor; once without the ring) whatever its
     rounds; a table launch and a graph launch a call looped, a graph
-    launch a round replayed, the loop kernel once a looped round;
+    launch a round replayed, ceil(n / U) loop kernels a looped chunk of n
+    rounds;
     rounds/s of the three routes, device kernels a round and idle share
     (profiled, churn, the looped route in a fresh worker process: there
     each kernel the profiler saw run must equal the launches the wrappers
@@ -5467,11 +5734,13 @@ def crossval_phase(pool, cpu_seed0) -> dict:
     _round_gate("crossval")
     # Every membership round threads the trace (no hist): the trace's
     # holders are one launch of the observers' kernel a round, every
-    # round looped (one loop kernel a round).
+    # round looped (the loop kernels a chunk held to the device's own
+    # count by every settle).
     rounds = program.round_replays
-    if rounds != program.loop_launches:
-        raise AssertionError(f"crossval: {program.loop_launches} loop "
-                             f"kernels in {rounds} rounds")
+    if rounds != program.looped_rounds or program.loop_launches == 0:
+        raise AssertionError(f"crossval: {program.looped_rounds} of "
+                             f"{rounds} rounds looped in "
+                             f"{program.loop_launches} loop kernels")
     if observe.launches == 0 or observe.launches != rounds:
         raise AssertionError(f"crossval: {observe.launches} heard_counts "
                              f"launches in {rounds} rounds")
@@ -6126,7 +6395,7 @@ async def _plane_run(ndev: int, full: bool, n_clients: int = 8) -> dict:
         await plane.stop()
     _settle()
     # The round program's calls: one table launch and one loop launch a
-    # call (a dispatch's 4 rounds), the loop kernel once a round; the
+    # call (a dispatch's 4 rounds), ceil(4 / U) loop kernels a call; the
     # event rounds replay a graph each.
     res.update(dissem_launches=fused.launches,
                merge_launches=fused.merge_launches,
@@ -6136,7 +6405,10 @@ async def _plane_run(ndev: int, full: bool, n_clients: int = 8) -> dict:
                round_graph_launches=program.launches - events.launches,
                table_launches=round_table.launches,
                loop_launches=program.loop_launches,
-               looped_rounds=program.round_replays,
+               loop_launches_expected=program.loop_kernels(
+                   gp.STEPS_PER_TICK) * (program.launches - events.launches),
+               looped_rounds=program.looped_rounds,
+               round_rounds=program.round_replays,
                tail_rounds=dict(kernel.tail_rounds),
                max_memory_allocated=torch.cuda.max_memory_allocated())
     return res
@@ -6161,11 +6433,14 @@ def plane_phase(ndev: int, full: bool) -> dict:
     # observers' kernel a round and one more a non-quiescent round.
     ran = sum(res["tail_rounds"].values())
     busy = res["tail_rounds"]["hot"] + res["tail_rounds"]["full"]
-    if res["loop_launches"] != res["looped_rounds"] \
+    if res["loop_launches"] != res["loop_launches_expected"] \
+            or res["looped_rounds"] != res["round_rounds"] \
             or res["loop_launches"] == 0:
         raise AssertionError(f"plane: {res['loop_launches']} loop kernels "
-                             f"for {res['looped_rounds']} rounds of the "
-                             f"round program")
+                             f"(expected {res['loop_launches_expected']}) "
+                             f"for {res['looped_rounds']} looped of "
+                             f"{res['round_rounds']} rounds of the round "
+                             f"program")
     if ran < res["rounds"] or res["observe_launches"] != ran + busy:
         raise AssertionError(f"plane: {res['observe_launches']} "
                              f"heard_counts launches in {ran} rounds "
@@ -7428,8 +7703,9 @@ def _loop_rows(loop: dict, churn: dict, sharded: dict, rp: dict,
                mdc1: dict, plane1: dict, cross: dict) -> list:
     """The kernels line's entries of the loop (``round_graph.cu``'s
     ``loop_kernel``, which replaces the reference's ``lax.scan`` over a
-    call's rounds: one a looped round; its time a round of a 512-round
-    toy chunk, the plain version's ``program.loop_ref`` a round, and the
+    call's rounds: one a WHILE iteration of ``program.LOOP_ROUNDS``
+    rounds; its toy loop's time a round over a 512-round chunk with 2
+    variants, the plain version's ``program.loop_ref`` a round, and the
     profiler's time of the node in the graphed churn round) and of the
     table (``round_table.cu``'s ``table_kernel``, which replaces the
     round's key derivation from the traced round counter: one a chunk of

@@ -31,29 +31,46 @@
 //
 // The loop (the reference's lax.scan over a call's rounds).  A chunk of a
 // call's rounds runs as one launch of a loop graph: a WHILE node whose body
-// is one loop_kernel node and then one IF node a captured variant
-// (kernel.Variant: push/pull, in the nemesis window, degraded, flap down),
-// each holding that variant's joined round as above (its chooser nodes, its
-// IF nodes and their segments: three levels of conditional nodes).  The
-// loop kernel runs first in each iteration: while the chunk has rounds left
-// (a word in device memory, which the table kernel of round_table.cu sets
-// to the chunk's rows), it takes one, reads the round's variant code from
-// the table's variant column at the program's row counter `step` (which
-// the round advances), sets the IF handle of that variant to 1 and the
-// others to 0, counts the run, and keeps the WHILE handle set while rounds
-// are left after this one; with none left, or a code no IF node holds (the
-// fault word then gets the code), it sets every handle to 0 and the loop
-// ends.  The WHILE handle's default, 1, is applied at each launch, so one
-// executable serves every chunk length, 0 included; a launch takes at most
-// the chunk's rounds, whatever the other words hold.  So a chunk costs one
-// cudaGraphLaunch and one loop_kernel node a round, and its rounds read
-// nothing on the host.
+// is one loop_kernel node and then U round slots in series (the caller's
+// U: program.py's LOOP_ROUNDS), each one SWITCH conditional node whose V
+// bodies are the captured variants' joined rounds (kernel.Variant:
+// push/pull, in the nemesis window, degraded, flap down), each as above
+// (its chooser nodes, its IF nodes and their segments: three levels of
+// conditional nodes).  So the body holds U x V joined rounds, each with
+// its own chooser nodes and handles.
+//
+// The slot rule.  The loop kernel runs first in each iteration, with the
+// chunk's rounds left (a word in device memory, which the table kernel of
+// round_table.cu sets to the chunk's rows) and the program's row counter
+// `step` (which the rounds advance, one each): it takes m = min(U, left)
+// rounds; slot u < m gets the body of the variant code that the table's
+// variant column names at row step + u (a lookup, code to body, in the
+// kernel's arguments: no search), counted in runs[code]; every slot u >= m
+// gets a value >= V, which runs no body.  It subtracts the rounds taken
+// from `left`, counts its own run, and keeps the WHILE handle set only
+// while rounds remain after this iteration.  The fault rule, per slot: a
+// code with no built body ends the loop at that slot; the slots before it
+// run, it and those after it run nothing, `left` goes to 0 and the fault
+// words get a count and the code.  The WHILE handle's default, 1, is
+// applied at each launch, so one executable serves every chunk length, 0
+// included (one loop kernel, no round); a launch takes at most the chunk's
+// rounds, whatever the other words hold.  So a chunk of n rounds costs one
+// cudaGraphLaunch and ceil(n / U) loop_kernel nodes, and its rounds read
+// nothing on the host.  The program's U is 4: on the card its toy loop
+// (round_graph_loop_toy) takes a round faster than at U = 8 over a 4-round
+// chunk and 3-25% slower over 512 rounds, real rounds run as fast at 4
+// slots as at 8, and the host's launch of the loop graph grows with its
+// slots times variants (PERF.md); the toy also builds the older form, an
+// IF node a variant a slot, to measure it beside the SWITCH form.
 //
 // Bound: the chooser reads slot_node and one int64 run counter and writes
 // the count and the counter, 276 bytes at S = 64; the loop kernel reads
-// and writes the rounds left, a run counter and the step and code it reads,
-// about 36 bytes; a launch costs more.  A launch of the joined graph, or of the
-// loop, costs one cudaGraphLaunch on the host, whatever the segments hold.
+// the rounds left and the step, writes the rounds left and adds one to its
+// own run counter (32 bytes an iteration), and for each round taken reads
+// its code and adds one to its run counter (20 bytes); a launch costs
+// more.  A launch of the joined graph, or of the loop, costs one
+// cudaGraphLaunch on the host, whatever the segments hold, but its host
+// time grows with the graph's nodes (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -65,6 +82,7 @@ namespace round_graph {
 constexpr int kMaxBranches = 3;
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxVariants = 16;  // variant codes (kernel.VARIANT_CODES)
+constexpr int kMaxSlots = 8;      // round slots an iteration at most
 
 // One branch group's chooser node's arguments, by value (program.py's
 // _Choice mirrors this layout).
@@ -126,44 +144,89 @@ inline bool valid(const Choice& c) {
 }
 
 // The loop node's arguments, by value (program.py's _LoopArgs mirrors this
-// layout; the build makes the handles and fills the codes).
+// layout; the build fills the lookup and the handles, and
+// round_graph_loop_build also n, the form and the codes).
 struct Loop {
   int32_t* left;           // the chunk's rounds left
-  const long long* step;   // the program's row counter (the round advances)
+  const long long* step;   // the program's row counter (the rounds advance)
   const int32_t* variant;  // the table's variant column, `rows` long
   long long* runs;         // rounds run a code (kMaxVariants), then the
-                           // faults and the last faulty code (nullptr: none)
+                           // faults, the last faulty code and the loop
+                           // kernel's runs (nullptr: none)
   int rows;
-  int n;                   // variants built
-  int code[kMaxVariants];  // each IF node's variant code
-  cudaGraphConditionalHandle handle[kMaxVariants];  // the IF nodes'
-  cudaGraphConditionalHandle loop;                  // the WHILE node's
+  int n;                   // variants built: each slot's bodies
+  int u;                   // round slots an iteration
+  int ifs;                 // 0: a SWITCH node a slot; 1 (the toy's older
+                           // form): an IF node a variant a slot
+  int code[kMaxVariants];  // body b's variant code
+  int body[kMaxVariants];  // code c's body, -1 where none was built
+  // Slot u's handle (SWITCH: [u][0]; IF: [u][b], body b's).
+  cudaGraphConditionalHandle handle[kMaxSlots][kMaxVariants];
+  cudaGraphConditionalHandle loop;  // the WHILE node's
 };
 
-// One thread: the next round of the chunk (module comment).
+// One thread: an iteration's rounds (the module comment's slot rule and
+// fault rule).  The codes are loaded before any is used, and the counts
+// are fire-and-forget atomics, so the rounds wait on two loads in a row.
 __global__ void loop_kernel(const Loop l) {
   const int left = *l.left;
-  int taken = -1, code = -1;
-  if (left > 0) {
-    const long long s = *l.step;
-    if (s >= 0 && s < l.rows) code = l.variant[s];
-    for (int b = 0; b < l.n; ++b) {
-      if (l.code[b] == code) taken = b;
-    }
-    *l.left = taken < 0 ? 0 : left - 1;
-    if (l.runs != nullptr) {
-      if (taken >= 0) {
-        l.runs[code] += 1;
+  const long long s = *l.step;
+  int code[kMaxSlots];
+#pragma unroll
+  for (int u = 0; u < kMaxSlots; ++u) {
+    const long long r = s + u;
+    code[u] = u < l.u && u < left && r >= 0 && r < l.rows ? l.variant[r]
+                                                         : -1;
+  }
+  int taken = 0;
+  bool fault = false;
+#pragma unroll
+  for (int u = 0; u < kMaxSlots; ++u) {
+    if (u >= l.u) break;
+    int b = -1;
+    if (u < left && !fault) {
+      const int c = code[u];
+      b = c >= 0 && c < kMaxVariants ? l.body[c] : -1;
+      if (b >= 0) {
+        ++taken;
+        if (l.runs != nullptr) {
+          atomicAdd(reinterpret_cast<unsigned long long*>(l.runs + c), 1ull);
+        }
       } else {
-        l.runs[kMaxVariants] += 1;
-        l.runs[kMaxVariants + 1] = code;
+        fault = true;
+        if (l.runs != nullptr) {
+          atomicAdd(reinterpret_cast<unsigned long long*>(l.runs +
+                                                          kMaxVariants),
+                    1ull);
+          l.runs[kMaxVariants + 1] = c;
+        }
       }
     }
+    if (l.ifs) {
+      for (int v = 0; v < l.n; ++v) {
+        cudaGraphSetConditional(l.handle[u][v], v == b ? 1u : 0u);
+      }
+    } else {
+      cudaGraphSetConditional(l.handle[u][0],
+                              b < 0 ? static_cast<unsigned>(kMaxVariants)
+                                    : static_cast<unsigned>(b));
+    }
   }
-  for (int b = 0; b < l.n; ++b) {
-    cudaGraphSetConditional(l.handle[b], b == taken ? 1u : 0u);
+  if (left > 0) *l.left = fault ? 0 : left - taken;
+  if (l.runs != nullptr) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(l.runs + kMaxVariants +
+                                                    2),
+              1ull);
   }
-  cudaGraphSetConditional(l.loop, taken >= 0 && left > 1 ? 1u : 0u);
+  cudaGraphSetConditional(l.loop, !fault && left - taken > 0 ? 1u : 0u);
+}
+
+// One thread: the attribution's WHILE iteration (round_graph_nest): the
+// IF handle set, the WHILE handle cleared, so the body runs once.
+__global__ void nest_kernel(cudaGraphConditionalHandle cond,
+                            cudaGraphConditionalHandle loop) {
+  cudaGraphSetConditional(cond, 1u);
+  cudaGraphSetConditional(loop, 0u);
 }
 
 // One thread, a toy round: order[*step] = b, then the step advances (the
@@ -294,21 +357,25 @@ cudaError_t join(cudaGraph_t g, void* const* segs, const int* group_of,
 
 // Appends the loop to `g` (the module comment): the WHILE node, its handle
 // made in `g` with default 1 applied at each launch, and in its body the
-// loop kernel node then one IF node a variant of `l` (l->n of them, codes
-// l->code, distinct, in [0, kMaxVariants); their handles made in the body
-// and written to l->handle).  bodies[b] gets variant b's IF body.
-cudaError_t add_loop(cudaGraph_t g, Loop* l, cudaGraph_t* bodies) {
-  if (l->n < 1 || l->n > kMaxVariants || l->left == nullptr ||
-      l->step == nullptr || l->variant == nullptr || l->rows < 1) {
+// loop kernel node, then l->u round slots (at most kMaxSlots), each a
+// SWITCH node of l->n bodies or, with l->ifs, l->n IF nodes, all in series;
+// the slots' handles are made in the body and written to l->handle, and
+// the codes' lookup (l->code: distinct, in [0, kMaxVariants)) to l->body.
+// bodies[u][b] gets slot u's body of variant b.
+cudaError_t add_loop(cudaGraph_t g, Loop* l,
+                     cudaGraph_t (*bodies)[kMaxVariants]) {
+  if (l->n < 1 || l->n > kMaxVariants || l->u < 1 || l->u > kMaxSlots ||
+      l->left == nullptr || l->step == nullptr || l->variant == nullptr ||
+      l->rows < 1) {
     return cudaErrorInvalidValue;
   }
+  for (int c = 0; c < kMaxVariants; ++c) l->body[c] = -1;
   for (int b = 0; b < l->n; ++b) {
-    if (l->code[b] < 0 || l->code[b] >= kMaxVariants) {
+    const int c = l->code[b];
+    if (c < 0 || c >= kMaxVariants || l->body[c] >= 0) {
       return cudaErrorInvalidValue;
     }
-    for (int q = 0; q < b; ++q) {
-      if (l->code[q] == l->code[b]) return cudaErrorInvalidValue;
-    }
+    l->body[c] = b;
   }
   cudaError_t e = cudaGraphConditionalHandleCreate(
       &l->loop, g, 1, cudaGraphCondAssignDefault);
@@ -322,8 +389,11 @@ cudaError_t add_loop(cudaGraph_t g, Loop* l, cudaGraph_t* bodies) {
   e = cudaGraphAddNode(&loop_node, g, nullptr, 0, &wp);
   if (e != cudaSuccess) return e;
   const cudaGraph_t body = wp.conditional.phGraph_out[0];
-  for (int b = 0; b < l->n && e == cudaSuccess; ++b) {
-    e = cudaGraphConditionalHandleCreate(&l->handle[b], body, 0, 0);
+  const int per_slot = l->ifs ? l->n : 1;
+  for (int u = 0; u < l->u; ++u) {
+    for (int h = 0; h < per_slot && e == cudaSuccess; ++h) {
+      e = cudaGraphConditionalHandleCreate(&l->handle[u][h], body, 0, 0);
+    }
   }
   if (e != cudaSuccess) return e;
   cudaKernelNodeParams kp = {};
@@ -334,16 +404,26 @@ cudaError_t add_loop(cudaGraph_t g, Loop* l, cudaGraph_t* bodies) {
   kp.kernelParams = args;
   cudaGraphNode_t prev = nullptr;
   e = cudaGraphAddKernelNode(&prev, body, nullptr, 0, &kp);
-  for (int b = 0; b < l->n && e == cudaSuccess; ++b) {
-    cudaGraphNodeParams cp = {};
-    cp.type = cudaGraphNodeTypeConditional;
-    cp.conditional.handle = l->handle[b];
-    cp.conditional.type = cudaGraphCondTypeIf;
-    cp.conditional.size = 1;
-    cudaGraphNode_t node = nullptr;
-    e = cudaGraphAddNode(&node, body, &prev, 1, &cp);
-    if (e == cudaSuccess) bodies[b] = cp.conditional.phGraph_out[0];
-    prev = node;
+  for (int u = 0; u < l->u; ++u) {
+    for (int h = 0; h < per_slot && e == cudaSuccess; ++h) {
+      cudaGraphNodeParams cp = {};
+      cp.type = cudaGraphNodeTypeConditional;
+      cp.conditional.handle = l->handle[u][h];
+      cp.conditional.type = l->ifs ? cudaGraphCondTypeIf
+                                   : cudaGraphCondTypeSwitch;
+      cp.conditional.size = l->ifs ? 1 : l->n;
+      cudaGraphNode_t node = nullptr;
+      e = cudaGraphAddNode(&node, body, &prev, 1, &cp);
+      if (e != cudaSuccess) break;
+      if (l->ifs) {
+        bodies[u][h] = cp.conditional.phGraph_out[0];
+      } else {
+        for (int v = 0; v < l->n; ++v) {
+          bodies[u][v] = cp.conditional.phGraph_out[v];
+        }
+      }
+      prev = node;
+    }
   }
   return e;
 }
@@ -401,13 +481,14 @@ struct RoundJoin {
 };
 
 // The loop of the module comment over `n_joins` variants (RoundJoin: each
-// joined as round_graph_build joins it, inside its IF node's body), into
-// an executable graph.  `loop`: a round_graph::Loop whose left, step,
-// variant, runs and rows are the program's; the build writes its count,
-// codes (the joins') and handles (made here) back into it.  The segments are cloned, as by
-// round_graph_build.  Returns the graph and its executable, or the first
-// CUDA error (then nothing is left allocated): invalid value for codes
-// that repeat or lie outside [0, kMaxVariants).
+// joined as round_graph_build joins it, in each slot's body of its
+// variant), loop->u slots of SWITCH nodes, into an executable graph.
+// `loop`: a round_graph::Loop whose left, step, variant, runs, rows and
+// slots are the caller's; the build writes its variants, form, codes (the
+// joins'), lookup and handles (made here) back into it.  The segments are
+// cloned, as by round_graph_build, once a slot.  Returns the graph and its
+// executable, or the first CUDA error (then nothing is left allocated):
+// invalid value for codes that repeat or lie outside [0, kMaxVariants).
 extern "C" int round_graph_loop_build(const void* joins, int n_joins,
                                       void* loop, void** graph,
                                       void** exec) {
@@ -419,24 +500,28 @@ extern "C" int round_graph_loop_build(const void* joins, int n_joins,
   const RoundJoin* j = static_cast<const RoundJoin*>(joins);
   Loop& l = *static_cast<Loop*>(loop);
   l.n = n_joins;
+  l.ifs = 0;
   for (int b = 0; b < n_joins; ++b) l.code[b] = j[b].code;
   cudaGraph_t g = nullptr;
   cudaError_t e = cudaGraphCreate(&g, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cudaGraph_t bodies[kMaxVariants] = {};
+  cudaGraph_t bodies[kMaxSlots][kMaxVariants] = {};
   e = add_loop(g, &l, bodies);
-  for (int b = 0; b < n_joins && e == cudaSuccess; ++b) {
-    e = join(bodies[b], j[b].segs, j[b].group_of, j[b].n,
-             static_cast<const Choice*>(j[b].choices), j[b].n_groups);
+  for (int u = 0; u < l.u; ++u) {
+    for (int b = 0; b < n_joins && e == cudaSuccess; ++b) {
+      e = join(bodies[u][b], j[b].segs, j[b].group_of, j[b].n,
+               static_cast<const Choice*>(j[b].choices), j[b].n_groups);
+    }
   }
   return finish(g, e, graph, exec);
 }
 
-// A loop of toy rounds (the loop kernel's check): round_graph_loop_build's
-// loop with the codes and count of `loop` (a round_graph::Loop; its
-// handles written back), variant b's IF body one toy_round node writing b
-// at order[*step] and advancing the step (`loop`'s step, here written).  Returns the graph and its
-// executable as round_graph_build does.
+// A loop of toy rounds (the loop's measure and check): add_loop's loop
+// with the codes, variants, slots and form of `loop` (a round_graph::Loop;
+// its lookup and handles written back), each slot's body of variant b one
+// toy_round node writing b at order[*step] and advancing the step
+// (`loop`'s step, here written).  Returns the graph and its executable as
+// round_graph_build does.
 extern "C" int round_graph_loop_toy(void* loop, int32_t* order,
                                     void** graph, void** exec) {
   using namespace round_graph;
@@ -447,19 +532,86 @@ extern "C" int round_graph_loop_toy(void* loop, int32_t* order,
   cudaGraph_t g = nullptr;
   cudaError_t e = cudaGraphCreate(&g, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cudaGraph_t bodies[kMaxVariants] = {};
+  cudaGraph_t bodies[kMaxSlots][kMaxVariants] = {};
   e = add_loop(g, &l, bodies);
   long long* step = const_cast<long long*>(l.step);
-  for (int b = 0; b < l.n && e == cudaSuccess; ++b) {
-    int branch = b;
-    void* args[3] = {&order, &branch, &step};
+  for (int u = 0; u < l.u && e == cudaSuccess; ++u) {
+    for (int b = 0; b < l.n && e == cudaSuccess; ++b) {
+      int branch = b;
+      void* args[3] = {&order, &branch, &step};
+      cudaKernelNodeParams kp = {};
+      kp.func = reinterpret_cast<void*>(toy_round);
+      kp.gridDim = dim3(1);
+      kp.blockDim = dim3(1);
+      kp.kernelParams = args;
+      cudaGraphNode_t node = nullptr;
+      e = cudaGraphAddKernelNode(&node, bodies[u][b], nullptr, 0, &kp);
+    }
+  }
+  return finish(g, e, graph, exec);
+}
+
+// The nesting's cost (a measure): `join` (a RoundJoin) joined as
+// round_graph_build joins it, at `depth` 0 straight into the graph, at 1
+// inside one IF node whose handle's default, 1, is applied at each launch,
+// at 2 inside a WHILE node (default 1 at each launch) whose body is
+// nest_kernel, which sets the IF handle and clears the WHILE handle, then
+// an IF node holding it: one iteration.  Each launch runs the round once.
+// Returns the graph and its executable as round_graph_build does.
+extern "C" int round_graph_nest(const void* join_args, int depth,
+                                void** graph, void** exec) {
+  using namespace round_graph;
+  if (join_args == nullptr || depth < 0 || depth > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const RoundJoin& j = *static_cast<const RoundJoin*>(join_args);
+  cudaGraph_t g = nullptr;
+  cudaError_t e = cudaGraphCreate(&g, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaGraph_t where = g;
+  cudaGraphNode_t prev = nullptr;
+  cudaGraphConditionalHandle cond = 0, loop = 0;
+  if (depth == 2) {
+    e = cudaGraphConditionalHandleCreate(&loop, g, 1,
+                                         cudaGraphCondAssignDefault);
+    cudaGraphNodeParams wp = {};
+    wp.type = cudaGraphNodeTypeConditional;
+    wp.conditional.handle = loop;
+    wp.conditional.type = cudaGraphCondTypeWhile;
+    wp.conditional.size = 1;
+    cudaGraphNode_t node = nullptr;
+    if (e == cudaSuccess) e = cudaGraphAddNode(&node, g, nullptr, 0, &wp);
+    if (e == cudaSuccess) where = wp.conditional.phGraph_out[0];
+    if (e == cudaSuccess) {
+      e = cudaGraphConditionalHandleCreate(&cond, where, 0, 0);
+    }
+    void* args[2] = {&cond, &loop};
     cudaKernelNodeParams kp = {};
-    kp.func = reinterpret_cast<void*>(toy_round);
+    kp.func = reinterpret_cast<void*>(nest_kernel);
     kp.gridDim = dim3(1);
     kp.blockDim = dim3(1);
     kp.kernelParams = args;
+    if (e == cudaSuccess) {
+      e = cudaGraphAddKernelNode(&prev, where, nullptr, 0, &kp);
+    }
+  } else if (depth == 1) {
+    e = cudaGraphConditionalHandleCreate(&cond, g, 1,
+                                         cudaGraphCondAssignDefault);
+  }
+  if (depth > 0 && e == cudaSuccess) {
+    cudaGraphNodeParams cp = {};
+    cp.type = cudaGraphNodeTypeConditional;
+    cp.conditional.handle = cond;
+    cp.conditional.type = cudaGraphCondTypeIf;
+    cp.conditional.size = 1;
     cudaGraphNode_t node = nullptr;
-    e = cudaGraphAddKernelNode(&node, bodies[b], nullptr, 0, &kp);
+    e = cudaGraphAddNode(&node, where, prev ? &prev : nullptr, prev ? 1 : 0,
+                         &cp);
+    if (e == cudaSuccess) where = cp.conditional.phGraph_out[0];
+  }
+  if (e == cudaSuccess) {
+    e = join(where, j.segs, j.group_of, j.n,
+             static_cast<const Choice*>(j.choices), j.n_groups);
   }
   return finish(g, e, graph, exec);
 }
@@ -468,13 +620,14 @@ extern "C" int round_graph_loop_toy(void* loop, int32_t* order,
 // `seg` joined alone as the one branch of a cond's group on *pred
 // (round_graph_build's form: its chooser node, then the IF node), into an
 // executable graph; with `loop` (a round_graph::Loop of one code, its left,
-// step, variant and rows the caller's) that group inside the IF body of
-// the loop's one variant, three levels of conditional nodes deep, as
-// round_graph_loop_build places a round.  counts[0], counts[1]: the
-// segment's programmatic and other edges; counts[2], counts[3]: those of
-// the child graph in the IF node's body (the clone the graph runs).
-// Returns the graph and its executable as round_graph_build does, or the
-// first CUDA error (the counts as far as they were read).
+// step, variant, rows and slots the caller's) that group in each slot's
+// body of the loop's one variant (SWITCH slots), three levels of
+// conditional nodes deep, as round_graph_loop_build places a round.
+// counts[0], counts[1]: the segment's programmatic and other edges;
+// counts[2], counts[3]: those of the child graph in slot 0's IF node's
+// body (the clone the graph runs).  Returns the graph and its executable
+// as round_graph_build does, or the first CUDA error (the counts as far as
+// they were read).
 extern "C" int round_graph_edges(void* seg, const void* pred,
                                  const void* loop, int* counts, void** graph,
                                  void** exec) {
@@ -486,22 +639,27 @@ extern "C" int round_graph_edges(void* seg, const void* pred,
   cudaGraph_t g = nullptr;
   e = cudaGraphCreate(&g, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cudaGraph_t where = g;
+  cudaGraph_t bodies[kMaxSlots][kMaxVariants] = {};
+  int slots = 1;
+  bodies[0][0] = g;
   if (loop != nullptr) {
     Loop l = *static_cast<const Loop*>(loop);
     l.n = 1;
-    cudaGraph_t bodies[kMaxVariants] = {};
+    l.ifs = 0;
     e = add_loop(g, &l, bodies);
-    where = bodies[0];
+    slots = l.u;
   }
-  Choice c = {};
-  c.operand = pred;
-  c.k = 1;
-  cudaGraphNode_t chooser = nullptr, node = nullptr, child = nullptr;
-  if (e == cudaSuccess) e = add_chooser(where, nullptr, &c, &chooser);
-  if (e == cudaSuccess) {
-    e = append(where, chooser, static_cast<cudaGraph_t>(seg), true,
-               c.handle[0], &node, &child);
+  cudaGraphNode_t child = nullptr;
+  for (int u = 0; u < slots && e == cudaSuccess; ++u) {
+    Choice c = {};
+    c.operand = pred;
+    c.k = 1;
+    cudaGraphNode_t chooser = nullptr, node = nullptr;
+    e = add_chooser(bodies[u][0], nullptr, &c, &chooser);
+    if (e == cudaSuccess) {
+      e = append(bodies[u][0], chooser, static_cast<cudaGraph_t>(seg), true,
+                 c.handle[0], &node, u == 0 ? &child : nullptr);
+    }
   }
   cudaGraph_t body = nullptr;
   if (e == cudaSuccess && child != nullptr) {

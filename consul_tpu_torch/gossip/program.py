@@ -15,14 +15,21 @@ a call runs each chunk of up to ``TABLE_ROWS`` rounds as two launches:
   the chunk's rounds left (``left``) and the row counter ``step`` to 0.
   The round reads row ``step``, which the round advances.
 - One launch of the loop graph (``_Loop``, ``csrc/round_graph.cu``): a
-  WHILE node whose body is the loop kernel, which takes a round from
-  ``left`` and sets the IF handle of the variant the table's column names
-  at ``step``, then an IF node a captured variant holding that variant's
-  joined round.  The host mirrors the chunk's variants (numpy on the round
-  numbers, ``kernel.variant_codes``): a variant the chunk needs is
-  captured first, and the loop built again when the set grows.  With
-  ``replays`` (a check's plain version of the loop) a chunk is a replay a
-  round of the variant's joined graph instead.
+  WHILE node whose body is the loop kernel and then ``LOOP_ROUNDS`` round
+  slots (U), each one SWITCH node whose bodies are the captured variants'
+  joined rounds.  The slot rule: an iteration's loop kernel takes m =
+  min(U, ``left``) rounds and gives slot u < m the body of the variant
+  that the table's column names at row ``step`` + u (the rounds advance
+  ``step``), the slots past m none, and keeps the loop going while rounds
+  are left; so a chunk of n rounds runs ceil(n / U) loop kernels
+  (``loop_kernels``).  The fault rule: a code the loop was not built with
+  ends it at that slot (the slots before it run, ``left`` goes to 0, the
+  code is counted), and ``settle`` raises.  The host mirrors the chunk's
+  variants (numpy on the round numbers, ``kernel.variant_codes``): a
+  variant the chunk needs is captured first, and the loop built again when
+  the set grows.  With ``replays`` (a check's plain version of the loop) a
+  chunk is a replay a round of the variant's joined graph instead;
+  ``loop_ref`` is the plain version of one launch of the loop itself.
 - The round's ``lax.cond``s are conditional graph nodes
   (``csrc/round_graph.cu``): the capture is cut into segments at each
   branch (``_Recorder``), each a graph captured by PyTorch into one shared
@@ -51,11 +58,11 @@ chunk of a loop for each variant times its rounds, then adds the
 unconditional segments' launches (and the chooser nodes,
 ``choose_launches``, and the loop kernels, ``loop_launches``) on the host;
 each group's chooser node adds one to the taken branch's device counter
-(``branch_runs``) and the loop kernel one to its variant's
-(``loop_runs``).  ``settle_counts()`` reads those counters (one read,
-outside any round), adds the branch bodies' launches and
+(``branch_runs``) and the loop kernel one a round to its variant's and
+one to its own (``loop_runs``).  ``settle_counts()`` reads those counters
+(one read, outside any round), adds the branch bodies' launches and
 ``kernel.tail_rounds`` to the host counters, and raises if the loop ran
-other rounds than the host sent it.
+other rounds, or another number of loop kernels, than the host sent it.
 
 The event round (``EventProgram``, the counterpart of
 ``jax.jit(run_event_rounds)``) is the same machinery with no branch: a
@@ -93,9 +100,18 @@ from consul_tpu_torch.gossip.kernel import (RoundTrace, _I32, _leaves,
 TABLE_ROWS = 512     # rounds of argument table on the card: a call's chunk
 MAX_BRANCHES = 64    # branch bodies a program counts (4 a variant at most)
 MAX_PROGRAMS = 8     # programs kept (each holds its buffers and its pool)
-# The loop's device counters: rounds run a variant code, then its faults
-# and the last faulty code (csrc/round_graph.cu's Loop::runs).
-LOOP_WORDS = kernel.VARIANT_CODES + 2
+# The loop's device counters: rounds run a variant code, then its faults,
+# the last faulty code and the loop kernel's runs (csrc/round_graph.cu's
+# Loop::runs).
+LOOP_WORDS = kernel.VARIANT_CODES + 3
+# Round slots a WHILE iteration of the program's loop (PERF.md: at 4
+# slots the toy loop's round is faster than at 8 over the plane's 4-round
+# chunk and 3-25% slower over 512 rounds, real rounds run as fast on the
+# card as at 8, and the host's launch of the loop graph grows with slots
+# times variants), and the most the loop's form takes
+# (csrc/round_graph.cu's kMaxSlots).
+LOOP_ROUNDS = 4
+MAX_SLOTS = 8
 
 # Graph launches (a chunk's loop, or one replayed round), captures, their
 # seconds and the memory the captures reserved.
@@ -116,11 +132,16 @@ copy_bytes = 0
 choose_launches = 0
 round_replays = 0
 join_replays = 0
-# The loop (csrc/round_graph.cu): loop_kernel nodes run (one a looped
-# round) and loop graphs built (one a program, again each time a call
-# meets a variant it had not captured).
+# The loop (csrc/round_graph.cu): loop_kernel nodes run (one a WHILE
+# iteration: ``loop_kernels(n)`` for a chunk of n rounds), loop graphs
+# built (one a program, again each time a call meets a variant it had not
+# captured) and the builds' seconds.
 loop_launches = 0
 loop_builds = 0
+loop_build_s = 0.0
+# Rounds run through the loop (of ``round_replays``, which counts every
+# replayed or looped round).
+looped_rounds = 0
 
 # Host counters the kernel wrappers (and ``_copy_leaves``) keep,
 # attributed per captured segment.
@@ -159,11 +180,15 @@ class _Join(ctypes.Structure):
 
 class _LoopArgs(ctypes.Structure):
     """``round_graph::Loop``: the loop node's arguments (the build fills
-    the codes and makes the handles)."""
+    the lookup and makes the handles; ``round_graph_loop_build`` also the
+    variants, form and codes)."""
     _fields_ = [("left", _VP), ("step", _VP), ("variant", _VP),
                 ("runs", _VP), ("rows", ctypes.c_int), ("n", ctypes.c_int),
+                ("u", ctypes.c_int), ("ifs", ctypes.c_int),
                 ("code", ctypes.c_int * kernel.VARIANT_CODES),
-                ("handle", ctypes.c_uint64 * kernel.VARIANT_CODES),
+                ("body", ctypes.c_int * kernel.VARIANT_CODES),
+                ("handle", (ctypes.c_uint64 * kernel.VARIANT_CODES)
+                 * MAX_SLOTS),
                 ("loop", ctypes.c_uint64)]
 
 
@@ -176,6 +201,7 @@ def set_argtypes(lib):
                                       ctypes.POINTER(ci), ci, _VP, ci, *out]
     lib.round_graph_loop_build.argtypes = [_VP, ci, _VP, *out]
     lib.round_graph_loop_toy.argtypes = [_VP, _VP, *out]
+    lib.round_graph_nest.argtypes = [_VP, ci, *out]
     lib.round_graph_launch.argtypes = [_VP, _VP]
     lib.round_graph_destroy.argtypes = [_VP, _VP]
     lib.round_graph_edges.argtypes = [_VP, _VP, _VP, ctypes.POINTER(ci),
@@ -183,7 +209,8 @@ def set_argtypes(lib):
     lib.round_graph_choice.argtypes = [_VP, _VP, *out]
     lib.round_graph_dot.argtypes = [_VP, ctypes.c_char_p]
     for fn in (lib.round_graph_build, lib.round_graph_loop_build,
-               lib.round_graph_loop_toy, lib.round_graph_launch,
+               lib.round_graph_loop_toy, lib.round_graph_nest,
+               lib.round_graph_launch,
                lib.round_graph_destroy, lib.round_graph_edges,
                lib.round_graph_choice, lib.round_graph_dot):
         fn.restype = ci
@@ -408,19 +435,21 @@ class _Graph:
 
 class _Loop:
     """A program's loop graph (``csrc/round_graph.cu``): its captured
-    variants' joined rounds ``graphs`` (``{code: _Graph}``) under one
-    WHILE node, the loop kernel reading the program's rounds left
-    (``left``), row counter (``step``) and variant column (``variant``) and
-    counting into ``runs`` (``LOOP_WORDS`` int64)."""
+    variants' joined rounds ``graphs`` (``{code: _Graph}``), each in every
+    one of the ``LOOP_ROUNDS`` round slots' SWITCH nodes, under one WHILE
+    node, the loop kernel reading the program's rounds left (``left``), row
+    counter (``step``) and variant column (``variant``) and counting into
+    ``runs`` (``LOOP_WORDS`` int64)."""
 
     def __init__(self, graphs: dict, left, step, variant, runs):
-        global loop_builds
+        global loop_builds, loop_build_s
+        t0 = time.perf_counter()
         codes = sorted(graphs)
         joins = (_Join * len(codes))(*(graphs[c].join(c) for c in codes))
         # The loop node's arguments, its handles written back by the build.
         self.args = _LoopArgs(left.data_ptr(), step.data_ptr(),
                               variant.data_ptr(), runs.data_ptr(),
-                              variant.numel())
+                              variant.numel(), 0, LOOP_ROUNDS)
         self.codes = frozenset(codes)
         self.graph, self.exec = _VP(), _VP()
         _check(_lib().round_graph_loop_build(
@@ -429,6 +458,7 @@ class _Loop:
             ctypes.byref(self.exec)),
             "building the round's loop")
         loop_builds += 1
+        loop_build_s += time.perf_counter() - t0
 
     def launch(self) -> None:
         """One chunk's rounds (one graph launch, counted in ``launches``)."""
@@ -445,33 +475,54 @@ class _Loop:
             self.graph, self.exec = _VP(), _VP()
 
 
-def loop_ref(codes, variant, left, step, runs=None) -> list:
+def loop_kernels(steps: int, u: int = LOOP_ROUNDS) -> int:
+    """Loop kernels a looped call of ``steps`` rounds runs: one a WHILE
+    iteration of ``u`` round slots, ceil(n / u) for each chunk of n
+    rounds (chunks of ``TABLE_ROWS``; a call of none launches no loop)."""
+    full, last = divmod(steps, TABLE_ROWS)
+    return full * -(-TABLE_ROWS // u) + -(-last // u)
+
+
+def loop_ref(codes, variant, left, step, runs=None,
+             u: int = LOOP_ROUNDS) -> list:
     """The plain version of one launch of the loop (``_Loop``; its loop
-    kernel, ``csrc/round_graph.cu``): while ``left`` (int32 [1]) holds
-    rounds, one is taken and the IF node of the code that the column
-    ``variant`` names at ``step`` (int64 [1]) runs, its run counted in
-    ``runs`` (``LOOP_WORDS`` int64, or None) and ``step`` advanced as the
-    round advances it; a code not among ``codes`` ends the loop, ``left``
-    set to 0 and the fault counted.  Returns the indices into ``codes`` of
-    the IF nodes taken, in order (a host read a round: a check's plain
-    version)."""
+    kernel, ``csrc/round_graph.cu``), ``u`` round slots an iteration: each
+    iteration takes m = min(u, ``left``) rounds (``left`` int32 [1]), slot
+    k < m running the body of the code that the column ``variant`` names
+    at ``step`` + k (``step`` int64 [1]), its run counted in ``runs``
+    (``LOOP_WORDS`` int64, or None) and ``step`` advanced as the round
+    advances it; the loop goes on while rounds are left.  A code not among
+    ``codes`` ends the loop at its slot: the slots before it run, it and
+    those after it do not, ``left`` goes to 0 and the fault and the code
+    are counted.  Every iteration counts its loop kernel, the first one
+    too when ``left`` holds none.  Returns the indices into ``codes`` of
+    the bodies taken, a list an iteration (a host read a round: a check's
+    plain version)."""
     V = kernel.VARIANT_CODES
-    taken = []
-    while int(left) > 0:
-        s = int(step)
-        code = int(variant[s]) if 0 <= s < variant.numel() else -1
-        if code not in codes:
-            left.zero_()
+    iterations = []
+    while True:
+        n, s = int(left), int(step)
+        taken, fault = [], False
+        for k in range(min(u, max(n, 0))):
+            r = s + k
+            code = int(variant[r]) if 0 <= r < variant.numel() else -1
+            if code not in codes:
+                fault = True
+                if runs is not None:
+                    runs[V] += 1
+                    runs[V + 1] = code
+                break
+            taken.append(codes.index(code))
             if runs is not None:
-                runs[V] += 1
-                runs[V + 1] = code
-            break
-        left.sub_(1)
+                runs[code] += 1
+        if n > 0:
+            left.fill_(0 if fault else n - len(taken))
         if runs is not None:
-            runs[code] += 1
-        taken.append(codes.index(code))
-        step.add_(1)
-    return taken
+            runs[V + 2] += 1
+        step.add_(len(taken))
+        iterations.append(taken)
+        if fault or int(left) <= 0:
+            return iterations
 
 
 class Chooser:
@@ -570,8 +621,10 @@ class _Program:
         self.branch_runs = self._runs[:MAX_BRANCHES]
         self.loop_runs = self._runs[MAX_BRANCHES:]
         # The rounds of each variant code the host sent through the loop
-        # since the last settle, which the loop's counts must equal.
+        # since the last settle, and the loop kernels it counted for them,
+        # which the loop's counts must equal.
         self.looped = [0] * kernel.VARIANT_CODES
+        self.loop_kernels = 0
         # The tail's live slots, written by its chooser node a replay.
         self.n_active = torch.zeros((), dtype=_I32, device=dev)
         self.branch_names: list = []
@@ -637,7 +690,8 @@ class _Program:
         """Add the branch bodies' counts since the last settle to the
         host counters (one device read, none without branches); raise if
         the loop ran other rounds than the host sent it (a variant code it
-        was not built with, or other counts)."""
+        was not built with, or other counts), or another number of loop
+        kernels than the host counted."""
         if not self.branch_names:
             return
         words = self._runs.tolist()
@@ -652,6 +706,7 @@ class _Program:
             elif name == "join":
                 kernel.join_rounds += n
         looped, self.looped = self.looped, [0] * kernel.VARIANT_CODES
+        iterations, self.loop_kernels = self.loop_kernels, 0
         V = kernel.VARIANT_CODES
         if loop[V]:
             raise RuntimeError(f"the round's loop met variant code "
@@ -660,6 +715,9 @@ class _Program:
         if loop[:V] != looped:
             raise RuntimeError(f"the round's loop ran {loop[:V]} rounds a "
                                f"variant code, the host sent {looped}")
+        if loop[V + 2] != iterations:
+            raise RuntimeError(f"the round's loop ran {loop[V + 2]} loop "
+                               f"kernels, the host counted {iterations}")
 
     def close(self) -> None:
         for g in self.graphs.values():
@@ -791,6 +849,7 @@ class RoundProgram(_Program):
         ``settle``); with ``replays``, or off a card (the tests' emulated
         captures), a replay a round."""
         global choose_launches, loop_launches, round_replays, join_replays
+        global looped_rounds
         if replays or self.dev.type != "cuda":
             for c in codes.tolist():
                 self.replay(kernel.variant_of(c))
@@ -802,7 +861,10 @@ class RoundProgram(_Program):
             _add_counts(g.plain, m)
             choose_launches += len(g.groups) * m
             self.looped[c] += m
-        loop_launches += len(codes)
+        iterations = loop_kernels(len(codes))
+        self.loop_kernels += iterations
+        loop_launches += iterations
+        looped_rounds += len(codes)
         round_replays += len(codes)
         join_replays += len(codes) * (self.join is not None)
 

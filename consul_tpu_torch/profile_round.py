@@ -14,7 +14,8 @@ hot_slots=0)``, churn failures on a stride) for ``WARM`` rounds, then
 twice ``--rounds`` more and prints one JSON line for the graphed round
 (``gossip/program.py``: replayed CUDA graphs, the main path): host time a
 round, device busy time, kernels and graph launches a round, the idle
-share, the captures, their seconds and the graphs' pool bytes.  The
+share, the captures, their seconds and the graphs' pool bytes, and the
+loop's builds, their host seconds and the card memory they took.  The
 round's Python phases do not run in a replay, so the graphed line has no
 phase rows.  ``--eager`` also profiles the eager round in the same call
 (an A/B on one card) and prints its line after, with the phases below.
@@ -913,8 +914,46 @@ def _route(args, dev, graphed: bool, rounds: int | None = None):
     return p, run, snapshot
 
 
+class _LoopBuilds:
+    """While entered, the round program's loop builds (``program._Loop``,
+    where the checkout has one): their count, host seconds and the card's
+    memory each took (free memory before less after: the executable graph
+    and whatever else the build allocated outside PyTorch's pool)."""
+
+    def __enter__(self):
+        self.builds, self.seconds, self.device_bytes = 0, 0.0, 0
+        loop = getattr(program, "_Loop", None)
+        self._init = None if loop is None else loop.__init__
+        if loop is not None:
+            def init(obj, *a, **kw):
+                torch.cuda.synchronize()
+                free0 = torch.cuda.mem_get_info()[0]
+                t0 = time.perf_counter()
+                try:
+                    return self._init(obj, *a, **kw)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+                    torch.cuda.synchronize()
+                    self.device_bytes += free0 - torch.cuda.mem_get_info()[0]
+                    self.builds += 1
+            loop.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        if self._init is not None:
+            program._Loop.__init__ = self._init
+
+
 def profile_route(args, graphed: bool) -> dict:
     """One route's profile (the module docstring)."""
+    with _LoopBuilds() as builds:
+        res = _profile_route(args, graphed)
+    res.update(loop_builds=builds.builds, loop_build_s=builds.seconds,
+               loop_build_device_bytes=builds.device_bytes)
+    return res
+
+
+def _profile_route(args, graphed: bool) -> dict:
     dev = torch.device("cuda")
     phases = {} if graphed else dict(
         PHASES, **(SHARDED_PHASES if args.ndev else SINGLE_PHASES))

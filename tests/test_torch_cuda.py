@@ -492,7 +492,8 @@ def test_looped_calls_match_replays_on_card(ndev, scenario, monkeypatch):
     table launch and a loop launch a chunk, against the same call with a
     replay a round (``RoundProgram.run(replays=True)``, the loop's plain
     version): every field of the carry and the trace, the graph and table
-    launches, one loop kernel a round; the settled counts agree."""
+    launches, ceil(n / U) loop kernels a chunk of n rounds
+    (``program.loop_kernels``); the settled counts agree."""
     _need_card()
     import functools
 
@@ -535,7 +536,7 @@ def test_looped_calls_match_replays_on_card(ndev, scenario, monkeypatch):
                             for k in c0[3]})
     (cl, tl), (cr, tr) = runs[False], runs[True]
     assert _same_fields(list(cl) + [tl], list(cr) + [tr]) == []
-    assert counts[False][:3] == (2, 2, steps)
+    assert counts[False][:3] == (2, 2, program.loop_kernels(steps))
     assert counts[True][:3] == (steps, 2, 0)
     assert counts[False][3] == counts[True][3]
 
