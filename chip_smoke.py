@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase finish_slots  # that phase alone (A/B)
     python3 chip_smoke.py --phase branch        # branch_check alone
     python3 chip_smoke.py --phase loop          # the loop's checks alone
+    python3 chip_smoke.py --phase draws         # the threefry kernels alone
 
 Each phase prints one JSON line; any failure exits non-zero and the
 result lines are not printed.
@@ -34,7 +35,14 @@ result lines are not printed.
    (CUDA-graph replays and back-to-back wrapper calls), the plain
    version's, and the bound: output bytes over the memory rate, or the
    hashed elements times the SASS count per element of the entry point's
-   loop (``sass_count.py --threefry``) over the INT32 rate.
+   loop (``sass_count.py --threefry``; for the edge drops, which hash
+   only their uncertain edges, the uniform's loop: a hash and its float)
+   over the INT32 rate.  Where ``build/parent`` (git-ignored) holds a
+   checkout of another commit (``git archive <commit> | tar -x -C
+   build/parent``), its ``threefry.cu`` and ``round_table.cu`` are built
+   too and every shape is also timed through them, in turns parent,
+   this tree, this tree, parent (``parent_ms``; ``--phase draws`` runs
+   this phase and the table's, ``table_vs_plain``, alone).
 3. sass: the instructions per 32-bit word in the word path's row loop at
    fanout 3, per execution unit, one alignment way
    (``consul_tpu_torch/sass_count.py``, cuobjdump); and in the event
@@ -243,7 +251,8 @@ result lines are not printed.
    as one launch of the loop); ``table_kernel``
    against its host twin over 320 draws of
    (parameters, key, first round, rows) and the multi-DC pools' launch,
-   timed at 512 and 30 rows beside the host build and the bound; looped
+   timed at 512, 30 and 1 rows beside the host build and the bound (and
+   a parent checkout's kernel in turns, as the threefry phase); looped
    calls against the per-round replays and the eager route at 16,000
    (churn with joins on 1 and 8 shards, ``partition_heal``), two chunks,
    every launch gate exact; a looped call's kernels under the profiler
@@ -451,7 +460,9 @@ main paths as ``nemesis_launches``, in the crossval phase as
 ``crossval_launches`` and on the 1M multi-DC paths as
 ``multidc_launches``; for the store's kernels, their launches in
 store_bridge; for the draws' kernel, its launches on the nemesis main
-path, its time that path's gossip legs' drops [3, 1M]; for the round
+path, its time that path's gossip legs' drops [3, 1M] (and a parent
+checkout's, ``parent_ms``, null without one, as for the table kernel);
+for the round
 program, its graph launches on the churn main path and a graphed round's
 time against the eager round's; for its chooser node, its launches on the
 churn main path, on 8 shards, on the 1M multi-DC path, on the plane and
@@ -610,6 +621,89 @@ def build() -> None:
           "seconds": time.perf_counter() - t0})
 
 
+# A checkout of another commit (git-ignored), whose threefry.cu and
+# round_table.cu the draws' and the table's timings run beside this tree's.
+PARENT = ROOT / "build" / "parent"
+PARENT_SOURCES = ("threefry", "round_table")
+
+
+@functools.lru_cache(maxsize=None)
+def _parent_libs():
+    """The parent checkout's ``threefry.cu`` and ``round_table.cu``, built
+    with this tree's nvcc flags into ``build/parent-lib<name>.so`` and
+    loaded, by name; None without a parent checkout."""
+    from consul_tpu_torch import _build
+    src = PARENT / "consul_tpu_torch" / "csrc"
+    if not all((src / f"{n}.cu").exists() for n in PARENT_SOURCES):
+        return None
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def one(name):
+        so = _build.BUILD_DIR / f"parent-lib{name}.so"
+        r = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                            str(src / f"{name}.cu")],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the parent's {name}:\n"
+                               f"{r.stdout}{r.stderr}")
+        return ctypes.CDLL(str(so))
+
+    with ThreadPoolExecutor(len(PARENT_SOURCES)) as pool:
+        libs = dict(zip(PARENT_SOURCES, pool.map(one, PARENT_SOURCES)))
+    emit({"phase": "parent_build", "checkout": str(PARENT),
+          "libraries": sorted(libs)})
+    return libs
+
+
+@contextlib.contextmanager
+def _parent_kernels():
+    """The wrappers of ``prng`` and ``round_table`` launch the parent's
+    kernels (the entry points and arguments are the same) inside the
+    block."""
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import round_table
+    libs = _parent_libs()
+
+    @functools.lru_cache(maxsize=None)
+    def draws(name):
+        fn, err = getattr(libs["threefry"], name), libs["threefry"].threefry_error
+        fn.argtypes, fn.restype = prng._ARGTYPES[name], ctypes.c_int
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        return fn, err
+
+    @functools.lru_cache(maxsize=None)
+    def table():
+        lib = libs["round_table"]
+        fn, err = lib.round_table_fill, lib.round_table_error
+        fn.argtypes = [ctypes.POINTER(round_table._Args), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        return fn, err
+
+    old = prng._lib, round_table._lib
+    prng._lib, round_table._lib = draws, table
+    try:
+        yield
+    finally:
+        prng._lib, round_table._lib = old
+
+
+def _turns(fn, timer) -> dict:
+    """``timer(fn)`` through this tree's kernels, and with a parent
+    checkout through its kernels too, in turns parent, this tree, this
+    tree, parent: ``ms`` (the first of this tree's turns), ``ms_turns``,
+    and ``parent_ms`` (the mean of the parent's), ``parent_ms_turns``."""
+    if _parent_libs() is None:
+        return {"ms": timer(fn)}
+    with _parent_kernels():
+        p1 = timer(fn)
+    c1, c2 = timer(fn), timer(fn)
+    with _parent_kernels():
+        p2 = timer(fn)
+    return {"ms": c1, "ms_turns": [c1, c2], "parent_ms": (p1 + p2) / 2,
+            "parent_ms_turns": [p1, p2]}
+
+
 # -- the draws' kernel ----------------------------------------------------------
 
 # The entry points at the 1M paths' shapes: the drop legs at 1M (3
@@ -650,10 +744,12 @@ DRAWS = (
     dict(entry="bits", shape=(DRAW_N,)),
     dict(entry="bits", shape=(4_099,)),
 )
-# The sass mode whose loop each entry point runs.
+# The sass mode whose loop each entry point runs (the edge drops hash
+# their uncertain edges as the uniform draws an element: a hash and its
+# float, compared with p).
 DRAW_SASS_MODE = {"bits": "bits", "uniform": "uniform", "rows": "uniform",
                   "below": "below", "randint": "randint",
-                  "edge_drops": "edge_drops"}
+                  "edge_drops": "uniform"}
 
 
 def _draw_keys(seed: int, count: int) -> list:
@@ -827,10 +923,17 @@ def threefry_phase(card_line: str, keys: int = 16) -> dict:
         # make) and ``by_value_ms`` the keys-by-value launch.
         dev = _draw_dev_fn(spec, ks[-1])
         timed = kern if dev is None else dev
+        if _parent_libs() is not None:
+            with _parent_kernels():
+                e = _draw_err(timed(), plain())
+            if e != 0:
+                raise AssertionError(f"the parent's threefry "
+                                     f"{spec['entry']} != plain at "
+                                     f"{list(spec['shape'])}: {e}")
         row = {"entry": spec["entry"], "shape": list(spec["shape"]),
                "keys_held": len(ks),
                "keys": "by_value" if dev is None else "device",
-               "ms": graph_ms(timed), "eager_ms": cuda_ms(timed, 200),
+               **_turns(timed, graph_ms), "eager_ms": cuda_ms(timed, 200),
                "plain_ms": cuda_ms(plain, 5, warm=1),
                **_draw_bound(spec, ks[-1], out, sass)}
         if dev is not None:
@@ -853,6 +956,8 @@ def threefry_phase(card_line: str, keys: int = 16) -> dict:
            "main_path_plain_graph_ms": sum(r["plain_graph_ms"]
                                            for r in main),
            "main_path_bound_ms": sum(r["bound_ms"] for r in main),
+           "main_path_parent_ms": (sum(r["parent_ms"] for r in main)
+                                   if _parent_libs() is not None else None),
            "main_path_bound_by": (
                "operations" if sum(r["operations_ms"] for r in main)
                >= sum(r["bytes_ms"] for r in main) else "bytes"),
@@ -4690,10 +4795,12 @@ def table_vs_plain(draws: int = TABLE_DRAWS) -> dict:
     512, first rounds 0 to 2**31 - rows, every nemesis catalog schedule in
     turn; then the multi-DC call's launch (4 LAN round and event tables
     and the WAN pool's two, one launch) against ``build_pools``.  The
-    kernel's time at 512 and 30 rows (CUDA-graph replays; and back to back
-    through the wrapper) beside the plain version's (the host build and
-    its copy to the card) and the bound: the hashes' integer instructions
-    over the INT32 rate, or the rows' bytes over the memory rate."""
+    kernel's time at 512, 30 and 1 rows (CUDA-graph replays, with a
+    parent checkout in turns with its kernel, ``_turns``; and back to
+    back through the wrapper) beside the plain version's (the host build
+    and its copy to the card) and the bound: the hashes' integer
+    instructions over the INT32 rate, or the rows' bytes over the memory
+    rate."""
     from consul_tpu_torch import prng
     from consul_tpu_torch.gossip import nemesis, round_args, round_table
     params = _table_params()
@@ -4758,11 +4865,17 @@ def table_vs_plain(draws: int = TABLE_DRAWS) -> dict:
         bad.append({"pools": "step"})
     timed = {}
     p = params["lan_1m"]
-    for rows in (512, 30):
+    for rows in (512, 30, 1):
         j = _table_job(p, prng.key(5), 1000, rows, False, cursor=17,
                        ring=256)
         fill = functools.partial(round_table.fill, [j], rows)
-        ms = graph_ms(fill)
+        if _parent_libs() is not None:
+            with _parent_kernels():
+                fill()
+            if _table_held(j, rows):
+                bad.append({"parent": rows})
+        turns = _turns(fill, graph_ms)
+        ms = turns["ms"]
         eager_ms = cuda_ms(fill, 50)
         host = _table_job(p, prng.key(5), 1000, rows, False, cursor=17,
                           ring=256)
@@ -4777,7 +4890,7 @@ def table_vs_plain(draws: int = TABLE_DRAWS) -> dict:
         nbytes = rows * (j.table.shape[1] + 1) * 4 + 12
         op_ms = ops / INT32_OPS_PER_S * 1e3
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        timed[rows] = {"ms": ms, "eager_ms": eager_ms,
+        timed[rows] = {**turns, "eager_ms": eager_ms,
                        "plain_ms": sum(plain) / len(plain),
                        "plain_ms_each": plain, "hashes": ops // HASH_OPS,
                        "bytes": nbytes, "bound_ms": max(op_ms, byte_ms),
@@ -7737,7 +7850,9 @@ def _loop_rows(loop: dict, churn: dict, sharded: dict, rp: dict,
         "multidc_launches_per_call": mdc1["table_launches_per_call"],
         "max_abs_err": loop["table"]["max_abs_err"], "ms": tab["ms"],
         "eager_ms": tab["eager_ms"], "ms_30_rows": loop["table"]["timed"][
-            30]["ms"], "plain_ms": tab["plain_ms"],
+            30]["ms"], "ms_1_row": loop["table"]["timed"][1]["ms"],
+        # The parent checkout's kernel in the same call (null without one).
+        "parent_ms": tab.get("parent_ms"), "plain_ms": tab["plain_ms"],
         "bound_ms": tab["bound_ms"], "bound_by": tab["bound_by"],
         "round_device_ms_per_call": prof["table_device_ms_per_call"],
         # No one PyTorch call computes threefry keys (torch.rand is
@@ -8095,10 +8210,29 @@ def loop_only() -> int:
     return 0
 
 
+def draws_only() -> int:
+    """``--phase draws``: the card line, the builds of the two threefry
+    kernels (``threefry.cu``'s ``draw_kernel``, ``round_table.cu``'s
+    ``table_kernel``; and a parent checkout's under ``build/parent``), the
+    threefry phase and the table's checks and times
+    (``table_vs_plain``)."""
+    from consul_tpu_torch import _build
+    card_line = card()
+    with ThreadPoolExecutor(len(PARENT_SOURCES)) as pool:
+        list(pool.map(_build.build, PARENT_SOURCES))
+    for name in PARENT_SOURCES:
+        for ln in _build.build_logs.get(name, "").strip().splitlines():
+            print(f"  nvcc {name}: {ln}", flush=True)
+    _parent_libs()
+    threefry_phase(card_line)
+    table_vs_plain()
+    return 0
+
+
 PHASES_ALONE = {"event_flood": flood_only, "observe": observe_only,
                 "finish": finish_only, "probe": probe_only,
                 "finish_slots": finish_slots_only, "branch": branch_only,
-                "loop": loop_only}
+                "loop": loop_only, "draws": draws_only}
 
 
 def main() -> int:
@@ -8116,7 +8250,7 @@ def main() -> int:
                 or sys.argv[2] not in PHASES_ALONE:
             print("usage: chip_smoke.py [--phase "
                   "event_flood|observe|finish|probe|finish_slots|branch|"
-                  "loop]",
+                  "loop|draws]",
                   file=sys.stderr)
             return 2
         try:
@@ -8145,6 +8279,7 @@ def main() -> int:
         cpu_mdc = {hot: pool.submit(_mdc_cpu, hot, **MDC) for hot in (0, 8)}
         card_line = card()
         build()
+        _parent_libs()
         tf = threefry_phase(card_line)
         sass = sass_phase()
         big = kernel_vs_plain(64, 1_000_000, seed=1, sass=sass)
@@ -8348,6 +8483,8 @@ def main() -> int:
         # keys and shifts read from device memory (the launch it makes).
         "ms": tf["summary"]["main_path_ms"],
         "by_value_ms": tf["summary"]["main_path_by_value_ms"],
+        # The parent checkout's kernel in the same call (null without one).
+        "parent_ms": tf["summary"]["main_path_parent_ms"],
         "plain_ms": tf["summary"]["main_path_plain_ms"],
         "plain_graph_ms": tf["summary"]["main_path_plain_graph_ms"],
         "bound_ms": tf["summary"]["main_path_bound_ms"],

@@ -39,10 +39,12 @@ shuffle).  The count describes the kernel; the flood's operations bound
 is counted from its rule instead (``chip_smoke.py``'s ``_flood_bound``).
 
 ``--threefry`` builds ``csrc/threefry.cu`` instead and counts, for each
-of its modes (``draw_kernel<mode>``), the grid-stride loop: one iteration
-is one element of the draw.  Every instruction of the loop counts once
-(the edge drops' loop holds the hash behind a branch: its count is an
-element that is hashed).
+of its element-wise modes (``draw_kernel<mode>``), the grid-stride loop:
+one iteration is one element of the draw.  Every instruction of the loop
+counts once.  The edge drops' mode has no such loop (a block takes a span
+for every leg and hashes only the uncertain edges, 32 at a time a warp):
+an edge it hashes is counted as a uniform's element, a hash and its
+float.
 
 ``--probe`` builds ``csrc/probe.cu`` and counts its two kernels:
 ``probe::lanes_slots_kernel``, a thread a lane and, in the last block to
@@ -232,9 +234,9 @@ def row_loop_counts(sass: str, fanout: int = 3,
             "by_opcode": dict(ops.most_common())}
 
 
-# draw_kernel<mode> of csrc/threefry.cu, by the wrappers' names.
-DRAW_MODES = {"bits": 0, "uniform": 1, "below": 2, "randint": 3,
-              "edge_drops": 4}
+# draw_kernel<mode> of csrc/threefry.cu with a grid-stride loop, by the
+# wrappers' names.
+DRAW_MODES = {"bits": 0, "uniform": 1, "below": 2, "randint": 3}
 
 
 def _draw_loop(sass: str, mode: int):

@@ -1,7 +1,9 @@
 """The round program's table kernel on the CPU: ``csrc/round_table.cu``
 (with the hash of ``csrc/threefry.cuh``) compiled by the host's C++
-compiler against a small stand-in for the CUDA runtime, which runs the
-grid one thread at a time.
+compiler against a stand-in for the CUDA runtime
+(``tests/torch_host_lanes.py``) whose launches run each block's lanes as
+fibers that meet at the warp's barrier in every ``__shfl_sync``, so a row's
+group of lanes hands its keys from level to level as on the card.
 
 Each launch goes through the port's own argument packing
 (``round_table._launch``: the jobs as ``round_table::Job``, the keys' words,
@@ -9,72 +11,49 @@ randint's span and multiplier, the variant rule's scalars) and is held
 word for word (tolerance 0) against the plain versions: every column of
 ``round_args.build`` (the round's layout, with flight-ring cursors),
 ``build_events`` and ``build_pools`` (P pools in one launch), under
-``lan_profile`` and ``wan_profile`` parameters, steps 1, 30 and 512, the
-first round at 0, 149 and 2**31 - 512, several keys; the variant column
-against ``kernel.round_variant`` per row (and its host mirror
-``kernel.variant_codes``) on every nemesis catalog schedule; the loop
-counters the launch resets.  Needs ``g++``; builds once into the module's
-temporary directory.
+``lan_profile`` and ``wan_profile`` parameters and fanouts and helpers of
+1, 3 and 64 (8 to 32 lanes a row, levels wider than the group), 0 to 512
+rows (groups and blocks partly filled), the first round at 0, 149 and
+2**31 - 512, several keys, jobs of different widths in one launch; the
+variant column against ``kernel.round_variant`` per row (and its host
+mirror ``kernel.variant_codes``) on every nemesis catalog schedule; the
+loop counters the launch resets.  Needs ``g++``; builds once into the
+module's temporary directory.
 """
 
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 
 import numpy as np
 import pytest
 import torch
+from torch_host_lanes import CUDA_STUB
 
 from consul_tpu_torch import _build, prng
 from consul_tpu_torch.gossip import kernel as tk
 from consul_tpu_torch.gossip import nemesis, probe, round_args, round_table
 from consul_tpu_torch.gossip.params import lan_profile, wan_profile
 
-CUDA_STUB = r"""
-#pragma once
-#include <cstdint>
-#include <cstring>
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-inline dim3 blockIdx, threadIdx, blockDim, gridDim;
-inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t sh) {
-  return static_cast<uint32_t>(
-      (((static_cast<uint64_t>(hi) << 32) | lo) << (sh & 31)) >> 32);
-}
-inline float __uint_as_float(uint32_t u) {
-  float f;
-  std::memcpy(&f, &u, sizeof f);
-  return f;
-}
-typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline const char* cudaGetErrorString(cudaError_t e) {
-  return e ? "invalid argument" : "no error";
-}
-"""
-
-LAUNCH = ("table_kernel<<<grid, kThreads, 0, "
+LAUNCH = ("table_kernel<<<grid, kBlock, 0, "
           "static_cast<cudaStream_t>(stream)>>>(a);")
-SERIAL = ("(void)stream; gridDim = grid; blockDim = dim3(kThreads);"
-          " for (unsigned by = 0; by < grid.y; ++by)"
-          " for (unsigned bx = 0; bx < grid.x; ++bx)"
-          " for (unsigned t = 0; t < kThreads; ++t) {"
-          " blockIdx = dim3(bx, by); threadIdx = dim3(t);"
-          " table_kernel(a); }")
+HOST = "(void)stream; host_launch(table_kernel, grid, dim3(kBlock), a);"
 
 KEYS = [prng.key(0), prng.fold_in(prng.key(7), 2),
         np.asarray([0x80000000, 1], np.uint32),
         np.asarray([0xFFFFFFFF, 0xDEADBEEF], np.uint32)]
 PARAMS = {"lan_1000": lan_profile(1000), "lan_1m": lan_profile(1_000_000),
-          "wan_48": wan_profile(48)}
+          "wan_48": wan_profile(48),
+          # One lane's items a level and the group's widest: a row's 8 and
+          # 32 lanes, and levels of 72 and 65 items over 32 lanes.
+          "f1_k1": dataclasses.replace(lan_profile(1000), fanout=1,
+                                       indirect_k=1),
+          "f64_k64": dataclasses.replace(lan_profile(5000), fanout=64,
+                                         indirect_k=64)}
+# Rows: one, a group's worth and one either side at 16 lanes (two rows a
+# warp), a chunk; 0 resets only the counters.
+STEPS = [0, 1, 30, 31, 32, 33, 512]
 RND0 = (0, 149, 2**31 - 512)
 
 
@@ -87,7 +66,7 @@ def lib(tmp_path_factory):
     body = (_build.CSRC / "round_table.cu").read_text()
     assert body.count(LAUNCH) == 1
     src = d / "round_table.cpp"
-    src.write_text(body.replace(LAUNCH, SERIAL))
+    src.write_text(body.replace(LAUNCH, HOST))
     so = d / "libround_table.so"
     r = subprocess.run(["g++", "-std=c++17", "-O2", "-shared", "-fPIC",
                         f"-I{d}", f"-I{_build.CSRC}", "-o", str(so),
@@ -128,7 +107,7 @@ def _event_job(p, key, rnd0, rows):
                            events=True)
 
 
-@pytest.mark.parametrize("steps", [1, 30, 512])
+@pytest.mark.parametrize("steps", STEPS)
 @pytest.mark.parametrize("rnd0", RND0)
 @pytest.mark.parametrize("name", list(PARAMS))
 def test_round_rows_match_build(on_host, name, rnd0, steps):
@@ -145,7 +124,7 @@ def test_round_rows_match_build(on_host, name, rnd0, steps):
         assert bool((j.table[steps:] == -7).all())
 
 
-@pytest.mark.parametrize("steps", [1, 30, 512])
+@pytest.mark.parametrize("steps", STEPS)
 @pytest.mark.parametrize("rnd0", RND0)
 @pytest.mark.parametrize("name", list(PARAMS))
 def test_event_rows_match_build_events(on_host, name, rnd0, steps):
@@ -177,15 +156,18 @@ def test_pools_in_one_launch_match_build_pools(on_host, events, steps):
             assert np.array_equal(j.table[:steps].numpy(), want[d]), d
 
 
-def test_a_launch_mixes_layouts_and_sets_the_counters(on_host):
+@pytest.mark.parametrize("mix", [("lan_1000", "wan_48"),
+                                 ("f64_k64", "f1_k1"), ("f1_k1", "lan_1m")])
+def test_a_launch_mixes_layouts_and_sets_the_counters(on_host, mix):
     """The multi-DC call's launch: LAN round and event tables and the WAN
-    pool's in one; each program's rounds left set to the rows and its row
+    pool's in one (and pools of other widths, 8, 16 and 32 lanes a row in
+    one grid); each program's rounds left set to the rows and its row
     counter to 0, and with no row only those."""
-    lan, wan = PARAMS["lan_1000"], PARAMS["wan_48"]
+    lan, wan = PARAMS[mix[0]], PARAMS[mix[1]]
     key = prng.key(3)
     lefts = [torch.full((1,), -1, dtype=torch.int32) for _ in range(4)]
     steps = [torch.full((1,), 99, dtype=torch.int64) for _ in range(4)]
-    for rows in (7, 0):
+    for rows in (7, 33, 0):
         jobs = [_round_job(lan, key, 5, rows)._replace(left=lefts[0],
                                                        step=steps[0]),
                 _event_job(lan, key, 6, rows)._replace(step=steps[1]),

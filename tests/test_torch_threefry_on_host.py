@@ -1,7 +1,11 @@
 """The draws' Hopper kernel on the CPU: ``csrc/threefry.cu`` (its body and
 every entry point, with the hash of ``csrc/threefry.cuh``) compiled by the
-host's C++ compiler against a small stand-in for the CUDA runtime, which
-runs the grid one thread at a time.
+host's C++ compiler against a stand-in for the CUDA runtime
+(``tests/torch_host_lanes.py``).  The draws but the edge drops run the
+grid one thread at a time; the edge drops' launch runs each block's lanes
+as fibers that meet at the warp's barrier in ``__ballot_sync`` and
+``__syncwarp`` and at the block's in ``__syncthreads``, as the kernel's
+compaction of uncertain edges and its staged spans need.
 
 Each launch goes through the port's own wrappers (``prng._bits_into``,
 ``_uniform_into``, ``_below_into``, ``_randint_into``, ``_edge_drops_into``:
@@ -11,8 +15,12 @@ against the plain torch versions (``random_bits_ref``, ``uniform_ref``,
 ``uniform_rows_ref``, ``randint_ref``, ``below_ref``, ``edge_drops_ref``)
 and against ``jax.random`` on the CPU.  Lengths of 1, odd lengths, lengths
 that are not a multiple of the block, one past the grid's cap (threads that
-stride), ``[B, 3]``, keys with the high bit set.  Needs ``g++``; builds into
-the test's temporary directory.
+stride), ``[B, 3]``, keys with the high bit set.  The edge drops also at
+lengths of 1, 15, 17, 4,099 and 16,001 (rows at every 16-byte phase),
+probabilities 0, 2**-24, 0.6, 1 - 2**-24 and 1, a warp holding 0, 1, 31,
+32 and 33 uncertain edges, and a second build with 64 threads a block and
+a grid of at most 3 blocks (spans that stride).  Needs ``g++``; builds
+into the test's temporary directory.
 """
 
 import ctypes
@@ -25,37 +33,9 @@ import numpy as np
 import pytest
 import torch
 
-from consul_tpu_torch import _build, prng
+from torch_host_lanes import CUDA_STUB
 
-CUDA_STUB = r"""
-#pragma once
-#include <cstdint>
-#include <cstring>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-inline dim3 blockIdx, threadIdx, blockDim, gridDim;
-inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t sh) {
-  return static_cast<uint32_t>(
-      (((static_cast<uint64_t>(hi) << 32) | lo) << (sh & 31)) >> 32);
-}
-inline float __uint_as_float(uint32_t u) {
-  float f;
-  std::memcpy(&f, &u, sizeof f);
-  return f;
-}
-typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline const char* cudaGetErrorString(cudaError_t e) {
-  return e ? "invalid argument" : "no error";
-}
-"""
+from consul_tpu_torch import _build, prng
 
 LAUNCH = "draw_kernel<M><<<grid, kThreads, 0, stream>>>(a);"
 SERIAL = ("(void)stream; gridDim = grid; blockDim = dim3(kThreads);"
@@ -64,6 +44,21 @@ SERIAL = ("(void)stream; gridDim = grid; blockDim = dim3(kThreads);"
           " for (unsigned t = 0; t < kThreads; ++t) {"
           " blockIdx = dim3(bx, by); threadIdx = dim3(t);"
           " draw_kernel<M>(a); }")
+EDGES = "draw_kernel<kEdgeDrops><<<grid, kEdgeThreads, 0, stream>>>(a);"
+EDGES_HOST = ("(void)stream; host_launch(draw_kernel<kEdgeDrops>, grid,"
+              " dim3(kEdgeThreads), a);")
+# The card's build (short rows take the narrow form, a thread a
+# destination); the card's block always in the wide form (a block a span
+# of 2,048 destinations of a leg); a narrow block: 64 threads (two warps,
+# spans of 1,024) in a grid of at most 3 blocks, wide from 4 spans.
+FILL = "constexpr int kFill = 132;"
+BUILDS = {"card": {},
+          "wide": {FILL: "constexpr int kFill = 1;"},
+          "narrow": {"constexpr int kEdgeThreads = 128;":
+                     "constexpr int kEdgeThreads = 64;",
+                     "constexpr int kMaxBlocks = 1056;":
+                     "constexpr int kMaxBlocks = 3;",
+                     FILL: "constexpr int kFill = 4;"}}
 
 # Keys: the round's (fold_in chains of small seeds), and raw key words
 # with the high bit set in one or both.
@@ -75,23 +70,45 @@ SHAPES = [(1,), (7,), (255,), (257,), (4099,), (48, 3), (1001, 3)]
 STRIDED = 1056 * 256 + 3
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to compile the kernel for the host")
-    d = tmp_path_factory.mktemp("threefry_on_host")
+def _host_lib(d, name, edits):
+    """``threefry.cu`` built for the host in ``d`` with ``edits`` (source
+    text -> replacement) made."""
     (d / "cuda_runtime.h").write_text(CUDA_STUB)
     body = (_build.CSRC / "threefry.cu").read_text()
-    assert body.count(LAUNCH) == 1
-    src = d / "threefry.cpp"
-    src.write_text(body.replace(LAUNCH, SERIAL))
-    so = d / "libthreefry.so"
+    for text, host in {LAUNCH: SERIAL, EDGES: EDGES_HOST, **edits}.items():
+        assert body.count(text) == 1, text
+        body = body.replace(text, host)
+    src = d / f"{name}.cpp"
+    src.write_text(body)
+    so = d / f"lib{name}.so"
+    # -fno-gnu-unique: the builds' shared arrays (statics here) stay apart.
     r = subprocess.run(["g++", "-std=c++17", "-O2", "-shared", "-fPIC",
-                        f"-I{d}", f"-I{_build.CSRC}", "-o", str(so),
-                        str(src)],
+                        "-fno-gnu-unique", f"-I{d}", f"-I{_build.CSRC}",
+                        "-o", str(so), str(src)],
                        capture_output=True, text=True, timeout=180)
     assert r.returncode == 0, r.stderr
     return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def builds(tmp_path_factory):
+    """The host builds by name, each built on first use."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel for the host")
+    made = {}
+
+    def get(name):
+        if name not in made:
+            made[name] = _host_lib(
+                tmp_path_factory.mktemp(f"threefry_{name}"),
+                f"threefry_{name}", BUILDS[name])
+        return made[name]
+    return get
+
+
+@pytest.fixture(scope="module")
+def lib(builds):
+    return builds("card")
 
 
 def _typed(lib, name):
@@ -104,6 +121,10 @@ def _typed(lib, name):
 @pytest.fixture
 def on_host(lib, monkeypatch):
     """The wrappers' launches go to the host build, stream None."""
+    return _route(lib, monkeypatch)
+
+
+def _route(lib, monkeypatch):
     def launch(fn, err, name, dev, *args):
         rc = fn(*args, None)
         assert rc == 0, err(rc)
@@ -193,14 +214,22 @@ def _groups(kind, n, seed):
     return torch.from_numpy(g.astype(np.int32))
 
 
-@pytest.mark.parametrize("p_ab, p_ba", [(1.0, 1.0), (0.0, 0.0), (1.0, 0.0),
-                                        (0.0, 1.0), (0.6, 0.3), (0.6, 1.0),
-                                        (0.0, 0.45)])
+# Both directions' probabilities: certain (0, 1), drawn, the drawn ones
+# nearest the certain (2**-24, 1 - 2**-24), asym_loss's (0.6, 0).
+EDGE_P = [(1.0, 1.0), (0.0, 0.0), (1.0, 0.0), (0.0, 1.0), (0.6, 0.3),
+          (0.6, 1.0), (0.0, 0.45), (2.0**-24, 1.0 - 2.0**-24),
+          (1.0 - 2.0**-24, 2.0**-24), (0.6, 0.0)]
+
+
+@pytest.mark.parametrize("p_ab, p_ba", EDGE_P)
 @pytest.mark.parametrize("kind, n", [("hash", 4099), ("half", 1000),
-                                     ("random", 257), ("half", 1)])
+                                     ("random", 257), ("half", 1),
+                                     ("hash", 15), ("half", 17),
+                                     ("random", 16_001)])
 def test_edge_drops(on_host, kind, n, p_ab, p_ba):
     """Both certain-outcome directions, certain and drawn directions
-    mixed, shifts above n, negative and zero; 1 to 3 legs."""
+    mixed, shifts above n, negative and zero; 1 to 3 legs; rows shorter
+    than a 16-byte store and rows at every 16-byte phase."""
     grp = _groups(kind, n, n)
     keys = [prng.fold_in(KEYS[1], f) for f in range(3)]
     for shifts in ([1], [n - 1, -(n // 3)], [0, n + 5, 2 * n - 1]):
@@ -241,8 +270,10 @@ def test_device_keys_match_by_value(on_host, shape):
                                                "cpu"))
 
 
-@pytest.mark.parametrize("p_ab, p_ba", [(1.0, 1.0), (0.6, 0.3), (0.0, 0.45)])
-@pytest.mark.parametrize("kind, n", [("hash", 4099), ("half", 1000)])
+@pytest.mark.parametrize("p_ab, p_ba", [(1.0, 1.0), (0.6, 0.3), (0.0, 0.45),
+                                        (2.0**-24, 1.0 - 2.0**-24)])
+@pytest.mark.parametrize("kind, n", [("hash", 4099), ("half", 1000),
+                                     ("hash", 17), ("random", 16_001)])
 def test_edge_drops_device_keys_and_shifts(on_host, kind, n, p_ab, p_ba):
     """Keys and shifts read from memory (any int32 shift, reduced mod n in
     the kernel) give the by-value launch's mask, and the plain version
@@ -260,6 +291,62 @@ def test_edge_drops_device_keys_and_shifts(on_host, kind, n, p_ab, p_ba):
         assert torch.equal(got, want), shifts
         assert torch.equal(prng.edge_drops_ref(_dev_keys(legs), grp,
                                                d_shifts, p_ab, p_ba), want)
+
+
+@pytest.mark.parametrize("build", ["card", "wide", "narrow"])
+@pytest.mark.parametrize("count", [0, 1, 31, 32, 33, 64, 65, 128, 129, 257])
+def test_edge_drops_uncertain_runs(builds, monkeypatch, build, count):
+    """``count`` uncertain edges on consecutive destinations from 0 (a
+    warp's lanes holding 0, 1, 31, 32 and 33 of them; the block's list of
+    them one past a round of 64, 128 and 256 threads): group 1 there, 0
+    elsewhere, along shift 512 at p_ab 0.6, so that the edges from those
+    nodes (p_ba 0) are certain; a second leg's row starts 3 bytes past a
+    16-byte boundary.  Equal to the plain version, which draws as many
+    uniforms."""
+    _route(builds(build), monkeypatch)
+    n = 4099
+    grp = torch.zeros(n, dtype=torch.int32)
+    grp[:count] = 1
+    keys = [prng.fold_in(KEYS[2], f) for f in range(2)]
+    out = torch.empty((2, n), dtype=torch.bool)
+    prng._edge_drops_into(out, keys, grp, [512, 512], 0.6, 0.0)
+    want = prng.edge_drops_ref(keys, grp, [512, 512], 0.6, 0.0)
+    assert torch.equal(out, want)
+    uncertain = (torch.roll(grp, 512) == 0) & (grp != 0)
+    assert int(uncertain.sum()) == count
+    assert not bool((out & ~uncertain).any())
+
+
+@pytest.mark.parametrize("p_ab, p_ba", [(1.0, 1.0), (0.6, 0.3), (0.6, 0.0),
+                                        (2.0**-24, 1.0 - 2.0**-24)])
+@pytest.mark.parametrize("kind, n", [("hash", 4099), ("random", 16_001),
+                                     ("half", 17)])
+@pytest.mark.parametrize("build", ["wide", "narrow"])
+def test_edge_drops_other_blocks(builds, monkeypatch, build, kind, n, p_ab,
+                                 p_ba):
+    """The wide form (a block a span of a leg: 2,048 destinations, or
+    1,024 in two warps), and in the narrow build a grid of at most 3 blocks
+    whose blocks stride over a row's spans (16 of them at 16,001, the
+    narrow form's threads over 17 destinations); 1 to 3 legs, and 4, 7 and
+    16 below 16,001, host and device shifts."""
+    _route(builds(build), monkeypatch)
+    grp = _groups(kind, n, n + 1)
+    keys = [prng.fold_in(KEYS[3], f) for f in range(16)]
+    # 1 to 3 legs, and 4, 7 and 16 but on the longest rows.
+    more = [[(97 * f + 1) * (-1) ** f for f in range(legs)]
+            for legs in (4, 7, 16) if n < 16_001]
+    for shifts in ([n - 1], [7, -(n // 2)], [0, n + 9, -(2 * n) + 5],
+                   *more):
+        legs = keys[:len(shifts)]
+        want = prng.edge_drops_ref(legs, grp, shifts, p_ab, p_ba)
+        out = torch.empty_like(want)
+        prng._edge_drops_into(out, legs, grp, shifts, p_ab, p_ba)
+        assert torch.equal(out, want), shifts
+        got = torch.empty_like(want)
+        prng._edge_drops_into(got, _dev_keys(legs), grp,
+                              torch.tensor(shifts, dtype=torch.int32),
+                              p_ab, p_ba)
+        assert torch.equal(got, want), shifts
 
 
 def test_launches_counted(on_host):
