@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase branch        # branch_check alone
     python3 chip_smoke.py --phase loop          # the loop's checks alone
     python3 chip_smoke.py --phase draws         # the threefry kernels alone
+    python3 chip_smoke.py --phase wide_slots    # S past 1,024 alone
 
 Each phase prints one JSON line; any failure exits non-zero and the
 result lines are not printed.
@@ -266,6 +267,24 @@ result lines are not printed.
    lockstep adds a card plane replaying a round at a time; the
    programmatic edges of decide, settle and record are checked in the
    loop's nesting too.
+8d. wide_slots (also ``--phase wide_slots``; before the main paths): S
+   past the 1,024 slots the four slot-sized sources take in one block,
+   where the host picks each one's wide instance.  Each kernel against
+   its plain version, tolerance 0, and timed beside its bound at S =
+   1,024, 1,025, 2,048, 8,192 and 16,384 on 16,000 columns and at
+   [8,192, 1M]; the chooser at 8,192 (``CHOOSE_SHAPES``); the card's
+   round against the CPU's (a worker) under ``partition_heal`` at [2,048,
+   16,000] and [4,096, 16,000], 1 and 8 shards, bit-identical; path (a),
+   ``crossval.run_config`` at 1M, 16 victims, 5 % loss, its own 8,192
+   slots, graphed (completeness, false dead, p99 inside the Lifeguard
+   envelope; slot drops, rounds/s, device ms a round and every wide
+   kernel by name under the profiler, peak memory); path (b),
+   ``run_nemesis_config`` for ``partition_heal`` and ``zone_kill`` at n =
+   4,096 and its own 4,096 slots, kernel rows equal to
+   ``CROSSVAL_WIDE.json`` (the port's CPU rows,
+   ``tools/wide_nemesis_rows.py``); the plane at 2,048 slots with no
+   tick error.  Its paths' shapes go to path_shapes (the tail's
+   [8,192, 1M] held a block of rows at a time).
 9. main_path: ``lan_profile(1_000_000, slots=64, hot_slots=0)`` with
    bench.py's churn1000ppm failure stride — warm-up, timed blocks each
    ending in a device->host read; rounds/s, kernel launches (must equal
@@ -1834,7 +1853,10 @@ def _finish_held(heard, ndev, rx, ok, refute, scratch, offset=0) -> int:
     if not (torch.equal(fired, want) and _same_rows(got, ref)):
         raise AssertionError("fire_timers != plain")
     got = torch.cat(got, dim=1) if ndev > 1 else got
-    return int((got != heard).sum())
+    # By row blocks: a count over the whole matrix at once would widen
+    # every byte to int64 ([8,192, 1M]: 65 GB).
+    return sum(int((a != b).sum()) for a, b in zip(got.split(256),
+                                                    heard.split(256)))
 
 
 def _wipe_held(heard, ndev, flags, offset=0) -> None:
@@ -2026,12 +2048,13 @@ PROBE_CASES = {
 PROBE_RND = 52
 
 
-def _probe_params(case: str):
+def _probe_params(case):
     """(params, nemesis schedule or None, shards, LHM threaded, free slots)
-    of a probe case."""
+    of a probe case: a ``PROBE_CASES`` name, or an entry's tuple."""
     from consul_tpu_torch.gossip.nemesis import NemesisParams
     from consul_tpu_torch.gossip.params import SwimParams
-    n, S, pe, K, loss, nem_f, lhm, ndev, free = PROBE_CASES[case]
+    n, S, pe, K, loss, nem_f, lhm, ndev, free = (
+        PROBE_CASES[case] if isinstance(case, str) else case)
     p = SwimParams(n=n, slots=S, probe_every=pe, indirect_k=K,
                    loss_rate=loss)
     nem = None
@@ -2661,10 +2684,16 @@ def _finish_slots_inputs(spec, seed: int):
     member = torch.rand(n, device=dev, generator=g) < 0.92
     heard = torch.randint(0, 256, (S, n), device=dev, dtype=torch.uint8,
                           generator=g)
-    susp = (torch.randint(0, 64, (S, n), device=dev, dtype=torch.uint8,
-                          generator=g) | 0x40)
-    heard = torch.where(torch.rand((S, n), device=dev, generator=g) < 0.3,
-                        susp, heard)
+    # 30% of the bytes SUSPECT; past 2**31 bytes by row blocks (the
+    # uniforms of [8,192, 1M] at once would take 32 GB).
+    block = S if S * n <= 1 << 31 else 256
+    for r in range(0, S, block):
+        h = heard[r:r + block]
+        susp = (torch.randint(0, 64, h.shape, device=dev, dtype=torch.uint8,
+                              generator=g) | 0x40)
+        h.copy_(torch.where(torch.rand(h.shape, device=dev, generator=g)
+                            < 0.3, susp, h))
+        del susp
 
     def own(s, msg):
         x = int(slot_node[s])
@@ -2955,14 +2984,15 @@ def _finish_slots_bound(cfg, t, dec, fired, st, n_hold) -> dict:
     return out
 
 
-def _finish_slots_timed(cfg, t, rx) -> dict:
+def _finish_slots_timed(cfg, t, rx, step: bool = True) -> dict:
     """The step's times on ``t`` (CUDA-graph replays of 20 launches, the
     state carried from launch to launch): each kernel alone (decide's
     launches, and record's with the banks, programmatic, each overlapping
     the end of the one before),
-    and the whole step as the round runs it (with the fire, the count and
-    the wipe); the plain versions' (eager); beside
-    ``_finish_slots_bound``."""
+    and with ``step`` the whole step as the round runs it (with the fire,
+    the count and the wipe); the plain versions' (eager); beside
+    ``_finish_slots_bound``.  One copy of ``t`` at a time is held beside
+    the chain's (at [8,192, 1M] each is 8.2 GB)."""
     from consul_tpu_torch.gossip import finish_slots as fs, observe
     did = _finish_slots_held(cfg, t, rx)
     scratch = observe.counts_scratch(cfg.S, "cuda")
@@ -2980,15 +3010,20 @@ def _finish_slots_timed(cfg, t, rx) -> dict:
         out[f"{k}_bytes"] = did[f"{k}_bytes"]
         out[f"{k}_bound_ms"] = did[f"{k}_bound_ms"]
         out[f"{k}_share_of_bound"] = did[f"{k}_bound_ms"] / ms
+    del tk
     tp = _fs_copy(t)
     for k, fn in (("decide", lambda: fs.finish_decide_ref(cfg, tp)),
                   ("settle", lambda: fs.finish_settle_ref(cfg, tp, fired)),
                   ("record", lambda: fs.finish_record_ref(cfg, tp, dec, st,
                                                           n_hold))):
         out[f"{k}_plain_ms"] = cuda_ms(fn, iters=5, warm=1)
+    del tp
+    if not step:
+        return out
     tc = _fs_copy(t)
     out["step_ms"] = graph_ms(lambda: _fs_chain(cfg, tc, rx, scratch,
                                                 False))
+    del tc
     tq = _fs_copy(t)
     out["step_plain_ms"] = cuda_ms(lambda: _fs_chain(cfg, tq, rx, scratch,
                                                      True), iters=5, warm=1)
@@ -3519,8 +3554,23 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
                                           cap, sc, drop)
 
         variants = _drop_variants(N, _offset_sets(N, L, seed, F), seed)
-        err = max([err] + [_held(name, [S, N, ndev], lambda: kern(o, d),
-                                 lambda: plain(o, d)) for o, d in variants])
+        if S * N <= 1 << 31:
+            err = max([err] + [_held(name, [S, N, ndev],
+                                     lambda: kern(o, d),
+                                     lambda: plain(o, d))
+                               for o, d in variants])
+        else:
+            # The wide path's [8,192, 1M]: the first offset set's drop
+            # variants, the plain version a block of rows at a time (the
+            # tail merges each row on its own), so that no int32 copy of
+            # the matrix is made.
+            variants = variants[:3]
+            for o, d in variants:
+                _held_rows(name, [S, N, ndev], kern(o, d), lambda r0, r1: (
+                    _plain_rows(name, p, rnd, o, heard, shards, mf, rx_ok,
+                                cap, sc, d, r0, r1)))
+        del heard, shards
+        torch.cuda.empty_cache()
         rows.append({"kernel": name, "shape": [S, N], "ndev": ndev,
                      "L": L, "fanout": F, "budget": budget,
                      "launches_held": len(variants)})
@@ -3541,6 +3591,32 @@ def path_shapes_vs_plain(shapes: set, store_shapes: set,
                    "probe", "finish_slots"}:
         raise AssertionError(f"the paths launched only {sorted(kernels)}")
     return res
+
+
+def _plain_rows(name: str, p, rnd: int, offs, heard, shards, mf, rx_ok,
+                cap, sc, drop, r0: int, r1: int):
+    """The tail's plain version on rows [r0, r1) of the matrix (each row
+    is merged on its own): ``disseminate_ref`` or ``merge_shards_ref``."""
+    from consul_tpu_torch.gossip import fused
+    r, o = fused.tail_args(rnd, offs, "cuda")
+    if name == "fused_dissem":
+        return fused.disseminate_ref(p, r, o, heard[r0:r1], mf, rx_ok,
+                                     cap[r0:r1], drop)
+    return fused.merge_shards_ref(p, r, o, tuple(h[r0:r1] for h in shards),
+                                  mf, rx_ok, cap[r0:r1], sc, drop)
+
+
+def _held_rows(name: str, shape, out, plain_rows, block: int = 512) -> None:
+    """A kernel's output against its plain version a block of rows at a
+    time (``plain_rows(r0, r1)``); raises unless byte-identical."""
+    outs = out if isinstance(out, tuple) else (out,)
+    for r0 in range(0, shape[0], block):
+        r1 = min(shape[0], r0 + block)
+        want = plain_rows(r0, r1)
+        want = want if isinstance(want, tuple) else (want,)
+        if not all(torch.equal(a[r0:r1], w) for a, w in zip(outs, want)):
+            raise AssertionError(f"{name} != plain at {shape}, rows "
+                                 f"[{r0}, {r1})")
 
 
 def _settle() -> None:
@@ -3957,8 +4033,10 @@ def main_path(n: int, S: int, churn_ppm: int, warm: int, block: int,
 # down phases and two rejoins).
 # The round program's chooser node (``csrc/round_graph.cu``) alone:
 # (S, hot_slots) of the 1M main path, the multi-DC LAN pools (hot tier 8),
-# the WAN pool's 32 slots and the widest a program takes.
-CHOOSE_SHAPES = ((64, 0), (64, 8), (32, 0), (1024, 0), (1024, 8))
+# the WAN pool's 32 slots, 1,024 and the reference's own provisioning at
+# n = 1M and 5 % loss (crossval.loss_sized_slots: 8,192).
+CHOOSE_SHAPES = ((64, 0), (64, 8), (32, 0), (1024, 0), (1024, 8),
+                 (8192, 0))
 # branch_check: graphed rounds against eager ones through every branch.
 BRANCH = dict(n=16_000, S=64, hot=8, steps=160, seed=19)
 
@@ -4198,17 +4276,21 @@ NEM = dict(n=16_000, S=64, seed=13)
 
 
 def _nem_run(name: str, n: int, S: int, steps: int, seed: int, dev: str,
-             ndev: int | None = None):
+             ndev: int | None = None, hot: int | None = None,
+             first: int = 0):
     """``steps`` rounds of ``run_rounds`` (or ``run_rounds_sharded``)
     under the catalog scenario ``name`` with the hist banks, NemState
-    when it needs one, and the trace: ``(carry, trace)``."""
+    when it needs one, and the trace: ``(carry, trace)``.  ``hot``: the
+    hot tier's slots (None: the LAN profile's); ``first``: the round the
+    fresh state starts at."""
     from consul_tpu_torch import prng
     from consul_tpu_torch.gossip import kernel
     from consul_tpu_torch.gossip.nemesis import build
     from consul_tpu_torch.gossip.params import lan_profile
 
     sc = build(name, n)
-    p = lan_profile(n, slots=S)
+    p = lan_profile(n, slots=S) if hot is None else lan_profile(
+        n, slots=S, hot_slots=hot)
     kw = dict(trace=True, hist=kernel.init_hist(device=dev), nem=sc.nem,
               device=dev)
     if sc.join_round is not None:
@@ -4216,17 +4298,21 @@ def _nem_run(name: str, n: int, S: int, steps: int, seed: int, dev: str,
     if sc.nem.needs_state:
         kw["nem_state"] = kernel.init_nem_state(n, device=dev)
     st = kernel.init_state(p, device=dev)
+    if first:
+        st = st._replace(round=torch.full_like(st.round, first))
     args = (st, prng.key(seed), sc.fail_round, p, steps)
     if ndev is None:
         return kernel.run_rounds(*args, **kw)
     return kernel.run_rounds_sharded(*args, ndev=ndev, **kw)
 
 
-def _nem_run_cpu(name: str, n: int, S: int, steps: int, seed: int):
+def _nem_run_cpu(name: str, n: int, S: int, steps: int, seed: int,
+                 hot: int | None = None, first: int = 0):
     """``_nem_run`` on the CPU, in a worker process: the carry and the
     trace as numpy, field by field."""
     torch.set_num_threads(1)
-    return _as_numpy(*_nem_run(name, n, S, steps, seed, "cpu"))
+    return _as_numpy(*_nem_run(name, n, S, steps, seed, "cpu", hot=hot,
+                               first=first))
 
 
 def _as_numpy(carry, tr):
@@ -8120,6 +8206,519 @@ def _churn_gates(res: dict, launches_key: str) -> None:
         raise AssertionError(f"{res['phase']} launched no kernel")
 
 
+# -- slots past one block: the reference's own provisioning ---------------------
+
+# The slot counts around the one-block kernels' 1,024 rows and the
+# reference's own provisioning (crossval.loss_sized_slots: 8,192 at n = 1M
+# and 5 % loss; run_nemesis_config: next_pow2(n), 16,384 at n = 10,000),
+# each on [S, 16,000]; and [8,192, 1M].
+WIDE_SHAPES = tuple((S, 16_000) for S in (1024, 1025, 2048, 8192, 16_384)) \
+    + ((8192, 1_000_000),)
+WIDE_SEEDS = 3  # fresh states held a shape (one at 1M)
+# The card's round against the CPU's under partition_heal: rounds 30-53
+# (its window opens at round 40), the hot tier off so every round passes
+# every slot.
+WIDE_PARITY = dict(n=16_000, steps=24, seed=29, first=30)
+WIDE_PARITY_S = (2048, 4096)
+# Path (b): run_nemesis_config at its own default slots, next_pow2(n),
+# against the port's CPU rows that tools/wide_nemesis_rows.py recorded in
+# CROSSVAL_WIDE.json (zone_kill's with the oracle): at [4,096, 4,096] a
+# CPU round takes seconds, 400 rounds a scenario.
+WIDE_NEMX = dict(n=4096, seeds=1)
+WIDE_NEMX_NAMES = ("partition_heal", "zone_kill")
+# Path (a): run_config at loss_sized_slots' 8,192, kernel side only.
+WIDE_1M = dict(n=1_000_000, n_victims=16, seeds=1, loss=0.05)
+WIDE_PROFILED = 5  # rounds of path (a)'s configuration under the profiler
+WIDE_PLANE = dict(n=16_384, slots=2048, dispatches=6)
+# The kernels' names in a profile: each wide instance.
+WIDE_KERNELS = ("observe::counts_wide_kernel", "finish::fire_wide_kernel",
+                "finish::wipe_wide_kernel",
+                "probe::lanes_slots_wide_kernel",
+                "probe::rearm_marks_wide_kernel",
+                "finish_slots::decide_wide_kernel",
+                "finish_slots::settle_wide_kernel",
+                "finish_slots::record_wide_kernel")
+
+
+def _wide_key(S: int, N: int) -> str:
+    return f"{S}x{N}"
+
+
+def _wide_observe(S: int, N: int, seeds: int) -> dict:
+    """``heard_counts`` at [S, N] against its plain version in both forms
+    (every row; the spread with ``want`` holes), then timed."""
+    from consul_tpu_torch.gossip import observe
+    b = OBSERVE_BUDGET
+    for seed in range(seeds):
+        arg, member, verdict, want = _observe_inputs(S, N, 1, 4000 + S + seed)
+        for v, w in ((None, None), (verdict, want)):
+            _observe_err(observe.heard_counts(arg, member, b, v, w),
+                         observe.heard_counts_ref(arg, member, b, v, w))
+        del arg, member, verdict, want
+    arg, member, verdict, want = _observe_inputs(S, N, 1, 7)
+    sc = observe.counts_scratch(S, "cuda")
+    read = int((want & (verdict >= 0) & (verdict <= 3)).sum())
+    bound = _observe_bound(S, N, S, "final")
+    spread = _observe_bound(S, N, read, "spread")
+    row = {"ms": graph_ms(lambda: observe.heard_counts(arg, member, b, None,
+                                                       None, sc)),
+           "ms_spread": graph_ms(lambda: observe.heard_counts(
+               arg, member, b, verdict, want, sc)),
+           "plain_ms": cuda_ms(lambda: observe.heard_counts_ref(arg, member,
+                                                                b), iters=3),
+           "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+           "bound_ms_spread": spread["bound_ms"], "rows_read_spread": read}
+    if int(sc.abs().sum()):
+        raise AssertionError(f"heard_counts left its scratch non-zero at "
+                             f"{_wide_key(S, N)}")
+    return row
+
+
+def _wide_finish(S: int, N: int, seeds: int) -> tuple:
+    """``fire_timers`` and ``wipe_rows`` at [S, N] against their plain
+    versions (every row's timer live with the refutation, two rows, every
+    row without it; the wipe of a few rows and of all), then timed:
+    ``(fire row, wipe row)``."""
+    from consul_tpu_torch.gossip import finish, observe
+    sc = observe.counts_scratch(S, "cuda")
+    for seed in range(seeds):
+        heard, rx, ok_all, ok_few, refute, flags = _finish_inputs(
+            S, N, 5000 + S + seed)
+        off = 3 if seed % 2 else 0
+        for ok, ref in ((ok_all, refute), (ok_few, refute), (ok_all, None)):
+            _finish_held(heard, 1, rx, ok, ref, sc, off)
+        for fl in (flags, torch.ones_like(flags)):
+            _wipe_held(heard, 1, fl, off)
+        del heard, rx, ok_all, ok_few, refute, flags
+    heard, rx, ok_all, _, refute, flags = _finish_inputs(S, N, 7)
+    h = _split_rows(heard, 1)
+    del heard
+    fire = _finish_bound(S, N, S, 0)
+    wipe = _finish_bound(S, N, 0, int(flags.sum()) * N, rx=False)
+    fire_row = {"ms": graph_ms(lambda: finish.fire_timers(h, rx, ok_all,
+                                                          refute, sc)),
+                "plain_ms": cuda_ms(lambda: finish.fire_timers_ref(
+                    h, rx, ok_all, refute), iters=3),
+                "bound_ms": fire["bound_ms"], "bound_by": fire["bound_by"]}
+    wipe_row = {"ms": graph_ms(lambda: finish.wipe_rows(h, flags)),
+                "plain_ms": cuda_ms(lambda: finish.wipe_rows_ref(h, flags),
+                                    iters=3),
+                "rows_wiped": int(flags.sum()),
+                "bound_ms": wipe["bound_ms"], "bound_by": "bytes"}
+    if int(sc.abs().sum()):
+        raise AssertionError(f"fire_timers left its scratch non-zero at "
+                             f"{_wide_key(S, N)}")
+    return fire_row, wipe_row
+
+
+def _wide_probe(S: int, N: int, seeds: int, per_hash: float) -> dict:
+    """The probe tick's two kernels at [S, N] (the LAN profile's prober
+    block, loss 0.01, half the slots free) against their plain versions,
+    then timed (``_probe_timed``)."""
+    spec = (N, S, 5, 3, 0.01, None, False, 1, S // 2)
+    p, nem, ndev, lhm, free = _probe_params(spec)
+    seen = {"rearmed": 0, "dropped": 0, "served": 0}
+    for seed in range(seeds):
+        cfg, t = _probe_inputs(p, nem, ndev, lhm, free, 9100 + S + seed)
+        did = _probe_held(cfg, t)
+        if did["stats"][3] == 0 or did["served"] + did["dropped"] == 0:
+            raise AssertionError(f"probe at {_wide_key(S, N)}: the tick "
+                                 f"initiated or allocated nothing: {did}")
+        for k in seen:
+            seen[k] += did[k] > 0
+        del t
+    cfg, t = _probe_inputs(p, nem, ndev, lhm, free, 7)
+    out = _probe_timed(cfg, t, per_hash)
+    out["states_with"] = seen
+    return out
+
+
+def _wide_finish_slots(S: int, N: int, seeds: int) -> dict:
+    """The finish step's slot kernels at S rows of N columns (LHM and
+    the refutation threaded; the hist banks too below 1M columns, where
+    the spread count's plain version, int32 over every byte, still fits
+    beside the copies) against their plain versions, then timed
+    (``_finish_slots_timed``; the whole step below 1M columns)."""
+    small = N < 1_000_000
+    spec = (N, S, None, 1, small, True, True, "mixed")
+    for seed in range(seeds):
+        cfg, t, rx = _finish_slots_inputs(spec, 7100 + S + seed)
+        _finish_slots_held(cfg, t, rx)
+        del t
+    cfg, t, rx = _finish_slots_inputs(spec, 7)
+    return _finish_slots_timed(cfg, t, rx, step=small)
+
+
+def _wide_kernels(per_hash: float) -> dict:
+    """Each of the four slot-sized kernel sources at ``WIDE_SHAPES``
+    against its plain version (tolerance 0), then timed: kernel name ->
+    shape -> its time (CUDA-graph replays), its plain version's, its
+    bound."""
+    out = {k: {} for k in ("heard_counts", "fire_timers", "wipe_rows",
+                           "probe_lanes_slots", "probe_rearm_marks",
+                           "finish_decide", "finish_settle",
+                           "finish_record")}
+    for S, N in WIDE_SHAPES:
+        key = _wide_key(S, N)
+        seeds = 1 if N >= 1_000_000 else WIDE_SEEDS
+        torch.cuda.empty_cache()
+        out["heard_counts"][key] = _wide_observe(S, N, seeds)
+        torch.cuda.empty_cache()
+        out["fire_timers"][key], out["wipe_rows"][key] = _wide_finish(
+            S, N, seeds)
+        torch.cuda.empty_cache()
+        pr = _wide_probe(S, N, seeds, per_hash)
+        for k in PROBE_KERNELS:
+            out[f"probe_{k}"][key] = {
+                "ms": pr[f"{k}_ms"], "plain_ms": pr[f"{k}_plain_ms"],
+                "bound_ms": pr[f"{k}_bound_ms"],
+                "bound_by": pr["lanes_slots_bound_by"]
+                if k == "lanes_slots" else "bytes",
+                "rearmed": pr["rearmed"], "needy": pr["needy"],
+                "states_with": pr["states_with"]}
+        del pr
+        torch.cuda.empty_cache()
+        fs = _wide_finish_slots(S, N, seeds)
+        for k in FINISH_SLOTS_KERNELS:
+            out[f"finish_{k}"][key] = {
+                "ms": fs[f"{k}_ms"], "plain_ms": fs[f"{k}_plain_ms"],
+                "bound_ms": fs[f"{k}_bound_ms"], "bound_by": "bytes",
+                "did": fs["did"]}
+        del fs
+        torch.cuda.empty_cache()
+        emit({"phase": "wide_slots_shape", "shape": [S, N],
+              **{k: v[key] for k, v in out.items()}})
+    return out
+
+
+def _wide_parity(cpu: dict) -> dict:
+    """The round under ``partition_heal`` at [S, 16,000] for
+    ``WIDE_PARITY_S`` on the card, on one device and on 8 column shards,
+    each against the port's CPU run (``cpu``: S -> the future of its
+    worker process): every field of the state, the hist banks, NemState
+    and the trace bit-identical; the finish and probe launches exactly
+    what the rounds make them."""
+    rows, bad = {}, []
+    n, steps, seed, first = (WIDE_PARITY[k] for k in ("n", "steps", "seed",
+                                                      "first"))
+    for S in WIDE_PARITY_S:
+        _reset_counts()
+        card = _as_numpy(*_nem_run("partition_heal", n, S, steps, seed,
+                                   "cuda", hot=0, first=first))
+        counts = _round_counts()
+        _reset_counts()
+        card8 = _as_numpy(*_nem_run("partition_heal", n, S, steps, seed,
+                                    "cuda", ndev=8, hot=0, first=first))
+        counts8 = _round_counts()
+        t1 = time.perf_counter()
+        want = cpu[S].result()
+        end = card[0][0][1]
+        live = int((end["slot_node"] >= 0).sum())
+        rows[S] = {"steps": steps, "first": first, "live_slots_end": live,
+                   "drops": int(end["drops"]),
+                   "round_counts": counts, "round_counts_8_shards": counts8,
+                   "diverged_cpu": _diverged_np(card, want),
+                   "diverged_8_shards_cpu": _diverged_np(card8, want),
+                   "cpu_wait_s": time.perf_counter() - t1}
+        # Not vacuous: the partition filled more slots than one block
+        # held.
+        if rows[S]["diverged_cpu"] or rows[S]["diverged_8_shards_cpu"] \
+                or _round_bad(counts) or _round_bad(counts8) or live <= 1024:
+            bad.append(S)
+    return {"n": n, "steps": steps, "first": first, "seed": seed,
+            "slots": rows, "bad": bad}
+
+
+def _wide_1m_profile() -> dict:
+    """``WIDE_PROFILED`` rounds of path (a)'s configuration (its
+    parameters and failures, a fresh state, the trace threaded as
+    run_config threads it) under the profiler, in this process: run in a
+    fresh worker process by ``_wide_1m``, since a process's earlier
+    profiler sessions leave the later ones blind to the kernels in a loop
+    graph's conditional bodies (``_rp_profile_looped``).  The device's
+    busy and occupied ms a round, and the launches of each wide kernel
+    the profiler saw by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from consul_tpu_torch import prng
+    from consul_tpu_torch.gossip import crossval, kernel
+    from consul_tpu_torch.profile_round import (device_kernels,
+                                                device_timeline,
+                                                fresh_loops, self_device_us)
+    p, fail_at, _ = crossval.config_inputs(WIDE_1M["n"],
+                                           WIDE_1M["n_victims"],
+                                           WIDE_1M["loss"])
+    fail = np.full(p.n, NEVER, np.int32)
+    for v, t in fail_at.items():
+        fail[v] = t
+    fail_t = torch.from_numpy(fail).to("cuda")
+    key = prng.key(0)
+
+    def run(st):
+        out = kernel.run_rounds(st, key, fail_t, p, WIDE_PROFILED,
+                                trace=True)[0]
+        int(out.round)
+        return out
+
+    st = run(kernel.init_state(p, device="cuda"))
+    fresh_loops()
+    st = run(st)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        st = run(st)
+        wall = time.perf_counter() - t1
+    _settle()
+    kernels = device_kernels(prof)
+    busy_us = sum(self_device_us(e) for e in kernels)
+    span_us = device_timeline(prof)[0]
+    return {"device_busy_ms_per_round": busy_us / 1e3 / WIDE_PROFILED,
+            "device_span_ms_per_round": span_us / 1e3 / WIDE_PROFILED,
+            "profiled_ms_per_round": wall * 1e3 / WIDE_PROFILED,
+            "device_span_idle_share": 1 - span_us / 1e6 / wall,
+            "wide_kernels_profiled": {
+                k: sum(e.count for e in kernels if k in e.key)
+                for k in WIDE_KERNELS}}
+
+
+def _wide_1m() -> dict:
+    """Path (a): ``crossval.run_config`` at n = 1M, 16 victims, one seed,
+    loss 0.05, kernel side only, at ``loss_sized_slots``' 8,192 slots (a
+    [8,192, 1M] belief matrix), the round graphed through the round
+    program's loop; gated on the Lifeguard envelope as the reference
+    gates its oracle-free rows (completeness 1, no false dead, p99 inside
+    the envelope).  Its slot drops are reported, not gated: under 5 %
+    loss they are the model's saturation alarm (``loss_sized_slots``),
+    and the card's drops equal the CPU's wherever both run (the parity
+    above at 2,048 and 4,096 slots overflows).  Then
+    ``_wide_1m_profile`` in a fresh worker process: the device's ms a
+    round and every wide kernel the round launches seen by name."""
+    from consul_tpu_torch.gossip import crossval
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    row = crossval.run_config(WIDE_1M["n"], WIDE_1M["n_victims"],
+                              WIDE_1M["seeds"], loss=WIDE_1M["loss"],
+                              oracle=False, device="cuda")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = _round_counts()
+    launches = _wide_launches()
+    p, _, steps = crossval.config_inputs(WIDE_1M["n"], WIDE_1M["n_victims"],
+                                         WIDE_1M["loss"])
+    rounds = steps * WIDE_1M["seeds"]
+    _close_round_programs()
+    with ProcessPoolExecutor(1, mp_context=multiprocessing
+                             .get_context("spawn")) as child:
+        prof = child.submit(_wide_1m_profile).result()
+    lo, hi = row["lifeguard_envelope_rounds"]
+    lat = row["detection_latency_rounds"]["kernel"]
+    res = {"row": row, "slot_drops": row["kernel_slot_drops"],
+           "rounds": rounds, "seconds": wall,
+           "rounds_per_s": rounds / wall,
+           "max_memory_allocated": peak,
+           "belief_matrix_bytes": p.slots * p.n,
+           "round_counts": counts, "launches": launches, **prof}
+    bad = []
+    if not (row["completeness"]["kernel"] == 1.0
+            and row["false_dead"]["kernel"] == 0
+            and 0.8 * lo <= lat["p99"] <= hi):
+        bad.append("outside the Lifeguard envelope's gates")
+    if row["slots"] != 8192:
+        bad.append(f"slots {row['slots']}, not loss_sized_slots' 8,192")
+    if _round_bad(counts):
+        bad.append("finish and probe launches")
+    # The round at 8,192 slots launches every wide instance but the
+    # spread's (no hist banks): each seen under the profiler.
+    missing = [k for k, v in prof["wide_kernels_profiled"].items()
+               if v == 0]
+    if missing:
+        bad.append(f"no {missing} under the profiler")
+    res["bad"] = bad
+    return res
+
+
+def _close_round_programs() -> None:
+    """Close every cached round program (a program at [8,192, 1M] holds
+    its own buffers of the matrix) and free the memory."""
+    from consul_tpu_torch.gossip import program
+    _settle()
+    while program._programs:
+        _, prog = program._programs.popitem()
+        prog.close()
+    torch.cuda.empty_cache()
+
+
+def _wide_launches() -> dict:
+    """The four sources' launches since the last ``_reset_counts``
+    (settled): each kernel's entry point count."""
+    from consul_tpu_torch.gossip import finish, finish_slots, observe, probe
+    _settle()
+    return {"heard_counts": observe.launches,
+            "fire_timers": finish.fire_launches,
+            "wipe_rows": finish.wipe_launches,
+            **{f"probe_{k}": getattr(probe, f"{k}_launches")
+               for k in PROBE_KERNELS},
+            **{f"finish_{k}": getattr(finish_slots, f"{k}_launches")
+               for k in FINISH_SLOTS_KERNELS}}
+
+
+def _wide_nemx() -> dict:
+    """Path (b): ``run_nemesis_config`` for ``WIDE_NEMX_NAMES`` at n =
+    4,096, its default slots (next_pow2(n) = 4,096), kernel side on the
+    card, against the port's row on the CPU (``CROSSVAL_WIDE.json``,
+    recorded by ``tools/wide_nemesis_rows.py``): every kernel field equal,
+    and partition_heal's gates of crossval_nemesis."""
+    from consul_tpu_torch.gossip import crossval
+    recorded = json.loads((ROOT / "CROSSVAL_WIDE.json").read_text())
+    if (recorded["n"], recorded["seeds"]) != (WIDE_NEMX["n"],
+                                              WIDE_NEMX["seeds"]):
+        raise AssertionError(f"CROSSVAL_WIDE.json holds n={recorded['n']}, "
+                             f"seeds={recorded['seeds']}")
+    rows, bad, card_s = {}, [], {}
+    for name in WIDE_NEMX_NAMES:
+        t1 = time.perf_counter()
+        card = crossval.run_nemesis_config(name, WIDE_NEMX["n"],
+                                           WIDE_NEMX["seeds"], oracle=False,
+                                           device="cuda")
+        card_s[name] = time.perf_counter() - t1
+        rows[name] = recorded["rows"][name]
+        bad += [f"{name}.{k}" for k in _kernel_fields_diff(card,
+                                                           rows[name])]
+        if card["slots"] != WIDE_NEMX["n"]:
+            bad.append(f"{name}: slots {card['slots']}")
+    # partition_heal's gates of crossval_nemesis on each model the row
+    # has (its recorded row has no oracle's: intractable at n = 4,096).
+    ph = rows["partition_heal"]
+    for model in ("kernel", "refmodel"):
+        if ph["member_frac_end"][model] is None:
+            continue
+        if not (ph["false_dead"][model] > 0
+                and ph["member_frac_end"][model] >= 0.95):
+            bad.append(f"partition_heal gate ({model})")
+    if ph["kernel_slot_drops"] != 0:
+        bad.append("partition_heal slot drops")
+    return {"rows": rows, "card_s": card_s, "bad": bad}
+
+
+def _wide_plane() -> dict:
+    """The plane on the card at ``WIDE_PLANE``'s slots, its ticker
+    running, until it has dispatched ``dispatches`` times; its tick
+    errors (swallowed onto stderr) counted, and its kernels' launches."""
+    from consul_tpu_torch.gossip import plane as gp
+
+    async def ticked():
+        cfg = gp.PlaneConfig(
+            bind_port=0, capacity=32, sim_nodes=WIDE_PLANE["n"] - 32,
+            slots=WIDE_PLANE["slots"], event_slots=8,
+            gossip_interval_s=0.02, probe_every=5, suspicion_mult=1.0,
+            hb_lapse_s=0.3, shard_devices=1)
+        plane = gp.GossipPlane(cfg)
+        await plane.start()
+        try:
+            r0 = int(plane._state.round)
+            want = r0 + 4 * WIDE_PLANE["dispatches"]
+            s = await _until(lambda: int(plane._state.round) >= want, 300,
+                             f"{WIDE_PLANE['dispatches']} dispatches")
+            return {"rounds": int(plane._state.round) - r0, "seconds": s,
+                    "slots": plane._p.slots}
+        finally:
+            await plane.stop()
+
+    err = io.StringIO()
+    _reset_counts()
+    try:
+        with contextlib.redirect_stderr(err):
+            res = asyncio.run(ticked())
+    finally:
+        sys.stderr.write(err.getvalue())
+    res["tick_errors"] = err.getvalue().count("[gossip-plane] tick error")
+    res["launches"] = _wide_launches()
+    return res
+
+
+def wide_slots_phase(card_line: str, cpu_parity: dict) -> dict:
+    """The round at the reference's own slot provisioning, past the
+    1,024 slots the four slot-sized sources once took in one block
+    (``csrc/observe.cu``, ``finish.cu``, ``finish_slots.cu``,
+    ``probe.cu``, each with a wide instance the host picks by S): each
+    kernel against its plain version at ``WIDE_SHAPES`` (``_wide_kernels``),
+    the chooser at 8,192 slots (``choose_vs_plain``'s shapes), the card's
+    round against the CPU's under partition_heal at [2,048, 16,000] and
+    [4,096, 16,000] on 1 and 8 shards (``_wide_parity``), path (a): the
+    1M round at 5 % loss and 8,192 slots graphed (``_wide_1m``), path
+    (b): run_nemesis_config at n = 4,096 against the port's recorded CPU
+    rows (``_wide_nemx``), and the plane
+    at 2,048 slots (``_wide_plane``)."""
+    from consul_tpu_torch import sass_count
+    from consul_tpu_torch.gossip import finish, finish_slots, observe, probe
+    t0 = time.perf_counter()
+    per_hash = sass_count.threefry_counts(sass_count.disassemble(
+        "threefry"))["uniform"]["busiest_unit_per_element"]
+    # The kernels' own checks are not a path's launches: path_shapes
+    # replays only what the paths below launch.
+    mods = (observe, finish, probe, finish_slots)
+    shapes = [set(m.launch_shapes) for m in mods]
+    kernels = _wide_kernels(per_hash)
+    for m, before in zip(mods, shapes):
+        m.launch_shapes.clear()
+        m.launch_shapes.update(before)
+    choose = choose_vs_plain()
+    parity = _wide_parity(cpu_parity)
+    emit({"phase": "wide_slots_parity", **parity})
+    path_a = _wide_1m()
+    emit({"phase": "wide_slots_1m", **path_a})
+    path_b = _wide_nemx()
+    emit({"phase": "wide_slots_nemesis", **path_b})
+    plane = _wide_plane()
+    emit({"phase": "wide_slots_plane", **plane})
+    res = {"phase": "wide_slots", "card": card_line, "tolerance": 0,
+           "max_abs_err": 0, "shapes": [list(s) for s in WIDE_SHAPES],
+           "kernels": kernels, "choose_held": choose["held"],
+           "parity_bad": parity["bad"], "path_a_bad": path_a["bad"],
+           "path_b_bad": path_b["bad"],
+           "plane_tick_errors": plane["tick_errors"],
+           "path_a": {k: path_a[k] for k in (
+               "rounds", "seconds", "rounds_per_s", "max_memory_allocated",
+               "device_busy_ms_per_round", "device_span_ms_per_round",
+               "slot_drops", "launches")},
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    bad = ([f"parity at S={s}" for s in parity["bad"]]
+           + path_a["bad"] + path_b["bad"])
+    if plane["tick_errors"] or plane["slots"] != WIDE_PLANE["slots"] \
+            or plane["launches"]["probe_lanes_slots"] == 0 \
+            or plane["launches"]["heard_counts"] == 0:
+        bad.append(f"plane at {WIDE_PLANE['slots']} slots: "
+                   f"{plane['tick_errors']} tick errors, launches "
+                   f"{plane['launches']}")
+    if bad:
+        raise AssertionError(f"wide_slots: {bad}")
+    return res
+
+
+def _wide_fields(wide: dict, name: str) -> dict:
+    """A kernels-line entry's fields from the wide_slots phase: its
+    launches on path (a) (the 1M round at 8,192 slots, every one a wide
+    instance's) and its time, plain version's time and bound at each of
+    ``WIDE_SHAPES``."""
+    rows = wide["kernels"][name]
+    return {"wide_launches": wide["path_a"]["launches"][name],
+            "wide_ms": {k: r["ms"] for k, r in rows.items()},
+            "wide_plain_ms": {k: r["plain_ms"] for k, r in rows.items()},
+            "wide_bound_ms": {k: r["bound_ms"] for k, r in rows.items()}}
+
+
+def _wide_cpu_submit(pool) -> dict:
+    """The wide_slots phase's CPU side, submitted to ``pool``: the
+    port's round on the CPU at ``WIDE_PARITY_S`` (S -> future)."""
+    return {S: pool.submit(_nem_run_cpu, "partition_heal", WIDE_PARITY["n"],
+                           S, WIDE_PARITY["steps"], WIDE_PARITY["seed"], 0,
+                           WIDE_PARITY["first"])
+            for S in WIDE_PARITY_S}
+
+
 def flood_only() -> int:
     """``--phase event_flood``: the card line, the flood's build and SASS
     count, and the event_flood phase."""
@@ -8229,10 +8828,38 @@ def draws_only() -> int:
     return 0
 
 
+def wide_slots_only() -> int:
+    """``--phase wide_slots``: the card line, every build (the wide
+    paths run every kernel), the wide_slots phase with its CPU sides in
+    worker processes, and the shapes its paths launched at held against
+    the plain versions (path_shapes' checks of the four sources)."""
+    from consul_tpu_torch.gossip import finish, finish_slots, observe, probe
+    pool = ProcessPoolExecutor(
+        CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu = _wide_cpu_submit(pool)
+        card_line = card()
+        build()
+        for m in (observe, finish, probe, finish_slots):
+            m.launch_shapes.clear()
+        wide_slots_phase(card_line, cpu)
+        rows = (observe_shapes_vs_plain(set(observe.launch_shapes))
+                + finish_shapes_vs_plain(set(finish.launch_shapes))
+                + probe_shapes_vs_plain(set(probe.launch_shapes))
+                + finish_slots_shapes_vs_plain(
+                    set(finish_slots.launch_shapes)))
+        emit({"phase": "wide_slots_path_shapes", "shapes": rows,
+              "tolerance": 0})
+    finally:
+        pool.shutdown(cancel_futures=True)
+    return 0
+
+
 PHASES_ALONE = {"event_flood": flood_only, "observe": observe_only,
                 "finish": finish_only, "probe": probe_only,
                 "finish_slots": finish_slots_only, "branch": branch_only,
-                "loop": loop_only, "draws": draws_only}
+                "loop": loop_only, "draws": draws_only,
+                "wide_slots": wide_slots_only}
 
 
 def main() -> int:
@@ -8250,7 +8877,7 @@ def main() -> int:
                 or sys.argv[2] not in PHASES_ALONE:
             print("usage: chip_smoke.py [--phase "
                   "event_flood|observe|finish|probe|finish_slots|branch|"
-                  "loop|draws]",
+                  "loop|draws|wide_slots]",
                   file=sys.stderr)
             return 2
         try:
@@ -8277,6 +8904,7 @@ def main() -> int:
                                  "flapping", "zone_kill")}
         cpu_seed0 = pool.submit(_seed0_cpu)
         cpu_mdc = {hot: pool.submit(_mdc_cpu, hot, **MDC) for hot in (0, 8)}
+        cpu_wide = _wide_cpu_submit(pool)
         card_line = card()
         build()
         _parent_libs()
@@ -8342,6 +8970,7 @@ def main() -> int:
                                                       BRIDGE_CHUNK)]
         crossval_nemesis_phase(cpu_nemx, **NEMX)
         multidc_full_path(cpu_mdc, **MDC)
+        wide = wide_slots_phase(card_line, cpu_wide)
         t_wait = time.perf_counter()
         pool.shutdown()
         emit({"phase": "cpu_workers_done",
@@ -8438,6 +9067,14 @@ def main() -> int:
     finally:
         pool.shutdown(cancel_futures=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    slot_rows = [
+        _observe_row(counts, obs1, obs8, rp, plane1, cross),
+        *_finish_rows(fin, churn, sharded, plane1, cross, mdc1, rp),
+        *_probe_rows(probed, churn, sharded, nem1, plane1, cross, mdc1, rp),
+        *_finish_slots_rows(fslots, churn, sharded, obs1, plane1, cross,
+                            mdc1, rp)]
+    for row in slot_rows:
+        row.update(_wide_fields(wide, row["name"]))
     emit({"kernels": [{
         "name": "fused_dissem", "route": "cuda",
         "source": "consul_tpu_torch/csrc/dissem_tail.cu",
@@ -8494,13 +9131,7 @@ def main() -> int:
         "library_ms": None}, _round_graph_row(rp, churn),
         _choose_row(branch, churn, sharded, rp, mdc1, plane1, cross),
         *_loop_rows(loop, churn, sharded, rp, mdc1, plane1, cross),
-        _flood_row(flood, mdc1, mdc8, ev, plane1),
-        _observe_row(counts, obs1, obs8, rp, plane1, cross),
-        *_finish_rows(fin, churn, sharded, plane1, cross, mdc1, rp),
-        *_probe_rows(probed, churn, sharded, nem1, plane1, cross, mdc1,
-                     rp),
-        *_finish_slots_rows(fslots, churn, sharded, obs1, plane1, cross,
-                            mdc1, rp)]})
+        _flood_row(flood, mdc1, mdc8, ev, plane1), *slot_rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

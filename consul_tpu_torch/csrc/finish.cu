@@ -100,6 +100,21 @@
 // inside the round program's captured graphs.  One scratch serves one
 // launch at a time.  (Having the decision kernel zero fired would spare
 // the arrival but tie the fire to that kernel's outputs.)
+//
+// Past kMaxRows (2,048) rows.  A block's listing, its refutation columns
+// and its marks are kMaxRows entries of shared memory (about 26 KB with
+// the staged rx, under the 48 KB static limit and four blocks an SM);
+// growing them with R would break both at the reference's own slot
+// provisioning (8,192 at n = 1M and 5 % loss, 16,384 for a nemesis run at
+// n = 10,000).  So a launch of more rows goes to fire_wide_kernel /
+// wipe_wide_kernel, which walk the rows in chunks of kMaxRows: each chunk
+// listed, cut into items (a span times a row group of the chunk's listed
+// rows) and fired or wiped as a launch of that many rows is, the fire's
+// marks added into the scratch at their rows.  The listing packs a row
+// less its chunk's first, so bits 0-10 still hold it.  Every block of the
+// grid arrives once after the last chunk (a block may have items in one
+// chunk and none in another), and the last writes fired.  The narrow
+// kernels are unchanged, and the host picks by R.
 
 #include <cuda_runtime.h>
 
@@ -108,7 +123,11 @@
 namespace finish {
 
 constexpr int kMaxShards = 64;
-constexpr int kMaxRows = 2048;     // rows a launch takes (the listed rows)
+constexpr int kMaxRows = 2048;     // rows a block lists at once
+// Rows a launch takes: past kMaxRows the wide kernels list and fire them
+// kMaxRows at a time; row numbers and the scratch's words stay far inside
+// an int.
+constexpr int kMaxSlots = 1 << 24;
 constexpr int kThreads = 256;      // a block
 constexpr int kCols = 16;          // a unit: columns of one shard row
 constexpr int kWords = kCols / 4;
@@ -230,17 +249,18 @@ __device__ __forceinline__ uint32_t pack_row(const Args& a, int r,
   return v;
 }
 
-// Warp 0 lists the rows, kListBallots ballots of 32 row arguments a
-// round, their loads (with the fire's refutation arguments) issued
-// together: at R = 64 one round trip; one barrier for the block.
-// Returns how many rows are listed.
+// Warp 0 lists the rows [lo, hi) (hi - lo <= kMaxRows), kListBallots
+// ballots of 32 row arguments a round, their loads (with the fire's
+// refutation arguments) issued together: at R = 64 one round trip; one
+// barrier for the block.  Each entry holds its row less lo.  Returns how
+// many rows are listed.
 template <bool kFire>
 __device__ __forceinline__ int list_rows(const Args& a, Listing& s,
-                                         int* ref_col) {
+                                         int* ref_col, int lo, int hi) {
   const int lane = static_cast<int>(threadIdx.x);
   if (lane < 32) {
     int n = 0;
-    for (int r0 = 0; r0 < a.R; r0 += 32 * kListBallots) {
+    for (int r0 = lo; r0 < hi; r0 += 32 * kListBallots) {
       uint32_t ok[kListBallots], rb[kListBallots];
       int col[kListBallots];
 #pragma unroll
@@ -249,7 +269,7 @@ __device__ __forceinline__ int list_rows(const Args& a, Listing& s,
         ok[q] = 0u;
         rb[q] = 0u;
         col[q] = -1;
-        if (r < a.R) {
+        if (r < hi) {
           ok[q] = __ldg(a.sel + r);
           if (kFire && a.col != nullptr) {
             rb[q] = __ldg(a.rb + r);
@@ -264,9 +284,9 @@ __device__ __forceinline__ int list_rows(const Args& a, Listing& s,
         if (ok[q] != 0u) {
           const int j = n + __popc(m & ((1u << lane) - 1u));
           if (kFire) {
-            s.rows[j] = pack_row(a, r, ok[q], rb[q], col[q], ref_col[j]);
+            s.rows[j] = pack_row(a, r - lo, ok[q], rb[q], col[q], ref_col[j]);
           } else {
-            s.rows[j] = static_cast<uint32_t>(r);
+            s.rows[j] = static_cast<uint32_t>(r - lo);
           }
         }
         n += __popc(m);
@@ -559,15 +579,16 @@ __device__ __forceinline__ uint32_t fire_row(const Args& a, const Item& it,
 
 // The fire on one item: its first row's units loaded, its span's rx
 // staged, then its rows in turn, each row's units loaded before the row
-// before it fires.  Marks the rows that fired in `marks`.
+// before it fires.  Marks the rows that fired in `marks`.  The listed
+// rows count from row row0 (the wide form's chunk; else 0).
 __device__ __forceinline__ void fire_item(const Args& a, const Item& it,
-                                          const uint32_t* rows,
+                                          int row0, const uint32_t* rows,
                                           const int* ref_col, uint8_t* marks,
                                           uint4* s_rx) {
   const int t = static_cast<int>(threadIdx.x);
   const int u0 = it.s * kSpan + t;
-  uint8_t* const shard = a.in[it.i];
   const size_t L = static_cast<size_t>(a.L);
+  uint8_t* const shard = a.in[it.i] + static_cast<size_t>(row0) * L;
   RowUnits cur, next;
   load_row(a, shard + (rows[it.jlo] & 0x7FFu) * L, u0, cur);
 
@@ -618,6 +639,58 @@ __device__ __forceinline__ void fire_item(const Args& a, const Item& it,
   __syncthreads();  // the next item stages over s_rx
 }
 
+// The refutation byte of a row that is not listed: one byte, by one
+// thread of the grid.  (A listed row's is applied in its unit, before the
+// fire test.)
+__device__ __forceinline__ void refute_unlisted(const Args& a) {
+  const int t = static_cast<int>(threadIdx.x);
+  const int b = static_cast<int>(blockIdx.x);
+  for (int row = b * kThreads + t; row < a.R;
+       row += static_cast<int>(gridDim.x) * kThreads) {
+    const uint8_t rb = __ldg(a.rb + row);
+    const int c = __ldg(a.col + row);
+    if (rb == 0 || __ldg(a.sel + row) != 0 || c < 0 || c / a.L >= a.ndev) {
+      continue;
+    }
+    const int i = c / a.L;
+    uint8_t* p = a.in[i] + static_cast<size_t>(row) * a.L + (c - i * a.L);
+    if (*p < rb) *p = rb;
+  }
+}
+
+// The block's marks of the n_live rows listed from row0 into the scratch.
+__device__ __forceinline__ void flush_marks(const Args& a, int row0,
+                                            const Listing& s_list,
+                                            const uint8_t* s_marks,
+                                            int n_live) {
+  for (int j = static_cast<int>(threadIdx.x); j < n_live; j += kThreads) {
+    if (s_marks[j] != 0) {
+      atomicOr(a.scratch + row0 + (s_list.rows[j] & 0x7FFu), 1u);
+    }
+  }
+}
+
+// Arrive at the scratch's counter after `working` blocks' marks; the last
+// to arrive writes fired and zeroes the scratch and the counter.
+__device__ __forceinline__ void arrive_and_write(const Args& a, int working,
+                                                 int* s_last) {
+  const int t = static_cast<int>(threadIdx.x);
+  uint32_t* arrive = a.scratch + a.R;
+  __syncthreads();
+  if (t == 0) {
+    *s_last = add_release(arrive) == static_cast<unsigned>(working - 1);
+    if (*s_last) fence_acquire();
+  }
+  __syncthreads();
+  if (!*s_last) return;
+  for (int e = t; e < a.R; e += kThreads) {
+    const uint32_t v = __ldcg(a.scratch + e);
+    a.scratch[e] = 0u;
+    a.fired[e] = v != 0u ? 1 : 0;
+  }
+  if (t == 0) *arrive = 0u;
+}
+
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fire_kernel(const __grid_constant__ Args a) {
   __shared__ Listing s_list;
@@ -630,24 +703,8 @@ fire_kernel(const __grid_constant__ Args a) {
   // The launch after this one (the round's settle) may start: it loads
   // what the fire does not write, then waits for the fire to end.
   trigger_dependents();
-  const int n_live = list_rows<true>(a, s_list, s_ref_col);
-
-  // The refutation byte of a row that is not listed: one byte, by one
-  // thread of the grid.  (A listed row's is applied in its unit, before
-  // the fire test.)
-  if (a.col != nullptr) {
-    for (int row = b * kThreads + t; row < a.R;
-         row += static_cast<int>(gridDim.x) * kThreads) {
-      const uint8_t rb = __ldg(a.rb + row);
-      const int c = __ldg(a.col + row);
-      if (rb == 0 || __ldg(a.sel + row) != 0 || c < 0 || c / a.L >= a.ndev) {
-        continue;
-      }
-      const int i = c / a.L;
-      uint8_t* p = a.in[i] + static_cast<size_t>(row) * a.L + (c - i * a.L);
-      if (*p < rb) *p = rb;
-    }
-  }
+  const int n_live = list_rows<true>(a, s_list, s_ref_col, 0, a.R);
+  if (a.col != nullptr) refute_unlisted(a);
   if (n_live == 0) {
     if (b == 0) {
       for (int e = t; e < a.R; e += kThreads) a.fired[e] = 0;
@@ -660,38 +717,56 @@ fire_kernel(const __grid_constant__ Args a) {
   for (int j = t; j < n_live; j += kThreads) s_marks[j] = 0;
   __syncthreads();
   for (int x = b; x < p.items; x += static_cast<int>(gridDim.x)) {
-    fire_item(a, item_of(a, p, x, n_live), s_list.rows, s_ref_col, s_marks,
-              s_rx);
+    fire_item(a, item_of(a, p, x, n_live), 0, s_list.rows, s_ref_col,
+              s_marks, s_rx);
   }
 
   // The block's marks into the scratch, then arrive; the last of the
   // blocks that had an item writes fired and zeroes the scratch.
-  for (int j = t; j < n_live; j += kThreads) {
-    if (s_marks[j] != 0) atomicOr(a.scratch + (s_list.rows[j] & 0x7FFu), 1u);
-  }
-  uint32_t* arrive = a.scratch + a.R;
-  const int working = p.items < static_cast<int>(gridDim.x)
-                          ? p.items : static_cast<int>(gridDim.x);
-  __syncthreads();
-  if (t == 0) {
-    s_last = add_release(arrive) == static_cast<unsigned>(working - 1);
-    if (s_last) fence_acquire();
-  }
-  __syncthreads();
-  if (!s_last) return;
-  for (int e = t; e < a.R; e += kThreads) {
-    const uint32_t v = __ldcg(a.scratch + e);
-    a.scratch[e] = 0u;
-    a.fired[e] = v != 0u ? 1 : 0;
-  }
-  if (t == 0) *arrive = 0u;
+  flush_marks(a, 0, s_list, s_marks, n_live);
+  arrive_and_write(a, p.items < static_cast<int>(gridDim.x)
+                          ? p.items : static_cast<int>(gridDim.x),
+                   &s_last);
 }
 
+// The fire at R > kMaxRows: the rows in chunks of kMaxRows, each listed,
+// cut into items and fired as a launch of kMaxRows rows is, its marks
+// added into the scratch at their rows; then every block of the grid
+// arrives (a block may have had items in one chunk and none in another),
+// and the last writes fired.
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-wipe_kernel(const __grid_constant__ Args a) {
+fire_wide_kernel(const __grid_constant__ Args a) {
   __shared__ Listing s_list;
-  const int n_live = list_rows<false>(a, s_list, nullptr);
-  if (n_live == 0) return;
+  __shared__ int s_ref_col[kMaxRows];
+  __shared__ uint8_t s_marks[kMaxRows];
+  __shared__ uint4 s_rx[kSpan + 2];
+  __shared__ int s_last;
+  const int t = static_cast<int>(threadIdx.x);
+  const int b = static_cast<int>(blockIdx.x);
+  trigger_dependents();
+  if (a.col != nullptr) refute_unlisted(a);
+  for (int row0 = 0; row0 < a.R; row0 += kMaxRows) {
+    const int hi = a.R - row0 < kMaxRows ? a.R : row0 + kMaxRows;
+    const int n_live = list_rows<true>(a, s_list, s_ref_col, row0, hi);
+    const Split p = split(a, n_live, false);
+    if (n_live != 0 && b < p.items) {
+      for (int j = t; j < n_live; j += kThreads) s_marks[j] = 0;
+      __syncthreads();
+      for (int x = b; x < p.items; x += static_cast<int>(gridDim.x)) {
+        fire_item(a, item_of(a, p, x, n_live), row0, s_list.rows, s_ref_col,
+                  s_marks, s_rx);
+      }
+      flush_marks(a, row0, s_list, s_marks, n_live);
+    }
+    __syncthreads();  // the next chunk lists over s_list and s_marks
+  }
+  arrive_and_write(a, static_cast<int>(gridDim.x), &s_last);
+}
+
+// A wipe's items over the n_live rows listed from row0.
+__device__ __forceinline__ void wipe_listed(const Args& a, int row0,
+                                            const Listing& s_list,
+                                            int n_live) {
   const Split p = split(a, n_live, true);
   const size_t L = static_cast<size_t>(a.L);
   for (int x = static_cast<int>(blockIdx.x); x < p.items;
@@ -700,7 +775,7 @@ wipe_kernel(const __grid_constant__ Args a) {
     const int u = it.s * kWipeSpan + static_cast<int>(threadIdx.x);
     if (u >= a.units) continue;
     for (int j = it.jlo; j < it.jhi; ++j) {
-      uint8_t* row = a.in[it.i] + s_list.rows[j] * L;
+      uint8_t* row = a.in[it.i] + (row0 + s_list.rows[j]) * L;
       const int c0 = phase(row) - kCols + kCols * u;
       if (whole(c0, a.L)) {
         *at16(row + c0) = make_uint4(0u, 0u, 0u, 0u);
@@ -713,12 +788,33 @@ wipe_kernel(const __grid_constant__ Args a) {
   }
 }
 
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+wipe_kernel(const __grid_constant__ Args a) {
+  __shared__ Listing s_list;
+  const int n_live = list_rows<false>(a, s_list, nullptr, 0, a.R);
+  if (n_live == 0) return;
+  wipe_listed(a, 0, s_list, n_live);
+}
+
+// The wipe at R > kMaxRows: the rows in chunks of kMaxRows, each listed
+// and wiped as a launch of kMaxRows rows is.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+wipe_wide_kernel(const __grid_constant__ Args a) {
+  __shared__ Listing s_list;
+  for (int row0 = 0; row0 < a.R; row0 += kMaxRows) {
+    const int hi = a.R - row0 < kMaxRows ? a.R : row0 + kMaxRows;
+    const int n_live = list_rows<false>(a, s_list, nullptr, row0, hi);
+    if (n_live != 0) wipe_listed(a, row0, s_list, n_live);
+    __syncthreads();  // the next chunk lists over s_list
+  }
+}
+
 // The shared part of both launchers: the shard table and the geometry,
 // and the grid (one block an item at most, so a small matrix takes fewer
 // than a wave); false for arguments the kernels do not take.
 inline bool setup(Args& a, int& blocks, void* const* shards, int ndev, int R,
                   int L, const void* sel, int span) {
-  if (shards == nullptr || sel == nullptr || R < 1 || R > kMaxRows ||
+  if (shards == nullptr || sel == nullptr || R < 1 || R > kMaxSlots ||
       L < 1 || ndev < 1 || ndev > kMaxShards ||
       static_cast<long long>(ndev) * L >= (1LL << 31) - kCols) {
     return false;
@@ -751,7 +847,7 @@ extern "C" long long fire_timers_scratch_words(int R) {
 }
 
 // The fire pass of the top of this file on heard, given as ndev shard
-// pointers to u8 [R, L] (R <= 2048, N = ndev * L < 2**31 - 16), in place;
+// pointers to u8 [R, L] (R <= 2**24, N = ndev * L < 2**31 - 16), in place;
 // rx: one byte per global column; ok: one byte per row (its low 4 bits);
 // col (int32 [R], global columns in [0, N)) and rb (one byte per row):
 // the refutation, both or neither null; fired: one byte per row, written
@@ -780,7 +876,11 @@ extern "C" int fire_timers(void* const* shards, int ndev, const void* rx,
   a.rb = static_cast<const uint8_t*>(rb);
   a.fired = static_cast<uint8_t*>(fired);
   a.scratch = static_cast<uint32_t*>(scratch);
-  fire_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (R > kMaxRows) {
+    fire_wide_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  } else {
+    fire_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -796,7 +896,11 @@ extern "C" int wipe_rows(void* const* shards, int ndev, const void* flags,
   if (!setup(a, blocks, shards, ndev, R, L, flags, kWipeSpan)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  wipe_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (R > kMaxRows) {
+    wipe_wide_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  } else {
+    wipe_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,7 +15,7 @@
 // boundaries.
 //
 // The rows.  The step works on H rows, row h the slot idx[h] (distinct slot
-// ids, H <= S <= 1024): the full tail passes every slot, the hot tier its
+// ids, H <= S): the full tail passes every slot, the hot tier its
 // live ones padded with free ones.  Registers are read and written at
 // idx[h]; the belief rows (heard_sub: ndev column shards, u8 [H, L] each)
 // by h.  node_c = clamp(slot_node, 0, N - 1), as the reference scatters
@@ -132,6 +132,20 @@
 // timeout table, lhm_max) are launch arguments that no round changes, and
 // every output is written whole for its H rows.  So the launches run
 // inside the round program's captured graphs as they are.
+//
+// Wide S.  Up to kMaxRows (1,024) rows a thread takes a row, in a block of
+// H threads rounded up to a warp, as above.  Past it (the reference's own
+// provisioning: crossval.loss_sized_slots gives 8,192 slots at n = 1M and
+// 5 % loss, a nemesis run up to next_pow2(n)) the host picks each
+// kernel's wide instance (decide_wide_kernel, settle_wide_kernel,
+// record_wide_kernel): one block of kMaxRows threads, thread t the rows
+// t, t + kMaxRows, ...  The launch contract holds as it is: the first
+// row's loads before griddepcontrol.wait, the later rows' loads and every
+// write after it (no row reads another row's slot, and the kernel before
+// has ended by then).  __syncthreads_count becomes a count a thread summed
+// over the block in shared memory; record's shared buckets are unchanged.
+// At H = 16,384 a thread walks 16 rows, a chain of loads each; the rows
+// are the slots' registers, ~50 bytes a row, so a launch moves ~0.8 MB.
 
 #include <cuda_runtime.h>
 
@@ -140,7 +154,11 @@
 namespace finish_slots {
 
 constexpr int kMaxShards = 64;
-constexpr int kMaxRows = 1024;     // rows: a thread each in one block
+constexpr int kMaxRows = 1024;     // a block's threads: a row each, or
+                                   // (the wide form) several
+// Slots (and rows) a launch takes: slot ids and row numbers stay far
+// inside an int, and the step's [H] outputs inside one allocation.
+constexpr int kMaxSlots = 1 << 24;
 constexpr int kMaxBuckets = 256;   // the largest bank (LATENCY_BUCKETS)
 enum Phase { kFree = 0, kSuspect = 1, kDeadPhase = 2, kRefuted = 3,
              kJoin = 4 };
@@ -449,6 +467,261 @@ record_kernel(const __grid_constant__ Args a) {
   }
 }
 
+
+// The wide forms (H > kMaxRows): a block of kMaxRows threads, thread t
+// the rows t, t + kMaxRows, ...  The first row's loads come before the
+// wait, the others' after it (each row reads and writes only its own
+// slot's registers, so the rows' order does not matter); the counts are
+// summed by thread, then over the block.  The kernels above stay as they
+// were for H <= kMaxRows.
+
+// A block's sum of one count a thread: every thread's v added to *s,
+// which was zeroed before the block's last barrier; every thread gets the
+// sum.
+__device__ __forceinline__ uint32_t block_sum(uint32_t* s, uint32_t v) {
+  if (v != 0u) atomicAdd(s, v);
+  __syncthreads();
+  return *s;
+}
+
+// decide_kernel's loads of row h, before the wait.
+struct DecideIn {
+  int s;
+  int32_t rnd, node, node_c, phase, start, cc;
+  bool alive, member;
+};
+
+__device__ __forceinline__ DecideIn decide_load(const Args& a, int h) {
+  DecideIn r;
+  r.rnd = __ldg(a.rnd);
+  r.s = __ldg(a.idx + h);
+  r.node = a.slot_node[r.s];
+  r.phase = a.slot_phase[r.s];
+  r.start = __ldg(a.slot_start + r.s);
+  r.cc = max(__ldg(a.conf_cap + r.s), 0);  // in [0, max_conf]
+  r.node_c = clamp_node(r.node, a.N);
+  r.alive = r.member = false;
+  if (a.refute) {
+    r.alive = __ldg(a.alive + r.node_c) != 0;
+    r.member = a.member[r.node_c] != 0;
+  }
+  return r;
+}
+
+// decide_kernel's work on row h after the wait; whether the row refutes.
+__device__ __forceinline__ bool decide_row(const Args& a, int h,
+                                           DecideIn r) {
+  bool refute_now = false;
+  if (a.refute) {
+    const int32_t own = static_cast<int32_t>(byte_at(a, h, r.node_c) >>
+                                             kMsgShift);
+    refute_now = (r.phase == kSuspect || r.phase == kDeadPhase) &&
+                 r.node >= 0 && r.alive && r.member &&
+                 (own == kMsgSuspect || own == kMsgDead);
+    if (refute_now) {
+      atomicAdd(a.incarnation + r.node_c, 1);
+      r.phase = kRefuted;
+      a.slot_phase[r.s] = kRefuted;
+      a.slot_dead[r.s] = r.rnd;
+      if (a.lhm != nullptr) {
+        atomicAdd(a.lhm + r.node_c, 1);
+        atomicMin(a.lhm + r.node_c, a.lhm_max);
+      }
+    }
+    a.ref_col[h] = r.node_c;
+    a.ref_byte[h] = refute_now ? kRefuteByte : 0;
+  }
+  uint32_t ok = 0;
+  if (r.phase == kSuspect) {
+    const int32_t elapsed = sub32(r.rnd, r.start);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (elapsed >= a.tbl[min(c, r.cc)]) ok |= 1u << c;
+    }
+  }
+  a.ok_mask[h] = static_cast<uint8_t>(ok);
+  return refute_now;
+}
+
+__global__ void __launch_bounds__(kMaxRows)
+decide_wide_kernel(const __grid_constant__ Args a) {
+  __shared__ uint32_t s_n;  // the refutations
+  const int t = static_cast<int>(threadIdx.x);
+  const DecideIn r = decide_load(a, t);  // H > kMaxRows: a row each
+  if (t == 0) s_n = 0u;
+  wait_for_primary();
+  uint32_t n = decide_row(a, t, r);
+  for (int h = t + kMaxRows; h < a.H; h += kMaxRows) {
+    n += decide_row(a, h, decide_load(a, h));
+  }
+  __syncthreads();  // s_n zeroed
+  const uint32_t sum = block_sum(&s_n, n);
+  if (t == 0 && sum != 0u) add32(a.n_refuted, sum);
+}
+
+// settle_kernel's loads of row h, before the wait.
+struct SettleIn {
+  int s;
+  int32_t rnd, node_c, phase, dead, start, fail_c;
+};
+
+__device__ __forceinline__ SettleIn settle_load(const Args& a, int h) {
+  SettleIn r;
+  r.rnd = __ldg(a.rnd);
+  r.s = __ldg(a.idx + h);
+  r.node_c = clamp_node(a.slot_node[r.s], a.N);
+  r.phase = a.slot_phase[r.s];
+  r.dead = a.slot_dead[r.s];
+  r.start = __ldg(a.slot_start + r.s);
+  r.fail_c = __ldg(a.fail + r.node_c);
+  return r;
+}
+
+// settle_kernel's work on row h after the wait: bit 0 of the result a
+// detection, bit 1 a false dead; the detection's rounds into *rounds.
+__device__ __forceinline__ uint32_t settle_row(const Args& a, int h,
+                                               SettleIn r,
+                                               uint32_t* rounds) {
+  const bool fired = a.fired[h] != 0;
+  const bool new_verdict = fired && r.dead < 0;
+  if (fired) {
+    r.phase = kDeadPhase;
+    if (new_verdict) r.dead = r.rnd;
+    a.slot_phase[r.s] = r.phase;
+    a.slot_dead[r.s] = r.dead;
+  }
+  const bool detected = new_verdict && r.fail_c <= r.rnd;
+  const bool false_dead = new_verdict && !(r.fail_c <= r.rnd);
+  if (detected) {
+    atomicAdd(rounds, static_cast<uint32_t>(sub32(r.rnd, r.fail_c)));
+  }
+  const bool verdict_done =
+      (r.phase == kDeadPhase || r.phase == kRefuted || r.phase == kJoin) &&
+      r.dead >= 0 && sub32(r.rnd, r.dead) > 2 * a.budget + 8;
+  const bool expired =
+      r.phase > kFree && (sub32(r.rnd, r.start) > a.ttl || verdict_done);
+  const bool dropped = expired && r.phase == kDeadPhase;
+  a.expired[h] = expired ? 1 : 0;
+  a.marks[h] = static_cast<uint8_t>((detected ? kDetected : 0) |
+                                    (new_verdict ? kNewVerdict : 0) |
+                                    (dropped ? kDropped : 0));
+  if (a.spread_want != nullptr) {
+    a.spread_want[h] = expired && r.dead >= 0 ? 1 : 0;
+    a.verdict[h] = r.phase == kDeadPhase ? kMsgDead : kMsgRefute;
+  }
+  return (detected ? 1u : 0u) | (false_dead ? 2u : 0u);
+}
+
+__global__ void __launch_bounds__(kMaxRows)
+settle_wide_kernel(const __grid_constant__ Args a) {
+  __shared__ uint32_t s_rounds;  // the detections' rounds, summed
+  __shared__ uint32_t s_n[2];    // the detections, the false dead
+  const int t = static_cast<int>(threadIdx.x);
+  if (t == 0) s_rounds = s_n[0] = s_n[1] = 0u;
+  const SettleIn r = settle_load(a, t);  // H > kMaxRows: a row each
+  wait_for_primary();
+  __syncthreads();  // the sums zeroed
+  const uint32_t v = settle_row(a, t, r, &s_rounds);
+  uint32_t det = v & 1u, fd = v >> 1;
+  for (int h = t + kMaxRows; h < a.H; h += kMaxRows) {
+    const uint32_t w = settle_row(a, h, settle_load(a, h), &s_rounds);
+    det += w & 1u;
+    fd += w >> 1;
+  }
+  if (det != 0u) atomicAdd(s_n, det);
+  const uint32_t n_false = block_sum(s_n + 1, fd);
+  if (t == 0) {
+    if (s_n[0] != 0u) {
+      add32(a.n_detected, s_n[0]);
+      add32(a.sum_detect, s_rounds);
+    }
+    if (n_false != 0u) add32(a.n_false_dead, n_false);
+  }
+}
+
+// record_kernel's loads of row h, before the wait.
+struct RecordIn {
+  int s;
+  int32_t node_c, rnd, start, fail_c;
+  uint32_t m;
+  bool expired, refute_now, spread;
+};
+
+__device__ __forceinline__ RecordIn record_load(const Args& a, int h,
+                                                bool hist) {
+  RecordIn r;
+  r.s = a.idx[h];
+  r.m = a.marks[h];
+  r.expired = a.expired[h] != 0;
+  r.rnd = r.start = r.fail_c = 0;
+  r.refute_now = r.spread = false;
+  if (hist) {
+    r.rnd = __ldg(a.rnd);
+    r.refute_now = a.ref_byte != nullptr && a.ref_byte[h] != 0;
+    r.spread = a.spread_want[h] != 0;
+    r.start = a.slot_start[r.s];
+  }
+  r.node_c = clamp_node(a.slot_node[r.s], a.N);
+  if (hist) r.fail_c = __ldg(a.fail + r.node_c);
+  return r;
+}
+
+// record_kernel's work on row h after the wait (the banks' buckets in
+// shared memory).
+__device__ __forceinline__ void record_row(
+    const Args& a, int h, const RecordIn& r, bool hist,
+    uint32_t (*s_bank)[kMaxBuckets]) {
+  if (hist) {
+    const int32_t dwell = sub32(r.rnd, r.start);
+    if (r.m & kDetected) {
+      bucket(s_bank[kDetect], a.buckets[kDetect], sub32(r.rnd, r.fail_c));
+    }
+    if ((r.m & kNewVerdict) || r.refute_now) {
+      bucket(s_bank[kDwell], a.buckets[kDwell], dwell);
+    }
+    if (r.refute_now) bucket(s_bank[kRefute], a.buckets[kRefute], dwell);
+    if (r.spread) {
+      bucket(s_bank[kSpread], a.buckets[kSpread], bit_length(a.n_hold[h]));
+    }
+  }
+  if (r.m & kDropped) a.member[r.node_c] = 0;
+  if (r.expired) {
+    a.slot_of_node[r.node_c] = -1;
+    a.slot_node[r.s] = -1;
+    a.slot_phase[r.s] = kFree;
+    a.slot_dead[r.s] = -1;
+  }
+}
+
+__global__ void __launch_bounds__(kMaxRows)
+record_wide_kernel(const __grid_constant__ Args a) {
+  __shared__ uint32_t s_bank[kBanks][kMaxBuckets];
+  const int t = static_cast<int>(threadIdx.x);
+  const bool hist = a.hist[kDetect] != nullptr;
+  if (hist) {
+    for (int k = 0; k < kBanks; ++k) {
+      for (int b = t; b < a.buckets[k]; b += a.threads) s_bank[k][b] = 0u;
+    }
+  }
+  const RecordIn r = record_load(a, t, hist);  // H > kMaxRows: a row each
+  // The holders and every write after the wait: the kernel before reads
+  // member, which a dropped subject's flag clears.
+  wait_for_primary();
+  if (hist) __syncthreads();  // the banks' buckets zeroed
+  record_row(a, t, r, hist, s_bank);
+  for (int h = t + kMaxRows; h < a.H; h += kMaxRows) {
+    record_row(a, h, record_load(a, h, hist), hist, s_bank);
+  }
+  if (hist) {
+    __syncthreads();
+    for (int k = 0; k < kBanks; ++k) {
+      for (int b = t; b < a.buckets[k]; b += a.threads) {
+        if (s_bank[k][b] != 0u) add32(a.hist[k] + b, s_bank[k][b]);
+      }
+    }
+  }
+}
+
 // The launch's Args from the entry points' tables; false for arguments
 // the kernels do not take.
 inline bool setup(Args& a, void* const* shards, int ndev, void* const* ptrs,
@@ -458,7 +731,7 @@ inline bool setup(Args& a, void* const* shards, int ndev, void* const* ptrs,
     return false;
   }
   const int N = ints[iN], H = ints[iH], S = ints[iS];
-  if (N < 1 || N % ndev != 0 || S < 1 || S > kMaxRows || H < 1 || H > S) {
+  if (N < 1 || N % ndev != 0 || S < 1 || S > kMaxSlots || H < 1 || H > S) {
     return false;
   }
   for (int j = 0; j < ndev; ++j) {
@@ -503,7 +776,7 @@ inline bool setup(Args& a, void* const* shards, int ndev, void* const* ptrs,
   a.S = S;
   a.ndev = ndev;
   a.L = N / ndev;
-  a.threads = (H + 31) / 32 * 32;
+  a.threads = H > kMaxRows ? kMaxRows : (H + 31) / 32 * 32;
   a.refute = ints[iRefute];
   a.budget = ints[iBudget];
   a.ttl = ints[iTtl];
@@ -580,7 +853,8 @@ extern "C" int finish_decide(void* const* shards, int ndev,
   // Makes its loads but the own byte before it waits for the kernel
   // before it, which must write none of decide's inputs but the belief
   // rows (the top of this file).
-  return programmatic(decide_kernel, a, stream);
+  return programmatic(a.H > kMaxRows ? decide_wide_kernel : decide_kernel, a,
+                      stream);
 }
 
 extern "C" int finish_settle(void* const* shards, int ndev,
@@ -597,7 +871,8 @@ extern "C" int finish_settle(void* const* shards, int ndev,
   // Makes its loads but fired before it waits for the kernel before it
   // (the fire), which must write none of settle's inputs but fired (the
   // top of this file).
-  return programmatic(settle_kernel, a, stream);
+  return programmatic(a.H > kMaxRows ? settle_wide_kernel : settle_kernel, a,
+                      stream);
 }
 
 extern "C" int finish_record(void* const* shards, int ndev,
@@ -613,14 +888,20 @@ extern "C" int finish_record(void* const* shards, int ndev,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.n_hold == nullptr) {
-    record_kernel<<<1, a.threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(a);
+    if (a.H > kMaxRows) {
+      record_wide_kernel<<<1, a.threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(a);
+    } else {
+      record_kernel<<<1, a.threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(a);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   // With the holders, the launch right after the spread's count: a
   // programmatic dependent launch, which makes its loads but the holders
   // before it waits for that kernel (the top of this file).
-  return programmatic(record_kernel, a, stream);
+  return programmatic(a.H > kMaxRows ? record_wide_kernel : record_kernel, a,
+                      stream);
 }
 
 extern "C" const char* finish_slots_error(int code) {

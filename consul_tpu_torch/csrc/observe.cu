@@ -100,6 +100,18 @@
 // dependent launch, may then start under this launch's tail and make its
 // loads; it waits for this launch to end before it reads the holders or
 // writes member.
+//
+// Past kMaxRows (1,024) rows.  A block's listing and counts are kMaxRows
+// entries of shared memory (about 21 KB with the staged member in the
+// final matrix's form, under the 48 KB static limit at four blocks an SM);
+// they do not grow with R.  A launch of more rows (the reference's own
+// provisioning: 8,192 slots at n = 1M and 5 % loss) goes to
+// counts_wide_kernel, in both forms: it lists a chunk of kMaxRows rows,
+// counts its items, and flushes the chunk's counts with one atomic a
+// count a block, chunk after chunk; every block of the grid then arrives
+// once and the last writes out.  The spread's form keeps its trigger at
+// the start, which record_kernel relies on.  The narrow kernels are
+// unchanged, and the host picks by R.
 
 #include <cuda_runtime.h>
 
@@ -110,9 +122,12 @@
 namespace observe {
 
 constexpr int kMaxShards = 64;
-// Rows a launch takes (the listed rows): the round's slots, at most
-// finish_slots.cu's 1,024.
+// Rows a block lists at once (the round's slots up to 1,024); a launch of
+// more rows takes them kMaxRows at a time (counts_wide_kernel).
 constexpr int kMaxRows = 1024;
+// Rows a launch takes: the scratch's kCounts R + 1 words and every row
+// number stay far inside an int.
+constexpr int kMaxSlots = 1 << 24;
 constexpr int kCounts = 4;        // out's rows: dead, refute, live, hold
 constexpr int kThreads = 256;     // a block
 constexpr int kCols = 16;         // a unit: columns of one shard row
@@ -201,22 +216,24 @@ struct Listing {
   int n;
 };
 
-// Warp 0 lists the rows, kListBallots ballots of 32 rows a round, their
-// want and verdict loads issued together: at R = 64 one round trip; one
-// barrier for the block.  Returns how many rows are listed.
+// Warp 0 lists the rows [lo, hi) (hi - lo <= kMaxRows), kListBallots
+// ballots of 32 rows a round, their want and verdict loads issued
+// together: at R = 64 one round trip; one barrier for the block.  Each
+// entry holds its row less lo.  Returns how many rows are listed.
 template <bool kHold>
-__device__ __forceinline__ int list_rows(const Args& a, Listing& s) {
+__device__ __forceinline__ int list_rows(const Args& a, Listing& s, int lo,
+                                         int hi) {
   const int lane = static_cast<int>(threadIdx.x);
   if (lane < 32) {
     int n = 0;
-    for (int r0 = 0; r0 < a.R; r0 += 32 * kListBallots) {
+    for (int r0 = lo; r0 < hi; r0 += 32 * kListBallots) {
       bool take[kListBallots];
       int v[kListBallots];
 #pragma unroll
       for (int q = 0; q < kListBallots; ++q) {
         const int r = r0 + 32 * q + lane;
-        take[q] = r < a.R && (a.want == nullptr || __ldg(a.want + r) != 0);
-        v[q] = kHold && r < a.R ? __ldg(a.verdict + r) : 0;
+        take[q] = r < hi && (a.want == nullptr || __ldg(a.want + r) != 0);
+        v[q] = kHold && r < hi ? __ldg(a.verdict + r) : 0;
       }
 #pragma unroll
       for (int q = 0; q < kListBallots; ++q) {
@@ -226,7 +243,7 @@ __device__ __forceinline__ int list_rows(const Args& a, Listing& s) {
         const unsigned m = __ballot_sync(0xFFFFFFFFu, on);
         if (on) {
           s.rows[n + __popc(m & ((1u << lane) - 1u))] =
-              static_cast<uint32_t>(r) |
+              static_cast<uint32_t>(r - lo) |
               (kHold ? static_cast<uint32_t>(v[q]) << 12 : 0u);
         }
         n += __popc(m);
@@ -438,15 +455,16 @@ __device__ __forceinline__ uint4 member_word(uintptr_t w, uintptr_t lo,
 
 // The counts of one item: its first row's units loaded, its span's member
 // staged, then its rows in turn, each row's units loaded before the row
-// before it is counted.
+// before it is counted.  The listed rows count from row row0 (the wide
+// form's chunk; else 0).
 template <bool kHold>
 __device__ __forceinline__ void count_item(const Args& a, const Item& it,
-                                           const uint32_t* rows,
+                                           int row0, const uint32_t* rows,
                                            uint32_t* s_cnt, uint4* s_mem) {
   const int t = static_cast<int>(threadIdx.x);
   const int u0 = it.s * kSpan + t;
-  const uint8_t* const shard = a.in[it.i];
   const size_t L = static_cast<size_t>(a.L);
+  const uint8_t* const shard = a.in[it.i] + static_cast<size_t>(row0) * L;
   RowUnits cur, next;
   load_row(a, shard + (rows[it.jlo] & 0x3FFu) * L, u0, cur);
 
@@ -481,59 +499,44 @@ __device__ __forceinline__ void count_item(const Args& a, const Item& it,
   __syncthreads();  // the next item stages over s_mem
 }
 
-// kHold: the spread's form (a verdict), else the final matrix's.  An
-// instance each, so that a profile tells the two uses of a round apart by
-// name.
+// The block's counts of the n_live rows listed from row0 into the
+// scratch, one atomicAdd a nonzero count.
 template <bool kHold>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-counts_kernel(const __grid_constant__ Args a) {
+__device__ __forceinline__ void flush_counts(const Args& a, int row0,
+                                             const Listing& s_list,
+                                             const uint32_t* s_cnt,
+                                             int n_live) {
   constexpr int kNum = Form<kHold>::kNum;
   constexpr int kFirst = Form<kHold>::kFirst;
-  __shared__ Listing s_list;
-  __shared__ uint32_t s_cnt[kMaxRows * kNum];
-  __shared__ uint4 s_mem[kSpan + 2];
-  __shared__ int s_last;
-  if (kHold) trigger_dependents();
-  const int t = static_cast<int>(threadIdx.x);
-  const int b = static_cast<int>(blockIdx.x);
-  const int n_live = list_rows<kHold>(a, s_list);
-  if (n_live == 0) {
-    if (b == 0) {
-      for (int e = t; e < kCounts * a.R; e += kThreads) a.out[e] = 0;
-    }
-    return;
-  }
-  const Split p = split(a, n_live);
-  if (b >= p.items) return;
-
-  for (int e = t; e < n_live * kNum; e += kThreads) s_cnt[e] = 0u;
-  __syncthreads();
-  for (int x = b; x < p.items; x += static_cast<int>(gridDim.x)) {
-    count_item<kHold>(a, item_of(a, p, x, n_live), s_list.rows, s_cnt,
-                      s_mem);
-  }
-
-  // The block's counts into the scratch, then arrive; the last of the
-  // blocks that had an item writes out and zeroes the scratch.
-  for (int e = t; e < n_live * kNum; e += kThreads) {
+  for (int e = static_cast<int>(threadIdx.x); e < n_live * kNum;
+       e += kThreads) {
     const int j = e / kNum;
     const int c = e - j * kNum;
     if (s_cnt[e] != 0u) {
-      atomicAdd(a.scratch + static_cast<size_t>(kFirst + c) * a.R +
+      atomicAdd(a.scratch + static_cast<size_t>(kFirst + c) * a.R + row0 +
                     (s_list.rows[j] & 0x3FFu),
                 s_cnt[e]);
     }
   }
+}
+
+// Arrive at the scratch's counter after `working` blocks' counts; the
+// last to arrive copies the scratch into out and zeroes it and the
+// counter.
+template <bool kHold>
+__device__ __forceinline__ void arrive_and_write(const Args& a, int working,
+                                                 int* s_last) {
+  constexpr int kNum = Form<kHold>::kNum;
+  constexpr int kFirst = Form<kHold>::kFirst;
+  const int t = static_cast<int>(threadIdx.x);
   uint32_t* arrive = a.scratch + static_cast<size_t>(kCounts) * a.R;
-  const int working = p.items < static_cast<int>(gridDim.x)
-                          ? p.items : static_cast<int>(gridDim.x);
   __syncthreads();
   if (t == 0) {
-    s_last = add_release(arrive) == static_cast<unsigned>(working - 1);
-    if (s_last) fence_acquire();
+    *s_last = add_release(arrive) == static_cast<unsigned>(working - 1);
+    if (*s_last) fence_acquire();
   }
   __syncthreads();
-  if (!s_last) return;
+  if (!*s_last) return;
   for (int e = t; e < kCounts * a.R; e += kThreads) {
     const int c = e / a.R;
     uint32_t v = 0u;
@@ -546,12 +549,88 @@ counts_kernel(const __grid_constant__ Args a) {
   if (t == 0) *arrive = 0u;
 }
 
+// kHold: the spread's form (a verdict), else the final matrix's.  An
+// instance each, so that a profile tells the two uses of a round apart by
+// name.
+template <bool kHold>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+counts_kernel(const __grid_constant__ Args a) {
+  constexpr int kNum = Form<kHold>::kNum;
+  __shared__ Listing s_list;
+  __shared__ uint32_t s_cnt[kMaxRows * kNum];
+  __shared__ uint4 s_mem[kSpan + 2];
+  __shared__ int s_last;
+  if (kHold) trigger_dependents();
+  const int t = static_cast<int>(threadIdx.x);
+  const int b = static_cast<int>(blockIdx.x);
+  const int n_live = list_rows<kHold>(a, s_list, 0, a.R);
+  if (n_live == 0) {
+    if (b == 0) {
+      for (int e = t; e < kCounts * a.R; e += kThreads) a.out[e] = 0;
+    }
+    return;
+  }
+  const Split p = split(a, n_live);
+  if (b >= p.items) return;
+
+  for (int e = t; e < n_live * kNum; e += kThreads) s_cnt[e] = 0u;
+  __syncthreads();
+  for (int x = b; x < p.items; x += static_cast<int>(gridDim.x)) {
+    count_item<kHold>(a, item_of(a, p, x, n_live), 0, s_list.rows, s_cnt,
+                      s_mem);
+  }
+
+  // The block's counts into the scratch, then arrive; the last of the
+  // blocks that had an item writes out and zeroes the scratch.
+  flush_counts<kHold>(a, 0, s_list, s_cnt, n_live);
+  arrive_and_write<kHold>(a, p.items < static_cast<int>(gridDim.x)
+                                 ? p.items : static_cast<int>(gridDim.x),
+                          &s_last);
+}
+
+// The counts at R > kMaxRows: the rows in chunks of kMaxRows, each listed,
+// cut into items and counted as a launch of kMaxRows rows is, its counts
+// flushed into the scratch at their rows with one atomic a count a block;
+// then every block of the grid arrives (a block may have had items in one
+// chunk and none in another), and the last writes out.  kHold as
+// counts_kernel's, the trigger as early.
+template <bool kHold>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+counts_wide_kernel(const __grid_constant__ Args a) {
+  constexpr int kNum = Form<kHold>::kNum;
+  __shared__ Listing s_list;
+  __shared__ uint32_t s_cnt[kMaxRows * kNum];
+  __shared__ uint4 s_mem[kSpan + 2];
+  __shared__ int s_last;
+  if (kHold) trigger_dependents();
+  const int t = static_cast<int>(threadIdx.x);
+  const int b = static_cast<int>(blockIdx.x);
+  for (int row0 = 0; row0 < a.R; row0 += kMaxRows) {
+    const int hi = a.R - row0 < kMaxRows ? a.R : row0 + kMaxRows;
+    const int n_live = list_rows<kHold>(a, s_list, row0, hi);
+    const Split p = split(a, n_live);
+    if (n_live != 0 && b < p.items) {
+      for (int e = t; e < n_live * kNum; e += kThreads) s_cnt[e] = 0u;
+      __syncthreads();
+      for (int x = b; x < p.items; x += static_cast<int>(gridDim.x)) {
+        count_item<kHold>(a, item_of(a, p, x, n_live), row0, s_list.rows,
+                          s_cnt, s_mem);
+      }
+      flush_counts<kHold>(a, row0, s_list, s_cnt, n_live);
+    }
+    __syncthreads();  // the next chunk lists over s_list and s_cnt
+  }
+  arrive_and_write<kHold>(a, static_cast<int>(gridDim.x), &s_last);
+}
+
 // The grid of a launch of form kHold: one block an item at most (the
 // most items: every row listed, a group a row), at most one wave of the
 // blocks an SM the occupancy query gives (kBlocksPerSM at most) on the
 // current device.
 template <bool kHold>
 inline cudaError_t grid_of(const Args& a, int* blocks) {
+  void (*kernel)(Args) = a.R > kMaxRows ? counts_wide_kernel<kHold>
+                                        : counts_kernel<kHold>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
@@ -559,7 +638,7 @@ inline cudaError_t grid_of(const Args& a, int* blocks) {
   }
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, counts_kernel<kHold>, kThreads, 0);
+        &per_sm, kernel, kThreads, 0);
   }
   if (e != cudaSuccess) return e;
   if (sms < 1 || per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -573,7 +652,7 @@ inline cudaError_t grid_of(const Args& a, int* blocks) {
 
 // The launch's geometry; false for one the kernel does not take.
 inline bool geometry(Args& a, int ndev, int R, int L) {
-  if (R < 1 || R > kMaxRows || L < 1 || ndev < 1 || ndev > kMaxShards ||
+  if (R < 1 || R > kMaxSlots || L < 1 || ndev < 1 || ndev > kMaxShards ||
       static_cast<long long>(ndev) * L >= (1LL << 31) - kCols) {
     return false;
   }
@@ -613,7 +692,7 @@ extern "C" int heard_counts_blocks(int R, int L, int ndev, int hold) {
 }
 
 // out[4, R] = the counts of the top of this file over heard, given as
-// ndev shard pointers to u8 [R, L] (R <= 2048, N = ndev * L < 2**31 - 16,
+// ndev shard pointers to u8 [R, L] (R <= 2**24, N = ndev * L < 2**31 - 16,
 // any alignment); member: one byte per global column; verdict: int32 [R]
 // (the spread's form) or nullptr (the final matrix's); want: one byte per
 // row or nullptr (every row); out: int32 [4, R], written whole; scratch: at
@@ -649,11 +728,19 @@ extern "C" int heard_counts(const void* const* shards, int ndev,
   if (a.verdict != nullptr) {
     const cudaError_t e = grid_of<true>(a, &blocks);
     if (e != cudaSuccess) return static_cast<int>(e);
-    counts_kernel<true><<<blocks, kThreads, 0, s>>>(a);
+    if (R > kMaxRows) {
+      counts_wide_kernel<true><<<blocks, kThreads, 0, s>>>(a);
+    } else {
+      counts_kernel<true><<<blocks, kThreads, 0, s>>>(a);
+    }
   } else {
     const cudaError_t e = grid_of<false>(a, &blocks);
     if (e != cudaSuccess) return static_cast<int>(e);
-    counts_kernel<false><<<blocks, kThreads, 0, s>>>(a);
+    if (R > kMaxRows) {
+      counts_wide_kernel<false><<<blocks, kThreads, 0, s>>>(a);
+    } else {
+      counts_kernel<false><<<blocks, kThreads, 0, s>>>(a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,10 +48,11 @@
 //      by ballots, with the ranks' base carried from chunk to chunk), and
 //      slot_of_node points at them; drops count the needy targets left
 //      unserved; the stats are written, and the minima, counts and
-//      arrival counter set back.  Chunks, not a block of S threads: S is
-//      up to kMaxSlots = 1024, and a 1024-thread block would hold the
-//      lanes to one block an SM (a wave of 135,168 lanes against 202,752
-//      at kMinBlocks); the main path's S = 64 is one chunk.  Every block
+//      arrival counter set back.  Chunks, not a block of S threads: a
+//      1024-thread block would hold the lanes to one block an SM (a wave
+//      of 135,168 lanes against 202,752 at kMinBlocks), and S may pass
+//      1,024 (below); the main path's S = 64 is one chunk.  Up to
+//      kMaxSlots slots every block
 //      reads slot_node and slot_phase into shared memory before its
 //      lanes (no launch writes them before the slot step), so the last
 //      block's slot step starts with one round of loads: the flags, the
@@ -124,6 +125,26 @@
 // (flag, slot, byte), the listing running beside it.  The design keeps the probe tick to two launches (the point:
 // ~184 before) and reads everything once.
 //
+// Past kMaxSlots (1,024) slots.  The reference provisions more itself
+// (crossval.loss_sized_slots: 8,192 at n = 1M and 5 % loss; a nemesis
+// run next_pow2(n), since a partition opens up to n / 2 suspicion
+// episodes at once), so a launch of more slots takes each kernel's wide
+// instance, chosen on the host by S:
+//   - lanes_slots_wide_kernel stages no slot registers (slot_node and
+//     slot_phase would be 128 KB at S = 16,384: past the 48 KB static
+//     limit, one block an SM); the last block's slot step reads them from
+//     memory at L2 (__ldcg), slot s's by the one thread that then writes
+//     them.  Its free slots by rank (s_free, 4 KB at 1,024) go to S more
+//     words of the caller's scratch, written in the first pass over the
+//     slots and read in the second, by the one block, between barriers,
+//     then set back to 0 (the scratch is the same after every round).
+//     The ranks' base is carried from chunk to chunk as before.
+//   - rearm_marks_wide_kernel lists and writes the rearmed rows in chunks
+//     of kMaxSlots (under partition_heal at S = n thousands of rows can
+//     re-arm in one round), each chunk as one listing is, the owners the
+//     same.
+// The lanes themselves take any S: a lane reads one slot id and one byte.
+//
 // Capture.  No launch reads the host or needs a memset: the row is read
 // from device memory, and the scratch (the caller's, one per round
 // program) holds the minima at N and the counts and the arrival counter
@@ -142,7 +163,13 @@
 namespace probe {
 
 constexpr int kMaxShards = 64;
+// Slots lanes_slots_kernel stages in shared memory (the registers and
+// the free list) and rearm_marks_kernel lists at once; a launch of more
+// takes the wide kernels.
 constexpr int kMaxSlots = 1024;
+// Slots a launch takes: slot ids, the rearm chunks' items and the
+// scratch's words stay far inside an int.
+constexpr int kSlotCeiling = 1 << 24;
 constexpr int kMaxHelpers = 64;
 constexpr int kThreads = 256;     // a block; a chunk of lanes or of slots
 constexpr int kMinBlocks = 6;     // blocks an SM the launch bounds ask for
@@ -206,6 +233,7 @@ struct Args {
   int32_t* minima;             // scratch: [kk]
   int32_t* counts;             //   [kCounts]
   uint8_t* flags;              //   [B]
+  int32_t* free_slots;         //   [S] past kMaxSlots, else null
   int N, B, S, K, L, ndev, kk, GB;
   int part, degraded, obs_lo, obs_hi, lhm_max;
   float p_dl, p_il, p_one, p_two, p_obs;
@@ -581,6 +609,162 @@ lanes_slots_kernel(const __grid_constant__ Args a) {
   if (t == 0) *arrive = 0u;
 }
 
+// slot_flag's rule on a slot's subject `node` (the wide slot step's, which
+// reads it from memory).
+__device__ __forceinline__ int32_t slot_flag_of(const Args& a, int32_t node,
+                                                int64_t first) {
+  if (node < 0) return 0;
+  const int64_t i_s = mod(static_cast<int64_t>(min(node, a.N - 1)) - first,
+                          a.N);
+  return i_s < a.B ? __ldcg(a.flags + i_s) : 0;
+}
+
+// The wide form (S > kMaxSlots): lanes_slots_kernel's lanes as they are,
+// the slot registers read in the slot step from memory at L2 and not
+// staged (128 KB at S = 16,384: past the 48 KB static limit, one block an
+// SM), the free slots by rank in the scratch's [S] words (a.free_slots)
+// and set back to 0 after their reads, by the one block, between
+// barriers.
+__device__ __forceinline__ void slot_step_wide(const Args& a, int32_t rnd,
+                                               int64_t first) {
+  __shared__ int s_warp[kThreads / 32];
+  int* const free_at = a.free_slots;
+  const int t = static_cast<int>(threadIdx.x);
+  const int32_t* const node = a.slot_node;
+  // One round of loads: the first chunk's flags and candidates, the
+  // counts and drops.  The launch writes no register before this, and a
+  // slot's are read only by the thread that then writes them.
+  const int32_t add0 = slot_flag_of(a, __ldcg(node + t), first);
+  const int32_t cand0 = t < a.kk ? __ldcg(a.minima + t) : a.N;
+  int32_t c[kNeedy + 1];
+  uint32_t drops = 0u;
+  if (t == 0) {
+    for (int k = 0; k <= kNeedy; ++k) c[k] = __ldcg(a.counts + k);
+    drops = static_cast<uint32_t>(*a.drops);
+  }
+  // The absorbs and rearms, and the free slots in ascending order.
+  int n_free = 0;
+  for (int s0 = 0; s0 < a.S; s0 += kThreads) {
+    const int s = s0 + t;
+    bool valid = false;
+    if (s < a.S) {
+      const int32_t nd = __ldcg(node + s);
+      valid = nd >= 0;
+      const int32_t node_c = min(max(nd, 0), a.N - 1);
+      const int32_t add = s0 == 0 ? add0 : slot_flag_of(a, nd, first);
+      bool rearm = false;
+      if (add > 0) {
+        const int32_t phase = __ldcg(a.slot_phase + s);
+        if (phase == kSuspect) {
+          a.slot_nsusp[s] += add;
+        } else if (phase == kRefuted || phase == kJoin) {
+          rearm = true;
+          a.slot_phase[s] = kSuspect;
+          a.slot_inc[s] = __ldg(a.incarnation + node_c);
+          a.slot_start[s] = rnd;
+          a.slot_nsusp[s] = add;
+          a.slot_dead[s] = -1;
+        }
+      }
+      a.rearm[s] = rearm ? 1 : 0;
+    }
+    int n;
+    const bool free = s < a.S && !valid;
+    const int rank = block_rank(free, s_warp, &n);
+    if (free) free_at[n_free + rank] = s;
+    n_free += n;
+  }
+  // The candidates take the free slots in rank order; the minima go back
+  // to N.
+  int n_dom = 0;
+  for (int k0 = 0; k0 < a.kk; k0 += kThreads) {
+    const int k = k0 + t;
+    int32_t cand = k0 == 0 ? cand0 : a.N;
+    if (k < a.kk) {
+      if (k0 > 0) cand = __ldcg(a.minima + k);
+      a.minima[k] = a.N;
+    }
+    int n;
+    const bool in_dom = cand < a.N;
+    const int rank = n_dom + block_rank(in_dom, s_warp, &n);
+    if (in_dom && rank < n_free) {
+      const int slot = free_at[rank];
+      const int32_t cn = min(max(cand, 0), a.N - 1);
+      a.slot_node[slot] = cn;
+      a.slot_phase[slot] = kSuspect;
+      a.slot_inc[slot] = __ldg(a.incarnation + cn);
+      a.slot_start[slot] = rnd;
+      a.slot_nsusp[slot] = 1;
+      a.slot_dead[slot] = -1;
+      a.slot_of_node[cn] = slot;
+    }
+    n_dom += n;
+  }
+  // The free slots' words back to 0, as every round leaves the scratch.
+  __syncthreads();
+  for (int k = t; k < n_free; k += kThreads) free_at[k] = 0;
+  if (t == 0) {
+    const int served = min(n_dom, n_free);
+    for (int k = 0; k <= kNeedy; ++k) a.counts[k] = 0;
+    *a.drops = static_cast<int32_t>(
+        drops + static_cast<uint32_t>(c[kNeedy] - served));
+    a.stats[kProbes] = c[kProbes];
+    a.stats[kMissed] = c[kMissed];
+    a.stats[kIndirect] = c[kMissed];
+    a.stats[kSuspicions] = c[kSuspicions];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+lanes_slots_wide_kernel(const __grid_constant__ Args a) {
+  __shared__ int s_sum[4];
+  __shared__ int s_last;
+  const int t = static_cast<int>(threadIdx.x);
+  const int32_t rnd = __ldg(a.rnd);
+  const int64_t first = static_cast<int64_t>(__ldg(a.blk)) + __ldg(a.probe);
+  if (t < 4) s_sum[t] = 0;
+  // The lanes as lanes_slots_kernel runs them.
+  unsigned n_ok = 0u, n_missed = 0u, n_init = 0u, n_need = 0u;
+  const int chunks = (a.B + kThreads - 1) / kThreads;
+  for (int c = static_cast<int>(blockIdx.x); c < chunks;
+       c += static_cast<int>(gridDim.x)) {
+    const int l = c * kThreads + t;
+    const Lane r = lane(a, l);
+    n_ok += r.ok;
+    n_missed += r.missed;
+    n_init += r.init;
+    n_need += r.need;
+    if (__syncthreads_or(r.need)) segment_minima(a, c, l, r.need, r.tgt);
+  }
+  n_ok = __reduce_add_sync(0xFFFFFFFFu, n_ok);
+  n_missed = __reduce_add_sync(0xFFFFFFFFu, n_missed);
+  n_init = __reduce_add_sync(0xFFFFFFFFu, n_init);
+  n_need = __reduce_add_sync(0xFFFFFFFFu, n_need);
+  if ((t & 31) == 0) {
+    if (n_ok) atomicAdd(s_sum + 0, static_cast<int>(n_ok));
+    if (n_missed) atomicAdd(s_sum + 1, static_cast<int>(n_missed));
+    if (n_init) atomicAdd(s_sum + 2, static_cast<int>(n_init));
+    if (n_need) atomicAdd(s_sum + 3, static_cast<int>(n_need));
+  }
+  __syncthreads();
+  if (t == 0) {
+    if (s_sum[0]) atomicAdd(a.counts + kProbes, s_sum[0]);
+    if (s_sum[1]) atomicAdd(a.counts + kMissed, s_sum[1]);
+    if (s_sum[2]) atomicAdd(a.counts + kSuspicions, s_sum[2]);
+    if (s_sum[3]) atomicAdd(a.counts + kNeedy, s_sum[3]);
+  }
+  unsigned* arrive = reinterpret_cast<unsigned*>(a.counts + kArrive);
+  __syncthreads();
+  if (t == 0) {
+    s_last = add_release(arrive) == gridDim.x - 1u;
+    if (s_last) fence_acquire();
+  }
+  __syncthreads();
+  if (!s_last) return;
+  slot_step_wide(a, rnd, first);
+  if (t == 0) *arrive = 0u;
+}
+
 // The rearm wipe and the marks (rearm_marks_kernel, step 2 at the top of
 // this file): a lane's column is its thread's in every row, every other
 // byte of a rearmed row the thread's that zeroes its unit.
@@ -689,8 +873,73 @@ __device__ __forceinline__ void wipe_unit(const Args& a, uint8_t* row, int i,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, kRearmBlocksPerSM)
-rearm_marks_kernel(const __grid_constant__ Args a) {
+// Warp 0 lists the rearmed rows of [lo, hi) (hi - lo <= kMaxSlots) in
+// s_rows, in order, kListBallots ballots of 32 flags a round (at S = 64
+// one round trip), the same list in every block; their count in *s_n.
+__device__ __forceinline__ void list_rearmed(const Args& a, int* s_rows,
+                                             int* s_n, int lo, int hi) {
+  const int t = static_cast<int>(threadIdx.x);
+  int n = 0;
+  for (int r0 = lo; r0 < hi; r0 += 32 * kListBallots) {
+    uint32_t f[kListBallots];
+#pragma unroll
+    for (int k = 0; k < kListBallots; ++k) {
+      const int r = r0 + 32 * k + t;
+      f[k] = r < hi ? __ldg(a.rearm + r) : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < kListBallots; ++k) {
+      const int r = r0 + 32 * k + t;
+      const unsigned m = __ballot_sync(0xFFFFFFFFu, f[k] != 0u);
+      if (f[k] != 0u) s_rows[n + __popc(m & ((1u << t) - 1u))] = r;
+      n += __popc(m);
+    }
+  }
+  if (t == 0) *s_n = n;
+}
+
+// The n_rows listed rearmed rows written: the lanes' columns [blk, hi) by
+// their owners (a thread's words from q0 on, q0's word x0 as loaded, the
+// rows of a later word loaded again), and every other column by the
+// blocks over items of a listed row and a span of kThreads units of one
+// shard, a unit a thread, items in row order from the last block down
+// (the first blocks hold the marks).
+__device__ __forceinline__ void write_rearmed(const Args& a, const int* rows,
+                                              int n_rows, int q0,
+                                              const Word& x0, int words,
+                                              int stride, int blk, int o_t,
+                                              int hi) {
+  const int t = static_cast<int>(threadIdx.x);
+  const uint32_t* flags = reinterpret_cast<const uint32_t*>(a.flags);
+  if (q0 < words) {
+    lanes_in_rearmed(a, q0, x0, rows, n_rows, blk, hi);
+    for (int q = q0 + stride; q < words; q += stride) {
+      lanes_in_rearmed(a, q, word_of(a, q, __ldg(flags + q), blk, o_t),
+                       rows, n_rows, blk, hi);
+    }
+  }
+  const int units = (a.L + kCols - 1) / kCols + 1;
+  const int spans = (units + kThreads - 1) / kThreads;
+  const int per_row = a.ndev * spans;
+  for (int x = static_cast<int>(gridDim.x - 1 - blockIdx.x);
+       x < per_row * n_rows; x += static_cast<int>(gridDim.x)) {
+    const int j = x / per_row;
+    const int i = (x - j * per_row) / spans;
+    const int u = (x - j * per_row - i * spans) * kThreads + t;
+    if (u >= units) continue;
+    uint8_t* row = a.heard[i] + static_cast<size_t>(rows[j]) * a.L;
+    const int c0 = phase_of(row) - kCols + kCols * u;
+    if (c0 > -kCols && c0 < a.L) wipe_unit(a, row, i, c0, blk, hi);
+  }
+}
+
+// kWide: S > kMaxSlots, the rearmed rows listed and written in chunks
+// of kMaxSlots (a partition's heal can rearm thousands of rows at S =
+// n).  Each chunk's rows are written by the same owners as in one
+// listing, so every byte keeps its one writer thread, and a lane's own
+// mark is still overwritten by its thread, after it.
+template <bool kWide>
+__device__ __forceinline__ void rearm_marks(const Args& a) {
   __shared__ int s_rows[kMaxSlots];  // the rearmed rows, in order
   __shared__ int s_n;
   const int t = static_cast<int>(threadIdx.x);
@@ -699,8 +948,7 @@ rearm_marks_kernel(const __grid_constant__ Args a) {
   const int hi = blk + a.B < a.N ? blk + a.B : a.N;
   // Warps 1 on take the marks, a word of 4 flags a thread, the first
   // word's flags loaded before anything else; warp 0 lists the rearmed
-  // rows meanwhile, kListBallots ballots of 32 flags a round (at S = 64
-  // one round trip), the same list in every block.
+  // rows meanwhile (the wide form's first chunk).
   const int words = (a.B + 3) / 4;
   const int stride = static_cast<int>(gridDim.x) * kMarkThreads;
   const int q0 = t < 32 ? words
@@ -714,53 +962,34 @@ rearm_marks_kernel(const __grid_constant__ Args a) {
       mark_word(a, word_of(a, q, __ldg(flags + q), blk, o_t));
     }
   }
-  if (t < 32) {
-    int n = 0;
-    for (int r0 = 0; r0 < a.S; r0 += 32 * kListBallots) {
-      uint32_t f[kListBallots];
-#pragma unroll
-      for (int k = 0; k < kListBallots; ++k) {
-        const int r = r0 + 32 * k + t;
-        f[k] = r < a.S ? __ldg(a.rearm + r) : 0u;
-      }
-#pragma unroll
-      for (int k = 0; k < kListBallots; ++k) {
-        const int r = r0 + 32 * k + t;
-        const unsigned m = __ballot_sync(0xFFFFFFFFu, f[k] != 0u);
-        if (f[k] != 0u) s_rows[n + __popc(m & ((1u << t) - 1u))] = r;
-        n += __popc(m);
-      }
+  if (!kWide) {
+    if (t < 32) list_rearmed(a, s_rows, &s_n, 0, a.S);
+    __syncthreads();
+    const int n_rows = s_n;
+    if (n_rows == 0) return;
+    write_rearmed(a, s_rows, n_rows, q0, x0, words, stride, blk, o_t, hi);
+    return;
+  }
+  for (int r0 = 0; r0 < a.S; r0 += kMaxSlots) {
+    const int r1 = a.S - r0 < kMaxSlots ? a.S : r0 + kMaxSlots;
+    if (t < 32) list_rearmed(a, s_rows, &s_n, r0, r1);
+    __syncthreads();
+    const int n_rows = s_n;
+    if (n_rows != 0) {
+      write_rearmed(a, s_rows, n_rows, q0, x0, words, stride, blk, o_t, hi);
     }
-    if (t == 0) s_n = n;
+    __syncthreads();  // the next chunk lists over s_rows
   }
-  __syncthreads();
-  const int n_rows = s_n;
-  if (n_rows == 0) return;
-  // The rearmed rows.  The lanes' columns [blk, hi) by their owners (the
-  // rows of a later word loaded again)...
-  if (q0 < words) {
-    lanes_in_rearmed(a, q0, x0, s_rows, n_rows, blk, hi);
-    for (int q = q0 + stride; q < words; q += stride) {
-      lanes_in_rearmed(a, q, word_of(a, q, __ldg(flags + q), blk, o_t),
-                       s_rows, n_rows, blk, hi);
-    }
-  }
-  // ...and every other column by the blocks over items of a listed row
-  // and a span of kThreads units of one shard, a unit a thread, items in
-  // row order from the last block down (the first blocks hold the marks).
-  const int units = (a.L + kCols - 1) / kCols + 1;
-  const int spans = (units + kThreads - 1) / kThreads;
-  const int per_row = a.ndev * spans;
-  for (int x = static_cast<int>(gridDim.x - 1 - blockIdx.x);
-       x < per_row * n_rows; x += static_cast<int>(gridDim.x)) {
-    const int j = x / per_row;
-    const int i = (x - j * per_row) / spans;
-    const int u = (x - j * per_row - i * spans) * kThreads + t;
-    if (u >= units) continue;
-    uint8_t* row = a.heard[i] + static_cast<size_t>(s_rows[j]) * a.L;
-    const int c0 = phase_of(row) - kCols + kCols * u;
-    if (c0 > -kCols && c0 < a.L) wipe_unit(a, row, i, c0, blk, hi);
-  }
+}
+
+__global__ void __launch_bounds__(kThreads, kRearmBlocksPerSM)
+rearm_marks_kernel(const __grid_constant__ Args a) {
+  rearm_marks<false>(a);
+}
+
+__global__ void __launch_bounds__(kThreads, kRearmBlocksPerSM)
+rearm_marks_wide_kernel(const __grid_constant__ Args a) {
+  rearm_marks<true>(a);
 }
 
 // The launch's Args from the entry points' tables; false for arguments
@@ -773,7 +1002,7 @@ inline bool setup(Args& a, void* const* shards, int ndev,
   }
   const int N = ints[iN], B = ints[iB], S = ints[iS], K = ints[iK];
   if (N < 1 || N >= (1 << 30) || N % ndev != 0 || B < 1 || B > N ||
-      S < 1 || S > kMaxSlots || K < 0 || K > kMaxHelpers ||
+      S < 1 || S > kSlotCeiling || K < 0 || K > kMaxHelpers ||
       static_cast<int64_t>(B) * (K > 0 ? K : 1) >= (int64_t(1) << 32)) {
     return false;
   }
@@ -822,6 +1051,8 @@ inline bool setup(Args& a, void* const* shards, int ndev,
   a.minima = scratch;
   a.counts = scratch + a.kk;
   a.flags = reinterpret_cast<uint8_t*>(scratch + a.kk + kCounts);
+  a.free_slots = S > kMaxSlots ? scratch + a.kk + kCounts + (B + 3) / 4
+                                  : nullptr;
   a.part = ints[iPart];
   a.degraded = ints[iDegraded];
   a.obs_lo = ints[iObsLo];
@@ -840,7 +1071,9 @@ inline int lane_blocks(const Args& a) {
 }
 
 // The lanes_slots grid: one block a chunk, at most one wave of the
-// blocks an SM the occupancy query gives on the current device.
+// blocks an SM the occupancy query gives on the current device for
+// lanes_slots_kernel (the wide instance stages nothing in shared memory,
+// so as many of its blocks fit an SM at least; it takes the same grid).
 inline cudaError_t lanes_slots_grid(const Args& a, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -913,10 +1146,12 @@ extern "C" int probe_rearm_marks_blocks(int B, int S, int N, int ndev) {
 
 // The scratch's int32 words at (S, B): kk = min(S, B) minima (N between
 // rounds), the counts and the arrival counter (0 between rounds), B flag
-// bytes.
+// bytes; past kMaxSlots slots, S words more (the wide slot step's free
+// slots, written before they are read in each launch).
 extern "C" long long probe_scratch_words(int S, int B) {
   const int kk = S < B ? S : B;
-  return static_cast<long long>(kk) + probe::kCounts + (B + 3) / 4;
+  return static_cast<long long>(kk) + probe::kCounts + (B + 3) / 4 +
+         (S > probe::kMaxSlots ? S : 0);
 }
 
 // The two launches of the top of this file.  Each takes the same
@@ -942,8 +1177,13 @@ extern "C" int probe_lanes_slots(void* const* shards, int ndev,
   int blocks = 0;
   const cudaError_t e = lanes_slots_grid(a, &blocks);
   if (e != cudaSuccess) return static_cast<int>(e);
-  lanes_slots_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  if (a.S > kMaxSlots) {
+    lanes_slots_wide_kernel<<<blocks, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(a);
+  } else {
+    lanes_slots_kernel<<<blocks, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -958,8 +1198,13 @@ extern "C" int probe_rearm_marks(void* const* shards, int ndev,
   int blocks = 0;
   const cudaError_t e = rearm_marks_grid(a, &blocks);
   if (e != cudaSuccess) return static_cast<int>(e);
-  rearm_marks_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  if (a.S > kMaxSlots) {
+    rearm_marks_wide_kernel<<<blocks, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(a);
+  } else {
+    rearm_marks_kernel<<<blocks, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -47,7 +47,9 @@ from consul_tpu_torch.gossip.belief import (_CONF_MASK, _CONF_SHIFT,
 _I32 = torch.int32
 _U8 = torch.uint8
 MAX_SHARDS = 64    # kMaxShards of csrc/finish.cu
-MAX_ROWS = 2048    # kMaxRows: the rows a launch lists in shared memory
+BLOCK_ROWS = 2048  # kMaxRows: rows a block lists at once in shared memory;
+                   # past it the wide kernels take them in chunks
+MAX_ROWS = 1 << 24  # kMaxSlots: the rows a launch takes
 _DEAD = MSG_DEAD << _MSG_SHIFT  # DEAD, conf 0, age 0
 # Kernel launches made by ``fire_timers`` and ``wipe_rows`` (one per
 # launch, nowhere else), and by both.

@@ -28,7 +28,8 @@ order:
 
 Each step is one launch of ``csrc/finish_slots.cu`` on CUDA tensors (entry
 points ``finish_decide``, ``finish_settle`` and ``finish_record``: one block,
-a thread a row; the decide launch programmatic, overlapping the kernel
+a thread a row, or past 1,024 rows 1,024 threads taking several rows
+each; the decide launch programmatic, overlapping the kernel
 before it, which may write only the belief rows; the settle launch
 programmatic behind the fire, which may write only ``fired`` of its
 inputs; the record launch programmatic where it is given the holders,
@@ -70,7 +71,9 @@ from consul_tpu_torch.gossip.slot_ops import get_points, set_drop
 
 _I32, _U8 = torch.int32, torch.uint8
 MAX_SHARDS = 64    # kMaxShards of csrc/finish_slots.cu
-MAX_ROWS = 1024    # kMaxRows: a thread a row in one block
+MAX_ROWS = 1 << 24  # kMaxSlots: the slots (and rows) a launch takes; past
+                    # kMaxRows (1,024) the wide kernels' threads take
+                    # several rows each
 MAX_BUCKETS = 256  # kMaxBuckets
 # Slot phases (kernel.PHASE_*).
 _FREE, _SUSPECT, _DEAD, _REFUTED, _JOIN = range(5)

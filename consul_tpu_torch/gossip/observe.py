@@ -59,7 +59,9 @@ COUNTS = ("dead", "refute", "live", "hold")
 DEAD, REFUTE, LIVE, HOLD = range(len(COUNTS))
 _I32 = torch.int32
 MAX_SHARDS = 64        # kMaxShards of csrc/observe.cu
-MAX_ROWS = 1024        # kMaxRows: the rows a block lists (the round's S)
+BLOCK_ROWS = 1024      # kMaxRows: rows a block lists at once; past it the
+                       # wide kernel takes them in chunks
+MAX_ROWS = 1 << 24     # kMaxSlots: the rows a launch takes
 # Kernel launches made by ``heard_counts`` (one per launch, nowhere else).
 launches = 0
 # (R, L, ndev, budget, verdict given, want given) of every launch, so a

@@ -64,7 +64,8 @@ from consul_tpu_torch.gossip.slot_ops import (alloc_free_slots, get_points,
 
 _I32 = torch.int32
 MAX_SHARDS = 64    # kMaxShards of csrc/probe.cu
-MAX_SLOTS = 1024   # kMaxSlots
+STAGED_SLOTS = 1024  # kMaxSlots: past it the wide kernels
+MAX_SLOTS = 1 << 24  # kSlotCeiling
 MAX_HELPERS = 64   # kMaxHelpers
 COUNTS = 8         # kCounts: the scratch's count words
 # Slot phases (kernel.PHASE_*).
@@ -149,8 +150,11 @@ def config(p, v, nem=None) -> Config:
 def scratch_words(S: int, B: int) -> int:
     """The int32 words of the tick's scratch (``probe_scratch_words`` of
     ``csrc/probe.cu``): the minima, the counts (the last the kernel's
-    arrival counter) and the lanes' flag bytes."""
-    return min(S, B) + COUNTS + -(-B // 4)
+    arrival counter) and the lanes' flag bytes; past ``STAGED_SLOTS``
+    slots, S words more (the wide slot step's free slots by rank, 0
+    between rounds)."""
+    return (min(S, B) + COUNTS + -(-B // 4)
+            + (S if S > STAGED_SLOTS else 0))
 
 
 def scratch(p, device) -> torch.Tensor:

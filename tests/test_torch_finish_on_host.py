@@ -153,7 +153,8 @@ static inline const char* cudaGetErrorString(cudaError_t) { return "error"; }
 HOST_FORMS = {
     f"{k}<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);":
     f"host_launch({k}, dim3(blocks), dim3(kThreads), a);"
-    for k in ("fire_kernel", "wipe_kernel")
+    for k in ("fire_kernel", "wipe_kernel", "fire_wide_kernel",
+              "wipe_wide_kernel")
 }
 # The card's block and grid, and the small ones most cases run with on
 # the host (a block is that many host threads, the blocks run one after
@@ -533,6 +534,37 @@ def test_live_row_counts(lib, live):
     assert bool(fired.any()) == (live != "none")
     flags = ok != 0
     _check_wipe(lib, heard | 1, flags, ndev, OFFSETS)
+
+
+@pytest.mark.parametrize("R", [1024, 1025, 2048, 3001, 4097])
+@pytest.mark.parametrize("live", ["none", "mixed", "late"])
+def test_rows_past_one_listing(lib, R, live):
+    """Past 2,048 rows (the slots the reference provisions itself) the
+    wide kernels list, fire and wipe the rows 2,048 at a time: no row
+    live, about half, and only rows past the first listing (so blocks
+    that had items in no chunk still arrive); the refutation on listed
+    and unlisted rows of every chunk; on two blocks, last-first; byte
+    for byte against the plain versions, the scratch left zero.  R from
+    1,024 (one listing) to 4,097 (three, the last of one row)."""
+    ndev, L = 2, 45
+    heard, rx, ok, refute = _inputs(R, ndev * L, seed=R + len(live),
+                                    live=0.5)
+    if live == "none":
+        ok = torch.zeros_like(ok)
+    elif live == "late":
+        ok[:min(R - 64, finish.BLOCK_ROWS)] = 0
+        ok[-64:] = 15
+    lib.finish_host_grid(2)
+    try:
+        out, fired = _check_fire(lib, heard, rx, ok, refute, ndev, OFFSETS,
+                                 reverse=True)
+        _check_wipe(lib, heard | 1, ok != 0, ndev, OFFSETS)
+    finally:
+        lib.finish_host_grid(0)
+    assert bool(fired.any()) == (live != "none")
+    # Refutations landed in the last rows too, listed or not.
+    assert torch.equal(out[-50:][ok[-50:] == 0],
+                       _refuted(heard, refute)[-50:][ok[-50:] == 0])
 
 
 @pytest.mark.parametrize("blocks", [1, 2, 5, 0])

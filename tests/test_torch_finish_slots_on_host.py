@@ -200,9 +200,20 @@ LAUNCH = re.compile(r"(\w+_kernel)<<<(.+?), (\S+?), 0,\s*"
                     r"static_cast<cudaStream_t>\(stream\)>>>\(a\);")
 
 # Beyond tests/test_torch_finish_slots.py's cases: 200 rows, seven warps,
-# everything threaded.
-HOST_CASES = dict(CASES, wide=(640, 200, None, 2, True, True, True,
-                               "mixed"))
+# everything threaded; and the slot counts around the one-block form's
+# 1,024 rows (the reference provisions more: crossval.loss_sized_slots,
+# run_nemesis_config), where the wide kernels' threads take rows t,
+# t + 1,024, ...: 1,024 (the last narrow launch), 1,025, 2,048 and a
+# ragged 3,001, full and hot (1,500 of 3,001 slots' rows), 1 and 2
+# shards, with and without the banks and LHM.
+HOST_CASES = dict(
+    CASES, wide=(640, 200, None, 2, True, True, True, "mixed"),
+    slots_1024=(2100, 1024, None, 1, True, True, True, "mixed"),
+    slots_1025=(2100, 1025, None, 2, True, True, True, "mixed"),
+    slots_2048=(4200, 2048, None, 1, False, False, True, "mixed"),
+    slots_3001=(6002, 3001, None, 2, True, True, True, "mixed"),
+    slots_3001_hot=(6002, 3001, 1500, 1, True, False, True, "mixed"))
+WIDE = ("slots_1025", "slots_3001", "slots_3001_hot")
 
 
 @pytest.fixture(scope="module")
@@ -213,8 +224,9 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_STUB)
     body, n = LAUNCH.subn(r"host_launch(\1, dim3(\2), dim3(\3), a);",
                           (_build.CSRC / "finish_slots.cu").read_text())
-    assert n == 1, n  # decide, settle, and record given the holders,
-    # launch through cudaLaunchKernelEx
+    assert n == 2, n  # record's two instances without the holders;
+    # decide, settle, and record given them, launch through
+    # cudaLaunchKernelEx
     assert body.count(WAIT) == 1
     body = body.replace(WAIT, HOST_WAIT)
     src = d / "finish_slots.cpp"
@@ -391,7 +403,8 @@ def test_refused_arguments(on_host):
     p, spec, c, cfg, derived = _case("full_mixed")
     t = _step(p, spec, c, derived)
     with pytest.raises(ValueError, match="H <= S"):
-        finish_slots.finish_decide(cfg._replace(S=2000), t)
+        finish_slots.finish_decide(
+            cfg._replace(S=finish_slots.MAX_ROWS + 1), t)
     with pytest.raises(ValueError, match="slot register"):
         finish_slots.finish_decide(cfg, t._replace(slots=t.slots[:3] + (
             t.slots[3].to(torch.int64),)))
@@ -432,7 +445,7 @@ def _settled(name, on_host):
 
 
 @pytest.mark.parametrize("name", ["full_mixed", "sharded_2",
-                                  "all_expire", "wide"])
+                                  "all_expire", "wide", *WIDE])
 def test_record_behind_the_count_waits(on_host, name):
     """Record with the holders: a programmatic dependent launch that
     writes nothing before its wait and reads the holders only after it.
@@ -490,7 +503,7 @@ def test_record_without_the_banks_is_a_plain_launch(on_host, name):
 
 
 @pytest.mark.parametrize("name", ["full_mixed", "sharded_8_hot", "all_fire",
-                                  "wide"])
+                                  "wide", *WIDE])
 def test_settle_behind_the_fire_waits(on_host, name, monkeypatch):
     """Settle: a programmatic dependent launch that writes nothing before
     its wait and reads ``fired`` only after it.  At the wait

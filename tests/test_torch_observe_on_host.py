@@ -204,14 +204,15 @@ static inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
 ARRIVE = "return __atomic_fetch_add(counter, 1u, __ATOMIC_RELEASE);"
 COUNTED = "host_arrivals.fetch_add(1);\n  " + ARRIVE
 OBSERVE_FORMS = {
-    f"counts_kernel<{w}><<<blocks, kThreads, 0, s>>>(a);":
-        f"host_launch(counts_kernel<{w}>, dim3(blocks), dim3(kThreads), a);"
-    for w in ("true", "false")
+    f"{k}<{w}><<<blocks, kThreads, 0, s>>>(a);":
+        f"host_launch({k}<{w}>, dim3(blocks), dim3(kThreads), a);"
+    for w in ("true", "false") for k in ("counts_kernel", "counts_wide_kernel")
 }
 FINISH_FORMS = {
     f"{k}<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);":
     f"host_launch({k}, dim3(blocks), dim3(kThreads), a);"
-    for k in ("fire_kernel", "wipe_kernel")
+    for k in ("fire_kernel", "wipe_kernel", "fire_wide_kernel",
+              "wipe_wide_kernel")
 }
 BLOCK_TEXT = "constexpr int kThreads = 256;"
 # The card's block, and the small one most cases run with on the host (a
@@ -431,6 +432,39 @@ def test_few_wanted_rows_spread_over_the_grid(counts_lib, rows, ndev):
             assert bool((got.sum(dim=0) > 0)[want].all())
 
 
+@pytest.mark.parametrize("R", [1024, 1025, 2048, 3001])
+def test_rows_past_one_listing(counts_lib, R):
+    """Past 1,024 rows (the slots the reference provisions itself) the
+    wide kernel lists and counts the rows 1,024 at a time, in both forms:
+    every row and about half the rows wanted on one block, and only rows
+    past the first listing on two blocks, in both block orders (a block
+    with items in no chunk still arrives: every block of the grid does);
+    every count against the plain version, the scratch left zero.  R
+    from 1,024 (the narrow kernel's last) to a ragged 3,001 (three
+    listings)."""
+    ndev, N = 2, 2 * 146
+    heard, member, verdict = _inputs(R, N, seed=R)
+    rng = np.random.default_rng(R)
+    half = torch.from_numpy(rng.random(R) < 0.5)
+    late = torch.zeros(R, dtype=torch.bool)
+    late[min(R - 40, observe.BLOCK_ROWS):] = True
+    for v, want, device, reverse in ((None, None, (1, 1), False),
+                                     (verdict, half, (1, 1), False),
+                                     (verdict, late, (2, 1), True),
+                                     (None, late, (2, 1), False)):
+        got, arrived = _check(counts_lib, heard, member, 6, v, want, ndev,
+                              device=device, reverse=reverse)
+        counts_lib.lib.host_device(*device)
+        blocks = counts_lib.lib.heard_counts_blocks(R, N // ndev, ndev,
+                                                    int(v is not None))
+        counts_lib.lib.host_device(3, 2)
+        wide = R > observe.BLOCK_ROWS
+        assert (arrived == blocks) if wide else 0 < arrived <= blocks
+        assert int(got.sum()) > 0
+        if want is not None:
+            assert not got[:, ~want].any()
+
+
 @pytest.mark.parametrize("hold", [False, True])
 def test_no_wanted_row_writes_zeros_without_arrival(counts_lib, hold):
     """A launch that reads no row (``want`` all false, or in the spread's
@@ -502,7 +536,11 @@ def test_grid_is_one_wave(counts_lib):
     assert lib.heard_counts_blocks(2, 1_000_000, 1, 0) == 2 * spans
     lib.host_device(3, 2)
     assert lib.heard_counts_blocks(0, 40, 1, 0) < 0
-    assert lib.heard_counts_blocks(1025, 40, 1, 0) < 0
+    # Past 1,024 rows the wide kernel, on the same wave; past the launch's
+    # ceiling, refused.
+    assert lib.heard_counts_blocks(1025, 40, 1, 0) == 6
+    assert lib.heard_counts_blocks(observe.MAX_ROWS, 40, 1, 1) == 6
+    assert lib.heard_counts_blocks(observe.MAX_ROWS + 1, 40, 1, 0) < 0
 
 
 @pytest.mark.parametrize("R, N, ndev", [(64, 2 * 4096 + 32, 2),
@@ -608,7 +646,8 @@ def test_counts_refuse_what_they_do_not_take(counts_lib):
               scratch=scratch.data_ptr(), R=4, L=64)
     bad = [dict(ndev=0), dict(ndev=65), dict(member=None), dict(out=None),
            dict(scratch=None), dict(scratch=scratch.data_ptr() + 2),
-           dict(R=0), dict(R=1025), dict(L=0), dict(ndev=64, L=2**31 // 64)]
+           dict(R=0), dict(R=observe.MAX_ROWS + 1), dict(L=0),
+           dict(ndev=64, L=2**31 // 64)]
     for change in bad:
         a = dict(ok, **change)
         rc = counts_lib(table, a["ndev"], a["member"], None, None, a["out"],

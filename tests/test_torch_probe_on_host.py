@@ -240,7 +240,20 @@ HOST_CASES = dict(CASES, two_blocks=(
                               obs_lo=100, obs_hi=1400, p_obs_miss=0.3,
                               lhm_max=3), True, 1, 10),
     warp_minima=(2000, 8, 1, 3, 0.1, None, False, 1, 4),
-    wide_slots=(3000, 600, 1, 3, 0.1, None, False, 1, 400))
+    wide_slots=(3000, 600, 1, 3, 0.1, None, False, 1, 400),
+    # Around the narrow kernels' 1,024 staged slots (the reference
+    # provisions more itself: crossval.loss_sized_slots,
+    # run_nemesis_config): 1,024 (the last narrow launch), then the wide
+    # kernels at 1,025, 2,048 and a ragged 3,001 (the slot step's
+    # registers from memory and its free slots in the scratch, the
+    # rearmed rows listed in chunks), free slots and candidates over
+    # several chunks of 1,024, every leg and LHM at 1,025.
+    slots_1024=(4000, 1024, 1, 3, 0.1, None, False, 1, 600),
+    slots_1025=(4000, 1025, 1, 3, 0.1, dict(
+        part_kind="hash", p_ab=0.6, p_ba=0.2, obs_lo=100, obs_hi=3000,
+        p_obs_miss=0.3, lhm_max=3), True, 2, 700),
+    slots_2048=(6000, 2048, 1, 3, 0.1, None, False, 1, 1200),
+    slots_3001=(8000, 3001, 1, 3, 0.1, None, False, 2, 1800))
 # Grids of the merged launch: one block, two, and a block a chunk.
 GRIDS = (1, 2, 1 << 20)
 
@@ -253,7 +266,7 @@ def lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_STUB)
     body, n = LAUNCH.subn(r"host_launch(\1, dim3(\2), dim3(\3), a);",
                           (_build.CSRC / "probe.cu").read_text())
-    assert n == 2, n
+    assert n == 4, n  # each kernel's narrow and wide instance
     src = d / "probe.cpp"
     src.write_text(body)
     so = d / "libprobe.so"
@@ -395,8 +408,8 @@ def test_refused_arguments(on_host):
     t = _tick(p, cfg, ra, st, mf, ns, ndev)
     with pytest.raises(ValueError, match="scratch"):
         probe.probe_lanes_slots(cfg, t._replace(sp=t.sp[:-1]))
-    with pytest.raises(ValueError, match="S <= 1024"):
-        probe.probe_lanes_slots(cfg._replace(S=2000), t)
+    with pytest.raises(ValueError, match=f"S <= {probe.MAX_SLOTS}"):
+        probe.probe_lanes_slots(cfg._replace(S=probe.MAX_SLOTS + 1), t)
     with pytest.raises(ValueError, match="slot register"):
         probe.probe_lanes_slots(cfg, t._replace(slots=t.slots[:5] + (
             t.slots[5].to(torch.int64),)))
@@ -456,6 +469,10 @@ REARM_CASES = {
     "shards_l250_odd_offsets": (2000, 5, 4, 8, 500, 3, "some"),
     "shards_l31": (248, 8, 2, 8, 124, 5, "some"),
     "block_past_n": (243, 8, 3, 1, 200, 0, "some"),
+    # Past the 1,024 rows one listing takes: the rearmed rows listed and
+    # written in chunks.
+    "wide_rows_hold_marks": (6000, 2100, 2, 2, 1000, 3, "some"),
+    "wide_every_row_rearmed": (3000, 3001, 3, 1, 0, 0, "all"),
 }
 
 
